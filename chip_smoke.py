@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sink_attention_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # build, kernel checks, serving
+    python3 chip_smoke.py    # build, kernel checks, serving, training
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
      the build time and ptxas' register / shared-memory / spill lines;
   2. kernels: run each kernel and its plain PyTorch version on the card at
-     the main path's shapes and at the headline attention shape, print the
+     the main paths' shapes and at the headline attention shape, print the
      max abs error against its tolerance and the times (kernel, plain,
      one PyTorch library call as a yardstick) beside the least time the
-     card could take (its bound);
+     card could take (its bound); the backward kernels also run twice on
+     the same inputs and must agree bit for bit;
   3. serving: gpt-oss-20b at full width, 24 layers, bf16, random weights
      from a seeded generator: 4 requests of 1024 prompt tokens, 32 new
      tokens each, through greedy_generate, with the kernels' launch counts
      and the prefill and decode times; then every layer's attention
      against the plain version on the live activations, the logits against
      plain-attention prefill and the decode against teacher forcing (see
-     ``serve``).
+     ``serve``);
+  4. training: gpt-oss-20b at full width with 4 of its 24 layers, bf16,
+     random weights: 3 SGD steps of make_train_step(remat=True) on 1 x 4096
+     tokens, with the launch counts, per-step loss, time and tokens/s, the
+     forward/backward split, peak memory and a profile of one step; then
+     every layer's attention gradients, kernels against plain on the live
+     activations, and the end-to-end gradients against plain attention
+     and a noise control (see ``train``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -27,6 +35,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -36,6 +45,10 @@ import torch
 FLASH_TOL = 2e-2   # bf16 output: ~2^-8 relative rounding on O(1) values
 LSE_TOL = 1e-3     # fp32 LSE from the same bf16 inputs
 DECODE_TOL = 2e-2  # bf16 output
+# bf16 gradients, of max |plain|: one bf16 rounding is 2^-9 of a value,
+# and the kernels round P and dS to bf16 as MMA operands
+BWD_TOL = 2e-2
+MIN_COS = 0.9999   # kernel against plain, per layer and per kernel check
 
 
 def log(msg: str) -> None:
@@ -157,6 +170,107 @@ def check_decode(dev, B, H_q, H_kv, D, ns, W, prefill_len, appends, gen):
     return res
 
 
+def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
+              use_aux=True):
+    """dQ and dK/dV kernels vs flash_bwd_plain at one shape, on the same
+    (q, k, v, dO, lse, delta); ``halo`` garbage slots before the KV put the
+    chunk at kv_offset = -halo. Returns rows "flash_dq", "flash_dkdv" and
+    "flash_bwd" (the two together, against SDPA's backward)."""
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.ops.reference import sink_window_mask
+    from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
+                                                attention_pairs, time_cuda)
+
+    geom = (ns, W, 0, -halo)
+
+    def inputs(n):
+        mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+            torch.bfloat16)
+        q, do = mk(B, H_q, n, D), mk(B, H_q, n, D)
+        k, v = mk(B, H_kv, n + halo, D), mk(B, H_kv, n + halo, D)
+        k[:, :, :halo] = 7.7
+        v[:, :, :halo] = 7.7
+        aux = (torch.randn(H_q, generator=gen, device=dev) if use_aux
+               else None)
+        o, lse = flash.flash_fwd_kernel(q, k, v, aux, *geom)
+        delta = (do.float() * o.float()).sum(-1)
+        return q, k, v, do, lse, delta
+
+    x = inputs(N)
+    dq = flash.flash_dq_kernel(*x, *geom)
+    dk, dv = flash.flash_dkdv_kernel(*x, *geom)
+    ref = flash.flash_bwd_plain(*x, *geom)
+    dq2 = flash.flash_dq_kernel(*x, *geom)
+    dk2, dv2 = flash.flash_dkdv_kernel(*x, *geom)
+    torch.cuda.synchronize()
+    shape = (f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
+             + (" s_aux" if use_aux else "")
+             + (f" kv_offset=-{halo}" if halo else ""))
+    rows = {}
+    for name, got, refs, again in (
+            ("flash_dq", (dq,), ref[:1], (dq2,)),
+            ("flash_dkdv", (dk, dv), ref[1:], (dk2, dv2))):
+        errs = [float((g.float() - r.float()).abs().max()) for g, r in
+                zip(got, refs)]
+        rel = max(_grad_compare(g, r)["rel_err"] for g, r in zip(got, refs))
+        cos = min(cosine(g, r) for g, r in zip(got, refs))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        halo_zero = not halo or not any(bool(g[:, :, :halo].any())
+                                        for g in got if g.shape[2] > N)
+        rows[name] = {
+            "shape": shape, "max_abs_err": max(errs), "rel_err": rel,
+            "cos": cos, "bitwise_repeat": same, "halo_zero": halo_zero,
+            "ok": (rel <= BWD_TOL and cos >= MIN_COS and same and halo_zero
+                   and all(bool(torch.isfinite(g.float()).all())
+                           for g in got))}
+    del dq, dk, dv, ref, dq2, dk2, dv2
+
+    if time_n is not None and time_n != N:
+        x = inputs(time_n)
+        for r in rows.values():
+            r["timed_N"] = time_n
+    n = x[0].shape[2]
+    n_kv = n + halo
+    rows["flash_dq"]["ms"] = time_cuda(
+        lambda: flash.flash_dq_kernel(*x, *geom), iters=10)
+    rows["flash_dkdv"]["ms"] = time_cuda(
+        lambda: flash.flash_dkdv_kernel(*x, *geom), iters=10)
+    plain_ms = time_cuda(lambda: flash.flash_bwd_plain(*x, *geom), iters=2,
+                         warmup=1)
+    q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
+                   for i, t in enumerate(x[:4]))
+    mask = sink_window_mask(n, n_kv, ns, W, 0, -halo, device=dev)
+    mask &= torch.arange(n_kv, device=dev) >= halo
+    out = _sdpa(q, k, v, mask)
+    library_ms = time_cuda(lambda: torch.autograd.grad(
+        out, (q, k, v), do, retain_graph=True), iters=5)
+    del out, q, k, v, do
+
+    pairs = B * H_q * attention_pairs(n, n_kv, ns, W, 0, -halo)
+    q_bytes = 2 * B * H_q * n * D        # one bf16 [B, H_q, n, D] tensor
+    kv_bytes = 2 * B * H_kv * n_kv * D   # one bf16 [B, H_kv, n_kv, D]
+    row_bytes = 8 * B * H_q * n          # lse and delta, fp32
+    work = {  # FLOPs per visible pair (2 D per product), bytes moved
+        "flash_dq": (6 * D, 3 * q_bytes + 2 * kv_bytes + row_bytes),
+        "flash_dkdv": (8 * D, 2 * q_bytes + 4 * kv_bytes + row_bytes),
+        "flash_bwd": (10 * D, 5 * q_bytes + 4 * kv_bytes + row_bytes)}
+    rows["flash_bwd"] = {
+        "shape": shape, "ms": rows["flash_dq"]["ms"] +
+        rows["flash_dkdv"]["ms"], "ok": True,
+        "max_abs_err": max(rows[k]["max_abs_err"]
+                           for k in ("flash_dq", "flash_dkdv"))}
+    for name, (per_pair, nbytes) in work.items():
+        r = rows[name]
+        if time_n is not None and time_n != N:
+            r["timed_N"] = time_n
+        t_ops = pairs * per_pair / H100_PEAK_BF16 * 1e3
+        t_bytes = nbytes / H100_HBM_BW * 1e3
+        r.update(plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+    return rows
+
+
 def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     flash_main = [check_flash(dev, 4, 64, 8, 1024, 64, 0, W, gen)
@@ -168,18 +282,34 @@ def kernel_phase(dev):
     decode_main = [check_decode(dev, 4, 64, 8, 64, 0, 128, 1024, 16, gen),
                    check_decode(dev, 4, 64, 8, 64, 0, 1056, 1024, 16, gen)]
     decode_head = check_decode(dev, 1, 32, 8, 128, 4, 4096, 8192, 1, gen)
-    for name, rows in (("flash_fwd", flash_main + [flash_head]),
-                       ("decode", decode_main + [decode_head])):
-        for r in rows:
+    # training path: gpt-oss-20b's sliding (W=128) and full layers at 4096
+    # tokens; the headline shape; a chunk behind a 256-slot garbage halo
+    bwd_main = [check_bwd(dev, 1, 64, 8, 4096, 64, 0, W, gen)
+                for W in (128, 4096)]
+    bwd_head = check_bwd(dev, 1, 32, 8, 4096, 128, 4, 4096, gen,
+                         time_n=8192)
+    bwd_chunk = check_bwd(dev, 1, 64, 8, 1024, 64, 4, 256, gen, halo=256,
+                          use_aux=False)
+    res = {"flash_fwd": flash_main, "decode": decode_main,
+           "flash_fwd_headline": flash_head, "decode_headline": decode_head}
+    for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
+        res[name] = [r[name] for r in bwd_main]
+        res[name + "_headline"] = bwd_head[name]
+        res[name + "_chunk"] = bwd_chunk[name]
+    for key, rows in res.items():
+        name = key.replace("_headline", "").replace("_chunk", "")
+        for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
                 + (f", timed at N={r['timed_N']}" if "timed_N" in r else "")
                 + f"]: max_abs_err={r['max_abs_err']:.3e}"
                 + (f" lse_err={r['lse_err']:.3e}" if "lse_err" in r else "")
+                + (f" rel_err={r['rel_err']:.3e} cos={r['cos']:.7f} "
+                   f"bitwise_repeat={r['bitwise_repeat']}"
+                   if "cos" in r else "")
                 + f" ok={r['ok']} ms={r['ms']:.4f} plain_ms="
                 f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
-    return {"flash_fwd": flash_main, "decode": decode_main,
-            "flash_fwd_headline": flash_head, "decode_headline": decode_head}
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -209,6 +339,15 @@ def _attn_compare(o: torch.Tensor, p: torch.Tensor) -> dict:
             "cos": cosine(o, p)}
 
 
+def _grad_compare(g: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Max abs error of a gradient, that error relative to the largest
+    reference value (gradients have no natural unit), and the cosine."""
+    err = float((g.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    return {"err": err, "rel_err": err / scale if scale > 0 else err,
+            "cos": cosine(g, ref)}
+
+
 def _noisy(attn_impl, seed: int):
     """attn_impl with its output scaled by (1 + e), e ~ N(0, 2^-9): a
     perturbation the size of one bf16 rounding, the control that says how
@@ -225,38 +364,45 @@ def _noisy(attn_impl, seed: int):
     return attn
 
 
-def profile_decode_step(params, cfg, tok, caches, position):
-    """One decode step under torch.profiler: wall ms, device ms and the
-    device time by kernel (top 10), or None where no device time shows."""
+def profile_device(fn, kernels, shapes=False):
+    """``fn()`` once under torch.profiler: wall ms, device ms, the device
+    idle share, the device ms of each kernel whose name holds one of
+    ``kernels``, and the device time by kernel and by the PyTorch op that
+    launched it (top 10 each; with ``shapes``, ops apart by input shapes,
+    which costs host time); None where no device time shows."""
     from torch.profiler import ProfilerActivity, profile
-    from sink_attention_tpu_torch.models import forward_decode
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+                 record_shapes=shapes, acc_events=True) as prof:
         t0 = time.perf_counter()
-        forward_decode(params, cfg, tok, caches, position)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []  # the device's own events (kernels, copies), not the ops
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    rows, ops = [], []  # the device's own events; the ops' device time
+    for ev in prof.key_averages(group_by_input_shape=shapes):
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((ev.key, dev_us / 1e3, ev.count))
+        if dev_us <= 0:
+            continue
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key[:80], dev_us / 1e3, ev.count))
+        elif ev.key.startswith("aten::"):  # not the runtime's own events
+            name = ev.key + (f" {ev.input_shapes}" if shapes else "")
+            ops.append((name[:160], dev_us / 1e3, ev.count))
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
+    ops.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    ours = sum(t for n, t, _ in rows
-               if "decode_partial" in n or "decode_merge" in n)
     return {"wall_ms": wall, "device_ms": total,
             "device_idle_share": max(0.0, 1.0 - total / wall),
-            "decode_kernel_ms": ours,
-            "top": [{"name": n[:80], "ms": t, "calls": c}
-                    for n, t, c in rows[:10]]}
+            "kernel_ms": {k: sum(t for n, t, _ in rows if k in n)
+                          for k in kernels},
+            "top": [{"name": n, "ms": t, "calls": c}
+                    for n, t, c in rows[:10]],
+            "top_ops": [{"name": n, "ms": t, "calls": c}
+                        for n, t, c in ops[:10]]}
 
 
 def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
@@ -360,8 +506,10 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
             (replay == toks).float().mean())
         if cuda:
             report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            report["decode_step_profile"] = profile_decode_step(
-                params, cfg, toks[:, -1:], caches, prompt_len + new_tokens - 1)
+            report["decode_step_profile"] = profile_device(
+                lambda: forward_decode(params, cfg, toks[:, -1:], caches,
+                                       prompt_len + new_tokens - 1),
+                ("decode_partial", "decode_merge"))
         del caches
 
         # Kernel prefill (checked layer by layer) against plain attention
@@ -435,6 +583,214 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
 
 
 # ---------------------------------------------------------------------------
+# Phase 4: training
+# ---------------------------------------------------------------------------
+
+
+class _PlainAttention(torch.autograd.Function):
+    """Sink attention through the kernels' plain versions, forward and
+    backward, on any device: the reference path of the end-to-end check
+    (its memory stays bounded at 4096 tokens, unlike autograd through the
+    plain forward)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s_aux, num_sink, window_size):
+        from sink_attention_tpu_torch.ops import flash
+        o, lse = flash.flash_fwd_plain(q, k, v, s_aux, num_sink, window_size)
+        ctx.save_for_backward(q, k, v, s_aux, o, lse)
+        ctx.geometry = (num_sink, window_size)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from sink_attention_tpu_torch.ops import flash
+        q, k, v, s_aux, o, lse = ctx.saved_tensors
+        grads = flash.attention_backward(
+            q, k, v, s_aux, o, lse, do, None, *ctx.geometry,
+            dqkv=flash.flash_bwd_plain)
+        return (*grads, None, None)
+
+
+def plain_attn(q, k, v, num_sink, window_size, s_aux):
+    return _PlainAttention.apply(q, k, v, s_aux, num_sink, window_size)
+
+
+def _attn_grads(q, k, v, s_aux, do, num_sink, window_size, plain):
+    """(dq, dk, dv, ds_aux) of one layer's attention from its inputs and
+    its output's cotangent: forward and backward through the kernels (the
+    plain versions on the CPU), or through the plain versions."""
+    from sink_attention_tpu_torch.ops import flash
+    geom = (num_sink, window_size)
+    if plain:
+        o, lse = flash.flash_fwd_plain(q, k, v, s_aux, *geom)
+        return flash.attention_backward(q, k, v, s_aux, o, lse, do, None,
+                                        *geom, dqkv=flash.flash_bwd_plain)
+    o, lse = flash.sink_flash_attention_with_lse(q, k, v, *geom, s_aux)
+    return flash.attention_backward(q, k, v, s_aux, o, lse, do, None, *geom)
+
+
+def _elapsed_ms(fn, cuda):
+    """(fn(), ms): CUDA events on the card, the host clock on the CPU."""
+    if not cuda:
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
+          dtype=torch.bfloat16):
+    """``steps`` SGD steps of make_train_step(remat=True) on one seeded
+    sequence of ``seq_len`` + 1 tokens, with weights from a generator
+    seeded 0, then the checks. Returns (report, errors); the launch counts
+    in the report cover the ``steps`` steps alone.
+
+    Checks (each failure is an error):
+    * every loss finite;
+    * every layer's attention gradients (dq, dk, dv, ds_aux) on the live
+      activations and output cotangents of one step, kernels against the
+      plain versions (forward and backward): cosine >= MIN_COS, max abs
+      error <= BWD_TOL x max |plain|;
+    * the per-token losses of one step (the scalar loss is their mean) and
+      the gradients of lm_head, layers[0].attn.sinks, layers[0].attn.wq
+      and layers[1].attn.wk, kernel path against plain attention: distance
+      from cosine 1 at most twice that of a control whose attention output
+      carries bf16-sized noise (random weights make this model chaotic in
+      bf16, see PERF.md; the scalar loss alone is one draw of that chaos,
+      too few to judge by).
+    """
+    from sink_attention_tpu_torch.models import forward_prefill, init_params
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.parallel import (cross_entropy_loss,
+                                                   make_train_step,
+                                                   param_leaves)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    kernels = {"flash_fwd": flash.flash_fwd_kernel,
+               "flash_dq": flash.flash_dq_kernel,
+               "flash_dkdv": flash.flash_dkdv_kernel}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (1, seq_len + 1),
+                          generator=gen, device=dev)
+    opt = torch.optim.SGD(param_leaves(params), lr=lr)
+    step = make_train_step(cfg, opt, remat=True)
+    if cuda:
+        torch.cuda.synchronize()
+    report = {"init_s": time.perf_counter() - t0,
+              "params": sum(t.numel() for t in param_leaves(params))}
+    errors = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    for fn in kernels.values():
+        fn.launches = 0
+    report["steps"] = []
+    for _ in range(steps):
+        loss, ms = _elapsed_ms(lambda: step(params, batch), cuda)
+        report["steps"].append({"loss": float(loss), "ms": ms,
+                                "tokens_per_s": seq_len / (ms / 1e3)})
+    report["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    report["losses"] = [r["loss"] for r in report["steps"]]
+    if not all(math.isfinite(x) for x in report["losses"]):
+        errors.append(f"training losses not finite: {report['losses']}")
+
+    # One more step, timed by part.
+    opt.zero_grad(set_to_none=True)
+    loss, report["forward_ms"] = _elapsed_ms(
+        lambda: cross_entropy_loss(params, cfg, batch, remat=True), cuda)
+    _, report["backward_ms"] = _elapsed_ms(loss.backward, cuda)
+    _, report["optimizer_ms"] = _elapsed_ms(opt.step, cuda)
+    del loss
+    if cuda:
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        report["step_profile"] = profile_device(
+            lambda: step(params, batch),
+            ("sink_fwd_kernel", "sink_dq_kernel", "sink_dkdv_kernel"),
+            shapes=True)
+    opt.zero_grad(set_to_none=True)
+
+    # The kernel path, recording each layer's attention inputs and output
+    # cotangent; then plain attention, and plain attention with noise.
+    records = []
+
+    def recording(q, k, v, num_sink, window_size, s_aux):
+        o = flash.sink_flash_attention(q, k, v, num_sink, window_size, s_aux)
+        rec = {"x": [t.detach() for t in (q, k, v)], "geom": (
+            num_sink, window_size), "aux": None if s_aux is None else
+            s_aux.detach()}
+        o.register_hook(lambda g: rec.__setitem__("do", g.detach()))
+        records.append(rec)
+        return o
+
+    lp0, lp1 = params["layers"][0]["attn"], params["layers"][1]["attn"]
+    names = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
+             "layers[1].attn.wk")
+    targets = (params["lm_head"], lp0["sinks"], lp0["wq"], lp1["wk"])
+
+    def grads_of(attn_impl):
+        """(per-token losses, the gradients of their mean - the training
+        loss - with respect to ``targets``)."""
+        logits, _ = forward_prefill(params, cfg, batch[:, :-1],
+                                    attn_impl=attn_impl)
+        losses = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            batch[:, 1:].reshape(-1), reduction="none")
+        del logits
+        return losses.detach(), torch.autograd.grad(losses.mean(), targets)
+
+    paths = {"kernel": grads_of(recording), "plain": grads_of(plain_attn),
+             "control": grads_of(_noisy(plain_attn, 7))}
+
+    stats = []
+    for rec in records:
+        q, k, v = rec["x"]
+        got = _attn_grads(q, k, v, rec["aux"], rec["do"], *rec["geom"],
+                          plain=False)
+        ref = _attn_grads(q, k, v, rec["aux"], rec["do"], *rec["geom"],
+                          plain=True)
+        for name, a, b in zip(("dq", "dk", "dv", "ds_aux"), got, ref):
+            if b is not None:
+                stats.append({"name": name, **_grad_compare(a, b)})
+    report["layers_checked"] = len(records)
+    del records
+    report["layer_min_cos"] = min(s["cos"] for s in stats)
+    report["layer_min_cos_by_grad"] = {
+        n: min(s["cos"] for s in stats if s["name"] == n)
+        for n in ("dq", "dk", "dv", "ds_aux") if any(
+            s["name"] == n for s in stats)}
+    worst_rel = max(s["rel_err"] for s in stats)
+    report["layer_max_rel_err"] = worst_rel
+    if report["layer_min_cos"] < MIN_COS or worst_rel > BWD_TOL:
+        errors.append(f"attention gradients, kernels vs plain on the live "
+                      f"path: min cosine {report['layer_min_cos']:.7f}, max "
+                      f"error {worst_rel:.3e} of the largest value")
+
+    losses_p, grads_p = paths["plain"]
+    report["end_to_end"] = e2e = {"plain_loss": float(losses_p.mean())}
+    for path in ("kernel", "control"):
+        losses_x, grads_x = paths[path]
+        e2e[path] = {"loss": float(losses_x.mean()),
+                     "token_losses": 1.0 - cosine(losses_x, losses_p)}
+        e2e[path].update({n: 1.0 - cosine(a, b) for n, a, b in
+                          zip(names, grads_x, grads_p)})
+    for n in ("token_losses",) + names:
+        if e2e["kernel"][n] > 2.0 * e2e["control"][n]:
+            errors.append(f"{n}, kernel vs plain attention: 1 - "
+                          f"cosine {e2e['kernel'][n]:.3e}, control "
+                          f"{e2e['control'][n]:.3e}")
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -492,24 +848,54 @@ def main() -> int:
             errors.append(f"{name} launched {launches[name]} times in "
                           f"greedy_generate, expected {n}")
 
-    sources = {"flash_fwd": ("sink_attention_tpu_torch/ops/csrc/flash_fwd.cu",
-                             "sink_attention_tpu/ops/flash.py:280"),
-               "decode": ("sink_attention_tpu_torch/ops/csrc/decode.cu",
-                          "sink_attention_tpu/ops/decode.py:89")}
+    torch.cuda.empty_cache()
+
+    # 4. training
+    tcfg = ModelConfig.gpt_oss_20b(num_layers=4)
+    treport, terr = train(tcfg, dev)
+    errors += terr
+    log("training gpt-oss-20b (4 of 24 layers at full width, bf16, 1 x 4096 "
+        "tokens, SGD, remat): " + json.dumps(treport))
+    # per step with remat: each layer's forward twice (the step and its
+    # recompute in the backward), its dQ and dK/dV once
+    steps = len(treport["steps"])
+    want = {"flash_fwd": steps * 2 * tcfg.num_layers,
+            "flash_dq": steps * tcfg.num_layers,
+            "flash_dkdv": steps * tcfg.num_layers}
+    for name, n in want.items():
+        if treport["launches"][name] != n:
+            errors.append(f"{name} launched {treport['launches'][name]} "
+                          f"times in {steps} training steps, expected {n}")
+
+    csrc = "sink_attention_tpu_torch/ops/csrc/"
+    sources = {  # name: (source, TPU kernel it replaces, main-path launches)
+        "flash_fwd": (csrc + "flash_fwd.cu",
+                      "sink_attention_tpu/ops/flash.py:280",
+                      launches["flash_fwd"]),
+        "decode": (csrc + "decode.cu", "sink_attention_tpu/ops/decode.py:89",
+                   launches["decode"]),
+        "flash_dq": (csrc + "flash_bwd.cu",
+                     "sink_attention_tpu/ops/flash.py:451",
+                     treport["launches"]["flash_dq"]),
+        "flash_dkdv": (csrc + "flash_bwd.cu",
+                       "sink_attention_tpu/ops/flash.py:576",
+                       treport["launches"]["flash_dkdv"])}
     kernels = []
-    for name, (src, repl) in sources.items():
+    for name, (src, repl, n_launch) in sources.items():
         rows = kern[name]  # the main path's two shapes, one launch each
         mean = lambda key: sum(r[key] for r in rows) / len(rows)
         bound_by = {r["bound_by"] for r in rows}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": repl,
-            "launches": launches[name],
+            "launches": n_launch,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": mean("ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": bound_by.pop() if len(bound_by) == 1 else
             max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": mean("library_ms")})
+    # the forward kernel also runs on the training path
+    kernels[0]["launches_training"] = treport["launches"]["flash_fwd"]
 
     if errors:
         for e in errors:

@@ -2,18 +2,22 @@
 
 Sink flash attention (causal attention with always-attended sink tokens, a
 sliding window and the gpt-oss ``s_aux`` sink logit) on hand-written CUDA
-kernels for the NVIDIA H100, with the rolling sink KV cache, the gpt-oss
-model and greedy serving around it. It imports nothing of the JAX package;
+kernels for the NVIDIA H100 (forward, dQ and dK/dV, decode), with the
+rolling sink KV cache, the gpt-oss model, greedy serving and single-device
+training around it. It imports nothing of the JAX package;
 the JAX package is the reference its tests hold it to.
 
 Subpackages (the JAX package's layout):
 
-- ``ops``     -- eager oracle, prefill and decode attention (CUDA kernels,
-                 each with its plain PyTorch version)
-- ``cache``   -- rolling sink KV cache (mutable)
-- ``models``  -- gpt-oss / dense model family, parameter carry-over from JAX
-- ``serving`` -- greedy generation
-- ``utils``   -- device selection, CUDA-event timing
+- ``ops``      -- eager oracle, differentiable prefill attention and
+                  decode attention (CUDA kernels, each with its plain
+                  PyTorch version)
+- ``cache``    -- rolling sink KV cache (mutable)
+- ``models``   -- gpt-oss / dense model family, parameter carry-over from
+                  JAX
+- ``serving``  -- greedy generation
+- ``parallel`` -- the training step (one device so far)
+- ``utils``    -- device selection, CUDA-event timing
 """
 
 __version__ = "0.1.0"
@@ -21,8 +25,8 @@ __version__ = "0.1.0"
 from .cache import SinkKVCache
 from .ops import (eager_sink_attention, merge_partials,
                   sink_decode_attention, sink_decode_attention_cached,
-                  sink_flash_attention, sink_flash_attention_with_lse,
-                  sink_window_mask)
+                  sink_flash_attention, sink_flash_attention_chunk,
+                  sink_flash_attention_with_lse, sink_window_mask)
 
 __all__ = [
     "__version__",
@@ -30,6 +34,7 @@ __all__ = [
     "sink_window_mask",
     "sink_flash_attention",
     "sink_flash_attention_with_lse",
+    "sink_flash_attention_chunk",
     "merge_partials",
     "sink_decode_attention",
     "sink_decode_attention_cached",

@@ -1,11 +1,13 @@
 from .config import ModelConfig
 from .convert import params_from_jax
-from .model import (apply_rope, forward_decode, forward_prefill, init_params,
-                    make_caches, moe, rms_norm, rope_cos_sin)
+from .model import (apply_rope, decoder_layer, forward_decode,
+                    forward_prefill, init_params, make_caches, moe, rms_norm,
+                    rope_cos_sin)
 
 __all__ = [
     "ModelConfig",
     "init_params",
+    "decoder_layer",
     "forward_prefill",
     "forward_decode",
     "make_caches",

@@ -14,8 +14,9 @@ Semantics as in the JAX model:
 * chunk-convention RoPE with optional YaRN scaling.
 
 Dtype policy (as in JAX): norms and rope in fp32, the MoE combine
-accumulated in fp32. Prefill attention runs the CUDA prefill kernel,
-decode the CUDA decode kernel over the rolling sink cache.
+accumulated in fp32. Prefill attention runs the CUDA prefill kernel (and,
+when training, the dQ and dK/dV kernels in the backward), decode the CUDA
+decode kernel over the rolling sink cache.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..cache import SinkKVCache
 from ..ops import sink_decode_attention_cached, sink_flash_attention
@@ -32,7 +34,7 @@ from .config import ModelConfig
 
 __all__ = ["init_params", "rms_norm", "rope_cos_sin", "apply_rope", "moe",
            "moe_routing", "moe_experts", "dense_mlp", "mlp_block",
-           "forward_prefill", "forward_decode", "make_caches"]
+           "decoder_layer", "forward_prefill", "forward_decode", "make_caches"]
 
 ALPHA = 1.702  # gpt-oss glu activation alpha
 LIMIT = 7.0    # gpt-oss activation clamp
@@ -276,37 +278,68 @@ def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
+                  window: int, attn_impl) -> torch.Tensor:
+    """One transformer block (attention + MLP) on [B, N, H] activations;
+    ``attn_impl(q, k, v, num_sink=, window_size=, s_aux=)``."""
+    return _block(lp, cfg, x, cos, sin, lambda q, k, v: attn_impl(
+        q, k, v, num_sink=cfg.num_sink_tokens, window_size=window,
+        s_aux=_s_aux(lp, cfg)))
+
+
+def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
+           attend) -> torch.Tensor:
+    """The block around ``attend(q, k, v) -> attn``: norms, QKV, rope,
+    residuals, MLP."""
+    h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
+    q, k, v = _qkv(lp["attn"], cfg, h)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    x = x + _out_proj(lp["attn"], cfg, attend(q, k, v))
+    h = rms_norm(x, lp["ln2"], cfg.rms_norm_eps)
+    return x + mlp_block(lp["mlp"], cfg, h)
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    return x @ params["lm_head"].to(x.dtype)
+
+
 def _layer_walk(params: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
                 attn_step) -> torch.Tensor:
     """The decoder-layer walk shared by every forward. ``attn_step(li, lp,
     q, k, v) -> attn`` supplies one layer's attention (and any cache
     update). Returns logits [B, T, V]."""
     for li, lp in enumerate(params["layers"]):
-        h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-        q, k, v = _qkv(lp["attn"], cfg, h)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        attn = attn_step(li, lp, q, k, v)
-        x = x + _out_proj(lp["attn"], cfg, attn)
-        h = rms_norm(x, lp["ln2"], cfg.rms_norm_eps)
-        x = x + mlp_block(lp["mlp"], cfg, h)
-    x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+        x = _block(lp, cfg, x, cos, sin,
+                   lambda q, k, v, li=li, lp=lp: attn_step(li, lp, q, k, v))
+    return _head(params, cfg, x)
 
 
 def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                     caches: Optional[List[SinkKVCache]] = None,
-                    attn_impl=None):
+                    attn_impl=None, remat: bool = False):
     """Full-sequence forward. input_ids: [B, N] -> (logits [B, N, V],
     caches). With ``caches`` (one SinkKVCache per layer), each layer's KV
     is stored in them for decode. ``attn_impl(q, k, v, num_sink=,
     window_size=, s_aux=)`` overrides the attention (default: the CUDA
-    prefill kernel on the card)."""
+    kernels on the card). ``remat=True`` runs each decoder layer under
+    activation checkpointing (``torch.utils.checkpoint``, non-reentrant):
+    the backward recomputes the layer's activations instead of keeping
+    them, one more forward of work for memory O(1) in depth, as
+    ``jax.checkpoint`` does in the JAX package. Ignored with ``caches``."""
     B, N = input_ids.shape
     x = params["embed"][input_ids]
     cos, sin = rope_cos_sin(cfg, torch.arange(N, device=input_ids.device))
     if attn_impl is None:
         attn_impl = sink_flash_attention
+
+    if remat and caches is None:
+        for li, lp in enumerate(params["layers"]):
+            x = torch.utils.checkpoint.checkpoint(
+                decoder_layer, lp, cfg, x, cos, sin,
+                cfg.window_for_layer(li, N), attn_impl, use_reentrant=False)
+        return _head(params, cfg, x), None
 
     def attn_step(li, lp, q, k, v):
         if caches is not None:

@@ -1,9 +1,10 @@
-"""Attention ops: the eager oracle and the CUDA-kernel-backed forward and
-decode attention (each kernel with its plain PyTorch version)."""
+"""Attention ops: the eager oracle and the CUDA-kernel-backed attention
+(differentiable prefill and chunk attention, decode), each kernel with its
+plain PyTorch version."""
 
 from .decode import sink_decode_attention, sink_decode_attention_cached
 from .flash import (merge_partials, sink_flash_attention,
-                    sink_flash_attention_with_lse)
+                    sink_flash_attention_chunk, sink_flash_attention_with_lse)
 from .reference import eager_sink_attention, sink_window_mask
 
 __all__ = [
@@ -11,6 +12,7 @@ __all__ = [
     "sink_window_mask",
     "sink_flash_attention",
     "sink_flash_attention_with_lse",
+    "sink_flash_attention_chunk",
     "merge_partials",
     "sink_decode_attention",
     "sink_decode_attention_cached",

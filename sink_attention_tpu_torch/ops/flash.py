@@ -1,18 +1,27 @@
-"""Sink flash attention forward (prefill) on a hand-written CUDA kernel.
+"""Differentiable sink flash attention on hand-written CUDA kernels.
 
-Counterpart of ``sink_attention_tpu/ops/flash.py``'s forward. The kernel is
-``csrc/flash_fwd.cu`` (it replaces the TPU kernel ``_fwd_kernel``); beside
-it sits its plain PyTorch version, :func:`flash_fwd_plain`. A CPU tensor
-takes the plain version; a CUDA tensor launches the kernel or raises.
+Counterpart of ``sink_attention_tpu/ops/flash.py``. Three kernels, each
+beside its plain PyTorch version:
 
-The kernel visits, for each 64-row query block, only the KV blocks of two
-ranges: the blocks holding the sink columns, then the window blocks after
-them. :func:`fwd_kv_ranges` computes that table on the host (the Python
-mirror of the JAX package's ``_build_fwd_schedule``), so the CPU tests can
-check it although the kernel cannot run there.
+* ``csrc/flash_fwd.cu`` (replaces the TPU kernel ``_fwd_kernel``): O and
+  LSE; plain version :func:`flash_fwd_plain`;
+* ``csrc/flash_bwd.cu``, ``sink_dq_bf16`` (replaces ``_dq_kernel``) and
+  ``sink_dkdv_bf16`` (replaces ``_dkdv_kernel``): dQ, and dK/dV summed over
+  the GQA group; plain version of the pair :func:`flash_bwd_plain`.
 
-Only the forward is ported: training through the kernel needs the dQ and
-dK/dV kernels, which are not ported yet.
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
+or raises. :class:`_SinkAttention` ties them into one autograd function
+(the JAX package's ``custom_vjp``): the backward's delta preprocess and
+``ds_aux`` epilogue are plain torch, as they are jnp ops outside Pallas in
+JAX.
+
+The forward and dQ kernels visit, for each 64-row query block, only the KV
+blocks of two ranges: the blocks holding the sink columns, then the window
+blocks after them (:func:`fwd_kv_ranges`, the Python mirror of the JAX
+package's ``_build_fwd_schedule``). The dK/dV kernel visits, for each
+64-slot KV block, the query blocks of one range (:func:`dkdv_q_ranges`,
+the mirror of ``_dkdv_q_step``). The tables are built on the host, so the
+CPU tests check them although the kernels cannot run there.
 """
 
 from __future__ import annotations
@@ -28,14 +37,17 @@ from . import _build
 from .reference import _eager_attend, sink_window_mask
 
 __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
-           "merge_partials", "flash_fwd_kernel", "flash_fwd_plain",
-           "fwd_kv_ranges"]
+           "sink_flash_attention_chunk", "merge_partials",
+           "attention_backward", "flash_fwd_kernel", "flash_fwd_plain",
+           "flash_dq_kernel", "flash_dkdv_kernel", "flash_bwd_plain",
+           "fwd_kv_ranges", "dkdv_q_ranges"]
 
-BM = 64  # query rows per CTA; must match csrc/flash_fwd.cu
-BN = 64  # keys per KV tile; must match csrc/flash_fwd.cu
+BM = 64  # query rows per tile; must match csrc/flash_fwd.cu, flash_bwd.cu
+BN = 64  # keys per KV tile; must match csrc/flash_fwd.cu, flash_bwd.cu
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
+_PLAIN_ROWS = 1024  # query rows per chunk of the plain versions
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -86,6 +98,50 @@ def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
                                  int(window), int(q_offset), int(kv_offset))
 
 
+@functools.lru_cache(maxsize=256)
+def _dkdv_q_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset):
+    n_q_blocks = _cdiv(n_q, BM)
+    table = np.zeros((_cdiv(n_kv, BN), 2), np.int32)
+    for ni in range(table.shape[0]):
+        c_lo = kv_offset + ni * BN                       # global columns
+        c_hi = kv_offset + min((ni + 1) * BN, n_kv) - 1  # of the real slots
+        if c_hi < 0:
+            continue  # all before the sequence start: read by no query
+        c_lo = max(c_lo, 0)
+        b0 = min(max((c_lo - q_offset) // BM, 0), n_q_blocks)  # causal
+        if num_sink > 0 and c_lo < num_sink:
+            b1 = n_q_blocks  # sink columns: every later query reads them
+        else:  # the last query whose window reaches column c_hi
+            b1 = min((c_hi + window - 1 - q_offset) // BM + 1, n_q_blocks)
+        table[ni] = (b0, max(b1, b0))
+    table.setflags(write=False)
+    return table
+
+
+def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
+                  q_offset: int = 0, kv_offset: int = 0) -> np.ndarray:
+    """int32 [ceil(n_kv / BN), 2]: per KV block, the half-open range of
+    query blocks that read it.
+
+    Decided per block, as the JAX package's ``_dkdv_q_step`` with
+    ``sink_pass=None``: a block holding global sink columns is read by
+    every query block from its causal start on; any other block only up to
+    the last query whose window reaches its last column. Blocks wholly
+    before the sequence start (negative ``kv_offset``) are read by none.
+    So chunked and halo offsets need no static sink/window split.
+    """
+    return _dkdv_q_ranges_cached(int(n_q), int(n_kv), int(num_sink),
+                                 int(window), int(q_offset), int(kv_offset))
+
+
+def _visible(n_q, n_kv, num_sink, window, q_offset, kv_offset, device):
+    """The kernels' mask: the sink + window mask on global positions, and
+    no column before the sequence start (a halo's leading slots)."""
+    mask = sink_window_mask(n_q, n_kv, num_sink, window, q_offset,
+                            kv_offset, device=device)
+    return mask & (torch.arange(n_kv, device=device) + kv_offset >= 0)
+
+
 def flash_fwd_plain(q, k, v, s_aux=None, num_sink: int = 4,
                     window_size: int = 512, q_offset: int = 0,
                     kv_offset: int = 0):
@@ -95,14 +151,64 @@ def flash_fwd_plain(q, k, v, s_aux=None, num_sink: int = 4,
     long N."""
     outs, lses = [], []
     n_q, n_kv = q.shape[2], k.shape[2]
-    for r0 in range(0, max(n_q, 1), 1024):
-        qc = q[:, :, r0:r0 + 1024]
-        mask = sink_window_mask(qc.shape[2], n_kv, num_sink, window_size,
-                                q_offset + r0, kv_offset, device=q.device)
+    for r0 in range(0, max(n_q, 1), _PLAIN_ROWS):
+        qc = q[:, :, r0:r0 + _PLAIN_ROWS]
+        mask = _visible(qc.shape[2], n_kv, num_sink, window_size,
+                        q_offset + r0, kv_offset, q.device)
         o, lse = _eager_attend(qc, k, v, mask[None, None], s_aux, True)
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
+                    window_size: int = 512, q_offset: int = 0,
+                    kv_offset: int = 0):
+    """The plain PyTorch version of the two backward kernels: (dq in
+    q.dtype, dk in k.dtype, dv in v.dtype) from the same inputs.
+
+    The kernels' formulas written out in fp32 over query chunks of 1024
+    rows: P = exp(S - LSE) recomputed (0 where masked), dP = dO V^T,
+    dS = P (dP - delta), dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO,
+    dK and dV summed over each GQA group. ``lse`` [B,H_q,N_q] fp32 is the
+    forward's (it counts s_aux, so P is the true probability); ``delta``
+    [B,H_q,N_q] fp32 is sum_d dO * O, less the LSE cotangent if any.
+    """
+    B, H_q, N_q, D = q.shape
+    H_kv, N_kv = k.shape[1], k.shape[2]
+    group = H_q // H_kv
+    scale = 1.0 / (D ** 0.5)
+    kf = k.float().repeat_interleave(group, dim=1)
+    vf = v.float().repeat_interleave(group, dim=1)
+    dk = torch.zeros(B, H_q, N_kv, D, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dqs = []
+    for r0 in range(0, max(N_q, 1), _PLAIN_ROWS):
+        rows = slice(r0, r0 + _PLAIN_ROWS)
+        qc, doc = q[:, :, rows].float(), do[:, :, rows].float()
+        mask = _visible(qc.shape[2], N_kv, num_sink, window_size,
+                        q_offset + r0, kv_offset, q.device)
+        s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
+        p = torch.where(mask, torch.exp(s - lse[:, :, rows, None]), 0.0)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf)
+        ds = p * (dp - delta[:, :, rows, None])
+        dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, doc)
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
+    dk = dk.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
+    dv = dv.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
+    return (torch.cat(dqs, dim=2).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _load_fn(source: str, name: str, n_ptrs: int):
+    """``name`` of the library of ``csrc/<source>.cu``, with its argtypes:
+    ``n_ptrs`` pointers, 10 ints, the scale and the stream."""
+    fn = getattr(_build.load(source), name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 10 +
+                   [ctypes.c_float, ctypes.c_void_p])
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,17 +217,39 @@ def _kernel_fn():
     if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (BM, BN):
         raise RuntimeError("csrc/flash_fwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    fn = lib.sink_fwd_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 +
-                   [ctypes.c_float, ctypes.c_void_p])
-    return fn
+    return _load_fn("flash_fwd", "sink_fwd_bf16", 7)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_fns():
+    lib = _build.load("flash_bwd")
+    if (lib.sink_bwd_block_m(), lib.sink_bwd_block_n()) != (BM, BN):
+        raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
+                           "the tile sizes")
+    return (_load_fn("flash_bwd", "sink_dq_bf16", 8),
+            _load_fn("flash_bwd", "sink_dkdv_bf16", 9))
 
 
 @functools.lru_cache(maxsize=256)
-def _ranges_on(device, *key) -> torch.Tensor:
-    """The range table of ``key`` on ``device``, copied there once."""
-    return torch.from_numpy(np.array(fwd_kv_ranges(*key))).to(device)
+def _table_on(table_fn, device, *key) -> torch.Tensor:
+    """The host table ``table_fn(*key)`` on ``device``, copied there once."""
+    return torch.from_numpy(np.array(table_fn(*key))).to(device)
+
+
+def _geometry(q, k, v, num_sink, window_size, q_offset, kv_offset):
+    """Shape checks shared by the kernels' wrappers; returns the dims and
+    the int geometry the kernels take."""
+    if not q.is_cuda:
+        raise ValueError("the CUDA attention kernels take CUDA tensors")
+    B, H_q, N_q, D = q.shape
+    _, H_kv, N_kv, _ = k.shape
+    if H_q % H_kv or k.shape != v.shape or k.shape[0] != B:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    geom = (min(int(num_sink), _WINDOW_CLAMP),
+            min(int(window_size), _WINDOW_CLAMP), int(q_offset),
+            int(kv_offset))
+    return (B, H_q, H_kv, N_q, N_kv, D), geom
 
 
 def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
@@ -133,25 +261,17 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     s_aux [H_q] or None. ``flash_fwd_kernel.launches`` counts the launches.
     """
     _build.check_attention_inputs(q, k, v, s_aux)
-    if not q.is_cuda:
-        raise ValueError("flash_fwd_kernel takes CUDA tensors")
-    B, H_q, N_q, D = q.shape
-    _, H_kv, N_kv, _ = k.shape
-    if H_q % H_kv or k.shape != v.shape or k.shape[0] != B:
-        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)}")
-    window = min(int(window_size), _WINDOW_CLAMP)
-    num_sink = min(int(num_sink), _WINDOW_CLAMP)
-    ranges = _ranges_on(q.device, N_q, N_kv, num_sink, window,
-                        int(q_offset), int(kv_offset))
+    dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
+                           kv_offset)
+    B, H_q, H_kv, N_q, N_kv, D = dims
+    ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom)
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
     out = torch.empty_like(qc)
     lse = torch.empty((B, H_q, N_q), dtype=torch.float32, device=q.device)
     ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, ranges, out, lse)]
-    code = _kernel_fn()(*ptrs, B, H_q, H_kv, N_q, N_kv, D, num_sink, window,
-                        int(q_offset), int(kv_offset), 1.0 / (D ** 0.5),
+    code = _kernel_fn()(*ptrs, *dims, *geom, 1.0 / (D ** 0.5),
                         _build.stream_ptr(q.device))
     _build.check(code, "sink_fwd_bf16")
     flash_fwd_kernel.launches += 1
@@ -159,6 +279,67 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
 
 
 flash_fwd_kernel.launches = 0
+
+
+def _bwd_operands(q, k, v, do, lse, delta):
+    """The backward kernels' checks and operands: contiguous, aligned q, k,
+    v, dO (bf16) and lse, delta (fp32 [B,H_q,N_q])."""
+    _build.check_attention_inputs(q, k, v, None)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"dO must match q: {tuple(do.shape)} {do.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be fp32 {tuple(q.shape[:3])}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    return [_build.aligned(t) for t in (q, k, v, do, lse, delta)]
+
+
+def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
+                    window_size: int = 512, q_offset: int = 0,
+                    kv_offset: int = 0):
+    """Launch ``sink_dq_bf16`` of ``csrc/flash_bwd.cu``: dq [B,H_q,N_q,D]
+    bf16. Inputs as :func:`flash_bwd_plain`'s, on the card, bf16 q/k/v/dO
+    with D in (64, 128). ``flash_dq_kernel.launches`` counts the launches.
+    """
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
+                           kv_offset)
+    ranges = _table_on(fwd_kv_ranges, q.device, dims[3], dims[4], *geom)
+    dq = torch.empty_like(ops[0])
+    ptrs = [_build.ptr(t) for t in (*ops, ranges, dq)]
+    code = _bwd_fns()[0](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
+                         _build.stream_ptr(q.device))
+    _build.check(code, "sink_dq_bf16")
+    flash_dq_kernel.launches += 1
+    return dq
+
+
+flash_dq_kernel.launches = 0
+
+
+def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
+                      window_size: int = 512, q_offset: int = 0,
+                      kv_offset: int = 0):
+    """Launch ``sink_dkdv_bf16`` of ``csrc/flash_bwd.cu``: (dk, dv)
+    [B,H_kv,N_kv,D] bf16, summed over each GQA group inside the kernel.
+    Inputs as :func:`flash_dq_kernel`'s. ``flash_dkdv_kernel.launches``
+    counts the launches."""
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
+                           kv_offset)
+    ranges = _table_on(dkdv_q_ranges, q.device, dims[3], dims[4], *geom)
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    ptrs = [_build.ptr(t) for t in (*ops, ranges, dk, dv)]
+    code = _bwd_fns()[1](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
+                         _build.stream_ptr(q.device))
+    _build.check(code, "sink_dkdv_bf16")
+    flash_dkdv_kernel.launches += 1
+    return dk, dv
+
+
+flash_dkdv_kernel.launches = 0
 
 
 def _fwd(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset):
@@ -171,36 +352,130 @@ def _fwd(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset):
     raise ValueError(f"unsupported device {q.device}")
 
 
+def _dqkv(q, k, v, do, lse, delta, num_sink, window_size, q_offset,
+          kv_offset):
+    """(dq, dk, dv): the plain version on the CPU, the two kernels on the
+    card."""
+    args = (num_sink, window_size, q_offset, kv_offset)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, do, lse, delta, *args)
+    if q.is_cuda:
+        dq = flash_dq_kernel(q, k, v, do, lse, delta, *args)
+        return (dq, *flash_dkdv_kernel(q, k, v, do, lse, delta, *args))
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def attention_backward(q, k, v, s_aux, o, lse, do, dlse=None,
+                       num_sink: int = 4, window_size: int = 512,
+                       q_offset: int = 0, kv_offset: int = 0, dqkv=None):
+    """Gradients (dq, dk, dv, ds_aux or None) of the attention whose
+    forward gave (o, lse), for the cotangents dO and (optionally) dLSE.
+
+    The delta preprocess and the ds_aux epilogue are plain torch (JAX
+    ``_bwd_impl``); ``dqkv`` computes (dq, dk, dv) from (q, k, v, dO, lse,
+    delta, geometry), by default the kernels on the card and their plain
+    version on the CPU. An LSE cotangent folds into delta: d lse / d s_j
+    is p_j, so dS_j = p_j (dP_j - (delta - dlse)); the same fold gives
+    ds_aux = -sum p_aux (delta - dlse).
+    """
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    dq, dk, dv = (dqkv or _dqkv)(q, k, v, do, lse, delta, num_sink,
+                                 window_size, q_offset, kv_offset)
+    ds_aux = None
+    if s_aux is not None:
+        sink_prob = torch.exp(s_aux.float()[None, :, None] - lse)
+        ds_aux = -(sink_prob * delta).sum(dim=(0, 2)).to(s_aux.dtype)
+    return dq, dk, dv, ds_aux
+
+
+class _SinkAttention(torch.autograd.Function):
+    """(out, lse) of sink attention, differentiable in q, k, v, s_aux and
+    through both outputs (the JAX package's ``_sink_attn`` and
+    ``_sink_attn_chunk`` custom_vjps in one).
+
+    The forward's LSE already counts s_aux (m seeded with s_aux, l = 1), so
+    P = exp(S - LSE) recomputed in the backward is the true probability
+    and the dQ and dK/dV kernels need no s_aux term. Nothing is kept
+    between calls but what ``save_for_backward`` holds, so a layer
+    recomputed under activation checkpointing runs the forward anew.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, s_aux, num_sink, window_size, q_offset,
+                kv_offset):
+        o, lse = _fwd(q, k, v, s_aux, num_sink, window_size, q_offset,
+                      kv_offset)
+        ctx.save_for_backward(q, k, v, s_aux, o, lse)
+        ctx.geometry = (num_sink, window_size, q_offset, kv_offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, s_aux, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv, ds_aux = attention_backward(q, k, v, s_aux, o, lse, do,
+                                                dlse, *ctx.geometry)
+        if not ctx.needs_input_grad[3]:
+            ds_aux = None
+        return dq, dk, dv, ds_aux, None, None, None, None
+
+
+def _attention(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset):
+    """(out, lse): through the autograd function where a gradient is
+    wanted, else the forward alone."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, s_aux)):
+        return _SinkAttention.apply(q, k, v, s_aux, num_sink, window_size,
+                                    q_offset, kv_offset)
+    return _fwd(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset)
+
+
 def sink_flash_attention(q, k, v, num_sink: int = 4, window_size: int = 512,
                          s_aux=None, q_offset: int = 0, kv_offset: int = 0):
-    """Flash attention with attention-sink support (forward).
+    """Flash attention with attention-sink support (differentiable).
 
     Args:
         q: [B, H_q, N_q, D]; k, v: [B, H_kv, N_kv, D] (GQA/MQA supported).
         num_sink: always-attended leading (global) tokens.
         window_size: causal sliding window (includes self).
-        s_aux: optional [H_q] per-head sink logit (gpt-oss).
+        s_aux: optional [H_q] learnable per-head sink logit (gpt-oss).
         q_offset / kv_offset: global position offsets for chunked use.
 
     Returns:
-        [B, H_q, N_q, D] in q.dtype. On CUDA this runs the forward kernel
-        and is not differentiable yet: inputs that require grad raise.
+        [B, H_q, N_q, D] in q.dtype. On CUDA the forward kernel runs, and
+        the dQ and dK/dV kernels in the backward.
     """
-    if q.is_cuda and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, s_aux)):
-        raise NotImplementedError(
-            "the CUDA sink attention backward (dQ, dK/dV kernels) comes with "
-            "the training slice; call under torch.no_grad() for inference")
-    return _fwd(q, k, v, s_aux, num_sink, window_size, q_offset,
-                kv_offset)[0]
+    return _attention(q, k, v, s_aux, num_sink, window_size, q_offset,
+                      kv_offset)[0]
 
 
 def sink_flash_attention_with_lse(q, k, v, num_sink: int = 4,
                                   window_size: int = 512, s_aux=None,
                                   q_offset: int = 0, kv_offset: int = 0):
-    """Forward returning (out, lse [B,H_q,N_q] fp32, natural log) for
-    partial merging."""
-    return _fwd(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset)
+    """(out, lse [B,H_q,N_q] fp32, natural log) for partial merging,
+    differentiable through both."""
+    return _attention(q, k, v, s_aux, num_sink, window_size, q_offset,
+                      kv_offset)
+
+
+def sink_flash_attention_chunk(q, k, v, offsets, num_sink: int = 4,
+                               window_size: int = 512):
+    """Rectangular chunk attention at ``offsets = (q_offset, kv_offset)``:
+    (out, lse) partials for :func:`merge_partials`.
+
+    Takes no s_aux: it is folded in at merge time, so it counts once
+    across chunks. ``kv_offset`` may be negative (a halo whose leading
+    slots precede the sequence: they are attended by no query and get zero
+    gradient). Differentiable in both outputs: the LSE cotangent of a
+    downstream merge folds into the backward's delta.
+    """
+    q_offset, kv_offset = (int(x) for x in offsets)
+    return _attention(q, k, v, None, num_sink, window_size, q_offset,
+                      kv_offset)
 
 
 def merge_partials(outs: Sequence[torch.Tensor], lses: Sequence[torch.Tensor],

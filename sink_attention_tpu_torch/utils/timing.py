@@ -11,8 +11,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["time_cuda", "sink_attention_flops", "H100_PEAK_BF16",
-           "H100_HBM_BW"]
+__all__ = ["time_cuda", "sink_attention_flops", "attention_pairs",
+           "H100_PEAK_BF16", "H100_HBM_BW"]
 
 H100_PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 H100_HBM_BW = 3.35e12    # H100 SXM HBM3 bytes/s
@@ -37,12 +37,22 @@ def time_cuda(fn: Callable[[], object], iters: int = 20,
     return start.elapsed_time(end) / iters
 
 
+def attention_pairs(n_q: int, n_kv: int, num_sink: int, window: int,
+                    q_offset: int = 0, kv_offset: int = 0) -> int:
+    """Number of visible (query, key) pairs of one head: key j (global
+    kv_offset + col, >= 0) is visible to query i (global q_offset + row)
+    iff j <= i and (j < num_sink or j >= i - window + 1)."""
+    i = q_offset + np.arange(n_q, dtype=np.int64)
+    lo = max(kv_offset, 0)                          # first real column
+    hi = np.minimum(i, kv_offset + n_kv - 1)        # last visible column
+    sink = np.clip(np.minimum(hi, num_sink - 1) - lo + 1, 0, None)
+    win_lo = np.maximum(np.maximum(i - window + 1, num_sink), lo)
+    win = np.clip(hi - win_lo + 1, 0, None)
+    return int((sink + win).sum())
+
+
 def sink_attention_flops(B: int, H_q: int, N: int, D: int, num_sink: int,
                          window: int, n_kv: int | None = None) -> int:
     """Useful attention FLOPs: 4 * B * H_q * D * sum_i |attended(i)|."""
     n_kv = N if n_kv is None else n_kv
-    i = np.arange(N, dtype=np.int64)
-    sink = np.minimum(np.minimum(i + 1, num_sink), n_kv)
-    win_lo = np.maximum(i - window + 1, num_sink)
-    win = np.clip(np.minimum(i + 1, n_kv) - win_lo, 0, None)
-    return int(4 * B * H_q * D * (sink + win).sum())
+    return 4 * B * H_q * D * attention_pairs(N, n_kv, num_sink, window)

@@ -1,0 +1,159 @@
+"""The port's attention gradients against the JAX package's.
+
+On the CPU the port's autograd function runs the backward kernels' plain
+version; the JAX side runs its Pallas backward kernels in interpret mode,
+as its own tests do (jitted, once per case). The host table that the dK/dV
+kernel walks is checked against the mask here.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sink_attention_tpu.ops as jops
+from sink_attention_tpu.ops.flash import sink_flash_attention_chunk as j_chunk
+from sink_attention_tpu_torch.ops import flash as tflash
+from sink_attention_tpu_torch.ops.reference import sink_window_mask
+
+CONFIGS = [
+    # (B, H_q, H_kv, N, D, num_sink, window, use_aux): four of the cases of
+    # tests/test_flash_backward.py
+    (1, 4, 2, 256, 64, 4, 128, True),    # GQA + s_aux
+    (1, 2, 2, 256, 64, 0, 64, False),    # pure window
+    (2, 4, 1, 128, 64, 16, 32, True),    # MQA, multi-sink
+    (1, 2, 2, 192, 80, 4, 96, True),     # head_dim 80
+]
+
+
+def _randn(rs, *shape):
+    return rs.randn(*shape).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(i):
+    """Inputs and the JAX gradients of sum(out * do) for CONFIGS[i]."""
+    B, H_q, H_kv, N, D, ns, W, use_aux = CONFIGS[i]
+    rs = np.random.RandomState(i)
+    x = [_randn(rs, B, H_q, N, D), _randn(rs, B, H_kv, N, D),
+         _randn(rs, B, H_kv, N, D)]
+    if use_aux:
+        x.append(_randn(rs, H_q))
+    do = _randn(rs, B, H_q, N, D)
+
+    def loss(q, k, v, aux=None):
+        out = jops.sink_flash_attention(q, k, v, num_sink=ns, window_size=W,
+                                        s_aux=aux)
+        return jnp.sum(out * do)
+
+    grads = jax.jit(jax.grad(loss, tuple(range(len(x)))))(
+        *map(jnp.asarray, x))
+    return x, do, [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("i", range(len(CONFIGS)))
+def test_grads_match_jax(i):
+    _, _, _, _, _, ns, W, use_aux = CONFIGS[i]
+    x, do, ref = _case(i)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in x]
+    out = tflash.sink_flash_attention(*leaves[:3], ns, W,
+                                      s_aux=leaves[3] if use_aux else None)
+    out.backward(torch.from_numpy(do))
+    for name, t, r in zip(("dq", "dk", "dv", "ds_aux"), leaves, ref):
+        np.testing.assert_allclose(t.grad.numpy(), r, atol=1e-4, rtol=1e-2,
+                                   err_msg=f"{name}, config {CONFIGS[i]}")
+
+
+def test_ds_aux_finite_differences():
+    """ds_aux against central differences of the port's own forward (the
+    JAX suite's check; rel tolerance: the fp32 rounding of the large loss
+    dominates the difference quotient)."""
+    B, H_q, H_kv, N, D, ns, W = 1, 4, 2, 128, 32, 4, 32
+    rs = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(_randn(rs, B, h, N, D))
+               for h in (H_q, H_kv, H_kv))
+    aux = torch.from_numpy(_randn(rs, H_q))
+
+    def loss(a):
+        return (tflash.sink_flash_attention(q, k, v, ns, W, s_aux=a) ** 2
+                ).sum()
+
+    a = aux.clone().requires_grad_()
+    loss(a).backward()
+    eps = 1e-3
+    numeric = np.zeros(H_q, np.float32)
+    with torch.no_grad():
+        for h in range(H_q):
+            e = torch.zeros(H_q)
+            e[h] = eps
+            numeric[h] = (float(loss(aux + e)) - float(loss(aux - e))) / (
+                2 * eps)
+    np.testing.assert_allclose(a.grad.numpy(), numeric, atol=5e-2,
+                               rtol=5e-2)
+
+
+def test_chunk_grads_match_jax_with_garbage_halo():
+    """A halo of garbage before the sequence (kv_offset < 0): the chunk's
+    gradients through both outputs (out and lse) equal the JAX chunk's,
+    and the halo slots get exactly zero gradient."""
+    B, H, D, n_q, halo, ns, W = 1, 2, 32, 256, 256, 4, 256
+    rs = np.random.RandomState(40)
+    q = _randn(rs, B, H, n_q, D)
+    k = np.concatenate([np.full((B, H, halo, D), 7.7, np.float32),
+                        _randn(rs, B, H, n_q, D)], axis=2)
+    v = np.concatenate([np.full((B, H, halo, D), 7.7, np.float32),
+                        _randn(rs, B, H, n_q, D)], axis=2)
+    do, dl = _randn(rs, B, H, n_q, D), _randn(rs, B, H, n_q)
+    offsets = (0, -halo)
+
+    def loss(q, k, v):
+        out, lse = j_chunk(q, k, v, jnp.array(offsets, jnp.int32), ns, W,
+                           block_q=64, block_kv=128)
+        return jnp.sum(out * do) + jnp.sum(lse * dl), (out, lse)
+
+    grads, (o_j, l_j) = jax.jit(jax.grad(loss, (0, 1, 2), has_aux=True))(
+        q, k, v)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o_t, l_t = tflash.sink_flash_attention_chunk(*leaves, offsets, ns, W)
+    np.testing.assert_allclose(o_t.detach().numpy(), np.asarray(o_j),
+                               atol=2e-5, rtol=1e-3)
+    np.testing.assert_allclose(l_t.detach().numpy(), np.asarray(l_j),
+                               atol=1e-4, rtol=1e-4)
+    ((o_t * torch.from_numpy(do)).sum() +
+     (l_t * torch.from_numpy(dl)).sum()).backward()
+    for name, t, g in zip(("dq", "dk", "dv"), leaves, grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), atol=2e-4,
+                                   err_msg=name)
+    assert not leaves[1].grad[:, :, :halo].any()
+    assert not leaves[2].grad[:, :, :halo].any()
+
+
+@pytest.mark.parametrize("geom", [
+    # (n_q, n_kv, num_sink, window, q_offset, kv_offset): the forward
+    # table's geometries in tests/test_torch_flash.py, and a halo
+    (256, 256, 4, 128, 0, 0),
+    (300, 300, 16, 128, 0, 0),
+    (256, 256, 0, 1, 0, 0),
+    (128, 384, 4, 96, 256, 0),
+    (192, 256, 4, 96, 192, 64),
+    (200, 150, 70, 33, 64, -10),
+    (1024, 1024, 0, 1024, 0, 0),
+    (256, 512, 4, 256, 0, -256),
+])
+def test_dkdv_q_range_table_covers_mask(geom):
+    """Each KV block's query-block range holds every query block with a
+    masked-in (q, k) pair in it; a range cannot name a block twice."""
+    n_q, n_kv, ns, W, qo, ko = geom
+    bm, bn = tflash.BM, tflash.BN
+    table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko)
+    mask = sink_window_mask(n_q, n_kv, ns, W, qo, ko).numpy()
+    mask &= (np.arange(n_kv) + ko >= 0)[None, :]
+    n_q_blocks = -(-n_q // bm)
+    assert table.shape == (-(-n_kv // bn), 2)
+    for ni, (b0, b1) in enumerate(table):
+        assert 0 <= b0 <= b1 <= n_q_blocks, (ni, table[ni])
+        rows = np.nonzero(mask[:, ni * bn:(ni + 1) * bn].any(axis=1))[0]
+        assert set(rows // bm) <= set(range(b0, b1)), (ni, table[ni])

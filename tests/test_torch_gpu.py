@@ -81,8 +81,61 @@ def test_decode_kernel_matches_plain(cuda, case):
         assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
 
 
-def test_flash_refuses_grad_on_cuda(cuda):
-    q = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16, device=cuda,
-                    requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        flash.sink_flash_attention(q, q.detach(), q.detach())
+BWD_CASES = [
+    # (B, H_q, H_kv, N_q, N_kv, D, num_sink, window, use_aux, q_off, kv_off)
+    (2, 8, 2, 256, 256, 64, 4, 128, True, 0, 0),
+    (1, 4, 4, 300, 300, 128, 16, 128, False, 0, 0),
+    (1, 8, 1, 200, 200, 64, 0, 64, True, 0, 0),
+    (1, 4, 2, 128, 320, 64, 4, 96, True, 192, 0),      # chunk at q_offset
+    (1, 4, 2, 256, 512, 64, 4, 128, False, 0, -256),   # garbage halo
+    (1, 64, 8, 1024, 1024, 64, 0, 1024, True, 0, 0),   # gpt-oss full layer
+]
+
+
+@pytest.mark.parametrize("cfg", BWD_CASES)
+def test_backward_kernels_match_plain(cuda, cfg):
+    """dQ and dK/dV kernels against flash_bwd_plain on the same inputs
+    (bf16 outputs: 2e-2 of the largest plain value), bitwise equal on a
+    second run (no atomics), and autograd through sink_flash_attention
+    launching the forward and both backward kernels once each."""
+    B, H_q, H_kv, N_q, N_kv, D, ns, W, use_aux, qo, ko = cfg
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, B, H_q, N_q, D)
+    k = _randn(gen, B, H_kv, N_kv, D)
+    v = _randn(gen, B, H_kv, N_kv, D)
+    do = _randn(gen, B, H_q, N_q, D)
+    aux = torch.randn(H_q, generator=gen, device=cuda) if use_aux else None
+    geom = (ns, W, qo, ko)
+    o, lse = flash.flash_fwd_plain(q, k, v, aux, *geom)
+    delta = (do.float() * o.float()).sum(-1)
+    plain = flash.flash_bwd_plain(q, k, v, do, lse, delta, *geom)
+    dq = flash.flash_dq_kernel(q, k, v, do, lse, delta, *geom)
+    dk, dv = flash.flash_dkdv_kernel(q, k, v, do, lse, delta, *geom)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        scale = max(1.0, float(ref.float().abs().max()))
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= 2e-2 * scale, (name, err, scale)
+    assert torch.equal(dq, flash.flash_dq_kernel(q, k, v, do, lse, delta,
+                                                 *geom))
+    dk2, dv2 = flash.flash_dkdv_kernel(q, k, v, do, lse, delta, *geom)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if ko < 0:  # the halo before the sequence start gets no gradient
+        assert not dk[:, :, :-ko].any() and not dv[:, :, :-ko].any()
+
+    counts = [f.launches for f in (flash.flash_fwd_kernel,
+                                   flash.flash_dq_kernel,
+                                   flash.flash_dkdv_kernel)]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    a = aux.clone().requires_grad_() if use_aux else None
+    out = flash.sink_flash_attention(*leaves, ns, W, s_aux=a, q_offset=qo,
+                                     kv_offset=ko)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash.flash_fwd_kernel,
+                                 flash.flash_dq_kernel,
+                                 flash.flash_dkdv_kernel)] == [
+        c + 1 for c in counts]
+    assert all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
+    if use_aux:
+        assert bool(torch.isfinite(a.grad).all())

@@ -79,18 +79,35 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernels' input checks run before any launch, so they hold on
     the CPU too: no fp32, no head_dim outside (64, 128), no CPU tensors."""
     from sink_attention_tpu_torch.ops import decode, flash
+
+    def bwd_args(t):
+        rows = torch.zeros(t.shape[:3])
+        return t, t, t, t, rows, rows
+
+    backward = (flash.flash_dq_kernel, flash.flash_dkdv_kernel)
     q = torch.zeros(1, 2, 8, 64)
     with pytest.raises(TypeError):
         flash.flash_fwd_kernel(q, q, q)
+    for fn in backward:
+        with pytest.raises(TypeError):
+            fn(*bwd_args(q))
     qb = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash.flash_fwd_kernel(qb, qb, qb)
+    for fn in backward:
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(*bwd_args(qb))
     qb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash.flash_fwd_kernel(qb, qb, qb)
+    for fn in backward:
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*bwd_args(qb))
     lens = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
         decode.decode_kernel(qb[:, :, :1], qb, qb, lens, sink_cap=0,
                              window_size=8)
     assert flash.flash_fwd_kernel.launches == 0
+    assert flash.flash_dq_kernel.launches == 0
+    assert flash.flash_dkdv_kernel.launches == 0
     assert decode.decode_kernel.launches == 0
