@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (sink_attention_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # build, kernel checks, serving, training
+    python3 chip_smoke.py    # build, kernel checks, serving, training,
+                             # packed training
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
      the build time and ptxas' register / shared-memory / spill lines;
   2. kernels: run each kernel and its plain PyTorch version on the card at
-     the main paths' shapes and at the headline attention shape, print the
+     the main paths' shapes and at the headline attention shape (the packed
+     kernels also at edge cases of the mask), print the
      max abs error against its tolerance and the times (kernel, plain,
      one PyTorch library call as a yardstick) beside the least time the
      card could take (its bound); the backward kernels also run twice on
@@ -25,7 +27,13 @@ Phases:
      forward/backward split, peak memory and a profile of one step; then
      every layer's attention gradients, kernels against plain on the live
      activations, and the end-to-end gradients against plain attention
-     and a noise control (see ``train``).
+     and a noise control (see ``train``);
+  5. packed training: the same model, 3 SGD steps of
+     cross_entropy_loss_packed on one pack of 4096 tokens (segments of
+     64-1536 tokens), with the same numbers; then every layer's packed
+     attention gradients against plain, the per-token losses against plain
+     packed attention and a noise control, and each segment's logits
+     against its own unpacked forward (see ``train_packed``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -49,6 +57,7 @@ DECODE_TOL = 2e-2  # bf16 output
 # and the kernels round P and dS to bf16 as MMA operands
 BWD_TOL = 2e-2
 MIN_COS = 0.9999   # kernel against plain, per layer and per kernel check
+PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 
 
 def log(msg: str) -> None:
@@ -271,6 +280,132 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     return rows
 
 
+def pack_lengths(n: int, lo: int, hi: int, seed: int):
+    """Segment lengths drawn uniform in [lo, hi] from
+    numpy.random.default_rng(seed) until ``n`` tokens are filled; the last
+    one is cut to fit (the length spread of a verl / SFT packed batch)."""
+    import numpy as np
+    rng, lens = np.random.default_rng(seed), []
+    while sum(lens) < n:
+        lens.append(min(int(rng.integers(lo, hi + 1)), n - sum(lens)))
+    return lens
+
+
+def pack_positions(lens, first: int = 0):
+    """int64 [sum(lens)] segment-local positions (what a loader gives);
+    ``first`` > 0 starts the pack inside its first segment."""
+    pos = torch.cat([torch.arange(L) for L in lens])
+    pos[:lens[0]] += first
+    return pos
+
+
+def packed_pairs(positions, num_sink, window):
+    """Visible (query, key) pairs of one head over the packed mask of
+    ``positions`` [B, N], summed over the batch."""
+    from sink_attention_tpu_torch.ops.reference import packed_rows_mask
+    n = positions.shape[-1]
+    return sum(int(packed_rows_mask(positions, r0, min(1024, n - r0),
+                                    num_sink, window).sum())
+               for r0 in range(0, n, 1024))
+
+
+def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
+                 use_aux=True, label=""):
+    """The packed forward, dQ and dK/dV kernels against their plain
+    versions on one pack (the same positions in every batch row), dQ and
+    dK/dV also bitwise against a second run. Returns rows "packed_fwd",
+    "packed_dq", "packed_dkdv" with errors, times and bounds (FLOPs from
+    the visible pairs of the pack's own mask)."""
+    from sink_attention_tpu_torch.ops import packed
+    from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
+    from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
+                                                time_cuda)
+
+    positions = pack_positions(lens, first)[None].expand(B, -1).to(dev)
+    N = positions.shape[1]
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
+    k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
+    aux = torch.randn(H_q, generator=gen, device=dev) if use_aux else None
+    geom = (ns, W)
+    o_k, l_k = packed.packed_fwd_kernel(q, k, v, positions, aux, *geom)
+    o_p, l_p = packed.packed_fwd_plain(q, k, v, positions, aux, *geom)
+    delta = (do.float() * o_k.float()).sum(-1)
+    args = (q, k, v, do, l_k, delta, positions, *geom)
+    dq = packed.packed_dq_kernel(*args)
+    dk, dv = packed.packed_dkdv_kernel(*args)
+    ref = packed.packed_bwd_plain(*args)
+    dq2 = packed.packed_dq_kernel(*args)
+    dk2, dv2 = packed.packed_dkdv_kernel(*args)
+    torch.cuda.synchronize()
+    shape = (f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
+             + (" s_aux" if use_aux else "") + f" {label}")
+    err = float((o_k.float() - o_p.float()).abs().max())
+    lerr = float((l_k - l_p).abs().max())
+    rows = {"packed_fwd": {
+        "shape": shape, "max_abs_err": err, "lse_err": lerr,
+        "ok": err <= FLASH_TOL and lerr <= LSE_TOL
+        and bool(torch.isfinite(o_k.float()).all())}}
+    for name, got, refs, again in (
+            ("packed_dq", (dq,), ref[:1], (dq2,)),
+            ("packed_dkdv", (dk, dv), ref[1:], (dk2, dv2))):
+        rel = max(_grad_compare(g, r)["rel_err"] for g, r in zip(got, refs))
+        cos = min(cosine(g, r) for g, r in zip(got, refs))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        rows[name] = {
+            "shape": shape, "rel_err": rel, "cos": cos,
+            "bitwise_repeat": same,
+            "max_abs_err": max(float((g.float() - r.float()).abs().max())
+                               for g, r in zip(got, refs)),
+            "ok": (rel <= BWD_TOL and cos >= MIN_COS and same
+                   and all(bool(torch.isfinite(g.float()).all())
+                           for g in got))}
+    del o_p, l_p, dq, dk, dv, ref, dq2, dk2, dv2
+
+    rows["packed_fwd"]["ms"] = time_cuda(
+        lambda: packed.packed_fwd_kernel(q, k, v, positions, aux, *geom),
+        iters=10)
+    rows["packed_dq"]["ms"] = time_cuda(
+        lambda: packed.packed_dq_kernel(*args), iters=10)
+    rows["packed_dkdv"]["ms"] = time_cuda(
+        lambda: packed.packed_dkdv_kernel(*args), iters=10)
+    rows["packed_fwd"]["plain_ms"] = time_cuda(
+        lambda: packed.packed_fwd_plain(q, k, v, positions, aux, *geom),
+        iters=2, warmup=1)
+    bwd_plain_ms = time_cuda(lambda: packed.packed_bwd_plain(*args),
+                             iters=2, warmup=1)
+    mask = packed_sink_window_mask(positions, ns, W)[:, None]
+    rows["packed_fwd"]["library_ms"] = time_cuda(
+        lambda: _sdpa(q, k, v, mask), iters=10)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = _sdpa(*leaves, mask)
+    bwd_ms = time_cuda(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), iters=5)
+    fwd_bwd_ms = time_cuda(lambda: torch.autograd.grad(
+        _sdpa(*leaves, mask), leaves, do), iters=5)
+    del out, leaves, mask
+
+    pairs = B * H_q * packed_pairs(positions, ns, W)
+    q_bytes = 2 * B * H_q * N * D       # one bf16 [B, H_q, N, D] tensor
+    kv_bytes = 2 * B * H_kv * N * D     # one bf16 [B, H_kv, N, D]
+    pos_bytes = 4 * B * N               # the int32 segment starts
+    work = {  # FLOPs per visible pair (2 D per product), bytes moved
+        "packed_fwd": (4 * D, 2 * q_bytes + 2 * kv_bytes + 4 * B * H_q * N),
+        "packed_dq": (6 * D, 3 * q_bytes + 2 * kv_bytes + 8 * B * H_q * N),
+        "packed_dkdv": (8 * D, 2 * q_bytes + 4 * kv_bytes + 8 * B * H_q * N)}
+    for name, (per_pair, nbytes) in work.items():
+        r = rows[name]
+        t_ops = pairs * per_pair / H100_PEAK_BF16 * 1e3
+        t_bytes = (nbytes + pos_bytes) / H100_HBM_BW * 1e3
+        r.update(pairs=pairs, bound_ms=max(t_ops, t_bytes),
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        if name != "packed_fwd":
+            r.update(plain_ms=bwd_plain_ms, library_ms=bwd_ms,
+                     library_fwd_bwd_ms=fwd_bwd_ms)
+    return rows
+
+
 def kernel_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     flash_main = [check_flash(dev, 4, 64, 8, 1024, 64, 0, W, gen)
@@ -290,14 +425,35 @@ def kernel_phase(dev):
                          time_n=8192)
     bwd_chunk = check_bwd(dev, 1, 64, 8, 1024, 64, 4, 256, gen, halo=256,
                           use_aux=False)
+    # packed training path: phase 5's pack of 4096 tokens through the
+    # sliding (W=128) and full layers; the headline shape over segments of
+    # 64-3072 tokens; edge cases at N=1024 with 4 sinks
+    mix = pack_lengths(4096, PACK_MIN, PACK_MAX, 0)
+    packed_main = [check_packed(dev, 1, 64, 8, 64, 0, W, mix, gen,
+                                label="phase-5 mix") for W in (128, 4096)]
+    packed_head = [check_packed(dev, 1, 32, 8, 128, 4, 4096,
+                                pack_lengths(8192, 64, 3072, 1), gen,
+                                label="lengths 64-3072")]
+    packed_edge = [
+        check_packed(dev, 1, 8, 2, 64, 4, 128, lens, gen, first, label=lab)
+        for lens, first, lab in (
+            ([2, 510, 512], 0, "a 2-token segment"),
+            ([32] * 32, 0, "32-token segments"),
+            ([300, 724], 2, "pack starts at position 2"),
+            ([333, 2, 665], 0, "N=1000"))]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
         res[name + "_chunk"] = bwd_chunk[name]
+    for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
+        res[name] = [r[name] for r in packed_main]
+        res[name + "_headline"] = [r[name] for r in packed_head]
+        res[name + "_edge"] = [r[name] for r in packed_edge]
     for key, rows in res.items():
-        name = key.replace("_headline", "").replace("_chunk", "")
+        name = key.replace("_headline", "").replace("_chunk", "").replace(
+            "_edge", "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
                 + (f", timed at N={r['timed_N']}" if "timed_N" in r else "")
@@ -308,7 +464,9 @@ def kernel_phase(dev):
                    if "cos" in r else "")
                 + f" ok={r['ok']} ms={r['ms']:.4f} plain_ms="
                 f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-                f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+                + (f"library_fwd_bwd_ms={r['library_fwd_bwd_ms']:.4f} "
+                   if "library_fwd_bwd_ms" in r else "")
+                + f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
     return res
 
 
@@ -644,6 +802,71 @@ def _elapsed_ms(fn, cuda):
     return out, start.elapsed_time(end)
 
 
+def _run_steps(step, steps, seq_len, kernels, cuda, report, errors):
+    """``steps`` calls of ``step()`` (returning the loss), each timed, with
+    the launches of ``kernels`` counted from 0 over them."""
+    for fn in kernels.values():
+        fn.launches = 0
+    report["steps"] = []
+    for _ in range(steps):
+        loss, ms = _elapsed_ms(step, cuda)
+        report["steps"].append({"loss": float(loss), "ms": ms,
+                                "tokens_per_s": seq_len / (ms / 1e3)})
+    report["launches"] = {n: fn.launches for n, fn in kernels.items()}
+    report["losses"] = [r["loss"] for r in report["steps"]]
+    if not all(math.isfinite(x) for x in report["losses"]):
+        errors.append(f"training losses not finite: {report['losses']}")
+
+
+def _split_step(loss_fn, opt, cuda, report):
+    """One more step, timed by part: forward, backward, optimizer."""
+    opt.zero_grad(set_to_none=True)
+    loss, report["forward_ms"] = _elapsed_ms(loss_fn, cuda)
+    _, report["backward_ms"] = _elapsed_ms(loss.backward, cuda)
+    _, report["optimizer_ms"] = _elapsed_ms(opt.step, cuda)
+
+
+def _recording(attend, records):
+    """An attn_impl running ``attend(q, k, v, num_sink, window_size,
+    s_aux)`` that records each layer's inputs and output cotangent."""
+    def attn(q, k, v, num_sink, window_size, s_aux):
+        o = attend(q, k, v, num_sink, window_size, s_aux)
+        rec = {"x": [t.detach() for t in (q, k, v)], "geom": (
+            num_sink, window_size), "aux": None if s_aux is None else
+            s_aux.detach()}
+        o.register_hook(lambda g: rec.__setitem__("do", g.detach()))
+        records.append(rec)
+        return o
+    return attn
+
+
+def _check_layer_grads(records, attn_grads, report, errors):
+    """Every recorded layer's attention gradients (dq, dk, dv, ds_aux),
+    ``attn_grads(q, k, v, s_aux, do, num_sink, window_size, plain=)``
+    through the kernels against the plain versions: cosine >= MIN_COS, max
+    abs error <= BWD_TOL x max |plain|."""
+    stats = []
+    for rec in records:
+        q, k, v = rec["x"]
+        got, ref = (attn_grads(q, k, v, rec["aux"], rec["do"], *rec["geom"],
+                               plain=plain) for plain in (False, True))
+        for name, a, b in zip(("dq", "dk", "dv", "ds_aux"), got, ref):
+            if b is not None:
+                stats.append({"name": name, **_grad_compare(a, b)})
+    report["layers_checked"] = len(records)
+    report["layer_min_cos"] = min(s["cos"] for s in stats)
+    report["layer_min_cos_by_grad"] = {
+        n: min(s["cos"] for s in stats if s["name"] == n)
+        for n in ("dq", "dk", "dv", "ds_aux") if any(
+            s["name"] == n for s in stats)}
+    worst_rel = max(s["rel_err"] for s in stats)
+    report["layer_max_rel_err"] = worst_rel
+    if report["layer_min_cos"] < MIN_COS or worst_rel > BWD_TOL:
+        errors.append(f"attention gradients, kernels vs plain on the live "
+                      f"path: min cosine {report['layer_min_cos']:.7f}, max "
+                      f"error {worst_rel:.3e} of the largest value")
+
+
 def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
           dtype=torch.bfloat16):
     """``steps`` SGD steps of make_train_step(remat=True) on one seeded
@@ -691,46 +914,22 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
-    for fn in kernels.values():
-        fn.launches = 0
-    report["steps"] = []
-    for _ in range(steps):
-        loss, ms = _elapsed_ms(lambda: step(params, batch), cuda)
-        report["steps"].append({"loss": float(loss), "ms": ms,
-                                "tokens_per_s": seq_len / (ms / 1e3)})
-    report["launches"] = {n: fn.launches for n, fn in kernels.items()}
-    report["losses"] = [r["loss"] for r in report["steps"]]
-    if not all(math.isfinite(x) for x in report["losses"]):
-        errors.append(f"training losses not finite: {report['losses']}")
-
-    # One more step, timed by part.
-    opt.zero_grad(set_to_none=True)
-    loss, report["forward_ms"] = _elapsed_ms(
-        lambda: cross_entropy_loss(params, cfg, batch, remat=True), cuda)
-    _, report["backward_ms"] = _elapsed_ms(loss.backward, cuda)
-    _, report["optimizer_ms"] = _elapsed_ms(opt.step, cuda)
-    del loss
+    _run_steps(lambda: step(params, batch), steps, seq_len, kernels, cuda,
+               report, errors)
+    _split_step(lambda: cross_entropy_loss(params, cfg, batch, remat=True),
+                opt, cuda, report)
     if cuda:
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         report["step_profile"] = profile_device(
             lambda: step(params, batch),
-            ("sink_fwd_kernel", "sink_dq_kernel", "sink_dkdv_kernel"),
+            ("fwd_kernel", "dq_kernel", "dkdv_kernel"),
             shapes=True)
     opt.zero_grad(set_to_none=True)
 
     # The kernel path, recording each layer's attention inputs and output
     # cotangent; then plain attention, and plain attention with noise.
     records = []
-
-    def recording(q, k, v, num_sink, window_size, s_aux):
-        o = flash.sink_flash_attention(q, k, v, num_sink, window_size, s_aux)
-        rec = {"x": [t.detach() for t in (q, k, v)], "geom": (
-            num_sink, window_size), "aux": None if s_aux is None else
-            s_aux.detach()}
-        o.register_hook(lambda g: rec.__setitem__("do", g.detach()))
-        records.append(rec)
-        return o
-
+    recording = _recording(flash.sink_flash_attention, records)
     lp0, lp1 = params["layers"][0]["attn"], params["layers"][1]["attn"]
     names = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
              "layers[1].attn.wk")
@@ -750,29 +949,8 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
     paths = {"kernel": grads_of(recording), "plain": grads_of(plain_attn),
              "control": grads_of(_noisy(plain_attn, 7))}
 
-    stats = []
-    for rec in records:
-        q, k, v = rec["x"]
-        got = _attn_grads(q, k, v, rec["aux"], rec["do"], *rec["geom"],
-                          plain=False)
-        ref = _attn_grads(q, k, v, rec["aux"], rec["do"], *rec["geom"],
-                          plain=True)
-        for name, a, b in zip(("dq", "dk", "dv", "ds_aux"), got, ref):
-            if b is not None:
-                stats.append({"name": name, **_grad_compare(a, b)})
-    report["layers_checked"] = len(records)
+    _check_layer_grads(records, _attn_grads, report, errors)
     del records
-    report["layer_min_cos"] = min(s["cos"] for s in stats)
-    report["layer_min_cos_by_grad"] = {
-        n: min(s["cos"] for s in stats if s["name"] == n)
-        for n in ("dq", "dk", "dv", "ds_aux") if any(
-            s["name"] == n for s in stats)}
-    worst_rel = max(s["rel_err"] for s in stats)
-    report["layer_max_rel_err"] = worst_rel
-    if report["layer_min_cos"] < MIN_COS or worst_rel > BWD_TOL:
-        errors.append(f"attention gradients, kernels vs plain on the live "
-                      f"path: min cosine {report['layer_min_cos']:.7f}, max "
-                      f"error {worst_rel:.3e} of the largest value")
 
     losses_p, grads_p = paths["plain"]
     report["end_to_end"] = e2e = {"plain_loss": float(losses_p.mean())}
@@ -787,6 +965,195 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
             errors.append(f"{n}, kernel vs plain attention: 1 - "
                           f"cosine {e2e['kernel'][n]:.3e}, control "
                           f"{e2e['control'][n]:.3e}")
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: packed training
+# ---------------------------------------------------------------------------
+
+
+class _PlainPackedAttention(torch.autograd.Function):
+    """Packed sink attention through the packed kernels' plain versions,
+    forward and backward, on any device: the reference path of the
+    end-to-end check."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s_aux, positions, num_sink, window_size):
+        from sink_attention_tpu_torch.ops import packed
+        o, lse = packed.packed_fwd_plain(q, k, v, positions, s_aux, num_sink,
+                                         window_size)
+        ctx.save_for_backward(q, k, v, s_aux, positions, o, lse)
+        ctx.geometry = (num_sink, window_size)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from sink_attention_tpu_torch.ops import flash, packed
+        q, k, v, s_aux, positions, o, lse = ctx.saved_tensors
+        grads = flash.attention_backward(
+            q, k, v, s_aux, o, lse, do, dqkv=lambda q, k, v, do, lse, delta,
+            *_: packed.packed_bwd_plain(q, k, v, do, lse, delta, positions,
+                                        *ctx.geometry))
+        return (*grads, None, None, None)
+
+
+def _packed_attn_grads(q, k, v, s_aux, do, positions, num_sink, window_size,
+                       plain):
+    """(dq, dk, dv, ds_aux) of one layer's packed attention from its inputs
+    and its output's cotangent: through the packed kernels (their plain
+    versions on the CPU), or through the plain versions."""
+    from sink_attention_tpu_torch.ops import flash, packed
+    geom = (num_sink, window_size)
+    if plain:
+        o, lse = packed.packed_fwd_plain(q, k, v, positions, s_aux, *geom)
+        dqkv = packed.packed_bwd_plain
+    else:
+        o, lse = packed._fwd(q, k, v, positions, s_aux, *geom)
+        dqkv = packed._dqkv
+    return flash.attention_backward(
+        q, k, v, s_aux, o, lse, do, dqkv=lambda q, k, v, do, lse, delta, *_:
+        dqkv(q, k, v, do, lse, delta, positions, *geom))
+
+
+def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
+                 dtype=torch.bfloat16, min_len=PACK_MIN, max_len=PACK_MAX):
+    """``steps`` SGD steps of cross_entropy_loss_packed on one pack of
+    ``seq_len`` tokens, segments of pack_lengths(seq_len, min_len, max_len,
+    0), weights from a generator seeded 0; then the checks. Returns
+    (report, errors); the launch counts cover the ``steps`` steps alone.
+
+    Checks (each failure is an error):
+    * every loss finite;
+    * every layer's packed attention gradients (dq, dk, dv, ds_aux) on the
+      live activations and output cotangents of one step, packed kernels
+      against their plain versions: cosine >= MIN_COS, max abs error <=
+      BWD_TOL x max |plain|;
+    * the per-token losses of the valid targets, kernel path against plain
+      packed attention: distance from cosine 1 at most twice that of a
+      control whose attention output carries bf16-sized noise;
+    * segment isolation: each segment's logits in the pack against that
+      segment's own unpacked forward, by mean row cosine, within twice the
+      distance of the same control on that forward.
+    """
+    from sink_attention_tpu_torch.models import forward_prefill, init_params
+    from sink_attention_tpu_torch.ops import flash, packed
+    from sink_attention_tpu_torch.parallel import (cross_entropy_loss_packed,
+                                                   param_leaves)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    kernels = {"packed_fwd": packed.packed_fwd_kernel,
+               "packed_dq": packed.packed_dq_kernel,
+               "packed_dkdv": packed.packed_dkdv_kernel,
+               "flash_fwd": flash.flash_fwd_kernel,
+               "flash_dq": flash.flash_dq_kernel,
+               "flash_dkdv": flash.flash_dkdv_kernel}
+    lens = pack_lengths(seq_len, min_len, max_len, 0)
+    positions = pack_positions(lens)[None].to(dev)  # int64, as loaders give
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (1, seq_len), generator=gen,
+                          device=dev)
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    opt = torch.optim.SGD(leaves, lr=lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = cross_entropy_loss_packed(params, cfg, batch, positions)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    if cuda:
+        torch.cuda.synchronize()
+    report = {"init_s": time.perf_counter() - t0, "segment_lengths": lens,
+              "params": sum(t.numel() for t in leaves)}
+    errors = []
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+
+    _run_steps(step, steps, seq_len, kernels, cuda, report, errors)
+    _split_step(lambda: cross_entropy_loss_packed(params, cfg, batch,
+                                                  positions), opt, cuda,
+                report)
+    if cuda:
+        report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        report["step_profile"] = profile_device(
+            step, ("fwd_kernel", "dq_kernel", "dkdv_kernel"))
+    opt.zero_grad(set_to_none=True)
+
+    # The kernel path, recording each layer's attention inputs and output
+    # cotangent; then plain packed attention, and the same with noise.
+    records = []
+    recording = _recording(lambda q, k, v, *geom: (
+        packed.sink_flash_attention_packed(q, k, v, positions, *geom)),
+        records)
+
+    def plain(q, k, v, num_sink, window_size, s_aux):
+        return _PlainPackedAttention.apply(q, k, v, s_aux, positions,
+                                           num_sink, window_size)
+
+    valid = positions[0, 1:] > 0
+
+    def token_losses(attn_impl, backward=False):
+        """The valid targets' losses (and, with ``backward``, a backward
+        pass of their mean down to the first layer's wq, through every
+        layer's attention output)."""
+        with torch.set_grad_enabled(backward):
+            logits, _ = forward_prefill(params, cfg, batch,
+                                        positions=positions,
+                                        attn_impl=attn_impl)
+            losses = torch.nn.functional.cross_entropy(
+                logits[0, :-1].float(), batch[0, 1:], reduction="none")[valid]
+            if backward:
+                torch.autograd.grad(losses.mean(),
+                                    params["layers"][0]["attn"]["wq"])
+        return losses.detach(), logits.detach()
+
+    losses_k, logits_k = token_losses(recording, backward=True)
+    losses_p, _ = token_losses(plain)
+    losses_c, _ = token_losses(_noisy(plain, 11))
+
+    _check_layer_grads(records, lambda q, k, v, aux, do, *geom, plain:
+                       _packed_attn_grads(q, k, v, aux, do, positions, *geom,
+                                          plain=plain), report, errors)
+    del records
+
+    report["valid_targets"] = int(valid.sum())
+    report["token_losses"] = tl = {
+        "kernel_loss": float(losses_k.mean()),
+        "plain_loss": float(losses_p.mean()),
+        "control_loss": float(losses_c.mean()),
+        "kernel": 1.0 - cosine(losses_k, losses_p),
+        "control": 1.0 - cosine(losses_c, losses_p)}
+    if tl["kernel"] > 2.0 * tl["control"]:
+        errors.append(f"packed per-token losses, kernel vs plain attention: "
+                      f"1 - cosine {tl['kernel']:.3e}, control "
+                      f"{tl['control']:.3e}")
+
+    # Segment isolation: each segment in the pack against its own forward.
+    report["segments"] = seg_rows = []
+    start = 0
+    with torch.no_grad():
+        for i, L in enumerate(lens):
+            ids = batch[:, start:start + L]
+            alone, _ = forward_prefill(params, cfg, ids)
+            noisy, _ = forward_prefill(params, cfg, ids, attn_impl=_noisy(
+                flash.sink_flash_attention, 100 + i))
+            seg_rows.append({
+                "length": L,
+                "packed": 1.0 - _row_cos(logits_k[:, start:start + L], alone),
+                "control": 1.0 - _row_cos(noisy, alone)})
+            start += L
+    for i, r in enumerate(seg_rows):
+        if r["packed"] > 2.0 * r["control"]:
+            errors.append(f"segment {i} ({r['length']} tokens) in the pack "
+                          f"vs its own forward: 1 - mean row cosine "
+                          f"{r['packed']:.3e}, control {r['control']:.3e}")
     return report, errors
 
 
@@ -867,6 +1234,24 @@ def main() -> int:
             errors.append(f"{name} launched {treport['launches'][name]} "
                           f"times in {steps} training steps, expected {n}")
 
+    torch.cuda.empty_cache()
+
+    # 5. packed training
+    preport, perr = train_packed(tcfg, dev)
+    errors += perr
+    log("packed training gpt-oss-20b (4 of 24 layers at full width, bf16, "
+        "1 pack of 4096 tokens, SGD): " + json.dumps(preport))
+    # per step, no remat: each layer's packed forward, dQ and dK/dV once;
+    # the unpacked kernels not at all
+    steps = len(preport["steps"])
+    want = {name: steps * tcfg.num_layers if name.startswith("packed") else 0
+            for name in preport["launches"]}
+    for name, n in want.items():
+        if preport["launches"][name] != n:
+            errors.append(f"{name} launched {preport['launches'][name]} "
+                          f"times in {steps} packed training steps, "
+                          f"expected {n}")
+
     csrc = "sink_attention_tpu_torch/ops/csrc/"
     sources = {  # name: (source, TPU kernel it replaces, main-path launches)
         "flash_fwd": (csrc + "flash_fwd.cu",
@@ -879,7 +1264,16 @@ def main() -> int:
                      treport["launches"]["flash_dq"]),
         "flash_dkdv": (csrc + "flash_bwd.cu",
                        "sink_attention_tpu/ops/flash.py:576",
-                       treport["launches"]["flash_dkdv"])}
+                       treport["launches"]["flash_dkdv"]),
+        "packed_fwd": (csrc + "packed.cu",
+                       "sink_attention_tpu/ops/packed.py:190",
+                       preport["launches"]["packed_fwd"]),
+        "packed_dq": (csrc + "packed.cu",
+                      "sink_attention_tpu/ops/packed.py:265",
+                      preport["launches"]["packed_dq"]),
+        "packed_dkdv": (csrc + "packed.cu",
+                        "sink_attention_tpu/ops/packed.py:314",
+                        preport["launches"]["packed_dkdv"])}
     kernels = []
     for name, (src, repl, n_launch) in sources.items():
         rows = kern[name]  # the main path's two shapes, one launch each

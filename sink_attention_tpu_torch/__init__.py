@@ -2,16 +2,17 @@
 
 Sink flash attention (causal attention with always-attended sink tokens, a
 sliding window and the gpt-oss ``s_aux`` sink logit) on hand-written CUDA
-kernels for the NVIDIA H100 (forward, dQ and dK/dV, decode), with the
-rolling sink KV cache, the gpt-oss model, greedy serving and single-device
-training around it. It imports nothing of the JAX package;
+kernels for the NVIDIA H100 (forward, dQ and dK/dV, their packed
+multi-segment counterparts, decode), with the rolling sink KV cache, the
+gpt-oss model, greedy serving and single-device training, packed batches
+included, around it. It imports nothing of the JAX package;
 the JAX package is the reference its tests hold it to.
 
 Subpackages (the JAX package's layout):
 
-- ``ops``      -- eager oracle, differentiable prefill attention and
-                  decode attention (CUDA kernels, each with its plain
-                  PyTorch version)
+- ``ops``      -- eager oracle, differentiable prefill and packed
+                  attention, decode attention (CUDA kernels, each with its
+                  plain PyTorch version)
 - ``cache``    -- rolling sink KV cache (mutable)
 - ``models``   -- gpt-oss / dense model family, parameter carry-over from
                   JAX
@@ -23,9 +24,10 @@ Subpackages (the JAX package's layout):
 __version__ = "0.1.0"
 
 from .cache import SinkKVCache
-from .ops import (eager_sink_attention, merge_partials,
-                  sink_decode_attention, sink_decode_attention_cached,
-                  sink_flash_attention, sink_flash_attention_chunk,
+from .ops import (eager_sink_attention, eager_sink_attention_packed,
+                  merge_partials, sink_decode_attention,
+                  sink_decode_attention_cached, sink_flash_attention,
+                  sink_flash_attention_chunk, sink_flash_attention_packed,
                   sink_flash_attention_with_lse, sink_window_mask)
 
 __all__ = [
@@ -36,6 +38,8 @@ __all__ = [
     "sink_flash_attention_with_lse",
     "sink_flash_attention_chunk",
     "merge_partials",
+    "eager_sink_attention_packed",
+    "sink_flash_attention_packed",
     "sink_decode_attention",
     "sink_decode_attention_cached",
     "SinkKVCache",

@@ -318,19 +318,25 @@ def _layer_walk(params: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
 
 def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                     caches: Optional[List[SinkKVCache]] = None,
+                    positions: Optional[torch.Tensor] = None,
                     attn_impl=None, remat: bool = False):
     """Full-sequence forward. input_ids: [B, N] -> (logits [B, N, V],
     caches). With ``caches`` (one SinkKVCache per layer), each layer's KV
-    is stored in them for decode. ``attn_impl(q, k, v, num_sink=,
-    window_size=, s_aux=)`` overrides the attention (default: the CUDA
-    kernels on the card). ``remat=True`` runs each decoder layer under
-    activation checkpointing (``torch.utils.checkpoint``, non-reentrant):
-    the backward recomputes the layer's activations instead of keeping
-    them, one more forward of work for memory O(1) in depth, as
-    ``jax.checkpoint`` does in the JAX package. Ignored with ``caches``."""
+    is stored in them for decode. ``positions`` ([N] or [B, N], default
+    0..N-1) are the RoPE positions: a packed batch passes its
+    segment-local positions here and a packed ``attn_impl``.
+    ``attn_impl(q, k, v, num_sink=, window_size=, s_aux=)`` overrides the
+    attention (default: the CUDA kernels on the card). ``remat=True`` runs
+    each decoder layer under activation checkpointing
+    (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
+    the layer's activations instead of keeping them, one more forward of
+    work for memory O(1) in depth, as ``jax.checkpoint`` does in the JAX
+    package. Ignored with ``caches``."""
     B, N = input_ids.shape
     x = params["embed"][input_ids]
-    cos, sin = rope_cos_sin(cfg, torch.arange(N, device=input_ids.device))
+    if positions is None:
+        positions = torch.arange(N, device=input_ids.device)
+    cos, sin = rope_cos_sin(cfg, positions.to(input_ids.device))
     if attn_impl is None:
         attn_impl = sink_flash_attention
 

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``, with
+the shared ``csrc/attention.cuh``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
@@ -31,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_fwd", "flash_bwd", "decode")
+SOURCES = ("flash_fwd", "flash_bwd", "packed", "decode")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # What the last build printed: {name: {"seconds": s, "ptxas": [lines]}}.

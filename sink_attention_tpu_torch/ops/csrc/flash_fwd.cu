@@ -1,321 +1,23 @@
 // Sink + sliding-window causal attention forward (prefill) for Hopper.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` of
-// sink_attention_tpu/ops/flash.py (launched by `_fwd_impl`). Computes, for
-// every query row i and key j,
-//     valid(i, j) = j <= i  AND  (j < num_sink  OR  j >= i - window + 1)
-// (global positions: i = q_offset + row, j = kv_offset + col), the output
-// O = softmax(scale * Q K^T) V over the valid keys plus the optional per-head
-// sink logit s_aux (an extra logit with no value), and the natural-log LSE.
+// sink_attention_tpu/ops/flash.py (launched by `_fwd_impl`): the forward of
+// attention.cuh over SinkWindowMask, that is, for every query row i and key
+// j at global positions i = q_offset + row, j = kv_offset + col,
+//     valid(i, j) = 0 <= j <= i  AND  (j < num_sink  OR  j >= i - window + 1)
+// with O, the natural-log LSE and the optional per-head s_aux logit.
 //
 // What bounds it on the H100: at the main-path shapes (D = 64, bf16,
 // GQA 64/8, W = 128 or W = N = 1024) the work is about 110 FLOP per byte of
 // Q/K/V/O for W = 128 and about 450 for the full layers, against the card's
 // ridge of ~295 FLOP/byte: the sliding layers are bound by memory, the full
 // layers by tensor-core throughput. A simple mma.sync kernel reaches neither
-// bound; wgmma and TMA are the tools of a later, faster version.
-//
-// Design (right first, simple):
-//  * one CTA of 4 warps per (b*h_q, 64-row q block); each warp owns 16 rows;
-//  * the CTA visits only the KV blocks of two ranges computed on the host
-//    (the sink blocks, then the window blocks after them), passed as an
-//    int32 table [n_q_blocks, 4] = (sink_b0, sink_b1, win_b0, win_b1);
-//  * K/V tiles of 64 keys are double-buffered in shared memory with
-//    cp.async, so the next tile's copy overlaps this tile's math;
-//  * Q K^T and P V run on bf16 mma.sync.m16n8k16 with fp32 accumulation;
-//    P never leaves registers (the S accumulator layout is the A-operand
-//    layout of the P V product);
-//  * classic online softmax in the exp2 domain, seeded with m = s_aux*log2e,
-//    l = 1 when s_aux is given (m = -inf, l = 0 otherwise). The TPU kernel's
-//    fixed-scale softmax and its whole-call re-run are not carried over: the
-//    classic update is exact for every input.
-//  * tiles fully inside the mask skip the per-element mask.
-// GQA: query head h reads KV head h / (H_q / H_kv). D must be 64 or 128.
+// bound; wgmma and TMA are the tools of a later, faster version. Design:
+// attention.cuh.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "attention.cuh"
 
-namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int NTHREADS = 128;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 source bytes: zero-fill the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// D += A(16x16 bf16, row) * B(16x8 bf16, col), fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-    sink_fwd_kernel(const uint16_t* __restrict__ q,
-                    const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v,
-                    const float* __restrict__ s_aux,
-                    const int* __restrict__ ranges, uint16_t* __restrict__ o,
-                    float* __restrict__ lse, int H_q, int H_kv, int N_q,
-                    int N_kv, int num_sink, int window, int q_offset,
-                    int kv_offset, float scale_log2) {
-  constexpr int STRIDE = D + 8;  // padded smem row (elements): no conflicts
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  constexpr int KT = D / 16;     // k-steps of Q K^T
-  constexpr int DT = D / 8;      // n-tiles of P V
-  constexpr int NT = BN / 8;     // n-tiles of Q K^T
-
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Qs = smem;                 // [BM][STRIDE]
-  uint16_t* Ks = Qs + BM * STRIDE;     // [2][BN][STRIDE]
-  uint16_t* Vs = Ks + 2 * BN * STRIDE; // [2][BN][STRIDE]
-
-  const int qb = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H_q;
-  const int h = bh - b * H_q;
-  const int kvh = b * H_kv + h / (H_q / H_kv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;   // row within the 8-row half of the warp tile
-  const int t4 = lane & 3;   // column pair within an 8-wide n-tile
-
-  const uint16_t* qg = q + (size_t)bh * N_q * D;
-  const uint16_t* kg = k + (size_t)kvh * N_kv * D;
-  const uint16_t* vg = v + (size_t)kvh * N_kv * D;
-
-  const int sb0 = ranges[qb * 4 + 0];
-  const int sb1 = ranges[qb * 4 + 1];
-  const int wb0 = ranges[qb * 4 + 2];
-  const int wb1 = ranges[qb * 4 + 3];
-  const int n_sink_blocks = max(sb1 - sb0, 0);
-  const int n_blocks = n_sink_blocks + max(wb1 - wb0, 0);
-
-  for (int c = tid; c < BM * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-    const int row = qb * BM + r;
-    const bool ok = row < N_q;
-    cp_async16(Qs + r * STRIDE + cc * 8,
-               qg + (size_t)(ok ? row : 0) * D + cc * 8, ok);
-  }
-
-  auto block_of = [&](int t) {
-    return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
-  };
-  auto load_kv = [&](int t, int buf) {
-    const int blk = block_of(t);
-    for (int c = tid; c < BN * CHUNKS; c += NTHREADS) {
-      const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-      const int row = blk * BN + r;
-      const bool ok = row < N_kv;
-      const size_t off = (size_t)(ok ? row : 0) * D + cc * 8;
-      cp_async16(Ks + (buf * BN + r) * STRIDE + cc * 8, kg + off, ok);
-      cp_async16(Vs + (buf * BN + r) * STRIDE + cc * 8, vg + off, ok);
-    }
-  };
-  if (n_blocks > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  const bool use_aux = s_aux != nullptr;
-  float m[2], l[2];
-  m[0] = m[1] = use_aux ? s_aux[h] * LOG2E : -INFINITY;
-  l[0] = l[1] = use_aux ? 1.f : 0.f;
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int r_loc = warp * 16 + g;               // this thread's first row
-  const int row_g0 = q_offset + qb * BM + r_loc;  // global row (second: +8)
-  const int blk_row_lo = q_offset + qb * BM;
-  const int blk_row_hi = blk_row_lo + BM - 1;
-  uint32_t qf[KT][4];
-
-  for (int t = 0; t < n_blocks; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_blocks) load_kv(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        const uint16_t* qr = Qs + r_loc * STRIDE + kk * 16 + t4 * 2;
-        qf[kk][0] = ld32(qr);
-        qf[kk][1] = ld32(qr + 8 * STRIDE);
-        qf[kk][2] = ld32(qr + 8);
-        qf[kk][3] = ld32(qr + 8 * STRIDE + 8);
-      }
-    }
-
-    // S = Q K^T for this warp's 16 rows x 64 keys.
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    const uint16_t* kb = Ks + buf * BN * STRIDE;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const uint16_t* kr = kb + (nt * 8 + g) * STRIDE + kk * 16 + t4 * 2;
-        mma16816(s[nt], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // Scale into the exp2 domain and mask.
-    const int col0 = block_of(t) * BN;
-    const int cg_lo = kv_offset + col0;
-    const int cg_hi = cg_lo + BN - 1;
-    const bool full = (col0 + BN <= N_kv) && (cg_lo >= 0) &&
-                      (cg_hi <= blk_row_lo) &&
-                      (cg_hi < num_sink || cg_lo >= blk_row_hi - window + 1);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * scale_log2;
-        if (!full) {
-          const int row = row_g0 + (e >> 1) * 8;
-          const int jl = col0 + nt * 8 + t4 * 2 + (e & 1);
-          const int jg = kv_offset + jl;
-          const bool ok = jl < N_kv && jg >= 0 && jg <= row &&
-                          (jg < num_sink || jg >= row - window + 1);
-          x = ok ? x : -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-    }
-
-    // Online softmax, one row pair per thread (rows r_loc and r_loc + 8).
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = exp2f(m[r] - m_use);  // m = -inf: acc, l are 0
-      m[r] = m_new;
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const float p0 = exp2f(s[nt][2 * r] - m_use);
-        const float p1 = exp2f(s[nt][2 * r + 1] - m_use);
-        s[nt][2 * r] = p0;
-        s[nt][2 * r + 1] = p1;
-        rs += p0 + p1;
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l[r] = l[r] * alpha + rs;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        acc[dt][2 * r] *= alpha;
-        acc[dt][2 * r + 1] *= alpha;
-      }
-    }
-
-    // acc += P V. P's accumulator layout is the A-fragment layout.
-    const uint16_t* vb = Vs + buf * BN * STRIDE;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      a[1] = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      a[2] = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      a[3] = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-      const uint16_t* vr = vb + (j * 16 + t4 * 2) * STRIDE + g;
-#pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const uint16_t* p = vr + dt * 8;
-        const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[STRIDE] << 16);
-        const uint32_t b1 =
-            (uint32_t)p[8 * STRIDE] | ((uint32_t)p[9 * STRIDE] << 16);
-        mma16816(acc[dt], a, b0, b1);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qb * BM + r_loc + r * 8;
-    if (row >= N_q) continue;
-    const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
-    uint16_t* orow = o + ((size_t)bh * N_q + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + t4 * 2) =
-          pack_bf16(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
-    }
-    if (t4 == 0) {
-      lse[(size_t)bh * N_q + row] =
-          l[r] == 0.f ? -INFINITY : m[r] * LN2 + logf(l[r]);
-    }
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, const void* s_aux,
-           const void* ranges, void* o, void* lse, int B, int H_q, int H_kv,
-           int N_q, int N_kv, int num_sink, int window, int q_offset,
-           int kv_offset, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(uint16_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      sink_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N_q + BM - 1) / BM, B * H_q);
-  sink_fwd_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const float*>(s_aux),
-      static_cast<const int*>(ranges), static_cast<uint16_t*>(o),
-      static_cast<float*>(lse), H_q, H_kv, N_q, N_kv, num_sink, window,
-      q_offset, kv_offset, scale * LOG2E);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+using sinkattn::SinkWindowMask;
 
 // q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; s_aux [H_q] fp32
 // or null; ranges [ceil(N_q/64), 4] int32; o like q; lse [B*H_q, N_q] fp32.
@@ -325,17 +27,12 @@ extern "C" int sink_fwd_bf16(const void* q, const void* k, const void* v,
                              int N_kv, int D, int num_sink, int window,
                              int q_offset, int kv_offset, float scale,
                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N_q <= 0 || B * H_q <= 0) return 0;
-  if (D == 64)
-    return launch<64>(q, k, v, s_aux, ranges, o, lse, B, H_q, H_kv, N_q, N_kv,
-                      num_sink, window, q_offset, kv_offset, scale, st);
-  if (D == 128)
-    return launch<128>(q, k, v, s_aux, ranges, o, lse, B, H_q, H_kv, N_q,
-                       N_kv, num_sink, window, q_offset, kv_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
+                            num_sink, window, q_offset, kv_offset};
+  return sinkattn::launch_fwd(q, k, v, s_aux, o, lse, B, H_q, H_kv, N_q,
+                              N_kv, D, scale, mask, stream);
 }
 
 // Tile sizes the host-side range table must use.
-extern "C" int sink_fwd_block_m() { return BM; }
-extern "C" int sink_fwd_block_n() { return BN; }
+extern "C" int sink_fwd_block_m() { return sinkattn::BM; }
+extern "C" int sink_fwd_block_n() { return sinkattn::BN; }

@@ -1,0 +1,146 @@
+// Packed (multi-segment) sink attention for Hopper: forward, dQ and dK/dV.
+//
+// Replace the Pallas TPU kernels `_pfwd_kernel`, `_pdq_kernel` and
+// `_pdkdv_kernel` of sink_attention_tpu/ops/packed.py (launched by
+// `_pfwd_impl` and `_pbwd_impl`): the kernels of attention.cuh over
+// PackedMask. One pack row b holds several segments back to back;
+// positions[b, i] counts up from 0 in each segment, so row i's segment
+// starts at s_i = i - positions[b, i] and
+//     valid(i, j) = j <= i  AND  j >= s_i
+//                   AND  (j < s_i + num_sink  OR  j >= i - window + 1)
+// (j >= s_i with causality already puts j in i's segment). A pack that
+// begins inside a segment gives its leading rows s_i < 0: their first
+// num_sink - positions[b, 0] columns are sinks, as the eager oracle has it.
+// s_i must not decrease along the pack, as it never does for positions that
+// count up by 1 and reset to 0.
+//
+// What bounds them on the H100: the visible pairs of the pack's own mask,
+// not N * (W + num_sink). At the training pack (N = 4096, segments of
+// 1316, 1002, 816, 461 and 501 tokens, GQA 64/8, D = 64) a full layer
+// (W = N) costs about sum(len^2) / 2 pairs and is bound by tensor-core
+// throughput: forward / dQ / dK/dV bounds 0.032 / 0.048 / 0.064 ms; a
+// W = 128 layer is bound by memory (each kernel reads q, k, v and dO once):
+// 0.023 / 0.033 / 0.026 ms (chip_smoke.py on an H100 80GB HBM3 at 700 W;
+// the kernels' times beside them are in PERF.md). What the design does
+// about it: the host tables (ops/packed.py) clamp every range to the
+// segments the block's rows or columns belong to, so no CTA walks a tile
+// wholly outside the pack's mask; the math runs on mma.sync, as the
+// unpacked kernels do, and reaches neither bound.
+//
+// Tables, built per batch by ops/packed.py:
+//   seg   [B, N]          s_i of every row;
+//   q     [B, n_q_blocks, 6]  per 64-row q block: (sink_b0, sink_b1,
+//         win_b0, win_b1, s of the block's first row, s of its last row):
+//         the sink blocks of the first row's segment, then the window blocks
+//         from max(first row's s, first row - window + 1), disjoint;
+//   kv    [B, n_kv_blocks, 2] per 64-slot KV block: the q-block range that
+//         reads it, up to cdiv(max_j reach(j), 64) with reach(j) the end of
+//         j's segment for a sink column, else min(that end, j + window).
+// A tile is mask-free when its rows share one segment (first-row s ==
+// last-row s) and every cell is inside it.
+
+#include "attention.cuh"
+
+namespace {
+
+using sinkattn::BM;
+using sinkattn::BN;
+
+struct PackedMask {
+  static constexpr bool kRowSmem = true;  // dK/dV keeps each q tile's s_i
+  struct Row {
+    int i, s;  // the row and its segment start
+  };
+  const int* table;  // the q or the kv table above
+  const int* seg;    // [B, N]
+  int N, n_blocks, num_sink, window;
+
+  __device__ const int* q_block(int b, int qb) const {
+    return table + (b * n_blocks + qb) * 6;
+  }
+  __device__ const int* kv_block(int b, int kb) const {
+    return table + (b * n_blocks + kb) * 2;
+  }
+  // Rows past N get s = row: no column is visible to them.
+  __device__ int seg_of(int b, int qrow) const {
+    return qrow < N ? seg[(size_t)b * N + qrow] : qrow;
+  }
+  __device__ Row row(int b, int qrow) const { return {qrow, seg_of(b, qrow)}; }
+  __device__ void store_row(int* dst, int b, int qrow) const {
+    *dst = seg_of(b, qrow);
+  }
+  __device__ Row smem_row(const int* srow, int ql, int qrow) const {
+    return {qrow, srow[ql]};
+  }
+  __device__ bool visible(Row r, int j) const {
+    return j < N && j <= r.i && j >= r.s &&
+           (j < r.s + num_sink || j >= r.i - window + 1);
+  }
+  // Every cell of q block qb x keys [col0, col0 + BN) is visible, given the
+  // segment starts of the block's first and last rows.
+  __device__ bool tile_full(int s_first, int s_last, int qb, int col0) const {
+    const int r_lo = qb * BM, r_hi = r_lo + BM - 1, c_hi = col0 + BN - 1;
+    return s_first == s_last && col0 + BN <= N && c_hi <= r_lo &&
+           col0 >= s_first &&
+           (c_hi < s_first + num_sink || col0 >= r_hi - window + 1);
+  }
+  __device__ bool q_tile_full(const int* rg, int qb, int col0) const {
+    return tile_full(rg[4], rg[5], qb, col0);
+  }
+  __device__ bool kv_tile_full(int kb, int qb, const int* srow) const {
+    return qb * BM + BM <= N && tile_full(srow[0], srow[BM - 1], qb, kb * BN);
+  }
+};
+
+PackedMask make_mask(const void* table, const void* seg, int N, int block,
+                     int num_sink, int window) {
+  return PackedMask{static_cast<const int*>(table),
+                    static_cast<const int*>(seg), N, (N + block - 1) / block,
+                    num_sink, window};
+}
+
+}  // namespace
+
+// q [B*H_q, N, D], k/v [B*H_kv, N, D] bf16 contiguous; s_aux [H_q] fp32 or
+// null; qtable [B, ceil(N/64), 6], seg [B, N] int32; o like q; lse
+// [B*H_q, N] fp32.
+extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
+                              const void* s_aux, const void* qtable,
+                              const void* seg, void* o, void* lse, int B,
+                              int H_q, int H_kv, int N, int D, int num_sink,
+                              int window, float scale, void* stream) {
+  return sinkattn::launch_fwd(q, k, v, s_aux, o, lse, B, H_q, H_kv, N, N, D,
+                              scale,
+                              make_mask(qtable, seg, N, BM, num_sink, window),
+                              stream);
+}
+
+// As sink_pfwd_bf16, plus dout like q and lse, delta [B*H_q, N] fp32; dq
+// like q.
+extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, const void* qtable,
+                             const void* seg, void* dq, int B, int H_q,
+                             int H_kv, int N, int D, int num_sink, int window,
+                             float scale, void* stream) {
+  return sinkattn::launch_dq(q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N,
+                             N, D, scale,
+                             make_mask(qtable, seg, N, BM, num_sink, window),
+                             stream);
+}
+
+// As sink_pdq_bf16 with kvtable [B, ceil(N/64), 2]; dk, dv like k.
+extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, const void* kvtable,
+                               const void* seg, void* dk, void* dv, int B,
+                               int H_q, int H_kv, int N, int D, int num_sink,
+                               int window, float scale, void* stream) {
+  return sinkattn::launch_dkdv(
+      q, k, v, dout, lse, delta, dk, dv, B, H_q, H_kv, N, N, D, scale,
+      make_mask(kvtable, seg, N, BN, num_sink, window), stream);
+}
+
+// Tile sizes the host-side tables must use.
+extern "C" int sink_packed_block_m() { return BM; }
+extern "C" int sink_packed_block_n() { return BN; }

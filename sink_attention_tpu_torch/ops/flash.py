@@ -1,7 +1,8 @@
 """Differentiable sink flash attention on hand-written CUDA kernels.
 
-Counterpart of ``sink_attention_tpu/ops/flash.py``. Three kernels, each
-beside its plain PyTorch version:
+Counterpart of ``sink_attention_tpu/ops/flash.py``. Three kernels (those of
+``csrc/attention.cuh`` over its sink + window mask), each beside its plain
+PyTorch version:
 
 * ``csrc/flash_fwd.cu`` (replaces the TPU kernel ``_fwd_kernel``): O and
   LSE; plain version :func:`flash_fwd_plain`;
@@ -149,13 +150,21 @@ def flash_fwd_plain(q, k, v, s_aux=None, num_sink: int = 4,
     lse [B,H_q,N_q] fp32), the eager oracle taken over query chunks of
     1024 rows so that its [.., rows, N_kv] score block stays bounded at
     long N."""
+    n_kv = k.shape[2]
+    return fwd_plain_chunks(q, k, v, s_aux, lambda r0, n: _visible(
+        n, n_kv, num_sink, window_size, q_offset + r0, kv_offset,
+        q.device)[None, None])
+
+
+def fwd_plain_chunks(q, k, v, s_aux, chunk_mask):
+    """(out, lse) of the eager oracle over query chunks of 1024 rows;
+    ``chunk_mask(r0, n)`` is the mask of rows [r0, r0 + n), bool
+    [B|1, 1, n, N_kv]."""
     outs, lses = [], []
-    n_q, n_kv = q.shape[2], k.shape[2]
-    for r0 in range(0, max(n_q, 1), _PLAIN_ROWS):
+    for r0 in range(0, max(q.shape[2], 1), _PLAIN_ROWS):
         qc = q[:, :, r0:r0 + _PLAIN_ROWS]
-        mask = _visible(qc.shape[2], n_kv, num_sink, window_size,
-                        q_offset + r0, kv_offset, q.device)
-        o, lse = _eager_attend(qc, k, v, mask[None, None], s_aux, True)
+        o, lse = _eager_attend(qc, k, v, chunk_mask(r0, qc.shape[2]), s_aux,
+                               True)
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
@@ -174,6 +183,15 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
     forward's (it counts s_aux, so P is the true probability); ``delta``
     [B,H_q,N_q] fp32 is sum_d dO * O, less the LSE cotangent if any.
     """
+    n_kv = k.shape[2]
+    return bwd_plain_chunks(q, k, v, do, lse, delta, lambda r0, n: _visible(
+        n, n_kv, num_sink, window_size, q_offset + r0, kv_offset, q.device))
+
+
+def bwd_plain_chunks(q, k, v, do, lse, delta, chunk_mask):
+    """(dq, dk, dv) of :func:`flash_bwd_plain`'s formulas under the mask
+    ``chunk_mask(r0, n)`` of rows [r0, r0 + n), bool broadcastable to
+    [B, H_q, n, N_kv]."""
     B, H_q, N_q, D = q.shape
     H_kv, N_kv = k.shape[1], k.shape[2]
     group = H_q // H_kv
@@ -186,8 +204,7 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
     for r0 in range(0, max(N_q, 1), _PLAIN_ROWS):
         rows = slice(r0, r0 + _PLAIN_ROWS)
         qc, doc = q[:, :, rows].float(), do[:, :, rows].float()
-        mask = _visible(qc.shape[2], N_kv, num_sink, window_size,
-                        q_offset + r0, kv_offset, q.device)
+        mask = chunk_mask(r0, qc.shape[2])
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
         p = torch.where(mask, torch.exp(s - lse[:, :, rows, None]), 0.0)
         dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf)
@@ -201,12 +218,12 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
             dv.to(v.dtype))
 
 
-def _load_fn(source: str, name: str, n_ptrs: int):
+def load_fn(source: str, name: str, n_ptrs: int, n_ints: int = 10):
     """``name`` of the library of ``csrc/<source>.cu``, with its argtypes:
-    ``n_ptrs`` pointers, 10 ints, the scale and the stream."""
+    ``n_ptrs`` pointers, ``n_ints`` ints, the scale and the stream."""
     fn = getattr(_build.load(source), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 10 +
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
 
@@ -217,7 +234,7 @@ def _kernel_fn():
     if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (BM, BN):
         raise RuntimeError("csrc/flash_fwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    return _load_fn("flash_fwd", "sink_fwd_bf16", 7)
+    return load_fn("flash_fwd", "sink_fwd_bf16", 7)
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,8 +243,8 @@ def _bwd_fns():
     if (lib.sink_bwd_block_m(), lib.sink_bwd_block_n()) != (BM, BN):
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    return (_load_fn("flash_bwd", "sink_dq_bf16", 8),
-            _load_fn("flash_bwd", "sink_dkdv_bf16", 9))
+    return (load_fn("flash_bwd", "sink_dq_bf16", 8),
+            load_fn("flash_bwd", "sink_dkdv_bf16", 9))
 
 
 @functools.lru_cache(maxsize=256)

@@ -1,0 +1,349 @@
+"""Differentiable sink attention over packed (multi-segment) batches, on
+hand-written CUDA kernels.
+
+Counterpart of ``sink_attention_tpu/ops/packed.py``. A packed batch row
+holds several segments back to back; ``positions`` [B, N] counts up from 0
+in each, and with segment starts ``s_i = i - positions_i`` each segment
+gets its own sinks and causal window (``ops.reference.packed_rows_mask``).
+``s_i`` must not decrease along the pack, as it never does for positions
+that count up by 1 and reset to 0: the tables below rely on it, as the JAX
+kernels do, and nothing checks it.
+
+Three kernels in ``csrc/packed.cu`` (the kernels of ``csrc/attention.cuh``
+over the packed mask), each beside its plain PyTorch version:
+
+* ``sink_pfwd_bf16`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
+  plain version :func:`packed_fwd_plain`;
+* ``sink_pdq_bf16`` (``_pdq_kernel``) and ``sink_pdkdv_bf16``
+  (``_pdkdv_kernel``): dQ, and dK/dV summed over the GQA group; plain
+  version of the pair :func:`packed_bwd_plain`.
+
+A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
+or raises. :class:`_PackedSinkAttention` ties them into one autograd
+function (JAX's ``custom_vjp``), its delta preprocess and ``ds_aux``
+epilogue plain torch through ``ops.flash.attention_backward``.
+
+The kernels walk per-batch tables (:func:`packed_tables`) built with
+vectorised torch ops on the kernels' device: no device-to-host sync. They
+are cached per positions tensor, so the layers of one forward and their
+backward share one build.
+
+A pack that begins inside a segment (``0 < positions[b, 0] < num_sink``)
+keeps the oracle's semantics: its leading columns with positions below
+``num_sink`` are sinks of the leading rows, and dK/dV counts every row
+that reads them. The JAX kernel's table (``_packed_meta``) gives those
+columns no sink pass and drops their gradients beyond the window; this
+port does not copy that.
+"""
+
+from __future__ import annotations
+
+import functools
+import weakref
+from typing import List, NamedTuple
+
+import torch
+
+from . import _build
+from .flash import (BM, BN, _WINDOW_CLAMP, _bwd_operands,
+                    attention_backward, bwd_plain_chunks, fwd_plain_chunks,
+                    load_fn)
+from .reference import packed_rows_mask
+
+__all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
+           "packed_fwd_plain", "packed_bwd_plain", "packed_fwd_kernel",
+           "packed_dq_kernel", "packed_dkdv_kernel"]
+
+
+class PackedTables(NamedTuple):
+    """int32 tables of one packed batch for one (num_sink, window):
+
+    * ``seg`` [B, N]: the segment start ``s_i`` of every row;
+    * ``q`` [B, ceil(N/64), 6]: per 64-row q block (forward and dQ), the
+      KV blocks it visits as two half-open ranges (sink_b0, sink_b1) and
+      (win_b0, win_b1), then the segment starts of its first and last row;
+    * ``kv`` [B, ceil(N/64), 2]: per 64-slot KV block (dK/dV), the
+      half-open range of q blocks that read it.
+    """
+    seg: torch.Tensor
+    q: torch.Tensor
+    kv: torch.Tensor
+
+
+def _cdiv_t(x: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.div(x + (d - 1), d, rounding_mode="floor")
+
+
+def packed_tables(positions: torch.Tensor, num_sink: int,
+                  window: int) -> PackedTables:
+    """The kernels' tables for ``positions`` [B, N], on its device.
+
+    Forward and dQ, per q block of rows [r0, r1]: the sink range covers the
+    first row's segment's sink columns [max(s_r0, 0), s_r0 + num_sink),
+    cut at r1; the window range covers [max(s_r0, r0 - window + 1, 0), r1]
+    and starts after the sink range, so no block is visited twice. A later
+    segment starting inside the block starts after r0, so its sinks lie in
+    the window range.
+
+    dK/dV, per KV block of columns [c0, c1]: q blocks from c0's on (causal)
+    up to cdiv(max_j reach(j), 64), where reach(j) is the end of j's segment
+    for a sink column (positions[j] < num_sink), else min(that end, j +
+    window). Tokens before the pack's first reset end at that reset.
+
+    So a full layer (window >= N) of a pack of segments of lengths L_k
+    costs about sum(L_k^2) / 2 pairs, not N^2 / 2.
+    """
+    pos = positions.long()
+    B, N = pos.shape
+    dev = pos.device
+    idx = torch.arange(N, device=dev)
+    seg = idx - pos
+    n_q_blocks, n_kv_blocks = -(-N // BM), -(-N // BN)
+
+    r0 = torch.arange(n_q_blocks, device=dev) * BM
+    r1 = (r0 + BM - 1).clamp(max=N - 1)
+    s_first, s_last = seg[:, r0], seg[:, r1]
+    lo = s_first.clamp(min=0)
+    hi = torch.minimum(s_first + num_sink, r1 + 1)
+    has_sink = hi > lo
+    zero = torch.zeros_like(lo)
+    sink_b0 = torch.where(has_sink, lo // BN, zero)
+    sink_b1 = torch.where(has_sink, _cdiv_t(hi, BN), zero)
+    win_lo = torch.maximum(s_first, r0 - window + 1).clamp(min=0)
+    win_b0 = torch.maximum(win_lo // BN, sink_b1)
+    win_b1 = torch.maximum(_cdiv_t(r1 + 1, BN).expand_as(win_b0), win_b0)
+    qtab = torch.stack([sink_b0, sink_b1, win_b0, win_b1, s_first, s_last],
+                       dim=-1)
+
+    # seg_end(j): the first reset after j, else N
+    resets = torch.where(pos == 0, idx, N)
+    after = torch.cat([resets[:, 1:], torch.full((B, 1), N, device=dev)],
+                      dim=1)
+    seg_end = after.flip(1).cummin(dim=1).values.flip(1)
+    reach = torch.where(pos < num_sink, seg_end,
+                        torch.minimum(seg_end, idx + window))
+    reach = torch.nn.functional.pad(reach, (0, n_kv_blocks * BN - N))
+    reach = reach.reshape(B, n_kv_blocks, BN).amax(dim=-1)
+    qb0 = (torch.arange(n_kv_blocks, device=dev) * BN // BM).expand(B, -1)
+    qb1 = torch.maximum(_cdiv_t(reach, BM).clamp(max=n_q_blocks), qb0)
+    kvtab = torch.stack([qb0, qb1], dim=-1)
+    return PackedTables(seg.int().contiguous(), qtab.int().contiguous(),
+                        kvtab.int().contiguous())
+
+
+# (weakref to the positions tensor, its version, device, num_sink, window,
+# tables): the tables of the last few batches.
+_TABLES: List[tuple] = []
+_TABLES_KEPT = 16
+
+
+def _tables_for(positions, device, num_sink, window) -> PackedTables:
+    """:func:`packed_tables` of ``positions`` on ``device``, built once per
+    positions tensor (and its version) and geometry."""
+    key = (positions._version, device, num_sink, window)
+    for ref, *rest, tables in _TABLES:
+        if ref() is positions and tuple(rest) == key:
+            return tables
+    tables = packed_tables(positions.to(device), num_sink, window)
+    _TABLES.append((weakref.ref(positions), *key, tables))
+    del _TABLES[:-_TABLES_KEPT]
+    return tables
+
+
+def packed_fwd_plain(q, k, v, positions, s_aux=None, num_sink: int = 4,
+                     window_size: int = 512):
+    """The forward kernel's plain PyTorch version: (out [B,H_q,N,D] in
+    q.dtype, lse [B,H_q,N] fp32), the eager oracle over query chunks of
+    1024 rows."""
+    pos = positions.to(q.device)
+    return fwd_plain_chunks(q, k, v, s_aux, lambda r0, n: packed_rows_mask(
+        pos, r0, n, num_sink, window_size)[:, None])
+
+
+def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
+                     window_size: int = 512):
+    """The plain PyTorch version of the packed dQ and dK/dV kernels: (dq,
+    dk, dv), ``ops.flash.flash_bwd_plain``'s formulas under the packed
+    mask."""
+    pos = positions.to(q.device)
+    return bwd_plain_chunks(q, k, v, do, lse, delta, lambda r0, n:
+                            packed_rows_mask(pos, r0, n, num_sink,
+                                             window_size)[:, None])
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = _build.load("packed")
+    if (lib.sink_packed_block_m(), lib.sink_packed_block_n()) != (BM, BN):
+        raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
+                           "tile sizes")
+    return (load_fn("packed", "sink_pfwd_bf16", 8, 7),
+            load_fn("packed", "sink_pdq_bf16", 9, 7),
+            load_fn("packed", "sink_pdkdv_bf16", 10, 7))
+
+
+def _geometry(q, k, v, positions, num_sink, window_size):
+    """Checks shared by the kernels' wrappers; returns the ints the kernels
+    take, (B, H_q, H_kv, N, D, num_sink, window)."""
+    B, H_q, N, D = q.shape
+    H_kv = k.shape[1]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[2] != N
+            or H_q % H_kv):
+        raise ValueError(f"bad packed shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if tuple(positions.shape) != (B, N):
+        raise ValueError(f"positions must be [B, N] = {(B, N)}, got "
+                         f"{tuple(positions.shape)}")
+    if not q.is_cuda:
+        raise ValueError("the CUDA attention kernels take CUDA tensors")
+    return (B, H_q, H_kv, N, D, min(int(num_sink), _WINDOW_CLAMP),
+            min(int(window_size), _WINDOW_CLAMP))
+
+
+def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
+                      window_size: int = 512):
+    """Launch ``sink_pfwd_bf16`` of ``csrc/packed.cu``: (out, lse).
+
+    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16 with D in (64, 128); positions
+    [B, N] (any int dtype, any device); s_aux [H_q] or None.
+    ``packed_fwd_kernel.launches`` counts the launches.
+    """
+    _build.check_attention_inputs(q, k, v, s_aux)
+    geom = _geometry(q, k, v, positions, num_sink, window_size)
+    B, H_q, _, N, D, ns, W = geom
+    tables = _tables_for(positions, q.device, ns, W)
+    qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
+    aux = (s_aux.detach().float().contiguous() if s_aux is not None
+           else None)
+    out = torch.empty_like(qc)
+    lse = torch.empty((B, H_q, N), dtype=torch.float32, device=q.device)
+    ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, tables.q, tables.seg,
+                                    out, lse)]
+    code = _kernel_fns()[0](*ptrs, *geom, 1.0 / (D ** 0.5),
+                            _build.stream_ptr(q.device))
+    _build.check(code, "sink_pfwd_bf16")
+    packed_fwd_kernel.launches += 1
+    return out, lse
+
+
+packed_fwd_kernel.launches = 0
+
+
+def packed_dq_kernel(q, k, v, do, lse, delta, positions, num_sink: int = 4,
+                     window_size: int = 512):
+    """Launch ``sink_pdq_bf16`` of ``csrc/packed.cu``: dq [B,H_q,N,D]
+    bf16. Inputs as :func:`packed_bwd_plain`'s, on the card.
+    ``packed_dq_kernel.launches`` counts the launches."""
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    geom = _geometry(q, k, v, positions, num_sink, window_size)
+    tables = _tables_for(positions, q.device, *geom[5:])
+    dq = torch.empty_like(ops[0])
+    ptrs = [_build.ptr(t) for t in (*ops, tables.q, tables.seg, dq)]
+    code = _kernel_fns()[1](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
+                            _build.stream_ptr(q.device))
+    _build.check(code, "sink_pdq_bf16")
+    packed_dq_kernel.launches += 1
+    return dq
+
+
+packed_dq_kernel.launches = 0
+
+
+def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
+                       num_sink: int = 4, window_size: int = 512):
+    """Launch ``sink_pdkdv_bf16`` of ``csrc/packed.cu``: (dk, dv)
+    [B,H_kv,N,D] bf16, summed over each GQA group inside the kernel.
+    Inputs as :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches``
+    counts the launches."""
+    ops = _bwd_operands(q, k, v, do, lse, delta)
+    geom = _geometry(q, k, v, positions, num_sink, window_size)
+    tables = _tables_for(positions, q.device, *geom[5:])
+    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.seg, dk, dv)]
+    code = _kernel_fns()[2](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
+                            _build.stream_ptr(q.device))
+    _build.check(code, "sink_pdkdv_bf16")
+    packed_dkdv_kernel.launches += 1
+    return dk, dv
+
+
+packed_dkdv_kernel.launches = 0
+
+
+def _fwd(q, k, v, positions, s_aux, num_sink, window_size):
+    if q.device.type == "cpu":
+        return packed_fwd_plain(q, k, v, positions, s_aux, num_sink,
+                                window_size)
+    if q.is_cuda:
+        return packed_fwd_kernel(q, k, v, positions, s_aux, num_sink,
+                                 window_size)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+def _dqkv(q, k, v, do, lse, delta, positions, num_sink, window_size):
+    """(dq, dk, dv): the plain version on the CPU, the two kernels on the
+    card."""
+    args = (positions, num_sink, window_size)
+    if q.device.type == "cpu":
+        return packed_bwd_plain(q, k, v, do, lse, delta, *args)
+    if q.is_cuda:
+        dq = packed_dq_kernel(q, k, v, do, lse, delta, *args)
+        return (dq, *packed_dkdv_kernel(q, k, v, do, lse, delta, *args))
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _PackedSinkAttention(torch.autograd.Function):
+    """Packed sink attention, differentiable in q, k, v and s_aux (the JAX
+    package's ``_packed_attn`` custom_vjp). The positions tensor is kept on
+    the context as it was given, so the backward's kernels find the tables
+    the forward built."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, s_aux, positions, num_sink, window_size):
+        o, lse = _fwd(q, k, v, positions, s_aux, num_sink, window_size)
+        ctx.save_for_backward(q, k, v, s_aux, o, lse)
+        ctx.positions = positions
+        ctx.geometry = (num_sink, window_size)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, s_aux, o, lse = ctx.saved_tensors
+        args = (ctx.positions, *ctx.geometry)
+        dq, dk, dv, ds_aux = attention_backward(
+            q, k, v, s_aux, o, lse, do,
+            dqkv=lambda q, k, v, do, lse, delta, *_: _dqkv(
+                q, k, v, do, lse, delta, *args))
+        if not ctx.needs_input_grad[3]:
+            ds_aux = None
+        return dq, dk, dv, ds_aux, None, None, None
+
+
+def sink_flash_attention_packed(q, k, v, positions, num_sink: int = 4,
+                                window_size: int = 512, s_aux=None):
+    """Sink flash attention over a packed (multi-segment) batch.
+
+    Each segment attends its own first ``num_sink`` tokens plus its own
+    causal sliding window; no attention crosses a segment boundary.
+    Differentiable in q, k, v and s_aux.
+
+    Args:
+        q: [B, H_q, N, D]; k, v: [B, H_kv, N, D] (the same packed layout).
+        positions: [B, N] segment-local token positions (0 at each segment
+            start: the position_ids a packed training loop feeds the
+            model), any int dtype and device.
+        num_sink / window_size / s_aux: as in ``sink_flash_attention``.
+
+    Returns:
+        [B, H_q, N, D] in q.dtype. On CUDA the packed forward kernel runs,
+        and the packed dQ and dK/dV kernels in the backward; tiles are 64 x
+        64.
+    """
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"packed attention needs N_q == N_kv: "
+                         f"{tuple(q.shape)} {tuple(k.shape)}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, s_aux)):
+        return _PackedSinkAttention.apply(q, k, v, s_aux, positions,
+                                          num_sink, window_size)
+    return _fwd(q, k, v, positions, s_aux, num_sink, window_size)[0]

@@ -12,6 +12,14 @@ position j:
 The optional ``s_aux`` (one learnable scalar per query head, the gpt-oss
 "attention sink" logit) takes part in the softmax as an extra logit that
 absorbs probability mass but contributes no value vector.
+
+A packed batch row holds several segments back to back, ``positions``
+counting up from 0 in each. With segment starts ``s_i = i - positions_i``
+each segment has its own sinks and window and no attention crosses a
+segment boundary:
+
+    valid(i, j) = (j <= i) AND (j >= s_i)
+                  AND (j < s_i + num_sink OR j >= i - window_size + 1)
 """
 
 from __future__ import annotations
@@ -20,7 +28,8 @@ from typing import Optional
 
 import torch
 
-__all__ = ["sink_window_mask", "eager_sink_attention"]
+__all__ = ["sink_window_mask", "eager_sink_attention",
+           "packed_sink_window_mask", "eager_sink_attention_packed"]
 
 
 def sink_window_mask(n_q: int, n_kv: int, num_sink: int, window_size: int,
@@ -61,6 +70,51 @@ def eager_sink_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = sink_window_mask(q.shape[2], k.shape[2], num_sink, window_size,
                             q_offset, kv_offset, device=q.device)
     return _eager_attend(q, k, v, mask[None, None], s_aux, return_lse)
+
+
+def packed_rows_mask(positions: torch.Tensor, row0: int, n_rows: int,
+                     num_sink: int, window_size: int) -> torch.Tensor:
+    """Boolean [B, n_rows, N]: rows [row0, row0 + n_rows) of the packed
+    mask of ``positions`` [B, N] (segment-local positions)."""
+    n = positions.shape[-1]
+    pos = positions.long()
+    i = torch.arange(row0, row0 + n_rows, device=pos.device)
+    j = torch.arange(n, device=pos.device)
+    s_i = (i - pos[:, row0:row0 + n_rows])[:, :, None]  # segment starts
+    i, j = i[None, :, None], j[None, None, :]
+    return (j <= i) & (j >= s_i) & ((j < s_i + num_sink) |
+                                    (j >= i - window_size + 1))
+
+
+def packed_sink_window_mask(positions: torch.Tensor, num_sink: int,
+                            window_size: int) -> torch.Tensor:
+    """Boolean [B, N, N] mask of a packed batch: True where query i may
+    attend key j. ``positions`` [B, N] holds each token's position within
+    its segment (0 at every segment start); ``j >= s_i`` with causality
+    already puts j in i's segment, so only row-side segment starts are
+    needed."""
+    return packed_rows_mask(positions, 0, positions.shape[-1], num_sink,
+                            window_size)
+
+
+def eager_sink_attention_packed(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, positions: torch.Tensor,
+                                num_sink: int = 4, window_size: int = 512,
+                                s_aux: Optional[torch.Tensor] = None,
+                                return_lse: bool = False):
+    """Eager sink attention over a packed (multi-segment) batch.
+
+    q: [B, H_q, N, D]; k, v: [B, H_kv, N, D]; positions: [B, N]
+    segment-local token positions. Each segment gets its own sinks (its
+    first ``num_sink`` tokens) and its own causal sliding window; tokens
+    never attend across segment boundaries.
+    """
+    if q.shape[2] != k.shape[2]:
+        raise ValueError(f"packed attention needs N_q == N_kv: "
+                         f"{tuple(q.shape)} {tuple(k.shape)}")
+    mask = packed_sink_window_mask(positions.to(q.device), num_sink,
+                                   window_size)
+    return _eager_attend(q, k, v, mask[:, None], s_aux, return_lse)
 
 
 def _eager_attend(q, k, v, mask, s_aux, return_lse):

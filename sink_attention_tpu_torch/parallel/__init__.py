@@ -1,5 +1,7 @@
-"""Training on one device: next-token loss and the training step."""
+"""Training on one device: the loss, the packed-batch loss and the step."""
 
-from .train import cross_entropy_loss, make_train_step, param_leaves
+from .train import (cross_entropy_loss, cross_entropy_loss_packed,
+                    make_train_step, param_leaves)
 
-__all__ = ["cross_entropy_loss", "make_train_step", "param_leaves"]
+__all__ = ["cross_entropy_loss", "cross_entropy_loss_packed",
+           "make_train_step", "param_leaves"]

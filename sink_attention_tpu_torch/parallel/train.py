@@ -1,13 +1,14 @@
 """Next-token training step on one device.
 
 Counterpart of ``sink_attention_tpu/parallel/train.py`` on a one-device
-mesh: the loss, activation checkpointing (``remat``) and exact gradient
-accumulation over equal microbatches. The attention's gradients come from
-the dQ and dK/dV kernels on the card. The parameters are the model's
-nested dict, updated in place by a ``torch.optim`` optimizer built over
-:func:`param_leaves`. There is no mesh: the sharded step
-(``param_shardings``, ``make_sharded_attn``) and the packed loss
-(``cross_entropy_loss_packed``) are not ported yet.
+mesh: the loss, the packed-batch loss (``cross_entropy_loss_packed``, per
+segment sink attention on the packed kernels), activation checkpointing
+(``remat``) and exact gradient accumulation over equal microbatches. The
+attention's gradients come from the dQ and dK/dV kernels on the card. The
+parameters are the model's nested dict, updated in place by a
+``torch.optim`` optimizer built over :func:`param_leaves`. There is no
+mesh: the sharded step (``param_shardings``, ``make_sharded_attn``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +19,10 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.model import forward_prefill
+from ..ops.packed import sink_flash_attention_packed
 
-__all__ = ["cross_entropy_loss", "make_train_step", "param_leaves"]
+__all__ = ["cross_entropy_loss", "cross_entropy_loss_packed",
+           "make_train_step", "param_leaves"]
 
 
 def param_leaves(params) -> List[torch.Tensor]:
@@ -40,6 +43,34 @@ def cross_entropy_loss(params, cfg: ModelConfig, batch: torch.Tensor,
                                 remat=remat)
     return torch.nn.functional.cross_entropy(
         logits.float().reshape(-1, logits.shape[-1]), targets.reshape(-1))
+
+
+def cross_entropy_loss_packed(params, cfg: ModelConfig, batch: torch.Tensor,
+                              positions: torch.Tensor) -> torch.Tensor:
+    """Packed-batch next-token cross entropy (fp32): per-segment sink
+    attention and RoPE, with cross-segment targets masked out.
+
+    batch: int [B, N] packed token ids; positions: int [B, N]
+    segment-local positions (0 at each segment start). Token t's target is
+    token t+1 unless t+1 starts a new segment (positions[t+1] == 0): the
+    last token of each segment, and of the pack, adds no loss. The mean is
+    over the valid targets (at least 1 in the denominator). The attention
+    is ``sink_flash_attention_packed``, whose tables are built once for
+    all layers from this ``positions`` tensor.
+    """
+    positions = positions.to(batch.device)
+
+    def attn(q, k, v, *, num_sink, window_size, s_aux):
+        return sink_flash_attention_packed(q, k, v, positions, num_sink,
+                                           window_size, s_aux=s_aux)
+
+    logits, _ = forward_prefill(params, cfg, batch, positions=positions,
+                                attn_impl=attn)
+    losses = torch.nn.functional.cross_entropy(
+        logits[:, :-1].float().reshape(-1, logits.shape[-1]),
+        batch[:, 1:].reshape(-1), reduction="none")
+    valid = (positions[:, 1:] > 0).float().reshape(-1)
+    return (losses * valid).sum() / valid.sum().clamp(min=1.0)
 
 
 def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer,

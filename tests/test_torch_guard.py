@@ -111,3 +111,38 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert flash.flash_dq_kernel.launches == 0
     assert flash.flash_dkdv_kernel.launches == 0
     assert decode.decode_kernel.launches == 0
+
+
+def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """The packed kernels' wrappers check before any launch: no fp32, no
+    head_dim outside (64, 128), positions of shape [B, N] only, no CPU
+    tensors."""
+    from sink_attention_tpu_torch.ops import packed
+
+    def calls(t, positions):
+        rows = torch.zeros(t.shape[:3])
+        bwd = (t, t, t, t, rows, rows, positions)
+        return ((packed.packed_fwd_kernel, (t, t, t, positions)),
+                (packed.packed_dq_kernel, bwd),
+                (packed.packed_dkdv_kernel, bwd))
+
+    pos = torch.zeros(1, 8, dtype=torch.int32)
+    for fn, args in calls(torch.zeros(1, 2, 8, 64), pos):
+        with pytest.raises(TypeError):
+            fn(*args)
+    for fn, args in calls(torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16),
+                          pos):
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(*args)
+    qb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
+    for bad in (torch.zeros(8, dtype=torch.int32),
+                torch.zeros(1, 7, dtype=torch.int32)):
+        for fn, args in calls(qb, bad):
+            with pytest.raises(ValueError, match="positions"):
+                fn(*args)
+    for fn, args in calls(qb, pos):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(*args)
+    assert packed.packed_fwd_kernel.launches == 0
+    assert packed.packed_dq_kernel.launches == 0
+    assert packed.packed_dkdv_kernel.launches == 0

@@ -1,0 +1,228 @@
+"""The port's packed (multi-segment) attention against the JAX package's.
+
+On the CPU the port runs the packed kernels' plain versions; the JAX side
+runs its Pallas packed kernels in interpret mode, jitted, on the
+configurations of tests/test_packed.py, with that file's tolerances. The
+host tables that the CUDA kernels walk are checked against a brute force of
+the mask here.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sink_attention_tpu.ops.packed import (
+    sink_flash_attention_packed as j_packed)
+from sink_attention_tpu.ops.reference import (
+    eager_sink_attention_packed as j_eager_packed)
+from sink_attention_tpu_torch.ops import flash as tflash
+from sink_attention_tpu_torch.ops import packed as tpacked
+from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
+
+
+def _positions(seglens, B=1, first=0):
+    """[B, N] positions of back-to-back segments; ``first`` > 0 starts the
+    pack inside the first segment, at that position."""
+    pos = [p for L in seglens for p in range(L)]
+    pos = list(range(first, first + seglens[0])) + pos[seglens[0]:]
+    return np.tile(np.array(pos, np.int32)[None], (B, 1))
+
+
+def _inputs(seed, B, H_q, H_kv, N, D, with_aux):
+    rs = np.random.RandomState(seed)
+    x = [rs.randn(B, H_q, N, D), rs.randn(B, H_kv, N, D),
+         rs.randn(B, H_kv, N, D)]
+    if with_aux:
+        x.append(rs.randn(H_q))
+    return [a.astype(np.float32) for a in x]
+
+
+FWD_CONFIGS = [
+    # name, B, Hq, Hkv, N, D, seglens, num_sink, window, s_aux: those of
+    # tests/test_packed.py
+    ("two-equal", 1, 2, 1, 256, 64, [128, 128], 4, 64, False),
+    ("ragged", 2, 4, 2, 256, 64, [100, 30, 70, 56], 4, 64, False),
+    ("long-seg-beyond-window", 1, 2, 2, 512, 64, [400, 112], 4, 64, True),
+    ("tiny-segs", 1, 2, 2, 256, 64, [8] * 32, 4, 64, False),
+    ("no-sink", 1, 2, 2, 256, 64, [100, 156], 0, 64, False),
+    ("s_aux-gqa", 1, 4, 2, 256, 64, [100, 156], 4, 64, True),
+    ("unaligned", 1, 2, 2, 250, 48, [90, 160], 4, 60, False),
+    ("seg-shorter-than-sink", 1, 2, 2, 128, 32, [2, 126], 4, 32, False),
+]
+
+
+def _port(x, pos, ns, W, dtype=torch.float32, grad=False):
+    leaves = [torch.from_numpy(a).to(dtype) for a in x]
+    if grad:
+        leaves = [t.requires_grad_() for t in leaves]
+    aux = leaves[3] if len(leaves) > 3 else None
+    out = tpacked.sink_flash_attention_packed(
+        *leaves[:3], torch.from_numpy(pos), ns, W, s_aux=aux)
+    return out, leaves
+
+
+@pytest.mark.parametrize("cfg", FWD_CONFIGS, ids=[c[0] for c in FWD_CONFIGS])
+def test_forward_matches_jax(cfg):
+    name, B, Hq, Hkv, N, D, segs, ns, W, with_aux = cfg
+    x = _inputs(len(name) + N, B, Hq, Hkv, N, D, with_aux)
+    pos = _positions(segs, B)
+    fn = jax.jit(functools.partial(j_packed, num_sink=ns, window_size=W,
+                                   block_q=64, block_kv=64))
+    ref = fn(*map(jnp.asarray, x[:3]), jnp.asarray(pos),
+             s_aux=jnp.asarray(x[3]) if with_aux else None)
+    out, _ = _port(x, pos, ns, W)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-5)
+
+
+def test_forward_bf16_matches_jax():
+    """bf16 inputs, against the fp32 oracle (tests/test_packed.py's bf16
+    case and tolerance)."""
+    x = _inputs(5, 1, 4, 2, 256, 64, True)
+    pos = _positions([100, 156])
+    ref = j_eager_packed(*map(jnp.asarray, x[:3]), jnp.asarray(pos), 4, 64,
+                         s_aux=jnp.asarray(x[3]))
+    out = tpacked.sink_flash_attention_packed(
+        *(torch.from_numpy(a).bfloat16() for a in x[:3]),
+        torch.from_numpy(pos), 4, 64, s_aux=torch.from_numpy(x[3]))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref),
+                               atol=3e-2)
+
+
+GRAD_CONFIGS = [
+    # those of tests/test_packed.py's gradient test
+    ("ragged", 1, 4, 2, 256, 64, [100, 30, 70, 56], 4, 64, True),
+    ("long-seg", 1, 2, 2, 512, 64, [400, 112], 4, 64, True),
+    ("tiny-segs", 1, 2, 1, 256, 32, [8] * 32, 4, 64, False),
+    ("unaligned", 1, 2, 2, 250, 48, [90, 160], 4, 60, False),
+]
+
+
+def _assert_grads_close(got, ref, what):
+    """tests/test_packed.py's gradient tolerance: abs 2e-3 or rel 1e-3."""
+    for nm, g, r in zip(("dq", "dk", "dv", "ds_aux"), got, ref):
+        g, r = g.numpy(), np.asarray(r)
+        abs_err = np.max(np.abs(g - r))
+        rel_err = np.max(np.abs(g - r) / (np.abs(r) + 1e-3))
+        assert abs_err < 2e-3 or rel_err < 1e-3, (what, nm, abs_err, rel_err)
+
+
+@pytest.mark.parametrize("cfg", GRAD_CONFIGS, ids=[c[0] for c in GRAD_CONFIGS])
+def test_grads_match_jax(cfg):
+    name, B, Hq, Hkv, N, D, segs, ns, W, with_aux = cfg
+    x = _inputs(100 + len(name) + N, B, Hq, Hkv, N, D, with_aux)
+    pos = jnp.asarray(_positions(segs, B))
+
+    def loss(*args):
+        aux = args[3] if with_aux else None
+        return (j_packed(*args[:3], pos, ns, W, s_aux=aux, block_q=64,
+                         block_kv=64) ** 2).sum()
+
+    ref = jax.jit(jax.grad(loss, tuple(range(len(x)))))(*map(jnp.asarray, x))
+    out, leaves = _port(x, np.array(pos), ns, W, grad=True)
+    (out ** 2).sum().backward()
+    _assert_grads_close([t.grad for t in leaves], ref, name)
+
+
+def test_leading_partial_segment_grads_match_jax_oracle():
+    """A pack that begins inside a segment, at position 2 with 4 sinks: its
+    columns 0 and 1 are sinks of every later row of that segment. The JAX
+    kernel's table (``_packed_meta``) gives those leading columns no sink
+    pass, so its dK/dV drop the rows beyond the window; the port follows
+    the eager oracle, and so does this test."""
+    ns, W = 4, 32
+    x = _inputs(21, 1, 2, 2, 256, 64, True)
+    pos = _positions([200, 56], first=2)
+    assert 0 < pos[0, 0] < ns
+
+    def loss(*args):
+        return (j_eager_packed(*args[:3], jnp.asarray(pos), ns, W,
+                               s_aux=args[3]) ** 2).sum()
+
+    ref = jax.jit(jax.grad(loss, (0, 1, 2, 3)))(*map(jnp.asarray, x))
+    out, leaves = _port(x, pos, ns, W, grad=True)
+    (out ** 2).sum().backward()
+    _assert_grads_close([t.grad for t in leaves], ref, "leading partial")
+
+
+def test_single_segment_equals_unpacked():
+    """One segment of the whole pack is sink_flash_attention, forward and
+    gradients."""
+    x = _inputs(7, 1, 4, 2, 256, 64, True)
+    pos = np.arange(256, dtype=np.int32)[None]
+    out, leaves = _port(x, pos, 4, 64, grad=True)
+    (out ** 2).sum().backward()
+    ref_leaves = [torch.from_numpy(a).requires_grad_() for a in x]
+    ref = tflash.sink_flash_attention(*ref_leaves[:3], 4, 64,
+                                      s_aux=ref_leaves[3])
+    (ref ** 2).sum().backward()
+    torch.testing.assert_close(out, ref, atol=5e-5, rtol=0)
+    for a, b in zip(leaves, ref_leaves):
+        torch.testing.assert_close(a.grad, b.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_no_cross_segment_leakage():
+    """Changing segment 1's K/V leaves segment 2's outputs as they were."""
+    x = _inputs(8, 1, 2, 2, 256, 64, False)
+    pos = _positions([128, 128])
+    out1, _ = _port(x, pos, 4, 64)
+    x[1][:, :, :128] *= -3.0
+    x[2][:, :, :128] += 7.0
+    out2, _ = _port(x, pos, 4, 64)
+    torch.testing.assert_close(out1[:, :, 128:], out2[:, :, 128:], atol=1e-6,
+                               rtol=0)
+    assert not torch.allclose(out1[:, :, :128], out2[:, :, :128], atol=1e-2)
+
+
+TABLE_CASES = [
+    # (seglens, first position, N, num_sink, window)
+    ([2, 126, 128], 0, 256, 4, 32),          # a segment shorter than sink
+    ([200, 56], 2, 256, 4, 32),              # leading partial segment
+    ([100, 30, 70, 56], 0, 256, 4, 1 << 30),  # W >= N (full layer)
+    ([90, 160], 0, 250, 4, 60),              # unaligned N
+    ([8] * 40, 0, 320, 4, 64),               # tiny segments
+    ([300, 212], 0, 512, 0, 128),            # no sink
+    ([130, 70, 500, 324], 5, 1024, 16, 1 << 30),
+]
+
+
+@pytest.mark.parametrize("case", TABLE_CASES)
+def test_tables_cover_the_mask(case):
+    """Every visible (row, column) pair lies in a tile that the forward/dQ
+    table and the dK/dV table visit; the forward table visits no block
+    twice and stays inside the pack; the segment vector is i - positions."""
+    seglens, first, N, ns, W = case
+    pos = torch.from_numpy(_positions(seglens, first=first)[:, :N])
+    bm, bn = tflash.BM, tflash.BN
+    tabs = tpacked.packed_tables(pos, ns, W)
+    mask = packed_sink_window_mask(pos, ns, W)[0].numpy()
+    n_qb, n_kb = -(-N // bm), -(-N // bn)
+    assert tabs.q.shape == (1, n_qb, 6) and tabs.kv.shape == (1, n_kb, 2)
+    np.testing.assert_array_equal(tabs.seg[0].numpy(),
+                                  np.arange(N) - pos[0].numpy())
+    for qi, (s0, s1, w0, w1, _, _) in enumerate(tabs.q[0].tolist()):
+        visited = list(range(s0, s1)) + list(range(w0, w1))
+        assert len(set(visited)) == len(visited), (qi, tabs.q[0, qi])
+        assert all(0 <= blk < n_kb for blk in visited), (qi, tabs.q[0, qi])
+        cols = np.nonzero(mask[qi * bm:(qi + 1) * bm].any(axis=0))[0]
+        assert set(cols // bn) <= set(visited), (qi, tabs.q[0, qi])
+    for ki, (b0, b1) in enumerate(tabs.kv[0].tolist()):
+        assert 0 <= b0 <= b1 <= n_qb, (ki, tabs.kv[0, ki])
+        rows = np.nonzero(mask[:, ki * bn:(ki + 1) * bn].any(axis=1))[0]
+        assert set(rows // bm) <= set(range(b0, b1)), (ki, tabs.kv[0, ki])
+
+
+def test_full_layer_tables_skip_other_segments():
+    """At W >= N the tables visit only tiles that touch a segment's own
+    causal triangle: about sum(L^2) / 2 pairs, far below N^2 / 2."""
+    seglens, N = [512] * 8, 4096
+    pos = torch.from_numpy(_positions(seglens))
+    tabs = tpacked.packed_tables(pos, 0, 1 << 30)
+    fwd_tiles = int((tabs.q[0, :, 3] - tabs.q[0, :, 2]).sum())
+    dkdv_tiles = int((tabs.kv[0, :, 1] - tabs.kv[0, :, 0]).sum())
+    per_segment = 8 * (512 // 64) * (512 // 64 + 1) // 2
+    assert fwd_tiles == per_segment and dkdv_tiles == per_segment
