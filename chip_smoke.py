@@ -2,14 +2,16 @@
 """Drive the PyTorch port (sink_attention_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py    # build, kernel checks, serving, training,
-                             # packed training
+                             # packed training, continuous batching
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
      the build time and ptxas' register / shared-memory / spill lines;
   2. kernels: run each kernel and its plain PyTorch version on the card at
      the main paths' shapes and at the headline attention shape (the packed
-     kernels also at edge cases of the mask), print the
+     kernels also at edge cases of the mask; the int8 and fp8 decode also
+     over a ragged pool, and against the bf16 kernel on the unquantized
+     KV), print the
      max abs error against its tolerance and the times (kernel, plain,
      one PyTorch library call as a yardstick) beside the least time the
      card could take (its bound); the backward kernels also run twice on
@@ -33,7 +35,15 @@ Phases:
      64-1536 tokens), with the same numbers; then every layer's packed
      attention gradients against plain, the per-token losses against plain
      packed attention and a noise control, and each segment's logits
-     against its own unpacked forward (see ``train_packed``).
+     against its own unpacked forward (see ``train_packed``);
+  6. continuous batching: gpt-oss-20b at full width, 24 layers, the same
+     weights: 8 seeded requests (prompts of 64-1024 tokens, 16-32 new)
+     through ContinuousBatchingEngine with 4 slots and max_len 2048, once
+     each over an int8, an fp8 and a bf16 KV cache, with launch counts,
+     run time, tokens/s, time to first token, ms per pool step, device idle
+     share and memory; then every layer's decode attention on a replay,
+     kernel against plain, and the replay's logits against teacher forcing
+     and a control (see ``serve_engine``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -58,6 +68,7 @@ DECODE_TOL = 2e-2  # bf16 output
 BWD_TOL = 2e-2
 MIN_COS = 0.9999   # kernel against plain, per layer and per kernel check
 PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
+RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 
 
 def log(msg: str) -> None:
@@ -133,47 +144,107 @@ def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None):
     return res
 
 
-def check_decode(dev, B, H_q, H_kv, D, ns, W, prefill_len, appends, gen):
-    """Kernel vs plain over a filled SinkKVCache; returns numbers."""
-    from sink_attention_tpu_torch.cache import SinkKVCache
+QUANT_BUDGET = {"int8": 0.05, "fp8": 0.12}  # vs unquantized KV (JAX tests)
+
+
+def _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends, gen, quant):
+    """A cache of each storage (bf16, and ``quant`` if given) filled with
+    the same seeded KV: a SinkKVCache prefilled with ``lengths`` tokens
+    (an int), or, for a list of per-slot lengths, a RaggedSinkKVCache with
+    each slot inserted (0 = left empty). Then ``appends`` tokens; in the
+    ragged cache slot b skips append i when i % (b + 2) == 0, so the slots
+    end at different ring phases, and empty slots stay inactive. Returns
+    ({storage: cache}, lens [B, 4])."""
+    from sink_attention_tpu_torch.cache import RaggedSinkKVCache, SinkKVCache
     from sink_attention_tpu_torch.ops import decode
-    from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
-                                                time_cuda)
 
     mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
         torch.bfloat16)
-    cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
-                             dtype=torch.bfloat16, device=dev)
-    cache.prefill(mk(B, H_kv, prefill_len, D), mk(B, H_kv, prefill_len, D))
-    for _ in range(appends):
-        cache.append(mk(B, H_kv, 1, D), mk(B, H_kv, 1, D))
-    q = mk(B, H_q, 1, D)
+    ragged = isinstance(lengths, (list, tuple))
+    kinds = [None] + ([quant] if quant else [])
+    cls = RaggedSinkKVCache if ragged else SinkKVCache
+    caches = {kd: cls.init(B, H_kv, D, num_sink=ns, window_size=W,
+                           dtype=torch.bfloat16, quant=kd, device=dev)
+              for kd in kinds}
+    if ragged:
+        n_max = max(lengths)
+        k, v = mk(B, H_kv, n_max, D), mk(B, H_kv, n_max, D)
+        for c in caches.values():
+            for b, n in enumerate(lengths):
+                if n:
+                    c.insert(b, k[b], v[b], n)
+    else:
+        k, v = mk(B, H_kv, lengths, D), mk(B, H_kv, lengths, D)
+        for c in caches.values():
+            c.prefill(k, v)
+    for i in range(appends):
+        k, v = mk(B, H_kv, 1, D), mk(B, H_kv, 1, D)
+        active = torch.tensor([bool(lengths[b]) and i % (b + 2) != 0
+                               for b in range(B)], device=dev) if ragged \
+            else None
+        for c in caches.values():
+            if ragged:
+                c.append(k, v, active)
+            else:
+                c.append(k, v)
+    c = caches[None]
+    lens = decode.ragged_lens(c) if ragged else decode._uniform_lens(
+        c.sink_len, c.window_len, c.write_pos, c.window_size, c.sink_cap, B,
+        dev)
+    return caches, lens
+
+
+def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
+                 quant=None):
+    """The decode kernel of one storage (bf16, or ``quant``) against its
+    plain version over a filled cache (see _decode_caches: ``lengths`` a
+    list makes it ragged); a quantized kernel also against the bf16 kernel
+    over the unquantized KV, within the JAX tests' budget. Returns
+    numbers; the library yardstick is SDPA over the (dequantized) bf16
+    cache with the live mask."""
+    from sink_attention_tpu_torch.ops import decode
+    from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
+                                                H100_PEAK_INT8, time_cuda)
+
+    caches, lens = _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends,
+                                  gen, quant)
+    cache = caches[quant]
+    q = torch.randn(B, H_q, 1, D, generator=gen, device=dev).to(
+        torch.bfloat16)
     aux = torch.randn(H_q, generator=gen, device=dev)
-    lens = decode._uniform_lens(cache.sink_len, cache.window_len,
-                                cache.write_pos, cache.window_size,
-                                cache.sink_cap, B, dev)
-    kw = dict(sink_cap=cache.sink_cap, window_size=cache.window_size)
+    kw = decode.cache_args(cache)
     o_k = decode.decode_kernel(q, cache.k, cache.v, lens, aux, **kw)
     o_p = decode.decode_plain(q, cache.k, cache.v, lens, aux, **kw)
     torch.cuda.synchronize()
     err = float((o_k.float() - o_p.float()).abs().max())
     live = decode.live_slots(lens, cache.s_total, cache.sink_cap,
                              cache.window_size)
-    n_live = int(live[0].sum())
-    res = {"shape": f"B={B} H={H_q}/{H_kv} D={D} S_total={cache.s_total} "
-                    f"live={n_live}",
-           "max_abs_err": err,
+    n_live = int(live.sum())  # over the batch
+    shape = (f"B={B} H={H_q}/{H_kv} D={D} W={W} S_total={cache.s_total} "
+             + (f"ragged lengths={list(lengths)} live={live.sum(1).tolist()}"
+                if isinstance(lengths, (list, tuple)) else
+                f"live={n_live // B}"))
+    res = {"shape": shape, "max_abs_err": err,
            "ok": err <= DECODE_TOL and bool(torch.isfinite(o_k.float()).all())}
+    if quant:
+        ref = caches[None]
+        o_b = decode.decode_kernel(q, ref.k, ref.v, lens, aux,
+                                   **decode.cache_args(ref))
+        res["vs_bf16_err"] = float((o_k.float() - o_b.float()).abs().max())
+        res["ok"] = res["ok"] and res["vs_bf16_err"] <= QUANT_BUDGET[quant]
     res["ms"] = time_cuda(lambda: decode.decode_kernel(
         q, cache.k, cache.v, lens, aux, **kw), iters=50)
     res["plain_ms"] = time_cuda(lambda: decode.decode_plain(
         q, cache.k, cache.v, lens, aux, **kw), iters=10)
+    kf, vf = (t.to(torch.bfloat16) for t in cache.dequant_kv())
     mask = live[:, None, None, :]
-    res["library_ms"] = time_cuda(
-        lambda: _sdpa(q, cache.k, cache.v, mask), iters=20)
-    flops = 4 * B * H_q * n_live * D
-    nbytes = 2 * (2 * B * H_kv * n_live * D + 2 * B * H_q * D) + 16 * B
-    t_ops, t_bytes = flops / H100_PEAK_BF16 * 1e3, nbytes / H100_HBM_BW * 1e3
+    res["library_ms"] = time_cuda(lambda: _sdpa(q, kf, vf, mask), iters=20)
+    del kf, vf
+    flops = 4 * H_q * n_live * D
+    slot_bytes = 2 * D + 8 if quant else 4 * D  # K and V of one live slot
+    nbytes = H_kv * n_live * slot_bytes + 2 * 2 * B * H_q * D + 16 * B
+    peak = H100_PEAK_INT8 if quant else H100_PEAK_BF16
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BW * 1e3
     res["bound_ms"] = max(t_ops, t_bytes)
     res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     return res
@@ -417,6 +488,18 @@ def kernel_phase(dev):
     decode_main = [check_decode(dev, 4, 64, 8, 64, 0, 128, 1024, 16, gen),
                    check_decode(dev, 4, 64, 8, 64, 0, 1056, 1024, 16, gen)]
     decode_head = check_decode(dev, 1, 32, 8, 128, 4, 4096, 8192, 1, gen)
+    # quantized storage: the same two caches (the full layer 1024 + 31
+    # appends), and phase 6's ragged pool: 4 slots at different lengths and
+    # ring phases, one empty, in a sliding and a full (max_len 2048) layer
+    quant_rows = {
+        f"decode_{qn}": [
+            check_decode(dev, 4, 64, 8, 64, 0, 128, 1024, 16, gen, qn),
+            check_decode(dev, 4, 64, 8, 64, 0, 1056, 1024, 31, gen, qn),
+            check_decode(dev, 4, 64, 8, 64, 0, 128, RAGGED_LENS, 24, gen,
+                         qn),
+            check_decode(dev, 4, 64, 8, 64, 0, 2048, RAGGED_LENS, 24, gen,
+                         qn)]
+        for qn in ("int8", "fp8")}
     # training path: gpt-oss-20b's sliding (W=128) and full layers at 4096
     # tokens; the headline shape; a chunk behind a 256-slot garbage halo
     bwd_main = [check_bwd(dev, 1, 64, 8, 4096, 64, 0, W, gen)
@@ -442,7 +525,8 @@ def kernel_phase(dev):
             ([300, 724], 2, "pack starts at position 2"),
             ([333, 2, 665], 0, "N=1000"))]
     res = {"flash_fwd": flash_main, "decode": decode_main,
-           "flash_fwd_headline": flash_head, "decode_headline": decode_head}
+           "flash_fwd_headline": flash_head, "decode_headline": decode_head,
+           **quant_rows}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
@@ -459,6 +543,8 @@ def kernel_phase(dev):
                 + (f", timed at N={r['timed_N']}" if "timed_N" in r else "")
                 + f"]: max_abs_err={r['max_abs_err']:.3e}"
                 + (f" lse_err={r['lse_err']:.3e}" if "lse_err" in r else "")
+                + (f" vs_bf16_err={r['vs_bf16_err']:.3e}"
+                   if "vs_bf16_err" in r else "")
                 + (f" rel_err={r['rel_err']:.3e} cos={r['cos']:.7f} "
                    f"bitwise_repeat={r['bitwise_repeat']}"
                    if "cos" in r else "")
@@ -726,17 +812,8 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
             del caches
 
     for phase, stats in layer_stats.items():
-        if not stats:
-            continue
-        worst_cos = min(s["cos"] for s in stats)
-        worst_rel = max(s["err"] / s["scale"] for s in stats)
-        report[f"{phase}_layers_checked"] = len(stats)
-        report[f"{phase}_layer_min_cos"] = worst_cos
-        report[f"{phase}_layer_max_err"] = max(s["err"] for s in stats)
-        if worst_cos < 0.9999 or worst_rel > 2e-2:
-            errors.append(f"{phase} attention kernel vs plain on the live "
-                          f"path: min cosine {worst_cos:.6f}, max error "
-                          f"{worst_rel:.3e} of scale")
+        if stats:
+            _layer_gate(stats, phase, report, errors)
     return report, errors
 
 
@@ -1158,6 +1235,273 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: continuous-batching serving
+# ---------------------------------------------------------------------------
+
+
+def engine_requests(n: int, vocab: int, seed: int = 0, prompt=(64, 1024),
+                    new=(16, 32)):
+    """``n`` requests drawn from numpy.random.default_rng(seed): prompt
+    lengths uniform in ``prompt``, max_new_tokens in ``new`` (both
+    inclusive), token ids uniform in [0, vocab). [(prompt ids, max new)]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(prompt[0], prompt[1] + 1, n)
+    news = rng.integers(new[0], new[1] + 1, n)
+    return [(rng.integers(0, vocab, int(L)).tolist(), int(m))
+            for L, m in zip(lens, news)]
+
+
+def _kv_roundtrip(attn_impl, quant):
+    """attn_impl reading K and V through quantize -> dequantize: the
+    control that says how far the cache's rounding alone moves the
+    logits."""
+    from sink_attention_tpu_torch.cache import dequantize, quantize
+
+    def rt(x):
+        return dequantize(*quantize(x, quant), quant).to(x.dtype)
+
+    def attn(q, k, v, **kw):
+        return attn_impl(q, rt(k), rt(v), **kw)
+    return attn
+
+
+def _layer_gate(stats, name, report, errors):
+    """Report the worst per-layer attention comparison of ``stats`` and
+    fail below cosine MIN_COS or above 2e-2 of scale."""
+    worst_cos = min(s["cos"] for s in stats)
+    worst_rel = max(s["err"] / s["scale"] for s in stats)
+    report[f"{name}_layers_checked"] = len(stats)
+    report[f"{name}_layer_min_cos"] = worst_cos
+    report[f"{name}_layer_max_err"] = max(s["err"] for s in stats)
+    if worst_cos < MIN_COS or worst_rel > 2e-2:
+        errors.append(f"{name} attention kernel vs plain on the live path: "
+                      f"min cosine {worst_cos:.6f}, max error "
+                      f"{worst_rel:.3e} of scale")
+
+
+def _engine_replay(params, cfg, reqs, tokens, quant, *, device, dtype,
+                   max_len, bucket, steps, stop_slot_at):
+    """Replay the engine's decode of the first 4 requests through
+    forward_decode_ragged with every layer's attention checked, kernel
+    against plain: their prompts inserted into a fresh ragged pool, then
+    their generated tokens fed back for up to ``steps`` steps (slot 3
+    turns inactive after ``stop_slot_at``). Returns (per-layer stats,
+    {slot: replay logits [steps_b, V]})."""
+    from sink_attention_tpu_torch.models import (forward_decode_ragged,
+                                                 forward_prefill,
+                                                 make_ragged_caches)
+    from sink_attention_tpu_torch.ops import decode
+
+    B = 4
+    caches = make_ragged_caches(cfg, B, max_len, dtype=dtype, quant=quant,
+                                device=device)
+    for b, (prompt, _) in enumerate(reqs[:B]):
+        n = len(prompt)
+        ids = torch.zeros((1, -(-n // bucket) * bucket), dtype=torch.long)
+        ids[0, :n] = torch.tensor(prompt)
+        _, kvs = forward_prefill(params, cfg, ids.to(device),
+                                 collect_kv=True)
+        for c, (k, v) in zip(caches, kvs):
+            c.insert(b, k[0], v[0], n)
+    n_steps = [min(len(tokens[b]) - 1, steps) for b in range(B)]
+    n_steps[3] = min(n_steps[3], stop_slot_at)
+    stats, rows = [], {b: [] for b in range(B)}
+
+    def checked(q, cache, s_aux=None):
+        o = decode.sink_decode_attention_ragged(q, cache, s_aux)
+        p = decode.decode_plain(q, cache.k, cache.v, decode.ragged_lens(cache),
+                                s_aux, **decode.cache_args(cache))
+        live = (cache.sink_len + cache.window_len) > 0
+        stats.append(_attn_compare(o[live], p[live]))
+        return o
+
+    for i in range(max(n_steps)):
+        act_py = [i < n for n in n_steps]
+        toks = torch.tensor([tokens[b][i] if act_py[b] else 0
+                             for b in range(B)], device=device)
+        logits, _ = forward_decode_ragged(
+            params, cfg, toks[:, None], caches, caches[0].seen,
+            torch.tensor(act_py, device=device), attn_impl=checked)
+        for b in range(B):
+            if act_py[b]:
+                rows[b].append(logits[b, -1])
+    return stats, {b: torch.stack(r) for b, r in rows.items()}
+
+
+def _teacher_distance(params, cfg, reqs, tokens, rows, attn_impls):
+    """1 - mean row cosine of each replay's logits against teacher-forced
+    forward_prefill of its slot's own sequence, for each attention of
+    ``attn_impls`` ({name: attn_impl or None}); the first is the
+    reference the others are measured against."""
+    from sink_attention_tpu_torch.models import forward_prefill
+
+    names = list(attn_impls)
+    got = {n: [] for n in names[1:] + ["replay"]}
+    for b, r in rows.items():
+        # replay step i fed generated token i at position len(prompt) + i
+        prompt, dev = reqs[b][0], r.device
+        seq = torch.tensor(prompt + tokens[b][:r.shape[0]], device=dev)[None]
+        tf = {n: forward_prefill(params, cfg, seq, attn_impl=impl)[0][
+            0, len(prompt):] for n, impl in attn_impls.items()}
+        ref = tf[names[0]]
+        got["replay"].append((r, ref))
+        for n in names[1:]:
+            got[n].append((tf[n], ref))
+    return {n: 1.0 - _row_cos(torch.cat([a for a, _ in pairs])[None],
+                              torch.cat([b for _, b in pairs])[None])
+            for n, pairs in got.items()}
+
+
+def serve_engine(cfg, device, *, quants=("int8", "fp8", None),
+                 n_requests=8, max_batch=4, max_len=2048, bucket=128,
+                 prompt=(64, 1024), new=(16, 32), replay_steps=16,
+                 dtype=torch.bfloat16):
+    """The continuous-batching engine over ``n_requests`` seeded requests
+    (engine_requests) in ``max_batch`` slots, once per KV storage of
+    ``quants``, weights from a generator seeded 0 (phase 3's). Returns
+    (report, errors); each run's launch counts cover its run() alone.
+
+    Per run it reports the wall time of run(), tokens and tokens/s of the
+    pool, each request's time to first token (first_token_cb, from the
+    start of run()), ms per pool decode step and the device idle share of
+    one (profile_device), peak memory and the cache's bytes. Checks (each
+    failure is an error):
+    * every request returns exactly max_new_tokens tokens in [0, vocab);
+      every request was admitted (its first token called back), more
+      requests than slots (slots recycled);
+    * on the card, launches: the forward kernel once per layer and
+      admission, the run's decode branch once per layer and pool step,
+      the other two branches not at all;
+    * every layer's decode attention on the live activations of a replay
+      (see _engine_replay), kernel against plain: cosine >= MIN_COS, error
+      <= 2e-2 of scale;
+    * the replay's logits against teacher-forced prefill of each slot's
+      sequence: the distance from cosine 1 at most twice that of a
+      control, bf16-sized noise in the attention output for the bf16
+      cache, K and V read through quantize -> dequantize for int8/fp8
+      (the noise control is reported for those too).
+    """
+    from sink_attention_tpu_torch.models import init_params
+    from sink_attention_tpu_torch.ops import decode, flash
+    from sink_attention_tpu_torch.serving import ContinuousBatchingEngine
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    sync()
+    reqs = engine_requests(n_requests, cfg.vocab_size, 0, prompt, new)
+    report = {"init_s": time.perf_counter() - t0,
+              "prompt_lengths": [len(p) for p, _ in reqs],
+              "max_new_tokens": [m for _, m in reqs]}
+    errors = []
+    counters = {"decode": "launches", "decode_int8": "launches_int8",
+                "decode_fp8": "launches_fp8"}
+    for quant in quants:
+        label = quant or str(dtype).replace("torch.", "")
+        rep = report[label] = {}
+        ttft = {}
+        eng = ContinuousBatchingEngine(
+            params, cfg, max_batch=max_batch, max_len=max_len,
+            prefill_bucket=bucket, dtype=dtype, quant=quant, device=dev,
+            first_token_cb=lambda rid, tok: ttft.setdefault(
+                rid, time.perf_counter() - t_run))
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        flash.flash_fwd_kernel.launches = 0
+        for attr in counters.values():
+            setattr(decode.decode_kernel, attr, 0)
+        t_run = time.perf_counter()
+        out = eng.run()
+        sync()
+        rep["run_ms"] = (time.perf_counter() - t_run) * 1e3
+        rep["launches"] = {"flash_fwd": flash.flash_fwd_kernel.launches,
+                           **{n: getattr(decode.decode_kernel, a)
+                              for n, a in counters.items()}}
+        rep["pool_steps"] = eng.pool_steps
+        n_tok = sum(len(t) for t in out.values())
+        rep["tokens"] = n_tok
+        rep["tokens_per_s"] = n_tok / (rep["run_ms"] / 1e3)
+        rep["ttft_ms"] = [ttft.get(r, float("nan")) * 1e3 for r in rids]
+        c = eng.caches
+        rep["kv_bytes"] = sum(x.k.nbytes + x.v.nbytes for x in c)
+        rep["scale_bytes"] = sum(x.k_scale.nbytes + x.v_scale.nbytes
+                                 for x in c)
+        if cuda:
+            rep["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        tokens = [out[r] for r in rids]
+        for (_, m), toks in zip(reqs, tokens):
+            if len(toks) != m or not all(0 <= t < cfg.vocab_size
+                                         for t in toks):
+                errors.append(f"{label} engine: a request asked for {m} "
+                              f"tokens and got {len(toks)}: {toks[:8]}")
+        if sorted(ttft) != sorted(rids) or n_requests <= max_batch:
+            errors.append(f"{label} engine: {len(ttft)} of {n_requests} "
+                          f"requests admitted into {max_batch} slots")
+        if cuda:
+            run_branch = f"decode_{quant}" if quant else "decode"
+            want = {"flash_fwd": cfg.num_layers * n_requests,
+                    **{n: cfg.num_layers * eng.pool_steps
+                       if n == run_branch else 0 for n in counters}}
+            for name, n in want.items():
+                if rep["launches"][name] != n:
+                    errors.append(f"{label} engine: {name} launched "
+                                  f"{rep['launches'][name]} times, "
+                                  f"expected {n}")
+
+        # Pool decode steps timed: the first 4 prompts again, one chunk
+        # of 16 steps after their admission, then one profiled step.
+        for p, _ in reqs[:max_batch]:
+            eng.submit(p, max_new_tokens=2 * replay_steps + 4)
+        eng.step_chunk(1)
+        sync()
+        t0 = time.perf_counter()
+        eng.step_chunk(replay_steps)
+        sync()
+        rep["ms_per_pool_step"] = ((time.perf_counter() - t0) * 1e3
+                                   / replay_steps)
+        if cuda:
+            rep["pool_step_profile"] = profile_device(
+                lambda: eng.step_chunk(1), ("decode_partial", "decode_merge"))
+        del eng, c
+
+        # Every layer's decode attention checked on a replay, and the
+        # replay's logits against teacher forcing.
+        with torch.no_grad():
+            stats, rows = _engine_replay(
+                params, cfg, reqs, tokens, quant, device=dev, dtype=dtype,
+                max_len=max_len, bucket=bucket, steps=replay_steps,
+                stop_slot_at=replay_steps // 2)
+            _layer_gate(stats, "decode", rep, errors)
+            impls = {"teacher": flash.sink_flash_attention,
+                     "noise_control": _noisy(flash.sink_flash_attention,
+                                             2000)}
+            if quant:
+                impls["roundtrip_control"] = _kv_roundtrip(
+                    flash.sink_flash_attention, quant)
+            dist = _teacher_distance(params, cfg, reqs, tokens, rows, impls)
+        rep["replay_rows"] = sum(r.shape[0] for r in rows.values())
+        rep["teacher_distance"] = dist
+        control = "roundtrip_control" if quant else "noise_control"
+        if dist["replay"] > 2.0 * dist[control]:
+            errors.append(f"{label} engine replay vs teacher forcing: 1 - "
+                          f"cosine {dist['replay']:.3e}, {control} "
+                          f"{dist[control]:.3e}")
+        del rows
+        if cuda:
+            torch.cuda.empty_cache()
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1252,6 +1596,15 @@ def main() -> int:
                           f"times in {steps} packed training steps, "
                           f"expected {n}")
 
+    torch.cuda.empty_cache()
+
+    # 6. continuous-batching serving, int8, fp8 and bf16 KV caches
+    ereport, eerr = serve_engine(cfg, dev)
+    errors += eerr
+    log("continuous batching gpt-oss-20b (24 layers, bf16 weights, 8 "
+        "requests in 4 slots, prompts 64-1024, 16-32 new tokens, max_len "
+        "2048; int8, fp8, bf16 KV): " + json.dumps(ereport))
+
     csrc = "sink_attention_tpu_torch/ops/csrc/"
     sources = {  # name: (source, TPU kernel it replaces, main-path launches)
         "flash_fwd": (csrc + "flash_fwd.cu",
@@ -1259,6 +1612,12 @@ def main() -> int:
                       launches["flash_fwd"]),
         "decode": (csrc + "decode.cu", "sink_attention_tpu/ops/decode.py:89",
                    launches["decode"]),
+        "decode_int8": (csrc + "decode.cu",
+                        "sink_attention_tpu/ops/decode.py:89",
+                        ereport["int8"]["launches"]["decode_int8"]),
+        "decode_fp8": (csrc + "decode.cu",
+                       "sink_attention_tpu/ops/decode.py:89",
+                       ereport["fp8"]["launches"]["decode_fp8"]),
         "flash_dq": (csrc + "flash_bwd.cu",
                      "sink_attention_tpu/ops/flash.py:451",
                      treport["launches"]["flash_dq"]),
@@ -1276,7 +1635,7 @@ def main() -> int:
                         preport["launches"]["packed_dkdv"])}
     kernels = []
     for name, (src, repl, n_launch) in sources.items():
-        rows = kern[name]  # the main path's two shapes, one launch each
+        rows = kern[name]  # the main path's shapes, one launch each
         mean = lambda key: sum(r[key] for r in rows) / len(rows)
         bound_by = {r["bound_by"] for r in rows}
         kernels.append({
@@ -1288,8 +1647,13 @@ def main() -> int:
             "bound_by": bound_by.pop() if len(bound_by) == 1 else
             max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": mean("library_ms")})
-    # the forward kernel also runs on the training path
+    # the forward kernel also runs on the training and engine paths, the
+    # bf16 decode on the engine path
     kernels[0]["launches_training"] = treport["launches"]["flash_fwd"]
+    kernels[0]["launches_engine"] = sum(
+        ereport[k]["launches"]["flash_fwd"] for k in ("int8", "fp8",
+                                                      "bfloat16"))
+    kernels[1]["launches_engine"] = ereport["bfloat16"]["launches"]["decode"]
 
     if errors:
         for e in errors:

@@ -1,11 +1,16 @@
-"""Rolling sink KV cache, in PyTorch.
+"""Rolling sink KV cache, in PyTorch, with int8/fp8 quantized storage.
 
-Counterpart of ``sink_attention_tpu/cache/sink_cache.py``, for unquantized
-storage. One buffer per layer and per K/V: slots ``[0, sink_cap)`` hold the
-sink tokens, slots ``[sink_cap, sink_cap + window_cap)`` the circular window,
-both padded to 128-slot multiples (the decode kernel reads the buffer in
-place, and its validity test depends on this layout). Unlike the JAX cache,
-D is stored unpadded.
+Counterpart of ``sink_attention_tpu/cache/sink_cache.py``. One buffer per
+layer and per K/V: slots ``[0, sink_cap)`` hold the sink tokens, slots
+``[sink_cap, sink_cap + window_cap)`` the circular window, both padded to
+128-slot multiples (the decode kernel reads the buffer in place, and its
+validity test depends on this layout). Unlike the JAX cache, D is stored
+unpadded.
+
+Quantized storage (``quant="int8"`` or ``"fp8"``) keeps int8 codes and one
+fp32 scale per token and head (:func:`quantize`, bit for bit the JAX
+package's): fp8 codes are float8_e4m3fn bit patterns held in int8, with
+the subnormal codes flushed to 0. The decode kernel dequantizes in place.
 
 Unlike the JAX cache (an immutable ``flax.struct`` pytree), this cache is
 mutable: ``prefill`` and ``append`` write into the buffers in place and keep
@@ -22,29 +27,72 @@ import torch
 
 from ..utils.device import resolve_device
 
-__all__ = ["SinkKVCache"]
+__all__ = ["SinkKVCache", "QUANT_MAX", "quantize", "dequantize"]
 
 LANES = 128
+QUANT_MAX = {"int8": 127.0, "fp8": 448.0}
 
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
 
 
+def _check_quant(quant: Optional[str]) -> None:
+    if quant not in (None, "int8", "fp8"):
+        raise ValueError(f"quant must be None, 'int8' or 'fp8', got "
+                         f"{quant!r}")
+
+
+def quantize(x: torch.Tensor, quant: str):
+    """Symmetric per-slice quantization along the last axis (head_dim).
+
+    Returns (codes int8 [..., D], scale fp32 [...]) with
+    x ~ dequantize(codes, scale). int8: the int values; fp8: e4m3 bit
+    patterns in int8, subnormal codes (magnitude bits < 8, below 2^-6 of
+    the row's scale) flushed to 0, as in the JAX package.
+    """
+    qmax = QUANT_MAX[quant]
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / qmax
+    inv = torch.where(scale > 0, 1.0 / scale.clamp(min=1e-30),
+                      torch.zeros_like(scale))
+    scaled = (xf * inv[..., None]).clamp(-qmax, qmax)
+    if quant == "int8":
+        return torch.round(scaled).to(torch.int8), scale
+    codes = scaled.to(torch.float8_e4m3fn).view(torch.int8)
+    codes = torch.where((codes & 0x7F) >= 8, codes, torch.zeros_like(codes))
+    return codes, scale
+
+
+def dequantize(codes: torch.Tensor, scale: torch.Tensor,
+               quant: str = "int8") -> torch.Tensor:
+    """fp32 values of ``codes`` [..., D] with per-slice ``scale`` [...]."""
+    if quant == "fp8":
+        codes = codes.view(torch.float8_e4m3fn)
+    return codes.float() * scale[..., None].float()
+
+
 class SinkKVCache:
     """Per-layer rolling sink KV cache (mutable; see the module docstring).
 
     Attributes:
-        k, v: [B, H_kv, S_total, D] storage in the model dtype.
+        k, v: [B, H_kv, S_total, D] storage: the model dtype, or int8 codes
+            when quantized.
+        k_scale, v_scale: [B, H_kv, S_total] fp32 (all ones unquantized).
         sink_len, window_len, write_pos, seen: Python ints.
-        num_sink, window_size, sink_cap, window_cap: the static layout.
+        num_sink, window_size, sink_cap, window_cap, quant: the static
+            layout.
     """
 
-    def __init__(self, k: torch.Tensor, v: torch.Tensor, num_sink: int,
-                 window_size: int, sink_cap: int, window_cap: int):
+    def __init__(self, k: torch.Tensor, v: torch.Tensor,
+                 k_scale: torch.Tensor, v_scale: torch.Tensor,
+                 num_sink: int, window_size: int, sink_cap: int,
+                 window_cap: int, quant: Optional[str] = None):
         self.k, self.v = k, v
+        self.k_scale, self.v_scale = k_scale, v_scale
         self.num_sink, self.window_size = num_sink, window_size
         self.sink_cap, self.window_cap = sink_cap, window_cap
+        self.quant = quant
         self.sink_len = self.window_len = self.write_pos = self.seen = 0
 
     # -- constructors -----------------------------------------------------
@@ -54,18 +102,8 @@ class SinkKVCache:
              num_sink: int = 4, window_size: int = 4096,
              dtype: torch.dtype = torch.bfloat16,
              quant: Optional[str] = None, device="cuda") -> "SinkKVCache":
-        if quant is not None:
-            raise NotImplementedError(
-                f"quantized KV storage ({quant!r}) is not ported yet")
-        sink_cap = LANES if num_sink > 0 else 0
-        if num_sink > sink_cap:
-            raise ValueError("num_sink > 128 not supported")
-        window_cap = _round_up(max(window_size, 1), LANES)
-        shape = (batch, num_kv_heads, sink_cap + window_cap, head_dim)
-        dev = resolve_device(device)
-        k = torch.zeros(shape, dtype=dtype, device=dev)
-        v = torch.zeros(shape, dtype=dtype, device=dev)
-        return cls(k, v, num_sink, window_size, sink_cap, window_cap)
+        return cls(*_buffers(batch, num_kv_heads, head_dim, num_sink,
+                             window_size, dtype, quant, device))
 
     # -- helpers ----------------------------------------------------------
 
@@ -95,12 +133,11 @@ class SinkKVCache:
         rest = N - n_sink
         n_win = min(rest, W)
         if n_sink > 0:
-            self.k[:, :, :n_sink] = k[:, :, :n_sink]
-            self.v[:, :, :n_sink] = v[:, :, :n_sink]
+            _put(self, _slots(0, n_sink), k[:, :, :n_sink], v[:, :, :n_sink])
         if n_win > 0:
             sc = self.sink_cap
-            self.k[:, :, sc:sc + n_win] = k[:, :, N - n_win:]
-            self.v[:, :, sc:sc + n_win] = v[:, :, N - n_win:]
+            _put(self, _slots(sc, sc + n_win), k[:, :, N - n_win:],
+                        v[:, :, N - n_win:])
         self.sink_len, self.window_len = n_sink, n_win
         self.write_pos = n_win % W if rest > 0 else 0
         self.seen = N
@@ -125,15 +162,18 @@ class SinkKVCache:
             pos = self.sink_cap + self.write_pos
             self.write_pos = (self.write_pos + 1) % W
             self.window_len = min(self.window_len + 1, W)
-        self.k[:, :, pos:pos + 1] = k_new
-        self.v[:, :, pos:pos + 1] = v_new
+        _put(self, _slots(pos, pos + 1), k_new, v_new)
         self.seen += 1
         return self
 
     # -- reads ------------------------------------------------------------
 
     def dequant_kv(self):
-        """Full-capacity buffers [B, H_kv, S_total, D] (unquantized)."""
+        """Full-capacity buffers [B, H_kv, S_total, D]: fp32 dequantized
+        when quantized, else the storage itself."""
+        if self.quant:
+            return (dequantize(self.k, self.k_scale, self.quant),
+                    dequantize(self.v, self.v_scale, self.quant))
         return self.k, self.v
 
     def linearized_kv(self):
@@ -154,3 +194,51 @@ class SinkKVCache:
                 parts_k.append(torch.roll(wk, -self.write_pos, dims=2))
                 parts_v.append(torch.roll(wv, -self.write_pos, dims=2))
         return torch.cat(parts_k, dim=2), torch.cat(parts_v, dim=2)
+
+
+def _slots(start: int, stop: int):
+    """Index of the slots [start, stop) of every batch row and head."""
+    return slice(None), slice(None), slice(start, stop)
+
+
+def _put(cache, index, k: torch.Tensor, v: torch.Tensor,
+         keep: Optional[torch.Tensor] = None) -> None:
+    """``cache.k[index] = store(k)``, the same for v and, when quantized,
+    the scales (``index`` selects [..., D] rows; the scales stay all ones
+    unquantized). With ``keep`` (bool, broadcast against the scales'
+    rows) the rows where it is False keep their old contents."""
+    for buf, sbuf, x in ((cache.k, cache.k_scale, k),
+                         (cache.v, cache.v_scale, v)):
+        if cache.quant:
+            codes, scale = quantize(x, cache.quant)
+        else:
+            codes, scale = x.to(buf.dtype), None
+        if keep is not None:
+            codes = torch.where(keep[..., None], codes, buf[index])
+        buf[index] = codes
+        if scale is not None:
+            sbuf[index] = (scale if keep is None else
+                           torch.where(keep, scale, sbuf[index]))
+
+
+def _buffers(batch: int, num_kv_heads: int, head_dim: int, num_sink: int,
+             window_size: int, dtype: torch.dtype, quant: Optional[str],
+             device):
+    """The zeroed storage of a cache (shared with the ragged cache):
+    (k, v, k_scale, v_scale, num_sink, window_size, sink_cap, window_cap,
+    quant)."""
+    _check_quant(quant)
+    sink_cap = LANES if num_sink > 0 else 0
+    if num_sink > sink_cap:
+        raise ValueError("num_sink > 128 not supported")
+    window_cap = _round_up(max(window_size, 1), LANES)
+    s_total = sink_cap + window_cap
+    shape = (batch, num_kv_heads, s_total, head_dim)
+    dev = resolve_device(device)
+    store = torch.int8 if quant else dtype
+    k = torch.zeros(shape, dtype=store, device=dev)
+    v = torch.zeros(shape, dtype=store, device=dev)
+    k_scale = torch.ones(shape[:3], dtype=torch.float32, device=dev)
+    v_scale = torch.ones(shape[:3], dtype=torch.float32, device=dev)
+    return (k, v, k_scale, v_scale, num_sink, window_size, sink_cap,
+            window_cap, quant)

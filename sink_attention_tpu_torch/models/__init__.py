@@ -1,7 +1,8 @@
 from .config import ModelConfig
 from .convert import params_from_jax
 from .model import (apply_rope, decoder_layer, forward_decode,
-                    forward_prefill, init_params, make_caches, moe, rms_norm,
+                    forward_decode_ragged, forward_prefill, init_params,
+                    make_caches, make_ragged_caches, moe, rms_norm,
                     rope_cos_sin)
 
 __all__ = [
@@ -10,7 +11,9 @@ __all__ = [
     "decoder_layer",
     "forward_prefill",
     "forward_decode",
+    "forward_decode_ragged",
     "make_caches",
+    "make_ragged_caches",
     "rms_norm",
     "rope_cos_sin",
     "apply_rope",

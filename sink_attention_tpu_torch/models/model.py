@@ -16,7 +16,9 @@ Semantics as in the JAX model:
 Dtype policy (as in JAX): norms and rope in fp32, the MoE combine
 accumulated in fp32. Prefill attention runs the CUDA prefill kernel (and,
 when training, the dQ and dK/dV kernels in the backward), decode the CUDA
-decode kernel over the rolling sink cache.
+decode kernel over the rolling sink cache (bf16, int8 or fp8 storage), and
+the ragged decode of continuous batching the same kernel over a
+``RaggedSinkKVCache``.
 """
 
 from __future__ import annotations
@@ -27,14 +29,16 @@ from typing import List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from ..cache import SinkKVCache
-from ..ops import sink_decode_attention_cached, sink_flash_attention
+from ..cache import RaggedSinkKVCache, SinkKVCache
+from ..ops import (sink_decode_attention_cached, sink_decode_attention_ragged,
+                   sink_flash_attention)
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
 __all__ = ["init_params", "rms_norm", "rope_cos_sin", "apply_rope", "moe",
            "moe_routing", "moe_experts", "dense_mlp", "mlp_block",
-           "decoder_layer", "forward_prefill", "forward_decode", "make_caches"]
+           "decoder_layer", "forward_prefill", "forward_decode",
+           "forward_decode_ragged", "make_caches", "make_ragged_caches"]
 
 ALPHA = 1.702  # gpt-oss glu activation alpha
 LIMIT = 7.0    # gpt-oss activation clamp
@@ -230,22 +234,31 @@ def dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (torch.nn.functional.silu(g) * u) @ p["down"].to(x.dtype)
 
 
-def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """The per-layer MLP: MoE (gpt-oss) or dense gated-SiLU."""
+def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+              active: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The per-layer MLP: MoE (gpt-oss) or dense gated-SiLU. ``active``
+    ([B] bool) marks the rows whose output is kept (see :func:`moe`)."""
     if cfg.mlp_type == "dense":
         return dense_mlp(p, x)
-    return moe(p, cfg, x)
+    return moe(p, cfg, x, active=active)
 
 
-def moe(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
+        active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """gpt-oss MoE block. x: [B, N, H] -> [B, N, H].
 
     Grouped-by-expert for T = B*N <= moe_grouped_token_limit (decode),
-    dense all-experts products otherwise (prefill).
+    dense all-experts products otherwise (prefill). ``active`` ([B] bool):
+    rows whose output the caller discards (inactive continuous-batching
+    slots) get zero routing weights, so the grouped path reads no expert
+    weights for them.
     """
     B, N, H = x.shape
     xt = x.reshape(B * N, H)
     routing = moe_routing(p, cfg, xt)
+    if active is not None:
+        routing = routing * active.repeat_interleave(N).to(
+            routing.dtype)[:, None]
     out = moe_experts(p, cfg, xt, routing)
     return out.reshape(B, N, H).to(x.dtype)
 
@@ -288,16 +301,16 @@ def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
 
 
 def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-           attend) -> torch.Tensor:
+           attend, active=None) -> torch.Tensor:
     """The block around ``attend(q, k, v) -> attn``: norms, QKV, rope,
-    residuals, MLP."""
+    residuals, MLP (``active``: see :func:`moe`)."""
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
     q, k, v = _qkv(lp["attn"], cfg, h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     x = x + _out_proj(lp["attn"], cfg, attend(q, k, v))
     h = rms_norm(x, lp["ln2"], cfg.rms_norm_eps)
-    return x + mlp_block(lp["mlp"], cfg, h)
+    return x + mlp_block(lp["mlp"], cfg, h, active=active)
 
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -306,23 +319,28 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_walk(params: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-                attn_step) -> torch.Tensor:
+                attn_step, active=None) -> torch.Tensor:
     """The decoder-layer walk shared by every forward. ``attn_step(li, lp,
     q, k, v) -> attn`` supplies one layer's attention (and any cache
     update). Returns logits [B, T, V]."""
     for li, lp in enumerate(params["layers"]):
         x = _block(lp, cfg, x, cos, sin,
-                   lambda q, k, v, li=li, lp=lp: attn_step(li, lp, q, k, v))
+                   lambda q, k, v, li=li, lp=lp: attn_step(li, lp, q, k, v),
+                   active=active)
     return _head(params, cfg, x)
 
 
 def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                     caches: Optional[List[SinkKVCache]] = None,
                     positions: Optional[torch.Tensor] = None,
-                    attn_impl=None, remat: bool = False):
+                    attn_impl=None, remat: bool = False,
+                    collect_kv: bool = False):
     """Full-sequence forward. input_ids: [B, N] -> (logits [B, N, V],
     caches). With ``caches`` (one SinkKVCache per layer), each layer's KV
-    is stored in them for decode. ``positions`` ([N] or [B, N], default
+    is stored in them for decode. With ``collect_kv`` the second value is
+    instead each layer's post-RoPE (k, v) [B, H_kv, N, D] (what the
+    continuous-batching engine inserts into a ragged cache slot).
+    ``positions`` ([N] or [B, N], default
     0..N-1) are the RoPE positions: a packed batch passes its
     segment-local positions here and a packed ``attn_impl``.
     ``attn_impl(q, k, v, num_sink=, window_size=, s_aux=)`` overrides the
@@ -331,7 +349,7 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
     the layer's activations instead of keeping them, one more forward of
     work for memory O(1) in depth, as ``jax.checkpoint`` does in the JAX
-    package. Ignored with ``caches``."""
+    package. Ignored with ``caches`` or ``collect_kv``."""
     B, N = input_ids.shape
     x = params["embed"][input_ids]
     if positions is None:
@@ -340,21 +358,26 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     if attn_impl is None:
         attn_impl = sink_flash_attention
 
-    if remat and caches is None:
+    if remat and caches is None and not collect_kv:
         for li, lp in enumerate(params["layers"]):
             x = torch.utils.checkpoint.checkpoint(
                 decoder_layer, lp, cfg, x, cos, sin,
                 cfg.window_for_layer(li, N), attn_impl, use_reentrant=False)
         return _head(params, cfg, x), None
 
+    kvs = []
+
     def attn_step(li, lp, q, k, v):
         if caches is not None:
             caches[li].prefill(k, v)
+        if collect_kv:
+            kvs.append((k, v))
         return attn_impl(q, k, v, num_sink=cfg.num_sink_tokens,
                          window_size=cfg.window_for_layer(li, N),
                          s_aux=_s_aux(lp, cfg))
 
-    return _layer_walk(params, cfg, x, cos, sin, attn_step), caches
+    logits = _layer_walk(params, cfg, x, cos, sin, attn_step)
+    return logits, (kvs if collect_kv else caches)
 
 
 def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
@@ -378,17 +401,64 @@ def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     return _layer_walk(params, cfg, x, cos, sin, attn_step), caches
 
 
+def forward_decode_ragged(params: dict, cfg: ModelConfig,
+                          input_ids: torch.Tensor,
+                          caches: List[RaggedSinkKVCache],
+                          positions: torch.Tensor, active: torch.Tensor,
+                          attn_impl=None):
+    """Ragged single-token decode, the continuous-batching step: every
+    batch slot holds its own sequence at its own length. input_ids [B, 1];
+    positions [B] (each slot's token position, for RoPE); active [B] bool
+    (inactive slots neither append nor route to experts; their logits are
+    junk). Returns (logits [B, 1, V], caches), the caches appended in
+    place. ``attn_impl(q, cache, s_aux=)`` overrides the decode attention
+    (default: one ragged launch of the decode kernel per layer)."""
+    x = params["embed"][input_ids]
+    cos, sin = rope_cos_sin(cfg, positions[:, None])  # [B, 1, D/2]
+    if attn_impl is None:
+        attn_impl = sink_decode_attention_ragged
+
+    def attn_step(li, lp, q, k, v):
+        cache = caches[li].append(k, v, active)
+        return attn_impl(q, cache, s_aux=_s_aux(lp, cfg))
+
+    return _layer_walk(params, cfg, x, cos, sin, attn_step,
+                       active=active), caches
+
+
+def _layer_windows(cfg: ModelConfig, max_len: int, streaming: bool):
+    """(num_sink, window) of each layer's cache: sliding layers roll
+    ``sliding_window``; full layers keep up to ``max_len`` tokens, or with
+    ``streaming`` roll too (StreamingLLM: at least 4 sinks and a window of
+    max(sliding_window, 4096), an approximation on full layers)."""
+    for li in range(cfg.num_layers):
+        if cfg.layer_types[li] == "sliding_attention":
+            yield cfg.num_sink_tokens, cfg.sliding_window
+        elif streaming:
+            yield max(cfg.num_sink_tokens, 4), max(cfg.sliding_window, 4096)
+        else:
+            yield cfg.num_sink_tokens, max_len
+
+
 def make_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16,
+                quant: Optional[str] = None, streaming: bool = False,
                 device="cuda") -> List[SinkKVCache]:
-    """Per-layer caches for serving: sliding layers roll a window of
-    ``sliding_window``; full layers keep up to ``max_len`` tokens."""
-    caches = []
-    for li in range(cfg.num_layers):
-        sliding = cfg.layer_types[li] == "sliding_attention"
-        caches.append(SinkKVCache.init(
-            batch, cfg.num_kv_heads, cfg.head_dim,
-            num_sink=cfg.num_sink_tokens,
-            window_size=cfg.sliding_window if sliding else max_len,
-            dtype=dtype, device=device))
-    return caches
+    """Per-layer caches for serving (window policy: see
+    :func:`_layer_windows`), quantized to int8/fp8 if ``quant``."""
+    return [SinkKVCache.init(batch, cfg.num_kv_heads, cfg.head_dim,
+                             num_sink=ns, window_size=w, dtype=dtype,
+                             quant=quant, device=device)
+            for ns, w in _layer_windows(cfg, max_len, streaming)]
+
+
+def make_ragged_caches(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype: torch.dtype = torch.bfloat16,
+                       quant: Optional[str] = None, streaming: bool = False,
+                       device="cuda") -> List[RaggedSinkKVCache]:
+    """Per-layer ``RaggedSinkKVCache`` for continuous batching (the window
+    policy of :func:`make_caches`)."""
+    return [RaggedSinkKVCache.init(batch, cfg.num_kv_heads, cfg.head_dim,
+                                   num_sink=ns, window_size=w, dtype=dtype,
+                                   quant=quant, device=device)
+            for ns, w in _layer_windows(cfg, max_len, streaming)]

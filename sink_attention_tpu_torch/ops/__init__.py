@@ -2,7 +2,8 @@
 (differentiable prefill, chunk and packed attention, decode), each kernel
 with its plain PyTorch version."""
 
-from .decode import sink_decode_attention, sink_decode_attention_cached
+from .decode import (sink_decode_attention, sink_decode_attention_cached,
+                     sink_decode_attention_ragged)
 from .flash import (merge_partials, sink_flash_attention,
                     sink_flash_attention_chunk, sink_flash_attention_with_lse)
 from .packed import sink_flash_attention_packed
@@ -21,4 +22,5 @@ __all__ = [
     "sink_flash_attention_packed",
     "sink_decode_attention",
     "sink_decode_attention_cached",
+    "sink_decode_attention_ragged",
 ]

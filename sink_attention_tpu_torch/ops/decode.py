@@ -1,17 +1,23 @@
 """Single-token decode attention over the rolling sink KV cache.
 
-Counterpart of ``sink_attention_tpu/ops/decode.py`` (its unquantized
-branch). The kernel is ``csrc/decode.cu`` (it replaces the TPU kernel
-``_decode_kernel``): a split-KV pass over 128-slot chunks of the cache
-buffer, read in place, then a merge of the partials by their LSE. Beside it
-sits its plain PyTorch version, :func:`decode_plain`. A CPU tensor takes the
-plain version; a CUDA tensor launches the kernel or raises.
+Counterpart of ``sink_attention_tpu/ops/decode.py``. The kernels are
+``csrc/decode.cu`` (they replace the TPU kernel ``_decode_kernel`` in its
+three storage branches: bf16, int8 and fp8 codes with per-token fp32
+scales): a split-KV pass over 128-slot chunks of the cache buffer, read in
+place, then a merge of the partials by their LSE. Beside them sits their
+plain PyTorch version, :func:`decode_plain`. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
+
+The quantized kernels compute attention over the dequantized cache in
+fp32. The JAX int8 branch instead rounds q and p to 8 bits for the TPU's
+s8 x s8 matrix unit, so the port follows the function that branch
+approximates, not its rounding.
 
 Both read the per-sequence state from a [B, 4] int32 table
-(sink_len, window_len, write_pos, hwm), so a ragged batch can reuse them
-unchanged. A window slot is live iff it is one of the newest
-``window_len`` positions behind ``write_pos`` on the ring (the circular-age
-test).
+(sink_len, window_len, write_pos, hwm), so a ragged batch
+(:func:`sink_decode_attention_ragged`) reuses them unchanged. A window
+slot is live iff it is one of the newest ``window_len`` positions behind
+``write_pos`` on the ring (the circular-age test).
 """
 
 from __future__ import annotations
@@ -21,10 +27,11 @@ import functools
 
 import torch
 
+from ..cache.sink_cache import dequantize
 from . import _build
 
 __all__ = ["sink_decode_attention", "sink_decode_attention_cached",
-           "decode_kernel", "decode_plain"]
+           "sink_decode_attention_ragged", "decode_kernel", "decode_plain"]
 
 LANES = 128
 CHUNK = 128    # slots per CTA of the partial pass; must match csrc/decode.cu
@@ -59,18 +66,25 @@ def live_slots(lens: torch.Tensor, s_total: int, sink_cap: int,
 
 
 def decode_plain(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
-                 window_size: int):
-    """The kernel's plain PyTorch version, in fp32.
+                 window_size: int, k_scale=None, v_scale=None, quant=None):
+    """The kernels' plain PyTorch version, in fp32.
 
-    q [B, H_q, 1, D]; k_buf/v_buf [B, H_kv, S_total, D]; lens [B, 4] int32;
-    s_aux [H_q] or None. Returns [B, H_q, 1, D] in q.dtype.
+    q [B, H_q, 1, D]; k_buf/v_buf [B, H_kv, S_total, D] (int8 codes with
+    k_scale/v_scale [B, H_kv, S_total] when ``quant`` is "int8" or "fp8");
+    lens [B, 4] int32; s_aux [H_q] or None. Returns [B, H_q, 1, D] in
+    q.dtype.
     """
     B, H_q, _, D = q.shape
     H_kv, s_total = k_buf.shape[1], k_buf.shape[2]
     group = H_q // H_kv
+    if quant:
+        kf = dequantize(k_buf, k_scale, quant)
+        vf = dequantize(v_buf, v_scale, quant)
+    else:
+        kf, vf = k_buf.float(), v_buf.float()
     live = live_slots(lens, s_total, sink_cap, window_size)  # [B, S]
     qf = q.float().reshape(B, H_kv, group, D) * (1.0 / D ** 0.5)
-    s = torch.einsum("bkgd,bksd->bkgs", qf, k_buf.float())
+    s = torch.einsum("bkgd,bksd->bkgs", qf, kf)
     s = s.masked_fill(~live[:, None, None, :], float("-inf"))
     if s_aux is not None:
         aux = s_aux.float().reshape(1, H_kv, group, 1).expand(B, -1, -1, 1)
@@ -80,31 +94,72 @@ def decode_plain(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
     denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    out = torch.einsum("bkgs,bksd->bkgd", p[..., :s_total] / denom,
-                       v_buf.float())
+    out = torch.einsum("bkgs,bksd->bkgd", p[..., :s_total] / denom, vf)
     return out.reshape(B, H_q, 1, D).to(q.dtype)
 
 
+# The storage branches: the C entry point of csrc/decode.cu and the
+# pointer count before its int arguments.
+_ENTRY = {None: ("sink_decode_bf16", 8), "int8": ("sink_decode_int8", 10),
+          "fp8": ("sink_decode_fp8", 10)}
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _kernel_fn(quant=None):
     lib = _build.load("decode")
     if (lib.sink_decode_chunk(), lib.sink_decode_max_group()) != (
             CHUNK, MAX_GROUP):
         raise RuntimeError("csrc/decode.cu and ops/decode.py disagree on "
                            "CHUNK / MAX_GROUP")
-    fn = lib.sink_decode_bf16
+    name, n_ptr = _ENTRY[quant]
+    fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 +
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7 +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
+def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
+                            quant) -> None:
+    """What the int8 and fp8 kernels take: bf16 q, int8 codes, fp32
+    scales [B, H_kv, S_total], head_dim 64 or 128, one device."""
+    if quant not in ("int8", "fp8"):
+        raise ValueError(f"quant must be 'int8' or 'fp8', got {quant!r}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the {quant} decode kernel takes bf16 q, got "
+                        f"{q.dtype}")
+    if k_buf.dtype != torch.int8 or v_buf.dtype != torch.int8:
+        raise TypeError(f"the {quant} decode kernel takes int8 codes, got "
+                        f"{k_buf.dtype}, {v_buf.dtype}")
+    if k_scale is None or v_scale is None or any(
+            t.dtype != torch.float32 for t in (k_scale, v_scale)):
+        raise TypeError(f"the {quant} decode kernel takes fp32 scales")
+    if (tuple(k_scale.shape) != tuple(k_buf.shape[:3])
+            or tuple(v_scale.shape) != tuple(k_buf.shape[:3])):
+        raise ValueError("scales must be [B, H_kv, S_total]")
+    if q.shape[-1] not in _build.KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {q.shape[-1]} not supported by the CUDA "
+                         f"kernels (supported: {_build.KERNEL_HEAD_DIMS})")
+    devs = {t.device for t in (q, k_buf, v_buf, k_scale, v_scale)}
+    if s_aux is not None:
+        devs.add(s_aux.device)
+    if len(devs) != 1:
+        raise ValueError(f"inputs on different devices: {devs}")
+
+
 def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
-                  window_size: int):
+                  window_size: int, k_scale=None, v_scale=None, quant=None):
     """Launch ``csrc/decode.cu`` on CUDA tensors (same contract as
-    :func:`decode_plain`). ``decode_kernel.launches`` counts the calls
-    (each launches the partial pass and the merge)."""
-    _build.check_attention_inputs(q, k_buf, v_buf, s_aux)
+    :func:`decode_plain`): ``sink_decode_bf16`` for bf16 storage,
+    ``sink_decode_int8`` / ``sink_decode_fp8`` for quantized storage. Each
+    branch counts its calls (each launches the partial pass and the
+    merge): ``decode_kernel.launches`` (bf16), ``.launches_int8`` and
+    ``.launches_fp8``."""
+    if quant:
+        _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
+                                quant)
+    else:
+        _build.check_attention_inputs(q, k_buf, v_buf, s_aux)
     if not q.is_cuda or lens.device != q.device:
         raise ValueError("decode_kernel takes CUDA tensors on one device")
     B, H_q, n_q, D = q.shape
@@ -120,6 +175,8 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     n_split = -(-s_total // CHUNK)
     qc = q.contiguous()
     kc, vc = _build.aligned(k_buf), _build.aligned(v_buf)
+    scales = ([k_scale.contiguous(), v_scale.contiguous()] if quant
+              else [])
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
     part_o = torch.empty((B * H_q, n_split, D), dtype=torch.float32,
@@ -127,27 +184,31 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     part_lse = torch.empty((B * H_q, n_split), dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(qc)
-    ptrs = [_build.ptr(t) for t in (qc, kc, vc, lens.contiguous(), aux,
-                                    part_o, part_lse, out)]
-    code = _kernel_fn()(*ptrs, B, H_q, H_kv, s_total, D, sink_cap,
-                        window_size, 1.0 / (D ** 0.5),
-                        _build.stream_ptr(q.device))
-    _build.check(code, "sink_decode_bf16")
-    decode_kernel.launches += 1
+    ptrs = [_build.ptr(t) for t in (qc, kc, vc, *scales, lens.contiguous(),
+                                    aux, part_o, part_lse, out)]
+    code = _kernel_fn(quant)(*ptrs, B, H_q, H_kv, s_total, D, sink_cap,
+                             window_size, 1.0 / (D ** 0.5),
+                             _build.stream_ptr(q.device))
+    _build.check(code, _ENTRY[quant][0])
+    if quant == "int8":
+        decode_kernel.launches_int8 += 1
+    elif quant == "fp8":
+        decode_kernel.launches_fp8 += 1
+    else:
+        decode_kernel.launches += 1
     return out
 
 
 decode_kernel.launches = 0
+decode_kernel.launches_int8 = 0
+decode_kernel.launches_fp8 = 0
 
 
-def _decode_call(q, k_buf, v_buf, lens, s_aux, *, sink_cap: int,
-                 window_size: int):
+def _decode_call(q, k_buf, v_buf, lens, s_aux, **kw):
     if q.device.type == "cpu":
-        return decode_plain(q, k_buf, v_buf, lens, s_aux, sink_cap=sink_cap,
-                            window_size=window_size)
+        return decode_plain(q, k_buf, v_buf, lens, s_aux, **kw)
     if q.is_cuda:
-        return decode_kernel(q, k_buf, v_buf, lens, s_aux, sink_cap=sink_cap,
-                             window_size=window_size)
+        return decode_kernel(q, k_buf, v_buf, lens, s_aux, **kw)
     raise ValueError(f"unsupported device {q.device}")
 
 
@@ -171,12 +232,39 @@ def sink_decode_attention(q, k, v, s_aux=None):
 def sink_decode_attention_cached(q, cache, s_aux=None):
     """Single-token decode attention directly over a ``SinkKVCache``.
 
-    Reads the sink + circular window buffer in place: no linearisation, no
-    copies. q: [B, H_q, 1, D], for the token whose KV is already appended.
+    Reads the sink + circular window buffer in place (quantized or not): no
+    linearisation, no copies. q: [B, H_q, 1, D], for the token whose KV is
+    already appended.
     """
     lens = _uniform_lens(cache.sink_len, cache.window_len, cache.write_pos,
                          cache.window_size, cache.sink_cap, q.shape[0],
                          q.device)
     return _decode_call(q, cache.k, cache.v, lens, s_aux,
-                        sink_cap=cache.sink_cap,
-                        window_size=cache.window_size)
+                        **cache_args(cache))
+
+
+def cache_args(cache) -> dict:
+    """The keyword arguments of :func:`decode_plain` and
+    :func:`decode_kernel` that come from a cache's layout."""
+    return dict(sink_cap=cache.sink_cap, window_size=cache.window_size,
+                k_scale=cache.k_scale, v_scale=cache.v_scale,
+                quant=cache.quant)
+
+
+def ragged_lens(cache) -> torch.Tensor:
+    """[B, 4] int32 lens rows of a ``RaggedSinkKVCache``, built on its
+    device from its [B] state tensors (no host sync). hwm covers the sink
+    region, and the window when the slot has one."""
+    hwm = cache.sink_cap + (cache.window_len > 0).to(
+        torch.int32) * cache.window_size
+    return torch.stack([cache.sink_len, cache.window_len, cache.write_pos,
+                        hwm], dim=1).to(torch.int32)
+
+
+def sink_decode_attention_ragged(q, cache, s_aux=None):
+    """Single-token decode over a ``RaggedSinkKVCache``: every batch slot
+    attends its own (sink_len[b], window_len[b], write_pos[b]) view of the
+    shared buffers, in one launch. An empty slot gives zeros.
+    q: [B, H_q, 1, D]."""
+    return _decode_call(q, cache.k, cache.v, ragged_lens(cache), s_aux,
+                        **cache_args(cache))

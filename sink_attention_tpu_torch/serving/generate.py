@@ -8,6 +8,8 @@ the JAX package's ``lax.scan`` decode becomes a Python loop, one
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..models.config import ModelConfig
@@ -20,12 +22,13 @@ __all__ = ["greedy_generate", "prefill_and_caches", "decode_loop"]
 @torch.inference_mode()
 def prefill_and_caches(params, cfg: ModelConfig, input_ids: torch.Tensor,
                        max_new_tokens: int,
-                       dtype: torch.dtype = torch.bfloat16):
+                       dtype: torch.dtype = torch.bfloat16,
+                       quant: Optional[str] = None):
     """Run prefill; return (next_token [B] int64, caches), on the device of
-    ``input_ids``."""
+    ``input_ids``; the caches quantized to int8/fp8 if ``quant``."""
     B, N = input_ids.shape
     caches = make_caches(cfg, B, max_len=N + max_new_tokens, dtype=dtype,
-                         device=input_ids.device)
+                         quant=quant, device=input_ids.device)
     logits, caches = forward_prefill(params, cfg, input_ids, caches)
     return logits[:, -1].argmax(dim=-1), caches
 
@@ -48,14 +51,16 @@ def decode_loop(params, cfg: ModelConfig, first_token: torch.Tensor, caches,
 @torch.inference_mode()
 def greedy_generate(params, cfg: ModelConfig, input_ids: torch.Tensor,
                     max_new_tokens: int, dtype: torch.dtype = torch.bfloat16,
-                    device="cuda"):
-    """Greedy generation on ``device`` (the card unless told otherwise).
-    input_ids [B, N] -> generated tokens [B, max_new_tokens] int64."""
+                    quant: Optional[str] = None, device="cuda"):
+    """Greedy generation on ``device`` (the card unless told otherwise),
+    over an int8/fp8 KV cache if ``quant``. input_ids [B, N] -> generated
+    tokens [B, max_new_tokens] int64."""
     dev = resolve_device(device)
     input_ids = input_ids.to(dev)
     N = input_ids.shape[1]
     first, caches = prefill_and_caches(params, cfg, input_ids,
-                                       max_new_tokens, dtype=dtype)
+                                       max_new_tokens, dtype=dtype,
+                                       quant=quant)
     if max_new_tokens == 1:
         return first[:, None]
     toks, _ = decode_loop(params, cfg, first, caches, start_pos=N,

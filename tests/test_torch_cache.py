@@ -56,5 +56,9 @@ def test_cache_matches_jax(case):
 
 
 def test_quantized_cache_not_ported():
-    with pytest.raises(NotImplementedError):
-        TCache.init(1, 1, 16, quant="int8", device="cpu")
+    """int8 and fp8 storage are ported (tests/test_torch_quant_cache.py);
+    any other quant, as in the JAX package, is refused."""
+    with pytest.raises(ValueError, match="quant"):
+        TCache.init(1, 1, 16, quant="int4", device="cpu")
+    assert TCache.init(1, 1, 16, quant="fp8", device="cpu").k.dtype == \
+        torch.int8

@@ -9,7 +9,7 @@ the fixture, so every worker collects the same tests). On the card:
 import pytest
 import torch
 
-from sink_attention_tpu_torch.cache import SinkKVCache
+from sink_attention_tpu_torch.cache import RaggedSinkKVCache, SinkKVCache
 from sink_attention_tpu_torch.ops import decode, flash
 
 pytestmark = pytest.mark.gpu
@@ -79,6 +79,81 @@ def test_decode_kernel_matches_plain(cuda, case):
                                   window_size=cache.window_size)
         torch.cuda.synchronize()
         assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+
+
+QUANT_CASES = [
+    # (quant, B, H_q, H_kv, D, num_sink, window, lengths, appends): an int
+    # length prefills a SinkKVCache; a list inserts each slot of a
+    # RaggedSinkKVCache (0: left empty)
+    ("int8", 4, 64, 8, 64, 0, 128, 1024, 16),
+    ("fp8", 4, 64, 8, 64, 0, 1056, 1024, 31),
+    ("int8", 1, 32, 8, 128, 4, 4096, 300, 5),
+    ("fp8", 2, 8, 2, 128, 4, 32, 3, 40),        # sink promotion
+    ("int8", 4, 64, 8, 64, 0, 128, [1000, 77, 0, 610], 24),
+    ("fp8", 4, 64, 8, 64, 0, 2048, [1000, 77, 0, 610], 24),
+    ("fp8", 4, 8, 2, 128, 4, 100, [3, 150, 0, 40], 12),   # park slot
+]
+QUANT_BUDGET = {"int8": 0.05, "fp8": 0.12}  # vs unquantized KV (JAX tests)
+
+
+@pytest.mark.parametrize("case", QUANT_CASES)
+def test_quantized_decode_kernels_match_plain(cuda, case):
+    """The int8 / fp8 decode kernel against its plain version (2e-2 on the
+    bf16 output) and against the bf16 kernel over the unquantized KV
+    (within the JAX tests' budget), one launch of its own branch, zeros
+    for an empty ragged slot."""
+    quant, B, H_q, H_kv, D, ns, W, lengths, appends = case
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ragged = isinstance(lengths, list)
+    cls = RaggedSinkKVCache if ragged else SinkKVCache
+    caches = [cls.init(B, H_kv, D, num_sink=ns, window_size=W, quant=qn,
+                       device=cuda) for qn in (quant, None)]
+    if ragged:
+        k = _randn(gen, B, H_kv, max(lengths), D)
+        v = _randn(gen, B, H_kv, max(lengths), D)
+        for c in caches:
+            for b, n in enumerate(lengths):
+                if n:
+                    c.insert(b, k[b], v[b], n)
+    else:
+        k, v = _randn(gen, B, H_kv, lengths, D), _randn(gen, B, H_kv, lengths, D)
+        for c in caches:
+            c.prefill(k, v)
+    for i in range(appends):
+        k, v = _randn(gen, B, H_kv, 1, D), _randn(gen, B, H_kv, 1, D)
+        active = torch.tensor([bool(n) and i % (b + 2) != 0 for b, n in
+                               enumerate(lengths)], device=cuda) \
+            if ragged else None
+        for c in caches:
+            if ragged:
+                c.append(k, v, active)
+            else:
+                c.append(k, v)
+    qc, ref = caches
+    q = _randn(gen, B, H_q, 1, D)
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    lens = decode.ragged_lens(qc) if ragged else decode._uniform_lens(
+        qc.sink_len, qc.window_len, qc.write_pos, qc.window_size,
+        qc.sink_cap, B, cuda)
+    counts = [getattr(decode.decode_kernel, a) for a in
+              ("launches", "launches_int8", "launches_fp8")]
+    o_k = (decode.sink_decode_attention_ragged(q, qc, aux) if ragged else
+           decode.sink_decode_attention_cached(q, qc, aux))
+    after = [getattr(decode.decode_kernel, a) for a in
+             ("launches", "launches_int8", "launches_fp8")]
+    branch = 1 if quant == "int8" else 2
+    assert after == [c + (i == branch) for i, c in enumerate(counts)]
+    o_p = decode.decode_plain(q, qc.k, qc.v, lens, aux,
+                              **decode.cache_args(qc))
+    o_b = decode.decode_kernel(q, ref.k, ref.v, lens, aux,
+                               **decode.cache_args(ref))
+    torch.cuda.synchronize()
+    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    assert float((o_k.float() - o_b.float()).abs().max()) <= \
+        QUANT_BUDGET[quant]
+    if ragged:
+        empty = [b for b, n in enumerate(lengths) if not n]
+        assert not o_k[empty].any()
 
 
 BWD_CASES = [

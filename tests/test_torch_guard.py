@@ -146,3 +146,65 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert packed.packed_fwd_kernel.launches == 0
     assert packed.packed_dq_kernel.launches == 0
     assert packed.packed_dkdv_kernel.launches == 0
+
+
+def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
+    """The int8/fp8 decode branches check before any launch: int8 codes,
+    fp32 scales of shape [B, H_kv, S_total], bf16 q, one device, CUDA."""
+    from sink_attention_tpu_torch.ops import decode
+
+    q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
+    codes = torch.zeros(1, 2, 128, 64, dtype=torch.int8)
+    scale = torch.ones(1, 2, 128)
+    lens = torch.zeros(1, 4, dtype=torch.int32)
+
+    def call(q=q, k=codes, v=codes, ks=scale, vs=scale, quant="int8"):
+        decode.decode_kernel(q, k, v, lens, sink_cap=0, window_size=128,
+                             k_scale=ks, v_scale=vs, quant=quant)
+
+    with pytest.raises(TypeError, match="int8 codes"):
+        call(k=codes.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="fp32 scales"):
+        call(ks=scale.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="fp32 scales"):
+        call(vs=None, quant="fp8")
+    with pytest.raises(ValueError, match="S_total"):
+        call(ks=scale[:, :, :64])
+    with pytest.raises(TypeError, match="bf16 q"):
+        call(q=q.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        call(q=q[..., :32], k=codes[..., :32], v=codes[..., :32])
+    with pytest.raises(ValueError, match="different devices"):
+        call(ks=torch.ones(1, 2, 128, device="meta"))
+    with pytest.raises(ValueError, match="quant"):
+        call(quant="int4")
+    with pytest.raises(ValueError, match="CUDA"):
+        call()
+    with pytest.raises(TypeError):   # int8 codes given as bf16 storage
+        call(quant=None)
+    assert (decode.decode_kernel.launches, decode.decode_kernel.launches_int8,
+            decode.decode_kernel.launches_fp8) == (0, 0, 0)
+
+
+def test_engine_defaults_to_the_card():
+    """The ragged cache, its factory and the engine raise without CUDA
+    unless given device="cpu"."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    from sink_attention_tpu_torch.cache import RaggedSinkKVCache
+    from sink_attention_tpu_torch.models import (ModelConfig, init_params,
+                                                 make_ragged_caches)
+    from sink_attention_tpu_torch.serving import ContinuousBatchingEngine
+    cfg = ModelConfig.tiny()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        RaggedSinkKVCache.init(2, 2, 16, quant="int8")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_ragged_caches(cfg, 2, 32, quant="fp8")
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ContinuousBatchingEngine(params, cfg, max_batch=2, max_len=32)
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, max_len=32,
+                                   prefill_bucket=16, device="cpu")
+    rid = eng.submit([1, 2, 3], max_new_tokens=2)
+    assert len(eng.run()[rid]) == 2
