@@ -2,7 +2,8 @@
 """Drive the PyTorch port (sink_attention_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py    # build, kernel checks, serving, training,
-                             # packed training, continuous batching
+                             # packed training, continuous batching,
+                             # the forward kernel's ablation
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -43,7 +44,14 @@ Phases:
      run time, tokens/s, time to first token, ms per pool step, device idle
      share and memory; then every layer's decode attention on a replay,
      kernel against plain, and the replay's logits against teacher forcing
-     and a control (see ``serve_engine``).
+     and a control (see ``serve_engine``);
+  7. ablation: the forward kernel's per-stage ablation (the ablation and
+     mask-stage kernels, every stage of scripts/mfu_ablation.py) at the JAX
+     script's headline shape and at gpt-oss-20b's two prefill shapes: each
+     stage against its plain version (the correct ones also against the
+     forward kernel), then the entry point's table of ms, effective MFU
+     and deltas, with the plain versions' times, SDPA for the correct
+     stages and each stage's bound (see ``ablation_phase``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -54,7 +62,6 @@ from __future__ import annotations
 
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -73,15 +80,6 @@ RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
-        "nvidia-smi: " + out.stderr.strip())
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1502,6 +1500,173 @@ def serve_engine(cfg, device, *, quants=("int8", "fp8", None),
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: the forward kernel's per-stage ablation
+# ---------------------------------------------------------------------------
+
+ABLATION_SHAPES = [  # (label, B, H_q, H_kv, N, D, num_sink, window)
+    ("headline", 1, 32, 8, 8192, 128, 4, 4096),
+    ("gpt-oss-20b sliding", 4, 64, 8, 1024, 64, 0, 128),
+    ("gpt-oss-20b full", 4, 64, 8, 1024, 64, 0, 1024)]
+ABLATION_CORRECT = ("general", "maskadd", "masksel")
+
+
+def _ablation_check(q, k, v, stage, ns, W, ref):
+    """One stage's kernel against its plain version on the same inputs:
+    NaN in the same places, then the finite values (a stripped stage
+    within 2e-2 of max |plain|; a correct stage within FLASH_TOL of plain
+    and of the forward kernel ``ref``, on its finite rows)."""
+    from sink_attention_tpu_torch.ops import ablation
+    got = ablation.ablation_kernel(q, k, v, stage, ns, W).float()
+    plain = ablation.ablation_plain(q, k, v, stage, ns, W).float()
+    torch.cuda.synchronize()
+    nan = plain.isnan()
+    fin = ~nan
+    err = float((got - plain)[fin].abs().max())
+    scale = float(plain[fin].abs().max())
+    res = {"max_abs_err": err, "max_plain": scale,
+           "nan_rows": int(nan.any(-1).sum()),
+           "nan_same": bool(torch.equal(got.isnan(), nan))}
+    if stage in ABLATION_CORRECT:
+        res["tol"] = FLASH_TOL
+        res["vs_flash"] = float((got - ref.float())[fin].abs().max())
+        res["ok"] = (res["nan_same"] and err <= FLASH_TOL
+                     and res["vs_flash"] <= FLASH_TOL)
+    else:
+        res["tol"] = FLASH_TOL * scale
+        res["ok"] = res["nan_same"] and err <= res["tol"]
+    return res
+
+
+def _ablation_bound(stage, B, H_q, H_kv, N, D, ns, W):
+    """(bound ms, bound_by) of one stage: a correct stage's FLOPs are
+    those of the visible pairs, a stripped stage's those of every cell of
+    the visited tiles (it sums over them, masked cells included), 4 D per
+    cell (QK^T and PV); bytes: q, k, v read and out written once (and the
+    mask tiles)."""
+    from sink_attention_tpu_torch.ops import ablation
+    from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
+                                                attention_pairs)
+    if stage in ABLATION_CORRECT:
+        cells = attention_pairs(N, N, ns, W)
+    else:
+        cells = int(ablation.visited_blocks(N, ns, W)[1].sum()) * 64 * 64
+    flops = 4 * D * B * H_q * cells
+    nbytes = 2 * (2 * B * H_q * N * D + 2 * B * H_kv * N * D)
+    nbytes += {"maskadd": 2 * 64 * 64 * 2, "masksel": 64 * 64}.get(stage, 0)
+    t_ops, t_bytes = flops / H100_PEAK_BF16 * 1e3, nbytes / H100_HBM_BW * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def ablation_phase(dev):
+    """Phase 7: every ablation stage at the JAX script's headline shape and
+    at gpt-oss-20b's two prefill shapes. Each stage's kernel is held to its
+    plain version (and the correct stages to the forward kernel); then the
+    entry point's table (sink_attention_tpu_torch.scripts.mfu_ablation:
+    each stage timed, the mask stages held to the production forward, then
+    "full") runs at each shape with the launch counters set to 0 just
+    before it and read just after; then the plain versions', SDPA's (the
+    correct stages' yardstick) and the bounds. Returns (rows by shape,
+    launches, errors)."""
+    from sink_attention_tpu_torch.ops import ablation, flash
+    from sink_attention_tpu_torch.ops.reference import sink_window_mask
+    from sink_attention_tpu_torch.scripts import mfu_ablation
+    from sink_attention_tpu_torch.utils import time_cuda
+
+    errors, rows, inputs = [], {}, {}
+    for i, (label, B, H_q, H_kv, N, D, ns, W) in enumerate(ABLATION_SHAPES):
+        q, k, v = mfu_ablation.make_inputs(N, 7 + i, dev, B, H_q, H_kv, D)
+        inputs[label] = (q, k, v)
+        ref = flash.flash_fwd_kernel(q, k, v, None, ns, W)[0]
+        rows[label] = {st: _ablation_check(q, k, v, st, ns, W, ref)
+                       for st in ablation.STAGES}
+        del ref
+
+    ablation.ablation_kernel.launches = 0
+    ablation.ablation_kernel.launches_mask_stage = 0
+    tables = {label: mfu_ablation.stage_table(*inputs[label], ablation.STAGES,
+                                              ns, W)
+              for label, *_, ns, W in ABLATION_SHAPES}
+    launches = {"ablation": ablation.ablation_kernel.launches,
+                "mask_stage": ablation.ablation_kernel.launches_mask_stage}
+
+    for label, B, H_q, H_kv, N, D, ns, W in ABLATION_SHAPES:
+        q, k, v = inputs[label]
+        shape = f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
+        mask = sink_window_mask(N, N, ns, W, device=dev)
+        library_ms = time_cuda(lambda: _sdpa(q, k, v, mask), iters=10)
+        log(f"ablation table [{label}: {shape}]:")
+        for line in mfu_ablation.format_rows(tables[label]):
+            log("  " + line)
+        for t in tables[label]:
+            st = t["stage"]
+            if st == "full":
+                rows[label]["full"] = {"ms": t["ms"], "mfu": t["mfu"],
+                                       "library_ms": library_ms}
+                continue
+            r = rows[label][st]
+            r.update(shape=shape, ms=t["ms"], mfu=t["mfu"],
+                     delta_ms=t["delta_ms"],
+                     library_ms=library_ms if st in ABLATION_CORRECT
+                     else None)
+            r["plain_ms"] = time_cuda(lambda: ablation.ablation_plain(
+                q, k, v, st, ns, W), iters=2, warmup=1)
+            r["bound_ms"], r["bound_by"] = _ablation_bound(st, B, H_q, H_kv,
+                                                           N, D, ns, W)
+            log(f"ablation {st} [{label}: {shape}]: max_abs_err="
+                f"{r['max_abs_err']:.3e} (tol {r['tol']:.3e}, max |plain| "
+                f"{r['max_plain']:.3e}) nan_rows={r['nan_rows']} "
+                f"nan_same={r['nan_same']}"
+                + (f" vs_flash={r['vs_flash']:.3e}" if "vs_flash" in r
+                   else "")
+                + f" ok={r['ok']} ms={r['ms']:.4f} eff_mfu="
+                f"{r['mfu'] * 100:.2f}% delta_ms="
+                + ("none" if r["delta_ms"] is None else
+                   f"{r['delta_ms']:+.4f}")
+                + f" plain_ms={r['plain_ms']:.4f} library_ms="
+                + ("none" if r["library_ms"] is None else
+                   f"{r['library_ms']:.4f}")
+                + f" bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+            if not r["ok"]:
+                errors.append(f"ablation {st} [{label}] disagrees with its "
+                              f"plain version: {r['max_abs_err']:.3e}")
+        del mask
+    for name, n in launches.items():
+        if n <= 0:
+            errors.append(f"{name} launched {n} times in phase 7")
+    return rows, launches, errors
+
+
+def ablation_entries(rows, launches):
+    """The two ablation kernels' entries of the kernels line: launches in
+    phase 7's main path, the worst error over its three shapes, and the
+    means over each kernel's stages at the headline shape (per-stage ms
+    beside them)."""
+    from sink_attention_tpu_torch.ops import ablation
+    csrc = "sink_attention_tpu_torch/ops/csrc/ablation.cu"
+    head = rows["headline"]
+    out = []
+    for name, line, stages in (
+            ("ablation", 80, [s for s in ablation.STAGES
+                              if s not in ablation.MASK_STAGES]),
+            ("mask_stage", 179, list(ablation.MASK_STAGES))):
+        mean = lambda key: sum(head[s][key] for s in stages) / len(stages)
+        lib = head[stages[0]]["library_ms"]
+        out.append({
+            "name": name, "route": "cuda", "source": csrc,
+            "replaces": f"scripts/mfu_ablation.py:{line}",
+            "launches": launches[name],
+            "max_abs_err": max(r[s]["max_abs_err"] for r in rows.values()
+                               for s in stages),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": mean("bound_ms"),
+            "bound_by": head[stages[0]]["bound_by"],
+            "library_ms": lib if name == "mask_stage" else None,
+            "stage_ms": {s: head[s]["ms"] for s in stages}})
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1512,6 +1677,7 @@ def main() -> int:
     try:
         from sink_attention_tpu_torch.models import ModelConfig
         from sink_attention_tpu_torch.ops import _build
+        from sink_attention_tpu_torch.utils import card_line
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
@@ -1654,6 +1820,16 @@ def main() -> int:
         ereport[k]["launches"]["flash_fwd"] for k in ("int8", "fp8",
                                                       "bfloat16"))
     kernels[1]["launches_engine"] = ereport["bfloat16"]["launches"]["decode"]
+
+    torch.cuda.empty_cache()
+
+    # 7. the forward kernel's per-stage ablation
+    t0 = time.perf_counter()
+    arows, alaunch, aerr = ablation_phase(dev)
+    errors += aerr
+    log(f"ablation phase: {time.perf_counter() - t0:.1f} s, launches "
+        f"{json.dumps(alaunch)}")
+    kernels += ablation_entries(arows, alaunch)
 
     if errors:
         for e in errors:

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("flash_fwd", "flash_bwd", "packed", "decode")
+SOURCES = ("flash_fwd", "flash_bwd", "packed", "decode", "ablation")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 # What the last build printed: {name: {"seconds": s, "ptxas": [lines]}}.

@@ -1,4 +1,5 @@
-"""Device timing with CUDA events, and the H100's published peaks.
+"""Device timing with CUDA events, the card's name and power limit, and the
+H100's published peaks.
 
 Timing is for the card only: without CUDA, :func:`time_cuda` raises rather
 than measure the CPU.
@@ -6,13 +7,15 @@ than measure the CPU.
 
 from __future__ import annotations
 
+import subprocess
 from typing import Callable
 
 import numpy as np
 import torch
 
-__all__ = ["time_cuda", "sink_attention_flops", "attention_pairs",
-           "H100_PEAK_BF16", "H100_PEAK_INT8", "H100_HBM_BW"]
+__all__ = ["time_cuda", "card_line", "sink_attention_flops",
+           "attention_pairs", "H100_PEAK_BF16", "H100_PEAK_INT8",
+           "H100_HBM_BW"]
 
 H100_PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 H100_PEAK_INT8 = 1979e12  # H100 SXM dense int8 / fp8 tensor-core OP/s
@@ -36,6 +39,17 @@ def time_cuda(fn: Callable[[], object], iters: int = 20,
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them: every
+    time is kept beside it, since a card below its power limit runs
+    slower under load."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else (
+        "nvidia-smi: " + out.stderr.strip())
 
 
 def attention_pairs(n_q: int, n_kv: int, num_sink: int, window: int,

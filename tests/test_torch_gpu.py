@@ -281,3 +281,44 @@ def test_packed_kernels_match_plain(cuda, cfg):
     torch.cuda.synchronize()
     assert [f.launches for f in kernels] == [c + 1 for c in counts]
     assert all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
+
+
+ABLATION_CASES = [
+    # (B, H_q, H_kv, N, D, num_sink, window)
+    (1, 4, 2, 256, 64, 4, 128),
+    (1, 4, 2, 256, 64, 0, 128),      # general's NaN rows
+    (2, 8, 2, 512, 128, 4, 192),
+    (4, 64, 8, 1024, 64, 0, 1024),   # gpt-oss full layer
+]
+
+
+@pytest.mark.parametrize("case", ABLATION_CASES)
+def test_ablation_kernels_match_plain(cuda, case):
+    """Every ablation stage's kernel against its plain version (bf16
+    output: 2e-2 of the largest plain value, NaN in the same places), one
+    launch of the stage's kernel each; the correct stages also within 2e-2
+    of the forward kernel on their finite rows."""
+    from sink_attention_tpu_torch.ops import ablation
+    B, H_q, H_kv, N, D, ns, W = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = _randn(gen, B, H_q, N, D)
+    k, v = _randn(gen, B, H_kv, N, D), _randn(gen, B, H_kv, N, D)
+    ref, _ = flash.flash_fwd_kernel(q, k, v, None, ns, W)
+    for stage in ablation.STAGES:
+        before = (ablation.ablation_kernel.launches,
+                  ablation.ablation_kernel.launches_mask_stage)
+        got = ablation.ablation_attention(q, k, v, stage, ns, W).float()
+        plain = ablation.ablation_plain(q, k, v, stage, ns, W).float()
+        torch.cuda.synchronize()
+        mask_stage = stage in ablation.MASK_STAGES
+        assert (ablation.ablation_kernel.launches,
+                ablation.ablation_kernel.launches_mask_stage) == (
+            before[0] + (not mask_stage), before[1] + mask_stage)
+        nan = plain.isnan()
+        assert torch.equal(got.isnan(), nan), stage
+        scale = float(plain[~nan].abs().max())
+        err = float((got - plain)[~nan].abs().max())
+        assert err <= 2e-2 * max(scale, 1.0), (stage, err, scale)
+        if stage in ("general",) + ablation.MASK_STAGES:
+            assert err <= 2e-2, (stage, err)
+            assert float((got - ref.float())[~nan].abs().max()) <= 2e-2

@@ -208,3 +208,51 @@ def test_engine_defaults_to_the_card():
                                    prefill_bucket=16, device="cpu")
     rid = eng.submit([1, 2, 3], max_new_tokens=2)
     assert len(eng.run()[rid]) == 2
+
+
+def test_ablation_kernel_refuses_what_the_kernels_do_not_take():
+    """The ablation kernels' wrapper checks before any launch: bf16 only,
+    head_dim 64 or 128, N a multiple of 64, a known stage, a mask stage's
+    window a multiple of 64, CUDA tensors."""
+    from sink_attention_tpu_torch.ops import ablation
+
+    def call(stage="sum", n=128, d=64, dtype=torch.bfloat16, window=128):
+        q = torch.zeros(1, 4, n, d, dtype=dtype)
+        kv = torch.zeros(1, 2, n, d, dtype=dtype)
+        ablation.ablation_kernel(q, kv, kv, stage, 4, window)
+
+    with pytest.raises(TypeError, match="bf16"):
+        call(dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        call(d=80)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        call(n=100)
+    with pytest.raises(ValueError, match="unknown stage"):
+        call(stage="softmax")
+    with pytest.raises(ValueError, match="window_size"):
+        call(stage="maskadd", window=100)
+    for stage, window in (("sum", 100), ("masksel", 128)):
+        # a stripped stage takes any window; nothing runs off the card
+        with pytest.raises(ValueError, match="CUDA"):
+            call(stage=stage, window=window)
+    assert (ablation.ablation_kernel.launches,
+            ablation.ablation_kernel.launches_mask_stage) == (0, 0)
+
+
+def test_ablation_entry_point_needs_the_card():
+    """Without CUDA the ablation script exits nonzero and prints no table,
+    and its inputs default to the card."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present")
+    from sink_attention_tpu_torch.scripts import mfu_ablation
+    out = subprocess.run(
+        [sys.executable, "-m", "sink_attention_tpu_torch.scripts.mfu_ablation",
+         "--n", "256"], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "mxu_floor" not in out.stdout
+    assert mfu_ablation.main(["--n", "256"]) != 0
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mfu_ablation.make_inputs(256)
+    q, k, v = mfu_ablation.make_inputs(128, device="cpu", h_q=2, h_kv=1,
+                                       d=64)
+    assert q.device.type == "cpu" and q.dtype == torch.bfloat16
