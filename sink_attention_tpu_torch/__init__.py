@@ -2,31 +2,43 @@
 
 Sink flash attention (causal attention with always-attended sink tokens, a
 sliding window and the gpt-oss ``s_aux`` sink logit) on hand-written CUDA
-kernels for the NVIDIA H100 (forward, dQ and dK/dV, their packed
-multi-segment counterparts, decode), with the rolling sink KV cache, the
-gpt-oss model, greedy serving and single-device training, packed batches
-included, around it. It imports nothing of the JAX package;
-the JAX package is the reference its tests hold it to.
+kernels for the NVIDIA H100, with the rolling sink KV cache, the gpt-oss
+model, serving and single-device training around it. It imports nothing of
+the JAX package; the JAX package is the reference its tests hold it to.
+
+The kernels (``ops/csrc``, built by ``nvcc`` for ``sm_90a`` on first use):
+
+- the prefill forward: a warp-specialised kernel on ``wgmma`` and TMA (one
+  producer warp, two consumer warpgroups, a ring of K/V stages);
+- the decode: one launch per call, a thread block cluster per sequence and
+  KV head that splits the live cache and merges in distributed shared
+  memory, over bf16, int8 or fp8 storage, for any GQA group;
+- dQ and dK/dV, the packed (multi-segment) forward, dQ and dK/dV, and the
+  per-stage ablation kernels of ``scripts/mfu_ablation.py``, on
+  ``mma.sync``.
 
 Subpackages (the JAX package's layout):
 
 - ``ops``      -- eager oracle, differentiable prefill and packed
                   attention, decode attention (CUDA kernels, each with its
-                  plain PyTorch version)
-- ``cache``    -- rolling sink KV cache (mutable)
+                  plain PyTorch version), the ablation kernels
+- ``cache``    -- rolling sink KV cache (mutable; bf16, int8 or fp8 codes
+                  with per-token scales) and the ragged batch cache
 - ``models``   -- gpt-oss / dense model family, parameter carry-over from
                   JAX
-- ``serving``  -- greedy generation
+- ``serving``  -- greedy generation and the continuous-batching engine
 - ``parallel`` -- the training step (one device so far)
+- ``scripts``  -- the forward kernel's per-stage ablation
 - ``utils``    -- device selection, CUDA-event timing
 """
 
 __version__ = "0.1.0"
 
-from .cache import SinkKVCache
+from .cache import RaggedSinkKVCache, SinkKVCache
 from .ops import (eager_sink_attention, eager_sink_attention_packed,
-                  merge_partials, sink_decode_attention,
-                  sink_decode_attention_cached, sink_flash_attention,
+                  merge_partials, packed_sink_window_mask,
+                  sink_decode_attention, sink_decode_attention_cached,
+                  sink_decode_attention_ragged, sink_flash_attention,
                   sink_flash_attention_chunk, sink_flash_attention_packed,
                   sink_flash_attention_with_lse, sink_window_mask)
 
@@ -39,8 +51,11 @@ __all__ = [
     "sink_flash_attention_chunk",
     "merge_partials",
     "eager_sink_attention_packed",
+    "packed_sink_window_mask",
     "sink_flash_attention_packed",
     "sink_decode_attention",
     "sink_decode_attention_cached",
+    "sink_decode_attention_ragged",
     "SinkKVCache",
+    "RaggedSinkKVCache",
 ]

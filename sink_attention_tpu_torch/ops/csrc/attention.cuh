@@ -44,7 +44,8 @@
 //    exponent, so rows whose LSE is -inf (no visible key and no s_aux) give
 //    0 and not NaN. Query rows past N_q get LSE = +inf (p = 0) and
 //    delta = 0, and zero-filled Q/dO, so they add nothing to dK/dV.
-// No wgmma or TMA yet: the tools of a later, faster version.
+// The unpacked forward on the card is hopper.cuh's wgmma/TMA kernel; fwd_kernel
+// here serves the packed forward.
 
 #pragma once
 
@@ -729,7 +730,7 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
                  int H_kv, int N_q, int N_kv, float scale, Mask mask,
                  cudaStream_t stream) {
   const size_t smem = (size_t)(BM + 4 * BN) * (D + 8) * sizeof(uint16_t);
-  cudaError_t err = set_smem(fwd_kernel<D, Mask>, smem);
+  static const cudaError_t err = set_smem(fwd_kernel<D, Mask>, smem);  // once
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N_q + BM - 1) / BM, B * H_q);
   fwd_kernel<D, Mask><<<grid, NTHREADS, smem, stream>>>(
@@ -762,7 +763,7 @@ int launch_dq_d(const void* q, const void* k, const void* v,
                 void* dq, int B, int H_q, int H_kv, int N_q, int N_kv,
                 float scale, Mask mask, cudaStream_t stream) {
   const size_t smem = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(uint16_t);
-  cudaError_t err = set_smem(dq_kernel<D, Mask>, smem);
+  static const cudaError_t err = set_smem(dq_kernel<D, Mask>, smem);  // once
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N_q + BM - 1) / BM, B * H_q);
   dq_kernel<D, Mask><<<grid, NTHREADS, smem, stream>>>(
@@ -798,7 +799,7 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
   const size_t smem = (size_t)(2 * BN + 4 * BM) * (D + 8) * sizeof(uint16_t) +
                       4 * BM * sizeof(float) +
                       (Mask::kRowSmem ? 2 * BM * sizeof(int) : 0);
-  cudaError_t err = set_smem(dkdv_kernel<D, Mask>, smem);
+  static const cudaError_t err = set_smem(dkdv_kernel<D, Mask>, smem);  // once
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N_kv + BN - 1) / BN, B * H_kv);
   dkdv_kernel<D, Mask><<<grid, NTHREADS, smem, stream>>>(

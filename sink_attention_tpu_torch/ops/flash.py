@@ -16,10 +16,11 @@ or raises. :class:`_SinkAttention` ties them into one autograd function
 ``ds_aux`` epilogue are plain torch, as they are jnp ops outside Pallas in
 JAX.
 
-The forward and dQ kernels visit, for each 64-row query block, only the KV
-blocks of two ranges: the blocks holding the sink columns, then the window
-blocks after them (:func:`fwd_kv_ranges`, the Python mirror of the JAX
-package's ``_build_fwd_schedule``). The dK/dV kernel visits, for each
+The forward kernel (wgmma and TMA, ``csrc/hopper.cuh``) visits, for each
+128-row query block, only the 128-key KV blocks of two ranges: the blocks
+holding the sink columns, then the window blocks after them
+(:func:`fwd_kv_ranges`, the Python mirror of the JAX package's
+``_build_fwd_schedule``); the dQ kernel walks the same table at 64 x 64. The dK/dV kernel visits, for each
 64-slot KV block, the query blocks of one range (:func:`dkdv_q_ranges`,
 the mirror of ``_dkdv_q_step``). The tables are built on the host, so the
 CPU tests check them although the kernels cannot run there.
@@ -43,8 +44,10 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "flash_dq_kernel", "flash_dkdv_kernel", "flash_bwd_plain",
            "fwd_kv_ranges", "dkdv_q_ranges"]
 
-BM = 64  # query rows per tile; must match csrc/flash_fwd.cu, flash_bwd.cu
-BN = 64  # keys per KV tile; must match csrc/flash_fwd.cu, flash_bwd.cu
+BM = 64  # query rows per tile; must match csrc/flash_bwd.cu, packed.cu
+BN = 64  # keys per KV tile; must match csrc/flash_bwd.cu, packed.cu
+FWD_BM = 128  # the forward kernel's query rows per CTA (csrc/flash_fwd.cu)
+FWD_BN = 128  # the forward kernel's keys per KV tile (csrc/flash_fwd.cu)
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
@@ -56,8 +59,8 @@ def _cdiv(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def _fwd_kv_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset):
-    bm, bn = BM, BN
+def _fwd_kv_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
+                          bm, bn):
     n_q_blocks = _cdiv(n_q, bm)
     n_kv_blocks = _cdiv(n_kv, bn)
     n_kv_local = n_kv_blocks * bn
@@ -87,16 +90,21 @@ def _fwd_kv_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset):
 
 
 def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0) -> np.ndarray:
-    """int32 [ceil(n_q / BM), 4]: per query block, the KV blocks it visits,
-    as two half-open ranges (sink_b0, sink_b1) then (win_b0, win_b1).
+                  q_offset: int = 0, kv_offset: int = 0, bm: int = BM,
+                  bn: int = BN) -> np.ndarray:
+    """int32 [ceil(n_q / bm), 4]: per query block of ``bm`` rows, the KV
+    blocks of ``bn`` keys it visits, as two half-open ranges (sink_b0,
+    sink_b1) then (win_b0, win_b1).
 
     The sink range covers the local blocks of global columns [0, num_sink);
     the window range starts after it, so no block is visited twice. Both
     are cut to the causal end of the query block and to [0, n_kv blocks).
+    The dQ and ablation kernels take the default 64 x 64 tiles, the forward
+    kernel ``bm=FWD_BM, bn=FWD_BN``.
     """
     return _fwd_kv_ranges_cached(int(n_q), int(n_kv), int(num_sink),
-                                 int(window), int(q_offset), int(kv_offset))
+                                 int(window), int(q_offset), int(kv_offset),
+                                 int(bm), int(bn))
 
 
 @functools.lru_cache(maxsize=256)
@@ -231,7 +239,7 @@ def load_fn(source: str, name: str, n_ptrs: int, n_ints: int = 10):
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     lib = _build.load("flash_fwd")
-    if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (BM, BN):
+    if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (FWD_BM, FWD_BN):
         raise RuntimeError("csrc/flash_fwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
     return load_fn("flash_fwd", "sink_fwd_bf16", 7)
@@ -272,16 +280,20 @@ def _geometry(q, k, v, num_sink, window_size, q_offset, kv_offset):
 def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
                      window_size: int = 512, q_offset: int = 0,
                      kv_offset: int = 0):
-    """Launch ``csrc/flash_fwd.cu`` on CUDA tensors: (out, lse).
+    """Launch ``csrc/flash_fwd.cu`` (the wgmma/TMA kernel of
+    ``csrc/hopper.cuh``) on CUDA tensors: (out, lse).
 
     q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16 with D in (64, 128);
     s_aux [H_q] or None. ``flash_fwd_kernel.launches`` counts the launches.
+    A warmed call (its range table already on the card) synchronises
+    nothing.
     """
     _build.check_attention_inputs(q, k, v, s_aux)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
     B, H_q, H_kv, N_q, N_kv, D = dims
-    ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom)
+    ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom, FWD_BM,
+                       FWD_BN)
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)

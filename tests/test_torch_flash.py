@@ -97,10 +97,15 @@ def test_split_kv_merge_equals_full():
     (200, 150, 70, 33, 64, -10),
     (1024, 1024, 0, 1024, 0, 0),
 ])
-def test_kv_range_table_covers_mask_once(geom):
+@pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (128, 64)])
+def test_kv_range_table_covers_mask_once(geom, tiles):
+    """The range table at the dQ kernels' 64 x 64 tiles (the default) and
+    at the forward kernel's 128 x 128 (and a 128 x 64 variant)."""
     n_q, n_kv, ns, W, qo, ko = geom
-    bm, bn = tflash.BM, tflash.BN
-    table = tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko)
+    bm, bn = tiles
+    table = (tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko)
+             if tiles == (tflash.BM, tflash.BN) else
+             tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn))
     mask = sink_window_mask(n_q, n_kv, ns, W, qo, ko).numpy()
     mask &= (np.arange(n_kv) + ko >= 0)[None, :]
     n_kv_blocks = -(-n_kv // bn)

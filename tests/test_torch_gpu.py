@@ -322,3 +322,175 @@ def test_ablation_kernels_match_plain(cuda, case):
         if stage in ("general",) + ablation.MASK_STAGES:
             assert err <= 2e-2, (stage, err)
             assert float((got - ref.float())[~nan].abs().max()) <= 2e-2
+
+
+FWD_CASES = [
+    # (B, H_q, H_kv, N_q, N_kv, D, num_sink, window, use_aux, q_off, kv_off)
+    (1, 4, 2, 1000, 1000, 64, 4, 128, True, 0, 0),      # N not a tile multiple
+    (1, 4, 2, 200, 200, 128, 70, 1, False, 0, 0),       # window 1, 70 sinks
+    (2, 8, 2, 1000, 1000, 128, 0, 1024, True, 0, 0),    # window >= N
+    (1, 8, 1, 200, 200, 64, 0, 128, False, 0, 0),       # no sinks, no s_aux
+    (1, 4, 2, 200, 456, 64, 4, 128, True, 256, 0),      # chunk at q_offset
+    (1, 4, 2, 256, 512, 128, 4, 128, False, 0, -256),   # garbage halo
+    (1, 4, 4, 1000, 1000, 128, 70, 300, True, 0, 0),
+    (4, 64, 8, 1024, 1024, 64, 0, 1024, True, 0, 0),    # gpt-oss full layer
+]
+
+
+@pytest.mark.parametrize("cfg", FWD_CASES)
+def test_forward_kernel_matches_plain_with_backward(cuda, cfg):
+    """The wgmma/TMA forward against flash_fwd_plain (O within 2e-2, the
+    LSE within 1e-3), one launch; then autograd through
+    sink_flash_attention, whose backward kernels read the new forward's
+    LSE, against flash_bwd_plain (2e-2 of the largest plain value)."""
+    B, H_q, H_kv, N_q, N_kv, D, ns, W, use_aux, qo, ko = cfg
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, do = _randn(gen, B, H_q, N_q, D), _randn(gen, B, H_q, N_q, D)
+    k, v = _randn(gen, B, H_kv, N_kv, D), _randn(gen, B, H_kv, N_kv, D)
+    aux = torch.randn(H_q, generator=gen, device=cuda) if use_aux else None
+    geom = (ns, W, qo, ko)
+    before = flash.flash_fwd_kernel.launches
+    o_k, l_k = flash.flash_fwd_kernel(q, k, v, aux, *geom)
+    o_p, l_p = flash.flash_fwd_plain(q, k, v, aux, *geom)
+    torch.cuda.synchronize()
+    assert flash.flash_fwd_kernel.launches == before + 1
+    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    fin = torch.isfinite(l_p)
+    assert torch.equal(torch.isfinite(l_k), fin)
+    assert float((l_k - l_p)[fin].abs().max()) <= 1e-3
+
+    delta = (do.float() * o_p.float()).sum(-1)
+    plain = flash.flash_bwd_plain(q, k, v, do, l_p, delta, *geom)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    a = aux.clone().requires_grad_() if use_aux else None
+    out = flash.sink_flash_attention(*leaves, ns, W, s_aux=a, q_offset=qo,
+                                     kv_offset=ko)
+    out.backward(do)
+    torch.cuda.synchronize()
+    for name, leaf, ref in zip(("dq", "dk", "dv"), leaves, plain):
+        scale = max(1.0, float(ref.float().abs().max()))
+        err = float((leaf.grad.float() - ref.float()).abs().max())
+        assert err <= 2e-2 * scale, (name, err, scale)
+
+
+DECODE_CASES = [
+    # (B, H_q, H_kv, D, num_sink, window, prefill_len, appends): the live
+    # range sets the cluster size (decode._cluster_size of its tiles)
+    (2, 8, 8, 64, 0, 1024, 100, 1),      # G = 1, 1 tile: cluster 1
+    (2, 64, 8, 128, 0, 1024, 200, 2),    # G = 8, 2 tiles: cluster 2
+    (2, 64, 8, 128, 4, 1024, 250, 2),    # 3 tiles: cluster 4, a rank idle
+    (2, 32, 2, 64, 4, 1024, 300, 3),     # G = 16, 4 tiles: cluster 4
+    (2, 32, 1, 128, 0, 1024, 1000, 2),   # G = 32 (MQA), 8 tiles: cluster 8
+    (1, 64, 1, 64, 0, 2048, 1900, 1),    # G = 64 (MQA), 15 tiles on 8
+    (1, 64, 1, 128, 4, 128, 300, 0),     # G = 64, wrapped ring
+    (2, 128, 1, 64, 0, 256, 200, 1),     # G = 128: two 64-row pieces
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_kernel_any_group_and_cluster(cuda, case):
+    """The one-launch cluster decode against decode_plain for GQA groups
+    1-128 and cluster sizes 1-8, one launch per call."""
+    B, H_q, H_kv, D, ns, W, n, steps = case
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
+                             device=cuda)
+    cache.prefill(_randn(gen, B, H_kv, n, D), _randn(gen, B, H_kv, n, D))
+    for _ in range(steps):
+        cache.append(_randn(gen, B, H_kv, 1, D), _randn(gen, B, H_kv, 1, D))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    q = _randn(gen, B, H_q, 1, D)
+    before = decode.decode_kernel.launches
+    o_k = decode.sink_decode_attention_cached(q, cache, aux)
+    o_p = decode.decode_plain(q, cache.k, cache.v, decode.cache_state(cache),
+                              aux, **decode.cache_args(cache))
+    torch.cuda.synchronize()
+    assert decode.decode_kernel.launches == before + 1
+    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+
+
+def test_decode_kernel_wrapped_ring_at_write_pos_zero(cuda):
+    """A ring filled exactly (write_pos = 0): the circular-age test wraps
+    there; with and without s_aux."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, H_q, H_kv, D, ns, W = 2, 16, 2, 64, 4, 256
+    cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
+                             device=cuda)
+    n = ns + 3 * W
+    cache.prefill(_randn(gen, B, H_kv, n, D), _randn(gen, B, H_kv, n, D))
+    assert (cache.write_pos, cache.window_len) == (0, W)
+    q = _randn(gen, B, H_q, 1, D)
+    for aux in (None, torch.randn(H_q, generator=gen, device=cuda)):
+        o_k = decode.sink_decode_attention_cached(q, cache, aux)
+        o_p = decode.decode_plain(q, cache.k, cache.v,
+                                  decode.cache_state(cache), aux,
+                                  **decode.cache_args(cache))
+        torch.cuda.synchronize()
+        assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_ragged_decode_mqa_empty_slot(cuda, quant):
+    """The ragged decode reads the cache's [B] state tensors on the card:
+    MQA 32/1, slots at different ring phases, one empty slot (zeros)."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, H_q, H_kv, D, ns, W = 4, 32, 1, 128, 4, 512
+    lengths = [700, 0, 90, 515]
+    caches = [RaggedSinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
+                                     quant=qn, device=cuda)
+              for qn in (quant, None)]
+    k = _randn(gen, B, H_kv, max(lengths), D)
+    v = _randn(gen, B, H_kv, max(lengths), D)
+    for c in caches:
+        for b, n in enumerate(lengths):
+            if n:
+                c.insert(b, k[b], v[b], n)
+    for i in range(5):
+        kn, vn = _randn(gen, B, H_kv, 1, D), _randn(gen, B, H_kv, 1, D)
+        active = torch.tensor([bool(n) and i % (b + 2) != 0
+                               for b, n in enumerate(lengths)], device=cuda)
+        for c in caches:
+            c.append(kn, vn, active)
+    qc, ref = caches
+    q = _randn(gen, B, H_q, 1, D)
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    o_k = decode.sink_decode_attention_ragged(q, qc, aux)
+    o_p = decode.decode_plain(q, qc.k, qc.v, decode.ragged_lens(qc), aux,
+                              **decode.cache_args(qc))
+    o_b = decode.sink_decode_attention_ragged(q, ref, aux)
+    torch.cuda.synchronize()
+    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    if quant:
+        assert float((o_k.float() - o_b.float()).abs().max()) <= \
+            QUANT_BUDGET[quant]
+    assert not o_k[1].any()
+
+
+def test_warmed_calls_do_not_synchronise(cuda):
+    """A warmed call of the cached decode, the ragged decode and the
+    forward issues no synchronising CUDA operation."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    B, H_q, H_kv, D = 2, 16, 2, 64
+    cache = SinkKVCache.init(B, H_kv, D, num_sink=4, window_size=256,
+                             device=cuda)
+    cache.prefill(_randn(gen, B, H_kv, 300, D), _randn(gen, B, H_kv, 300, D))
+    ragged = RaggedSinkKVCache.init(B, H_kv, D, num_sink=4, window_size=256,
+                                    quant="int8", device=cuda)
+    ragged.insert(0, _randn(gen, H_kv, 300, D), _randn(gen, H_kv, 300, D),
+                  300)
+    q1 = _randn(gen, B, H_q, 1, D)
+    q, k, v = (_randn(gen, B, h, 256, D) for h in (H_q, H_kv, H_kv))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    calls = (lambda: decode.sink_decode_attention_cached(q1, cache, aux),
+             lambda: decode.sink_decode_attention_ragged(q1, ragged, aux),
+             lambda: flash.sink_flash_attention(q, k, v, 4, 128, s_aux=aux))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

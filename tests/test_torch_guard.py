@@ -1,6 +1,7 @@
 """Guards of the port: it imports nothing of JAX or of the JAX package, and
 its entry points run on the card unless told otherwise."""
 
+import ast
 import subprocess
 import sys
 import textwrap
@@ -256,3 +257,52 @@ def test_ablation_entry_point_needs_the_card():
     q, k, v = mfu_ablation.make_inputs(128, device="cpu", h_q=2, h_kv=1,
                                        d=64)
     assert q.device.type == "cpu" and q.dtype == torch.bfloat16
+
+
+def test_decode_wrapper_takes_any_group():
+    """The one-launch decode takes GQA groups above 16 (MQA 32/1, 64/1):
+    on the CPU the wrapper gets as far as the device check; it still
+    refuses fp32 q, head_dim 80 and inputs on two devices."""
+    from sink_attention_tpu_torch.ops import decode
+
+    def call(h_q, d=64, dtype=torch.bfloat16, kv_device="cpu"):
+        q = torch.zeros(1, h_q, 1, d, dtype=dtype)
+        kv = torch.zeros(1, 1, 128, d, dtype=torch.bfloat16,
+                         device=kv_device)
+        decode.decode_kernel(q, kv, kv, (0, 4, 4), sink_cap=0,
+                             window_size=128)
+
+    for h_q in (32, 64):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(h_q)
+    with pytest.raises(TypeError, match="bf16"):
+        call(32, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        call(32, d=80)
+    with pytest.raises(ValueError, match="different devices"):
+        call(64, kv_device="meta")
+    assert decode.decode_kernel.launches == 0
+    assert [decode.cluster_size((0, n, n), 2048, 0, 2048)
+            for n in (1, 128, 129, 300, 1000, 1100, 2048)] == [
+        1, 1, 2, 4, 8, 8, 8]
+
+
+def test_top_level_exports_the_ported_api():
+    """Every name of the JAX package's top-level ``__all__`` that the port
+    has (in its ops or cache) is exported by the port's top level. The JAX
+    list is read from the source with ast, so nothing of JAX is imported."""
+    import sink_attention_tpu_torch as port
+    from sink_attention_tpu_torch import cache, ops
+
+    tree = ast.parse((ROOT / "sink_attention_tpu" / "__init__.py").read_text())
+    jax_all = next(ast.literal_eval(node.value) for node in tree.body
+                   if isinstance(node, ast.Assign)
+                   and any(getattr(t, "id", None) == "__all__"
+                           for t in node.targets))
+    ported = [n for n in jax_all
+              if n == "__version__" or n in ops.__all__ or n in cache.__all__]
+    assert {"packed_sink_window_mask", "sink_decode_attention_ragged",
+            "RaggedSinkKVCache"} <= set(ported)
+    missing = [n for n in ported
+               if n not in port.__all__ or not hasattr(port, n)]
+    assert not missing, missing
