@@ -13,9 +13,11 @@ The kernels (``ops/csrc``, built by ``nvcc`` for ``sm_90a`` on first use):
 - the decode: one launch per call, a thread block cluster per sequence and
   KV head that splits the live cache and merges in distributed shared
   memory, over bf16, int8 or fp8 storage, for any GQA group;
-- dQ and dK/dV, the packed (multi-segment) forward, dQ and dK/dV, and the
-  per-stage ablation kernels of ``scripts/mfu_ablation.py``, on
-  ``mma.sync``.
+- dK/dV, unpacked and packed (multi-segment): one warp-specialised kernel
+  on ``wgmma`` and TMA over either mask (a persistent grid of 128-key
+  items, the GQA sum inside the kernel);
+- dQ, the packed forward and dQ, and the per-stage ablation kernels of
+  ``scripts/mfu_ablation.py``, on ``mma.sync``.
 
 Subpackages (the JAX package's layout):
 

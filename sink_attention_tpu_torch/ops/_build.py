@@ -1,5 +1,5 @@
 """Build and load the hand-written CUDA kernels (``ops/csrc/*.cu``, with
-the shared ``csrc/attention.cuh``).
+the shared headers ``csrc/*.cuh``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface and loaded with ``ctypes``: no PyTorch
@@ -61,9 +61,12 @@ def _digest(name: str) -> str:
 
 
 def _ptxas_lines(log: str) -> List[str]:
+    """ptxas' lines of each kernel: its name, registers, and its stack frame
+    and spills (a line of its own, without the "ptxas info" prefix)."""
     return [ln.strip() for ln in log.splitlines()
-            if "ptxas info" in ln and ("registers" in ln or "spill" in ln
-                                       or "Compiling entry" in ln)]
+            if ("ptxas info" in ln and ("registers" in ln
+                                        or "Compiling entry" in ln))
+            or "spill" in ln]
 
 
 def build_all() -> Dict[str, Path]:

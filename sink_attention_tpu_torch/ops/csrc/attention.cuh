@@ -1,5 +1,5 @@
-// Sink attention on Hopper: the forward, dQ and dK/dV kernels, written once
-// over a mask policy.
+// Sink attention on Hopper: the forward and dQ kernels on mma.sync, written
+// once over a mask policy, and the unpacked mask policy itself.
 //
 // The kernels compute, for every query row i and key j with valid(i, j)
 // given by the policy, the forward O = softmax(scale * Q K^T) V over the
@@ -10,15 +10,17 @@
 //     P  = exp(scale * Q K^T - LSE)  on valid cells, 0 elsewhere
 //     dP = dO V^T,   dS = P * (dP - delta)
 //     dQ = scale * dS K                      (dq_kernel)
-//     dV = P^T dO,   dK = scale * dS^T Q     (dkdv_kernel)
-// dK and dV are summed over the query heads of each GQA group: query head h
-// reads KV head h / (H_q / H_kv). D must be 64 or 128.
+// Query head h reads KV head h / (H_q / H_kv). D must be 64 or 128. dK and
+// dV (dV = P^T dO, dK = scale * dS^T Q) are hopper_bwd.cuh's wgmma/TMA
+// kernel over the same policies.
 //
 // Two policies: SinkWindowMask below (global positions with chunk offsets;
-// flash_fwd.cu, flash_bwd.cu) and PackedMask (segments of a packed batch;
-// packed.cu). A policy supplies the per-block range tables the host built,
-// a row descriptor, the per-cell predicate and the predicate of a tile that
-// lies wholly inside the mask (whose cells skip the per-element mask).
+// flash_fwd.cu, flash_bwd.cu, ablation.cu) and PackedMask (segments of a
+// packed batch; packed.cu). A policy supplies the per-block range tables
+// the host built, a row descriptor, the per-cell predicate, the predicate
+// of a tile that lies wholly inside the mask (whose cells skip the
+// per-element mask) and, for dK/dV, each key's interval of visible query
+// rows.
 //
 // Design (right first, simple):
 //  * forward and dQ: one CTA of 4 warps per (b*h_q, 64-row q block), each
@@ -31,19 +33,12 @@
 //    softmax in the exp2 domain, seeded with m = s_aux*log2e, l = 1 when
 //    s_aux is given (m = -inf, l = 0 otherwise): exact for every input;
 //  * dQ recomputes P from the LSE and keeps dQ in fp32 registers;
-//  * dK/dV: one CTA of 4 warps per (b*h_kv, 64-slot KV block), each warp 16
-//    keys; it loops over the GQA group and over the q blocks of one range
-//    per KV block, Q/dO/LSE/delta tiles double-buffered, and keeps dK and dV
-//    in fp32 registers, written once. No atomics: the GQA sum is in the
-//    loop, the result is deterministic. S^T = K Q^T is computed directly
-//    (the warp's keys are the MMA rows), so P^T and dS^T come out in the
-//    accumulator layout that is the A-operand layout of P^T dO and dS^T Q;
 //  * bf16 mma.sync.m16n8k16 with fp32 accumulation; P and dS are rounded to
 //    bf16 as MMA operands;
 //  * masked cells give p = 0 by a select, never by arithmetic on the
 //    exponent, so rows whose LSE is -inf (no visible key and no s_aux) give
 //    0 and not NaN. Query rows past N_q get LSE = +inf (p = 0) and
-//    delta = 0, and zero-filled Q/dO, so they add nothing to dK/dV.
+//    delta = 0, and zero-filled Q/dO.
 // The unpacked forward on the card is hopper.cuh's wgmma/TMA kernel; fwd_kernel
 // here serves the packed forward.
 
@@ -142,20 +137,30 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 // q_offset + row, key slot jl at kv_offset + jl, and
 //     valid(i, j) = 0 <= j <= i  AND  (j < num_sink  OR  j >= i - window + 1)
 // Tables (host-built, ops/flash.py): forward/dQ [n_q_blocks, 4] =
-// (sink_b0, sink_b1, win_b0, win_b1); dK/dV [n_kv_blocks, 2] = (qb0, qb1).
+// (sink_b0, sink_b1, win_b0, win_b1); dK/dV [n_kv_blocks, 2] = (qb0, qb1),
+// one table for every batch row.
 // ---------------------------------------------------------------------------
 struct SinkWindowMask {
-  static constexpr bool kRowSmem = false;  // rows need no shared memory
-  using Row = int;                         // the row's global position
+  static constexpr bool kBatchTables = false;  // one dK/dV table for all b
+  using Row = int;                             // the row's global position
   const int* table;
   int N_q, N_kv, num_sink, window, q_offset, kv_offset;
 
   __device__ const int* q_block(int, int qb) const { return table + qb * 4; }
   __device__ const int* kv_block(int, int kb) const { return table + kb * 2; }
   __device__ Row row(int, int qrow) const { return q_offset + qrow; }
-  __device__ void store_row(int*, int, int) const {}
-  __device__ Row smem_row(const int*, int, int qrow) const {
-    return q_offset + qrow;
+  // Key slot jl's visible local query rows [lo, lo + n): from its global
+  // position on (causal), to N_q for a sink, else to the last row whose
+  // window reaches it; none before the sequence start or past N_kv.
+  __device__ void key_span(int, int jl, int& lo, int& n) const {
+    const int jg = kv_offset + jl;
+    if (jl >= N_kv || jg < 0) {
+      lo = n = 0;
+      return;
+    }
+    lo = max(jg - q_offset, 0);
+    const int end = jg < num_sink ? N_q : min(jg + window - q_offset, N_q);
+    n = max(end - lo, 0);
   }
   __device__ bool visible(Row ig, int jl) const {
     const int jg = kv_offset + jl;
@@ -168,9 +173,6 @@ struct SinkWindowMask {
     const int c_lo = kv_offset + col0, c_hi = c_lo + BN - 1;
     return (col0 + BN <= N_kv) && (c_lo >= 0) && (c_hi <= r_lo) &&
            (c_hi < num_sink || c_lo >= r_hi - window + 1);
-  }
-  __device__ bool kv_tile_full(int kb, int qb, const int*) const {
-    return (qb * BM + BM <= N_q) && q_tile_full(nullptr, qb, kb * BN);
   }
 };
 
@@ -533,185 +535,6 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// dK / dV
-// ---------------------------------------------------------------------------
-
-template <int D, class Mask>
-__global__ void __launch_bounds__(NTHREADS)
-    dkdv_kernel(const uint16_t* __restrict__ q,
-                const uint16_t* __restrict__ k,
-                const uint16_t* __restrict__ v,
-                const uint16_t* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, uint16_t* __restrict__ dk,
-                uint16_t* __restrict__ dv, int H_q, int H_kv, int N_q,
-                int N_kv, float scale_log2, float scale, Mask mask) {
-  constexpr int STRIDE = D + 8;
-  constexpr int CHUNKS = D / 8;
-  constexpr int KT = D / 16;  // k-steps over the head dim
-  constexpr int DT = D / 8;   // n-tiles of dV and dK
-  constexpr int QS = 32;      // query columns per sub-tile (register bound)
-  constexpr int NT = QS / 8;  // n-tiles of K Q^T and V dO^T per sub-tile
-
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Ks = smem;                   // [BN][STRIDE]
-  uint16_t* Vs = Ks + BN * STRIDE;       // [BN][STRIDE]
-  uint16_t* Qs = Vs + BN * STRIDE;       // [2][BM][STRIDE]
-  uint16_t* dOs = Qs + 2 * BM * STRIDE;  // [2][BM][STRIDE]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BM * STRIDE);  // [2][BM]
-  float* Dl = Ls + 2 * BM;                                       // [2][BM]
-  int* Sr = reinterpret_cast<int*>(Dl + 2 * BM);  // [2][BM] if kRowSmem
-
-  const int kb = blockIdx.x;
-  const int bkh = blockIdx.y;  // b * H_kv + kv head
-  const int b = bkh / H_kv;
-  const int group = H_q / H_kv;
-  const int head0 = b * H_q + (bkh - b * H_kv) * group;  // first q head
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  const uint16_t* kg = k + (size_t)bkh * N_kv * D;
-  const uint16_t* vg = v + (size_t)bkh * N_kv * D;
-
-  for (int c = tid; c < BN * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-    const int row = kb * BN + r;
-    const bool ok = row < N_kv;
-    const size_t off = (size_t)(ok ? row : 0) * D + cc * 8;
-    cp_async16(Ks + r * STRIDE + cc * 8, kg + off, ok);
-    cp_async16(Vs + r * STRIDE + cc * 8, vg + off, ok);
-  }
-  cp_async_commit();
-
-  const int* qr = mask.kv_block(b, kb);
-  const int qb0 = qr[0];
-  const int n_qb = max(qr[1] - qb0, 0);
-  const int n_tiles = group * n_qb;  // (head in group, q block), q fastest
-
-  auto load_q = [&](int t, int buf) {
-    const int bh = head0 + t / n_qb;
-    const int qb = qb0 + t % n_qb;
-    const uint16_t* qg = q + (size_t)bh * N_q * D;
-    const uint16_t* dog = dout + (size_t)bh * N_q * D;
-    for (int c = tid; c < BM * CHUNKS; c += NTHREADS) {
-      const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-      const int row = qb * BM + r;
-      const bool ok = row < N_q;
-      const size_t off = (size_t)(ok ? row : 0) * D + cc * 8;
-      cp_async16(Qs + (buf * BM + r) * STRIDE + cc * 8, qg + off, ok);
-      cp_async16(dOs + (buf * BM + r) * STRIDE + cc * 8, dog + off, ok);
-    }
-    if (tid < BM) {
-      const int row = qb * BM + tid;
-      const bool ok = row < N_q;
-      Ls[buf * BM + tid] =
-          ok ? lse[(size_t)bh * N_q + row] * LOG2E : INFINITY;
-      Dl[buf * BM + tid] = ok ? delta[(size_t)bh * N_q + row] : 0.f;
-      if (Mask::kRowSmem) mask.store_row(Sr + buf * BM + tid, b, row);
-    }
-  };
-  if (n_tiles > 0) load_q(0, 0);
-  cp_async_commit();
-
-  float acc_dk[DT][4], acc_dv[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[dt][e] = acc_dv[dt][e] = 0.f;
-
-  const int key0 = kb * BN + warp * 16 + g;  // this thread's first key slot
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_tiles) load_q(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const int qb = qb0 + t % n_qb;
-    const uint16_t* qs = Qs + buf * BM * STRIDE;
-    const uint16_t* dos = dOs + buf * BM * STRIDE;
-    const float* ls = Ls + buf * BM;
-    const float* dls = Dl + buf * BM;
-    const int* srow = Sr + buf * BM;
-    const bool full = mask.kv_tile_full(kb, qb, srow);
-
-#pragma unroll
-    for (int half = 0; half < BM / QS; ++half) {
-      const int q0 = half * QS;
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x 32 queries.
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        uint32_t ak[4], av[4];
-        load_a<STRIDE>(ak, Ks, warp * 16, kk * 16, g, t4);
-        load_a<STRIDE>(av, Vs, warp * 16, kk * 16, g, t4);
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int off = (q0 + nt * 8 + g) * STRIDE + kk * 16 + t4 * 2;
-          mma16816(s[nt], ak, ld32(qs + off), ld32(qs + off + 8));
-          mma16816(dp[nt], av, ld32(dos + off), ld32(dos + off + 8));
-        }
-      }
-
-      // P^T into s, dS^T into dp.
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = q0 + nt * 8 + t4 * 2 + (e & 1);  // query in tile
-          float p = exp2f(s[nt][e] * scale_log2 - ls[ql]);
-          if (!full) {
-            const int qrow = qb * BM + ql;
-            const bool ok =
-                qrow < N_q &&
-                mask.visible(mask.smem_row(srow, ql, qrow),
-                             key0 + (e >> 1) * 8);
-            p = ok ? p : 0.f;
-          }
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - dls[ql]);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q (dO, Q read down their rows).
-#pragma unroll
-      for (int j = 0; j < QS / 16; ++j) {
-        uint32_t a[4];
-        acc_to_a(a, s[2 * j], s[2 * j + 1]);
-        mma_rows_b<STRIDE, DT>(acc_dv, a, dos, q0 + j * 16, g, t4);
-        acc_to_a(a, dp[2 * j], dp[2 * j + 1]);
-        mma_rows_b<STRIDE, DT>(acc_dk, a, qs, q0 + j * 16, g, t4);
-      }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = key0 + r * 8;
-    if (row >= N_kv) continue;
-    uint16_t* krow = dk + ((size_t)bkh * N_kv + row) * D;
-    uint16_t* vrow = dv + ((size_t)bkh * N_kv + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(krow + dt * 8 + t4 * 2) = pack_bf16(
-          acc_dk[dt][2 * r] * scale, acc_dk[dt][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(vrow + dt * 8 + t4 * 2) =
-          pack_bf16(acc_dv[dt][2 * r], acc_dv[dt][2 * r + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launchers: each returns cudaGetLastError() of its launch (0 on success).
 // q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; s_aux
 // [H_q] fp32 or null; lse, delta [B*H_q, N_q] fp32; outputs like their
@@ -788,42 +611,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (D == 128)
     return launch_dq_d<128>(q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N_q,
                             N_kv, scale, mask, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D, class Mask>
-int launch_dkdv_d(const void* q, const void* k, const void* v,
-                  const void* dout, const void* lse, const void* delta,
-                  void* dk, void* dv, int B, int H_q, int H_kv, int N_q,
-                  int N_kv, float scale, Mask mask, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BN + 4 * BM) * (D + 8) * sizeof(uint16_t) +
-                      4 * BM * sizeof(float) +
-                      (Mask::kRowSmem ? 2 * BM * sizeof(int) : 0);
-  static const cudaError_t err = set_smem(dkdv_kernel<D, Mask>, smem);  // once
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N_kv + BN - 1) / BN, B * H_kv);
-  dkdv_kernel<D, Mask><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H_q, H_kv, N_q,
-      N_kv, scale * LOG2E, scale, mask);
-  return (int)cudaGetLastError();
-}
-
-template <class Mask>
-int launch_dkdv(const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta,
-                void* dk, void* dv, int B, int H_q, int H_kv, int N_q,
-                int N_kv, int D, float scale, Mask mask, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N_kv <= 0 || B * H_kv <= 0) return 0;
-  if (D == 64)
-    return launch_dkdv_d<64>(q, k, v, dout, lse, delta, dk, dv, B, H_q, H_kv,
-                             N_q, N_kv, scale, mask, st);
-  if (D == 128)
-    return launch_dkdv_d<128>(q, k, v, dout, lse, delta, dk, dv, B, H_q,
-                              H_kv, N_q, N_kv, scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }
 

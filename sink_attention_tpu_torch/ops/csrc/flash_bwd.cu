@@ -1,22 +1,24 @@
 // Sink + sliding-window causal attention backward for Hopper: two kernels.
 //
 // Replace the Pallas TPU kernels `_dq_kernel` and `_dkdv_kernel` of
-// sink_attention_tpu/ops/flash.py (launched by `_bwd_impl`): the dQ and
-// dK/dV kernels of attention.cuh over SinkWindowMask (the forward's mask,
-// see flash_fwd.cu). delta and the ds_aux term are plain torch on the host.
+// sink_attention_tpu/ops/flash.py (launched by `_bwd_impl`): the dQ kernel
+// of attention.cuh and the dK/dV kernel of hopper_bwd.cuh, both over
+// SinkWindowMask (the forward's mask, see flash_fwd.cu). delta and the
+// ds_aux term are plain torch on the host.
 //
 // What bounds them on the H100: per valid (q, k) pair and head, the dQ
 // kernel does 3 products of depth D (S, dP, dQ) and the dK/dV kernel 4
 // (S, dP, dV, dK), against 2 in the forward. At the training shapes
 // (D = 64, GQA 64/8, N = 4096) the full layers are bound by tensor-core
 // throughput and the W = 128 layers by memory (each kernel reads q, k, v
-// and dO once). These simple mma.sync kernels reach neither bound: wgmma,
-// TMA and a fused single pass are the tools of a later, faster version.
-// dQ walks the forward's two KV-block ranges per q block; dK/dV walks one
-// q-block range per KV block, decided per block on the host, so negative
-// and chunked offsets are right. Design: attention.cuh.
+// and dO once). The dQ kernel is the simple mma.sync one and reaches
+// neither bound; the dK/dV kernel is wgmma fed by TMA, warp-specialised
+// and persistent (hopper_bwd.cuh says what it does about its bound). dQ
+// walks the forward's two KV-block ranges per 64-row q block; dK/dV walks
+// one range of 64-row q blocks per 128-key block, decided per block on the
+// host, so negative and chunked offsets are right.
 
-#include "attention.cuh"
+#include "hopper_bwd.cuh"
 
 using sinkattn::SinkWindowMask;
 
@@ -35,21 +37,25 @@ extern "C" int sink_dq_bf16(const void* q, const void* k, const void* v,
                              N_q, N_kv, D, scale, mask, stream);
 }
 
-// As sink_dq_bf16; qranges [ceil(N_kv/64), 2] int32 (q-block range per KV
-// block); dk, dv like k.
+// As sink_dq_bf16; qranges [ceil(N_kv/128), 2] int32 (the range of 64-row
+// q blocks that read each 128-key block), order [ceil(N_kv/128)] int32 (the
+// key blocks, longest range first); dk, dv like k.
 extern "C" int sink_dkdv_bf16(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* qranges,
-                              void* dk, void* dv, int B, int H_q, int H_kv,
-                              int N_q, int N_kv, int D, int num_sink,
-                              int window, int q_offset, int kv_offset,
-                              float scale, void* stream) {
+                              const void* order, void* dk, void* dv, int B,
+                              int H_q, int H_kv, int N_q, int N_kv, int D,
+                              int num_sink, int window, int q_offset,
+                              int kv_offset, float scale, void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(qranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::launch_dkdv(q, k, v, dout, lse, delta, dk, dv, B, H_q,
-                               H_kv, N_q, N_kv, D, scale, mask, stream);
+  return sinkattn::hopper::launch_dkdv(q, k, v, dout, lse, delta, order, dk,
+                                       dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+                                       mask, stream);
 }
 
-// Tile sizes the host-side range tables must use.
+// Tile sizes the host-side range tables must use: dQ's, and dK/dV's.
 extern "C" int sink_bwd_block_m() { return sinkattn::BM; }
 extern "C" int sink_bwd_block_n() { return sinkattn::BN; }
+extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
+extern "C" int sink_dkdv_block_n() { return sinkattn::hopper::DKDV_BN; }

@@ -17,11 +17,10 @@
 // consumers compute (a producer warpgroup, two consumer warpgroups, a ring
 // of K/V stages), and the per-cell mask only on the partial tiles.
 //
-// The entry point builds the three TMA descriptors per call with
-// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so the
-// library needs no -lcuda: q, k, v as 3-D tensors [B*H, N, D] whose rows
-// past N read as zeros, boxes of 64 columns x 128 rows under the 128-byte
-// swizzle.
+// The entry point builds the three TMA descriptors per call (hopper.cuh's
+// make_map, shared with the dK/dV kernel): q, k, v as 3-D tensors [B*H, N,
+// D] whose rows past N read as zeros, boxes of 64 columns x 128 rows under
+// the 128-byte swizzle.
 
 #include <cuda.h>
 
@@ -33,57 +32,6 @@ namespace {
 
 using sinkattn::SinkWindowMask;
 using namespace sinkattn::hopper;
-
-// cuTensorMapEncodeTiled's signature (CUDA 12.0 driver API).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_fn() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &status);
-#endif
-    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 [heads, n, D] tensor as a 3-D map of boxes [1][rows][64].
-bool make_map(CUtensorMap* map, const void* base, int heads, int n, int D,
-              int rows) {
-  const EncodeTiledFn encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n,
-                              (cuuint64_t)heads};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The SMs of the current device: the persistent grid's size.
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n;
-}
 
 template <int D, int STAGES>
 int launch(const void* q, const void* k, const void* v, const void* s_aux,

@@ -1,10 +1,13 @@
 // Sink attention forward for Hopper: a warp-specialised kernel on wgmma,
-// TMA and mbarriers, over attention.cuh's SinkWindowMask.
+// TMA and mbarriers, over attention.cuh's SinkWindowMask; and the building
+// blocks it shares with the dK/dV kernel of hopper_bwd.cuh (mbarriers,
+// named barriers, TMA loads and tensor maps, wgmma descriptors and
+// wrappers).
 //
 // It computes what attention.cuh's fwd_kernel computes (O, the natural-log
 // LSE counting s_aux, s_aux as a value-less logit) for the unpacked sink +
-// window mask; the dQ, dK/dV, packed and ablation kernels stay on
-// attention.cuh's mma.sync skeleton.
+// window mask; the dQ, packed forward, packed dQ and ablation kernels stay
+// on attention.cuh's mma.sync skeleton.
 //
 // Design:
 //  * a persistent grid, one CTA of three warpgroups per SM, walking the
@@ -175,6 +178,18 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory
+// (descriptors), both K-major; fp32 accumulators d[32].
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (bf16x2
 // fragments), B from shared memory, MN-major (transposed); d[32].
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -219,6 +234,62 @@ struct RsMma<64> {
     wgmma_rs_n128(d, a, db, 1);
   }
 };
+
+// --- host: tensor maps and the persistent grid --------------------------------
+
+// cuTensorMapEncodeTiled's signature (CUDA 12.0 driver API).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint so that a
+// library needs no -lcuda; null where the driver does not give it.
+inline EncodeTiledFn encode_fn() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &status);
+#endif
+    return (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 [heads, n, D] tensor as a 3-D map of boxes [1][rows][64] under the
+// 128-byte swizzle; rows past n read as zeros.
+inline bool make_map(CUtensorMap* map, const void* base, int heads, int n,
+                     int D, int rows) {
+  const EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n,
+                              (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The SMs of the current device: a persistent grid's size.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
 
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 template <int D, int STAGES>

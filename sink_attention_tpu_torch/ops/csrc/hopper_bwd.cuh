@@ -1,0 +1,557 @@
+// Sink attention dK/dV for Hopper: a warp-specialised kernel on wgmma, TMA
+// and mbarriers, written once over a mask policy (attention.cuh's
+// SinkWindowMask in flash_bwd.cu, packed.cu's PackedMask).
+//
+// It computes, from the forward's LSE (which counts s_aux) and delta_i =
+// sum_d dO_id O_id (less any LSE cotangent), for every key j:
+//     P = exp(scale * Q K^T - LSE) on visible cells, 0 elsewhere
+//     dV_j = sum_i P_ij dO_i,  dK_j = scale * sum_i P_ij (dP_ij - delta_i) Q_i
+// with dP = dO V^T, summed over the query heads of the key's GQA group
+// inside the kernel: no atomics, so the result is bitwise repeatable. Key
+// slots no query sees (before the sequence start, or read by no row) get
+// exact zeros.
+//
+// Design:
+//  * a persistent grid, one CTA of three warpgroups per SM, walking the
+//    work items (b*h_kv, 128-key block) longest first (by the host's order
+//    table) in a snake: round r takes items r*G + i, or r*G + G-1-i on odd
+//    rounds, so the long and the short items of two rounds pair up;
+//  * warpgroup 0 produces (setmaxnreg gives its registers to the
+//    consumers: 24 against 240 at D = 128, 40 against 232 at D = 64; no
+//    spill either way): one thread issues every TMA load, the
+//    item's K and V once into one of two K/V buffers (so the next item's
+//    load overlaps this one's tail), then for each (query head of the
+//    group, 64-row q block) of the item's range from the host table the Q
+//    and dO tiles into a ring of STAGES stages; warp 1 writes the tile's
+//    64 LSE values (times log2e; +inf past N_q) and 64 delta values (0
+//    past N_q) into the same stage with plain loads, which takes any N_q
+//    (a 2-D fp32 tensor map would need N_q * 4 % 16 == 0); one full
+//    barrier counts the TMA bytes and warp 1's 32 arrivals;
+//  * warpgroups 1 and 2 consume, 64 keys each: per q tile S^T = K Q^T and
+//    dP^T = V dO^T (wgmma m64n64k16, both operands in 128-byte-swizzled
+//    shared memory: the forward's S = Q K^T with the keys as the M rows),
+//    P^T = exp2(S^T * scale * log2e - LSE * log2e) and dS^T = P^T (dP^T -
+//    delta) in registers, rounded to bf16 as the A operands of dV += P^T dO
+//    and dK += dS^T Q (wgmma m64nDk16, dO and Q from shared memory as
+//    transposed B operands, as the forward reads V); dK and dV stay in fp32
+//    registers across the item's whole range and GQA group;
+//  * the mask, per key: each key j sees one interval of local query rows
+//    [lo_j, lo_j + n_j) from the policy (key_span), computed once per item;
+//    each warp decides per tile, by one vote, whether its 16 keys see every
+//    query of the tile, and only a partial tile takes the per-cell select
+//    (one unsigned compare a cell), outside the unrolled cell loops; masked
+//    cells give p = 0 by a select of p, so a row whose LSE is -inf gives 0
+//    and not NaN, and zero-filled or garbage rows past N_q give 0;
+//  * a consumer whose 64 keys see no query of a tile (the hull of its keys'
+//    intervals, found once per item) skips that tile's products, waiting
+//    and releasing the stage only (the sliding-window layers' diagonal
+//    tiles are half dead for each consumer);
+//  * the epilogue: dK (scaled) and dV go out as bf16 through the
+//    consumer's own rows of the item's K and V buffers (then free: only
+//    this warpgroup's products read them) as 16-byte stores of whole rows;
+//    the buffers are released to the producer after that.
+//
+// Replaces the Pallas TPU kernels `_dkdv_kernel` of
+// sink_attention_tpu/ops/flash.py and `_pdkdv_kernel` of
+// sink_attention_tpu/ops/packed.py. Bound on the H100: 8 D FLOPs per visible
+// (query, key) pair and head (four products of depth D) at 989 TFLOP/s, or
+// the bytes 2 * |q| + 4 * |kv| + the fp32 rows (q and dO read, k and v read,
+// dk and dv written, lse and delta read) at 3.35 TB/s: the full layers are
+// bound by operations, the W = 128 layers by bytes. What the design does
+// about it: wgmma on TMA-fed shared memory at the tensor cores' rate, the
+// mask's cost only on partial tiles, dead half-tiles skipped, K/V read once
+// per item and Q/dO once per (item, head, q block), no second pass.
+
+#pragma once
+
+#include <algorithm>
+#include <climits>
+
+#include "hopper.cuh"
+
+namespace sinkattn {
+namespace hopper {
+
+constexpr int DKDV_BM = 64;    // queries per tile
+constexpr int DKDV_BN = 128;   // keys per item, 64 per consumer
+constexpr int DKDV_THREADS = 384;
+
+// setmaxnreg's split of the registers (producer warpgroup, consumer
+// warpgroups; 128 p + 256 c <= 65536): at D = 128 the consumers' dK and dV
+// accumulators take 128 registers a thread, and 24 keep the producer free
+// of spills; at D = 64 the producer's ring of three stages wants more.
+template <int D>
+struct DkdvRegs {
+  static constexpr int PRODUCER = D == 128 ? 24 : 40;
+  static constexpr int CONSUMER = D == 128 ? 240 : 232;
+};
+
+// Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
+template <int D, int STAGES>
+struct DkdvSmem {
+  static constexpr int BOXES = D / 64;               // 64-column boxes a row
+  static constexpr int KV_BYTES = DKDV_BN * D * 2;   // one K or V tile
+  static constexpr int QT_BYTES = DKDV_BM * D * 2;   // one Q or dO tile
+  static constexpr int K_OFF = 0;                    // two K tiles
+  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;  // two V tiles
+  static constexpr int Q_OFF = V_OFF + 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
+  static constexpr int ROW_OFF = DO_OFF + STAGES * QT_BYTES;  // [S][2][64] f32
+  static constexpr int BAR_OFF = ROW_OFF + STAGES * 2 * DKDV_BM * 4;
+  // kv_full[2], kv_empty[2], then full, empty [STAGES] each
+  static constexpr int N_BARS = 4 + 2 * STAGES;
+  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
+  static constexpr int SPAN_OFF = INFO_OFF + 2 * 8 * 4;  // int [2][4][2]
+  static constexpr int BYTES = SPAN_OFF + 2 * 4 * 2 * 4 + 1024;  // + align
+};
+
+// A work item: one 128-key block of one (batch, KV head), the q-block range
+// of the host table and the first query head of the group. Unit u of the
+// order table is a key block (its table shared by the batch) or, where the
+// policy keeps a table per batch row, a (b, block) pair: b * n_kb + block.
+struct DkdvItem {
+  int b, kb, bkh, head0, qb0, n_qb;
+  template <class Mask>
+  __device__ __forceinline__ DkdvItem(int w, const int* order, int B,
+                                      int H_q, int H_kv, int n_kb,
+                                      const Mask& mask) {
+    const int per = Mask::kBatchTables ? H_kv : B * H_kv;
+    const int u = order[w / per], r = w - (w / per) * per;
+    if (Mask::kBatchTables) {
+      b = u / n_kb;
+      kb = u - b * n_kb;
+      bkh = b * H_kv + r;
+    } else {
+      kb = u;
+      bkh = r;
+      b = r / H_kv;
+    }
+    head0 = b * H_q + (bkh - b * H_kv) * (H_q / H_kv);
+    const int* rg = mask.kv_block(b, kb);
+    qb0 = rg[0];
+    n_qb = max(rg[1] - qb0, 0);
+  }
+  __device__ __forceinline__ void store(int* info) const {
+    info[0] = b;
+    info[1] = kb;
+    info[2] = bkh;
+    info[3] = head0;
+    info[4] = qb0;
+    info[5] = n_qb;
+  }
+  __device__ __forceinline__ explicit DkdvItem(const int* info)
+      : b(info[0]), kb(info[1]), bkh(info[2]), head0(info[3]), qb0(info[4]),
+        n_qb(info[5]) {}
+};
+
+// A position in the ring of STAGES stages: the stage and the parity of its
+// barriers' phase, stepped tile by tile across items (no division).
+template <int STAGES>
+struct Ring {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The i-th item of a CTA among G in a snake over the sorted items (see the
+// design note); increases with i, so a CTA stops at its first past n_work.
+__device__ __forceinline__ int snake_item(int i, int cta, int G) {
+  return i * G + ((i & 1) ? G - 1 - cta : cta);
+}
+
+template <int D, int STAGES, class Mask>
+__global__ void __launch_bounds__(DKDV_THREADS, 1)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const int* __restrict__ order,
+                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                      int B, int H_q, int H_kv, int N_q, int N_kv,
+                      float scale_log2, float scale, Mask mask) {
+  using L = DkdvSmem<D, STAGES>;
+  constexpr int OR = D / 2;  // dK or dV accumulators a thread
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* kv_full = bars;
+  uint64_t* kv_empty = bars + 2;
+  uint64_t* full = bars + 4;
+  uint64_t* empty = bars + 4 + STAGES;
+  int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [K/V buffer][8]
+  float* rows_sm = reinterpret_cast<float*>(smem + L::ROW_OFF);
+
+  const int n_kb = (N_kv + DKDV_BN - 1) / DKDV_BN;
+  const int n_work = n_kb * B * H_kv;
+  const int group = H_q / H_kv;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(kv_full + i, 1);
+      mbar_init(kv_empty + i, 2 * 128);  // every consumer thread, per item
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1 + 32);  // the TMA thread and warp 1's lanes
+      mbar_init(empty + s, 2);      // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        DkdvRegs<D>::PRODUCER));
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    if (warp == 0 && lane == 0) {
+      // ---- one thread issues every TMA load ----
+      Ring<STAGES> ring;
+      for (int it = 0;; ++it) {
+        const int w = snake_item(it, blockIdx.x, gridDim.x);
+        if (w >= n_work) break;
+        const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
+        const int kbuf = it & 1;
+        mbar_wait(kv_empty + kbuf, ((it >> 1) & 1) ^ 1);
+        item.store(info + kbuf * 8);
+        mbar_expect_tx(kv_full + kbuf, 2 * L::KV_BYTES);  // and the info
+#pragma unroll
+        for (int x = 0; x < L::BOXES; ++x) {
+          tma_load_3d(smem + L::K_OFF + kbuf * L::KV_BYTES +
+                          x * DKDV_BN * 128,
+                      &tm_k, kv_full + kbuf, x * 64, item.kb * DKDV_BN,
+                      item.bkh);
+          tma_load_3d(smem + L::V_OFF + kbuf * L::KV_BYTES +
+                          x * DKDV_BN * 128,
+                      &tm_v, kv_full + kbuf, x * 64, item.kb * DKDV_BN,
+                      item.bkh);
+        }
+        const int n_tiles = group * item.n_qb;
+        int bh = item.head0, qb = item.qb0;  // tiles: q block fastest
+        for (int j = 0; j < n_tiles; ++j, ring.next()) {
+          const int s = ring.s;
+          mbar_wait(empty + s, ring.ph ^ 1);
+          const int row = qb * DKDV_BM, head = bh;
+          if (++qb == item.qb0 + item.n_qb) {
+            qb = item.qb0;
+            ++bh;
+          }
+          mbar_expect_tx(full + s, 2 * L::QT_BYTES);
+#pragma unroll
+          for (int x = 0; x < L::BOXES; ++x) {
+            tma_load_3d(smem + L::Q_OFF + s * L::QT_BYTES +
+                            x * DKDV_BM * 128,
+                        &tm_q, full + s, x * 64, row, head);
+            tma_load_3d(smem + L::DO_OFF + s * L::QT_BYTES +
+                            x * DKDV_BM * 128,
+                        &tm_do, full + s, x * 64, row, head);
+          }
+        }
+      }
+    } else if (warp == 1) {
+      // ---- warp 1: each tile's LSE (log2 domain) and delta rows ----
+      Ring<STAGES> ring;
+      for (int it = 0;; ++it) {
+        const int w = snake_item(it, blockIdx.x, gridDim.x);
+        if (w >= n_work) break;
+        const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
+        const int n_tiles = group * item.n_qb;
+        int bh = item.head0, qb = item.qb0;
+        for (int j = 0; j < n_tiles; ++j, ring.next()) {
+          const int s = ring.s;
+          mbar_wait(empty + s, ring.ph ^ 1);
+          const float* lse_row = lse + (size_t)bh * N_q;
+          const float* delta_row = delta + (size_t)bh * N_q;
+          const int row0 = qb * DKDV_BM;
+          if (++qb == item.qb0 + item.n_qb) {
+            qb = item.qb0;
+            ++bh;
+          }
+          float* rs = rows_sm + s * 2 * DKDV_BM;
+#pragma unroll
+          for (int r = lane; r < DKDV_BM; r += 32) {
+            const int row = row0 + r;
+            const bool ok = row < N_q;
+            rs[r] = ok ? lse_row[row] * LOG2E : INFINITY;
+            rs[DKDV_BM + r] = ok ? delta_row[row] : 0.f;
+          }
+          mbar_arrive(full + s);  // release: the rows are visible
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup c owns keys [64 c, 64 c + 64) of an item ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        DkdvRegs<D>::CONSUMER));
+    const int c = wg - 1;
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct >> 5, lane = ct & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r_key = c * 64 + warp * 16 + g;  // keys r_key, r_key + 8
+    int* span_sm = reinterpret_cast<int*>(smem + L::SPAN_OFF) + c * 8;
+    Ring<STAGES> ring;
+    for (int it = 0;; ++it) {
+      const int w = snake_item(it, blockIdx.x, gridDim.x);
+      if (w >= n_work) break;
+      const int kbuf = it & 1;
+      mbar_wait(kv_full + kbuf, (it >> 1) & 1);
+      const DkdvItem item(info + kbuf * 8);
+      const int n_tiles = group * item.n_qb;
+
+      // Each key's interval of visible local query rows [lo, lo + n), and
+      // the hull of this warpgroup's 64 keys' intervals [w_lo, w_hi).
+      int lo[2];
+      unsigned cnt[2];
+      int my_lo = INT_MAX, my_hi = INT_MIN;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int n;
+        mask.key_span(item.b, item.kb * DKDV_BN + r_key + 8 * r, lo[r], n);
+        cnt[r] = (unsigned)n;
+        if (n > 0) {
+          my_lo = min(my_lo, lo[r]);
+          my_hi = max(my_hi, lo[r] + n);
+        }
+      }
+      my_lo = __reduce_min_sync(0xffffffffu, my_lo);
+      my_hi = __reduce_max_sync(0xffffffffu, my_hi);
+      if (lane == 0) {
+        span_sm[warp * 2] = my_lo;
+        span_sm[warp * 2 + 1] = my_hi;
+      }
+      named_sync(1 + c, 128);
+      int w_lo = INT_MAX, w_hi = INT_MIN;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        w_lo = min(w_lo, span_sm[i * 2]);
+        w_hi = max(w_hi, span_sm[i * 2 + 1]);
+      }
+
+      float dk_acc[OR], dv_acc[OR];
+#pragma unroll
+      for (int i = 0; i < OR; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      const uint8_t* ksm = smem + L::K_OFF + kbuf * L::KV_BYTES + c * 64 * 128;
+      const uint8_t* vsm = smem + L::V_OFF + kbuf * L::KV_BYTES + c * 64 * 128;
+
+      int qb = item.qb0;
+      for (int j = 0; j < n_tiles; ++j, ring.next()) {
+        const int s = ring.s;
+        const int q0 = qb * DKDV_BM;  // the tile's first local query row
+        if (++qb == item.qb0 + item.n_qb) qb = item.qb0;
+        mbar_wait(full + s, ring.ph);
+        if (q0 >= w_hi || q0 + DKDV_BM <= w_lo) {  // no key sees the tile
+          if (ct == 0) mbar_arrive(empty + s);
+          continue;
+        }
+        const uint8_t* qs = smem + L::Q_OFF + s * L::QT_BYTES;
+        const uint8_t* dos = smem + L::DO_OFF + s * L::QT_BYTES;
+        const float* rs = rows_sm + s * 2 * DKDV_BM;
+
+        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, D / 16
+        // k-steps each, one commit group.
+        float sacc[32], dpacc[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int x = kk / 4, off = (kk % 4) * 32;
+          wgmma_ss_n64(sacc, desc_sw128(ksm + x * DKDV_BN * 128 + off, 16, 1024),
+                       desc_sw128(qs + x * DKDV_BM * 128 + off, 16, 1024),
+                       kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int x = kk / 4, off = (kk % 4) * 32;
+          wgmma_ss_n64(dpacc,
+                       desc_sw128(vsm + x * DKDV_BN * 128 + off, 16, 1024),
+                       desc_sw128(dos + x * DKDV_BM * 128 + off, 16, 1024),
+                       kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sacc);
+        fence_regs(dpacc);
+
+        // P^T: accumulator i = jj * 4 + 2 r + e is key r_key + 8 r, query
+        // q0 + 8 jj + 2 t4 + e; the scale folded into the exponent's FMA.
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float l2 = rs[jj * 8 + 2 * t4 + e];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float& x = sacc[jj * 4 + 2 * r + e];
+              x = fast_exp2(fmaf(x, scale_log2, -l2));
+            }
+          }
+        }
+        // The per-cell mask on partial tiles only (a warp-uniform branch):
+        // p = 0 by a select where the query is outside the key's interval.
+        const bool whole =
+            __all_sync(0xffffffffu, lo[0] <= q0 &&
+                                        q0 + DKDV_BM <= lo[0] + (int)cnt[0] &&
+                                        lo[1] <= q0 &&
+                                        q0 + DKDV_BM <= lo[1] + (int)cnt[1]);
+        if (!whole) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int base = q0 + 2 * t4 - lo[r];
+#pragma unroll
+            for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float& x = sacc[jj * 4 + 2 * r + e];
+                x = (unsigned)(base + jj * 8 + e) < cnt[r] ? x : 0.f;
+              }
+            }
+          }
+        }
+        // dS^T = P^T (dP^T - delta); P^T and dS^T as bf16 A fragments.
+        uint32_t pa[DKDV_BM / 16][4], da[DKDV_BM / 16][4];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dl = rs[DKDV_BM + jj * 8 + 2 * t4 + e];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int i = jj * 4 + 2 * r + e;
+              dpacc[i] = sacc[i] * (dpacc[i] - dl);
+            }
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            pa[kk][h] = pack_bf16(sacc[8 * kk + 2 * h], sacc[8 * kk + 2 * h + 1]);
+            da[kk][h] =
+                pack_bf16(dpacc[8 * kk + 2 * h], dpacc[8 * kk + 2 * h + 1]);
+          }
+        }
+
+        // dV += P^T dO and dK += dS^T Q: the queries are the depth, dO and
+        // Q read as transposed B operands (box stride 64 rows x 128 B).
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DKDV_BM / 16; ++kk)
+          RsMma<OR>::run(dv_acc, pa[kk],
+                         desc_sw128(dos + kk * 16 * 128, DKDV_BM * 128, 1024));
+#pragma unroll
+        for (int kk = 0; kk < DKDV_BM / 16; ++kk)
+          RsMma<OR>::run(dk_acc, da[kk],
+                         desc_sw128(qs + kk * 16 * 128, DKDV_BM * 128, 1024));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
+      }
+
+      // dK and dV go out through this warpgroup's rows of the item's K and
+      // V buffers (its products, their only readers, are done), in the
+      // swizzled layout, then as 16-byte stores of whole rows.
+      uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES;
+      uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rb = r_key + 8 * r;  // the key within the item
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const int off = (jj / 8) * DKDV_BN * 128 + rb * 128 +
+                          (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
+          *reinterpret_cast<uint32_t*>(kb_sm + off) =
+              pack_bf16(dk_acc[jj * 4 + 2 * r] * scale,
+                        dk_acc[jj * 4 + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(vb_sm + off) =
+              pack_bf16(dv_acc[jj * 4 + 2 * r], dv_acc[jj * 4 + 2 * r + 1]);
+        }
+      }
+      named_sync(1 + c, 128);  // the warpgroup's rows are staged
+      constexpr int CH = D / 8;  // 16-byte chunks a row
+      for (int i = ct; i < 64 * CH; i += 128) {
+        const int rb = c * 64 + i / CH, ch = i % CH;
+        const int row = item.kb * DKDV_BN + rb;
+        if (row < N_kv) {
+          const int off = (ch / 8) * DKDV_BN * 128 + rb * 128 +
+                          (((ch % 8) ^ (rb & 7)) * 16);
+          const size_t o = ((size_t)item.bkh * N_kv + row) * D + ch * 8;
+          *reinterpret_cast<uint4*>(dk + o) =
+              *reinterpret_cast<const uint4*>(kb_sm + off);
+          *reinterpret_cast<uint4*>(dv + o) =
+              *reinterpret_cast<const uint4*>(vb_sm + off);
+        }
+      }
+      // The K/V buffer is free once every consumer thread is done with it;
+      // the proxy fence orders these generic accesses before the TMA
+      // refill.
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(kv_empty + kbuf);
+    }
+  }
+}
+
+// Launch over a mask policy: q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D]
+// bf16 contiguous, 16-byte aligned; lse, delta [B*H_q, N_q] fp32; order the
+// host's units longest first (see DkdvItem); dk, dv like k. Returns
+// cudaGetLastError() of the launch.
+template <int D, int STAGES, class Mask>
+int launch_dkdv_d(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  const void* order, void* dk, void* dv, int B, int H_q,
+                  int H_kv, int N_q, int N_kv, float scale, const Mask& mask,
+                  cudaStream_t stream) {
+  constexpr int smem = DkdvSmem<D, STAGES>::BYTES;
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      dkdv_wgmma_kernel<D, STAGES, Mask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_map(&tq, q, B * H_q, N_q, D, DKDV_BM) ||
+      !make_map(&tdo, dout, B * H_q, N_q, D, DKDV_BM) ||
+      !make_map(&tk, k, B * H_kv, N_kv, D, DKDV_BN) ||
+      !make_map(&tv, v, B * H_kv, N_kv, D, DKDV_BN))
+    return (int)cudaErrorInvalidValue;
+  const long n_work = (long)((N_kv + DKDV_BN - 1) / DKDV_BN) * B * H_kv;
+  const int grid = (int)std::min<long>(n_work, sm_count());
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  dkdv_wgmma_kernel<D, STAGES, Mask><<<grid, DKDV_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(order),
+      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), B, H_q, H_kv,
+      N_q, N_kv, scale * LOG2E, scale, mask);
+  return (int)cudaGetLastError();
+}
+
+template <class Mask>
+int launch_dkdv(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                const void* order, void* dk, void* dv, int B, int H_q,
+                int H_kv, int N_q, int N_kv, int D, float scale,
+                const Mask& mask, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N_kv <= 0 || B * H_kv <= 0) return 0;
+  if (H_kv <= 0 || H_q % H_kv != 0 || N_q < 0 || (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if (N_q == 0) {  // no query reads any key (and no tensor map of q)
+    const size_t bytes = (size_t)B * H_kv * N_kv * D * 2;
+    cudaMemsetAsync(dk, 0, bytes, st);
+    cudaMemsetAsync(dv, 0, bytes, st);
+    return (int)cudaGetLastError();
+  }
+  if (D == 64)
+    return launch_dkdv_d<64, 3>(q, k, v, dout, lse, delta, order, dk, dv, B,
+                                H_q, H_kv, N_q, N_kv, scale, mask, st);
+  if (D == 128)
+    return launch_dkdv_d<128, 2>(q, k, v, dout, lse, delta, order, dk, dv, B,
+                                 H_q, H_kv, N_q, N_kv, scale, mask, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace hopper
+}  // namespace sinkattn

@@ -2,8 +2,8 @@
 //
 // Replace the Pallas TPU kernels `_pfwd_kernel`, `_pdq_kernel` and
 // `_pdkdv_kernel` of sink_attention_tpu/ops/packed.py (launched by
-// `_pfwd_impl` and `_pbwd_impl`): the kernels of attention.cuh over
-// PackedMask. One pack row b holds several segments back to back;
+// `_pfwd_impl` and `_pbwd_impl`): the forward and dQ kernels of
+// attention.cuh and the dK/dV kernel of hopper_bwd.cuh over PackedMask. One pack row b holds several segments back to back;
 // positions[b, i] counts up from 0 in each segment, so row i's segment
 // starts at s_i = i - positions[b, i] and
 //     valid(i, j) = j <= i  AND  j >= s_i
@@ -24,8 +24,9 @@
 // the kernels' times beside them are in PERF.md). What the design does
 // about it: the host tables (ops/packed.py) clamp every range to the
 // segments the block's rows or columns belong to, so no CTA walks a tile
-// wholly outside the pack's mask; the math runs on mma.sync, as the
-// unpacked kernels do, and reaches neither bound.
+// wholly outside the pack's mask; the forward and dQ run on mma.sync and
+// reach neither bound; dK/dV is hopper_bwd.cuh's wgmma/TMA kernel, each key
+// seeing the one interval of rows [j, reach(j)) below.
 //
 // Tables, built per batch by ops/packed.py:
 //   seg   [B, N]          s_i of every row;
@@ -33,26 +34,33 @@
 //         win_b0, win_b1, s of the block's first row, s of its last row):
 //         the sink blocks of the first row's segment, then the window blocks
 //         from max(first row's s, first row - window + 1), disjoint;
-//   kv    [B, n_kv_blocks, 2] per 64-slot KV block: the q-block range that
-//         reads it, up to cdiv(max_j reach(j), 64) with reach(j) the end of
-//         j's segment for a sink column, else min(that end, j + window).
-// A tile is mask-free when its rows share one segment (first-row s ==
-// last-row s) and every cell is inside it.
+//   kv    [B, n_kv_blocks, 2] per 128-slot KV block (dK/dV): the range of
+//         64-row q blocks that reads it, up to cdiv(max_j reach(j), 64) with
+//         reach(j) the end of j's segment for a sink column, else min(that
+//         end, j + window);
+//   order [B * n_kv_blocks]: the (b, KV block) units b * n_kv_blocks + kb,
+//         longest q-block range first;
+//   reach [B, N]: reach(j), so key j sees exactly the rows [j, reach(j)).
+// A forward/dQ tile is mask-free when its rows share one segment (first-row
+// s == last-row s) and every cell is inside it.
 
-#include "attention.cuh"
+#include "hopper_bwd.cuh"
 
 namespace {
 
 using sinkattn::BM;
 using sinkattn::BN;
+using sinkattn::hopper::DKDV_BM;
+using sinkattn::hopper::DKDV_BN;
 
 struct PackedMask {
-  static constexpr bool kRowSmem = true;  // dK/dV keeps each q tile's s_i
+  static constexpr bool kBatchTables = true;  // a dK/dV table per batch row
   struct Row {
     int i, s;  // the row and its segment start
   };
   const int* table;  // the q or the kv table above
-  const int* seg;    // [B, N]
+  const int* seg;    // [B, N] (forward, dQ)
+  const int* reach;  // [B, N] (dK/dV)
   int N, n_blocks, num_sink, window;
 
   __device__ const int* q_block(int b, int qb) const {
@@ -66,18 +74,18 @@ struct PackedMask {
     return qrow < N ? seg[(size_t)b * N + qrow] : qrow;
   }
   __device__ Row row(int b, int qrow) const { return {qrow, seg_of(b, qrow)}; }
-  __device__ void store_row(int* dst, int b, int qrow) const {
-    *dst = seg_of(b, qrow);
-  }
-  __device__ Row smem_row(const int* srow, int ql, int qrow) const {
-    return {qrow, srow[ql]};
+  // Key j's visible rows [j, reach(j)); none past N.
+  __device__ void key_span(int b, int j, int& lo, int& n) const {
+    lo = j;
+    n = j < N ? max(reach[(size_t)b * N + j] - j, 0) : 0;
   }
   __device__ bool visible(Row r, int j) const {
     return j < N && j <= r.i && j >= r.s &&
            (j < r.s + num_sink || j >= r.i - window + 1);
   }
-  // Every cell of q block qb x keys [col0, col0 + BN) is visible, given the
-  // segment starts of the block's first and last rows.
+  // Every cell of the 64 x 64 forward/dQ tile q block qb x keys [col0,
+  // col0 + BN) is visible, given the segment starts of the block's first
+  // and last rows.
   __device__ bool tile_full(int s_first, int s_last, int qb, int col0) const {
     const int r_lo = qb * BM, r_hi = r_lo + BM - 1, c_hi = col0 + BN - 1;
     return s_first == s_last && col0 + BN <= N && c_hi <= r_lo &&
@@ -87,16 +95,14 @@ struct PackedMask {
   __device__ bool q_tile_full(const int* rg, int qb, int col0) const {
     return tile_full(rg[4], rg[5], qb, col0);
   }
-  __device__ bool kv_tile_full(int kb, int qb, const int* srow) const {
-    return qb * BM + BM <= N && tile_full(srow[0], srow[BM - 1], qb, kb * BN);
-  }
 };
 
-PackedMask make_mask(const void* table, const void* seg, int N, int block,
-                     int num_sink, int window) {
+PackedMask make_mask(const void* table, const void* seg, const void* reach,
+                     int N, int block, int num_sink, int window) {
   return PackedMask{static_cast<const int*>(table),
-                    static_cast<const int*>(seg), N, (N + block - 1) / block,
-                    num_sink, window};
+                    static_cast<const int*>(seg),
+                    static_cast<const int*>(reach), N,
+                    (N + block - 1) / block, num_sink, window};
 }
 
 }  // namespace
@@ -109,10 +115,9 @@ extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
                               const void* seg, void* o, void* lse, int B,
                               int H_q, int H_kv, int N, int D, int num_sink,
                               int window, float scale, void* stream) {
-  return sinkattn::launch_fwd(q, k, v, s_aux, o, lse, B, H_q, H_kv, N, N, D,
-                              scale,
-                              make_mask(qtable, seg, N, BM, num_sink, window),
-                              stream);
+  return sinkattn::launch_fwd(
+      q, k, v, s_aux, o, lse, B, H_q, H_kv, N, N, D, scale,
+      make_mask(qtable, seg, nullptr, N, BM, num_sink, window), stream);
 }
 
 // As sink_pfwd_bf16, plus dout like q and lse, delta [B*H_q, N] fp32; dq
@@ -123,24 +128,30 @@ extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
                              const void* seg, void* dq, int B, int H_q,
                              int H_kv, int N, int D, int num_sink, int window,
                              float scale, void* stream) {
-  return sinkattn::launch_dq(q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N,
-                             N, D, scale,
-                             make_mask(qtable, seg, N, BM, num_sink, window),
-                             stream);
+  return sinkattn::launch_dq(
+      q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N, N, D, scale,
+      make_mask(qtable, seg, nullptr, N, BM, num_sink, window), stream);
 }
 
-// As sink_pdq_bf16 with kvtable [B, ceil(N/64), 2]; dk, dv like k.
+// As sink_pdq_bf16 with kvtable [B, ceil(N/128), 2], order
+// [B * ceil(N/128)] and reach [B, N] int32 in place of qtable and seg; dk,
+// dv like k.
 extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* kvtable,
-                               const void* seg, void* dk, void* dv, int B,
-                               int H_q, int H_kv, int N, int D, int num_sink,
-                               int window, float scale, void* stream) {
-  return sinkattn::launch_dkdv(
-      q, k, v, dout, lse, delta, dk, dv, B, H_q, H_kv, N, N, D, scale,
-      make_mask(kvtable, seg, N, BN, num_sink, window), stream);
+                               const void* order, const void* reach,
+                               void* dk, void* dv, int B, int H_q, int H_kv,
+                               int N, int D, int num_sink, int window,
+                               float scale, void* stream) {
+  return sinkattn::hopper::launch_dkdv(
+      q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D, scale,
+      make_mask(kvtable, nullptr, reach, N, DKDV_BN, num_sink, window),
+      stream);
 }
 
-// Tile sizes the host-side tables must use.
+// Tile sizes the host-side tables must use: the forward's and dQ's, and
+// dK/dV's.
 extern "C" int sink_packed_block_m() { return BM; }
 extern "C" int sink_packed_block_n() { return BN; }
+extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
+extern "C" int sink_packed_dkdv_block_n() { return DKDV_BN; }

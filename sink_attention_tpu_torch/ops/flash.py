@@ -1,8 +1,8 @@
 """Differentiable sink flash attention on hand-written CUDA kernels.
 
-Counterpart of ``sink_attention_tpu/ops/flash.py``. Three kernels (those of
-``csrc/attention.cuh`` over its sink + window mask), each beside its plain
-PyTorch version:
+Counterpart of ``sink_attention_tpu/ops/flash.py``. Three kernels over the
+sink + window mask of ``csrc/attention.cuh``, each beside its plain PyTorch
+version:
 
 * ``csrc/flash_fwd.cu`` (replaces the TPU kernel ``_fwd_kernel``): O and
   LSE; plain version :func:`flash_fwd_plain`;
@@ -20,10 +20,13 @@ The forward kernel (wgmma and TMA, ``csrc/hopper.cuh``) visits, for each
 128-row query block, only the 128-key KV blocks of two ranges: the blocks
 holding the sink columns, then the window blocks after them
 (:func:`fwd_kv_ranges`, the Python mirror of the JAX package's
-``_build_fwd_schedule``); the dQ kernel walks the same table at 64 x 64. The dK/dV kernel visits, for each
-64-slot KV block, the query blocks of one range (:func:`dkdv_q_ranges`,
-the mirror of ``_dkdv_q_step``). The tables are built on the host, so the
-CPU tests check them although the kernels cannot run there.
+``_build_fwd_schedule``); the dQ kernel walks the same table at 64 x 64.
+The dK/dV kernel (wgmma and TMA, ``csrc/hopper_bwd.cuh``) visits, for each
+128-slot KV block, the 64-row query blocks of one range
+(:func:`dkdv_q_ranges` at ``bm=DKDV_BM, bn=DKDV_BN``, the mirror of
+``_dkdv_q_step``), the blocks with the longest ranges first
+(:func:`dkdv_block_order`). The tables are built on the host, so the CPU
+tests check them although the kernels cannot run there.
 """
 
 from __future__ import annotations
@@ -42,12 +45,14 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "sink_flash_attention_chunk", "merge_partials",
            "attention_backward", "flash_fwd_kernel", "flash_fwd_plain",
            "flash_dq_kernel", "flash_dkdv_kernel", "flash_bwd_plain",
-           "fwd_kv_ranges", "dkdv_q_ranges"]
+           "fwd_kv_ranges", "dkdv_q_ranges", "dkdv_block_order"]
 
-BM = 64  # query rows per tile; must match csrc/flash_bwd.cu, packed.cu
-BN = 64  # keys per KV tile; must match csrc/flash_bwd.cu, packed.cu
+BM = 64  # dQ / packed query rows per tile (csrc/flash_bwd.cu, packed.cu)
+BN = 64  # dQ / packed keys per KV tile (csrc/flash_bwd.cu, packed.cu)
 FWD_BM = 128  # the forward kernel's query rows per CTA (csrc/flash_fwd.cu)
 FWD_BN = 128  # the forward kernel's keys per KV tile (csrc/flash_fwd.cu)
+DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
+DKDV_BN = 128  # the dK/dV kernel's keys per work item (csrc/hopper_bwd.cuh)
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
@@ -108,39 +113,56 @@ def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _dkdv_q_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset):
-    n_q_blocks = _cdiv(n_q, BM)
-    table = np.zeros((_cdiv(n_kv, BN), 2), np.int32)
+def _dkdv_q_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
+                          bm, bn):
+    n_q_blocks = _cdiv(n_q, bm)
+    table = np.zeros((_cdiv(n_kv, bn), 2), np.int32)
     for ni in range(table.shape[0]):
-        c_lo = kv_offset + ni * BN                       # global columns
-        c_hi = kv_offset + min((ni + 1) * BN, n_kv) - 1  # of the real slots
+        c_lo = kv_offset + ni * bn                       # global columns
+        c_hi = kv_offset + min((ni + 1) * bn, n_kv) - 1  # of the real slots
         if c_hi < 0:
             continue  # all before the sequence start: read by no query
         c_lo = max(c_lo, 0)
-        b0 = min(max((c_lo - q_offset) // BM, 0), n_q_blocks)  # causal
+        b0 = min(max((c_lo - q_offset) // bm, 0), n_q_blocks)  # causal
         if num_sink > 0 and c_lo < num_sink:
             b1 = n_q_blocks  # sink columns: every later query reads them
         else:  # the last query whose window reaches column c_hi
-            b1 = min((c_hi + window - 1 - q_offset) // BM + 1, n_q_blocks)
+            b1 = min((c_hi + window - 1 - q_offset) // bm + 1, n_q_blocks)
         table[ni] = (b0, max(b1, b0))
     table.setflags(write=False)
     return table
 
 
 def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0) -> np.ndarray:
-    """int32 [ceil(n_kv / BN), 2]: per KV block, the half-open range of
-    query blocks that read it.
+                  q_offset: int = 0, kv_offset: int = 0, bm: int = BM,
+                  bn: int = BN) -> np.ndarray:
+    """int32 [ceil(n_kv / bn), 2]: per KV block of ``bn`` keys, the
+    half-open range of query blocks of ``bm`` rows that read it.
 
     Decided per block, as the JAX package's ``_dkdv_q_step`` with
     ``sink_pass=None``: a block holding global sink columns is read by
     every query block from its causal start on; any other block only up to
     the last query whose window reaches its last column. Blocks wholly
     before the sequence start (negative ``kv_offset``) are read by none.
-    So chunked and halo offsets need no static sink/window split.
+    So chunked and halo offsets need no static sink/window split. The
+    dK/dV kernel takes ``bm=DKDV_BM, bn=DKDV_BN``.
     """
     return _dkdv_q_ranges_cached(int(n_q), int(n_kv), int(num_sink),
-                                 int(window), int(q_offset), int(kv_offset))
+                                 int(window), int(q_offset), int(kv_offset),
+                                 int(bm), int(bn))
+
+
+def dkdv_block_order(n_q: int, n_kv: int, num_sink: int, window: int,
+                     q_offset: int = 0, kv_offset: int = 0,
+                     bm: int = DKDV_BM, bn: int = DKDV_BN) -> np.ndarray:
+    """int32 [ceil(n_kv / bn)]: the KV blocks of :func:`dkdv_q_ranges`,
+    longest query-block range first (ties in block order): the order in
+    which the dK/dV kernel's persistent CTAs take them, so the long sink
+    and early full-layer blocks do not set the tail."""
+    table = dkdv_q_ranges(n_q, n_kv, num_sink, window, q_offset, kv_offset,
+                          bm, bn)
+    return np.argsort(table[:, 0] - table[:, 1], kind="stable").astype(
+        np.int32)
 
 
 def _visible(n_q, n_kv, num_sink, window, q_offset, kv_offset, device):
@@ -248,11 +270,13 @@ def _kernel_fn():
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("flash_bwd")
-    if (lib.sink_bwd_block_m(), lib.sink_bwd_block_n()) != (BM, BN):
+    if ((lib.sink_bwd_block_m(), lib.sink_bwd_block_n()) != (BM, BN) or
+            (lib.sink_dkdv_block_m(), lib.sink_dkdv_block_n()) != (
+                DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
     return (load_fn("flash_bwd", "sink_dq_bf16", 8),
-            load_fn("flash_bwd", "sink_dkdv_bf16", 9))
+            load_fn("flash_bwd", "sink_dkdv_bf16", 10))
 
 
 @functools.lru_cache(maxsize=256)
@@ -351,16 +375,20 @@ flash_dq_kernel.launches = 0
 def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
                       window_size: int = 512, q_offset: int = 0,
                       kv_offset: int = 0):
-    """Launch ``sink_dkdv_bf16`` of ``csrc/flash_bwd.cu``: (dk, dv)
-    [B,H_kv,N_kv,D] bf16, summed over each GQA group inside the kernel.
+    """Launch ``sink_dkdv_bf16`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N_kv,D] bf16,
+    summed over each GQA group inside the kernel, bitwise repeatable.
     Inputs as :func:`flash_dq_kernel`'s. ``flash_dkdv_kernel.launches``
-    counts the launches."""
+    counts the launches. A warmed call (its tables already on the card)
+    synchronises nothing."""
     ops = _bwd_operands(q, k, v, do, lse, delta)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
-    ranges = _table_on(dkdv_q_ranges, q.device, dims[3], dims[4], *geom)
+    key = (dims[3], dims[4], *geom, DKDV_BM, DKDV_BN)
+    ranges = _table_on(dkdv_q_ranges, q.device, *key)
+    order = _table_on(dkdv_block_order, q.device, *key)
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    ptrs = [_build.ptr(t) for t in (*ops, ranges, dk, dv)]
+    ptrs = [_build.ptr(t) for t in (*ops, ranges, order, dk, dv)]
     code = _bwd_fns()[1](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
                          _build.stream_ptr(q.device))
     _build.check(code, "sink_dkdv_bf16")

@@ -9,8 +9,9 @@ gets its own sinks and causal window (``ops.reference.packed_rows_mask``).
 that count up by 1 and reset to 0: the tables below rely on it, as the JAX
 kernels do, and nothing checks it.
 
-Three kernels in ``csrc/packed.cu`` (the kernels of ``csrc/attention.cuh``
-over the packed mask), each beside its plain PyTorch version:
+Three kernels in ``csrc/packed.cu`` over the packed mask (the forward and
+dQ of ``csrc/attention.cuh``, the wgmma/TMA dK/dV of
+``csrc/hopper_bwd.cuh``), each beside its plain PyTorch version:
 
 * ``sink_pfwd_bf16`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
   plain version :func:`packed_fwd_plain`;
@@ -45,7 +46,7 @@ from typing import List, NamedTuple
 import torch
 
 from . import _build
-from .flash import (BM, BN, _WINDOW_CLAMP, _bwd_operands,
+from .flash import (BM, BN, DKDV_BM, DKDV_BN, _WINDOW_CLAMP, _bwd_operands,
                     attention_backward, bwd_plain_chunks, fwd_plain_chunks,
                     load_fn)
 from .reference import packed_rows_mask
@@ -62,12 +63,20 @@ class PackedTables(NamedTuple):
     * ``q`` [B, ceil(N/64), 6]: per 64-row q block (forward and dQ), the
       KV blocks it visits as two half-open ranges (sink_b0, sink_b1) and
       (win_b0, win_b1), then the segment starts of its first and last row;
-    * ``kv`` [B, ceil(N/64), 2]: per 64-slot KV block (dK/dV), the
-      half-open range of q blocks that read it.
+    * ``kv`` [B, ceil(N/128), 2]: per 128-slot KV block (dK/dV, tiles
+      ``DKDV_BM`` x ``DKDV_BN``), the half-open range of 64-row q blocks
+      that read it;
+    * ``kv_order`` [B * ceil(N/128)]: the (batch row, KV block) units
+      ``b * ceil(N/128) + block``, longest range first (ties in unit order):
+      the order the dK/dV kernel's persistent CTAs take them in;
+    * ``reach`` [B, N]: per key j, the end of the rows that see it: key j
+      is visible to exactly the rows [j, reach[j]) (dK/dV's per-key mask).
     """
     seg: torch.Tensor
     q: torch.Tensor
     kv: torch.Tensor
+    kv_order: torch.Tensor
+    reach: torch.Tensor
 
 
 def _cdiv_t(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -85,10 +94,11 @@ def packed_tables(positions: torch.Tensor, num_sink: int,
     segment starting inside the block starts after r0, so its sinks lie in
     the window range.
 
-    dK/dV, per KV block of columns [c0, c1]: q blocks from c0's on (causal)
-    up to cdiv(max_j reach(j), 64), where reach(j) is the end of j's segment
-    for a sink column (positions[j] < num_sink), else min(that end, j +
-    window). Tokens before the pack's first reset end at that reset.
+    dK/dV, per 128-slot KV block of columns [c0, c1]: 64-row q blocks from
+    c0's on (causal) up to cdiv(max_j reach(j), 64), where reach(j) is the
+    end of j's segment for a sink column (positions[j] < num_sink), else
+    min(that end, j + window). Tokens before the pack's first reset end at
+    that reset.
 
     So a full layer (window >= N) of a pack of segments of lengths L_k
     costs about sum(L_k^2) / 2 pairs, not N^2 / 2.
@@ -98,7 +108,7 @@ def packed_tables(positions: torch.Tensor, num_sink: int,
     dev = pos.device
     idx = torch.arange(N, device=dev)
     seg = idx - pos
-    n_q_blocks, n_kv_blocks = -(-N // BM), -(-N // BN)
+    n_q_blocks, n_kv_blocks = -(-N // BM), -(-N // DKDV_BN)
 
     r0 = torch.arange(n_q_blocks, device=dev) * BM
     r1 = (r0 + BM - 1).clamp(max=N - 1)
@@ -122,13 +132,18 @@ def packed_tables(positions: torch.Tensor, num_sink: int,
     seg_end = after.flip(1).cummin(dim=1).values.flip(1)
     reach = torch.where(pos < num_sink, seg_end,
                         torch.minimum(seg_end, idx + window))
-    reach = torch.nn.functional.pad(reach, (0, n_kv_blocks * BN - N))
-    reach = reach.reshape(B, n_kv_blocks, BN).amax(dim=-1)
-    qb0 = (torch.arange(n_kv_blocks, device=dev) * BN // BM).expand(B, -1)
-    qb1 = torch.maximum(_cdiv_t(reach, BM).clamp(max=n_q_blocks), qb0)
+    block_reach = torch.nn.functional.pad(
+        reach, (0, n_kv_blocks * DKDV_BN - N)).reshape(
+            B, n_kv_blocks, DKDV_BN).amax(dim=-1)
+    qb0 = (torch.arange(n_kv_blocks, device=dev) * DKDV_BN // DKDV_BM
+           ).expand(B, -1)
+    qb1 = torch.maximum(_cdiv_t(block_reach, DKDV_BM).clamp(max=n_q_blocks),
+                        qb0)
     kvtab = torch.stack([qb0, qb1], dim=-1)
+    order = torch.argsort((qb0 - qb1).flatten(), stable=True)
     return PackedTables(seg.int().contiguous(), qtab.int().contiguous(),
-                        kvtab.int().contiguous())
+                        kvtab.int().contiguous(), order.int().contiguous(),
+                        reach.int().contiguous())
 
 
 # (weakref to the positions tensor, its version, device, num_sink, window,
@@ -174,12 +189,14 @@ def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     lib = _build.load("packed")
-    if (lib.sink_packed_block_m(), lib.sink_packed_block_n()) != (BM, BN):
+    if ((lib.sink_packed_block_m(), lib.sink_packed_block_n()) != (BM, BN) or
+            (lib.sink_packed_dkdv_block_m(), lib.sink_packed_dkdv_block_n())
+            != (DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
                            "tile sizes")
     return (load_fn("packed", "sink_pfwd_bf16", 8, 7),
             load_fn("packed", "sink_pdq_bf16", 9, 7),
-            load_fn("packed", "sink_pdkdv_bf16", 10, 7))
+            load_fn("packed", "sink_pdkdv_bf16", 11, 7))
 
 
 def _geometry(q, k, v, positions, num_sink, window_size):
@@ -251,15 +268,18 @@ packed_dq_kernel.launches = 0
 
 def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
                        num_sink: int = 4, window_size: int = 512):
-    """Launch ``sink_pdkdv_bf16`` of ``csrc/packed.cu``: (dk, dv)
-    [B,H_kv,N,D] bf16, summed over each GQA group inside the kernel.
-    Inputs as :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches``
-    counts the launches."""
+    """Launch ``sink_pdkdv_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N,D] bf16, summed
+    over each GQA group inside the kernel, bitwise repeatable. Inputs as
+    :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches`` counts the
+    launches. A warmed call (the positions' tables already built)
+    synchronises nothing."""
     ops = _bwd_operands(q, k, v, do, lse, delta)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
     tables = _tables_for(positions, q.device, *geom[5:])
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
-    ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.seg, dk, dv)]
+    ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.kv_order,
+                                    tables.reach, dk, dv)]
     code = _kernel_fns()[2](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
                             _build.stream_ptr(q.device))
     _build.check(code, "sink_pdkdv_bf16")
@@ -337,7 +357,7 @@ def sink_flash_attention_packed(q, k, v, positions, num_sink: int = 4,
     Returns:
         [B, H_q, N, D] in q.dtype. On CUDA the packed forward kernel runs,
         and the packed dQ and dK/dV kernels in the backward; tiles are 64 x
-        64.
+        64, and 64 queries x 128 keys for dK/dV.
     """
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"packed attention needs N_q == N_kv: "

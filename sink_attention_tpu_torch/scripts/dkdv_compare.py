@@ -1,0 +1,161 @@
+"""Time the dK/dV kernels of this checkout against another on one card.
+
+    python3 -m sink_attention_tpu_torch.scripts.dkdv_compare OTHER_TREE
+        [--out build/dkdv_compare.json]
+
+``OTHER_TREE`` is the root of another checkout of the repository (for
+example the parent commit unpacked with ``git archive``). The script runs
+the dK/dV shapes of ``chip_smoke.py``'s phase 2 (the unpacked training
+layers at W=128 and W=4096, the headline, the halo chunk, GQA groups 1 and
+16, N_q = 250; the packed phase-5 mix at both W, the 64-3072 headline pack
+and the packed edge cases) in four passes, other / this / this / other,
+each in its own process with that checkout's package on ``sys.path`` and
+its kernels built into its own ``build/kernels/``. Each pass times
+``flash_dkdv_kernel`` and ``packed_dkdv_kernel`` on seeded inputs: ``ms``
+(CUDA events over back-to-back calls) and ``device_ms`` (the kernel's own
+time per launch, torch.profiler). It prints one line per shape with the
+mean of each checkout's two passes and their ratio, and writes every pass
+to ``--out``. Both checkouts must have the wrappers' present signatures
+and ``chip_smoke.py``'s ``pack_lengths``, ``pack_positions`` and
+``per_call_device``. Without CUDA it exits nonzero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# (label, B, H_q, H_kv, N, D, num_sink, window, halo)
+UNPACKED = [
+    ("W=128", 1, 64, 8, 4096, 64, 0, 128, 0),
+    ("W=4096", 1, 64, 8, 4096, 64, 0, 4096, 0),
+    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096, 0),
+    ("halo chunk", 1, 64, 8, 1024, 64, 4, 256, 256),
+    ("group 1", 1, 8, 8, 2048, 64, 4, 2048, 0),
+    ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0),
+    ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0),
+]
+# (label, B, H_q, H_kv, D, num_sink, window, lengths, first position);
+# lengths ("mix", n, lo, hi, seed): chip_smoke's pack_lengths(n, lo, hi,
+# seed), the segments of phase 2's packs
+PACKED = [
+    ("packed phase-5 mix W=128", 1, 64, 8, 64, 0, 128,
+     ("mix", 4096, 64, 1536, 0), 0),
+    ("packed phase-5 mix W=4096", 1, 64, 8, 64, 0, 4096,
+     ("mix", 4096, 64, 1536, 0), 0),
+    ("packed lengths 64-3072", 1, 32, 8, 128, 4, 4096,
+     ("mix", 8192, 64, 3072, 1), 0),
+    ("packed a 2-token segment", 1, 8, 2, 64, 4, 128, [2, 510, 512], 0),
+    ("packed 32-token segments", 1, 8, 2, 64, 4, 128, [32] * 32, 0),
+    ("packed pack starts at position 2", 1, 8, 2, 64, 4, 128, [300, 724],
+     2),
+    ("packed N=1000", 1, 8, 2, 64, 4, 128, [333, 2, 665], 0),
+]
+
+
+def worker() -> dict:
+    """One pass over the shapes with the package found on sys.path."""
+    import torch
+
+    import chip_smoke
+    from sink_attention_tpu_torch.ops import flash, packed
+    from sink_attention_tpu_torch.utils import time_cuda
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
+        torch.bfloat16)
+    out = {}
+
+    def timed(label, fn):
+        fn()
+        torch.cuda.synchronize()
+        ms = time_cuda(fn, iters=20)
+        device_ms, _ = chip_smoke.per_call_device(fn, calls=10)
+        out[label] = {"ms": ms, "device_ms": device_ms}
+
+    for label, B, H_q, H_kv, N, D, ns, W, halo in UNPACKED:
+        q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
+        k, v = mk(B, H_kv, N + halo, D), mk(B, H_kv, N + halo, D)
+        geom = (ns, W, 0, -halo)
+        o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
+        delta = (do.float() * o.float()).sum(-1)
+        timed(label, lambda: flash.flash_dkdv_kernel(q, k, v, do, lse, delta,
+                                                     *geom))
+    for label, B, H_q, H_kv, D, ns, W, lens, first in PACKED:
+        if lens[0] == "mix":
+            lens = chip_smoke.pack_lengths(*lens[1:])
+        positions = chip_smoke.pack_positions(lens, first)[None].expand(
+            B, -1).to(dev)
+        N = positions.shape[1]
+        q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
+        k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
+        o, lse = packed.packed_fwd_kernel(q, k, v, positions, None, ns, W)
+        delta = (do.float() * o.float()).sum(-1)
+        timed(label, lambda: packed.packed_dkdv_kernel(
+            q, k, v, do, lse, delta, positions, ns, W))
+    return out
+
+
+def run_pass(tree: Path) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(tree))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--worker"], cwd=tree, env=env,
+                          capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the pass in {tree} failed:\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", nargs="?", help="root of the other checkout")
+    ap.add_argument("--out", default="build/dkdv_compare.json")
+    ap.add_argument("--worker", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("dkdv_compare: CUDA is not available", file=sys.stderr)
+        return 1
+    if args.worker:
+        print(json.dumps(worker()), flush=True)
+        return 0
+    if args.other is None:
+        ap.error("give the other checkout's root")
+    from sink_attention_tpu_torch.utils import card_line
+    other = Path(args.other).resolve()
+    passes = [("other", other), ("this", ROOT), ("this", ROOT),
+              ("other", other)]
+    runs = [(name, run_pass(tree)) for name, tree in passes]
+    card = card_line()
+    print(f"card: {card}")
+    print(f"{'shape':36s} {'other ms':>10s} {'this ms':>10s} {'ratio':>7s} "
+          f"{'other dev':>10s} {'this dev':>10s}")
+    table = {}
+    for label in runs[0][1]:
+        mean = {name: {key: sum(r[label][key] for n, r in runs if n == name)
+                       / 2 for key in ("ms", "device_ms")}
+                for name in ("other", "this")}
+        table[label] = mean
+        print(f"{label:36s} {mean['other']['ms']:10.4f} "
+              f"{mean['this']['ms']:10.4f} "
+              f"{mean['this']['ms'] / mean['other']['ms']:7.3f} "
+              f"{mean['other']['device_ms']:10.4f} "
+              f"{mean['this']['device_ms']:10.4f}")
+    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    Path(args.out).write_text(json.dumps(
+        {"card": card, "other": str(other), "passes": runs,
+         "mean": table}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,8 +2,9 @@
 
 On the CPU the port's autograd function runs the backward kernels' plain
 version; the JAX side runs its Pallas backward kernels in interpret mode,
-as its own tests do (jitted, once per case). The host table that the dK/dV
-kernel walks is checked against the mask here.
+as its own tests do (jitted, once per case). The host tables that the
+dK/dV kernel walks are checked against the mask and against the JAX
+package's own schedule here.
 """
 
 import functools
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 import sink_attention_tpu.ops as jops
+from sink_attention_tpu.ops.flash import _dkdv_q_step as j_dkdv_q_step
 from sink_attention_tpu.ops.flash import sink_flash_attention_chunk as j_chunk
 from sink_attention_tpu_torch.ops import flash as tflash
 from sink_attention_tpu_torch.ops.reference import sink_window_mask
@@ -131,7 +133,7 @@ def test_chunk_grads_match_jax_with_garbage_halo():
     assert not leaves[2].grad[:, :, :halo].any()
 
 
-@pytest.mark.parametrize("geom", [
+DKDV_GEOMS = [
     # (n_q, n_kv, num_sink, window, q_offset, kv_offset): the forward
     # table's geometries in tests/test_torch_flash.py, and a halo
     (256, 256, 4, 128, 0, 0),
@@ -142,18 +144,60 @@ def test_chunk_grads_match_jax_with_garbage_halo():
     (200, 150, 70, 33, 64, -10),
     (1024, 1024, 0, 1024, 0, 0),
     (256, 512, 4, 256, 0, -256),
-])
-def test_dkdv_q_range_table_covers_mask(geom):
-    """Each KV block's query-block range holds every query block with a
-    masked-in (q, k) pair in it; a range cannot name a block twice."""
-    n_q, n_kv, ns, W, qo, ko = geom
-    bm, bn = tflash.BM, tflash.BN
-    table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko)
+    (250, 300, 0, 64, 40, -30),
+]
+# (bm, bn): the old 64 x 64 tiles (the defaults), the dK/dV kernel's 64 x
+# 128, and 128 x 128
+DKDV_TILES = [(64, 64), (64, 128), (128, 128)]
+
+
+def _visible_mask(n_q, n_kv, ns, W, qo, ko):
     mask = sink_window_mask(n_q, n_kv, ns, W, qo, ko).numpy()
-    mask &= (np.arange(n_kv) + ko >= 0)[None, :]
+    return mask & (np.arange(n_kv) + ko >= 0)[None, :]
+
+
+@pytest.mark.parametrize("tiles", DKDV_TILES)
+@pytest.mark.parametrize("geom", DKDV_GEOMS)
+def test_dkdv_q_range_table_covers_mask(geom, tiles):
+    """Each KV block's query-block range holds every query block with a
+    masked-in (q, k) pair in it, at every tile size; a range cannot name a
+    block twice; the block order lists every block once, longest range
+    first."""
+    n_q, n_kv, ns, W, qo, ko = geom
+    bm, bn = tiles
+    table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
+    if tiles == (tflash.BM, tflash.BN):
+        np.testing.assert_array_equal(
+            table, tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko))
+    mask = _visible_mask(n_q, n_kv, ns, W, qo, ko)
     n_q_blocks = -(-n_q // bm)
     assert table.shape == (-(-n_kv // bn), 2)
     for ni, (b0, b1) in enumerate(table):
         assert 0 <= b0 <= b1 <= n_q_blocks, (ni, table[ni])
         rows = np.nonzero(mask[:, ni * bn:(ni + 1) * bn].any(axis=1))[0]
         assert set(rows // bm) <= set(range(b0, b1)), (ni, table[ni])
+    order = tflash.dkdv_block_order(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
+    assert sorted(order.tolist()) == list(range(table.shape[0]))
+    lengths = (table[:, 1] - table[:, 0])[order]
+    assert (np.diff(lengths) <= 0).all(), lengths
+
+
+@pytest.mark.parametrize("tiles", DKDV_TILES)
+@pytest.mark.parametrize("geom", DKDV_GEOMS)
+def test_dkdv_q_range_table_within_jax_schedule(geom, tiles):
+    """Each KV block's range lies inside the q blocks that the JAX
+    package's ``_dkdv_q_step`` (per-block sink decision) marks valid for
+    that block at the same tiles: the port visits no block the JAX kernel
+    skips (it is tighter at the N_kv end and before the sequence start)."""
+    n_q, n_kv, ns, W, qo, ko = geom
+    bm, bn = tiles
+    n_q_blocks = -(-n_q // bm)
+    table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
+    steps = np.arange(n_q_blocks)
+    for ni, (b0, b1) in enumerate(table):
+        q_block, valid = j_dkdv_q_step(
+            ni, steps, qo, ko, bm=bm, bn=bn, num_sink=ns, window=W,
+            n_kv=n_kv, n_q_blocks=n_q_blocks, sink_pass=None)
+        jax_blocks = set(np.asarray(q_block)[np.asarray(valid)].tolist())
+        assert set(range(b0, b1)) <= jax_blocks, (ni, table[ni],
+                                                  sorted(jax_blocks))

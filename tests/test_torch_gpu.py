@@ -164,6 +164,14 @@ BWD_CASES = [
     (1, 4, 2, 128, 320, 64, 4, 96, True, 192, 0),      # chunk at q_offset
     (1, 4, 2, 256, 512, 64, 4, 128, False, 0, -256),   # garbage halo
     (1, 64, 8, 1024, 1024, 64, 0, 1024, True, 0, 0),   # gpt-oss full layer
+    # the wgmma/TMA dK/dV kernel's edges: 128-key items cut at N_kv, N_q
+    # not a multiple of 4 or 64, GQA groups 1-16, window 1 with 70 sinks, a
+    # long sink item
+    (1, 16, 1, 1000, 1000, 128, 4, 256, True, 0, 0),   # group 16, D=128
+    (1, 4, 2, 250, 250, 64, 70, 1, False, 0, 0),       # N_q = 250, W = 1
+    (1, 8, 2, 250, 300, 128, 4, 128, True, 50, 0),     # N_q = 250 chunk
+    (1, 8, 1, 2048, 2048, 64, 4, 128, True, 0, 0),     # long sink item
+    (1, 4, 4, 300, 556, 64, 0, 128, True, 0, -256),    # halo, group 1
 ]
 
 
@@ -233,6 +241,8 @@ PACKED_CASES = [
     (1, 8, 1, 256, 64, 4, 32, True, 2, (200, 56)),          # leading partial
     (1, 4, 2, 1000, 64, 4, 1000, True, 0, (32,)),           # unaligned, W = N
     (1, 64, 8, 1024, 64, 0, 1024, True, 0, (700, 324)),     # gpt-oss full layer
+    (1, 8, 1, 1000, 128, 4, 128, True, 0, (2, 30, 32, 500, 436)),  # group 8
+    (1, 16, 1, 250, 64, 70, 1, True, 0, (2, 32, 216)),      # group 16, W = 1
 ]
 
 
@@ -464,6 +474,34 @@ def test_ragged_decode_mqa_empty_slot(cuda, quant):
         assert float((o_k.float() - o_b.float()).abs().max()) <= \
             QUANT_BUDGET[quant]
     assert not o_k[1].any()
+
+
+def test_warmed_backward_calls_do_not_synchronise(cuda):
+    """A warmed call of the dK/dV kernel, unpacked and packed, issues no
+    synchronising CUDA operation (its tables are on the card after the
+    first call)."""
+    from sink_attention_tpu_torch.ops import packed
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, H_q, H_kv, N, D = 1, 8, 2, 300, 64
+    q, do = _randn(gen, B, H_q, N, D), _randn(gen, B, H_q, N, D)
+    k, v = _randn(gen, B, H_kv, N, D), _randn(gen, B, H_kv, N, D)
+    o, lse = flash.flash_fwd_kernel(q, k, v, None, 4, 128)
+    delta = (do.float() * o.float()).sum(-1)
+    positions = torch.tensor([_segments(N, (100, 200))], device=cuda)
+    calls = (lambda: flash.flash_dkdv_kernel(q, k, v, do, lse, delta, 4,
+                                             128),
+             lambda: packed.packed_dkdv_kernel(q, k, v, do, lse, delta,
+                                               positions, 4, 128))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
 
 
 def test_warmed_calls_do_not_synchronise(cuda):

@@ -187,42 +187,60 @@ TABLE_CASES = [
     ([8] * 40, 0, 320, 4, 64),               # tiny segments
     ([300, 212], 0, 512, 0, 128),            # no sink
     ([130, 70, 500, 324], 5, 1024, 16, 1 << 30),
+    ([333, 2, 665], 2, 1000, 4, 128),        # N not a multiple of 128
 ]
 
 
 @pytest.mark.parametrize("case", TABLE_CASES)
 def test_tables_cover_the_mask(case):
     """Every visible (row, column) pair lies in a tile that the forward/dQ
-    table and the dK/dV table visit; the forward table visits no block
-    twice and stays inside the pack; the segment vector is i - positions."""
+    table (64 x 64) and the dK/dV table (64 x 128) visit; the forward table
+    visits no block twice and stays inside the pack; the segment vector is
+    i - positions; each key j is visible to exactly the rows [j, reach[j]);
+    the dK/dV order lists every (row, block) unit once, longest first."""
     seglens, first, N, ns, W = case
     pos = torch.from_numpy(_positions(seglens, first=first)[:, :N])
     bm, bn = tflash.BM, tflash.BN
     tabs = tpacked.packed_tables(pos, ns, W)
     mask = packed_sink_window_mask(pos, ns, W)[0].numpy()
-    n_qb, n_kb = -(-N // bm), -(-N // bn)
+    n_qb, n_kb = -(-N // bm), -(-N // tflash.DKDV_BN)
     assert tabs.q.shape == (1, n_qb, 6) and tabs.kv.shape == (1, n_kb, 2)
     np.testing.assert_array_equal(tabs.seg[0].numpy(),
                                   np.arange(N) - pos[0].numpy())
     for qi, (s0, s1, w0, w1, _, _) in enumerate(tabs.q[0].tolist()):
         visited = list(range(s0, s1)) + list(range(w0, w1))
         assert len(set(visited)) == len(visited), (qi, tabs.q[0, qi])
-        assert all(0 <= blk < n_kb for blk in visited), (qi, tabs.q[0, qi])
+        assert all(0 <= blk < -(-N // bn) for blk in visited), (qi,
+                                                         tabs.q[0, qi])
         cols = np.nonzero(mask[qi * bm:(qi + 1) * bm].any(axis=0))[0]
         assert set(cols // bn) <= set(visited), (qi, tabs.q[0, qi])
+    kbm, kbn = tflash.DKDV_BM, tflash.DKDV_BN
     for ki, (b0, b1) in enumerate(tabs.kv[0].tolist()):
         assert 0 <= b0 <= b1 <= n_qb, (ki, tabs.kv[0, ki])
-        rows = np.nonzero(mask[:, ki * bn:(ki + 1) * bn].any(axis=1))[0]
-        assert set(rows // bm) <= set(range(b0, b1)), (ki, tabs.kv[0, ki])
+        rows = np.nonzero(mask[:, ki * kbn:(ki + 1) * kbn].any(axis=1))[0]
+        assert set(rows // kbm) <= set(range(b0, b1)), (ki, tabs.kv[0, ki])
+    rows = np.arange(N)[:, None]
+    reach = tabs.reach[0].numpy()[None, :]
+    np.testing.assert_array_equal(
+        mask, (rows >= np.arange(N)[None, :]) & (rows < reach))
+    lengths = (tabs.kv[0, :, 1] - tabs.kv[0, :, 0]).numpy()
+    order = tabs.kv_order.numpy()
+    assert sorted(order.tolist()) == list(range(n_kb))
+    assert (np.diff(lengths[order]) <= 0).all(), lengths[order]
 
 
 def test_full_layer_tables_skip_other_segments():
     """At W >= N the tables visit only tiles that touch a segment's own
-    causal triangle: about sum(L^2) / 2 pairs, far below N^2 / 2."""
+    causal triangle: about sum(L^2) / 2 pairs, far below N^2 / 2. The
+    forward's 64 x 64 tiles: the triangle's 8 * 9 / 2 tiles a segment; the
+    dK/dV kernel's 128-key blocks: 8 + 6 + 4 + 2 q blocks of 64 rows."""
     seglens, N = [512] * 8, 4096
     pos = torch.from_numpy(_positions(seglens))
     tabs = tpacked.packed_tables(pos, 0, 1 << 30)
     fwd_tiles = int((tabs.q[0, :, 3] - tabs.q[0, :, 2]).sum())
     dkdv_tiles = int((tabs.kv[0, :, 1] - tabs.kv[0, :, 0]).sum())
     per_segment = 8 * (512 // 64) * (512 // 64 + 1) // 2
-    assert fwd_tiles == per_segment and dkdv_tiles == per_segment
+    kv_blocks, q_blocks = 512 // tflash.DKDV_BN, 512 // tflash.DKDV_BM
+    per_segment_dkdv = 8 * sum(q_blocks - kb * (q_blocks // kv_blocks)
+                               for kb in range(kv_blocks))
+    assert fwd_tiles == per_segment and dkdv_tiles == per_segment_dkdv
