@@ -7,7 +7,8 @@
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
-     the build time and ptxas' register / shared-memory / spill lines;
+     the build time and ptxas' register / shared-memory / spill lines (no
+     instance of a wgmma kernel, the forward, dQ or dK/dV, may spill);
   2. kernels: run each kernel and its plain PyTorch version on the card at
      the main paths' shapes and at the headline attention shape (the packed
      kernels also at edge cases of the mask; the int8 and fp8 decode also
@@ -22,11 +23,11 @@ Phases:
      1 for every decode row); the
      decode also at MQA 32/1 and 64/1 and over a full layer's cache early
      in its life; the backward kernels also run twice on
-     the same inputs and must agree bit for bit; the dK/dV rows, unpacked
-     and packed, also carry ``device_ms`` and their effective MFU, and
-     dK/dV also runs at GQA group 1 and 16 and at N_q = 250; then a
-     warmed call each of the cached decode, the ragged decode, the forward
-     and the dK/dV kernel (unpacked, packed) under
+     the same inputs and must agree bit for bit; the dQ and dK/dV rows,
+     unpacked and packed, also carry ``device_ms`` and their effective
+     MFU, and both also run at GQA group 1 and 16 and at N_q = 250; then
+     a warmed call each of the cached decode, the ragged decode, the
+     forward, the dQ and the dK/dV kernel (unpacked, packed) under
      torch.cuda.set_sync_debug_mode("error") (none may synchronise);
   3. serving: gpt-oss-20b at full width, 24 layers, bf16, random weights
      from a seeded generator: 4 requests of 1024 prompt tokens, 32 new
@@ -76,6 +77,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import sys
 import time
 
@@ -92,8 +94,9 @@ PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 # the kernels rebuilt for Hopper after their first port, and how
 _HOPPER = "wgmma/TMA, warp-specialised, persistent"
-REDESIGNED = {"flash_fwd": _HOPPER, "flash_dkdv": _HOPPER,
-              "packed_dkdv": _HOPPER, "decode": "one cluster launch",
+REDESIGNED = {"flash_fwd": _HOPPER, "flash_dq": _HOPPER, "flash_dkdv": _HOPPER,
+              "packed_dq": _HOPPER, "packed_dkdv": _HOPPER,
+              "decode": "one cluster launch",
               "decode_int8": "one cluster launch",
               "decode_fp8": "one cluster launch"}
 
@@ -285,9 +288,9 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     """dQ and dK/dV kernels vs flash_bwd_plain at one shape, on the same
     (q, k, v, dO, lse, delta); ``halo`` garbage slots before the KV put the
     chunk at kv_offset = -halo. Returns rows "flash_dq", "flash_dkdv" and
-    "flash_bwd" (the two together, against SDPA's backward); the dK/dV row
-    also has the kernel's own device time per launch and its effective MFU
-    over the visible pairs."""
+    "flash_bwd" (the two together, against SDPA's backward); the dQ and
+    dK/dV rows also have the kernel's own device time per launch and its
+    effective MFU over the visible pairs."""
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.ops.reference import sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -347,8 +350,10 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
         lambda: flash.flash_dq_kernel(*x, *geom), iters=10)
     rows["flash_dkdv"]["ms"] = time_cuda(
         lambda: flash.flash_dkdv_kernel(*x, *geom), iters=10)
-    rows["flash_dkdv"]["device_ms"], rows["flash_dkdv"]["kernels_per_call"] = \
-        per_call_device(lambda: flash.flash_dkdv_kernel(*x, *geom), calls=10)
+    for name, fn in (("flash_dq", flash.flash_dq_kernel),
+                     ("flash_dkdv", flash.flash_dkdv_kernel)):
+        rows[name]["device_ms"], rows[name]["kernels_per_call"] = \
+            per_call_device(lambda: fn(*x, *geom), calls=10)
     plain_ms = time_cuda(lambda: flash.flash_bwd_plain(*x, *geom), iters=2,
                          warmup=1)
     q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
@@ -382,8 +387,10 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
         r.update(plain_ms=plain_ms, library_ms=library_ms,
                  bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes")
-    r = rows["flash_dkdv"]
-    r["mfu"] = pairs * 8 * D / H100_PEAK_BF16 * 1e3 / r["device_ms"]
+    for name in ("flash_dq", "flash_dkdv"):
+        r = rows[name]
+        r["mfu"] = pairs * work[name][0] / H100_PEAK_BF16 * 1e3 / r[
+            "device_ms"]
     return rows
 
 
@@ -422,8 +429,8 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
     versions on one pack (the same positions in every batch row), dQ and
     dK/dV also bitwise against a second run. Returns rows "packed_fwd",
     "packed_dq", "packed_dkdv" with errors, times and bounds (FLOPs from
-    the visible pairs of the pack's own mask); the dK/dV row also has the
-    kernel's own device time per launch and its effective MFU."""
+    the visible pairs of the pack's own mask); the dQ and dK/dV rows also
+    have the kernel's own device time per launch and its effective MFU."""
     from sink_attention_tpu_torch.ops import packed
     from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -478,9 +485,10 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
         lambda: packed.packed_dq_kernel(*args), iters=10)
     rows["packed_dkdv"]["ms"] = time_cuda(
         lambda: packed.packed_dkdv_kernel(*args), iters=10)
-    rows["packed_dkdv"]["device_ms"], rows["packed_dkdv"][
-        "kernels_per_call"] = per_call_device(
-            lambda: packed.packed_dkdv_kernel(*args), calls=10)
+    for name, fn in (("packed_dq", packed.packed_dq_kernel),
+                     ("packed_dkdv", packed.packed_dkdv_kernel)):
+        rows[name]["device_ms"], rows[name]["kernels_per_call"] = \
+            per_call_device(lambda: fn(*args), calls=10)
     rows["packed_fwd"]["plain_ms"] = time_cuda(
         lambda: packed.packed_fwd_plain(q, k, v, positions, aux, *geom),
         iters=2, warmup=1)
@@ -514,8 +522,10 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
         if name != "packed_fwd":
             r.update(plain_ms=bwd_plain_ms, library_ms=bwd_ms,
                      library_fwd_bwd_ms=fwd_bwd_ms)
-    r = rows["packed_dkdv"]
-    r["mfu"] = pairs * 8 * D / H100_PEAK_BF16 * 1e3 / r["device_ms"]
+    for name in ("packed_dq", "packed_dkdv"):
+        r = rows[name]
+        r["mfu"] = pairs * work[name][0] / H100_PEAK_BF16 * 1e3 / r[
+            "device_ms"]
     return rows
 
 
@@ -556,9 +566,9 @@ def kernel_phase(dev):
                          time_n=8192)
     bwd_chunk = check_bwd(dev, 1, 64, 8, 1024, 64, 4, 256, gen, halo=256,
                           use_aux=False)
-    # the dK/dV kernel at GQA group 1 and 16, and at N_q = 250 (not a
-    # multiple of 4 or 64)
-    bwd_more = [check_bwd(dev, 1, h_q, h_kv, n, 64, 4, w, gen)["flash_dkdv"]
+    # the dQ and dK/dV kernels at GQA group 1 and 16, and at N_q = 250
+    # (not a multiple of 4 or 64)
+    bwd_more = [check_bwd(dev, 1, h_q, h_kv, n, 64, 4, w, gen)
                 for h_q, h_kv, n, w in ((8, 8, 2048, 2048),
                                         (64, 4, 2048, 2048),
                                         (64, 8, 250, 128))]
@@ -585,7 +595,8 @@ def kernel_phase(dev):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
         res[name + "_chunk"] = bwd_chunk[name]
-    res["flash_dkdv_more"] = bwd_more
+    for name in ("flash_dq", "flash_dkdv"):
+        res[name + "_more"] = [r[name] for r in bwd_more]
     for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
         res[name] = [r[name] for r in packed_main]
         res[name + "_headline"] = [r[name] for r in packed_head]
@@ -617,7 +628,7 @@ def kernel_phase(dev):
 
 def sync_check(dev):
     """One warmed call each of the cached decode, the ragged decode, the
-    forward and the dK/dV kernel, unpacked and packed (gpt-oss-20b's
+    forward and the dQ and dK/dV kernels, unpacked and packed (gpt-oss-20b's
     shapes) under
     torch.cuda.set_sync_debug_mode("error"): any synchronising CUDA
     operation raises. Returns the errors."""
@@ -647,7 +658,10 @@ def sync_check(dev):
             decode.sink_decode_attention_ragged(q1, ragged, aux)),
         "sink_flash_attention": lambda: flash.sink_flash_attention(
             q, k, v, 0, 1024, s_aux=aux),
+        "flash_dq_kernel": lambda: flash.flash_dq_kernel(*bwd, 0, 128),
         "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(*bwd, 0, 128),
+        "packed_dq_kernel": lambda: packed.packed_dq_kernel(
+            *bwd, positions, 0, 128),
         "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(
             *bwd, positions, 0, 128)}
     errors = []
@@ -1130,7 +1144,7 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         report["step_profile"] = profile_device(
             lambda: step(params, batch),
-            ("fwd_wgmma_kernel", "dq_kernel", "dkdv_wgmma_kernel"),
+            ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel"),
             shapes=True)
     opt.zero_grad(set_to_none=True)
 
@@ -1291,7 +1305,7 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
     if cuda:
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         report["step_profile"] = profile_device(
-            step, ("fwd_kernel", "dq_kernel", "dkdv_wgmma_kernel"))
+            step, ("fwd_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel"))
     opt.zero_grad(set_to_none=True)
 
     # The kernel path, recording each layer's attention inputs and output
@@ -1811,6 +1825,31 @@ def ablation_entries(rows, launches):
 # ---------------------------------------------------------------------------
 
 
+def spill_errors(report):
+    """ptxas' spill line of every instance of a wgmma kernel (the forward,
+    dQ, dK/dV) in the build ``report``: one error per instance that spills,
+    or per source built without the dQ instances' lines."""
+    errors = []
+    for name, rep in report.items():
+        entry, seen = None, 0
+        for line in rep["ptxas"]:
+            if "Compiling entry" in line:
+                entry = line
+            elif "spill" in line and entry and "wgmma_kernel" in entry:
+                seen += "dq_wgmma_kernel" in entry
+                spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                   r"spill loads", line)
+                if spills is None or spills.groups() != ("0", "0"):
+                    errors.append(f"{name}.cu spills: {entry}: {line}")
+        if name in ("flash_bwd", "packed") and not rep["cached"] and \
+                seen != 2:
+            errors.append(f"{name}.cu: ptxas printed the spill lines of "
+                          f"{seen} dq_wgmma_kernel instances, not 2")
+    log("spill check (every wgmma kernel instance): "
+        + ("0 spill" if not errors else "FAILED"))
+    return errors
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1842,9 +1881,9 @@ def main() -> int:
             f"{' (cached)' if rep['cached'] else ''}")
         for line in rep["ptxas"]:
             log(f"  {line}")
+    errors = spill_errors(_build.build_report)
 
     # 2. kernels
-    errors = []
     kern = kernel_phase(dev)
     for key, rows in kern.items():
         for r in rows if isinstance(rows, list) else [rows]:

@@ -1,46 +1,41 @@
-// Sink attention on Hopper: the forward and dQ kernels on mma.sync, written
-// once over a mask policy, and the unpacked mask policy itself.
+// Sink attention on Hopper: the mma.sync forward (the packed forward, and
+// the skeleton ablation.cu copies), written once over a mask policy, and
+// the unpacked mask policy itself.
 //
-// The kernels compute, for every query row i and key j with valid(i, j)
-// given by the policy, the forward O = softmax(scale * Q K^T) V over the
-// valid keys plus the optional per-head sink logit s_aux (an extra logit
-// with no value) and the natural-log LSE; and, from the forward's LSE (which
-// counts s_aux, so P below is the true probability and s_aux needs no term
-// here) and delta_i = sum_d dO_id O_id (less the LSE cotangent, if any):
+// The kernels of the port compute, for every query row i and key j with
+// valid(i, j) given by the policy, the forward O = softmax(scale * Q K^T) V
+// over the valid keys plus the optional per-head sink logit s_aux (an extra
+// logit with no value) and the natural-log LSE; and, from the forward's LSE
+// (which counts s_aux, so P below is the true probability and s_aux needs
+// no term here) and delta_i = sum_d dO_id O_id (less the LSE cotangent, if
+// any):
 //     P  = exp(scale * Q K^T - LSE)  on valid cells, 0 elsewhere
 //     dP = dO V^T,   dS = P * (dP - delta)
-//     dQ = scale * dS K                      (dq_kernel)
-// Query head h reads KV head h / (H_q / H_kv). D must be 64 or 128. dK and
-// dV (dV = P^T dO, dK = scale * dS^T Q) are hopper_bwd.cuh's wgmma/TMA
-// kernel over the same policies.
+//     dQ = scale * dS K,   dV = P^T dO,   dK = scale * dS^T Q
+// Query head h reads KV head h / (H_q / H_kv). D must be 64 or 128. The
+// unpacked forward is hopper.cuh's wgmma/TMA kernel, dQ hopper_dq.cuh's and
+// dK/dV hopper_bwd.cuh's, the last two over both policies.
 //
 // Two policies: SinkWindowMask below (global positions with chunk offsets;
 // flash_fwd.cu, flash_bwd.cu, ablation.cu) and PackedMask (segments of a
 // packed batch; packed.cu). A policy supplies the per-block range tables
-// the host built, a row descriptor, the per-cell predicate, the predicate
-// of a tile that lies wholly inside the mask (whose cells skip the
-// per-element mask) and, for dK/dV, each key's interval of visible query
-// rows.
+// the host built, each row's visible key runs (RowSpan: the wgmma forward
+// and dQ), each key's interval of visible query rows (dK/dV) and the
+// per-cell predicate; PackedMask also fwd_kernel's row descriptor and the
+// predicate of a tile that lies wholly inside the mask.
 //
-// Design (right first, simple):
-//  * forward and dQ: one CTA of 4 warps per (b*h_q, 64-row q block), each
-//    warp 16 rows; the CTA visits only the KV blocks of two ranges from the
-//    policy's table (the sink blocks, then the window blocks after them);
-//    K/V tiles of 64 keys are double-buffered in shared memory with
-//    cp.async, so the next tile's copy overlaps this tile's math;
-//  * the forward keeps P in registers (the S accumulator layout is the
-//    A-operand layout of the P V product) and runs the classic online
-//    softmax in the exp2 domain, seeded with m = s_aux*log2e, l = 1 when
-//    s_aux is given (m = -inf, l = 0 otherwise): exact for every input;
-//  * dQ recomputes P from the LSE and keeps dQ in fp32 registers;
-//  * bf16 mma.sync.m16n8k16 with fp32 accumulation; P and dS are rounded to
-//    bf16 as MMA operands;
-//  * masked cells give p = 0 by a select, never by arithmetic on the
-//    exponent, so rows whose LSE is -inf (no visible key and no s_aux) give
-//    0 and not NaN. Query rows past N_q get LSE = +inf (p = 0) and
-//    delta = 0, and zero-filled Q/dO.
-// The unpacked forward on the card is hopper.cuh's wgmma/TMA kernel; fwd_kernel
-// here serves the packed forward.
+// fwd_kernel's design (right first, simple): one CTA of 4 warps per
+// (b*h_q, 64-row q block), each warp 16 rows; the CTA visits only the KV
+// blocks of two ranges from the policy's table (the sink blocks, then the
+// window blocks after them); K/V tiles of 64 keys are double-buffered in
+// shared memory with cp.async, so the next tile's copy overlaps this
+// tile's math; P stays in registers (the S accumulator layout is the
+// A-operand layout of the P V product) under the classic online softmax in
+// the exp2 domain, seeded with m = s_aux*log2e, l = 1 when s_aux is given
+// (m = -inf, l = 0 otherwise): exact for every input; bf16
+// mma.sync.m16n8k16 with fp32 accumulation. Masked cells are excluded by a
+// select, never by arithmetic on the exponent, so rows that see no key
+// give 0 and not NaN.
 
 #pragma once
 
@@ -92,18 +87,6 @@ __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// A fragment (16x16) of rows [row0, row0 + 16) and columns [col0, col0 + 16)
-// of a row-major bf16 tile in shared memory.
-template <int STRIDE>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const uint16_t* t,
-                                       int row0, int col0, int g, int t4) {
-  const uint16_t* p = t + (row0 + g) * STRIDE + col0 + t4 * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * STRIDE);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * STRIDE + 8);
-}
-
 // acc[j] += A * T[k0 .. k0+16)[j*8 .. j*8+8) for a row-major tile T whose
 // rows are the product's depth (the B operand read down the columns).
 template <int STRIDE, int NJ>
@@ -132,6 +115,14 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// The visible keys of one query row, in local key slots: the window run
+// [win_lo, win_lo + win_n) and the sink run [sink_lo, sink_lo + sink_n);
+// key jl is visible iff it lies in either (a policy's row_span, computed
+// once per row and work item; each run test is one unsigned compare).
+struct RowSpan {
+  int win_lo, win_n, sink_lo, sink_n;
+};
+
 // ---------------------------------------------------------------------------
 // Mask policy of the unpacked kernels: query row `row` is at global position
 // q_offset + row, key slot jl at kv_offset + jl, and
@@ -141,14 +132,12 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
 // one table for every batch row.
 // ---------------------------------------------------------------------------
 struct SinkWindowMask {
-  static constexpr bool kBatchTables = false;  // one dK/dV table for all b
-  using Row = int;                             // the row's global position
+  static constexpr bool kBatchTables = false;  // one table for every b
   const int* table;
   int N_q, N_kv, num_sink, window, q_offset, kv_offset;
 
   __device__ const int* q_block(int, int qb) const { return table + qb * 4; }
   __device__ const int* kv_block(int, int kb) const { return table + kb * 2; }
-  __device__ Row row(int, int qrow) const { return q_offset + qrow; }
   // Key slot jl's visible local query rows [lo, lo + n): from its global
   // position on (causal), to N_q for a sink, else to the last row whose
   // window reaches it; none before the sequence start or past N_kv.
@@ -162,17 +151,23 @@ struct SinkWindowMask {
     const int end = jg < num_sink ? N_q : min(jg + window - q_offset, N_q);
     n = max(end - lo, 0);
   }
-  __device__ bool visible(Row ig, int jl) const {
+  // Local query row `row`'s runs, both cut to jg <= ig and the N_kv end:
+  // the visible set of visible() below.
+  __device__ RowSpan row_span(int, int row) const {
+    const int ig = q_offset + row;
+    const int end = min(ig - kv_offset, N_kv - 1) + 1;  // exclusive
+    RowSpan r;
+    r.win_lo = max(ig - window + 1, 0) - kv_offset;
+    r.win_n = max(end - r.win_lo, 0);
+    r.sink_lo = -kv_offset;
+    r.sink_n = max(min(num_sink - kv_offset, end) - r.sink_lo, 0);
+    return r;
+  }
+  // Key slot jl is visible to the row at global position ig.
+  __device__ bool visible(int ig, int jl) const {
     const int jg = kv_offset + jl;
     return jl < N_kv && jg >= 0 && jg <= ig &&
            (jg < num_sink || jg >= ig - window + 1);
-  }
-  // Every cell of q block qb x keys [col0, col0 + BN) is visible.
-  __device__ bool q_tile_full(const int*, int qb, int col0) const {
-    const int r_lo = q_offset + qb * BM, r_hi = r_lo + BM - 1;
-    const int c_lo = kv_offset + col0, c_hi = c_lo + BN - 1;
-    return (col0 + BN <= N_kv) && (c_lo >= 0) && (c_hi <= r_lo) &&
-           (c_hi < num_sink || c_lo >= r_hi - window + 1);
   }
 };
 
@@ -374,171 +369,9 @@ __global__ void __launch_bounds__(NTHREADS)
 }
 
 // ---------------------------------------------------------------------------
-// dQ
-// ---------------------------------------------------------------------------
-
-template <int D, class Mask>
-__global__ void __launch_bounds__(NTHREADS)
-    dq_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-              const uint16_t* __restrict__ v,
-              const uint16_t* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              uint16_t* __restrict__ dq, int H_q, int H_kv, int N_q, int N_kv,
-              float scale_log2, float scale, Mask mask) {
-  constexpr int STRIDE = D + 8;
-  constexpr int CHUNKS = D / 8;
-  constexpr int KT = D / 16;  // k-steps over the head dim
-  constexpr int DT = D / 8;   // n-tiles of dS K
-  constexpr int NT = BN / 8;  // n-tiles of Q K^T and dO V^T
-
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* Qs = smem;                  // [BM][STRIDE]
-  uint16_t* dOs = Qs + BM * STRIDE;     // [BM][STRIDE]
-  uint16_t* Ks = dOs + BM * STRIDE;     // [2][BN][STRIDE]
-  uint16_t* Vs = Ks + 2 * BN * STRIDE;  // [2][BN][STRIDE]
-
-  const int qb = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / H_q;
-  const int h = bh - b * H_q;
-  const int kvh = b * H_kv + h / (H_q / H_kv);
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-
-  const uint16_t* qg = q + (size_t)bh * N_q * D;
-  const uint16_t* dog = dout + (size_t)bh * N_q * D;
-  const uint16_t* kg = k + (size_t)kvh * N_kv * D;
-  const uint16_t* vg = v + (size_t)kvh * N_kv * D;
-
-  const int* rg = mask.q_block(b, qb);
-  const int sb0 = rg[0];
-  const int sb1 = rg[1];
-  const int wb0 = rg[2];
-  const int wb1 = rg[3];
-  const int n_sink_blocks = max(sb1 - sb0, 0);
-  const int n_blocks = n_sink_blocks + max(wb1 - wb0, 0);
-
-  for (int c = tid; c < BM * CHUNKS; c += NTHREADS) {
-    const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-    const int row = qb * BM + r;
-    const bool ok = row < N_q;
-    const size_t off = (size_t)(ok ? row : 0) * D + cc * 8;
-    cp_async16(Qs + r * STRIDE + cc * 8, qg + off, ok);
-    cp_async16(dOs + r * STRIDE + cc * 8, dog + off, ok);
-  }
-
-  auto block_of = [&](int t) {
-    return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
-  };
-  auto load_kv = [&](int t, int buf) {
-    const int blk = block_of(t);
-    for (int c = tid; c < BN * CHUNKS; c += NTHREADS) {
-      const int r = c / CHUNKS, cc = c - (c / CHUNKS) * CHUNKS;
-      const int row = blk * BN + r;
-      const bool ok = row < N_kv;
-      const size_t off = (size_t)(ok ? row : 0) * D + cc * 8;
-      cp_async16(Ks + (buf * BN + r) * STRIDE + cc * 8, kg + off, ok);
-      cp_async16(Vs + (buf * BN + r) * STRIDE + cc * 8, vg + off, ok);
-    }
-  };
-  if (n_blocks > 0) load_kv(0, 0);
-  cp_async_commit();
-
-  const int r_loc = warp * 16 + g;  // this thread's first row (second: +8)
-  const typename Mask::Row rows[2] = {mask.row(b, qb * BM + r_loc),
-                                      mask.row(b, qb * BM + r_loc + 8)};
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qb * BM + r_loc + r * 8;
-    const bool ok = row < N_q;
-    lse2[r] = ok ? lse[(size_t)bh * N_q + row] * LOG2E : INFINITY;
-    dl[r] = ok ? delta[(size_t)bh * N_q + row] : 0.f;
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  for (int t = 0; t < n_blocks; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_blocks) load_kv(t + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    const uint16_t* kb = Ks + buf * BN * STRIDE;
-    const uint16_t* vb = Vs + buf * BN * STRIDE;
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    // S = Q K^T and dP = dO V^T for this warp's 16 rows x 64 keys.
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t aq[4], ado[4];
-      load_a<STRIDE>(aq, Qs, warp * 16, kk * 16, g, t4);
-      load_a<STRIDE>(ado, dOs, warp * 16, kk * 16, g, t4);
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int off = (nt * 8 + g) * STRIDE + kk * 16 + t4 * 2;
-        mma16816(s[nt], aq, ld32(kb + off), ld32(kb + off + 8));
-        mma16816(dp[nt], ado, ld32(vb + off), ld32(vb + off + 8));
-      }
-    }
-
-    // dS = P * (dP - delta), with P recomputed from the LSE.
-    const int col0 = block_of(t) * BN;
-    const bool full = mask.q_tile_full(rg, qb, col0);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = exp2f(s[nt][e] * scale_log2 - lse2[r]);
-        if (!full) {
-          const int jl = col0 + nt * 8 + t4 * 2 + (e & 1);
-          p = mask.visible(rows[r], jl) ? p : 0.f;
-        }
-        s[nt][e] = p * (dp[nt][e] - dl[r]);
-      }
-    }
-
-    // dQ += dS K (K read down its rows: the keys are the depth).
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * j], s[2 * j + 1]);
-      mma_rows_b<STRIDE, DT>(acc, a, kb, j * 16, g, t4);
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qb * BM + r_loc + r * 8;
-    if (row >= N_q) continue;
-    uint16_t* orow = dq + ((size_t)bh * N_q + row) * D;
-#pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      *reinterpret_cast<uint32_t*>(orow + dt * 8 + t4 * 2) =
-          pack_bf16(acc[dt][2 * r] * scale, acc[dt][2 * r + 1] * scale);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Launchers: each returns cudaGetLastError() of its launch (0 on success).
-// q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; s_aux
-// [H_q] fp32 or null; lse, delta [B*H_q, N_q] fp32; outputs like their
-// inputs.
+// Launcher: returns cudaGetLastError() of its launch (0 on success).
+// q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; s_aux [H_q]
+// fp32 or null; o like q, lse [B*H_q, N_q] fp32.
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
@@ -577,40 +410,6 @@ int launch_fwd(const void* q, const void* k, const void* v,
   if (D == 128)
     return launch_fwd_d<128>(q, k, v, s_aux, o, lse, B, H_q, H_kv, N_q, N_kv,
                              scale, mask, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int D, class Mask>
-int launch_dq_d(const void* q, const void* k, const void* v,
-                const void* dout, const void* lse, const void* delta,
-                void* dq, int B, int H_q, int H_kv, int N_q, int N_kv,
-                float scale, Mask mask, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BM + 4 * BN) * (D + 8) * sizeof(uint16_t);
-  static const cudaError_t err = set_smem(dq_kernel<D, Mask>, smem);  // once
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N_q + BM - 1) / BM, B * H_q);
-  dq_kernel<D, Mask><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dq), H_q, H_kv, N_q, N_kv, scale * LOG2E, scale,
-      mask);
-  return (int)cudaGetLastError();
-}
-
-template <class Mask>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int B, int H_q,
-              int H_kv, int N_q, int N_kv, int D, float scale, Mask mask,
-              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N_q <= 0 || B * H_q <= 0) return 0;
-  if (D == 64)
-    return launch_dq_d<64>(q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N_q,
-                           N_kv, scale, mask, st);
-  if (D == 128)
-    return launch_dq_d<128>(q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N_q,
-                            N_kv, scale, mask, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -2,39 +2,44 @@
 //
 // Replace the Pallas TPU kernels `_dq_kernel` and `_dkdv_kernel` of
 // sink_attention_tpu/ops/flash.py (launched by `_bwd_impl`): the dQ kernel
-// of attention.cuh and the dK/dV kernel of hopper_bwd.cuh, both over
-// SinkWindowMask (the forward's mask, see flash_fwd.cu). delta and the
-// ds_aux term are plain torch on the host.
+// of hopper_dq.cuh and the dK/dV kernel of hopper_bwd.cuh, both wgmma fed
+// by TMA, warp-specialised and persistent, over SinkWindowMask (the
+// forward's mask, see flash_fwd.cu). delta and the ds_aux term are plain
+// torch on the host.
 //
 // What bounds them on the H100: per valid (q, k) pair and head, the dQ
 // kernel does 3 products of depth D (S, dP, dQ) and the dK/dV kernel 4
 // (S, dP, dV, dK), against 2 in the forward. At the training shapes
 // (D = 64, GQA 64/8, N = 4096) the full layers are bound by tensor-core
 // throughput and the W = 128 layers by memory (each kernel reads q, k, v
-// and dO once). The dQ kernel is the simple mma.sync one and reaches
-// neither bound; the dK/dV kernel is wgmma fed by TMA, warp-specialised
-// and persistent (hopper_bwd.cuh says what it does about its bound). dQ
-// walks the forward's two KV-block ranges per 64-row q block; dK/dV walks
-// one range of 64-row q blocks per 128-key block, decided per block on the
-// host, so negative and chunked offsets are right.
+// and dO once); each header says what its design does about it. dQ walks
+// the forward's two KV-block ranges (fwd_kv_ranges at 128 rows x 128 keys
+// at D = 64, 64 keys at D = 128) per 128-row q block; dK/dV walks one
+// range of 64-row q blocks per 128-key block; both decided per block on
+// the host, so negative and chunked offsets are right, and both take
+// their work items longest first from a host order table.
 
 #include "hopper_bwd.cuh"
+#include "hopper_dq.cuh"
 
 using sinkattn::SinkWindowMask;
 
 // q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; lse, delta
-// [B*H_q, N_q] fp32; ranges [ceil(N_q/64), 4] int32 (the forward's table);
-// dq like q.
+// [B*H_q, N_q] fp32; ranges [ceil(N_q/128), 4] int32 (fwd_kv_ranges at
+// 128 rows x sink_dq_block_n(D) keys), order [ceil(N_q/128)] int32 (the q
+// blocks, longest first); dq like q.
 extern "C" int sink_dq_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
-                            const void* delta, const void* ranges, void* dq,
-                            int B, int H_q, int H_kv, int N_q, int N_kv, int D,
-                            int num_sink, int window, int q_offset,
-                            int kv_offset, float scale, void* stream) {
+                            const void* delta, const void* ranges,
+                            const void* order, void* dq, int B, int H_q,
+                            int H_kv, int N_q, int N_kv, int D, int num_sink,
+                            int window, int q_offset, int kv_offset,
+                            float scale, void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::launch_dq(q, k, v, dout, lse, delta, dq, B, H_q, H_kv,
-                             N_q, N_kv, D, scale, mask, stream);
+  return sinkattn::hopper::launch_dq(q, k, v, dout, lse, delta, order, dq, B,
+                                     H_q, H_kv, N_q, N_kv, D, scale, mask,
+                                     stream);
 }
 
 // As sink_dq_bf16; qranges [ceil(N_kv/128), 2] int32 (the range of 64-row
@@ -55,7 +60,7 @@ extern "C" int sink_dkdv_bf16(const void* q, const void* k, const void* v,
 }
 
 // Tile sizes the host-side range tables must use: dQ's, and dK/dV's.
-extern "C" int sink_bwd_block_m() { return sinkattn::BM; }
-extern "C" int sink_bwd_block_n() { return sinkattn::BN; }
+extern "C" int sink_dq_block_m() { return sinkattn::hopper::DQ_BM; }
+extern "C" int sink_dq_block_n(int D) { return sinkattn::hopper::dq_bn(D); }
 extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
 extern "C" int sink_dkdv_block_n() { return sinkattn::hopper::DKDV_BN; }

@@ -1,13 +1,14 @@
 // Sink attention forward for Hopper: a warp-specialised kernel on wgmma,
 // TMA and mbarriers, over attention.cuh's SinkWindowMask; and the building
-// blocks it shares with the dK/dV kernel of hopper_bwd.cuh (mbarriers,
-// named barriers, TMA loads and tensor maps, wgmma descriptors and
-// wrappers).
+// blocks it shares with the dQ kernel of hopper_dq.cuh and the dK/dV kernel
+// of hopper_bwd.cuh (mbarriers, named barriers, TMA loads and tensor maps,
+// wgmma descriptors and wrappers, the per-row mask of a partial tile, the
+// ring of stages and the snake walk of a persistent grid).
 //
 // It computes what attention.cuh's fwd_kernel computes (O, the natural-log
 // LSE counting s_aux, s_aux as a value-less logit) for the unpacked sink +
-// window mask; the dQ, packed forward, packed dQ and ablation kernels stay
-// on attention.cuh's mma.sync skeleton.
+// window mask; the packed forward and the ablation kernels stay on
+// attention.cuh's mma.sync skeleton.
 //
 // Design:
 //  * a persistent grid, one CTA of three warpgroups per SM, walking the
@@ -216,6 +217,25 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
+// D (+)= A B over N / 2 accumulators a thread (N = 64 or 128 columns),
+// both operands from shared memory, K-major.
+template <int N>
+struct SsMma;
+template <>
+struct SsMma<32> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    wgmma_ss_n64(d, da, db, scale_d);
+  }
+};
+template <>
+struct SsMma<64> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    wgmma_ss_n128(d, da, db, scale_d);
+  }
+};
+
 template <int N>
 struct RsMma;
 template <>
@@ -316,42 +336,28 @@ __device__ __forceinline__ bool tile_full(const SinkWindowMask& mk, int r0,
          (c_hi < mk.num_sink || c_lo >= r_hi - mk.window + 1);
 }
 
-// The visible keys of one query row at global position ig, in local key
-// slots (computed once per row and work item): the window run [win_lo,
-// win_lo + win_n) and the sink run [sink_lo, sink_lo + sink_n), both cut
-// to jg <= ig and the N_kv end. Key jl is visible iff it is in either:
-// SinkWindowMask::visible (0 <= jg <= ig, jl < N_kv, and jg < num_sink
-// or jg >= ig - window + 1, with jg = kv_offset + jl).
-struct RowSpan {
-  int win_lo, win_n, sink_lo, sink_n;
-  __device__ __forceinline__ RowSpan(const SinkWindowMask& mk, int ig) {
-    const int end = min(ig - mk.kv_offset, mk.N_kv - 1) + 1;  // exclusive
-    win_lo = max(ig - mk.window + 1, 0) - mk.kv_offset;
-    win_n = max(end - win_lo, 0);
-    sink_lo = -mk.kv_offset;
-    sink_n = max(min(mk.num_sink - mk.kv_offset, end) - sink_lo, 0);
-  }
-};
-
-// The per-cell mask of a partial tile: the thread's keys jl0 + o (o = 8 jj
-// + e, e in {0, 1}) of its two rows; a masked score becomes -inf by a
-// select. Each run test is one unsigned compare; SINKS adds the sink run.
-template <bool SINKS>
-__device__ __forceinline__ void mask_tile(float (&sacc)[FWD_BN / 2],
-                                          const RowSpan (&rows)[2], int jl0) {
+// The per-cell mask of a partial tile of N / 4 8-key chunks: the thread's
+// keys jl0 + o (o = 8 jj + e, e in {0, 1}) of its two rows (attention.cuh's
+// RowSpan); a masked cell becomes `fill` by a select (-inf on a score, 0 on
+// a probability). Each run test is one unsigned compare; SINKS adds the
+// sink run.
+template <bool SINKS, int N>
+__device__ __forceinline__ void mask_tile(float (&sacc)[N],
+                                          const RowSpan (&rows)[2], int jl0,
+                                          float fill) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int wl = rows[r].win_lo - jl0, sl = rows[r].sink_lo - jl0;
     const unsigned wn = rows[r].win_n, sn = rows[r].sink_n;
 #pragma unroll
-    for (int jj = 0; jj < FWD_BN / 8; ++jj) {
+    for (int jj = 0; jj < N / 4; ++jj) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int o = jj * 8 + e;
         bool vis = (unsigned)(o - wl) < wn;
         if (SINKS) vis = vis || (unsigned)(o - sl) < sn;
         float& x = sacc[jj * 4 + 2 * r + e];
-        x = vis ? x : -INFINITY;
+        x = vis ? x : fill;
       }
     }
   }
@@ -362,6 +368,28 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// A position in a ring of STAGES stages: the stage and the parity of its
+// barriers' phase, stepped tile by tile across items (no division).
+template <int STAGES>
+struct Ring {
+  int s = 0, ph = 0;
+  __device__ __forceinline__ void next() {
+    if (++s == STAGES) {
+      s = 0;
+      ph ^= 1;
+    }
+  }
+};
+
+// The i-th item of a CTA among G of a persistent grid, in a snake over the
+// items sorted longest first: round i takes items i * G + cta, or
+// i * G + G - 1 - cta on odd rounds, so the long and the short items of two
+// rounds pair up. Increases with i, so a CTA stops at its first past the
+// last item.
+__device__ __forceinline__ int snake_item(int i, int cta, int G) {
+  return i * G + ((i & 1) ? G - 1 - cta : cta);
 }
 
 // A work item: one 128-row q block of one (batch, query head), and the KV
@@ -496,9 +524,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       const int qs = it & 1;
       mbar_wait(q_full + qs, (it >> 1) & 1);
       const FwdItem item(info + qs * 8);
-      const RowSpan rows[2] = {
-          RowSpan(mask, mask.q_offset + item.qb * FWD_BM + r_loc),
-          RowSpan(mask, mask.q_offset + item.qb * FWD_BM + r_loc + 8)};
+      const RowSpan rows[2] = {mask.row_span(0, item.qb * FWD_BM + r_loc),
+                               mask.row_span(0, item.qb * FWD_BM + r_loc + 8)};
       float m[2], l[2];
       m[0] = m[1] = __int_as_float(info[qs * 8 + 6]);
       l[0] = l[1] = use_aux ? 1.f : 0.f;
@@ -533,9 +560,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         const int col0 = item.block(j) * FWD_BN;
         if (!tile_full(mask, item.qb * FWD_BM + c * 64, col0)) {
           if (mask.kv_offset + col0 < mask.num_sink)  // a sink tile
-            mask_tile<true>(sacc, rows, col0 + t4 * 2);
+            mask_tile<true>(sacc, rows, col0 + t4 * 2, -INFINITY);
           else
-            mask_tile<false>(sacc, rows, col0 + t4 * 2);
+            mask_tile<false>(sacc, rows, col0 + t4 * 2, -INFINITY);
         }
 
         // Online softmax in the exp2 domain, rows r_loc (e < 2) and

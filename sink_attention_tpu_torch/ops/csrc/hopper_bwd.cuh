@@ -144,25 +144,6 @@ struct DkdvItem {
         n_qb(info[5]) {}
 };
 
-// A position in the ring of STAGES stages: the stage and the parity of its
-// barriers' phase, stepped tile by tile across items (no division).
-template <int STAGES>
-struct Ring {
-  int s = 0, ph = 0;
-  __device__ __forceinline__ void next() {
-    if (++s == STAGES) {
-      s = 0;
-      ph ^= 1;
-    }
-  }
-};
-
-// The i-th item of a CTA among G in a snake over the sorted items (see the
-// design note); increases with i, so a CTA stops at its first past n_work.
-__device__ __forceinline__ int snake_item(int i, int cta, int G) {
-  return i * G + ((i & 1) ? G - 1 - cta : cta);
-}
-
 template <int D, int STAGES, class Mask>
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,

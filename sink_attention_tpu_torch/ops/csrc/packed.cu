@@ -2,8 +2,9 @@
 //
 // Replace the Pallas TPU kernels `_pfwd_kernel`, `_pdq_kernel` and
 // `_pdkdv_kernel` of sink_attention_tpu/ops/packed.py (launched by
-// `_pfwd_impl` and `_pbwd_impl`): the forward and dQ kernels of
-// attention.cuh and the dK/dV kernel of hopper_bwd.cuh over PackedMask. One pack row b holds several segments back to back;
+// `_pfwd_impl` and `_pbwd_impl`): the forward kernel of attention.cuh, the
+// dQ kernel of hopper_dq.cuh and the dK/dV kernel of hopper_bwd.cuh over
+// PackedMask. One pack row b holds several segments back to back;
 // positions[b, i] counts up from 0 in each segment, so row i's segment
 // starts at s_i = i - positions[b, i] and
 //     valid(i, j) = j <= i  AND  j >= s_i
@@ -18,22 +19,27 @@
 // not N * (W + num_sink). At the training pack (N = 4096, segments of
 // 1316, 1002, 816, 461 and 501 tokens, GQA 64/8, D = 64) a full layer
 // (W = N) costs about sum(len^2) / 2 pairs and is bound by tensor-core
-// throughput: forward / dQ / dK/dV bounds 0.032 / 0.048 / 0.064 ms; a
-// W = 128 layer is bound by memory (each kernel reads q, k, v and dO once):
-// 0.023 / 0.033 / 0.026 ms (chip_smoke.py on an H100 80GB HBM3 at 700 W;
-// the kernels' times beside them are in PERF.md). What the design does
-// about it: the host tables (ops/packed.py) clamp every range to the
-// segments the block's rows or columns belong to, so no CTA walks a tile
-// wholly outside the pack's mask; the forward and dQ run on mma.sync and
-// reach neither bound; dK/dV is hopper_bwd.cuh's wgmma/TMA kernel, each key
-// seeing the one interval of rows [j, reach(j)) below.
+// throughput; a W = 128 layer is bound by memory (each kernel reads q, k,
+// v and dO once); PERF.md has the bounds beside the kernels' times
+// (chip_smoke.py on an H100). What the design does about it: the host
+// tables (ops/packed.py) clamp every range to the segments the block's
+// rows or columns belong to, so no CTA walks a tile wholly outside the
+// pack's mask; the forward runs on mma.sync and reaches neither bound; dQ
+// and dK/dV are the wgmma/TMA kernels of the unpacked backward, each row
+// seeing two runs of keys (row_span below) and each key one interval of
+// rows [j, reach(j)).
 //
 // Tables, built per batch by ops/packed.py:
 //   seg   [B, N]          s_i of every row;
-//   q     [B, n_q_blocks, 6]  per 64-row q block: (sink_b0, sink_b1,
-//         win_b0, win_b1, s of the block's first row, s of its last row):
-//         the sink blocks of the first row's segment, then the window blocks
-//         from max(first row's s, first row - window + 1), disjoint;
+//   q     [B, n_q_blocks, 6]  per 64-row q block (forward): (sink_b0,
+//         sink_b1, win_b0, win_b1, s of the block's first row, s of its
+//         last row): the sink blocks of the first row's segment, then the
+//         window blocks from max(first row's s, first row - window + 1),
+//         disjoint, in 64-key blocks;
+//   dq    [B, n_dq_blocks, 6]  the same per 128-row q block in KV blocks
+//         of sink_packed_dq_block_n(D) keys (dQ);
+//   dq_order [B * n_dq_blocks]: the (b, q block) units b * n_dq_blocks +
+//         qb of the dq table, most KV blocks first;
 //   kv    [B, n_kv_blocks, 2] per 128-slot KV block (dK/dV): the range of
 //         64-row q blocks that reads it, up to cdiv(max_j reach(j), 64) with
 //         reach(j) the end of j's segment for a sink column, else min(that
@@ -41,24 +47,28 @@
 //   order [B * n_kv_blocks]: the (b, KV block) units b * n_kv_blocks + kb,
 //         longest q-block range first;
 //   reach [B, N]: reach(j), so key j sees exactly the rows [j, reach(j)).
-// A forward/dQ tile is mask-free when its rows share one segment (first-row
+// A forward tile is mask-free when its rows share one segment (first-row
 // s == last-row s) and every cell is inside it.
 
 #include "hopper_bwd.cuh"
+#include "hopper_dq.cuh"
 
 namespace {
 
 using sinkattn::BM;
 using sinkattn::BN;
+using sinkattn::RowSpan;
 using sinkattn::hopper::DKDV_BM;
 using sinkattn::hopper::DKDV_BN;
+using sinkattn::hopper::DQ_BM;
+using sinkattn::hopper::dq_bn;
 
 struct PackedMask {
-  static constexpr bool kBatchTables = true;  // a dK/dV table per batch row
+  static constexpr bool kBatchTables = true;  // dQ, dK/dV tables per row b
   struct Row {
     int i, s;  // the row and its segment start
   };
-  const int* table;  // the q or the kv table above
+  const int* table;  // the q, the dq or the kv table above
   const int* seg;    // [B, N] (forward, dQ)
   const int* reach;  // [B, N] (dK/dV)
   int N, n_blocks, num_sink, window;
@@ -74,6 +84,18 @@ struct PackedMask {
     return qrow < N ? seg[(size_t)b * N + qrow] : qrow;
   }
   __device__ Row row(int b, int qrow) const { return {qrow, seg_of(b, qrow)}; }
+  // Row i's (< N) runs of visible keys: the sink run [max(s_i, 0),
+  // min(s_i + num_sink, i + 1)) and the window run [max(s_i, i - window + 1,
+  // 0), i + 1): the visible set of visible() below.
+  __device__ RowSpan row_span(int b, int i) const {
+    const int s = seg[(size_t)b * N + i];
+    RowSpan r;
+    r.sink_lo = max(s, 0);
+    r.sink_n = max(min(s + num_sink, i + 1) - r.sink_lo, 0);
+    r.win_lo = max(max(s, i - window + 1), 0);
+    r.win_n = max(i + 1 - r.win_lo, 0);
+    return r;
+  }
   // Key j's visible rows [j, reach(j)); none past N.
   __device__ void key_span(int b, int j, int& lo, int& n) const {
     lo = j;
@@ -83,7 +105,7 @@ struct PackedMask {
     return j < N && j <= r.i && j >= r.s &&
            (j < r.s + num_sink || j >= r.i - window + 1);
   }
-  // Every cell of the 64 x 64 forward/dQ tile q block qb x keys [col0,
+  // Every cell of the 64 x 64 forward tile q block qb x keys [col0,
   // col0 + BN) is visible, given the segment starts of the block's first
   // and last rows.
   __device__ bool tile_full(int s_first, int s_last, int qb, int col0) const {
@@ -120,17 +142,19 @@ extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
       make_mask(qtable, seg, nullptr, N, BM, num_sink, window), stream);
 }
 
-// As sink_pfwd_bf16, plus dout like q and lse, delta [B*H_q, N] fp32; dq
-// like q.
+// As sink_pfwd_bf16, plus dout like q and lse, delta [B*H_q, N] fp32;
+// dqtable [B, ceil(N/128), 6] (KV blocks of sink_packed_dq_block_n(D)
+// keys) and dqorder [B * ceil(N/128)] int32 in place of qtable; dq like q.
 extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
-                             const void* delta, const void* qtable,
-                             const void* seg, void* dq, int B, int H_q,
-                             int H_kv, int N, int D, int num_sink, int window,
-                             float scale, void* stream) {
-  return sinkattn::launch_dq(
-      q, k, v, dout, lse, delta, dq, B, H_q, H_kv, N, N, D, scale,
-      make_mask(qtable, seg, nullptr, N, BM, num_sink, window), stream);
+                             const void* delta, const void* dqtable,
+                             const void* dqorder, const void* seg, void* dq,
+                             int B, int H_q, int H_kv, int N, int D,
+                             int num_sink, int window, float scale,
+                             void* stream) {
+  return sinkattn::hopper::launch_dq(
+      q, k, v, dout, lse, delta, dqorder, dq, B, H_q, H_kv, N, N, D, scale,
+      make_mask(dqtable, seg, nullptr, N, DQ_BM, num_sink, window), stream);
 }
 
 // As sink_pdq_bf16 with kvtable [B, ceil(N/128), 2], order
@@ -149,9 +173,11 @@ extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
       stream);
 }
 
-// Tile sizes the host-side tables must use: the forward's and dQ's, and
+// Tile sizes the host-side tables must use: the forward's, dQ's and
 // dK/dV's.
 extern "C" int sink_packed_block_m() { return BM; }
 extern "C" int sink_packed_block_n() { return BN; }
+extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
+extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(D); }
 extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
 extern "C" int sink_packed_dkdv_block_n() { return DKDV_BN; }

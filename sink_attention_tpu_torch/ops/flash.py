@@ -20,7 +20,10 @@ The forward kernel (wgmma and TMA, ``csrc/hopper.cuh``) visits, for each
 128-row query block, only the 128-key KV blocks of two ranges: the blocks
 holding the sink columns, then the window blocks after them
 (:func:`fwd_kv_ranges`, the Python mirror of the JAX package's
-``_build_fwd_schedule``); the dQ kernel walks the same table at 64 x 64.
+``_build_fwd_schedule``). The dQ kernel (wgmma and TMA,
+``csrc/hopper_dq.cuh``) walks the same two ranges at ``bm=DQ_BM,
+bn=DQ_BN[head_dim]`` (128 rows x 128 keys at D = 64, x 64 keys at D =
+128), the q blocks with the most KV blocks first (:func:`dq_block_order`).
 The dK/dV kernel (wgmma and TMA, ``csrc/hopper_bwd.cuh``) visits, for each
 128-slot KV block, the 64-row query blocks of one range
 (:func:`dkdv_q_ranges` at ``bm=DKDV_BM, bn=DKDV_BN``, the mirror of
@@ -45,12 +48,15 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "sink_flash_attention_chunk", "merge_partials",
            "attention_backward", "flash_fwd_kernel", "flash_fwd_plain",
            "flash_dq_kernel", "flash_dkdv_kernel", "flash_bwd_plain",
-           "fwd_kv_ranges", "dkdv_q_ranges", "dkdv_block_order"]
+           "fwd_kv_ranges", "dq_block_order", "dkdv_q_ranges",
+           "dkdv_block_order"]
 
-BM = 64  # dQ / packed query rows per tile (csrc/flash_bwd.cu, packed.cu)
-BN = 64  # dQ / packed keys per KV tile (csrc/flash_bwd.cu, packed.cu)
+BM = 64  # packed forward / ablation query rows per tile (csrc/packed.cu)
+BN = 64  # packed forward / ablation keys per KV tile (csrc/packed.cu)
 FWD_BM = 128  # the forward kernel's query rows per CTA (csrc/flash_fwd.cu)
 FWD_BN = 128  # the forward kernel's keys per KV tile (csrc/flash_fwd.cu)
+DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
+DQ_BN = {64: 128, 128: 64}  # its keys per KV tile by head dim (dq_bn there)
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
 DKDV_BN = 128  # the dK/dV kernel's keys per work item (csrc/hopper_bwd.cuh)
 # Past the last query position a window is unbounded; clamp it there so the
@@ -104,12 +110,26 @@ def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
     The sink range covers the local blocks of global columns [0, num_sink);
     the window range starts after it, so no block is visited twice. Both
     are cut to the causal end of the query block and to [0, n_kv blocks).
-    The dQ and ablation kernels take the default 64 x 64 tiles, the forward
-    kernel ``bm=FWD_BM, bn=FWD_BN``.
+    The ablation kernels take the default 64 x 64 tiles, the forward kernel
+    ``bm=FWD_BM, bn=FWD_BN``, the dQ kernel ``bm=DQ_BM,
+    bn=DQ_BN[head_dim]``.
     """
     return _fwd_kv_ranges_cached(int(n_q), int(n_kv), int(num_sink),
                                  int(window), int(q_offset), int(kv_offset),
                                  int(bm), int(bn))
+
+
+def dq_block_order(n_q: int, n_kv: int, num_sink: int, window: int,
+                   q_offset: int, kv_offset: int, bm: int,
+                   bn: int) -> np.ndarray:
+    """int32 [ceil(n_q / bm)]: the query blocks of :func:`fwd_kv_ranges`,
+    most KV blocks first (ties in block order): the order in which the dQ
+    kernel's persistent CTAs take them, each block across every (batch,
+    head) before the next."""
+    table = fwd_kv_ranges(n_q, n_kv, num_sink, window, q_offset, kv_offset,
+                          bm, bn)
+    lengths = table[:, 1] - table[:, 0] + table[:, 3] - table[:, 2]
+    return np.argsort(-lengths, kind="stable").astype(np.int32)
 
 
 @functools.lru_cache(maxsize=256)
@@ -270,12 +290,13 @@ def _kernel_fn():
 @functools.lru_cache(maxsize=None)
 def _bwd_fns():
     lib = _build.load("flash_bwd")
-    if ((lib.sink_bwd_block_m(), lib.sink_bwd_block_n()) != (BM, BN) or
+    if (lib.sink_dq_block_m() != DQ_BM or
+            any(lib.sink_dq_block_n(d) != bn for d, bn in DQ_BN.items()) or
             (lib.sink_dkdv_block_m(), lib.sink_dkdv_block_n()) != (
                 DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    return (load_fn("flash_bwd", "sink_dq_bf16", 8),
+    return (load_fn("flash_bwd", "sink_dq_bf16", 9),
             load_fn("flash_bwd", "sink_dkdv_bf16", 10))
 
 
@@ -352,16 +373,21 @@ def _bwd_operands(q, k, v, do, lse, delta):
 def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
                     window_size: int = 512, q_offset: int = 0,
                     kv_offset: int = 0):
-    """Launch ``sink_dq_bf16`` of ``csrc/flash_bwd.cu``: dq [B,H_q,N_q,D]
-    bf16. Inputs as :func:`flash_bwd_plain`'s, on the card, bf16 q/k/v/dO
-    with D in (64, 128). ``flash_dq_kernel.launches`` counts the launches.
+    """Launch ``sink_dq_bf16`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper_dq.cuh``): dq [B,H_q,N_q,D] bf16, bitwise
+    repeatable. Inputs as :func:`flash_bwd_plain`'s, on the card, bf16
+    q/k/v/dO with D in (64, 128). ``flash_dq_kernel.launches`` counts the
+    launches. A warmed call (its tables already on the card) synchronises
+    nothing.
     """
     ops = _bwd_operands(q, k, v, do, lse, delta)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
-    ranges = _table_on(fwd_kv_ranges, q.device, dims[3], dims[4], *geom)
+    key = (dims[3], dims[4], *geom, DQ_BM, DQ_BN[dims[5]])
+    ranges = _table_on(fwd_kv_ranges, q.device, *key)
+    order = _table_on(dq_block_order, q.device, *key)
     dq = torch.empty_like(ops[0])
-    ptrs = [_build.ptr(t) for t in (*ops, ranges, dq)]
+    ptrs = [_build.ptr(t) for t in (*ops, ranges, order, dq)]
     code = _bwd_fns()[0](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
                          _build.stream_ptr(q.device))
     _build.check(code, "sink_dq_bf16")

@@ -9,9 +9,9 @@ gets its own sinks and causal window (``ops.reference.packed_rows_mask``).
 that count up by 1 and reset to 0: the tables below rely on it, as the JAX
 kernels do, and nothing checks it.
 
-Three kernels in ``csrc/packed.cu`` over the packed mask (the forward and
-dQ of ``csrc/attention.cuh``, the wgmma/TMA dK/dV of
-``csrc/hopper_bwd.cuh``), each beside its plain PyTorch version:
+Three kernels in ``csrc/packed.cu`` over the packed mask (the forward of
+``csrc/attention.cuh``, the wgmma/TMA dQ of ``csrc/hopper_dq.cuh`` and
+dK/dV of ``csrc/hopper_bwd.cuh``), each beside its plain PyTorch version:
 
 * ``sink_pfwd_bf16`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
   plain version :func:`packed_fwd_plain`;
@@ -46,9 +46,9 @@ from typing import List, NamedTuple
 import torch
 
 from . import _build
-from .flash import (BM, BN, DKDV_BM, DKDV_BN, _WINDOW_CLAMP, _bwd_operands,
-                    attention_backward, bwd_plain_chunks, fwd_plain_chunks,
-                    load_fn)
+from .flash import (BM, BN, DKDV_BM, DKDV_BN, DQ_BM, DQ_BN, _WINDOW_CLAMP,
+                    _bwd_operands, attention_backward, bwd_plain_chunks,
+                    fwd_plain_chunks, load_fn)
 from .reference import packed_rows_mask
 
 __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
@@ -57,12 +57,19 @@ __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
 
 
 class PackedTables(NamedTuple):
-    """int32 tables of one packed batch for one (num_sink, window):
+    """int32 tables of one packed batch for one (num_sink, window,
+    head_dim):
 
     * ``seg`` [B, N]: the segment start ``s_i`` of every row;
-    * ``q`` [B, ceil(N/64), 6]: per 64-row q block (forward and dQ), the
-      KV blocks it visits as two half-open ranges (sink_b0, sink_b1) and
-      (win_b0, win_b1), then the segment starts of its first and last row;
+    * ``q`` [B, ceil(N/64), 6]: per 64-row q block (the forward, tiles
+      ``BM`` x ``BN``), the 64-key KV blocks it visits as two half-open
+      ranges (sink_b0, sink_b1) and (win_b0, win_b1), then the segment
+      starts of its first and last row;
+    * ``dq`` [B, ceil(N/128), 6]: the same per 128-row q block (dQ, tiles
+      ``DQ_BM`` x ``DQ_BN[head_dim]``);
+    * ``dq_order`` [B * ceil(N/128)]: the (batch row, q block) units
+      ``b * ceil(N/128) + block`` of ``dq``, most KV blocks first (ties in
+      unit order): the order the dQ kernel's persistent CTAs take them in;
     * ``kv`` [B, ceil(N/128), 2]: per 128-slot KV block (dK/dV, tiles
       ``DKDV_BM`` x ``DKDV_BN``), the half-open range of 64-row q blocks
       that read it;
@@ -74,6 +81,8 @@ class PackedTables(NamedTuple):
     """
     seg: torch.Tensor
     q: torch.Tensor
+    dq: torch.Tensor
+    dq_order: torch.Tensor
     kv: torch.Tensor
     kv_order: torch.Tensor
     reach: torch.Tensor
@@ -83,16 +92,47 @@ def _cdiv_t(x: torch.Tensor, d: int) -> torch.Tensor:
     return torch.div(x + (d - 1), d, rounding_mode="floor")
 
 
-def packed_tables(positions: torch.Tensor, num_sink: int,
-                  window: int) -> PackedTables:
-    """The kernels' tables for ``positions`` [B, N], on its device.
+def _q_table(seg: torch.Tensor, bm: int, bn: int, num_sink: int,
+             window: int) -> torch.Tensor:
+    """[B, ceil(N/bm), 6]: per q block of ``bm`` rows, the ``bn``-key
+    blocks of its sink and window ranges and the segment starts of its
+    first and last rows (see :func:`packed_tables`)."""
+    N = seg.shape[1]
+    r0 = torch.arange(-(-N // bm), device=seg.device) * bm
+    r1 = (r0 + bm - 1).clamp(max=N - 1)
+    s_first, s_last = seg[:, r0], seg[:, r1]
+    lo = s_first.clamp(min=0)
+    hi = torch.minimum(s_first + num_sink, r1 + 1)
+    has_sink = hi > lo
+    zero = torch.zeros_like(lo)
+    sink_b0 = torch.where(has_sink, lo // bn, zero)
+    sink_b1 = torch.where(has_sink, _cdiv_t(hi, bn), zero)
+    win_lo = torch.maximum(s_first, r0 - window + 1).clamp(min=0)
+    win_b0 = torch.maximum(win_lo // bn, sink_b1)
+    win_b1 = torch.maximum(_cdiv_t(r1 + 1, bn).expand_as(win_b0), win_b0)
+    return torch.stack([sink_b0, sink_b1, win_b0, win_b1, s_first, s_last],
+                       dim=-1)
 
-    Forward and dQ, per q block of rows [r0, r1]: the sink range covers the
-    first row's segment's sink columns [max(s_r0, 0), s_r0 + num_sink),
-    cut at r1; the window range covers [max(s_r0, r0 - window + 1, 0), r1]
-    and starts after the sink range, so no block is visited twice. A later
-    segment starting inside the block starts after r0, so its sinks lie in
-    the window range.
+
+def _longest_first(lengths: torch.Tensor) -> torch.Tensor:
+    """The flat indices of ``lengths`` [B, n], longest first (stable)."""
+    return torch.argsort(-lengths.flatten(), stable=True)
+
+
+def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
+                  head_dim: int) -> PackedTables:
+    """The kernels' tables for ``positions`` [B, N] and heads of
+    ``head_dim``, on the positions' device.
+
+    Forward (64-row q blocks, 64-key KV blocks) and dQ (128-row q blocks,
+    KV blocks of ``DQ_BN[head_dim]`` keys), per q block of rows [r0, r1]:
+    the sink range covers the first row's segment's sink columns
+    [max(s_r0, 0), s_r0 + num_sink), cut at r1; the window range covers
+    [max(s_r0, r0 - window + 1, 0), r1] and starts after the sink range, so
+    no block is visited twice. A later segment starting inside the block
+    starts after r0, so its sinks lie in the window range. dQ takes its
+    blocks most KV blocks first: the long items of a pack are not its last
+    blocks.
 
     dK/dV, per 128-slot KV block of columns [c0, c1]: 64-row q blocks from
     c0's on (causal) up to cdiv(max_j reach(j), 64), where reach(j) is the
@@ -108,22 +148,11 @@ def packed_tables(positions: torch.Tensor, num_sink: int,
     dev = pos.device
     idx = torch.arange(N, device=dev)
     seg = idx - pos
-    n_q_blocks, n_kv_blocks = -(-N // BM), -(-N // DKDV_BN)
-
-    r0 = torch.arange(n_q_blocks, device=dev) * BM
-    r1 = (r0 + BM - 1).clamp(max=N - 1)
-    s_first, s_last = seg[:, r0], seg[:, r1]
-    lo = s_first.clamp(min=0)
-    hi = torch.minimum(s_first + num_sink, r1 + 1)
-    has_sink = hi > lo
-    zero = torch.zeros_like(lo)
-    sink_b0 = torch.where(has_sink, lo // BN, zero)
-    sink_b1 = torch.where(has_sink, _cdiv_t(hi, BN), zero)
-    win_lo = torch.maximum(s_first, r0 - window + 1).clamp(min=0)
-    win_b0 = torch.maximum(win_lo // BN, sink_b1)
-    win_b1 = torch.maximum(_cdiv_t(r1 + 1, BN).expand_as(win_b0), win_b0)
-    qtab = torch.stack([sink_b0, sink_b1, win_b0, win_b1, s_first, s_last],
-                       dim=-1)
+    n_q_blocks, n_kv_blocks = -(-N // DKDV_BM), -(-N // DKDV_BN)
+    qtab = _q_table(seg, BM, BN, num_sink, window)
+    dqtab = _q_table(seg, DQ_BM, DQ_BN[head_dim], num_sink, window)
+    dq_order = _longest_first(dqtab[..., 1] - dqtab[..., 0] +
+                              dqtab[..., 3] - dqtab[..., 2])
 
     # seg_end(j): the first reset after j, else N
     resets = torch.where(pos == 0, idx, N)
@@ -140,10 +169,9 @@ def packed_tables(positions: torch.Tensor, num_sink: int,
     qb1 = torch.maximum(_cdiv_t(block_reach, DKDV_BM).clamp(max=n_q_blocks),
                         qb0)
     kvtab = torch.stack([qb0, qb1], dim=-1)
-    order = torch.argsort((qb0 - qb1).flatten(), stable=True)
-    return PackedTables(seg.int().contiguous(), qtab.int().contiguous(),
-                        kvtab.int().contiguous(), order.int().contiguous(),
-                        reach.int().contiguous())
+    order = _longest_first(qb1 - qb0)
+    return PackedTables(*(t.int().contiguous() for t in (
+        seg, qtab, dqtab, dq_order, kvtab, order, reach)))
 
 
 # (weakref to the positions tensor, its version, device, num_sink, window,
@@ -152,14 +180,15 @@ _TABLES: List[tuple] = []
 _TABLES_KEPT = 16
 
 
-def _tables_for(positions, device, num_sink, window) -> PackedTables:
+def _tables_for(positions, device, num_sink, window,
+                head_dim) -> PackedTables:
     """:func:`packed_tables` of ``positions`` on ``device``, built once per
     positions tensor (and its version) and geometry."""
-    key = (positions._version, device, num_sink, window)
+    key = (positions._version, device, num_sink, window, head_dim)
     for ref, *rest, tables in _TABLES:
         if ref() is positions and tuple(rest) == key:
             return tables
-    tables = packed_tables(positions.to(device), num_sink, window)
+    tables = packed_tables(positions.to(device), num_sink, window, head_dim)
     _TABLES.append((weakref.ref(positions), *key, tables))
     del _TABLES[:-_TABLES_KEPT]
     return tables
@@ -190,12 +219,15 @@ def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
 def _kernel_fns():
     lib = _build.load("packed")
     if ((lib.sink_packed_block_m(), lib.sink_packed_block_n()) != (BM, BN) or
+            lib.sink_packed_dq_block_m() != DQ_BM or
+            any(lib.sink_packed_dq_block_n(d) != bn
+                for d, bn in DQ_BN.items()) or
             (lib.sink_packed_dkdv_block_m(), lib.sink_packed_dkdv_block_n())
             != (DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
                            "tile sizes")
     return (load_fn("packed", "sink_pfwd_bf16", 8, 7),
-            load_fn("packed", "sink_pdq_bf16", 9, 7),
+            load_fn("packed", "sink_pdq_bf16", 10, 7),
             load_fn("packed", "sink_pdkdv_bf16", 11, 7))
 
 
@@ -228,7 +260,7 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
     _build.check_attention_inputs(q, k, v, s_aux)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
     B, H_q, _, N, D, ns, W = geom
-    tables = _tables_for(positions, q.device, ns, W)
+    tables = _tables_for(positions, q.device, ns, W, D)
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
@@ -248,14 +280,17 @@ packed_fwd_kernel.launches = 0
 
 def packed_dq_kernel(q, k, v, do, lse, delta, positions, num_sink: int = 4,
                      window_size: int = 512):
-    """Launch ``sink_pdq_bf16`` of ``csrc/packed.cu``: dq [B,H_q,N,D]
-    bf16. Inputs as :func:`packed_bwd_plain`'s, on the card.
-    ``packed_dq_kernel.launches`` counts the launches."""
+    """Launch ``sink_pdq_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper_dq.cuh``): dq [B,H_q,N,D] bf16, bitwise
+    repeatable. Inputs as :func:`packed_bwd_plain`'s, on the card.
+    ``packed_dq_kernel.launches`` counts the launches. A warmed call (the
+    positions' tables already built) synchronises nothing."""
     ops = _bwd_operands(q, k, v, do, lse, delta)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
-    tables = _tables_for(positions, q.device, *geom[5:])
+    tables = _tables_for(positions, q.device, *geom[5:], geom[4])
     dq = torch.empty_like(ops[0])
-    ptrs = [_build.ptr(t) for t in (*ops, tables.q, tables.seg, dq)]
+    ptrs = [_build.ptr(t) for t in (*ops, tables.dq, tables.dq_order,
+                                    tables.seg, dq)]
     code = _kernel_fns()[1](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
                             _build.stream_ptr(q.device))
     _build.check(code, "sink_pdq_bf16")
@@ -276,7 +311,7 @@ def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
     synchronises nothing."""
     ops = _bwd_operands(q, k, v, do, lse, delta)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
-    tables = _tables_for(positions, q.device, *geom[5:])
+    tables = _tables_for(positions, q.device, *geom[5:], geom[4])
     dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
     ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.kv_order,
                                     tables.reach, dk, dv)]
@@ -357,7 +392,8 @@ def sink_flash_attention_packed(q, k, v, positions, num_sink: int = 4,
     Returns:
         [B, H_q, N, D] in q.dtype. On CUDA the packed forward kernel runs,
         and the packed dQ and dK/dV kernels in the backward; tiles are 64 x
-        64, and 64 queries x 128 keys for dK/dV.
+        64 for the forward, 128 queries x 128 keys (64 at D = 128) for dQ
+        and 64 queries x 128 keys for dK/dV.
     """
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"packed attention needs N_q == N_kv: "

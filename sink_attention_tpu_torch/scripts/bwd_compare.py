@@ -1,19 +1,21 @@
-"""Time the dK/dV kernels of this checkout against another on one card.
+"""Time the backward kernels (dQ, dK/dV) of this checkout against another
+on one card.
 
-    python3 -m sink_attention_tpu_torch.scripts.dkdv_compare OTHER_TREE
-        [--out build/dkdv_compare.json]
+    python3 -m sink_attention_tpu_torch.scripts.bwd_compare OTHER_TREE
+        [--out build/bwd_compare.json]
 
 ``OTHER_TREE`` is the root of another checkout of the repository (for
 example the parent commit unpacked with ``git archive``). The script runs
-the dK/dV shapes of ``chip_smoke.py``'s phase 2 (the unpacked training
+the backward shapes of ``chip_smoke.py``'s phase 2 (the unpacked training
 layers at W=128 and W=4096, the headline, the halo chunk, GQA groups 1 and
 16, N_q = 250; the packed phase-5 mix at both W, the 64-3072 headline pack
 and the packed edge cases) in four passes, other / this / this / other,
 each in its own process with that checkout's package on ``sys.path`` and
 its kernels built into its own ``build/kernels/``. Each pass times
-``flash_dkdv_kernel`` and ``packed_dkdv_kernel`` on seeded inputs: ``ms``
-(CUDA events over back-to-back calls) and ``device_ms`` (the kernel's own
-time per launch, torch.profiler). It prints one line per shape with the
+``flash_dq_kernel`` and ``flash_dkdv_kernel`` (``packed_dq_kernel`` and
+``packed_dkdv_kernel`` on a pack) on seeded inputs: ``ms`` (CUDA events
+over back-to-back calls) and ``device_ms`` (the kernel's own time per
+launch, torch.profiler). It prints one line per shape and kernel with the
 mean of each checkout's two passes and their ratio, and writes every pass
 to ``--out``. Both checkouts must have the wrappers' present signatures
 and ``chip_smoke.py``'s ``pack_lengths``, ``pack_positions`` and
@@ -73,12 +75,13 @@ def worker() -> dict:
         torch.bfloat16)
     out = {}
 
-    def timed(label, fn):
-        fn()
-        torch.cuda.synchronize()
-        ms = time_cuda(fn, iters=20)
-        device_ms, _ = chip_smoke.per_call_device(fn, calls=10)
-        out[label] = {"ms": ms, "device_ms": device_ms}
+    def timed(label, fns):
+        for kernel, fn in fns.items():
+            fn()
+            torch.cuda.synchronize()
+            ms = time_cuda(fn, iters=20)
+            device_ms, _ = chip_smoke.per_call_device(fn, calls=10)
+            out[f"{label} {kernel}"] = {"ms": ms, "device_ms": device_ms}
 
     for label, B, H_q, H_kv, N, D, ns, W, halo in UNPACKED:
         q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
@@ -86,8 +89,9 @@ def worker() -> dict:
         geom = (ns, W, 0, -halo)
         o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
         delta = (do.float() * o.float()).sum(-1)
-        timed(label, lambda: flash.flash_dkdv_kernel(q, k, v, do, lse, delta,
-                                                     *geom))
+        args = (q, k, v, do, lse, delta, *geom)
+        timed(label, {"dq": lambda: flash.flash_dq_kernel(*args),
+                      "dkdv": lambda: flash.flash_dkdv_kernel(*args)})
     for label, B, H_q, H_kv, D, ns, W, lens, first in PACKED:
         if lens[0] == "mix":
             lens = chip_smoke.pack_lengths(*lens[1:])
@@ -98,8 +102,9 @@ def worker() -> dict:
         k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
         o, lse = packed.packed_fwd_kernel(q, k, v, positions, None, ns, W)
         delta = (do.float() * o.float()).sum(-1)
-        timed(label, lambda: packed.packed_dkdv_kernel(
-            q, k, v, do, lse, delta, positions, ns, W))
+        args = (q, k, v, do, lse, delta, positions, ns, W)
+        timed(label, {"dq": lambda: packed.packed_dq_kernel(*args),
+                      "dkdv": lambda: packed.packed_dkdv_kernel(*args)})
     return out
 
 
@@ -117,13 +122,13 @@ def run_pass(tree: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?", help="root of the other checkout")
-    ap.add_argument("--out", default="build/dkdv_compare.json")
+    ap.add_argument("--out", default="build/bwd_compare.json")
     ap.add_argument("--worker", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
-        print("dkdv_compare: CUDA is not available", file=sys.stderr)
+        print("bwd_compare: CUDA is not available", file=sys.stderr)
         return 1
     if args.worker:
         print(json.dumps(worker()), flush=True)
@@ -137,15 +142,15 @@ def main(argv=None) -> int:
     runs = [(name, run_pass(tree)) for name, tree in passes]
     card = card_line()
     print(f"card: {card}")
-    print(f"{'shape':36s} {'other ms':>10s} {'this ms':>10s} {'ratio':>7s} "
-          f"{'other dev':>10s} {'this dev':>10s}")
+    print(f"{'shape, kernel':42s} {'other ms':>10s} {'this ms':>10s} "
+          f"{'ratio':>7s} {'other dev':>10s} {'this dev':>10s}")
     table = {}
     for label in runs[0][1]:
         mean = {name: {key: sum(r[label][key] for n, r in runs if n == name)
                        / 2 for key in ("ms", "device_ms")}
                 for name in ("other", "this")}
         table[label] = mean
-        print(f"{label:36s} {mean['other']['ms']:10.4f} "
+        print(f"{label:42s} {mean['other']['ms']:10.4f} "
               f"{mean['this']['ms']:10.4f} "
               f"{mean['this']['ms'] / mean['other']['ms']:7.3f} "
               f"{mean['other']['device_ms']:10.4f} "

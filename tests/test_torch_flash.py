@@ -99,8 +99,9 @@ def test_split_kv_merge_equals_full():
 ])
 @pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (128, 64)])
 def test_kv_range_table_covers_mask_once(geom, tiles):
-    """The range table at the dQ kernels' 64 x 64 tiles (the default) and
-    at the forward kernel's 128 x 128 (and a 128 x 64 variant)."""
+    """The range table at the ablation kernels' 64 x 64 tiles (the
+    default), the forward kernel's 128 x 128 and the dQ kernel's 128 x
+    64."""
     n_q, n_kv, ns, W, qo, ko = geom
     bm, bn = tiles
     table = (tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko)

@@ -182,6 +182,28 @@ def test_dkdv_q_range_table_covers_mask(geom, tiles):
     assert (np.diff(lengths) <= 0).all(), lengths
 
 
+@pytest.mark.parametrize("head_dim", sorted(tflash.DQ_BN))
+@pytest.mark.parametrize("geom", DKDV_GEOMS)
+def test_dq_block_order_longest_first(geom, head_dim):
+    """The dQ kernel's order lists every 128-row q block of its range table
+    (``fwd_kv_ranges`` at its tiles for the head dim) once, most KV blocks
+    first, ties in block order; every masked-in pair lies in a block the
+    table visits."""
+    n_q, n_kv, ns, W, qo, ko = geom
+    bm, bn = tflash.DQ_BM, tflash.DQ_BN[head_dim]
+    table = tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
+    order = tflash.dq_block_order(n_q, n_kv, ns, W, qo, ko, bm, bn)
+    assert sorted(order.tolist()) == list(range(-(-n_q // bm)))
+    lengths = (table[:, 1] - table[:, 0] + table[:, 3] - table[:, 2])[order]
+    assert (np.diff(lengths) <= 0).all(), lengths
+    ties = np.diff(lengths) == 0
+    assert (np.diff(order)[ties] > 0).all(), order
+    mask = _visible_mask(n_q, n_kv, ns, W, qo, ko)
+    for qi, (s0, s1, w0, w1) in enumerate(table):
+        cols = np.nonzero(mask[qi * bm:(qi + 1) * bm].any(axis=0))[0]
+        assert set(cols // bn) <= set(range(s0, s1)) | set(range(w0, w1))
+
+
 @pytest.mark.parametrize("tiles", DKDV_TILES)
 @pytest.mark.parametrize("geom", DKDV_GEOMS)
 def test_dkdv_q_range_table_within_jax_schedule(geom, tiles):

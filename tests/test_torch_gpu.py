@@ -477,9 +477,9 @@ def test_ragged_decode_mqa_empty_slot(cuda, quant):
 
 
 def test_warmed_backward_calls_do_not_synchronise(cuda):
-    """A warmed call of the dK/dV kernel, unpacked and packed, issues no
-    synchronising CUDA operation (its tables are on the card after the
-    first call)."""
+    """A warmed call of the dQ and dK/dV kernels, unpacked and packed,
+    issues no synchronising CUDA operation (their tables are on the card
+    after the first call)."""
     from sink_attention_tpu_torch.ops import packed
     gen = torch.Generator(device=cuda).manual_seed(12)
     B, H_q, H_kv, N, D = 1, 8, 2, 300, 64
@@ -488,10 +488,11 @@ def test_warmed_backward_calls_do_not_synchronise(cuda):
     o, lse = flash.flash_fwd_kernel(q, k, v, None, 4, 128)
     delta = (do.float() * o.float()).sum(-1)
     positions = torch.tensor([_segments(N, (100, 200))], device=cuda)
-    calls = (lambda: flash.flash_dkdv_kernel(q, k, v, do, lse, delta, 4,
-                                             128),
-             lambda: packed.packed_dkdv_kernel(q, k, v, do, lse, delta,
-                                               positions, 4, 128))
+    bwd = (q, k, v, do, lse, delta)
+    calls = (lambda: flash.flash_dq_kernel(*bwd, 4, 128),
+             lambda: flash.flash_dkdv_kernel(*bwd, 4, 128),
+             lambda: packed.packed_dq_kernel(*bwd, positions, 4, 128),
+             lambda: packed.packed_dkdv_kernel(*bwd, positions, 4, 128))
     for fn in calls:
         fn()
     torch.cuda.synchronize()
