@@ -24,10 +24,11 @@ Phases:
      decode also at MQA 32/1 and 64/1 and over a full layer's cache early
      in its life; the backward kernels also run twice on
      the same inputs and must agree bit for bit; the dQ and dK/dV rows,
-     unpacked and packed, also carry ``device_ms`` and their effective
-     MFU, and both also run at GQA group 1 and 16 and at N_q = 250; then
-     a warmed call each of the cached decode, the ragged decode, the
-     forward, the dQ and the dK/dV kernel (unpacked, packed) under
+     unpacked and packed, and the packed forward's also carry
+     ``device_ms`` and their effective MFU; dQ and dK/dV also run at GQA
+     group 1 and 16 and at N_q = 250; then a warmed call each of the
+     cached decode, the ragged decode, the forward, the dQ and the dK/dV
+     kernel (unpacked, packed) under
      torch.cuda.set_sync_debug_mode("error") (none may synchronise);
   3. serving: gpt-oss-20b at full width, 24 layers, bf16, random weights
      from a seeded generator: 4 requests of 1024 prompt tokens, 32 new
@@ -94,8 +95,14 @@ PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 # the kernels rebuilt for Hopper after their first port, and how
 _HOPPER = "wgmma/TMA, warp-specialised, persistent"
+# the header that holds each wgmma/TMA kernel's template (the source
+# instantiates it over its mask policy)
+TEMPLATE = {"flash_fwd": "hopper.cuh", "packed_fwd": "hopper.cuh",
+            "flash_dq": "hopper_dq.cuh", "packed_dq": "hopper_dq.cuh",
+            "flash_dkdv": "hopper_bwd.cuh", "packed_dkdv": "hopper_bwd.cuh"}
 REDESIGNED = {"flash_fwd": _HOPPER, "flash_dq": _HOPPER, "flash_dkdv": _HOPPER,
-              "packed_dq": _HOPPER, "packed_dkdv": _HOPPER,
+              "packed_fwd": _HOPPER, "packed_dq": _HOPPER,
+              "packed_dkdv": _HOPPER,
               "decode": "one cluster launch",
               "decode_int8": "one cluster launch",
               "decode_fp8": "one cluster launch"}
@@ -429,8 +436,8 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
     versions on one pack (the same positions in every batch row), dQ and
     dK/dV also bitwise against a second run. Returns rows "packed_fwd",
     "packed_dq", "packed_dkdv" with errors, times and bounds (FLOPs from
-    the visible pairs of the pack's own mask); the dQ and dK/dV rows also
-    have the kernel's own device time per launch and its effective MFU."""
+    the visible pairs of the pack's own mask), each also with the kernel's
+    own device time per launch and its effective MFU."""
     from sink_attention_tpu_torch.ops import packed
     from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -485,10 +492,13 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
         lambda: packed.packed_dq_kernel(*args), iters=10)
     rows["packed_dkdv"]["ms"] = time_cuda(
         lambda: packed.packed_dkdv_kernel(*args), iters=10)
-    for name, fn in (("packed_dq", packed.packed_dq_kernel),
-                     ("packed_dkdv", packed.packed_dkdv_kernel)):
+    for name, fn in (
+            ("packed_fwd", lambda: packed.packed_fwd_kernel(
+                q, k, v, positions, aux, *geom)),
+            ("packed_dq", lambda: packed.packed_dq_kernel(*args)),
+            ("packed_dkdv", lambda: packed.packed_dkdv_kernel(*args))):
         rows[name]["device_ms"], rows[name]["kernels_per_call"] = \
-            per_call_device(lambda: fn(*args), calls=10)
+            per_call_device(fn, calls=10)
     rows["packed_fwd"]["plain_ms"] = time_cuda(
         lambda: packed.packed_fwd_plain(q, k, v, positions, aux, *geom),
         iters=2, warmup=1)
@@ -522,8 +532,7 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
         if name != "packed_fwd":
             r.update(plain_ms=bwd_plain_ms, library_ms=bwd_ms,
                      library_fwd_bwd_ms=fwd_bwd_ms)
-    for name in ("packed_dq", "packed_dkdv"):
-        r = rows[name]
+    for name, r in rows.items():
         r["mfu"] = pairs * work[name][0] / H100_PEAK_BF16 * 1e3 / r[
             "device_ms"]
     return rows
@@ -574,7 +583,9 @@ def kernel_phase(dev):
                                         (64, 8, 250, 128))]
     # packed training path: phase 5's pack of 4096 tokens through the
     # sliding (W=128) and full layers; the headline shape over segments of
-    # 64-3072 tokens; edge cases at N=1024 with 4 sinks
+    # 64-3072 tokens; edge cases at N=1024 with 4 sinks, and edge cases of
+    # the forward's 128-row items and 64-row consumer halves at both head
+    # dims, with and without s_aux
     mix = pack_lengths(4096, PACK_MIN, PACK_MAX, 0)
     packed_main = [check_packed(dev, 1, 64, 8, 64, 0, W, mix, gen,
                                 label="phase-5 mix") for W in (128, 4096)]
@@ -588,6 +599,14 @@ def kernel_phase(dev):
             ([32] * 32, 0, "32-token segments"),
             ([300, 724], 2, "pack starts at position 2"),
             ([333, 2, 665], 0, "N=1000"))]
+    packed_edge += [
+        check_packed(dev, 1, 8, 2, d, 4, w, lens, gen, use_aux=aux,
+                     label=lab)
+        for d in (64, 128) for aux in (True, False)
+        for lens, w, lab in (
+            ([200, 824], 128, "a start inside a 64-row half"),
+            ([256, 768], 1024, "a start at a 128-row item boundary"),
+            ([500, 1, 523], 128, "a 1-token segment"))]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows}
@@ -660,6 +679,8 @@ def sync_check(dev):
             q, k, v, 0, 1024, s_aux=aux),
         "flash_dq_kernel": lambda: flash.flash_dq_kernel(*bwd, 0, 128),
         "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(*bwd, 0, 128),
+        "packed_fwd_kernel": lambda: packed.packed_fwd_kernel(
+            q, k, v, positions, aux, 0, 128),
         "packed_dq_kernel": lambda: packed.packed_dq_kernel(
             *bwd, positions, 0, 128),
         "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(
@@ -776,22 +797,25 @@ def profile_device(fn, kernels, shapes=False):
                         for n, t, c in ops[:10]]}
 
 
-def per_call_device(fn, calls=20, tries=3):
+def per_call_device(fn, calls=20, tries=5):
     """(device ms per kernel launch, device kernels per call) of ``fn``
     from torch.profiler over ``calls`` back-to-back calls after a warm-up
     call: the kernel's own time, without the host's launch gaps that
     ``time_cuda`` counts. The profiler has been seen to drop some or all
     of the events of kernels launched through ctypes, so the time is the
     mean over the events it kept (kernels per call then reads below 1),
-    and a window with none is profiled again, up to ``tries`` times."""
+    and a window with none is profiled again, twice as long, up to
+    ``tries`` windows."""
     fn()
-    for _ in range(tries):
-        prof = profile_device(lambda: [fn() for _ in range(calls)], [])
+    for t in range(tries):
+        n = calls << t
+        prof = profile_device(lambda: [fn() for _ in range(n)], [])
         if prof is not None:
             events = prof["device_events"]
-            return prof["device_ms"] / events, events / calls
+            return prof["device_ms"] / events, events / n
     raise RuntimeError(f"torch.profiler recorded no device event in "
-                       f"{tries} windows of {calls} calls")
+                       f"{tries} windows of {calls}-{calls << (tries - 1)} "
+                       "calls")
 
 
 def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
@@ -1305,7 +1329,8 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
     if cuda:
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
         report["step_profile"] = profile_device(
-            step, ("fwd_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel"))
+            step, ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                   "dkdv_wgmma_kernel"))
     opt.zero_grad(set_to_none=True)
 
     # The kernel path, recording each layer's attention inputs and output
@@ -1825,26 +1850,35 @@ def ablation_entries(rows, launches):
 # ---------------------------------------------------------------------------
 
 
+# the wgmma kernel instances (one per head dim) each source must hold
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 2}, "flash_bwd": {"dq": 2, "dkdv": 2},
+                   "packed": {"fwd": 2, "dq": 2, "dkdv": 2}}
+
+
 def spill_errors(report):
     """ptxas' spill line of every instance of a wgmma kernel (the forward,
     dQ, dK/dV) in the build ``report``: one error per instance that spills,
-    or per source built without the dQ instances' lines."""
+    or per freshly built source whose ptxas lines lack one of the instances
+    of WGMMA_INSTANCES."""
     errors = []
     for name, rep in report.items():
-        entry, seen = None, 0
+        entry, seen = None, {}
         for line in rep["ptxas"]:
             if "Compiling entry" in line:
                 entry = line
             elif "spill" in line and entry and "wgmma_kernel" in entry:
-                seen += "dq_wgmma_kernel" in entry
+                kind = next((k for k in ("fwd", "dq", "dkdv")
+                             if f"{k}_wgmma_kernel" in entry), "other")
+                seen[kind] = seen.get(kind, 0) + 1
                 spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
                                    r"spill loads", line)
                 if spills is None or spills.groups() != ("0", "0"):
                     errors.append(f"{name}.cu spills: {entry}: {line}")
-        if name in ("flash_bwd", "packed") and not rep["cached"] and \
-                seen != 2:
-            errors.append(f"{name}.cu: ptxas printed the spill lines of "
-                          f"{seen} dq_wgmma_kernel instances, not 2")
+        for kind, n in WGMMA_INSTANCES.get(name, {}).items():
+            if not rep["cached"] and seen.get(kind, 0) != n:
+                errors.append(f"{name}.cu: ptxas printed the spill lines of "
+                              f"{seen.get(kind, 0)} {kind}_wgmma_kernel "
+                              f"instances, not {n}")
     log("spill check (every wgmma kernel instance): "
         + ("0 spill" if not errors else "FAILED"))
     return errors
@@ -2011,6 +2045,8 @@ def main() -> int:
                                kernels_per_call=mean("kernels_per_call"))
         if name in REDESIGNED:
             kernels[-1]["redesigned"] = REDESIGNED[name]
+        if name in TEMPLATE:
+            kernels[-1]["template"] = csrc + TEMPLATE[name]
     # the forward kernel also runs on the training and engine paths, the
     # bf16 decode on the engine path
     kernels[0]["launches_training"] = treport["launches"]["flash_fwd"]

@@ -8,16 +8,18 @@ the JAX package; the JAX package is the reference its tests hold it to.
 
 The kernels (``ops/csrc``, built by ``nvcc`` for ``sm_90a`` on first use):
 
-- the prefill forward: a warp-specialised kernel on ``wgmma`` and TMA (one
-  producer warp, two consumer warpgroups, a ring of K/V stages);
+- the forward, unpacked and packed (multi-segment): one warp-specialised
+  kernel on ``wgmma`` and TMA over either mask (one producer warpgroup, two
+  consumer warpgroups, a ring of K/V stages, a persistent grid of 128-row
+  items);
 - the decode: one launch per call, a thread block cluster per sequence and
   KV head that splits the live cache and merges in distributed shared
   memory, over bf16, int8 or fp8 storage, for any GQA group;
-- dK/dV, unpacked and packed (multi-segment): one warp-specialised kernel
-  on ``wgmma`` and TMA over either mask (a persistent grid of 128-key
-  items, the GQA sum inside the kernel);
-- dQ, the packed forward and dQ, and the per-stage ablation kernels of
-  ``scripts/mfu_ablation.py``, on ``mma.sync``.
+- dQ and dK/dV, unpacked and packed: one warp-specialised kernel each on
+  ``wgmma`` and TMA over either mask (persistent grids of 128-row and
+  128-key items, the GQA sum of dK/dV inside the kernel);
+- the per-stage ablation kernels of ``scripts/mfu_ablation.py``, on
+  ``mma.sync``.
 
 Subpackages (the JAX package's layout):
 
@@ -30,7 +32,8 @@ Subpackages (the JAX package's layout):
                   JAX
 - ``serving``  -- greedy generation and the continuous-batching engine
 - ``parallel`` -- the training step (one device so far)
-- ``scripts``  -- the forward kernel's per-stage ablation
+- ``scripts``  -- the forward kernel's per-stage ablation; the A/B
+                  timing of the attention kernels of two checkouts
 - ``utils``    -- device selection, CUDA-event timing
 """
 

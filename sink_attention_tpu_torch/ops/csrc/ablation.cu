@@ -7,12 +7,14 @@
 // (sink_mask_stage_bf16: correct attention whose diagonal and window-start
 // tiles read a constant mask tile instead of comparing positions).
 //
-// Each kernel is the forward of attention.cuh (fwd_kernel) with its softmax
-// cut to one stage, so the time a stage adds is a cost of that kernel: one
-// CTA of 4 warps per (b*h_q, 64-row q block) over the host's two KV ranges
-// (ops/flash.py fwd_kv_ranges), double-buffered cp.async K/V tiles of 64
-// keys, bf16 mma.sync.m16n8k16 with fp32 accumulation, P kept in registers
-// as the P V product's A fragments. fwd_kernel itself is not touched.
+// Each kernel is the first port's forward skeleton, of which this file
+// keeps its own copy (the production forward is now hopper.cuh's wgmma/TMA
+// kernel), with its softmax cut to one stage, so the time a stage adds is
+// a cost of that skeleton: one CTA of 4 warps per (b*h_q, 64-row q block)
+// over the host's two KV ranges (ops/flash.py fwd_kv_ranges),
+// double-buffered cp.async K/V tiles of 64 keys, bf16 mma.sync.m16n8k16
+// with fp32 accumulation, P kept in registers as the P V product's A
+// fragments.
 // Offsets are zero, there is no s_aux and no LSE; N is a multiple of 64.
 //
 // Every stage computes s = (q * c) k^T with c = log2(e) / sqrt(D) rounded

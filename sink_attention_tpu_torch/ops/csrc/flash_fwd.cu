@@ -17,47 +17,15 @@
 // consumers compute (a producer warpgroup, two consumer warpgroups, a ring
 // of K/V stages), and the per-cell mask only on the partial tiles.
 //
-// The entry point builds the three TMA descriptors per call (hopper.cuh's
-// make_map, shared with the dK/dV kernel): q, k, v as 3-D tensors [B*H, N,
-// D] whose rows past N read as zeros, boxes of 64 columns x 128 rows under
-// the 128-byte swizzle.
-
-#include <cuda.h>
-
-#include <algorithm>
+// The entry point launches the template over SinkWindowMask (hopper.cuh's
+// launch_fwd, shared with the packed forward), which builds the three TMA
+// descriptors per call.
 
 #include "hopper.cuh"
 
-namespace {
-
 using sinkattn::SinkWindowMask;
-using namespace sinkattn::hopper;
-
-template <int D, int STAGES>
-int launch(const void* q, const void* k, const void* v, const void* s_aux,
-           void* o, void* lse, int B, int H_q, int H_kv, int N_q, int N_kv,
-           float scale, const SinkWindowMask& mask, cudaStream_t stream) {
-  constexpr int smem = FwdSmem<D, STAGES>::BYTES;
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      fwd_wgmma_kernel<D, STAGES>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
-  if (attr_err != cudaSuccess) return (int)attr_err;
-  CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H_q, N_q, D, FWD_BM) ||
-      !make_map(&tk, k, B * H_kv, N_kv, D, FWD_BN) ||
-      !make_map(&tv, v, B * H_kv, N_kv, D, FWD_BN))
-    return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
-  const int grid = (int)std::min<long>(n_work, sm_count());
-  if (grid <= 0) return (int)cudaErrorInvalidValue;
-  fwd_wgmma_kernel<D, STAGES><<<grid, FWD_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<const float*>(s_aux), static_cast<uint16_t*>(o),
-      static_cast<float*>(lse), B, H_q, H_kv, N_q, scale * sinkattn::LOG2E,
-      mask);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+using sinkattn::hopper::FWD_BM;
+using sinkattn::hopper::FWD_BN;
 
 // q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous, 16-byte
 // aligned; s_aux [H_q] fp32 or null; ranges [ceil(N_q/128), 4] int32 (the
@@ -71,17 +39,9 @@ extern "C" int sink_fwd_bf16(const void* q, const void* k, const void* v,
                              void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N_q <= 0 || B * H_q <= 0) return 0;
-  if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
-    return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch<64, 3>(q, k, v, s_aux, o, lse, B, H_q, H_kv, N_q, N_kv,
-                         scale, mask, st);
-  if (D == 128)
-    return launch<128, 2>(q, k, v, s_aux, o, lse, B, H_q, H_kv, N_q, N_kv,
-                          scale, mask, st);
-  return (int)cudaErrorInvalidValue;
+  return sinkattn::hopper::launch_fwd(q, k, v, s_aux, nullptr, o, lse, B,
+                                      H_q, H_kv, N_q, N_kv, D, scale, mask,
+                                      stream);
 }
 
 // Tile sizes the host-side range table must use.

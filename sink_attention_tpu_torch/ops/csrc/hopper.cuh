@@ -1,32 +1,38 @@
 // Sink attention forward for Hopper: a warp-specialised kernel on wgmma,
-// TMA and mbarriers, over attention.cuh's SinkWindowMask; and the building
+// TMA and mbarriers, written once over a mask policy (attention.cuh's
+// SinkWindowMask in flash_fwd.cu, packed.cu's PackedMask); and the building
 // blocks it shares with the dQ kernel of hopper_dq.cuh and the dK/dV kernel
 // of hopper_bwd.cuh (mbarriers, named barriers, TMA loads and tensor maps,
 // wgmma descriptors and wrappers, the per-row mask of a partial tile, the
 // ring of stages and the snake walk of a persistent grid).
 //
-// It computes what attention.cuh's fwd_kernel computes (O, the natural-log
-// LSE counting s_aux, s_aux as a value-less logit) for the unpacked sink +
-// window mask; the packed forward and the ablation kernels stay on
-// attention.cuh's mma.sync skeleton.
+// It computes O, the natural-log LSE counting s_aux, and s_aux as a
+// value-less logit, for every query row over the keys the policy makes
+// visible to it. The ablation kernels keep their own copy of the first
+// port's mma.sync skeleton (ablation.cu).
 //
 // Design:
 //  * a persistent grid, one CTA of three warpgroups per SM, walking the
-//    work items (b*h_q, 128-row q block), longest first: warpgroup 0 is
-//    the producer (one thread issues every TMA load, the rest idle;
-//    setmaxnreg gives its registers to the consumers: 40 against 232),
-//    warpgroups 1 and 2 are consumers, 64 query rows each;
-//  * the producer loads each item's Q once, into one of two Q buffers, and
-//    walks the q block's two ranges of KV blocks from the host table (the
-//    sink blocks, then the window blocks), 128 keys a tile, into a ring of
-//    STAGES (K, V) stages, each with a full barrier for K, one for V (TMA
-//    completes them by bytes) and an empty barrier each consumer
-//    warpgroup arrives at once (after its wgmma wait, which is
-//    warpgroup-wide); it hands each item's table row and the seed of m
-//    to the consumers in shared memory beside the Q buffer (released with
-//    Q's barrier); it runs ahead into the next item while the
-//    consumers finish this one, so an item's prologue and epilogue overlap
-//    its neighbours' loads (the short sliding-window items need that);
+//    work items (b*h_q, 128-row q block), longest first (FwdItem):
+//    warpgroup 0 produces (setmaxnreg gives its registers to the
+//    consumers: 40 against 232), warpgroups 1 and 2 are consumers, 64
+//    query rows each;
+//  * one producer thread loads each item's Q once, into one of two Q
+//    buffers, and walks the q block's two ranges of KV blocks from the
+//    host table (the sink blocks, then the window blocks), 128 keys a tile,
+//    into a ring of STAGES (K, V) stages, each with a full barrier for K,
+//    one for V (TMA completes them by bytes) and an empty barrier each
+//    consumer warpgroup arrives at once (after its wgmma wait, which is
+//    warpgroup-wide); it hands each item's table row and the seed of m to
+//    the consumers in shared memory beside the Q buffer (released with Q's
+//    barrier); it runs ahead into the next item while the consumers finish
+//    this one, so an item's prologue and epilogue overlap its neighbours'
+//    loads (the short sliding-window items need that);
+//  * producer warp 1 writes, beside the Q buffer, each of the item's rows'
+//    runs of visible keys from the policy (row_span: a sink run and a
+//    window run; none past N_q) and the hull of each consumer's 64 rows'
+//    runs, with plain loads (a pack's segment starts); the Q buffer's full
+//    barrier counts the TMA bytes and warp 1's 32 arrivals;
 //  * Q, K and V land in shared memory in 128-byte-swizzled boxes of 64
 //    columns (a D = 128 row is two boxes); TMA zero-fills rows past N_q
 //    and N_kv;
@@ -39,21 +45,32 @@
 //    warpgroups overlap each other's products and softmax. (Overlapping
 //    the softmax with the previous tile's P V inside a warpgroup was
 //    tried: ptxas then serialises the products, 25% slower at D = 128);
-//  * the mask: each consumer decides once per tile whether its 64 x 128
-//    tile lies wholly inside the mask and applies the per-cell mask only
-//    on partial tiles (the diagonal, the window and sink edges, the N
-//    edge, slots before the sequence start), from per-row key bounds
-//    computed once per work item (one unsigned compare per run and cell);
-//    masked cells give p = 0 by a select of the score (exp2 of -inf is 0),
-//    so a row that sees nothing gives 0 and not NaN;
+//  * the mask: each warp decides per tile, by one vote over its 16 rows'
+//    runs, whether the tile is whole for them, and applies the per-cell
+//    mask only on partial tiles (the diagonal, the window and sink edges,
+//    a segment start inside the tile, the N edge, slots before the
+//    sequence start): one unsigned compare per run and cell, the sink run
+//    only where a row's sink run meets the tile (a pack's later segments
+//    have their sinks inside the window range); masked cells give p = 0 by
+//    a select of the score (exp2 of -inf is 0), so a row that sees nothing
+//    gives 0 and not NaN;
+//  * a consumer whose 64 rows see no key of a tile (outside the hull of
+//    their runs: an earlier segment's tiles, for a 64-row half of an item
+//    that lies after a segment start) waits on the stage and releases it
+//    without its products: exact, since a wholly masked tile changes
+//    neither m, l nor O;
 //  * O goes out as bf16 through the warpgroup's rows of the item's Q
 //    buffer (then free) as 16-byte stores of whole rows; the Q buffer is
-//    released to the producer after that. The LSE is written as
-//    fwd_kernel writes it, for the backward kernels.
+//    released to the producer after that. The LSE (natural log, -inf for
+//    a row that sees nothing and has no s_aux) is written for the backward
+//    kernels.
 
 #pragma once
 
 #include <cuda.h>
+
+#include <algorithm>
+#include <climits>
 
 #include "attention.cuh"
 
@@ -320,20 +337,61 @@ struct FwdSmem {
   static constexpr int Q_OFF = 0;                     // two Q tiles
   static constexpr int K_OFF = Q_OFF + 2 * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  // per Q buffer: RowSpan [128], the two consumers' hulls int [2][2]
+  static constexpr int ROWS_BYTES = FWD_BM * 16 + 16;
+  static constexpr int ROW_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = ROW_OFF + 2 * ROWS_BYTES;
   // q_full[2], q_empty[2], then k_full, v_full, empty [STAGES] each
   static constexpr int N_BARS = 4 + 3 * STAGES;
   static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
   static constexpr int BYTES = INFO_OFF + 2 * 8 * 4 + 1024;  // + alignment
 };
 
-// Every cell of rows [r0, r0 + 64) x keys [col0, col0 + FWD_BN) is visible.
-__device__ __forceinline__ bool tile_full(const SinkWindowMask& mk, int r0,
-                                          int col0) {
-  const int r_lo = mk.q_offset + r0, r_hi = r_lo + 63;
-  const int c_lo = mk.kv_offset + col0, c_hi = c_lo + FWD_BN - 1;
-  return (col0 + FWD_BN <= mk.N_kv) && (c_lo >= 0) && (c_hi <= r_lo) &&
-         (c_hi < mk.num_sink || c_lo >= r_hi - mk.window + 1);
+// Keys [c0, c0 + n) lie wholly in one of the row's runs.
+__device__ __forceinline__ bool span_covers(const RowSpan& r, int c0, int n) {
+  return (c0 >= r.win_lo && c0 + n <= r.win_lo + r.win_n) ||
+         (c0 >= r.sink_lo && c0 + n <= r.sink_lo + r.sink_n);
+}
+
+// The row's sink run meets keys [c0, c0 + n).
+__device__ __forceinline__ bool sink_meets(const RowSpan& r, int c0, int n) {
+  return r.sink_n > 0 && r.sink_lo < c0 + n && r.sink_lo + r.sink_n > c0;
+}
+
+// One warp writes the runs of rows [row0, row0 + 128) of batch row b (none
+// past N_q) into span_sm[128], and into hull_sm[2 c], hull_sm[2 c + 1] the
+// hull [lo, hi) of the runs of rows [64 c, 64 c + 64) (lo > hi where they
+// see no key).
+template <class Mask>
+__device__ __forceinline__ void stage_row_spans(const Mask& mask, int b,
+                                                int row0, int N_q, int lane,
+                                                RowSpan* span_sm,
+                                                int* hull_sm) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = c * 64 + h * 32 + lane;
+      const RowSpan sp = row0 + r < N_q ? mask.row_span(b, row0 + r)
+                                        : RowSpan{0, 0, 0, 0};
+      span_sm[r] = sp;
+      if (sp.win_n > 0) {
+        lo = min(lo, sp.win_lo);
+        hi = max(hi, sp.win_lo + sp.win_n);
+      }
+      if (sp.sink_n > 0) {
+        lo = min(lo, sp.sink_lo);
+        hi = max(hi, sp.sink_lo + sp.sink_n);
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (lane == 0) {
+      hull_sm[2 * c] = lo;
+      hull_sm[2 * c + 1] = hi;
+    }
+  }
 }
 
 // The per-cell mask of a partial tile of N / 4 8-key chunks: the thread's
@@ -393,19 +451,35 @@ __device__ __forceinline__ int snake_item(int i, int cta, int G) {
 }
 
 // A work item: one 128-row q block of one (batch, query head), and the KV
-// blocks it visits (the sink range, then the window range). Items run
-// longest first: the last q blocks, across all heads, then the earlier.
-// The producer reads it from the host table and hands it to the consumers
-// in shared memory beside the item's Q buffer (with the seed of m), so
-// their item starts wait on no global load.
+// blocks it visits (the sink range, then the window range) from the
+// policy's table, longest first. Where the policy keeps one table for every
+// batch row (SinkWindowMask) the order is implicit: the last q blocks,
+// across all heads, then the earlier. Where it keeps a table per batch row
+// (PackedMask) unit w / H_q of the host's order table is a (b, block) pair
+// b * n_qb + block, most KV blocks first (a pack's longest blocks are each
+// segment's last, not the pack's), and w % H_q the head, so the heads of a
+// KV group run side by side and share their K/V tiles in L2. The producer
+// hands the item to the consumers in shared memory beside its Q buffer
+// (with the seed of m), so their item starts wait on no global load.
 struct FwdItem {
-  int qb, bh, h, kvh, sb0, wb0, n_sink_blocks, n_blocks;
-  __device__ __forceinline__ FwdItem(int w, int n_qb, int BH, int H_q,
-                                     int H_kv, const SinkWindowMask& mask) {
-    qb = n_qb - 1 - w / BH;
-    bh = w - (w / BH) * BH;
-    const int b = bh / H_q;
-    h = bh - b * H_q;
+  int b, qb, bh, h, kvh, sb0, wb0, n_sink_blocks, n_blocks;
+  template <class Mask>
+  __device__ __forceinline__ FwdItem(int w, const int* order, int n_qb,
+                                     int B, int H_q, int H_kv,
+                                     const Mask& mask) {
+    if constexpr (Mask::kBatchTables) {
+      const int u = order[w / H_q];
+      h = w - (w / H_q) * H_q;
+      b = u / n_qb;
+      qb = u - b * n_qb;
+      bh = b * H_q + h;
+    } else {
+      const int BH = B * H_q;
+      qb = n_qb - 1 - w / BH;
+      bh = w - (w / BH) * BH;
+      b = bh / H_q;
+      h = bh - b * H_q;
+    }
     kvh = b * H_kv + h / (H_q / H_kv);
     const int* rg = mask.q_block(b, qb);
     sb0 = rg[0];
@@ -423,8 +497,8 @@ struct FwdItem {
     info[6] = __float_as_int(m0);
   }
   __device__ __forceinline__ explicit FwdItem(const int* info)
-      : qb(info[0]), bh(info[1]), h(0), kvh(0), sb0(info[2]), wb0(info[3]),
-        n_sink_blocks(info[4]), n_blocks(info[5]) {}
+      : b(0), qb(info[0]), bh(info[1]), h(0), kvh(0), sb0(info[2]),
+        wb0(info[3]), n_sink_blocks(info[4]), n_blocks(info[5]) {}
   __device__ __forceinline__ int block(int t) const {
     return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
   }
@@ -433,16 +507,18 @@ struct FwdItem {
 // Persistent: each CTA walks the work items blockIdx.x, + gridDim.x, ...;
 // the producer runs ahead into the next item (its Q into the other Q
 // buffer, its K/V tiles into the ring) while the consumers finish this
-// one, so one item's epilogue overlaps the next one's loads.
-template <int D, int STAGES>
+// one, so one item's epilogue overlaps the next one's loads. `order` is
+// the host's order table where Mask::kBatchTables, else unused.
+template <int D, int STAGES, class Mask>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ s_aux,
+                     const int* __restrict__ order,
                      uint16_t* __restrict__ o, float* __restrict__ lse,
                      int B, int H_q, int H_kv, int N_q, float scale_log2,
-                     SinkWindowMask mask) {
+                     Mask mask) {
   using L = FwdSmem<D, STAGES>;
   constexpr int NJ = FWD_BN / 8;  // 8-key chunks of an S accumulator row
   constexpr int OR = D / 2;       // O accumulators a thread
@@ -456,19 +532,18 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   uint64_t* empty = bars + 4 + 2 * STAGES;
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [Q buffer][8]
 
-  const int BH = B * H_q;
   const int n_qb = (N_q + FWD_BM - 1) / FWD_BM;
-  const int n_work = n_qb * BH;
+  const int n_work = n_qb * B * H_q;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      mbar_init(q_full + i, 1);
-      mbar_init(q_empty + i, 2 * 128);  // every consumer thread, per item
+      mbar_init(q_full + i, 1 + 32);     // the TMA thread and warp 1's lanes
+      mbar_init(q_empty + i, 2 * 128);   // every consumer thread, per item
     }
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(k_full + s, 1);
       mbar_init(v_full + s, 1);
-      mbar_init(empty + s, 2);
+      mbar_init(empty + s, 2);  // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -476,13 +551,14 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 0) {
-    // ---- producer: one thread issues every TMA load ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (threadIdx.x == 0) {
-      int t = 0;  // the ring's tile count, across items
+    const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+    if (warp == 0 && lane == 0) {
+      // ---- one thread issues every TMA load ----
+      Ring<STAGES> ring;
       int it = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-        const FwdItem item(w, n_qb, BH, H_q, H_kv, mask);
+        const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
         const int qs = it & 1;
         mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
         item.store(info + qs * 8,
@@ -492,9 +568,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         for (int x = 0; x < L::BOXES; ++x)
           tma_load_3d(smem + L::Q_OFF + qs * L::Q_BYTES + x * FWD_BM * 128,
                       &tm_q, q_full + qs, x * 64, item.qb * FWD_BM, item.bh);
-        for (int j = 0; j < item.n_blocks; ++j, ++t) {
-          const int s = t % STAGES;
-          mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
+          const int s = ring.s;
+          mbar_wait(empty + s, ring.ph ^ 1);
           const int row = item.block(j) * FWD_BN;
           mbar_expect_tx(k_full + s, L::KV_BYTES);
 #pragma unroll
@@ -508,6 +584,20 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                         &tm_v, v_full + s, x * 64, row, item.kvh);
         }
       }
+    } else if (warp == 1) {
+      // ---- warp 1: the item's rows' runs of visible keys ----
+      int it = 0;
+      for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
+        const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
+        const int qs = it & 1;
+        mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
+        RowSpan* span_sm =
+            reinterpret_cast<RowSpan*>(smem + L::ROW_OFF + qs * L::ROWS_BYTES);
+        stage_row_spans(mask, item.b, item.qb * FWD_BM, N_q, lane, span_sm,
+                        reinterpret_cast<int*>(span_sm + FWD_BM));
+        __syncwarp();
+        mbar_arrive(q_full + qs);  // release: the runs are visible
+      }
     }
   } else {
     // ---- consumers: warpgroup c owns rows [64 c, 64 c + 64) of a block ----
@@ -517,15 +607,18 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     const int lane = ct & 31;
     const int g = lane >> 2, t4 = lane & 3;
     const int r_loc = c * 64 + (ct >> 5) * 16 + g;  // rows r_loc, r_loc + 8
-    int t = 0;
+    Ring<STAGES> ring;
     int it = 0;
     const bool use_aux = s_aux != nullptr;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
       const int qs = it & 1;
       mbar_wait(q_full + qs, (it >> 1) & 1);
       const FwdItem item(info + qs * 8);
-      const RowSpan rows[2] = {mask.row_span(0, item.qb * FWD_BM + r_loc),
-                               mask.row_span(0, item.qb * FWD_BM + r_loc + 8)};
+      const RowSpan* span_sm = reinterpret_cast<const RowSpan*>(
+          smem + L::ROW_OFF + qs * L::ROWS_BYTES);
+      const int* hull_sm = reinterpret_cast<const int*>(span_sm + FWD_BM);
+      const RowSpan rows[2] = {span_sm[r_loc], span_sm[r_loc + 8]};
+      const int h_lo = hull_sm[2 * c], h_hi = hull_sm[2 * c + 1];
       float m[2], l[2];
       m[0] = m[1] = __int_as_float(info[qs * 8 + 6]);
       l[0] = l[1] = use_aux ? 1.f : 0.f;
@@ -534,14 +627,19 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       for (int i = 0; i < OR; ++i) oacc[i] = 0.f;
 
       const uint8_t* qsm = smem + L::Q_OFF + qs * L::Q_BYTES + c * 64 * 128;
-      for (int j = 0; j < item.n_blocks; ++j, ++t) {
-        const int s = t % STAGES;
-        const int ph = (t / STAGES) & 1;
+      for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
+        const int s = ring.s;
         const uint8_t* ks = smem + L::K_OFF + s * L::KV_BYTES;
         const uint8_t* vs = smem + L::V_OFF + s * L::KV_BYTES;
+        const int col0 = item.block(j) * FWD_BN;
+        mbar_wait(k_full + s, ring.ph);
+        if (col0 >= h_hi || col0 + FWD_BN <= h_lo) {  // no row sees the tile
+          mbar_wait(v_full + s, ring.ph);
+          if (ct == 0) mbar_arrive(empty + s);
+          continue;
+        }
 
         // S = Q K^T: 64 rows x 128 keys, D / 16 k-steps.
-        mbar_wait(k_full + s, ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
@@ -555,11 +653,14 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         wgmma_wait<0>();
         fence_regs(sacc);
 
-        // The per-cell mask on partial tiles only: a masked score becomes
-        // -inf by a select (exp2 of -inf is 0). A whole tile skips it.
-        const int col0 = item.block(j) * FWD_BN;
-        if (!tile_full(mask, item.qb * FWD_BM + c * 64, col0)) {
-          if (mask.kv_offset + col0 < mask.num_sink)  // a sink tile
+        // The per-cell mask on partial tiles only (a warp-uniform branch):
+        // a masked score becomes -inf by a select (exp2 of -inf is 0).
+        const bool whole =
+            __all_sync(0xffffffffu, span_covers(rows[0], col0, FWD_BN) &&
+                                        span_covers(rows[1], col0, FWD_BN));
+        if (!whole) {
+          if (__any_sync(0xffffffffu, sink_meets(rows[0], col0, FWD_BN) ||
+                                          sink_meets(rows[1], col0, FWD_BN)))
             mask_tile<true>(sacc, rows, col0 + t4 * 2, -INFINITY);
           else
             mask_tile<false>(sacc, rows, col0 + t4 * 2, -INFINITY);
@@ -611,7 +712,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
           pa[jj][2] = pack_bf16(sacc[8 * jj + 4], sacc[8 * jj + 5]);
           pa[jj][3] = pack_bf16(sacc[8 * jj + 6], sacc[8 * jj + 7]);
         }
-        mbar_wait(v_full + s, ph);
+        mbar_wait(v_full + s, ring.ph);
         wgmma_fence();
 #pragma unroll
         for (int jj = 0; jj < FWD_BN / 16; ++jj)
@@ -655,12 +756,62 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                   qbuf + (ch / 8) * FWD_BM * 128 + rb * 128 +
                   (((ch % 8) ^ (rb & 7)) * 16));
       }
-      // Q's buffer is free once every consumer thread is done with it; the
-      // proxy fence orders these generic accesses before the TMA refill.
+      // The Q buffer (and its rows' runs) is free once every consumer
+      // thread is done with it; the proxy fence orders these generic
+      // accesses before the TMA refill.
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       mbar_arrive(q_empty + qs);
     }
   }
+}
+
+// Launch over a mask policy: q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16
+// contiguous, 16-byte aligned; s_aux [H_q] fp32 or null; order the host's
+// units longest first where Mask::kBatchTables (see FwdItem), else null;
+// o like q; lse [B*H_q, N_q] fp32. The three TMA descriptors are built per
+// call: rows past N read as zeros, boxes of 64 columns x 128 rows under
+// the 128-byte swizzle. Returns cudaGetLastError() of the launch.
+template <int D, int STAGES, class Mask>
+int launch_fwd_d(const void* q, const void* k, const void* v,
+                 const void* s_aux, const void* order, void* o, void* lse,
+                 int B, int H_q, int H_kv, int N_q, int N_kv, float scale,
+                 const Mask& mask, cudaStream_t stream) {
+  constexpr int smem = FwdSmem<D, STAGES>::BYTES;
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      fwd_wgmma_kernel<D, STAGES, Mask>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(&tq, q, B * H_q, N_q, D, FWD_BM) ||
+      !make_map(&tk, k, B * H_kv, N_kv, D, FWD_BN) ||
+      !make_map(&tv, v, B * H_kv, N_kv, D, FWD_BN))
+    return (int)cudaErrorInvalidValue;
+  const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
+  const int grid = (int)std::min<long>(n_work, sm_count());
+  if (grid <= 0) return (int)cudaErrorInvalidValue;
+  fwd_wgmma_kernel<D, STAGES, Mask><<<grid, FWD_THREADS, smem, stream>>>(
+      tq, tk, tv, static_cast<const float*>(s_aux),
+      static_cast<const int*>(order), static_cast<uint16_t*>(o),
+      static_cast<float*>(lse), B, H_q, H_kv, N_q, scale * LOG2E, mask);
+  return (int)cudaGetLastError();
+}
+
+template <class Mask>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* s_aux, const void* order, void* o, void* lse,
+               int B, int H_q, int H_kv, int N_q, int N_kv, int D,
+               float scale, const Mask& mask, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N_q <= 0 || B * H_q <= 0) return 0;
+  if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
+    return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return launch_fwd_d<64, 3>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
+                               N_q, N_kv, scale, mask, st);
+  if (D == 128)
+    return launch_fwd_d<128, 2>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
+                                N_q, N_kv, scale, mask, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

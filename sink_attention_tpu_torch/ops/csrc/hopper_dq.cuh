@@ -63,9 +63,6 @@
 
 #pragma once
 
-#include <algorithm>
-#include <climits>
-
 #include "hopper.cuh"
 
 namespace sinkattn {
@@ -147,17 +144,6 @@ struct DqItem {
     return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
   }
 };
-
-// Keys [c0, c0 + n) lie wholly in one of the row's runs.
-__device__ __forceinline__ bool span_covers(const RowSpan& r, int c0, int n) {
-  return (c0 >= r.win_lo && c0 + n <= r.win_lo + r.win_n) ||
-         (c0 >= r.sink_lo && c0 + n <= r.sink_lo + r.sink_n);
-}
-
-// The row's sink run meets keys [c0, c0 + n).
-__device__ __forceinline__ bool sink_meets(const RowSpan& r, int c0, int n) {
-  return r.sink_n > 0 && r.sink_lo < c0 + n && r.sink_lo + r.sink_n > c0;
-}
 
 template <int D, int STAGES, class Mask>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
@@ -253,34 +239,15 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         const float* lse_row = lse + (size_t)item.bh * N_q;
         const float* delta_row = delta + (size_t)item.bh * N_q;
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          int lo = INT_MAX, hi = INT_MIN;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = c * 64 + h * 32 + lane;
-            const int row = item.qb * DQ_BM + r;
-            const bool ok = row < N_q;
-            lse_sm[r] = ok ? lse_row[row] * LOG2E : INFINITY;
-            delta_sm[r] = ok ? delta_row[row] : 0.f;
-            const RowSpan sp = ok ? mask.row_span(item.b, row)
-                                  : RowSpan{0, 0, 0, 0};
-            span_sm[r] = sp;
-            if (sp.win_n > 0) {
-              lo = min(lo, sp.win_lo);
-              hi = max(hi, sp.win_lo + sp.win_n);
-            }
-            if (sp.sink_n > 0) {
-              lo = min(lo, sp.sink_lo);
-              hi = max(hi, sp.sink_lo + sp.sink_n);
-            }
-          }
-          lo = __reduce_min_sync(0xffffffffu, lo);
-          hi = __reduce_max_sync(0xffffffffu, hi);
-          if (lane == 0) {
-            hull_sm[2 * c] = lo;
-            hull_sm[2 * c + 1] = hi;
-          }
+        for (int h = 0; h < DQ_BM / 32; ++h) {
+          const int r = h * 32 + lane;
+          const int row = item.qb * DQ_BM + r;
+          const bool ok = row < N_q;
+          lse_sm[r] = ok ? lse_row[row] * LOG2E : INFINITY;
+          delta_sm[r] = ok ? delta_row[row] : 0.f;
         }
+        stage_row_spans(mask, item.b, item.qb * DQ_BM, N_q, lane, span_sm,
+                        hull_sm);
         __syncwarp();
         mbar_arrive(q_full + qs);  // release: the rows are visible
       }

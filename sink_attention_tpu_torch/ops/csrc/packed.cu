@@ -2,11 +2,11 @@
 //
 // Replace the Pallas TPU kernels `_pfwd_kernel`, `_pdq_kernel` and
 // `_pdkdv_kernel` of sink_attention_tpu/ops/packed.py (launched by
-// `_pfwd_impl` and `_pbwd_impl`): the forward kernel of attention.cuh, the
-// dQ kernel of hopper_dq.cuh and the dK/dV kernel of hopper_bwd.cuh over
-// PackedMask. One pack row b holds several segments back to back;
-// positions[b, i] counts up from 0 in each segment, so row i's segment
-// starts at s_i = i - positions[b, i] and
+// `_pfwd_impl` and `_pbwd_impl`): the wgmma/TMA forward of hopper.cuh, dQ
+// of hopper_dq.cuh and dK/dV of hopper_bwd.cuh, each the unpacked path's
+// template instantiated over PackedMask. One pack row b holds several
+// segments back to back; positions[b, i] counts up from 0 in each segment,
+// so row i's segment starts at s_i = i - positions[b, i] and
 //     valid(i, j) = j <= i  AND  j >= s_i
 //                   AND  (j < s_i + num_sink  OR  j >= i - window + 1)
 // (j >= s_i with causality already puts j in i's segment). A pack that
@@ -16,27 +16,32 @@
 // count up by 1 and reset to 0.
 //
 // What bounds them on the H100: the visible pairs of the pack's own mask,
-// not N * (W + num_sink). At the training pack (N = 4096, segments of
-// 1316, 1002, 816, 461 and 501 tokens, GQA 64/8, D = 64) a full layer
-// (W = N) costs about sum(len^2) / 2 pairs and is bound by tensor-core
-// throughput; a W = 128 layer is bound by memory (each kernel reads q, k,
-// v and dO once); PERF.md has the bounds beside the kernels' times
-// (chip_smoke.py on an H100). What the design does about it: the host
-// tables (ops/packed.py) clamp every range to the segments the block's
-// rows or columns belong to, so no CTA walks a tile wholly outside the
-// pack's mask; the forward runs on mma.sync and reaches neither bound; dQ
-// and dK/dV are the wgmma/TMA kernels of the unpacked backward, each row
-// seeing two runs of keys (row_span below) and each key one interval of
-// rows [j, reach(j)).
+// not N * (W + num_sink), at 4 D FLOPs a pair and head for the forward
+// (6 D for dQ, 8 D for dK/dV) at 989 TFLOP/s, or the bytes (each of q, k,
+// v read once, o written once, plus the fp32 rows) at 3.35 TB/s. At the
+// training pack (N = 4096, segments of 1316, 1002, 816, 461 and 501
+// tokens, GQA 64/8, D = 64) a full layer (W = N) costs about sum(len^2) / 2
+// pairs and is bound by tensor-core throughput; a W = 128 layer is bound by
+// memory. PERF.md has the bounds beside the kernels' times (chip_smoke.py
+// on an H100). What the design does about it: the host tables
+// (ops/packed.py) clamp every range to the segments the block's rows or
+// columns belong to, so no CTA walks a tile wholly outside the pack's
+// mask, and order the work items most KV blocks first (a pack's long items
+// are each segment's last block); the kernels are the persistent,
+// warp-specialised wgmma/TMA kernels of the unpacked path, each row seeing
+// two runs of keys (row_span below: forward and dQ, which put the per-cell
+// mask on partial tiles only and skip a consumer's dead tiles) and each
+// key one interval of rows [j, reach(j)) (dK/dV).
 //
 // Tables, built per batch by ops/packed.py:
 //   seg   [B, N]          s_i of every row;
-//   q     [B, n_q_blocks, 6]  per 64-row q block (forward): (sink_b0,
-//         sink_b1, win_b0, win_b1, s of the block's first row, s of its
-//         last row): the sink blocks of the first row's segment, then the
-//         window blocks from max(first row's s, first row - window + 1),
-//         disjoint, in 64-key blocks;
-//   dq    [B, n_dq_blocks, 6]  the same per 128-row q block in KV blocks
+//   fwd   [B, n_fwd_blocks, 4]  per 128-row q block (forward): (sink_b0,
+//         sink_b1, win_b0, win_b1): the sink blocks of the first row's
+//         segment, then the window blocks from max(first row's s, first
+//         row - window + 1), disjoint, in 128-key blocks;
+//   fwd_order [B * n_fwd_blocks]: the (b, q block) units b * n_fwd_blocks
+//         + qb of the fwd table, most KV blocks first;
+//   dq    [B, n_dq_blocks, 4]  the same per 128-row q block in KV blocks
 //         of sink_packed_dq_block_n(D) keys (dQ);
 //   dq_order [B * n_dq_blocks]: the (b, q block) units b * n_dq_blocks +
 //         qb of the dq table, most KV blocks first;
@@ -47,46 +52,36 @@
 //   order [B * n_kv_blocks]: the (b, KV block) units b * n_kv_blocks + kb,
 //         longest q-block range first;
 //   reach [B, N]: reach(j), so key j sees exactly the rows [j, reach(j)).
-// A forward tile is mask-free when its rows share one segment (first-row
-// s == last-row s) and every cell is inside it.
 
 #include "hopper_bwd.cuh"
 #include "hopper_dq.cuh"
 
 namespace {
 
-using sinkattn::BM;
-using sinkattn::BN;
 using sinkattn::RowSpan;
 using sinkattn::hopper::DKDV_BM;
 using sinkattn::hopper::DKDV_BN;
 using sinkattn::hopper::DQ_BM;
 using sinkattn::hopper::dq_bn;
+using sinkattn::hopper::FWD_BM;
+using sinkattn::hopper::FWD_BN;
 
 struct PackedMask {
-  static constexpr bool kBatchTables = true;  // dQ, dK/dV tables per row b
-  struct Row {
-    int i, s;  // the row and its segment start
-  };
-  const int* table;  // the q, the dq or the kv table above
+  static constexpr bool kBatchTables = true;  // tables per row b
+  const int* table;  // the fwd, the dq or the kv table above
   const int* seg;    // [B, N] (forward, dQ)
   const int* reach;  // [B, N] (dK/dV)
   int N, n_blocks, num_sink, window;
 
   __device__ const int* q_block(int b, int qb) const {
-    return table + (b * n_blocks + qb) * 6;
+    return table + (b * n_blocks + qb) * 4;
   }
   __device__ const int* kv_block(int b, int kb) const {
     return table + (b * n_blocks + kb) * 2;
   }
-  // Rows past N get s = row: no column is visible to them.
-  __device__ int seg_of(int b, int qrow) const {
-    return qrow < N ? seg[(size_t)b * N + qrow] : qrow;
-  }
-  __device__ Row row(int b, int qrow) const { return {qrow, seg_of(b, qrow)}; }
   // Row i's (< N) runs of visible keys: the sink run [max(s_i, 0),
   // min(s_i + num_sink, i + 1)) and the window run [max(s_i, i - window + 1,
-  // 0), i + 1): the visible set of visible() below.
+  // 0), i + 1): the visible set of valid(i, j) above.
   __device__ RowSpan row_span(int b, int i) const {
     const int s = seg[(size_t)b * N + i];
     RowSpan r;
@@ -101,22 +96,6 @@ struct PackedMask {
     lo = j;
     n = j < N ? max(reach[(size_t)b * N + j] - j, 0) : 0;
   }
-  __device__ bool visible(Row r, int j) const {
-    return j < N && j <= r.i && j >= r.s &&
-           (j < r.s + num_sink || j >= r.i - window + 1);
-  }
-  // Every cell of the 64 x 64 forward tile q block qb x keys [col0,
-  // col0 + BN) is visible, given the segment starts of the block's first
-  // and last rows.
-  __device__ bool tile_full(int s_first, int s_last, int qb, int col0) const {
-    const int r_lo = qb * BM, r_hi = r_lo + BM - 1, c_hi = col0 + BN - 1;
-    return s_first == s_last && col0 + BN <= N && c_hi <= r_lo &&
-           col0 >= s_first &&
-           (c_hi < s_first + num_sink || col0 >= r_hi - window + 1);
-  }
-  __device__ bool q_tile_full(const int* rg, int qb, int col0) const {
-    return tile_full(rg[4], rg[5], qb, col0);
-  }
 };
 
 PackedMask make_mask(const void* table, const void* seg, const void* reach,
@@ -129,22 +108,25 @@ PackedMask make_mask(const void* table, const void* seg, const void* reach,
 
 }  // namespace
 
-// q [B*H_q, N, D], k/v [B*H_kv, N, D] bf16 contiguous; s_aux [H_q] fp32 or
-// null; qtable [B, ceil(N/64), 6], seg [B, N] int32; o like q; lse
-// [B*H_q, N] fp32.
+// q [B*H_q, N, D], k/v [B*H_kv, N, D] bf16 contiguous, 16-byte aligned;
+// s_aux [H_q] fp32 or null; fwdtable [B, ceil(N/128), 4], fwdorder
+// [B * ceil(N/128)], seg [B, N] int32; o like q; lse [B*H_q, N] fp32.
 extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
-                              const void* s_aux, const void* qtable,
-                              const void* seg, void* o, void* lse, int B,
-                              int H_q, int H_kv, int N, int D, int num_sink,
-                              int window, float scale, void* stream) {
-  return sinkattn::launch_fwd(
-      q, k, v, s_aux, o, lse, B, H_q, H_kv, N, N, D, scale,
-      make_mask(qtable, seg, nullptr, N, BM, num_sink, window), stream);
+                              const void* s_aux, const void* fwdtable,
+                              const void* fwdorder, const void* seg, void* o,
+                              void* lse, int B, int H_q, int H_kv, int N,
+                              int D, int num_sink, int window, float scale,
+                              void* stream) {
+  return sinkattn::hopper::launch_fwd(
+      q, k, v, s_aux, fwdorder, o, lse, B, H_q, H_kv, N, N, D, scale,
+      make_mask(fwdtable, seg, nullptr, N, FWD_BM, num_sink, window),
+      stream);
 }
 
 // As sink_pfwd_bf16, plus dout like q and lse, delta [B*H_q, N] fp32;
-// dqtable [B, ceil(N/128), 6] (KV blocks of sink_packed_dq_block_n(D)
-// keys) and dqorder [B * ceil(N/128)] int32 in place of qtable; dq like q.
+// dqtable [B, ceil(N/128), 4] (KV blocks of sink_packed_dq_block_n(D)
+// keys) and dqorder [B * ceil(N/128)] int32 in place of fwdtable and
+// fwdorder; dq like q.
 extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, const void* dqtable,
@@ -158,8 +140,8 @@ extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
 }
 
 // As sink_pdq_bf16 with kvtable [B, ceil(N/128), 2], order
-// [B * ceil(N/128)] and reach [B, N] int32 in place of qtable and seg; dk,
-// dv like k.
+// [B * ceil(N/128)] and reach [B, N] int32 in place of dqtable, dqorder and
+// seg; dk, dv like k.
 extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* kvtable,
@@ -175,8 +157,8 @@ extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
 
 // Tile sizes the host-side tables must use: the forward's, dQ's and
 // dK/dV's.
-extern "C" int sink_packed_block_m() { return BM; }
-extern "C" int sink_packed_block_n() { return BN; }
+extern "C" int sink_packed_block_m() { return FWD_BM; }
+extern "C" int sink_packed_block_n() { return FWD_BN; }
 extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
 extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(D); }
 extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }

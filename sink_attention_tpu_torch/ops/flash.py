@@ -51,10 +51,10 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "fwd_kv_ranges", "dq_block_order", "dkdv_q_ranges",
            "dkdv_block_order"]
 
-BM = 64  # packed forward / ablation query rows per tile (csrc/packed.cu)
-BN = 64  # packed forward / ablation keys per KV tile (csrc/packed.cu)
-FWD_BM = 128  # the forward kernel's query rows per CTA (csrc/flash_fwd.cu)
-FWD_BN = 128  # the forward kernel's keys per KV tile (csrc/flash_fwd.cu)
+BM = 64  # the ablation kernels' query rows per tile (csrc/ablation.cu)
+BN = 64  # the ablation kernels' keys per KV tile (csrc/ablation.cu)
+FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
+FWD_BN = 128  # the forward kernels' keys per KV tile (csrc/hopper.cuh)
 DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
 DQ_BN = {64: 128, 128: 64}  # its keys per KV tile by head dim (dq_bn there)
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)

@@ -9,9 +9,10 @@ gets its own sinks and causal window (``ops.reference.packed_rows_mask``).
 that count up by 1 and reset to 0: the tables below rely on it, as the JAX
 kernels do, and nothing checks it.
 
-Three kernels in ``csrc/packed.cu`` over the packed mask (the forward of
-``csrc/attention.cuh``, the wgmma/TMA dQ of ``csrc/hopper_dq.cuh`` and
-dK/dV of ``csrc/hopper_bwd.cuh``), each beside its plain PyTorch version:
+Three kernels in ``csrc/packed.cu`` over the packed mask (the wgmma/TMA
+forward of ``csrc/hopper.cuh``, dQ of ``csrc/hopper_dq.cuh`` and dK/dV of
+``csrc/hopper_bwd.cuh``, the unpacked path's kernels), each beside its
+plain PyTorch version:
 
 * ``sink_pfwd_bf16`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
   plain version :func:`packed_fwd_plain`;
@@ -46,9 +47,9 @@ from typing import List, NamedTuple
 import torch
 
 from . import _build
-from .flash import (BM, BN, DKDV_BM, DKDV_BN, DQ_BM, DQ_BN, _WINDOW_CLAMP,
-                    _bwd_operands, attention_backward, bwd_plain_chunks,
-                    fwd_plain_chunks, load_fn)
+from .flash import (DKDV_BM, DKDV_BN, DQ_BM, DQ_BN, FWD_BM, FWD_BN,
+                    _WINDOW_CLAMP, _bwd_operands, attention_backward,
+                    bwd_plain_chunks, fwd_plain_chunks, load_fn)
 from .reference import packed_rows_mask
 
 __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
@@ -61,11 +62,14 @@ class PackedTables(NamedTuple):
     head_dim):
 
     * ``seg`` [B, N]: the segment start ``s_i`` of every row;
-    * ``q`` [B, ceil(N/64), 6]: per 64-row q block (the forward, tiles
-      ``BM`` x ``BN``), the 64-key KV blocks it visits as two half-open
-      ranges (sink_b0, sink_b1) and (win_b0, win_b1), then the segment
-      starts of its first and last row;
-    * ``dq`` [B, ceil(N/128), 6]: the same per 128-row q block (dQ, tiles
+    * ``fwd`` [B, ceil(N/128), 4]: per 128-row q block (the forward, tiles
+      ``FWD_BM`` x ``FWD_BN``), the 128-key KV blocks it visits as two
+      half-open ranges (sink_b0, sink_b1) and (win_b0, win_b1);
+    * ``fwd_order`` [B * ceil(N/128)]: the (batch row, q block) units
+      ``b * ceil(N/128) + block`` of ``fwd``, most KV blocks first (ties in
+      unit order): the order the forward kernel's persistent CTAs take them
+      in;
+    * ``dq`` [B, ceil(N/128), 4]: the same per 128-row q block (dQ, tiles
       ``DQ_BM`` x ``DQ_BN[head_dim]``);
     * ``dq_order`` [B * ceil(N/128)]: the (batch row, q block) units
       ``b * ceil(N/128) + block`` of ``dq``, most KV blocks first (ties in
@@ -80,7 +84,8 @@ class PackedTables(NamedTuple):
       is visible to exactly the rows [j, reach[j]) (dK/dV's per-key mask).
     """
     seg: torch.Tensor
-    q: torch.Tensor
+    fwd: torch.Tensor
+    fwd_order: torch.Tensor
     dq: torch.Tensor
     dq_order: torch.Tensor
     kv: torch.Tensor
@@ -94,13 +99,12 @@ def _cdiv_t(x: torch.Tensor, d: int) -> torch.Tensor:
 
 def _q_table(seg: torch.Tensor, bm: int, bn: int, num_sink: int,
              window: int) -> torch.Tensor:
-    """[B, ceil(N/bm), 6]: per q block of ``bm`` rows, the ``bn``-key
-    blocks of its sink and window ranges and the segment starts of its
-    first and last rows (see :func:`packed_tables`)."""
+    """[B, ceil(N/bm), 4]: per q block of ``bm`` rows, the ``bn``-key
+    blocks of its sink and window ranges (see :func:`packed_tables`)."""
     N = seg.shape[1]
     r0 = torch.arange(-(-N // bm), device=seg.device) * bm
     r1 = (r0 + bm - 1).clamp(max=N - 1)
-    s_first, s_last = seg[:, r0], seg[:, r1]
+    s_first = seg[:, r0]
     lo = s_first.clamp(min=0)
     hi = torch.minimum(s_first + num_sink, r1 + 1)
     has_sink = hi > lo
@@ -110,8 +114,7 @@ def _q_table(seg: torch.Tensor, bm: int, bn: int, num_sink: int,
     win_lo = torch.maximum(s_first, r0 - window + 1).clamp(min=0)
     win_b0 = torch.maximum(win_lo // bn, sink_b1)
     win_b1 = torch.maximum(_cdiv_t(r1 + 1, bn).expand_as(win_b0), win_b0)
-    return torch.stack([sink_b0, sink_b1, win_b0, win_b1, s_first, s_last],
-                       dim=-1)
+    return torch.stack([sink_b0, sink_b1, win_b0, win_b1], dim=-1)
 
 
 def _longest_first(lengths: torch.Tensor) -> torch.Tensor:
@@ -119,20 +122,25 @@ def _longest_first(lengths: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-lengths.flatten(), stable=True)
 
 
+def _n_blocks(table: torch.Tensor) -> torch.Tensor:
+    """[B, n]: the KV blocks each q block of a q table visits."""
+    return table[..., 1] - table[..., 0] + table[..., 3] - table[..., 2]
+
+
 def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
                   head_dim: int) -> PackedTables:
     """The kernels' tables for ``positions`` [B, N] and heads of
     ``head_dim``, on the positions' device.
 
-    Forward (64-row q blocks, 64-key KV blocks) and dQ (128-row q blocks,
-    KV blocks of ``DQ_BN[head_dim]`` keys), per q block of rows [r0, r1]:
-    the sink range covers the first row's segment's sink columns
+    Forward (128-row q blocks, 128-key KV blocks) and dQ (128-row q
+    blocks, KV blocks of ``DQ_BN[head_dim]`` keys), per q block of rows
+    [r0, r1]: the sink range covers the first row's segment's sink columns
     [max(s_r0, 0), s_r0 + num_sink), cut at r1; the window range covers
     [max(s_r0, r0 - window + 1, 0), r1] and starts after the sink range, so
     no block is visited twice. A later segment starting inside the block
-    starts after r0, so its sinks lie in the window range. dQ takes its
-    blocks most KV blocks first: the long items of a pack are not its last
-    blocks.
+    starts after r0, so its sinks lie in the window range. The forward and
+    dQ take their blocks most KV blocks first: the long items of a pack are
+    each segment's last blocks, not the pack's.
 
     dK/dV, per 128-slot KV block of columns [c0, c1]: 64-row q blocks from
     c0's on (causal) up to cdiv(max_j reach(j), 64), where reach(j) is the
@@ -149,10 +157,8 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     idx = torch.arange(N, device=dev)
     seg = idx - pos
     n_q_blocks, n_kv_blocks = -(-N // DKDV_BM), -(-N // DKDV_BN)
-    qtab = _q_table(seg, BM, BN, num_sink, window)
+    fwdtab = _q_table(seg, FWD_BM, FWD_BN, num_sink, window)
     dqtab = _q_table(seg, DQ_BM, DQ_BN[head_dim], num_sink, window)
-    dq_order = _longest_first(dqtab[..., 1] - dqtab[..., 0] +
-                              dqtab[..., 3] - dqtab[..., 2])
 
     # seg_end(j): the first reset after j, else N
     resets = torch.where(pos == 0, idx, N)
@@ -169,9 +175,10 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     qb1 = torch.maximum(_cdiv_t(block_reach, DKDV_BM).clamp(max=n_q_blocks),
                         qb0)
     kvtab = torch.stack([qb0, qb1], dim=-1)
-    order = _longest_first(qb1 - qb0)
     return PackedTables(*(t.int().contiguous() for t in (
-        seg, qtab, dqtab, dq_order, kvtab, order, reach)))
+        seg, fwdtab, _longest_first(_n_blocks(fwdtab)), dqtab,
+        _longest_first(_n_blocks(dqtab)), kvtab, _longest_first(qb1 - qb0),
+        reach)))
 
 
 # (weakref to the positions tensor, its version, device, num_sink, window,
@@ -218,7 +225,8 @@ def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     lib = _build.load("packed")
-    if ((lib.sink_packed_block_m(), lib.sink_packed_block_n()) != (BM, BN) or
+    if ((lib.sink_packed_block_m(), lib.sink_packed_block_n())
+            != (FWD_BM, FWD_BN) or
             lib.sink_packed_dq_block_m() != DQ_BM or
             any(lib.sink_packed_dq_block_n(d) != bn
                 for d, bn in DQ_BN.items()) or
@@ -226,7 +234,7 @@ def _kernel_fns():
             != (DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
                            "tile sizes")
-    return (load_fn("packed", "sink_pfwd_bf16", 8, 7),
+    return (load_fn("packed", "sink_pfwd_bf16", 9, 7),
             load_fn("packed", "sink_pdq_bf16", 10, 7),
             load_fn("packed", "sink_pdkdv_bf16", 11, 7))
 
@@ -251,11 +259,13 @@ def _geometry(q, k, v, positions, num_sink, window_size):
 
 def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
                       window_size: int = 512):
-    """Launch ``sink_pfwd_bf16`` of ``csrc/packed.cu``: (out, lse).
+    """Launch ``sink_pfwd_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper.cuh``): (out, lse).
 
     q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16 with D in (64, 128); positions
     [B, N] (any int dtype, any device); s_aux [H_q] or None.
-    ``packed_fwd_kernel.launches`` counts the launches.
+    ``packed_fwd_kernel.launches`` counts the launches. A warmed call (the
+    positions' tables already built) synchronises nothing.
     """
     _build.check_attention_inputs(q, k, v, s_aux)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
@@ -266,8 +276,8 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
            else None)
     out = torch.empty_like(qc)
     lse = torch.empty((B, H_q, N), dtype=torch.float32, device=q.device)
-    ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, tables.q, tables.seg,
-                                    out, lse)]
+    ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, tables.fwd,
+                                    tables.fwd_order, tables.seg, out, lse)]
     code = _kernel_fns()[0](*ptrs, *geom, 1.0 / (D ** 0.5),
                             _build.stream_ptr(q.device))
     _build.check(code, "sink_pfwd_bf16")
@@ -391,9 +401,9 @@ def sink_flash_attention_packed(q, k, v, positions, num_sink: int = 4,
 
     Returns:
         [B, H_q, N, D] in q.dtype. On CUDA the packed forward kernel runs,
-        and the packed dQ and dK/dV kernels in the backward; tiles are 64 x
-        64 for the forward, 128 queries x 128 keys (64 at D = 128) for dQ
-        and 64 queries x 128 keys for dK/dV.
+        and the packed dQ and dK/dV kernels in the backward; tiles are 128
+        x 128 for the forward, 128 queries x 128 keys (64 at D = 128) for
+        dQ and 64 queries x 128 keys for dK/dV.
     """
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"packed attention needs N_q == N_kv: "

@@ -1,25 +1,30 @@
-"""Time the backward kernels (dQ, dK/dV) of this checkout against another
-on one card.
+"""Time the attention kernels (the forward, dQ, dK/dV; unpacked and
+packed) of this checkout against another on one card.
 
-    python3 -m sink_attention_tpu_torch.scripts.bwd_compare OTHER_TREE
-        [--out build/bwd_compare.json]
+    python3 -m sink_attention_tpu_torch.scripts.kernel_compare OTHER_TREE
+        [--kernels flash_fwd_kernel,packed_fwd_kernel,...]
+        [--out build/kernel_compare.json]
 
 ``OTHER_TREE`` is the root of another checkout of the repository (for
-example the parent commit unpacked with ``git archive``). The script runs
-the backward shapes of ``chip_smoke.py``'s phase 2 (the unpacked training
-layers at W=128 and W=4096, the headline, the halo chunk, GQA groups 1 and
-16, N_q = 250; the packed phase-5 mix at both W, the 64-3072 headline pack
-and the packed edge cases) in four passes, other / this / this / other,
-each in its own process with that checkout's package on ``sys.path`` and
-its kernels built into its own ``build/kernels/``. Each pass times
-``flash_dq_kernel`` and ``flash_dkdv_kernel`` (``packed_dq_kernel`` and
-``packed_dkdv_kernel`` on a pack) on seeded inputs: ``ms`` (CUDA events
-over back-to-back calls) and ``device_ms`` (the kernel's own time per
-launch, torch.profiler). It prints one line per shape and kernel with the
-mean of each checkout's two passes and their ratio, and writes every pass
-to ``--out``. Both checkouts must have the wrappers' present signatures
-and ``chip_smoke.py``'s ``pack_lengths``, ``pack_positions`` and
-``per_call_device``. Without CUDA it exits nonzero.
+example the parent commit unpacked with ``git archive``). ``--kernels``
+names the wrappers to time (default: all of KERNELS):
+``flash_fwd_kernel`` runs at the forward's main-path shapes of
+``chip_smoke.py``'s phase 2 (gpt-oss-20b's W=128 and full prefill layers)
+and the headline; ``flash_dq_kernel`` and ``flash_dkdv_kernel`` at its
+backward shapes (the training layers at W=128 and W=4096, the headline,
+the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
+``packed_dq_kernel`` and ``packed_dkdv_kernel`` on its packs (the phase-5
+mix at both W, the 64-3072 headline pack and the edge cases). The shapes
+run in four passes, other / this / this / other, each in its own process
+with that checkout's package on ``sys.path`` and its kernels built into
+its own ``build/kernels/``. Each pass times every chosen kernel on seeded
+inputs: ``ms`` (CUDA events over back-to-back calls) and ``device_ms``
+(the kernel's own time per launch, torch.profiler). It prints one line per
+shape and kernel with the mean of each checkout's two passes and their
+ratio, and writes every pass to ``--out``. Both checkouts must have the
+wrappers' present signatures; the inputs and the device times come from
+this checkout's ``chip_smoke.py`` (``pack_lengths``, ``pack_positions``,
+``per_call_device``) in every pass. Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -32,8 +37,16 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
+KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel",
+           "packed_fwd_kernel", "packed_dq_kernel", "packed_dkdv_kernel")
 
-# (label, B, H_q, H_kv, N, D, num_sink, window, halo)
+# the forward: (label, B, H_q, H_kv, N, D, num_sink, window)
+FORWARD = [
+    ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128),
+    ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024),
+    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096),
+]
+# the backward: (label, B, H_q, H_kv, N, D, num_sink, window, halo)
 UNPACKED = [
     ("W=128", 1, 64, 8, 4096, 64, 0, 128, 0),
     ("W=4096", 1, 64, 8, 4096, 64, 0, 4096, 0),
@@ -61,14 +74,20 @@ PACKED = [
 ]
 
 
-def worker() -> dict:
-    """One pass over the shapes with the package found on sys.path."""
+def worker(kernels) -> dict:
+    """One pass over the shapes of ``kernels`` with the package found on
+    sys.path."""
+    import importlib.util
+
     import torch
 
-    import chip_smoke
     from sink_attention_tpu_torch.ops import flash, packed
     from sink_attention_tpu_torch.utils import time_cuda
 
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
@@ -77,22 +96,37 @@ def worker() -> dict:
 
     def timed(label, fns):
         for kernel, fn in fns.items():
+            if kernel not in kernels:
+                continue
             fn()
             torch.cuda.synchronize()
             ms = time_cuda(fn, iters=20)
             device_ms, _ = chip_smoke.per_call_device(fn, calls=10)
             out[f"{label} {kernel}"] = {"ms": ms, "device_ms": device_ms}
 
+    for label, B, H_q, H_kv, N, D, ns, W in FORWARD:
+        if "flash_fwd_kernel" not in kernels:
+            break
+        q, k, v = mk(B, H_q, N, D), mk(B, H_kv, N, D), mk(B, H_kv, N, D)
+        aux = torch.randn(H_q, generator=gen, device=dev)
+        timed(label, {"flash_fwd_kernel": lambda: flash.flash_fwd_kernel(
+            q, k, v, aux, ns, W)})
     for label, B, H_q, H_kv, N, D, ns, W, halo in UNPACKED:
+        if not {"flash_dq_kernel", "flash_dkdv_kernel"} & kernels:
+            break
         q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
         k, v = mk(B, H_kv, N + halo, D), mk(B, H_kv, N + halo, D)
         geom = (ns, W, 0, -halo)
         o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, *geom)
-        timed(label, {"dq": lambda: flash.flash_dq_kernel(*args),
-                      "dkdv": lambda: flash.flash_dkdv_kernel(*args)})
+        timed(label, {"flash_dq_kernel": lambda: flash.flash_dq_kernel(*args),
+                      "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(
+                          *args)})
     for label, B, H_q, H_kv, D, ns, W, lens, first in PACKED:
+        if not {"packed_fwd_kernel", "packed_dq_kernel",
+                "packed_dkdv_kernel"} & kernels:
+            break
         if lens[0] == "mix":
             lens = chip_smoke.pack_lengths(*lens[1:])
         positions = chip_smoke.pack_positions(lens, first)[None].expand(
@@ -100,18 +134,23 @@ def worker() -> dict:
         N = positions.shape[1]
         q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
         k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
+        aux = torch.randn(H_q, generator=gen, device=dev)
         o, lse = packed.packed_fwd_kernel(q, k, v, positions, None, ns, W)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, positions, ns, W)
-        timed(label, {"dq": lambda: packed.packed_dq_kernel(*args),
-                      "dkdv": lambda: packed.packed_dkdv_kernel(*args)})
+        timed(label, {
+            "packed_fwd_kernel": lambda: packed.packed_fwd_kernel(
+                q, k, v, positions, aux, ns, W),
+            "packed_dq_kernel": lambda: packed.packed_dq_kernel(*args),
+            "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(*args)})
     return out
 
 
-def run_pass(tree: Path) -> dict:
+def run_pass(tree: Path, kernels) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--worker"], cwd=tree, env=env,
+                           "--worker", "--kernels", ",".join(kernels)],
+                          cwd=tree, env=env,
                           capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"the pass in {tree} failed:\n{proc.stdout}\n"
@@ -122,16 +161,23 @@ def run_pass(tree: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", nargs="?", help="root of the other checkout")
-    ap.add_argument("--out", default="build/bwd_compare.json")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated wrappers to time (default: all)")
+    ap.add_argument("--out", default="build/kernel_compare.json")
     ap.add_argument("--worker", action="store_true",
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    kernels = [k for k in args.kernels.split(",") if k]
+    unknown = set(kernels) - set(KERNELS)
+    if unknown or not kernels:
+        ap.error(f"--kernels takes names of {', '.join(KERNELS)}, got "
+                 f"{args.kernels!r}")
     import torch
     if not torch.cuda.is_available():
-        print("bwd_compare: CUDA is not available", file=sys.stderr)
+        print("kernel_compare: CUDA is not available", file=sys.stderr)
         return 1
     if args.worker:
-        print(json.dumps(worker()), flush=True)
+        print(json.dumps(worker(set(kernels))), flush=True)
         return 0
     if args.other is None:
         ap.error("give the other checkout's root")
@@ -139,10 +185,10 @@ def main(argv=None) -> int:
     other = Path(args.other).resolve()
     passes = [("other", other), ("this", ROOT), ("this", ROOT),
               ("other", other)]
-    runs = [(name, run_pass(tree)) for name, tree in passes]
+    runs = [(name, run_pass(tree, kernels)) for name, tree in passes]
     card = card_line()
     print(f"card: {card}")
-    print(f"{'shape, kernel':42s} {'other ms':>10s} {'this ms':>10s} "
+    print(f"{'shape, kernel':52s} {'other ms':>10s} {'this ms':>10s} "
           f"{'ratio':>7s} {'other dev':>10s} {'this dev':>10s}")
     table = {}
     for label in runs[0][1]:
@@ -150,7 +196,7 @@ def main(argv=None) -> int:
                        / 2 for key in ("ms", "device_ms")}
                 for name in ("other", "this")}
         table[label] = mean
-        print(f"{label:42s} {mean['other']['ms']:10.4f} "
+        print(f"{label:52s} {mean['other']['ms']:10.4f} "
               f"{mean['this']['ms']:10.4f} "
               f"{mean['this']['ms'] / mean['other']['ms']:7.3f} "
               f"{mean['other']['device_ms']:10.4f} "

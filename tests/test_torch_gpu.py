@@ -243,6 +243,14 @@ PACKED_CASES = [
     (1, 64, 8, 1024, 64, 0, 1024, True, 0, (700, 324)),     # gpt-oss full layer
     (1, 8, 1, 1000, 128, 4, 128, True, 0, (2, 30, 32, 500, 436)),  # group 8
     (1, 16, 1, 250, 64, 70, 1, True, 0, (2, 32, 216)),      # group 16, W = 1
+] + [
+    # the forward's 128-row items and 64-row consumer halves: a segment
+    # start inside a half, one at an item boundary, a 1-token segment; both
+    # head dims, with and without s_aux
+    (1, 8, 2, 1024, d, 4, w, aux, 0, lengths)
+    for d in (64, 128) for aux in (True, False)
+    for lengths, w in (((200, 824), 128), ((256, 768), 1024),
+                       ((500, 1, 523), 128))
 ]
 
 

@@ -194,41 +194,42 @@ TABLE_CASES = [
 @pytest.mark.parametrize("case", TABLE_CASES)
 def test_tables_cover_the_mask(case):
     """Every visible (row, column) pair lies in a tile that the forward
-    table (64 x 64), the dQ table (128 rows x 128 keys at head dim 64, x 64
-    keys at 128) and the dK/dV table (64 x 128) visit; the forward and dQ
-    tables visit no block twice and stay inside the pack; the segment
+    table (128 x 128), the dQ table (128 rows x 128 keys at head dim 64, x
+    64 keys at 128) and the dK/dV table (64 x 128) visit; the forward and
+    dQ tables visit no block twice and stay inside the pack; the segment
     vector is i - positions; each key j is visible to exactly the rows [j,
-    reach[j]); the dQ and dK/dV orders list every (row, block) unit once,
-    longest first."""
+    reach[j]); the forward, dQ and dK/dV orders list every (row, block)
+    unit once, longest first."""
     seglens, first, N, ns, W = case
     pos = torch.from_numpy(_positions(seglens, first=first)[:, :N])
     tabs = tpacked.packed_tables(pos, ns, W, 64)
     tabs128 = tpacked.packed_tables(pos, ns, W, 128)
     mask = packed_sink_window_mask(pos, ns, W)[0].numpy()
     seg = np.arange(N) - pos[0].numpy()
-    n_qb, n_kb = -(-N // tflash.BM), -(-N // tflash.DKDV_BN)
-    n_dqb = -(-N // tflash.DQ_BM)
-    assert tabs.q.shape == (1, n_qb, 6) and tabs.kv.shape == (1, n_kb, 2)
-    assert tabs.dq.shape == tabs128.dq.shape == (1, n_dqb, 6)
+    n_qb, n_kb = -(-N // tflash.DKDV_BM), -(-N // tflash.DKDV_BN)
+    n_fwdb, n_dqb = -(-N // tflash.FWD_BM), -(-N // tflash.DQ_BM)
+    assert tabs.fwd.shape == (1, n_fwdb, 4) and tabs.kv.shape == (1, n_kb, 2)
+    assert tabs.dq.shape == tabs128.dq.shape == (1, n_dqb, 4)
+    assert torch.equal(tabs.fwd, tabs128.fwd)
+    assert torch.equal(tabs.fwd_order, tabs128.fwd_order)
     np.testing.assert_array_equal(tabs.seg[0].numpy(), seg)
-    for table, (bm, bn) in ((tabs.q, (tflash.BM, tflash.BN)),
+    for table, (bm, bn) in ((tabs.fwd, (tflash.FWD_BM, tflash.FWD_BN)),
                             (tabs.dq, (tflash.DQ_BM, tflash.DQ_BN[64])),
                             (tabs128.dq, (tflash.DQ_BM, tflash.DQ_BN[128]))):
-        for qi, (s0, s1, w0, w1, sf, sl) in enumerate(table[0].tolist()):
+        for qi, (s0, s1, w0, w1) in enumerate(table[0].tolist()):
             visited = list(range(s0, s1)) + list(range(w0, w1))
             assert len(set(visited)) == len(visited), (qi, table[0, qi])
             assert all(0 <= blk < -(-N // bn) for blk in visited), (
                 qi, table[0, qi])
             cols = np.nonzero(mask[qi * bm:(qi + 1) * bm].any(axis=0))[0]
             assert set(cols // bn) <= set(visited), (qi, table[0, qi])
-            assert (sf, sl) == (seg[qi * bm], seg[min(qi * bm + bm, N) - 1])
-    for t in (tabs, tabs128):
-        dq_lengths = (t.dq[0, :, 1] - t.dq[0, :, 0] + t.dq[0, :, 3]
-                      - t.dq[0, :, 2]).numpy()
-        dq_order = t.dq_order.numpy()
-        assert sorted(dq_order.tolist()) == list(range(n_dqb))
-        assert (np.diff(dq_lengths[dq_order]) <= 0).all(), (
-            dq_lengths[dq_order])
+    for table, units in ((tabs.fwd, tabs.fwd_order), (tabs.dq, tabs.dq_order),
+                         (tabs128.dq, tabs128.dq_order)):
+        lengths = (table[0, :, 1] - table[0, :, 0] + table[0, :, 3]
+                   - table[0, :, 2]).numpy()
+        units = units.numpy()
+        assert sorted(units.tolist()) == list(range(table.shape[1]))
+        assert (np.diff(lengths[units]) <= 0).all(), lengths[units]
     kbm, kbn = tflash.DKDV_BM, tflash.DKDV_BN
     for ki, (b0, b1) in enumerate(tabs.kv[0].tolist()):
         assert 0 <= b0 <= b1 <= n_qb, (ki, tabs.kv[0, ki])
@@ -247,17 +248,19 @@ def test_tables_cover_the_mask(case):
 def test_full_layer_tables_skip_other_segments():
     """At W >= N the tables visit only tiles that touch a segment's own
     causal triangle: about sum(L^2) / 2 pairs, far below N^2 / 2. The
-    forward's 64 x 64 tiles: the triangle's 8 * 9 / 2 tiles a segment; the
-    dQ kernel's 128-row q blocks (head dim 64): 1 + 2 + 3 + 4 blocks of 128
-    keys; the dK/dV kernel's 128-key blocks: 8 + 6 + 4 + 2 q blocks of 64
-    rows. The dQ order takes each segment's last q block first."""
+    forward's 128 x 128 tiles: the triangle's 4 * 5 / 2 tiles a segment;
+    the dQ kernel's 128-row q blocks (head dim 64): 1 + 2 + 3 + 4 blocks of
+    128 keys; the dK/dV kernel's 128-key blocks: 8 + 6 + 4 + 2 q blocks of
+    64 rows. The forward and dQ orders take each segment's last q block
+    first."""
     seglens, N = [512] * 8, 4096
     pos = torch.from_numpy(_positions(seglens))
     tabs = tpacked.packed_tables(pos, 0, 1 << 30, 64)
-    fwd_tiles = int((tabs.q[0, :, 3] - tabs.q[0, :, 2]).sum())
+    fwd_tiles = int((tabs.fwd[0, :, 3] - tabs.fwd[0, :, 2]).sum())
     dq_tiles = int((tabs.dq[0, :, 3] - tabs.dq[0, :, 2]).sum())
     dkdv_tiles = int((tabs.kv[0, :, 1] - tabs.kv[0, :, 0]).sum())
-    per_segment = 8 * (512 // 64) * (512 // 64 + 1) // 2
+    fwd_blocks = 512 // tflash.FWD_BM
+    per_segment = 8 * fwd_blocks * (fwd_blocks + 1) // 2
     dq_blocks = 512 // tflash.DQ_BM
     per_segment_dq = 8 * sum((qb + 1) * tflash.DQ_BM // tflash.DQ_BN[64]
                              for qb in range(dq_blocks))
@@ -267,3 +270,4 @@ def test_full_layer_tables_skip_other_segments():
     assert fwd_tiles == per_segment and dkdv_tiles == per_segment_dkdv
     assert dq_tiles == per_segment_dq
     assert tabs.dq_order[:8].tolist() == list(range(3, 32, 4))
+    assert tabs.fwd_order[:8].tolist() == list(range(3, 32, 4))
