@@ -8,7 +8,8 @@
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
      the build time and ptxas' register / shared-memory / spill lines (no
-     instance of a wgmma kernel, the forward, dQ or dK/dV, may spill);
+     instance of a wgmma kernel, the forward, dQ, dK/dV or an ablation
+     stage of the forward, may spill);
   2. kernels: run each kernel and its plain PyTorch version on the card at
      the main paths' shapes and at the headline attention shape (the packed
      kernels also at edge cases of the mask; the int8 and fp8 decode also
@@ -59,14 +60,17 @@ Phases:
      kernel against plain, and the replay's logits against teacher forcing
      and a control (see ``serve_engine``);
   7. ablation: the forward kernel's per-stage ablation (the ablation and
-     mask-stage kernels, every stage of scripts/mfu_ablation.py) at the JAX
-     script's headline shape and at gpt-oss-20b's two prefill shapes: each
-     stage against its plain version (the correct ones also against the
-     forward kernel), then the entry point's table of ms, effective MFU
-     and deltas, with the plain versions' times, SDPA for the correct
-     stages and each stage's bound, and one line of the wgmma/TMA forward
-     (``full``) against the old mma.sync skeleton on the same function
-     (``maskadd``, ``masksel``) at the three shapes (see
+     mask-stage kernels: every stage of scripts/mfu_ablation.py as a
+     softmax policy of the wgmma/TMA forward, at its 128 x 128 tiles) at
+     the JAX script's headline shape and at gpt-oss-20b's two prefill
+     shapes: each stage against its plain version (the correct ones also
+     against the forward kernel), then the entry point's table of ms,
+     effective MFU and deltas, with each stage's device time per call
+     without the host's gaps (``queued_ms``) and its cost over
+     ``mxu_floor``, the plain versions' times, SDPA for the correct
+     stages and each stage's bound, and one line of the forward (``full``)
+     against its mask stages (``maskadd``, ``masksel``: the same function
+     with the JAX script's constant-tile masks) at the three shapes (see
      ``ablation_phase``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
@@ -99,10 +103,13 @@ _HOPPER = "wgmma/TMA, warp-specialised, persistent"
 # instantiates it over its mask policy)
 TEMPLATE = {"flash_fwd": "hopper.cuh", "packed_fwd": "hopper.cuh",
             "flash_dq": "hopper_dq.cuh", "packed_dq": "hopper_dq.cuh",
-            "flash_dkdv": "hopper_bwd.cuh", "packed_dkdv": "hopper_bwd.cuh"}
+            "flash_dkdv": "hopper_bwd.cuh", "packed_dkdv": "hopper_bwd.cuh",
+            "ablation": "hopper.cuh", "mask_stage": "hopper.cuh"}
 REDESIGNED = {"flash_fwd": _HOPPER, "flash_dq": _HOPPER, "flash_dkdv": _HOPPER,
               "packed_fwd": _HOPPER, "packed_dq": _HOPPER,
               "packed_dkdv": _HOPPER,
+              "ablation": _HOPPER + ", the forward's softmax policy",
+              "mask_stage": _HOPPER + ", the forward's softmax policy",
               "decode": "one cluster launch",
               "decode_int8": "one cluster launch",
               "decode_fp8": "one cluster launch"}
@@ -816,6 +823,37 @@ def per_call_device(fn, calls=20, tries=5):
     raise RuntimeError(f"torch.profiler recorded no device event in "
                        f"{tries} windows of {calls}-{calls << (tries - 1)} "
                        "calls")
+
+
+def queued_ms(fn, calls=20, windows=3, tries=4):
+    """Device ms per call of ``fn`` without the host's launch gaps and
+    without the profiler: CUDA events around ``calls`` calls queued behind
+    a spin kernel (one thread, ~10 ms), so that every call waits on the
+    card before the first starts and then they run back to back. A window
+    counts only if the spin was still running when its last call had been
+    queued (its start event not yet reached); a window that does not count
+    is made again with the spin doubled, up to ``tries`` times. The median
+    of ``windows`` windows that count; None if one never counted."""
+    fn()
+    torch.cuda.synchronize()
+    cycles, times, missed = 20_000_000, [], 0
+    while len(times) < windows:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            times.append(start.elapsed_time(end) / calls)
+            continue
+        missed += 1
+        if missed > tries:
+            return None
+        cycles *= 2
+    return sorted(times)[len(times) // 2]
 
 
 def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
@@ -1709,22 +1747,32 @@ def _ablation_check(q, k, v, stage, ns, W, ref):
     return res
 
 
+def _less(a, b):
+    """a - b, or None where either was not measured."""
+    return None if a is None or b is None else a - b
+
+
+def _fmt(x, spec):
+    return "null" if x is None else format(x, spec)
+
+
 def _ablation_bound(stage, B, H_q, H_kv, N, D, ns, W):
     """(bound ms, bound_by) of one stage: a correct stage's FLOPs are
     those of the visible pairs, a stripped stage's those of every cell of
     the visited tiles (it sums over them, masked cells included), 4 D per
     cell (QK^T and PV); bytes: q, k, v read and out written once (and the
-    mask tiles)."""
+    mask tiles: maskadd two bf16 tiles, masksel one int8 tile)."""
     from sink_attention_tpu_torch.ops import ablation
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
                                                 attention_pairs)
+    tile = ablation.BM * ablation.BN  # cells of one visited tile
     if stage in ABLATION_CORRECT:
         cells = attention_pairs(N, N, ns, W)
     else:
-        cells = int(ablation.visited_blocks(N, ns, W)[1].sum()) * 64 * 64
+        cells = int(ablation.visited_blocks(N, ns, W)[1].sum()) * tile
     flops = 4 * D * B * H_q * cells
     nbytes = 2 * (2 * B * H_q * N * D + 2 * B * H_kv * N * D)
-    nbytes += {"maskadd": 2 * 64 * 64 * 2, "masksel": 64 * 64}.get(stage, 0)
+    nbytes += {"maskadd": 2 * tile * 2, "masksel": tile}.get(stage, 0)
     t_ops, t_bytes = flops / H100_PEAK_BF16 * 1e3, nbytes / H100_HBM_BW * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -1737,9 +1785,11 @@ def ablation_phase(dev):
     entry point's table (sink_attention_tpu_torch.scripts.mfu_ablation:
     each stage timed, the mask stages held to the production forward, then
     "full") runs at each shape with the launch counters set to 0 just
-    before it and read just after; then the plain versions', SDPA's (the
-    correct stages' yardstick) and the bounds. Returns (rows by shape,
-    launches, errors)."""
+    before it and read just after; then each stage's device time per
+    call with the host's gaps taken out (``queued_ms``) and its cost over
+    mxu_floor's, the plain versions', SDPA's (the correct stages'
+    yardstick) and the bounds.
+    Returns (rows by shape, launches, errors)."""
     from sink_attention_tpu_torch.ops import ablation, flash
     from sink_attention_tpu_torch.ops.reference import sink_window_mask
     from sink_attention_tpu_torch.scripts import mfu_ablation
@@ -1770,17 +1820,28 @@ def ablation_phase(dev):
         log(f"ablation table [{label}: {shape}]:")
         for line in mfu_ablation.format_rows(tables[label]):
             log("  " + line)
+        floor = None
         for t in tables[label]:
             st = t["stage"]
             if st == "full":
-                rows[label]["full"] = {"ms": t["ms"], "mfu": t["mfu"],
-                                       "library_ms": library_ms}
+                rows[label]["full"] = {
+                    "ms": t["ms"], "mfu": t["mfu"], "library_ms": library_ms,
+                    "queued_ms": queued_ms(lambda: flash.flash_fwd_kernel(
+                        q, k, v, None, ns, W))}
                 continue
             r = rows[label][st]
             r.update(shape=shape, ms=t["ms"], mfu=t["mfu"],
                      delta_ms=t["delta_ms"],
                      library_ms=library_ms if st in ABLATION_CORRECT
                      else None)
+            r["queued_ms"] = queued_ms(
+                lambda: ablation.ablation_attention(q, k, v, st, ns, W))
+            if st == "mxu_floor":
+                floor = r
+            if floor is not None:
+                r["minus_floor_ms"] = r["ms"] - floor["ms"]
+                r["minus_floor_queued_ms"] = _less(r["queued_ms"],
+                                                   floor["queued_ms"])
             r["plain_ms"] = time_cuda(lambda: ablation.ablation_plain(
                 q, k, v, st, ns, W), iters=2, warmup=1)
             r["bound_ms"], r["bound_by"] = _ablation_bound(st, B, H_q, H_kv,
@@ -1791,10 +1852,15 @@ def ablation_phase(dev):
                 f"nan_same={r['nan_same']}"
                 + (f" vs_flash={r['vs_flash']:.3e}" if "vs_flash" in r
                    else "")
-                + f" ok={r['ok']} ms={r['ms']:.4f} eff_mfu="
+                + f" ok={r['ok']} ms={r['ms']:.4f} queued_ms="
+                f"{_fmt(r['queued_ms'], '.4f')} eff_mfu="
                 f"{r['mfu'] * 100:.2f}% delta_ms="
                 + ("none" if r["delta_ms"] is None else
                    f"{r['delta_ms']:+.4f}")
+                + (f" minus_floor_ms={r['minus_floor_ms']:+.4f} "
+                   f"minus_floor_queued_ms="
+                   f"{_fmt(r['minus_floor_queued_ms'], '+.4f')}"
+                   if "minus_floor_ms" in r else "")
                 + f" plain_ms={r['plain_ms']:.4f} library_ms="
                 + ("none" if r["library_ms"] is None else
                    f"{r['library_ms']:.4f}")
@@ -1803,15 +1869,17 @@ def ablation_phase(dev):
                 errors.append(f"ablation {st} [{label}] disagrees with its "
                               f"plain version: {r['max_abs_err']:.3e}")
         del mask
-    # `full` is the wgmma/TMA forward; `maskadd` and `masksel` compute the
-    # same function on the old mma.sync skeleton: before and after, one call
-    log("forward, new kernel (full) against the old skeleton on the same "
-        "function (maskadd, masksel), ms: " + "; ".join(
-            f"{label} {rows[label]['full']['ms']:.4f} vs "
-            f"{rows[label]['maskadd']['ms']:.4f}, "
-            f"{rows[label]['masksel']['ms']:.4f} (x"
-            f"{rows[label]['maskadd']['ms'] / rows[label]['full']['ms']:.2f})"
-            for label, *_ in ABLATION_SHAPES))
+    # `full` is the forward; `maskadd` and `masksel` compute the same
+    # function on the same kernel with the JAX script's constant-tile masks
+    def versus(label):
+        full, add, sel = (rows[label][s]["queued_ms"]
+                          for s in ("full", "maskadd", "masksel"))
+        ratio = None if None in (full, add) else add / full
+        return (f"{label} {_fmt(full, '.4f')} vs {_fmt(add, '.4f')}, "
+                f"{_fmt(sel, '.4f')} (x{_fmt(ratio, '.2f')})")
+    log("forward (full) against its mask stages on the same function "
+        "(maskadd, masksel), queued ms: "
+        + "; ".join(versus(label) for label, *_ in ABLATION_SHAPES))
     for name, n in launches.items():
         if n <= 0:
             errors.append(f"{name} launched {n} times in phase 7")
@@ -1821,29 +1889,40 @@ def ablation_phase(dev):
 def ablation_entries(rows, launches):
     """The two ablation kernels' entries of the kernels line: launches in
     phase 7's main path, the worst error over its three shapes, and the
-    means over each kernel's stages at the headline shape (per-stage ms
-    beside them)."""
+    means over each kernel's stages at the headline shape (per-stage ms and
+    queued ms beside them; a mean is null where a stage's is). The stripped stages have no library
+    counterpart but ``general``, masked attention (with NaN rows), whose
+    yardstick is SDPA over the same mask (``library_for``)."""
     from sink_attention_tpu_torch.ops import ablation
-    csrc = "sink_attention_tpu_torch/ops/csrc/ablation.cu"
+    csrc = "sink_attention_tpu_torch/ops/csrc/"
     head = rows["headline"]
     out = []
     for name, line, stages in (
             ("ablation", 80, [s for s in ablation.STAGES
                               if s not in ablation.MASK_STAGES]),
             ("mask_stage", 179, list(ablation.MASK_STAGES))):
-        mean = lambda key: sum(head[s][key] for s in stages) / len(stages)
-        lib = head[stages[0]]["library_ms"]
+        def mean(key):
+            xs = [head[s][key] for s in stages]
+            return None if None in xs else sum(xs) / len(xs)
+        lib = head["general" if name == "ablation" else stages[0]][
+            "library_ms"]
         out.append({
-            "name": name, "route": "cuda", "source": csrc,
+            "name": name, "route": "cuda", "source": csrc + "ablation.cu",
             "replaces": f"scripts/mfu_ablation.py:{line}",
             "launches": launches[name],
             "max_abs_err": max(r[s]["max_abs_err"] for r in rows.values()
                                for s in stages),
-            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "ms": mean("ms"), "queued_ms": mean("queued_ms"),
+            "plain_ms": mean("plain_ms"),
             "bound_ms": mean("bound_ms"),
             "bound_by": head[stages[0]]["bound_by"],
-            "library_ms": lib if name == "mask_stage" else None,
-            "stage_ms": {s: head[s]["ms"] for s in stages}})
+            "library_ms": lib,
+            "library_for": ("general" if name == "ablation"
+                            else "maskadd, masksel"),
+            "stage_ms": {s: head[s]["ms"] for s in stages},
+            "stage_queued_ms": {s: head[s]["queued_ms"] for s in stages},
+            "redesigned": REDESIGNED[name],
+            "template": csrc + TEMPLATE[name]})
     return out
 
 
@@ -1852,12 +1931,15 @@ def ablation_entries(rows, launches):
 
 # the wgmma kernel instances (one per head dim) each source must hold
 WGMMA_INSTANCES = {"flash_fwd": {"fwd": 2}, "flash_bwd": {"dq": 2, "dkdv": 2},
-                   "packed": {"fwd": 2, "dq": 2, "dkdv": 2}}
+                   "packed": {"fwd": 2, "dq": 2, "dkdv": 2},
+                   # 11 stages x D 64 and 128 of the forward's template
+                   "ablation": {"fwd": 22}}
 
 
 def spill_errors(report):
     """ptxas' spill line of every instance of a wgmma kernel (the forward,
-    dQ, dK/dV) in the build ``report``: one error per instance that spills,
+    dQ, dK/dV, the ablation's stages of the forward) in the build
+    ``report``: one error per instance that spills,
     or per freshly built source whose ptxas lines lack one of the instances
     of WGMMA_INSTANCES."""
     errors = []

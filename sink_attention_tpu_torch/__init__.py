@@ -18,8 +18,9 @@ The kernels (``ops/csrc``, built by ``nvcc`` for ``sm_90a`` on first use):
 - dQ and dK/dV, unpacked and packed: one warp-specialised kernel each on
   ``wgmma`` and TMA over either mask (persistent grids of 128-row and
   128-key items, the GQA sum of dK/dV inside the kernel);
-- the per-stage ablation kernels of ``scripts/mfu_ablation.py``, on
-  ``mma.sync``.
+- the per-stage ablation kernels of ``scripts/mfu_ablation.py``: the
+  forward kernel above with its softmax cut to one stage, at its 128 x 128
+  tiles.
 
 Subpackages (the JAX package's layout):
 

@@ -15,9 +15,11 @@ card, beside their plain PyTorch version :func:`ablation_plain`:
 Every stage maps q [B, H_q, N, D], k/v [B, H_kv, N, D] (self-attention, zero
 offsets, no s_aux) to out [B, H_q, N, D] in q.dtype. The stripped stages
 sum over whole visited tiles, masked cells included, so their value
-depends on the tile schedule: each 64-row q block visits the 64-key blocks
-of :func:`flash.fwd_kv_ranges` (the sink range, then the window range),
-which are the blocks the JAX kernel visits at 64 x 64 tiles.
+depends on the tile schedule. It is the production forward's: each 128-row
+q block visits the 128-key blocks of :func:`flash.fwd_kv_ranges` (the sink
+range, then the window range) at ``FWD_BM x FWD_BN``, which are the blocks
+the JAX kernel visits at 128 x 128 tiles; the kernels are the forward of
+``csrc/hopper.cuh`` with its softmax cut to the stage.
 
 Per KV block, with ``qs = q * c`` rounded to q.dtype (``c = log2(e) /
 sqrt(D)`` itself first rounded to q.dtype), ``s = qs k^T`` in fp32, the
@@ -57,8 +59,8 @@ import math
 import torch
 
 from . import _build
-from .flash import (BM, BN, _WINDOW_CLAMP, _table_on, fwd_kv_ranges,
-                    load_fn)
+from .flash import (FWD_BM as BM, FWD_BN as BN, _WINDOW_CLAMP, _table_on,
+                    fwd_kv_ranges, load_fn)
 
 __all__ = ["STAGES", "MASK_STAGES", "ablation_plain", "ablation_kernel",
            "ablation_attention", "visited_blocks"]
@@ -81,17 +83,14 @@ def _check(q, k, v, stage, window_size):
                          f"v {tuple(v.shape)}")
     if q.shape[2] % BM:
         raise ValueError(f"N = {q.shape[2]} must be a multiple of {BM}")
-    if stage in MASK_STAGES and window_size % BN:
-        raise ValueError(f"the mask stages need window_size a multiple of "
-                         f"{BN}, got {window_size}")
 
 
 def visited_blocks(n: int, num_sink: int, window_size: int):
-    """(blocks, valid), int64 and bool [steps, n / 64]: the KV block that
+    """(blocks, valid), int64 and bool [steps, n / BM]: the KV block that
     each q block visits at each step (sink range, then window range), and
     whether that step exists for it."""
-    table = torch.from_numpy(fwd_kv_ranges(n, n, num_sink, window_size)
-                             .astype("int64"))
+    table = torch.from_numpy(fwd_kv_ranges(n, n, num_sink, window_size,
+                                           bm=BM, bn=BN).astype("int64"))
     n_sink = (table[:, 1] - table[:, 0]).clamp(min=0)
     n_all = n_sink + (table[:, 3] - table[:, 2]).clamp(min=0)
     t = torch.arange(max(int(n_all.max()), 1))[:, None]
@@ -215,7 +214,7 @@ def ablation_kernel(q, k, v, stage: str, num_sink: int = 4,
                     window_size: int = 4096):
     """Launch the stage's kernel of ``csrc/ablation.cu`` on CUDA tensors:
     out [B, H_q, N, D] bf16. q/k/v bf16 with D in (64, 128), N a multiple
-    of 64. ``ablation_kernel.launches`` counts ``sink_ablation_bf16``,
+    of 128. ``ablation_kernel.launches`` counts ``sink_ablation_bf16``,
     ``ablation_kernel.launches_mask_stage`` ``sink_mask_stage_bf16``."""
     _build.check_attention_inputs(q, k, v, None)
     _check(q, k, v, stage, window_size)
@@ -224,7 +223,7 @@ def ablation_kernel(q, k, v, stage: str, num_sink: int = 4,
     B, H_q, N, D = q.shape
     H_kv = k.shape[1]
     ns, w = (min(int(x), _WINDOW_CLAMP) for x in (num_sink, window_size))
-    ranges = _table_on(fwd_kv_ranges, q.device, N, N, ns, w, 0, 0)
+    ranges = _table_on(fwd_kv_ranges, q.device, N, N, ns, w, 0, 0, BM, BN)
     qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
     out = torch.empty_like(qc)
     mask_stage = stage in MASK_STAGES

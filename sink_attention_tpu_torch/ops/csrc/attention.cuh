@@ -1,7 +1,6 @@
 // Sink attention on Hopper: what every kernel of the port shares (the
-// constants, the mma.sync and cp.async helpers that decode.cu and the
-// ablation.cu skeleton use, the RowSpan of a row's visible keys) and the
-// unpacked mask policy.
+// constants, decode.cu's mma.sync and cp.async helpers, the RowSpan of a
+// row's visible keys) and the unpacked mask policy.
 //
 // The attention kernels compute, for every query row i and key j with
 // valid(i, j) given by the policy, the forward O = softmax(scale * Q K^T) V
@@ -15,14 +14,14 @@
 //     dQ = scale * dS K,   dV = P^T dO,   dK = scale * dS^T Q
 // Query head h reads KV head h / (H_q / H_kv). D must be 64 or 128. The
 // forward is hopper.cuh's wgmma/TMA kernel, dQ hopper_dq.cuh's and dK/dV
-// hopper_bwd.cuh's, each written once over both policies.
+// hopper_bwd.cuh's, each written once over both policies (the forward also
+// over ablation.cu's softmax stages).
 //
 // Two policies: SinkWindowMask below (global positions with chunk offsets;
 // flash_fwd.cu, flash_bwd.cu, ablation.cu) and PackedMask (segments of a
 // packed batch; packed.cu). A policy supplies the per-block range tables
 // the host built, each row's visible key runs (RowSpan: the forward and
-// dQ) and each key's interval of visible query rows (dK/dV);
-// SinkWindowMask also the per-cell predicate of the ablation kernels.
+// dQ) and each key's interval of visible query rows (dK/dV).
 
 #pragma once
 
@@ -32,9 +31,6 @@
 
 namespace sinkattn {
 
-constexpr int BM = 64;  // the ablation skeleton's query rows per tile
-constexpr int BN = 64;  // its keys per tile
-constexpr int NTHREADS = 128;  // its threads per CTA
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -68,38 +64,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc[j] += A * T[k0 .. k0+16)[j*8 .. j*8+8) for a row-major tile T whose
-// rows are the product's depth (the B operand read down the columns).
-template <int STRIDE, int NJ>
-__device__ __forceinline__ void mma_rows_b(float (&acc)[NJ][4],
-                                           const uint32_t (&a)[4],
-                                           const uint16_t* t, int k0, int g,
-                                           int t4) {
-  const uint16_t* base = t + (k0 + t4 * 2) * STRIDE + g;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const uint16_t* p = base + j * 8;
-    const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[STRIDE] << 16);
-    const uint32_t b1 =
-        (uint32_t)p[8 * STRIDE] | ((uint32_t)p[9 * STRIDE] << 16);
-    mma16816(acc[j], a, b0, b1);
-  }
-}
-
-// A fragments of a 16 x 16 slice [n0 .. n0 + 2) of an accumulator (the
-// accumulator layout of two n-tiles is the A layout of one k-step).
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 // The visible keys of one query row, in local key slots: the window run
@@ -139,7 +103,7 @@ struct SinkWindowMask {
     n = max(end - lo, 0);
   }
   // Local query row `row`'s runs, both cut to jg <= ig and the N_kv end:
-  // the visible set of visible() below.
+  // the keys of valid(q_offset + row, .) above that lie in [0, N_kv).
   __device__ RowSpan row_span(int, int row) const {
     const int ig = q_offset + row;
     const int end = min(ig - kv_offset, N_kv - 1) + 1;  // exclusive
@@ -150,19 +114,6 @@ struct SinkWindowMask {
     r.sink_n = max(min(num_sink - kv_offset, end) - r.sink_lo, 0);
     return r;
   }
-  // Key slot jl is visible to the row at global position ig.
-  __device__ bool visible(int ig, int jl) const {
-    const int jg = kv_offset + jl;
-    return jl < N_kv && jg >= 0 && jg <= ig &&
-           (jg < num_sink || jg >= ig - window + 1);
-  }
 };
-
-// The dynamic shared memory a kernel may take (the ablation kernels).
-template <typename Kernel>
-cudaError_t set_smem(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 }  // namespace sinkattn

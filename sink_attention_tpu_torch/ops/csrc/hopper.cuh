@@ -8,8 +8,10 @@
 //
 // It computes O, the natural-log LSE counting s_aux, and s_aux as a
 // value-less logit, for every query row over the keys the policy makes
-// visible to it. The ablation kernels keep their own copy of the first
-// port's mma.sync skeleton (ablation.cu).
+// visible to it. Its consumers' tile step is a compile-time policy:
+// FwdSoftmax below is the forward's; ablation.cu's stages (the forward cut
+// to one piece of its softmax) are the others, on the same producer, ring,
+// items, Q buffers and O store.
 //
 // Design:
 //  * a persistent grid, one CTA of three warpgroups per SM, walking the
@@ -58,7 +60,10 @@
 //    their runs: an earlier segment's tiles, for a 64-row half of an item
 //    that lies after a segment start) waits on the stage and releases it
 //    without its products: exact, since a wholly masked tile changes
-//    neither m, l nor O;
+//    neither m, l nor O (where the softmax policy allows it, kSkipDead);
+//  * the mask, the softmax and P's pack are the consumers' tile step, a
+//    compile-time policy (FwdSoftmax below; ablation.cu's stages cut it to
+//    one piece of the softmax on this same pipeline);
 //  * O goes out as bf16 through the warpgroup's rows of the item's Q
 //    buffer (then free) as 16-byte stores of whole rows; the Q buffer is
 //    released to the producer after that. The LSE (natural log, -inf for
@@ -345,6 +350,10 @@ struct FwdSmem {
   static constexpr int N_BARS = 4 + 3 * STAGES;
   static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
   static constexpr int BYTES = INFO_OFF + 2 * 8 * 4 + 1024;  // + alignment
+  // a softmax policy's own shared memory (kSmem bytes), if any
+  static constexpr int OWN_OFF = (INFO_OFF + 2 * 8 * 4 + 1023) / 1024 * 1024;
+  template <int OWN>
+  static constexpr int bytes() { return OWN ? OWN_OFF + OWN + 1024 : BYTES; }
 };
 
 // Keys [c0, c0 + n) lie wholly in one of the row's runs.
@@ -428,6 +437,120 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The per-cell mask of a tile on the warp's partial tiles only (a
+// warp-uniform branch): unless one vote finds the tile whole for every row
+// of the warp, a masked score of the thread's two rows becomes -inf by a
+// select (exp2 of -inf is 0), the sink run tested only where a row's sink
+// run meets the tile.
+template <int N>
+__device__ __forceinline__ void mask_partial(float (&sacc)[N],
+                                             const RowSpan (&rows)[2],
+                                             int col0, int t4) {
+  const bool whole =
+      __all_sync(0xffffffffu, span_covers(rows[0], col0, FWD_BN) &&
+                                  span_covers(rows[1], col0, FWD_BN));
+  if (!whole) {
+    if (__any_sync(0xffffffffu, sink_meets(rows[0], col0, FWD_BN) ||
+                                    sink_meets(rows[1], col0, FWD_BN)))
+      mask_tile<true>(sacc, rows, col0 + t4 * 2, -INFINITY);
+    else
+      mask_tile<false>(sacc, rows, col0 + t4 * 2, -INFINITY);
+  }
+}
+
+// P (S's accumulators, 64 rows x FWD_BN keys) as bf16 wgmma A fragments:
+// the accumulator layout of a 16-key step is the register A layout.
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&sacc)[N],
+                                       uint32_t (&pa)[FWD_BN / 16][4]) {
+#pragma unroll
+  for (int jj = 0; jj < FWD_BN / 16; ++jj) {
+    pa[jj][0] = pack_bf16(sacc[8 * jj + 0], sacc[8 * jj + 1]);
+    pa[jj][1] = pack_bf16(sacc[8 * jj + 2], sacc[8 * jj + 3]);
+    pa[jj][2] = pack_bf16(sacc[8 * jj + 4], sacc[8 * jj + 5]);
+    pa[jj][3] = pack_bf16(sacc[8 * jj + 6], sacc[8 * jj + 7]);
+  }
+}
+
+// The forward's tile step, one policy of fwd_wgmma_kernel's consumers (the
+// stages of ablation.cu are the others). A policy says whether a consumer
+// skips the tiles outside its rows' hull (kSkipDead: exact only where a
+// wholly masked tile changes nothing), how many bytes of shared memory of
+// its own the CTA keeps for it (kSmem, 1024-aligned: `own` below) and
+// whether the kernel writes the LSE (kLse). Every thread calls init() once
+// before the CTA's first barrier; per item, begin_item() may rewrite the
+// consumer's Q rows before its first product; per tile, tile() masks S,
+// updates m, l and O's scale and packs P as A fragments, sum() may issue
+// products of its own beside P V's and done() finishes l once they are
+// waited for; inv_l() is the output's divisor. The forward: the scale
+// folded into the exponent's FMA, m seeded with s_aux*log2e and l with 1
+// (the producer's seed), dead tiles skipped, a row that sees nothing
+// gives 0.
+struct FwdSoftmax {
+  static constexpr bool kSkipDead = true;
+  static constexpr int kSmem = 0;
+  static constexpr bool kLse = true;
+  struct Tile {};  // what a tile keeps from tile() to done(): nothing
+
+  __device__ __forceinline__ void init(uint8_t*, int) const {}
+  template <int BOXES>
+  __device__ __forceinline__ void begin_item(uint8_t*, int, int) const {}
+
+  // Online softmax in the exp2 domain, rows r_loc (e < 2) and r_loc + 8
+  // (e >= 2): m is kept scaled, the scale folded into the exponent's FMA
+  // (scale > 0, so the max of raw scores serves).
+  template <class Mask, int NS, int OR>
+  __device__ __forceinline__ void tile(const Mask&, float (&sacc)[NS],
+                                       float (&oacc)[OR],
+                                       uint32_t (&pa)[FWD_BN / 16][4],
+                                       float (&m)[2], float (&l)[2],
+                                       const RowSpan (&rows)[2], int col0,
+                                       int, int, int t4, float scale_log2,
+                                       const uint8_t*, Tile&) const {
+    mask_partial(sacc, rows, col0, t4);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < FWD_BN / 8; ++jj)
+        mx = fmaxf(mx, fmaxf(sacc[jj * 4 + 2 * r], sacc[jj * 4 + 2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = fast_exp2(m[r] - m_use);  // m = -inf: 0
+      m[r] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < FWD_BN / 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p =
+              fast_exp2(fmaf(sacc[jj * 4 + 2 * r + e], scale_log2, -m_use));
+          sacc[jj * 4 + 2 * r + e] = p;
+          rs += p;
+        }
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l[r] = l[r] * alpha + rs;
+#pragma unroll
+      for (int jj = 0; jj < OR / 4; ++jj) {
+        oacc[jj * 4 + 2 * r] *= alpha;
+        oacc[jj * 4 + 2 * r + 1] *= alpha;
+      }
+    }
+    pack_p(sacc, pa);
+  }
+
+  __device__ __forceinline__ void sum(const uint32_t (&)[FWD_BN / 16][4],
+                                      const uint8_t*, Tile&) const {}
+  __device__ __forceinline__ void done(float (&)[2], Tile&) const {}
+  __device__ __forceinline__ float inv_l(float l) const {
+    return l == 0.f ? 0.f : 1.f / l;
+  }
+};
+
 // A position in a ring of STAGES stages: the stage and the parity of its
 // barriers' phase, stepped tile by tile across items (no division).
 template <int STAGES>
@@ -508,8 +631,9 @@ struct FwdItem {
 // the producer runs ahead into the next item (its Q into the other Q
 // buffer, its K/V tiles into the ring) while the consumers finish this
 // one, so one item's epilogue overlaps the next one's loads. `order` is
-// the host's order table where Mask::kBatchTables, else unused.
-template <int D, int STAGES, class Mask>
+// the host's order table where Mask::kBatchTables, else unused. The
+// consumers' tile step is the policy `softmax` (FwdSoftmax: the forward).
+template <int D, int STAGES, class Mask, class Softmax = FwdSoftmax>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -518,9 +642,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                      const int* __restrict__ order,
                      uint16_t* __restrict__ o, float* __restrict__ lse,
                      int B, int H_q, int H_kv, int N_q, float scale_log2,
-                     Mask mask) {
+                     Mask mask, Softmax softmax) {
   using L = FwdSmem<D, STAGES>;
-  constexpr int NJ = FWD_BN / 8;  // 8-key chunks of an S accumulator row
   constexpr int OR = D / 2;       // O accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -547,6 +670,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  softmax.init(smem + L::OWN_OFF, threadIdx.x);
   __syncthreads();
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -626,6 +750,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 #pragma unroll
       for (int i = 0; i < OR; ++i) oacc[i] = 0.f;
 
+      softmax.template begin_item<L::BOXES>(smem + L::Q_OFF + qs * L::Q_BYTES,
+                                            c, ct);
       const uint8_t* qsm = smem + L::Q_OFF + qs * L::Q_BYTES + c * 64 * 128;
       for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
         const int s = ring.s;
@@ -633,7 +759,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         const uint8_t* vs = smem + L::V_OFF + s * L::KV_BYTES;
         const int col0 = item.block(j) * FWD_BN;
         mbar_wait(k_full + s, ring.ph);
-        if (col0 >= h_hi || col0 + FWD_BN <= h_lo) {  // no row sees the tile
+        if (Softmax::kSkipDead &&
+            (col0 >= h_hi || col0 + FWD_BN <= h_lo)) {  // no row sees it
           mbar_wait(v_full + s, ring.ph);
           if (ct == 0) mbar_arrive(empty + s);
           continue;
@@ -653,74 +780,22 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         wgmma_wait<0>();
         fence_regs(sacc);
 
-        // The per-cell mask on partial tiles only (a warp-uniform branch):
-        // a masked score becomes -inf by a select (exp2 of -inf is 0).
-        const bool whole =
-            __all_sync(0xffffffffu, span_covers(rows[0], col0, FWD_BN) &&
-                                        span_covers(rows[1], col0, FWD_BN));
-        if (!whole) {
-          if (__any_sync(0xffffffffu, sink_meets(rows[0], col0, FWD_BN) ||
-                                          sink_meets(rows[1], col0, FWD_BN)))
-            mask_tile<true>(sacc, rows, col0 + t4 * 2, -INFINITY);
-          else
-            mask_tile<false>(sacc, rows, col0 + t4 * 2, -INFINITY);
-        }
-
-        // Online softmax in the exp2 domain, rows r_loc (e < 2) and
-        // r_loc + 8 (e >= 2): m is kept scaled, the scale folded into the
-        // exponent's FMA (scale > 0, so the max of raw scores serves).
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float mx = -INFINITY;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj)
-            mx = fmaxf(mx,
-                       fmaxf(sacc[jj * 4 + 2 * r], sacc[jj * 4 + 2 * r + 1]));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-          const float m_new = fmaxf(m[r], mx * scale_log2);
-          const float m_use = m_new == -INFINITY ? 0.f : m_new;
-          const float alpha = fast_exp2(m[r] - m_use);  // m = -inf: 0
-          m[r] = m_new;
-          float rs = 0.f;
-#pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float p = fast_exp2(
-                  fmaf(sacc[jj * 4 + 2 * r + e], scale_log2, -m_use));
-              sacc[jj * 4 + 2 * r + e] = p;
-              rs += p;
-            }
-          }
-          rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-          rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-          l[r] = l[r] * alpha + rs;
-#pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj) {
-            oacc[jj * 4 + 2 * r] *= alpha;
-            oacc[jj * 4 + 2 * r + 1] *= alpha;
-          }
-        }
-
-        // O += P V: P's accumulator layout is the register A layout.
+        // The policy's mask and softmax; P as A fragments.
         uint32_t pa[FWD_BN / 16][4];
-#pragma unroll
-        for (int jj = 0; jj < FWD_BN / 16; ++jj) {
-          pa[jj][0] = pack_bf16(sacc[8 * jj + 0], sacc[8 * jj + 1]);
-          pa[jj][1] = pack_bf16(sacc[8 * jj + 2], sacc[8 * jj + 3]);
-          pa[jj][2] = pack_bf16(sacc[8 * jj + 4], sacc[8 * jj + 5]);
-          pa[jj][3] = pack_bf16(sacc[8 * jj + 6], sacc[8 * jj + 7]);
-        }
+        typename Softmax::Tile tile;
+        softmax.tile(mask, sacc, oacc, pa, m, l, rows, col0, item.qb * FWD_BM,
+                     r_loc, t4, scale_log2, smem + L::OWN_OFF, tile);
         mbar_wait(v_full + s, ring.ph);
         wgmma_fence();
 #pragma unroll
         for (int jj = 0; jj < FWD_BN / 16; ++jj)
           RsMma<OR>::run(oacc, pa[jj],
                          desc_sw128(vs + jj * 16 * 128, FWD_BN * 128, 1024));
+        softmax.sum(pa, smem + L::OWN_OFF, tile);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(oacc);
+        softmax.done(l, tile);
         if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
       }
 
@@ -731,7 +806,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rb = r_loc + r * 8;  // the row within the q block
-        const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+        const float inv = softmax.inv_l(l[r]);
 #pragma unroll
         for (int jj = 0; jj < D / 8; ++jj)
           *reinterpret_cast<uint32_t*>(
@@ -740,7 +815,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
               pack_bf16(oacc[jj * 4 + 2 * r] * inv,
                         oacc[jj * 4 + 2 * r + 1] * inv);
         const int row = item.qb * FWD_BM + rb;
-        if (t4 == 0 && row < N_q)
+        if (Softmax::kLse && t4 == 0 && row < N_q)
           lse[(size_t)item.bh * N_q + row] =
               l[r] == 0.f ? -INFINITY : m[r] * LN2 + logf(l[r]);
       }
@@ -768,17 +843,20 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 // Launch over a mask policy: q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16
 // contiguous, 16-byte aligned; s_aux [H_q] fp32 or null; order the host's
 // units longest first where Mask::kBatchTables (see FwdItem), else null;
-// o like q; lse [B*H_q, N_q] fp32. The three TMA descriptors are built per
-// call: rows past N read as zeros, boxes of 64 columns x 128 rows under
-// the 128-byte swizzle. Returns cudaGetLastError() of the launch.
-template <int D, int STAGES, class Mask>
+// o like q; lse [B*H_q, N_q] fp32 (unused where the softmax policy writes
+// none). The three TMA descriptors are built per call: rows past N read as
+// zeros, boxes of 64 columns x 128 rows under the 128-byte swizzle.
+// Returns cudaGetLastError() of the launch.
+template <int D, int STAGES, class Mask, class Softmax>
 int launch_fwd_d(const void* q, const void* k, const void* v,
                  const void* s_aux, const void* order, void* o, void* lse,
                  int B, int H_q, int H_kv, int N_q, int N_kv, float scale,
-                 const Mask& mask, cudaStream_t stream) {
-  constexpr int smem = FwdSmem<D, STAGES>::BYTES;
+                 const Mask& mask, const Softmax& softmax,
+                 cudaStream_t stream) {
+  constexpr int smem =
+      FwdSmem<D, STAGES>::template bytes<Softmax::kSmem>();
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      fwd_wgmma_kernel<D, STAGES, Mask>,
+      fwd_wgmma_kernel<D, STAGES, Mask, Softmax>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv;
@@ -789,28 +867,31 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
   const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  fwd_wgmma_kernel<D, STAGES, Mask><<<grid, FWD_THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<const float*>(s_aux),
-      static_cast<const int*>(order), static_cast<uint16_t*>(o),
-      static_cast<float*>(lse), B, H_q, H_kv, N_q, scale * LOG2E, mask);
+  fwd_wgmma_kernel<D, STAGES, Mask, Softmax>
+      <<<grid, FWD_THREADS, smem, stream>>>(
+          tq, tk, tv, static_cast<const float*>(s_aux),
+          static_cast<const int*>(order), static_cast<uint16_t*>(o),
+          static_cast<float*>(lse), B, H_q, H_kv, N_q, scale * LOG2E, mask,
+          softmax);
   return (int)cudaGetLastError();
 }
 
-template <class Mask>
+template <class Mask, class Softmax = FwdSoftmax>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* s_aux, const void* order, void* o, void* lse,
                int B, int H_q, int H_kv, int N_q, int N_kv, int D,
-               float scale, const Mask& mask, void* stream) {
+               float scale, const Mask& mask, void* stream,
+               const Softmax& softmax = Softmax()) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_q <= 0 || B * H_q <= 0) return 0;
   if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
     return (int)cudaErrorInvalidValue;
   if (D == 64)
     return launch_fwd_d<64, 3>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
-                               N_q, N_kv, scale, mask, st);
+                               N_q, N_kv, scale, mask, softmax, st);
   if (D == 128)
     return launch_fwd_d<128, 2>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
-                                N_q, N_kv, scale, mask, st);
+                                N_q, N_kv, scale, mask, softmax, st);
   return (int)cudaErrorInvalidValue;
 }
 

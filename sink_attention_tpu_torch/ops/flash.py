@@ -51,8 +51,6 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "fwd_kv_ranges", "dq_block_order", "dkdv_q_ranges",
            "dkdv_block_order"]
 
-BM = 64  # the ablation kernels' query rows per tile (csrc/ablation.cu)
-BN = 64  # the ablation kernels' keys per KV tile (csrc/ablation.cu)
 FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
 FWD_BN = 128  # the forward kernels' keys per KV tile (csrc/hopper.cuh)
 DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
@@ -101,8 +99,8 @@ def _fwd_kv_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
 
 
 def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0, bm: int = BM,
-                  bn: int = BN) -> np.ndarray:
+                  q_offset: int = 0, kv_offset: int = 0, bm: int = FWD_BM,
+                  bn: int = FWD_BN) -> np.ndarray:
     """int32 [ceil(n_q / bm), 4]: per query block of ``bm`` rows, the KV
     blocks of ``bn`` keys it visits, as two half-open ranges (sink_b0,
     sink_b1) then (win_b0, win_b1).
@@ -110,7 +108,7 @@ def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
     The sink range covers the local blocks of global columns [0, num_sink);
     the window range starts after it, so no block is visited twice. Both
     are cut to the causal end of the query block and to [0, n_kv blocks).
-    The ablation kernels take the default 64 x 64 tiles, the forward kernel
+    The forward kernels (and the ablation's stages of it) take the default
     ``bm=FWD_BM, bn=FWD_BN``, the dQ kernel ``bm=DQ_BM,
     bn=DQ_BN[head_dim]``.
     """
@@ -154,8 +152,8 @@ def _dkdv_q_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
 
 
 def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0, bm: int = BM,
-                  bn: int = BN) -> np.ndarray:
+                  q_offset: int = 0, kv_offset: int = 0, bm: int = DKDV_BM,
+                  bn: int = DKDV_BN) -> np.ndarray:
     """int32 [ceil(n_kv / bn), 2]: per KV block of ``bn`` keys, the
     half-open range of query blocks of ``bm`` rows that read it.
 
@@ -165,7 +163,7 @@ def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
     the last query whose window reaches its last column. Blocks wholly
     before the sequence start (negative ``kv_offset``) are read by none.
     So chunked and halo offsets need no static sink/window split. The
-    dK/dV kernel takes ``bm=DKDV_BM, bn=DKDV_BN``.
+    dK/dV kernel takes the default ``bm=DKDV_BM, bn=DKDV_BN``.
     """
     return _dkdv_q_ranges_cached(int(n_q), int(n_kv), int(num_sink),
                                  int(window), int(q_offset), int(kv_offset),

@@ -11,8 +11,12 @@ core floor, then the running max, exp2, the row sum and the mask added one
 at a time, and the candidate variants), each with its effective MFU (the
 useful attention FLOPs over its time and the H100's dense bf16 peak) and
 its delta against the stage before, then ``full``: the production forward
-kernel. The two mask stages compute correct attention and are held to the
-production forward (< 2e-2) before they are timed.
+kernel. Each stage is that kernel (``csrc/hopper.cuh``) with its softmax
+cut to the stage, over the same grid and 128 x 128 tiles, as the JAX
+script's stages run over its production kernel's grid and tiles; so a
+stage's time less ``mxu_floor``'s is what that piece costs in the kernel
+prefill launches. The two mask stages compute correct attention and are
+held to the production forward (< 2e-2) before they are timed.
 
 The comparison with the production forward (:func:`production_error`)
 runs on CPU tensors too; the timing needs the card, and without CUDA the
@@ -73,8 +77,8 @@ def production_error(q, k, v, stage: str, num_sink: int = NS,
 def stage_table(q, k, v, stages: Sequence[str] = ablation.STAGES,
                 num_sink: int = NS, window: int = W) -> list:
     """Rows {stage, ms, mfu, delta_ms[, err]} of each stage, then "full"
-    (the production forward kernel), timed on the card. The mask stages
-    are first held to the production forward: a miss raises."""
+    (the production forward kernel), timed on the card, back to back. The
+    mask stages are first held to the production forward: a miss raises."""
     timer = lambda fn: time_cuda(fn, iters=10, warmup=2)
     Bx, H_q, n, d = q.shape
     flops = sink_attention_flops(Bx, H_q, n, d, num_sink, window)

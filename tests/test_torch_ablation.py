@@ -1,10 +1,11 @@
 """The port's prefill ablation against the JAX script's.
 
 ``scripts/mfu_ablation.py`` is loaded as it stands, with its module globals
-(tile sizes, sinks, window) set by monkeypatch: at 64 x 64 tiles its
-Pallas kernels, run in interpret mode on the CPU, visit the KV blocks that
-the port's range table lists, so the stripped stages (which sum over whole
-visited tiles) compare like with like.
+(tile sizes, sinks, window) set by monkeypatch: at the production
+forward's 128 x 128 tiles (the port's ``FWD_BM x FWD_BN``, at which its
+stages run) its Pallas kernels, run in interpret mode on the CPU, visit the
+KV blocks that the port's range table lists, so the stripped stages (which
+sum over whole visited tiles) compare like with like.
 """
 
 import functools
@@ -26,6 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 B, H_Q, H_KV, N, D = 1, 4, 2, 256, 64
 GEOMS = [(4, 128), (0, 128)]   # (num_sink, window)
 CORRECT = ("general", "maskadd", "masksel")
+TILE = flash.FWD_BM  # the stages' tiles, FWD_BM = FWD_BN
 
 
 @pytest.fixture(scope="module")
@@ -60,28 +62,30 @@ def _inputs(seed, exact=False):
 @pytest.fixture(scope="module")
 def jax_runs(jax_script):
     """One JAX run per (dtype, geometry, stage), shared by the tests;
-    ``get(dtype, ns, w, stage)`` runs every stage of the (dtype, geometry)
-    on first use, in one ``jax.jit`` (one compile instead of eleven)."""
+    ``get(dtype, ns, w, stage, stages)`` runs every stage of ``stages``
+    (all by default) at the (dtype, geometry) on first use, in one
+    ``jax.jit`` (one compile instead of eleven)."""
     cache = {}
 
-    def get(dtype, ns, w, stage):
-        if (dtype, ns, w) not in cache:
+    def get(dtype, ns, w, stage, stages=ablation.STAGES):
+        key = (dtype, ns, w, stages)
+        if key not in cache:
             q, k, v = (jnp.asarray(x).astype(dtype)
                        for x in _inputs(0, dtype == jnp.float32))
             with pytest.MonkeyPatch.context() as mp:
-                for name, val in (("BM", 64), ("BN", 64), ("NS", ns),
+                for name, val in (("BM", TILE), ("BN", TILE), ("NS", ns),
                                   ("W", w)):
                     mp.setattr(jax_script, name, val)
                 fns = []
-                for st in ablation.STAGES:
+                for st in stages:
                     fn, ops = jax_script.run_ablation(q, k, v, st)
                     fns.append(fn)
                 outs = jax.jit(lambda *a: [fn(*a) for fn in fns])(*ops)
-            cache[dtype, ns, w] = {
+            cache[key] = {
                 st: np.asarray(out.astype(jnp.float32)).reshape(
                     B, H_Q, -1, out.shape[-1])[:, :, :N, :D]
-                for st, out in zip(ablation.STAGES, outs)}
-        return cache[dtype, ns, w][stage]
+                for st, out in zip(stages, outs)}
+        return cache[key][stage]
 
     return get
 
@@ -107,8 +111,10 @@ def test_stage_matches_jax_fp32(jax_runs, stage, geom):
     ref = jax_runs(jnp.float32, ns, w, stage)
     _assert_close(_port(torch.float32, ns, w, stage), ref, 1e-5)
     if stage == "general" and ns == 0:
-        # a row whose first visited tile is wholly masked: exp2(-inf - -inf)
-        assert np.isnan(ref).any(axis=-1).sum() == 8
+        # a row whose first visited tile is wholly masked: exp2(-inf - -inf);
+        # at 128-key tiles row 255 of each of the 4 heads (its window,
+        # keys 128-255, misses block 0)
+        assert np.isnan(ref).any(axis=-1).sum() == 4
 
 
 @pytest.mark.parametrize("stage", ablation.STAGES)
@@ -127,17 +133,19 @@ def test_stage_matches_jax_bf16(jax_runs, stage):
     (256, 4, 128), (256, 0, 128), (8192, 4, 4096), (1024, 0, 128),
     (1024, 0, 1024)])
 def test_visited_blocks_match_jax_schedule(geom):
-    """Per (q block, step), the blocks the JAX kernel marks valid at 64 x 64
-    tiles, in order, are those of the port's range table."""
+    """Per (q block, step), the blocks the JAX kernel marks valid at 128 x
+    128 tiles, in order, are those of the port's range table."""
     n, ns, w = geom
-    nsb, steps = jflash._step_counts(ns, w, 64, 64, n // 64, False)
+    nb = n // TILE
+    nsb, steps = jflash._step_counts(ns, w, TILE, TILE, nb, False)
     step_fn = jax.jit(functools.partial(
-        jflash._fwd_kv_step, q_off=0, kv_off=0, bm=64, bn=64, nsb=nsb,
-        num_sink=ns, window=w, n_q=n, n_kv_blocks=n // 64))
+        jflash._fwd_kv_step, q_off=0, kv_off=0, bm=TILE, bn=TILE, nsb=nsb,
+        num_sink=ns, window=w, n_q=n, n_kv_blocks=nb))
     block, valid = (np.asarray(x) for x in step_fn(
-        jnp.arange(n // 64)[:, None], jnp.arange(steps)[None, :]))
+        jnp.arange(nb)[:, None], jnp.arange(steps)[None, :]))
     blocks, ok = ablation.visited_blocks(n, ns, w)
-    for i in range(n // 64):
+    assert blocks.shape[1] == nb
+    for i in range(nb):
         assert list(block[i][valid[i]]) == blocks[:, i][ok[:, i]].tolist()
 
 
@@ -167,6 +175,20 @@ def test_correct_stages_match_jax_attention(jax_attention, stage, geom):
     fin = ~np.isnan(got)
     assert fin.any(axis=-1).all() if stage != "general" else fin.any()
     np.testing.assert_allclose(got[fin], ref[fin], atol=2e-5, rtol=1e-3)
+
+
+@pytest.mark.parametrize("stage", ablation.MASK_STAGES)
+def test_mask_stages_at_a_window_off_the_tile(jax_runs, jax_attention, stage):
+    """W = 192, not a multiple of the 128-key tile: no tile is a
+    window-start tile, those tiles fall to the general mask (in the JAX
+    kernel and in the port alike); the mask stages match the JAX script's
+    and JAX sink_flash_attention."""
+    ref = jax_runs(jnp.float32, 4, 192, stage, ablation.MASK_STAGES)
+    _assert_close(_port(torch.float32, 4, 192, stage), ref, 1e-5)
+    got = _port(torch.float32, 4, 192, stage, exact=False)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, jax_attention(4, 192), atol=2e-5,
+                               rtol=1e-3)
 
 
 def test_entry_point_comparison_on_cpu():

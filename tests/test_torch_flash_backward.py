@@ -146,8 +146,8 @@ DKDV_GEOMS = [
     (256, 512, 4, 256, 0, -256),
     (250, 300, 0, 64, 40, -30),
 ]
-# (bm, bn): the old 64 x 64 tiles (the defaults), the dK/dV kernel's 64 x
-# 128, and 128 x 128
+# (bm, bn): 64 x 64 tiles, the dK/dV kernel's 64 x 128 (the defaults), and
+# 128 x 128
 DKDV_TILES = [(64, 64), (64, 128), (128, 128)]
 
 
@@ -166,7 +166,7 @@ def test_dkdv_q_range_table_covers_mask(geom, tiles):
     n_q, n_kv, ns, W, qo, ko = geom
     bm, bn = tiles
     table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
-    if tiles == (tflash.BM, tflash.BN):
+    if tiles == (tflash.DKDV_BM, tflash.DKDV_BN):
         np.testing.assert_array_equal(
             table, tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko))
     mask = _visible_mask(n_q, n_kv, ns, W, qo, ko)

@@ -307,6 +307,7 @@ ABLATION_CASES = [
     (1, 4, 2, 256, 64, 0, 128),      # general's NaN rows
     (2, 8, 2, 512, 128, 4, 192),
     (4, 64, 8, 1024, 64, 0, 1024),   # gpt-oss full layer
+    (2, 8, 2, 384, 64, 0, 256),      # 3 q blocks of 128: window-start tiles
 ]
 
 
@@ -340,6 +341,25 @@ def test_ablation_kernels_match_plain(cuda, case):
         if stage in ("general",) + ablation.MASK_STAGES:
             assert err <= 2e-2, (stage, err)
             assert float((got - ref.float())[~nan].abs().max()) <= 2e-2
+
+
+def test_ablation_instances_do_not_spill(cuda, tmp_path, monkeypatch):
+    """ptxas' lines of a fresh build of ``csrc/ablation.cu``: each of its
+    22 instances of the forward's wgmma template (11 stages x D 64 and 128)
+    with 0 bytes of spill stores and loads."""
+    from sink_attention_tpu_torch.ops import _build
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "SOURCES", ("ablation",))
+    _build.build_all()
+    entry, spills = None, {}
+    for line in _build.build_report["ablation"]["ptxas"]:
+        if "Compiling entry" in line:
+            entry = line
+        elif "spill" in line and entry and "fwd_wgmma_kernel" in entry:
+            spills[entry] = line
+    assert len(spills) == 22, list(spills)
+    for entry, line in spills.items():
+        assert "0 bytes spill stores, 0 bytes spill loads" in line, entry
 
 
 FWD_CASES = [
