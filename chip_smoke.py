@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py    # build, kernel checks, serving, training,
                              # packed training, continuous batching,
-                             # the forward kernel's ablation
+                             # the forward kernel's ablation, beam search
+                             # and speculative decoding
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -72,6 +73,14 @@ Phases:
      against its mask stages (``maskadd``, ``masksel``: the same function
      with the JAX script's constant-tile masks) at the three shapes (see
      ``ablation_phase``).
+  8. beam search and speculative decoding: gpt-oss-20b at full width, 24
+     layers, the same weights and one 1024-token prompt: beam_generate
+     (4 beams, 32 tokens) against greedy and a re-scoring; then, with
+     layers 1-23 scaled by 0.1 and layer 0 as the draft,
+     speculative_generate (4 drafts, 64 tokens) against greedy, the
+     multi-token op against the decode kernel, and the speculative
+     ContinuousBatchingEngine over bf16 and int8 KV beside the plain
+     engine (see ``serve_spec``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -1710,6 +1719,329 @@ def serve_engine(cfg, device, *, quants=("int8", "fp8", None),
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: beam search and speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def _launch_counts():
+    """The forward and decode kernels' launch counters."""
+    from sink_attention_tpu_torch.ops import decode, flash
+    k = decode.decode_kernel
+    return {"flash_fwd": flash.flash_fwd_kernel.launches,
+            "decode": k.launches, "decode_int8": k.launches_int8,
+            "decode_fp8": k.launches_fp8}
+
+
+def _reset_launches():
+    from sink_attention_tpu_torch.ops import decode, flash
+    flash.flash_fwd_kernel.launches = 0
+    for attr in ("launches", "launches_int8", "launches_fp8"):
+        setattr(decode.decode_kernel, attr, 0)
+
+
+def _check_launches(got, want, label, errors):
+    for name, n in want.items():
+        if got[name] != n:
+            errors.append(f"{label}: {name} launched {got[name]} times, "
+                          f"expected {n}")
+
+
+def _first_divergence(params, cfg, prompt, plain, got, seed, quant=None):
+    """Where ``got`` first leaves ``plain`` (greedy tokens after
+    ``prompt``), the gap between the two tokens' logits there, teacher
+    forced through forward_prefill, and the control: how far that row's
+    logits move at most under bf16-sized noise in the attention output
+    (``_noisy``), and, for a quantized cache (``quant``), under K and V
+    read through its quantize -> dequantize round trip (``_kv_roundtrip``;
+    the larger of the two is the control). {"at": None} when the two
+    agree."""
+    from sink_attention_tpu_torch.models import forward_prefill
+    from sink_attention_tpu_torch.ops import flash
+
+    at = next((i for i, (a, b) in enumerate(zip(plain, got)) if a != b),
+              None)
+    if at is None:
+        return {"at": None}
+    seq = torch.tensor([list(prompt) + list(plain[:at])],
+                       device=params["embed"].device)
+    impls = {"noise": _noisy(flash.sink_flash_attention, seed)}
+    if quant:
+        impls["roundtrip"] = _kv_roundtrip(flash.sink_flash_attention, quant)
+    with torch.inference_mode():
+        row = forward_prefill(params, cfg, seq)[0][0, -1].float()
+        moved = {name: float((forward_prefill(params, cfg, seq,
+                                              attn_impl=impl)[0][0, -1]
+                              .float() - row).abs().max())
+                 for name, impl in impls.items()}
+    return {"at": at, "gap": float((row[plain[at]] - row[got[at]]).abs()),
+            "got_below_best": float(row.max() - row[got[at]]),
+            **moved, "control": max(moved.values())}
+
+
+def _divergence_gate(div, label, errors):
+    """A divergence passes where the two tokens' logits are within twice
+    the control (the paths differ in more places than the control
+    perturbs: the MoE's order of summation, the verify's fp32 attention),
+    or where ``got``'s token is the teacher-forced choice within that
+    margin (then it is the plain path that left the teacher: a discrete
+    choice upstream, such as an MoE router's top-k, flipped there)."""
+    if div["at"] is None:
+        return
+    margin = 2.0 * div["control"]
+    if not (div["gap"] <= margin or div["got_below_best"] <= margin):
+        errors.append(f"{label} leaves greedy at token {div['at']} with a "
+                      f"logit gap {div['gap']:.4f}, its token "
+                      f"{div['got_below_best']:.4f} below the teacher's "
+                      f"best, above twice the control {div['control']:.4f}")
+
+
+def _multi_op_check(cfg, device, dtype, max_len, prompt_len, T, seed):
+    """sink_decode_attention_cached_multi against T sequential append +
+    decode-kernel calls on a copy of the cache, at the model's two cache
+    shapes (sliding, and full at ``max_len``), over a bf16 (the model
+    dtype) and an int8 cache, from seeded q/k/v. [{shape, cos, err,
+    scale}]."""
+    from sink_attention_tpu_torch.cache import SinkKVCache
+    from sink_attention_tpu_torch.ops import (
+        sink_decode_attention_cached, sink_decode_attention_cached_multi)
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    H_q, H_kv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+    rows = []
+    for W in (cfg.sliding_window, max_len):
+        for quant in (None, "int8"):
+            cache = SinkKVCache.init(1, H_kv, D, cfg.num_sink_tokens, W,
+                                     dtype=dtype, quant=quant, device=device)
+            cache.prefill(rand(1, H_kv, prompt_len, D),
+                          rand(1, H_kv, prompt_len, D))
+            q, k, v = rand(1, H_q, T, D), rand(1, H_kv, T, D), rand(
+                1, H_kv, T, D)
+            aux = torch.randn(H_q, generator=gen, device=device)
+            out, _ = sink_decode_attention_cached_multi(q, k, v, cache, aux)
+            seq, ref = cache.clone(), []
+            for t in range(T):
+                seq.append(k[:, :, t:t + 1], v[:, :, t:t + 1])
+                ref.append(sink_decode_attention_cached(q[:, :, t:t + 1],
+                                                        seq, aux))
+            store = quant or str(dtype).replace("torch.", "")
+            rows.append({"shape": f"W={W} {store}",
+                         **_attn_compare(out, torch.cat(ref, dim=2))})
+    return rows
+
+
+def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
+               num_beams=4, spec_tokens=64, num_draft=4, scale=0.1,
+               n_requests=8, max_batch=4, max_len=2048, bucket=128,
+               prompt=(64, 1024), new=(16, 32), dtype=torch.bfloat16):
+    """Beam search, speculative decoding and the speculative engine on
+    ``cfg``, weights and one prompt of ``prompt_len`` tokens from a
+    generator seeded 0 (phase 3's). Returns (report, errors); each launch
+    count covers its own call.
+
+    8a. beam_generate(num_beams) of ``beam_tokens``: wall ms, ms per step
+    after a prefill timed apart, reorders done and skipped, launches (the
+    forward once per layer, the decode once per layer and step over every
+    beam's row). Gates: num_beams=1 gives greedy_generate's tokens, unless
+    they first part where the two tokens' logits are equal; the best
+    beam's score, re-scored by one forward_prefill over prompt + beam, is
+    off by at most twice the mean distance of three re-scorings under
+    bf16-sized noise (``_noisy``).
+
+    8b. The target's layers 1.. scaled by ``scale`` in place (the pair of
+    scripts/bench_suite.py's spec_table: one copy of the weights), the
+    draft its layer 0 with its embed, final norm and lm_head (the same
+    tensors). speculative_generate(num_draft) of ``spec_tokens`` against
+    greedy_generate on the same model: ms, acceptance rate, target passes,
+    launches (the forward per layer of both prefills, the decode per
+    draft layer and draft step). Gates: the tokens equal greedy's, or
+    first leave them at a near-tie (``_first_divergence``,
+    ``_divergence_gate``: the two tokens' teacher-forced logits within
+    twice the noise control, or the speculative token the teacher's
+    choice within it); the multi-token op against sequential
+    decode-kernel calls at the model's two cache shapes over a bf16 and
+    an int8 cache: cosine >= MIN_COS, error <= 2e-2 of scale.
+
+    8c. ContinuousBatchingEngine with the draft over ``n_requests`` seeded
+    requests (engine_requests) in ``max_batch`` slots, bf16 and int8 KV,
+    each beside the plain engine on the same model: run ms, tokens/s,
+    rounds, tokens committed per slot and round, launches (the forward
+    per layer of both prefills and request, the run's decode branch per
+    draft layer and draft step). Gate: every request's tokens equal the
+    plain engine's, or first leave them at a near-tie as in 8b (for the
+    int8 cache the control also reads K and V through its round trip).
+    """
+    import dataclasses
+
+    from sink_attention_tpu_torch.models import forward_prefill, init_params
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.serving import (ContinuousBatchingEngine,
+                                                  beam_generate,
+                                                  greedy_generate,
+                                                  speculative_generate)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=gen,
+                        device=dev)
+    prompt_py = ids[0].tolist()
+    L = cfg.num_layers
+    report, errors = {}, []
+    kw = dict(dtype=dtype, device=dev)
+
+    # 8a. beam search
+    stats = {}
+    _reset_launches()
+    (toks, score), ms = timed(lambda: beam_generate(
+        params, cfg, ids, beam_tokens, num_beams=num_beams, stats=stats,
+        **kw))
+    launches = _launch_counts()
+    with torch.inference_mode():
+        _, prefill_ms = timed(lambda: forward_prefill(params, cfg, ids))
+    rep = report["beam"] = {
+        "num_beams": num_beams, "new_tokens": beam_tokens, "ms": ms,
+        "prefill_ms": prefill_ms,
+        "ms_per_step": (ms - prefill_ms) / max(stats["steps"], 1),
+        **stats, "launches": launches, "score": float(score[0])}
+    if cuda:
+        _check_launches(rep["launches"], {
+            "flash_fwd": L, "decode": L * (beam_tokens - 1),
+            "decode_int8": 0, "decode_fp8": 0}, "beam", errors)
+    greedy = greedy_generate(params, cfg, ids, beam_tokens, **kw)[0]
+    one, _ = beam_generate(params, cfg, ids, beam_tokens, num_beams=1, **kw)
+    greedy, one, toks = greedy.tolist(), one[0].tolist(), toks[0].tolist()
+    at = next((i for i, (a, b) in enumerate(zip(greedy, one)) if a != b),
+              None)
+    rep["beam1_vs_greedy_diverged_at"] = at
+    if at is not None:
+        seq = torch.tensor([prompt_py + greedy[:at]], device=dev)
+        with torch.inference_mode():
+            row = forward_prefill(params, cfg, seq)[0][0, -1]
+        if row[greedy[at]] != row[one[at]]:
+            errors.append(f"num_beams=1 leaves greedy at token {at}, where "
+                          f"the logits differ")
+
+    def rescore(attn_impl=None):
+        seq = torch.tensor([prompt_py + toks], device=dev)
+        with torch.inference_mode():
+            logits = forward_prefill(params, cfg, seq, attn_impl=attn_impl)[
+                0][0, prompt_len - 1:-1].float()
+        logp = torch.log_softmax(logits, dim=-1)
+        return float(logp.gather(1, torch.tensor(toks, device=dev)[:, None])
+                     .sum())
+
+    total = rep["score"] * beam_tokens  # length_penalty 1, no EOS
+    rep["rescore_distance"] = abs(total - rescore())
+    rep["rescore_control"] = sum(
+        abs(total - rescore(_noisy(flash.sink_flash_attention, 3000 + s)))
+        for s in range(3)) / 3
+    if not rep["rescore_distance"] <= 2.0 * rep["rescore_control"]:
+        errors.append(f"beam score vs re-scoring: {rep['rescore_distance']:.4f}"
+                      f", control {rep['rescore_control']:.4f}")
+
+    # 8b. speculative decoding of one sequence
+    with torch.no_grad():
+        for lp in params["layers"][1:]:
+            for part in lp.values():
+                for t in (part.values() if isinstance(part, dict) else [part]):
+                    t.mul_(scale)
+    dcfg = dataclasses.replace(cfg, num_layers=1,
+                               layer_types=cfg.layer_types[:1])
+    dparams = {"embed": params["embed"], "final_norm": params["final_norm"],
+               "lm_head": params["lm_head"], "layers": params["layers"][:1]}
+    plain, plain_ms = timed(lambda: greedy_generate(
+        params, cfg, ids, spec_tokens, **kw))
+    stats = {}
+    _reset_launches()
+    (spec, rate), ms = timed(lambda: speculative_generate(
+        params, dparams, cfg, dcfg, ids, spec_tokens,
+        num_draft_tokens=num_draft, stats=stats, **kw))
+    rep = report["spec"] = {
+        "num_draft_tokens": num_draft, "new_tokens": spec_tokens,
+        "layer_scale": scale, "ms": ms, "greedy_ms": plain_ms,
+        "acceptance_rate": rate, **stats,
+        "target_passes_per_token": (stats["rounds"] + 1) / spec_tokens,
+        "launches": _launch_counts()}
+    if cuda:
+        _check_launches(rep["launches"], {
+            "flash_fwd": L + 1, "decode": stats["rounds"] * num_draft,
+            "decode_int8": 0, "decode_fp8": 0}, "speculative", errors)
+    rep["vs_greedy"] = _first_divergence(
+        params, cfg, prompt_py, plain[0].tolist(), spec[0].tolist(), 4000)
+    _divergence_gate(rep["vs_greedy"], "speculative_generate", errors)
+    with torch.inference_mode():
+        rep["multi_op"] = _multi_op_check(cfg, dev, dtype, max_len,
+                                          prompt_len, num_draft, 5)
+    for r in rep["multi_op"]:
+        if not (r["cos"] >= MIN_COS and r["err"] <= 2e-2 * r["scale"]):
+            errors.append(f"multi-token op vs sequential decode [{r['shape']}]"
+                          f": cosine {r['cos']:.6f}, error {r['err']:.3e}")
+
+    # 8c. the speculative engine beside the plain engine
+    reqs = engine_requests(n_requests, cfg.vocab_size, 0, prompt, new)
+    report["engine"] = {}
+    for quant in (None, "int8"):
+        label = quant or str(dtype).replace("torch.", "")
+        rep = report["engine"][label] = {}
+        runs = {}
+        for name, extra in (("plain", {}), ("spec", dict(
+                draft_params=dparams, draft_cfg=dcfg,
+                num_draft_tokens=num_draft))):
+            eng = ContinuousBatchingEngine(
+                params, cfg, max_batch=max_batch, max_len=max_len,
+                prefill_bucket=bucket, quant=quant, **kw, **extra)
+            rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+            _reset_launches()
+            out, run_ms = timed(eng.run)
+            n_tok = sum(len(t) for t in out.values())
+            runs[name] = [out[r] for r in rids]
+            rep[name] = {"run_ms": run_ms, "tokens": n_tok,
+                         "tokens_per_s": n_tok / (run_ms / 1e3),
+                         "launches": _launch_counts()}
+            if name == "plain":
+                rep[name]["pool_steps"] = eng.pool_steps
+                continue
+            rep[name].update(
+                rounds=eng.spec_rounds, slot_rounds=eng.spec_slot_rounds,
+                tokens_per_slot_round=eng.spec_tokens
+                / max(eng.spec_slot_rounds, 1))
+            if cuda:
+                branch = f"decode_{quant}" if quant else "decode"
+                _check_launches(rep[name]["launches"], {
+                    "flash_fwd": (L + 1) * n_requests,
+                    **{b: eng.spec_rounds * num_draft if b == branch else 0
+                       for b in ("decode", "decode_int8", "decode_fp8")}},
+                    f"{label} speculative engine", errors)
+            del eng
+        rep["vs_plain"] = []
+        for (p, m), a, b in zip(reqs, runs["plain"], runs["spec"]):
+            if len(a) != m or len(b) != m:
+                errors.append(f"{label} engines: a request asked for {m} "
+                              f"tokens and got {len(a)} / {len(b)}")
+            div = _first_divergence(params, cfg, p, a, b, 5000, quant)
+            _divergence_gate(div, f"{label} speculative engine", errors)
+            rep["vs_plain"].append(div)
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: the forward kernel's per-stage ablation
 # ---------------------------------------------------------------------------
 
@@ -2146,6 +2478,28 @@ def main() -> int:
     log(f"ablation phase: {time.perf_counter() - t0:.1f} s, launches "
         f"{json.dumps(alaunch)}")
     kernels += ablation_entries(arows, alaunch)
+
+    torch.cuda.empty_cache()
+
+    # 8. beam search and speculative decoding
+    t0 = time.perf_counter()
+    sreport, serr = serve_spec(cfg, dev)
+    errors += serr
+    log(f"beam and speculative serving gpt-oss-20b (24 layers, bf16, 1 x "
+        f"1024 prompt; beam 4 x 32 tokens; layers 1-23 x 0.1, draft layer "
+        f"0, 4 drafts, 64 tokens; engine 8 requests in 4 slots, bf16 and "
+        f"int8 KV), {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(sreport))
+    spec_engine = sreport["engine"]
+    for row, name in ((kernels[0], "flash_fwd"), (kernels[1], "decode")):
+        row.update(launches_beam=sreport["beam"]["launches"][name],
+                   launches_spec=sreport["spec"]["launches"][name],
+                   launches_spec_engine=spec_engine["bfloat16"]["spec"][
+                       "launches"][name])
+    kernels[0]["launches_spec_engine"] += spec_engine["int8"]["spec"][
+        "launches"]["flash_fwd"]
+    kernels[2]["launches_spec_engine"] = spec_engine["int8"]["spec"][
+        "launches"]["decode_int8"]
 
     if errors:
         for e in errors:

@@ -44,6 +44,7 @@ from .cache import RaggedSinkKVCache, SinkKVCache
 from .ops import (eager_sink_attention, eager_sink_attention_packed,
                   merge_partials, packed_sink_window_mask,
                   sink_decode_attention, sink_decode_attention_cached,
+                  sink_decode_attention_cached_multi,
                   sink_decode_attention_ragged, sink_flash_attention,
                   sink_flash_attention_chunk, sink_flash_attention_packed,
                   sink_flash_attention_with_lse, sink_window_mask)
@@ -61,6 +62,7 @@ __all__ = [
     "sink_flash_attention_packed",
     "sink_decode_attention",
     "sink_decode_attention_cached",
+    "sink_decode_attention_cached_multi",
     "sink_decode_attention_ragged",
     "SinkKVCache",
     "RaggedSinkKVCache",

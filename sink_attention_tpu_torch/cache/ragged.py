@@ -11,7 +11,9 @@ and ring phase, and the decode kernel reads them as its [B, 4] lens table
 test).
 
 Unlike the JAX cache (an immutable pytree), this one is mutable: ``insert``,
-``clear`` and ``append`` write in place and return the cache. The state
+``clear``, ``append`` and ``append_many_counted`` write in place and return
+the cache; ``clone`` gives a copy with buffers and state of its own. The
+state
 tensors are updated with indexed writes and ``torch.where``, never read to
 the host, so a decode loop that deactivates slots on the device needs no
 sync.
@@ -23,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from .sink_cache import _buffers, _put, dequantize
+from .sink_cache import _buffers, _clone, _put, dequantize
 
 __all__ = ["RaggedSinkKVCache"]
 
@@ -153,6 +155,23 @@ class RaggedSinkKVCache:
         self.window_len = torch.clamp(self.window_len + ring_adv, max=W)
         self.seen += adv
         return self
+
+    def append_many_counted(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                            counts: torch.Tensor) -> "RaggedSinkKVCache":
+        """Append T tokens [B, H_kv, T, D] per slot, slot b keeping only
+        its first ``counts[b]`` ([B] int on the device): the per-slot
+        speculative-decoding commit, with no host sync. Token i is
+        :meth:`append` with ``active = i < counts``, so a rejected token
+        changes neither the slot's state nor its live data (the park slot
+        or the read-back select)."""
+        for i in range(k_new.shape[2]):
+            self.append(k_new[:, :, i:i + 1], v_new[:, :, i:i + 1],
+                        i < counts)
+        return self
+
+    def clone(self) -> "RaggedSinkKVCache":
+        """A copy with buffers and state tensors of its own."""
+        return _clone(self)
 
     # -- reads --------------------------------------------------------------
 

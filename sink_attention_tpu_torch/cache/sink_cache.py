@@ -13,14 +13,18 @@ package's): fp8 codes are float8_e4m3fn bit patterns held in int8, with
 the subnormal codes flushed to 0. The decode kernel dequantizes in place.
 
 Unlike the JAX cache (an immutable ``flax.struct`` pytree), this cache is
-mutable: ``prefill`` and ``append`` write into the buffers in place and keep
-``sink_len``, ``window_len``, ``write_pos`` and ``seen`` as Python ints;
-both return the cache itself. Cache state is shared across the batch:
-batched decode needs equal lengths.
+mutable: ``prefill``, ``append`` and its relatives (``append_many``,
+``append_many_counted``, ``update``, ``reorder``) write into the buffers in
+place and keep ``sink_len``, ``window_len``, ``write_pos`` and ``seen`` as
+Python ints; each returns the cache itself. ``clone`` gives a copy with
+buffers of its own, where the JAX code keeps the old value of a pure
+cache. Cache state is shared across the batch: batched decode needs equal
+lengths.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
@@ -143,17 +147,24 @@ class SinkKVCache:
         self.seen = N
         return self
 
-    def append(self, k_new: torch.Tensor, v_new: torch.Tensor
-               ) -> "SinkKVCache":
+    def append(self, k_new: torch.Tensor, v_new: torch.Tensor,
+               keep: bool = True) -> "SinkKVCache":
         """Append one decode token [B, H_kv, 1, D] to the circular window.
 
         Sink promotion: a token at global position < num_sink goes to the
         (still unfilled) sink region, not the ring, so a prompt shorter
         than num_sink still ends with its first num_sink seen tokens pinned
         (the j < num_sink term of the prefill mask).
+
+        ``keep=False`` makes the call a no-op: the JAX cache writes the
+        target slot's old contents back and freezes its state (once the
+        ring is full that slot holds the oldest live token); here the
+        token is simply not written, which leaves the same buffers.
         """
         if k_new.shape[2] != 1:
             raise ValueError("append takes one token")
+        if not keep:
+            return self
         W = self.window_size
         if self.num_sink > 0 and self.seen < self.num_sink:
             pos = self.seen
@@ -165,6 +176,40 @@ class SinkKVCache:
         _put(self, _slots(pos, pos + 1), k_new, v_new)
         self.seen += 1
         return self
+
+    def append_many(self, k_new: torch.Tensor, v_new: torch.Tensor
+                    ) -> "SinkKVCache":
+        """Append T tokens [B, H_kv, T, D] one by one."""
+        for i in range(k_new.shape[2]):
+            self.append(k_new[:, :, i:i + 1], v_new[:, :, i:i + 1])
+        return self
+
+    def append_many_counted(self, k_new: torch.Tensor, v_new: torch.Tensor,
+                            count) -> "SinkKVCache":
+        """Append the first ``count`` of T tokens [B, H_kv, T, D]: the
+        speculative-decoding commit. ``count`` is an int or a 0-dim tensor
+        (read to the host once; the state is host ints); as in JAX, token
+        i is kept iff i < count. The rejected tokens are not written, so a
+        full ring keeps its oldest live tokens."""
+        n = min(max(int(count), 0), k_new.shape[2])
+        return self.append_many(k_new[:, :, :n], v_new[:, :, :n])
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor
+               ) -> "SinkKVCache":
+        """HF-style dispatch on N: one token appends, more prefill (into
+        an empty cache)."""
+        if k_new.shape[2] == 1:
+            return self.append(k_new, v_new)
+        return self.prefill(k_new, v_new)
+
+    def reorder(self, beam_idx: torch.Tensor) -> "SinkKVCache":
+        """Beam-search reorder: batch row b takes row ``beam_idx[b]``'s
+        buffers (``index_select`` on dim 0, written back in place)."""
+        return _reorder(self, beam_idx)
+
+    def clone(self) -> "SinkKVCache":
+        """A copy with buffers (and state) of its own."""
+        return _clone(self)
 
     # -- reads ------------------------------------------------------------
 
@@ -194,6 +239,25 @@ class SinkKVCache:
                 parts_k.append(torch.roll(wk, -self.write_pos, dims=2))
                 parts_v.append(torch.roll(wv, -self.write_pos, dims=2))
         return torch.cat(parts_k, dim=2), torch.cat(parts_v, dim=2)
+
+
+def _reorder(cache, beam_idx: torch.Tensor):
+    """Rows of every buffer of ``cache`` gathered by ``beam_idx`` [B] (any
+    permutation or repetition), in place. Returns the cache."""
+    idx = beam_idx.to(device=cache.k.device, dtype=torch.long)
+    for buf in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        buf.copy_(buf.index_select(0, idx))
+    return cache
+
+
+def _clone(cache):
+    """A shallow copy of ``cache`` whose tensors (buffers, and the ragged
+    cache's state) are copies."""
+    out = copy.copy(cache)
+    for name, val in vars(cache).items():
+        if isinstance(val, torch.Tensor):
+            setattr(out, name, val.clone())
+    return out
 
 
 def _slots(start: int, stop: int):

@@ -1,7 +1,8 @@
 from .config import ModelConfig
 from .convert import params_from_jax
 from .model import (apply_rope, decoder_layer, forward_decode,
-                    forward_decode_ragged, forward_prefill, init_params,
+                    forward_decode_ragged, forward_prefill, forward_verify,
+                    forward_verify_ragged, init_params,
                     make_caches, make_ragged_caches, moe, rms_norm,
                     rope_cos_sin)
 
@@ -12,6 +13,8 @@ __all__ = [
     "forward_prefill",
     "forward_decode",
     "forward_decode_ragged",
+    "forward_verify",
+    "forward_verify_ragged",
     "make_caches",
     "make_ragged_caches",
     "rms_norm",

@@ -18,7 +18,9 @@ accumulated in fp32. Prefill attention runs the CUDA prefill kernel (and,
 when training, the dQ and dK/dV kernels in the backward), decode the CUDA
 decode kernel over the rolling sink cache (bf16, int8 or fp8 storage), and
 the ragged decode of continuous batching the same kernel over a
-``RaggedSinkKVCache``.
+``RaggedSinkKVCache``. The verify forwards of speculative decoding run T
+draft tokens against the caches without advancing them, through the
+multi-token ops (plain PyTorch, as in JAX they are XLA).
 """
 
 from __future__ import annotations
@@ -32,13 +34,16 @@ import torch.utils.checkpoint
 from ..cache import RaggedSinkKVCache, SinkKVCache
 from ..ops import (sink_decode_attention_cached, sink_decode_attention_ragged,
                    sink_flash_attention)
+from ..ops.decode import (_cached_multi_attention,
+                          sink_decode_attention_ragged_multi)
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
 __all__ = ["init_params", "rms_norm", "rope_cos_sin", "apply_rope", "moe",
            "moe_routing", "moe_experts", "dense_mlp", "mlp_block",
            "decoder_layer", "forward_prefill", "forward_decode",
-           "forward_decode_ragged", "make_caches", "make_ragged_caches"]
+           "forward_decode_ragged", "forward_verify", "forward_verify_ragged",
+           "make_caches", "make_ragged_caches"]
 
 ALPHA = 1.702  # gpt-oss glu activation alpha
 LIMIT = 7.0    # gpt-oss activation clamp
@@ -382,48 +387,100 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
 
 def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                    caches: List[SinkKVCache], position: int,
-                   attn_impl=None):
+                   attn_impl=None, collect_kv: bool = False):
     """Single-token decode step. input_ids: [B, 1] -> (logits [B, 1, V],
     caches). Appends this token's KV to every layer cache (in place) and
     attends over it with the decode kernel; ``position`` is the token's
     global position, shared by the batch. ``attn_impl(q, cache, s_aux=)``
-    overrides the decode attention."""
+    overrides the decode attention. ``collect_kv=True`` also returns each
+    layer's post-RoPE (k, v) [B, H_kv, 1, D]: the speculative draft loop
+    commits those instead of running the draft a second time."""
     x = params["embed"][input_ids]
     pos = torch.tensor([int(position)], device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, pos)
     if attn_impl is None:
         attn_impl = sink_decode_attention_cached
+    kvs = []
 
     def attn_step(li, lp, q, k, v):
+        kvs.append((k, v))
         cache = caches[li].append(k, v)
         return attn_impl(q, cache, s_aux=_s_aux(lp, cfg))
 
-    return _layer_walk(params, cfg, x, cos, sin, attn_step), caches
+    logits = _layer_walk(params, cfg, x, cos, sin, attn_step)
+    return (logits, caches, kvs) if collect_kv else (logits, caches)
 
 
 def forward_decode_ragged(params: dict, cfg: ModelConfig,
                           input_ids: torch.Tensor,
                           caches: List[RaggedSinkKVCache],
                           positions: torch.Tensor, active: torch.Tensor,
-                          attn_impl=None):
+                          attn_impl=None, collect_kv: bool = False):
     """Ragged single-token decode, the continuous-batching step: every
     batch slot holds its own sequence at its own length. input_ids [B, 1];
     positions [B] (each slot's token position, for RoPE); active [B] bool
     (inactive slots neither append nor route to experts; their logits are
     junk). Returns (logits [B, 1, V], caches), the caches appended in
-    place. ``attn_impl(q, cache, s_aux=)`` overrides the decode attention
+    place, and with ``collect_kv`` each layer's (k, v) [B, H_kv, 1, D]
+    too. ``attn_impl(q, cache, s_aux=)`` overrides the decode attention
     (default: one ragged launch of the decode kernel per layer)."""
     x = params["embed"][input_ids]
     cos, sin = rope_cos_sin(cfg, positions[:, None])  # [B, 1, D/2]
     if attn_impl is None:
         attn_impl = sink_decode_attention_ragged
+    kvs = []
 
     def attn_step(li, lp, q, k, v):
+        kvs.append((k, v))
         cache = caches[li].append(k, v, active)
         return attn_impl(q, cache, s_aux=_s_aux(lp, cfg))
 
-    return _layer_walk(params, cfg, x, cos, sin, attn_step,
-                       active=active), caches
+    logits = _layer_walk(params, cfg, x, cos, sin, attn_step, active=active)
+    return (logits, caches, kvs) if collect_kv else (logits, caches)
+
+
+def forward_verify(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
+                   caches: List[SinkKVCache], start_pos: int):
+    """Multi-token verification forward, speculative decoding's target
+    pass: T draft tokens (input_ids [B, T], token t at position
+    ``start_pos + t``) against the pre-append caches, which are neither
+    advanced nor copied. Returns (logits [B, T, V], each layer's (k, v)
+    [B, H_kv, T, D]) for ``SinkKVCache.append_many_counted``."""
+    T = input_ids.shape[1]
+    x = params["embed"][input_ids]
+    pos = int(start_pos) + torch.arange(T, device=input_ids.device)
+    cos, sin = rope_cos_sin(cfg, pos)
+    kvs = []
+
+    def attn_step(li, lp, q, k, v):
+        kvs.append((k, v))
+        return _cached_multi_attention(q, k, v, caches[li],
+                                       s_aux=_s_aux(lp, cfg))
+
+    return _layer_walk(params, cfg, x, cos, sin, attn_step), kvs
+
+
+def forward_verify_ragged(params: dict, cfg: ModelConfig,
+                          input_ids: torch.Tensor,
+                          caches: List[RaggedSinkKVCache]):
+    """Per-slot multi-token verification forward (the engine's
+    speculative decoding): slot b's token t sits at position
+    ``caches[0].seen[b] + t`` and attends its own pre-append view. The
+    caches are not advanced. Returns (logits [B, T, V], each layer's
+    (k, v) [B, H_kv, T, D]) for ``RaggedSinkKVCache.append_many_counted``.
+    """
+    T = input_ids.shape[1]
+    x = params["embed"][input_ids]
+    pos = caches[0].seen[:, None] + torch.arange(T, device=input_ids.device)
+    cos, sin = rope_cos_sin(cfg, pos)                   # [B, T, D/2]
+    kvs = []
+
+    def attn_step(li, lp, q, k, v):
+        kvs.append((k, v))
+        return sink_decode_attention_ragged_multi(q, k, v, caches[li],
+                                                  s_aux=_s_aux(lp, cfg))
+
+    return _layer_walk(params, cfg, x, cos, sin, attn_step), kvs
 
 
 def _layer_windows(cfg: ModelConfig, max_len: int, streaming: bool):

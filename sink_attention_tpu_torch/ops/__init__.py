@@ -3,6 +3,7 @@
 with its plain PyTorch version."""
 
 from .decode import (sink_decode_attention, sink_decode_attention_cached,
+                     sink_decode_attention_cached_multi,
                      sink_decode_attention_ragged)
 from .flash import (merge_partials, sink_flash_attention,
                     sink_flash_attention_chunk, sink_flash_attention_with_lse)
@@ -22,5 +23,6 @@ __all__ = [
     "sink_flash_attention_packed",
     "sink_decode_attention",
     "sink_decode_attention_cached",
+    "sink_decode_attention_cached_multi",
     "sink_decode_attention_ragged",
 ]

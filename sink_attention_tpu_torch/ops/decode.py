@@ -22,6 +22,12 @@ the device and derives its high-water mark itself, so no call copies state
 between host and device. A window slot is live iff it is one of the newest
 ``window_len`` positions behind ``write_pos`` on the ring (the circular-age
 test).
+
+The multi-token ops of speculative decoding's verify pass
+(:func:`sink_decode_attention_cached_multi`,
+:func:`sink_decode_attention_ragged_multi`) are XLA in the JAX package, so
+plain PyTorch here: T draft queries over the pre-append cache plus the
+drafts themselves, in one masked softmax.
 """
 
 from __future__ import annotations
@@ -35,8 +41,10 @@ from ..cache.sink_cache import dequantize
 from . import _build
 
 __all__ = ["sink_decode_attention", "sink_decode_attention_cached",
-           "sink_decode_attention_ragged", "decode_kernel", "decode_plain",
-           "cache_state", "cluster_size"]
+           "sink_decode_attention_ragged",
+           "sink_decode_attention_cached_multi",
+           "sink_decode_attention_ragged_multi", "decode_kernel",
+           "decode_plain", "cache_state", "cluster_size"]
 
 LANES = 128
 TILE = 128       # slots per kernel tile; must match csrc/decode.cu
@@ -330,3 +338,108 @@ def sink_decode_attention_ragged(q, cache, s_aux=None):
     the device. An empty slot gives zeros. q: [B, H_q, 1, D]."""
     return _decode_call(q, cache.k, cache.v, cache_state(cache), s_aux,
                         **cache_args(cache))
+
+
+# ---------------------------------------------------------------------------
+# Multi-token decode (speculative verification), plain PyTorch
+# ---------------------------------------------------------------------------
+
+
+def _multi_attention(q, k_new, v_new, cache, state, s_aux=None):
+    """T draft tokens' attention over the pre-append ``cache`` and the
+    drafts, each sequence at its own ring state.
+
+    q [B, H_q, T, D]; k_new/v_new [B, H_kv, T, D]; state: (sink_len,
+    window_len, write_pos, seen), each a [B] tensor on q's device or an
+    int shared by the batch (no copy to the device). Draft t sits at
+    position ``seen + t`` and attends the sink slots, the window tokens
+    still inside its own causal window (so also those that appending all T
+    drafts would evict) and drafts 0..t: exactly sequential single-token
+    decode. In fp32; returns q.dtype. Requires T <= window_size.
+    """
+    B, H_q, T, D = q.shape
+    H_kv = cache.k.shape[1]
+    if H_q % H_kv:
+        raise ValueError(f"GQA group {H_q}/{H_kv}: H_q must be a multiple "
+                         f"of H_kv")
+    if T > cache.window_size:
+        raise ValueError(f"{T} draft tokens exceed the window "
+                         f"{cache.window_size}")
+    group = H_q // H_kv
+    sc, W, ns = cache.sink_cap, cache.window_size, cache.num_sink
+    dev = q.device
+    kf, vf = cache.dequant_kv()
+    kf = torch.cat([kf[:, :, :sc + W].float(), k_new.float()], dim=2)
+    vf = torch.cat([vf[:, :, :sc + W].float(), v_new.float()], dim=2)
+
+    sink_len, window_len, write_pos, seen = (
+        x.long()[:, None] if isinstance(x, torch.Tensor) else int(x)
+        for x in state)                                        # [B, 1]
+    sink_idx = torch.arange(sc, device=dev)[None]
+    age = (write_pos - 1 - torch.arange(W, device=dev)[None]) % W  # 0: newest
+    new_pos = (seen + torch.arange(T, device=dev)[None]).expand(B, T)
+    col_pos = torch.cat([sink_idx.expand(B, sc), (seen - 1 - age).expand(
+        B, W), new_pos], dim=1)                                # [B, S]
+    col_valid = torch.cat([(sink_idx < sink_len).expand(B, sc),
+                           (age < window_len).expand(B, W),
+                           torch.ones((B, T), dtype=torch.bool, device=dev)],
+                          dim=1)
+    causal = col_pos[:, None, :] <= new_pos[:, :, None]       # [B, T, S]
+    # the always-attended term only for columns living in the sink region:
+    # a ring token at a position < num_sink (a short prompt) is evicted by
+    # age in sequential decode
+    sink = torch.cat([(sink_idx < ns).expand(B, sc),
+                      torch.zeros((B, W + T), dtype=torch.bool, device=dev)],
+                     dim=1)[:, None, :]
+    win = col_pos[:, None, :] >= new_pos[:, :, None] - W + 1
+    mask = col_valid[:, None, :] & causal & (sink | win)
+
+    qf = q.float().reshape(B, H_kv, group, T, D) * (1.0 / D ** 0.5)
+    s = torch.einsum("bhgtd,bhsd->bhgts", qf, kf)
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    if s_aux is not None:
+        aux = s_aux.float().reshape(1, H_kv, group, 1, 1)
+        s = torch.cat([s, aux.expand(B, H_kv, group, T, 1)], dim=-1)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    denom = p.sum(dim=-1, keepdim=True)
+    denom = torch.where(denom == 0.0, torch.ones_like(denom), denom)
+    out = torch.einsum("bhgts,bhsd->bhgtd", p[..., :kf.shape[2]] / denom, vf)
+    return out.reshape(B, H_q, T, D).to(q.dtype)
+
+
+def _cached_multi_attention(q, k_new, v_new, cache, s_aux=None):
+    """The attention of :func:`sink_decode_attention_cached_multi` alone:
+    ``cache`` (a ``SinkKVCache``, its state shared by the batch) is read,
+    neither copied nor advanced."""
+    return _multi_attention(q, k_new, v_new, cache,
+                            (*cache_state(cache), cache.seen), s_aux)
+
+
+def sink_decode_attention_cached_multi(q, k_new, v_new, cache, s_aux=None):
+    """Multi-token decode attention over a ``SinkKVCache``: speculative
+    decoding's verification.
+
+    q/k_new/v_new: [B, H, T, D], the T draft tokens; ``cache`` holds the
+    state before them. Returns ``(out [B, H_q, T, D], cache_after)``, where
+    ``cache_after`` is a copy of ``cache`` with the drafts appended and
+    ``cache`` itself is left as it was (the JAX op returns a new pure
+    cache; the rollback state is the argument). The model's verify pass
+    takes the attention alone, with no copy (``models.forward_verify``).
+    Quantized caches are read dequantized. Requires T <= window_size.
+    """
+    out = _cached_multi_attention(q, k_new, v_new, cache, s_aux)
+    return out, cache.clone().append_many(k_new, v_new)
+
+
+def sink_decode_attention_ragged_multi(q, k_new, v_new, cache, s_aux=None):
+    """Multi-token decode attention over a ``RaggedSinkKVCache``: every
+    slot verifies its T drafts against its own pre-append ring view (its
+    [B] state read on the device, no host sync). The cache is not
+    advanced; the caller commits each slot's accepted prefix with
+    ``append_many_counted``. A slot with no cached tokens attends only
+    the drafts, causally (finite junk the engine's active mask drops).
+    q/k_new/v_new: [B, H, T, D]; returns [B, H_q, T, D]."""
+    return _multi_attention(q, k_new, v_new, cache,
+                            (*cache_state(cache), cache.seen), s_aux)

@@ -1,5 +1,7 @@
 from .engine import ContinuousBatchingEngine, Request, SamplingParams
-from .generate import decode_loop, greedy_generate, prefill_and_caches
+from .generate import (beam_generate, decode_loop, greedy_generate,
+                       prefill_and_caches, speculative_generate)
 
-__all__ = ["greedy_generate", "prefill_and_caches", "decode_loop",
-           "ContinuousBatchingEngine", "SamplingParams", "Request"]
+__all__ = ["greedy_generate", "beam_generate", "speculative_generate",
+           "prefill_and_caches", "decode_loop", "ContinuousBatchingEngine",
+           "SamplingParams", "Request"]

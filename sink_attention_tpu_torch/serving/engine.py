@@ -1,7 +1,7 @@
 """Continuous batching engine over the ragged sink KV cache.
 
 Counterpart of ``sink_attention_tpu/serving/engine.py`` (without its
-speculative decoding and its checkpointing, which wait for those slices):
+checkpointing, which waits for its slice):
 
 * a fixed pool of ``max_batch`` cache slots, each holding one request at
   its own length and ring phase (``RaggedSinkKVCache``, bf16 or int8/fp8);
@@ -13,7 +13,14 @@ speculative decoding and its checkpointing, which wait for those slices):
 * ``step_chunk(n)`` runs n steps with one host read at the end: a slot that
   samples its EOS or spends its budget turns inactive on the device, so
   later steps of the chunk neither append to its cache nor advance it;
-* finished slots are recycled at once.
+* finished slots are recycled at once;
+* with a draft model (``draft_params``, ``draft_cfg``), speculative
+  decoding per slot: each round drafts ``num_draft_tokens`` greedily for
+  every active slot (ragged draft caches), verifies them in one ragged
+  multi-token target pass and commits each slot's accepted prefix with
+  per-slot counts (``RaggedSinkKVCache.append_many_counted``), EOS and
+  budgets cutting the counts on the device; ``step_spec_chunk(n)`` runs n
+  rounds with one host read at the end. Greedy requests only.
 
 Sampling is greedy by default; temperature, top-k and top-p per engine or
 per request (``SamplingParams``), all slots sampled together from per-slot
@@ -31,7 +38,7 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.model import (forward_decode_ragged, forward_prefill,
-                            make_ragged_caches)
+                            forward_verify_ragged, make_ragged_caches)
 from ..utils.device import resolve_device
 
 __all__ = ["SamplingParams", "Request", "ContinuousBatchingEngine"]
@@ -114,6 +121,14 @@ class ContinuousBatchingEngine:
     ``first_token_cb(rid, token)`` is called when a request's first token
     reaches the host. ``pool_steps`` counts the decode steps of the whole
     pool (each one ragged decode launch per layer).
+
+    With ``draft_params`` and ``draft_cfg`` the engine decodes
+    speculatively (``step_spec_chunk``; ``run`` dispatches to it and
+    ``step``/``step_chunk`` refuse): ``num_draft_tokens`` drafts per slot
+    and round, output equal to greedy decoding per slot (the bf16
+    near-tie caveat of ``speculative_generate``). ``spec_rounds`` counts
+    the pool's rounds, ``spec_slot_rounds`` the (round, slot) pairs that
+    committed tokens and ``spec_tokens`` the tokens committed.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig, max_batch: int = 4,
@@ -123,7 +138,9 @@ class ContinuousBatchingEngine:
                  sampling: Optional[SamplingParams] = None, seed: int = 0,
                  streaming: bool = False, candidate_k: int = 64,
                  first_token_cb: Optional[Callable[[int, int], None]] = None,
-                 device="cuda"):
+                 device="cuda", draft_params: Optional[dict] = None,
+                 draft_cfg: Optional[ModelConfig] = None,
+                 num_draft_tokens: int = 8):
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -152,6 +169,22 @@ class ContinuousBatchingEngine:
         self.toks = torch.zeros((max_batch,), dtype=torch.int64, device=dev)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.pool_steps = 0
+
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
+        self.num_draft_tokens = num_draft_tokens
+        self.draft_caches = None
+        self.spec_rounds = self.spec_slot_rounds = self.spec_tokens = 0
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params needs draft_cfg")
+            if self.sampling.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding requires greedy sampling "
+                    "(engine default temperature must be 0)")
+            self.draft_caches = make_ragged_caches(
+                draft_cfg, max_batch, max_len, dtype=dtype, quant=quant,
+                streaming=streaming, device=dev)
 
         self._slots: List[Optional[Request]] = [None] * max_batch
         self._queue: List[Request] = []
@@ -186,6 +219,10 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"top_k={sampling.top_k} exceeds the engine's candidate_k="
                 f"{self.candidate_k}; raise candidate_k at construction")
+        if (self.draft_params is not None and sampling is not None
+                and sampling.temperature > 0.0):
+            raise ValueError("the speculative engine serves greedy requests "
+                             "only")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid, list(prompt), max_new_tokens,
@@ -214,6 +251,12 @@ class ContinuousBatchingEngine:
                                           collect_kv=True)
             for cache, (k, v) in zip(self.caches, kvs):
                 cache.insert(slot, k[0], v[0], n)
+            if self.draft_params is not None:
+                _, dkvs = forward_prefill(self.draft_params, self.draft_cfg,
+                                          ids.to(self.device),
+                                          collect_kv=True)
+                for cache, (k, v) in zip(self.draft_caches, dkvs):
+                    cache.insert(slot, k[0], v[0], n)
             sp = self._req_sampling(req)
             self._temps[slot] = sp.temperature
             self._topks[slot] = sp.top_k
@@ -255,14 +298,39 @@ class ContinuousBatchingEngine:
                 len(req.tokens) >= req.max_new_tokens):
             req.done = True
             self._slots[slot] = None
-            for cache in self.caches:
+            for cache in self.caches + (self.draft_caches or []):
                 cache.clear(slot)
         return req.done
+
+    def _check_not_speculative(self, name: str) -> None:
+        """Plain steps advance only the target caches: on a speculative
+        engine the draft caches would fall behind their slots for good."""
+        if self.draft_params is not None:
+            raise RuntimeError(
+                f"{name}() is not supported on a speculative engine (it "
+                "would desync the draft caches); use step_spec_chunk() or "
+                "run()")
+
+    def _pool_limits(self):
+        """(active [B] bool, EOS ids [B] (-1: none), budgets [B]) of the
+        slotted requests on the device, and the host's list of active
+        slots."""
+        active_py = [r is not None for r in self._slots]
+        dev = self.device
+        eos_ids = torch.tensor(
+            [(r.eos_id if r is not None and r.eos_id is not None else -1)
+             for r in self._slots], device=dev)
+        budgets = torch.tensor(
+            [r.max_new_tokens - len(r.tokens) if r is not None else 0
+             for r in self._slots], device=dev)
+        return (torch.tensor(active_py, device=dev), eos_ids, budgets,
+                active_py)
 
     def step(self) -> Dict[int, int]:
         """Admit, then one decode step for every active slot. Returns
         {rid: latest token}: for a request admitted in this call that is
         the decoded one (its first token lands in its list too)."""
+        self._check_not_speculative("step")
         return {rid: toks[-1] for rid, toks in self.step_chunk(1).items()}
 
     @torch.no_grad()
@@ -272,20 +340,13 @@ class ContinuousBatchingEngine:
         finishes mid-chunk is masked off for the chunk's remaining steps
         (the steps still run, and its queued successor waits for the next
         chunk). Returns {rid: [tokens kept this call]}."""
+        self._check_not_speculative("step_chunk")
         self._admit()
         out: Dict[int, List[int]] = {
             rid: [tok] for rid, tok in self._flush_pending().items()}
-        active_py = [r is not None for r in self._slots]
+        act, eos_ids, budgets, active_py = self._pool_limits()
         if not any(active_py):
             return out
-        dev = self.device
-        act = torch.tensor(active_py, device=dev)
-        eos_ids = torch.tensor(
-            [(r.eos_id if r is not None and r.eos_id is not None else -1)
-             for r in self._slots], device=dev)
-        budgets = torch.tensor(
-            [r.max_new_tokens - len(r.tokens) if r is not None else 0
-             for r in self._slots], device=dev)
         use_sampling = self._use_sampling()
         emitted = torch.zeros_like(budgets)
         toks, seq = self.toks, []
@@ -304,6 +365,13 @@ class ContinuousBatchingEngine:
         self.toks = toks
         self.pool_steps += n
         seq_host = torch.stack(seq, dim=1).tolist()   # the chunk's one read
+        self._keep(out, active_py, seq_host)
+        return out
+
+    def _keep(self, out: Dict[int, List[int]], active_py: List[bool],
+              seq_host: List[List[int]]) -> None:
+        """Append each active slot's tokens of a chunk to its request (and
+        to ``out``), up to the one that finishes it."""
         for slot, was_active in enumerate(active_py):
             req = self._slots[slot]
             if not was_active:
@@ -314,6 +382,85 @@ class ContinuousBatchingEngine:
                 kept.append(tok)
                 if self._finish_if_done(slot, tok):
                     break
+
+    @torch.no_grad()
+    def step_spec_chunk(self, rounds: int) -> Dict[int, List[int]]:
+        """Admit, then ``rounds`` speculative rounds of the pool with one
+        host read at the end (a draft model is required).
+
+        A round: ``num_draft_tokens`` (K) draft steps of every active slot
+        on a copy of the draft caches, keeping each step's KVs; one
+        ``forward_verify_ragged`` of ``[tok, draft[:-1]]`` against the
+        target caches; per slot the accepted prefix ``n_acc`` (cumprod of
+        the matches) and ``count = n_acc + 1``, cut on the device at the
+        first EOS (inclusive) and at the slot's remaining budget, 0 for an
+        inactive slot; the counted commit to both cache sets (the draft's
+        from its proposal's KVs, so the draft runs once). A slot that
+        finishes turns inactive for the chunk's remaining rounds. Returns
+        {rid: [tokens kept this call]}.
+        """
+        if self.draft_params is None:
+            raise RuntimeError("step_spec_chunk needs a draft model")
+        self._admit()
+        out: Dict[int, List[int]] = {
+            rid: [tok] for rid, tok in self._flush_pending().items()}
+        act, eos_ids, budgets, active_py = self._pool_limits()
+        if not any(active_py):
+            return out
+        K = self.num_draft_tokens
+        idx = torch.arange(K, device=self.device)[None]
+        toks, emitted, per_round = self.toks, torch.zeros_like(budgets), []
+        for _ in range(rounds):
+            fork = [c.clone() for c in self.draft_caches]
+            cur, drafts, dkvs = toks, [], []
+            for _ in range(K):
+                dl, _, kvs = forward_decode_ragged(
+                    self.draft_params, self.draft_cfg, cur[:, None], fork,
+                    fork[0].seen, act, collect_kv=True)
+                cur = torch.where(act, dl[:, -1].argmax(dim=-1), cur)
+                drafts.append(cur)
+                dkvs.append(kvs)
+            draft = torch.stack(drafts, dim=1)                 # [B, K]
+            inputs = torch.cat([toks[:, None], draft[:, :K - 1]], dim=1)
+            vlogits, tkvs = forward_verify_ragged(
+                self.params, self.cfg, inputs, self.caches)
+            greedy = vlogits.argmax(dim=-1)                    # [B, K]
+            n_acc = torch.cumprod(
+                (greedy[:, :K - 1] == draft[:, :K - 1]).long(), dim=1
+            ).sum(dim=1)
+            count = n_acc + 1
+            bonus = greedy.gather(1, n_acc.clamp(max=K - 1)[:, None])
+            accepted = torch.where(idx < n_acc[:, None], draft, bonus)
+            # cut at the first emitted EOS (inclusive) and at the budget;
+            # an inactive slot commits nothing
+            is_eos = ((eos_ids[:, None] >= 0)
+                      & (accepted == eos_ids[:, None])
+                      & (idx < count[:, None]))
+            has_eos = is_eos.any(dim=1)
+            eos_pos = is_eos.long().argmax(dim=1)
+            count = torch.where(has_eos, eos_pos + 1, count)
+            count = torch.minimum(count, (budgets - emitted).clamp(min=0))
+            count = torch.where(act, count, torch.zeros_like(count))
+            for c, (k, v) in zip(self.caches, tkvs):
+                c.append_many_counted(k, v, count)
+            for li, c in enumerate(self.draft_caches):
+                c.append_many_counted(
+                    torch.cat([kv[li][0] for kv in dkvs], dim=2),
+                    torch.cat([kv[li][1] for kv in dkvs], dim=2), count)
+            emitted = emitted + count
+            last = accepted.gather(1, (count - 1).clamp(min=0)[:, None])
+            toks = torch.where(count > 0, last[:, 0], toks)
+            act = act & ~(has_eos & (eos_pos < count)) & (emitted < budgets)
+            per_round.append(torch.cat([accepted, count[:, None]], dim=1))
+        self.toks = toks
+        self.spec_rounds += rounds
+        host = torch.stack(per_round, dim=1).tolist()  # the chunk's one read
+        seq_host = []
+        for slot_rounds in host:              # per round: K tokens, count
+            seq_host.append([t for r in slot_rounds for t in r[:r[K]]])
+            self.spec_slot_rounds += sum(r[K] > 0 for r in slot_rounds)
+            self.spec_tokens += sum(r[K] for r in slot_rounds)
+        self._keep(out, active_py, seq_host)
         return out
 
     def run(self, chunk: Optional[int] = None) -> Dict[int, List[int]]:
@@ -339,5 +486,9 @@ class ContinuousBatchingEngine:
                     n *= 2
             else:
                 n = chunk
-            self.step_chunk(n)
+            if self.draft_params is not None:
+                # a round emits at least one token per active slot
+                self.step_spec_chunk(max(1, n // 2))
+            else:
+                self.step_chunk(n)
         return {r.rid: r.tokens for r in reqs}

@@ -561,3 +561,66 @@ def test_warmed_calls_do_not_synchronise(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+def _plain_attention(monkeypatch):
+    """The model's prefill and decode attention swapped for the kernels'
+    plain versions (the same calls, no kernel)."""
+    from sink_attention_tpu_torch.models import model
+
+    def prefill(q, k, v, num_sink, window_size, s_aux=None):
+        return flash.flash_fwd_plain(q, k, v, s_aux, num_sink,
+                                     window_size)[0]
+
+    def cached(q, cache, s_aux=None):
+        return decode.decode_plain(q, cache.k, cache.v,
+                                   decode.cache_state(cache), s_aux,
+                                   **decode.cache_args(cache))
+
+    monkeypatch.setattr(model, "sink_flash_attention", prefill)
+    monkeypatch.setattr(model, "sink_decode_attention_cached", cached)
+
+
+def test_beam_and_speculative_kernels_match_plain(cuda, monkeypatch):
+    """beam_generate (2 beams) and speculative_generate (the target's
+    layer 0 as the draft) on a small model with head_dim 64 and a 200-token
+    prompt past its window of 128, through the kernels, against the same
+    calls with the plain attention: equal tokens, scores within 2e-2."""
+    import dataclasses
+
+    from sink_attention_tpu_torch.models import ModelConfig, init_params
+    from sink_attention_tpu_torch.serving import (beam_generate,
+                                                  speculative_generate)
+    cfg = ModelConfig.tiny(num_layers=2, hidden_size=256, num_heads=8,
+                           num_kv_heads=2, head_dim=64, vocab_size=512,
+                           sliding_window=128, intermediate_size=128)
+    dcfg = dataclasses.replace(cfg, num_layers=1,
+                               layer_types=cfg.layer_types[:1])
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=cuda)
+    draft = {**params, "layers": params["layers"][:1]}
+    ids = torch.randint(0, cfg.vocab_size, (1, 200), generator=gen,
+                        device=cuda)
+
+    def run():
+        beam = beam_generate(params, cfg, ids, 6, num_beams=2, device=cuda)
+        spec = speculative_generate(params, draft, cfg, dcfg, ids, 12,
+                                    num_draft_tokens=4, device=cuda)
+        return beam, spec
+
+    f0, d0 = flash.flash_fwd_kernel.launches, decode.decode_kernel.launches
+    (bt, bs), (st, rate) = run()
+    torch.cuda.synchronize()
+    # beam: 2 prefill layers, 2 x 5 decode steps; speculative: 2 + 1
+    # prefill layers and one draft layer per draft step
+    assert flash.flash_fwd_kernel.launches - f0 == 2 + 3
+    assert decode.decode_kernel.launches - d0 >= 2 * 5 + 4
+    _plain_attention(monkeypatch)
+    f0, d0 = flash.flash_fwd_kernel.launches, decode.decode_kernel.launches
+    (pbt, pbs), (pst, prate) = run()
+    assert (flash.flash_fwd_kernel.launches, decode.decode_kernel.launches
+            ) == (f0, d0)
+    assert bt.tolist() == pbt.tolist() and st.tolist() == pst.tolist()
+    assert float((bs - pbs).abs().max()) <= 2e-2 * max(1.0, float(
+        pbs.abs().max()))
+    assert rate == prate

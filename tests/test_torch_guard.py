@@ -306,3 +306,6 @@ def test_top_level_exports_the_ported_api():
     missing = [n for n in ported
                if n not in port.__all__ or not hasattr(port, n)]
     assert not missing, missing
+    from sink_attention_tpu_torch import serving
+    assert {"beam_generate", "speculative_generate"} <= set(serving.__all__)
+    assert "sink_decode_attention_cached_multi" in ported
