@@ -4,7 +4,7 @@
     python3 chip_smoke.py    # build, kernel checks, serving, training,
                              # packed training, continuous batching,
                              # the forward kernel's ablation, beam search
-                             # and speculative decoding
+                             # and speculative decoding, quantized weights
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -81,6 +81,19 @@ Phases:
      multi-token op against the decode kernel, and the speculative
      ContinuousBatchingEngine over bf16 and int8 KV beside the plain
      engine (see ``serve_spec``).
+  9. quantized weights: the model's int8 and packed-int4 matmuls at their
+     real shapes (the lm_head, gate_up and down at 32 and 128 experts)
+     against an fp32 dequantised reference (see ``quant_op_gates``);
+     then gpt-oss-20b at full width, 24 layers, in bf16, in int8
+     (quantize_params in place) and in int4 (init_quantized_params), and
+     gpt-oss-120b at full width, 36 layers, 128 experts, in int4 (the
+     only form that fits the card): each tree's bytes and peak memory,
+     and ContinuousBatchingEngine at 1 and 8 slots (scripts/bench_suite.py's
+     int4serve_table): ms a token, tokens/s, a profiled chunk's device
+     time and idle share, launch counts; before each engine row, at its
+     shapes, every layer's attention kernel against plain and three
+     layers against their weights dequantised to bf16 (see
+     ``serve_quant``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -2259,6 +2272,447 @@ def ablation_entries(rows, launches):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: serving with quantized weights
+# ---------------------------------------------------------------------------
+
+# a quantized matmul against its fp32 dequantised reference, of max |ref|:
+# x and the products in bf16 (JAX tests/test_int4.py:50,69)
+QUANT_OP_REL = 2e-2
+# a quantized layer's contribution against the same layer with its weights
+# dequantised to bf16 (JAX's int4 model bound, tests/test_int4.py:101)
+QUANT_LAYER_COS = 0.999
+QUANT_MODES = {"int8": (8, None), "int4": (4, None), "int4_g32": (4, 32)}
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a parameter tree."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.nbytes
+
+
+def dequantize(w, dtype=torch.float32):
+    """The plain weight of an int8 ({"q", "s"}) or packed-int4 ({"q4",
+    "s"}) leaf: the codes (the int4 nibbles sign-extended, lo half then hi
+    half along the contract axis) times their per-channel or group scales,
+    in fp32 one matrix (expert) at a time, cast to ``dtype``. A plain
+    tensor comes back as it is."""
+    from sink_attention_tpu_torch.models import is_quantized, is_quantized4
+
+    int4 = is_quantized4(w)
+    if not (int4 or is_quantized(w)):
+        return w
+    q, s = (w["q4"] if int4 else w["q"]), w["s"]
+    rows = q.shape[-2] * (2 if int4 else 1)
+    out = torch.empty(q.shape[:-2] + (rows, q.shape[-1]), dtype=dtype,
+                      device=q.device)
+    q3, s3 = q.reshape(-1, *q.shape[-2:]), s.reshape(-1, *s.shape[-2:])
+    o3 = out.view(-1, rows, q.shape[-1])
+    for e in range(q3.shape[0]):
+        codes = (torch.cat([(q3[e] << 4) >> 4, q3[e] >> 4]) if int4
+                 else q3[e]).float()
+        se = s3[e].float()
+        if int4 and se.shape[0] > 1:   # group scales over their rows
+            se = se.repeat_interleave(rows // se.shape[0], dim=0)
+        o3[e] = (codes * se).to(dtype)
+    return out
+
+
+def dequantize_tree(tree, dtype=torch.bfloat16):
+    """``tree`` with every quantized leaf replaced by its plain weight in
+    ``dtype`` (see :func:`dequantize`)."""
+    from sink_attention_tpu_torch.models import is_quantized, is_quantized4
+
+    if is_quantized(tree) or is_quantized4(tree):
+        return dequantize(tree, dtype)
+    if isinstance(tree, dict):
+        return {k: dequantize_tree(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [dequantize_tree(v, dtype) for v in tree]
+    return tree
+
+
+def quant_op_gates(device, *, lm_head=(2880, 201088), lm_tokens=(1, 8),
+                   experts=(32, 128), hidden=2880, inter=2880,
+                   expert_tokens=64, seed=0):
+    """Phase 9a: the model's quantized matmuls (``_mm`` on the lm_head,
+    ``_expert_mm`` on stacked gate_up [E, hidden, 2 inter] and down [E,
+    inter, hidden] with x 2-D [T, K] and 3-D [E, T, K]) in int8, int4 per
+    channel and int4 with group 32, against an fp32 product with the
+    weight dequantised to fp32. bf16 weights normal(0, 0.02) and x
+    normal(0, 1) from a generator seeded ``seed``. Returns (rows, errors):
+    each row's error of max |reference| (QUANT_OP_REL), and on the card
+    the op's ms beside the bf16 matmul's on the unquantized weight (CUDA
+    events)."""
+    from sink_attention_tpu_torch.models import (quantize_weight,
+                                                 quantize_weight_int4)
+    from sink_attention_tpu_torch.models.model import _expert_mm, _mm
+    from sink_attention_tpu_torch.utils import time_cuda
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    K, V = lm_head
+    cases = [("lm_head", (K, V), [(T, K) for T in lm_tokens])]
+    for E in experts:
+        T = expert_tokens
+        cases += [(f"gate_up E={E}", (E, hidden, 2 * inter),
+                   [(T, hidden), (E, T, hidden)]),
+                  (f"down E={E}", (E, inter, hidden),
+                   [(T, inter), (E, T, inter)])]
+    rows, errors = [], []
+    for name, wshape, xshapes in cases:
+        w = randn(wshape, 0.02)
+        xs = [randn(s) for s in xshapes]
+        mm = _mm if len(wshape) == 2 else _expert_mm
+        bf16_ms = [time_cuda(lambda x=x: torch.matmul(x, w), iters=10)
+                   if dev.type == "cuda" else None for x in xs]
+        for mode, (bits, group) in QUANT_MODES.items():
+            qw = (quantize_weight(w, scale_dtype=torch.bfloat16) if bits == 8
+                  else quantize_weight_int4(w, scale_dtype=torch.bfloat16,
+                                            group_size=group))
+            ref_w = dequantize(qw)
+            for x, b_ms in zip(xs, bf16_ms):
+                out = mm(x, qw)
+                ref = torch.matmul(x.float(), ref_w)
+                rel = float((out.float() - ref).abs().max()
+                            / ref.abs().max())
+                row = {"op": name, "mode": mode, "x": list(x.shape),
+                       "rel_err": rel, "finite": bool(out.isfinite().all())}
+                if dev.type == "cuda":
+                    row.update(ms=time_cuda(lambda: mm(x, qw), iters=10),
+                               bf16_ms=b_ms)
+                rows.append(row)
+                if not (rel < QUANT_OP_REL and row["finite"]):
+                    errors.append(f"quantized matmul {name} {mode} x "
+                                  f"{list(x.shape)}: error {rel:.3e} of "
+                                  f"max |ref| (bound {QUANT_OP_REL})")
+                del out, ref
+            del qw, ref_w
+        del w, xs
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return rows, errors
+
+
+def _quant_checks(params, cfg, device, quantized, *, slots, prompt_len,
+                  bucket, max_len, seed=1):
+    """The gates of one tree on live activations, at the shapes of an
+    engine row with ``slots`` slots (:func:`_quant_engine`): ``slots``
+    seeded prompts of ``prompt_len`` tokens, each prefilled alone padded
+    to ``bucket`` (the engine's admission, B=1) with every layer's forward
+    attention checked (kernel against plain), inserted into a ragged pool
+    of ``slots`` slots and ``max_len``, then one decode step of the pool
+    walked layer by layer (``model._block``, as forward_decode_ragged runs
+    it) with every layer's decode attention checked. With ``quantized``,
+    the first sliding, the first full and the last layer are each run
+    again from the same input with their weights dequantised to bf16 (on
+    a clone of their cache), and again with bf16-sized noise in the
+    attention output (``_noisy``, the control), both with the quantized
+    run's expert choice (:func:`_fixed_routing`; the tokens whose own
+    choice differed are counted): the cosine of the layer's contribution
+    (output less its input) against the dequantised one's. Returns a
+    report; the caller gates it."""
+    from sink_attention_tpu_torch.models import (forward_prefill,
+                                                 make_ragged_caches,
+                                                 rope_cos_sin)
+    from sink_attention_tpu_torch.models import model as tmodel
+    from sink_attention_tpu_torch.ops import decode, flash
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.zeros((slots, -(-prompt_len // bucket) * bucket),
+                      dtype=torch.long, device=dev)
+    ids[:, :prompt_len] = torch.randint(0, cfg.vocab_size,
+                                        (slots, prompt_len), generator=gen,
+                                        device=dev)
+    stats = {"prefill": [], "decode": []}
+
+    def checked_prefill(q, k, v, num_sink, window_size, s_aux):
+        o = flash.sink_flash_attention(q, k, v, num_sink=num_sink,
+                                       window_size=window_size, s_aux=s_aux)
+        p = flash.flash_fwd_plain(q, k, v, s_aux, num_sink, window_size)[0]
+        stats["prefill"].append(_attn_compare(o, p))
+        return o
+
+    rep = {}
+    with torch.inference_mode():
+        caches = make_ragged_caches(cfg, slots, max_len, device=dev)
+        toks, finite = [], True
+        for b in range(slots):
+            logits, kvs = forward_prefill(params, cfg, ids[b:b + 1],
+                                          collect_kv=True,
+                                          attn_impl=checked_prefill)
+            finite &= bool(logits.isfinite().all())
+            for c, (k, v) in zip(caches, kvs):
+                c.insert(b, k[0], v[0], prompt_len)
+            toks.append(logits[0, prompt_len - 1].argmax())
+            del logits, kvs
+        rep["prefill_finite"] = finite
+        toks = torch.stack(toks)
+        active = torch.ones(slots, dtype=torch.bool, device=dev)
+        cos, sin = rope_cos_sin(cfg, caches[0].seen[:, None])
+        x = tmodel._embed_lookup(params["embed"], toks[:, None])
+        gate = sorted({cfg.layer_types.index(t) for t in
+                       ("sliding_attention", "full_attention")
+                       if t in cfg.layer_types} | {cfg.num_layers - 1}
+                      ) if quantized else []
+
+        def attend(cache, s_aux, check):
+            def attn(q, k, v):
+                c = cache.append(k, v, active)
+                o = decode.sink_decode_attention_ragged(q, c, s_aux)
+                if check:
+                    p = decode.decode_plain(q, c.k, c.v, decode.ragged_lens(c),
+                                            s_aux, **decode.cache_args(c))
+                    stats["decode"].append(_attn_compare(o, p))
+                return o
+            return attn
+
+        layers = []
+        for li, lp in enumerate(params["layers"]):
+            s_aux = tmodel._s_aux(lp, cfg)
+            routes = []
+            forks = ([caches[li].clone(), caches[li].clone()]
+                     if li in gate else None)
+            out, _ = _fixed_routing(lambda: tmodel._block(
+                lp, cfg, x, cos, sin, attend(caches[li], s_aux, True),
+                active=active), routes)
+            if forks:
+                deq = dequantize_tree(lp)
+                ref, flips = _fixed_routing(lambda: tmodel._block(
+                    deq, cfg, x, cos, sin, attend(forks[0], s_aux, False),
+                    active=active), routes)
+                ctrl, ctrl_flips = _fixed_routing(lambda: tmodel._block(
+                    deq, cfg, x, cos, sin,
+                    _noisy(attend(forks[1], s_aux, False), 3000 + li),
+                    active=active), routes)
+                layers.append({"layer": li, "type": cfg.layer_types[li],
+                               "cos": cosine(out - x, ref - x),
+                               "control_cos": cosine(ctrl - x, ref - x),
+                               "router_flips": flips,
+                               "control_router_flips": ctrl_flips,
+                               "finite": bool(out.isfinite().all())})
+                del deq, ref, ctrl, forks
+            x = out
+        logits = tmodel._head(params, cfg, x)
+        rep["decode_finite"] = bool(logits.isfinite().all())
+    rep["quant_layers"] = layers
+    for name, st in stats.items():
+        rep[f"{name}_stats"] = st
+    return rep
+
+
+def _fixed_routing(run, routes):
+    """``run()`` with the model's ``moe_routing`` recording its expert
+    choice into ``routes`` when that is empty, else replaying it: the runs
+    compared with a quantized layer take its expert choice, so a router
+    near-tie that tips the other way (a discrete flip of a token's
+    experts) is not read as the matmuls' error. Returns (``run()``'s
+    result, the tokens whose own choice differed from the replayed
+    one)."""
+    from sink_attention_tpu_torch.models import model as tmodel
+
+    orig, replay, flips = tmodel.moe_routing, bool(routes), []
+
+    def routing(p, cfg, xt):
+        own = orig(p, cfg, xt)
+        if not replay:
+            routes.append(own)
+            return own
+        fixed = routes[len(flips)]
+        flips.append(int(((own > 0) != (fixed > 0)).any(-1).sum()))
+        return fixed
+
+    tmodel.moe_routing = routing
+    try:
+        return run(), sum(flips)
+    finally:
+        tmodel.moe_routing = orig
+
+
+def _gate_checks(rep, label, errors):
+    """Fail the checks of :func:`_quant_checks`: every layer's attention
+    (MIN_COS, 2e-2 of scale), each checked quantized layer
+    (QUANT_LAYER_COS, and its router flips no more than its control's, or
+    one), no NaN."""
+    for name in ("prefill", "decode"):
+        _layer_gate(rep.pop(f"{name}_stats"), name, rep, errors)
+    for row in rep["quant_layers"]:
+        if not (row["cos"] >= QUANT_LAYER_COS and row["finite"]):
+            errors.append(f"{label}: quantized layer {row['layer']} vs its "
+                          f"dequantised weights: cosine {row['cos']:.6f} "
+                          f"(control {row['control_cos']:.6f})")
+        if row["router_flips"] > max(1, row["control_router_flips"]):
+            errors.append(f"{label}: quantized layer {row['layer']}: "
+                          f"{row['router_flips']} tokens routed otherwise "
+                          f"by its dequantised weights (control "
+                          f"{row['control_router_flips']})")
+    if not (rep["prefill_finite"] and rep["decode_finite"]):
+        errors.append(f"{label}: non-finite logits")
+
+
+def _quant_engine(params, cfg, device, max_batch, *, prompt_len, max_len,
+                  bucket, chunk, warm, timed, profile_steps):
+    """One row of ``scripts/bench_suite.py``'s ``int4serve_table`` and
+    ``_run_engine``: ``max_batch`` requests of the prompt 1..prompt_len
+    with no budget to reach, ``warm`` chunks of ``chunk`` steps, then
+    ``timed`` chunks timed on the host clock, then ``profile_steps`` steps
+    in one profiled chunk. Returns (row, engine)."""
+    from sink_attention_tpu_torch.serving import ContinuousBatchingEngine
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=max_batch,
+                                   max_len=max_len, prefill_bucket=bucket,
+                                   dtype=torch.bfloat16, device=dev)
+    for _ in range(max_batch):
+        eng.submit(list(range(1, prompt_len + 1)), max_new_tokens=1 << 30)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    for _ in range(warm):
+        eng.step_chunk(chunk)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out = eng.step_chunk(chunk)
+    if cuda:
+        torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / (timed * chunk)
+    row = {"max_batch": max_batch, "ms_per_token": dt * 1e3,
+           "tokens_per_s": max_batch / dt,
+           "tokens_ok": all(len(t) == chunk and all(
+               0 <= i < cfg.vocab_size for i in t) for t in out.values())
+           and len(out) == max_batch}
+    if cuda:
+        t0 = time.perf_counter()
+        row["profile"] = profile_device(lambda: eng.step_chunk(profile_steps),
+                                        ("decode_kernel",))
+        row["profile_s"] = time.perf_counter() - t0
+    else:
+        eng.step_chunk(profile_steps)
+    row["profile_steps"] = profile_steps
+    row["pool_steps"] = eng.pool_steps
+    row["launches"] = _launch_counts()
+    if cuda:
+        row["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return row, eng
+
+
+def serve_quant(cfg, device, forms=("bfloat16", "int8", "int4"), *,
+                batches=(1, 8), prompt_len=64, max_len=4096, bucket=64,
+                chunk=32, warm=2, timed=3, profile_steps=2):
+    """Phase 9b/9c: ``cfg`` served by ContinuousBatchingEngine with its
+    weights in each of ``forms`` in turn, weights from a generator seeded
+    0 (phase 3's): "bfloat16" (``init_params``), "int8" (the bf16 tree
+    quantized by ``quantize_params(inplace=True)``), "int4"
+    (``init_quantized_params(bits=4)``: int4 layers and lm_head, int8
+    embedding). Each tree is dropped before the next is built, except
+    that int8 is made from the bf16 tree in place. Returns (report,
+    errors).
+
+    Per tree: the build's seconds, weight bytes (before and after, for
+    the in-place quantization) and peak memory; then per ``batches``
+    entry the checks of :func:`_quant_checks` at that row's slots,
+    gated, and one engine row (:func:`_quant_engine`: ms a token,
+    tokens/s, the profiled chunk's device ms and idle share, peak
+    memory), gated on its launches on the card (the forward once per
+    layer and admission, the bf16 decode once per layer and pool step,
+    the quantized decode branches never) and on its tokens.
+    """
+    import gc
+
+    from sink_attention_tpu_torch.models import (init_params,
+                                                 init_quantized_params,
+                                                 quantize_params)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    report, errors, params, prev = {}, [], None, None
+    for form in forms:
+        rep = report[form] = {}
+        if form == "bfloat16" or (form == "int8" and prev != "bfloat16"):
+            params = None
+            reset()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = init_params(cfg, gen, dtype=torch.bfloat16, device=dev)
+            sync()
+            rep["init_s"] = time.perf_counter() - t0
+            rep["init_peak_gb"] = peak()
+        if form == "int8":
+            rep["bytes_before"] = tree_bytes(params)
+            reset()
+            t0 = time.perf_counter()
+            params = quantize_params(params, inplace=True)
+            sync()
+            rep["quantize_s"] = time.perf_counter() - t0
+            rep["quantize_peak_gb"] = peak()
+        elif form == "int4":
+            params = None
+            reset()
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = init_quantized_params(cfg, gen, bits=4, device=dev)
+            sync()
+            rep["init_s"] = time.perf_counter() - t0
+            rep["init_peak_gb"] = peak()
+        rep["weight_bytes"] = tree_bytes(params)
+        reset()
+        rep["engine"] = []
+        for mb in batches:
+            label = f"{form} engine max_batch {mb}"
+            t0 = time.perf_counter()
+            checks = _quant_checks(params, cfg, dev, form != "bfloat16",
+                                   slots=mb, prompt_len=prompt_len,
+                                   bucket=bucket, max_len=max_len)
+            _gate_checks(checks, label, errors)
+            checks["checks_s"] = time.perf_counter() - t0
+            reset()
+            row, eng = _quant_engine(params, cfg, dev, mb,
+                                     prompt_len=prompt_len, max_len=max_len,
+                                     bucket=bucket, chunk=chunk, warm=warm,
+                                     timed=timed, profile_steps=profile_steps)
+            row["checks"] = checks
+            rep["engine"].append(row)
+            if not row["tokens_ok"]:
+                errors.append(f"{label}: malformed tokens")
+            if cuda:
+                _check_launches(row["launches"], {
+                    "flash_fwd": cfg.num_layers * mb,
+                    "decode": cfg.num_layers * eng.pool_steps,
+                    "decode_int8": 0, "decode_fp8": 0}, label, errors)
+            del eng
+            reset()
+        prev = form
+    del params
+    reset()
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances (one per head dim) each source must hold
@@ -2500,6 +2954,35 @@ def main() -> int:
         "launches"]["flash_fwd"]
     kernels[2]["launches_spec_engine"] = spec_engine["int8"]["spec"][
         "launches"]["decode_int8"]
+
+    torch.cuda.empty_cache()
+
+    # 9. serving with quantized weights: the matmuls at their real shapes,
+    # gpt-oss-20b in bf16, int8 and int4, gpt-oss-120b in int4
+    t0 = time.perf_counter()
+    oprows, operr = quant_op_gates(dev)
+    errors += operr
+    log(f"quantized matmuls (int8, int4, int4 group 32; lm_head, gate_up, "
+        f"down at E=32 and 128), {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(oprows))
+    t0 = time.perf_counter()
+    qreport, qerr = serve_quant(cfg, dev)
+    errors += qerr
+    log(f"quantized serving gpt-oss-20b (24 layers; bf16, int8 in place, "
+        f"int4 weights; engine max_batch 1 and 8, prompt 1..64, max_len "
+        f"4096, chunks of 32), {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(qreport))
+    t0 = time.perf_counter()
+    big = ModelConfig.gpt_oss_120b()
+    breport, berr = serve_quant(big, dev, forms=("int4",))
+    errors += berr
+    log(f"quantized serving gpt-oss-120b (36 layers, 128 experts, int4 "
+        f"weights; the same engine rows), {time.perf_counter() - t0:.1f} "
+        "s: " + json.dumps(breport))
+    engine_rows = [row for rep in (qreport, breport) for tree in rep.values()
+                   for row in tree["engine"]]
+    for row, name in ((kernels[0], "flash_fwd"), (kernels[1], "decode")):
+        row["launches_quant"] = sum(r["launches"][name] for r in engine_rows)
 
     if errors:
         for e in errors:

@@ -26,11 +26,12 @@ Subpackages (the JAX package's layout):
 
 - ``ops``      -- eager oracle, differentiable prefill and packed
                   attention, decode attention (CUDA kernels, each with its
-                  plain PyTorch version), the ablation kernels
+                  plain PyTorch version), the ablation kernels, the
+                  packed-int4 weight matmuls (plain PyTorch)
 - ``cache``    -- rolling sink KV cache (mutable; bf16, int8 or fp8 codes
                   with per-token scales) and the ragged batch cache
-- ``models``   -- gpt-oss / dense model family, parameter carry-over from
-                  JAX
+- ``models``   -- gpt-oss / dense model family, int8 / int4 weight
+                  quantization, parameter carry-over from JAX
 - ``serving``  -- greedy generation and the continuous-batching engine
 - ``parallel`` -- the training step (one device so far)
 - ``scripts``  -- the forward kernel's per-stage ablation; the A/B

@@ -5,6 +5,8 @@ from .model import (apply_rope, decoder_layer, forward_decode,
                     forward_verify_ragged, init_params,
                     make_caches, make_ragged_caches, moe, rms_norm,
                     rope_cos_sin)
+from .quant import (init_quantized_params, is_quantized, is_quantized4,
+                    quantize_params, quantize_weight, quantize_weight_int4)
 
 __all__ = [
     "ModelConfig",
@@ -22,4 +24,10 @@ __all__ = [
     "apply_rope",
     "moe",
     "params_from_jax",
+    "quantize_params",
+    "quantize_weight",
+    "is_quantized",
+    "init_quantized_params",
+    "is_quantized4",
+    "quantize_weight_int4",
 ]

@@ -4,7 +4,10 @@ Counterpart of ``sink_attention_tpu/models/model.py`` (its gpt-oss and
 dense paths). Parameters are the same nested dict as the JAX package's,
 leaf by leaf, with weights stored [in, out] so the model computes
 ``x @ w``; ``models.convert.params_from_jax`` carries a JAX tree over.
-Semantics as in the JAX model:
+The large weights may be int8 or packed-int4 dicts (``models.quant``):
+every forward dispatches on the leaf's form (``_mm``, ``_expert_mm``,
+``_routed_expert_mm``, ``_embed_lookup``, as in JAX); the router, biases,
+norms and sinks stay in full precision. Semantics as in the JAX model:
 
 * attention sinks as a learnable per-head extra softmax logit (s_aux);
 * alternating sliding/full attention layers;
@@ -36,8 +39,10 @@ from ..ops import (sink_decode_attention_cached, sink_decode_attention_ragged,
                    sink_flash_attention)
 from ..ops.decode import (_cached_multi_attention,
                           sink_decode_attention_ragged_multi)
+from ..ops.int4 import int4_matmul, int4_matmul_experts
 from ..utils.device import resolve_device
 from .config import ModelConfig
+from .quant import is_quantized, is_quantized4
 
 __all__ = ["init_params", "rms_norm", "rope_cos_sin", "apply_rope", "moe",
            "moe_routing", "moe_experts", "dense_mlp", "mlp_block",
@@ -47,6 +52,48 @@ __all__ = ["init_params", "rms_norm", "rope_cos_sin", "apply_rope", "moe",
 
 ALPHA = 1.702  # gpt-oss glu activation alpha
 LIMIT = 7.0    # gpt-oss activation clamp
+
+
+# ---------------------------------------------------------------------------
+# Matmuls on plain, int8 ({"q", "s"}) or packed-int4 ({"q4", "s"}) weights
+# ---------------------------------------------------------------------------
+
+
+def _mm(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., K] @ w [K, N]`` for a plain, int8 or packed-int4 weight.
+    int8: ``(x @ q.to(x.dtype)) * s.to(x.dtype)``; int4: ``ops.int4``."""
+    if is_quantized4(w):
+        y = int4_matmul(x.reshape(-1, x.shape[-1]), w["q4"], w["s"])
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    if is_quantized(w):
+        return (x @ w["q"].to(x.dtype)) * w["s"].to(x.dtype)
+    return x @ w.to(x.dtype)
+
+
+def _expert_mm(x: torch.Tensor, w) -> torch.Tensor:
+    """Stacked experts' product: x [T, K] shared by the experts (the dense
+    MoE's gate_up) or [E, T, K] per expert (its down), against w [E, K, N]
+    plain, int8 or packed-int4 -> [E, T, N] (the plain and int8 forms
+    broadcast through :func:`_mm`)."""
+    if is_quantized4(w):
+        return int4_matmul_experts(x, w["q4"], w["s"])
+    return _mm(x, w)
+
+
+def _routed_expert_mm(xt: torch.Tensor, w, e: int) -> torch.Tensor:
+    """Expert ``e``'s product on xt [T, K], reading only that expert's
+    weights (any form: its slice of each leaf through :func:`_mm`)."""
+    return _mm(xt, {k: v[e] for k, v in w.items()} if isinstance(w, dict)
+               else w[e])
+
+
+def _embed_lookup(embed, ids: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of ``ids``; an int8 table is dequantized in its
+    scales' dtype, the quantized model's compute dtype."""
+    if is_quantized(embed):
+        ct = embed["s"].dtype
+        return embed["q"][ids].to(ct) * embed["s"][ids].to(ct)
+    return embed[ids]
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +227,7 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
     D = cfg.head_dim
 
     def proj(w, b, heads):
-        y = x @ w.to(x.dtype)
+        y = _mm(x, w)
         if cfg.attention_bias:
             y = y + b.to(y.dtype)
         return y.reshape(B, N, heads, D).transpose(1, 2)
@@ -193,7 +240,7 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
 def _out_proj(p: dict, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
     """attn: [B, HQ, N, D] -> [B, N, H]."""
     B, HQ, N, D = attn.shape
-    y = attn.transpose(1, 2).reshape(B, N, HQ * D) @ p["wo"].to(attn.dtype)
+    y = _mm(attn.transpose(1, 2).reshape(B, N, HQ * D), p["wo"])
     if cfg.o_bias:
         y = y + p["bo"].to(y.dtype)
     return y
@@ -224,9 +271,9 @@ def _moe_grouped(p: dict, cfg: ModelConfig, xt: torch.Tensor,
     acc = torch.zeros((T, H), dtype=torch.float32, device=xt.device)
     for e in active:
         w_col = routing[:, e]
-        pre = xt @ p["gate_up"][e].to(xt.dtype)
+        pre = _routed_expert_mm(xt, p["gate_up"], e)
         act = _glu_act(pre + p["gate_up_b"][e].to(xt.dtype))
-        down = act @ p["down"][e].to(act.dtype)
+        down = _routed_expert_mm(act, p["down"], e)
         acc = acc + w_col[:, None] * (
             down + p["down_b"][e].to(act.dtype)).float()
     return acc
@@ -234,9 +281,9 @@ def _moe_grouped(p: dict, cfg: ModelConfig, xt: torch.Tensor,
 
 def dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """Gated-SiLU MLP (Qwen/Llama family): down(silu(gate(x)) * up(x))."""
-    g = x @ p["gate"].to(x.dtype)
-    u = x @ p["up"].to(x.dtype)
-    return (torch.nn.functional.silu(g) * u) @ p["down"].to(x.dtype)
+    g = _mm(x, p["gate"])
+    u = _mm(x, p["up"])
+    return _mm(torch.nn.functional.silu(g) * u, p["down"])
 
 
 def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -283,10 +330,10 @@ def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
     """Expert compute + combine: xt [T, H], routing [T, E] -> [T, H] fp32."""
     if xt.shape[0] <= cfg.moe_grouped_token_limit:
         return _moe_grouped(p, cfg, xt, routing)
-    gate_up = torch.matmul(xt, p["gate_up"].to(xt.dtype))      # [E, T, 2I]
+    gate_up = _expert_mm(xt, p["gate_up"])                     # [E, T, 2I]
     gate_up = gate_up + p["gate_up_b"].to(gate_up.dtype)[:, None, :]
     act = _glu_act(gate_up)
-    out = torch.matmul(act, p["down"].to(act.dtype))           # [E, T, H]
+    out = _expert_mm(act, p["down"])                           # [E, T, H]
     out = out + p["down_b"].to(out.dtype)[:, None, :]
     return torch.einsum("eth,te->th", out, routing.to(out.dtype)).float()
 
@@ -320,7 +367,7 @@ def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
 
 def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return x @ params["lm_head"].to(x.dtype)
+    return _mm(x, params["lm_head"])
 
 
 def _layer_walk(params: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
@@ -356,7 +403,7 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     work for memory O(1) in depth, as ``jax.checkpoint`` does in the JAX
     package. Ignored with ``caches`` or ``collect_kv``."""
     B, N = input_ids.shape
-    x = params["embed"][input_ids]
+    x = _embed_lookup(params["embed"], input_ids)
     if positions is None:
         positions = torch.arange(N, device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, positions.to(input_ids.device))
@@ -395,7 +442,7 @@ def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     overrides the decode attention. ``collect_kv=True`` also returns each
     layer's post-RoPE (k, v) [B, H_kv, 1, D]: the speculative draft loop
     commits those instead of running the draft a second time."""
-    x = params["embed"][input_ids]
+    x = _embed_lookup(params["embed"], input_ids)
     pos = torch.tensor([int(position)], device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, pos)
     if attn_impl is None:
@@ -424,7 +471,7 @@ def forward_decode_ragged(params: dict, cfg: ModelConfig,
     place, and with ``collect_kv`` each layer's (k, v) [B, H_kv, 1, D]
     too. ``attn_impl(q, cache, s_aux=)`` overrides the decode attention
     (default: one ragged launch of the decode kernel per layer)."""
-    x = params["embed"][input_ids]
+    x = _embed_lookup(params["embed"], input_ids)
     cos, sin = rope_cos_sin(cfg, positions[:, None])  # [B, 1, D/2]
     if attn_impl is None:
         attn_impl = sink_decode_attention_ragged
@@ -447,7 +494,7 @@ def forward_verify(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     advanced nor copied. Returns (logits [B, T, V], each layer's (k, v)
     [B, H_kv, T, D]) for ``SinkKVCache.append_many_counted``."""
     T = input_ids.shape[1]
-    x = params["embed"][input_ids]
+    x = _embed_lookup(params["embed"], input_ids)
     pos = int(start_pos) + torch.arange(T, device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, pos)
     kvs = []
@@ -470,7 +517,7 @@ def forward_verify_ragged(params: dict, cfg: ModelConfig,
     (k, v) [B, H_kv, T, D]) for ``RaggedSinkKVCache.append_many_counted``.
     """
     T = input_ids.shape[1]
-    x = params["embed"][input_ids]
+    x = _embed_lookup(params["embed"], input_ids)
     pos = caches[0].seen[:, None] + torch.arange(T, device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, pos)                   # [B, T, D/2]
     kvs = []

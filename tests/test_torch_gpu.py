@@ -624,3 +624,54 @@ def test_beam_and_speculative_kernels_match_plain(cuda, monkeypatch):
     assert float((bs - pbs).abs().max()) <= 2e-2 * max(1.0, float(
         pbs.abs().max()))
     assert rate == prate
+
+
+def test_quantized_matmuls_match_dequantized_on_the_card(cuda):
+    """chip_smoke's phase-9 op gates at small shapes: int8, int4 and int4
+    group 32 against the fp32 product with the dequantised weight."""
+    import chip_smoke
+
+    rows, errors = chip_smoke.quant_op_gates(
+        cuda, lm_head=(256, 1024), experts=(4,), hidden=256, inter=128,
+        expert_tokens=16)
+    assert errors == [] and len(rows) == 3 * (2 + 2 * 2)
+
+
+@pytest.mark.parametrize("bits, group", [(8, None), (4, None), (4, 32)])
+def test_quantized_model_on_the_card_matches_cpu(cuda, bits, group):
+    """A small quantized model (head_dim 64, bf16) on the card, through
+    the kernels and the bf16 GEMMs with fp32 outputs, against the same
+    tree on the CPU: logits at cosine >= 0.999 (JAX's int4 model bound),
+    prefill and one decode step."""
+    import chip_smoke
+    from sink_attention_tpu_torch.models import (ModelConfig, forward_decode,
+                                                 forward_prefill,
+                                                 init_quantized_params,
+                                                 make_caches)
+
+    cfg = ModelConfig.tiny(num_layers=2, hidden_size=256, num_heads=8,
+                           num_kv_heads=2, head_dim=64, vocab_size=512,
+                           sliding_window=128, intermediate_size=128)
+    cpu = torch.device("cpu")
+    params = init_quantized_params(cfg, torch.Generator().manual_seed(0),
+                                   bits=bits, int4_group_size=group,
+                                   device=cpu)
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    ids = torch.randint(0, cfg.vocab_size, (2, 200),
+                        generator=torch.Generator().manual_seed(1))
+    out = []
+    for dev, p in ((cpu, params), (cuda, to(params, cuda))):
+        caches = make_caches(cfg, 2, 256, device=dev)
+        lp, caches = forward_prefill(p, cfg, ids.to(dev), caches)
+        ld, _ = forward_decode(p, cfg, ids[:, :1].to(dev), caches, 200)
+        out.append((lp.float().cpu(), ld.float().cpu()))
+    for ref, got in zip(*out):
+        assert bool(got.isfinite().all())
+        assert chip_smoke.cosine(got, ref) >= 0.999

@@ -13,6 +13,15 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def _jax_all(path):
+    """The ``__all__`` list of a JAX package module, read with ast."""
+    tree = ast.parse((ROOT / path).read_text())
+    return next(ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets))
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke, imports with JAX made
     unimportable, and loads no module of sink_attention_tpu."""
@@ -294,11 +303,7 @@ def test_top_level_exports_the_ported_api():
     import sink_attention_tpu_torch as port
     from sink_attention_tpu_torch import cache, ops
 
-    tree = ast.parse((ROOT / "sink_attention_tpu" / "__init__.py").read_text())
-    jax_all = next(ast.literal_eval(node.value) for node in tree.body
-                   if isinstance(node, ast.Assign)
-                   and any(getattr(t, "id", None) == "__all__"
-                           for t in node.targets))
+    jax_all = _jax_all("sink_attention_tpu/__init__.py")
     ported = [n for n in jax_all
               if n == "__version__" or n in ops.__all__ or n in cache.__all__]
     assert {"packed_sink_window_mask", "sink_decode_attention_ragged",
@@ -309,3 +314,37 @@ def test_top_level_exports_the_ported_api():
     from sink_attention_tpu_torch import serving
     assert {"beam_generate", "speculative_generate"} <= set(serving.__all__)
     assert "sink_decode_attention_cached_multi" in ported
+
+
+def test_models_exports_the_ported_api():
+    """Every name of the JAX ``models/__init__.py`` ``__all__`` that one of
+    the port's models modules defines is exported by the port's models
+    package; the seven quantization names among them (read with ast, so
+    nothing of JAX is imported)."""
+    from sink_attention_tpu_torch import models
+    from sink_attention_tpu_torch.models import config, convert, model, quant
+
+    jax_all = _jax_all("sink_attention_tpu/models/__init__.py")
+    ported = [n for n in jax_all
+              if any(hasattr(m, n) for m in (config, convert, model, quant))]
+    assert {"quantize_params", "quantize_weight", "is_quantized",
+            "is_quantized4", "quantize_weight_int4",
+            "init_quantized_params", "forward_decode_ragged"} <= set(ported)
+    missing = [n for n in ported
+               if n not in models.__all__ or not hasattr(models, n)]
+    assert not missing, missing
+
+
+@pytest.mark.parametrize("path", ["sink_attention_tpu_torch/ops/int4.py",
+                                  "sink_attention_tpu_torch/models/quant.py"])
+def test_quantization_modules_import_no_jax(path):
+    """The int4 ops and the quantization module import torch (and the
+    port), nothing of JAX, flax or the JAX package."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and not node.level]
+    assert "torch" in names
+    assert not [n for n in names if n.split(".")[0] in (
+        "jax", "flax", "sink_attention_tpu")], names
