@@ -4,7 +4,8 @@
     python3 chip_smoke.py    # build, kernel checks, serving, training,
                              # packed training, continuous batching,
                              # the forward kernel's ablation, beam search
-                             # and speculative decoding, quantized weights
+                             # and speculative decoding, quantized weights,
+                             # serving from a checkpoint
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -94,6 +95,19 @@ Phases:
      shapes, every layer's attention kernel against plain and three
      layers against their weights dequantised to bf16 (see
      ``serve_quant``).
+  10. serving from a checkpoint: a random gpt-oss-20b checkpoint (24
+     layers) written in the released layout (bf16 dense tensors, MXFP4
+     experts, one safetensors shard per layer) to a temporary directory;
+     load_hf_checkpoint in bf16, every dense leaf and three layers'
+     experts held bit for bit to what was written; the loaded tree served
+     by ContinuousBatchingEngine (phase 6's requests) with every layer's
+     decode attention against plain on a replay; an engine snapshot
+     (save_state) resumed in a fresh engine (load_state) to exactly the
+     uninterrupted run's tokens, a sampled request among them; the golden
+     protocol (scripts/golden_gpt_oss.py: the kernel stack strictly closer
+     to plain eager attention than the full-causal ablation); the int4
+     streaming load against post-hoc quantization, its device peak below
+     the bf16 tree's, and one int4 engine row (see ``serve_checkpoint``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -1496,6 +1510,22 @@ def _kv_roundtrip(attn_impl, quant):
     return attn
 
 
+def _checked_forward(stats):
+    """A forward_prefill ``attn_impl``: the forward kernel
+    (``sink_flash_attention``), each call's output held against
+    ``flash_fwd_plain`` on the same inputs (:func:`_attn_compare`,
+    appended to ``stats``)."""
+    from sink_attention_tpu_torch.ops import flash
+
+    def attn(q, k, v, num_sink, window_size, s_aux=None):
+        o = flash.sink_flash_attention(q, k, v, num_sink=num_sink,
+                                       window_size=window_size, s_aux=s_aux)
+        p = flash.flash_fwd_plain(q, k, v, s_aux, num_sink, window_size)[0]
+        stats.append(_attn_compare(o, p))
+        return o
+    return attn
+
+
 def _layer_gate(stats, name, report, errors):
     """Report the worst per-layer attention comparison of ``stats`` and
     fail below cosine MIN_COS or above 2e-2 of scale."""
@@ -1846,6 +1876,27 @@ def _multi_op_check(cfg, device, dtype, max_len, prompt_len, T, seed):
     return rows
 
 
+def draft_pair(params, cfg, scale):
+    """Phase 8's speculative pair: the target's layers 1.. scaled by
+    ``scale`` in place (the pair of scripts/bench_suite.py's spec_table:
+    one copy of the weights), the draft its layer 0 with its embed, final
+    norm and lm_head (the same tensors). Returns (draft params, draft
+    cfg)."""
+    import dataclasses
+
+    with torch.no_grad():
+        for lp in params["layers"][1:]:
+            for part in lp.values():
+                for t in (part.values() if isinstance(part, dict)
+                          else [part]):
+                    t.mul_(scale)
+    dcfg = dataclasses.replace(cfg, num_layers=1,
+                               layer_types=cfg.layer_types[:1])
+    dparams = {"embed": params["embed"], "final_norm": params["final_norm"],
+               "lm_head": params["lm_head"], "layers": params["layers"][:1]}
+    return dparams, dcfg
+
+
 def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                num_beams=4, spec_tokens=64, num_draft=4, scale=0.1,
                n_requests=8, max_batch=4, max_len=2048, bucket=128,
@@ -1864,11 +1915,10 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     off by at most twice the mean distance of three re-scorings under
     bf16-sized noise (``_noisy``).
 
-    8b. The target's layers 1.. scaled by ``scale`` in place (the pair of
-    scripts/bench_suite.py's spec_table: one copy of the weights), the
-    draft its layer 0 with its embed, final norm and lm_head (the same
-    tensors). speculative_generate(num_draft) of ``spec_tokens`` against
-    greedy_generate on the same model: ms, acceptance rate, target passes,
+    8b. The pair of :func:`draft_pair` (layers 1.. scaled by ``scale``,
+    the draft layer 0). speculative_generate(num_draft) of
+    ``spec_tokens`` against greedy_generate on the same model: ms,
+    acceptance rate, target passes,
     launches (the forward per layer of both prefills, the decode per
     draft layer and draft step). Gates: the tokens equal greedy's, or
     first leave them at a near-tie (``_first_divergence``,
@@ -1887,8 +1937,6 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     plain engine's, or first leave them at a near-tie as in 8b (for the
     int8 cache the control also reads K and V through its round trip).
     """
-    import dataclasses
-
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.serving import (ContinuousBatchingEngine,
@@ -1970,15 +2018,7 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                       f", control {rep['rescore_control']:.4f}")
 
     # 8b. speculative decoding of one sequence
-    with torch.no_grad():
-        for lp in params["layers"][1:]:
-            for part in lp.values():
-                for t in (part.values() if isinstance(part, dict) else [part]):
-                    t.mul_(scale)
-    dcfg = dataclasses.replace(cfg, num_layers=1,
-                               layer_types=cfg.layer_types[:1])
-    dparams = {"embed": params["embed"], "final_norm": params["final_norm"],
-               "lm_head": params["lm_head"], "layers": params["layers"][:1]}
+    dparams, dcfg = draft_pair(params, cfg, scale)
     plain, plain_ms = timed(lambda: greedy_generate(
         params, cfg, ids, spec_tokens, **kw))
     stats = {}
@@ -2423,7 +2463,7 @@ def _quant_checks(params, cfg, device, quantized, *, slots, prompt_len,
                                                  make_ragged_caches,
                                                  rope_cos_sin)
     from sink_attention_tpu_torch.models import model as tmodel
-    from sink_attention_tpu_torch.ops import decode, flash
+    from sink_attention_tpu_torch.ops import decode
 
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2433,13 +2473,7 @@ def _quant_checks(params, cfg, device, quantized, *, slots, prompt_len,
                                         (slots, prompt_len), generator=gen,
                                         device=dev)
     stats = {"prefill": [], "decode": []}
-
-    def checked_prefill(q, k, v, num_sink, window_size, s_aux):
-        o = flash.sink_flash_attention(q, k, v, num_sink=num_sink,
-                                       window_size=window_size, s_aux=s_aux)
-        p = flash.flash_fwd_plain(q, k, v, s_aux, num_sink, window_size)[0]
-        stats["prefill"].append(_attn_compare(o, p))
-        return o
+    checked_prefill = _checked_forward(stats["prefill"])
 
     rep = {}
     with torch.inference_mode():
@@ -2709,6 +2743,600 @@ def serve_quant(cfg, device, forms=("bfloat16", "int8", "int4"), *,
         prev = form
     del params
     reset()
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: serving from a checkpoint in the released layout
+# ---------------------------------------------------------------------------
+
+# e8m0 codes of the written MXFP4 blocks, inclusive: 2^-8..2^-6 times the
+# e2m1 values (RMS 2.93 over the 16 codes) give decoded weights of RMS
+# 2.93 * sqrt((2^-16 + 2^-14 + 2^-12) / 3) = 0.030, near phase 3's 0.02
+# (a span like 121-132 makes a 24-layer model diverge)
+MXFP4_SCALE_CODES = (119, 121)
+# OCP e2m1 code points, low nibble first (the JAX package's decoder,
+# copied: this script imports nothing of it)
+_FP4 = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0,
+        -0.0, -0.5, -1.0, -1.5, -2.0, -3.0, -4.0, -6.0)
+
+
+def mxfp4_decode_numpy(blocks, scales):
+    """numpy decode of MXFP4 blocks [..., G, 16] and e8m0 scales [..., G]
+    to fp32 [..., G*32], as the JAX package's ``dequantize_mxfp4``."""
+    import numpy as np
+    fp4 = np.array(_FP4, dtype=np.float32)
+    vals = np.stack([fp4[blocks & 0x0F], fp4[blocks >> 4]], axis=-1)
+    vals = vals.reshape(*blocks.shape[:-1], 32)
+    exp = (scales.astype(np.int32) - 127)[..., None]
+    with np.errstate(over="ignore"):
+        return np.ldexp(vals, exp).reshape(*blocks.shape[:-2], -1)
+
+
+def hf_config_of(cfg) -> dict:
+    """The config.json (the port's exporter's ``hf_config``) of a
+    GptOssForCausalLM whose from_hf_config is ``cfg``."""
+    from sink_attention_tpu_torch.scripts.export_random_hf_checkpoint import \
+        hf_config
+    return hf_config({
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+        "intermediate_size": cfg.intermediate_size,
+        "num_local_experts": cfg.num_experts,
+        "num_experts_per_tok": cfg.experts_per_tok,
+        "sliding_window": cfg.sliding_window,
+        "layer_types": list(cfg.layer_types), "rope_theta": cfg.rope_theta,
+        "rope_scaling": cfg.rope_scaling, "rms_norm_eps": cfg.rms_norm_eps,
+        "attention_bias": cfg.attention_bias,
+        "max_position_embeddings": cfg.max_position_embeddings})
+
+
+def _layer_tensors(cfg):
+    """The exporter's ``layer_tensors`` of ``cfg`` in the released layout:
+    each dense expert stack [E, in, out] as MXFP4, uint8 "blocks"
+    [E, out, in/32, 16] and e8m0 "scales" [E, out, in/32]."""
+    from sink_attention_tpu_torch.scripts.export_random_hf_checkpoint import \
+        layer_tensors
+
+    out = []
+    for name, shape, kind in layer_tensors(hf_config_of(cfg)):
+        if name.startswith("mlp.experts.") and name.endswith("_proj"):
+            E, K, N = shape
+            out += [(name + "_blocks", (E, N, K // 32, 16), "blocks"),
+                    (name + "_scales", (E, N, K // 32), "scales")]
+        else:
+            out.append((name, shape, kind))
+    return out
+
+
+def checkpoint_bytes(cfg) -> int:
+    """Bytes of the tensors :func:`write_mxfp4_checkpoint` writes."""
+    per = sum(math.prod(s) * (1 if k in ("blocks", "scales") else 2)
+              for _, s, k in _layer_tensors(cfg))
+    return cfg.num_layers * per + (2 * cfg.vocab_size + 1) * \
+        cfg.hidden_size * 2
+
+
+def write_mxfp4_checkpoint(out_dir, cfg, device, *, seed=0, keep=()):
+    """A random gpt-oss checkpoint in the released layout: config.json,
+    one safetensors shard per layer (bf16 dense tensors in HF's [out, in]
+    Linear layout, MXFP4 experts: uint8 ``_blocks`` [E, out, in/32, 16]
+    of uniform bytes and ``_scales`` [E, out, in/32] uniform over
+    MXFP4_SCALE_CODES) and one for embed/norm/head (untied), with
+    model.safetensors.index.json, written through the port's exporter's
+    shard and index writers. Dense tensors are drawn N(0, 0.02), biases
+    too, norms are ones and the sinks N(0, 1).
+    Drawn on ``device`` from a generator seeded ``seed``. Returns
+    (report, {name: dense tensor written, on the CPU}, {layer: (gate_up
+    blocks, scales, down blocks, scales) as numpy} for the layers of
+    ``keep``)."""
+    import os
+
+    from sink_attention_tpu_torch.scripts.export_random_hf_checkpoint import (
+        new_index, write_index, write_shard)
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = MXFP4_SCALE_CODES
+
+    def draw(shape, kind):
+        if kind == "blocks":
+            return torch.randint(0, 256, shape, dtype=torch.uint8,
+                                 device=dev, generator=gen)
+        if kind == "scales":
+            return torch.randint(lo, hi + 1, shape, dtype=torch.uint8,
+                                 device=dev, generator=gen)
+        if kind == "one":
+            return torch.ones(shape, dtype=torch.bfloat16, device=dev)
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev).normal_(
+            0.0, 1.0 if kind == "sink" else 0.02, generator=gen)
+
+    t0 = time.perf_counter()
+    index = new_index()
+    dense, kept = {}, {}
+
+    for li in range(cfg.num_layers):
+        pre = f"model.layers.{li}."
+        tensors = {pre + n: draw(s, k).cpu()
+                   for n, s, k in _layer_tensors(cfg)}
+        dense.update({n: t for n, t in tensors.items()
+                      if t.dtype == torch.bfloat16})
+        if li in keep:
+            kept[li] = tuple(tensors[pre + f"mlp.experts.{m}_proj_{p}"]
+                             .numpy() for m in ("gate_up", "down")
+                             for p in ("blocks", "scales"))
+        write_shard(out_dir, index, f"model-layer-{li:05d}.safetensors",
+                    tensors)
+    V, H = cfg.vocab_size, cfg.hidden_size
+    head = {"model.embed_tokens.weight": draw((V, H), "w").cpu(),
+            "model.norm.weight": draw((H,), "one").cpu(),
+            "lm_head.weight": draw((V, H), "w").cpu()}
+    dense.update(head)
+    write_shard(out_dir, index, "model-embed.safetensors", head)
+    write_index(out_dir, index, hf_config_of(cfg))
+    files = os.listdir(out_dir)
+    rep = {"bytes": sum(os.path.getsize(os.path.join(out_dir, f))
+                        for f in files),
+           "tensor_bytes": index["metadata"]["total_size"],
+           "files": len(files), "seconds": time.perf_counter() - t0,
+           "scale_codes": list(MXFP4_SCALE_CODES)}
+    return rep, dense, kept
+
+
+class _RssPeak:
+    """The process's resident set, sampled every 5 ms from
+    /proc/self/statm on a thread while the block runs: ``peak_gb`` and
+    ``start_gb``."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def rss():
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * page / 1e9
+
+        self._rss, self.start_gb = rss, rss()
+        self.peak_gb = self.start_gb
+        self._stop = threading.Event()
+
+        def sample():
+            while not self._stop.wait(0.005):
+                self.peak_gb = max(self.peak_gb, rss())
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        self.peak_gb = max(self.peak_gb, self._rss())
+
+
+def _load_gates(params, cfg, dense, kept, errors):
+    """10b's gates: every dense leaf equals the tensor written (transposed
+    where HF stores [out, in]) and the kept layers' experts a numpy decode
+    of the bytes written, bit for bit. Returns the count of leaves held."""
+    import numpy as np
+
+    def same(got, want, name):
+        want = want.to(got.device)
+        if got.dtype != want.dtype or got.shape != want.shape or not bool(
+                (got.view(torch.int16) == want.view(torch.int16)).all()):
+            errors.append(f"checkpoint load: {name} differs from the "
+                          "tensor written")
+
+    n = 0
+    for li, lp in enumerate(params["layers"]):
+        pre = f"model.layers.{li}."
+        a, m = lp["attn"], lp["mlp"]
+        pairs = [(a[k], f"self_attn.{p}_proj.weight", True)
+                 for k, p in (("wq", "q"), ("wk", "k"), ("wv", "v"),
+                              ("wo", "o"))]
+        pairs += [(a[k], f"self_attn.{p}_proj.bias", False)
+                  for k, p in (("bq", "q"), ("bk", "k"), ("bv", "v"),
+                               ("bo", "o"))]
+        pairs += [(a["sinks"], "self_attn.sinks", False),
+                  (m["router_w"], "mlp.router.weight", True),
+                  (m["router_b"], "mlp.router.bias", False),
+                  (m["gate_up_b"], "mlp.experts.gate_up_proj_bias", False),
+                  (m["down_b"], "mlp.experts.down_proj_bias", False),
+                  (lp["ln1"], "input_layernorm.weight", False),
+                  (lp["ln2"], "post_attention_layernorm.weight", False)]
+        for got, name, transpose in pairs:
+            want = dense[pre + name]
+            same(got, want.t() if transpose else want, pre + name)
+            n += 1
+        if li in kept:
+            gu_b, gu_s, dn_b, dn_s = kept[li]
+            for got, b, s, name in ((m["gate_up"], gu_b, gu_s, "gate_up"),
+                                    (m["down"], dn_b, dn_s, "down")):
+                for e in range(b.shape[0]):   # one expert at a time
+                    want = np.ascontiguousarray(
+                        mxfp4_decode_numpy(b[e], s[e]).T)
+                    if not np.array_equal(
+                            got[e].float().cpu().numpy().view(np.int32),
+                            want.view(np.int32)):
+                        errors.append(f"checkpoint load: layer {li} "
+                                      f"{name} expert {e} differs from "
+                                      "its numpy decode")
+                        break
+                n += 1
+    same(params["embed"], dense["model.embed_tokens.weight"], "embed")
+    same(params["lm_head"], dense["lm_head.weight"].t(), "lm_head")
+    same(params["final_norm"], dense["model.norm.weight"], "final_norm")
+    return n + 3
+
+
+def _resume_check(params, cfg, device, reqs, sampled, *, max_batch,
+                  max_len, bucket, chunks, chunk, snap, errors):
+    """10d: two engines over ``reqs`` plus ``sampled`` (prompt, max new,
+    SamplingParams): the first runs ``chunks`` chunks of ``chunk`` pool
+    steps and then to the end; the second the same chunks, then
+    ``save_state(snap)``, ``load_state`` into a fresh engine, which runs
+    to the end. Every request's tokens must be the uninterrupted run's,
+    exactly. Returns a report, with the three engines' pool steps."""
+    import os
+
+    from sink_attention_tpu_torch.serving import ContinuousBatchingEngine
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def engine():
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=max_batch,
+                                       max_len=max_len,
+                                       prefill_bucket=bucket,
+                                       dtype=torch.bfloat16, device=dev)
+        for p, m in reqs:
+            eng.submit(p, max_new_tokens=m)
+        eng.submit(sampled[0], max_new_tokens=sampled[1],
+                   sampling=sampled[2])
+        for _ in range(chunks):
+            eng.step_chunk(chunk)
+        return eng
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    rep = {}
+    first = engine()
+    want = first.run()
+    eng = engine()
+    sync()
+    t0 = time.perf_counter()
+    eng.save_state(snap)
+    sync()
+    rep["save_s"] = time.perf_counter() - t0
+    rep["snapshot_bytes"] = (os.path.getsize(snap)
+                             + os.path.getsize(snap + ".meta.json"))
+    rep["in_flight"] = {"slots": eng.active_count, "queued": len(eng._queue)}
+    if not eng.active_count:
+        errors.append("resume check: no request was mid-generation at the "
+                      "snapshot")
+    steps = [first.pool_steps, eng.pool_steps]
+    del first, eng
+    fresh = ContinuousBatchingEngine(params, cfg, max_batch=max_batch,
+                                     max_len=max_len, prefill_bucket=bucket,
+                                     dtype=torch.bfloat16, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    fresh.load_state(snap)
+    sync()
+    rep["load_s"] = time.perf_counter() - t0
+    got = fresh.run()
+    rep["pool_steps"] = steps + [fresh.pool_steps]
+    rep["requests"] = len(want)
+    rep["tokens"] = sum(len(t) for t in want.values())
+    rep["mismatched"] = [rid for rid in want if got.get(rid) != want[rid]]
+    if sorted(got) != sorted(want) or rep["mismatched"]:
+        errors.append(f"resumed engine: requests {rep['mismatched']} (of "
+                      f"{len(want)}) differ from the uninterrupted run")
+    return rep
+
+
+def _admission_checks(params, cfg, prompts, bucket, device):
+    """Each prompt prefilled alone, padded to ``bucket`` (the engine's
+    admission: B=1), with every layer's forward attention checked, kernel
+    against plain (:func:`_checked_forward`). Returns the per-layer
+    stats."""
+    from sink_attention_tpu_torch.models import forward_prefill
+
+    stats = []
+    with torch.inference_mode():
+        for prompt in prompts:
+            n = len(prompt)
+            ids = torch.zeros((1, -(-n // bucket) * bucket), dtype=torch.long,
+                              device=device)
+            ids[0, :n] = torch.tensor(prompt, device=device)
+            forward_prefill(params, cfg, ids,
+                            attn_impl=_checked_forward(stats))
+    return stats
+
+
+def _int4_gates(params4, ref, errors):
+    """10e's gate: the int4 load's codes and scales equal
+    quantize_weight_int4 (int8 quantize_weight for the lm_head) of the
+    bf16-loaded tensors in ``ref`` ({path: tensor}), bit for bit."""
+    from sink_attention_tpu_torch.models import (quantize_weight,
+                                                 quantize_weight_int4)
+
+    for path, w in ref.items():
+        node = params4
+        for key in path:
+            node = node[key]
+        want = (quantize_weight(w.float(), contract_axis=-2,
+                                scale_dtype=torch.bfloat16)
+                if path == ("lm_head",) else
+                quantize_weight_int4(w.float(), contract_axis=-2,
+                                     scale_dtype=torch.bfloat16))
+        for k, t in want.items():
+            if not torch.equal(node[k], t):
+                errors.append(f"int4 checkpoint load: "
+                              f"{'/'.join(map(str, path))} [{k}] differs "
+                              "from post-hoc quantization")
+
+
+def serve_checkpoint(cfg, device, *, n_requests=8, max_batch=4,
+                     max_len=2048, bucket=128, prompt=(64, 1024),
+                     new=(16, 32), replay_steps=16, resume=(2, 8),
+                     golden=(2, 512), int4_row=None, workdir=None):
+    """Phase 10: gpt-oss ``cfg`` served from a checkpoint on disk. Returns
+    (report, errors).
+
+    a. :func:`write_mxfp4_checkpoint` into a new directory under
+       ``workdir`` (default the temporary directory), after a check that
+       the disk holds it; the directory is removed at the end.
+    b. ``load_hf_checkpoint(path)`` in bf16: seconds, the host's resident
+       peak during the load, the device peak, the tree's bytes; gated on
+       ``from_hf_config`` giving ``cfg`` and on :func:`_load_gates` (the
+       first, middle and last layers' experts).
+    c. ContinuousBatchingEngine over the loaded tree: phase 6's requests
+       (engine_requests), ``max_batch`` slots, ``max_len``, bf16 KV;
+       launches, tokens/s, the device peak; every request's admission
+       prefill again with every layer's forward attention, kernel against
+       plain (:func:`_admission_checks`), and a replay with every layer's
+       decode attention, kernel against plain (_engine_replay), each
+       gated by _layer_gate.
+    d. :func:`_resume_check` on the same requests plus one sampled at
+       temperature 1.0, top_k 4: ``resume`` = (chunks, steps per chunk)
+       before the snapshot; the snapshot's bytes and the save and load
+       seconds; launches over its three engines (every request admitted
+       once by the uninterrupted engine and once by the interrupted pair).
+    f. the golden protocol (``scripts/golden_gpt_oss.run``, skip_hf: eager
+       is the plain-attention stack) on the bf16 tree, ``golden`` =
+       (prompts, tokens), with the forward of its kernel stack and of its
+       ablation (num_sink 0, window N, no s_aux) held at every layer
+       against plain on the same inputs (:func:`_checked_forward`, gated
+       by _layer_gate); gated on its verdict.
+    e. the bf16 tree dropped but for the first and last layers' wq,
+       gate_up, down and the lm_head; ``load_hf_checkpoint(path,
+       quant="int4")``: seconds, device peak (gated below the bf16
+       tree's bytes), :func:`_int4_gates`; one engine row
+       (:func:`_quant_engine`, ``int4_row``: its keyword arguments,
+       default phase 9's row at 8 slots, one warm and one timed chunk)
+       with its launches.
+    On the card the forward kernel must launch once per layer and
+    admission (per prompt and stack in f), the bf16 decode once per layer
+    and pool step.
+    """
+    import gc
+    import os
+    import resource
+    import shutil
+    import tempfile
+
+    from sink_attention_tpu_torch.models import load_hf_checkpoint
+    from sink_attention_tpu_torch.scripts import golden_gpt_oss
+    from sink_attention_tpu_torch.serving import (ContinuousBatchingEngine,
+                                                  SamplingParams)
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    L = cfg.num_layers
+    int4_row = int4_row or dict(max_batch=8, prompt_len=64, max_len=4096,
+                                bucket=64, chunk=32, warm=1, timed=1,
+                                profile_steps=2)
+    report, errors = {}, []
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def reset():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+
+    def launches(label, want):
+        got = _launch_counts()
+        if cuda:
+            _check_launches(got, want, label, errors)
+        return got
+
+    base = workdir or tempfile.gettempdir()
+    need = checkpoint_bytes(cfg)
+    free = shutil.disk_usage(base).free
+    report["disk"] = {"dir": base, "free_bytes": free, "need_bytes": need}
+    if free < need * 1.05 + (1 << 30):
+        errors.append(f"checkpoint phase: {base} has {free / 1e9:.2f} GB "
+                      f"free, the checkpoint needs {need / 1e9:.2f} GB")
+        return report, errors
+    path = tempfile.mkdtemp(prefix="sink_ckpt_", dir=base)
+    try:
+        # a. write
+        keep = sorted({0, L // 2 - 1 if L > 1 else 0, L - 1})
+        rep_w, dense, kept = write_mxfp4_checkpoint(path, cfg, dev,
+                                                    keep=keep)
+        report["write"] = rep_w
+        log(f"checkpoint written: {rep_w['bytes']} bytes in "
+            f"{rep_w['seconds']:.1f} s ({path})")
+
+        # b. load in bf16
+        reset()
+        with _RssPeak() as rss:
+            t0 = time.perf_counter()
+            cfg_l, params = load_hf_checkpoint(path, dtype=torch.bfloat16,
+                                               device=dev)
+            sync()
+            load_s = time.perf_counter() - t0
+        report["load"] = {
+            "seconds": load_s, "tree_bytes": tree_bytes(params),
+            "device_peak_gb": peak(),
+            "host_rss_start_gb": rss.start_gb,
+            "host_rss_peak_gb": rss.peak_gb,
+            "host_ru_maxrss_gb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            "bytes_per_s": rep_w["bytes"] / load_s}
+        if cfg_l != cfg:
+            errors.append("checkpoint load: from_hf_config gave another "
+                          "configuration than the one written")
+        report["load"]["leaves_held"] = _load_gates(params, cfg, dense,
+                                                    kept, errors)
+        report["load"]["expert_layers_held"] = keep
+        del dense, kept
+        log("checkpoint load (bf16): " + json.dumps(report["load"]))
+
+        # c. serve the loaded tree
+        reset()
+        reqs = engine_requests(n_requests, cfg.vocab_size, 0, prompt, new)
+        eng = ContinuousBatchingEngine(params, cfg, max_batch=max_batch,
+                                       max_len=max_len,
+                                       prefill_bucket=bucket,
+                                       dtype=torch.bfloat16, device=dev)
+        rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = eng.run()
+        sync()
+        rep = report["engine"] = {"run_ms": (time.perf_counter() - t0) * 1e3}
+        rep["pool_steps"] = eng.pool_steps
+        rep["launches"] = launches("checkpoint engine", {
+            "flash_fwd": L * n_requests, "decode": L * eng.pool_steps,
+            "decode_int8": 0, "decode_fp8": 0})
+        tokens = [out[r] for r in rids]
+        rep["tokens"] = sum(len(t) for t in tokens)
+        rep["tokens_per_s"] = rep["tokens"] / (rep["run_ms"] / 1e3)
+        rep["peak_memory_gb"] = peak()
+        for (_, m), toks in zip(reqs, tokens):
+            if len(toks) != m or not all(0 <= t < cfg.vocab_size
+                                         for t in toks):
+                errors.append(f"checkpoint engine: a request asked for {m} "
+                              f"tokens and got {len(toks)}")
+        del eng
+        with torch.no_grad():
+            stats, _ = _engine_replay(
+                params, cfg, reqs, tokens, None, device=dev,
+                dtype=torch.bfloat16, max_len=max_len, bucket=bucket,
+                steps=replay_steps, stop_slot_at=replay_steps // 2)
+        _layer_gate(stats, "decode", rep, errors)
+        _layer_gate(_admission_checks(params, cfg, [p for p, _ in reqs],
+                                      bucket, dev), "prefill", rep, errors)
+        log("checkpoint engine: " + json.dumps(rep))
+
+        # d. resume
+        reset()
+        _reset_launches()
+        sampled = (reqs[1][0], new[1], SamplingParams(temperature=1.0,
+                                                      top_k=4))
+        report["resume"] = _resume_check(
+            params, cfg, dev, reqs, sampled, max_batch=max_batch,
+            max_len=max_len, bucket=bucket, chunks=resume[0],
+            chunk=resume[1], snap=os.path.join(path, "engine.snapshot"),
+            errors=errors)
+        report["resume"]["launches"] = launches("checkpoint resume", {
+            "flash_fwd": 2 * L * (n_requests + 1),
+            "decode": L * sum(report["resume"]["pool_steps"]),
+            "decode_int8": 0, "decode_fp8": 0})
+        log("checkpoint resume: " + json.dumps(report["resume"]))
+
+        # f. the golden protocol on the bf16 tree
+        reset()
+        _reset_launches()
+        t0 = time.perf_counter()
+        gstats = {"kernel": [], "ablation": []}
+        checks = {k: _checked_forward(st) for k, st in gstats.items()}
+
+        def golden_attn(q, k, v, num_sink, window_size, s_aux=None):
+            # the ablation is the stack that calls without s_aux
+            return checks["ablation" if s_aux is None else "kernel"](
+                q, k, v, num_sink, window_size, s_aux)
+
+        g = golden_gpt_oss.run(path, golden[0], golden[1], None, True, None,
+                               device=dev, loaded=(cfg, params),
+                               attn=golden_attn)
+        rep = report["golden"] = {k: g[k] for k in (
+            "kernel", "ablation", "top1_kernel", "top1_ablation", "ratio",
+            "verdict", "eager")}
+        rep["seconds"] = time.perf_counter() - t0
+        # per prompt: the kernel stack and the ablation's, through the
+        # forward kernel; the plain stack's, not
+        rep["launches"] = launches("golden", {
+            "flash_fwd": 2 * L * golden[0], "decode": 0})
+        for name, st in gstats.items():
+            if len(st) != L * golden[0]:
+                errors.append(f"golden: {len(st)} {name} forwards checked, "
+                              f"expected {L * golden[0]}")
+            _layer_gate(st, f"golden_{name}", rep, errors)
+        if not g["verdict"]:
+            errors.append("golden: the kernel stack is not strictly closer "
+                          "to eager than the full-causal ablation")
+
+        # e. int4 streaming load
+        li = (0, L - 1)
+        ref = {("lm_head",): params["lm_head"].clone()}
+        for i in li:
+            ref[("layers", i, "attn", "wq")] = params["layers"][i]["attn"][
+                "wq"].clone()
+            for k in ("gate_up", "down"):
+                ref[("layers", i, "mlp", k)] = params["layers"][i]["mlp"][
+                    k].clone()
+        bf16_bytes = report["load"]["tree_bytes"]
+        del params
+        reset()
+        t0 = time.perf_counter()
+        _, params4 = load_hf_checkpoint(path, quant="int4", device=dev)
+        sync()
+        rep = report["int4_load"] = {
+            "seconds": time.perf_counter() - t0, "device_peak_gb": peak(),
+            "tree_bytes": tree_bytes(params4),
+            "ref_bytes": tree_bytes(list(ref.values()))}
+        if cuda and not rep["device_peak_gb"] * 1e9 < bf16_bytes:
+            errors.append(f"int4 checkpoint load peaked at "
+                          f"{rep['device_peak_gb']:.2f} GB, not below the "
+                          f"bf16 tree's {bf16_bytes / 1e9:.2f} GB")
+        _int4_gates(params4, ref, errors)
+        del ref
+        reset()
+        row, eng = _quant_engine(params4, cfg, dev, **int4_row)
+        rep["engine"] = row
+        if not row["tokens_ok"]:
+            errors.append("int4 checkpoint engine: malformed tokens")
+        if cuda:
+            _check_launches(row["launches"], {
+                "flash_fwd": L * int4_row["max_batch"],
+                "decode": L * eng.pool_steps, "decode_int8": 0,
+                "decode_fp8": 0}, "int4 checkpoint engine", errors)
+        del eng, params4
+        log("checkpoint int4 load and engine: " + json.dumps(rep))
+    finally:
+        shutil.rmtree(path)
+    reset()
+    parts = (report["engine"], report["resume"], report["golden"],
+             report["int4_load"]["engine"])
+    report["launches"] = {name: sum(p["launches"][name] for p in parts)
+                          for name in ("flash_fwd", "decode")}
     return report, errors
 
 
@@ -2983,6 +3611,19 @@ def main() -> int:
                    for row in tree["engine"]]
     for row, name in ((kernels[0], "flash_fwd"), (kernels[1], "decode")):
         row["launches_quant"] = sum(r["launches"][name] for r in engine_rows)
+
+    torch.cuda.empty_cache()
+
+    # 10. serving from a checkpoint in the released layout (MXFP4 experts)
+    t0 = time.perf_counter()
+    creport, cerr = serve_checkpoint(cfg, dev)
+    errors += cerr
+    log(f"checkpoint serving gpt-oss-20b (24 layers; a random checkpoint "
+        f"in the released layout written, loaded in bf16 and int4, served, "
+        f"resumed, the golden protocol), {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(creport))
+    for row, name in ((kernels[0], "flash_fwd"), (kernels[1], "decode")):
+        row["launches_checkpoint"] = creport.get("launches", {}).get(name, 0)
 
     if errors:
         for e in errors:

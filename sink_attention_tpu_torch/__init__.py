@@ -31,12 +31,17 @@ Subpackages (the JAX package's layout):
 - ``cache``    -- rolling sink KV cache (mutable; bf16, int8 or fp8 codes
                   with per-token scales) and the ragged batch cache
 - ``models``   -- gpt-oss / dense model family, int8 / int4 weight
-                  quantization, parameter carry-over from JAX
-- ``serving``  -- greedy generation and the continuous-batching engine
+                  quantization, parameter carry-over from JAX, the HF
+                  checkpoint loader (MXFP4 experts, ``from_hf_config``)
+- ``serving``  -- greedy, beam and speculative generation and the
+                  continuous-batching engine (with ``save_state`` /
+                  ``load_state``)
 - ``parallel`` -- the training step (one device so far)
 - ``scripts``  -- the forward kernel's per-stage ablation; the A/B
-                  timing of the attention kernels of two checkouts
-- ``utils``    -- device selection, CUDA-event timing
+                  timing of the attention kernels of two checkouts; the
+                  golden logits criterion and its random HF checkpoint
+- ``utils``    -- device selection, CUDA-event timing, checkpointing, the
+                  safetensors format
 """
 
 __version__ = "0.1.0"

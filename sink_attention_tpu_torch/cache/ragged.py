@@ -12,7 +12,9 @@ test).
 
 Unlike the JAX cache (an immutable pytree), this one is mutable: ``insert``,
 ``clear``, ``append`` and ``append_many_counted`` write in place and return
-the cache; ``clone`` gives a copy with buffers and state of its own. The
+the cache; ``clone`` gives a copy with buffers and state of its own;
+``state_dict``/``load_state_dict`` save and restore it as ``SinkKVCache``'s
+do. The
 state
 tensors are updated with indexed writes and ``torch.where``, never read to
 the host, so a decode loop that deactivates slots on the device needs no
@@ -25,7 +27,8 @@ from typing import Optional
 
 import torch
 
-from .sink_cache import _buffers, _clone, _put, dequantize
+from .sink_cache import (_buffers, _clone, _load_state_dict, _put,
+                         dequantize)
 
 __all__ = ["RaggedSinkKVCache"]
 
@@ -172,6 +175,16 @@ class RaggedSinkKVCache:
     def clone(self) -> "RaggedSinkKVCache":
         """A copy with buffers and state tensors of its own."""
         return _clone(self)
+
+    def state_dict(self) -> dict:
+        """Every field by name: the buffers, the [B] length state, the
+        static layout."""
+        return dict(vars(self))
+
+    def load_state_dict(self, fields: dict) -> None:
+        """Copy a :meth:`state_dict` into this cache in place (its state
+        tensors keep their storage)."""
+        _load_state_dict(self, fields)
 
     # -- reads --------------------------------------------------------------
 

@@ -18,8 +18,10 @@ mutable: ``prefill``, ``append`` and its relatives (``append_many``,
 place and keep ``sink_len``, ``window_len``, ``write_pos`` and ``seen`` as
 Python ints; each returns the cache itself. ``clone`` gives a copy with
 buffers of its own, where the JAX code keeps the old value of a pure
-cache. Cache state is shared across the batch: batched decode needs equal
-lengths.
+cache. ``state_dict`` gives every field by name (what a checkpoint saves,
+as orbax saves a JAX cache's fields) and ``load_state_dict`` copies such a
+dict back in place. Cache state is shared across the batch: batched
+decode needs equal lengths.
 """
 
 from __future__ import annotations
@@ -211,6 +213,15 @@ class SinkKVCache:
         """A copy with buffers (and state) of its own."""
         return _clone(self)
 
+    def state_dict(self) -> dict:
+        """Every field by name: the buffers, the length state, the static
+        layout."""
+        return dict(vars(self))
+
+    def load_state_dict(self, fields: dict) -> None:
+        """Copy a :meth:`state_dict` into this cache in place."""
+        _load_state_dict(self, fields)
+
     # -- reads ------------------------------------------------------------
 
     def dequant_kv(self):
@@ -258,6 +269,37 @@ def _clone(cache):
         if isinstance(val, torch.Tensor):
             setattr(out, name, val.clone())
     return out
+
+
+# the fields that change as the cache fills; every other field that is not
+# a tensor is the static layout
+_LENGTHS = ("sink_len", "window_len", "write_pos", "seen")
+
+
+def _load_state_dict(cache, fields: dict) -> None:
+    """Copy ``fields`` (a ``state_dict``) into ``cache`` in place: tensors
+    keep their storage (``copy_``), the Python-int lengths are set. Raises
+    ValueError if the fields are not the cache's, or the saved layout or a
+    buffer's shape differs."""
+    mine = vars(cache)
+    if set(fields) != set(mine):
+        raise ValueError(f"the saved cache has the fields {sorted(fields)}, "
+                         f"this one {sorted(mine)}")
+    for name, val in mine.items():
+        if isinstance(val, torch.Tensor):
+            if tuple(fields[name].shape) != tuple(val.shape):
+                raise ValueError(
+                    f"the saved cache's {name} has shape "
+                    f"{tuple(fields[name].shape)}, this one "
+                    f"{tuple(val.shape)}")
+        elif name not in _LENGTHS and fields[name] != val:
+            raise ValueError(f"the saved cache has {name}={fields[name]!r}, "
+                             f"this one {val!r}")
+    for name, val in mine.items():
+        if isinstance(val, torch.Tensor):
+            val.copy_(fields[name])
+        elif name in _LENGTHS:
+            setattr(cache, name, int(fields[name]))
 
 
 def _slots(start: int, stop: int):

@@ -1,5 +1,6 @@
 from .config import ModelConfig
 from .convert import params_from_jax
+from .hf_loader import load_hf_checkpoint, params_from_hf_state_dict
 from .model import (apply_rope, decoder_layer, forward_decode,
                     forward_decode_ragged, forward_prefill, forward_verify,
                     forward_verify_ragged, init_params,
@@ -24,6 +25,8 @@ __all__ = [
     "apply_rope",
     "moe",
     "params_from_jax",
+    "params_from_hf_state_dict",
+    "load_hf_checkpoint",
     "quantize_params",
     "quantize_weight",
     "is_quantized",

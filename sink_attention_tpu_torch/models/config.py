@@ -1,13 +1,13 @@
 """Model configuration for gpt-oss-style sink-attention models.
 
 A copy of ``sink_attention_tpu/models/config.py`` (the port imports nothing
-of the JAX package); ``from_hf_config`` is not ported yet.
+of the JAX package), ``from_hf_config`` included.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,3 +136,82 @@ class ModelConfig:
             max_position_embeddings=131072)
         defaults.update(kw)
         return cls(**defaults)
+
+    @classmethod
+    def from_hf_config(cls, hf_cfg: Any) -> "ModelConfig":
+        """Build from a transformers config (object or dict).
+
+        Supports GptOssConfig (MoE + s_aux sinks) and the dense
+        Qwen2/Llama families (model_type 'qwen2'/'llama'/'mistral':
+        gated-SiLU MLP, no s_aux, full attention unless the config opts
+        into sliding windows)."""
+        get = (hf_cfg.get if isinstance(hf_cfg, dict)
+               else lambda k, d=None: getattr(hf_cfg, k, d))
+        model_type = get("model_type", "gpt_oss")
+        n_layers = get("num_hidden_layers")
+        n_heads = get("num_attention_heads")
+        head_dim = get("head_dim") or get("hidden_size") // n_heads
+        if model_type in ("qwen2", "llama", "mistral"):
+            sliding = get("sliding_window")
+            max_pos = get("max_position_embeddings")
+            qkv_bias = get("attention_bias", model_type == "qwen2")
+            # Sliding-window conventions differ per family:
+            #  * mistral: sliding_window != None => ALL layers sliding
+            #    (modeling_mistral applies it unconditionally; v0.3+
+            #    checkpoints set it to null)
+            #  * qwen2: only if use_sliding_window, and only for layers
+            #    with index >= max_window_layers (the leading layers stay
+            #    full attention)
+            #  * llama: never
+            if model_type == "mistral":
+                per_layer = [bool(sliding)] * n_layers
+            elif model_type == "qwen2" and bool(
+                    get("use_sliding_window", False) and sliding):
+                mwl = get("max_window_layers", 0) or 0
+                per_layer = [i >= mwl for i in range(n_layers)]
+            else:
+                per_layer = [False] * n_layers
+            use_sliding = any(per_layer)
+            return cls(
+                vocab_size=get("vocab_size"),
+                hidden_size=get("hidden_size"),
+                num_layers=n_layers,
+                num_heads=n_heads,
+                num_kv_heads=get("num_key_value_heads", n_heads),
+                head_dim=head_dim,
+                intermediate_size=get("intermediate_size"),
+                sliding_window=(sliding if use_sliding else max_pos),
+                layer_types=tuple(
+                    get("layer_types")
+                    or ("sliding_attention" if s else "full_attention"
+                        for s in per_layer)),
+                rope_theta=get("rope_theta", 10000.0),
+                rope_scaling=get("rope_scaling"),
+                rms_norm_eps=get("rms_norm_eps", 1e-6),
+                attention_bias=qkv_bias,
+                # Qwen2's modeling hardcodes o_proj bias=False even though
+                # its qkv have biases; Llama/Mistral apply attention_bias
+                # to ALL four projections (None = follow attention_bias)
+                attention_out_bias=(False if model_type == "qwen2"
+                                    else None),
+                max_position_embeddings=max_pos,
+                mlp_type="dense", use_s_aux=False,
+            )
+        return cls(
+            vocab_size=get("vocab_size"),
+            hidden_size=get("hidden_size"),
+            num_layers=n_layers,
+            num_heads=n_heads,
+            num_kv_heads=get("num_key_value_heads"),
+            head_dim=head_dim,
+            intermediate_size=get("intermediate_size"),
+            num_experts=get("num_local_experts"),
+            experts_per_tok=get("num_experts_per_tok"),
+            sliding_window=get("sliding_window"),
+            layer_types=tuple(get("layer_types")),
+            rope_theta=get("rope_theta"),
+            rope_scaling=get("rope_scaling"),
+            rms_norm_eps=get("rms_norm_eps"),
+            attention_bias=get("attention_bias", True),
+            max_position_embeddings=get("max_position_embeddings"),
+        )

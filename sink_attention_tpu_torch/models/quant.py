@@ -21,7 +21,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..ops.int4 import pack_int4
+from ..ops.int4 import _div, pack_int4
 from ..utils.device import resolve_device
 
 __all__ = ["quantize_weight", "quantize_params", "is_quantized",
@@ -54,7 +54,7 @@ def quantize_weight(w: torch.Tensor, contract_axis: int = -2,
     cdt = torch.float32 if w.element_size() >= 4 else w.dtype
     wf = w.to(cdt)
     amax = wf.abs().amax(dim=ca, keepdim=True).float()
-    scale = torch.where(amax == 0.0, 1.0, amax / 127.0)
+    scale = torch.where(amax == 0.0, 1.0, _div(amax, 127.0))
     q = (wf / scale.to(cdt)).round_().clamp_(-127, 127).to(torch.int8)
     return {"q": q, "s": scale.to(scale_dtype)}
 

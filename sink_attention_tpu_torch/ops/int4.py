@@ -32,6 +32,13 @@ import torch
 __all__ = ["pack_int4", "int4_matmul", "int4_matmul_experts"]
 
 
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` by true division on every device: on the card PyTorch
+    divides by a Python number as a product with its reciprocal, one bit
+    off JAX's (and the CPU's) quotient."""
+    return x / x.new_full((), c)
+
+
 def pack_int4(w: torch.Tensor, contract_axis: int = -2,
               group_size: Optional[int] = None):
     """Quantize + pack a weight to int4 along ``contract_axis``.
@@ -55,13 +62,13 @@ def pack_int4(w: torch.Tensor, contract_axis: int = -2,
     wf = w.to(cdt)
     if group_size is None:
         amax = wf.abs().amax(dim=ca, keepdim=True).float()
-        scale = torch.where(amax == 0.0, 1.0, amax / 7.0)
+        scale = torch.where(amax == 0.0, 1.0, _div(amax, 7.0))
         q = wf / scale.to(cdt)
     else:
         shp = list(wf.shape)
         shp[ca:ca + 1] = [K // group_size, group_size]
         amax = wf.reshape(shp).abs().amax(dim=ca + 1).float()  # [.., K/g, ..]
-        scale = torch.where(amax == 0.0, 1.0, amax / 7.0)
+        scale = torch.where(amax == 0.0, 1.0, _div(amax, 7.0))
         # each group's scale broadcast over its rows: repeat's values
         q = (wf.reshape(shp) / scale.unsqueeze(ca + 1).to(cdt)).reshape(
             wf.shape)

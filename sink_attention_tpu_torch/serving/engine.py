@@ -1,7 +1,6 @@
 """Continuous batching engine over the ragged sink KV cache.
 
-Counterpart of ``sink_attention_tpu/serving/engine.py`` (without its
-checkpointing, which waits for its slice):
+Counterpart of ``sink_attention_tpu/serving/engine.py``:
 
 * a fixed pool of ``max_batch`` cache slots, each holding one request at
   its own length and ring phase (``RaggedSinkKVCache``, bf16 or int8/fp8);
@@ -20,7 +19,11 @@ checkpointing, which waits for its slice):
   multi-token target pass and commits each slot's accepted prefix with
   per-slot counts (``RaggedSinkKVCache.append_many_counted``), EOS and
   budgets cutting the counts on the device; ``step_spec_chunk(n)`` runs n
-  rounds with one host read at the end. Greedy requests only.
+  rounds with one host read at the end. Greedy requests only;
+* ``save_state``/``load_state`` snapshot the serving state mid-run (caches,
+  pending tokens, sampling parameters, the generator's state, request
+  bookkeeping) so a fresh engine resumes with exactly the tokens of the
+  uninterrupted run.
 
 Sampling is greedy by default; temperature, top-k and top-p per engine or
 per request (``SamplingParams``), all slots sampled together from per-slot
@@ -31,6 +34,8 @@ loop; the grouped MoE's per-layer host sync stays where it is.
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
@@ -39,6 +44,7 @@ import torch
 from ..models.config import ModelConfig
 from ..models.model import (forward_decode_ragged, forward_prefill,
                             forward_verify_ragged, make_ragged_caches)
+from ..utils import checkpoint
 from ..utils.device import resolve_device
 
 __all__ = ["SamplingParams", "Request", "ContinuousBatchingEngine"]
@@ -492,3 +498,72 @@ class ContinuousBatchingEngine:
             else:
                 self.step_chunk(n)
         return {r.rid: r.tokens for r in reqs}
+
+    # -- checkpoint / resume --------------------------------------------------
+
+    def save_state(self, path: str) -> None:
+        """Snapshot the full mid-serving state: the caches (the draft
+        caches too on a speculative engine), pending tokens, per-slot
+        sampling parameters and the generator's state to ``path``
+        (``utils.checkpoint``), request bookkeeping to ``path +
+        ".meta.json"``. A fresh engine built with the same (params, cfg,
+        max_batch, max_len, ...) resumes with :meth:`load_state` and
+        produces exactly the tokens the uninterrupted run would have (the
+        generator's state is part of the snapshot, so sampled requests
+        resume deterministically too)."""
+        # materialise any in-flight first tokens so the JSON bookkeeping
+        # agrees with the tensors being saved
+        self._flush_pending()
+        state = {"caches": self.caches, "toks": self.toks,
+                 "generator": self.generator.get_state(),
+                 "temps": self._temps, "topks": self._topks,
+                 "topps": self._topps}
+        if self.draft_params is not None:
+            # a speculative engine resumed without its draft caches would
+            # stay greedy-correct (verification is against the target) but
+            # would draft from garbage, collapsing its acceptance
+            state["draft_caches"] = self.draft_caches
+        checkpoint.save(path, state)
+        meta = {
+            "next_rid": self._next_rid,
+            "slots": [dataclasses.asdict(r) if r is not None else None
+                      for r in self._slots],
+            "queue": [dataclasses.asdict(r) for r in self._queue],
+        }
+        with open(path + ".meta.json", "w") as f:
+            json.dump(meta, f)
+
+    def load_state(self, path: str) -> None:
+        """Restore a :meth:`save_state` snapshot into this engine. The
+        saved tensors are copied into the engine's own (``copy_``), so its
+        caches keep their storage."""
+        state = checkpoint.restore(path, device=self.device)
+        if self.draft_params is not None and "draft_caches" not in state:
+            raise ValueError(
+                "snapshot has no draft-cache state but this engine is "
+                "speculative: it was saved by a non-speculative engine; "
+                "restore into an engine built with the same draft_params")
+        for cache, fields in zip(self.caches, state["caches"], strict=True):
+            cache.load_state_dict(fields)
+        if self.draft_params is not None:
+            for cache, fields in zip(self.draft_caches,
+                                     state["draft_caches"], strict=True):
+                cache.load_state_dict(fields)
+        for mine, name in ((self.toks, "toks"), (self._temps, "temps"),
+                           (self._topks, "topks"), (self._topps, "topps")):
+            mine.copy_(state[name])
+        self.generator.set_state(state["generator"].cpu())
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+
+        def req(d):
+            if d is None:
+                return None
+            if d.get("sampling") is not None:
+                d = dict(d, sampling=SamplingParams(**d["sampling"]))
+            return Request(**d)
+
+        self._next_rid = meta["next_rid"]
+        self._slots = [req(d) for d in meta["slots"]]
+        self._queue = [req(d) for d in meta["queue"]]
+        self._pending_first = {}

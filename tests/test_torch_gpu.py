@@ -675,3 +675,127 @@ def test_quantized_model_on_the_card_matches_cpu(cuda, bits, group):
     for ref, got in zip(*out):
         assert bool(got.isfinite().all())
         assert chip_smoke.cosine(got, ref) >= 0.999
+
+
+SMALL_CFG = dict(num_layers=2, hidden_size=256, num_heads=8, num_kv_heads=2,
+                 head_dim=64, vocab_size=512, sliding_window=128,
+                 intermediate_size=128)
+
+
+def _tree_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _tree_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_checkpoint_loads_onto_the_card(cuda, tmp_path):
+    """A small checkpoint in the released layout (chip_smoke's writer:
+    MXFP4 experts, bf16 dense tensors) loaded on the card, in bf16 and in
+    int4, equals its load on the CPU bit for bit."""
+    import chip_smoke
+    from sink_attention_tpu_torch.models import (ModelConfig,
+                                                 load_hf_checkpoint)
+
+    cfg = ModelConfig.tiny(**SMALL_CFG)
+    chip_smoke.write_mxfp4_checkpoint(str(tmp_path), cfg, cuda)
+    for quant in (None, "int4"):
+        got_cfg, on_card = load_hf_checkpoint(str(tmp_path), quant=quant,
+                                              device=cuda)
+        _, on_cpu = load_hf_checkpoint(str(tmp_path), quant=quant,
+                                       device="cpu")
+        assert got_cfg == cfg
+        card, host = dict(_tree_leaves(on_card)), dict(_tree_leaves(on_cpu))
+        assert sorted(card) == sorted(host)
+        for path, t in card.items():
+            assert t.device.type == "cuda", path
+            assert torch.equal(t.cpu(), host[path]), (quant, path)
+
+
+def test_engine_resume_on_the_card(cuda, tmp_path):
+    """An engine snapshot on the card (a greedy and a sampled request, 200-
+    token prompts past the window) resumes in a fresh engine to exactly the
+    uninterrupted run's tokens, through the kernels."""
+    from sink_attention_tpu_torch.models import ModelConfig, init_params
+    from sink_attention_tpu_torch.serving import (ContinuousBatchingEngine,
+                                                  SamplingParams)
+
+    cfg = ModelConfig.tiny(**SMALL_CFG)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(cfg, gen, dtype=torch.bfloat16, device=cuda)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 200), generator=gen,
+                            device=cuda).tolist()
+    kw = dict(max_batch=2, max_len=512, prefill_bucket=64, seed=3,
+              device=cuda)
+
+    def engine():
+        eng = ContinuousBatchingEngine(params, cfg, **kw)
+        eng.submit(prompts[0], max_new_tokens=12)
+        eng.submit(prompts[1], max_new_tokens=12,
+                   sampling=SamplingParams(temperature=1.0, top_k=4))
+        for _ in range(4):
+            eng.step()
+        return eng
+
+    d0 = decode.decode_kernel.launches
+    want = engine().run(chunk=1)
+    assert decode.decode_kernel.launches > d0
+    snap = str(tmp_path / "snap")
+    engine().save_state(snap)
+    fresh = ContinuousBatchingEngine(params, cfg, **kw)
+    fresh.load_state(snap)
+    got = fresh.run(chunk=1)
+    assert got == want and all(len(t) == 12 for t in got.values())
+
+
+def test_weight_quantizers_on_the_card_equal_the_cpu(cuda):
+    """quantize_weight and quantize_weight_int4 (per channel, group 32)
+    give on the card the CPU's codes and scales bit for bit (the CPU's are
+    JAX's): their scales divide by a tensor, since PyTorch divides a CUDA
+    tensor by a Python number as a product with its reciprocal, one bit
+    off."""
+    from sink_attention_tpu_torch.models import (quantize_weight,
+                                                 quantize_weight_int4)
+
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = torch.randn(512, 384, generator=gen).to(dtype)
+        for fn, kw in ((quantize_weight, {}), (quantize_weight_int4, {}),
+                       (quantize_weight_int4, {"group_size": 32})):
+            host, card = fn(w, **kw), fn(w.to(cuda), **kw)
+            for k in host:
+                assert torch.equal(card[k].cpu(), host[k]), (fn, kw, k)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_kv_quantize_on_the_card_against_the_cpu(cuda, quant):
+    """The KV cache's ``quantize`` on the card against the CPU's (the
+    CPU's are JAX's), on fp32 and bf16 K rows. An open fault (ROADMAP
+    §C): its scale divides by a Python number, which PyTorch's CUDA
+    kernel does as a product with the reciprocal, so a scale may be one
+    ulp off the CPU's and a code one step off. This holds the card to
+    that and no further: every scale within one ulp, every int8 code
+    within one, every fp8 value within one e4m3 step (or the flush of the
+    subnormals, 2^-6 of the row's scale). Bit-for-bit equality is the
+    repair's test."""
+    from sink_attention_tpu_torch.cache import dequantize, quantize
+
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(4, 8, 512, 64, generator=gen)
+             * torch.rand(4, 8, 512, 1, generator=gen) * 4).to(dtype)
+        (hc, hs), (cc, cs) = quantize(x, quant), quantize(x.to(cuda), quant)
+        cc, cs = cc.cpu(), cs.cpu()
+        ulps = (cs.view(torch.int32) - hs.view(torch.int32)).abs()
+        assert int(ulps.max()) <= 1, (dtype, quant)
+        if quant == "int8":
+            assert int((cc.int() - hc.int()).abs().max()) <= 1, dtype
+            continue
+        hv, cv = dequantize(hc, hs, quant), dequantize(cc, cs, quant)
+        step = 2.0 ** -3 * torch.maximum(hv.abs(), cv.abs()) \
+            + 2.0 ** -6 * hs[..., None]
+        assert bool(((cv - hv).abs() <= step).all()), dtype

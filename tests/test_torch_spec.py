@@ -310,3 +310,69 @@ def test_chip_smoke_spec_phase_on_cpu():
     for r in rep["engine"].values():
         assert r["spec"]["tokens"] == r["plain"]["tokens"]
         assert all(d["at"] is None for d in r["vs_plain"])
+
+
+def test_spec_divergence_router_is_transparent_and_flips():
+    """scripts/spec_divergence.py on a tiny MoE model: its Router leaves
+    forward_prefill's logits as they are (no flip) and records every
+    layer's router logits; a flip changes the routing of its token only,
+    swapping one expert; ``record_engine`` records an engine's choice at
+    every decoded position and layer; ``diagnose`` reports every generated
+    position at every layer, margins sorted, the engines' choices against
+    the teacher's, and the flips it tried. Its quantize
+    with the exact division is the cache's on the CPU, where both divide
+    exactly; without CUDA ``main`` exits nonzero."""
+    from sink_attention_tpu_torch.cache import quantize
+    from sink_attention_tpu_torch.models import forward_prefill
+    from sink_attention_tpu_torch.scripts import spec_divergence as sd
+
+    cfg = ModelConfig.tiny(num_layers=2, vocab_size=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), **F32)
+    prompt, gen = list(range(5, 25)), [7, 8, 9, 10]
+    seq = torch.tensor([prompt + gen[:3]])
+    orig = tmodel.moe_routing
+    router = sd.Router(orig)
+    tmodel.moe_routing = router
+    try:
+        with torch.inference_mode():
+            got = forward_prefill(params, cfg, seq)[0]
+    finally:
+        tmodel.moe_routing = orig
+    with torch.inference_mode():
+        assert torch.equal(got, forward_prefill(params, cfg, seq)[0])
+    assert len(router.logits) == cfg.num_layers
+    margins = sd._margins(router.logits, cfg.experts_per_tok, len(prompt))
+    assert [m for m, *_ in margins] == sorted(m for m, *_ in margins)
+    assert len(margins) == cfg.num_layers * 3
+    mlp = params["layers"][0]["mlp"]
+    xt = torch.randn(6, cfg.hidden_size,
+                     generator=torch.Generator().manual_seed(1))
+    router.logits, router.flip = [], (0, 4)
+    flipped, plain = router(mlp, cfg, xt), orig(mlp, cfg, xt)
+    assert (flipped != plain).any(-1).nonzero().flatten().tolist() == [4]
+    assert int(((flipped[4] > 0) != (plain[4] > 0)).sum()) == 2
+    assert torch.allclose(flipped.sum(-1), torch.ones(6))
+    eng = ContinuousBatchingEngine(params, cfg, max_batch=2, max_len=64,
+                                   prefill_bucket=16, **F32)
+    rid = eng.submit(prompt, max_new_tokens=4)
+    eng.submit([3, 4, 5], max_new_tokens=6)
+    out, routes = sd.record_engine(eng, eng.run)
+    gen = out[rid]
+    mine = {k[1:]: c for k, c in routes.items() if k[0] == rid}
+    for layer in range(cfg.num_layers):   # every decoded position
+        assert all((layer, 20 + t) in mine for t in range(3))
+    rep = sd.diagnose(params, cfg, prompt, gen, gen[:3] + [gen[3] + 1], 3,
+                      "int8", 4, {"plain": mine, "spec": mine})
+    assert rep["positions_x_layers"] == cfg.num_layers * 3
+    assert rep["tried"] == 4 or rep["flip"] is not None
+    assert rep["plain_below_best"] >= 0 and rep["spec_below_best"] >= 0
+    for name in ("plain", "spec"):   # fp32 on the CPU: the same choices
+        assert rep[f"{name}_routes"]["recorded"] == cfg.num_layers * 3
+        assert rep[f"{name}_routes"]["differ"] == 0
+        assert rep[f"{name}_routes"]["replayed_near_ties"] == {
+            k: rep[k] for k in ("plain_below_best", "spec_below_best")}
+    x = torch.randn(3, 2, 40, 16, generator=torch.Generator().manual_seed(2))
+    for q in ("int8", "fp8"):
+        for a, b in zip(sd.exact_quantize(x, q), quantize(x, q)):
+            assert torch.equal(a, b)
+    assert sd.main([]) == 1
