@@ -5,7 +5,8 @@
                              # packed training, continuous batching,
                              # the forward kernel's ablation, beam search
                              # and speculative decoding, quantized weights,
-                             # serving from a checkpoint
+                             # serving from a checkpoint, sequence-parallel
+                             # attention
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -108,6 +109,17 @@ Phases:
      to plain eager attention than the full-causal ablation); the int4
      streaming load against post-hoc quantization, its device peak below
      the bf16 tree's, and one int4 engine row (see ``serve_checkpoint``).
+  11. sequence-parallel attention over torch.distributed: at
+     gpt-oss-20b's attention width (B=1, H 64/8, D=64, bf16, random s_aux,
+     N=65536), sharded_sink_flash_attention (halo SP at W=128, the ring's
+     full rotation at W=N), ring_sink_flash_attention (skip-ahead with the
+     sink partial), sp_sink_flash_attention (the sink broadcast) and
+     ulysses_sink_flash_attention (plain and packed), forward and backward,
+     in worlds of 1 (NCCL), 2 and 4 (gloo) ranks, one spawned process per
+     rank, all on the one card: each rank's output and gradient slices and
+     d s_aux summed over the ranks against the single-process kernel over
+     the whole sequence, each rank's forward and backward ms and launches
+     (see ``sp_phase``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -1789,53 +1801,112 @@ def _check_launches(got, want, label, errors):
                           f"expected {n}")
 
 
-def _first_divergence(params, cfg, prompt, plain, got, seed, quant=None):
-    """Where ``got`` first leaves ``plain`` (greedy tokens after
-    ``prompt``), the gap between the two tokens' logits there, teacher
-    forced through forward_prefill, and the control: how far that row's
-    logits move at most under bf16-sized noise in the attention output
-    (``_noisy``), and, for a quantized cache (``quant``), under K and V
-    read through its quantize -> dequantize round trip (``_kv_roundtrip``;
-    the larger of the two is the control). {"at": None} when the two
-    agree."""
+def _check_run(params, cfg, prompt, toks, seed, quant, routes):
+    """Every token of one greedy run (``toks`` after ``prompt``) against
+    the teacher: the run's own sequence teacher forced through
+    forward_prefill, K and V read as its cache holds them (through the
+    quantize -> dequantize round trip, ``_kv_roundtrip``, for a quantized
+    cache). Per token: how far it lies below the teacher's best, the
+    control (how far the row's logits move at most under bf16-sized noise
+    in the attention output, ``_noisy``, and for a quantized cache under
+    the round trip) and, where the token lies more than twice the control
+    below, how far with the run's own expert choices imposed where they
+    differ from the teacher's within 2 bf16 ulps of a router tie
+    (``routes`` = {(layer, position): bool [E]} recorded in the run;
+    ``serving.divergence.near_tie_replay``). Returns per-token lists."""
     from sink_attention_tpu_torch.models import forward_prefill
     from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.serving.divergence import near_tie_replay
 
-    at = next((i for i, (a, b) in enumerate(zip(plain, got)) if a != b),
-              None)
-    if at is None:
-        return {"at": None}
-    seq = torch.tensor([list(prompt) + list(plain[:at])],
+    seq = torch.tensor([list(prompt) + list(toks[:-1])],
                        device=params["embed"].device)
     impls = {"noise": _noisy(flash.sink_flash_attention, seed)}
     if quant:
         impls["roundtrip"] = _kv_roundtrip(flash.sink_flash_attention, quant)
+    teacher = impls.get("roundtrip")      # the cache's view of K and V
+    start = len(prompt) - 1
     with torch.inference_mode():
-        row = forward_prefill(params, cfg, seq)[0][0, -1].float()
-        moved = {name: float((forward_prefill(params, cfg, seq,
-                                              attn_impl=impl)[0][0, -1]
-                              .float() - row).abs().max())
-                 for name, impl in impls.items()}
-    return {"at": at, "gap": float((row[plain[at]] - row[got[at]]).abs()),
-            "got_below_best": float(row.max() - row[got[at]]),
-            **moved, "control": max(moved.values())}
+        base = forward_prefill(params, cfg, seq)[0][0, start:].float()
+        rows = {name: forward_prefill(params, cfg, seq, attn_impl=impl)[0][
+            0, start:].float() for name, impl in impls.items()}
+    moved = {name: (r - base).abs().amax(-1) for name, r in rows.items()}
+    control = torch.stack(list(moved.values())).amax(0)
+    idx = torch.tensor(toks, device=base.device)[:, None]
+
+    def below(r):
+        return r.amax(-1) - r.gather(1, idx)[:, 0]
+
+    out = {"below": below(rows["roundtrip"] if quant else base),
+           "control": control,
+           **{name: m for name, m in moved.items()}}
+    out["replayed"] = out["below"]
+    if routes is not None and bool((out["below"] > 2 * control).any()):
+        _, replayed, out["summary"] = near_tie_replay(
+            params, cfg, prompt, toks[:-1], routes, teacher)
+        out["replayed"] = below(replayed)
+    return {k: (v.tolist() if torch.is_tensor(v) else v)
+            for k, v in out.items()}
+
+
+def _first_divergence(params, cfg, prompt, plain, got, seed, quant=None,
+                      routes=None):
+    """Where ``got`` first leaves ``plain`` (two greedy runs' tokens after
+    ``prompt``) and whether each run's tokens are explained. {"at": None}
+    when the two agree.
+
+    Each run's whole sequence is checked (:func:`_check_run`, with
+    ``routes[name]``, name "plain" or "spec"): the tokens it lies more
+    than twice the control below the teacher's best with its near-tie
+    expert choices imposed too (``off``). At the first divergence the
+    report has the gap between the two tokens, the control there and each
+    run's token, how far below the teacher's best and how far with its
+    near-tie choices imposed."""
+    at = next((i for i, (a, b) in enumerate(zip(plain, got)) if a != b),
+              None)
+    if at is None:
+        return {"at": None}
+    div = {"at": at}
+    for name, toks in (("plain", plain), ("spec", got)):
+        run = _check_run(params, cfg, prompt, toks, seed, quant,
+                         None if routes is None else routes[name])
+        div[name] = {
+            "token": toks[at], "below_best": run["below"][at],
+            "replayed_below": run["replayed"][at],
+            **run.get("summary", {}), "checked": len(toks),
+            "off": [{"token": t, "below": b, "replayed": r, "control": c}
+                    for t, (b, r, c) in enumerate(zip(
+                        run["below"], run["replayed"], run["control"]))
+                    if min(b, r) > 2.0 * c]}
+        if name == "plain":
+            div.update({k: run[k][at] for k in ("noise", "roundtrip")
+                        if k in run}, control=run["control"][at])
+    div["gap"] = abs(div["plain"]["below_best"] - div["spec"]["below_best"])
+    return div
 
 
 def _divergence_gate(div, label, errors):
-    """A divergence passes where the two tokens' logits are within twice
-    the control (the paths differ in more places than the control
-    perturbs: the MoE's order of summation, the verify's fp32 attention),
-    or where ``got``'s token is the teacher-forced choice within that
-    margin (then it is the plain path that left the teacher: a discrete
-    choice upstream, such as an MoE router's top-k, flipped there)."""
+    """The same rule for both runs: every token must be the
+    teacher-forced choice within twice the control, as it is or with the
+    run's own near-tie expert choices imposed (a discrete choice upstream,
+    most often a router's top-k, tipped by a rounding: both greedy paths
+    are then valid). A token off the teacher's choice that no near-tie
+    choice of its run explains fails."""
     if div["at"] is None:
         return
-    margin = 2.0 * div["control"]
-    if not (div["gap"] <= margin or div["got_below_best"] <= margin):
-        errors.append(f"{label} leaves greedy at token {div['at']} with a "
-                      f"logit gap {div['gap']:.4f}, its token "
-                      f"{div['got_below_best']:.4f} below the teacher's "
-                      f"best, above twice the control {div['control']:.4f}")
+    for name in ("plain", "spec"):
+        for o in div[name]["off"]:
+            errors.append(
+                f"{label} (the runs part at token {div['at']}): the {name} "
+                f"run's token {o['token']} lies {o['below']:.4f} below the "
+                f"teacher's best, {o['replayed']:.4f} with its "
+                f"{div[name].get('imposed', 0)} near-tie expert choices "
+                f"imposed, above twice the control {o['control']:.4f}")
+
+
+def _request_routes(routes, key):
+    """{(layer, position): choice} of one request (or batch row) ``key``
+    of a recording's {(key, layer, position): choice}."""
+    return {k[1:]: c for k, c in routes.items() if k[0] == key}
 
 
 def _multi_op_check(cfg, device, dtype, max_len, prompt_len, T, seed):
@@ -1921,10 +1992,11 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     acceptance rate, target passes,
     launches (the forward per layer of both prefills, the decode per
     draft layer and draft step). Gates: the tokens equal greedy's, or
-    first leave them at a near-tie (``_first_divergence``,
-    ``_divergence_gate``: the two tokens' teacher-forced logits within
-    twice the noise control, or the speculative token the teacher's
-    choice within it); the multi-token op against sequential
+    where they first part each run's token is explained
+    (``_first_divergence``, ``_divergence_gate``: the teacher-forced
+    choice within twice the noise control, as it is or with the run's own
+    near-tie expert choices, recorded in the run, imposed); the
+    multi-token op against sequential
     decode-kernel calls at the model's two cache shapes over a bf16 and
     an int8 cache: cosine >= MIN_COS, error <= 2e-2 of scale.
 
@@ -1934,8 +2006,11 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     rounds, tokens committed per slot and round, launches (the forward
     per layer of both prefills and request, the run's decode branch per
     draft layer and draft step). Gate: every request's tokens equal the
-    plain engine's, or first leave them at a near-tie as in 8b (for the
-    int8 cache the control also reads K and V through its round trip).
+    plain engine's, or where they first part both engines' tokens are
+    explained as in 8b (for the int8 cache the teacher reads K and V
+    through the cache's round trip, and the control also counts how far
+    that moves the row). The run times include the recording of the
+    target's expert choices (``serving.divergence.record_engine``).
     """
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
@@ -1943,6 +2018,8 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                                                   beam_generate,
                                                   greedy_generate,
                                                   speculative_generate)
+    from sink_attention_tpu_torch.serving.divergence import (
+        record_engine, record_generate)
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -2019,13 +2096,15 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
 
     # 8b. speculative decoding of one sequence
     dparams, dcfg = draft_pair(params, cfg, scale)
-    plain, plain_ms = timed(lambda: greedy_generate(
-        params, cfg, ids, spec_tokens, **kw))
+    (plain, plain_routes), plain_ms = timed(lambda: record_generate(
+        params, lambda: greedy_generate(params, cfg, ids, spec_tokens,
+                                        **kw)))
     stats = {}
     _reset_launches()
-    (spec, rate), ms = timed(lambda: speculative_generate(
-        params, dparams, cfg, dcfg, ids, spec_tokens,
-        num_draft_tokens=num_draft, stats=stats, **kw))
+    ((spec, rate), spec_routes), ms = timed(lambda: record_generate(
+        params, lambda: speculative_generate(
+            params, dparams, cfg, dcfg, ids, spec_tokens,
+            num_draft_tokens=num_draft, stats=stats, **kw)))
     rep = report["spec"] = {
         "num_draft_tokens": num_draft, "new_tokens": spec_tokens,
         "layer_scale": scale, "ms": ms, "greedy_ms": plain_ms,
@@ -2037,7 +2116,9 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
             "flash_fwd": L + 1, "decode": stats["rounds"] * num_draft,
             "decode_int8": 0, "decode_fp8": 0}, "speculative", errors)
     rep["vs_greedy"] = _first_divergence(
-        params, cfg, prompt_py, plain[0].tolist(), spec[0].tolist(), 4000)
+        params, cfg, prompt_py, plain[0].tolist(), spec[0].tolist(), 4000,
+        routes={"plain": _request_routes(plain_routes, 0),
+                "spec": _request_routes(spec_routes, 0)})
     _divergence_gate(rep["vs_greedy"], "speculative_generate", errors)
     with torch.inference_mode():
         rep["multi_op"] = _multi_op_check(cfg, dev, dtype, max_len,
@@ -2053,7 +2134,7 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     for quant in (None, "int8"):
         label = quant or str(dtype).replace("torch.", "")
         rep = report["engine"][label] = {}
-        runs = {}
+        runs, routes = {}, {}
         for name, extra in (("plain", {}), ("spec", dict(
                 draft_params=dparams, draft_cfg=dcfg,
                 num_draft_tokens=num_draft))):
@@ -2062,9 +2143,11 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                 prefill_bucket=bucket, quant=quant, **kw, **extra)
             rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
             _reset_launches()
-            out, run_ms = timed(eng.run)
+            (out, recorded), run_ms = timed(lambda: record_engine(eng,
+                                                                  eng.run))
             n_tok = sum(len(t) for t in out.values())
             runs[name] = [out[r] for r in rids]
+            routes[name] = [_request_routes(recorded, r) for r in rids]
             rep[name] = {"run_ms": run_ms, "tokens": n_tok,
                          "tokens_per_s": n_tok / (run_ms / 1e3),
                          "launches": _launch_counts()}
@@ -2084,11 +2167,14 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                     f"{label} speculative engine", errors)
             del eng
         rep["vs_plain"] = []
-        for (p, m), a, b in zip(reqs, runs["plain"], runs["spec"]):
+        for i, ((p, m), a, b) in enumerate(zip(reqs, runs["plain"],
+                                               runs["spec"])):
             if len(a) != m or len(b) != m:
                 errors.append(f"{label} engines: a request asked for {m} "
                               f"tokens and got {len(a)} / {len(b)}")
-            div = _first_divergence(params, cfg, p, a, b, 5000, quant)
+            div = _first_divergence(
+                params, cfg, p, a, b, 5000, quant,
+                routes={n: routes[n][i] for n in ("plain", "spec")})
             _divergence_gate(div, f"{label} speculative engine", errors)
             rep["vs_plain"].append(div)
     return report, errors
@@ -3341,6 +3427,262 @@ def serve_checkpoint(cfg, device, *, n_requests=8, max_batch=4,
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: sequence-parallel attention over torch.distributed
+# ---------------------------------------------------------------------------
+
+SP_N = 65536
+# (entry point, num_sink, window, worlds): the window as a number or as a
+# fraction of N ("N", "3N/8", "N/16"), so a CPU rehearsal at a small N
+# keeps each case's regime (halo, full rotation, skip-ahead)
+SP_CASES = [
+    ("sharded", 0, 128, (1, 2, 4)),        # a sliding layer: halo SP
+    ("sharded", 0, "N", (2, 4)),           # a full layer: full rotation
+    ("ring", 4, "3N/8", (4,)),             # skip-ahead, 3 steps < 4
+    ("sp", 4, "N/16", (1, 4)),             # the sink broadcast
+    ("ulysses", 0, 128, (1, 2, 4)),        # the head/sequence all-to-all
+    ("ulysses_packed", 0, 128, (4,)),      # phase 5's pack lengths
+]
+SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkdv", "packed_fwd",
+              "packed_dq", "packed_dkdv")
+
+
+def _sp_window(w, n):
+    return {"N": n, "3N/8": 3 * n // 8, "N/16": n // 16}.get(w, w)
+
+
+def _sp_counters():
+    from sink_attention_tpu_torch.ops import flash, packed
+    return {"flash_fwd": flash.flash_fwd_kernel,
+            "flash_dq": flash.flash_dq_kernel,
+            "flash_dkdv": flash.flash_dkdv_kernel,
+            "packed_fwd": packed.packed_fwd_kernel,
+            "packed_dq": packed.packed_dq_kernel,
+            "packed_dkdv": packed.packed_dkdv_kernel}
+
+
+def sp_expected_launches(entry, num_sink, window, rank, world, n_local):
+    """Each kernel's launches on ``rank`` for one forward and backward of
+    ``entry``: one chunk kernel per partial, none for a partial whose
+    ``col_hi`` clips every column (the sink partial of halo SP on rank 0,
+    of the ring on a rank whose rotation reached chunk 0)."""
+    from sink_attention_tpu_torch.parallel import ring_num_steps
+    if entry == "ulysses_packed":
+        return {k: int(k.startswith("packed")) for k in SP_KERNELS}
+    if entry == "ulysses":
+        n = 1
+    elif entry == "sp" or (entry == "sharded" and window - 1 <= n_local
+                           and num_sink <= n_local):
+        halo = min(-(-max(window - 1, 0) // 128) * 128, n_local)
+        n = 1 + (num_sink > 0 and rank * n_local - halo > 0)
+    else:
+        steps = ring_num_steps(world, n_local, window)
+        if num_sink > n_local:
+            steps = world
+        sink = steps < world and num_sink > 0 and rank - steps + 1 > 0
+        n = steps + sink
+    return {k: 0 if k.startswith("packed") else n for k in SP_KERNELS}
+
+
+def _sp_case(entry, num_sink, window, n, rank, world, device, seed):
+    """One case on this rank: the entry point's forward and backward
+    (a warm call, then one timed by CUDA events on this rank's stream)
+    with the launches of the timed call, then the single-process kernel
+    over the whole sequence as the reference (its output, dQ, dK, dV
+    slices and d s_aux summed over the group)."""
+    from sink_attention_tpu_torch import parallel
+    from sink_attention_tpu_torch.ops import (sink_flash_attention,
+                                              sink_flash_attention_packed)
+    from sink_attention_tpu_torch.parallel._collectives import psum
+
+    from sink_attention_tpu_torch.models import ModelConfig
+
+    cuda = device.type == "cuda"
+    cfg = ModelConfig.gpt_oss_20b()       # its attention widths, 64/8, D=64
+    H_q, H_kv, D = ((cfg.num_heads, cfg.num_kv_heads, cfg.head_dim) if cuda
+                    else (8, 4, 64))
+    dt = torch.bfloat16 if cuda else torch.float32
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*s):
+        return torch.randn(*s, generator=gen, device=device).to(dt)
+
+    q, k, v, do = (rand(1, H_q, n, D), rand(1, H_kv, n, D),
+                   rand(1, H_kv, n, D), rand(1, H_q, n, D))
+    aux = torch.randn(H_q, generator=gen, device=device)
+    positions = None
+    if entry == "ulysses_packed":
+        positions = pack_positions(pack_lengths(n, PACK_MIN, PACK_MAX, 0))[
+            None].to(device)
+    n_local = n // world
+    rows = slice(rank * n_local, (rank + 1) * n_local)
+    fn = {"sp": parallel.sp_sink_flash_attention,
+          "ulysses": parallel.ulysses_sink_flash_attention,
+          "ring": parallel.ring_sink_flash_attention,
+          "sharded": parallel.sharded_sink_flash_attention}.get(entry)
+
+    events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+              if cuda else [])
+
+    def mark(i):
+        if cuda:
+            events[i].record()
+
+    def run():
+        leaves = [t[:, :, rows].clone().requires_grad_(True)
+                  for t in (q, k, v)] + [aux.clone().requires_grad_(True)]
+        kw = dict(num_sink=num_sink, window_size=window, s_aux=leaves[3])
+        mark(0)
+        if positions is not None:
+            out = parallel.ulysses_sink_flash_attention_packed(
+                *leaves[:3], positions, **kw)
+        else:
+            out = fn(*leaves[:3], **kw)
+        mark(1)
+        out.backward(do[:, :, rows])
+        mark(2)
+        return out, leaves
+
+    counters = _sp_counters()
+    run()                                           # warm
+    for c in counters.values():
+        c.launches = 0
+    out, leaves = run()
+    launches = {name: c.launches for name, c in counters.items()}
+    rep = {"rank": rank, "launches": launches}
+    if cuda:
+        torch.cuda.synchronize()
+        rep.update(fwd_ms=events[0].elapsed_time(events[1]),
+                   bwd_ms=events[1].elapsed_time(events[2]))
+    want = sp_expected_launches(entry, num_sink, window, rank, world,
+                                n_local)
+    if not cuda:
+        want = {k: 0 for k in SP_KERNELS}
+    rep["launches_expected"] = want
+    daux = psum(leaves[3].grad)
+
+    ref_leaves = [t.clone().requires_grad_(True) for t in (q, k, v, aux)]
+    if positions is not None:
+        ref = sink_flash_attention_packed(*ref_leaves[:3], positions,
+                                          num_sink, window,
+                                          s_aux=ref_leaves[3])
+    else:
+        ref = sink_flash_attention(*ref_leaves[:3], num_sink, window,
+                                   s_aux=ref_leaves[3])
+    ref.backward(do)
+    rep["out"] = _attn_compare(out.detach(), ref.detach()[:, :, rows])
+    for name, got, r in zip(("dq", "dk", "dv"), leaves, ref_leaves):
+        rep[name] = _grad_compare(got.grad, r.grad[:, :, rows])
+    rep["ds_aux"] = _grad_compare(daux, ref_leaves[3].grad)
+    rep["finite"] = bool(torch.isfinite(out.float()).all()) and all(
+        bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
+    if cuda:
+        rep["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    return rep
+
+
+def _sp_rank(rank, world, backend, init, n, device, cases, out_dir):
+    """One rank of a phase-11 world: every case of ``cases`` in turn;
+    writes its rows to ``out_dir/rank<r>.json``."""
+    import os
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:                  # the ranks share the host's cores
+        torch.set_num_threads(2)
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        rows = []
+        for i, (entry, ns, w, _) in enumerate(cases):
+            rows.append(_sp_case(entry, ns, _sp_window(w, n), n, rank, world,
+                                 dev, 100 + i))
+            if dev.type == "cuda":   # the ranks share one card
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sp_phase(device, *, n=SP_N, worlds=(1, 2, 4), cases=SP_CASES):
+    """Phase 11: each case of ``cases`` in each of its worlds, one process
+    per rank (spawned, all on ``device``): a world of 1 over NCCL on the
+    card (gloo on the CPU), larger worlds over gloo. Returns (report,
+    launches summed over every rank and case, errors). Gates per rank:
+    the output against the single-process kernel's slice as phase 2's
+    forward rows (cosine >= MIN_COS, error <= FLASH_TOL x scale), dQ, dK,
+    dV and d s_aux summed over the ranks as its gradient rows (cosine >=
+    MIN_COS, error <= BWD_TOL of the largest value), every value finite,
+    and on the card each kernel's launches as the schedule predicts."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    dev = torch.device(device)
+    if dev.type == "cuda":   # the ranks share the card with this process
+        torch.cuda.empty_cache()
+    report, errors = [], []
+    total = {k: 0 for k in SP_KERNELS}
+    for world in worlds:
+        mine = [c for c in cases if world in c[3]]
+        if not mine:
+            continue
+        backend = "nccl" if world == 1 and dev.type == "cuda" else "gloo"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="sp_phase_") as tmp:
+            init = f"tcp://localhost:{_free_port()}"
+            mp.start_processes(_sp_rank, args=(world, backend, init, n,
+                                               str(dev), mine, tmp),
+                               nprocs=world, join=True,
+                               start_method="spawn")
+            ranks = []
+            for r in range(world):
+                with open(f"{tmp}/rank{r}.json") as f:
+                    ranks.append(json.load(f))
+        seconds = time.perf_counter() - t0
+        for i, (entry, ns, w, _) in enumerate(mine):
+            rows = [ranks[r][i] for r in range(world)]
+            label = (f"{entry} sink={ns} W={_sp_window(w, n)} world={world} "
+                     f"({backend})")
+            report.append({"case": label, "seconds_world": seconds,
+                           "ranks": rows})
+            for row in rows:
+                r = row["rank"]
+                out = row["out"]
+                if not (out["cos"] >= MIN_COS
+                        and out["err"] <= FLASH_TOL * out["scale"]):
+                    errors.append(f"SP {label} rank {r}: output vs the "
+                                  f"kernel: cosine {out['cos']:.6f}, error "
+                                  f"{out['err']:.3e}")
+                for g in ("dq", "dk", "dv", "ds_aux"):
+                    s = row[g]
+                    if not (s["cos"] >= MIN_COS and s["rel_err"] <= BWD_TOL):
+                        errors.append(f"SP {label} rank {r}: {g} vs the "
+                                      f"kernel: cosine {s['cos']:.6f}, "
+                                      f"error {s['rel_err']:.3e}")
+                if not row["finite"]:
+                    errors.append(f"SP {label} rank {r}: non-finite values")
+                if row["launches"] != row["launches_expected"]:
+                    errors.append(f"SP {label} rank {r}: launches "
+                                  f"{row['launches']}, expected "
+                                  f"{row['launches_expected']}")
+                for k in SP_KERNELS:
+                    total[k] += row["launches"][k]
+    return report, total, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances (one per head dim) each source must hold
@@ -3624,6 +3966,24 @@ def main() -> int:
         + json.dumps(creport))
     for row, name in ((kernels[0], "flash_fwd"), (kernels[1], "decode")):
         row["launches_checkpoint"] = creport.get("launches", {}).get(name, 0)
+
+    torch.cuda.empty_cache()
+
+    # 11. sequence-parallel attention over torch.distributed, worlds of 1
+    # (NCCL), 2 and 4 (gloo) ranks on the one card
+    t0 = time.perf_counter()
+    sp_report, sp_launches, sp_err = sp_phase(dev)
+    errors += sp_err
+    log(f"sequence-parallel attention (B=1, H 64/8, D=64, bf16, N={SP_N}, "
+        f"random s_aux; worlds 1 (nccl), 2 and 4 (gloo) on one card; "
+        f"forward and backward), {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(sp_report))
+    for row in kernels:
+        if row["name"] in sp_launches:
+            row["launches_sp"] = sp_launches[row["name"]]
+    for name, n in sp_launches.items():
+        if n == 0:
+            errors.append(f"{name} launched no time in phase 11")
 
     if errors:
         for e in errors:

@@ -36,12 +36,16 @@ Subpackages (the JAX package's layout):
 - ``serving``  -- greedy, beam and speculative generation and the
                   continuous-batching engine (with ``save_state`` /
                   ``load_state``)
-- ``parallel`` -- the training step (one device so far)
+- ``parallel`` -- the training step on one device; sequence-parallel
+                  attention (halo SP, Ulysses, ring and the dispatcher)
+                  over a ``torch.distributed`` process group
 - ``scripts``  -- the forward kernel's per-stage ablation; the A/B
                   timing of the attention kernels of two checkouts; the
                   golden logits criterion and its random HF checkpoint
 - ``utils``    -- device selection, CUDA-event timing, checkpointing, the
                   safetensors format
+- ``compat``   -- the reference API's names: the mutable caches, the SP
+                  wrapper and utilities, ``subprocess_generate``
 """
 
 __version__ = "0.1.0"
@@ -54,6 +58,13 @@ from .ops import (eager_sink_attention, eager_sink_attention_packed,
                   sink_decode_attention_ragged, sink_flash_attention,
                   sink_flash_attention_chunk, sink_flash_attention_packed,
                   sink_flash_attention_with_lse, sink_window_mask)
+from .parallel import (broadcast_sink_kv, local_position_offset,
+                       reduce_sink_grads, ring_sink_flash_attention,
+                       sp_sink_flash_attention, ulysses_sink_flash_attention)
+from .compat import (SinkAttentionCache, SinkAttentionSPWrapper,
+                     SinkCacheLayer, get_local_position_offset,
+                     prepare_sink_kv_for_sp, reduce_sink_kv_grads,
+                     subprocess_generate)
 
 __all__ = [
     "__version__",
@@ -72,4 +83,17 @@ __all__ = [
     "sink_decode_attention_ragged",
     "SinkKVCache",
     "RaggedSinkKVCache",
+    "broadcast_sink_kv",
+    "reduce_sink_grads",
+    "local_position_offset",
+    "sp_sink_flash_attention",
+    "ulysses_sink_flash_attention",
+    "ring_sink_flash_attention",
+    "SinkCacheLayer",
+    "SinkAttentionCache",
+    "SinkAttentionSPWrapper",
+    "prepare_sink_kv_for_sp",
+    "reduce_sink_kv_grads",
+    "get_local_position_offset",
+    "subprocess_generate",
 ]

@@ -59,7 +59,11 @@ def quantize(x: torch.Tensor, quant: str):
     """
     qmax = QUANT_MAX[quant]
     xf = x.float()
-    scale = xf.abs().amax(dim=-1) / qmax
+    amax = xf.abs().amax(dim=-1)
+    # divided by a tensor: on the card PyTorch divides by a Python number
+    # as a product with its reciprocal, one bit off JAX's (and the CPU's)
+    # quotient
+    scale = amax / amax.new_full((), qmax)
     inv = torch.where(scale > 0, 1.0 / scale.clamp(min=1e-30),
                       torch.zeros_like(scale))
     scaled = (xf * inv[..., None]).clamp(-qmax, qmax)

@@ -545,16 +545,35 @@ def sink_flash_attention_with_lse(q, k, v, num_sink: int = 4,
 
 def sink_flash_attention_chunk(q, k, v, offsets, num_sink: int = 4,
                                window_size: int = 512):
-    """Rectangular chunk attention at ``offsets = (q_offset, kv_offset)``:
-    (out, lse) partials for :func:`merge_partials`.
+    """Rectangular chunk attention at ``offsets = (q_offset, kv_offset)``
+    or ``(q_offset, kv_offset, col_hi)``: (out, lse) partials for
+    :func:`merge_partials`.
 
     Takes no s_aux: it is folded in at merge time, so it counts once
     across chunks. ``kv_offset`` may be negative (a halo whose leading
     slots precede the sequence: they are attended by no query and get zero
-    gradient). Differentiable in both outputs: the LSE cotangent of a
+    gradient). ``col_hi`` clips the attended global columns from above
+    (``kv_offset + j < col_hi``, the sequence-parallel partials' exact
+    partition): on one contiguous chunk that keeps its first
+    ``clamp(col_hi - kv_offset, 0, N_kv)`` slots, so K and V are narrowed
+    to those and the cut slots get zero gradient through the narrowing.
+    With no slot left the partial is o = 0, lse = -inf, and no kernel
+    runs. Differentiable in both outputs: the LSE cotangent of a
     downstream merge folds into the backward's delta.
     """
-    q_offset, kv_offset = (int(x) for x in offsets)
+    q_offset, kv_offset, *rest = (int(x) for x in offsets)
+    if len(rest) > 1:
+        raise ValueError(f"offsets takes 2 or 3 values, got {len(rest) + 2}")
+    if rest:
+        keep = min(max(rest[0] - kv_offset, 0), k.shape[2])
+        if keep == 0:
+            # the sums over the empty slices are 0 and keep q, k and v in
+            # the graph: their gradients are zeros, not missing
+            zero = q[..., :0].sum() + k[:, :, :0].sum() + v[:, :, :0].sum()
+            lse = torch.full(q.shape[:3], float("-inf"), device=q.device)
+            return (torch.zeros_like(q) + zero.to(q.dtype),
+                    lse + zero.float())
+        k, v = k[:, :, :keep], v[:, :, :keep]
     return _attention(q, k, v, None, num_sink, window_size, q_offset,
                       kv_offset)
 

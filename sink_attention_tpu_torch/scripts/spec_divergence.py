@@ -1,37 +1,39 @@
 """Where the speculative engine's tokens leave the plain engine's, and why.
 
     python3 -m sink_attention_tpu_torch.scripts.spec_divergence \\
-        [--exact-kv-scale]
+        [--kv-scale-factor F]
 
-A diagnostic of ``chip_smoke.py``'s phase 8, whose helpers it imports from
-this checkout's ``chip_smoke.py``: gpt-oss-20b's widths and 24 layers,
-weights from a generator seeded 0, the speculative pair of
+A diagnostic of ``chip_smoke.py``'s phase 8, whose helpers and gate it
+imports from this checkout's ``chip_smoke.py``: gpt-oss-20b's widths and 24
+layers, weights from a generator seeded 0, the speculative pair of
 ``chip_smoke.draft_pair`` (layers 1.. scaled by 0.1, the draft layer 0),
 the plain and the speculative ContinuousBatchingEngine over phase 8's 8
-seeded requests in 4 slots with an int8 KV cache (the cache whose
-quantizer ``ROADMAP.md`` §C holds open). For each request where the two
-engines' greedy tokens first part, the sequence up to there is teacher
-forced through ``forward_prefill`` (K and V read through the cache's
-quantize round trip), and it reports:
+seeded requests in 4 slots with an int8 KV cache, each run's expert
+choices recorded (``serving.divergence.record_engine``). For each request
+where the two engines' greedy tokens first part it prints phase 8's
+verdict (``chip_smoke._first_divergence`` and ``_divergence_gate``: each
+engine's token against the teacher, as it is and with its near-tie expert
+choices imposed), and the sequence up to there teacher forced through
+``forward_prefill`` (K and V read through the cache's quantize round
+trip) with:
 
 - the two tokens' logits there, and which one the teacher prefers;
 - the router margins at every layer of every generated position: the
   lowest chosen expert's logit less the best unchosen one's (0 is a tie;
   the router's logits are bf16), also in bf16 ulps of the chosen one;
-- the expert choices each engine made at those positions (recorded in
-  its run, :func:`record_engine`): how many differ from the teacher's,
-  the teacher's margins there, and the last row teacher forced with that
-  engine's choices imposed, all of them or only those that differ within
-  ``NEAR_TIE_ULPS`` of a tie (the rest left to the teacher's router);
+- where each engine's choices at those positions differ from the
+  teacher's, and the last row teacher forced with that engine's choices
+  imposed, all of them or only those within 2 bf16 ulps of a tie
+  (``serving.divergence.NEAR_TIE_ULPS``);
 - for the ``TRIES`` smallest margins, the last row's logits with that
   one expert choice taken the other way: the first flip that makes the
   teacher prefer the other engine's token.
 
-``--exact-kv-scale`` runs the caches with a quantize whose scale divides
-by a tensor, the repair held open there (on the card
-PyTorch divides a tensor by a Python number as a product with its
-reciprocal). Prints one JSON line per divergence, then a summary line.
-Without CUDA it exits nonzero.
+``--kv-scale-factor F`` breaks the speculative engine on purpose: its
+cache stores every K/V scale F times the true one (the codes as computed),
+so it reads K and V F times too large; phase 8's gate must refuse it (the
+gate's negative control). Prints one JSON line per divergence, then a
+summary line. Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -39,17 +41,16 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
-import math
 import sys
 from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
+from ..serving.divergence import (Router, near_tie_replay, record_engine,
+                                  router_margins)
+
 ROOT = Path(__file__).resolve().parents[2]
-# a choice this close to a tie (in bf16 ulps of the router logit) may go
-# either way between two computations of equal math
-NEAR_TIE_ULPS = 2.0
 # single flips tried, smallest margin first
 TRIES = 16
 
@@ -62,128 +63,17 @@ def _chip_smoke():
     return mod
 
 
-def exact_quantize(x: torch.Tensor, quant: str):
-    """``cache.quantize`` with its scale divided by a tensor (a true
-    quotient on every device)."""
+def scaled_quantize(factor: float):
+    """``cache.quantize`` with its scale multiplied by ``factor`` and the
+    codes as computed: a cache written through it dequantizes ``factor``
+    times too large."""
     from ..cache import sink_cache
+    quantize = sink_cache.quantize
 
-    qmax = sink_cache.QUANT_MAX[quant]
-    xf = x.float()
-    amax = xf.abs().amax(dim=-1)
-    scale = amax / amax.new_full((), qmax)
-    inv = torch.where(scale > 0, 1.0 / scale.clamp(min=1e-30),
-                      torch.zeros_like(scale))
-    scaled = (xf * inv[..., None]).clamp(-qmax, qmax)
-    if quant == "int8":
-        return torch.round(scaled).to(torch.int8), scale
-    codes = scaled.to(torch.float8_e4m3fn).view(torch.int8)
-    codes = torch.where((codes & 0x7F) >= 8, codes, torch.zeros_like(codes))
-    return codes, scale
-
-
-class Router:
-    """The model's ``moe_routing``, recording each layer's router logits
-    and expert choice (one forward at a time: the caller resets
-    ``logits`` and ``chosen``). ``flip`` = (layer, row) swaps that token's
-    lowest chosen expert for the best unchosen one; ``forced`` =
-    {(layer, row): bool [E]} imposes a choice. A changed row's weights
-    are the softmax of its chosen logits, as the router's."""
-
-    def __init__(self, orig):
-        self.orig, self.logits, self.chosen = orig, [], []
-        self.flip, self.forced = None, {}
-
-    def __call__(self, p, cfg, xt):
-        layer = len(self.logits)
-        logits = (xt @ p["router_w"].to(xt.dtype)
-                  + p["router_b"].to(xt.dtype)).float()
-        routing = self.orig(p, cfg, xt)
-        self.logits.append(logits)
-        self.chosen.append(routing > 0)
-        rows = {row: c.to(logits.device) for (la, row), c in
-                self.forced.items() if la == layer}
-        if self.flip is not None and self.flip[0] == layer:
-            row = self.flip[1]
-            chosen = routing[row] > 0
-            lo = torch.where(chosen, logits[row], math.inf).argmin()
-            hi = torch.where(chosen, -math.inf, logits[row]).argmax()
-            chosen[lo], chosen[hi] = False, True
-            rows[row] = chosen
-        if not rows:
-            return routing
-        routing = routing.clone()
-        for row, chosen in rows.items():
-            routing[row] = 0.0
-            routing[row, chosen] = torch.softmax(logits[row, chosen], dim=-1)
-        return routing
-
-
-def record_engine(eng, run):
-    """``run()`` (an engine's run) with the target model's expert choices
-    recorded: returns (its result, {(rid, layer, position): bool [E] on
-    the CPU}). The engine's target forwards (decode steps, verify rounds)
-    are wrapped so that each routed row's request and position are known;
-    a position keeps its last write, the forward its K and V were
-    committed from (a rejected draft's position is computed again in the
-    next round; a finished slot's rows lie past its tokens)."""
-    from ..models import model as tmodel
-    from ..serving import engine as emod
-
-    calls, ctx = [], {}
-    orig = tmodel.moe_routing
-
-    def route(p, cfg, xt):
-        routing = orig(p, cfg, xt)
-        if ctx:
-            calls.append((ctx["rids"], ctx["seen"], ctx["T"], ctx["layer"],
-                          routing > 0))
-            ctx["layer"] += 1
-        return routing
-
-    def wrap(fn):
-        def call(params, cfg, input_ids, caches, *a, **kw):
-            if params is not eng.params:        # the draft's forwards
-                return fn(params, cfg, input_ids, caches, *a, **kw)
-            ctx.update(rids=[r.rid if r is not None else None
-                             for r in eng._slots],
-                       seen=caches[0].seen.tolist(), T=input_ids.shape[1],
-                       layer=0)
-            try:
-                return fn(params, cfg, input_ids, caches, *a, **kw)
-            finally:
-                ctx.clear()
-        return call
-
-    saved = (emod.forward_decode_ragged, emod.forward_verify_ragged)
-    emod.forward_decode_ragged, emod.forward_verify_ragged = map(wrap, saved)
-    tmodel.moe_routing = route
-    try:
-        out = run()
-    finally:
-        emod.forward_decode_ragged, emod.forward_verify_ragged = saved
-        tmodel.moe_routing = orig
-    routes = {}
-    for rids, seen, T, layer, chosen in calls:
-        chosen = chosen.cpu()
-        for b, rid in enumerate(rids):
-            if rid is not None:
-                for t in range(T):
-                    routes[(rid, layer, seen[b] + t)] = chosen[b * T + t]
-    return out, routes
-
-
-def _margins(logits, k, start):
-    """(margin, ulps, layer, row) at every layer for the rows from
-    ``start``: the k-th largest router logit less the (k+1)-th."""
-    out = []
-    for layer, lg in enumerate(logits):
-        top = torch.topk(lg[start:], k + 1, dim=-1).values
-        m = (top[:, k - 1] - top[:, k]).tolist()
-        ulp = torch.exp2(torch.floor(torch.log2(top[:, k - 1].abs()
-                                                .clamp(min=1e-30))) - 7)
-        for r, (mr, u) in enumerate(zip(m, ulp.tolist())):
-            out.append((mr, mr / u, layer, start + r))
-    return sorted(out)
+    def broken(x: torch.Tensor, quant: str):
+        codes, scale = quantize(x, quant)
+        return codes, scale * factor
+    return broken
 
 
 def diagnose(params, cfg, prompt, plain, spec, at, quant, tries,
@@ -226,7 +116,8 @@ def diagnose(params, cfg, prompt, plain, spec, at, quant, tries,
         row = last_row()
         best = int(row.argmax())
         target = b if best == a else a
-        margins = _margins(router.logits, cfg.experts_per_tok, len(prompt))
+        margins = router_margins(router.logits, cfg.experts_per_tok,
+                                 len(prompt))
         rep = {"at": at, "plain": a, "spec": b, "teacher_best": best,
                **below(row), "target": "spec" if target == b else "plain",
                "smallest_margins": [
@@ -243,15 +134,18 @@ def diagnose(params, cfg, prompt, plain, spec, at, quant, tries,
                         if not torch.equal(got[la, r], teacher[la][r])]
                 router.forced = {k: got[k] for k in keys}
                 replayed = below(last_row())
-                router.forced = {k: got[k] for k in diff
-                                 if ulps[k] <= NEAR_TIE_ULPS}
+                router.forced = {}
+                tmodel.moe_routing = router.orig
+                _, near, _ = near_tie_replay(params, cfg, prompt, plain[:at],
+                                             got, attn)
+                near = near[-1]
+                tmodel.moe_routing = router
                 rep[f"{name}_routes"] = {
                     "recorded": len(keys), "differ": len(diff),
                     "teacher_ulps_where_differ": sorted(
                         ulps[k] for k in diff),
                     "replayed": replayed,
-                    "replayed_near_ties": below(last_row())}
-            router.forced = {}
+                    "replayed_near_ties": below(near)}
         rep.update(flip=None, tried=0)
         for m, u, layer, pos in margins[:tries]:
             router.flip = (layer, pos)
@@ -271,7 +165,9 @@ def diagnose(params, cfg, prompt, plain, spec, at, quant, tries,
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--exact-kv-scale", action="store_true")
+    ap.add_argument("--kv-scale-factor", type=float, default=1.0,
+                    help="the speculative engine's K/V scales times this "
+                         "(a broken engine: the gate's negative control)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("spec_divergence: CUDA is not available", file=sys.stderr)
@@ -285,8 +181,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cs = _chip_smoke()
     print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if args.exact_kv_scale:
-        sink_cache.quantize = exact_quantize
     quant = "int8"
     dev = torch.device("cuda")
     cfg = ModelConfig.gpt_oss_20b()
@@ -295,32 +189,44 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dparams, dcfg = cs.draft_pair(params, cfg, 0.1)
     reqs = cs.engine_requests(8, cfg.vocab_size, 0)
     runs, routes = {}, {}
+    shipped = sink_cache.quantize
     for name, extra in (("plain", {}), ("spec", dict(
             draft_params=dparams, draft_cfg=dcfg, num_draft_tokens=4))):
-        eng = ContinuousBatchingEngine(
-            params, cfg, max_batch=4, max_len=2048, prefill_bucket=128,
-            quant=quant, dtype=torch.bfloat16, device=dev, **extra)
-        rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
-        out, routes[name] = record_engine(eng, eng.run)
+        if name == "spec" and args.kv_scale_factor != 1.0:
+            sink_cache.quantize = scaled_quantize(args.kv_scale_factor)
+        try:
+            eng = ContinuousBatchingEngine(
+                params, cfg, max_batch=4, max_len=2048, prefill_bucket=128,
+                quant=quant, dtype=torch.bfloat16, device=dev, **extra)
+            rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+            out, routes[name] = record_engine(eng, eng.run)
+        finally:
+            sink_cache.quantize = shipped
         runs[name] = [(r, out[r]) for r in rids]
         del eng
-    found = 0
+    found, refused = 0, []
     for i, ((prompt, _), (ra, a), (rb, b)) in enumerate(zip(
             reqs, runs["plain"], runs["spec"])):
         at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if at is None:
             continue
-        mine = {name: {k[1:]: c for k, c in routes[name].items()
-                       if k[0] == rid}
+        mine = {name: cs._request_routes(routes[name], rid)
                 for name, rid in (("plain", ra), ("spec", rb))}
+        div = cs._first_divergence(params, cfg, prompt, a, b, 5000, quant,
+                                   routes=mine)
+        errors = []
+        cs._divergence_gate(div, f"request {i}", errors)
+        refused += errors
         rep = diagnose(params, cfg, prompt, a, b, at, quant, TRIES, mine)
         found += rep["flip"] is not None
-        print(json.dumps({"request": i, **rep}), flush=True)
+        print(json.dumps({"request": i, "gate": div, "gate_errors": errors,
+                          **rep}), flush=True)
     parted = sum(a != b for (_, a), (_, b) in zip(runs["plain"],
                                                   runs["spec"]))
     print(json.dumps({"quant": quant,
-                      "exact_kv_scale": args.exact_kv_scale,
+                      "kv_scale_factor": args.kv_scale_factor,
                       "requests": len(reqs), "parted": parted,
+                      "gate_refused": len(refused),
                       "explained_by_one_flip": found}), flush=True)
     return 0
 

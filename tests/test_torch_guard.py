@@ -2,6 +2,7 @@
 its entry points run on the card unless told otherwise."""
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -69,6 +70,11 @@ def test_entry_points_default_to_the_card():
                         2)
     with pytest.raises(RuntimeError):
         time_cuda(lambda: None)
+    import inspect
+    from sink_attention_tpu_torch.serving import subprocess_eval
+    devices = inspect.signature(
+        subprocess_eval.subprocess_generate).parameters["devices"].default
+    assert tuple(devices) == ("cuda",)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -298,16 +304,25 @@ def test_decode_wrapper_takes_any_group():
 
 def test_top_level_exports_the_ported_api():
     """Every name of the JAX package's top-level ``__all__`` that the port
-    has (in its ops or cache) is exported by the port's top level. The JAX
-    list is read from the source with ast, so nothing of JAX is imported."""
+    has (in its ops, cache, parallel or compat) is exported by the port's
+    top level, and that is all of them: the six SP names and the seven
+    compat names too. The JAX list is read from the source with ast, so
+    nothing of JAX is imported."""
     import sink_attention_tpu_torch as port
-    from sink_attention_tpu_torch import cache, ops
+    from sink_attention_tpu_torch import cache, compat, ops, parallel
 
     jax_all = _jax_all("sink_attention_tpu/__init__.py")
     ported = [n for n in jax_all
-              if n == "__version__" or n in ops.__all__ or n in cache.__all__]
+              if n == "__version__" or any(n in m.__all__ for m in (
+                  ops, cache, parallel, compat))]
     assert {"packed_sink_window_mask", "sink_decode_attention_ragged",
-            "RaggedSinkKVCache"} <= set(ported)
+            "RaggedSinkKVCache", "broadcast_sink_kv", "reduce_sink_grads",
+            "local_position_offset", "sp_sink_flash_attention",
+            "ulysses_sink_flash_attention", "ring_sink_flash_attention",
+            "SinkCacheLayer", "SinkAttentionCache", "SinkAttentionSPWrapper",
+            "prepare_sink_kv_for_sp", "reduce_sink_kv_grads",
+            "get_local_position_offset", "subprocess_generate"} <= set(ported)
+    assert ported == jax_all
     missing = [n for n in ported
                if n not in port.__all__ or not hasattr(port, n)]
     assert not missing, missing
@@ -348,3 +363,65 @@ def test_quantization_modules_import_no_jax(path):
     assert "torch" in names
     assert not [n for n in names if n.split(".")[0] in (
         "jax", "flax", "sink_attention_tpu")], names
+
+
+@pytest.mark.parametrize("path", [
+    "sink_attention_tpu_torch/parallel/_collectives.py",
+    "sink_attention_tpu_torch/parallel/sp.py",
+    "sink_attention_tpu_torch/parallel/ulysses.py",
+    "sink_attention_tpu_torch/parallel/ring.py",
+    "sink_attention_tpu_torch/compat.py",
+    "sink_attention_tpu_torch/serving/subprocess_eval.py",
+    "sink_attention_tpu_torch/serving/divergence.py",
+    "tests/_torch_sp_worker.py"])
+def test_sp_and_compat_modules_import_no_jax(path):
+    """The sequence-parallel modules, the compat layer, the subprocess
+    harness (its worker's source too), the divergence replay and the gloo
+    ranks' worker import torch (and the port), nothing of JAX, flax or the
+    JAX package."""
+    src = (ROOT / path).read_text()
+    trees = [ast.parse(src)]
+    if path.endswith("subprocess_eval.py"):
+        from sink_attention_tpu_torch.serving import subprocess_eval
+        trees.append(ast.parse(subprocess_eval._WORKER))
+    names = []
+    for tree in trees:
+        names += [a.name for node in ast.walk(tree)
+                  if isinstance(node, ast.Import) for a in node.names]
+        names += [node.module or "" for node in ast.walk(tree)
+                  if isinstance(node, ast.ImportFrom) and not node.level]
+    assert "torch" in names or any(n.startswith("torch") for n in names)
+    assert not [n for n in names if n.split(".")[0] in (
+        "jax", "flax", "sink_attention_tpu")], names
+
+
+def test_build_writes_each_library_atomically(tmp_path, monkeypatch):
+    """ops/_build.py compiles each source to a temporary file of its own
+    process and moves it into place with os.replace, so ranks that start
+    together never load a half-written library (nvcc faked here: it
+    writes its -o file)."""
+    from sink_attention_tpu_torch.ops import _build
+
+    outs = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **kw):
+            out = cmd[cmd.index("-o") + 1]
+            outs.append(out)
+            assert out.endswith(".tmp") and not os.path.exists(
+                out[:-len(".tmp")].rsplit(".", 1)[0] + ".so")
+            with open(out, "wb") as f:
+                f.write(b"lib")
+            self.returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeNvcc)
+    paths = _build.build_all()
+    assert len(outs) == len(_build.SOURCES)
+    assert sorted(os.listdir(tmp_path)) == sorted(p.name
+                                                  for p in paths.values())
+    assert all(p.read_bytes() == b"lib" for p in paths.values())

@@ -319,9 +319,9 @@ def test_spec_divergence_router_is_transparent_and_flips():
     swapping one expert; ``record_engine`` records an engine's choice at
     every decoded position and layer; ``diagnose`` reports every generated
     position at every layer, margins sorted, the engines' choices against
-    the teacher's, and the flips it tried. Its quantize
-    with the exact division is the cache's on the CPU, where both divide
-    exactly; without CUDA ``main`` exits nonzero."""
+    the teacher's, and the flips it tried. Its broken quantize (the
+    gate's negative control) keeps the cache's codes and scales the
+    scale; without CUDA ``main`` exits nonzero."""
     from sink_attention_tpu_torch.cache import quantize
     from sink_attention_tpu_torch.models import forward_prefill
     from sink_attention_tpu_torch.scripts import spec_divergence as sd
@@ -341,7 +341,8 @@ def test_spec_divergence_router_is_transparent_and_flips():
     with torch.inference_mode():
         assert torch.equal(got, forward_prefill(params, cfg, seq)[0])
     assert len(router.logits) == cfg.num_layers
-    margins = sd._margins(router.logits, cfg.experts_per_tok, len(prompt))
+    margins = sd.router_margins(router.logits, cfg.experts_per_tok,
+                                len(prompt))
     assert [m for m, *_ in margins] == sorted(m for m, *_ in margins)
     assert len(margins) == cfg.num_layers * 3
     mlp = params["layers"][0]["mlp"]
@@ -373,6 +374,81 @@ def test_spec_divergence_router_is_transparent_and_flips():
             k: rep[k] for k in ("plain_below_best", "spec_below_best")}
     x = torch.randn(3, 2, 40, 16, generator=torch.Generator().manual_seed(2))
     for q in ("int8", "fp8"):
-        for a, b in zip(sd.exact_quantize(x, q), quantize(x, q)):
-            assert torch.equal(a, b)
+        (bc, bs), (c, sc) = sd.scaled_quantize(1.01)(x, q), quantize(x, q)
+        assert torch.equal(bc, c) and torch.equal(bs, sc * 1.01)
     assert sd.main([]) == 1
+
+
+def _gate_setup(n_new=6):
+    cfg = ModelConfig.tiny(num_layers=2, vocab_size=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), **F32)
+    prompt = list(range(5, 25))
+    from sink_attention_tpu_torch.serving.divergence import record_generate
+    toks, routes = record_generate(params, lambda: greedy_generate(
+        params, cfg, torch.tensor([prompt]), n_new, **F32))
+    mine = {k[1:]: c for k, c in routes.items() if k[0] == 0}
+    return cfg, params, prompt, toks[0].tolist(), mine
+
+
+def test_divergence_gate_refuses_a_token_off_the_teacher():
+    """Phase 8's gate (chip_smoke._first_divergence, _divergence_gate) on
+    ModelConfig.tiny: a trajectory with one token forced off the teacher's
+    choice, at a position with no near tie (fp32 on the CPU: the run's
+    recorded expert choices are the teacher's up to there, and none of
+    them lies at a near tie, so the replay imposes none), fails; the run
+    that kept the teacher's tokens passes every token, and a trajectory
+    equal to greedy passes."""
+    import chip_smoke
+    from sink_attention_tpu_torch.models import forward_prefill
+    cfg, params, prompt, plain, routes = _gate_setup()
+    at = 3
+    with torch.inference_mode():
+        row = forward_prefill(params, cfg, torch.tensor(
+            [prompt + plain[:at]]))[0][0, -1]
+    got = plain[:at] + [int(row.argmin())] + plain[at + 1:]
+    div = chip_smoke._first_divergence(params, cfg, prompt, plain, got, 7,
+                                       routes={"plain": routes,
+                                               "spec": routes})
+    assert div["at"] == at and div["control"] > 0
+    assert div["plain"]["below_best"] == 0.0 and div["plain"]["off"] == []
+    assert div["plain"]["checked"] == len(plain)
+    # the forced token's run carries the plain run's recorded choices:
+    # they differ after the forced token, and none lies at a near tie
+    assert div["spec"]["imposed"] == 0
+    assert div["spec"]["replayed_below"] == div["spec"]["below_best"] > (
+        2 * div["control"])
+    assert at in [o["token"] for o in div["spec"]["off"]]
+    errors = []
+    chip_smoke._divergence_gate(div, "forced", errors)
+    assert errors and all("spec run's token" in e for e in errors)
+    assert any(f"token {at} lies" in e for e in errors)
+    same = chip_smoke._first_divergence(params, cfg, prompt, plain, plain, 7)
+    errors = []
+    chip_smoke._divergence_gate(same, "same", errors)
+    assert same == {"at": None} and errors == []
+
+
+def test_near_tie_replay_imposes_only_near_ties(monkeypatch):
+    """near_tie_replay imposes a run's recorded expert choice where it
+    differs from the teacher's and lies within NEAR_TIE_ULPS of a router
+    tie, and nowhere else: a choice flipped at a generated position is
+    imposed once the threshold admits its margin, and moves the row."""
+    from sink_attention_tpu_torch.serving import divergence
+    cfg, params, prompt, plain, routes = _gate_setup(4)
+    flipped = dict(routes)
+    key = (0, len(prompt) + 1)   # layer 0: later layers attend to it
+    flipped[key] = ~routes[key]
+    rows, same, summ = divergence.near_tie_replay(params, cfg, prompt,
+                                                  plain[:3], flipped)
+    assert rows.shape == (4, cfg.vocab_size)
+    assert summ["differ"] == 1 and summ["imposed"] == 0
+    assert torch.equal(rows, same)
+    monkeypatch.setattr(divergence, "NEAR_TIE_ULPS", float("inf"))
+    rows2, moved, summ = divergence.near_tie_replay(params, cfg, prompt,
+                                                    plain[:3], flipped)
+    assert summ == {"recorded": cfg.num_layers * 3, "differ": 1,
+                    "imposed": 1}
+    assert torch.equal(rows, rows2)
+    # rows up to the flipped position keep the teacher's logits
+    assert torch.equal(rows[:2], moved[:2]) and not torch.equal(rows[2:],
+                                                                moved[2:])
