@@ -6,7 +6,8 @@
                              # the forward kernel's ablation, beam search
                              # and speculative decoding, quantized weights,
                              # serving from a checkpoint, sequence-parallel
-                             # attention
+                             # attention, tensor, pipeline and FSDP
+                             # parallelism
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -120,6 +121,18 @@ Phases:
      d s_aux summed over the ranks against the single-process kernel over
      the whole sequence, each rank's forward and backward ms and launches
      (see ``sp_phase``).
+  12. tensor, pipeline and FSDP parallelism over a device mesh: gpt-oss-20b
+     at full width, one spawned process per rank over gloo, all on the
+     one card, weights drawn sharded from phases 3 and 4's seed: 12a
+     make_sharded_generate at TP 4 and 2 (24 layers, phase 3's 4 x 1024
+     prompt, 16 new tokens; bf16 KV, and int8 at TP 2); 12b the mesh
+     make_train_step (4 layers, 2 x 2048 tokens, one SGD step, remat) over
+     (data, seq, model) = (2, 1, 2) with FSDP and (1, 2, 2); 12c
+     make_pp_train_step over (pipe, model) = (2, 2), S=2, M=2. Per rank:
+     ms per prefill, decode step or train step, peak memory, parameter
+     bytes, launches; each rank's attention kernel against plain, the
+     logits, tokens, losses and gradients against the unsharded model's
+     (see ``mesh_phase``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -2729,7 +2742,7 @@ def _quant_engine(params, cfg, device, max_batch, *, prompt_len, max_len,
 
 def serve_quant(cfg, device, forms=("bfloat16", "int8", "int4"), *,
                 batches=(1, 8), prompt_len=64, max_len=4096, bucket=64,
-                chunk=32, warm=2, timed=3, profile_steps=2):
+                chunk=32, warm=1, timed=2, profile_steps=2):
     """Phase 9b/9c: ``cfg`` served by ContinuousBatchingEngine with its
     weights in each of ``forms`` in turn, weights from a generator seeded
     0 (phase 3's): "bfloat16" (``init_params``), "int8" (the bf16 tree
@@ -3683,6 +3696,670 @@ def sp_phase(device, *, n=SP_N, worlds=(1, 2, 4), cases=SP_CASES):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: tensor, pipeline and FSDP parallelism over a device mesh
+# ---------------------------------------------------------------------------
+
+# 12b's meshes: (label, mesh, fsdp); 12c's pipeline (S=2, M=2, V=1)
+MESH_TRAIN = [("fsdp dp2 x tp2", {"data": 2, "seq": 1, "model": 2}, True),
+              ("sp2 x tp2", {"data": 1, "seq": 2, "model": 2}, False)]
+MESH_PIPE = {"pipe": 2, "model": 2}
+PIPE_MICRO = 2
+MESH_SERVE = {4: [(4, None)], 2: [(2, None), (2, "int8")]}  # world: (tp, KV)
+NAMED = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
+         "layers[1].attn.wk")
+MESH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkdv", "decode",
+                "decode_int8")
+
+
+def _named(tree):
+    """Phase 4's named leaves of a parameter (or gradient) tree."""
+    a0, a1 = tree["layers"][0]["attn"], tree["layers"][1]["attn"]
+    return tree["lm_head"], a0["sinks"], a0["wq"], a1["wk"]
+
+
+def _vs_big(a: torch.Tensor, b: torch.Tensor, rows: int = 256):
+    """(1 - cosine, ||a - b|| / ||b||) of two large tensors, in fp32 chunks
+    of ``rows`` rows (fp64 sums): the lm_head's gradient whole in fp64
+    would take 9 GB. The cosine cannot see a scale; the relative error
+    does."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    dot = na = nb = nd = 0.0
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows].float(), b[i:i + rows].float()
+        dot += float((x * y).sum(dtype=torch.float64))
+        na += float((x * x).sum(dtype=torch.float64))
+        nb += float((y * y).sum(dtype=torch.float64))
+        nd += float(((x - y) ** 2).sum(dtype=torch.float64))
+    return 1.0 - dot / math.sqrt(na * nb), math.sqrt(nd / nb)
+
+
+def _mesh_counters():
+    from sink_attention_tpu_torch.ops import decode, flash
+    return {"flash_fwd": (flash.flash_fwd_kernel, "launches"),
+            "flash_dq": (flash.flash_dq_kernel, "launches"),
+            "flash_dkdv": (flash.flash_dkdv_kernel, "launches"),
+            "decode": (decode.decode_kernel, "launches"),
+            "decode_int8": (decode.decode_kernel, "launches_int8")}
+
+
+def _mesh_launches(reset=False):
+    out = {}
+    for name, (fn, attr) in _mesh_counters().items():
+        out[name] = getattr(fn, attr)
+        if reset:
+            setattr(fn, attr, 0)
+    return out
+
+
+def _serve_reference(cfg, dev, batch, prompt_len, new_tokens, dtype, tmp):
+    """12a's unsharded reference on phase 3's weights and prompts: greedy
+    tokens over a bf16 and an int8 KV cache, and the prefill logits
+    (saved to ``tmp`` for the ranks) with a ``_noisy`` control's mean row
+    cosine to them."""
+    from sink_attention_tpu_torch.models import forward_prefill, init_params
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.serving import greedy_generate
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=dev)
+    ref = {"tokens": {q: greedy_generate(params, cfg, prompts, new_tokens,
+                                         dtype=dtype, quant=q,
+                                         device=dev).tolist()
+                      for q in (None, "int8")}}
+    with torch.inference_mode():
+        logits = forward_prefill(params, cfg, prompts)[0]
+        noisy = forward_prefill(params, cfg, prompts, attn_impl=_noisy(
+            flash.sink_flash_attention, 1))[0]
+        ref["control_all_cos"] = _row_cos(noisy, logits)
+        del noisy
+        torch.save(logits.cpu(), f"{tmp}/serve_logits.pt")
+    ref["prompts"] = prompts.tolist()
+    del params, logits
+    return ref
+
+
+def _train_reference(cfg, dev, rows, seq_len, dtype, tmp):
+    """12b/12c's single-process reference on phase 4's weights: the
+    per-token losses and the named leaves' gradients of the mean loss,
+    with the kernels (saved to ``tmp`` for the ranks), and a control
+    with bf16-sized noise in every attention output: 1 - cosine
+    (``control``) and the relative error (``control_rel``) of each to the
+    reference."""
+    from sink_attention_tpu_torch.models import forward_prefill, init_params
+    from sink_attention_tpu_torch.ops import flash
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=dev)
+    batch = torch.randint(0, cfg.vocab_size, (rows, seq_len + 1),
+                          generator=gen, device=dev)
+    targets = _named(params)
+
+    def grads_of(attn_impl):
+        logits, _ = forward_prefill(params, cfg, batch[:, :-1],
+                                    attn_impl=attn_impl)
+        losses = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            batch[:, 1:].reshape(-1), reduction="none")
+        del logits
+        return losses.detach(), torch.autograd.grad(losses.mean(), targets)
+
+    for t in targets:
+        t.requires_grad_(True)
+    losses, grads = grads_of(flash.sink_flash_attention)
+    torch.save({"losses": losses.cpu(), "grads": [g.cpu() for g in grads]},
+               f"{tmp}/train_ref.pt")
+    c_losses, c_grads = grads_of(_noisy(flash.sink_flash_attention, 7))
+    vs = {n: _vs_big(a, b) for n, a, b in zip(
+        ("token_losses",) + NAMED, (c_losses,) + c_grads, (losses,) + grads)}
+    del params, grads, c_grads
+    return {"loss": float(losses.mean()),
+            "control": {n: d for n, (d, _) in vs.items()},
+            "control_rel": {n: r for n, (_, r) in vs.items()}}
+
+
+def _rank_common(params, report, cuda):
+    report["param_bytes"] = tree_bytes(params)
+    if cuda:
+        report["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+
+def _decode_plain_cached(q, cache, s_aux=None):
+    """The decode kernel's plain version over a ``SinkKVCache`` as it
+    stands (bf16, int8 or fp8 storage)."""
+    from sink_attention_tpu_torch.ops import decode
+    return decode.decode_plain(q, cache.k, cache.v, decode.cache_state(cache),
+                               s_aux, **decode.cache_args(cache))
+
+
+def _mesh_serve(cfg, dev, tmp, sizes, tp, quant):
+    """12a on this rank: make_sharded_generate at ``tp`` over ``quant``
+    KV, weights drawn sharded (init_params(shardings=)). After a short
+    warm-up call, the run timed whole and its launches counted. Then the
+    same run replayed part by part, as ``generate`` runs it: its prefill
+    into fresh caches, then its tokens fed back one decode step at a
+    time, each part timed with CUDA events between barriers and every
+    layer's attention recorded; after each part's timing, each recorded
+    call is held kernel against plain (the prefill's forward; each decode
+    step's decode over its cache, which no later call of that step
+    changes). Rank 0 holds the prefill logits to the unsharded model's."""
+    import torch.distributed as dist
+
+    from sink_attention_tpu_torch.models import (forward_decode,
+                                                 forward_prefill, init_params,
+                                                 make_caches)
+    from sink_attention_tpu_torch.ops import decode, flash
+    from sink_attention_tpu_torch.parallel import make_mesh, tp_local_config
+    from sink_attention_tpu_torch.serving import make_sharded_generate
+
+    cuda = dev.type == "cuda"
+    dtype, batch, prompt_len, new_tokens = sizes["serve"]
+    mesh = make_mesh({"model": tp}, device=dev)
+    cfg_local = tp_local_config(cfg, tp)
+    group = mesh.group("model") if tp > 1 else None
+    shardings, generate = make_sharded_generate(cfg, mesh, dtype=dtype,
+                                                quant=quant)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=dev,
+                         shardings=shardings)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=dev)
+    rep = {"task": f"12a serve tp{tp}{' int8 KV' if quant else ''}",
+           "rank": dist.get_rank()}
+    errors = rep.setdefault("errors", [])
+    generate(params, prompts[:1, :64], 2)
+    dist.barrier()
+    _mesh_launches(reset=True)
+    toks, rep["generate_ms"] = _elapsed_ms(
+        lambda: generate(params, prompts, new_tokens), cuda)
+    rep["launches"] = _mesh_launches()
+    rep["tokens"] = toks.tolist()
+    rep["finite"] = bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+    L = cfg.num_layers
+    kv = "decode_int8" if quant == "int8" else "decode"
+    rep["launches_expected"] = {k: 0 for k in MESH_KERNELS}
+    if cuda:
+        rep["launches_expected"].update(flash_fwd=L, **{kv: L * (
+            new_tokens - 1)})
+
+    calls = []
+
+    def prefill_attn(q, k, v, num_sink, window_size, s_aux):
+        o = flash.sink_flash_attention(q, k, v, num_sink, window_size,
+                                       s_aux=s_aux)
+        calls.append((o, (q, k, v, num_sink, window_size, s_aux)))
+        return o
+
+    def decode_attn(q, cache, s_aux=None):
+        o = decode.sink_decode_attention_cached(q, cache, s_aux)
+        calls.append((o, (q, cache, s_aux)))
+        return o
+
+    stats = {"prefill": [], "decode": []}
+    with torch.inference_mode():
+        caches = make_caches(cfg_local, batch, prompt_len + new_tokens,
+                             dtype=dtype, quant=quant, device=dev)
+        dist.barrier()
+        (logits, caches), rep["prefill_ms"] = _elapsed_ms(
+            lambda: forward_prefill(params, cfg_local, prompts, caches,
+                                    attn_impl=prefill_attn, group=group),
+            cuda)
+        rep["finite"] &= bool(torch.isfinite(logits).all())
+        if dist.get_rank() == 0:
+            ref = torch.load(f"{tmp}/serve_logits.pt").to(dev)
+            rep["all_cos"] = _row_cos(logits, ref)
+            del ref
+        del logits
+        for o, (q, k, v, ns, w, aux) in calls:
+            stats["prefill"].append(_attn_compare(o, flash.flash_fwd_plain(
+                q, k, v, aux, ns, w)[0]))
+        step_ms = []
+        for i in range(new_tokens - 1):
+            calls.clear()
+            dist.barrier()   # no rank's checks in another's timed step
+            (logits, caches), ms = _elapsed_ms(lambda: forward_decode(
+                params, cfg_local, toks[:, i:i + 1], caches, prompt_len + i,
+                attn_impl=decode_attn, group=group), cuda)
+            step_ms.append(ms)
+            rep["finite"] &= bool(torch.isfinite(logits).all())
+            for o, (q, cache, aux) in calls:
+                stats["decode"].append(_attn_compare(
+                    o, _decode_plain_cached(q, cache, aux)))
+        del calls, caches
+    rep["decode_ms_per_step"] = sum(step_ms) / max(len(step_ms), 1)
+    rep["decode_ms_steps"] = step_ms
+    for name, n in (("prefill", L), ("decode", L * (new_tokens - 1))):
+        _layer_gate(stats[name], name, rep, errors)
+        if len(stats[name]) != n:
+            errors.append(f"{len(stats[name])} {name} attention calls "
+                          f"checked, not {n}")
+    _rank_common(params, rep, cuda)
+    return rep
+
+
+def _grad_gate(grads, tmp, rep):
+    """Rank 0: 1 - cosine (``vs_single``) and the relative error
+    (``rel_vs_single``) of the whole named gradients, and of the gathered
+    per-token losses (``rep["token_losses"]``), to the single-process
+    reference's."""
+    ref = torch.load(f"{tmp}/train_ref.pt")
+    losses = rep.pop("token_losses")
+    vs = {"token_losses": _vs_big(losses.cpu(),
+                                  ref["losses"].reshape(losses.shape))}
+    vs.update({n: _vs_big(g, r.to(g.device)) for n, g, r
+               in zip(NAMED, grads, ref["grads"])})
+    rep["vs_single"] = {n: d for n, (d, _) in vs.items()}
+    rep["rel_vs_single"] = {n: r for n, (_, r) in vs.items()}
+
+
+def _live_records(records):
+    """The recorded attention calls whose output reached the loss with a
+    cotangent: a pipeline's dead steps get none (their ``do`` is 0), and
+    a checkpointed layer's recompute registers hooks that never fire."""
+    return [r for r in records if "do" in r and bool(r["do"].any())]
+
+
+def _layer_checks(records, rep):
+    """Phase 4's layer checks on the live records: the forward, kernel
+    against plain, and the gradients (``_check_layer_grads``)."""
+    from sink_attention_tpu_torch.ops import flash
+    stats = []
+    for rec in records:
+        q, k, v = rec["x"]
+        ns, w = rec["geom"]
+        o = flash.sink_flash_attention(q, k, v, ns, w, s_aux=rec["aux"])
+        stats.append(_attn_compare(o, flash.flash_fwd_plain(
+            q, k, v, rec["aux"], ns, w)[0]))
+    errors = rep.setdefault("errors", [])
+    _layer_gate(stats, "forward", rep, errors)
+    _check_layer_grads(records, _attn_grads, rep, errors)
+
+
+def _assemble(piece, mesh):
+    """Every rank's [b, n] piece of the per-token losses, placed by its
+    data and seq coordinates (the model ranks' pieces are equal)."""
+    from sink_attention_tpu_torch.parallel._collectives import (
+        all_gather_tensor)
+    world = all_gather_tensor(piece[None], 0)
+    b, n = piece.shape
+    dp, sp = (mesh.shape.get(a, 1) for a in ("data", "seq"))
+    out = torch.empty((dp * b, sp * n), dtype=piece.dtype,
+                      device=piece.device)
+    for rank in range(world.shape[0]):
+        coords = dict(zip(mesh.axis_names, (int(c[0]) for c in (
+            mesh.ranks == rank).nonzero())))
+        d, s = coords.get("data", 0), coords.get("seq", 0)
+        out[d * b:(d + 1) * b, s * n:(s + 1) * n] = world[rank]
+    return out
+
+
+def _mesh_train(cfg, dev, tmp, sizes, label, mesh_sizes, fsdp):
+    """12b on this rank: one SGD step (momentum 0.9: its first update is
+    plain SGD's, and its state shows the optimizer's bytes) of the mesh
+    make_train_step(remat=True), weights drawn sharded, each layer's
+    attention recorded on the live path; the per-token losses of the
+    step's weights (a forward before it) and the named gradients it
+    applied, gathered, against the single-process reference."""
+    import torch.distributed as dist
+
+    from sink_attention_tpu_torch.models import init_params
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.parallel import (make_mesh, make_train_step,
+                                                   param_leaves,
+                                                   param_shardings)
+    from sink_attention_tpu_torch.parallel.train import (data_rows,
+                                                         mesh_token_losses)
+
+    cuda = dev.type == "cuda"
+    dtype, rows, seq_len, lr = sizes["train"]
+    mesh = make_mesh(mesh_sizes, device=dev)
+    shardings = param_shardings(cfg, mesh, fsdp_axis="data" if fsdp
+                                else None)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dtype=dtype, device=dev,
+                         shardings=shardings)
+    batch = torch.randint(0, cfg.vocab_size, (rows, seq_len + 1),
+                          generator=gen, device=dev)
+    rep = {"task": f"12b train {label}", "rank": dist.get_rank()}
+    with torch.no_grad():
+        losses = _assemble(mesh_token_losses(
+            params, cfg, mesh, shardings, data_rows(batch, mesh)), mesh)
+    records = []
+    opt = torch.optim.SGD(param_leaves(params), lr=lr, momentum=0.9)
+    step, _ = make_train_step(cfg, mesh, opt, fsdp=fsdp, remat=True,
+                              attn_impl=_recording(
+                                  flash.sink_flash_attention, records))
+    _mesh_launches(reset=True)
+    loss, rep["step_ms"] = _elapsed_ms(lambda: step(params, batch), cuda)
+    rep["launches"] = _mesh_launches()
+    rep["loss"] = float(loss)
+    L = cfg.num_layers
+    rep["launches_expected"] = {k: 0 for k in MESH_KERNELS}
+    if cuda:   # remat: each layer's forward twice, its backward once
+        rep["launches_expected"].update(flash_fwd=2 * L, flash_dq=L,
+                                        flash_dkdv=L)
+    leaves = param_leaves(params)
+    rep["finite"] = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves)
+    grads = [s.gather(t.grad) for s, t in zip(_named(shardings),
+                                              _named(params))]
+    _rank_common(params, rep, cuda)
+    rep["opt_state_bytes"] = sum(t.nbytes for st in opt.state.values()
+                                 for t in st.values()
+                                 if torch.is_tensor(t))
+    rep["leaf_bytes"] = [t.nbytes for t in leaves]
+    rep["data_split"] = ["data" in s.spec for s in param_leaves(shardings)]
+    if dist.get_rank() == 0:
+        rep["token_losses"] = losses
+        _grad_gate(grads, tmp, rep)
+    del grads
+    _layer_checks(_live_records(records), rep)
+    return rep
+
+
+def _mesh_pipe(cfg, dev, tmp, sizes):
+    """12c on this rank: make_pp_train_step(remat=True) over MESH_PIPE
+    (S=2, M=2, V=1; without remat the T=3 steps' activations of 4 ranks
+    outgrow the card), weights drawn with this rank's TP blocks of every layer
+    (init_params(shardings=)) and stacked to its stage; the logits'
+    per-token losses before the step, one SGD step (momentum 0.9) with
+    every attention call recorded, the named gradients gathered and
+    unstacked, against the single-process reference."""
+    import torch.distributed as dist
+
+    from sink_attention_tpu_torch.models import init_params
+    from sink_attention_tpu_torch.ops import flash
+    from sink_attention_tpu_torch.parallel import (make_mesh, param_leaves,
+                                                   param_shardings, pp,
+                                                   replicated)
+    from sink_attention_tpu_torch.parallel.mesh import tree_map
+
+    cuda = dev.type == "cuda"
+    dtype, rows, seq_len, lr = sizes["train"]
+    mesh = make_mesh(MESH_PIPE, device=dev)
+    S, s_idx = mesh.shape["pipe"], mesh.axis_index("pipe")
+    layer_sh = param_shardings(cfg, mesh)
+    layer_sh["lm_head"] = replicated(mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tree = init_params(cfg, gen, dtype=dtype, device=dev,
+                       shardings=layer_sh)
+    batch = torch.randint(0, cfg.vocab_size, (rows, seq_len + 1),
+                          generator=gen, device=dev)
+    stacked = pp.stack_pipeline_params(tree, S)
+    del tree
+    params = dict(stacked, stages=tree_map(
+        lambda x: x[s_idx:s_idx + 1].clone(), stacked["stages"]))
+    del stacked
+    shardings = pp.pipeline_param_shardings(cfg, mesh, model_axis="model")
+    rep = {"task": "12c pipeline pipe2 x tp2", "rank": dist.get_rank()}
+    with torch.no_grad():
+        logits = pp.pipeline_forward(params, cfg, batch[:, :-1], S,
+                                     PIPE_MICRO, group=mesh.group("pipe"),
+                                     model_group=mesh.group("model"))
+        losses = torch.nn.functional.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]),
+            batch[:, 1:].reshape(-1), reduction="none").reshape(rows, -1)
+        del logits
+    records = []
+    opt = torch.optim.SGD(param_leaves(params), lr=lr, momentum=0.9)
+    step, _ = pp.make_pp_train_step(cfg, mesh, opt,
+                                    num_microbatches=PIPE_MICRO, remat=True,
+                                    attn_impl=_recording(
+                                        flash.sink_flash_attention, records))
+    _mesh_launches(reset=True)
+    loss, rep["step_ms"] = _elapsed_ms(lambda: step(params, batch), cuda)
+    rep["launches"] = _mesh_launches()
+    rep["loss"] = float(loss)
+    T = PIPE_MICRO + S - 1
+    per = cfg.num_layers // S
+    rep["launches_expected"] = {k: 0 for k in MESH_KERNELS}
+    if cuda:   # the stage on every one of the T steps, dead ones
+        # included; remat: each layer's forward twice, its backward once
+        rep["launches_expected"].update(flash_fwd=2 * T * per,
+                                        flash_dq=T * per, flash_dkdv=T * per)
+    leaves = param_leaves(params)
+    rep["finite"] = bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(t.grad).all()) for t in leaves)
+    st, sh = params["stages"]["attn"], shardings["stages"]["attn"]
+    whole = {k: sh[k].gather(st[k].grad) for k in ("sinks", "wq", "wk")}
+    # layer c*per + j of chunk c = v*S + s: layers 0 and 1 are stage 0's
+    grads = (params["lm_head"].grad, whole["sinks"][0, 0, 0],
+             whole["wq"][0, 0, 0], whole["wk"][0, 0, 1])
+    _rank_common(params, rep, cuda)
+    if dist.get_rank() == 0:
+        rep["token_losses"] = losses
+        _grad_gate(grads, tmp, rep)
+    del grads, whole
+    live = _live_records(records)
+    rep["live_attention_calls"] = len(live)
+    _layer_checks(live, rep)
+    if len(live) != PIPE_MICRO * per:
+        rep["errors"].append(f"{len(live)} attention calls reached the loss"
+                             f", not {PIPE_MICRO * per}")
+    return rep
+
+
+def _mesh_rank(rank, world, init, device, serve_cfg, train_cfg, tasks,
+               sizes, tmp):
+    """One rank of a phase-12 world: its tasks in turn; writes its rows to
+    ``tmp/mesh_rank<r>.json``."""
+    import os
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        # the ranks share one card: less of it lost to fragments
+        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+    else:                  # the ranks share the host's cores
+        torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        rows = []
+        for task in tasks:
+            t0 = time.perf_counter()
+            if dev.type == "cuda":   # the ranks share one card
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            if task[0] == "serve":
+                rows.append(_mesh_serve(serve_cfg, dev, tmp, sizes,
+                                        *task[1:]))
+            elif task[0] == "train":
+                rows.append(_mesh_train(train_cfg, dev, tmp, sizes,
+                                        *task[1:]))
+            else:
+                rows.append(_mesh_pipe(train_cfg, dev, tmp, sizes))
+            log(f"phase 12 rank {rank}: {rows[-1]['task']} "
+                f"{time.perf_counter() - t0:.1f} s, peak "
+                f"{rows[-1].get('peak_gb', 0):.2f} GB")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(rows, f)
+
+
+def _mesh_gates(row, ref, tref, errors):
+    """The gates of one rank's row (see ``mesh_phase``)."""
+    label = f"{row['task']} rank {row['rank']}"
+    errors += [f"{label}: {e}" for e in row.pop("errors", [])]
+    if row["launches"] != row["launches_expected"]:
+        errors.append(f"{label}: launches {row['launches']}, expected "
+                      f"{row['launches_expected']}")
+    if not row["finite"]:
+        errors.append(f"{label}: non-finite values")
+    if "all_cos" in row and not 1.0 - row["all_cos"] <= 2.0 * (
+            1.0 - ref["control_all_cos"]):
+        errors.append(f"{label}: prefill logits vs the unsharded model's: "
+                      f"mean cosine {row['all_cos']:.6f}, control "
+                      f"{ref['control_all_cos']:.6f}")
+    for name, d in row.get("vs_single", {}).items():
+        if not d <= 2.0 * tref["control"][name]:
+            errors.append(f"{label}: {name} vs the single-process step: 1 - "
+                          f"cosine {d:.3e}, control "
+                          f"{tref['control'][name]:.3e}")
+    for name, r in row.get("rel_vs_single", {}).items():
+        if not r <= 2.0 * tref["control_rel"][name]:
+            errors.append(f"{label}: {name} vs the single-process step: "
+                          f"relative error {r:.3e}, control "
+                          f"{tref['control_rel'][name]:.3e}")
+    if "loss" in row:   # the step's mean loss: a scale the cosines miss
+        row["loss_rel_vs_single"] = abs(row["loss"] - tref["loss"]) / abs(
+            tref["loss"])
+        limit = 2.0 * tref["control_rel"]["token_losses"]
+        if not row["loss_rel_vs_single"] <= limit:
+            errors.append(f"{label}: mean loss {row['loss']:.6f} vs the "
+                          f"single-process {tref['loss']:.6f}: relative "
+                          f"error {row['loss_rel_vs_single']:.3e}, limit "
+                          f"{limit:.3e}")
+    if "opt_state_bytes" in row and row["opt_state_bytes"] != row[
+            "param_bytes"]:
+        errors.append(f"{label}: optimizer state {row['opt_state_bytes']} "
+                      f"bytes, its parameters {row['param_bytes']}")
+
+
+def _fsdp_gate(rows, errors):
+    """12b with FSDP against the same rank without it (the same TP
+    blocks): each leaf split over data holds 1/dp of its bytes there, the
+    others as many; the FSDP rank's parameters (and so its optimizer
+    state) come to about 1/dp of the TP blocks'."""
+    (fl, fmesh, _), (nl, _, _) = MESH_TRAIN
+    dp = fmesh["data"]
+    for rank in sorted({r["rank"] for r in rows}):
+        f = next(r for r in rows if r["task"] == f"12b train {fl}"
+                 and r["rank"] == rank)
+        n = next(r for r in rows if r["task"] == f"12b train {nl}"
+                 and r["rank"] == rank)
+        bad = [i for i, (a, b, split) in enumerate(zip(
+            f["leaf_bytes"], n["leaf_bytes"], f["data_split"]))
+            if a * (dp if split else 1) != b]
+        f["param_bytes_vs_tp_blocks"] = f["param_bytes"] / n["param_bytes"]
+        f["data_split_share"] = sum(a for a, s in zip(
+            f["leaf_bytes"], f["data_split"]) if s) / f["param_bytes"]
+        if bad or len(f["leaf_bytes"]) != len(n["leaf_bytes"]):
+            errors.append(f"12b FSDP rank {rank}: leaves {bad} do not hold "
+                          f"1/{dp} (split) or all (whole) of their TP "
+                          f"blocks")
+        for r in (f, n):
+            del r["leaf_bytes"], r["data_split"]
+
+
+def mesh_phase(device, *, serve_cfg=None, train_cfg=None, batch=4,
+               prompt_len=1024, new_tokens=16, train_rows=2, seq_len=2048,
+               dtype=torch.bfloat16, lr=1e-2):
+    """Phase 12: TP serving (12a), the sharded training step (12b) and the
+    pipeline (12c) at gpt-oss-20b's full width (serving 24 layers,
+    training 4 of 24), one spawned process per rank, all on ``device``,
+    over gloo: worlds of 4 (12a at TP 4, 12b's meshes, 12c) and 2 (12a at
+    TP 2 over bf16 and int8 KV). Each rank draws the weights from the
+    seed of phases 3 and 4 leaf by leaf, keeping its blocks
+    (init_params(shardings=)). The parent first computes the unsharded
+    references and empties its CUDA cache. Returns (report, launches
+    summed over every rank, errors).
+
+    Gates (each failure an error): every rank's launches as the schedule
+    predicts (12c: the stage on all T steps); every layer's attention on
+    every rank, kernel against plain on the live activations (cosine >=
+    MIN_COS; 12b and 12c its gradients too, phase 4's
+    ``_check_layer_grads``; 12a every decode step's decode too, over
+    the cache as it stands, bf16 or int8, the count checked); 12a's
+    prefill logits against the unsharded model's, 1 - mean row cosine at
+    most twice a ``_noisy`` control's, and its tokens: equal to the
+    unsharded greedy run's, or, from where they part, every token of
+    both runs the teacher-forced choice within twice the control (phase
+    8's ``_first_divergence``); 12b and 12c's per-token losses and phase
+    4's named gradients (the sinks' reassembled from the head shards)
+    against the single-process step, 1 - cosine and the relative error
+    each at most twice a noise control's, and the step's mean loss
+    within twice the control's relative error of the per-token losses
+    (the relative errors see a dropped or doubled scale in the gradient
+    fix-ups, which the cosines cannot); 12b with FSDP: the parameter and
+    optimizer-state bytes about 1/dp of the TP blocks'; every value
+    finite."""
+    import tempfile
+    import torch.multiprocessing as mp
+
+    from sink_attention_tpu_torch.models import ModelConfig, init_params
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    serve_cfg = serve_cfg or ModelConfig.gpt_oss_20b()
+    train_cfg = train_cfg or ModelConfig.gpt_oss_20b(num_layers=4)
+    sizes = {"serve": (dtype, batch, prompt_len, new_tokens),
+             "train": (dtype, train_rows, seq_len, lr)}
+    worlds = {4: [("serve", *t) for t in MESH_SERVE[4]]
+              + [("train", *t) for t in MESH_TRAIN] + [("pipe",)],
+              2: [("serve", *t) for t in MESH_SERVE[2]]}
+    report, errors = {"worlds": []}, []
+    with tempfile.TemporaryDirectory(prefix="mesh_phase_") as tmp:
+        t0 = time.perf_counter()
+        ref = _serve_reference(serve_cfg, dev, batch, prompt_len,
+                               new_tokens, dtype, tmp)
+        tref = _train_reference(train_cfg, dev, train_rows, seq_len, dtype,
+                                tmp)
+        report["reference_s"] = time.perf_counter() - t0
+        report["reference"] = {"control_all_cos": ref["control_all_cos"],
+                               "train_loss": tref["loss"],
+                               "train_control": tref["control"],
+                               "train_control_rel": tref["control_rel"]}
+        if cuda:   # the ranks share the card with this process
+            torch.cuda.empty_cache()
+        for world, tasks in worlds.items():
+            t0 = time.perf_counter()
+            mp.start_processes(
+                _mesh_rank, args=(world, f"tcp://localhost:{_free_port()}",
+                                  str(dev), serve_cfg, train_cfg, tasks,
+                                  sizes, tmp),
+                nprocs=world, join=True, start_method="spawn")
+            ranks = []
+            for r in range(world):
+                with open(f"{tmp}/mesh_rank{r}.json") as f:
+                    ranks.append(json.load(f))
+            report["worlds"].append({"world": world, "seconds":
+                                     time.perf_counter() - t0,
+                                     "ranks": ranks})
+    rows = [row for w in report["worlds"] for rank in w["ranks"]
+            for row in rank]
+    launches = {k: sum(r["launches"][k] for r in rows) for k in MESH_KERNELS}
+    for row in rows:
+        _mesh_gates(row, ref, tref, errors)
+    _fsdp_gate([r for r in rows if r["task"].startswith("12b")], errors)
+    # 12a's tokens: the same on every rank, and the unsharded run's or
+    # explained by the teacher from where they part
+    params = None
+    for row in rows:
+        if "tokens" not in row:
+            continue
+        quant = "int8" if "int8" in row["task"] else None
+        plain = ref["tokens"][quant]
+        row["tokens_equal"] = row["tokens"] == plain
+        if row["tokens_equal"] or row["rank"] != 0:
+            continue
+        if params is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            params = init_params(serve_cfg, gen, dtype=dtype, device=dev)
+        row["divergence"] = []
+        for b, (p_toks, g_toks) in enumerate(zip(plain, row["tokens"])):
+            div = _first_divergence(params, serve_cfg, ref["prompts"][b],
+                                    p_toks, g_toks, 5000 + b, quant=quant)
+            row["divergence"].append(div)
+            _divergence_gate(div, f"{row['task']} request {b}", errors)
+    by_task = {}
+    for row in rows:
+        if "tokens" in row:
+            by_task.setdefault(row["task"], set()).add(str(row["tokens"]))
+            del row["tokens"]
+    for task, seen in by_task.items():
+        if len(seen) != 1:
+            errors.append(f"{task}: the ranks' tokens differ")
+    del params
+    return report, launches, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances (one per head dim) each source must hold
@@ -3984,6 +4661,25 @@ def main() -> int:
     for name, n in sp_launches.items():
         if n == 0:
             errors.append(f"{name} launched no time in phase 11")
+
+    torch.cuda.empty_cache()
+
+    # 12. tensor, pipeline and FSDP parallelism over a device mesh, worlds
+    # of 4 and 2 gloo ranks on the one card
+    t0 = time.perf_counter()
+    mesh_report, mesh_launches, mesh_err = mesh_phase(dev)
+    errors += mesh_err
+    log(f"mesh parallelism gpt-oss-20b (12a TP 4 and 2 serving, 24 layers, "
+        f"4 x 1024 prompt, 16 new, bf16 and int8 KV; 12b the mesh step, 4 "
+        f"layers, 2 x 2048 tokens, FSDP dp2 x tp2 and sp2 x tp2; 12c the "
+        f"pipeline pipe2 x tp2, S=2 M=2; gloo ranks on one card), "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(mesh_report))
+    for row in kernels:
+        if row["name"] in mesh_launches:
+            row["launches_mesh"] = mesh_launches[row["name"]]
+    for name, n in mesh_launches.items():
+        if n == 0:
+            errors.append(f"{name} launched no time in phase 12")
 
     if errors:
         for e in errors:

@@ -33,12 +33,14 @@ Subpackages (the JAX package's layout):
 - ``models``   -- gpt-oss / dense model family, int8 / int4 weight
                   quantization, parameter carry-over from JAX, the HF
                   checkpoint loader (MXFP4 experts, ``from_hf_config``)
-- ``serving``  -- greedy, beam and speculative generation and the
+- ``serving``  -- greedy, beam and speculative generation, the
                   continuous-batching engine (with ``save_state`` /
-                  ``load_state``)
-- ``parallel`` -- the training step on one device; sequence-parallel
-                  attention (halo SP, Ulysses, ring and the dispatcher)
-                  over a ``torch.distributed`` process group
+                  ``load_state``), tensor-sharded generation
+- ``parallel`` -- over ``torch.distributed``: a named device mesh,
+                  tensor and pipeline parallelism, the training step on
+                  one device or over a mesh (DP, SP, TP/EP, FSDP),
+                  sequence-parallel attention (halo SP, Ulysses, ring and
+                  the dispatcher)
 - ``scripts``  -- the forward kernel's per-stage ablation; the A/B
                   timing of the attention kernels of two checkouts; the
                   golden logits criterion and its random HF checkpoint
@@ -58,9 +60,14 @@ from .ops import (eager_sink_attention, eager_sink_attention_packed,
                   sink_decode_attention_ragged, sink_flash_attention,
                   sink_flash_attention_chunk, sink_flash_attention_packed,
                   sink_flash_attention_with_lse, sink_window_mask)
-from .parallel import (broadcast_sink_kv, local_position_offset,
-                       reduce_sink_grads, ring_sink_flash_attention,
-                       sp_sink_flash_attention, ulysses_sink_flash_attention)
+from .parallel import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, broadcast_sink_kv,
+                       local_position_offset, make_mesh, make_multihost_mesh,
+                       make_pp_train_step, pipeline_forward,
+                       pipeline_param_shardings, reduce_sink_grads,
+                       replicated, ring_sink_flash_attention, shard,
+                       sp_sink_flash_attention, stack_pipeline_params,
+                       ulysses_sink_flash_attention, unstack_pipeline_params)
+from .serving import make_sharded_generate
 from .compat import (SinkAttentionCache, SinkAttentionSPWrapper,
                      SinkCacheLayer, get_local_position_offset,
                      prepare_sink_kv_for_sp, reduce_sink_kv_grads,
@@ -96,4 +103,17 @@ __all__ = [
     "reduce_sink_kv_grads",
     "get_local_position_offset",
     "subprocess_generate",
+    "make_mesh",
+    "make_multihost_mesh",
+    "replicated",
+    "shard",
+    "DATA_AXIS",
+    "SEQ_AXIS",
+    "MODEL_AXIS",
+    "stack_pipeline_params",
+    "unstack_pipeline_params",
+    "pipeline_forward",
+    "make_pp_train_step",
+    "pipeline_param_shardings",
+    "make_sharded_generate",
 ]

@@ -16,6 +16,14 @@ norms and sinks stay in full precision. Semantics as in the JAX model:
   out = (up + 1) * glu, gate clamped to (-inf, 7], up to [-7, 7];
 * chunk-convention RoPE with optional YaRN scaling.
 
+With a process group (``group=``, the prefill, decode and training
+forwards), the block runs tensor parallel: ``cfg`` is then
+``parallel.tp.tp_local_config``'s per-rank view and the parameters this
+rank's shard (``parallel.train.param_shardings``), and the block enters
+and leaves its head- and expert-split regions through the Megatron
+operators of ``parallel._collectives``, as the JAX package's
+``tp_decoder_layer``.
+
 Dtype policy (as in JAX): norms and rope in fp32, the MoE combine
 accumulated in fp32. Prefill attention runs the CUDA prefill kernel (and,
 when training, the dQ and dK/dV kernels in the backward), decode the CUDA
@@ -40,6 +48,7 @@ from ..ops import (sink_decode_attention_cached, sink_decode_attention_ragged,
 from ..ops.decode import (_cached_multi_attention,
                           sink_decode_attention_ragged_multi)
 from ..ops.int4 import int4_matmul, int4_matmul_experts
+from ..parallel._collectives import tp_gather, tp_region_in, tp_region_out
 from ..utils.device import resolve_device
 from .config import ModelConfig
 from .quant import is_quantized, is_quantized4
@@ -102,50 +111,77 @@ def _embed_lookup(embed, ids: torch.Tensor) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                dtype: torch.dtype = torch.float32, device="cuda") -> dict:
+                dtype: torch.dtype = torch.float32, device="cuda",
+                shardings=None) -> dict:
     """Random-init parameter tree (normal(0, 0.02), biases zero, sinks
     normal(0, 1)), the same tree and distributions as the JAX package.
-    ``generator`` must live on ``device``; the numbers differ from JAX's."""
+    ``generator`` must live on ``device``; the numbers differ from JAX's.
+
+    ``shardings`` (a tree of ``parallel.mesh.NamedSharding``, as
+    ``parallel.train.param_shardings`` returns): each leaf is drawn whole,
+    in the same order, and only this rank's block of it is kept, so the
+    blocks are those of the whole tree bit for bit while the peak is this
+    rank's blocks and one whole leaf."""
     dev = resolve_device(device)
     H, D = cfg.hidden_size, cfg.head_dim
     HQ, HKV = cfg.num_heads, cfg.num_kv_heads
     I, E = cfg.intermediate_size, cfg.num_experts
 
-    def w(shape, scale=0.02):
-        return torch.empty(shape, dtype=dtype, device=dev).normal_(
-            0.0, scale, generator=generator)
+    def keep(t, path):
+        """This rank's block of a leaf just drawn whole."""
+        if shardings is None:
+            return t
+        s = shardings
+        for key in path:
+            s = s[key]
+        return s.local_block(t) if any(s.spec) else t
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def w(path, shape, scale=0.02):
+        return keep(torch.empty(shape, dtype=dtype, device=dev).normal_(
+            0.0, scale, generator=generator), path)
 
-    def ones(shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
+    def zeros(path, shape):
+        return keep(torch.zeros(shape, dtype=dtype, device=dev), path)
+
+    def ones(path, shape):
+        return keep(torch.ones(shape, dtype=dtype, device=dev), path)
 
     layers = []
-    for _ in range(cfg.num_layers):
+    for li in range(cfg.num_layers):
+        a, m = ("layers", li, "attn"), ("layers", li, "mlp")
         attn = {
-            "wq": w((H, HQ * D)), "bq": zeros((HQ * D,)),
-            "wk": w((H, HKV * D)), "bk": zeros((HKV * D,)),
-            "wv": w((H, HKV * D)), "bv": zeros((HKV * D,)),
-            "wo": w((HQ * D, H)), "bo": zeros((H,)),
+            "wq": w(a + ("wq",), (H, HQ * D)), "bq": zeros(a + ("bq",),
+                                                          (HQ * D,)),
+            "wk": w(a + ("wk",), (H, HKV * D)), "bk": zeros(a + ("bk",),
+                                                           (HKV * D,)),
+            "wv": w(a + ("wv",), (H, HKV * D)), "bv": zeros(a + ("bv",),
+                                                           (HKV * D,)),
+            "wo": w(a + ("wo",), (HQ * D, H)), "bo": zeros(a + ("bo",),
+                                                          (H,)),
         }
         if cfg.use_s_aux:
-            attn["sinks"] = w((HQ,), scale=1.0)
+            attn["sinks"] = w(a + ("sinks",), (HQ,), scale=1.0)
         if cfg.mlp_type == "dense":
-            mlp = {"gate": w((H, I)), "up": w((H, I)), "down": w((I, H))}
+            mlp = {"gate": w(m + ("gate",), (H, I)),
+                   "up": w(m + ("up",), (H, I)),
+                   "down": w(m + ("down",), (I, H))}
         else:
             mlp = {
-                "router_w": w((H, E)), "router_b": zeros((E,)),
-                "gate_up": w((E, H, 2 * I)), "gate_up_b": zeros((E, 2 * I)),
-                "down": w((E, I, H)), "down_b": zeros((E, H)),
+                "router_w": w(m + ("router_w",), (H, E)),
+                "router_b": zeros(m + ("router_b",), (E,)),
+                "gate_up": w(m + ("gate_up",), (E, H, 2 * I)),
+                "gate_up_b": zeros(m + ("gate_up_b",), (E, 2 * I)),
+                "down": w(m + ("down",), (E, I, H)),
+                "down_b": zeros(m + ("down_b",), (E, H)),
             }
-        layers.append({"attn": attn, "mlp": mlp, "ln1": ones((H,)),
-                       "ln2": ones((H,))})
+        layers.append({"attn": attn, "mlp": mlp,
+                       "ln1": ones(("layers", li, "ln1"), (H,)),
+                       "ln2": ones(("layers", li, "ln2"), (H,))})
     return {
-        "embed": w((cfg.vocab_size, H)),
+        "embed": w(("embed",), (cfg.vocab_size, H)),
         "layers": layers,
-        "final_norm": ones((H,)),
-        "lm_head": w((H, cfg.vocab_size)),
+        "final_norm": ones(("final_norm",), (H,)),
+        "lm_head": w(("lm_head",), (H, cfg.vocab_size)),
     }
 
 
@@ -237,10 +273,14 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor):
             proj(p["wv"], p["bv"], cfg.num_kv_heads))
 
 
-def _out_proj(p: dict, cfg: ModelConfig, attn: torch.Tensor) -> torch.Tensor:
-    """attn: [B, HQ, N, D] -> [B, N, H]."""
+def _out_proj(p: dict, cfg: ModelConfig, attn: torch.Tensor,
+              group=None) -> torch.Tensor:
+    """attn: [B, HQ, N, D] -> [B, N, H]; with ``group``, the partial
+    products of this rank's heads summed over it before the bias."""
     B, HQ, N, D = attn.shape
     y = _mm(attn.transpose(1, 2).reshape(B, N, HQ * D), p["wo"])
+    if group is not None:
+        y = tp_region_out(y, group)
     if cfg.o_bias:
         y = y + p["bo"].to(y.dtype)
     return y
@@ -279,31 +319,43 @@ def _moe_grouped(p: dict, cfg: ModelConfig, xt: torch.Tensor,
     return acc
 
 
-def dense_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """Gated-SiLU MLP (Qwen/Llama family): down(silu(gate(x)) * up(x))."""
+def dense_mlp(p: dict, x: torch.Tensor, group=None) -> torch.Tensor:
+    """Gated-SiLU MLP (Qwen/Llama family): down(silu(gate(x)) * up(x)).
+    With ``group``: gate / up hold this rank's columns and down its rows
+    (Megatron's split); the partial products are summed over the group."""
+    if group is not None:
+        x = tp_region_in(x, group)
     g = _mm(x, p["gate"])
     u = _mm(x, p["up"])
-    return _mm(torch.nn.functional.silu(g) * u, p["down"])
+    out = _mm(torch.nn.functional.silu(g) * u, p["down"])
+    return out if group is None else tp_region_out(out, group)
 
 
 def mlp_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-              active: Optional[torch.Tensor] = None) -> torch.Tensor:
+              active: Optional[torch.Tensor] = None,
+              group=None) -> torch.Tensor:
     """The per-layer MLP: MoE (gpt-oss) or dense gated-SiLU. ``active``
-    ([B] bool) marks the rows whose output is kept (see :func:`moe`)."""
+    ([B] bool) marks the rows whose output is kept (see :func:`moe`);
+    ``group``: tensor parallel over it."""
     if cfg.mlp_type == "dense":
-        return dense_mlp(p, x)
-    return moe(p, cfg, x, active=active)
+        return dense_mlp(p, x, group=group)
+    return moe(p, cfg, x, active=active, group=group)
 
 
 def moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
-        active: Optional[torch.Tensor] = None) -> torch.Tensor:
+        active: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """gpt-oss MoE block. x: [B, N, H] -> [B, N, H].
 
     Grouped-by-expert for T = B*N <= moe_grouped_token_limit (decode),
     dense all-experts products otherwise (prefill). ``active`` ([B] bool):
     rows whose output the caller discards (inactive continuous-batching
     slots) get zero routing weights, so the grouped path reads no expert
-    weights for them.
+    weights for them. With ``group`` the experts are split over it (this
+    rank holds ``cfg.num_experts`` of them, block ``rank`` of the
+    router's columns): the routing enters the region before this rank's
+    columns are sliced out of it, so the slice's zero-padded cotangent and
+    the region's sum rebuild the whole routing's (slicing first would sum
+    cotangents of different columns).
     """
     B, N, H = x.shape
     xt = x.reshape(B * N, H)
@@ -311,7 +363,13 @@ def moe(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if active is not None:
         routing = routing * active.repeat_interleave(N).to(
             routing.dtype)[:, None]
+    if group is not None:
+        e, r = cfg.num_experts, torch.distributed.get_rank(group)
+        routing = tp_region_in(routing, group)[:, r * e:(r + 1) * e]
+        xt = tp_region_in(xt, group)
     out = moe_experts(p, cfg, xt, routing)
+    if group is not None:
+        out = tp_region_out(out, group)
     return out.reshape(B, N, H).to(x.dtype)
 
 
@@ -344,49 +402,62 @@ def moe_experts(p: dict, cfg: ModelConfig, xt: torch.Tensor,
 
 
 def decoder_layer(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-                  window: int, attn_impl) -> torch.Tensor:
+                  window: int, attn_impl, group=None) -> torch.Tensor:
     """One transformer block (attention + MLP) on [B, N, H] activations;
-    ``attn_impl(q, k, v, num_sink=, window_size=, s_aux=)``."""
+    ``attn_impl(q, k, v, num_sink=, window_size=, s_aux=)``; ``group``:
+    tensor parallel over it (``cfg`` and ``lp`` this rank's, see the
+    module's docstring)."""
     return _block(lp, cfg, x, cos, sin, lambda q, k, v: attn_impl(
         q, k, v, num_sink=cfg.num_sink_tokens, window_size=window,
-        s_aux=_s_aux(lp, cfg)))
+        s_aux=_s_aux(lp, cfg)), group=group)
 
 
 def _block(lp: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-           attend, active=None) -> torch.Tensor:
+           attend, active=None, group=None) -> torch.Tensor:
     """The block around ``attend(q, k, v) -> attn``: norms, QKV, rope,
-    residuals, MLP (``active``: see :func:`moe`)."""
+    residuals, MLP (``active``: see :func:`moe`). With ``group`` the
+    normed input enters the head-split region, the heads' partial output
+    products are summed over the group before ``bo``, and the MLP is split
+    too (:func:`mlp_block`); the attention itself needs no communication."""
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
+    if group is not None:
+        h = tp_region_in(h, group)
     q, k, v = _qkv(lp["attn"], cfg, h)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    x = x + _out_proj(lp["attn"], cfg, attend(q, k, v))
+    x = x + _out_proj(lp["attn"], cfg, attend(q, k, v), group=group)
     h = rms_norm(x, lp["ln2"], cfg.rms_norm_eps)
-    return x + mlp_block(lp["mlp"], cfg, h, active=active)
+    return x + mlp_block(lp["mlp"], cfg, h, active=active, group=group)
 
 
-def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+          group=None) -> torch.Tensor:
+    """Final norm and lm_head; with ``group`` the lm_head holds this
+    rank's vocabulary columns and the logits are gathered over it."""
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return _mm(x, params["lm_head"])
+    if group is None:
+        return _mm(x, params["lm_head"])
+    return tp_gather(_mm(tp_region_in(x, group), params["lm_head"]), -1,
+                     group)
 
 
 def _layer_walk(params: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-                attn_step, active=None) -> torch.Tensor:
+                attn_step, active=None, group=None) -> torch.Tensor:
     """The decoder-layer walk shared by every forward. ``attn_step(li, lp,
     q, k, v) -> attn`` supplies one layer's attention (and any cache
     update). Returns logits [B, T, V]."""
     for li, lp in enumerate(params["layers"]):
         x = _block(lp, cfg, x, cos, sin,
                    lambda q, k, v, li=li, lp=lp: attn_step(li, lp, q, k, v),
-                   active=active)
-    return _head(params, cfg, x)
+                   active=active, group=group)
+    return _head(params, cfg, x, group=group)
 
 
 def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                     caches: Optional[List[SinkKVCache]] = None,
                     positions: Optional[torch.Tensor] = None,
                     attn_impl=None, remat: bool = False,
-                    collect_kv: bool = False):
+                    collect_kv: bool = False, group=None):
     """Full-sequence forward. input_ids: [B, N] -> (logits [B, N, V],
     caches). With ``caches`` (one SinkKVCache per layer), each layer's KV
     is stored in them for decode. With ``collect_kv`` the second value is
@@ -401,7 +472,9 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
     (``torch.utils.checkpoint``, non-reentrant): the backward recomputes
     the layer's activations instead of keeping them, one more forward of
     work for memory O(1) in depth, as ``jax.checkpoint`` does in the JAX
-    package. Ignored with ``caches`` or ``collect_kv``."""
+    package. Ignored with ``caches`` or ``collect_kv``. ``group``: tensor
+    parallel over it (``cfg``, ``params`` and ``caches`` this rank's; see
+    the module's docstring); the logits come whole to every rank."""
     B, N = input_ids.shape
     x = _embed_lookup(params["embed"], input_ids)
     if positions is None:
@@ -414,8 +487,9 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
         for li, lp in enumerate(params["layers"]):
             x = torch.utils.checkpoint.checkpoint(
                 decoder_layer, lp, cfg, x, cos, sin,
-                cfg.window_for_layer(li, N), attn_impl, use_reentrant=False)
-        return _head(params, cfg, x), None
+                cfg.window_for_layer(li, N), attn_impl, group,
+                use_reentrant=False)
+        return _head(params, cfg, x, group=group), None
 
     kvs = []
 
@@ -428,20 +502,21 @@ def forward_prefill(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                          window_size=cfg.window_for_layer(li, N),
                          s_aux=_s_aux(lp, cfg))
 
-    logits = _layer_walk(params, cfg, x, cos, sin, attn_step)
+    logits = _layer_walk(params, cfg, x, cos, sin, attn_step, group=group)
     return logits, (kvs if collect_kv else caches)
 
 
 def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
                    caches: List[SinkKVCache], position: int,
-                   attn_impl=None, collect_kv: bool = False):
+                   attn_impl=None, collect_kv: bool = False, group=None):
     """Single-token decode step. input_ids: [B, 1] -> (logits [B, 1, V],
     caches). Appends this token's KV to every layer cache (in place) and
     attends over it with the decode kernel; ``position`` is the token's
     global position, shared by the batch. ``attn_impl(q, cache, s_aux=)``
     overrides the decode attention. ``collect_kv=True`` also returns each
     layer's post-RoPE (k, v) [B, H_kv, 1, D]: the speculative draft loop
-    commits those instead of running the draft a second time."""
+    commits those instead of running the draft a second time. ``group``:
+    tensor parallel over it, as in :func:`forward_prefill`."""
     x = _embed_lookup(params["embed"], input_ids)
     pos = torch.tensor([int(position)], device=input_ids.device)
     cos, sin = rope_cos_sin(cfg, pos)
@@ -454,7 +529,7 @@ def forward_decode(params: dict, cfg: ModelConfig, input_ids: torch.Tensor,
         cache = caches[li].append(k, v)
         return attn_impl(q, cache, s_aux=_s_aux(lp, cfg))
 
-    logits = _layer_walk(params, cfg, x, cos, sin, attn_step)
+    logits = _layer_walk(params, cfg, x, cos, sin, attn_step, group=group)
     return (logits, caches, kvs) if collect_kv else (logits, caches)
 
 

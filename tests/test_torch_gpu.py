@@ -867,3 +867,106 @@ def test_collectives_on_gloo_with_cuda_tensors(cuda, tmp_path):
              for r in range(2)]
     logs = [p.communicate(timeout=240)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), logs
+
+
+_MESH_RANK = r"""
+import sys, torch, torch.distributed as dist
+from sink_attention_tpu_torch.models import (ModelConfig, decoder_layer,
+                                             init_params, rope_cos_sin)
+from sink_attention_tpu_torch.ops import eager_sink_attention, flash
+from sink_attention_tpu_torch.parallel import (make_mesh, param_leaves,
+                                               param_shardings,
+                                               tp_decoder_layer,
+                                               tp_local_config)
+from sink_attention_tpu_torch.parallel.mesh import device_put, tree_map
+rank, store = int(sys.argv[1]), sys.argv[2]
+torch.cuda.set_device(0)
+torch.backends.cuda.matmul.allow_tf32 = False
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                        world_size=2)
+cfg = ModelConfig.gpt_oss_20b(num_layers=2)
+mesh = make_mesh({"data": 1, "seq": 1, "model": 2})
+sh = param_shardings(cfg, mesh)
+got = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                  torch.bfloat16, shardings=sh)
+whole = init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                    torch.bfloat16)
+for a, b in zip(param_leaves(got), param_leaves(device_put(whole, sh))):
+    assert a.shape == b.shape and torch.equal(a, b)
+
+def cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+gen = torch.Generator("cuda").manual_seed(1)
+x = torch.randn(1, 1024, cfg.hidden_size, generator=gen,
+                device="cuda").to(torch.bfloat16)
+g = torch.randn(x.shape, generator=gen, device="cuda").to(torch.bfloat16)
+cos_t, sin_t = rope_cos_sin(cfg, torch.arange(1024, device="cuda"))
+
+def run(lp, layer, x, attn):
+    leaves = param_leaves(lp)
+    xi = x.clone().requires_grad_(True)
+    for t in leaves:
+        t.requires_grad_(True)
+    out = layer(lp, xi, attn)
+    grads = torch.autograd.grad((out.float() * g.float()).sum(),
+                                [xi] + leaves, allow_unused=True,
+                                materialize_grads=True)
+    return [out.detach()] + list(grads)
+
+def single(lp, xi, attn, cfg=cfg):
+    return decoder_layer(lp, cfg, xi, cos_t, sin_t, 1024, attn)
+
+def split(lp, xi, attn):
+    return tp_decoder_layer(lp, tp_local_config(cfg, 2), xi, cos_t, sin_t,
+                            1024, attn, mesh.group("model"))
+
+kernel = flash.sink_flash_attention
+base = flash.flash_fwd_kernel.launches, flash.flash_dq_kernel.launches
+one = run(whole["layers"][1], single, x, kernel)
+tp = run(got["layers"][1], split, x, kernel)
+assert (flash.flash_fwd_kernel.launches, flash.flash_dq_kernel.launches
+        ) == (base[0] + 2, base[1] + 2)
+ref = run(tree_map(lambda t: t.detach().float(), whole["layers"][1]),
+          single, x.float(), eager_sink_attention)
+# each value's distance from fp32 (1 - cosine), this rank's block of the
+# parameter gradients: the split layer's at most twice the whole one's
+shardings = [None, None] + param_leaves(sh["layers"][1])
+names = ["out", "dx"] + [str(s.spec) for s in shardings[2:]]
+for i, (a, b, r, s) in enumerate(zip(tp, one, ref, shardings)):
+    if s is not None:
+        b, r = s.local_block(b), s.local_block(r)
+    if not bool(r.any()):
+        continue
+    e_tp, e_one = 1 - cos(a, r), 1 - cos(b, r)
+    assert e_tp <= 2 * e_one, (i, names[i], e_tp, e_one)
+dist.destroy_process_group()
+print("ok", rank)
+"""
+
+
+def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
+    """A world of 2 gloo ranks on the card over gpt-oss-20b at full width
+    (2 layers): init_params(shardings=) gives each rank the blocks of the
+    whole tree bit for bit; one tp_decoder_layer (the full layer, 1 x
+    1024 tokens, the forward and dQ kernels launched once a rank) against
+    the single-process decoder_layer on the same bf16 weights, both held
+    to the layer in fp32 (plain eager attention): the output's, the input
+    gradient's and this rank's block of every parameter gradient's 1 -
+    cosine to fp32 at most twice the single-process layer's (the split
+    sums round apart in bf16)."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = [subprocess.Popen([sys.executable, "-c", _MESH_RANK, str(r),
+                               str(tmp_path / "store")], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=600)[0] for p in procs]
+    assert all(p.returncode == 0 for p in procs), logs

@@ -425,3 +425,79 @@ def test_build_writes_each_library_atomically(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == sorted(p.name
                                                   for p in paths.values())
     assert all(p.read_bytes() == b"lib" for p in paths.values())
+
+
+@pytest.mark.parametrize("path", [
+    "sink_attention_tpu_torch/parallel/mesh.py",
+    "sink_attention_tpu_torch/parallel/tp.py",
+    "sink_attention_tpu_torch/parallel/pp.py",
+    "sink_attention_tpu_torch/parallel/train.py",
+    "sink_attention_tpu_torch/serving/sharded.py",
+    "tests/_torch_mesh_worker.py"])
+def test_mesh_modules_import_no_jax(path):
+    """The mesh, tensor- and pipeline-parallel modules, the sharded step
+    and sharded serving, and the gloo ranks' worker of their tests import
+    torch (and the port), nothing of JAX, flax or the JAX package."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = [a.name for node in ast.walk(tree)
+             if isinstance(node, ast.Import) for a in node.names]
+    names += [node.module or "" for node in ast.walk(tree)
+              if isinstance(node, ast.ImportFrom) and not node.level]
+    assert "torch" in names or any(n.startswith("torch") for n in names)
+    assert not [n for n in names if n.split(".")[0] in (
+        "jax", "flax", "sink_attention_tpu")], names
+
+
+@pytest.mark.parametrize("package", ["parallel", "serving"])
+def test_parallel_and_serving_export_every_jax_name(package):
+    """The port's ``parallel`` and ``serving`` packages export every name
+    of their JAX counterparts' ``__all__`` (read with ast), the mesh, the
+    pipeline and sharded generation among them."""
+    import importlib
+    port = importlib.import_module(f"sink_attention_tpu_torch.{package}")
+    jax_all = _jax_all(f"sink_attention_tpu/{package}/__init__.py")
+    missing = [n for n in jax_all
+               if n not in port.__all__ or not hasattr(port, n)]
+    assert not missing, missing
+    if package == "parallel":
+        from sink_attention_tpu_torch.parallel import train
+        assert {"param_shardings", "make_sharded_attn"} <= set(train.__all__)
+        import inspect
+        params = inspect.signature(train.make_train_step).parameters
+        assert {"mesh", "fsdp", "remat", "accum_steps"} <= set(params)
+
+
+def test_mesh_and_sharded_serving_default_to_the_card():
+    """make_mesh and make_multihost_mesh take the card unless told
+    otherwise and raise without CUDA; make_sharded_generate runs on its
+    mesh's device and raises for a mesh on the card; over a mesh on the
+    CPU (a gloo world of one) it generates greedy_generate's tokens."""
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present: the default device is valid here")
+    import numpy as np
+    import torch.distributed as dist
+    from sink_attention_tpu_torch.models import ModelConfig, init_params
+    from sink_attention_tpu_torch.parallel import (Mesh, make_mesh,
+                                                   make_multihost_mesh)
+    from sink_attention_tpu_torch.serving import (greedy_generate,
+                                                  make_sharded_generate)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh({"model": 1})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_multihost_mesh({"data": 1})
+    cfg = ModelConfig.tiny()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_sharded_generate(cfg, Mesh(np.zeros(1, dtype=int),
+                                            ("model",), "cuda"))
+        mesh = make_mesh({"model": 1}, device="cpu")
+        _, gen = make_sharded_generate(cfg, mesh, dtype=torch.float32)
+        params = init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+        ids = torch.arange(8)[None] % cfg.vocab_size
+        assert torch.equal(gen(params, ids, 3), greedy_generate(
+            params, cfg, ids, 3, dtype=torch.float32, device="cpu"))
+    finally:
+        dist.destroy_process_group()
