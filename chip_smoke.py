@@ -156,6 +156,22 @@ DECODE_TOL = 2e-2  # bf16 output
 # and the kernels round P and dS to bf16 as MMA operands
 BWD_TOL = 2e-2
 MIN_COS = 0.9999   # kernel against plain, per layer and per kernel check
+# by input dtype (kernel against plain): bf16 as above; fp16 JAX's fp16
+# tolerance (tests/test_flash_prefill.py); fp32, which the kernels read as
+# bf16, JAX's TPU fp32 tolerance, and the fp32 decode, which computes in
+# fp32, JAX's CPU fp32 tolerance (tests/test_decode.py)
+FWD_TOL = {torch.bfloat16: FLASH_TOL, torch.float16: 4e-3,
+           torch.float32: 6e-3}
+LSE_TOLS = {torch.bfloat16: LSE_TOL, torch.float16: LSE_TOL,
+            torch.float32: 1e-2}  # fp32: a row of one key sees S's rounding
+DECODE_TOLS = {torch.bfloat16: DECODE_TOL, torch.float16: 4e-3,
+               torch.float32: 1e-5}
+# the precision of the products of the kernels' plain version for an
+# input dtype: fp32 is read as bf16 by the attention kernels (the TPU's
+# default for fp32), so their fp32 rows are held, as JAX's TPU tests hold
+# their kernels, to an oracle at that precision (the exact one's distance
+# is reported beside it)
+MATMUL_DTYPE = {torch.float32: torch.bfloat16}
 PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 # the kernels rebuilt for Hopper after their first port, and how
@@ -197,8 +213,11 @@ def _sdpa(q, k, v, mask):
         q, k, v, attn_mask=mask, enable_gqa=True)
 
 
-def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None):
-    """Kernel vs plain at one shape; returns a dict of numbers."""
+def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None,
+                dtype=torch.bfloat16):
+    """Kernel vs plain at one shape, inputs in ``dtype``; returns a dict of
+    numbers. The bound counts the inputs' bytes in their dtype and the
+    products at the bf16 tensor-core rate (fp32 is read as bf16)."""
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.ops.reference import sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -206,21 +225,24 @@ def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None):
                                                 time_cuda)
 
     def inputs(n):
-        mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
-            torch.bfloat16)
+        mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
         return (mk(B, H_q, n, D), mk(B, H_kv, n, D), mk(B, H_kv, n, D),
                 torch.randn(H_q, generator=gen, device=dev))
 
     q, k, v, aux = inputs(N)
+    mm = MATMUL_DTYPE.get(dtype)
     o_k, l_k = flash.flash_fwd_kernel(q, k, v, aux, ns, W)
-    o_p, l_p = flash.flash_fwd_plain(q, k, v, aux, ns, W)
+    o_p, l_p = flash.flash_fwd_plain(q, k, v, aux, ns, W, matmul_dtype=mm)
     torch.cuda.synchronize()
     err = float((o_k.float() - o_p.float()).abs().max())
     lerr = float((l_k - l_p).abs().max())
-    res = {"shape": f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}",
-           "max_abs_err": err, "lse_err": lerr,
-           "ok": err <= FLASH_TOL and lerr <= LSE_TOL
+    res = {"shape": f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
+           + _dtype_label(dtype), "max_abs_err": err, "lse_err": lerr,
+           "ok": err <= FWD_TOL[dtype] and lerr <= LSE_TOLS[dtype]
            and bool(torch.isfinite(o_k.float()).all())}
+    if mm is not None:  # against the exact plain version, for the record
+        res["exact_err"] = float((o_k.float() - flash.flash_fwd_plain(
+            q, k, v, aux, ns, W)[0].float()).abs().max())
     if time_n is not None and time_n != N:
         q, k, v, aux = inputs(time_n)
         res["timed_N"] = time_n
@@ -228,14 +250,16 @@ def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None):
     mask = sink_window_mask(n, n, ns, W, device=dev)
     res["ms"] = time_cuda(lambda: flash.flash_fwd_kernel(q, k, v, aux, ns, W),
                           iters=20)
-    res["device_ms"], res["kernels_per_call"] = per_call_device(
-        lambda: flash.flash_fwd_kernel(q, k, v, aux, ns, W))
+    res["device_ms"], res["kernels_per_call"] = _device_per_call(
+        lambda: flash.flash_fwd_kernel(q, k, v, aux, ns, W), dtype)
     res["plain_ms"] = time_cuda(
-        lambda: flash.flash_fwd_plain(q, k, v, aux, ns, W), iters=3,
-        warmup=1)
+        lambda: flash.flash_fwd_plain(q, k, v, aux, ns, W, matmul_dtype=mm),
+        iters=3, warmup=1)
     res["library_ms"] = time_cuda(lambda: _sdpa(q, k, v, mask), iters=10)
     flops = sink_attention_flops(B, H_q, n, D, ns, W)
-    nbytes = 2 * (2 * B * H_q * n * D + 2 * B * H_kv * n * D) + 4 * B * H_q * n
+    elem = q.element_size()
+    nbytes = elem * (2 * B * H_q * n * D + 2 * B * H_kv * n * D) + (
+        4 * B * H_q * n)
     t_ops, t_bytes = flops / H100_PEAK_BF16 * 1e3, nbytes / H100_HBM_BW * 1e3
     res["bound_ms"] = max(t_ops, t_bytes)
     res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -245,24 +269,39 @@ def check_flash(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None):
 QUANT_BUDGET = {"int8": 0.05, "fp8": 0.12}  # vs unquantized KV (JAX tests)
 
 
-def _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends, gen, quant):
+def _device_per_call(fn, dtype, calls=20):
+    """(device ms, kernels a call) of a kernel wrapper: per launch
+    (``per_call_device``), but for fp32 inputs per call, the kernel and
+    the casts that round its inputs to bf16 together."""
+    ms, per_call = per_call_device(fn, calls=calls)
+    return (ms * per_call if dtype == torch.float32 else ms), per_call
+
+
+def _dtype_label(dtype):
+    """A shape label's dtype suffix: none for bf16, the kernels' main type."""
+    return "" if dtype == torch.bfloat16 else " " + str(dtype).replace(
+        "torch.", "")
+
+
+def _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends, gen, quant,
+                   dtype=torch.bfloat16):
     """A cache of each storage (bf16, and ``quant`` if given) filled with
     the same seeded KV: a SinkKVCache prefilled with ``lengths`` tokens
     (an int), or, for a list of per-slot lengths, a RaggedSinkKVCache with
     each slot inserted (0 = left empty). Then ``appends`` tokens; in the
     ragged cache slot b skips append i when i % (b + 2) == 0, so the slots
-    end at different ring phases, and empty slots stay inactive. Returns
-    ({storage: cache}, lens [B, 4])."""
+    end at different ring phases, and empty slots stay inactive. The
+    unquantized cache holds ``dtype``. Returns ({storage: cache}, lens [B,
+    4])."""
     from sink_attention_tpu_torch.cache import RaggedSinkKVCache, SinkKVCache
     from sink_attention_tpu_torch.ops import decode
 
-    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
-        torch.bfloat16)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     ragged = isinstance(lengths, (list, tuple))
     kinds = [None] + ([quant] if quant else [])
     cls = RaggedSinkKVCache if ragged else SinkKVCache
     caches = {kd: cls.init(B, H_kv, D, num_sink=ns, window_size=W,
-                           dtype=torch.bfloat16, quant=kd, device=dev)
+                           dtype=dtype, quant=kd, device=dev)
               for kd in kinds}
     if ragged:
         n_max = max(lengths)
@@ -293,22 +332,24 @@ def _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends, gen, quant):
 
 
 def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
-                 quant=None):
-    """The decode kernel of one storage (bf16, or ``quant``) against its
-    plain version over a filled cache (see _decode_caches: ``lengths`` a
-    list makes it ragged); a quantized kernel also against the bf16 kernel
-    over the unquantized KV, within the JAX tests' budget. Returns
-    numbers; the library yardstick is SDPA over the (dequantized) bf16
-    cache with the live mask."""
+                 quant=None, dtype=torch.bfloat16):
+    """The decode kernel of one storage (``dtype``, or ``quant`` beside
+    bf16) against its plain version over a filled cache (see
+    _decode_caches: ``lengths`` a list makes it ragged); a quantized kernel
+    also against the bf16 kernel over the unquantized KV, within the JAX
+    tests' budget. Returns numbers; the library yardstick is SDPA over the
+    (dequantized) cache in q's dtype with the live mask; the bound counts
+    fp32's products at the card's fp32 rate (the fp32 decode runs on the
+    CUDA cores)."""
     from sink_attention_tpu_torch.ops import decode
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
+                                                H100_PEAK_FP32,
                                                 H100_PEAK_INT8, time_cuda)
 
     caches, lens = _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends,
-                                  gen, quant)
+                                  gen, quant, dtype)
     cache = caches[quant]
-    q = torch.randn(B, H_q, 1, D, generator=gen, device=dev).to(
-        torch.bfloat16)
+    q = torch.randn(B, H_q, 1, D, generator=gen, device=dev).to(dtype)
     aux = torch.randn(H_q, generator=gen, device=dev)
     kw = decode.cache_args(cache)
     state = decode.cache_state(cache)  # ints, or the ragged [B] tensors
@@ -322,9 +363,10 @@ def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
     shape = (f"B={B} H={H_q}/{H_kv} D={D} W={W} S_total={cache.s_total} "
              + (f"ragged lengths={list(lengths)} live={live.sum(1).tolist()}"
                 if isinstance(lengths, (list, tuple)) else
-                f"live={n_live // B}"))
+                f"live={n_live // B}") + _dtype_label(dtype))
     res = {"shape": shape, "max_abs_err": err,
-           "ok": err <= DECODE_TOL and bool(torch.isfinite(o_k.float()).all())}
+           "ok": err <= DECODE_TOLS[dtype]
+           and bool(torch.isfinite(o_k.float()).all())}
     if quant:
         ref = caches[None]
         o_b = decode.decode_kernel(q, ref.k, ref.v, decode.cache_state(ref),
@@ -344,14 +386,17 @@ def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
                                          cache.sink_cap, cache.window_size)
     res["plain_ms"] = time_cuda(lambda: decode.decode_plain(
         q, cache.k, cache.v, lens, aux, **kw), iters=10)
-    kf, vf = (t.to(torch.bfloat16) for t in cache.dequant_kv())
+    kf, vf = (t.to(q.dtype) for t in cache.dequant_kv())
     mask = live[:, None, None, :]
     res["library_ms"] = best(lambda: _sdpa(q, kf, vf, mask), 20)
     del kf, vf
     flops = 4 * H_q * n_live * D
-    slot_bytes = 2 * D + 8 if quant else 4 * D  # K and V of one live slot
-    nbytes = H_kv * n_live * slot_bytes + 2 * 2 * B * H_q * D + 16 * B
-    peak = H100_PEAK_INT8 if quant else H100_PEAK_BF16
+    elem = q.element_size()
+    # K and V of one live slot
+    slot_bytes = 2 * D + 8 if quant else 2 * elem * D
+    nbytes = H_kv * n_live * slot_bytes + 2 * elem * B * H_q * D + 16 * B
+    peak = (H100_PEAK_INT8 if quant else H100_PEAK_FP32
+            if dtype == torch.float32 else H100_PEAK_BF16)
     t_ops, t_bytes = flops / peak * 1e3, nbytes / H100_HBM_BW * 1e3
     res["bound_ms"] = max(t_ops, t_bytes)
     res["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
@@ -359,13 +404,15 @@ def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
 
 
 def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
-              use_aux=True):
+              use_aux=True, dtype=torch.bfloat16):
     """dQ and dK/dV kernels vs flash_bwd_plain at one shape, on the same
-    (q, k, v, dO, lse, delta); ``halo`` garbage slots before the KV put the
-    chunk at kv_offset = -halo. Returns rows "flash_dq", "flash_dkdv" and
-    "flash_bwd" (the two together, against SDPA's backward); the dQ and
-    dK/dV rows also have the kernel's own device time per launch and its
-    effective MFU over the visible pairs."""
+    (q, k, v, dO, lse, delta) in ``dtype``; ``halo`` garbage slots before
+    the KV put the chunk at kv_offset = -halo. Returns rows "flash_dq",
+    "flash_dkdv" and "flash_bwd" (the two together, against SDPA's
+    backward); the dQ and dK/dV rows also have the kernel's own device
+    time per launch and its effective MFU over the visible pairs. The
+    bound counts the inputs' bytes in their dtype, the products at the
+    bf16 rate."""
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.ops.reference import sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -374,8 +421,7 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     geom = (ns, W, 0, -halo)
 
     def inputs(n):
-        mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
-            torch.bfloat16)
+        mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
         q, do = mk(B, H_q, n, D), mk(B, H_q, n, D)
         k, v = mk(B, H_kv, n + halo, D), mk(B, H_kv, n + halo, D)
         k[:, :, :halo] = 7.7
@@ -387,15 +433,18 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
         return q, k, v, do, lse, delta
 
     x = inputs(N)
+    mm = MATMUL_DTYPE.get(dtype)
     dq = flash.flash_dq_kernel(*x, *geom)
     dk, dv = flash.flash_dkdv_kernel(*x, *geom)
-    ref = flash.flash_bwd_plain(*x, *geom)
+    ref = flash.flash_bwd_plain(*x, *geom, matmul_dtype=mm)
+    exact = (flash.flash_bwd_plain(*x, *geom) if mm is not None
+             else None)
     dq2 = flash.flash_dq_kernel(*x, *geom)
     dk2, dv2 = flash.flash_dkdv_kernel(*x, *geom)
     torch.cuda.synchronize()
     shape = (f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
              + (" s_aux" if use_aux else "")
-             + (f" kv_offset=-{halo}" if halo else ""))
+             + (f" kv_offset=-{halo}" if halo else "") + _dtype_label(dtype))
     rows = {}
     for name, got, refs, again in (
             ("flash_dq", (dq,), ref[:1], (dq2,)),
@@ -413,7 +462,11 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
             "ok": (rel <= BWD_TOL and cos >= MIN_COS and same and halo_zero
                    and all(bool(torch.isfinite(g.float()).all())
                            for g in got))}
-    del dq, dk, dv, ref, dq2, dk2, dv2
+        if exact is not None:  # against the exact plain version
+            refs_x = exact[:1] if name == "flash_dq" else exact[1:]
+            rows[name]["exact_rel_err"] = max(
+                _grad_compare(g, r)["rel_err"] for g, r in zip(got, refs_x))
+    del dq, dk, dv, ref, dq2, dk2, dv2, exact
 
     if time_n is not None and time_n != N:
         x = inputs(time_n)
@@ -428,9 +481,9 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     for name, fn in (("flash_dq", flash.flash_dq_kernel),
                      ("flash_dkdv", flash.flash_dkdv_kernel)):
         rows[name]["device_ms"], rows[name]["kernels_per_call"] = \
-            per_call_device(lambda: fn(*x, *geom), calls=10)
-    plain_ms = time_cuda(lambda: flash.flash_bwd_plain(*x, *geom), iters=2,
-                         warmup=1)
+            _device_per_call(lambda: fn(*x, *geom), dtype, calls=10)
+    plain_ms = time_cuda(lambda: flash.flash_bwd_plain(
+        *x, *geom, matmul_dtype=mm), iters=2, warmup=1)
     q, k, v, do = (t.detach().clone().requires_grad_(i < 3)
                    for i, t in enumerate(x[:4]))
     mask = sink_window_mask(n, n_kv, ns, W, 0, -halo, device=dev)
@@ -441,8 +494,9 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     del out, q, k, v, do
 
     pairs = B * H_q * attention_pairs(n, n_kv, ns, W, 0, -halo)
-    q_bytes = 2 * B * H_q * n * D        # one bf16 [B, H_q, n, D] tensor
-    kv_bytes = 2 * B * H_kv * n_kv * D   # one bf16 [B, H_kv, n_kv, D]
+    elem = x[0].element_size()
+    q_bytes = elem * B * H_q * n * D        # one [B, H_q, n, D] tensor
+    kv_bytes = elem * B * H_kv * n_kv * D   # one [B, H_kv, n_kv, D]
     row_bytes = 8 * B * H_q * n          # lse and delta, fp32
     work = {  # FLOPs per visible pair (2 D per product), bytes moved
         "flash_dq": (6 * D, 3 * q_bytes + 2 * kv_bytes + row_bytes),
@@ -469,25 +523,6 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
     return rows
 
 
-def pack_lengths(n: int, lo: int, hi: int, seed: int):
-    """Segment lengths drawn uniform in [lo, hi] from
-    numpy.random.default_rng(seed) until ``n`` tokens are filled; the last
-    one is cut to fit (the length spread of a verl / SFT packed batch)."""
-    import numpy as np
-    rng, lens = np.random.default_rng(seed), []
-    while sum(lens) < n:
-        lens.append(min(int(rng.integers(lo, hi + 1)), n - sum(lens)))
-    return lens
-
-
-def pack_positions(lens, first: int = 0):
-    """int64 [sum(lens)] segment-local positions (what a loader gives);
-    ``first`` > 0 starts the pack inside its first segment."""
-    pos = torch.cat([torch.arange(L) for L in lens])
-    pos[:lens[0]] += first
-    return pos
-
-
 def packed_pairs(positions, num_sink, window):
     """Visible (query, key) pairs of one head over the packed mask of
     ``positions`` [B, N], summed over the batch."""
@@ -506,6 +541,7 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
     "packed_dq", "packed_dkdv" with errors, times and bounds (FLOPs from
     the visible pairs of the pack's own mask), each also with the kernel's
     own device time per launch and its effective MFU."""
+    from sink_attention_tpu_torch.ops.packed import pack_positions
     from sink_attention_tpu_torch.ops import packed
     from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
@@ -607,6 +643,7 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
 
 
 def kernel_phase(dev):
+    from sink_attention_tpu_torch.ops.packed import pack_lengths
     gen = torch.Generator(device=dev).manual_seed(1)
     flash_main = [check_flash(dev, 4, 64, 8, 1024, 64, 0, W, gen)
                   for W in (128, 1024)]
@@ -675,22 +712,39 @@ def kernel_phase(dev):
             ([200, 824], 128, "a start inside a 64-row half"),
             ([256, 768], 1024, "a start at a 128-row item boundary"),
             ([500, 1, 523], 128, "a 1-token segment"))]
+    # phase 13's H2O-Danube-1.8B shapes: head_dim 80 in the 128 instance,
+    # bf16 and fp32 (read as bf16): the serving prefill (2 x 8192 tokens,
+    # W = 4096, no sinks), the training step's backward (1 x 8192), the
+    # decode over a wrapped 4096-slot window in bf16, fp32 and int8
+    dan = (torch.bfloat16, torch.float32)
+    flash_danube = [check_flash(dev, 2, 32, 8, 8192, 80, 0, 4096, gen,
+                                dtype=dt) for dt in dan]
+    bwd_danube = [check_bwd(dev, 1, 32, 8, 8192, 80, 0, 4096, gen,
+                            use_aux=False, dtype=dt) for dt in dan]
+    decode_danube = [check_decode(dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen,
+                                  dtype=dt) for dt in dan]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
-           "decode_more": decode_more, **quant_rows}
+           "decode_more": decode_more, **quant_rows,
+           "flash_fwd_danube": flash_danube, "decode_danube": decode_danube,
+           "decode_int8_danube": [check_decode(
+               dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen, "int8")]}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
         res[name + "_chunk"] = bwd_chunk[name]
     for name in ("flash_dq", "flash_dkdv"):
         res[name + "_more"] = [r[name] for r in bwd_more]
+    for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
+        res[name + "_danube"] = [r[name] for r in bwd_danube]
     for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
         res[name] = [r[name] for r in packed_main]
         res[name + "_headline"] = [r[name] for r in packed_head]
         res[name + "_edge"] = [r[name] for r in packed_edge]
     for key, rows in res.items():
-        name = key.replace("_headline", "").replace("_chunk", "").replace(
-            "_edge", "").replace("_more", "")
+        name = key
+        for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube"):
+            name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
                 + (f", timed at N={r['timed_N']}" if "timed_N" in r else "")
@@ -698,6 +752,10 @@ def kernel_phase(dev):
                 + (f" lse_err={r['lse_err']:.3e}" if "lse_err" in r else "")
                 + (f" vs_bf16_err={r['vs_bf16_err']:.3e}"
                    if "vs_bf16_err" in r else "")
+                + (f" exact_err={r['exact_err']:.3e}"
+                   if "exact_err" in r else "")
+                + (f" exact_rel_err={r['exact_rel_err']:.3e}"
+                   if "exact_rel_err" in r else "")
                 + (f" rel_err={r['rel_err']:.3e} cos={r['cos']:.7f} "
                    f"bitwise_repeat={r['bitwise_repeat']}"
                    if "cos" in r else "")
@@ -719,6 +777,7 @@ def sync_check(dev):
     shapes) under
     torch.cuda.set_sync_debug_mode("error"): any synchronising CUDA
     operation raises. Returns the errors."""
+    from sink_attention_tpu_torch.ops.packed import pack_positions
     from sink_attention_tpu_torch.cache import RaggedSinkKVCache
     from sink_attention_tpu_torch.ops import decode, flash, packed
 
@@ -805,22 +864,6 @@ def _grad_compare(g: torch.Tensor, ref: torch.Tensor) -> dict:
     scale = float(ref.float().abs().max())
     return {"err": err, "rel_err": err / scale if scale > 0 else err,
             "cos": cosine(g, ref)}
-
-
-def _noisy(attn_impl, seed: int):
-    """attn_impl with its output scaled by (1 + e), e ~ N(0, 2^-9): a
-    perturbation the size of one bf16 rounding, the control that says how
-    far such noise alone moves this model's logits."""
-    state = {"n": 0}
-
-    def attn(*a, **kw):
-        o = attn_impl(*a, **kw)
-        g = torch.Generator(device=o.device).manual_seed(seed + state["n"])
-        state["n"] += 1
-        e = torch.randn(o.shape, generator=g, device=o.device) * 2.0 ** -9
-        return (o.float() * (1.0 + e)).to(o.dtype)
-
-    return attn
 
 
 def profile_device(fn, kernels, shapes=False):
@@ -918,11 +961,11 @@ def queued_ms(fn, calls=20, windows=3, tries=4):
 
 
 def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
-          dtype=torch.bfloat16):
+          dtype=torch.bfloat16, quant=None, control=None, profile=True):
     """Serve ``batch`` seeded requests through greedy_generate and check the
-    path, with weights and prompts from a generator seeded 0. Returns
-    (report, errors); the launch counts in the report cover the
-    greedy_generate call alone.
+    path, with weights and prompts from a generator seeded 0, over an
+    int8/fp8 KV cache if ``quant``. Returns (report, errors); the launch
+    counts in the report cover the greedy_generate call alone.
 
     Checks (each failure is an error):
     * every layer's attention, prefill and each decode step, kernel against
@@ -933,8 +976,15 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
       row cosine's distance from 1 at most twice that of a control whose
       attention output carries bf16-sized noise (random weights make this
       model chaotic in bf16: such noise alone moves its logits; see
-      PERF.md).
+      PERF.md). ``control(attn_impl, seed)`` makes the control's attention
+      (default: that noise; for fp32, :func:`bf16_operands`, the one bf16
+      rounding the kernels make). In fp32 the teacher is plain attention
+      (the prefill kernel reads fp32 as bf16; the decode kernel computes
+      in fp32); over a quantized cache the teacher's control is the K/V
+      round trip (``serving.divergence.kv_roundtrip``).
     """
+    from sink_attention_tpu_torch.serving.divergence import (
+        kv_roundtrip, noisy)
     from sink_attention_tpu_torch.models import (forward_decode,
                                                  forward_prefill, init_params)
     from sink_attention_tpu_torch.ops import decode, flash
@@ -959,15 +1009,22 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
+    ctl = control or noisy
     flash.flash_fwd_kernel.launches = 0
-    decode.decode_kernel.launches = 0
+    for attr in ("launches", "launches_int8", "launches_fp8"):
+        setattr(decode.decode_kernel, attr, 0)
     t0 = time.perf_counter()
     toks = greedy_generate(params, cfg, prompts, new_tokens, dtype=dtype,
-                           device=dev)
+                           quant=quant, device=dev)
     sync()
     report["generate_ms"] = (time.perf_counter() - t0) * 1e3
+    report["generate_tokens_per_s"] = batch * (prompt_len + new_tokens) / (
+        report["generate_ms"] / 1e3)
     report["launches"] = {"flash_fwd": flash.flash_fwd_kernel.launches,
                           "decode": decode.decode_kernel.launches}
+    if quant:  # the quantized branch's, beside the unquantized (none)
+        report["launches"][f"decode_{quant}"] = getattr(
+            decode.decode_kernel, f"launches_{quant}")
     if tuple(toks.shape) != (batch, new_tokens) or not bool(
             ((toks >= 0) & (toks < cfg.vocab_size)).all()):
         errors.append(f"generated tokens malformed: {tuple(toks.shape)}")
@@ -977,12 +1034,9 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
                                      window_size)[0]
 
     def plain_decode_attn(q, cache, s_aux=None):
-        lens = decode._uniform_lens(cache.sink_len, cache.window_len,
-                                    cache.write_pos, cache.window_size,
-                                    cache.sink_cap, q.shape[0], q.device)
-        return decode.decode_plain(q, cache.k, cache.v, lens, s_aux,
-                                   sink_cap=cache.sink_cap,
-                                   window_size=cache.window_size)
+        return decode.decode_plain(q, cache.k, cache.v,
+                                   decode.cache_state(cache), s_aux,
+                                   **decode.cache_args(cache))
 
     layer_stats = {"prefill": [], "decode": []}
 
@@ -998,9 +1052,11 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
         # tokens, so it repeats greedy_generate's steps, and keeps logits.
         t0 = time.perf_counter()
         first, caches = prefill_and_caches(params, cfg, prompts, new_tokens,
-                                           dtype=dtype)
+                                           dtype=dtype, quant=quant)
         sync()
         report["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+        report["prefill_tokens_per_s"] = batch * prompt_len / (
+            report["prefill_ms"] / 1e3)
         dec_logits = []
         t0 = time.perf_counter()
         for i in range(new_tokens - 1):
@@ -1018,6 +1074,7 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
             (replay == toks).float().mean())
         if cuda:
             report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if cuda and profile:
             report["decode_step_profile"] = profile_device(
                 lambda: forward_decode(params, cfg, toks[:, -1:], caches,
                                        prompt_len + new_tokens - 1),
@@ -1037,7 +1094,7 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
         report["plain_all_top1"] = _top1(lk, lp)
         del lk
         ln, _ = forward_prefill(params, cfg, prompts,
-                                attn_impl=_noisy(plain_prefill_attn, 1))
+                                attn_impl=ctl(plain_prefill_attn, 1))
         report["control_all_cos"] = _row_cos(ln, lp)
         report["control_last_cos"] = cosine(ln[:, -1], lp[:, -1])
         del ln, lp
@@ -1053,12 +1110,15 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
             seq = torch.cat([prompts, toks[:, :-1]], dim=1)
             dl = torch.stack(dec_logits, dim=1)
             del dec_logits
-            tf, _ = forward_prefill(params, cfg, seq)
+            teacher = (plain_prefill_attn if dtype == torch.float32
+                       else flash.sink_flash_attention)
+            tf, _ = forward_prefill(params, cfg, seq, attn_impl=teacher)
             tf = tf[:, prompt_len:]
             report["teacher_all_cos"] = _row_cos(dl, tf)
             report["teacher_top1"] = _top1(dl, tf)
-            tn, _ = forward_prefill(params, cfg, seq, attn_impl=_noisy(
-                flash.sink_flash_attention, 1000))
+            tn, _ = forward_prefill(params, cfg, seq, attn_impl=(
+                kv_roundtrip(teacher, quant) if quant else ctl(teacher,
+                                                               1000)))
             report["teacher_control_cos"] = _row_cos(tn[:, prompt_len:], tf)
             del tf, tn, dl
             if not 1.0 - report["teacher_all_cos"] <= 2.0 * (
@@ -1070,7 +1130,7 @@ def serve(cfg, device, *, batch=4, prompt_len=1024, new_tokens=32,
 
             # Decode attention checked layer by layer, every step.
             _, caches = prefill_and_caches(params, cfg, prompts, new_tokens,
-                                           dtype=dtype)
+                                           dtype=dtype, quant=quant)
             attn = checked(decode.sink_decode_attention_cached,
                            plain_decode_attn, layer_stats["decode"])
             for i in range(new_tokens - 1):
@@ -1116,6 +1176,17 @@ class _PlainAttention(torch.autograd.Function):
 
 def plain_attn(q, k, v, num_sink, window_size, s_aux):
     return _PlainAttention.apply(q, k, v, s_aux, num_sink, window_size)
+
+
+def bf16_operands(attn_impl, seed=None):
+    """attn_impl reading q, k and v rounded to bf16 once: the control of
+    the fp32 runs (the kernels read fp32 so, as the TPU's matrix unit does
+    at its default precision). ``seed`` is unused: the signature of
+    ``serving.divergence.noisy``, the bf16 runs' control."""
+    def attn(q, k, v, *a, **kw):
+        q, k, v = (t.to(torch.bfloat16).to(t.dtype) for t in (q, k, v))
+        return attn_impl(q, k, v, *a, **kw)
+    return attn
 
 
 def _attn_grads(q, k, v, s_aux, do, num_sink, window_size, plain):
@@ -1213,7 +1284,7 @@ def _check_layer_grads(records, attn_grads, report, errors):
 
 
 def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
-          dtype=torch.bfloat16):
+          dtype=torch.bfloat16, control=None, profile=True, split=True):
     """``steps`` SGD steps of make_train_step(remat=True) on one seeded
     sequence of ``seq_len`` + 1 tokens, with weights from a generator
     seeded 0, then the checks. Returns (report, errors); the launch counts
@@ -1231,8 +1302,11 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
       from cosine 1 at most twice that of a control whose attention output
       carries bf16-sized noise (random weights make this model chaotic in
       bf16, see PERF.md; the scalar loss alone is one draw of that chaos,
-      too few to judge by).
+      too few to judge by); ``control(attn_impl, seed)`` makes the
+      control's attention (for fp32: :func:`bf16_operands`). A model
+      without s_aux has no sinks gradient to check.
     """
+    from sink_attention_tpu_torch.serving.divergence import noisy as _noisy
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.parallel import (cross_entropy_loss,
@@ -1261,10 +1335,12 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
 
     _run_steps(lambda: step(params, batch), steps, seq_len, kernels, cuda,
                report, errors)
-    _split_step(lambda: cross_entropy_loss(params, cfg, batch, remat=True),
-                opt, cuda, report)
+    if split:
+        _split_step(lambda: cross_entropy_loss(params, cfg, batch,
+                                               remat=True), opt, cuda, report)
     if cuda:
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cuda and profile:
         report["step_profile"] = profile_device(
             lambda: step(params, batch),
             ("fwd_wgmma_kernel", "dq_wgmma_kernel", "dkdv_wgmma_kernel"),
@@ -1276,9 +1352,11 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
     records = []
     recording = _recording(flash.sink_flash_attention, records)
     lp0, lp1 = params["layers"][0]["attn"], params["layers"][1]["attn"]
-    names = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
-             "layers[1].attn.wk")
-    targets = (params["lm_head"], lp0["sinks"], lp0["wq"], lp1["wk"])
+    named = [("lm_head", params["lm_head"]),
+             ("layers[0].attn.sinks", lp0.get("sinks")),
+             ("layers[0].attn.wq", lp0["wq"]),
+             ("layers[1].attn.wk", lp1["wk"])]
+    names, targets = zip(*[(n, t) for n, t in named if t is not None])
 
     def grads_of(attn_impl):
         """(per-token losses, the gradients of their mean - the training
@@ -1292,7 +1370,7 @@ def train(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
         return losses.detach(), torch.autograd.grad(losses.mean(), targets)
 
     paths = {"kernel": grads_of(recording), "plain": grads_of(plain_attn),
-             "control": grads_of(_noisy(plain_attn, 7))}
+             "control": grads_of((control or _noisy)(plain_attn, 7))}
 
     _check_layer_grads(records, _attn_grads, report, errors)
     del records
@@ -1362,11 +1440,15 @@ def _packed_attn_grads(q, k, v, s_aux, do, positions, num_sink, window_size,
 
 
 def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
-                 dtype=torch.bfloat16, min_len=PACK_MIN, max_len=PACK_MAX):
+                 dtype=torch.bfloat16, min_len=PACK_MIN, max_len=PACK_MAX,
+                 lens=None, control=None, profile=True, split=True):
     """``steps`` SGD steps of cross_entropy_loss_packed on one pack of
-    ``seq_len`` tokens, segments of pack_lengths(seq_len, min_len, max_len,
-    0), weights from a generator seeded 0; then the checks. Returns
-    (report, errors); the launch counts cover the ``steps`` steps alone.
+    ``seq_len`` tokens, segments of ``lens`` (default pack_lengths(seq_len,
+    min_len, max_len, 0)), weights from a generator seeded 0; then the
+    checks. Returns (report, errors); the launch counts cover the
+    ``steps`` steps alone. ``control(attn_impl, seed)`` makes the
+    controls' attention (default: bf16-sized noise; for fp32
+    :func:`bf16_operands`).
 
     Checks (each failure is an error):
     * every loss finite;
@@ -1381,6 +1463,9 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
       segment's own unpacked forward, by mean row cosine, within twice the
       distance of the same control on that forward.
     """
+    from sink_attention_tpu_torch.ops.packed import (pack_lengths,
+                                                     pack_positions)
+    from sink_attention_tpu_torch.serving.divergence import noisy as _noisy
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash, packed
     from sink_attention_tpu_torch.parallel import (cross_entropy_loss_packed,
@@ -1394,7 +1479,7 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
                "flash_fwd": flash.flash_fwd_kernel,
                "flash_dq": flash.flash_dq_kernel,
                "flash_dkdv": flash.flash_dkdv_kernel}
-    lens = pack_lengths(seq_len, min_len, max_len, 0)
+    lens = list(lens or pack_lengths(seq_len, min_len, max_len, 0))
     positions = pack_positions(lens)[None].to(dev)  # int64, as loaders give
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
@@ -1422,11 +1507,13 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
         torch.cuda.reset_peak_memory_stats()
 
     _run_steps(step, steps, seq_len, kernels, cuda, report, errors)
-    _split_step(lambda: cross_entropy_loss_packed(params, cfg, batch,
-                                                  positions), opt, cuda,
-                report)
+    if split:
+        _split_step(lambda: cross_entropy_loss_packed(params, cfg, batch,
+                                                      positions), opt, cuda,
+                    report)
     if cuda:
         report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if cuda and profile:
         report["step_profile"] = profile_device(
             step, ("fwd_wgmma_kernel", "dq_wgmma_kernel",
                    "dkdv_wgmma_kernel"))
@@ -1462,7 +1549,8 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
 
     losses_k, logits_k = token_losses(recording, backward=True)
     losses_p, _ = token_losses(plain)
-    losses_c, _ = token_losses(_noisy(plain, 11))
+    ctl = control or _noisy
+    losses_c, _ = token_losses(ctl(plain, 11))
 
     _check_layer_grads(records, lambda q, k, v, aux, do, *geom, plain:
                        _packed_attn_grads(q, k, v, aux, do, positions, *geom,
@@ -1488,8 +1576,9 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
         for i, L in enumerate(lens):
             ids = batch[:, start:start + L]
             alone, _ = forward_prefill(params, cfg, ids)
-            noisy, _ = forward_prefill(params, cfg, ids, attn_impl=_noisy(
-                flash.sink_flash_attention, 100 + i))
+            noisy, _ = forward_prefill(params, cfg, ids, attn_impl=(
+                _noisy(flash.sink_flash_attention, 100 + i) if control is None
+                else control(plain_attn, 100 + i)))
             seg_rows.append({
                 "length": L,
                 "packed": 1.0 - _row_cos(logits_k[:, start:start + L], alone),
@@ -1506,33 +1595,6 @@ def train_packed(cfg, device, *, seq_len=4096, steps=3, lr=1e-2,
 # ---------------------------------------------------------------------------
 # Phase 6: continuous-batching serving
 # ---------------------------------------------------------------------------
-
-
-def engine_requests(n: int, vocab: int, seed: int = 0, prompt=(64, 1024),
-                    new=(16, 32)):
-    """``n`` requests drawn from numpy.random.default_rng(seed): prompt
-    lengths uniform in ``prompt``, max_new_tokens in ``new`` (both
-    inclusive), token ids uniform in [0, vocab). [(prompt ids, max new)]."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(prompt[0], prompt[1] + 1, n)
-    news = rng.integers(new[0], new[1] + 1, n)
-    return [(rng.integers(0, vocab, int(L)).tolist(), int(m))
-            for L, m in zip(lens, news)]
-
-
-def _kv_roundtrip(attn_impl, quant):
-    """attn_impl reading K and V through quantize -> dequantize: the
-    control that says how far the cache's rounding alone moves the
-    logits."""
-    from sink_attention_tpu_torch.cache import dequantize, quantize
-
-    def rt(x):
-        return dequantize(*quantize(x, quant), quant).to(x.dtype)
-
-    def attn(q, k, v, **kw):
-        return attn_impl(q, rt(k), rt(v), **kw)
-    return attn
 
 
 def _checked_forward(stats):
@@ -1667,6 +1729,8 @@ def serve_engine(cfg, device, *, quants=("int8", "fp8", None),
       cache, K and V read through quantize -> dequantize for int8/fp8
       (the noise control is reported for those too).
     """
+    from sink_attention_tpu_torch.serving.divergence import (
+        engine_requests, kv_roundtrip as _kv_roundtrip, noisy as _noisy)
     from sink_attention_tpu_torch.models import init_params
     from sink_attention_tpu_torch.ops import decode, flash
     from sink_attention_tpu_torch.serving import ContinuousBatchingEngine
@@ -1814,114 +1878,6 @@ def _check_launches(got, want, label, errors):
                           f"expected {n}")
 
 
-def _check_run(params, cfg, prompt, toks, seed, quant, routes):
-    """Every token of one greedy run (``toks`` after ``prompt``) against
-    the teacher: the run's own sequence teacher forced through
-    forward_prefill, K and V read as its cache holds them (through the
-    quantize -> dequantize round trip, ``_kv_roundtrip``, for a quantized
-    cache). Per token: how far it lies below the teacher's best, the
-    control (how far the row's logits move at most under bf16-sized noise
-    in the attention output, ``_noisy``, and for a quantized cache under
-    the round trip) and, where the token lies more than twice the control
-    below, how far with the run's own expert choices imposed where they
-    differ from the teacher's within 2 bf16 ulps of a router tie
-    (``routes`` = {(layer, position): bool [E]} recorded in the run;
-    ``serving.divergence.near_tie_replay``). Returns per-token lists."""
-    from sink_attention_tpu_torch.models import forward_prefill
-    from sink_attention_tpu_torch.ops import flash
-    from sink_attention_tpu_torch.serving.divergence import near_tie_replay
-
-    seq = torch.tensor([list(prompt) + list(toks[:-1])],
-                       device=params["embed"].device)
-    impls = {"noise": _noisy(flash.sink_flash_attention, seed)}
-    if quant:
-        impls["roundtrip"] = _kv_roundtrip(flash.sink_flash_attention, quant)
-    teacher = impls.get("roundtrip")      # the cache's view of K and V
-    start = len(prompt) - 1
-    with torch.inference_mode():
-        base = forward_prefill(params, cfg, seq)[0][0, start:].float()
-        rows = {name: forward_prefill(params, cfg, seq, attn_impl=impl)[0][
-            0, start:].float() for name, impl in impls.items()}
-    moved = {name: (r - base).abs().amax(-1) for name, r in rows.items()}
-    control = torch.stack(list(moved.values())).amax(0)
-    idx = torch.tensor(toks, device=base.device)[:, None]
-
-    def below(r):
-        return r.amax(-1) - r.gather(1, idx)[:, 0]
-
-    out = {"below": below(rows["roundtrip"] if quant else base),
-           "control": control,
-           **{name: m for name, m in moved.items()}}
-    out["replayed"] = out["below"]
-    if routes is not None and bool((out["below"] > 2 * control).any()):
-        _, replayed, out["summary"] = near_tie_replay(
-            params, cfg, prompt, toks[:-1], routes, teacher)
-        out["replayed"] = below(replayed)
-    return {k: (v.tolist() if torch.is_tensor(v) else v)
-            for k, v in out.items()}
-
-
-def _first_divergence(params, cfg, prompt, plain, got, seed, quant=None,
-                      routes=None):
-    """Where ``got`` first leaves ``plain`` (two greedy runs' tokens after
-    ``prompt``) and whether each run's tokens are explained. {"at": None}
-    when the two agree.
-
-    Each run's whole sequence is checked (:func:`_check_run`, with
-    ``routes[name]``, name "plain" or "spec"): the tokens it lies more
-    than twice the control below the teacher's best with its near-tie
-    expert choices imposed too (``off``). At the first divergence the
-    report has the gap between the two tokens, the control there and each
-    run's token, how far below the teacher's best and how far with its
-    near-tie choices imposed."""
-    at = next((i for i, (a, b) in enumerate(zip(plain, got)) if a != b),
-              None)
-    if at is None:
-        return {"at": None}
-    div = {"at": at}
-    for name, toks in (("plain", plain), ("spec", got)):
-        run = _check_run(params, cfg, prompt, toks, seed, quant,
-                         None if routes is None else routes[name])
-        div[name] = {
-            "token": toks[at], "below_best": run["below"][at],
-            "replayed_below": run["replayed"][at],
-            **run.get("summary", {}), "checked": len(toks),
-            "off": [{"token": t, "below": b, "replayed": r, "control": c}
-                    for t, (b, r, c) in enumerate(zip(
-                        run["below"], run["replayed"], run["control"]))
-                    if min(b, r) > 2.0 * c]}
-        if name == "plain":
-            div.update({k: run[k][at] for k in ("noise", "roundtrip")
-                        if k in run}, control=run["control"][at])
-    div["gap"] = abs(div["plain"]["below_best"] - div["spec"]["below_best"])
-    return div
-
-
-def _divergence_gate(div, label, errors):
-    """The same rule for both runs: every token must be the
-    teacher-forced choice within twice the control, as it is or with the
-    run's own near-tie expert choices imposed (a discrete choice upstream,
-    most often a router's top-k, tipped by a rounding: both greedy paths
-    are then valid). A token off the teacher's choice that no near-tie
-    choice of its run explains fails."""
-    if div["at"] is None:
-        return
-    for name in ("plain", "spec"):
-        for o in div[name]["off"]:
-            errors.append(
-                f"{label} (the runs part at token {div['at']}): the {name} "
-                f"run's token {o['token']} lies {o['below']:.4f} below the "
-                f"teacher's best, {o['replayed']:.4f} with its "
-                f"{div[name].get('imposed', 0)} near-tie expert choices "
-                f"imposed, above twice the control {o['control']:.4f}")
-
-
-def _request_routes(routes, key):
-    """{(layer, position): choice} of one request (or batch row) ``key``
-    of a recording's {(key, layer, position): choice}."""
-    return {k[1:]: c for k, c in routes.items() if k[0] == key}
-
-
 def _multi_op_check(cfg, device, dtype, max_len, prompt_len, T, seed):
     """sink_decode_attention_cached_multi against T sequential append +
     decode-kernel calls on a copy of the cache, at the model's two cache
@@ -1958,27 +1914,6 @@ def _multi_op_check(cfg, device, dtype, max_len, prompt_len, T, seed):
             rows.append({"shape": f"W={W} {store}",
                          **_attn_compare(out, torch.cat(ref, dim=2))})
     return rows
-
-
-def draft_pair(params, cfg, scale):
-    """Phase 8's speculative pair: the target's layers 1.. scaled by
-    ``scale`` in place (the pair of scripts/bench_suite.py's spec_table:
-    one copy of the weights), the draft its layer 0 with its embed, final
-    norm and lm_head (the same tensors). Returns (draft params, draft
-    cfg)."""
-    import dataclasses
-
-    with torch.no_grad():
-        for lp in params["layers"][1:]:
-            for part in lp.values():
-                for t in (part.values() if isinstance(part, dict)
-                          else [part]):
-                    t.mul_(scale)
-    dcfg = dataclasses.replace(cfg, num_layers=1,
-                               layer_types=cfg.layer_types[:1])
-    dparams = {"embed": params["embed"], "final_norm": params["final_norm"],
-               "lm_head": params["lm_head"], "layers": params["layers"][:1]}
-    return dparams, dcfg
 
 
 def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
@@ -2022,8 +1957,16 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     plain engine's, or where they first part both engines' tokens are
     explained as in 8b (for the int8 cache the teacher reads K and V
     through the cache's round trip, and the control also counts how far
-    that moves the row). The run times include the recording of the
-    target's expert choices (``serving.divergence.record_engine``).
+    that moves the row). Beside it the logit gate
+    (``serving.divergence.logit_gate``): at every generated position
+    before the two engines part, the speculative engine's verify logits
+    against the plain engine's decode logits at the same tokens, the
+    median over positions of their largest difference over a bf16-noise
+    control at most 2 (the token gate cannot see a fault that moves every
+    logit a little: a K/V scale 1% off, ``scripts/spec_divergence.py
+    --kv-scale-factor 1.01``). The run times include the recording of the
+    target's expert choices and logits
+    (``serving.divergence.record_engine``).
     """
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
@@ -2032,7 +1975,10 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                                                   greedy_generate,
                                                   speculative_generate)
     from sink_attention_tpu_torch.serving.divergence import (
-        record_engine, record_generate)
+        divergence_gate as _divergence_gate, draft_pair, engine_requests,
+        first_divergence as _first_divergence, logit_gate,
+        noisy as _noisy, record_engine, record_generate,
+        request_routes as _request_routes)
 
     dev = torch.device(device)
     cuda = dev.type == "cuda"
@@ -2147,7 +2093,7 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
     for quant in (None, "int8"):
         label = quant or str(dtype).replace("torch.", "")
         rep = report["engine"][label] = {}
-        runs, routes = {}, {}
+        runs, routes, rows = {}, {}, {}
         for name, extra in (("plain", {}), ("spec", dict(
                 draft_params=dparams, draft_cfg=dcfg,
                 num_draft_tokens=num_draft))):
@@ -2156,11 +2102,15 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                 prefill_bucket=bucket, quant=quant, **kw, **extra)
             rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
             _reset_launches()
-            (out, recorded), run_ms = timed(lambda: record_engine(eng,
-                                                                  eng.run))
+            logits = {}
+            (out, recorded), run_ms = timed(lambda: record_engine(
+                eng, eng.run, logits=logits))
             n_tok = sum(len(t) for t in out.values())
             runs[name] = [out[r] for r in rids]
             routes[name] = [_request_routes(recorded, r) for r in rids]
+            rows[name] = [{p: row for (rid, p), row in logits.items()
+                           if rid == r} for r in rids]
+            del logits
             rep[name] = {"run_ms": run_ms, "tokens": n_tok,
                          "tokens_per_s": n_tok / (run_ms / 1e3),
                          "launches": _launch_counts()}
@@ -2190,6 +2140,19 @@ def serve_spec(cfg, device, *, prompt_len=1024, beam_tokens=32,
                 routes={n: routes[n][i] for n in ("plain", "spec")})
             _divergence_gate(div, f"{label} speculative engine", errors)
             rep["vs_plain"].append(div)
+        rep["logits_vs_plain"] = [
+            logit_gate(params, cfg, p, a, b, ra, rb, 6000 + i, quant)
+            for i, ((p, _), a, b, ra, rb) in enumerate(zip(
+                reqs, runs["plain"], runs["spec"], rows["plain"],
+                rows["spec"]))]
+        for i, g in enumerate(rep["logits_vs_plain"]):
+            if not g["ok"]:
+                errors.append(
+                    f"{label} speculative engine, request {i}: its logits "
+                    f"at the plain engine's tokens lie {g['ratio']:.3f} "
+                    f"times the noise control away (median of "
+                    f"{g['compared']} positions), above 2")
+        del rows
     return report, errors
 
 
@@ -2558,6 +2521,7 @@ def _quant_checks(params, cfg, device, quantized, *, slots, prompt_len,
     choice differed are counted): the cosine of the layer's contribution
     (output less its input) against the dequantised one's. Returns a
     report; the caller gates it."""
+    from sink_attention_tpu_torch.serving.divergence import noisy as _noisy
     from sink_attention_tpu_torch.models import (forward_prefill,
                                                  make_ragged_caches,
                                                  rope_cos_sin)
@@ -3225,6 +3189,7 @@ def serve_checkpoint(cfg, device, *, n_requests=8, max_batch=4,
     admission (per prompt and stack in f), the bf16 decode once per layer
     and pool step.
     """
+    from sink_attention_tpu_torch.serving.divergence import engine_requests
     import gc
     import os
     import resource
@@ -3502,6 +3467,8 @@ def _sp_case(entry, num_sink, window, n, rank, world, device, seed):
     with the launches of the timed call, then the single-process kernel
     over the whole sequence as the reference (its output, dQ, dK, dV
     slices and d s_aux summed over the group)."""
+    from sink_attention_tpu_torch.ops.packed import (pack_lengths,
+                                                     pack_positions)
     from sink_attention_tpu_torch import parallel
     from sink_attention_tpu_torch.ops import (sink_flash_attention,
                                               sink_flash_attention_packed)
@@ -3703,6 +3670,7 @@ def sp_phase(device, *, n=SP_N, worlds=(1, 2, 4), cases=SP_CASES):
 MESH_TRAIN = [("fsdp dp2 x tp2", {"data": 2, "seq": 1, "model": 2}, True),
               ("sp2 x tp2", {"data": 1, "seq": 2, "model": 2}, False)]
 MESH_PIPE = {"pipe": 2, "model": 2}
+MESH_SERVE_LAYERS = 12  # 12a's depth in the full script (of 24)
 PIPE_MICRO = 2
 MESH_SERVE = {4: [(4, None)], 2: [(2, None), (2, "int8")]}  # world: (tp, KV)
 NAMED = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
@@ -3756,6 +3724,7 @@ def _serve_reference(cfg, dev, batch, prompt_len, new_tokens, dtype, tmp):
     tokens over a bf16 and an int8 KV cache, and the prefill logits
     (saved to ``tmp`` for the ranks) with a ``_noisy`` control's mean row
     cosine to them."""
+    from sink_attention_tpu_torch.serving.divergence import noisy as _noisy
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
     from sink_attention_tpu_torch.serving import greedy_generate
@@ -3787,6 +3756,7 @@ def _train_reference(cfg, dev, rows, seq_len, dtype, tmp):
     with bf16-sized noise in every attention output: 1 - cosine
     (``control``) and the relative error (``control_rel``) of each to the
     reference."""
+    from sink_attention_tpu_torch.serving.divergence import noisy as _noisy
     from sink_attention_tpu_torch.models import forward_prefill, init_params
     from sink_attention_tpu_torch.ops import flash
 
@@ -4279,6 +4249,9 @@ def mesh_phase(device, *, serve_cfg=None, train_cfg=None, batch=4,
     fix-ups, which the cosines cannot); 12b with FSDP: the parameter and
     optimizer-state bytes about 1/dp of the TP blocks'; every value
     finite."""
+    from sink_attention_tpu_torch.serving.divergence import (
+        divergence_gate as _divergence_gate,
+        first_divergence as _first_divergence)
     import tempfile
     import torch.multiprocessing as mp
 
@@ -4360,13 +4333,121 @@ def mesh_phase(device, *, serve_cfg=None, train_cfg=None, batch=4,
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: every head_dim up to 128 and fp32 inputs, on H2O-Danube-1.8B
+# ---------------------------------------------------------------------------
+
+# H2O-Danube-1.8B's published widths (the H2O-Danube-1.8B Technical Report,
+# arXiv:2401.16818, Table 1; the h2oai/h2o-danube-1.8b-base config):
+# Mistral family, so every layer slides over a window of 4096; head_dim
+# 2560 / 32 = 80.
+DANUBE_1_8B = dict(
+    model_type="mistral", hidden_size=2560, num_hidden_layers=24,
+    num_attention_heads=32, num_key_value_heads=8, intermediate_size=6912,
+    vocab_size=32000, sliding_window=4096, max_position_embeddings=16384,
+    rope_theta=10000.0, rms_norm_eps=1e-5)
+DANUBE_RUNS = (("bfloat16", torch.bfloat16, None),
+               ("float32", torch.float32, None),
+               ("bfloat16 int8 KV", torch.bfloat16, "int8"))
 
 
-# the wgmma kernel instances (one per head dim) each source must hold
-WGMMA_INSTANCES = {"flash_fwd": {"fwd": 2}, "flash_bwd": {"dq": 2, "dkdv": 2},
-                   "packed": {"fwd": 2, "dq": 2, "dkdv": 2},
+def danube_phase(device, *, hf=DANUBE_1_8B, batch=2, prompt_len=8192,
+                 new_tokens=16, train_len=8192, segments=(4096, 4096)):
+    """Phase 13: the model of ``hf`` (``ModelConfig.from_hf_config``) at
+    its full width and depth, random weights from a generator seeded 0.
+
+    13a. serve (phase 3's ``serve``): ``batch`` prompts of ``prompt_len``
+    tokens (twice the window: the gap is really skipped), ``new_tokens``
+    greedy tokens through ``serving.greedy_generate``, in bf16, in fp32
+    and in bf16 over an int8 KV cache; launches 1 forward per layer and 1
+    decode of the run's branch per layer and step; every layer's prefill
+    and decode attention kernel against plain; the logits against plain
+    attention and teacher forcing beside a control (bf16-sized noise; in
+    fp32 one bf16 rounding of the operands, :func:`bf16_operands`; over
+    int8 the K/V round trip).
+
+    13b. train in fp32, JAX's default dtype (phase 4's ``train``, phase
+    5's ``train_packed``): one SGD step with remat over ``train_len``
+    tokens (launches 2 forward, 1 dQ, 1 dK/dV per layer) and one on a pack
+    of ``segments`` (1 packed forward, dQ, dK/dV per layer, no unpacked
+    launch); every layer's attention gradients kernel against plain; the
+    per-token losses and named gradients against plain attention beside
+    the fp32 control. Returns (report, errors); no step is profiled or
+    split into its parts (phases 3-5 do that).
+    """
+    from sink_attention_tpu_torch.models import ModelConfig
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = ModelConfig.from_hf_config(hf)
+    L = cfg.num_layers
+    report = {"config": {k: getattr(cfg, k) for k in (
+        "hidden_size", "num_layers", "num_heads", "num_kv_heads", "head_dim",
+        "intermediate_size", "vocab_size", "sliding_window")}}
+    errors = []
+
+    def run(label, fn, want):
+        t0 = time.perf_counter()
+        rep, err = fn()
+        rep["seconds"] = time.perf_counter() - t0
+        errors.extend(f"phase 13 {label}: {e}" for e in err)
+        if cuda:
+            _check_launches(rep["launches"], want, f"phase 13 {label}",
+                            errors)
+        report[label] = rep
+        log(f"phase 13 {label}: {rep['seconds']:.1f} s: " + json.dumps(rep))
+        if cuda:
+            torch.cuda.empty_cache()
+
+    for label, dtype, quant in DANUBE_RUNS:
+        want = {"flash_fwd": L, "decode": 0 if quant else L * (
+            new_tokens - 1)}
+        if quant:
+            want[f"decode_{quant}"] = L * (new_tokens - 1)
+        run(f"serve {label}", lambda: serve(
+            cfg, dev, batch=batch, prompt_len=prompt_len,
+            new_tokens=new_tokens, dtype=dtype, quant=quant, profile=False,
+            control=bf16_operands if dtype == torch.float32 else None), want)
+    fp32 = dict(dtype=torch.float32, control=bf16_operands, profile=False,
+                split=False)
+    run("train float32", lambda: train(cfg, dev, seq_len=train_len, steps=1,
+                                       **fp32),
+        {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkdv": L})
+    run("train packed float32", lambda: train_packed(
+        cfg, dev, seq_len=sum(segments), steps=1, lens=segments, **fp32),
+        {"packed_fwd": L, "packed_dq": L, "packed_dkdv": L, "flash_fwd": 0,
+         "flash_dq": 0, "flash_dkdv": 0})
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
+
+
+# the wgmma kernel instances each source must hold: one per instance head
+# dim (64, 128) and element types (bf16, fp16, fp32 read as bf16)
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 6}, "flash_bwd": {"dq": 6, "dkdv": 6},
+                   "packed": {"fwd": 6, "dq": 6, "dkdv": 6},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
+
+
+def kernel_coverage(name):
+    """(head dims, dtypes) that the kernels line's row ``name`` launched in
+    this process, from its wrapper's ``coverage``."""
+    from sink_attention_tpu_torch.ops import ablation, decode, flash, packed
+    dec = decode.decode_kernel.coverage
+    cover = {
+        "flash_fwd": flash.flash_fwd_kernel.coverage,
+        "flash_dq": flash.flash_dq_kernel.coverage,
+        "flash_dkdv": flash.flash_dkdv_kernel.coverage,
+        "packed_fwd": packed.packed_fwd_kernel.coverage,
+        "packed_dq": packed.packed_dq_kernel.coverage,
+        "packed_dkdv": packed.packed_dkdv_kernel.coverage,
+        "decode": {c for c in dec if c[1] not in ("int8", "fp8")},
+        "decode_int8": {c for c in dec if c[1] == "int8"},
+        "decode_fp8": {c for c in dec if c[1] == "fp8"},
+        "ablation": ablation.ablation_kernel.coverage,
+        "mask_stage": ablation.ablation_kernel.coverage}[name]
+    return sorted({d for d, _ in cover}), sorted({t for _, t in cover})
 
 
 def spill_errors(report):
@@ -4414,6 +4495,7 @@ def main() -> int:
         return 1
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4665,11 +4747,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. tensor, pipeline and FSDP parallelism over a device mesh, worlds
-    # of 4 and 2 gloo ranks on the one card
+    # of 4 and 2 gloo ranks on the one card; 12a's TP serving at 12 of
+    # gpt-oss-20b's 24 layers (its depth cut to keep the script inside its
+    # limit once phase 13 came)
     t0 = time.perf_counter()
-    mesh_report, mesh_launches, mesh_err = mesh_phase(dev)
+    mesh_report, mesh_launches, mesh_err = mesh_phase(
+        dev, serve_cfg=ModelConfig.gpt_oss_20b(num_layers=MESH_SERVE_LAYERS))
     errors += mesh_err
-    log(f"mesh parallelism gpt-oss-20b (12a TP 4 and 2 serving, 24 layers, "
+    log(f"mesh parallelism gpt-oss-20b (12a TP 4 and 2 serving, "
+        f"{MESH_SERVE_LAYERS} layers, "
         f"4 x 1024 prompt, 16 new, bf16 and int8 KV; 12b the mesh step, 4 "
         f"layers, 2 x 2048 tokens, FSDP dp2 x tp2 and sp2 x tp2; 12c the "
         f"pipeline pipe2 x tp2, S=2 M=2; gloo ranks on one card), "
@@ -4681,10 +4767,41 @@ def main() -> int:
         if n == 0:
             errors.append(f"{name} launched no time in phase 12")
 
+    torch.cuda.empty_cache()
+
+    # 13. every head_dim up to 128 and fp32 inputs: H2O-Danube-1.8B (D=80)
+    # at full width, served in bf16, fp32 and over int8 KV, trained in fp32
+    t0 = time.perf_counter()
+    dreport, derr = danube_phase(dev)
+    errors += derr
+    log(f"phase 13 (H2O-Danube-1.8B, 24 layers, hidden 2560, 32/8 heads, "
+        f"head_dim 80, W=4096; serving 2 x 8192 + 16 new in bf16, fp32 and "
+        f"int8 KV; training 1 x 8192 and a pack of 2 x 4096 in fp32): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for row in kernels:
+        n = sum(rep["launches"].get(row["name"], 0)
+                for rep in dreport.values() if "launches" in rep)
+        if row["name"] in ("flash_fwd", "flash_dq", "flash_dkdv", "decode",
+                           "decode_int8", "packed_fwd", "packed_dq",
+                           "packed_dkdv"):
+            row["launches_danube"] = n
+            if n == 0:
+                errors.append(f"{row['name']} launched no time in phase 13")
+        danube = kern.get(f"{row['name']}_danube")
+        if danube:
+            row["danube"] = [{k: r[k] for k in (
+                "shape", "max_abs_err", "exact_err", "exact_rel_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms") if k in r} for r in danube]
+    for row in kernels:
+        row["head_dims"], row["dtypes"] = kernel_coverage(row["name"])
+
     if errors:
         for e in errors:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+        f"build to here")
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

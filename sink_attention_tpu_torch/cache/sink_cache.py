@@ -49,17 +49,21 @@ def _check_quant(quant: Optional[str]) -> None:
                          f"{quant!r}")
 
 
-def quantize(x: torch.Tensor, quant: str):
-    """Symmetric per-slice quantization along the last axis (head_dim).
+def quantize(x: torch.Tensor, quant: str, axis: int = -1):
+    """Symmetric per-slice quantization along ``axis`` (usually the last,
+    head_dim).
 
     Returns (codes int8 [..., D], scale fp32 [...]) with
     x ~ dequantize(codes, scale). int8: the int values; fp8: e4m3 bit
     patterns in int8, subnormal codes (magnitude bits < 8, below 2^-6 of
-    the row's scale) flushed to 0, as in the JAX package.
+    the row's scale) flushed to 0, as in the JAX package. As there, the
+    scale broadcasts back over the last axis (``scale[..., None]``), so an
+    ``axis`` other than the last gives JAX's result, which is well formed
+    only where that broadcast is.
     """
     qmax = QUANT_MAX[quant]
     xf = x.float()
-    amax = xf.abs().amax(dim=-1)
+    amax = xf.abs().amax(dim=axis)
     # divided by a tensor: on the card PyTorch divides by a Python number
     # as a product with its reciprocal, one bit off JAX's (and the CPU's)
     # quotient

@@ -135,21 +135,91 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-KERNEL_HEAD_DIMS = (64, 128)
+# The largest instance's head dim; a D = 256 tile needs new tiles.
+KERNEL_MAX_HEAD_DIM = 128
+# The attention kernels' input types and their dtype codes (the C entry
+# points' `dtype`, hopper.cuh's DtypeCode): fp32 is rounded to bf16 on the
+# way in and written as fp32 (the TPU's matrix unit reads fp32 at bf16
+# precision by default).
+KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def kernel_head_dim(d: int) -> int:
+    """The head dim D_i of the kernel instance that runs head dim ``d``:
+    the smallest of 64 and 128 that holds it. The instance's tiles are
+    D_i wide; the columns past ``d`` read as zeros and are not written.
+    Host tables keyed on a head dim (the dQ tile) key on D_i. Raises
+    ValueError for d > 128."""
+    d = int(d)
+    if not 0 < d <= KERNEL_MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} not supported by the CUDA kernels: "
+                         f"they take 1 <= head_dim <= {KERNEL_MAX_HEAD_DIM}")
+    return 64 if d <= 64 else KERNEL_MAX_HEAD_DIM
+
+
+def padded_head_dim(d: int, elem_bytes: int = 2) -> int:
+    """``d`` rounded up to whole 16-byte rows of ``elem_bytes`` elements:
+    TMA's global strides and the decode kernel's cp.async rows are
+    multiples of 16 bytes (8 bf16/fp16 elements, 16 int8 codes, 4 fp32)."""
+    per = 16 // elem_bytes
+    return -(-int(d) // per) * per
+
+
+def pad_head_dim(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """``t`` with its last dim zero-padded to ``d_pad`` (itself if equal)."""
+    if t.shape[-1] == d_pad:
+        return t
+    return torch.nn.functional.pad(t, (0, d_pad - t.shape[-1]))
 
 
 def check_attention_inputs(q, k, v, s_aux) -> None:
-    """What both attention kernels take: bf16 q/k/v, head_dim 64 or 128,
-    every input on one device."""
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+    """What the attention kernels take: q/k/v of one type among bf16, fp16
+    and fp32, head_dim up to 128, every input on one device."""
+    if (q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(
-            f"the CUDA attention kernels take bf16 q/k/v, got {q.dtype}, "
-            f"{k.dtype}, {v.dtype}")
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not supported by the CUDA "
-                         f"kernels (supported: {KERNEL_HEAD_DIMS})")
+            f"the CUDA attention kernels take q/k/v of one type among bf16, "
+            f"fp16 and fp32, got {q.dtype}, {k.dtype}, {v.dtype}")
+    kernel_head_dim(q.shape[-1])
     devs = {t.device for t in (q, k, v)}
     if s_aux is not None:
         devs.add(s_aux.device)
     if len(devs) != 1:
         raise ValueError(f"inputs on different devices: {devs}")
+
+
+def kernel_operands(*ts: torch.Tensor):
+    """(operands, dtype code, padded head dim) of the attention kernels'
+    16-bit inputs: each tensor rounded to bf16 if fp32, its head dim
+    zero-padded to a multiple of 8 (:func:`padded_head_dim`), contiguous
+    and 16-byte aligned. The padding is a copy, as the JAX package's
+    ``_prep`` pads outside its kernels; the caller counts it (its
+    ``padded_copies``) and slices its outputs back to the head dim."""
+    code = KERNEL_DTYPES[ts[0].dtype]
+    d_pad = padded_head_dim(ts[0].shape[-1])
+    ops = []
+    for t in ts:
+        if t.dtype == torch.float32:
+            t = t.to(torch.bfloat16)
+        ops.append(aligned(pad_head_dim(t, d_pad)))
+    return ops, code, d_pad
+
+
+def note_launch(wrapper, head_dim: int, dtype: torch.dtype,
+                padded: bool = False) -> None:
+    """Count one launch on ``wrapper``: ``launches``, the (head_dim, dtype)
+    pairs it has run (``coverage``, kept for the process) and, where the
+    operands were padded to whole 16-byte rows, ``padded_copies``."""
+    wrapper.launches += 1
+    wrapper.coverage.add((int(head_dim), str(dtype).replace("torch.", "")))
+    if padded:
+        wrapper.padded_copies += 1
+
+
+def counters(wrapper):
+    """Give ``wrapper`` its zeroed ``launches`` and ``padded_copies`` and
+    an empty ``coverage``; returns it."""
+    wrapper.launches = 0
+    wrapper.padded_copies = 0
+    wrapper.coverage = set()
+    return wrapper

@@ -217,6 +217,12 @@ def ablation_kernel(q, k, v, stage: str, num_sink: int = 4,
     of 128. ``ablation_kernel.launches`` counts ``sink_ablation_bf16``,
     ``ablation_kernel.launches_mask_stage`` ``sink_mask_stage_bf16``."""
     _build.check_attention_inputs(q, k, v, None)
+    # a measuring script's headline shapes: bf16 at head_dim 64 or 128
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the ablation kernels take bf16, got {q.dtype}")
+    if q.shape[-1] not in (64, 128):
+        raise ValueError(f"the ablation kernels take head_dim 64 or 128, "
+                         f"got {q.shape[-1]}")
     _check(q, k, v, stage, window_size)
     if not q.is_cuda:
         raise ValueError("the CUDA ablation kernels take CUDA tensors")
@@ -240,11 +246,13 @@ def ablation_kernel(q, k, v, stage: str, num_sink: int = 4,
         ablation_kernel.launches_mask_stage += 1
     else:
         ablation_kernel.launches += 1
+    ablation_kernel.coverage.add((D, "bfloat16"))
     return out
 
 
 ablation_kernel.launches = 0
 ablation_kernel.launches_mask_stage = 0
+ablation_kernel.coverage = set()  # (head_dim, dtype) pairs run
 
 
 def ablation_attention(q, k, v, stage: str, num_sink: int = 4,

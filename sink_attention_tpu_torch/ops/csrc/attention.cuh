@@ -12,10 +12,14 @@
 //     P  = exp(scale * Q K^T - LSE)  on valid cells, 0 elsewhere
 //     dP = dO V^T,   dS = P * (dP - delta)
 //     dQ = scale * dS K,   dV = P^T dO,   dK = scale * dS^T Q
-// Query head h reads KV head h / (H_q / H_kv). D must be 64 or 128. The
-// forward is hopper.cuh's wgmma/TMA kernel, dQ hopper_dq.cuh's and dK/dV
-// hopper_bwd.cuh's, each written once over both policies (the forward also
-// over ablation.cu's softmax stages).
+// Query head h reads KV head h / (H_q / H_kv). Any head dim D up to 128
+// with D % 8 == 0 runs, in the instance of D_i = 64 or 128 (the smallest
+// D_i >= D; columns past D read as zeros and are not written); the host
+// pads any other D to the next multiple of 8. Inputs are bf16 or fp16
+// (fp32 arrives rounded to bf16 by the host and is written as fp32; see
+// hopper.cuh's Io types). The forward is hopper.cuh's wgmma/TMA kernel, dQ
+// hopper_dq.cuh's and dK/dV hopper_bwd.cuh's, each written once over both
+// policies (the forward also over ablation.cu's softmax stages).
 //
 // Two policies: SinkWindowMask below (global positions with chunk offsets;
 // flash_fwd.cu, flash_bwd.cu, ablation.cu) and PackedMask (segments of a
@@ -27,6 +31,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 namespace sinkattn {
@@ -51,19 +56,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// D += A(16x16 bf16, row) * B(16x8 bf16, col), fp32 accumulate.
+// D += A(16x16, row) * B(16x8, col), fp32 accumulate; A and B bf16, or
+// fp16 where F16.
+#define SINK_MMA16816(TY)                                                  \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 " \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"  \
+               : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])            \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),      \
+                 "r"(b1))
+template <bool F16 = false>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (F16)
+    SINK_MMA16816("f16");
+  else
+    SINK_MMA16816("bf16");
 }
+#undef SINK_MMA16816
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);  // .x is the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to a 16-bit pair (low half first): fp16 where F16,
+// else bf16.
+template <bool F16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (F16)
+    return pack_f16(lo, hi);
+  else
+    return pack_bf16(lo, hi);
 }
 
 // The visible keys of one query row, in local key slots: the window run

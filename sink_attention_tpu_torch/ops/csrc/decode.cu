@@ -2,12 +2,13 @@
 //
 // Replaces the Pallas TPU kernel `_decode_kernel` of
 // sink_attention_tpu/ops/decode.py (launched by `_decode_call`), in its
-// three storage branches: bf16 (`sink_decode_bf16`), int8 codes
-// (`sink_decode_int8`) and float8_e4m3fn codes held in int8
-// (`sink_decode_fp8`), the codes with one fp32 scale per token and KV
-// head. One query token per sequence attends the cache buffer
-// [B, H_kv, S_total, D] in place: slots [0, sink_cap) hold the sink tokens,
-// slots [sink_cap, sink_cap + window) the circular window. A slot is live iff
+// storage branches: bf16 (`sink_decode_bf16`), fp16 (`sink_decode_f16`),
+// fp32 (`sink_decode_f32`), int8 codes (`sink_decode_int8`) and
+// float8_e4m3fn codes held in int8 (`sink_decode_fp8`), the codes with one
+// fp32 scale per token and KV head. One query token per sequence attends
+// the cache buffer [B, H_kv, S_total, D] in place: slots [0, sink_cap)
+// hold the sink tokens, slots [sink_cap, sink_cap + window) the circular
+// window. A slot is live iff
 //     slot < sink_len, or
 //     0 <= sw < window and age(sw) < window_len, with sw = slot - sink_cap,
 //     age(sw) = (write_pos - 1 - sw) mod window   (the circular-age test).
@@ -63,8 +64,19 @@
 // value), score = (q . codes_k) * k_scale in fp32, and P V takes
 // p * v_scale rounded to bf16 (the row sum takes p alone in fp32). The
 // bf16 rounding of P, as in the prefill kernels, costs up to 2^-9 of an
-// output (DECODE_TOL 2e-2 on the bf16 output).
-// D must be 64 or 128.
+// output (DECODE_TOL 2e-2 on the bf16 output). fp16 storage is the bf16
+// branch with fp16 mma.sync and P rounded to fp16 (q and the output fp16).
+// fp32 storage computes in fp32 on the CUDA cores (F32Warp below: as the
+// JAX kernel pins Precision.HIGHEST for a non-bf16 cache): one buffer of
+// 128 slots (two would not fit beside q), a lane per slot for S = q . k
+// (float4 rows, conflict-free at the padded row stride) and a lane per
+// column for O += p v, q and the output fp32.
+// Head dims: any D <= 128 whose rows are whole 16 bytes (D % 8 for
+// bf16/fp16, D % 16 for the codes, D % 4 for fp32; the host pads any other
+// D), run by the instance of D_i = 64 or 128 with the columns past D
+// zero-filled by cp.async (src-size 0) and not written: at D = 80 the
+// tensor cores do 128 / 80 = 1.6x the products, on a kernel bound by its
+// launch and its bytes.
 
 #include <cooperative_groups.h>
 
@@ -81,6 +93,7 @@ using sinkattn::cp_async16;
 using sinkattn::cp_async_commit;
 using sinkattn::cp_async_wait;
 using sinkattn::mma16816;
+using sinkattn::pack2;
 using sinkattn::pack_bf16;
 
 constexpr int TILE = 128;      // slots per tile
@@ -103,12 +116,14 @@ __device__ __forceinline__ uint16_t bf16_bits(float x) {
   return *reinterpret_cast<uint16_t*>(&b);
 }
 
-// The storage types: `pair` gives elements p[0], p[1] of a row as a bf16x2
-// (low half first), `one` element p[0] as bf16 bits; SCALED types carry
-// per-token scales. The conversions are exact.
+// The storage types: `pair` gives elements p[0], p[1] of a row as a 16-bit
+// pair (low half first; bf16, or fp16 where F16), `one` element p[0] as
+// 16-bit bits; SCALED types carry per-token scales; the conversions are
+// exact. q and the output are fp16 where F16, fp32 where SCALAR (Fp32: no
+// mma.sync, F32Warp's fp32 arithmetic), else bf16.
 struct Bf16 {
   static constexpr int BYTES = 2;
-  static constexpr bool SCALED = false;
+  static constexpr bool SCALED = false, F16 = false, SCALAR = false;
   __device__ __forceinline__ static uint32_t pair(const uint8_t* p) {
     return *reinterpret_cast<const uint32_t*>(p);
   }
@@ -117,9 +132,18 @@ struct Bf16 {
   }
 };
 
+struct Fp16 : Bf16 {
+  static constexpr bool F16 = true;
+};
+
+struct Fp32 {
+  static constexpr int BYTES = 4;
+  static constexpr bool SCALED = false, SCALAR = true;
+};
+
 struct Int8 {
   static constexpr int BYTES = 1;
-  static constexpr bool SCALED = true;
+  static constexpr bool SCALED = true, F16 = false, SCALAR = false;
   __device__ __forceinline__ static uint32_t pair(const uint8_t* p) {
     const uint32_t w = *reinterpret_cast<const uint16_t*>(p);
     return pack_bf16((float)(int8_t)(w & 0xff), (float)(int8_t)(w >> 8));
@@ -131,7 +155,7 @@ struct Int8 {
 
 struct Fp8 {
   static constexpr int BYTES = 1;
-  static constexpr bool SCALED = true;
+  static constexpr bool SCALED = true, F16 = false, SCALAR = false;
   __device__ __forceinline__ static uint32_t pair(const uint8_t* p) {
     const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
         *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3);
@@ -162,30 +186,159 @@ __host__ __device__ constexpr size_t buf_bytes() {
          (T::SCALED ? 2 * TILE * sizeof(float) : 0);
 }
 
-// Two buffers; after the tile loop the partials alias them: per warp
-// [NWARPS][16][D] + m, l [NWARPS][16], then the CTA's [ROWS][D] + m, l
-// [ROWS].
+// Tile buffers: two (the next tile streams in while one is computed), one
+// for fp32 storage (two do not fit at D = 128).
+template <class T>
+__host__ __device__ constexpr int n_bufs() {
+  return T::SCALAR ? 1 : 2;
+}
+
+// The buffers, then (fp32 storage) the CTA's q rows [ROWS][D] fp32; after
+// the tile loop the partials alias them: per warp [NWARPS][16][D] + m, l
+// [NWARPS][16], then the CTA's [ROWS][D] + m, l [ROWS].
 template <class T, int D>
 constexpr size_t smem_bytes() {
-  constexpr size_t tiles = 2 * buf_bytes<T, D>();
+  constexpr size_t tiles = n_bufs<T>() * buf_bytes<T, D>() +
+                           (T::SCALAR ? (size_t)ROWS * D * sizeof(float) : 0);
   constexpr size_t partials =
       (NWARPS * 16 * ((size_t)D + 2) + ROWS * ((size_t)D + 2)) *
       sizeof(float);
   return tiles > partials ? tiles : partials;
 }
 
+// The fp32 storage's warp step: the warp (m-tile of 16 query rows, slot
+// slice of SW = TILE / SL slots) computes in fp32 on the CUDA cores. S: a
+// lane per slot (NS = SW / 32 slots a lane), q rows read from shared
+// memory by broadcast, K rows as float4 (row stride D + 4 floats: a
+// quarter warp's 8 rows fall on distinct banks); the online softmax per
+// row over the lanes (exp2 domain); O += p v: a lane per column (D / 32
+// columns a lane), each slot's p taken from its lane by a shuffle.
+template <int D, int SL>
+struct F32Warp {
+  static constexpr int SW = TILE / SL;
+  static constexpr int NS = SW / 32;  // slots a lane
+  static constexpr int NC = D / 32;   // output columns a lane
+  static constexpr int ROWF = D + 4;  // padded smem row (floats)
+  float m[16], l[16], o[16][NC];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[r][c] = 0.f;
+    }
+  }
+
+  // One tile of the slice: K rows kb, V rows vb (its first slot), q rows
+  // qs [16][D]; live(i) says whether slot i of the slice is live.
+  template <class Live>
+  __device__ __forceinline__ void tile(const float* kb, const float* vb,
+                                       const float* qs, int lane,
+                                       float scale_log2, const Live& live) {
+    float s[16][NS];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+#pragma unroll
+      for (int j = 0; j < NS; ++j) s[r][j] = 0.f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < D / 4; ++d4) {
+      float4 kv[NS];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(
+            kb + (j * 32 + lane) * ROWF + d4 * 4);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(qs + r * D + d4 * 4);
+#pragma unroll
+        for (int j = 0; j < NS; ++j)
+          s[r][j] = fmaf(qv.w, kv[j].w,
+                         fmaf(qv.z, kv[j].z,
+                              fmaf(qv.y, kv[j].y,
+                                   fmaf(qv.x, kv[j].x, s[r][j]))));
+      }
+    }
+    bool ok[NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) ok[j] = live(j * 32 + lane);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        s[r][j] = ok[j] ? s[r][j] * scale_log2 : -INFINITY;
+        mx = fmaxf(mx, s[r][j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[r], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - m_use);  // m = -inf: o, l are 0
+      m[r] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const float p = s[r][j] == -INFINITY ? 0.f : exp2f(s[r][j] - m_use);
+        s[r][j] = p;
+        rs += p;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rs += __shfl_xor_sync(0xffffffffu, rs, off);
+      l[r] = l[r] * alpha + rs;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) o[r][c] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      for (int sl = 0; sl < 32; ++sl) {
+        const float* vr = vb + (j * 32 + sl) * ROWF + lane;
+        float v[NC];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) v[c] = vr[c * 32];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float p = __shfl_sync(0xffffffffu, s[r][j], sl);
+#pragma unroll
+          for (int c = 0; c < NC; ++c) o[r][c] = fmaf(p, v[c], o[r][c]);
+        }
+      }
+    }
+  }
+
+  // The warp's partial: O [16][D] at pw, m and l of its rows at pm, pl.
+  __device__ __forceinline__ void write(float* pw, float* pm, float* pl,
+                                        int lane) const {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) pw[r * D + c * 32 + lane] = o[r][c];
+      if (lane == 0) {
+        pm[r] = m[r];
+        pl[r] = l[r];
+      }
+    }
+  }
+};
+
+// D is the instance's head dim, Dt <= D the cache's and q's (their row
+// length): the columns past Dt are zero-filled in shared memory and not
+// written.
 template <class T, int D, int SL>
 __global__ void __launch_bounds__(NTHREADS)
-    decode_kernel(const uint16_t* __restrict__ q,
-                  const uint8_t* __restrict__ k,
+    decode_kernel(const void* __restrict__ q, const uint8_t* __restrict__ k,
                   const uint8_t* __restrict__ v,
                   const float* __restrict__ k_scale,
                   const float* __restrict__ v_scale, State st,
-                  const float* __restrict__ s_aux, uint16_t* __restrict__ out,
+                  const float* __restrict__ s_aux, void* __restrict__ out,
                   int H_kv, int G, int n_pieces, int S_total, int sink_cap,
-                  int window, float scale_log2) {
+                  int window, int Dt, float scale_log2) {
   constexpr int ROWB = D * T::BYTES + 16;  // padded smem row (bytes)
-  constexpr int VECS = D * T::BYTES / 16;  // 16-byte copies per row
+  constexpr int VECS = D * T::BYTES / 16;  // 16-byte copies per smem row
   constexpr int SW = TILE / SL;            // slots per warp slice
   constexpr int NT = SW / 8;               // n-tiles of S
   constexpr int KT = D / 16;               // k-steps of S
@@ -205,6 +358,9 @@ __global__ void __launch_bounds__(NTHREADS)
   float* co = pl + NWARPS * 16;                // [ROWS][D]: the CTA's
   float* cm = co + ROWS * D;                   // [ROWS]
   float* cl = cm + ROWS;                       // [ROWS]
+  // fp32 storage: the CTA's q rows [ROWS][D], after the one buffer
+  float* q_sm = reinterpret_cast<float*>(smem + buf_bytes<T, D>());
+  const int vecs = Dt * T::BYTES / 16;  // 16-byte copies of a cache row
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -240,8 +396,10 @@ __global__ void __launch_bounds__(NTHREADS)
     uint8_t* vd = vbuf(bb);
     for (int c = tid; c < TILE * VECS; c += NTHREADS) {
       const int r = c / VECS, cc = c - (c / VECS) * VECS;
-      const bool ok = slot0 + r < hwm;  // zeros past the live range
-      const size_t off = (head + (ok ? slot0 + r : 0)) * D * T::BYTES + cc * 16;
+      // zeros past the live range and past the row's Dt columns
+      const bool ok = slot0 + r < hwm && cc < vecs;
+      const size_t off =
+          (head + (ok ? slot0 + r : 0)) * Dt * T::BYTES + (ok ? cc * 16 : 0);
       cp_async16(kd + r * ROWB + cc * 16, k + off, ok);
       cp_async16(vd + r * ROWB + cc * 16, v + off, ok);
     }
@@ -264,20 +422,42 @@ __global__ void __launch_bounds__(NTHREADS)
   if (tile < n_tiles) load(tile, 0);
   cp_async_commit();
 
-  // This warp's A fragments of q (rows past the group's are zero), read
-  // while the first tile is in flight.
+  // This warp's A fragments of q (rows past the group's and columns past
+  // Dt are zero), read while the first tile is in flight; for fp32
+  // storage, the CTA's q rows into shared memory (visible after the loop's
+  // first barrier).
   const int r0 = mt * 16 + g;  // local rows r0, r0 + 8
-  const uint16_t* qr = q + ((size_t)bkv * G + row_lo + r0) * D;
-  const bool ok0 = r0 < R, ok1 = r0 + 8 < R;
-  uint32_t qf[KT][4];
+  constexpr int KQ = T::SCALAR ? 1 : KT;
+  uint32_t qf[KQ][4];
+  if constexpr (T::SCALAR) {
+    const float* qg = static_cast<const float*>(q) + (size_t)bkv * G * Dt;
+    for (int i = tid; i < ROWS * D4; i += NTHREADS) {
+      const int r = i / D4, c4 = i - (i / D4) * D4;
+      *reinterpret_cast<float4*>(q_sm + r * D + c4 * 4) =
+          r < R && c4 * 4 < Dt
+              ? *reinterpret_cast<const float4*>(
+                    qg + (size_t)(row_lo + r) * Dt + c4 * 4)
+              : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    const uint16_t* qr =
+        static_cast<const uint16_t*>(q) + ((size_t)bkv * G + row_lo + r0) * Dt;
+    const bool ok0 = r0 < R, ok1 = r0 + 8 < R;
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) {
-    const int c = kk * 16 + t4 * 2;
-    qf[kk][0] = ok0 ? *reinterpret_cast<const uint32_t*>(qr + c) : 0u;
-    qf[kk][1] = ok1 ? *reinterpret_cast<const uint32_t*>(qr + 8 * D + c) : 0u;
-    qf[kk][2] = ok0 ? *reinterpret_cast<const uint32_t*>(qr + c + 8) : 0u;
-    qf[kk][3] =
-        ok1 ? *reinterpret_cast<const uint32_t*>(qr + 8 * D + c + 8) : 0u;
+    for (int kk = 0; kk < KT; ++kk) {
+      const int c = kk * 16 + t4 * 2;
+      const bool lo = c < Dt, hi = c + 8 < Dt;
+      qf[kk][0] =
+          ok0 && lo ? *reinterpret_cast<const uint32_t*>(qr + c) : 0u;
+      qf[kk][1] = ok1 && lo
+                      ? *reinterpret_cast<const uint32_t*>(qr + 8 * Dt + c)
+                      : 0u;
+      qf[kk][2] =
+          ok0 && hi ? *reinterpret_cast<const uint32_t*>(qr + c + 8) : 0u;
+      qf[kk][3] = ok1 && hi ? *reinterpret_cast<const uint32_t*>(
+                                  qr + 8 * Dt + c + 8)
+                            : 0u;
+    }
   }
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
@@ -286,15 +466,29 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+  F32Warp<D, SL> fw;
+  if constexpr (T::SCALAR) fw.init();
 
-  for (int bb = 0; tile < n_tiles; tile += n_ranks, bb ^= 1) {
-    // The next tile of this CTA streams in while this one is computed.
-    if (tile + n_ranks < n_tiles) load(tile + n_ranks, bb ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's group
+  for (int bb = 0; tile < n_tiles; tile += n_ranks, bb ^= n_bufs<T>() - 1) {
+    if constexpr (n_bufs<T>() == 1) {
+      if (tile != rank) load(tile, 0);  // the first is already in flight
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      // The next tile of this CTA streams in while this one is computed.
+      if (tile + n_ranks < n_tiles) load(tile + n_ranks, bb ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile's group
+    }
     __syncthreads();
     const int c0 = slice * SW;  // the slice's first slot in the tile
-    if (has_rows && tile * TILE + c0 < hwm) {  // rows, and live slots
+    if constexpr (T::SCALAR) {
+      if (has_rows && tile * TILE + c0 < hwm)
+        fw.tile(reinterpret_cast<const float*>(kbuf(bb) + c0 * ROWB),
+                reinterpret_cast<const float*>(vbuf(bb) + c0 * ROWB),
+                q_sm + mt * 16 * D, lane, scale_log2,
+                [&](int i) { return live(tile * TILE + c0 + i); });
+    } else if (has_rows && tile * TILE + c0 < hwm) {  // rows, live slots
       const uint8_t* kb = kbuf(bb) + c0 * ROWB;
       const float* ksc = ksbuf(bb);
       const float* vsc = vsbuf(bb);
@@ -311,7 +505,8 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int nt = 0; nt < NT; ++nt) {
           const uint8_t* kr =
               kb + (nt * 8 + g) * ROWB + (kk * 16 + t4 * 2) * T::BYTES;
-          mma16816(s[nt], qf[kk], T::pair(kr), T::pair(kr + 8 * T::BYTES));
+          mma16816<T::F16>(s[nt], qf[kk], T::pair(kr),
+                           T::pair(kr + 8 * T::BYTES));
         }
       }
 #pragma unroll
@@ -374,8 +569,9 @@ __global__ void __launch_bounds__(NTHREADS)
             p1[e] *= vsc[cl_ + 8];
           }
         }
-        const uint32_t a[4] = {pack_bf16(p0[0], p0[1]), pack_bf16(p0[2], p0[3]),
-                               pack_bf16(p1[0], p1[1]), pack_bf16(p1[2], p1[3])};
+        const uint32_t a[4] = {
+            pack2<T::F16>(p0[0], p0[1]), pack2<T::F16>(p0[2], p0[3]),
+            pack2<T::F16>(p1[0], p1[1]), pack2<T::F16>(p1[2], p1[3])};
         const uint8_t* vr = vb + (j * 16 + t4 * 2) * ROWB + g * T::BYTES;
 #pragma unroll
         for (int dt = 0; dt < DT; ++dt) {
@@ -383,7 +579,7 @@ __global__ void __launch_bounds__(NTHREADS)
           const uint32_t b0 = T::one(p) | (T::one(p + ROWB) << 16);
           const uint32_t b1 =
               T::one(p + 8 * ROWB) | (T::one(p + 9 * ROWB) << 16);
-          mma16816(acc[dt], a, b0, b1);
+          mma16816<T::F16>(acc[dt], a, b0, b1);
         }
       }
     }
@@ -393,7 +589,10 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();  // the tiles are dead: the partials take their place
 
   // Each warp's partial (m, l, unnormalised O) of its rows and slice ...
-  if (has_rows) {
+  if constexpr (T::SCALAR) {
+    if (has_rows)
+      fw.write(po + warp * 16 * D, pm + warp * 16, pl + warp * 16, lane);
+  } else if (has_rows) {
     float* pw = po + warp * 16 * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -445,6 +644,7 @@ __global__ void __launch_bounds__(NTHREADS)
   const int h0 = (bkv - b * H_kv) * G + row_lo;  // query head of local row 0
   for (int i = tid * n_ranks + rank; i < R * D4; i += n_ranks * NTHREADS) {
     const int r = i / D4, d4 = i - (i / D4) * D4;
+    if (d4 * 4 >= Dt) continue;  // a zero column past the row
     float rm[MAX_CLUSTER], rl[MAX_CLUSTER];
     float4 ro[MAX_CLUSTER];
 #pragma unroll
@@ -476,11 +676,16 @@ __global__ void __launch_bounds__(NTHREADS)
       }
     }
     const float inv = denom > 0.f ? 1.f / denom : 0.f;
-    uint2 ob;
-    ob.x = pack_bf16(a.x * inv, a.y * inv);
-    ob.y = pack_bf16(a.z * inv, a.w * inv);
-    *reinterpret_cast<uint2*>(out + ((size_t)bkv * G + row_lo + r) * D +
-                              d4 * 4) = ob;
+    const size_t o = ((size_t)bkv * G + row_lo + r) * Dt + d4 * 4;
+    if constexpr (T::SCALAR) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    } else {
+      uint2 ob;
+      ob.x = pack2<T::F16>(a.x * inv, a.y * inv);
+      ob.y = pack2<T::F16>(a.z * inv, a.w * inv);
+      *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) = ob;
+    }
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
@@ -489,7 +694,8 @@ template <class T, int D, int SL>
 int launch(const void* q, const void* k, const void* v, const void* k_scale,
            const void* v_scale, const State& st, const void* s_aux,
            void* out, int B, int H_q, int H_kv, int S_total, int sink_cap,
-           int window, int cluster, float scale, cudaStream_t stream) {
+           int window, int Dt, int cluster, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<T, D>();
   static const cudaError_t attr_err = cudaFuncSetAttribute(
       decode_kernel<T, D, SL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -510,11 +716,11 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, D, SL>, static_cast<const uint16_t*>(q),
-      static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
-      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
-      st, static_cast<const float*>(s_aux), static_cast<uint16_t*>(out),
-      H_kv, G, n_pieces, S_total, sink_cap, window, scale * LOG2E);
+      &cfg, decode_kernel<T, D, SL>, q, static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), st,
+      static_cast<const float*>(s_aux), out, H_kv, G, n_pieces, S_total,
+      sink_cap, window, Dt, scale * LOG2E);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -523,18 +729,19 @@ template <class T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const State& st, const void* s_aux,
              void* out, int B, int H_q, int H_kv, int S_total, int sink_cap,
-             int window, int cluster, float scale, cudaStream_t stream) {
+             int window, int Dt, int cluster, float scale,
+             cudaStream_t stream) {
   const int rows = min(H_q / H_kv, ROWS);  // of the largest piece
   if (rows <= 16)
     return launch<T, D, 4>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                           H_kv, S_total, sink_cap, window, cluster, scale,
-                           stream);
+                           H_kv, S_total, sink_cap, window, Dt, cluster,
+                           scale, stream);
   if (rows <= 32)
     return launch<T, D, 2>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                           H_kv, S_total, sink_cap, window, cluster, scale,
-                           stream);
+                           H_kv, S_total, sink_cap, window, Dt, cluster,
+                           scale, stream);
   return launch<T, D, 1>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                         H_kv, S_total, sink_cap, window, cluster, scale,
+                         H_kv, S_total, sink_cap, window, Dt, cluster, scale,
                          stream);
 }
 
@@ -550,29 +757,32 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
   if (H_kv <= 0 || H_q % H_kv != 0 || cluster < 1 || cluster > MAX_CLUSTER ||
       (cluster & (cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
+  // whole 16-byte cache rows, and q rows of whole 4 elements
+  if (D <= 0 || D > 128 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   if (B == 0 || S_total <= 0) return 0;
   const State st{static_cast<const int*>(st_sink_len),
                  static_cast<const int*>(st_window_len),
                  static_cast<const int*>(st_write_pos), st_stride, sink_len,
                  window_len, write_pos};
-  if (D == 64)
+  if (D <= 64)
     return launch_d<T, 64>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                           H_kv, S_total, sink_cap, window, cluster, scale, s);
-  if (D == 128)
-    return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
-                            H_q, H_kv, S_total, sink_cap, window, cluster,
-                            scale, s);
-  return (int)cudaErrorInvalidValue;
+                           H_kv, S_total, sink_cap, window, D, cluster, scale,
+                           s);
+  return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
+                          H_kv, S_total, sink_cap, window, D, cluster, scale,
+                          s);
 }
 
 }  // namespace
 
-// q [B*H_q, D] bf16; k/v [B*H_kv, S_total, D] (bf16, or int8 codes with
-// k_scale/v_scale [B*H_kv, S_total] fp32; null for bf16); the state: three
-// int32 arrays read at b * st_stride, or, where the pointers are null, the
-// ints sink_len, window_len, write_pos for every sequence; s_aux [H_q] fp32
-// or null; out [B*H_q, D] bf16. `cluster` CTAs (1, 2, 4 or 8) per (b, kv
-// head, 64-row piece of the group).
+// q [B*H_q, D] (bf16; fp16 and fp32 for those caches); k/v [B*H_kv,
+// S_total, D] (bf16, fp16, fp32, or int8 codes with k_scale/v_scale
+// [B*H_kv, S_total] fp32; null otherwise), D <= 128 with whole 16-byte
+// rows; the state: three int32 arrays read at b * st_stride, or, where the
+// pointers are null, the ints sink_len, window_len, write_pos for every
+// sequence; s_aux [H_q] fp32 or null; out [B*H_q, D] like q. `cluster`
+// CTAs (1, 2, 4 or 8) per (b, kv head, 64-row piece of the group).
 #define SINK_DECODE_ENTRY(NAME, TYPE)                                        \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* k_scale, const void* v_scale,              \
@@ -590,6 +800,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
   }
 
 SINK_DECODE_ENTRY(sink_decode_bf16, Bf16)
+SINK_DECODE_ENTRY(sink_decode_f16, Fp16)
+SINK_DECODE_ENTRY(sink_decode_f32, Fp32)
 SINK_DECODE_ENTRY(sink_decode_int8, Int8)
 SINK_DECODE_ENTRY(sink_decode_fp8, Fp8)
 

@@ -17,50 +17,56 @@
 // at D = 64, 64 keys at D = 128) per 128-row q block; dK/dV walks one
 // range of 64-row q blocks per 128-key block; both decided per block on
 // the host, so negative and chunked offsets are right, and both take
-// their work items longest first from a host order table.
+// their work items longest first from a host order table. Coverage as the
+// forward's (flash_fwd.cu): D <= 128, D % 8 == 0, in the instance D_i =
+// 64 or 128; bf16, fp16, and fp32 read as bf16 with fp32 gradients.
 
 #include "hopper_bwd.cuh"
 #include "hopper_dq.cuh"
 
 using sinkattn::SinkWindowMask;
 
-// q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous; lse, delta
-// [B*H_q, N_q] fp32; ranges [ceil(N_q/128), 4] int32 (fwd_kv_ranges at
-// 128 rows x sink_dq_block_n(D) keys), order [ceil(N_q/128)] int32 (the q
-// blocks, longest first); dq like q.
-extern "C" int sink_dq_bf16(const void* q, const void* k, const void* v,
-                            const void* dout, const void* lse,
-                            const void* delta, const void* ranges,
-                            const void* order, void* dq, int B, int H_q,
-                            int H_kv, int N_q, int N_kv, int D, int num_sink,
-                            int window, int q_offset, int kv_offset,
-                            float scale, void* stream) {
+// q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] contiguous, of the
+// dtype code's type (sink_fwd's); lse, delta [B*H_q, N_q] fp32; ranges
+// [ceil(N_q/128), 4] int32 (fwd_kv_ranges at 128 rows x
+// sink_dq_block_n(D) keys), order [ceil(N_q/128)] int32 (the q blocks,
+// longest first); dq like q (fp32 for dtype 2).
+extern "C" int sink_dq(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       const void* ranges, const void* order, void* dq,
+                       int B, int H_q, int H_kv, int N_q, int N_kv, int D,
+                       int num_sink, int window, int q_offset, int kv_offset,
+                       int dtype, float scale, void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_dq(q, k, v, dout, lse, delta, order, dq, B,
-                                     H_q, H_kv, N_q, N_kv, D, scale, mask,
-                                     stream);
+  return sinkattn::hopper::launch_dq_dtype(dtype, q, k, v, dout, lse, delta,
+                                           order, dq, B, H_q, H_kv, N_q,
+                                           N_kv, D, scale, mask, stream);
 }
 
-// As sink_dq_bf16; qranges [ceil(N_kv/128), 2] int32 (the range of 64-row
-// q blocks that read each 128-key block), order [ceil(N_kv/128)] int32 (the
-// key blocks, longest range first); dk, dv like k.
-extern "C" int sink_dkdv_bf16(const void* q, const void* k, const void* v,
-                              const void* dout, const void* lse,
-                              const void* delta, const void* qranges,
-                              const void* order, void* dk, void* dv, int B,
-                              int H_q, int H_kv, int N_q, int N_kv, int D,
-                              int num_sink, int window, int q_offset,
-                              int kv_offset, float scale, void* stream) {
+// As sink_dq; qranges [ceil(N_kv/128), 2] int32 (the range of 64-row q
+// blocks that read each 128-key block), order [ceil(N_kv/128)] int32 (the
+// key blocks, longest range first); dk, dv like k (fp32 for dtype 2).
+extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         const void* qranges, const void* order, void* dk,
+                         void* dv, int B, int H_q, int H_kv, int N_q,
+                         int N_kv, int D, int num_sink, int window,
+                         int q_offset, int kv_offset, int dtype, float scale,
+                         void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(qranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_dkdv(q, k, v, dout, lse, delta, order, dk,
-                                       dv, B, H_q, H_kv, N_q, N_kv, D, scale,
-                                       mask, stream);
+  return sinkattn::hopper::launch_dkdv_dtype(dtype, q, k, v, dout, lse,
+                                             delta, order, dk, dv, B, H_q,
+                                             H_kv, N_q, N_kv, D, scale, mask,
+                                             stream);
 }
 
-// Tile sizes the host-side range tables must use: dQ's, and dK/dV's.
+// Tile sizes the host-side range tables must use: dQ's (by head dim: the
+// instance's), and dK/dV's.
 extern "C" int sink_dq_block_m() { return sinkattn::hopper::DQ_BM; }
-extern "C" int sink_dq_block_n(int D) { return sinkattn::hopper::dq_bn(D); }
+extern "C" int sink_dq_block_n(int D) {
+  return sinkattn::hopper::dq_bn(sinkattn::hopper::instance_d(D));
+}
 extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
 extern "C" int sink_dkdv_block_n() { return sinkattn::hopper::DKDV_BN; }

@@ -19,7 +19,12 @@
 //
 // The entry point launches the template over SinkWindowMask (hopper.cuh's
 // launch_fwd, shared with the packed forward), which builds the three TMA
-// descriptors per call.
+// descriptors per call. Coverage: any head dim D <= 128 with D % 8 == 0
+// (the host pads any other D to the next multiple of 8), run by the
+// instance of D_i = 64 or 128 (hopper.cuh's instance_d): at D = 80 the
+// 128 instance's tensor cores do 128 / 80 = 1.6x the products the bound
+// counts; bf16 and fp16 inputs, and fp32 (rounded to bf16 by the host,
+// O written as fp32).
 
 #include "hopper.cuh"
 
@@ -27,21 +32,22 @@ using sinkattn::SinkWindowMask;
 using sinkattn::hopper::FWD_BM;
 using sinkattn::hopper::FWD_BN;
 
-// q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16 contiguous, 16-byte
-// aligned; s_aux [H_q] fp32 or null; ranges [ceil(N_q/128), 4] int32 (the
-// KV blocks of 128 keys each q block of 128 rows visits); o like q; lse
-// [B*H_q, N_q] fp32.
-extern "C" int sink_fwd_bf16(const void* q, const void* k, const void* v,
-                             const void* s_aux, const void* ranges, void* o,
-                             void* lse, int B, int H_q, int H_kv, int N_q,
-                             int N_kv, int D, int num_sink, int window,
-                             int q_offset, int kv_offset, float scale,
-                             void* stream) {
+// q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] contiguous, 16-byte aligned,
+// bf16 (dtype 0; hopper.cuh's DtypeCode), fp16 (1) or bf16 rounded from
+// fp32 (2); s_aux [H_q] fp32 or null; ranges [ceil(N_q/128), 4] int32 (the
+// KV blocks of 128 keys each q block of 128 rows visits); o like q (fp32
+// for dtype 2); lse [B*H_q, N_q] fp32.
+extern "C" int sink_fwd(const void* q, const void* k, const void* v,
+                        const void* s_aux, const void* ranges, void* o,
+                        void* lse, int B, int H_q, int H_kv, int N_q,
+                        int N_kv, int D, int num_sink, int window,
+                        int q_offset, int kv_offset, int dtype, float scale,
+                        void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_fwd(q, k, v, s_aux, nullptr, o, lse, B,
-                                      H_q, H_kv, N_q, N_kv, D, scale, mask,
-                                      stream);
+  return sinkattn::hopper::launch_fwd_dtype(dtype, q, k, v, s_aux, nullptr,
+                                            o, lse, B, H_q, H_kv, N_q, N_kv,
+                                            D, scale, mask, stream);
 }
 
 // Tile sizes the host-side range table must use.

@@ -37,13 +37,17 @@
 //    barrier counts the TMA bytes and warp 1's 32 arrivals;
 //  * Q, K and V land in shared memory in 128-byte-swizzled boxes of 64
 //    columns (a D = 128 row is two boxes); TMA zero-fills rows past N_q
-//    and N_kv;
+//    and N_kv, and the columns past the tensors' head dim Dt where the
+//    instance's D is larger (any Dt <= 128 with Dt % 8 == 0 runs in the
+//    instance of 64 or 128: instance_d), so the products over those zero
+//    columns add nothing and only Dt columns are written;
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //    the online softmax runs on the accumulators in the exp2 domain (the
 //    scale folded into the exponent's FMA, ex2.approx), seeded with
-//    m = s_aux*log2e, l = 1 (exact for every input); P is rounded to bf16
-//    in registers and is the A operand of O += P V (wgmma m64nDk16, V from
-//    shared memory as a transposed B operand). The two consumer
+//    m = s_aux*log2e, l = 1 (exact for every input); P is rounded to the
+//    input type (bf16, or fp16: the Io types below) in registers and is
+//    the A operand of O += P V (wgmma m64nDk16, V from shared memory as a
+//    transposed B operand). The two consumer
 //    warpgroups overlap each other's products and softmax. (Overlapping
 //    the softmax with the previous tile's P V inside a warpgroup was
 //    tried: ptxas then serialises the products, 25% slower at D = 128);
@@ -64,8 +68,9 @@
 //  * the mask, the softmax and P's pack are the consumers' tile step, a
 //    compile-time policy (FwdSoftmax below; ablation.cu's stages cut it to
 //    one piece of the softmax on this same pipeline);
-//  * O goes out as bf16 through the warpgroup's rows of the item's Q
-//    buffer (then free) as 16-byte stores of whole rows; the Q buffer is
+//  * O goes out in the input type through the warpgroup's rows of the
+//    item's Q buffer (then free) as 16-byte stores of whole rows (as fp32
+//    for IoF32: straight from the accumulators); the Q buffer is
 //    released to the producer after that. The LSE (natural log, -inf for
 //    a row that sees nothing and has no s_aux) is written for the backward
 //    kernels.
@@ -190,92 +195,151 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A and B from shared memory
-// (descriptors), both K-major; fp32 accumulators d[64].
+// (descriptors), both K-major; fp32 accumulators d[64]; A and B bf16, or
+// fp16 where F16.
+#define SINK_WGMMA_SS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    SINK_WGMMA_SS_N128("f16");
+  else
+    SINK_WGMMA_SS_N128("bf16");
 }
+#undef SINK_WGMMA_SS_N128
 
 // D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory
-// (descriptors), both K-major; fp32 accumulators d[32].
+// (descriptors), both K-major; fp32 accumulators d[32]; A and B bf16, or
+// fp16 where F16.
+#define SINK_WGMMA_SS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    SINK_WGMMA_SS_N64("f16");
+  else
+    SINK_WGMMA_SS_N64("bf16");
 }
+#undef SINK_WGMMA_SS_N64
 
-// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (bf16x2
-// fragments), B from shared memory, MN-major (transposed); d[32].
+// D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (16-bit
+// pairs), B from shared memory, MN-major (transposed); d[32]; A and B bf16, or
+// fp16 where F16.
+#define SINK_WGMMA_RS_N64(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    SINK_WGMMA_RS_N64("f16");
+  else
+    SINK_WGMMA_RS_N64("bf16");
 }
+#undef SINK_WGMMA_RS_N64
 
-// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (bf16x2
-// fragments), B from shared memory, MN-major (transposed); d[64].
+// D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (16-bit
+// pairs), B from shared memory, MN-major (transposed); d[64]; A and B bf16, or
+// fp16 where F16.
+#define SINK_WGMMA_RS_N128(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <bool F16 = false>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                                const uint32_t (&a)[4],
                                                uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    SINK_WGMMA_RS_N128("f16");
+  else
+    SINK_WGMMA_RS_N128("bf16");
 }
+#undef SINK_WGMMA_RS_N128
 
 // D (+)= A B over N / 2 accumulators a thread (N = 64 or 128 columns),
-// both operands from shared memory, K-major.
-template <int N>
+// both operands from shared memory, K-major; bf16, or fp16 where F16.
+template <int N, bool F16 = false>
 struct SsMma;
-template <>
-struct SsMma<32> {
+template <bool F16>
+struct SsMma<32, F16> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
                                              uint64_t db, int scale_d) {
-    wgmma_ss_n64(d, da, db, scale_d);
+    wgmma_ss_n64<F16>(d, da, db, scale_d);
   }
 };
-template <>
-struct SsMma<64> {
+template <bool F16>
+struct SsMma<64, F16> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
                                              uint64_t db, int scale_d) {
-    wgmma_ss_n128(d, da, db, scale_d);
+    wgmma_ss_n128<F16>(d, da, db, scale_d);
   }
 };
 
-template <int N>
+template <int N, bool F16 = false>
 struct RsMma;
-template <>
-struct RsMma<32> {
+template <bool F16>
+struct RsMma<32, F16> {
   __device__ __forceinline__ static void run(float (&d)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-    wgmma_rs_n64(d, a, db, 1);
+    wgmma_rs_n64<F16>(d, a, db, 1);
   }
 };
-template <>
-struct RsMma<64> {
+template <bool F16>
+struct RsMma<64, F16> {
   __device__ __forceinline__ static void run(float (&d)[64],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
-    wgmma_rs_n128(d, a, db, 1);
+    wgmma_rs_n128<F16>(d, a, db, 1);
   }
 };
+
+// What an instance reads and writes. Q, K, V (and dO) are 16-bit, the
+// wgmma's A and B type: bf16, or fp16 where kF16. The outputs (O, dQ, dK,
+// dV) are written in that type from the fp32 accumulators, or where kOut32
+// as fp32 (fp32 callers: the host rounds the inputs to bf16 once, as the
+// TPU's matrix unit reads fp32 at its default precision, and the
+// accumulators are stored unrounded).
+struct IoBf16 {
+  static constexpr bool kF16 = false, kOut32 = false;
+};
+struct IoF16 {
+  static constexpr bool kF16 = true, kOut32 = false;
+};
+struct IoF32 {
+  static constexpr bool kF16 = false, kOut32 = true;
+};
+
+// The kernels' dtype codes (the C entry points' `dtype`): 0 bf16, 1 fp16,
+// 2 fp32 (inputs rounded to bf16 by the host, fp32 outputs).
+enum DtypeCode { kDtypeBf16 = 0, kDtypeF16 = 1, kDtypeF32 = 2 };
+
+// The instance head dim D_i of a head dim D: the smallest of 64 and 128
+// that holds it; 0 (refused) for D > 128 or D % 8 != 0 (TMA takes a row
+// stride of whole 16 bytes: the host pads such a D).
+__host__ __device__ constexpr int instance_d(int D) {
+  return (D <= 0 || D % 8 != 0) ? 0 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+}
 
 // --- host: tensor maps and the persistent grid --------------------------------
 
@@ -307,10 +371,12 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 [heads, n, D] tensor as a 3-D map of boxes [1][rows][64] under the
-// 128-byte swizzle; rows past n read as zeros.
+// A bf16 (fp16 where f16) [heads, n, D] tensor as a 3-D map of boxes
+// [1][rows][64] under the 128-byte swizzle; rows past n and columns past D
+// read as zeros (so an instance of D_i > D computes on zero columns). D %
+// 8 == 0: TMA takes row strides of whole 16 bytes.
 inline bool make_map(CUtensorMap* map, const void* base, int heads, int n,
-                     int D, int rows) {
+                     int D, int rows, bool f16 = false) {
   const EncodeTiledFn encode = encode_fn();
   if (encode == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)n,
@@ -318,7 +384,10 @@ inline bool make_map(CUtensorMap* map, const void* base, int heads, int n,
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)n * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map,
+                f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3,
                 const_cast<void*>(base), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -458,17 +527,18 @@ __device__ __forceinline__ void mask_partial(float (&sacc)[N],
   }
 }
 
-// P (S's accumulators, 64 rows x FWD_BN keys) as bf16 wgmma A fragments:
-// the accumulator layout of a 16-key step is the register A layout.
-template <int N>
+// P (S's accumulators, 64 rows x FWD_BN keys) as bf16 (fp16 where F16)
+// wgmma A fragments: the accumulator layout of a 16-key step is the
+// register A layout.
+template <bool F16 = false, int N>
 __device__ __forceinline__ void pack_p(const float (&sacc)[N],
                                        uint32_t (&pa)[FWD_BN / 16][4]) {
 #pragma unroll
   for (int jj = 0; jj < FWD_BN / 16; ++jj) {
-    pa[jj][0] = pack_bf16(sacc[8 * jj + 0], sacc[8 * jj + 1]);
-    pa[jj][1] = pack_bf16(sacc[8 * jj + 2], sacc[8 * jj + 3]);
-    pa[jj][2] = pack_bf16(sacc[8 * jj + 4], sacc[8 * jj + 5]);
-    pa[jj][3] = pack_bf16(sacc[8 * jj + 6], sacc[8 * jj + 7]);
+    pa[jj][0] = pack2<F16>(sacc[8 * jj + 0], sacc[8 * jj + 1]);
+    pa[jj][1] = pack2<F16>(sacc[8 * jj + 2], sacc[8 * jj + 3]);
+    pa[jj][2] = pack2<F16>(sacc[8 * jj + 4], sacc[8 * jj + 5]);
+    pa[jj][3] = pack2<F16>(sacc[8 * jj + 6], sacc[8 * jj + 7]);
   }
 }
 
@@ -485,7 +555,8 @@ __device__ __forceinline__ void pack_p(const float (&sacc)[N],
 // waited for; inv_l() is the output's divisor. The forward: the scale
 // folded into the exponent's FMA, m seeded with s_aux*log2e and l with 1
 // (the producer's seed), dead tiles skipped, a row that sees nothing
-// gives 0.
+// gives 0. P is packed as the instance's input type (fp16 where F16).
+template <bool F16 = false>
 struct FwdSoftmax {
   static constexpr bool kSkipDead = true;
   static constexpr int kSmem = 0;
@@ -540,7 +611,7 @@ struct FwdSoftmax {
         oacc[jj * 4 + 2 * r + 1] *= alpha;
       }
     }
-    pack_p(sacc, pa);
+    pack_p<F16>(sacc, pa);
   }
 
   __device__ __forceinline__ void sum(const uint32_t (&)[FWD_BN / 16][4],
@@ -633,16 +704,20 @@ struct FwdItem {
 // one, so one item's epilogue overlaps the next one's loads. `order` is
 // the host's order table where Mask::kBatchTables, else unused. The
 // consumers' tile step is the policy `softmax` (FwdSoftmax: the forward).
-template <int D, int STAGES, class Mask, class Softmax = FwdSoftmax>
+// D is the instance's head dim, Dt <= D the tensors' (their row length):
+// the columns past Dt are zeros in shared memory and are not written. IO
+// is the element types (IoBf16, IoF16, IoF32).
+template <int D, int STAGES, class Mask, class Softmax = FwdSoftmax<>,
+          class IO = IoBf16>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
     fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const float* __restrict__ s_aux,
-                     const int* __restrict__ order,
-                     uint16_t* __restrict__ o, float* __restrict__ lse,
-                     int B, int H_q, int H_kv, int N_q, float scale_log2,
-                     Mask mask, Softmax softmax) {
+                     const int* __restrict__ order, void* __restrict__ o,
+                     float* __restrict__ lse, int B, int H_q, int H_kv,
+                     int N_q, int Dt, float scale_log2, Mask mask,
+                     Softmax softmax) {
   using L = FwdSmem<D, STAGES>;
   constexpr int OR = D / 2;       // O accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -771,10 +846,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n128(sacc,
-                        desc_sw128(qsm + x * FWD_BM * 128 + off, 16, 1024),
-                        desc_sw128(ks + x * FWD_BN * 128 + off, 16, 1024),
-                        kk > 0);
+          wgmma_ss_n128<IO::kF16>(
+              sacc, desc_sw128(qsm + x * FWD_BM * 128 + off, 16, 1024),
+              desc_sw128(ks + x * FWD_BN * 128 + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -789,8 +863,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int jj = 0; jj < FWD_BN / 16; ++jj)
-          RsMma<OR>::run(oacc, pa[jj],
-                         desc_sw128(vs + jj * 16 * 128, FWD_BN * 128, 1024));
+          RsMma<OR, IO::kF16>::run(
+              oacc, pa[jj],
+              desc_sw128(vs + jj * 16 * 128, FWD_BN * 128, 1024));
         softmax.sum(pa, smem + L::OWN_OFF, tile);
         wgmma_commit();
         wgmma_wait<0>();
@@ -801,35 +876,57 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 
       // O goes out through this warpgroup's rows of the item's Q buffer
       // (its S products, the last readers, are done), in Q's swizzled
-      // layout, then as 16-byte stores of whole rows.
+      // layout, then as 16-byte stores of whole rows (Dt / 8 chunks a
+      // row); as fp32 (IoF32), straight from the accumulators as 8-byte
+      // stores of column pairs.
       uint8_t* qbuf = smem + L::Q_OFF + qs * L::Q_BYTES;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rb = r_loc + r * 8;  // the row within the q block
-        const float inv = softmax.inv_l(l[r]);
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(
-              qbuf + (jj / 8) * FWD_BM * 128 + rb * 128 +
-              (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
-              pack_bf16(oacc[jj * 4 + 2 * r] * inv,
-                        oacc[jj * 4 + 2 * r + 1] * inv);
         const int row = item.qb * FWD_BM + rb;
+        const float inv = softmax.inv_l(l[r]);
+        if constexpr (IO::kOut32) {
+          float* orow =
+              static_cast<float*>(o) + ((size_t)item.bh * N_q + row) * Dt;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const int col = jj * 8 + t4 * 2;
+            if (row < N_q && col < Dt)
+              *reinterpret_cast<float2*>(orow + col) =
+                  make_float2(oacc[jj * 4 + 2 * r] * inv,
+                              oacc[jj * 4 + 2 * r + 1] * inv);
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(
+                qbuf + (jj / 8) * FWD_BM * 128 + rb * 128 +
+                (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
+                pack2<IO::kF16>(oacc[jj * 4 + 2 * r] * inv,
+                                oacc[jj * 4 + 2 * r + 1] * inv);
+        }
         if (Softmax::kLse && t4 == 0 && row < N_q)
           lse[(size_t)item.bh * N_q + row] =
               l[r] == 0.f ? -INFINITY : m[r] * LN2 + logf(l[r]);
       }
-      named_sync(1 + c, 128);  // the warpgroup's rows are staged
-      constexpr int CH = D / 8;  // 16-byte chunks a row
-      for (int i = ct; i < 64 * CH; i += 128) {
-        const int rb = c * 64 + i / CH, ch = i % CH;
-        const int row = item.qb * FWD_BM + rb;
-        if (row < N_q)
-          *reinterpret_cast<uint4*>(o + ((size_t)item.bh * N_q + row) * D +
-                                    ch * 8) =
-              *reinterpret_cast<const uint4*>(
-                  qbuf + (ch / 8) * FWD_BM * 128 + rb * 128 +
-                  (((ch % 8) ^ (rb & 7)) * 16));
+      if constexpr (!IO::kOut32) {
+        named_sync(1 + c, 128);  // the warpgroup's rows are staged
+        // the instance's D / 8 16-byte chunks a row, those past Dt not
+        // stored (a constant count: a second loop over Dt / 8 chunks for
+        // a narrower Dt made the D = 64 forward 4-6% slower at the main
+        // path's shapes, though it never ran there)
+        constexpr int CH = D / 8;
+        uint16_t* o16 = static_cast<uint16_t*>(o);
+        for (int i = ct; i < 64 * CH; i += 128) {
+          const int rb = c * 64 + i / CH, ch = i % CH;
+          const int row = item.qb * FWD_BM + rb;
+          if (row < N_q && ch * 8 < Dt)
+            *reinterpret_cast<uint4*>(
+                o16 + ((size_t)item.bh * N_q + row) * Dt + ch * 8) =
+                *reinterpret_cast<const uint4*>(
+                    qbuf + (ch / 8) * FWD_BM * 128 + rb * 128 +
+                    (((ch % 8) ^ (rb & 7)) * 16));
+        }
       }
       // The Q buffer (and its rows' runs) is free once every consumer
       // thread is done with it; the proxy fence orders these generic
@@ -840,43 +937,45 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   }
 }
 
-// Launch over a mask policy: q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] bf16
-// contiguous, 16-byte aligned; s_aux [H_q] fp32 or null; order the host's
-// units longest first where Mask::kBatchTables (see FwdItem), else null;
-// o like q; lse [B*H_q, N_q] fp32 (unused where the softmax policy writes
-// none). The three TMA descriptors are built per call: rows past N read as
-// zeros, boxes of 64 columns x 128 rows under the 128-byte swizzle.
-// Returns cudaGetLastError() of the launch.
-template <int D, int STAGES, class Mask, class Softmax>
+// Launch over a mask policy: q [B*H_q, N_q, Dt], k/v [B*H_kv, N_kv, Dt]
+// 16-bit (IO) contiguous, 16-byte aligned, Dt <= D and Dt % 8 == 0;
+// s_aux [H_q] fp32 or null; order the host's units longest first where
+// Mask::kBatchTables (see FwdItem), else null; o like q (fp32 for IoF32);
+// lse [B*H_q, N_q] fp32 (unused where the softmax policy writes none). The
+// three TMA descriptors are built per call: rows past N and columns past
+// Dt read as zeros, boxes of 64 columns x 128 rows under the 128-byte
+// swizzle. Returns cudaGetLastError() of the launch.
+template <int D, int STAGES, class Mask, class Softmax, class IO>
 int launch_fwd_d(const void* q, const void* k, const void* v,
                  const void* s_aux, const void* order, void* o, void* lse,
-                 int B, int H_q, int H_kv, int N_q, int N_kv, float scale,
-                 const Mask& mask, const Softmax& softmax,
+                 int B, int H_q, int H_kv, int N_q, int N_kv, int Dt,
+                 float scale, const Mask& mask, const Softmax& softmax,
                  cudaStream_t stream) {
   constexpr int smem =
       FwdSmem<D, STAGES>::template bytes<Softmax::kSmem>();
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      fwd_wgmma_kernel<D, STAGES, Mask, Softmax>,
+      fwd_wgmma_kernel<D, STAGES, Mask, Softmax, IO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H_q, N_q, D, FWD_BM) ||
-      !make_map(&tk, k, B * H_kv, N_kv, D, FWD_BN) ||
-      !make_map(&tv, v, B * H_kv, N_kv, D, FWD_BN))
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, FWD_BM, IO::kF16) ||
+      !make_map(&tk, k, B * H_kv, N_kv, Dt, FWD_BN, IO::kF16) ||
+      !make_map(&tv, v, B * H_kv, N_kv, Dt, FWD_BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
   const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  fwd_wgmma_kernel<D, STAGES, Mask, Softmax>
+  fwd_wgmma_kernel<D, STAGES, Mask, Softmax, IO>
       <<<grid, FWD_THREADS, smem, stream>>>(
           tq, tk, tv, static_cast<const float*>(s_aux),
-          static_cast<const int*>(order), static_cast<uint16_t*>(o),
-          static_cast<float*>(lse), B, H_q, H_kv, N_q, scale * LOG2E, mask,
-          softmax);
+          static_cast<const int*>(order), o, static_cast<float*>(lse), B,
+          H_q, H_kv, N_q, Dt, scale * LOG2E, mask, softmax);
   return (int)cudaGetLastError();
 }
 
-template <class Mask, class Softmax = FwdSoftmax>
+// The forward over a mask policy at head dim D (any D <= 128 with D % 8 ==
+// 0, run by the instance of instance_d(D)) in the element types IO.
+template <class Mask, class Softmax = FwdSoftmax<>, class IO = IoBf16>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* s_aux, const void* order, void* o, void* lse,
                int B, int H_q, int H_kv, int N_q, int N_kv, int D,
@@ -886,12 +985,37 @@ int launch_fwd(const void* q, const void* k, const void* v,
   if (N_q <= 0 || B * H_q <= 0) return 0;
   if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
     return (int)cudaErrorInvalidValue;
-  if (D == 64)
-    return launch_fwd_d<64, 3>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
-                               N_q, N_kv, scale, mask, softmax, st);
-  if (D == 128)
-    return launch_fwd_d<128, 2>(q, k, v, s_aux, order, o, lse, B, H_q, H_kv,
-                                N_q, N_kv, scale, mask, softmax, st);
+  if (instance_d(D) == 64)
+    return launch_fwd_d<64, 3, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  if (instance_d(D) == 128)
+    return launch_fwd_d<128, 2, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward in the element types of a dtype code (DtypeCode).
+template <class Mask>
+int launch_fwd_dtype(int dtype, const void* q, const void* k, const void* v,
+                     const void* s_aux, const void* order, void* o, void* lse,
+                     int B, int H_q, int H_kv, int N_q, int N_kv, int D,
+                     float scale, const Mask& mask, void* stream) {
+  switch (dtype) {
+    case kDtypeBf16:
+      return launch_fwd<Mask, FwdSoftmax<false>, IoBf16>(
+          q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+          mask, stream);
+    case kDtypeF16:
+      return launch_fwd<Mask, FwdSoftmax<true>, IoF16>(
+          q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+          mask, stream);
+    case kDtypeF32:
+      return launch_fwd<Mask, FwdSoftmax<false>, IoF32>(
+          q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+          mask, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

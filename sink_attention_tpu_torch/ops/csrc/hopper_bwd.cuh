@@ -46,10 +46,16 @@
 //    intervals, found once per item) skips that tile's products, waiting
 //    and releasing the stage only (the sliding-window layers' diagonal
 //    tiles are half dead for each consumer);
-//  * the epilogue: dK (scaled) and dV go out as bf16 through the
+//  * the epilogue: dK (scaled) and dV go out in the input type through the
 //    consumer's own rows of the item's K and V buffers (then free: only
-//    this warpgroup's products read them) as 16-byte stores of whole rows;
-//    the buffers are released to the producer after that.
+//    this warpgroup's products read them) as 16-byte stores of whole rows,
+//    or as fp32 (IoF32) straight from the accumulators; the buffers are
+//    released to the producer after that;
+//  * any head dim D <= 128 (D % 8 == 0) runs in the instance D_i =
+//    instance_d(D): TMA reads the columns past D of K, V, Q and dO as
+//    zeros, so the accumulators' columns past D are zeros, and only D
+//    columns are written (each key's whole row: the GQA group's sum is in
+//    the accumulators); bf16 or fp16 inputs (hopper.cuh's Io types).
 //
 // Replaces the Pallas TPU kernels `_dkdv_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdkdv_kernel` of
@@ -144,7 +150,9 @@ struct DkdvItem {
         n_qb(info[5]) {}
 };
 
-template <int D, int STAGES, class Mask>
+// D is the instance's head dim, Dt <= D the tensors' (see
+// fwd_wgmma_kernel); IO the element types.
+template <int D, int STAGES, class Mask, class IO>
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
@@ -152,10 +160,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                       const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int* __restrict__ order,
-                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-                      int B, int H_q, int H_kv, int N_q, int N_kv,
-                      float scale_log2, float scale, Mask mask) {
+                      const int* __restrict__ order, void* __restrict__ dk,
+                      void* __restrict__ dv, int B, int H_q, int H_kv,
+                      int N_q, int N_kv, int Dt, float scale_log2,
+                      float scale, Mask mask) {
   using L = DkdvSmem<D, STAGES>;
   constexpr int OR = D / 2;  // dK or dV accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -340,17 +348,16 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n64(sacc, desc_sw128(ksm + x * DKDV_BN * 128 + off, 16, 1024),
-                       desc_sw128(qs + x * DKDV_BM * 128 + off, 16, 1024),
-                       kk > 0);
+          wgmma_ss_n64<IO::kF16>(
+              sacc, desc_sw128(ksm + x * DKDV_BN * 128 + off, 16, 1024),
+              desc_sw128(qs + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n64(dpacc,
-                       desc_sw128(vsm + x * DKDV_BN * 128 + off, 16, 1024),
-                       desc_sw128(dos + x * DKDV_BM * 128 + off, 16, 1024),
-                       kk > 0);
+          wgmma_ss_n64<IO::kF16>(
+              dpacc, desc_sw128(vsm + x * DKDV_BN * 128 + off, 16, 1024),
+              desc_sw128(dos + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -392,7 +399,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
             }
           }
         }
-        // dS^T = P^T (dP^T - delta); P^T and dS^T as bf16 A fragments.
+        // dS^T = P^T (dP^T - delta); P^T and dS^T as 16-bit A fragments.
         uint32_t pa[DKDV_BM / 16][4], da[DKDV_BM / 16][4];
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
@@ -410,9 +417,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
-            pa[kk][h] = pack_bf16(sacc[8 * kk + 2 * h], sacc[8 * kk + 2 * h + 1]);
-            da[kk][h] =
-                pack_bf16(dpacc[8 * kk + 2 * h], dpacc[8 * kk + 2 * h + 1]);
+            pa[kk][h] = pack2<IO::kF16>(sacc[8 * kk + 2 * h],
+                                        sacc[8 * kk + 2 * h + 1]);
+            da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
+                                        dpacc[8 * kk + 2 * h + 1]);
           }
         }
 
@@ -421,11 +429,11 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DKDV_BM / 16; ++kk)
-          RsMma<OR>::run(dv_acc, pa[kk],
+          RsMma<OR, IO::kF16>::run(dv_acc, pa[kk],
                          desc_sw128(dos + kk * 16 * 128, DKDV_BM * 128, 1024));
 #pragma unroll
         for (int kk = 0; kk < DKDV_BM / 16; ++kk)
-          RsMma<OR>::run(dk_acc, da[kk],
+          RsMma<OR, IO::kF16>::run(dk_acc, da[kk],
                          desc_sw128(qs + kk * 16 * 128, DKDV_BM * 128, 1024));
         wgmma_commit();
         wgmma_wait<0>();
@@ -436,36 +444,59 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 
       // dK and dV go out through this warpgroup's rows of the item's K and
       // V buffers (its products, their only readers, are done), in the
-      // swizzled layout, then as 16-byte stores of whole rows.
+      // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
+      // chunks a row); as fp32 (IoF32), straight from the accumulators as
+      // 8-byte stores of column pairs.
       uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES;
       uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rb = r_key + 8 * r;  // the key within the item
+        if constexpr (IO::kOut32) {
+          const int row = item.kb * DKDV_BN + rb;
+          const size_t o = ((size_t)item.bkh * N_kv + row) * Dt;
 #pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj) {
-          const int off = (jj / 8) * DKDV_BN * 128 + rb * 128 +
-                          (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
-          *reinterpret_cast<uint32_t*>(kb_sm + off) =
-              pack_bf16(dk_acc[jj * 4 + 2 * r] * scale,
-                        dk_acc[jj * 4 + 2 * r + 1] * scale);
-          *reinterpret_cast<uint32_t*>(vb_sm + off) =
-              pack_bf16(dv_acc[jj * 4 + 2 * r], dv_acc[jj * 4 + 2 * r + 1]);
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const int col = jj * 8 + t4 * 2;
+            if (row < N_kv && col < Dt) {
+              *reinterpret_cast<float2*>(static_cast<float*>(dk) + o + col) =
+                  make_float2(dk_acc[jj * 4 + 2 * r] * scale,
+                              dk_acc[jj * 4 + 2 * r + 1] * scale);
+              *reinterpret_cast<float2*>(static_cast<float*>(dv) + o + col) =
+                  make_float2(dv_acc[jj * 4 + 2 * r],
+                              dv_acc[jj * 4 + 2 * r + 1]);
+            }
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const int off = (jj / 8) * DKDV_BN * 128 + rb * 128 +
+                            (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
+            *reinterpret_cast<uint32_t*>(kb_sm + off) =
+                pack2<IO::kF16>(dk_acc[jj * 4 + 2 * r] * scale,
+                                dk_acc[jj * 4 + 2 * r + 1] * scale);
+            *reinterpret_cast<uint32_t*>(vb_sm + off) = pack2<IO::kF16>(
+                dv_acc[jj * 4 + 2 * r], dv_acc[jj * 4 + 2 * r + 1]);
+          }
         }
       }
-      named_sync(1 + c, 128);  // the warpgroup's rows are staged
-      constexpr int CH = D / 8;  // 16-byte chunks a row
-      for (int i = ct; i < 64 * CH; i += 128) {
-        const int rb = c * 64 + i / CH, ch = i % CH;
-        const int row = item.kb * DKDV_BN + rb;
-        if (row < N_kv) {
-          const int off = (ch / 8) * DKDV_BN * 128 + rb * 128 +
-                          (((ch % 8) ^ (rb & 7)) * 16);
-          const size_t o = ((size_t)item.bkh * N_kv + row) * D + ch * 8;
-          *reinterpret_cast<uint4*>(dk + o) =
-              *reinterpret_cast<const uint4*>(kb_sm + off);
-          *reinterpret_cast<uint4*>(dv + o) =
-              *reinterpret_cast<const uint4*>(vb_sm + off);
+      if constexpr (!IO::kOut32) {
+        named_sync(1 + c, 128);  // the warpgroup's rows are staged
+        // the instance's D / 8 chunks a row, those past Dt not stored (see
+        // hopper.cuh's forward: a constant count keeps the loop unrolled)
+        constexpr int CH = D / 8;
+        for (int i = ct; i < 64 * CH; i += 128) {
+          const int rb = c * 64 + i / CH, ch = i % CH;
+          const int row = item.kb * DKDV_BN + rb;
+          if (row < N_kv && ch * 8 < Dt) {
+            const int off = (ch / 8) * DKDV_BN * 128 + rb * 128 +
+                            (((ch % 8) ^ (rb & 7)) * 16);
+            const size_t o = ((size_t)item.bkh * N_kv + row) * Dt + ch * 8;
+            *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dk) + o) =
+                *reinterpret_cast<const uint4*>(kb_sm + off);
+            *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dv) + o) =
+                *reinterpret_cast<const uint4*>(vb_sm + off);
+          }
         }
       }
       // The K/V buffer is free once every consumer thread is done with it;
@@ -477,39 +508,42 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   }
 }
 
-// Launch over a mask policy: q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D]
-// bf16 contiguous, 16-byte aligned; lse, delta [B*H_q, N_q] fp32; order the
-// host's units longest first (see DkdvItem); dk, dv like k. Returns
-// cudaGetLastError() of the launch.
-template <int D, int STAGES, class Mask>
+// Launch over a mask policy: q, dout [B*H_q, N_q, Dt], k/v [B*H_kv, N_kv,
+// Dt] 16-bit (IO) contiguous, 16-byte aligned, Dt <= D, Dt % 8 == 0; lse,
+// delta [B*H_q, N_q] fp32; order the host's units longest first (see
+// DkdvItem); dk, dv like k (fp32 for IoF32). Returns cudaGetLastError() of
+// the launch.
+template <int D, int STAGES, class Mask, class IO>
 int launch_dkdv_d(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
                   const void* order, void* dk, void* dv, int B, int H_q,
-                  int H_kv, int N_q, int N_kv, float scale, const Mask& mask,
-                  cudaStream_t stream) {
+                  int H_kv, int N_q, int N_kv, int Dt, float scale,
+                  const Mask& mask, cudaStream_t stream) {
   constexpr int smem = DkdvSmem<D, STAGES>::BYTES;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      dkdv_wgmma_kernel<D, STAGES, Mask>,
+      dkdv_wgmma_kernel<D, STAGES, Mask, IO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, B * H_q, N_q, D, DKDV_BM) ||
-      !make_map(&tdo, dout, B * H_q, N_q, D, DKDV_BM) ||
-      !make_map(&tk, k, B * H_kv, N_kv, D, DKDV_BN) ||
-      !make_map(&tv, v, B * H_kv, N_kv, D, DKDV_BN))
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
+      !make_map(&tdo, dout, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
+      !make_map(&tk, k, B * H_kv, N_kv, Dt, DKDV_BN, IO::kF16) ||
+      !make_map(&tv, v, B * H_kv, N_kv, Dt, DKDV_BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
   const long n_work = (long)((N_kv + DKDV_BN - 1) / DKDV_BN) * B * H_kv;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  dkdv_wgmma_kernel<D, STAGES, Mask><<<grid, DKDV_THREADS, smem, stream>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(order),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), B, H_q, H_kv,
-      N_q, N_kv, scale * LOG2E, scale, mask);
+  dkdv_wgmma_kernel<D, STAGES, Mask, IO>
+      <<<grid, DKDV_THREADS, smem, stream>>>(
+          tq, tk, tv, tdo, static_cast<const float*>(lse),
+          static_cast<const float*>(delta), static_cast<const int*>(order),
+          dk, dv, B, H_q, H_kv, N_q, N_kv, Dt, scale * LOG2E, scale, mask);
   return (int)cudaGetLastError();
 }
 
-template <class Mask>
+// dK/dV over a mask policy at head dim D (instance_d(D)) in the element
+// types IO.
+template <class Mask, class IO>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 const void* order, void* dk, void* dv, int B, int H_q,
@@ -517,20 +551,44 @@ int launch_dkdv(const void* q, const void* k, const void* v,
                 const Mask& mask, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_kv <= 0 || B * H_kv <= 0) return 0;
-  if (H_kv <= 0 || H_q % H_kv != 0 || N_q < 0 || (D != 64 && D != 128))
+  if (H_kv <= 0 || H_q % H_kv != 0 || N_q < 0 || instance_d(D) == 0)
     return (int)cudaErrorInvalidValue;
   if (N_q == 0) {  // no query reads any key (and no tensor map of q)
-    const size_t bytes = (size_t)B * H_kv * N_kv * D * 2;
+    const size_t bytes = (size_t)B * H_kv * N_kv * D * (IO::kOut32 ? 4 : 2);
     cudaMemsetAsync(dk, 0, bytes, st);
     cudaMemsetAsync(dv, 0, bytes, st);
     return (int)cudaGetLastError();
   }
-  if (D == 64)
-    return launch_dkdv_d<64, 3>(q, k, v, dout, lse, delta, order, dk, dv, B,
-                                H_q, H_kv, N_q, N_kv, scale, mask, st);
-  if (D == 128)
-    return launch_dkdv_d<128, 2>(q, k, v, dout, lse, delta, order, dk, dv, B,
-                                 H_q, H_kv, N_q, N_kv, scale, mask, st);
+  if (instance_d(D) == 64)
+    return launch_dkdv_d<64, 3, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
+                                          scale, mask, st);
+  return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                         dk, dv, B, H_q, H_kv, N_q, N_kv, D,
+                                         scale, mask, st);
+}
+
+// dK/dV in the element types of a dtype code (DtypeCode).
+template <class Mask>
+int launch_dkdv_dtype(int dtype, const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      const void* order, void* dk, void* dv, int B, int H_q,
+                      int H_kv, int N_q, int N_kv, int D, float scale,
+                      const Mask& mask, void* stream) {
+  switch (dtype) {
+    case kDtypeBf16:
+      return launch_dkdv<Mask, IoBf16>(q, k, v, dout, lse, delta, order, dk,
+                                       dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+                                       mask, stream);
+    case kDtypeF16:
+      return launch_dkdv<Mask, IoF16>(q, k, v, dout, lse, delta, order, dk,
+                                      dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+                                      mask, stream);
+    case kDtypeF32:
+      return launch_dkdv<Mask, IoF32>(q, k, v, dout, lse, delta, order, dk,
+                                      dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+                                      mask, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -45,9 +45,13 @@
 //    their runs) skips the tile's products, waiting and releasing the stage
 //    only (at 64-key tiles a sliding-window item's first or last tile is
 //    dead for one of its two consumers);
-//  * the epilogue: dQ (scaled) goes out as bf16 through the consumer's own
-//    rows of the item's Q buffer (then free) as 16-byte stores of whole
-//    rows; the Q/dO buffer is released to the producer after that.
+//  * the epilogue: dQ (scaled) goes out in the input type through the
+//    consumer's own rows of the item's Q buffer (then free) as 16-byte
+//    stores of whole rows, or as fp32 (IoF32) straight from the
+//    accumulators; the Q/dO buffer is released to the producer after that;
+//  * any head dim D <= 128 (D % 8 == 0) runs in the instance D_i =
+//    instance_d(D): TMA reads the columns past D as zeros, and only D
+//    columns are written; bf16 or fp16 inputs (hopper.cuh's Io types).
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdq_kernel` of
@@ -71,9 +75,11 @@ namespace hopper {
 constexpr int DQ_BM = 128;  // query rows per item, 64 per consumer
 constexpr int DQ_THREADS = 384;
 
-// Keys per KV tile: 128 at D = 64 (fewer, larger products: 17% faster on
-// a full layer), 64 at D = 128 (the S, dP and dQ accumulators of a
-// 128-key tile would not fit beside the operands without spills).
+// Keys per KV tile of the instance of head dim D (64 or 128; the host keys
+// its tables on the instance, not the tensors' head dim): 128 at D = 64
+// (fewer, larger products: 17% faster on a full layer), 64 at D = 128 (the
+// S, dP and dQ accumulators of a 128-key tile would not fit beside the
+// operands without spills).
 __host__ __device__ constexpr int dq_bn(int D) {
   return D == 64 ? 128 : 64;
 }
@@ -81,6 +87,28 @@ constexpr int DQ_PRODUCER_REGS = 40;
 constexpr int DQ_CONSUMER_REGS = 232;
 
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
+// An int known at compile time, usable in device code (the standard
+// library's integral_constant converts on the host only).
+template <int N>
+struct Const {
+  __host__ __device__ constexpr operator int() const { return N; }
+};
+
+// f(CH), CH = Dt / 8 16-byte chunks of a 16-bit dQ row: a compile-time
+// constant at the instance's own width D, a runtime value for a narrower
+// Dt. The two loops are the dQ kernel's: with the forward's single
+// constant loop that skips the chunks past Dt, this kernel's D = 64
+// instance measured 2-25% slower on the main path's shapes than with
+// these two (scripts/kernel_compare.py); the forward is the other way
+// round.
+template <int D, class F>
+__device__ __forceinline__ void with_row_chunks(int Dt, F&& f) {
+  if (Dt == D)
+    f(Const<D / 8>());
+  else
+    f(Dt / 8);
+}
+
 template <int D, int STAGES>
 struct DqSmem {
   static constexpr int BOXES = D / 64;              // 64-column boxes a row
@@ -145,7 +173,9 @@ struct DqItem {
   }
 };
 
-template <int D, int STAGES, class Mask>
+// D is the instance's head dim, Dt <= D the tensors' (see
+// fwd_wgmma_kernel); IO the element types.
+template <int D, int STAGES, class Mask, class IO>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -153,9 +183,9 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                     const __grid_constant__ CUtensorMap tm_do,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    const int* __restrict__ order, uint16_t* __restrict__ dq,
-                    int B, int H_q, int H_kv, int N_q, float scale_log2,
-                    float scale, Mask mask) {
+                    const int* __restrict__ order, void* __restrict__ dq,
+                    int B, int H_q, int H_kv, int N_q, int Dt,
+                    float scale_log2, float scale, Mask mask) {
   using L = DqSmem<D, STAGES>;
   constexpr int BN = dq_bn(D);  // keys per KV tile
   constexpr int OR = D / 2;     // dQ accumulators a thread
@@ -307,7 +337,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          SsMma<SR>::run(sacc,
+          SsMma<SR, IO::kF16>::run(sacc,
                          desc_sw128(qsm + x * DQ_BM * 128 + off, 16, 1024),
                          desc_sw128(ks + x * BN * 128 + off, 16, 1024),
                          kk > 0);
@@ -315,7 +345,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          SsMma<SR>::run(dpacc,
+          SsMma<SR, IO::kF16>::run(dpacc,
                          desc_sw128(dosm + x * DQ_BM * 128 + off, 16, 1024),
                          desc_sw128(vs + x * BN * 128 + off, 16, 1024),
                          kk > 0);
@@ -350,7 +380,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
           else
             mask_tile<false>(sacc, rows, col0 + t4 * 2, 0.f);
         }
-        // dS = P (dP - delta), as bf16 A fragments.
+        // dS = P (dP - delta), as 16-bit A fragments.
         uint32_t da[BN / 16][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -367,8 +397,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
           for (int h = 0; h < 4; ++h)
-            da[kk][h] =
-                pack_bf16(dpacc[8 * kk + 2 * h], dpacc[8 * kk + 2 * h + 1]);
+            da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
+                                        dpacc[8 * kk + 2 * h + 1]);
         }
 
         // dQ += dS K: the keys are the depth, K read as the transposed B
@@ -376,7 +406,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          RsMma<OR>::run(dq_acc, da[kk],
+          RsMma<OR, IO::kF16>::run(dq_acc, da[kk],
                          desc_sw128(ks + kk * 16 * 128, BN * 128, 1024));
         wgmma_commit();
         wgmma_wait<0>();
@@ -386,30 +416,50 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 
       // dQ goes out through this warpgroup's rows of the item's Q buffer
       // (its S products, the last readers, are done), in Q's swizzled
-      // layout, then as 16-byte stores of whole rows.
+      // layout, then as 16-byte stores of whole rows (Dt / 8 chunks a
+      // row); as fp32 (IoF32), straight from the accumulators as 8-byte
+      // stores of column pairs.
       uint8_t* qbuf = smem + L::Q_OFF + qs * L::QT_BYTES;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rb = r_loc + 8 * r;  // the row within the q block
-#pragma unroll
-        for (int jj = 0; jj < D / 8; ++jj)
-          *reinterpret_cast<uint32_t*>(
-              qbuf + (jj / 8) * DQ_BM * 128 + rb * 128 +
-              (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
-              pack_bf16(dq_acc[jj * 4 + 2 * r] * scale,
-                        dq_acc[jj * 4 + 2 * r + 1] * scale);
-      }
-      named_sync(1 + c, 128);  // the warpgroup's rows are staged
-      constexpr int CH = D / 8;  // 16-byte chunks a row
-      for (int i = ct; i < 64 * CH; i += 128) {
-        const int rb = c * 64 + i / CH, ch = i % CH;
         const int row = item.qb * DQ_BM + rb;
-        if (row < N_q)
-          *reinterpret_cast<uint4*>(dq + ((size_t)item.bh * N_q + row) * D +
-                                    ch * 8) =
-              *reinterpret_cast<const uint4*>(
-                  qbuf + (ch / 8) * DQ_BM * 128 + rb * 128 +
-                  (((ch % 8) ^ (rb & 7)) * 16));
+        if constexpr (IO::kOut32) {
+          float* drow =
+              static_cast<float*>(dq) + ((size_t)item.bh * N_q + row) * Dt;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const int col = jj * 8 + t4 * 2;
+            if (row < N_q && col < Dt)
+              *reinterpret_cast<float2*>(drow + col) =
+                  make_float2(dq_acc[jj * 4 + 2 * r] * scale,
+                              dq_acc[jj * 4 + 2 * r + 1] * scale);
+          }
+        } else {
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj)
+            *reinterpret_cast<uint32_t*>(
+                qbuf + (jj / 8) * DQ_BM * 128 + rb * 128 +
+                (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
+                pack2<IO::kF16>(dq_acc[jj * 4 + 2 * r] * scale,
+                                dq_acc[jj * 4 + 2 * r + 1] * scale);
+        }
+      }
+      if constexpr (!IO::kOut32) {
+        named_sync(1 + c, 128);  // the warpgroup's rows are staged
+        uint16_t* dq16 = static_cast<uint16_t*>(dq);
+        with_row_chunks<D>(Dt, [&](auto CH) {  // 16-byte chunks a row
+          for (int i = ct; i < 64 * CH; i += 128) {
+            const int rb = c * 64 + i / CH, ch = i % CH;
+            const int row = item.qb * DQ_BM + rb;
+            if (row < N_q)
+              *reinterpret_cast<uint4*>(
+                  dq16 + ((size_t)item.bh * N_q + row) * Dt + ch * 8) =
+                  *reinterpret_cast<const uint4*>(
+                      qbuf + (ch / 8) * DQ_BM * 128 + rb * 128 +
+                      (((ch % 8) ^ (rb & 7)) * 16));
+          }
+        });
       }
       // The Q/dO buffer (and its rows) is free once every consumer thread
       // is done with it; the proxy fence orders these generic accesses
@@ -420,56 +470,85 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   }
 }
 
-// Launch over a mask policy: q, dout [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D]
-// bf16 contiguous, 16-byte aligned; lse, delta [B*H_q, N_q] fp32; order the
-// host's units longest first (see DqItem); dq like q. Returns
-// cudaGetLastError() of the launch.
-template <int D, int STAGES, class Mask>
+// Launch over a mask policy: q, dout [B*H_q, N_q, Dt], k/v [B*H_kv, N_kv,
+// Dt] 16-bit (IO) contiguous, 16-byte aligned, Dt <= D, Dt % 8 == 0; lse,
+// delta [B*H_q, N_q] fp32; order the host's units longest first (see
+// DqItem); dq like q (fp32 for IoF32). Returns cudaGetLastError() of the
+// launch.
+template <int D, int STAGES, class Mask, class IO>
 int launch_dq_d(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 const void* order, void* dq, int B, int H_q, int H_kv,
-                int N_q, int N_kv, float scale, const Mask& mask,
+                int N_q, int N_kv, int Dt, float scale, const Mask& mask,
                 cudaStream_t stream) {
   constexpr int smem = DqSmem<D, STAGES>::BYTES;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
-      dq_wgmma_kernel<D, STAGES, Mask>,
+      dq_wgmma_kernel<D, STAGES, Mask, IO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, B * H_q, N_q, D, DQ_BM) ||
-      !make_map(&tdo, dout, B * H_q, N_q, D, DQ_BM) ||
-      !make_map(&tk, k, B * H_kv, N_kv, D, dq_bn(D)) ||
-      !make_map(&tv, v, B * H_kv, N_kv, D, dq_bn(D)))
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, DQ_BM, IO::kF16) ||
+      !make_map(&tdo, dout, B * H_q, N_q, Dt, DQ_BM, IO::kF16) ||
+      !make_map(&tk, k, B * H_kv, N_kv, Dt, dq_bn(D), IO::kF16) ||
+      !make_map(&tv, v, B * H_kv, N_kv, Dt, dq_bn(D), IO::kF16))
     return (int)cudaErrorInvalidValue;
   const long n_work = (long)((N_q + DQ_BM - 1) / DQ_BM) * B * H_q;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
-  dq_wgmma_kernel<D, STAGES, Mask><<<grid, DQ_THREADS, smem, stream>>>(
+  dq_wgmma_kernel<D, STAGES, Mask, IO><<<grid, DQ_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(order),
-      static_cast<uint16_t*>(dq), B, H_q, H_kv, N_q, scale * LOG2E, scale,
-      mask);
+      static_cast<const float*>(delta), static_cast<const int*>(order), dq,
+      B, H_q, H_kv, N_q, Dt, scale * LOG2E, scale, mask);
   return (int)cudaGetLastError();
 }
 
-template <class Mask>
+// dQ over a mask policy at head dim D (instance_d(D)) in the element types
+// IO.
+template <class Mask, class IO>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* order, void* dq,
               int B, int H_q, int H_kv, int N_q, int N_kv, int D, float scale,
               const Mask& mask, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_q <= 0 || B * H_q <= 0) return 0;
-  if (H_kv <= 0 || H_q % H_kv != 0 || N_kv < 0 || (D != 64 && D != 128))
+  if (H_kv <= 0 || H_q % H_kv != 0 || N_kv < 0 || instance_d(D) == 0)
     return (int)cudaErrorInvalidValue;
   if (N_kv == 0) {  // no key to read (and no tensor map of k)
-    cudaMemsetAsync(dq, 0, (size_t)B * H_q * N_q * D * 2, st);
+    cudaMemsetAsync(dq, 0, (size_t)B * H_q * N_q * D * (IO::kOut32 ? 4 : 2),
+                    st);
     return (int)cudaGetLastError();
   }
-  if (D == 64)
-    return launch_dq_d<64, 4>(q, k, v, dout, lse, delta, order, dq, B, H_q,
-                              H_kv, N_q, N_kv, scale, mask, st);
-  return launch_dq_d<128, 2>(q, k, v, dout, lse, delta, order, dq, B, H_q,
-                             H_kv, N_q, N_kv, scale, mask, st);
+  if (instance_d(D) == 64)
+    return launch_dq_d<64, 4, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+                                        B, H_q, H_kv, N_q, N_kv, D, scale,
+                                        mask, st);
+  return launch_dq_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+                                       B, H_q, H_kv, N_q, N_kv, D, scale,
+                                       mask, st);
+}
+
+// dQ in the element types of a dtype code (DtypeCode).
+template <class Mask>
+int launch_dq_dtype(int dtype, const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* order, void* dq, int B, int H_q, int H_kv,
+                    int N_q, int N_kv, int D, float scale, const Mask& mask,
+                    void* stream) {
+  switch (dtype) {
+    case kDtypeBf16:
+      return launch_dq<Mask, IoBf16>(q, k, v, dout, lse, delta, order, dq, B,
+                                     H_q, H_kv, N_q, N_kv, D, scale, mask,
+                                     stream);
+    case kDtypeF16:
+      return launch_dq<Mask, IoF16>(q, k, v, dout, lse, delta, order, dq, B,
+                                    H_q, H_kv, N_q, N_kv, D, scale, mask,
+                                    stream);
+    case kDtypeF32:
+      return launch_dq<Mask, IoF32>(q, k, v, dout, lse, delta, order, dq, B,
+                                    H_q, H_kv, N_q, N_kv, D, scale, mask,
+                                    stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace hopper

@@ -31,7 +31,10 @@
 // warp-specialised wgmma/TMA kernels of the unpacked path, each row seeing
 // two runs of keys (row_span below: forward and dQ, which put the per-cell
 // mask on partial tiles only and skip a consumer's dead tiles) and each
-// key one interval of rows [j, reach(j)) (dK/dV).
+// key one interval of rows [j, reach(j)) (dK/dV). Coverage as the
+// unpacked kernels' (flash_fwd.cu): D <= 128, D % 8 == 0, in the instance
+// D_i = 64 or 128; bf16, fp16, and fp32 read as bf16 with fp32 outputs
+// (the entries' `dtype`, hopper.cuh's DtypeCode).
 //
 // Tables, built per batch by ops/packed.py:
 //   seg   [B, N]          s_i of every row;
@@ -111,14 +114,14 @@ PackedMask make_mask(const void* table, const void* seg, const void* reach,
 // q [B*H_q, N, D], k/v [B*H_kv, N, D] bf16 contiguous, 16-byte aligned;
 // s_aux [H_q] fp32 or null; fwdtable [B, ceil(N/128), 4], fwdorder
 // [B * ceil(N/128)], seg [B, N] int32; o like q; lse [B*H_q, N] fp32.
-extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
-                              const void* s_aux, const void* fwdtable,
-                              const void* fwdorder, const void* seg, void* o,
-                              void* lse, int B, int H_q, int H_kv, int N,
-                              int D, int num_sink, int window, float scale,
-                              void* stream) {
-  return sinkattn::hopper::launch_fwd(
-      q, k, v, s_aux, fwdorder, o, lse, B, H_q, H_kv, N, N, D, scale,
+extern "C" int sink_pfwd(const void* q, const void* k, const void* v,
+                         const void* s_aux, const void* fwdtable,
+                         const void* fwdorder, const void* seg, void* o,
+                         void* lse, int B, int H_q, int H_kv, int N, int D,
+                         int num_sink, int window, int dtype, float scale,
+                         void* stream) {
+  return sinkattn::hopper::launch_fwd_dtype(
+      dtype, q, k, v, s_aux, fwdorder, o, lse, B, H_q, H_kv, N, N, D, scale,
       make_mask(fwdtable, seg, nullptr, N, FWD_BM, num_sink, window),
       stream);
 }
@@ -127,30 +130,31 @@ extern "C" int sink_pfwd_bf16(const void* q, const void* k, const void* v,
 // dqtable [B, ceil(N/128), 4] (KV blocks of sink_packed_dq_block_n(D)
 // keys) and dqorder [B * ceil(N/128)] int32 in place of fwdtable and
 // fwdorder; dq like q.
-extern "C" int sink_pdq_bf16(const void* q, const void* k, const void* v,
-                             const void* dout, const void* lse,
-                             const void* delta, const void* dqtable,
-                             const void* dqorder, const void* seg, void* dq,
-                             int B, int H_q, int H_kv, int N, int D,
-                             int num_sink, int window, float scale,
-                             void* stream) {
-  return sinkattn::hopper::launch_dq(
-      q, k, v, dout, lse, delta, dqorder, dq, B, H_q, H_kv, N, N, D, scale,
+extern "C" int sink_pdq(const void* q, const void* k, const void* v,
+                        const void* dout, const void* lse, const void* delta,
+                        const void* dqtable, const void* dqorder,
+                        const void* seg, void* dq, int B, int H_q, int H_kv,
+                        int N, int D, int num_sink, int window, int dtype,
+                        float scale, void* stream) {
+  return sinkattn::hopper::launch_dq_dtype(
+      dtype, q, k, v, dout, lse, delta, dqorder, dq, B, H_q, H_kv, N, N, D,
+      scale,
       make_mask(dqtable, seg, nullptr, N, DQ_BM, num_sink, window), stream);
 }
 
 // As sink_pdq_bf16 with kvtable [B, ceil(N/128), 2], order
 // [B * ceil(N/128)] and reach [B, N] int32 in place of dqtable, dqorder and
 // seg; dk, dv like k.
-extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, const void* kvtable,
-                               const void* order, const void* reach,
-                               void* dk, void* dv, int B, int H_q, int H_kv,
-                               int N, int D, int num_sink, int window,
-                               float scale, void* stream) {
-  return sinkattn::hopper::launch_dkdv(
-      q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D, scale,
+extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, const void* kvtable,
+                          const void* order, const void* reach, void* dk,
+                          void* dv, int B, int H_q, int H_kv, int N, int D,
+                          int num_sink, int window, int dtype, float scale,
+                          void* stream) {
+  return sinkattn::hopper::launch_dkdv_dtype(
+      dtype, q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D,
+      scale,
       make_mask(kvtable, nullptr, reach, N, DKDV_BN, num_sink, window),
       stream);
 }
@@ -160,6 +164,8 @@ extern "C" int sink_pdkdv_bf16(const void* q, const void* k, const void* v,
 extern "C" int sink_packed_block_m() { return FWD_BM; }
 extern "C" int sink_packed_block_n() { return FWD_BN; }
 extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
-extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(D); }
+extern "C" int sink_packed_dq_block_n(int D) {
+  return dq_bn(sinkattn::hopper::instance_d(D));
+}
 extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
 extern "C" int sink_packed_dkdv_block_n() { return DKDV_BN; }

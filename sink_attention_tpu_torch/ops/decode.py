@@ -2,8 +2,8 @@
 
 Counterpart of ``sink_attention_tpu/ops/decode.py``. The kernel is
 ``csrc/decode.cu`` (it replaces the TPU kernel ``_decode_kernel`` in its
-three storage branches: bf16, int8 and fp8 codes with per-token fp32
-scales): one launch per call, a thread block cluster per (sequence, KV
+storage branches: bf16, fp16, fp32, and int8 and fp8 codes with per-token
+fp32 scales): one launch per call, a thread block cluster per (sequence, KV
 head) that splits the live 128-slot tiles of the cache buffer, read in
 place, and merges its partials in distributed shared memory. Beside it
 sits its plain PyTorch version, :func:`decode_plain`. A CPU tensor takes
@@ -12,7 +12,17 @@ the plain version; a CUDA tensor launches the kernel or raises.
 The quantized kernels compute attention over the dequantized cache. The
 JAX int8 branch instead rounds q and p to 8 bits for the TPU's s8 x s8
 matrix unit, so the port follows the function that branch approximates,
-not its rounding.
+not its rounding. An fp32 cache is attended in fp32 (JAX pins
+``Precision.HIGHEST`` for a non-bf16 cache), an fp16 cache in fp16 with
+fp32 accumulation.
+
+Any head_dim up to 128 runs (the kernel's instances are 64 and 128 wide,
+the columns past D zero-filled). The cache rows are copied 16 bytes at a
+time, so a D whose rows are not whole 16 bytes (D % 8 != 0 in bf16/fp16,
+D % 16 != 0 for int8/fp8 codes, D % 4 != 0 in fp32) reaches the kernel
+through a zero-padded copy of q and the whole cache buffer made per call
+(``decode_kernel.padded_copies`` counts them), and the output is sliced
+back: correct, and slow in proportion to the buffer.
 
 The per-sequence state (sink_len, window_len, write_pos) reaches the
 kernel as three ints shared by the batch (a ``SinkKVCache``), as the three
@@ -128,19 +138,22 @@ def decode_plain(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     return out.reshape(B, H_q, 1, D).to(q.dtype)
 
 
-# The storage branches' C entry points in csrc/decode.cu (one signature).
-_ENTRY = {None: "sink_decode_bf16", "int8": "sink_decode_int8",
+# The storage branches' C entry points in csrc/decode.cu (one signature),
+# by the cache's quantization, else by its dtype.
+_ENTRY = {torch.bfloat16: "sink_decode_bf16",
+          torch.float16: "sink_decode_f16",
+          torch.float32: "sink_decode_f32", "int8": "sink_decode_int8",
           "fp8": "sink_decode_fp8"}
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(quant=None):
+def _kernel_fn(branch):
     lib = _build.load("decode")
     if (lib.sink_decode_tile(), lib.sink_decode_max_cluster()) != (
             TILE, MAX_CLUSTER):
         raise RuntimeError("csrc/decode.cu and ops/decode.py disagree on "
                            "TILE / MAX_CLUSTER")
-    fn = getattr(lib, _ENTRY[quant])
+    fn = getattr(lib, _ENTRY[branch])
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 +
                    [ctypes.c_float, ctypes.c_void_p])
@@ -150,7 +163,7 @@ def _kernel_fn(quant=None):
 def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
                             quant) -> None:
     """What the int8 and fp8 kernels take: bf16 q, int8 codes, fp32
-    scales [B, H_kv, S_total], head_dim 64 or 128, one device."""
+    scales [B, H_kv, S_total], head_dim up to 128, one device."""
     if quant not in ("int8", "fp8"):
         raise ValueError(f"quant must be 'int8' or 'fp8', got {quant!r}")
     if q.dtype != torch.bfloat16:
@@ -165,9 +178,7 @@ def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
     if (tuple(k_scale.shape) != tuple(k_buf.shape[:3])
             or tuple(v_scale.shape) != tuple(k_buf.shape[:3])):
         raise ValueError("scales must be [B, H_kv, S_total]")
-    if q.shape[-1] not in _build.KERNEL_HEAD_DIMS:
-        raise ValueError(f"head_dim {q.shape[-1]} not supported by the CUDA "
-                         f"kernels (supported: {_build.KERNEL_HEAD_DIMS})")
+    _build.kernel_head_dim(q.shape[-1])
     devs = {t.device for t in (q, k_buf, v_buf, k_scale, v_scale)}
     if s_aux is not None:
         devs.add(s_aux.device)
@@ -220,11 +231,15 @@ def _state_args(lens, batch: int, device):
 def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
                   window_size: int, k_scale=None, v_scale=None, quant=None):
     """Launch ``csrc/decode.cu`` on CUDA tensors (same contract as
-    :func:`decode_plain`): ``sink_decode_bf16`` for bf16 storage,
-    ``sink_decode_int8`` / ``sink_decode_fp8`` for quantized storage; one
-    kernel per call, any GQA group. Each branch counts its launches:
-    ``decode_kernel.launches`` (bf16), ``.launches_int8`` and
-    ``.launches_fp8``."""
+    :func:`decode_plain`): ``sink_decode_bf16`` / ``_f16`` / ``_f32`` for
+    bf16, fp16 or fp32 storage (q of the cache's dtype),
+    ``sink_decode_int8`` / ``sink_decode_fp8`` for quantized storage (q
+    bf16); one kernel per call, any GQA group, head_dim up to 128. Each
+    branch counts its launches: ``decode_kernel.launches`` (the
+    unquantized branch, any of its dtypes), ``.launches_int8`` and
+    ``.launches_fp8``; ``.coverage`` the (head_dim, dtype) pairs run and
+    ``.padded_copies`` the calls that padded D (see the module's
+    docstring)."""
     if quant:
         _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
                                 quant)
@@ -243,31 +258,38 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
         raise ValueError("decode_kernel takes CUDA tensors on one device")
     ptrs, stride, ints = _state_args(lens, B, q.device)
     cluster = cluster_size(lens, s_total, sink_cap, window_size)
-    qc = q.contiguous()
-    kc, vc = _build.aligned(k_buf), _build.aligned(v_buf)
+    d_pad = max(_build.padded_head_dim(D, k_buf.element_size()),
+                _build.padded_head_dim(D, 4))  # cache rows, q's float4s
+    qc = _build.aligned(_build.pad_head_dim(q, d_pad))
+    kc, vc = (_build.aligned(_build.pad_head_dim(t, d_pad))
+              for t in (k_buf, v_buf))
     # every tensor a pointer is taken from stays referenced until the launch
     scales = ([_build.aligned(t) for t in (k_scale, v_scale)] if quant
               else [None, None])
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
     out = torch.empty_like(qc)
-    code = _kernel_fn(quant)(
+    branch = quant or q.dtype
+    code = _kernel_fn(branch)(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         *(t.data_ptr() if t is not None else None for t in scales), *ptrs,
         aux.data_ptr() if aux is not None else None, out.data_ptr(), stride,
-        *ints, B, H_q, H_kv, s_total, D, sink_cap, window_size, cluster,
+        *ints, B, H_q, H_kv, s_total, d_pad, sink_cap, window_size, cluster,
         1.0 / (D ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, _ENTRY[quant])
+    _build.check(code, _ENTRY[branch])
     if quant == "int8":
         decode_kernel.launches_int8 += 1
     elif quant == "fp8":
         decode_kernel.launches_fp8 += 1
     else:
         decode_kernel.launches += 1
-    return out
+    decode_kernel.coverage.add((D, quant or str(q.dtype).replace("torch.",
+                                                                 "")))
+    decode_kernel.padded_copies += d_pad != D
+    return out if d_pad == D else out[..., :D]
 
 
-decode_kernel.launches = 0
+_build.counters(decode_kernel)
 decode_kernel.launches_int8 = 0
 decode_kernel.launches_fp8 = 0
 

@@ -6,9 +6,21 @@ version:
 
 * ``csrc/flash_fwd.cu`` (replaces the TPU kernel ``_fwd_kernel``): O and
   LSE; plain version :func:`flash_fwd_plain`;
-* ``csrc/flash_bwd.cu``, ``sink_dq_bf16`` (replaces ``_dq_kernel``) and
-  ``sink_dkdv_bf16`` (replaces ``_dkdv_kernel``): dQ, and dK/dV summed over
+* ``csrc/flash_bwd.cu``, ``sink_dq`` (replaces ``_dq_kernel``) and
+  ``sink_dkdv`` (replaces ``_dkdv_kernel``): dQ, and dK/dV summed over
   the GQA group; plain version of the pair :func:`flash_bwd_plain`.
+
+The kernels take any head_dim up to 128 and bf16, fp16 or fp32 inputs, as
+the JAX kernels take any head_dim and float type. A head_dim D runs in the
+instance of D_i = 64 or 128 (``_build.kernel_head_dim``): the columns
+past D read as zeros and are not written, so no padded copy is made for D
+% 8 == 0; any other D (100: 3200 over 32 heads) takes a zero-padded copy
+to the next multiple of 8 (TMA's 16-byte rows; ``padded_copies`` counts
+them) and its outputs are sliced back, as JAX's ``_prep`` pads outside its
+kernels. fp32 inputs are rounded to bf16 once on the way in and the
+outputs written as fp32 from the kernels' fp32 accumulators: what the
+TPU's matrix unit does with fp32 at its default precision, held to JAX's
+TPU tolerances (6e-3 forward, 2e-3 backward). D > 128 raises.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. :class:`_SinkAttention` ties them into one autograd function
@@ -42,7 +54,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .reference import _eager_attend, sink_window_mask
+from .reference import _eager_attend, rounded, sink_window_mask
 
 __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "sink_flash_attention_chunk", "merge_partials",
@@ -54,7 +66,9 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
 FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
 FWD_BN = 128  # the forward kernels' keys per KV tile (csrc/hopper.cuh)
 DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
-DQ_BN = {64: 128, 128: 64}  # its keys per KV tile by head dim (dq_bn there)
+# its keys per KV tile by instance head dim (dq_bn there; a head dim's
+# instance is _build.kernel_head_dim)
+DQ_BN = {64: 128, 128: 64}
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
 DKDV_BN = 128  # the dK/dV kernel's keys per work item (csrc/hopper_bwd.cuh)
 # Past the last query position a window is unbounded; clamp it there so the
@@ -193,18 +207,19 @@ def _visible(n_q, n_kv, num_sink, window, q_offset, kv_offset, device):
 
 def flash_fwd_plain(q, k, v, s_aux=None, num_sink: int = 4,
                     window_size: int = 512, q_offset: int = 0,
-                    kv_offset: int = 0):
+                    kv_offset: int = 0, matmul_dtype=None):
     """The kernel's plain PyTorch version: (out [B,H_q,N_q,D] in q.dtype,
     lse [B,H_q,N_q] fp32), the eager oracle taken over query chunks of
     1024 rows so that its [.., rows, N_kv] score block stays bounded at
-    long N."""
+    long N. With ``matmul_dtype`` (torch.bfloat16: the fp32 kernels'
+    precision) the products read their operands rounded to it."""
     n_kv = k.shape[2]
     return fwd_plain_chunks(q, k, v, s_aux, lambda r0, n: _visible(
         n, n_kv, num_sink, window_size, q_offset + r0, kv_offset,
-        q.device)[None, None])
+        q.device)[None, None], matmul_dtype)
 
 
-def fwd_plain_chunks(q, k, v, s_aux, chunk_mask):
+def fwd_plain_chunks(q, k, v, s_aux, chunk_mask, matmul_dtype=None):
     """(out, lse) of the eager oracle over query chunks of 1024 rows;
     ``chunk_mask(r0, n)`` is the mask of rows [r0, r0 + n), bool
     [B|1, 1, n, N_kv]."""
@@ -212,7 +227,7 @@ def fwd_plain_chunks(q, k, v, s_aux, chunk_mask):
     for r0 in range(0, max(q.shape[2], 1), _PLAIN_ROWS):
         qc = q[:, :, r0:r0 + _PLAIN_ROWS]
         o, lse = _eager_attend(qc, k, v, chunk_mask(r0, qc.shape[2]), s_aux,
-                               True)
+                               True, matmul_dtype)
         outs.append(o)
         lses.append(lse)
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
@@ -220,7 +235,7 @@ def fwd_plain_chunks(q, k, v, s_aux, chunk_mask):
 
 def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
                     window_size: int = 512, q_offset: int = 0,
-                    kv_offset: int = 0):
+                    kv_offset: int = 0, matmul_dtype=None):
     """The plain PyTorch version of the two backward kernels: (dq in
     q.dtype, dk in k.dtype, dv in v.dtype) from the same inputs.
 
@@ -230,13 +245,16 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
     dK and dV summed over each GQA group. ``lse`` [B,H_q,N_q] fp32 is the
     forward's (it counts s_aux, so P is the true probability); ``delta``
     [B,H_q,N_q] fp32 is sum_d dO * O, less the LSE cotangent if any.
+    With ``matmul_dtype`` (torch.bfloat16: the fp32 kernels' precision)
+    every product reads its operands (q, k, v, dO, P, dS) rounded to it.
     """
     n_kv = k.shape[2]
     return bwd_plain_chunks(q, k, v, do, lse, delta, lambda r0, n: _visible(
-        n, n_kv, num_sink, window_size, q_offset + r0, kv_offset, q.device))
+        n, n_kv, num_sink, window_size, q_offset + r0, kv_offset, q.device),
+        matmul_dtype)
 
 
-def bwd_plain_chunks(q, k, v, do, lse, delta, chunk_mask):
+def bwd_plain_chunks(q, k, v, do, lse, delta, chunk_mask, matmul_dtype=None):
     """(dq, dk, dv) of :func:`flash_bwd_plain`'s formulas under the mask
     ``chunk_mask(r0, n)`` of rows [r0, r0 + n), bool broadcastable to
     [B, H_q, n, N_kv]."""
@@ -244,21 +262,24 @@ def bwd_plain_chunks(q, k, v, do, lse, delta, chunk_mask):
     H_kv, N_kv = k.shape[1], k.shape[2]
     group = H_q // H_kv
     scale = 1.0 / (D ** 0.5)
-    kf = k.float().repeat_interleave(group, dim=1)
-    vf = v.float().repeat_interleave(group, dim=1)
+    def mm(t):
+        return rounded(t, matmul_dtype)
+
+    kf = mm(k).repeat_interleave(group, dim=1)
+    vf = mm(v).repeat_interleave(group, dim=1)
     dk = torch.zeros(B, H_q, N_kv, D, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
     dqs = []
     for r0 in range(0, max(N_q, 1), _PLAIN_ROWS):
         rows = slice(r0, r0 + _PLAIN_ROWS)
-        qc, doc = q[:, :, rows].float(), do[:, :, rows].float()
+        qc, doc = mm(q[:, :, rows]), mm(do[:, :, rows])
         mask = chunk_mask(r0, qc.shape[2])
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
         p = torch.where(mask, torch.exp(s - lse[:, :, rows, None]), 0.0)
         dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf)
-        ds = p * (dp - delta[:, :, rows, None])
+        ds = mm(p * (dp - delta[:, :, rows, None]))
         dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale)
-        dv += torch.einsum("bhqk,bhqd->bhkd", p, doc)
+        dv += torch.einsum("bhqk,bhqd->bhkd", mm(p), doc)
         dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
     dk = dk.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
     dv = dv.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
@@ -282,7 +303,7 @@ def _kernel_fn():
     if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (FWD_BM, FWD_BN):
         raise RuntimeError("csrc/flash_fwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    return load_fn("flash_fwd", "sink_fwd_bf16", 7)
+    return load_fn("flash_fwd", "sink_fwd", 7, 11)
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,8 +315,8 @@ def _bwd_fns():
                 DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
-    return (load_fn("flash_bwd", "sink_dq_bf16", 9),
-            load_fn("flash_bwd", "sink_dkdv_bf16", 10))
+    return (load_fn("flash_bwd", "sink_dq", 9, 11),
+            load_fn("flash_bwd", "sink_dkdv", 10, 11))
 
 
 @functools.lru_cache(maxsize=256)
@@ -320,16 +341,31 @@ def _geometry(q, k, v, num_sink, window_size, q_offset, kv_offset):
     return (B, H_q, H_kv, N_q, N_kv, D), geom
 
 
+def kernel_out(like: torch.Tensor, shape, d_pad: int) -> torch.Tensor:
+    """An output of the kernels for inputs like ``like``: ``shape`` with
+    its last dim ``d_pad``, in ``like``'s dtype (fp32 inputs give fp32
+    outputs)."""
+    return torch.empty((*shape[:-1], d_pad), dtype=like.dtype,
+                       device=like.device)
+
+
+def unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    """A kernel output cut back to head dim ``d`` (a view; itself if not
+    padded)."""
+    return t if t.shape[-1] == d else t[..., :d]
+
+
 def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
                      window_size: int = 512, q_offset: int = 0,
                      kv_offset: int = 0):
     """Launch ``csrc/flash_fwd.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``) on CUDA tensors: (out, lse).
 
-    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16 with D in (64, 128);
-    s_aux [H_q] or None. ``flash_fwd_kernel.launches`` counts the launches.
-    A warmed call (its range table already on the card) synchronises
-    nothing.
+    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16, fp16 or fp32, D <= 128;
+    s_aux [H_q] or None; out in q's dtype. ``flash_fwd_kernel.launches``
+    counts the launches (``padded_copies`` those that padded D, see the
+    module's docstring). A warmed call (its range table already on the
+    card) synchronises nothing.
     """
     _build.check_attention_inputs(q, k, v, s_aux)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
@@ -337,25 +373,26 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     B, H_q, H_kv, N_q, N_kv, D = dims
     ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom, FWD_BM,
                        FWD_BN)
-    qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
+    (qc, kc, vc), code, d_pad = _build.kernel_operands(q, k, v)
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
-    out = torch.empty_like(qc)
+    out = kernel_out(q, q.shape, d_pad)
     lse = torch.empty((B, H_q, N_q), dtype=torch.float32, device=q.device)
     ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, ranges, out, lse)]
-    code = _kernel_fn()(*ptrs, *dims, *geom, 1.0 / (D ** 0.5),
-                        _build.stream_ptr(q.device))
-    _build.check(code, "sink_fwd_bf16")
-    flash_fwd_kernel.launches += 1
-    return out, lse
+    err = _kernel_fn()(*ptrs, *dims[:5], d_pad, *geom, code, 1.0 / (D ** 0.5),
+                       _build.stream_ptr(q.device))
+    _build.check(err, "sink_fwd")
+    _build.note_launch(flash_fwd_kernel, D, q.dtype, d_pad != D)
+    return unpad(out, D), lse
 
 
-flash_fwd_kernel.launches = 0
+_build.counters(flash_fwd_kernel)
 
 
 def _bwd_operands(q, k, v, do, lse, delta):
-    """The backward kernels' checks and operands: contiguous, aligned q, k,
-    v, dO (bf16) and lse, delta (fp32 [B,H_q,N_q])."""
+    """The backward kernels' checks and operands: (q, k, v, dO as
+    :func:`_build.kernel_operands` makes them, and lse, delta fp32
+    [B,H_q,N_q] contiguous), the dtype code and the padded head dim."""
     _build.check_attention_inputs(q, k, v, None)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"dO must match q: {tuple(do.shape)} {do.dtype}")
@@ -365,62 +402,66 @@ def _bwd_operands(q, k, v, do, lse, delta):
                              f"{t.dtype} {tuple(t.shape)}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    return [_build.aligned(t) for t in (q, k, v, do, lse, delta)]
+    ops, code, d_pad = _build.kernel_operands(q, k, v, do)
+    return ops + [_build.aligned(t) for t in (lse, delta)], code, d_pad
 
 
 def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
                     window_size: int = 512, q_offset: int = 0,
                     kv_offset: int = 0):
-    """Launch ``sink_dq_bf16`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA
-    kernel of ``csrc/hopper_dq.cuh``): dq [B,H_q,N_q,D] bf16, bitwise
-    repeatable. Inputs as :func:`flash_bwd_plain`'s, on the card, bf16
-    q/k/v/dO with D in (64, 128). ``flash_dq_kernel.launches`` counts the
-    launches. A warmed call (its tables already on the card) synchronises
-    nothing.
+    """Launch ``sink_dq`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA kernel
+    of ``csrc/hopper_dq.cuh``): dq [B,H_q,N_q,D] in q's dtype, bitwise
+    repeatable. Inputs as :func:`flash_bwd_plain`'s, on the card, q/k/v/dO
+    of one type (bf16, fp16, fp32) with D <= 128.
+    ``flash_dq_kernel.launches`` counts the launches. A warmed call (its
+    tables already on the card) synchronises nothing.
     """
-    ops = _bwd_operands(q, k, v, do, lse, delta)
+    ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
-    key = (dims[3], dims[4], *geom, DQ_BM, DQ_BN[dims[5]])
+    D = dims[5]
+    key = (dims[3], dims[4], *geom, DQ_BM,
+           DQ_BN[_build.kernel_head_dim(d_pad)])
     ranges = _table_on(fwd_kv_ranges, q.device, *key)
     order = _table_on(dq_block_order, q.device, *key)
-    dq = torch.empty_like(ops[0])
+    dq = kernel_out(q, q.shape, d_pad)
     ptrs = [_build.ptr(t) for t in (*ops, ranges, order, dq)]
-    code = _bwd_fns()[0](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
-                         _build.stream_ptr(q.device))
-    _build.check(code, "sink_dq_bf16")
-    flash_dq_kernel.launches += 1
-    return dq
+    err = _bwd_fns()[0](*ptrs, *dims[:5], d_pad, *geom, code,
+                        1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    _build.check(err, "sink_dq")
+    _build.note_launch(flash_dq_kernel, D, q.dtype, d_pad != D)
+    return unpad(dq, D)
 
 
-flash_dq_kernel.launches = 0
+_build.counters(flash_dq_kernel)
 
 
 def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
                       window_size: int = 512, q_offset: int = 0,
                       kv_offset: int = 0):
-    """Launch ``sink_dkdv_bf16`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA
-    kernel of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N_kv,D] bf16,
-    summed over each GQA group inside the kernel, bitwise repeatable.
-    Inputs as :func:`flash_dq_kernel`'s. ``flash_dkdv_kernel.launches``
-    counts the launches. A warmed call (its tables already on the card)
-    synchronises nothing."""
-    ops = _bwd_operands(q, k, v, do, lse, delta)
+    """Launch ``sink_dkdv`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA
+    kernel of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N_kv,D] in k's
+    dtype, summed over each GQA group inside the kernel, bitwise
+    repeatable. Inputs as :func:`flash_dq_kernel`'s.
+    ``flash_dkdv_kernel.launches`` counts the launches. A warmed call (its
+    tables already on the card) synchronises nothing."""
+    ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
+    D = dims[5]
     key = (dims[3], dims[4], *geom, DKDV_BM, DKDV_BN)
     ranges = _table_on(dkdv_q_ranges, q.device, *key)
     order = _table_on(dkdv_block_order, q.device, *key)
-    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    dk, dv = kernel_out(k, k.shape, d_pad), kernel_out(v, v.shape, d_pad)
     ptrs = [_build.ptr(t) for t in (*ops, ranges, order, dk, dv)]
-    code = _bwd_fns()[1](*ptrs, *dims, *geom, 1.0 / (dims[5] ** 0.5),
-                         _build.stream_ptr(q.device))
-    _build.check(code, "sink_dkdv_bf16")
-    flash_dkdv_kernel.launches += 1
-    return dk, dv
+    err = _bwd_fns()[1](*ptrs, *dims[:5], d_pad, *geom, code,
+                        1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    _build.check(err, "sink_dkdv")
+    _build.note_launch(flash_dkdv_kernel, D, q.dtype, d_pad != D)
+    return unpad(dk, D), unpad(dv, D)
 
 
-flash_dkdv_kernel.launches = 0
+_build.counters(flash_dkdv_kernel)
 
 
 def _fwd(q, k, v, s_aux, num_sink, window_size, q_offset, kv_offset):

@@ -14,11 +14,16 @@ forward of ``csrc/hopper.cuh``, dQ of ``csrc/hopper_dq.cuh`` and dK/dV of
 ``csrc/hopper_bwd.cuh``, the unpacked path's kernels), each beside its
 plain PyTorch version:
 
-* ``sink_pfwd_bf16`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
+* ``sink_pfwd`` (replaces the TPU kernel ``_pfwd_kernel``): O and LSE;
   plain version :func:`packed_fwd_plain`;
-* ``sink_pdq_bf16`` (``_pdq_kernel``) and ``sink_pdkdv_bf16``
-  (``_pdkdv_kernel``): dQ, and dK/dV summed over the GQA group; plain
-  version of the pair :func:`packed_bwd_plain`.
+* ``sink_pdq`` (``_pdq_kernel``) and ``sink_pdkdv`` (``_pdkdv_kernel``):
+  dQ, and dK/dV summed over the GQA group; plain version of the pair
+  :func:`packed_bwd_plain`.
+
+They take what the unpacked kernels take (``ops.flash``): any head_dim up
+to 128 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
+bf16, fp16 or fp32 inputs (fp32 rounded to bf16 on the way in, written
+as fp32).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. :class:`_PackedSinkAttention` ties them into one autograd
@@ -49,12 +54,34 @@ import torch
 from . import _build
 from .flash import (DKDV_BM, DKDV_BN, DQ_BM, DQ_BN, FWD_BM, FWD_BN,
                     _WINDOW_CLAMP, _bwd_operands, attention_backward,
-                    bwd_plain_chunks, fwd_plain_chunks, load_fn)
+                    bwd_plain_chunks, fwd_plain_chunks, kernel_out, load_fn,
+                    unpad)
 from .reference import packed_rows_mask
 
 __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
            "packed_fwd_plain", "packed_bwd_plain", "packed_fwd_kernel",
-           "packed_dq_kernel", "packed_dkdv_kernel"]
+           "packed_dq_kernel", "packed_dkdv_kernel", "pack_lengths",
+           "pack_positions"]
+
+
+def pack_lengths(n: int, lo: int, hi: int, seed: int):
+    """Segment lengths drawn uniform in [lo, hi] from
+    numpy.random.default_rng(seed) until ``n`` tokens are filled; the last
+    one is cut to fit (the length spread of a verl / SFT packed batch)."""
+    import numpy as np
+    rng, lens = np.random.default_rng(seed), []
+    while sum(lens) < n:
+        lens.append(min(int(rng.integers(lo, hi + 1)), n - sum(lens)))
+    return lens
+
+
+def pack_positions(lens, first: int = 0):
+    """int64 [sum(lens)] segment-local positions (what a loader gives) of
+    segments of ``lens`` back to back; ``first`` > 0 starts the pack
+    inside its first segment."""
+    pos = torch.cat([torch.arange(L) for L in lens])
+    pos[:lens[0]] += first
+    return pos
 
 
 class PackedTables(NamedTuple):
@@ -133,7 +160,8 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     ``head_dim``, on the positions' device.
 
     Forward (128-row q blocks, 128-key KV blocks) and dQ (128-row q
-    blocks, KV blocks of ``DQ_BN[head_dim]`` keys), per q block of rows
+    blocks, KV blocks of ``DQ_BN[kernel_head_dim(head_dim)]`` keys: the
+    instance's tile, ``_build.kernel_head_dim``), per q block of rows
     [r0, r1]: the sink range covers the first row's segment's sink columns
     [max(s_r0, 0), s_r0 + num_sink), cut at r1; the window range covers
     [max(s_r0, r0 - window + 1, 0), r1] and starts after the sink range, so
@@ -158,7 +186,8 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     seg = idx - pos
     n_q_blocks, n_kv_blocks = -(-N // DKDV_BM), -(-N // DKDV_BN)
     fwdtab = _q_table(seg, FWD_BM, FWD_BN, num_sink, window)
-    dqtab = _q_table(seg, DQ_BM, DQ_BN[head_dim], num_sink, window)
+    dqtab = _q_table(seg, DQ_BM, DQ_BN[_build.kernel_head_dim(head_dim)],
+                     num_sink, window)
 
     # seg_end(j): the first reset after j, else N
     resets = torch.where(pos == 0, idx, N)
@@ -191,6 +220,7 @@ def _tables_for(positions, device, num_sink, window,
                 head_dim) -> PackedTables:
     """:func:`packed_tables` of ``positions`` on ``device``, built once per
     positions tensor (and its version) and geometry."""
+    head_dim = _build.kernel_head_dim(head_dim)  # 80 and 128 share one
     key = (positions._version, device, num_sink, window, head_dim)
     for ref, *rest, tables in _TABLES:
         if ref() is positions and tuple(rest) == key:
@@ -202,24 +232,25 @@ def _tables_for(positions, device, num_sink, window,
 
 
 def packed_fwd_plain(q, k, v, positions, s_aux=None, num_sink: int = 4,
-                     window_size: int = 512):
+                     window_size: int = 512, matmul_dtype=None):
     """The forward kernel's plain PyTorch version: (out [B,H_q,N,D] in
     q.dtype, lse [B,H_q,N] fp32), the eager oracle over query chunks of
-    1024 rows."""
+    1024 rows (``matmul_dtype`` as in ``ops.flash.flash_fwd_plain``)."""
     pos = positions.to(q.device)
     return fwd_plain_chunks(q, k, v, s_aux, lambda r0, n: packed_rows_mask(
-        pos, r0, n, num_sink, window_size)[:, None])
+        pos, r0, n, num_sink, window_size)[:, None], matmul_dtype)
 
 
 def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
-                     window_size: int = 512):
+                     window_size: int = 512, matmul_dtype=None):
     """The plain PyTorch version of the packed dQ and dK/dV kernels: (dq,
     dk, dv), ``ops.flash.flash_bwd_plain``'s formulas under the packed
     mask."""
     pos = positions.to(q.device)
     return bwd_plain_chunks(q, k, v, do, lse, delta, lambda r0, n:
                             packed_rows_mask(pos, r0, n, num_sink,
-                                             window_size)[:, None])
+                                             window_size)[:, None],
+                            matmul_dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,9 +265,9 @@ def _kernel_fns():
             != (DKDV_BM, DKDV_BN)):
         raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
                            "tile sizes")
-    return (load_fn("packed", "sink_pfwd_bf16", 9, 7),
-            load_fn("packed", "sink_pdq_bf16", 10, 7),
-            load_fn("packed", "sink_pdkdv_bf16", 11, 7))
+    return (load_fn("packed", "sink_pfwd", 9, 8),
+            load_fn("packed", "sink_pdq", 10, 8),
+            load_fn("packed", "sink_pdkdv", 11, 8))
 
 
 def _geometry(q, k, v, positions, num_sink, window_size):
@@ -259,80 +290,83 @@ def _geometry(q, k, v, positions, num_sink, window_size):
 
 def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
                       window_size: int = 512):
-    """Launch ``sink_pfwd_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
-    kernel of ``csrc/hopper.cuh``): (out, lse).
+    """Launch ``sink_pfwd`` of ``csrc/packed.cu`` (the wgmma/TMA kernel of
+    ``csrc/hopper.cuh``): (out, lse).
 
-    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16 with D in (64, 128); positions
-    [B, N] (any int dtype, any device); s_aux [H_q] or None.
-    ``packed_fwd_kernel.launches`` counts the launches. A warmed call (the
-    positions' tables already built) synchronises nothing.
+    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 128;
+    positions [B, N] (any int dtype, any device); s_aux [H_q] or None; out
+    in q's dtype. ``packed_fwd_kernel.launches`` counts the launches. A
+    warmed call (the positions' tables already built) synchronises
+    nothing.
     """
     _build.check_attention_inputs(q, k, v, s_aux)
     geom = _geometry(q, k, v, positions, num_sink, window_size)
-    B, H_q, _, N, D, ns, W = geom
+    B, H_q, H_kv, N, D, ns, W = geom
     tables = _tables_for(positions, q.device, ns, W, D)
-    qc, kc, vc = (_build.aligned(t) for t in (q, k, v))
+    (qc, kc, vc), code, d_pad = _build.kernel_operands(q, k, v)
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
-    out = torch.empty_like(qc)
+    out = kernel_out(q, q.shape, d_pad)
     lse = torch.empty((B, H_q, N), dtype=torch.float32, device=q.device)
     ptrs = [_build.ptr(t) for t in (qc, kc, vc, aux, tables.fwd,
                                     tables.fwd_order, tables.seg, out, lse)]
-    code = _kernel_fns()[0](*ptrs, *geom, 1.0 / (D ** 0.5),
-                            _build.stream_ptr(q.device))
-    _build.check(code, "sink_pfwd_bf16")
-    packed_fwd_kernel.launches += 1
-    return out, lse
+    err = _kernel_fns()[0](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
+                           1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    _build.check(err, "sink_pfwd")
+    _build.note_launch(packed_fwd_kernel, D, q.dtype, d_pad != D)
+    return unpad(out, D), lse
 
 
-packed_fwd_kernel.launches = 0
+_build.counters(packed_fwd_kernel)
 
 
 def packed_dq_kernel(q, k, v, do, lse, delta, positions, num_sink: int = 4,
                      window_size: int = 512):
-    """Launch ``sink_pdq_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
-    kernel of ``csrc/hopper_dq.cuh``): dq [B,H_q,N,D] bf16, bitwise
+    """Launch ``sink_pdq`` of ``csrc/packed.cu`` (the wgmma/TMA kernel of
+    ``csrc/hopper_dq.cuh``): dq [B,H_q,N,D] in q's dtype, bitwise
     repeatable. Inputs as :func:`packed_bwd_plain`'s, on the card.
     ``packed_dq_kernel.launches`` counts the launches. A warmed call (the
     positions' tables already built) synchronises nothing."""
-    ops = _bwd_operands(q, k, v, do, lse, delta)
-    geom = _geometry(q, k, v, positions, num_sink, window_size)
-    tables = _tables_for(positions, q.device, *geom[5:], geom[4])
-    dq = torch.empty_like(ops[0])
+    ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
+    B, H_q, H_kv, N, D, ns, W = _geometry(q, k, v, positions, num_sink,
+                                          window_size)
+    tables = _tables_for(positions, q.device, ns, W, D)
+    dq = kernel_out(q, q.shape, d_pad)
     ptrs = [_build.ptr(t) for t in (*ops, tables.dq, tables.dq_order,
                                     tables.seg, dq)]
-    code = _kernel_fns()[1](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
-                            _build.stream_ptr(q.device))
-    _build.check(code, "sink_pdq_bf16")
-    packed_dq_kernel.launches += 1
-    return dq
+    err = _kernel_fns()[1](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
+                           1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    _build.check(err, "sink_pdq")
+    _build.note_launch(packed_dq_kernel, D, q.dtype, d_pad != D)
+    return unpad(dq, D)
 
 
-packed_dq_kernel.launches = 0
+_build.counters(packed_dq_kernel)
 
 
 def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
                        num_sink: int = 4, window_size: int = 512):
-    """Launch ``sink_pdkdv_bf16`` of ``csrc/packed.cu`` (the wgmma/TMA
-    kernel of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N,D] bf16, summed
-    over each GQA group inside the kernel, bitwise repeatable. Inputs as
-    :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches`` counts the
-    launches. A warmed call (the positions' tables already built)
-    synchronises nothing."""
-    ops = _bwd_operands(q, k, v, do, lse, delta)
-    geom = _geometry(q, k, v, positions, num_sink, window_size)
-    tables = _tables_for(positions, q.device, *geom[5:], geom[4])
-    dk, dv = torch.empty_like(ops[1]), torch.empty_like(ops[2])
+    """Launch ``sink_pdkdv`` of ``csrc/packed.cu`` (the wgmma/TMA kernel
+    of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N,D] in k's dtype,
+    summed over each GQA group inside the kernel, bitwise repeatable.
+    Inputs as :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches``
+    counts the launches. A warmed call (the positions' tables already
+    built) synchronises nothing."""
+    ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
+    B, H_q, H_kv, N, D, ns, W = _geometry(q, k, v, positions, num_sink,
+                                          window_size)
+    tables = _tables_for(positions, q.device, ns, W, D)
+    dk, dv = kernel_out(k, k.shape, d_pad), kernel_out(v, v.shape, d_pad)
     ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.kv_order,
                                     tables.reach, dk, dv)]
-    code = _kernel_fns()[2](*ptrs, *geom, 1.0 / (geom[4] ** 0.5),
-                            _build.stream_ptr(q.device))
-    _build.check(code, "sink_pdkdv_bf16")
-    packed_dkdv_kernel.launches += 1
-    return dk, dv
+    err = _kernel_fns()[2](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
+                           1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    _build.check(err, "sink_pdkdv")
+    _build.note_launch(packed_dkdv_kernel, D, q.dtype, d_pad != D)
+    return unpad(dk, D), unpad(dv, D)
 
 
-packed_dkdv_kernel.launches = 0
+_build.counters(packed_dkdv_kernel)
 
 
 def _fwd(q, k, v, positions, s_aux, num_sink, window_size):

@@ -117,15 +117,24 @@ def eager_sink_attention_packed(q: torch.Tensor, k: torch.Tensor,
     return _eager_attend(q, k, v, mask[:, None], s_aux, return_lse)
 
 
-def _eager_attend(q, k, v, mask, s_aux, return_lse):
-    """Shared masked-softmax body. mask: [B|1, 1, N_q, N_kv] bool."""
+def rounded(x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``x`` in fp32, through ``dtype`` first where given: a product's
+    operand at that precision (the fp32 kernels read their operands as
+    bf16, as a TPU's matrix unit does at its default precision)."""
+    return x.float() if dtype is None else x.to(dtype).float()
+
+
+def _eager_attend(q, k, v, mask, s_aux, return_lse, matmul_dtype=None):
+    """Shared masked-softmax body. mask: [B|1, 1, N_q, N_kv] bool. With
+    ``matmul_dtype`` both products read their operands (q, k; the
+    probabilities, v) rounded to it, the softmax in fp32."""
     B, H_q, N_q, D = q.shape
     H_kv, N_kv = k.shape[1], k.shape[2]
     if H_q % H_kv:
         raise ValueError(f"H_q={H_q} is not a multiple of H_kv={H_kv}")
     groups = H_q // H_kv
 
-    qf, kf, vf = q.float(), k.float(), v.float()
+    qf, kf, vf = (rounded(t, matmul_dtype) for t in (q, k, v))
     if groups > 1:
         kf = kf.repeat_interleave(groups, dim=1)
         vf = vf.repeat_interleave(groups, dim=1)
@@ -147,7 +156,8 @@ def _eager_attend(q, k, v, mask, s_aux, return_lse):
     p = torch.where(torch.isfinite(logits), p, torch.zeros_like(p))
     denom = p.sum(dim=-1, keepdim=True)
     denom_safe = torch.where(denom == 0.0, torch.ones_like(denom), denom)
-    weights = p[..., :N_kv] / denom_safe  # drop the s_aux column: no value
+    # drop the s_aux column: no value
+    weights = rounded(p[..., :N_kv], matmul_dtype) / denom_safe
     out = torch.einsum("bhqk,bhkd->bhqd", weights, vf).to(q.dtype)
 
     if return_lse:

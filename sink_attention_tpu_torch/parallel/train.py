@@ -41,7 +41,8 @@ from ..models.model import (_embed_lookup, _head, decoder_layer,
 from ..ops.flash import sink_flash_attention
 from ..ops.packed import sink_flash_attention_packed
 from ._collectives import all_gather, all_reduce
-from .mesh import Mesh, NamedSharding, PartitionSpec, tree_map
+from .mesh import (DATA_AXIS, MODEL_AXIS, SEQ_AXIS, Mesh, NamedSharding,
+                   PartitionSpec, tree_map)
 from .tp import tp_local_config
 from .ulysses import _scatter, gather_heads
 
@@ -149,13 +150,25 @@ def param_shardings(cfg: ModelConfig, mesh: Mesh, model_axis: str = "model",
     }
 
 
-def make_sharded_attn(mesh: Mesh, seq_axis: str = "seq", attn_impl=None):
-    """Attention for a rank's shard of [B, H, N, D]: B split over data and
-    H over model already (local to the rank), N over ``seq_axis``. Over a
-    ``seq`` of more than one rank, Ulysses all-to-alls trade the sequence
-    split for a head split, so ``attn_impl`` (default: the kernel,
-    ``sink_flash_attention``) sees whole sequences of 1/sp of the local
-    heads, and trade back."""
+def make_sharded_attn(mesh: Mesh, data_axis: str = "data",
+                      seq_axis: str = "seq", model_axis: str = "model",
+                      attn_impl=None):
+    """Attention for a rank's shard of [B, H, N, D]: B split over
+    ``data_axis`` and H over ``model_axis`` already (local to the rank: the
+    JAX package's shard_map specs name them, here they only have to be
+    axes of the mesh), N over ``seq_axis``. Over a ``seq`` of more than one
+    rank, Ulysses all-to-alls trade the sequence split for a head split, so
+    ``attn_impl`` (default: the kernel, ``sink_flash_attention``) sees
+    whole sequences of 1/sp of the local heads, and trade back. Each axis
+    must be an axis of the mesh, or one of the standard axes ('data',
+    'seq', 'model'), which a mesh may leave out where it is unsplit (size
+    1: a pipeline mesh has no 'data'); any other name raises ValueError."""
+    known = set(mesh.shape) | {DATA_AXIS, SEQ_AXIS, MODEL_AXIS}
+    for name, axis in (("data_axis", data_axis), ("seq_axis", seq_axis),
+                       ("model_axis", model_axis)):
+        if axis not in known:
+            raise ValueError(f"{name} {axis!r} is not an axis of the mesh "
+                             f"{tuple(mesh.shape)}")
     impl = attn_impl or sink_flash_attention
 
     def attn(q, k, v, *, num_sink, window_size, s_aux):

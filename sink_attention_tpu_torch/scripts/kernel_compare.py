@@ -1,5 +1,5 @@
-"""Time the attention kernels (the forward, dQ, dK/dV; unpacked and
-packed) of this checkout against another on one card.
+"""Time the attention kernels (the forward, dQ, dK/dV, unpacked and
+packed; the decode) of this checkout against another on one card.
 
     python3 -m sink_attention_tpu_torch.scripts.kernel_compare OTHER_TREE
         [--kernels flash_fwd_kernel,packed_fwd_kernel,...]
@@ -14,17 +14,19 @@ and the headline; ``flash_dq_kernel`` and ``flash_dkdv_kernel`` at its
 backward shapes (the training layers at W=128 and W=4096, the headline,
 the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
 ``packed_dq_kernel`` and ``packed_dkdv_kernel`` on its packs (the phase-5
-mix at both W, the 64-3072 headline pack and the edge cases). The shapes
-run in four passes, other / this / this / other, each in its own process
-with that checkout's package on ``sys.path`` and its kernels built into
-its own ``build/kernels/``. Each pass times every chosen kernel on seeded
-inputs: ``ms`` (CUDA events over back-to-back calls) and ``device_ms``
-(the kernel's own time per launch, torch.profiler). It prints one line per
+mix at both W, the 64-3072 headline pack and the edge cases);
+``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
+and full layer mid-decode, the headline). The shapes run in four passes,
+other / this / this / other, each in its own process with that
+checkout's package on ``sys.path`` and its kernels built into its own
+``build/kernels/``. Each pass times every chosen kernel on seeded inputs:
+``ms`` (CUDA events over back-to-back calls) and ``device_ms`` (the
+kernel's own time per launch, torch.profiler). It prints one line per
 shape and kernel with the mean of each checkout's two passes and their
 ratio, and writes every pass to ``--out``. Both checkouts must have the
-wrappers' present signatures; the inputs and the device times come from
-this checkout's ``chip_smoke.py`` (``pack_lengths``, ``pack_positions``,
-``per_call_device``) in every pass. Without CUDA it exits nonzero.
+wrappers' present signatures; the inputs (the packs' positions computed
+once, by this checkout's ``ops.packed``) and the device times come from
+this file in every pass. Without CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -34,11 +36,13 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel",
-           "packed_fwd_kernel", "packed_dq_kernel", "packed_dkdv_kernel")
+           "packed_fwd_kernel", "packed_dq_kernel", "packed_dkdv_kernel",
+           "decode_kernel")
 
 # the forward: (label, B, H_q, H_kv, N, D, num_sink, window)
 FORWARD = [
@@ -56,9 +60,16 @@ UNPACKED = [
     ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0),
     ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0),
 ]
+# the decode over a bf16 SinkKVCache: (label, B, H_q, H_kv, D, num_sink,
+# window, prefill length, appends)
+DECODE = [
+    ("decode W=128", 4, 64, 8, 64, 0, 128, 1024, 16),
+    ("decode W=1056", 4, 64, 8, 64, 0, 1056, 1024, 16),
+    ("decode headline D=128", 1, 32, 8, 128, 4, 4096, 8192, 1),
+]
 # (label, B, H_q, H_kv, D, num_sink, window, lengths, first position);
-# lengths ("mix", n, lo, hi, seed): chip_smoke's pack_lengths(n, lo, hi,
-# seed), the segments of phase 2's packs
+# lengths ("mix", n, lo, hi, seed): ops.packed.pack_lengths(n, lo, hi,
+# seed), the segments of chip_smoke.py's phase-2 packs
 PACKED = [
     ("packed phase-5 mix W=128", 1, 64, 8, 64, 0, 128,
      ("mix", 4096, 64, 1536, 0), 0),
@@ -74,20 +85,54 @@ PACKED = [
 ]
 
 
-def worker(kernels) -> dict:
-    """One pass over the shapes of ``kernels`` with the package found on
-    sys.path."""
-    import importlib.util
+def packed_cases():
+    """PACKED with each pack's positions: [(label, B, H_q, H_kv, D,
+    num_sink, window, positions [N] as a list)], from this checkout."""
+    from sink_attention_tpu_torch.ops.packed import (pack_lengths,
+                                                     pack_positions)
+    cases = []
+    for label, B, H_q, H_kv, D, ns, W, lens, first in PACKED:
+        if lens[0] == "mix":
+            lens = pack_lengths(*lens[1:])
+        cases.append((label, B, H_q, H_kv, D, ns, W,
+                      pack_positions(lens, first).tolist()))
+    return cases
 
+
+def device_ms(fn, calls: int = 10, tries: int = 5) -> float:
+    """The device ms per kernel launch of ``fn`` from torch.profiler over
+    ``calls`` back-to-back calls (the mean over the device events it kept:
+    it has been seen to drop some of those of ctypes launches; a window
+    with none is profiled again, twice as long)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for t in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls << t):
+                fn()
+            torch.cuda.synchronize()
+        kept = [(ev.self_device_time_total, ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        if kept:
+            return sum(us for us, _ in kept) / 1e3 / sum(n for _, n in kept)
+    raise RuntimeError("torch.profiler recorded no device event")
+
+
+def worker(kernels, packs) -> dict:
+    """One pass over the shapes of ``kernels`` with the package found on
+    sys.path; ``packs`` as :func:`packed_cases` gives them."""
     import torch
 
-    from sink_attention_tpu_torch.ops import flash, packed
+    from sink_attention_tpu_torch.cache import SinkKVCache
+    from sink_attention_tpu_torch.ops import decode, flash, packed
     from sink_attention_tpu_torch.utils import time_cuda
 
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
     mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
@@ -100,9 +145,8 @@ def worker(kernels) -> dict:
                 continue
             fn()
             torch.cuda.synchronize()
-            ms = time_cuda(fn, iters=20)
-            device_ms, _ = chip_smoke.per_call_device(fn, calls=10)
-            out[f"{label} {kernel}"] = {"ms": ms, "device_ms": device_ms}
+            out[f"{label} {kernel}"] = {"ms": time_cuda(fn, iters=20),
+                                        "device_ms": device_ms(fn)}
 
     for label, B, H_q, H_kv, N, D, ns, W in FORWARD:
         if "flash_fwd_kernel" not in kernels:
@@ -123,14 +167,11 @@ def worker(kernels) -> dict:
         timed(label, {"flash_dq_kernel": lambda: flash.flash_dq_kernel(*args),
                       "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(
                           *args)})
-    for label, B, H_q, H_kv, D, ns, W, lens, first in PACKED:
+    for label, B, H_q, H_kv, D, ns, W, pos in packs:
         if not {"packed_fwd_kernel", "packed_dq_kernel",
                 "packed_dkdv_kernel"} & kernels:
             break
-        if lens[0] == "mix":
-            lens = chip_smoke.pack_lengths(*lens[1:])
-        positions = chip_smoke.pack_positions(lens, first)[None].expand(
-            B, -1).to(dev)
+        positions = torch.tensor(pos, device=dev)[None].expand(B, -1)
         N = positions.shape[1]
         q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
         k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
@@ -143,13 +184,27 @@ def worker(kernels) -> dict:
                 q, k, v, positions, aux, ns, W),
             "packed_dq_kernel": lambda: packed.packed_dq_kernel(*args),
             "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(*args)})
+    for label, B, H_q, H_kv, D, ns, W, n, appends in DECODE:
+        if "decode_kernel" not in kernels:
+            break
+        cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
+                                 dtype=torch.bfloat16, device=dev)
+        cache.prefill(mk(B, H_kv, n, D), mk(B, H_kv, n, D))
+        for _ in range(appends):
+            cache.append(mk(B, H_kv, 1, D), mk(B, H_kv, 1, D))
+        q = mk(B, H_q, 1, D)
+        aux = torch.randn(H_q, generator=gen, device=dev)
+        state, kw = decode.cache_state(cache), decode.cache_args(cache)
+        timed(label, {"decode_kernel": lambda: decode.decode_kernel(
+            q, cache.k, cache.v, state, aux, **kw)})
     return out
 
 
-def run_pass(tree: Path, kernels) -> dict:
+def run_pass(tree: Path, kernels, packs: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                           "--worker", "--kernels", ",".join(kernels)],
+                           "--worker", "--kernels", ",".join(kernels),
+                           "--packs", str(packs)],
                           cwd=tree, env=env,
                           capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
@@ -166,6 +221,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="build/kernel_compare.json")
     ap.add_argument("--worker", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--packs", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     kernels = [k for k in args.kernels.split(",") if k]
     unknown = set(kernels) - set(KERNELS)
@@ -177,7 +233,8 @@ def main(argv=None) -> int:
         print("kernel_compare: CUDA is not available", file=sys.stderr)
         return 1
     if args.worker:
-        print(json.dumps(worker(set(kernels))), flush=True)
+        packs = json.loads(Path(args.packs).read_text())
+        print(json.dumps(worker(set(kernels), packs)), flush=True)
         return 0
     if args.other is None:
         ap.error("give the other checkout's root")
@@ -185,7 +242,11 @@ def main(argv=None) -> int:
     other = Path(args.other).resolve()
     passes = [("other", other), ("this", ROOT), ("this", ROOT),
               ("other", other)]
-    runs = [(name, run_pass(tree, kernels)) for name, tree in passes]
+    with tempfile.TemporaryDirectory() as tmp:
+        packs = Path(tmp) / "packs.json"
+        packs.write_text(json.dumps(packed_cases()))
+        runs = [(name, run_pass(tree, kernels, packs))
+                for name, tree in passes]
     card = card_line()
     print(f"card: {card}")
     print(f"{'shape, kernel':52s} {'other ms':>10s} {'this ms':>10s} "

@@ -3,19 +3,20 @@
     python3 -m sink_attention_tpu_torch.scripts.spec_divergence \\
         [--kv-scale-factor F]
 
-A diagnostic of ``chip_smoke.py``'s phase 8, whose helpers and gate it
-imports from this checkout's ``chip_smoke.py``: gpt-oss-20b's widths and 24
-layers, weights from a generator seeded 0, the speculative pair of
-``chip_smoke.draft_pair`` (layers 1.. scaled by 0.1, the draft layer 0),
-the plain and the speculative ContinuousBatchingEngine over phase 8's 8
-seeded requests in 4 slots with an int8 KV cache, each run's expert
-choices recorded (``serving.divergence.record_engine``). For each request
-where the two engines' greedy tokens first part it prints phase 8's
-verdict (``chip_smoke._first_divergence`` and ``_divergence_gate``: each
-engine's token against the teacher, as it is and with its near-tie expert
-choices imposed), and the sequence up to there teacher forced through
-``forward_prefill`` (K and V read through the cache's quantize round
-trip) with:
+A diagnostic of ``chip_smoke.py``'s phase 8, with its helpers and gates
+(``serving.divergence``): gpt-oss-20b's widths and 24 layers, weights from
+a generator seeded 0, the speculative pair of ``draft_pair`` (layers 1..
+scaled by 0.1, the draft layer 0), the plain and the speculative
+ContinuousBatchingEngine over phase 8's 8 seeded requests
+(``engine_requests``) in 4 slots with an int8 KV cache, each run's expert
+choices and logits recorded (``record_engine``). For every request it
+prints phase 8's logit gate (``logit_gate``: the two engines' logits at
+the same tokens against a bf16-noise control); for each request where the
+two engines' greedy tokens first part, phase 8's token verdict
+(``first_divergence`` and ``divergence_gate``: each engine's token against
+the teacher, as it is and with its near-tie expert choices imposed), and
+the sequence up to there teacher forced through ``forward_prefill`` (K and
+V read through the cache's quantize round trip) with:
 
 - the two tokens' logits there, and which one the teacher prefers;
 - the router margins at every layer of every generated position: the
@@ -31,36 +32,29 @@ trip) with:
 
 ``--kv-scale-factor F`` breaks the speculative engine on purpose: its
 cache stores every K/V scale F times the true one (the codes as computed),
-so it reads K and V F times too large; phase 8's gate must refuse it (the
-gate's negative control). Prints one JSON line per divergence, then a
-summary line. Without CUDA it exits nonzero.
+so it reads K and V F times too large; phase 8's gates must refuse it
+(their negative control: the token gate refuses F = 1.1 and not 1.01, the
+logit gate 1.01 too). Prints one JSON line per request that the logit
+gate refuses or whose tokens part, then a summary line. Without CUDA it
+exits nonzero.
 """
 
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import sys
-from pathlib import Path
 from typing import Optional, Sequence
 
 import torch
 
-from ..serving.divergence import (Router, near_tie_replay, record_engine,
-                                  router_margins)
+from ..serving.divergence import (Router, divergence_gate, draft_pair,
+                                  engine_requests, first_divergence,
+                                  logit_gate, near_tie_replay, record_engine,
+                                  request_routes, router_margins)
 
-ROOT = Path(__file__).resolve().parents[2]
 # single flips tried, smallest margin first
 TRIES = 16
-
-
-def _chip_smoke():
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def scaled_quantize(factor: float):
@@ -178,7 +172,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from ..serving import ContinuousBatchingEngine
     from ..utils import card_line
 
-    cs = _chip_smoke()
     print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     quant = "int8"
@@ -186,9 +179,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     cfg = ModelConfig.gpt_oss_20b()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                          dtype=torch.bfloat16, device=dev)
-    dparams, dcfg = cs.draft_pair(params, cfg, 0.1)
-    reqs = cs.engine_requests(8, cfg.vocab_size, 0)
-    runs, routes = {}, {}
+    dparams, dcfg = draft_pair(params, cfg, 0.1)
+    reqs = engine_requests(8, cfg.vocab_size, 0)
+    runs, routes, rows = {}, {}, {}
     shipped = sink_cache.quantize
     for name, extra in (("plain", {}), ("spec", dict(
             draft_params=dparams, draft_cfg=dcfg, num_draft_tokens=4))):
@@ -199,34 +192,44 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 params, cfg, max_batch=4, max_len=2048, prefill_bucket=128,
                 quant=quant, dtype=torch.bfloat16, device=dev, **extra)
             rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
-            out, routes[name] = record_engine(eng, eng.run)
+            logits = {}
+            out, routes[name] = record_engine(eng, eng.run, logits=logits)
         finally:
             sink_cache.quantize = shipped
         runs[name] = [(r, out[r]) for r in rids]
-        del eng
-    found, refused = 0, []
+        rows[name] = [{p: row for (rid, p), row in logits.items()
+                       if rid == r} for r in rids]
+        del eng, logits
+    found, refused, logit_refused = 0, [], 0
     for i, ((prompt, _), (ra, a), (rb, b)) in enumerate(zip(
             reqs, runs["plain"], runs["spec"])):
+        lg = logit_gate(params, cfg, prompt, a, b, rows["plain"][i],
+                        rows["spec"][i], 6000 + i, quant)
+        logit_refused += not lg["ok"]
         at = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y), None)
         if at is None:
+            if not lg["ok"]:
+                print(json.dumps({"request": i, "logit_gate": lg}),
+                      flush=True)
             continue
-        mine = {name: cs._request_routes(routes[name], rid)
+        mine = {name: request_routes(routes[name], rid)
                 for name, rid in (("plain", ra), ("spec", rb))}
-        div = cs._first_divergence(params, cfg, prompt, a, b, 5000, quant,
-                                   routes=mine)
+        div = first_divergence(params, cfg, prompt, a, b, 5000, quant,
+                               routes=mine)
         errors = []
-        cs._divergence_gate(div, f"request {i}", errors)
+        divergence_gate(div, f"request {i}", errors)
         refused += errors
         rep = diagnose(params, cfg, prompt, a, b, at, quant, TRIES, mine)
         found += rep["flip"] is not None
-        print(json.dumps({"request": i, "gate": div, "gate_errors": errors,
-                          **rep}), flush=True)
+        print(json.dumps({"request": i, "logit_gate": lg, "gate": div,
+                          "gate_errors": errors, **rep}), flush=True)
     parted = sum(a != b for (_, a), (_, b) in zip(runs["plain"],
                                                   runs["spec"]))
     print(json.dumps({"quant": quant,
                       "kv_scale_factor": args.kv_scale_factor,
                       "requests": len(reqs), "parted": parted,
                       "gate_refused": len(refused),
+                      "logit_gate_refused": logit_refused,
                       "explained_by_one_flip": found}), flush=True)
     return 0
 

@@ -40,14 +40,15 @@ def prefill_and_caches(params, cfg: ModelConfig, input_ids: torch.Tensor,
 
 @torch.inference_mode()
 def decode_loop(params, cfg: ModelConfig, first_token: torch.Tensor, caches,
-                start_pos: int, steps: int):
+                start_pos: int, steps: int, attn_impl=None):
     """Greedy decode of ``steps`` tokens after ``first_token`` [B]; returns
-    (tokens [B, steps + 1], caches)."""
+    (tokens [B, steps + 1], caches). ``attn_impl(q, cache, s_aux=)``
+    overrides the decode attention (``forward_decode``'s)."""
     toks = [first_token]
     tok = first_token
     for i in range(steps):
         logits, caches = forward_decode(params, cfg, tok[:, None], caches,
-                                        start_pos + i)
+                                        start_pos + i, attn_impl=attn_impl)
         tok = logits[:, -1].argmax(dim=-1)
         toks.append(tok)
     return torch.stack(toks, dim=1), caches

@@ -15,10 +15,11 @@ import torch
 
 __all__ = ["time_cuda", "card_line", "sink_attention_flops",
            "attention_pairs", "H100_PEAK_BF16", "H100_PEAK_INT8",
-           "H100_HBM_BW"]
+           "H100_PEAK_FP32", "H100_HBM_BW"]
 
 H100_PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s
 H100_PEAK_INT8 = 1979e12  # H100 SXM dense int8 / fp8 tensor-core OP/s
+H100_PEAK_FP32 = 67e12     # H100 SXM fp32 FLOP/s outside the tensor cores
 H100_HBM_BW = 3.35e12    # H100 SXM HBM3 bytes/s
 
 

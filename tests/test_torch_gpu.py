@@ -970,3 +970,235 @@ def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
              for r in range(2)]
     logs = [p.communicate(timeout=600)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), logs
+
+
+# ---------------------------------------------------------------------------
+# Coverage: every head_dim up to 128 and bf16 / fp16 / fp32 inputs in the
+# seven attention kernels (rows 1-7 of PERF.md's kernel table), at the JAX
+# tests' shapes (tests/test_flash_prefill.py, test_flash_backward.py,
+# test_decode.py), kernel against plain on the same inputs.
+# ---------------------------------------------------------------------------
+
+COVER_DIMS = (16, 32, 80, 100, 128)
+COVER_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+COVER = [(d, dt) for d in COVER_DIMS for dt in COVER_DTYPES]
+# The forward's tolerance (atol, rtol 1e-3): JAX's tol() in
+# tests/test_flash_prefill.py; fp32 at its TPU value. The kernels read fp32
+# operands as bf16, as the TPU's matrix unit does at its default precision,
+# so an fp32 kernel is held, as JAX's TPU test holds its kernel to an
+# oracle at that same precision, to the plain version whose products read
+# bf16 operands (MM); against the exact plain version it keeps the bf16
+# kernels' bound.
+FWD_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3, torch.float32: 6e-3}
+MM = {torch.float32: torch.bfloat16}
+
+
+def _cover_inputs(gen, dtype, *shapes):
+    """Scale-1 normal inputs drawn in fp32 and cast, as the JAX tests'."""
+    return [torch.randn(*s, generator=gen, device=gen.device).to(dtype)
+            for s in shapes]
+
+
+def _bwd_close(name, got, ref, dtype):
+    """Backward outputs: fp32 within JAX's TPU tolerance (atol 2e-3, rtol
+    1e-2: tests/test_flash_backward.py) of the plain version at the
+    kernels' precision (MM), 16-bit within the forward's tolerance of that
+    type relative to the largest plain value."""
+    got, ref = got.float(), ref.float()
+    if dtype == torch.float32:
+        bad = (got - ref).abs() > 2e-3 + 1e-2 * ref.abs()
+        assert not bool(bad.any()), (name, float((got - ref).abs().max()))
+    else:
+        scale = max(1.0, float(ref.abs().max()))
+        err = float((got - ref).abs().max())
+        assert err <= FWD_TOL[dtype] * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("d, dtype", COVER)
+def test_forward_kernel_any_head_dim_and_dtype(cuda, d, dtype):
+    """Row 1 at D in (16, 32, 80, 100, 128) x (bf16, fp16, fp32): the
+    kernel's O (in the input dtype) and LSE against the plain version, one
+    launch, a padded copy only for D % 8 != 0."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    B, H_q, H_kv, N = 1, 8, 2, 192
+    q, k, v = _cover_inputs(gen, dtype, (B, H_q, N, d), (B, H_kv, N, d),
+                            (B, H_kv, N, d))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    fn = flash.flash_fwd_kernel
+    before = (fn.launches, fn.padded_copies)
+    o_k, l_k = fn(q, k, v, aux, 4, 96)
+    o_p, l_p = flash.flash_fwd_plain(q, k, v, aux, 4, 96,
+                                     matmul_dtype=MM.get(dtype))
+    o_x, _ = flash.flash_fwd_plain(q, k, v, aux, 4, 96)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.padded_copies) == (
+        before[0] + 1, before[1] + (d % 8 != 0))
+    assert o_k.dtype == dtype and tuple(o_k.shape) == (B, H_q, N, d)
+    torch.testing.assert_close(o_k.float(), o_p.float(), atol=FWD_TOL[dtype],
+                               rtol=1e-3)
+    assert float((l_k - l_p).abs().max()) <= 1e-2
+    assert float((o_k.float() - o_x.float()).abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("d, dtype", COVER)
+def test_backward_kernels_any_head_dim_and_dtype(cuda, d, dtype):
+    """Rows 2-3 at every covered (D, dtype): dQ and dK/dV (GQA 4:1, so the
+    group's sum crosses the cut columns) against flash_bwd_plain, in the
+    input dtype, and the autograd path launching each kernel once."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, H_q, H_kv, N = 1, 8, 2, 192
+    q, k, v, do = _cover_inputs(gen, dtype, (B, H_q, N, d), (B, H_kv, N, d),
+                                (B, H_kv, N, d), (B, H_q, N, d))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    geom = (4, 96, 0, 0)
+    mm = MM.get(dtype)
+    o, lse = flash.flash_fwd_plain(q, k, v, aux, *geom, matmul_dtype=mm)
+    delta = (do.float() * o.float()).sum(-1)
+    plain = flash.flash_bwd_plain(q.float(), k.float(), v.float(), do.float(),
+                                  lse, delta, *geom, matmul_dtype=mm)
+    dq = flash.flash_dq_kernel(q, k, v, do, lse, delta, *geom)
+    dk, dv = flash.flash_dkdv_kernel(q, k, v, do, lse, delta, *geom)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        assert got.dtype == dtype and got.shape == ref.shape
+        _bwd_close(name, got, ref, dtype)
+    counts = [f.launches for f in (flash.flash_fwd_kernel,
+                                   flash.flash_dq_kernel,
+                                   flash.flash_dkdv_kernel)]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    flash.sink_flash_attention(*leaves, 4, 96, s_aux=aux).backward(do)
+    torch.cuda.synchronize()
+    assert [f.launches for f in (flash.flash_fwd_kernel,
+                                 flash.flash_dq_kernel,
+                                 flash.flash_dkdv_kernel)] == [
+        c + 1 for c in counts]
+    assert all(t.grad.dtype == dtype and bool(torch.isfinite(t.grad).all())
+               for t in leaves)
+
+
+@pytest.mark.parametrize("d, dtype", COVER)
+def test_packed_kernels_any_head_dim_and_dtype(cuda, d, dtype):
+    """Rows 5-7 at every covered (D, dtype): the packed forward, dQ and
+    dK/dV against their plain versions on a pack of three segments."""
+    from sink_attention_tpu_torch.ops import packed
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, H_q, H_kv, N = 1, 8, 2, 256
+    positions = torch.tensor([_segments(N, (100, 30, 126))], device=cuda)
+    q, k, v, do = _cover_inputs(gen, dtype, (B, H_q, N, d), (B, H_kv, N, d),
+                                (B, H_kv, N, d), (B, H_q, N, d))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    geom = (4, 64)
+    mm = MM.get(dtype)
+    o_k, l_k = packed.packed_fwd_kernel(q, k, v, positions, aux, *geom)
+    o_p, l_p = packed.packed_fwd_plain(q, k, v, positions, aux, *geom,
+                                       matmul_dtype=mm)
+    torch.cuda.synchronize()
+    assert o_k.dtype == dtype
+    torch.testing.assert_close(o_k.float(), o_p.float(), atol=FWD_TOL[dtype],
+                               rtol=1e-3)
+    assert float((l_k - l_p).abs().max()) <= 1e-2
+    delta = (do.float() * o_p.float()).sum(-1)
+    plain = packed.packed_bwd_plain(q.float(), k.float(), v.float(),
+                                    do.float(), l_p, delta, positions, *geom,
+                                    matmul_dtype=mm)
+    args = (q, k, v, do, l_p, delta, positions, *geom)
+    dq = packed.packed_dq_kernel(*args)
+    dk, dv = packed.packed_dkdv_kernel(*args)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+        assert got.dtype == dtype
+        _bwd_close(name, got, ref, dtype)
+
+
+# Decode: fp32 storage computes in fp32 (JAX's CPU fp32 tolerance, 1e-5 with
+# rtol 1e-3: tests/test_decode.py); bf16 2e-2 as above; fp16 4e-3.
+DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+              torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("d, dtype", COVER)
+def test_decode_kernel_any_head_dim_and_dtype(cuda, d, dtype):
+    """Row 4a at every covered (D, dtype) over a rolling cache of that
+    dtype (sinks, a wrapped window; GQA 4:1 as JAX's D=80 case), against
+    decode_plain; a padded copy only where the rows are not whole 16
+    bytes."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, H_q, H_kv, W = 1, 8, 2, 256
+    cache = SinkKVCache.init(B, H_kv, d, num_sink=4, window_size=W,
+                             dtype=dtype, device=cuda)
+    cache.prefill(*_cover_inputs(gen, dtype, (B, H_kv, 448, d),
+                                 (B, H_kv, 448, d)))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    fn = decode.decode_kernel
+    for _ in range(3):
+        cache.append(*_cover_inputs(gen, dtype, (B, H_kv, 1, d),
+                                    (B, H_kv, 1, d)))
+        (q,) = _cover_inputs(gen, dtype, (B, H_q, 1, d))
+        before = (fn.launches, fn.padded_copies)
+        o_k = decode.sink_decode_attention_cached(q, cache, aux)
+        o_p = decode.decode_plain(q, cache.k, cache.v,
+                                  decode.cache_state(cache), aux,
+                                  **decode.cache_args(cache))
+        torch.cuda.synchronize()
+        pad = d * q.element_size() % 16 != 0 or d % 4 != 0
+        assert (fn.launches, fn.padded_copies) == (before[0] + 1,
+                                                   before[1] + pad)
+        assert o_k.dtype == dtype and o_k.shape == q.shape
+        torch.testing.assert_close(o_k.float(), o_p.float(),
+                                   atol=DECODE_TOL[dtype], rtol=1e-3)
+
+
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+@pytest.mark.parametrize("d", [32, 80])
+def test_quantized_decode_any_head_dim(cuda, quant, d):
+    """Rows 4b-4c at D = 32 and 80: the int8 / fp8 kernel against its plain
+    version (2e-2 on the bf16 output) and against the bf16 kernel over the
+    unquantized KV (the JAX tests' budget), one launch of its branch."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    B, H_q, H_kv, W = 2, 8, 2, 256
+    caches = [SinkKVCache.init(B, H_kv, d, num_sink=4, window_size=W,
+                               quant=qn, device=cuda) for qn in (quant, None)]
+    k, v = _randn(gen, B, H_kv, 448, d), _randn(gen, B, H_kv, 448, d)
+    for c in caches:
+        c.prefill(k, v)
+    qc, ref = caches
+    q = _randn(gen, B, H_q, 1, d)
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    attr = f"launches_{quant}"
+    before = getattr(decode.decode_kernel, attr)
+    o_k = decode.sink_decode_attention_cached(q, qc, aux)
+    assert getattr(decode.decode_kernel, attr) == before + 1
+    o_p = decode.decode_plain(q, qc.k, qc.v, decode.cache_state(qc), aux,
+                              **decode.cache_args(qc))
+    o_b = decode.sink_decode_attention_cached(q, ref, aux)
+    torch.cuda.synchronize()
+    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    assert float((o_k.float() - o_b.float()).abs().max()) <= \
+        QUANT_BUDGET[quant]
+
+
+def test_head_dim_above_128_raises_on_cuda(cuda):
+    """D = 192 has no instance: every wrapper raises on CUDA tensors, names
+    the limit, and launches nothing (no plain fallback)."""
+    from sink_attention_tpu_torch.ops import packed
+    q = torch.zeros(1, 4, 128, 192, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 2, 128, 192, dtype=torch.bfloat16, device=cuda)
+    rows = torch.zeros(1, 4, 128, device=cuda)
+    pos = torch.arange(128, device=cuda)[None]
+    wrappers = (flash.flash_fwd_kernel, flash.flash_dq_kernel,
+                flash.flash_dkdv_kernel, packed.packed_fwd_kernel,
+                packed.packed_dq_kernel, packed.packed_dkdv_kernel,
+                decode.decode_kernel)
+    counts = [f.launches for f in wrappers]
+    calls = [lambda: flash.sink_flash_attention(q, kv, kv),
+             lambda: flash.flash_dq_kernel(q, kv, kv, q, rows, rows),
+             lambda: flash.flash_dkdv_kernel(q, kv, kv, q, rows, rows),
+             lambda: packed.sink_flash_attention_packed(q, kv, kv, pos),
+             lambda: packed.packed_dq_kernel(q, kv, kv, q, rows, rows, pos),
+             lambda: packed.packed_dkdv_kernel(q, kv, kv, q, rows, rows, pos),
+             lambda: decode.decode_kernel(q[:, :, :1], kv, kv, (0, 4, 4),
+                                          sink_cap=0, window_size=128)]
+    for call in calls:
+        with pytest.raises(ValueError, match="128"):
+            call()
+    assert [f.launches for f in wrappers] == counts

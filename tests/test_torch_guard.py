@@ -93,32 +93,42 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernels' input checks run before any launch, so they hold on
-    the CPU too: no fp32, no head_dim outside (64, 128), no CPU tensors."""
+    the CPU too: only bf16, fp16 or fp32, one type for q/k/v, no head_dim
+    above 128, no CPU tensors (head_dim 80 and 100, and fp32, pass the
+    checks and stop at the device)."""
     from sink_attention_tpu_torch.ops import decode, flash
 
-    def bwd_args(t):
+    def bwd_args(t, kv=None):
         rows = torch.zeros(t.shape[:3])
-        return t, t, t, t, rows, rows
+        kv = t if kv is None else kv
+        return t, kv, kv, t, rows, rows
 
     backward = (flash.flash_dq_kernel, flash.flash_dkdv_kernel)
-    q = torch.zeros(1, 2, 8, 64)
+    q = torch.zeros(1, 2, 8, 64, dtype=torch.float64)
+    half = torch.zeros(1, 2, 8, 64, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash.flash_fwd_kernel(q, q, q)
+    with pytest.raises(TypeError):
+        flash.flash_fwd_kernel(half.bfloat16(), half, half)
     for fn in backward:
         with pytest.raises(TypeError):
             fn(*bwd_args(q))
-    qb = torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
+        with pytest.raises(TypeError):
+            fn(*bwd_args(half.bfloat16(), half))
+    qb = torch.zeros(1, 2, 8, 192, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
         flash.flash_fwd_kernel(qb, qb, qb)
     for fn in backward:
         with pytest.raises(ValueError, match="head_dim"):
             fn(*bwd_args(qb))
-    qb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        flash.flash_fwd_kernel(qb, qb, qb)
-    for fn in backward:
+    for d, dtype in ((64, torch.bfloat16), (80, torch.float32),
+                     (100, torch.float16)):
+        qb = torch.zeros(1, 2, 8, d, dtype=dtype)
         with pytest.raises(ValueError, match="CUDA"):
-            fn(*bwd_args(qb))
+            flash.flash_fwd_kernel(qb, qb, qb)
+        for fn in backward:
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(*bwd_args(qb))
     lens = torch.zeros(1, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
         decode.decode_kernel(qb[:, :, :1], qb, qb, lens, sink_cap=0,
@@ -130,9 +140,9 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    """The packed kernels' wrappers check before any launch: no fp32, no
-    head_dim outside (64, 128), positions of shape [B, N] only, no CPU
-    tensors."""
+    """The packed kernels' wrappers check before any launch: only bf16,
+    fp16 or fp32, no head_dim above 128, positions of shape [B, N] only,
+    no CPU tensors."""
     from sink_attention_tpu_torch.ops import packed
 
     def calls(t, positions):
@@ -143,12 +153,16 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                 (packed.packed_dkdv_kernel, bwd))
 
     pos = torch.zeros(1, 8, dtype=torch.int32)
-    for fn, args in calls(torch.zeros(1, 2, 8, 64), pos):
+    for fn, args in calls(torch.zeros(1, 2, 8, 64, dtype=torch.float64),
+                          pos):
         with pytest.raises(TypeError):
             fn(*args)
-    for fn, args in calls(torch.zeros(1, 2, 8, 80, dtype=torch.bfloat16),
+    for fn, args in calls(torch.zeros(1, 2, 8, 192, dtype=torch.bfloat16),
                           pos):
         with pytest.raises(ValueError, match="head_dim"):
+            fn(*args)
+    for fn, args in calls(torch.zeros(1, 2, 8, 80), pos):
+        with pytest.raises(ValueError, match="CUDA"):
             fn(*args)
     qb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     for bad in (torch.zeros(8, dtype=torch.int32),
@@ -166,7 +180,8 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
     """The int8/fp8 decode branches check before any launch: int8 codes,
-    fp32 scales of shape [B, H_kv, S_total], bf16 q, one device, CUDA."""
+    fp32 scales of shape [B, H_kv, S_total], bf16 q, head_dim up to 128,
+    one device, CUDA."""
     from sink_attention_tpu_torch.ops import decode
 
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
@@ -188,7 +203,11 @@ def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
         call(ks=scale[:, :, :64])
     with pytest.raises(TypeError, match="bf16 q"):
         call(q=q.float())
+    wide = torch.zeros(1, 2, 128, 192, dtype=torch.int8)
     with pytest.raises(ValueError, match="head_dim"):
+        call(q=torch.zeros(1, 8, 1, 192, dtype=torch.bfloat16), k=wide,
+             v=wide)
+    with pytest.raises(ValueError, match="CUDA"):
         call(q=q[..., :32], k=codes[..., :32], v=codes[..., :32])
     with pytest.raises(ValueError, match="different devices"):
         call(ks=torch.ones(1, 2, 128, device="meta"))
@@ -277,7 +296,8 @@ def test_ablation_entry_point_needs_the_card():
 def test_decode_wrapper_takes_any_group():
     """The one-launch decode takes GQA groups above 16 (MQA 32/1, 64/1):
     on the CPU the wrapper gets as far as the device check; it still
-    refuses fp32 q, head_dim 80 and inputs on two devices."""
+    refuses fp32 q over a bf16 cache, head_dim 192 and inputs on two
+    devices."""
     from sink_attention_tpu_torch.ops import decode
 
     def call(h_q, d=64, dtype=torch.bfloat16, kv_device="cpu"):
@@ -293,7 +313,7 @@ def test_decode_wrapper_takes_any_group():
     with pytest.raises(TypeError, match="bf16"):
         call(32, dtype=torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
-        call(32, d=80)
+        call(32, d=192)
     with pytest.raises(ValueError, match="different devices"):
         call(64, kv_device="meta")
     assert decode.decode_kernel.launches == 0
@@ -501,3 +521,78 @@ def test_mesh_and_sharded_serving_default_to_the_card():
             params, cfg, ids, 3, dtype=torch.float32, device="cpu"))
     finally:
         dist.destroy_process_group()
+
+
+# JAX argument names the port renames, each with its reason: a shard_map
+# axis name is a torch.distributed group (pipeline_forward's seq and model
+# axes likewise); a jax.random key is a torch.Generator; the subprocess
+# schedule names torch devices, not JAX platforms.
+ARG_RENAMES = {"axis_name": "group", "seq_axis": "seq_group",
+               "model_axis": "model_group", "key": "generator",
+               "platforms": "devices"}
+
+
+def _dropped_arg(name):
+    """JAX arguments with no port counterpart: ``interpret`` (Pallas'
+    interpret mode; the port's kernels run on the card, their plain
+    versions on CPU tensors) and ``block_*`` (Pallas block sizes; the CUDA
+    tiles are compile-time)."""
+    return name == "interpret" or name.startswith("block_")
+
+
+def _jax_signatures(path):
+    """{name: argument names} of the functions and classes (``__init__``
+    less self) in a JAX module's ``__all__``, read with ast."""
+    tree = ast.parse((ROOT / path).read_text())
+    names = next((ast.literal_eval(node.value) for node in tree.body
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "__all__"
+                          for t in node.targets)), [])
+    out = {}
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or (
+                node.name not in names):
+            continue
+        fn, skip = node, 0
+        if isinstance(node, ast.ClassDef):
+            fn = next((b for b in node.body if isinstance(b, ast.FunctionDef)
+                       and b.name == "__init__"), None)
+            skip = 1
+        if fn is None:
+            continue
+        a = fn.args
+        out[node.name] = [x.arg for x in
+                          a.posonlyargs + a.args + a.kwonlyargs][skip:]
+    return out
+
+
+def test_public_signatures_take_every_jax_argument():
+    """Every function (and class) of a JAX ``__all__`` list that the port
+    has takes each of the JAX function's argument names, by that name or
+    by its rename in ARG_RENAMES, but for the Pallas-only arguments of
+    _dropped_arg. The defaults are not compared:
+    ``init_params`` defaults to fp32 in both."""
+    import importlib
+    import inspect
+    checked, narrower = 0, []
+    for path in sorted((ROOT / "sink_attention_tpu").rglob("*.py")):
+        signatures = _jax_signatures(path.relative_to(ROOT))
+        if not signatures:
+            continue
+        rel = path.relative_to(ROOT / "sink_attention_tpu").with_suffix("")
+        parts = [p for p in rel.parts if p != "__init__"]
+        module = importlib.import_module(
+            ".".join(["sink_attention_tpu_torch", *parts]))
+        for name, jax_args in signatures.items():
+            obj = getattr(module, name, None)
+            if obj is None:  # a name the port lacks: the export guards' job
+                continue
+            port = set(inspect.signature(obj).parameters)
+            checked += 1
+            for arg in jax_args:
+                if _dropped_arg(arg):
+                    continue
+                if arg not in port and ARG_RENAMES.get(arg) not in port:
+                    narrower.append(f"{module.__name__}.{name}: {arg}")
+    assert checked >= 60, checked
+    assert not narrower, narrower

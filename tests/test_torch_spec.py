@@ -391,24 +391,25 @@ def _gate_setup(n_new=6):
 
 
 def test_divergence_gate_refuses_a_token_off_the_teacher():
-    """Phase 8's gate (chip_smoke._first_divergence, _divergence_gate) on
+    """Phase 8's gate (serving.divergence.first_divergence,
+    divergence_gate) on
     ModelConfig.tiny: a trajectory with one token forced off the teacher's
     choice, at a position with no near tie (fp32 on the CPU: the run's
     recorded expert choices are the teacher's up to there, and none of
     them lies at a near tie, so the replay imposes none), fails; the run
     that kept the teacher's tokens passes every token, and a trajectory
     equal to greedy passes."""
-    import chip_smoke
     from sink_attention_tpu_torch.models import forward_prefill
+    from sink_attention_tpu_torch.serving.divergence import (
+        divergence_gate, first_divergence)
     cfg, params, prompt, plain, routes = _gate_setup()
     at = 3
     with torch.inference_mode():
         row = forward_prefill(params, cfg, torch.tensor(
             [prompt + plain[:at]]))[0][0, -1]
     got = plain[:at] + [int(row.argmin())] + plain[at + 1:]
-    div = chip_smoke._first_divergence(params, cfg, prompt, plain, got, 7,
-                                       routes={"plain": routes,
-                                               "spec": routes})
+    div = first_divergence(params, cfg, prompt, plain, got, 7,
+                           routes={"plain": routes, "spec": routes})
     assert div["at"] == at and div["control"] > 0
     assert div["plain"]["below_best"] == 0.0 and div["plain"]["off"] == []
     assert div["plain"]["checked"] == len(plain)
@@ -419,12 +420,12 @@ def test_divergence_gate_refuses_a_token_off_the_teacher():
         2 * div["control"])
     assert at in [o["token"] for o in div["spec"]["off"]]
     errors = []
-    chip_smoke._divergence_gate(div, "forced", errors)
+    divergence_gate(div, "forced", errors)
     assert errors and all("spec run's token" in e for e in errors)
     assert any(f"token {at} lies" in e for e in errors)
-    same = chip_smoke._first_divergence(params, cfg, prompt, plain, plain, 7)
+    same = first_divergence(params, cfg, prompt, plain, plain, 7)
     errors = []
-    chip_smoke._divergence_gate(same, "same", errors)
+    divergence_gate(same, "same", errors)
     assert same == {"at": None} and errors == []
 
 
@@ -452,3 +453,51 @@ def test_near_tie_replay_imposes_only_near_ties(monkeypatch):
     # rows up to the flipped position keep the teacher's logits
     assert torch.equal(rows[:2], moved[:2]) and not torch.equal(rows[2:],
                                                                 moved[2:])
+
+
+@pytest.mark.parametrize("factor", [1.0, 1.01])
+def test_logit_gate_refuses_a_kv_scale_fault(factor):
+    """Phase 8's logit gate (serving.divergence.logit_gate) on
+    ModelConfig.tiny with an int8 KV cache: the plain engine against a
+    speculative engine whose cache stores every K/V scale ``factor`` times
+    the true one (scripts/spec_divergence.py's broken quantize). An honest
+    engine (factor 1) passes every request at a ratio below 2; at 1.01
+    (which leaves the greedy tokens where they were, so the token gate
+    cannot see it) every request with compared positions is refused."""
+    from sink_attention_tpu_torch.cache import sink_cache
+    from sink_attention_tpu_torch.scripts import spec_divergence as sd
+    from sink_attention_tpu_torch.serving.divergence import (
+        draft_pair, engine_requests, logit_gate, record_engine)
+
+    cfg = ModelConfig.tiny(num_layers=2, vocab_size=128)
+    params = init_params(cfg, torch.Generator().manual_seed(0), **F32)
+    dparams, dcfg = draft_pair(params, cfg, 0.5)
+    reqs = engine_requests(3, cfg.vocab_size, 0, prompt=(8, 20),
+                           new=(6, 10))
+    runs, rows = {}, {}
+    shipped = sink_cache.quantize
+    for name, extra in (("plain", {}), ("spec", dict(
+            draft_params=dparams, draft_cfg=dcfg, num_draft_tokens=3))):
+        if name == "spec":
+            sink_cache.quantize = sd.scaled_quantize(factor)
+        try:
+            eng = ContinuousBatchingEngine(params, cfg, max_batch=2,
+                                           max_len=64, prefill_bucket=16,
+                                           quant="int8", **F32, **extra)
+            rids = [eng.submit(p, max_new_tokens=m) for p, m in reqs]
+            logits = {}
+            out, _ = record_engine(eng, eng.run, logits=logits)
+        finally:
+            sink_cache.quantize = shipped
+        runs[name] = [out[r] for r in rids]
+        rows[name] = [{p: row for (rid, p), row in logits.items()
+                       if rid == r} for r in rids]
+    gates = [logit_gate(params, cfg, p, a, b, ra, rb, 6000 + i, "int8")
+             for i, ((p, _), a, b, ra, rb) in enumerate(zip(
+                 reqs, runs["plain"], runs["spec"], rows["plain"],
+                 rows["spec"]))]
+    assert all(g["compared"] > 0 for g in gates), gates
+    if factor == 1.0:
+        assert all(g["ok"] and g["ratio"] < 2.0 for g in gates), gates
+    else:
+        assert not any(g["ok"] for g in gates), gates
