@@ -7,13 +7,14 @@
                              # and speculative decoding, quantized weights,
                              # serving from a checkpoint, sequence-parallel
                              # attention, tensor, pipeline and FSDP
-                             # parallelism
+                             # parallelism, head dims 80 and 256
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
      the build time and ptxas' register / shared-memory / spill lines (no
      instance of a wgmma kernel, the forward, dQ, dK/dV or an ablation
-     stage of the forward, may spill);
+     stage of the forward, may spill, nor a decode instance past its
+     recorded allowance, DECODE_SPILL_ALLOWANCE);
   2. kernels: run each kernel and its plain PyTorch version on the card at
      the main paths' shapes and at the headline attention shape (the packed
      kernels also at edge cases of the mask; the int8 and fp8 decode also
@@ -133,6 +134,14 @@ Phases:
      bytes, launches; each rank's attention kernel against plain, the
      logits, tokens, losses and gradients against the unsharded model's
      (see ``mesh_phase``).
+  13. every head_dim up to 128 and fp32: an H2O-Danube-1.8B-shaped model
+     (head_dim 80) at full width and depth, served in bf16, fp32 and over
+     int8 KV, trained in fp32 unpacked and packed (see ``danube_phase``).
+  14. head_dim 256 and StreamingLLM sinks: a Gemma-2-2B-shaped model
+     (head_dim 256, alternating sliding and full layers) at full width and
+     depth, served in bf16, over int8 KV and with 4 sinks pinned in every
+     sliding layer's cache, trained in bf16 unpacked and packed (see
+     ``gemma_phase``); phase 2 also holds rows 1-7 at its shapes.
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -170,7 +179,8 @@ DECODE_TOLS = {torch.bfloat16: DECODE_TOL, torch.float16: 4e-3,
 # input dtype: fp32 is read as bf16 by the attention kernels (the TPU's
 # default for fp32), so their fp32 rows are held, as JAX's TPU tests hold
 # their kernels, to an oracle at that precision (the exact one's distance
-# is reported beside it)
+# is reported beside it; the backward's P and dS stay fp32 in both, the
+# kernels carrying them as two bf16 terms)
 MATMUL_DTYPE = {torch.float32: torch.bfloat16}
 PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
@@ -723,12 +733,29 @@ def kernel_phase(dev):
                             use_aux=False, dtype=dt) for dt in dan]
     decode_danube = [check_decode(dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen,
                                   dtype=dt) for dt in dan]
+    # phase 14's Gemma-2-2B shapes: head_dim 256 in the 256 instance, bf16:
+    # the serving prefill (2 x 8192 tokens, GQA 8/4) on a sliding (W = 4096)
+    # and a full layer, and with 4 StreamingLLM sinks; the training step's
+    # backward (1 x 8192); the decode over 4096 live slots in bf16 and int8,
+    # and with 4 sinks; the packed step's pack of 2 x 4096
+    flash_gemma = [check_flash(dev, 2, 8, 4, 8192, 256, ns, w, gen)
+                   for ns, w in ((0, 4096), (0, 8192), (4, 4096))]
+    bwd_gemma = [check_bwd(dev, 1, 8, 4, 8192, 256, 0, w, gen, use_aux=False)
+                 for w in (4096, 8192)]
+    decode_gemma = [check_decode(dev, 2, 8, 4, 256, ns, 4096, 8192, 16, gen)
+                    for ns in (0, 4)]
+    packed_gemma = [check_packed(dev, 1, 8, 4, 256, 0, w, [4096, 4096], gen,
+                                 use_aux=False, label="2 x 4096")
+                    for w in (4096, 8192)]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows,
            "flash_fwd_danube": flash_danube, "decode_danube": decode_danube,
            "decode_int8_danube": [check_decode(
-               dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen, "int8")]}
+               dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen, "int8")],
+           "flash_fwd_gemma": flash_gemma, "decode_gemma": decode_gemma,
+           "decode_int8_gemma": [check_decode(
+               dev, 2, 8, 4, 256, 0, 4096, 8192, 16, gen, "int8")]}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
@@ -737,13 +764,16 @@ def kernel_phase(dev):
         res[name + "_more"] = [r[name] for r in bwd_more]
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name + "_danube"] = [r[name] for r in bwd_danube]
+        res[name + "_gemma"] = [r[name] for r in bwd_gemma]
     for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
+        res[name + "_gemma"] = [r[name] for r in packed_gemma]
         res[name] = [r[name] for r in packed_main]
         res[name + "_headline"] = [r[name] for r in packed_head]
         res[name + "_edge"] = [r[name] for r in packed_edge]
     for key, rows in res.items():
         name = key
-        for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube"):
+        for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
+                       "_gemma"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -835,15 +865,19 @@ def sync_check(dev):
 # ---------------------------------------------------------------------------
 
 
-def _row_cos(a: torch.Tensor, b: torch.Tensor) -> float:
-    """Mean over rows of the cosine of logits a, b [..., V], taken a batch
-    row at a time to bound the fp32 copies."""
+def _row_cos(a: torch.Tensor, b: torch.Tensor, rows: int = 1024) -> float:
+    """Mean over rows of the cosine of logits a, b [..., V], taken
+    ``rows`` rows of a batch row at a time to bound the fp32 copies (one
+    fp32 copy of 8192 rows of a 256000-token vocabulary is 8.4 GB)."""
     tot, n = 0.0, 0
     for i in range(a.shape[0]):
-        x, y = a[i].float(), b[i].float()
-        c = (x * y).sum(-1) / (x.norm(dim=-1) * y.norm(dim=-1))
-        tot += float(c.double().sum())
-        n += c.numel()
+        ai = a[i].reshape(-1, a.shape[-1])
+        bi = b[i].reshape(-1, b.shape[-1])
+        for r0 in range(0, ai.shape[0], rows):
+            x, y = ai[r0:r0 + rows].float(), bi[r0:r0 + rows].float()
+            c = (x * y).sum(-1) / (x.norm(dim=-1) * y.norm(dim=-1))
+            tot += float(c.double().sum())
+            n += c.numel()
     return tot / n
 
 
@@ -4420,14 +4454,123 @@ def danube_phase(device, *, hf=DANUBE_1_8B, batch=2, prompt_len=8192,
 
 
 # ---------------------------------------------------------------------------
+# Phase 14: head_dim 256 and StreamingLLM sinks, on Gemma-2-2B
+# ---------------------------------------------------------------------------
+
+# Gemma-2-2B's published geometry (the Gemma 2 report, arXiv:2408.00118,
+# Table 1; the google/gemma-2-2b config): layers alternate a sliding window
+# of 4096 (the even ones, as HF's Gemma2 has it) and full attention, GQA
+# 8/4, head_dim 256; its query scale query_pre_attn_scalar ** -0.5 is
+# 256 ** -0.5, the kernels' default. What the model of both packages lacks
+# stays out, so the model is Gemma-2-2B-shaped: the dense MLP is gated SiLU
+# (not GeGLU), no attention or final logit soft-capping, no post-norms, no
+# embedding scaling, untied embeddings. Built by ModelConfig(**GEMMA2_2B)
+# (from_hf_config takes no model_type "gemma2").
+GEMMA2_2B = dict(
+    hidden_size=2304, num_layers=26, num_heads=8, num_kv_heads=4,
+    head_dim=256, intermediate_size=9216, vocab_size=256000,
+    sliding_window=4096,
+    layer_types=("sliding_attention", "full_attention") * 13,
+    rope_theta=10000.0, rms_norm_eps=1e-6, attention_bias=False,
+    max_position_embeddings=8192, mlp_type="dense", use_s_aux=False)
+# (label, KV storage, StreamingLLM sinks: num_sink_tokens)
+GEMMA_RUNS = (("bfloat16", None, 0), ("bfloat16 int8 KV", "int8", 0),
+              ("bfloat16 4 sinks", None, 4))
+
+
+def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
+                new_tokens=16, train_len=8192, segments=(4096, 4096)):
+    """Phase 14: the model of ``config`` (``ModelConfig(**config)``) at its
+    full width and depth, random bf16 weights from a generator seeded 0.
+
+    14a. serve (phase 3's ``serve``): ``batch`` prompts of ``prompt_len``
+    tokens (twice the window, inside max_position_embeddings with the new
+    tokens), ``new_tokens`` greedy tokens through
+    ``serving.greedy_generate``, in bf16, over an int8 KV cache, and with
+    ``num_sink_tokens = 4`` (StreamingLLM: every sliding layer's cache pins
+    4 sinks while its window rolls, and the kernels run their sink range);
+    launches 1 forward per layer and 1 decode of the run's branch per layer
+    and step; every layer's prefill and decode attention kernel against
+    plain; the logits against plain attention and teacher forcing beside a
+    bf16-noise control (over int8 the K/V round trip).
+
+    14b. train in bf16 (phase 4's ``train``, phase 5's ``train_packed``):
+    one SGD step with remat over ``train_len`` tokens (launches 2 forward,
+    1 dQ, 1 dK/dV per layer) and one on a pack of ``segments`` (1 packed
+    forward, dQ, dK/dV per layer, no unpacked launch); every layer's
+    attention gradients kernel against plain; the per-token losses and
+    named gradients against plain attention beside a bf16-noise control.
+
+    Each run's report holds ``peak_gb``, the card's peak allocation from
+    the run's own reset (its weights already made) to its end, checks
+    included. Returns (report, errors).
+    """
+    import dataclasses
+
+    from sink_attention_tpu_torch.models import ModelConfig
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    cfg = ModelConfig(**config)
+    L = cfg.num_layers
+    report = {"config": {k: getattr(cfg, k) for k in (
+        "hidden_size", "num_layers", "num_heads", "num_kv_heads", "head_dim",
+        "intermediate_size", "vocab_size", "sliding_window")}}
+    errors = []
+
+    def run(label, fn, want):
+        t0 = time.perf_counter()
+        rep, err = fn()
+        rep["seconds"] = time.perf_counter() - t0
+        errors.extend(f"phase 14 {label}: {e}" for e in err)
+        if cuda:
+            rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            _check_launches(rep["launches"], want, f"phase 14 {label}",
+                            errors)
+        report[label] = rep
+        log(f"phase 14 {label}: {rep['seconds']:.1f} s: " + json.dumps(rep))
+        if cuda:
+            torch.cuda.empty_cache()
+
+    for label, quant, sinks in GEMMA_RUNS:
+        want = {"flash_fwd": L, "decode": 0 if quant else L * (
+            new_tokens - 1)}
+        if quant:
+            want[f"decode_{quant}"] = L * (new_tokens - 1)
+        run(f"serve {label}", lambda: serve(
+            dataclasses.replace(cfg, num_sink_tokens=sinks), dev,
+            batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
+            quant=quant, profile=False), want)
+    once = dict(steps=1, profile=False, split=False)
+    run("train bfloat16", lambda: train(cfg, dev, seq_len=train_len, **once),
+        {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkdv": L})
+    run("train packed bfloat16", lambda: train_packed(
+        cfg, dev, seq_len=sum(segments), lens=segments, **once),
+        {"packed_fwd": L, "packed_dq": L, "packed_dkdv": L, "flash_fwd": 0,
+         "flash_dq": 0, "flash_dkdv": 0})
+    return report, errors
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances each source must hold: one per instance head
-# dim (64, 128) and element types (bf16, fp16, fp32 read as bf16)
-WGMMA_INSTANCES = {"flash_fwd": {"fwd": 6}, "flash_bwd": {"dq": 6, "dkdv": 6},
-                   "packed": {"fwd": 6, "dq": 6, "dkdv": 6},
+# dim (64, 128, 256) and element types (bf16, fp16, fp32 read as bf16)
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 9}, "flash_bwd": {"dq": 9, "dkdv": 9},
+                   "packed": {"fwd": 9, "dq": 9, "dkdv": 9},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
+# decode.cu's instances (storage, instance head dim, slices of a tile): 5
+# storages x 3 head dims x 3 slice counts, less fp32 at 256 with 4 slices
+DECODE_INSTANCES = 44
+# the bytes of spill stores each decode instance may show: those it showed
+# when the D = 256 instances came in (CUDA 12 ptxas for sm_90a; q's
+# fragments beside O at D = 256), and 0 for every other instance
+DECODE_SPILL_ALLOWANCE = {
+    ("Bf16", 64, 4): 8, ("Fp16", 64, 4): 8, ("Int8", 128, 4): 4,
+    ("Bf16", 256, 1): 44, ("Fp16", 256, 1): 44, ("Fp32", 256, 1): 192,
+    ("Fp32", 256, 2): 20, ("Int8", 256, 1): 264, ("Int8", 256, 2): 56,
+    ("Int8", 256, 4): 4, ("Fp8", 256, 1): 256, ("Fp8", 256, 2): 80}
 
 
 def kernel_coverage(name):
@@ -4452,16 +4595,27 @@ def kernel_coverage(name):
 
 def spill_errors(report):
     """ptxas' spill line of every instance of a wgmma kernel (the forward,
-    dQ, dK/dV, the ablation's stages of the forward) in the build
-    ``report``: one error per instance that spills,
+    dQ, dK/dV, the ablation's stages of the forward) and of the decode in
+    the build ``report``: one error per wgmma instance that spills, per
+    decode instance that spills more than DECODE_SPILL_ALLOWANCE gives it,
     or per freshly built source whose ptxas lines lack one of the instances
-    of WGMMA_INSTANCES."""
+    of WGMMA_INSTANCES or DECODE_INSTANCES."""
     errors = []
     for name, rep in report.items():
         entry, seen = None, {}
         for line in rep["ptxas"]:
             if "Compiling entry" in line:
                 entry = line
+            elif "spill" in line and entry and "decode_kernel" in entry:
+                seen["decode"] = seen.get("decode", 0) + 1
+                inst = re.search(r"decode_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)E",
+                                 entry)
+                spills = re.search(r"(\d+) bytes spill stores", line)
+                key = inst and (inst[1], int(inst[2]), int(inst[3]))
+                if spills is None or key is None or int(spills[1]) > \
+                        DECODE_SPILL_ALLOWANCE.get(key, 0):
+                    errors.append(f"{name}.cu spills past its allowance "
+                                  f"({key}): {line}")
             elif "spill" in line and entry and "wgmma_kernel" in entry:
                 kind = next((k for k in ("fwd", "dq", "dkdv")
                              if f"{k}_wgmma_kernel" in entry), "other")
@@ -4470,13 +4624,17 @@ def spill_errors(report):
                                    r"spill loads", line)
                 if spills is None or spills.groups() != ("0", "0"):
                     errors.append(f"{name}.cu spills: {entry}: {line}")
-        for kind, n in WGMMA_INSTANCES.get(name, {}).items():
+        want = dict(WGMMA_INSTANCES.get(name, {}))
+        if name == "decode":
+            want["decode"] = DECODE_INSTANCES
+        for kind, n in want.items():
             if not rep["cached"] and seen.get(kind, 0) != n:
                 errors.append(f"{name}.cu: ptxas printed the spill lines of "
-                              f"{seen.get(kind, 0)} {kind}_wgmma_kernel "
+                              f"{seen.get(kind, 0)} {kind} kernel "
                               f"instances, not {n}")
-    log("spill check (every wgmma kernel instance): "
-        + ("0 spill" if not errors else "FAILED"))
+    log("spill check (every wgmma and decode kernel instance): "
+        + ("wgmma 0 spill, decode within its allowance" if not errors
+           else "FAILED"))
     return errors
 
 
@@ -4778,21 +4936,36 @@ def main() -> int:
         f"head_dim 80, W=4096; serving 2 x 8192 + 16 new in bf16, fp32 and "
         f"int8 KV; training 1 x 8192 and a pack of 2 x 4096 in fp32): "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 14. head_dim 256 and StreamingLLM sinks: Gemma-2-2B-shaped (D=256) at
+    # full width, served in bf16, over int8 KV and with 4 sinks, trained in
+    # bf16
+    t0 = time.perf_counter()
+    greport, gerr = gemma_phase(dev)
+    errors += gerr
+    log(f"phase 14 (Gemma-2-2B-shaped, 26 layers, hidden 2304, 8/4 heads, "
+        f"head_dim 256, W=4096 on alternate layers; serving 2 x 8176 + 16 "
+        f"new in bf16, over int8 KV and with 4 StreamingLLM sinks; training "
+        f"1 x 8192 and a pack of 2 x 4096 in bf16): "
+        f"{time.perf_counter() - t0:.1f} s")
     for row in kernels:
-        n = sum(rep["launches"].get(row["name"], 0)
-                for rep in dreport.values() if "launches" in rep)
-        if row["name"] in ("flash_fwd", "flash_dq", "flash_dkdv", "decode",
-                           "decode_int8", "packed_fwd", "packed_dq",
-                           "packed_dkdv"):
-            row["launches_danube"] = n
-            if n == 0:
-                errors.append(f"{row['name']} launched no time in phase 13")
-        danube = kern.get(f"{row['name']}_danube")
-        if danube:
-            row["danube"] = [{k: r[k] for k in (
-                "shape", "max_abs_err", "exact_err", "exact_rel_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "device_ms") if k in r} for r in danube]
+        for phase, rep in (("danube", dreport), ("gemma", greport)):
+            n = sum(r["launches"].get(row["name"], 0)
+                    for r in rep.values() if "launches" in r)
+            if row["name"] in ("flash_fwd", "flash_dq", "flash_dkdv",
+                               "decode", "decode_int8", "packed_fwd",
+                               "packed_dq", "packed_dkdv"):
+                row[f"launches_{phase}"] = n
+                if n == 0:
+                    errors.append(f"{row['name']} launched no time in phase "
+                                  f"{13 if phase == 'danube' else 14}")
+            rows = kern.get(f"{row['name']}_{phase}")
+            if rows:
+                row[phase] = [{k: r[k] for k in (
+                    "shape", "max_abs_err", "exact_err", "exact_rel_err",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "device_ms") if k in r} for r in rows]
     for row in kernels:
         row["head_dims"], row["dtypes"] = kernel_coverage(row["name"])
 

@@ -17,7 +17,7 @@ offsets, no s_aux) to out [B, H_q, N, D] in q.dtype. The stripped stages
 sum over whole visited tiles, masked cells included, so their value
 depends on the tile schedule. It is the production forward's: each 128-row
 q block visits the 128-key blocks of :func:`flash.fwd_kv_ranges` (the sink
-range, then the window range) at ``FWD_BM x FWD_BN``, which are the blocks
+range, then the window range) at ``BM x BN``, which are the blocks
 the JAX kernel visits at 128 x 128 tiles; the kernels are the forward of
 ``csrc/hopper.cuh`` with its softmax cut to the stage.
 
@@ -59,7 +59,7 @@ import math
 import torch
 
 from . import _build
-from .flash import (FWD_BM as BM, FWD_BN as BN, _WINDOW_CLAMP, _table_on,
+from .flash import (FWD_BM as BM, _WINDOW_CLAMP, _table_on,
                     fwd_kv_ranges, load_fn)
 
 __all__ = ["STAGES", "MASK_STAGES", "ablation_plain", "ablation_kernel",
@@ -68,6 +68,7 @@ __all__ = ["STAGES", "MASK_STAGES", "ablation_plain", "ablation_kernel",
 STAGES = ("mxu_floor", "rowmax", "exp2", "sum", "general", "sum_mxu",
           "nomax", "nomax_summxu", "bf16exp", "maskadd", "masksel")
 MASK_STAGES = ("maskadd", "masksel")
+BN = 128  # the stages' keys per KV tile: the forward's at D 64 and 128
 LOG2E = 1.4426950408889634
 NOMAX_BOUND = 16.0  # the fixed bound of the nomax stages (exp2 domain)
 
@@ -89,8 +90,8 @@ def visited_blocks(n: int, num_sink: int, window_size: int):
     """(blocks, valid), int64 and bool [steps, n / BM]: the KV block that
     each q block visits at each step (sink range, then window range), and
     whether that step exists for it."""
-    table = torch.from_numpy(fwd_kv_ranges(n, n, num_sink, window_size,
-                                           bm=BM, bn=BN).astype("int64"))
+    table = torch.from_numpy(fwd_kv_ranges(n, n, num_sink, window_size, 0,
+                                           0, BM, BN).astype("int64"))
     n_sink = (table[:, 1] - table[:, 0]).clamp(min=0)
     n_all = n_sink + (table[:, 3] - table[:, 2]).clamp(min=0)
     t = torch.arange(max(int(n_all.max()), 1))[:, None]

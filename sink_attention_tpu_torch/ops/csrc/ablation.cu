@@ -364,9 +364,22 @@ int launch(const void* q, const void* k, const void* v, const void* tiles,
            void* o, int B, int H_q, int H_kv, int N, int D, float c,
            const SinkWindowMask& mask, void* stream) {
   if (N % FWD_BM != 0) return (int)cudaErrorInvalidValue;
-  return hopper::launch_fwd(q, k, v, nullptr, nullptr, o, nullptr, B, H_q,
-                            H_kv, N, N, D, 1.f, mask, stream,
-                            StageSoftmax<STAGE>{c, tiles});
+  if (N <= 0 || B * H_q <= 0) return 0;
+  if (H_kv <= 0 || H_q % H_kv != 0) return (int)cudaErrorInvalidValue;
+  // the stages run in the forward's instances of D 64 and 128 only
+  const StageSoftmax<STAGE> softmax{c, tiles};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hopper::instance_d(D) == 64)
+    return hopper::launch_fwd_d<64, 3, SinkWindowMask, StageSoftmax<STAGE>,
+                                hopper::IoBf16>(
+        q, k, v, nullptr, nullptr, o, nullptr, B, H_q, H_kv, N, N, D, 1.f,
+        mask, softmax, st);
+  if (hopper::instance_d(D) == 128)
+    return hopper::launch_fwd_d<128, 2, SinkWindowMask, StageSoftmax<STAGE>,
+                                hopper::IoBf16>(
+        q, k, v, nullptr, nullptr, o, nullptr, B, H_q, H_kv, N, N, D, 1.f,
+        mask, softmax, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace ablation

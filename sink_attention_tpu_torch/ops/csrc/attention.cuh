@@ -12,12 +12,12 @@
 //     P  = exp(scale * Q K^T - LSE)  on valid cells, 0 elsewhere
 //     dP = dO V^T,   dS = P * (dP - delta)
 //     dQ = scale * dS K,   dV = P^T dO,   dK = scale * dS^T Q
-// Query head h reads KV head h / (H_q / H_kv). Any head dim D up to 128
-// with D % 8 == 0 runs, in the instance of D_i = 64 or 128 (the smallest
-// D_i >= D; columns past D read as zeros and are not written); the host
-// pads any other D to the next multiple of 8. Inputs are bf16 or fp16
-// (fp32 arrives rounded to bf16 by the host and is written as fp32; see
-// hopper.cuh's Io types). The forward is hopper.cuh's wgmma/TMA kernel, dQ
+// Query head h reads KV head h / (H_q / H_kv). Any head dim D up to 256
+// with D % 8 == 0 runs, in the instance of D_i = 64, 128 or 256 (the
+// smallest D_i >= D; columns past D read as zeros and are not written);
+// the host pads any other D to the next multiple of 8. Inputs are bf16 or
+// fp16 (fp32 arrives rounded to bf16 by the host and is written as fp32;
+// see hopper.cuh's Io types). The forward is hopper.cuh's wgmma/TMA kernel, dQ
 // hopper_dq.cuh's and dK/dV hopper_bwd.cuh's, each written once over both
 // policies (the forward also over ablation.cu's softmax stages).
 //
@@ -92,6 +92,18 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     return pack_f16(lo, hi);
   else
     return pack_bf16(lo, hi);
+}
+
+// Two floats as a two-term bf16 split (low half first): the pair rounded
+// to nearest, and in `rest` the remainders x - bf16(x) (exact in fp32)
+// rounded again, so that a product over both pairs reads x at about 16 of
+// its 24 significand bits (the fp32 instances' P and dS).
+__device__ __forceinline__ uint32_t pack_bf16_split(float lo, float hi,
+                                                    uint32_t& rest) {
+  const uint32_t v = pack_bf16(lo, hi);
+  rest = pack_bf16(lo - __uint_as_float(v << 16),
+                   hi - __uint_as_float(v & 0xffff0000u));
+  return v;
 }
 
 // The visible keys of one query row, in local key slots: the window run

@@ -71,12 +71,18 @@
 // 128 slots (two would not fit beside q), a lane per slot for S = q . k
 // (float4 rows, conflict-free at the padded row stride) and a lane per
 // column for O += p v, q and the output fp32.
-// Head dims: any D <= 128 whose rows are whole 16 bytes (D % 8 for
+// Head dims: any D <= 256 whose rows are whole 16 bytes (D % 8 for
 // bf16/fp16, D % 16 for the codes, D % 4 for fp32; the host pads any other
-// D), run by the instance of D_i = 64 or 128 with the columns past D
+// D), run by the instance of D_i = 64, 128 or 256 with the columns past D
 // zero-filled by cp.async (src-size 0) and not written: at D = 80 the
 // tensor cores do 128 / 80 = 1.6x the products, on a kernel bound by its
-// launch and its bytes.
+// launch and its bytes. The 256 instance of the 16-bit and fp32 storage
+// walks tiles of 64 slots (tile_slots): two 128-slot bf16 buffers would
+// take 270 KB; the codes keep 128 (a tile of K and V codes is 70 KB). A
+// warp's O of 16 rows x 256 columns is 128 fp32 registers a lane beside
+// q's 64 (bf16 A fragments); the fp32 storage's lane-per-slot step keeps
+// its warp slices at 32 slots or more (at most 2 slices of a 64-slot
+// tile).
 
 #include <cooperative_groups.h>
 
@@ -96,7 +102,7 @@ using sinkattn::mma16816;
 using sinkattn::pack2;
 using sinkattn::pack_bf16;
 
-constexpr int TILE = 128;      // slots per tile
+constexpr int TILE = 128;      // slots per tile (64 in some D = 256 ones)
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr int NWARPS = NTHREADS / 32;
 static_assert(NTHREADS == TILE, "a thread copies one slot's scales");
@@ -178,16 +184,23 @@ struct State {
   int u_sink_len, u_window_len, u_write_pos;
 };
 
+// Slots per tile of an instance: TILE, but 64 for unquantized storage at
+// D = 256, where two 128-slot buffers would not fit (see the header).
+template <class T, int D>
+__host__ __device__ constexpr int tile_slots() {
+  return D == 256 && !T::SCALED ? 64 : TILE;
+}
+
 // One buffer: a tile's K and V rows (padded) and, when quantized, their
 // per-slot scales.
 template <class T, int D>
 __host__ __device__ constexpr size_t buf_bytes() {
-  return 2 * (size_t)TILE * (D * T::BYTES + 16) +
-         (T::SCALED ? 2 * TILE * sizeof(float) : 0);
+  return 2 * (size_t)tile_slots<T, D>() * (D * T::BYTES + 16) +
+         (T::SCALED ? 2 * tile_slots<T, D>() * sizeof(float) : 0);
 }
 
 // Tile buffers: two (the next tile streams in while one is computed), one
-// for fp32 storage (two do not fit at D = 128).
+// for fp32 storage (two do not fit at D = 128 or 256).
 template <class T>
 __host__ __device__ constexpr int n_bufs() {
   return T::SCALAR ? 1 : 2;
@@ -207,15 +220,16 @@ constexpr size_t smem_bytes() {
 }
 
 // The fp32 storage's warp step: the warp (m-tile of 16 query rows, slot
-// slice of SW = TILE / SL slots) computes in fp32 on the CUDA cores. S: a
+// slice of SW = TL / SL >= 32 slots of a TL-slot tile) computes in fp32 on
+// the CUDA cores. S: a
 // lane per slot (NS = SW / 32 slots a lane), q rows read from shared
 // memory by broadcast, K rows as float4 (row stride D + 4 floats: a
 // quarter warp's 8 rows fall on distinct banks); the online softmax per
 // row over the lanes (exp2 domain); O += p v: a lane per column (D / 32
 // columns a lane), each slot's p taken from its lane by a shuffle.
-template <int D, int SL>
+template <int D, int SL, int TL>
 struct F32Warp {
-  static constexpr int SW = TILE / SL;
+  static constexpr int SW = TL / SL;
   static constexpr int NS = SW / 32;  // slots a lane
   static constexpr int NC = D / 32;   // output columns a lane
   static constexpr int ROWF = D + 4;  // padded smem row (floats)
@@ -337,21 +351,22 @@ __global__ void __launch_bounds__(NTHREADS)
                   const float* __restrict__ s_aux, void* __restrict__ out,
                   int H_kv, int G, int n_pieces, int S_total, int sink_cap,
                   int window, int Dt, float scale_log2) {
+  constexpr int TL = tile_slots<T, D>();   // slots per tile
   constexpr int ROWB = D * T::BYTES + 16;  // padded smem row (bytes)
   constexpr int VECS = D * T::BYTES / 16;  // 16-byte copies per smem row
-  constexpr int SW = TILE / SL;            // slots per warp slice
+  constexpr int SW = TL / SL;              // slots per warp slice
   constexpr int NT = SW / 8;               // n-tiles of S
   constexpr int KT = D / 16;               // k-steps of S
   constexpr int DT = D / 8;                // n-tiles of O
   constexpr int D4 = D / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  // Buffer b: K [TILE][ROWB], V [TILE][ROWB], k scales [TILE], v scales.
+  // Buffer b: K [TL][ROWB], V [TL][ROWB], k scales [TL], v scales.
   auto kbuf = [&](int b) { return smem + b * buf_bytes<T, D>(); };
-  auto vbuf = [&](int b) { return kbuf(b) + TILE * ROWB; };
+  auto vbuf = [&](int b) { return kbuf(b) + TL * ROWB; };
   auto ksbuf = [&](int b) {
-    return reinterpret_cast<float*>(kbuf(b) + 2 * TILE * ROWB);
+    return reinterpret_cast<float*>(kbuf(b) + 2 * TL * ROWB);
   };
-  auto vsbuf = [&](int b) { return ksbuf(b) + TILE; };
+  auto vsbuf = [&](int b) { return ksbuf(b) + TL; };
   float* po = reinterpret_cast<float*>(smem);  // [NWARPS][16][D]
   float* pm = po + NWARPS * 16 * D;            // [NWARPS][16]
   float* pl = pm + NWARPS * 16;                // [NWARPS][16]
@@ -386,15 +401,15 @@ __global__ void __launch_bounds__(NTHREADS)
                                                        : window)
                                      : sink_len,
                       S_total);
-  const int n_tiles = (hwm + TILE - 1) / TILE;
+  const int n_tiles = (hwm + TL - 1) / TL;
 
   const size_t head = (size_t)bkv * S_total;
   // One group of copies: tile `tile`'s K, V (and scales) into buffer bb.
   auto load = [&](int tile, int bb) {
-    const int slot0 = tile * TILE;
+    const int slot0 = tile * TL;
     uint8_t* kd = kbuf(bb);
     uint8_t* vd = vbuf(bb);
-    for (int c = tid; c < TILE * VECS; c += NTHREADS) {
+    for (int c = tid; c < TL * VECS; c += NTHREADS) {
       const int r = c / VECS, cc = c - (c / VECS) * VECS;
       // zeros past the live range and past the row's Dt columns
       const bool ok = slot0 + r < hwm && cc < vecs;
@@ -403,7 +418,7 @@ __global__ void __launch_bounds__(NTHREADS)
       cp_async16(kd + r * ROWB + cc * 16, k + off, ok);
       cp_async16(vd + r * ROWB + cc * 16, v + off, ok);
     }
-    if (T::SCALED) {  // one slot's scales a thread
+    if (T::SCALED) {  // one slot's scales a thread (TL == NTHREADS)
       const bool ok = slot0 + tid < hwm;
       const size_t off = head + (ok ? slot0 + tid : 0);
       cp_async4(ksbuf(bb) + tid, k_scale + off, ok);
@@ -466,7 +481,7 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  F32Warp<D, SL> fw;
+  F32Warp<D, SL, TL> fw;
   if constexpr (T::SCALAR) fw.init();
 
   for (int bb = 0; tile < n_tiles; tile += n_ranks, bb ^= n_bufs<T>() - 1) {
@@ -483,12 +498,12 @@ __global__ void __launch_bounds__(NTHREADS)
     __syncthreads();
     const int c0 = slice * SW;  // the slice's first slot in the tile
     if constexpr (T::SCALAR) {
-      if (has_rows && tile * TILE + c0 < hwm)
+      if (has_rows && tile * TL + c0 < hwm)
         fw.tile(reinterpret_cast<const float*>(kbuf(bb) + c0 * ROWB),
                 reinterpret_cast<const float*>(vbuf(bb) + c0 * ROWB),
                 q_sm + mt * 16 * D, lane, scale_log2,
-                [&](int i) { return live(tile * TILE + c0 + i); });
-    } else if (has_rows && tile * TILE + c0 < hwm) {  // rows, live slots
+                [&](int i) { return live(tile * TL + c0 + i); });
+    } else if (has_rows && tile * TL + c0 < hwm) {  // rows, live slots
       const uint8_t* kb = kbuf(bb) + c0 * ROWB;
       const float* ksc = ksbuf(bb);
       const float* vsc = vsbuf(bb);
@@ -514,7 +529,7 @@ __global__ void __launch_bounds__(NTHREADS)
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2) {
           const int cl_ = c0 + nt * 8 + t4 * 2 + e2;  // slot within the tile
-          const bool ok = live(tile * TILE + cl_);
+          const bool ok = live(tile * TL + cl_);
           const float f = T::SCALED ? ksc[cl_] * scale_log2 : scale_log2;
           s[nt][e2] = ok ? s[nt][e2] * f : -INFINITY;
           s[nt][e2 + 2] = ok ? s[nt][e2 + 2] * f : -INFINITY;
@@ -725,21 +740,24 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
   return (int)cudaGetLastError();
 }
 
+// The slices of a tile (SL) by the group's rows: 4, 2 or 1 for up to 16,
+// 32 or 64 rows; fp32 storage's slices at least 32 slots (SLMAX).
 template <class T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const State& st, const void* s_aux,
              void* out, int B, int H_q, int H_kv, int S_total, int sink_cap,
              int window, int Dt, int cluster, float scale,
              cudaStream_t stream) {
+  constexpr int SLMAX = T::SCALAR ? tile_slots<T, D>() / 32 : 4;
   const int rows = min(H_q / H_kv, ROWS);  // of the largest piece
   if (rows <= 16)
-    return launch<T, D, 4>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                           H_kv, S_total, sink_cap, window, Dt, cluster,
-                           scale, stream);
+    return launch<T, D, (SLMAX < 4 ? SLMAX : 4)>(
+        q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q, H_kv, S_total,
+        sink_cap, window, Dt, cluster, scale, stream);
   if (rows <= 32)
-    return launch<T, D, 2>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                           H_kv, S_total, sink_cap, window, Dt, cluster,
-                           scale, stream);
+    return launch<T, D, (SLMAX < 2 ? SLMAX : 2)>(
+        q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q, H_kv, S_total,
+        sink_cap, window, Dt, cluster, scale, stream);
   return launch<T, D, 1>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                          H_kv, S_total, sink_cap, window, Dt, cluster, scale,
                          stream);
@@ -758,7 +776,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
       (cluster & (cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   // whole 16-byte cache rows, and q rows of whole 4 elements
-  if (D <= 0 || D > 128 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
+  if (D <= 0 || D > 256 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S_total <= 0) return 0;
   const State st{static_cast<const int*>(st_sink_len),
@@ -769,7 +787,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
     return launch_d<T, 64>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                            H_kv, S_total, sink_cap, window, D, cluster, scale,
                            s);
-  return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
+  if (D <= 128)
+    return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
+                            H_q, H_kv, S_total, sink_cap, window, D, cluster,
+                            scale, s);
+  return launch_d<T, 256>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                           H_kv, S_total, sink_cap, window, D, cluster, scale,
                           s);
 }
@@ -778,7 +800,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
 
 // q [B*H_q, D] (bf16; fp16 and fp32 for those caches); k/v [B*H_kv,
 // S_total, D] (bf16, fp16, fp32, or int8 codes with k_scale/v_scale
-// [B*H_kv, S_total] fp32; null otherwise), D <= 128 with whole 16-byte
+// [B*H_kv, S_total] fp32; null otherwise), D <= 256 with whole 16-byte
 // rows; the state: three int32 arrays read at b * st_stride, or, where the
 // pointers are null, the ints sink_len, window_len, write_pos for every
 // sequence; s_aux [H_q] fp32 or null; out [B*H_q, D] like q. `cluster`
@@ -805,5 +827,7 @@ SINK_DECODE_ENTRY(sink_decode_f32, Fp32)
 SINK_DECODE_ENTRY(sink_decode_int8, Int8)
 SINK_DECODE_ENTRY(sink_decode_fp8, Fp8)
 
+// The 128-slot tile the host sizes clusters by (an instance of 64-slot
+// tiles walks two per 128 slots).
 extern "C" int sink_decode_tile() { return TILE; }
 extern "C" int sink_decode_max_cluster() { return MAX_CLUSTER; }

@@ -18,8 +18,10 @@
 // range of 64-row q blocks per 128-key block; both decided per block on
 // the host, so negative and chunked offsets are right, and both take
 // their work items longest first from a host order table. Coverage as the
-// forward's (flash_fwd.cu): D <= 128, D % 8 == 0, in the instance D_i =
-// 64 or 128; bf16, fp16, and fp32 read as bf16 with fp32 gradients.
+// forward's (flash_fwd.cu): D <= 256, D % 8 == 0, in the instance D_i =
+// 64, 128 or 256 (dQ at 32-key tiles there, dK/dV at 64-key items whose
+// columns the two consumers split); bf16, fp16, and fp32 read as bf16
+// with fp32 gradients.
 
 #include "hopper_bwd.cuh"
 #include "hopper_dq.cuh"
@@ -44,9 +46,10 @@ extern "C" int sink_dq(const void* q, const void* k, const void* v,
                                            N_kv, D, scale, mask, stream);
 }
 
-// As sink_dq; qranges [ceil(N_kv/128), 2] int32 (the range of 64-row q
-// blocks that read each 128-key block), order [ceil(N_kv/128)] int32 (the
-// key blocks, longest range first); dk, dv like k (fp32 for dtype 2).
+// As sink_dq; qranges [ceil(N_kv/bn), 2] int32 (the range of 64-row q
+// blocks that read each key block of bn = sink_dkdv_block_n(D) keys),
+// order [ceil(N_kv/bn)] int32 (the key blocks, longest range first); dk,
+// dv like k (fp32 for dtype 2).
 extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
                          const void* qranges, const void* order, void* dk,
@@ -62,11 +65,13 @@ extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
                                              stream);
 }
 
-// Tile sizes the host-side range tables must use: dQ's (by head dim: the
-// instance's), and dK/dV's.
+// Tile sizes the host-side range tables must use: dQ's and dK/dV's (keys
+// by head dim: the instance's).
 extern "C" int sink_dq_block_m() { return sinkattn::hopper::DQ_BM; }
 extern "C" int sink_dq_block_n(int D) {
   return sinkattn::hopper::dq_bn(sinkattn::hopper::instance_d(D));
 }
 extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
-extern "C" int sink_dkdv_block_n() { return sinkattn::hopper::DKDV_BN; }
+extern "C" int sink_dkdv_block_n(int D) {
+  return sinkattn::hopper::dkdv_bn(sinkattn::hopper::instance_d(D));
+}

@@ -19,24 +19,24 @@
 //
 // The entry point launches the template over SinkWindowMask (hopper.cuh's
 // launch_fwd, shared with the packed forward), which builds the three TMA
-// descriptors per call. Coverage: any head dim D <= 128 with D % 8 == 0
+// descriptors per call. Coverage: any head dim D <= 256 with D % 8 == 0
 // (the host pads any other D to the next multiple of 8), run by the
-// instance of D_i = 64 or 128 (hopper.cuh's instance_d): at D = 80 the
-// 128 instance's tensor cores do 128 / 80 = 1.6x the products the bound
-// counts; bf16 and fp16 inputs, and fp32 (rounded to bf16 by the host,
+// instance of D_i = 64, 128 or 256 (hopper.cuh's instance_d): at D = 80
+// the 128 instance's tensor cores do 128 / 80 = 1.6x the products the
+// bound counts; the 256 instance walks 64-key tiles (hopper.cuh's
+// FwdPlan); bf16 and fp16 inputs, and fp32 (rounded to bf16 by the host,
 // O written as fp32).
 
 #include "hopper.cuh"
 
 using sinkattn::SinkWindowMask;
 using sinkattn::hopper::FWD_BM;
-using sinkattn::hopper::FWD_BN;
 
 // q [B*H_q, N_q, D], k/v [B*H_kv, N_kv, D] contiguous, 16-byte aligned,
 // bf16 (dtype 0; hopper.cuh's DtypeCode), fp16 (1) or bf16 rounded from
 // fp32 (2); s_aux [H_q] fp32 or null; ranges [ceil(N_q/128), 4] int32 (the
-// KV blocks of 128 keys each q block of 128 rows visits); o like q (fp32
-// for dtype 2); lse [B*H_q, N_q] fp32.
+// KV blocks of sink_fwd_block_n(D) keys each q block of 128 rows visits);
+// o like q (fp32 for dtype 2); lse [B*H_q, N_q] fp32.
 extern "C" int sink_fwd(const void* q, const void* k, const void* v,
                         const void* s_aux, const void* ranges, void* o,
                         void* lse, int B, int H_q, int H_kv, int N_q,
@@ -50,6 +50,10 @@ extern "C" int sink_fwd(const void* q, const void* k, const void* v,
                                             D, scale, mask, stream);
 }
 
-// Tile sizes the host-side range table must use.
+// Tile sizes the host-side range table must use (keys by head dim: the
+// instance's).
 extern "C" int sink_fwd_block_m() { return FWD_BM; }
-extern "C" int sink_fwd_block_n() { return FWD_BN; }
+extern "C" int sink_fwd_block_n(int D) {
+  using namespace sinkattn::hopper;
+  return instance_d(D) == 256 ? FwdPlan<256>::BN : FWD_BN;
+}

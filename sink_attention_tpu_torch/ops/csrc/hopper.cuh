@@ -38,9 +38,18 @@
 //  * Q, K and V land in shared memory in 128-byte-swizzled boxes of 64
 //    columns (a D = 128 row is two boxes); TMA zero-fills rows past N_q
 //    and N_kv, and the columns past the tensors' head dim Dt where the
-//    instance's D is larger (any Dt <= 128 with Dt % 8 == 0 runs in the
-//    instance of 64 or 128: instance_d), so the products over those zero
-//    columns add nothing and only Dt columns are written;
+//    instance's D is larger (any Dt <= 256 with Dt % 8 == 0 runs in the
+//    instance of 64, 128 or 256: instance_d), so the products over those
+//    zero columns add nothing and only Dt columns are written;
+//  * the instance of D = 256 has its own tile plan (FwdPlan): two Q
+//    buffers of 128 x 256 would take 128 KB and a 128-key K/V stage 128
+//    KB more, past the 227 KB a block has; it keeps one Q buffer (64 KB)
+//    and two stages of 64-key K and V tiles (2 x 64 KB): 192 KB. Its
+//    consumers hold O in 128 fp32 registers a thread (64 rows x 256), S of
+//    a 64-key tile in 32 (m64n64) and P in 16, under CONSUMER_REGS; O +=
+//    P V is two m64n128k16 products a 16-key step, one per half of V's
+//    columns (rs_mma). The next item's Q load waits for this item's end
+//    (one buffer): the items are long (a W = 4096 item walks 64 tiles);
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //    the online softmax runs on the accumulators in the exp2 domain (the
 //    scale folded into the exponent's FMA, ex2.approx), seeded with
@@ -234,6 +243,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
 }
 #undef SINK_WGMMA_SS_N64
 
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]: A and B from shared memory
+// (descriptors), both K-major; fp32 accumulators d[16]; A and B bf16, or
+// fp16 where F16.
+#define SINK_WGMMA_SS_N32(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+template <bool F16 = false>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (F16)
+    SINK_WGMMA_SS_N32("f16");
+  else
+    SINK_WGMMA_SS_N32("bf16");
+}
+#undef SINK_WGMMA_SS_N32
+
 // D[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (16-bit
 // pairs), B from shared memory, MN-major (transposed); d[32]; A and B bf16, or
 // fp16 where F16.
@@ -276,10 +305,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 #undef SINK_WGMMA_RS_N128
 
-// D (+)= A B over N / 2 accumulators a thread (N = 64 or 128 columns),
-// both operands from shared memory, K-major; bf16, or fp16 where F16.
+// D (+)= A B over N / 2 accumulators a thread (N = 32, 64 or 128
+// columns), both operands from shared memory, K-major; bf16, or fp16 where
+// F16.
 template <int N, bool F16 = false>
 struct SsMma;
+template <bool F16>
+struct SsMma<16, F16> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+    wgmma_ss_n32<F16>(d, da, db, scale_d);
+  }
+};
 template <bool F16>
 struct SsMma<32, F16> {
   __device__ __forceinline__ static void run(float (&d)[32], uint64_t da,
@@ -314,12 +351,31 @@ struct RsMma<64, F16> {
   }
 };
 
+// D += A B over OR accumulators a thread, A a 16-deep register fragment,
+// B from shared memory at `b` as the transposed (MN-major) operand, its
+// 64-column boxes `lbo` bytes apart: one wgmma m64n(2 OR)k16 for OR <= 64;
+// for OR = 128 (256 columns) two m64n128k16, on the accumulators of
+// columns [0, 128) and [128, 256) (boxes 0-1 and 2-3).
+template <int OR, bool F16 = false>
+__device__ __forceinline__ void rs_mma(float (&d)[OR], const uint32_t (&a)[4],
+                                       const uint8_t* b, uint32_t lbo) {
+  if constexpr (OR == 128) {
+    RsMma<64, F16>::run(*reinterpret_cast<float(*)[64]>(&d[0]), a,
+                        desc_sw128(b, lbo, 1024));
+    RsMma<64, F16>::run(*reinterpret_cast<float(*)[64]>(&d[64]), a,
+                        desc_sw128(b + 2 * lbo, lbo, 1024));
+  } else {
+    RsMma<OR, F16>::run(d, a, desc_sw128(b, lbo, 1024));
+  }
+}
+
 // What an instance reads and writes. Q, K, V (and dO) are 16-bit, the
 // wgmma's A and B type: bf16, or fp16 where kF16. The outputs (O, dQ, dK,
 // dV) are written in that type from the fp32 accumulators, or where kOut32
 // as fp32 (fp32 callers: the host rounds the inputs to bf16 once, as the
 // TPU's matrix unit reads fp32 at its default precision, and the
-// accumulators are stored unrounded).
+// accumulators are stored unrounded; the backward kernels carry P and dS
+// as two bf16 terms, attention.cuh's pack_bf16_split).
 struct IoBf16 {
   static constexpr bool kF16 = false, kOut32 = false;
 };
@@ -334,11 +390,26 @@ struct IoF32 {
 // 2 fp32 (inputs rounded to bf16 by the host, fp32 outputs).
 enum DtypeCode { kDtypeBf16 = 0, kDtypeF16 = 1, kDtypeF32 = 2 };
 
-// The instance head dim D_i of a head dim D: the smallest of 64 and 128
-// that holds it; 0 (refused) for D > 128 or D % 8 != 0 (TMA takes a row
-// stride of whole 16 bytes: the host pads such a D).
+// The instance head dim D_i of a head dim D: the smallest of 64, 128 and
+// 256 that holds it; 0 (refused) for D > 256 or D % 8 != 0 (TMA takes a
+// row stride of whole 16 bytes: the host pads such a D).
 __host__ __device__ constexpr int instance_d(int D) {
-  return (D <= 0 || D % 8 != 0) ? 0 : D <= 64 ? 64 : D <= 128 ? 128 : 0;
+  return (D <= 0 || D % 8 != 0) ? 0
+         : D <= 64              ? 64
+         : D <= 128             ? 128
+         : D <= 256             ? 256
+                                : 0;
+}
+
+// Which of QB buffers holds item `it`, and the parity of that buffer's
+// barriers for it (QB = 1 or 2).
+template <int QB>
+__device__ __forceinline__ int buf_of(int it) {
+  return QB == 1 ? 0 : it & 1;
+}
+template <int QB>
+__device__ __forceinline__ int buf_phase(int it) {
+  return QB == 1 ? it & 1 : (it >> 1) & 1;
 }
 
 // --- host: tensor maps and the persistent grid --------------------------------
@@ -402,25 +473,35 @@ inline int sm_count() {
   return n;
 }
 
+// The forward's tile plan at instance head dim D: keys per K/V tile and
+// Q buffers. 128 keys and two Q buffers at D = 64 and 128; at D = 256
+// (see the header) 64 keys and one Q buffer, so that two K/V stages fit.
+template <int D>
+struct FwdPlan {
+  static constexpr int BN = D == 256 ? 64 : FWD_BN;
+  static constexpr int QB = D == 256 ? 1 : 2;
+};
+
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 template <int D, int STAGES>
 struct FwdSmem {
+  static constexpr int QB = FwdPlan<D>::QB;           // Q buffers
   static constexpr int BOXES = D / 64;                // 64-column boxes a row
   static constexpr int Q_BYTES = FWD_BM * D * 2;      // one Q tile
-  static constexpr int KV_BYTES = FWD_BN * D * 2;     // one K or V tile
-  static constexpr int Q_OFF = 0;                     // two Q tiles
-  static constexpr int K_OFF = Q_OFF + 2 * Q_BYTES;
+  static constexpr int KV_BYTES = FwdPlan<D>::BN * D * 2;  // one K or V tile
+  static constexpr int Q_OFF = 0;                     // QB Q tiles
+  static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   // per Q buffer: RowSpan [128], the two consumers' hulls int [2][2]
   static constexpr int ROWS_BYTES = FWD_BM * 16 + 16;
   static constexpr int ROW_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = ROW_OFF + 2 * ROWS_BYTES;
-  // q_full[2], q_empty[2], then k_full, v_full, empty [STAGES] each
-  static constexpr int N_BARS = 4 + 3 * STAGES;
-  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
-  static constexpr int BYTES = INFO_OFF + 2 * 8 * 4 + 1024;  // + alignment
+  static constexpr int BAR_OFF = ROW_OFF + QB * ROWS_BYTES;
+  // q_full[QB], q_empty[QB], then k_full, v_full, empty [STAGES] each
+  static constexpr int N_BARS = 2 * QB + 3 * STAGES;
+  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [QB][8]
+  static constexpr int BYTES = INFO_OFF + QB * 8 * 4 + 1024;  // + alignment
   // a softmax policy's own shared memory (kSmem bytes), if any
-  static constexpr int OWN_OFF = (INFO_OFF + 2 * 8 * 4 + 1023) / 1024 * 1024;
+  static constexpr int OWN_OFF = (INFO_OFF + QB * 8 * 4 + 1023) / 1024 * 1024;
   template <int OWN>
   static constexpr int bytes() { return OWN ? OWN_OFF + OWN + 1024 : BYTES; }
 };
@@ -506,35 +587,35 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The per-cell mask of a tile on the warp's partial tiles only (a
-// warp-uniform branch): unless one vote finds the tile whole for every row
-// of the warp, a masked score of the thread's two rows becomes -inf by a
-// select (exp2 of -inf is 0), the sink run tested only where a row's sink
-// run meets the tile.
+// The per-cell mask of a tile of 2 N keys (N accumulators a thread) on
+// the warp's partial tiles only (a warp-uniform branch): unless one vote
+// finds the tile whole for every row of the warp, a masked score of the
+// thread's two rows becomes -inf by a select (exp2 of -inf is 0), the
+// sink run tested only where a row's sink run meets the tile.
 template <int N>
 __device__ __forceinline__ void mask_partial(float (&sacc)[N],
                                              const RowSpan (&rows)[2],
                                              int col0, int t4) {
   const bool whole =
-      __all_sync(0xffffffffu, span_covers(rows[0], col0, FWD_BN) &&
-                                  span_covers(rows[1], col0, FWD_BN));
+      __all_sync(0xffffffffu, span_covers(rows[0], col0, 2 * N) &&
+                                  span_covers(rows[1], col0, 2 * N));
   if (!whole) {
-    if (__any_sync(0xffffffffu, sink_meets(rows[0], col0, FWD_BN) ||
-                                    sink_meets(rows[1], col0, FWD_BN)))
+    if (__any_sync(0xffffffffu, sink_meets(rows[0], col0, 2 * N) ||
+                                    sink_meets(rows[1], col0, 2 * N)))
       mask_tile<true>(sacc, rows, col0 + t4 * 2, -INFINITY);
     else
       mask_tile<false>(sacc, rows, col0 + t4 * 2, -INFINITY);
   }
 }
 
-// P (S's accumulators, 64 rows x FWD_BN keys) as bf16 (fp16 where F16)
+// P (S's accumulators, 64 rows x 2 N keys) as bf16 (fp16 where F16)
 // wgmma A fragments: the accumulator layout of a 16-key step is the
 // register A layout.
 template <bool F16 = false, int N>
 __device__ __forceinline__ void pack_p(const float (&sacc)[N],
-                                       uint32_t (&pa)[FWD_BN / 16][4]) {
+                                       uint32_t (&pa)[N / 8][4]) {
 #pragma unroll
-  for (int jj = 0; jj < FWD_BN / 16; ++jj) {
+  for (int jj = 0; jj < N / 8; ++jj) {
     pa[jj][0] = pack2<F16>(sacc[8 * jj + 0], sacc[8 * jj + 1]);
     pa[jj][1] = pack2<F16>(sacc[8 * jj + 2], sacc[8 * jj + 3]);
     pa[jj][2] = pack2<F16>(sacc[8 * jj + 4], sacc[8 * jj + 5]);
@@ -573,7 +654,7 @@ struct FwdSoftmax {
   template <class Mask, int NS, int OR>
   __device__ __forceinline__ void tile(const Mask&, float (&sacc)[NS],
                                        float (&oacc)[OR],
-                                       uint32_t (&pa)[FWD_BN / 16][4],
+                                       uint32_t (&pa)[NS / 8][4],
                                        float (&m)[2], float (&l)[2],
                                        const RowSpan (&rows)[2], int col0,
                                        int, int, int t4, float scale_log2,
@@ -583,7 +664,7 @@ struct FwdSoftmax {
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int jj = 0; jj < FWD_BN / 8; ++jj)
+      for (int jj = 0; jj < NS / 4; ++jj)
         mx = fmaxf(mx, fmaxf(sacc[jj * 4 + 2 * r], sacc[jj * 4 + 2 * r + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -593,7 +674,7 @@ struct FwdSoftmax {
       m[r] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int jj = 0; jj < FWD_BN / 8; ++jj) {
+      for (int jj = 0; jj < NS / 4; ++jj) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float p =
@@ -614,7 +695,8 @@ struct FwdSoftmax {
     pack_p<F16>(sacc, pa);
   }
 
-  __device__ __forceinline__ void sum(const uint32_t (&)[FWD_BN / 16][4],
+  template <int NP>
+  __device__ __forceinline__ void sum(const uint32_t (&)[NP][4],
                                       const uint8_t*, Tile&) const {}
   __device__ __forceinline__ void done(float (&)[2], Tile&) const {}
   __device__ __forceinline__ float inv_l(float l) const {
@@ -701,7 +783,9 @@ struct FwdItem {
 // Persistent: each CTA walks the work items blockIdx.x, + gridDim.x, ...;
 // the producer runs ahead into the next item (its Q into the other Q
 // buffer, its K/V tiles into the ring) while the consumers finish this
-// one, so one item's epilogue overlaps the next one's loads. `order` is
+// one, so one item's epilogue overlaps the next one's loads (with one Q
+// buffer, FwdPlan at D = 256, the next item starts once this one's Q
+// buffer is released). `order` is
 // the host's order table where Mask::kBatchTables, else unused. The
 // consumers' tile step is the policy `softmax` (FwdSoftmax: the forward).
 // D is the instance's head dim, Dt <= D the tensors' (their row length):
@@ -719,22 +803,24 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
                      int N_q, int Dt, float scale_log2, Mask mask,
                      Softmax softmax) {
   using L = FwdSmem<D, STAGES>;
+  constexpr int BN = FwdPlan<D>::BN;  // keys per K/V tile
+  constexpr int QB = L::QB;           // Q buffers
   constexpr int OR = D / 2;       // O accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* q_full = bars;
-  uint64_t* q_empty = bars + 2;
-  uint64_t* k_full = bars + 4;
-  uint64_t* v_full = bars + 4 + STAGES;
-  uint64_t* empty = bars + 4 + 2 * STAGES;
+  uint64_t* q_empty = bars + QB;
+  uint64_t* k_full = bars + 2 * QB;
+  uint64_t* v_full = bars + 2 * QB + STAGES;
+  uint64_t* empty = bars + 2 * QB + 2 * STAGES;
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [Q buffer][8]
 
   const int n_qb = (N_q + FWD_BM - 1) / FWD_BM;
   const int n_work = n_qb * B * H_q;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QB; ++i) {
       mbar_init(q_full + i, 1 + 32);     // the TMA thread and warp 1's lanes
       mbar_init(q_empty + i, 2 * 128);   // every consumer thread, per item
     }
@@ -758,8 +844,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       int it = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
         const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
-        const int qs = it & 1;
-        mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
+        const int qs = buf_of<QB>(it);
+        mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         item.store(info + qs * 8,
                    s_aux != nullptr ? s_aux[item.h] * LOG2E : -INFINITY);
         mbar_expect_tx(q_full + qs, L::Q_BYTES);  // releases the info too
@@ -770,16 +856,16 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
           const int s = ring.s;
           mbar_wait(empty + s, ring.ph ^ 1);
-          const int row = item.block(j) * FWD_BN;
+          const int row = item.block(j) * BN;
           mbar_expect_tx(k_full + s, L::KV_BYTES);
 #pragma unroll
           for (int x = 0; x < L::BOXES; ++x)
-            tma_load_3d(smem + L::K_OFF + s * L::KV_BYTES + x * FWD_BN * 128,
+            tma_load_3d(smem + L::K_OFF + s * L::KV_BYTES + x * BN * 128,
                         &tm_k, k_full + s, x * 64, row, item.kvh);
           mbar_expect_tx(v_full + s, L::KV_BYTES);
 #pragma unroll
           for (int x = 0; x < L::BOXES; ++x)
-            tma_load_3d(smem + L::V_OFF + s * L::KV_BYTES + x * FWD_BN * 128,
+            tma_load_3d(smem + L::V_OFF + s * L::KV_BYTES + x * BN * 128,
                         &tm_v, v_full + s, x * 64, row, item.kvh);
         }
       }
@@ -788,8 +874,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       int it = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
         const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
-        const int qs = it & 1;
-        mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
+        const int qs = buf_of<QB>(it);
+        mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         RowSpan* span_sm =
             reinterpret_cast<RowSpan*>(smem + L::ROW_OFF + qs * L::ROWS_BYTES);
         stage_row_spans(mask, item.b, item.qb * FWD_BM, N_q, lane, span_sm,
@@ -810,8 +896,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
     int it = 0;
     const bool use_aux = s_aux != nullptr;
     for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-      const int qs = it & 1;
-      mbar_wait(q_full + qs, (it >> 1) & 1);
+      const int qs = buf_of<QB>(it);
+      mbar_wait(q_full + qs, buf_phase<QB>(it));
       const FwdItem item(info + qs * 8);
       const RowSpan* span_sm = reinterpret_cast<const RowSpan*>(
           smem + L::ROW_OFF + qs * L::ROWS_BYTES);
@@ -821,7 +907,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       float m[2], l[2];
       m[0] = m[1] = __int_as_float(info[qs * 8 + 6]);
       l[0] = l[1] = use_aux ? 1.f : 0.f;
-      float oacc[OR], sacc[FWD_BN / 2];
+      float oacc[OR], sacc[BN / 2];
 #pragma unroll
       for (int i = 0; i < OR; ++i) oacc[i] = 0.f;
 
@@ -832,40 +918,38 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         const int s = ring.s;
         const uint8_t* ks = smem + L::K_OFF + s * L::KV_BYTES;
         const uint8_t* vs = smem + L::V_OFF + s * L::KV_BYTES;
-        const int col0 = item.block(j) * FWD_BN;
+        const int col0 = item.block(j) * BN;
         mbar_wait(k_full + s, ring.ph);
         if (Softmax::kSkipDead &&
-            (col0 >= h_hi || col0 + FWD_BN <= h_lo)) {  // no row sees it
+            (col0 >= h_hi || col0 + BN <= h_lo)) {  // no row sees it
           mbar_wait(v_full + s, ring.ph);
           if (ct == 0) mbar_arrive(empty + s);
           continue;
         }
 
-        // S = Q K^T: 64 rows x 128 keys, D / 16 k-steps.
+        // S = Q K^T: 64 rows x BN keys, D / 16 k-steps.
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n128<IO::kF16>(
+          SsMma<BN / 2, IO::kF16>::run(
               sacc, desc_sw128(qsm + x * FWD_BM * 128 + off, 16, 1024),
-              desc_sw128(ks + x * FWD_BN * 128 + off, 16, 1024), kk > 0);
+              desc_sw128(ks + x * BN * 128 + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(sacc);
 
         // The policy's mask and softmax; P as A fragments.
-        uint32_t pa[FWD_BN / 16][4];
+        uint32_t pa[BN / 16][4];
         typename Softmax::Tile tile;
         softmax.tile(mask, sacc, oacc, pa, m, l, rows, col0, item.qb * FWD_BM,
                      r_loc, t4, scale_log2, smem + L::OWN_OFF, tile);
         mbar_wait(v_full + s, ring.ph);
         wgmma_fence();
 #pragma unroll
-        for (int jj = 0; jj < FWD_BN / 16; ++jj)
-          RsMma<OR, IO::kF16>::run(
-              oacc, pa[jj],
-              desc_sw128(vs + jj * 16 * 128, FWD_BN * 128, 1024));
+        for (int jj = 0; jj < BN / 16; ++jj)
+          rs_mma<OR, IO::kF16>(oacc, pa[jj], vs + jj * 16 * 128, BN * 128);
         softmax.sum(pa, smem + L::OWN_OFF, tile);
         wgmma_commit();
         wgmma_wait<0>();
@@ -943,8 +1027,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 // Mask::kBatchTables (see FwdItem), else null; o like q (fp32 for IoF32);
 // lse [B*H_q, N_q] fp32 (unused where the softmax policy writes none). The
 // three TMA descriptors are built per call: rows past N and columns past
-// Dt read as zeros, boxes of 64 columns x 128 rows under the 128-byte
-// swizzle. Returns cudaGetLastError() of the launch.
+// Dt read as zeros, boxes of 64 columns x 128 rows (Q) or BN rows (K, V:
+// FwdPlan) under the 128-byte swizzle. Returns cudaGetLastError() of the
+// launch.
 template <int D, int STAGES, class Mask, class Softmax, class IO>
 int launch_fwd_d(const void* q, const void* k, const void* v,
                  const void* s_aux, const void* order, void* o, void* lse,
@@ -959,8 +1044,8 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, B * H_q, N_q, Dt, FWD_BM, IO::kF16) ||
-      !make_map(&tk, k, B * H_kv, N_kv, Dt, FWD_BN, IO::kF16) ||
-      !make_map(&tv, v, B * H_kv, N_kv, Dt, FWD_BN, IO::kF16))
+      !make_map(&tk, k, B * H_kv, N_kv, Dt, FwdPlan<D>::BN, IO::kF16) ||
+      !make_map(&tv, v, B * H_kv, N_kv, Dt, FwdPlan<D>::BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
   const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
   const int grid = (int)std::min<long>(n_work, sm_count());
@@ -973,8 +1058,8 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The forward over a mask policy at head dim D (any D <= 128 with D % 8 ==
-// 0, run by the instance of instance_d(D)) in the element types IO.
+// The forward over a mask policy at head dim D (any D <= 256 with D % 8
+// == 0, run by the instance of instance_d(D)) in the element types IO.
 template <class Mask, class Softmax = FwdSoftmax<>, class IO = IoBf16>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* s_aux, const void* order, void* o, void* lse,
@@ -991,6 +1076,10 @@ int launch_fwd(const void* q, const void* k, const void* v,
         mask, softmax, st);
   if (instance_d(D) == 128)
     return launch_fwd_d<128, 2, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  if (instance_d(D) == 256)
+    return launch_fwd_d<256, 2, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);
   return (int)cudaErrorInvalidValue;

@@ -35,6 +35,17 @@
 //    and dK += dS^T Q (wgmma m64nDk16, dO and Q from shared memory as
 //    transposed B operands, as the forward reads V); dK and dV stay in fp32
 //    registers across the item's whole range and GQA group;
+//  * fp32 inputs (IoF32): the host rounds Q, K, V and dO to bf16, but P^T
+//    and dS^T enter their products as two bf16 terms each (attention.cuh's
+//    pack_bf16_split: x ~ hi + lo at about 16 bits, two wgmma where the
+//    16-bit instances issue one). One bf16 rounding of P or dS moves a
+//    gradient by up to 2^-8 |P| |dO|, past the fp32 tolerance wherever a
+//    large P sits near a rounding midpoint and two computations of it
+//    (the kernel's exp2 of a folded FMA, another's exp) round it apart;
+//    the two-term split leaves 2^-17 of it. The low term's product
+//    follows the high term's on the same B operand, and dV's products are
+//    waited for before dK's are issued (as one group, the four fragment
+//    sets beside the 128 accumulators spilled at D = 128 and 256);
 //  * the mask, per key: each key j sees one interval of local query rows
 //    [lo_j, lo_j + n_j) from the policy (key_span), computed once per item;
 //    each warp decides per tile, by one vote, whether its 16 keys see every
@@ -51,11 +62,24 @@
 //    this warpgroup's products read them) as 16-byte stores of whole rows,
 //    or as fp32 (IoF32) straight from the accumulators; the buffers are
 //    released to the producer after that;
-//  * any head dim D <= 128 (D % 8 == 0) runs in the instance D_i =
+//  * any head dim D <= 256 (D % 8 == 0) runs in the instance D_i =
 //    instance_d(D): TMA reads the columns past D of K, V, Q and dO as
 //    zeros, so the accumulators' columns past D are zeros, and only D
 //    columns are written (each key's whole row: the GQA group's sum is in
-//    the accumulators); bf16 or fp16 inputs (hopper.cuh's Io types).
+//    the accumulators); bf16 or fp16 inputs (hopper.cuh's Io types);
+//  * the instance of D = 256 splits the columns, not the keys (DkdvPlan):
+//    dK and dV of 64 keys x 256 columns would take 256 fp32 registers a
+//    thread, past the 255 a thread has. An item is 64 keys; both
+//    consumers compute the same S^T and dP^T of the item's 64 keys (depth
+//    256) and the same P^T and dS^T, and consumer c accumulates dV and dK
+//    for columns [128 c, 128 c + 128) only (64 + 64 registers, as at D =
+//    128), reading those columns of dO and Q as the B operands. S^T and
+//    dP^T are computed twice: 12 D FLOPs a pair against the 8 D the bound
+//    counts. Shared memory: one K/V buffer (2 x 32 KB) and two stages of
+//    64-row Q and dO (2 x 64 KB): 192 KB. The epilogue stages each
+//    consumer's columns through its own boxes of the K/V buffer after both
+//    consumers' last products (a barrier of the two warpgroups), since
+//    each read every box.
 //
 // Replaces the Pallas TPU kernels `_dkdv_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdkdv_kernel` of
@@ -82,32 +106,49 @@ constexpr int DKDV_BM = 64;    // queries per tile
 constexpr int DKDV_BN = 128;   // keys per item, 64 per consumer
 constexpr int DKDV_THREADS = 384;
 
+// The tile plan at instance head dim D: keys per item, K/V buffers, and
+// whether the consumers split the item's columns (D = 256) rather than its
+// keys (see the header).
+template <int D>
+struct DkdvPlan {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BN = SPLIT ? 64 : DKDV_BN;  // keys per item
+  static constexpr int KB = SPLIT ? 1 : 2;         // K/V buffers
+};
+
+// Keys per work item at instance head dim D (the host's table unit).
+__host__ __device__ constexpr int dkdv_bn(int D) {
+  return D == 256 ? DkdvPlan<256>::BN : DKDV_BN;
+}
+
 // setmaxnreg's split of the registers (producer warpgroup, consumer
-// warpgroups; 128 p + 256 c <= 65536): at D = 128 the consumers' dK and dV
-// accumulators take 128 registers a thread, and 24 keep the producer free
-// of spills; at D = 64 the producer's ring of three stages wants more.
+// warpgroups; 128 p + 256 c <= 65536): at D = 128 (and D = 256, whose
+// consumers hold half the columns) the consumers' dK and dV accumulators
+// take 128 registers a thread, and 24 keep the producer free of spills;
+// at D = 64 the producer's ring of three stages wants more.
 template <int D>
 struct DkdvRegs {
-  static constexpr int PRODUCER = D == 128 ? 24 : 40;
-  static constexpr int CONSUMER = D == 128 ? 240 : 232;
+  static constexpr int PRODUCER = D >= 128 ? 24 : 40;
+  static constexpr int CONSUMER = D >= 128 ? 240 : 232;
 };
 
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 template <int D, int STAGES>
 struct DkdvSmem {
+  static constexpr int KB = DkdvPlan<D>::KB;         // K/V buffers
   static constexpr int BOXES = D / 64;               // 64-column boxes a row
-  static constexpr int KV_BYTES = DKDV_BN * D * 2;   // one K or V tile
+  static constexpr int KV_BYTES = DkdvPlan<D>::BN * D * 2;  // one K or V tile
   static constexpr int QT_BYTES = DKDV_BM * D * 2;   // one Q or dO tile
-  static constexpr int K_OFF = 0;                    // two K tiles
-  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;  // two V tiles
-  static constexpr int Q_OFF = V_OFF + 2 * KV_BYTES;
+  static constexpr int K_OFF = 0;                    // KB K tiles
+  static constexpr int V_OFF = K_OFF + KB * KV_BYTES;  // KB V tiles
+  static constexpr int Q_OFF = V_OFF + KB * KV_BYTES;
   static constexpr int DO_OFF = Q_OFF + STAGES * QT_BYTES;
   static constexpr int ROW_OFF = DO_OFF + STAGES * QT_BYTES;  // [S][2][64] f32
   static constexpr int BAR_OFF = ROW_OFF + STAGES * 2 * DKDV_BM * 4;
-  // kv_full[2], kv_empty[2], then full, empty [STAGES] each
-  static constexpr int N_BARS = 4 + 2 * STAGES;
-  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
-  static constexpr int SPAN_OFF = INFO_OFF + 2 * 8 * 4;  // int [2][4][2]
+  // kv_full[KB], kv_empty[KB], then full, empty [STAGES] each
+  static constexpr int N_BARS = 2 * KB + 2 * STAGES;
+  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [KB][8]
+  static constexpr int SPAN_OFF = INFO_OFF + KB * 8 * 4;  // int [2][4][2]
   static constexpr int BYTES = SPAN_OFF + 2 * 4 * 2 * 4 + 1024;  // + align
 };
 
@@ -165,23 +206,27 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                       int N_q, int N_kv, int Dt, float scale_log2,
                       float scale, Mask mask) {
   using L = DkdvSmem<D, STAGES>;
-  constexpr int OR = D / 2;  // dK or dV accumulators a thread
+  constexpr bool SPLIT = DkdvPlan<D>::SPLIT;  // consumers split the columns
+  constexpr int BN = DkdvPlan<D>::BN;         // keys per item
+  constexpr int KB = L::KB;                   // K/V buffers
+  constexpr int DC = SPLIT ? D / 2 : D;       // a consumer's columns
+  constexpr int OR = DC / 2;  // dK or dV accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* kv_full = bars;
-  uint64_t* kv_empty = bars + 2;
-  uint64_t* full = bars + 4;
-  uint64_t* empty = bars + 4 + STAGES;
+  uint64_t* kv_empty = bars + KB;
+  uint64_t* full = bars + 2 * KB;
+  uint64_t* empty = bars + 2 * KB + STAGES;
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [K/V buffer][8]
   float* rows_sm = reinterpret_cast<float*>(smem + L::ROW_OFF);
 
-  const int n_kb = (N_kv + DKDV_BN - 1) / DKDV_BN;
+  const int n_kb = (N_kv + BN - 1) / BN;
   const int n_work = n_kb * B * H_kv;
   const int group = H_q / H_kv;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < KB; ++i) {
       mbar_init(kv_full + i, 1);
       mbar_init(kv_empty + i, 2 * 128);  // every consumer thread, per item
     }
@@ -205,19 +250,17 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
         const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
-        const int kbuf = it & 1;
-        mbar_wait(kv_empty + kbuf, ((it >> 1) & 1) ^ 1);
+        const int kbuf = buf_of<KB>(it);
+        mbar_wait(kv_empty + kbuf, buf_phase<KB>(it) ^ 1);
         item.store(info + kbuf * 8);
         mbar_expect_tx(kv_full + kbuf, 2 * L::KV_BYTES);  // and the info
 #pragma unroll
         for (int x = 0; x < L::BOXES; ++x) {
-          tma_load_3d(smem + L::K_OFF + kbuf * L::KV_BYTES +
-                          x * DKDV_BN * 128,
-                      &tm_k, kv_full + kbuf, x * 64, item.kb * DKDV_BN,
+          tma_load_3d(smem + L::K_OFF + kbuf * L::KV_BYTES + x * BN * 128,
+                      &tm_k, kv_full + kbuf, x * 64, item.kb * BN,
                       item.bkh);
-          tma_load_3d(smem + L::V_OFF + kbuf * L::KV_BYTES +
-                          x * DKDV_BN * 128,
-                      &tm_v, kv_full + kbuf, x * 64, item.kb * DKDV_BN,
+          tma_load_3d(smem + L::V_OFF + kbuf * L::KV_BYTES + x * BN * 128,
+                      &tm_v, kv_full + kbuf, x * 64, item.kb * BN,
                       item.bkh);
         }
         const int n_tiles = group * item.n_qb;
@@ -274,21 +317,24 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       }
     }
   } else {
-    // ---- consumers: warpgroup c owns keys [64 c, 64 c + 64) of an item ----
+    // ---- consumers: warpgroup c owns keys [64 c, 64 c + 64) of an item,
+    // or (SPLIT) columns [DC c, DC c + DC) of its 64 keys ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         DkdvRegs<D>::CONSUMER));
     const int c = wg - 1;
     const int ct = threadIdx.x - 128 * wg;
     const int warp = ct >> 5, lane = ct & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const int r_key = c * 64 + warp * 16 + g;  // keys r_key, r_key + 8
+    const int k0 = SPLIT ? 0 : c * 64;  // the consumer's first key
+    const int r_key = k0 + warp * 16 + g;  // keys r_key, r_key + 8
+    const int col_box = SPLIT ? c * (DC / 64) : 0;  // its first column box
     int* span_sm = reinterpret_cast<int*>(smem + L::SPAN_OFF) + c * 8;
     Ring<STAGES> ring;
     for (int it = 0;; ++it) {
       const int w = snake_item(it, blockIdx.x, gridDim.x);
       if (w >= n_work) break;
-      const int kbuf = it & 1;
-      mbar_wait(kv_full + kbuf, (it >> 1) & 1);
+      const int kbuf = buf_of<KB>(it);
+      mbar_wait(kv_full + kbuf, buf_phase<KB>(it));
       const DkdvItem item(info + kbuf * 8);
       const int n_tiles = group * item.n_qb;
 
@@ -300,7 +346,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         int n;
-        mask.key_span(item.b, item.kb * DKDV_BN + r_key + 8 * r, lo[r], n);
+        mask.key_span(item.b, item.kb * BN + r_key + 8 * r, lo[r], n);
         cnt[r] = (unsigned)n;
         if (n > 0) {
           my_lo = min(my_lo, lo[r]);
@@ -324,8 +370,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       float dk_acc[OR], dv_acc[OR];
 #pragma unroll
       for (int i = 0; i < OR; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-      const uint8_t* ksm = smem + L::K_OFF + kbuf * L::KV_BYTES + c * 64 * 128;
-      const uint8_t* vsm = smem + L::V_OFF + kbuf * L::KV_BYTES + c * 64 * 128;
+      const uint8_t* ksm = smem + L::K_OFF + kbuf * L::KV_BYTES + k0 * 128;
+      const uint8_t* vsm = smem + L::V_OFF + kbuf * L::KV_BYTES + k0 * 128;
 
       int qb = item.qb0;
       for (int j = 0; j < n_tiles; ++j, ring.next()) {
@@ -349,14 +395,14 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
           wgmma_ss_n64<IO::kF16>(
-              sacc, desc_sw128(ksm + x * DKDV_BN * 128 + off, 16, 1024),
+              sacc, desc_sw128(ksm + x * BN * 128 + off, 16, 1024),
               desc_sw128(qs + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
         }
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
           wgmma_ss_n64<IO::kF16>(
-              dpacc, desc_sw128(vsm + x * DKDV_BN * 128 + off, 16, 1024),
+              dpacc, desc_sw128(vsm + x * BN * 128 + off, 16, 1024),
               desc_sw128(dos + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
@@ -399,8 +445,11 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
             }
           }
         }
-        // dS^T = P^T (dP^T - delta); P^T and dS^T as 16-bit A fragments.
+        // dS^T = P^T (dP^T - delta); P^T and dS^T as 16-bit A fragments,
+        // for IoF32 each as two bf16 terms (pa + pl, da + dr).
+        constexpr int LO = IO::kOut32 ? DKDV_BM / 16 : 1;
         uint32_t pa[DKDV_BM / 16][4], da[DKDV_BM / 16][4];
+        uint32_t pl[LO][4], dr[LO][4];
 #pragma unroll
         for (int jj = 0; jj < 8; ++jj) {
 #pragma unroll
@@ -417,24 +466,55 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
 #pragma unroll
           for (int h = 0; h < 4; ++h) {
-            pa[kk][h] = pack2<IO::kF16>(sacc[8 * kk + 2 * h],
-                                        sacc[8 * kk + 2 * h + 1]);
-            da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
-                                        dpacc[8 * kk + 2 * h + 1]);
+            if constexpr (IO::kOut32) {
+              pa[kk][h] = pack_bf16_split(sacc[8 * kk + 2 * h],
+                                          sacc[8 * kk + 2 * h + 1],
+                                          pl[kk][h]);
+              da[kk][h] = pack_bf16_split(dpacc[8 * kk + 2 * h],
+                                          dpacc[8 * kk + 2 * h + 1],
+                                          dr[kk][h]);
+            } else {
+              pa[kk][h] = pack2<IO::kF16>(sacc[8 * kk + 2 * h],
+                                          sacc[8 * kk + 2 * h + 1]);
+              da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
+                                          dpacc[8 * kk + 2 * h + 1]);
+            }
           }
         }
 
         // dV += P^T dO and dK += dS^T Q: the queries are the depth, dO and
-        // Q read as transposed B operands (box stride 64 rows x 128 B).
+        // Q (the consumer's columns, from box col_box) read as transposed B
+        // operands (box stride 64 rows x 128 B); IoF32's low terms each
+        // after its high term, dV's products waited for before dK's (see
+        // the header).
+        const int cb = col_box * DKDV_BM * 128;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DKDV_BM / 16; ++kk)
+        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
           RsMma<OR, IO::kF16>::run(dv_acc, pa[kk],
-                         desc_sw128(dos + kk * 16 * 128, DKDV_BM * 128, 1024));
+                         desc_sw128(dos + cb + kk * 16 * 128, DKDV_BM * 128,
+                                    1024));
+          if constexpr (IO::kOut32)
+            RsMma<OR, false>::run(dv_acc, pl[kk],
+                         desc_sw128(dos + cb + kk * 16 * 128, DKDV_BM * 128,
+                                    1024));
+        }
+        if constexpr (IO::kOut32) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dv_acc);
+          wgmma_fence();
+        }
 #pragma unroll
-        for (int kk = 0; kk < DKDV_BM / 16; ++kk)
+        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
           RsMma<OR, IO::kF16>::run(dk_acc, da[kk],
-                         desc_sw128(qs + kk * 16 * 128, DKDV_BM * 128, 1024));
+                         desc_sw128(qs + cb + kk * 16 * 128, DKDV_BM * 128,
+                                    1024));
+          if constexpr (IO::kOut32)
+            RsMma<OR, false>::run(dk_acc, dr[kk],
+                         desc_sw128(qs + cb + kk * 16 * 128, DKDV_BM * 128,
+                                    1024));
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dv_acc);
@@ -442,22 +522,30 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
       }
 
-      // dK and dV go out through this warpgroup's rows of the item's K and
-      // V buffers (its products, their only readers, are done), in the
+      // dK and dV go out through this warpgroup's rows (SPLIT: its column
+      // boxes) of the item's K and V buffers (its products, their only
+      // readers, are done; SPLIT: once both warpgroups' are), in the
       // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
       // chunks a row); as fp32 (IoF32), straight from the accumulators as
-      // 8-byte stores of column pairs.
-      uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES;
-      uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES;
+      // 8-byte stores of column pairs. SPLIT reads the item again from
+      // shared memory (this item's until kv_empty below), so that its
+      // fields hold no registers across the tile loop.
+      const DkdvItem out = SPLIT ? DkdvItem(info + kbuf * 8) : item;
+      const int c0 = col_box * 64;  // the consumer's first column
+      const int box0 = col_box * BN * 128;  // and its first box
+      uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES + box0;
+      uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES + box0;
+      if constexpr (SPLIT && !IO::kOut32)
+        named_sync(3, 256);  // both consumers' products have read K and V
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int rb = r_key + 8 * r;  // the key within the item
         if constexpr (IO::kOut32) {
-          const int row = item.kb * DKDV_BN + rb;
-          const size_t o = ((size_t)item.bkh * N_kv + row) * Dt;
+          const int row = out.kb * BN + rb;
+          const size_t o = ((size_t)out.bkh * N_kv + row) * Dt;
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj) {
-            const int col = jj * 8 + t4 * 2;
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int col = c0 + jj * 8 + t4 * 2;
             if (row < N_kv && col < Dt) {
               *reinterpret_cast<float2*>(static_cast<float*>(dk) + o + col) =
                   make_float2(dk_acc[jj * 4 + 2 * r] * scale,
@@ -469,8 +557,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
           }
         } else {
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj) {
-            const int off = (jj / 8) * DKDV_BN * 128 + rb * 128 +
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int off = (jj / 8) * BN * 128 + rb * 128 +
                             (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
             *reinterpret_cast<uint32_t*>(kb_sm + off) =
                 pack2<IO::kF16>(dk_acc[jj * 4 + 2 * r] * scale,
@@ -482,16 +570,17 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       }
       if constexpr (!IO::kOut32) {
         named_sync(1 + c, 128);  // the warpgroup's rows are staged
-        // the instance's D / 8 chunks a row, those past Dt not stored (see
+        // the consumer's DC / 8 chunks a row, those past Dt not stored (see
         // hopper.cuh's forward: a constant count keeps the loop unrolled)
-        constexpr int CH = D / 8;
+        constexpr int CH = DC / 8;
         for (int i = ct; i < 64 * CH; i += 128) {
-          const int rb = c * 64 + i / CH, ch = i % CH;
-          const int row = item.kb * DKDV_BN + rb;
-          if (row < N_kv && ch * 8 < Dt) {
-            const int off = (ch / 8) * DKDV_BN * 128 + rb * 128 +
+          const int rb = k0 + i / CH, ch = i % CH;
+          const int row = out.kb * BN + rb;
+          if (row < N_kv && c0 + ch * 8 < Dt) {
+            const int off = (ch / 8) * BN * 128 + rb * 128 +
                             (((ch % 8) ^ (rb & 7)) * 16);
-            const size_t o = ((size_t)item.bkh * N_kv + row) * Dt + ch * 8;
+            const size_t o =
+                ((size_t)out.bkh * N_kv + row) * Dt + c0 + ch * 8;
             *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dk) + o) =
                 *reinterpret_cast<const uint4*>(kb_sm + off);
             *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dv) + o) =
@@ -520,6 +609,7 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
                   int H_kv, int N_q, int N_kv, int Dt, float scale,
                   const Mask& mask, cudaStream_t stream) {
   constexpr int smem = DkdvSmem<D, STAGES>::BYTES;
+  constexpr int BN = DkdvPlan<D>::BN;
   static const cudaError_t attr_err = cudaFuncSetAttribute(
       dkdv_wgmma_kernel<D, STAGES, Mask, IO>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
@@ -527,10 +617,10 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
   CUtensorMap tq, tk, tv, tdo;
   if (!make_map(&tq, q, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
       !make_map(&tdo, dout, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
-      !make_map(&tk, k, B * H_kv, N_kv, Dt, DKDV_BN, IO::kF16) ||
-      !make_map(&tv, v, B * H_kv, N_kv, Dt, DKDV_BN, IO::kF16))
+      !make_map(&tk, k, B * H_kv, N_kv, Dt, BN, IO::kF16) ||
+      !make_map(&tv, v, B * H_kv, N_kv, Dt, BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_kv + DKDV_BN - 1) / DKDV_BN) * B * H_kv;
+  const long n_work = (long)((N_kv + BN - 1) / BN) * B * H_kv;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   dkdv_wgmma_kernel<D, STAGES, Mask, IO>
@@ -563,7 +653,11 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     return launch_dkdv_d<64, 3, Mask, IO>(q, k, v, dout, lse, delta, order,
                                           dk, dv, B, H_q, H_kv, N_q, N_kv, D,
                                           scale, mask, st);
-  return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+  if (instance_d(D) == 128)
+    return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                           dk, dv, B, H_q, H_kv, N_q, N_kv,
+                                           D, scale, mask, st);
+  return launch_dkdv_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
                                          scale, mask, st);
 }

@@ -16,11 +16,13 @@
 //    come from L2) in the snake of hopper.cuh's snake_item;
 //  * warpgroup 0 produces (setmaxnreg gives its registers to the
 //    consumers: 40 against 232): one thread issues every TMA load, the
-//    item's Q and dO once into one of two Q/dO buffers (so the next item's
-//    load overlaps this one's tail), then the q block's KV blocks from the
-//    host table (the sink range, then the window range), dq_bn(D) keys a
-//    tile (128 at D = 64, 64 at D = 128), into a ring of STAGES (K, V)
-//    stages with full and empty barriers;
+//    item's Q and dO once into one of dq_qbufs(D) Q/dO buffers (two at D
+//    = 64 and 128, so the next item's load overlaps this one's tail; one
+//    at D = 256, where a 128 x 256 Q and dO take 128 KB), then the q
+//    block's KV blocks from the host table (the sink range, then the
+//    window range), dq_bn(D) keys a tile (128 at D = 64, 64 at D = 128, 32
+//    at D = 256), into a ring of STAGES (K, V) stages with full and empty
+//    barriers;
 //    warp 1 writes, beside the Q/dO buffer, the item's 128 LSE values
 //    (times log2e; +inf past N_q), 128 delta values (0 past N_q), each
 //    row's visible key runs from the policy (row_span; none past N_q) and
@@ -34,7 +36,8 @@
 //    log2e) and dS = P (dP - delta) in registers, dS rounded to bf16 as the
 //    register A operand of dQ += dS K (wgmma m64nDk16, K from shared memory
 //    as the transposed B operand, as the forward reads V); dQ stays in fp32
-//    registers across the item;
+//    registers across the item; for fp32 inputs (IoF32) dS enters as two
+//    bf16 terms, two products a step (as hopper_bwd.cuh's P and dS);
 //  * the mask: each warp decides per tile, by one vote over its rows'
 //    runs, whether the tile is whole for its 16 rows; only a partial tile
 //    takes the per-cell select (hopper.cuh's mask_tile, outside the
@@ -49,9 +52,14 @@
 //    consumer's own rows of the item's Q buffer (then free) as 16-byte
 //    stores of whole rows, or as fp32 (IoF32) straight from the
 //    accumulators; the Q/dO buffer is released to the producer after that;
-//  * any head dim D <= 128 (D % 8 == 0) runs in the instance D_i =
+//  * any head dim D <= 256 (D % 8 == 0) runs in the instance D_i =
 //    instance_d(D): TMA reads the columns past D as zeros, and only D
 //    columns are written; bf16 or fp16 inputs (hopper.cuh's Io types).
+//    At D = 256 a consumer holds dQ in 128 fp32 registers a thread, S and
+//    dP of a 32-key tile in 16 each (m64n32) and dS in 8; dQ += dS K is
+//    two m64n128k16 products a 16-key step (hopper.cuh's rs_mma). Shared
+//    memory: Q and dO 2 x 64 KB, two stages of 32-key K and V 2 x 32 KB:
+//    192 KB.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdq_kernel` of
@@ -75,14 +83,17 @@ namespace hopper {
 constexpr int DQ_BM = 128;  // query rows per item, 64 per consumer
 constexpr int DQ_THREADS = 384;
 
-// Keys per KV tile of the instance of head dim D (64 or 128; the host keys
-// its tables on the instance, not the tensors' head dim): 128 at D = 64
-// (fewer, larger products: 17% faster on a full layer), 64 at D = 128 (the
-// S, dP and dQ accumulators of a 128-key tile would not fit beside the
-// operands without spills).
+// Keys per KV tile of the instance of head dim D (64, 128 or 256; the
+// host keys its tables on the instance, not the tensors' head dim): 128 at
+// D = 64 (fewer, larger products: 17% faster on a full layer), 64 at D =
+// 128 (the S, dP and dQ accumulators of a 128-key tile would not fit
+// beside the operands without spills), 32 at D = 256 (two stages of K and
+// V beside one Q/dO buffer).
 __host__ __device__ constexpr int dq_bn(int D) {
-  return D == 64 ? 128 : 64;
+  return D == 64 ? 128 : D == 128 ? 64 : 32;
 }
+// Q/dO buffers of the instance of head dim D: two, one at D = 256.
+__host__ __device__ constexpr int dq_qbufs(int D) { return D == 256 ? 1 : 2; }
 constexpr int DQ_PRODUCER_REGS = 40;
 constexpr int DQ_CONSUMER_REGS = 232;
 
@@ -111,22 +122,23 @@ __device__ __forceinline__ void with_row_chunks(int Dt, F&& f) {
 
 template <int D, int STAGES>
 struct DqSmem {
+  static constexpr int QB = dq_qbufs(D);            // Q/dO buffers
   static constexpr int BOXES = D / 64;              // 64-column boxes a row
   static constexpr int QT_BYTES = DQ_BM * D * 2;    // one Q or dO tile
   static constexpr int KV_BYTES = dq_bn(D) * D * 2;  // one K or V tile
-  static constexpr int Q_OFF = 0;                   // two Q tiles
-  static constexpr int DO_OFF = Q_OFF + 2 * QT_BYTES;   // two dO tiles
-  static constexpr int K_OFF = DO_OFF + 2 * QT_BYTES;   // STAGES K tiles
+  static constexpr int Q_OFF = 0;                   // QB Q tiles
+  static constexpr int DO_OFF = Q_OFF + QB * QT_BYTES;   // QB dO tiles
+  static constexpr int K_OFF = DO_OFF + QB * QT_BYTES;   // STAGES K tiles
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   // per Q/dO buffer: lse2 [128] f32, delta [128] f32, RowSpan [128], the
   // two consumers' hulls int [2][2]
   static constexpr int ROWS_BYTES = DQ_BM * (4 + 4 + 16) + 16;
   static constexpr int ROW_OFF = V_OFF + STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = ROW_OFF + 2 * ROWS_BYTES;
-  // q_full[2], q_empty[2], then full, empty [STAGES] each
-  static constexpr int N_BARS = 4 + 2 * STAGES;
-  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][8]
-  static constexpr int BYTES = INFO_OFF + 2 * 8 * 4 + 1024;  // + alignment
+  static constexpr int BAR_OFF = ROW_OFF + QB * ROWS_BYTES;
+  // q_full[QB], q_empty[QB], then full, empty [STAGES] each
+  static constexpr int N_BARS = 2 * QB + 2 * STAGES;
+  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [QB][8]
+  static constexpr int BYTES = INFO_OFF + QB * 8 * 4 + 1024;  // + alignment
 };
 
 // A work item: one 128-row q block of one (batch, query head), and the KV
@@ -187,6 +199,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
                     int B, int H_q, int H_kv, int N_q, int Dt,
                     float scale_log2, float scale, Mask mask) {
   using L = DqSmem<D, STAGES>;
+  constexpr int QB = L::QB;     // Q/dO buffers
   constexpr int BN = dq_bn(D);  // keys per KV tile
   constexpr int OR = D / 2;     // dQ accumulators a thread
   constexpr int SR = BN / 2;    // S or dP accumulators a thread
@@ -195,16 +208,16 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* q_full = bars;
-  uint64_t* q_empty = bars + 2;
-  uint64_t* full = bars + 4;
-  uint64_t* empty = bars + 4 + STAGES;
+  uint64_t* q_empty = bars + QB;
+  uint64_t* full = bars + 2 * QB;
+  uint64_t* empty = bars + 2 * QB + STAGES;
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [Q buffer][8]
 
   const int n_qb = (N_q + DQ_BM - 1) / DQ_BM;
   const int n_work = n_qb * B * H_q;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < QB; ++i) {
       mbar_init(q_full + i, 1 + 32);     // the TMA thread and warp 1's lanes
       mbar_init(q_empty + i, 2 * 128);   // every consumer thread, per item
     }
@@ -228,8 +241,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
         const DqItem item(w, order, B, H_q, H_kv, n_qb, mask);
-        const int qs = it & 1;
-        mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
+        const int qs = buf_of<QB>(it);
+        mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         item.store(info + qs * 8);
         mbar_expect_tx(q_full + qs, 2 * L::QT_BYTES);  // and the info
 #pragma unroll
@@ -259,8 +272,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
         const DqItem item(w, order, B, H_q, H_kv, n_qb, mask);
-        const int qs = it & 1;
-        mbar_wait(q_empty + qs, ((it >> 1) & 1) ^ 1);
+        const int qs = buf_of<QB>(it);
+        mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         uint8_t* rows = smem + L::ROW_OFF + qs * L::ROWS_BYTES;
         float* lse_sm = reinterpret_cast<float*>(rows);
         float* delta_sm = lse_sm + DQ_BM;
@@ -295,8 +308,8 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
     for (int it = 0;; ++it) {
       const int w = snake_item(it, blockIdx.x, gridDim.x);
       if (w >= n_work) break;
-      const int qs = it & 1;
-      mbar_wait(q_full + qs, (it >> 1) & 1);
+      const int qs = buf_of<QB>(it);
+      mbar_wait(q_full + qs, buf_phase<QB>(it));
       const DqItem item(info + qs * 8);
       const uint8_t* rows_sm = smem + L::ROW_OFF + qs * L::ROWS_BYTES;
       const float* lse_sm = reinterpret_cast<const float*>(rows_sm);
@@ -380,8 +393,10 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
           else
             mask_tile<false>(sacc, rows, col0 + t4 * 2, 0.f);
         }
-        // dS = P (dP - delta), as 16-bit A fragments.
-        uint32_t da[BN / 16][4];
+        // dS = P (dP - delta), as 16-bit A fragments; for IoF32 as two
+        // bf16 terms (da + dr).
+        constexpr int LO = IO::kOut32 ? BN / 16 : 1;
+        uint32_t da[BN / 16][4], dr[LO][4];
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
 #pragma unroll
@@ -396,9 +411,15 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk) {
 #pragma unroll
-          for (int h = 0; h < 4; ++h)
-            da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
-                                        dpacc[8 * kk + 2 * h + 1]);
+          for (int h = 0; h < 4; ++h) {
+            if constexpr (IO::kOut32)
+              da[kk][h] = pack_bf16_split(dpacc[8 * kk + 2 * h],
+                                          dpacc[8 * kk + 2 * h + 1],
+                                          dr[kk][h]);
+            else
+              da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
+                                          dpacc[8 * kk + 2 * h + 1]);
+          }
         }
 
         // dQ += dS K: the keys are the depth, K read as the transposed B
@@ -406,8 +427,12 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          RsMma<OR, IO::kF16>::run(dq_acc, da[kk],
-                         desc_sw128(ks + kk * 16 * 128, BN * 128, 1024));
+          rs_mma<OR, IO::kF16>(dq_acc, da[kk], ks + kk * 16 * 128, BN * 128);
+        if constexpr (IO::kOut32) {
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk)
+            rs_mma<OR, false>(dq_acc, dr[kk], ks + kk * 16 * 128, BN * 128);
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dq_acc);
@@ -522,7 +547,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return launch_dq_d<64, 4, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
                                         B, H_q, H_kv, N_q, N_kv, D, scale,
                                         mask, st);
-  return launch_dq_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+  if (instance_d(D) == 128)
+    return launch_dq_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                         dq, B, H_q, H_kv, N_q, N_kv, D,
+                                         scale, mask, st);
+  return launch_dq_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
                                        B, H_q, H_kv, N_q, N_kv, D, scale,
                                        mask, st);
 }

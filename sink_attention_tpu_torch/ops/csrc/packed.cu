@@ -32,24 +32,27 @@
 // two runs of keys (row_span below: forward and dQ, which put the per-cell
 // mask on partial tiles only and skip a consumer's dead tiles) and each
 // key one interval of rows [j, reach(j)) (dK/dV). Coverage as the
-// unpacked kernels' (flash_fwd.cu): D <= 128, D % 8 == 0, in the instance
-// D_i = 64 or 128; bf16, fp16, and fp32 read as bf16 with fp32 outputs
-// (the entries' `dtype`, hopper.cuh's DtypeCode).
+// unpacked kernels' (flash_fwd.cu): D <= 256, D % 8 == 0, in the instance
+// D_i = 64, 128 or 256 (its own tiles: flash_fwd.cu, flash_bwd.cu); bf16,
+// fp16, and fp32 read as bf16 with fp32 outputs (the entries' `dtype`,
+// hopper.cuh's DtypeCode).
 //
 // Tables, built per batch by ops/packed.py:
 //   seg   [B, N]          s_i of every row;
 //   fwd   [B, n_fwd_blocks, 4]  per 128-row q block (forward): (sink_b0,
 //         sink_b1, win_b0, win_b1): the sink blocks of the first row's
 //         segment, then the window blocks from max(first row's s, first
-//         row - window + 1), disjoint, in 128-key blocks;
+//         row - window + 1), disjoint, in KV blocks of
+//         sink_packed_block_n(D) keys;
 //   fwd_order [B * n_fwd_blocks]: the (b, q block) units b * n_fwd_blocks
 //         + qb of the fwd table, most KV blocks first;
 //   dq    [B, n_dq_blocks, 4]  the same per 128-row q block in KV blocks
 //         of sink_packed_dq_block_n(D) keys (dQ);
 //   dq_order [B * n_dq_blocks]: the (b, q block) units b * n_dq_blocks +
 //         qb of the dq table, most KV blocks first;
-//   kv    [B, n_kv_blocks, 2] per 128-slot KV block (dK/dV): the range of
-//         64-row q blocks that reads it, up to cdiv(max_j reach(j), 64) with
+//   kv    [B, n_kv_blocks, 2] per KV block of sink_packed_dkdv_block_n(D)
+//         slots (dK/dV): the range of 64-row q blocks that reads it, up to
+//         cdiv(max_j reach(j), 64) with
 //         reach(j) the end of j's segment for a sink column, else min(that
 //         end, j + window);
 //   order [B * n_kv_blocks]: the (b, KV block) units b * n_kv_blocks + kb,
@@ -63,11 +66,12 @@ namespace {
 
 using sinkattn::RowSpan;
 using sinkattn::hopper::DKDV_BM;
-using sinkattn::hopper::DKDV_BN;
 using sinkattn::hopper::DQ_BM;
+using sinkattn::hopper::dkdv_bn;
 using sinkattn::hopper::dq_bn;
 using sinkattn::hopper::FWD_BM;
 using sinkattn::hopper::FWD_BN;
+using sinkattn::hopper::instance_d;
 
 struct PackedMask {
   static constexpr bool kBatchTables = true;  // tables per row b
@@ -142,9 +146,9 @@ extern "C" int sink_pdq(const void* q, const void* k, const void* v,
       make_mask(dqtable, seg, nullptr, N, DQ_BM, num_sink, window), stream);
 }
 
-// As sink_pdq_bf16 with kvtable [B, ceil(N/128), 2], order
-// [B * ceil(N/128)] and reach [B, N] int32 in place of dqtable, dqorder and
-// seg; dk, dv like k.
+// As sink_pdq_bf16 with kvtable [B, ceil(N/bn), 2], order [B * ceil(N/bn)]
+// (bn = sink_packed_dkdv_block_n(D)) and reach [B, N] int32 in place of
+// dqtable, dqorder and seg; dk, dv like k.
 extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, const void* kvtable,
@@ -155,17 +159,20 @@ extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
   return sinkattn::hopper::launch_dkdv_dtype(
       dtype, q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D,
       scale,
-      make_mask(kvtable, nullptr, reach, N, DKDV_BN, num_sink, window),
+      make_mask(kvtable, nullptr, reach, N, dkdv_bn(instance_d(D)),
+                num_sink, window),
       stream);
 }
 
 // Tile sizes the host-side tables must use: the forward's, dQ's and
-// dK/dV's.
+// dK/dV's (keys by head dim: the instance's).
 extern "C" int sink_packed_block_m() { return FWD_BM; }
-extern "C" int sink_packed_block_n() { return FWD_BN; }
-extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
-extern "C" int sink_packed_dq_block_n(int D) {
-  return dq_bn(sinkattn::hopper::instance_d(D));
+extern "C" int sink_packed_block_n(int D) {
+  return instance_d(D) == 256 ? sinkattn::hopper::FwdPlan<256>::BN : FWD_BN;
 }
+extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
+extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(instance_d(D)); }
 extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
-extern "C" int sink_packed_dkdv_block_n() { return DKDV_BN; }
+extern "C" int sink_packed_dkdv_block_n(int D) {
+  return dkdv_bn(instance_d(D));
+}

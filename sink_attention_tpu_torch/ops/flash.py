@@ -10,9 +10,9 @@ version:
   ``sink_dkdv`` (replaces ``_dkdv_kernel``): dQ, and dK/dV summed over
   the GQA group; plain version of the pair :func:`flash_bwd_plain`.
 
-The kernels take any head_dim up to 128 and bf16, fp16 or fp32 inputs, as
+The kernels take any head_dim up to 256 and bf16, fp16 or fp32 inputs, as
 the JAX kernels take any head_dim and float type. A head_dim D runs in the
-instance of D_i = 64 or 128 (``_build.kernel_head_dim``): the columns
+instance of D_i = 64, 128 or 256 (``_build.kernel_head_dim``): the columns
 past D read as zeros and are not written, so no padded copy is made for D
 % 8 == 0; any other D (100: 3200 over 32 heads) takes a zero-padded copy
 to the next multiple of 8 (TMA's 16-byte rows; ``padded_copies`` counts
@@ -20,7 +20,7 @@ them) and its outputs are sliced back, as JAX's ``_prep`` pads outside its
 kernels. fp32 inputs are rounded to bf16 once on the way in and the
 outputs written as fp32 from the kernels' fp32 accumulators: what the
 TPU's matrix unit does with fp32 at its default precision, held to JAX's
-TPU tolerances (6e-3 forward, 2e-3 backward). D > 128 raises.
+TPU tolerances (6e-3 forward, 2e-3 backward). D > 256 raises.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. :class:`_SinkAttention` ties them into one autograd function
@@ -29,19 +29,21 @@ or raises. :class:`_SinkAttention` ties them into one autograd function
 JAX.
 
 The forward kernel (wgmma and TMA, ``csrc/hopper.cuh``) visits, for each
-128-row query block, only the 128-key KV blocks of two ranges: the blocks
-holding the sink columns, then the window blocks after them
-(:func:`fwd_kv_ranges`, the Python mirror of the JAX package's
-``_build_fwd_schedule``). The dQ kernel (wgmma and TMA,
-``csrc/hopper_dq.cuh``) walks the same two ranges at ``bm=DQ_BM,
-bn=DQ_BN[head_dim]`` (128 rows x 128 keys at D = 64, x 64 keys at D =
-128), the q blocks with the most KV blocks first (:func:`dq_block_order`).
-The dK/dV kernel (wgmma and TMA, ``csrc/hopper_bwd.cuh``) visits, for each
-128-slot KV block, the 64-row query blocks of one range
-(:func:`dkdv_q_ranges` at ``bm=DKDV_BM, bn=DKDV_BN``, the mirror of
-``_dkdv_q_step``), the blocks with the longest ranges first
-(:func:`dkdv_block_order`). The tables are built on the host, so the CPU
-tests check them although the kernels cannot run there.
+128-row query block, only the KV blocks of two ranges: the blocks holding
+the sink columns, then the window blocks after them (:func:`fwd_kv_ranges`
+at ``bn=FWD_BNS[head_dim]``: 128 keys, 64 in the 256 instance; the Python
+mirror of the JAX package's ``_build_fwd_schedule``). The dQ kernel (wgmma
+and TMA, ``csrc/hopper_dq.cuh``) walks the same two ranges at
+``bm=DQ_BM, bn=DQ_BN[head_dim]`` (128 rows x 128 keys at D = 64, x 64
+keys at D = 128, x 32 at D = 256), the q blocks with the most KV blocks
+first (:func:`dq_block_order`). The dK/dV kernel (wgmma and TMA,
+``csrc/hopper_bwd.cuh``) visits, for each KV block of
+``DKDV_BNS[head_dim]`` slots (128, 64 in the 256 instance), the 64-row
+query blocks of one range (:func:`dkdv_q_ranges` at ``bm=DKDV_BM``, the
+mirror of ``_dkdv_q_step``), the blocks with the longest ranges first
+(:func:`dkdv_block_order`). Tables keyed on a head dim key on its
+instance (``_build.kernel_head_dim``). The tables are built on the host,
+so the CPU tests check them although the kernels cannot run there.
 """
 
 from __future__ import annotations
@@ -64,13 +66,15 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "dkdv_block_order"]
 
 FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
-FWD_BN = 128  # the forward kernels' keys per KV tile (csrc/hopper.cuh)
-DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
-# its keys per KV tile by instance head dim (dq_bn there; a head dim's
+# their keys per KV tile by instance head dim (FwdPlan there; a head dim's
 # instance is _build.kernel_head_dim)
-DQ_BN = {64: 128, 128: 64}
+FWD_BNS = {64: 128, 128: 128, 256: 64}
+DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
+# its keys per KV tile by instance head dim (dq_bn there)
+DQ_BN = {64: 128, 128: 64, 256: 32}
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
-DKDV_BN = 128  # the dK/dV kernel's keys per work item (csrc/hopper_bwd.cuh)
+# its keys per work item by instance head dim (dkdv_bn there)
+DKDV_BNS = {64: 128, 128: 128, 256: 64}
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
@@ -113,8 +117,8 @@ def _fwd_kv_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
 
 
 def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0, bm: int = FWD_BM,
-                  bn: int = FWD_BN) -> np.ndarray:
+                  q_offset: int, kv_offset: int, bm: int,
+                  bn: int) -> np.ndarray:
     """int32 [ceil(n_q / bm), 4]: per query block of ``bm`` rows, the KV
     blocks of ``bn`` keys it visits, as two half-open ranges (sink_b0,
     sink_b1) then (win_b0, win_b1).
@@ -122,8 +126,8 @@ def fwd_kv_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
     The sink range covers the local blocks of global columns [0, num_sink);
     the window range starts after it, so no block is visited twice. Both
     are cut to the causal end of the query block and to [0, n_kv blocks).
-    The forward kernels (and the ablation's stages of it) take the default
-    ``bm=FWD_BM, bn=FWD_BN``, the dQ kernel ``bm=DQ_BM,
+    The forward kernels take ``bm=FWD_BM, bn=FWD_BNS[head_dim]`` (the
+    ablation's stages its 128), the dQ kernel ``bm=DQ_BM,
     bn=DQ_BN[head_dim]``.
     """
     return _fwd_kv_ranges_cached(int(n_q), int(n_kv), int(num_sink),
@@ -166,8 +170,8 @@ def _dkdv_q_ranges_cached(n_q, n_kv, num_sink, window, q_offset, kv_offset,
 
 
 def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
-                  q_offset: int = 0, kv_offset: int = 0, bm: int = DKDV_BM,
-                  bn: int = DKDV_BN) -> np.ndarray:
+                  q_offset: int, kv_offset: int, bm: int,
+                  bn: int) -> np.ndarray:
     """int32 [ceil(n_kv / bn), 2]: per KV block of ``bn`` keys, the
     half-open range of query blocks of ``bm`` rows that read it.
 
@@ -177,7 +181,7 @@ def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
     the last query whose window reaches its last column. Blocks wholly
     before the sequence start (negative ``kv_offset``) are read by none.
     So chunked and halo offsets need no static sink/window split. The
-    dK/dV kernel takes the default ``bm=DKDV_BM, bn=DKDV_BN``.
+    dK/dV kernel takes ``bm=DKDV_BM, bn=DKDV_BNS[head_dim]``.
     """
     return _dkdv_q_ranges_cached(int(n_q), int(n_kv), int(num_sink),
                                  int(window), int(q_offset), int(kv_offset),
@@ -185,8 +189,8 @@ def dkdv_q_ranges(n_q: int, n_kv: int, num_sink: int, window: int,
 
 
 def dkdv_block_order(n_q: int, n_kv: int, num_sink: int, window: int,
-                     q_offset: int = 0, kv_offset: int = 0,
-                     bm: int = DKDV_BM, bn: int = DKDV_BN) -> np.ndarray:
+                     q_offset: int, kv_offset: int, bm: int,
+                     bn: int) -> np.ndarray:
     """int32 [ceil(n_kv / bn)]: the KV blocks of :func:`dkdv_q_ranges`,
     longest query-block range first (ties in block order): the order in
     which the dK/dV kernel's persistent CTAs take them, so the long sink
@@ -246,7 +250,8 @@ def flash_bwd_plain(q, k, v, do, lse, delta, num_sink: int = 4,
     forward's (it counts s_aux, so P is the true probability); ``delta``
     [B,H_q,N_q] fp32 is sum_d dO * O, less the LSE cotangent if any.
     With ``matmul_dtype`` (torch.bfloat16: the fp32 kernels' precision)
-    every product reads its operands (q, k, v, dO, P, dS) rounded to it.
+    the products read q, k, v and dO rounded to it, and P and dS in fp32
+    (the fp32 kernels carry them as two bf16 terms, about 16 bits).
     """
     n_kv = k.shape[2]
     return bwd_plain_chunks(q, k, v, do, lse, delta, lambda r0, n: _visible(
@@ -277,9 +282,9 @@ def bwd_plain_chunks(q, k, v, do, lse, delta, chunk_mask, matmul_dtype=None):
         s = torch.einsum("bhqd,bhkd->bhqk", qc, kf) * scale
         p = torch.where(mask, torch.exp(s - lse[:, :, rows, None]), 0.0)
         dp = torch.einsum("bhqd,bhkd->bhqk", doc, vf)
-        ds = mm(p * (dp - delta[:, :, rows, None]))
+        ds = p * (dp - delta[:, :, rows, None])
         dqs.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale)
-        dv += torch.einsum("bhqk,bhqd->bhkd", mm(p), doc)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, doc)
         dk += torch.einsum("bhqk,bhqd->bhkd", ds, qc) * scale
     dk = dk.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
     dv = dv.reshape(B, H_kv, group, N_kv, D).sum(dim=2)
@@ -297,10 +302,17 @@ def load_fn(source: str, name: str, n_ptrs: int, n_ints: int = 10):
     return fn
 
 
+def tiles_differ(block_n, by_d) -> bool:
+    """True where a library's ``block_n(D)`` disagrees with the host's
+    table ``by_d`` {instance head dim: keys} at any instance."""
+    return any(block_n(d) != bn for d, bn in by_d.items())
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_fn():
     lib = _build.load("flash_fwd")
-    if (lib.sink_fwd_block_m(), lib.sink_fwd_block_n()) != (FWD_BM, FWD_BN):
+    if (lib.sink_fwd_block_m() != FWD_BM
+            or tiles_differ(lib.sink_fwd_block_n, FWD_BNS)):
         raise RuntimeError("csrc/flash_fwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
     return load_fn("flash_fwd", "sink_fwd", 7, 11)
@@ -310,9 +322,9 @@ def _kernel_fn():
 def _bwd_fns():
     lib = _build.load("flash_bwd")
     if (lib.sink_dq_block_m() != DQ_BM or
-            any(lib.sink_dq_block_n(d) != bn for d, bn in DQ_BN.items()) or
-            (lib.sink_dkdv_block_m(), lib.sink_dkdv_block_n()) != (
-                DKDV_BM, DKDV_BN)):
+            tiles_differ(lib.sink_dq_block_n, DQ_BN) or
+            lib.sink_dkdv_block_m() != DKDV_BM or
+            tiles_differ(lib.sink_dkdv_block_n, DKDV_BNS)):
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
     return (load_fn("flash_bwd", "sink_dq", 9, 11),
@@ -361,7 +373,7 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     """Launch ``csrc/flash_fwd.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``) on CUDA tensors: (out, lse).
 
-    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16, fp16 or fp32, D <= 128;
+    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16, fp16 or fp32, D <= 256;
     s_aux [H_q] or None; out in q's dtype. ``flash_fwd_kernel.launches``
     counts the launches (``padded_copies`` those that padded D, see the
     module's docstring). A warmed call (its range table already on the
@@ -371,9 +383,9 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
     B, H_q, H_kv, N_q, N_kv, D = dims
-    ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom, FWD_BM,
-                       FWD_BN)
     (qc, kc, vc), code, d_pad = _build.kernel_operands(q, k, v)
+    ranges = _table_on(fwd_kv_ranges, q.device, N_q, N_kv, *geom, FWD_BM,
+                       FWD_BNS[_build.kernel_head_dim(d_pad)])
     aux = (s_aux.detach().float().contiguous() if s_aux is not None
            else None)
     out = kernel_out(q, q.shape, d_pad)
@@ -412,7 +424,7 @@ def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     """Launch ``sink_dq`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA kernel
     of ``csrc/hopper_dq.cuh``): dq [B,H_q,N_q,D] in q's dtype, bitwise
     repeatable. Inputs as :func:`flash_bwd_plain`'s, on the card, q/k/v/dO
-    of one type (bf16, fp16, fp32) with D <= 128.
+    of one type (bf16, fp16, fp32) with D <= 256.
     ``flash_dq_kernel.launches`` counts the launches. A warmed call (its
     tables already on the card) synchronises nothing.
     """
@@ -449,7 +461,8 @@ def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
     D = dims[5]
-    key = (dims[3], dims[4], *geom, DKDV_BM, DKDV_BN)
+    key = (dims[3], dims[4], *geom, DKDV_BM,
+           DKDV_BNS[_build.kernel_head_dim(d_pad)])
     ranges = _table_on(dkdv_q_ranges, q.device, *key)
     order = _table_on(dkdv_block_order, q.device, *key)
     dk, dv = kernel_out(k, k.shape, d_pad), kernel_out(v, v.shape, d_pad)

@@ -21,7 +21,7 @@ plain PyTorch version:
   :func:`packed_bwd_plain`.
 
 They take what the unpacked kernels take (``ops.flash``): any head_dim up
-to 128 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
+to 256 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
 bf16, fp16 or fp32 inputs (fp32 rounded to bf16 on the way in, written
 as fp32).
 
@@ -52,10 +52,10 @@ from typing import List, NamedTuple
 import torch
 
 from . import _build
-from .flash import (DKDV_BM, DKDV_BN, DQ_BM, DQ_BN, FWD_BM, FWD_BN,
+from .flash import (DKDV_BM, DKDV_BNS, DQ_BM, DQ_BN, FWD_BM, FWD_BNS,
                     _WINDOW_CLAMP, _bwd_operands, attention_backward,
                     bwd_plain_chunks, fwd_plain_chunks, kernel_out, load_fn,
-                    unpad)
+                    tiles_differ, unpad)
 from .reference import packed_rows_mask
 
 __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
@@ -90,7 +90,7 @@ class PackedTables(NamedTuple):
 
     * ``seg`` [B, N]: the segment start ``s_i`` of every row;
     * ``fwd`` [B, ceil(N/128), 4]: per 128-row q block (the forward, tiles
-      ``FWD_BM`` x ``FWD_BN``), the 128-key KV blocks it visits as two
+      ``FWD_BM`` x ``FWD_BNS[head_dim]``), the KV blocks it visits as two
       half-open ranges (sink_b0, sink_b1) and (win_b0, win_b1);
     * ``fwd_order`` [B * ceil(N/128)]: the (batch row, q block) units
       ``b * ceil(N/128) + block`` of ``fwd``, most KV blocks first (ties in
@@ -101,11 +101,11 @@ class PackedTables(NamedTuple):
     * ``dq_order`` [B * ceil(N/128)]: the (batch row, q block) units
       ``b * ceil(N/128) + block`` of ``dq``, most KV blocks first (ties in
       unit order): the order the dQ kernel's persistent CTAs take them in;
-    * ``kv`` [B, ceil(N/128), 2]: per 128-slot KV block (dK/dV, tiles
-      ``DKDV_BM`` x ``DKDV_BN``), the half-open range of 64-row q blocks
-      that read it;
-    * ``kv_order`` [B * ceil(N/128)]: the (batch row, KV block) units
-      ``b * ceil(N/128) + block``, longest range first (ties in unit order):
+    * ``kv`` [B, ceil(N/bn), 2]: per KV block of bn = ``DKDV_BNS[head_dim]``
+      slots (dK/dV, tiles ``DKDV_BM`` x bn), the half-open range of 64-row
+      q blocks that read it;
+    * ``kv_order`` [B * ceil(N/bn)]: the (batch row, KV block) units
+      ``b * ceil(N/bn) + block``, longest range first (ties in unit order):
       the order the dK/dV kernel's persistent CTAs take them in;
     * ``reach`` [B, N]: per key j, the end of the rows that see it: key j
       is visible to exactly the rows [j, reach[j]) (dK/dV's per-key mask).
@@ -159,9 +159,10 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     """The kernels' tables for ``positions`` [B, N] and heads of
     ``head_dim``, on the positions' device.
 
-    Forward (128-row q blocks, 128-key KV blocks) and dQ (128-row q
-    blocks, KV blocks of ``DQ_BN[kernel_head_dim(head_dim)]`` keys: the
-    instance's tile, ``_build.kernel_head_dim``), per q block of rows
+    Forward (128-row q blocks, KV blocks of
+    ``FWD_BNS[kernel_head_dim(head_dim)]`` keys) and dQ (128-row q
+    blocks, KV blocks of ``DQ_BN[kernel_head_dim(head_dim)]`` keys): the
+    instance's tiles (``_build.kernel_head_dim``), per q block of rows
     [r0, r1]: the sink range covers the first row's segment's sink columns
     [max(s_r0, 0), s_r0 + num_sink), cut at r1; the window range covers
     [max(s_r0, r0 - window + 1, 0), r1] and starts after the sink range, so
@@ -170,7 +171,8 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     dQ take their blocks most KV blocks first: the long items of a pack are
     each segment's last blocks, not the pack's.
 
-    dK/dV, per 128-slot KV block of columns [c0, c1]: 64-row q blocks from
+    dK/dV, per KV block of ``DKDV_BNS[kernel_head_dim(head_dim)]`` slots,
+    columns [c0, c1]: 64-row q blocks from
     c0's on (causal) up to cdiv(max_j reach(j), 64), where reach(j) is the
     end of j's segment for a sink column (positions[j] < num_sink), else
     min(that end, j + window). Tokens before the pack's first reset end at
@@ -184,10 +186,11 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     dev = pos.device
     idx = torch.arange(N, device=dev)
     seg = idx - pos
-    n_q_blocks, n_kv_blocks = -(-N // DKDV_BM), -(-N // DKDV_BN)
-    fwdtab = _q_table(seg, FWD_BM, FWD_BN, num_sink, window)
-    dqtab = _q_table(seg, DQ_BM, DQ_BN[_build.kernel_head_dim(head_dim)],
-                     num_sink, window)
+    d_i = _build.kernel_head_dim(head_dim)
+    kbn = DKDV_BNS[d_i]
+    n_q_blocks, n_kv_blocks = -(-N // DKDV_BM), -(-N // kbn)
+    fwdtab = _q_table(seg, FWD_BM, FWD_BNS[d_i], num_sink, window)
+    dqtab = _q_table(seg, DQ_BM, DQ_BN[d_i], num_sink, window)
 
     # seg_end(j): the first reset after j, else N
     resets = torch.where(pos == 0, idx, N)
@@ -197,9 +200,9 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     reach = torch.where(pos < num_sink, seg_end,
                         torch.minimum(seg_end, idx + window))
     block_reach = torch.nn.functional.pad(
-        reach, (0, n_kv_blocks * DKDV_BN - N)).reshape(
-            B, n_kv_blocks, DKDV_BN).amax(dim=-1)
-    qb0 = (torch.arange(n_kv_blocks, device=dev) * DKDV_BN // DKDV_BM
+        reach, (0, n_kv_blocks * kbn - N)).reshape(
+            B, n_kv_blocks, kbn).amax(dim=-1)
+    qb0 = (torch.arange(n_kv_blocks, device=dev) * kbn // DKDV_BM
            ).expand(B, -1)
     qb1 = torch.maximum(_cdiv_t(block_reach, DKDV_BM).clamp(max=n_q_blocks),
                         qb0)
@@ -256,13 +259,12 @@ def packed_bwd_plain(q, k, v, do, lse, delta, positions, num_sink: int = 4,
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     lib = _build.load("packed")
-    if ((lib.sink_packed_block_m(), lib.sink_packed_block_n())
-            != (FWD_BM, FWD_BN) or
+    if (lib.sink_packed_block_m() != FWD_BM or
+            tiles_differ(lib.sink_packed_block_n, FWD_BNS) or
             lib.sink_packed_dq_block_m() != DQ_BM or
-            any(lib.sink_packed_dq_block_n(d) != bn
-                for d, bn in DQ_BN.items()) or
-            (lib.sink_packed_dkdv_block_m(), lib.sink_packed_dkdv_block_n())
-            != (DKDV_BM, DKDV_BN)):
+            tiles_differ(lib.sink_packed_dq_block_n, DQ_BN) or
+            lib.sink_packed_dkdv_block_m() != DKDV_BM or
+            tiles_differ(lib.sink_packed_dkdv_block_n, DKDV_BNS)):
         raise RuntimeError("csrc/packed.cu and ops/flash.py disagree on the "
                            "tile sizes")
     return (load_fn("packed", "sink_pfwd", 9, 8),
@@ -293,7 +295,7 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
     """Launch ``sink_pfwd`` of ``csrc/packed.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``): (out, lse).
 
-    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 128;
+    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 256;
     positions [B, N] (any int dtype, any device); s_aux [H_q] or None; out
     in q's dtype. ``packed_fwd_kernel.launches`` counts the launches. A
     warmed call (the positions' tables already built) synchronises
@@ -436,8 +438,9 @@ def sink_flash_attention_packed(q, k, v, positions, num_sink: int = 4,
     Returns:
         [B, H_q, N, D] in q.dtype. On CUDA the packed forward kernel runs,
         and the packed dQ and dK/dV kernels in the backward; tiles are 128
-        x 128 for the forward, 128 queries x 128 keys (64 at D = 128) for
-        dQ and 64 queries x 128 keys for dK/dV.
+        x 128 for the forward (128 x 64 at D > 128), 128 queries x 128 keys
+        (64 at D = 128, 32 at D > 128) for dQ and 64 queries x 128 keys (64
+        at D > 128) for dK/dV.
     """
     if q.shape[2] != k.shape[2]:
         raise ValueError(f"packed attention needs N_q == N_kv: "

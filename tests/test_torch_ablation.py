@@ -2,7 +2,7 @@
 
 ``scripts/mfu_ablation.py`` is loaded as it stands, with its module globals
 (tile sizes, sinks, window) set by monkeypatch: at the production
-forward's 128 x 128 tiles (the port's ``FWD_BM x FWD_BN``, at which its
+forward's 128 x 128 tiles (the port's ``FWD_BM x ablation.BN``, at which its
 stages run) its Pallas kernels, run in interpret mode on the CPU, visit the
 KV blocks that the port's range table lists, so the stripped stages (which
 sum over whole visited tiles) compare like with like.
@@ -27,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 B, H_Q, H_KV, N, D = 1, 4, 2, 256, 64
 GEOMS = [(4, 128), (0, 128)]   # (num_sink, window)
 CORRECT = ("general", "maskadd", "masksel")
-TILE = flash.FWD_BM  # the stages' tiles, FWD_BM = FWD_BN
+TILE = flash.FWD_BM  # the stages' tiles, FWD_BM = ablation.BN
 
 
 @pytest.fixture(scope="module")

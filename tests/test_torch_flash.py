@@ -100,12 +100,10 @@ def test_split_kv_merge_equals_full():
 @pytest.mark.parametrize("tiles", [(64, 64), (128, 128), (128, 64)])
 def test_kv_range_table_covers_mask_once(geom, tiles):
     """The range table at 64 x 64 tiles, the forward kernel's 128 x 128
-    (the default, also the ablation's) and the dQ kernel's 128 x 64."""
+    (also the ablation's) and the dQ kernel's 128 x 64."""
     n_q, n_kv, ns, W, qo, ko = geom
     bm, bn = tiles
-    table = (tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko)
-             if tiles == (tflash.FWD_BM, tflash.FWD_BN) else
-             tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn))
+    table = tflash.fwd_kv_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
     mask = sink_window_mask(n_q, n_kv, ns, W, qo, ko).numpy()
     mask &= (np.arange(n_kv) + ko >= 0)[None, :]
     n_kv_blocks = -(-n_kv // bn)

@@ -166,9 +166,6 @@ def test_dkdv_q_range_table_covers_mask(geom, tiles):
     n_q, n_kv, ns, W, qo, ko = geom
     bm, bn = tiles
     table = tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko, bm=bm, bn=bn)
-    if tiles == (tflash.DKDV_BM, tflash.DKDV_BN):
-        np.testing.assert_array_equal(
-            table, tflash.dkdv_q_ranges(n_q, n_kv, ns, W, qo, ko))
     mask = _visible_mask(n_q, n_kv, ns, W, qo, ko)
     n_q_blocks = -(-n_q // bm)
     assert table.shape == (-(-n_kv // bn), 2)

@@ -973,13 +973,15 @@ def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Coverage: every head_dim up to 128 and bf16 / fp16 / fp32 inputs in the
+# Coverage: every head_dim up to 256 and bf16 / fp16 / fp32 inputs in the
 # seven attention kernels (rows 1-7 of PERF.md's kernel table), at the JAX
 # tests' shapes (tests/test_flash_prefill.py, test_flash_backward.py,
 # test_decode.py), kernel against plain on the same inputs.
 # ---------------------------------------------------------------------------
 
-COVER_DIMS = (16, 32, 80, 100, 128)
+# 160 and 256 run in the 256 instance as they are, 250 through a padded
+# copy (its rows are not whole 16 bytes)
+COVER_DIMS = (16, 32, 80, 100, 128, 160, 250, 256)
 COVER_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 COVER = [(d, dt) for d in COVER_DIMS for dt in COVER_DTYPES]
 # The forward's tolerance (atol, rtol 1e-3): JAX's tol() in
@@ -1016,7 +1018,7 @@ def _bwd_close(name, got, ref, dtype):
 
 @pytest.mark.parametrize("d, dtype", COVER)
 def test_forward_kernel_any_head_dim_and_dtype(cuda, d, dtype):
-    """Row 1 at D in (16, 32, 80, 100, 128) x (bf16, fp16, fp32): the
+    """Row 1 at D in COVER_DIMS x (bf16, fp16, fp32): the
     kernel's O (in the input dtype) and LSE against the plain version, one
     launch, a padded copy only for D % 8 != 0."""
     gen = torch.Generator(device=cuda).manual_seed(10)
@@ -1110,6 +1112,47 @@ def test_packed_kernels_any_head_dim_and_dtype(cuda, d, dtype):
         _bwd_close(name, got, ref, dtype)
 
 
+@pytest.mark.parametrize("route", ["unpacked", "packed"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
+    """The fp32 dQ and dK/dV kernels, unpacked and packed, on the packed
+    case's inputs (seed 12), where one bf16 rounding of a P or dS value
+    near a rounding midpoint, made apart by the kernel and the plain
+    version, once put dK 3.8e-3 and dV 4.9e-3 off at D = 256 (2^-8 |P|
+    |dO| a step): within JAX's fp32 tolerance of the plain version at the
+    kernels' precision, and within 2e-4 + 1e-3 |ref| of it, far inside one
+    such step, since the kernels carry P and dS as two bf16 terms."""
+    from sink_attention_tpu_torch.ops import packed
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    B, H_q, H_kv, N = 1, 8, 2, 256
+    positions = torch.tensor([_segments(N, (100, 30, 126))], device=cuda)
+    q, k, v, do = _cover_inputs(gen, torch.float32, (B, H_q, N, d),
+                                (B, H_kv, N, d), (B, H_kv, N, d),
+                                (B, H_q, N, d))
+    aux = torch.randn(H_q, generator=gen, device=cuda)
+    mm = torch.bfloat16
+    if route == "packed":
+        o, lse = packed.packed_fwd_plain(q, k, v, positions, aux, 4, 64,
+                                         matmul_dtype=mm)
+        delta = (do * o).sum(-1)
+        args = (q, k, v, do, lse, delta, positions, 4, 64)
+        plain = packed.packed_bwd_plain(*args, matmul_dtype=mm)
+        got = (packed.packed_dq_kernel(*args),
+               *packed.packed_dkdv_kernel(*args))
+    else:
+        o, lse = flash.flash_fwd_plain(q, k, v, aux, 4, 64, matmul_dtype=mm)
+        delta = (do * o).sum(-1)
+        args = (q, k, v, do, lse, delta, 4, 64)
+        plain = flash.flash_bwd_plain(*args, matmul_dtype=mm)
+        got = (flash.flash_dq_kernel(*args), *flash.flash_dkdv_kernel(*args))
+    torch.cuda.synchronize()
+    for name, g, ref in zip(("dq", "dk", "dv"), got, plain):
+        _bwd_close(name, g, ref, torch.float32)
+        err = (g - ref).abs()
+        assert not bool((err > 2e-4 + 1e-3 * ref.abs()).any()), (
+            name, float(err.max()))
+
+
 # Decode: fp32 storage computes in fp32 (JAX's CPU fp32 tolerance, 1e-5 with
 # rtol 1e-3: tests/test_decode.py); bf16 2e-2 as above; fp16 4e-3.
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
@@ -1149,9 +1192,9 @@ def test_decode_kernel_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
-@pytest.mark.parametrize("d", [32, 80])
+@pytest.mark.parametrize("d", [32, 80, 256])
 def test_quantized_decode_any_head_dim(cuda, quant, d):
-    """Rows 4b-4c at D = 32 and 80: the int8 / fp8 kernel against its plain
+    """Rows 4b-4c at D = 32, 80 and 256: the int8 / fp8 kernel against its plain
     version (2e-2 on the bf16 output) and against the bf16 kernel over the
     unquantized KV (the JAX tests' budget), one launch of its branch."""
     gen = torch.Generator(device=cuda).manual_seed(14)
@@ -1178,11 +1221,12 @@ def test_quantized_decode_any_head_dim(cuda, quant, d):
 
 
 def test_head_dim_above_128_raises_on_cuda(cuda):
-    """D = 192 has no instance: every wrapper raises on CUDA tensors, names
-    the limit, and launches nothing (no plain fallback)."""
+    """D = 264 (above the widest instance, 256) has no instance: every
+    wrapper raises on CUDA tensors, names the limit, and launches nothing
+    (no plain fallback)."""
     from sink_attention_tpu_torch.ops import packed
-    q = torch.zeros(1, 4, 128, 192, dtype=torch.bfloat16, device=cuda)
-    kv = torch.zeros(1, 2, 128, 192, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(1, 4, 128, 264, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 2, 128, 264, dtype=torch.bfloat16, device=cuda)
     rows = torch.zeros(1, 4, 128, device=cuda)
     pos = torch.arange(128, device=cuda)[None]
     wrappers = (flash.flash_fwd_kernel, flash.flash_dq_kernel,
@@ -1199,6 +1243,6 @@ def test_head_dim_above_128_raises_on_cuda(cuda):
              lambda: decode.decode_kernel(q[:, :, :1], kv, kv, (0, 4, 4),
                                           sink_cap=0, window_size=128)]
     for call in calls:
-        with pytest.raises(ValueError, match="128"):
+        with pytest.raises(ValueError, match="256"):
             call()
     assert [f.launches for f in wrappers] == counts

@@ -206,14 +206,14 @@ def test_tables_cover_the_mask(case):
     tabs128 = tpacked.packed_tables(pos, ns, W, 128)
     mask = packed_sink_window_mask(pos, ns, W)[0].numpy()
     seg = np.arange(N) - pos[0].numpy()
-    n_qb, n_kb = -(-N // tflash.DKDV_BM), -(-N // tflash.DKDV_BN)
+    n_qb, n_kb = -(-N // tflash.DKDV_BM), -(-N // tflash.DKDV_BNS[64])
     n_fwdb, n_dqb = -(-N // tflash.FWD_BM), -(-N // tflash.DQ_BM)
     assert tabs.fwd.shape == (1, n_fwdb, 4) and tabs.kv.shape == (1, n_kb, 2)
     assert tabs.dq.shape == tabs128.dq.shape == (1, n_dqb, 4)
     assert torch.equal(tabs.fwd, tabs128.fwd)
     assert torch.equal(tabs.fwd_order, tabs128.fwd_order)
     np.testing.assert_array_equal(tabs.seg[0].numpy(), seg)
-    for table, (bm, bn) in ((tabs.fwd, (tflash.FWD_BM, tflash.FWD_BN)),
+    for table, (bm, bn) in ((tabs.fwd, (tflash.FWD_BM, tflash.FWD_BNS[64])),
                             (tabs.dq, (tflash.DQ_BM, tflash.DQ_BN[64])),
                             (tabs128.dq, (tflash.DQ_BM, tflash.DQ_BN[128]))):
         for qi, (s0, s1, w0, w1) in enumerate(table[0].tolist()):
@@ -230,7 +230,7 @@ def test_tables_cover_the_mask(case):
         units = units.numpy()
         assert sorted(units.tolist()) == list(range(table.shape[1]))
         assert (np.diff(lengths[units]) <= 0).all(), lengths[units]
-    kbm, kbn = tflash.DKDV_BM, tflash.DKDV_BN
+    kbm, kbn = tflash.DKDV_BM, tflash.DKDV_BNS[64]
     for ki, (b0, b1) in enumerate(tabs.kv[0].tolist()):
         assert 0 <= b0 <= b1 <= n_qb, (ki, tabs.kv[0, ki])
         rows = np.nonzero(mask[:, ki * kbn:(ki + 1) * kbn].any(axis=1))[0]
@@ -264,7 +264,7 @@ def test_full_layer_tables_skip_other_segments():
     dq_blocks = 512 // tflash.DQ_BM
     per_segment_dq = 8 * sum((qb + 1) * tflash.DQ_BM // tflash.DQ_BN[64]
                              for qb in range(dq_blocks))
-    kv_blocks, q_blocks = 512 // tflash.DKDV_BN, 512 // tflash.DKDV_BM
+    kv_blocks, q_blocks = 512 // tflash.DKDV_BNS[64], 512 // tflash.DKDV_BM
     per_segment_dkdv = 8 * sum(q_blocks - kb * (q_blocks // kv_blocks)
                                for kb in range(kv_blocks))
     assert fwd_tiles == per_segment and dkdv_tiles == per_segment_dkdv
