@@ -7,7 +7,7 @@
                              # and speculative decoding, quantized weights,
                              # serving from a checkpoint, sequence-parallel
                              # attention, tensor, pipeline and FSDP
-                             # parallelism, head dims 80 and 256
+                             # parallelism, head dims 80, 256 and 512
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -142,6 +142,10 @@ Phases:
      depth, served in bf16, over int8 KV and with 4 sinks pinned in every
      sliding layer's cache, trained in bf16 unpacked and packed (see
      ``gemma_phase``); phase 2 also holds rows 1-7 at its shapes.
+  15. head_dim 512: the same model widened to head_dim 512 (not a released
+     model), served in bf16 and over int8 KV, trained in bf16 unpacked and
+     packed (see ``wide_phase``); phase 2 also holds rows 1-7 at its shapes
+     at D = 512 and 384, the decode in every storage (15a).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -747,6 +751,30 @@ def kernel_phase(dev):
     packed_gemma = [check_packed(dev, 1, 8, 4, 256, 0, w, [4096, 4096], gen,
                                  use_aux=False, label="2 x 4096")
                     for w in (4096, 8192)]
+    # phase 15a, the widened Gemma-2-2B shapes: head_dim 512 in the 512
+    # instance, and 384 (its columns past 384 zero-filled), bf16: the
+    # prefill (2 x 8192, GQA 8/4) on a sliding (W = 4096) and a full layer
+    # and with 4 StreamingLLM sinks; the training step's backward (1 x
+    # 8192); the packed step's pack of 2 x 4096; the decode over 4096 live
+    # slots in every storage (bf16 also with 4 sinks); D = 384 the
+    # sliding layer with 4 sinks in each
+    wide = (512, 384)
+    flash_wide = [check_flash(dev, 2, 8, 4, 8192, 512, ns, w, gen)
+                  for ns, w in ((0, 4096), (0, 8192), (4, 4096))]
+    flash_wide.append(check_flash(dev, 2, 8, 4, 8192, 384, 4, 4096, gen))
+    bwd_wide = [check_bwd(dev, 1, 8, 4, 8192, d, ns, w, gen, use_aux=False)
+                for d, ns, w in ((512, 0, 4096), (512, 0, 8192),
+                                 (384, 4, 4096))]
+    packed_wide = [check_packed(dev, 1, 8, 4, d, 0, 4096, [4096, 4096], gen,
+                                use_aux=False, label="2 x 4096")
+                   for d in wide]
+    decode_wide = [check_decode(dev, 2, 8, 4, d, ns, 4096, 8192, 16, gen,
+                                dtype=dt)
+                   for d, ns, dt in ((512, 0, torch.bfloat16),
+                                     (512, 4, torch.bfloat16),
+                                     (512, 0, torch.float16),
+                                     (512, 0, torch.float32),
+                                     (384, 4, torch.bfloat16))]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows,
@@ -755,7 +783,11 @@ def kernel_phase(dev):
                dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen, "int8")],
            "flash_fwd_gemma": flash_gemma, "decode_gemma": decode_gemma,
            "decode_int8_gemma": [check_decode(
-               dev, 2, 8, 4, 256, 0, 4096, 8192, 16, gen, "int8")]}
+               dev, 2, 8, 4, 256, 0, 4096, 8192, 16, gen, "int8")],
+           "flash_fwd_wide": flash_wide, "decode_wide": decode_wide,
+           **{f"decode_{qn}_wide": [check_decode(
+               dev, 2, 8, 4, d, 0, 4096, 8192, 16, gen, qn) for d in wide]
+              for qn in ("int8", "fp8")}}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
         res[name + "_headline"] = bwd_head[name]
@@ -765,15 +797,17 @@ def kernel_phase(dev):
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name + "_danube"] = [r[name] for r in bwd_danube]
         res[name + "_gemma"] = [r[name] for r in bwd_gemma]
+        res[name + "_wide"] = [r[name] for r in bwd_wide]
     for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
         res[name + "_gemma"] = [r[name] for r in packed_gemma]
+        res[name + "_wide"] = [r[name] for r in packed_wide]
         res[name] = [r[name] for r in packed_main]
         res[name + "_headline"] = [r[name] for r in packed_head]
         res[name + "_edge"] = [r[name] for r in packed_edge]
     for key, rows in res.items():
         name = key
         for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
-                       "_gemma"):
+                       "_gemma", "_wide"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -4479,15 +4513,18 @@ GEMMA_RUNS = (("bfloat16", None, 0), ("bfloat16 int8 KV", "int8", 0),
 
 
 def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
-                new_tokens=16, train_len=8192, segments=(4096, 4096)):
-    """Phase 14: the model of ``config`` (``ModelConfig(**config)``) at its
-    full width and depth, random bf16 weights from a generator seeded 0.
+                new_tokens=16, train_len=8192, segments=(4096, 4096),
+                runs=GEMMA_RUNS, phase=14):
+    """Phase 14 (and 15 on a widened config): the model of ``config``
+    (``ModelConfig(**config)``) at its full width and depth, random bf16
+    weights from a generator seeded 0.
 
-    14a. serve (phase 3's ``serve``): ``batch`` prompts of ``prompt_len``
-    tokens (twice the window, inside max_position_embeddings with the new
-    tokens), ``new_tokens`` greedy tokens through
-    ``serving.greedy_generate``, in bf16, over an int8 KV cache, and with
-    ``num_sink_tokens = 4`` (StreamingLLM: every sliding layer's cache pins
+    14a. serve (phase 3's ``serve``) each of ``runs``: ``batch`` prompts
+    of ``prompt_len`` tokens (twice the window, inside
+    max_position_embeddings with the new tokens), ``new_tokens`` greedy
+    tokens through ``serving.greedy_generate``, in bf16, over an int8 KV
+    cache, and with ``num_sink_tokens = 4`` (GEMMA_RUNS; phase 15 the first
+    two) (StreamingLLM: every sliding layer's cache pins
     4 sinks while its window rolls, and the kernels run their sink range);
     launches 1 forward per layer and 1 decode of the run's branch per layer
     and step; every layer's prefill and decode attention kernel against
@@ -4522,17 +4559,18 @@ def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
         t0 = time.perf_counter()
         rep, err = fn()
         rep["seconds"] = time.perf_counter() - t0
-        errors.extend(f"phase 14 {label}: {e}" for e in err)
+        errors.extend(f"phase {phase} {label}: {e}" for e in err)
         if cuda:
             rep["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            _check_launches(rep["launches"], want, f"phase 14 {label}",
+            _check_launches(rep["launches"], want, f"phase {phase} {label}",
                             errors)
         report[label] = rep
-        log(f"phase 14 {label}: {rep['seconds']:.1f} s: " + json.dumps(rep))
+        log(f"phase {phase} {label}: {rep['seconds']:.1f} s: "
+            + json.dumps(rep))
         if cuda:
             torch.cuda.empty_cache()
 
-    for label, quant, sinks in GEMMA_RUNS:
+    for label, quant, sinks in runs:
         want = {"flash_fwd": L, "decode": 0 if quant else L * (
             new_tokens - 1)}
         if quant:
@@ -4552,17 +4590,42 @@ def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
 
 
 # ---------------------------------------------------------------------------
+# Phase 15: head_dim 512, on a widened Gemma-2-2B geometry
+# ---------------------------------------------------------------------------
+
+# Not a released model: phase 14's Gemma-2-2B geometry with head_dim 512
+# and its 8/4 heads kept, so q is 4096 wide against a hidden size of 2304
+# (ModelConfig takes head_dim apart from hidden / heads in both packages,
+# as Gemma's own 8 x 256 != 2304 shows). No public model I know of uses a
+# head wider than 256; this config drives the kernels' 512 instance
+# through the model's entry points at a full model's width and depth.
+GEMMA2_2B_WIDE = dict(GEMMA2_2B, head_dim=512)
+WIDE_RUNS = GEMMA_RUNS[:2]  # bf16, and over int8 KV
+
+
+def wide_phase(device, **kw):
+    """Phase 15: ``gemma_phase`` on GEMMA2_2B_WIDE: serving 2 x 8176 + 16
+    tokens in bf16 and over int8 KV, one bf16 SGD step with remat at 1 x
+    8192 and one on a pack of 2 x 4096, every gate of phase 14. Returns
+    (report, errors)."""
+    kw = {"config": GEMMA2_2B_WIDE, "runs": WIDE_RUNS, "phase": 15, **kw}
+    return gemma_phase(device, **kw)
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances each source must hold: one per instance head
-# dim (64, 128, 256) and element types (bf16, fp16, fp32 read as bf16)
-WGMMA_INSTANCES = {"flash_fwd": {"fwd": 9}, "flash_bwd": {"dq": 9, "dkdv": 9},
-                   "packed": {"fwd": 9, "dq": 9, "dkdv": 9},
+# dim (64, 128, 256, 512) and element types (bf16, fp16, fp32 read as bf16)
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 12},
+                   "flash_bwd": {"dq": 12, "dkdv": 12},
+                   "packed": {"fwd": 12, "dq": 12, "dkdv": 12},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
 # decode.cu's instances (storage, instance head dim, slices of a tile): 5
-# storages x 3 head dims x 3 slice counts, less fp32 at 256 with 4 slices
-DECODE_INSTANCES = 44
+# storages x 3 head dims x 3 slice counts, less fp32 at 256 with 4 slices,
+# and the 5 storages at 512 (1 slice: its warps split O's columns)
+DECODE_INSTANCES = 49
 # the bytes of spill stores each decode instance may show: those it showed
 # when the D = 256 instances came in (CUDA 12 ptxas for sm_90a; q's
 # fragments beside O at D = 256), and 0 for every other instance
@@ -4573,9 +4636,9 @@ DECODE_SPILL_ALLOWANCE = {
     ("Int8", 256, 4): 4, ("Fp8", 256, 1): 256, ("Fp8", 256, 2): 80}
 
 
-def kernel_coverage(name):
-    """(head dims, dtypes) that the kernels line's row ``name`` launched in
-    this process, from its wrapper's ``coverage``."""
+def coverage_pairs(name):
+    """The (head dim, dtype) pairs that the kernels line's row ``name``
+    launched in this process, from its wrapper's ``coverage``."""
     from sink_attention_tpu_torch.ops import ablation, decode, flash, packed
     dec = decode.decode_kernel.coverage
     cover = {
@@ -4590,6 +4653,13 @@ def kernel_coverage(name):
         "decode_fp8": {c for c in dec if c[1] == "fp8"},
         "ablation": ablation.ablation_kernel.coverage,
         "mask_stage": ablation.ablation_kernel.coverage}[name]
+    return cover
+
+
+def kernel_coverage(name):
+    """(head dims, dtypes) that the kernels line's row ``name`` launched in
+    this process (``coverage_pairs``)."""
+    cover = coverage_pairs(name)
     return sorted({d for d, _ in cover}), sorted({t for _, t in cover})
 
 
@@ -4949,8 +5019,23 @@ def main() -> int:
         f"new in bf16, over int8 KV and with 4 StreamingLLM sinks; training "
         f"1 x 8192 and a pack of 2 x 4096 in bf16): "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 15. head_dim 512: the widened Gemma-2-2B geometry (D=512, not a
+    # released model) at full width and depth, served in bf16 and over
+    # int8 KV, trained in bf16; phase 2 held rows 1-7 at its shapes (15a)
+    t0 = time.perf_counter()
+    wreport, werr = wide_phase(dev)
+    errors += werr
+    log(f"phase 15 (widened Gemma-2-2B geometry, not a released model: 26 "
+        f"layers, hidden 2304, 8/4 heads, head_dim 512, W=4096 on alternate "
+        f"layers; serving 2 x 8176 + 16 new in bf16 and over int8 KV; "
+        f"training 1 x 8192 and a pack of 2 x 4096 in bf16): "
+        f"{time.perf_counter() - t0:.1f} s")
     for row in kernels:
-        for phase, rep in (("danube", dreport), ("gemma", greport)):
+        for phase, rep, num in (("danube", dreport, 13),
+                                ("gemma", greport, 14),
+                                ("wide", wreport, 15)):
             n = sum(r["launches"].get(row["name"], 0)
                     for r in rep.values() if "launches" in r)
             if row["name"] in ("flash_fwd", "flash_dq", "flash_dkdv",
@@ -4959,7 +5044,7 @@ def main() -> int:
                 row[f"launches_{phase}"] = n
                 if n == 0:
                     errors.append(f"{row['name']} launched no time in phase "
-                                  f"{13 if phase == 'danube' else 14}")
+                                  f"{num}")
             rows = kern.get(f"{row['name']}_{phase}")
             if rows:
                 row[phase] = [{k: r[k] for k in (
@@ -4968,6 +5053,8 @@ def main() -> int:
                     "device_ms") if k in r} for r in rows]
     for row in kernels:
         row["head_dims"], row["dtypes"] = kernel_coverage(row["name"])
+        row["pairs_above_256"] = sorted(
+            [d, t] for d, t in coverage_pairs(row["name"]) if d > 256)
 
     if errors:
         for e in errors:

@@ -12,8 +12,8 @@
 //     P  = exp(scale * Q K^T - LSE)  on valid cells, 0 elsewhere
 //     dP = dO V^T,   dS = P * (dP - delta)
 //     dQ = scale * dS K,   dV = P^T dO,   dK = scale * dS^T Q
-// Query head h reads KV head h / (H_q / H_kv). Any head dim D up to 256
-// with D % 8 == 0 runs, in the instance of D_i = 64, 128 or 256 (the
+// Query head h reads KV head h / (H_q / H_kv). Any head dim D up to 512
+// with D % 8 == 0 runs, in the instance of D_i = 64, 128, 256 or 512 (the
 // smallest D_i >= D; columns past D read as zeros and are not written);
 // the host pads any other D to the next multiple of 8. Inputs are bf16 or
 // fp16 (fp32 arrives rounded to bf16 by the host and is written as fp32;

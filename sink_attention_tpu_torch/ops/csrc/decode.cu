@@ -71,10 +71,10 @@
 // 128 slots (two would not fit beside q), a lane per slot for S = q . k
 // (float4 rows, conflict-free at the padded row stride) and a lane per
 // column for O += p v, q and the output fp32.
-// Head dims: any D <= 256 whose rows are whole 16 bytes (D % 8 for
+// Head dims: any D <= 512 whose rows are whole 16 bytes (D % 8 for
 // bf16/fp16, D % 16 for the codes, D % 4 for fp32; the host pads any other
-// D), run by the instance of D_i = 64, 128 or 256 with the columns past D
-// zero-filled by cp.async (src-size 0) and not written: at D = 80 the
+// D), run by the instance of D_i = 64, 128, 256 or 512 with the columns
+// past D zero-filled by cp.async (src-size 0) and not written: at D = 80 the
 // tensor cores do 128 / 80 = 1.6x the products, on a kernel bound by its
 // launch and its bytes. The 256 instance of the 16-bit and fp32 storage
 // walks tiles of 64 slots (tile_slots): two 128-slot bf16 buffers would
@@ -83,6 +83,18 @@
 // q's 64 (bf16 A fragments); the fp32 storage's lane-per-slot step keeps
 // its warp slices at 32 slots or more (at most 2 slices of a 64-slot
 // tile).
+// The 512 instance splits O's columns across the warps (col_slices): a
+// warp's O of 16 rows x 512 would take 256 registers a lane. A CTA takes
+// 16 query rows (cta_rows; the 64-row pieces of the other instances become
+// 16-row pieces); each of its 4 warps computes the same S = q K^T of those
+// rows over the whole tile and the same softmax, and accumulates only its
+// 128 columns of O (64 registers a lane), so the warps' partials write
+// disjoint columns and share m and l; q's rows sit in shared memory (their
+// fragments, 128 registers a lane, are read per k-step). Tiles of 32
+// slots for the 16-bit and fp32 storages (two 16-bit buffers 130 KB, the
+// one fp32 buffer 129 KB beside q's 32 KB), 64 for the codes (two buffers
+// 133 KB). S is computed by every warp: 4x its products, on a kernel
+// bound by its bytes and its launch.
 
 #include <cooperative_groups.h>
 
@@ -102,7 +114,7 @@ using sinkattn::mma16816;
 using sinkattn::pack2;
 using sinkattn::pack_bf16;
 
-constexpr int TILE = 128;      // slots per tile (64 in some D = 256 ones)
+constexpr int TILE = 128;      // slots per tile (fewer at D >= 256)
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr int NWARPS = NTHREADS / 32;
 static_assert(NTHREADS == TILE, "a thread copies one slot's scales");
@@ -185,10 +197,25 @@ struct State {
 };
 
 // Slots per tile of an instance: TILE, but 64 for unquantized storage at
-// D = 256, where two 128-slot buffers would not fit (see the header).
+// D = 256, where two 128-slot buffers would not fit, and at D = 512 32
+// (unquantized) or 64 (codes) (see the header).
 template <class T, int D>
 __host__ __device__ constexpr int tile_slots() {
-  return D == 256 && !T::SCALED ? 64 : TILE;
+  return D == 512   ? (T::SCALED ? 64 : 32)
+         : D == 256 ? (T::SCALED ? TILE : 64)
+                    : TILE;
+}
+
+// Warps that split O's columns (the 512 instance: each of the 4 owns a
+// quarter), and query rows per CTA: 64, one 16-row m-tile a warp, or 16
+// where the warps split the columns.
+template <int D>
+__host__ __device__ constexpr int col_slices() {
+  return D == 512 ? NWARPS : 1;
+}
+template <int D>
+__host__ __device__ constexpr int cta_rows() {
+  return col_slices<D>() > 1 ? 16 : ROWS;
 }
 
 // One buffer: a tile's K and V rows (padded) and, when quantized, their
@@ -206,16 +233,28 @@ __host__ __device__ constexpr int n_bufs() {
   return T::SCALAR ? 1 : 2;
 }
 
-// The buffers, then (fp32 storage) the CTA's q rows [ROWS][D] fp32; after
-// the tile loop the partials alias them: per warp [NWARPS][16][D] + m, l
-// [NWARPS][16], then the CTA's [ROWS][D] + m, l [ROWS].
+// The CTA's q rows in shared memory where the warps split O's columns
+// (16-bit or code storage: bf16 / fp16 rows padded by 16 bytes, so a
+// fragment's 8 rows fall on distinct banks).
+template <class T, int D>
+__host__ __device__ constexpr bool q_in_smem() {
+  return col_slices<D>() > 1 && !T::SCALAR;
+}
+__host__ __device__ constexpr int q_row_bytes(int D) { return D * 2 + 16; }
+
+// The buffers, then the CTA's q rows (fp32 storage: [cta_rows][D] fp32;
+// q_in_smem: [cta_rows][q_row_bytes]); after the tile loop the partials
+// alias them: per warp [NWARPS][16][D] + m, l [NWARPS][16], then the
+// CTA's [cta_rows][D] + m, l [cta_rows].
 template <class T, int D>
 constexpr size_t smem_bytes() {
-  constexpr size_t tiles = n_bufs<T>() * buf_bytes<T, D>() +
-                           (T::SCALAR ? (size_t)ROWS * D * sizeof(float) : 0);
+  constexpr size_t RW = cta_rows<D>();
+  constexpr size_t tiles =
+      n_bufs<T>() * buf_bytes<T, D>() +
+      (T::SCALAR ? RW * D * sizeof(float) : 0) +
+      (q_in_smem<T, D>() ? RW * q_row_bytes(D) : 0);
   constexpr size_t partials =
-      (NWARPS * 16 * ((size_t)D + 2) + ROWS * ((size_t)D + 2)) *
-      sizeof(float);
+      (NWARPS * 16 * ((size_t)D + 2) + RW * ((size_t)D + 2)) * sizeof(float);
   return tiles > partials ? tiles : partials;
 }
 
@@ -225,13 +264,14 @@ constexpr size_t smem_bytes() {
 // lane per slot (NS = SW / 32 slots a lane), q rows read from shared
 // memory by broadcast, K rows as float4 (row stride D + 4 floats: a
 // quarter warp's 8 rows fall on distinct banks); the online softmax per
-// row over the lanes (exp2 domain); O += p v: a lane per column (D / 32
+// row over the lanes (exp2 domain); O += p v over the warp's D / CS
+// columns from col0 (CS warps split them): a lane per column (D / CS / 32
 // columns a lane), each slot's p taken from its lane by a shuffle.
-template <int D, int SL, int TL>
+template <int D, int SL, int TL, int CS = 1>
 struct F32Warp {
   static constexpr int SW = TL / SL;
   static constexpr int NS = SW / 32;  // slots a lane
-  static constexpr int NC = D / 32;   // output columns a lane
+  static constexpr int NC = D / CS / 32;  // output columns a lane
   static constexpr int ROWF = D + 4;  // padded smem row (floats)
   float m[16], l[16], o[16][NC];
 
@@ -246,10 +286,11 @@ struct F32Warp {
   }
 
   // One tile of the slice: K rows kb, V rows vb (its first slot), q rows
-  // qs [16][D]; live(i) says whether slot i of the slice is live.
+  // qs [16][D]; live(i) says whether slot i of the slice is live; the
+  // warp's O columns start at col0.
   template <class Live>
   __device__ __forceinline__ void tile(const float* kb, const float* vb,
-                                       const float* qs, int lane,
+                                       const float* qs, int lane, int col0,
                                        float scale_log2, const Live& live) {
     float s[16][NS];
 #pragma unroll
@@ -310,7 +351,7 @@ struct F32Warp {
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       for (int sl = 0; sl < 32; ++sl) {
-        const float* vr = vb + (j * 32 + sl) * ROWF + lane;
+        const float* vr = vb + (j * 32 + sl) * ROWF + col0 + lane;
         float v[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) v[c] = vr[c * 32];
@@ -324,14 +365,16 @@ struct F32Warp {
     }
   }
 
-  // The warp's partial: O [16][D] at pw, m and l of its rows at pm, pl.
+  // The warp's partial: its O columns of [16][D] at pw, m and l of its
+  // rows at pm, pl (where `ml`: one warp of those that split the columns).
   __device__ __forceinline__ void write(float* pw, float* pm, float* pl,
-                                        int lane) const {
+                                        int lane, int col0, bool ml) const {
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c) pw[r * D + c * 32 + lane] = o[r][c];
-      if (lane == 0) {
+      for (int c = 0; c < NC; ++c)
+        pw[r * D + col0 + c * 32 + lane] = o[r][c];
+      if (ml && lane == 0) {
         pm[r] = m[r];
         pl[r] = l[r];
       }
@@ -357,8 +400,13 @@ __global__ void __launch_bounds__(NTHREADS)
   constexpr int SW = TL / SL;              // slots per warp slice
   constexpr int NT = SW / 8;               // n-tiles of S
   constexpr int KT = D / 16;               // k-steps of S
-  constexpr int DT = D / 8;                // n-tiles of O
+  constexpr int CS = col_slices<D>();      // warps splitting O's columns
+  constexpr int RW = cta_rows<D>();        // query rows per CTA
+  constexpr bool QSM = q_in_smem<T, D>();  // q's rows in shared memory
+  constexpr int DC = D / CS;               // a warp's O columns
+  constexpr int DT = DC / 8;               // n-tiles of O
   constexpr int D4 = D / 4;
+  static_assert(CS == 1 || SL == 1, "column-split warps walk whole tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   // Buffer b: K [TL][ROWB], V [TL][ROWB], k scales [TL], v scales.
   auto kbuf = [&](int b) { return smem + b * buf_bytes<T, D>(); };
@@ -370,11 +418,13 @@ __global__ void __launch_bounds__(NTHREADS)
   float* po = reinterpret_cast<float*>(smem);  // [NWARPS][16][D]
   float* pm = po + NWARPS * 16 * D;            // [NWARPS][16]
   float* pl = pm + NWARPS * 16;                // [NWARPS][16]
-  float* co = pl + NWARPS * 16;                // [ROWS][D]: the CTA's
-  float* cm = co + ROWS * D;                   // [ROWS]
-  float* cl = cm + ROWS;                       // [ROWS]
-  // fp32 storage: the CTA's q rows [ROWS][D], after the one buffer
+  float* co = pl + NWARPS * 16;                // [RW][D]: the CTA's
+  float* cm = co + RW * D;                     // [RW]
+  float* cl = cm + RW;                         // [RW]
+  // fp32 storage: the CTA's q rows [RW][D], after the one buffer;
+  // q_in_smem: [RW][q_row_bytes] 16-bit, after the two
   float* q_sm = reinterpret_cast<float*>(smem + buf_bytes<T, D>());
+  uint8_t* q16_sm = smem + n_bufs<T>() * buf_bytes<T, D>();
   const int vecs = Dt * T::BYTES / 16;  // 16-byte copies of a cache row
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -382,13 +432,16 @@ __global__ void __launch_bounds__(NTHREADS)
   const int n_ranks = (int)cluster.num_blocks();
   const int unit = blockIdx.y;  // (b * H_kv + kv head) * n_pieces + piece
   const int bkv = unit / n_pieces;
-  const int row_lo = (unit - bkv * n_pieces) * ROWS;  // first group row here
-  const int R = min(G - row_lo, ROWS);
+  const int row_lo = (unit - bkv * n_pieces) * RW;  // first group row here
+  const int R = min(G - row_lo, RW);
   const int b = bkv / H_kv;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int mt = warp / SL, slice = warp - (warp / SL) * SL;
+  // a warp's m-tile and slot slice, or (CS > 1) its quarter of O's columns
+  const int wr = CS > 1 ? 0 : warp, cs = CS > 1 ? warp : 0;
+  const int mt = wr / SL, slice = wr - (wr / SL) * SL;
+  const int col0 = cs * DC;  // the warp's first O column
   const bool has_rows = mt * 16 < R;
 
   const int sink_len = st.sink_len ? st.sink_len[b * st.stride] : st.u_sink_len;
@@ -418,7 +471,7 @@ __global__ void __launch_bounds__(NTHREADS)
       cp_async16(kd + r * ROWB + cc * 16, k + off, ok);
       cp_async16(vd + r * ROWB + cc * 16, v + off, ok);
     }
-    if (T::SCALED) {  // one slot's scales a thread (TL == NTHREADS)
+    if (T::SCALED && (TL == NTHREADS || tid < TL)) {  // a slot's scales
       const bool ok = slot0 + tid < hwm;
       const size_t off = head + (ok ? slot0 + tid : 0);
       cp_async4(ksbuf(bb) + tid, k_scale + off, ok);
@@ -442,11 +495,21 @@ __global__ void __launch_bounds__(NTHREADS)
   // storage, the CTA's q rows into shared memory (visible after the loop's
   // first barrier).
   const int r0 = mt * 16 + g;  // local rows r0, r0 + 8
-  constexpr int KQ = T::SCALAR ? 1 : KT;
+  constexpr int KQ = T::SCALAR || QSM ? 1 : KT;
   uint32_t qf[KQ][4];
-  if constexpr (T::SCALAR) {
+  if constexpr (QSM) {
+    const uint16_t* qg =
+        static_cast<const uint16_t*>(q) + ((size_t)bkv * G + row_lo) * Dt;
+    for (int i = tid; i < RW * (D / 8); i += NTHREADS) {
+      const int r = i / (D / 8), c8 = i - (i / (D / 8)) * (D / 8);
+      *reinterpret_cast<uint4*>(q16_sm + r * q_row_bytes(D) + c8 * 16) =
+          r < R && c8 * 8 < Dt
+              ? *reinterpret_cast<const uint4*>(qg + (size_t)r * Dt + c8 * 8)
+              : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else if constexpr (T::SCALAR) {
     const float* qg = static_cast<const float*>(q) + (size_t)bkv * G * Dt;
-    for (int i = tid; i < ROWS * D4; i += NTHREADS) {
+    for (int i = tid; i < RW * D4; i += NTHREADS) {
       const int r = i / D4, c4 = i - (i / D4) * D4;
       *reinterpret_cast<float4*>(q_sm + r * D + c4 * 4) =
           r < R && c4 * 4 < Dt
@@ -481,7 +544,7 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  F32Warp<D, SL, TL> fw;
+  F32Warp<D, SL, TL, CS> fw;
   if constexpr (T::SCALAR) fw.init();
 
   for (int bb = 0; tile < n_tiles; tile += n_ranks, bb ^= n_bufs<T>() - 1) {
@@ -501,7 +564,7 @@ __global__ void __launch_bounds__(NTHREADS)
       if (has_rows && tile * TL + c0 < hwm)
         fw.tile(reinterpret_cast<const float*>(kbuf(bb) + c0 * ROWB),
                 reinterpret_cast<const float*>(vbuf(bb) + c0 * ROWB),
-                q_sm + mt * 16 * D, lane, scale_log2,
+                q_sm + mt * 16 * D, lane, col0, scale_log2,
                 [&](int i) { return live(tile * TL + c0 + i); });
     } else if (has_rows && tile * TL + c0 < hwm) {  // rows, live slots
       const uint8_t* kb = kbuf(bb) + c0 * ROWB;
@@ -516,11 +579,24 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
+        uint32_t qa[4];  // q's A fragment of the k-step
+        if constexpr (QSM) {
+          const uint8_t* qr =
+              q16_sm + r0 * q_row_bytes(D) + (kk * 16 + t4 * 2) * 2;
+          qa[0] = *reinterpret_cast<const uint32_t*>(qr);
+          qa[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * q_row_bytes(D));
+          qa[2] = *reinterpret_cast<const uint32_t*>(qr + 16);
+          qa[3] = *reinterpret_cast<const uint32_t*>(
+              qr + 8 * q_row_bytes(D) + 16);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const uint8_t* kr =
               kb + (nt * 8 + g) * ROWB + (kk * 16 + t4 * 2) * T::BYTES;
-          mma16816<T::F16>(s[nt], qf[kk], T::pair(kr),
+          mma16816<T::F16>(s[nt], qa, T::pair(kr),
                            T::pair(kr + 8 * T::BYTES));
         }
       }
@@ -569,8 +645,9 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
 
-      // O += P V (p * v_scale when quantized), V read down its rows.
-      const uint8_t* vb = vbuf(bb) + c0 * ROWB;
+      // O += P V (p * v_scale when quantized), V read down its rows (the
+      // warp's columns from col0).
+      const uint8_t* vb = vbuf(bb) + c0 * ROWB + col0 * T::BYTES;
 #pragma unroll
       for (int j = 0; j < SW / 16; ++j) {
         float p0[4], p1[4];
@@ -604,21 +681,23 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();  // the tiles are dead: the partials take their place
 
   // Each warp's partial (m, l, unnormalised O) of its rows and slice ...
+  // (CS > 1: the warps' columns of one partial, m and l from warp 0)
   if constexpr (T::SCALAR) {
     if (has_rows)
-      fw.write(po + warp * 16 * D, pm + warp * 16, pl + warp * 16, lane);
+      fw.write(po + wr * 16 * D, pm + wr * 16, pl + wr * 16, lane, col0,
+               cs == 0);
   } else if (has_rows) {
-    float* pw = po + warp * 16 * D;
+    float* pw = po + wr * 16 * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = g + 8 * r;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<float2*>(pw + row * D + dt * 8 + t4 * 2) =
+        *reinterpret_cast<float2*>(pw + row * D + col0 + dt * 8 + t4 * 2) =
             make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
-      if (t4 == 0) {
-        pm[warp * 16 + row] = m[r];
-        pl[warp * 16 + row] = l[r];
+      if (t4 == 0 && cs == 0) {
+        pm[wr * 16 + row] = m[r];
+        pl[wr * 16 + row] = l[r];
       }
     }
   }
@@ -717,7 +796,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
       (int)smem);  // once per instance
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int G = H_q / H_kv;
-  const int n_pieces = (G + ROWS - 1) / ROWS;
+  const int n_pieces = (G + cta_rows<D>() - 1) / cta_rows<D>();
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, B * H_kv * n_pieces, 1);
   cfg.blockDim = dim3(NTHREADS, 1, 1);
@@ -741,14 +820,17 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 }
 
 // The slices of a tile (SL) by the group's rows: 4, 2 or 1 for up to 16,
-// 32 or 64 rows; fp32 storage's slices at least 32 slots (SLMAX).
+// 32 or 64 rows; fp32 storage's slices at least 32 slots (SLMAX); 1 where
+// the warps split O's columns.
 template <class T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const State& st, const void* s_aux,
              void* out, int B, int H_q, int H_kv, int S_total, int sink_cap,
              int window, int Dt, int cluster, float scale,
              cudaStream_t stream) {
-  constexpr int SLMAX = T::SCALAR ? tile_slots<T, D>() / 32 : 4;
+  constexpr int SLMAX = col_slices<D>() > 1 ? 1
+                        : T::SCALAR           ? tile_slots<T, D>() / 32
+                                              : 4;
   const int rows = min(H_q / H_kv, ROWS);  // of the largest piece
   if (rows <= 16)
     return launch<T, D, (SLMAX < 4 ? SLMAX : 4)>(
@@ -776,7 +858,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
       (cluster & (cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   // whole 16-byte cache rows, and q rows of whole 4 elements
-  if (D <= 0 || D > 256 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
+  if (D <= 0 || D > 512 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S_total <= 0) return 0;
   const State st{static_cast<const int*>(st_sink_len),
@@ -791,7 +873,11 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
     return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
                             H_q, H_kv, S_total, sink_cap, window, D, cluster,
                             scale, s);
-  return launch_d<T, 256>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
+  if (D <= 256)
+    return launch_d<T, 256>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
+                            H_q, H_kv, S_total, sink_cap, window, D, cluster,
+                            scale, s);
+  return launch_d<T, 512>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                           H_kv, S_total, sink_cap, window, D, cluster, scale,
                           s);
 }
@@ -800,11 +886,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
 
 // q [B*H_q, D] (bf16; fp16 and fp32 for those caches); k/v [B*H_kv,
 // S_total, D] (bf16, fp16, fp32, or int8 codes with k_scale/v_scale
-// [B*H_kv, S_total] fp32; null otherwise), D <= 256 with whole 16-byte
+// [B*H_kv, S_total] fp32; null otherwise), D <= 512 with whole 16-byte
 // rows; the state: three int32 arrays read at b * st_stride, or, where the
 // pointers are null, the ints sink_len, window_len, write_pos for every
 // sequence; s_aux [H_q] fp32 or null; out [B*H_q, D] like q. `cluster`
-// CTAs (1, 2, 4 or 8) per (b, kv head, 64-row piece of the group).
+// CTAs (1, 2, 4 or 8) per (b, kv head, 64-row piece of the group; 16-row
+// at D > 256).
 #define SINK_DECODE_ENTRY(NAME, TYPE)                                        \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* k_scale, const void* v_scale,              \

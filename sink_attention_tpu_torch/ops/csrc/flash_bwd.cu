@@ -18,10 +18,11 @@
 // range of 64-row q blocks per 128-key block; both decided per block on
 // the host, so negative and chunked offsets are right, and both take
 // their work items longest first from a host order table. Coverage as the
-// forward's (flash_fwd.cu): D <= 256, D % 8 == 0, in the instance D_i =
-// 64, 128 or 256 (dQ at 32-key tiles there, dK/dV at 64-key items whose
-// columns the two consumers split); bf16, fp16, and fp32 read as bf16
-// with fp32 gradients.
+// forward's (flash_fwd.cu): D <= 512, D % 8 == 0, in the instance D_i =
+// 64, 128, 256 or 512 (dQ at 32-key tiles there, and at 512 in 64-row
+// items whose columns the consumers split; dK/dV at 64-key items whose
+// columns the two consumers split, at 512 in two passes over 32-row q
+// tiles); bf16, fp16, and fp32 read as bf16 with fp32 gradients.
 
 #include "hopper_bwd.cuh"
 #include "hopper_dq.cuh"

@@ -19,13 +19,14 @@
 //
 // The entry point launches the template over SinkWindowMask (hopper.cuh's
 // launch_fwd, shared with the packed forward), which builds the three TMA
-// descriptors per call. Coverage: any head dim D <= 256 with D % 8 == 0
+// descriptors per call. Coverage: any head dim D <= 512 with D % 8 == 0
 // (the host pads any other D to the next multiple of 8), run by the
-// instance of D_i = 64, 128 or 256 (hopper.cuh's instance_d): at D = 80
-// the 128 instance's tensor cores do 128 / 80 = 1.6x the products the
-// bound counts; the 256 instance walks 64-key tiles (hopper.cuh's
-// FwdPlan); bf16 and fp16 inputs, and fp32 (rounded to bf16 by the host,
-// O written as fp32).
+// instance of D_i = 64, 128, 256 or 512 (hopper.cuh's instance_d): at D =
+// 80 the 128 instance's tensor cores do 128 / 80 = 1.6x the products the
+// bound counts; the 256 instance walks 64-key tiles, the 512 instance
+// 32-key tiles in 64-row items whose O columns its consumers split
+// (hopper.cuh's FwdPlan); bf16 and fp16 inputs, and fp32 (rounded to bf16
+// by the host, O written as fp32).
 
 #include "hopper.cuh"
 
@@ -55,5 +56,5 @@ extern "C" int sink_fwd(const void* q, const void* k, const void* v,
 extern "C" int sink_fwd_block_m() { return FWD_BM; }
 extern "C" int sink_fwd_block_n(int D) {
   using namespace sinkattn::hopper;
-  return instance_d(D) == 256 ? FwdPlan<256>::BN : FWD_BN;
+  return fwd_bn(instance_d(D));
 }

@@ -38,9 +38,9 @@
 //  * Q, K and V land in shared memory in 128-byte-swizzled boxes of 64
 //    columns (a D = 128 row is two boxes); TMA zero-fills rows past N_q
 //    and N_kv, and the columns past the tensors' head dim Dt where the
-//    instance's D is larger (any Dt <= 256 with Dt % 8 == 0 runs in the
-//    instance of 64, 128 or 256: instance_d), so the products over those
-//    zero columns add nothing and only Dt columns are written;
+//    instance's D is larger (any Dt <= 512 with Dt % 8 == 0 runs in the
+//    instance of 64, 128, 256 or 512: instance_d), so the products over
+//    those zero columns add nothing and only Dt columns are written;
 //  * the instance of D = 256 has its own tile plan (FwdPlan): two Q
 //    buffers of 128 x 256 would take 128 KB and a 128-key K/V stage 128
 //    KB more, past the 227 KB a block has; it keeps one Q buffer (64 KB)
@@ -50,6 +50,21 @@
 //    P V is two m64n128k16 products a 16-key step, one per half of V's
 //    columns (rs_mma). The next item's Q load waits for this item's end
 //    (one buffer): the items are long (a W = 4096 item walks 64 tiles);
+//  * the instance of D = 512 (FwdPlan) splits O's columns, not the rows:
+//    O of 64 rows x 512 would take 256 fp32 registers a thread, and a
+//    128 x 512 Q tile 128 KB. An item is 64 query rows (one half of a
+//    128-row q block of the host's tables: the halves are items of their
+//    own, so a half walks its block's KV range and skips the tiles its
+//    rows' hull leaves out); both consumers compute the same S = Q K^T of
+//    the item's 64 rows (depth 512) and the same softmax (bit for bit: the
+//    same products in the same order), and consumer c accumulates O's
+//    columns [256 c, 256 c + 256) only (128 registers, as at D = 256),
+//    reading those columns of V. S is computed twice: 6 D FLOPs a pair
+//    against the 4 D the bound counts. Shared memory: one 64 x 512 Q
+//    buffer (64 KB) and two stages of 32-key K and V (2 x 64 KB): 192 KB.
+//    The epilogue stages each consumer's columns through its own boxes of
+//    the Q buffer after both consumers' last S products (a barrier of the
+//    two warpgroups), since each read every box;
 //  * S = Q K^T is wgmma m64n128k16 with both operands in shared memory;
 //    the online softmax runs on the accumulators in the exp2 domain (the
 //    scale folded into the exponent's FMA, ex2.approx), seeded with
@@ -390,14 +405,15 @@ struct IoF32 {
 // 2 fp32 (inputs rounded to bf16 by the host, fp32 outputs).
 enum DtypeCode { kDtypeBf16 = 0, kDtypeF16 = 1, kDtypeF32 = 2 };
 
-// The instance head dim D_i of a head dim D: the smallest of 64, 128 and
-// 256 that holds it; 0 (refused) for D > 256 or D % 8 != 0 (TMA takes a
-// row stride of whole 16 bytes: the host pads such a D).
+// The instance head dim D_i of a head dim D: the smallest of 64, 128,
+// 256 and 512 that holds it; 0 (refused) for D > 512 or D % 8 != 0 (TMA
+// takes a row stride of whole 16 bytes: the host pads such a D).
 __host__ __device__ constexpr int instance_d(int D) {
   return (D <= 0 || D % 8 != 0) ? 0
          : D <= 64              ? 64
          : D <= 128             ? 128
          : D <= 256             ? 256
+         : D <= 512             ? 512
                                 : 0;
 }
 
@@ -473,21 +489,35 @@ inline int sm_count() {
   return n;
 }
 
-// The forward's tile plan at instance head dim D: keys per K/V tile and
-// Q buffers. 128 keys and two Q buffers at D = 64 and 128; at D = 256
-// (see the header) 64 keys and one Q buffer, so that two K/V stages fit.
+// The forward's tile plan at instance head dim D: keys per K/V tile, Q
+// buffers, query rows per item and whether the consumers split O's
+// columns. 128 keys, two Q buffers and 128-row items at D = 64 and 128;
+// at D = 256 (see the header) 64 keys and one Q buffer, so that two K/V
+// stages fit; at D = 512 32 keys, one Q buffer and 64-row items (halves of
+// the host's 128-row q blocks) whose O columns the consumers split.
 template <int D>
 struct FwdPlan {
-  static constexpr int BN = D == 256 ? 64 : FWD_BN;
-  static constexpr int QB = D == 256 ? 1 : 2;
+  static constexpr int BN = D == 512 ? 32 : D == 256 ? 64 : FWD_BN;
+  static constexpr int QB = D >= 256 ? 1 : 2;
+  static constexpr bool SPLIT = D == 512;
+  static constexpr int BM = SPLIT ? 64 : FWD_BM;  // query rows per item
+  static constexpr int HALVES = FWD_BM / BM;      // items per q block
 };
+
+// Keys per K/V tile of the instance of head dim D (the host keys its
+// tables on it).
+__host__ __device__ constexpr int fwd_bn(int D) {
+  return D == 512   ? FwdPlan<512>::BN
+         : D == 256 ? FwdPlan<256>::BN
+                    : FwdPlan<128>::BN;
+}
 
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 template <int D, int STAGES>
 struct FwdSmem {
   static constexpr int QB = FwdPlan<D>::QB;           // Q buffers
   static constexpr int BOXES = D / 64;                // 64-column boxes a row
-  static constexpr int Q_BYTES = FWD_BM * D * 2;      // one Q tile
+  static constexpr int Q_BYTES = FwdPlan<D>::BM * D * 2;  // one Q tile
   static constexpr int KV_BYTES = FwdPlan<D>::BN * D * 2;  // one K or V tile
   static constexpr int Q_OFF = 0;                     // QB Q tiles
   static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
@@ -726,9 +756,10 @@ __device__ __forceinline__ int snake_item(int i, int cta, int G) {
   return i * G + ((i & 1) ? G - 1 - cta : cta);
 }
 
-// A work item: one 128-row q block of one (batch, query head), and the KV
-// blocks it visits (the sink range, then the window range) from the
-// policy's table, longest first. Where the policy keeps one table for every
+// A work item: one 128-row q block of one (batch, query head) (at D = 512
+// each 64-row half of it is an item: FwdPlan), and the KV blocks it visits
+// (the sink range, then the window range) from the policy's table,
+// longest first. Where the policy keeps one table for every
 // batch row (SinkWindowMask) the order is implicit: the last q blocks,
 // across all heads, then the earlier. Where it keeps a table per batch row
 // (PackedMask) unit w / H_q of the host's order table is a (b, block) pair
@@ -739,6 +770,7 @@ __device__ __forceinline__ int snake_item(int i, int cta, int G) {
 // (with the seed of m), so their item starts wait on no global load.
 struct FwdItem {
   int b, qb, bh, h, kvh, sb0, wb0, n_sink_blocks, n_blocks;
+  int row0;  // the item's first query row (read back from shared memory)
   template <class Mask>
   __device__ __forceinline__ FwdItem(int w, const int* order, int n_qb,
                                      int B, int H_q, int H_kv,
@@ -762,8 +794,10 @@ struct FwdItem {
     wb0 = rg[2];
     n_sink_blocks = max(rg[1] - sb0, 0);
     n_blocks = n_sink_blocks + max(rg[3] - wb0, 0);
+    row0 = qb * FWD_BM;
   }
-  __device__ __forceinline__ void store(int* info, float m0) const {
+  __device__ __forceinline__ void store(int* info, float m0,
+                                        int first_row) const {
     info[0] = qb;
     info[1] = bh;
     info[2] = sb0;
@@ -771,10 +805,12 @@ struct FwdItem {
     info[4] = n_sink_blocks;
     info[5] = n_blocks;
     info[6] = __float_as_int(m0);
+    info[7] = first_row;
   }
   __device__ __forceinline__ explicit FwdItem(const int* info)
       : b(0), qb(info[0]), bh(info[1]), h(0), kvh(0), sb0(info[2]),
-        wb0(info[3]), n_sink_blocks(info[4]), n_blocks(info[5]) {}
+        wb0(info[3]), n_sink_blocks(info[4]), n_blocks(info[5]),
+        row0(info[7]) {}
   __device__ __forceinline__ int block(int t) const {
     return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
   }
@@ -784,8 +820,9 @@ struct FwdItem {
 // the producer runs ahead into the next item (its Q into the other Q
 // buffer, its K/V tiles into the ring) while the consumers finish this
 // one, so one item's epilogue overlaps the next one's loads (with one Q
-// buffer, FwdPlan at D = 256, the next item starts once this one's Q
-// buffer is released). `order` is
+// buffer, FwdPlan at D = 256 and 512, the next item starts once this
+// one's Q buffer is released; at D = 512 work item w is half w % 2 of the
+// q block of unit w / 2). `order` is
 // the host's order table where Mask::kBatchTables, else unused. The
 // consumers' tile step is the policy `softmax` (FwdSoftmax: the forward).
 // D is the instance's head dim, Dt <= D the tensors' (their row length):
@@ -805,7 +842,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   using L = FwdSmem<D, STAGES>;
   constexpr int BN = FwdPlan<D>::BN;  // keys per K/V tile
   constexpr int QB = L::QB;           // Q buffers
-  constexpr int OR = D / 2;       // O accumulators a thread
+  constexpr bool SPLIT = FwdPlan<D>::SPLIT;  // consumers split O's columns
+  constexpr int BM = FwdPlan<D>::BM;         // query rows per item
+  constexpr int HALVES = FwdPlan<D>::HALVES;  // items per q block
+  constexpr int DC = SPLIT ? D / 2 : D;      // a consumer's O columns
+  constexpr int OR = DC / 2;                 // O accumulators a thread
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -817,7 +858,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [Q buffer][8]
 
   const int n_qb = (N_q + FWD_BM - 1) / FWD_BM;
-  const int n_work = n_qb * B * H_q;
+  const int n_work = n_qb * B * H_q * HALVES;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < QB; ++i) {
@@ -843,16 +884,18 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       Ring<STAGES> ring;
       int it = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-        const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
+        const FwdItem item(w / HALVES, order, n_qb, B, H_q, H_kv, mask);
+        const int row0 = item.row0 + (w % HALVES) * BM;
         const int qs = buf_of<QB>(it);
         mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         item.store(info + qs * 8,
-                   s_aux != nullptr ? s_aux[item.h] * LOG2E : -INFINITY);
+                   s_aux != nullptr ? s_aux[item.h] * LOG2E : -INFINITY,
+                   row0);
         mbar_expect_tx(q_full + qs, L::Q_BYTES);  // releases the info too
 #pragma unroll
         for (int x = 0; x < L::BOXES; ++x)
-          tma_load_3d(smem + L::Q_OFF + qs * L::Q_BYTES + x * FWD_BM * 128,
-                      &tm_q, q_full + qs, x * 64, item.qb * FWD_BM, item.bh);
+          tma_load_3d(smem + L::Q_OFF + qs * L::Q_BYTES + x * BM * 128,
+                      &tm_q, q_full + qs, x * 64, row0, item.bh);
         for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
           const int s = ring.s;
           mbar_wait(empty + s, ring.ph ^ 1);
@@ -873,25 +916,32 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
       // ---- warp 1: the item's rows' runs of visible keys ----
       int it = 0;
       for (int w = blockIdx.x; w < n_work; w += gridDim.x, ++it) {
-        const FwdItem item(w, order, n_qb, B, H_q, H_kv, mask);
+        const FwdItem item(w / HALVES, order, n_qb, B, H_q, H_kv, mask);
         const int qs = buf_of<QB>(it);
         mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         RowSpan* span_sm =
             reinterpret_cast<RowSpan*>(smem + L::ROW_OFF + qs * L::ROWS_BYTES);
-        stage_row_spans(mask, item.b, item.qb * FWD_BM, N_q, lane, span_sm,
+        // (at D = 512 the item's 64 rows and the 64 after them: hull 0 is
+        // the item's)
+        stage_row_spans(mask, item.b, item.row0 + (w % HALVES) * BM, N_q,
+                        lane, span_sm,
                         reinterpret_cast<int*>(span_sm + FWD_BM));
         __syncwarp();
         mbar_arrive(q_full + qs);  // release: the runs are visible
       }
     }
   } else {
-    // ---- consumers: warpgroup c owns rows [64 c, 64 c + 64) of a block ----
+    // ---- consumers: warpgroup c owns rows [64 c, 64 c + 64) of a block,
+    // or (SPLIT) O's columns [DC c, DC c + DC) of the item's 64 rows ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int c = wg - 1;
     const int ct = threadIdx.x - 128 * wg;
     const int lane = ct & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const int r_loc = c * 64 + (ct >> 5) * 16 + g;  // rows r_loc, r_loc + 8
+    const int rw0 = SPLIT ? 0 : c * 64;  // the consumer's first row
+    const int r_loc = rw0 + (ct >> 5) * 16 + g;  // rows r_loc, r_loc + 8
+    const int hc = SPLIT ? 0 : c;  // the hull of the consumer's rows
+    const int c0 = SPLIT ? c * DC : 0;  // its first O column
     Ring<STAGES> ring;
     int it = 0;
     const bool use_aux = s_aux != nullptr;
@@ -903,7 +953,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
           smem + L::ROW_OFF + qs * L::ROWS_BYTES);
       const int* hull_sm = reinterpret_cast<const int*>(span_sm + FWD_BM);
       const RowSpan rows[2] = {span_sm[r_loc], span_sm[r_loc + 8]};
-      const int h_lo = hull_sm[2 * c], h_hi = hull_sm[2 * c + 1];
+      const int h_lo = hull_sm[2 * hc], h_hi = hull_sm[2 * hc + 1];
       float m[2], l[2];
       m[0] = m[1] = __int_as_float(info[qs * 8 + 6]);
       l[0] = l[1] = use_aux ? 1.f : 0.f;
@@ -913,7 +963,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 
       softmax.template begin_item<L::BOXES>(smem + L::Q_OFF + qs * L::Q_BYTES,
                                             c, ct);
-      const uint8_t* qsm = smem + L::Q_OFF + qs * L::Q_BYTES + c * 64 * 128;
+      const uint8_t* qsm = smem + L::Q_OFF + qs * L::Q_BYTES + rw0 * 128;
       for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
         const int s = ring.s;
         const uint8_t* ks = smem + L::K_OFF + s * L::KV_BYTES;
@@ -933,7 +983,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
           SsMma<BN / 2, IO::kF16>::run(
-              sacc, desc_sw128(qsm + x * FWD_BM * 128 + off, 16, 1024),
+              sacc, desc_sw128(qsm + x * BM * 128 + off, 16, 1024),
               desc_sw128(ks + x * BN * 128 + off, 16, 1024), kk > 0);
         }
         wgmma_commit();
@@ -943,13 +993,15 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         // The policy's mask and softmax; P as A fragments.
         uint32_t pa[BN / 16][4];
         typename Softmax::Tile tile;
-        softmax.tile(mask, sacc, oacc, pa, m, l, rows, col0, item.qb * FWD_BM,
+        softmax.tile(mask, sacc, oacc, pa, m, l, rows, col0, item.row0,
                      r_loc, t4, scale_log2, smem + L::OWN_OFF, tile);
         mbar_wait(v_full + s, ring.ph);
         wgmma_fence();
 #pragma unroll
         for (int jj = 0; jj < BN / 16; ++jj)
-          rs_mma<OR, IO::kF16>(oacc, pa[jj], vs + jj * 16 * 128, BN * 128);
+          rs_mma<OR, IO::kF16>(oacc, pa[jj],
+                               vs + (c0 / 64) * BN * 128 + jj * 16 * 128,
+                               BN * 128);
         softmax.sum(pa, smem + L::OWN_OFF, tile);
         wgmma_commit();
         wgmma_wait<0>();
@@ -958,23 +1010,26 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
       }
 
-      // O goes out through this warpgroup's rows of the item's Q buffer
-      // (its S products, the last readers, are done), in Q's swizzled
+      // O goes out through this warpgroup's rows (SPLIT: its column
+      // boxes) of the item's Q buffer (its S products, the last readers,
+      // are done; SPLIT: once both warpgroups' are), in Q's swizzled
       // layout, then as 16-byte stores of whole rows (Dt / 8 chunks a
       // row); as fp32 (IoF32), straight from the accumulators as 8-byte
       // stores of column pairs.
       uint8_t* qbuf = smem + L::Q_OFF + qs * L::Q_BYTES;
+      if constexpr (SPLIT && !IO::kOut32)
+        named_sync(3, 256);  // both consumers' products have read Q
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int rb = r_loc + r * 8;  // the row within the q block
-        const int row = item.qb * FWD_BM + rb;
+        const int rb = r_loc + r * 8;  // the row within the item
+        const int row = item.row0 + rb;
         const float inv = softmax.inv_l(l[r]);
         if constexpr (IO::kOut32) {
           float* orow =
               static_cast<float*>(o) + ((size_t)item.bh * N_q + row) * Dt;
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj) {
-            const int col = jj * 8 + t4 * 2;
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int col = c0 + jj * 8 + t4 * 2;
             if (row < N_q && col < Dt)
               *reinterpret_cast<float2*>(orow + col) =
                   make_float2(oacc[jj * 4 + 2 * r] * inv,
@@ -982,33 +1037,35 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
           }
         } else {
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj)
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int jg = c0 / 8 + jj;  // the row's 16-byte chunk
             *reinterpret_cast<uint32_t*>(
-                qbuf + (jj / 8) * FWD_BM * 128 + rb * 128 +
-                (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
+                qbuf + (jg / 8) * BM * 128 + rb * 128 +
+                (((jg % 8) ^ (rb & 7)) * 16) + t4 * 4) =
                 pack2<IO::kF16>(oacc[jj * 4 + 2 * r] * inv,
                                 oacc[jj * 4 + 2 * r + 1] * inv);
+          }
         }
-        if (Softmax::kLse && t4 == 0 && row < N_q)
+        if (Softmax::kLse && (!SPLIT || c == 0) && t4 == 0 && row < N_q)
           lse[(size_t)item.bh * N_q + row] =
               l[r] == 0.f ? -INFINITY : m[r] * LN2 + logf(l[r]);
       }
       if constexpr (!IO::kOut32) {
         named_sync(1 + c, 128);  // the warpgroup's rows are staged
-        // the instance's D / 8 16-byte chunks a row, those past Dt not
+        // the consumer's DC / 8 16-byte chunks a row, those past Dt not
         // stored (a constant count: a second loop over Dt / 8 chunks for
         // a narrower Dt made the D = 64 forward 4-6% slower at the main
         // path's shapes, though it never ran there)
-        constexpr int CH = D / 8;
+        constexpr int CH = DC / 8;
         uint16_t* o16 = static_cast<uint16_t*>(o);
         for (int i = ct; i < 64 * CH; i += 128) {
-          const int rb = c * 64 + i / CH, ch = i % CH;
-          const int row = item.qb * FWD_BM + rb;
+          const int rb = rw0 + i / CH, ch = c0 / 8 + i % CH;
+          const int row = item.row0 + rb;
           if (row < N_q && ch * 8 < Dt)
             *reinterpret_cast<uint4*>(
                 o16 + ((size_t)item.bh * N_q + row) * Dt + ch * 8) =
                 *reinterpret_cast<const uint4*>(
-                    qbuf + (ch / 8) * FWD_BM * 128 + rb * 128 +
+                    qbuf + (ch / 8) * BM * 128 + rb * 128 +
                     (((ch % 8) ^ (rb & 7)) * 16));
         }
       }
@@ -1027,9 +1084,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
 // Mask::kBatchTables (see FwdItem), else null; o like q (fp32 for IoF32);
 // lse [B*H_q, N_q] fp32 (unused where the softmax policy writes none). The
 // three TMA descriptors are built per call: rows past N and columns past
-// Dt read as zeros, boxes of 64 columns x 128 rows (Q) or BN rows (K, V:
-// FwdPlan) under the 128-byte swizzle. Returns cudaGetLastError() of the
-// launch.
+// Dt read as zeros, boxes of 64 columns x FwdPlan's BM rows (Q) or BN
+// rows (K, V) under the 128-byte swizzle. Returns cudaGetLastError() of
+// the launch.
 template <int D, int STAGES, class Mask, class Softmax, class IO>
 int launch_fwd_d(const void* q, const void* k, const void* v,
                  const void* s_aux, const void* order, void* o, void* lse,
@@ -1043,11 +1100,12 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, B * H_q, N_q, Dt, FWD_BM, IO::kF16) ||
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, FwdPlan<D>::BM, IO::kF16) ||
       !make_map(&tk, k, B * H_kv, N_kv, Dt, FwdPlan<D>::BN, IO::kF16) ||
       !make_map(&tv, v, B * H_kv, N_kv, Dt, FwdPlan<D>::BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q;
+  const long n_work =
+      (long)((N_q + FWD_BM - 1) / FWD_BM) * B * H_q * FwdPlan<D>::HALVES;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   fwd_wgmma_kernel<D, STAGES, Mask, Softmax, IO>
@@ -1058,7 +1116,7 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// The forward over a mask policy at head dim D (any D <= 256 with D % 8
+// The forward over a mask policy at head dim D (any D <= 512 with D % 8
 // == 0, run by the instance of instance_d(D)) in the element types IO.
 template <class Mask, class Softmax = FwdSoftmax<>, class IO = IoBf16>
 int launch_fwd(const void* q, const void* k, const void* v,
@@ -1080,6 +1138,10 @@ int launch_fwd(const void* q, const void* k, const void* v,
         mask, softmax, st);
   if (instance_d(D) == 256)
     return launch_fwd_d<256, 2, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  if (instance_d(D) == 512)
+    return launch_fwd_d<512, 2, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);
   return (int)cudaErrorInvalidValue;

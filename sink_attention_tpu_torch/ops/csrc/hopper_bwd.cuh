@@ -62,7 +62,7 @@
 //    this warpgroup's products read them) as 16-byte stores of whole rows,
 //    or as fp32 (IoF32) straight from the accumulators; the buffers are
 //    released to the producer after that;
-//  * any head dim D <= 256 (D % 8 == 0) runs in the instance D_i =
+//  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
 //    instance_d(D): TMA reads the columns past D of K, V, Q and dO as
 //    zeros, so the accumulators' columns past D are zeros, and only D
 //    columns are written (each key's whole row: the GQA group's sum is in
@@ -79,7 +79,19 @@
 //    64-row Q and dO (2 x 64 KB): 192 KB. The epilogue stages each
 //    consumer's columns through its own boxes of the K/V buffer after both
 //    consumers' last products (a barrier of the two warpgroups), since
-//    each read every box.
+//    each read every box;
+//  * the instance of D = 512 splits the columns too (256 a consumer), and
+//    walks each item's q tiles twice (DkdvPlan's PASSES): dK and dV of 64
+//    keys x 256 columns would again take 256 registers a thread, so the
+//    first pass accumulates dV (S^T, P^T, dV += P^T dO) and writes it out,
+//    the second dK (S^T and dP^T again, dS^T, dK += dS^T Q) in the same
+//    128 registers. Its q tiles are 32 rows (halves of the host's 64-row q
+//    blocks): K and V of 64 keys x 512 take 128 KB, one stage of 32-row Q
+//    and dO 64 KB: 192 KB. Both consumers compute S^T in both passes and
+//    dP^T in the second: 20 D FLOPs a pair against the 8 D the bound
+//    counts. Each pass's accumulators go out straight from the registers
+//    (4-byte stores of column pairs; the K and V buffers are read until
+//    the item's last tile).
 //
 // Replaces the Pallas TPU kernels `_dkdv_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdkdv_kernel` of
@@ -102,34 +114,40 @@
 namespace sinkattn {
 namespace hopper {
 
-constexpr int DKDV_BM = 64;    // queries per tile
+constexpr int DKDV_BM = 64;    // queries per q block (DkdvPlan's TM a tile)
 constexpr int DKDV_BN = 128;   // keys per item, 64 per consumer
 constexpr int DKDV_THREADS = 384;
 
-// The tile plan at instance head dim D: keys per item, K/V buffers, and
-// whether the consumers split the item's columns (D = 256) rather than its
-// keys (see the header).
+// The tile plan at instance head dim D: keys per item, K/V buffers,
+// whether the consumers split the item's columns (D = 256 and 512) rather
+// than its keys, query rows per q tile, and passes over an item's tiles
+// (D = 512: dV, then dK; see the header).
 template <int D>
 struct DkdvPlan {
-  static constexpr bool SPLIT = D == 256;
+  static constexpr bool SPLIT = D >= 256;
   static constexpr int BN = SPLIT ? 64 : DKDV_BN;  // keys per item
   static constexpr int KB = SPLIT ? 1 : 2;         // K/V buffers
+  static constexpr int TM = D == 512 ? 32 : DKDV_BM;  // rows per q tile
+  static constexpr int PASSES = D == 512 ? 2 : 1;
 };
 
 // Keys per work item at instance head dim D (the host's table unit).
 __host__ __device__ constexpr int dkdv_bn(int D) {
-  return D == 256 ? DkdvPlan<256>::BN : DKDV_BN;
+  return D >= 256 ? DkdvPlan<256>::BN : DKDV_BN;
 }
 
 // setmaxnreg's split of the registers (producer warpgroup, consumer
 // warpgroups; 128 p + 256 c <= 65536): at D = 128 (and D = 256, whose
 // consumers hold half the columns) the consumers' dK and dV accumulators
 // take 128 registers a thread, and 24 keep the producer free of spills;
-// at D = 64 the producer's ring of three stages wants more.
+// at D = 64 the producer's ring of three stages wants more, and at D =
+// 512 its walk of the q tiles (two passes of two tiles a q block) spilled
+// 4-12 bytes at 24, while the consumers hold one pass's 128 accumulators.
 template <int D>
 struct DkdvRegs {
-  static constexpr int PRODUCER = D >= 128 ? 24 : 40;
-  static constexpr int CONSUMER = D >= 128 ? 240 : 232;
+  static constexpr bool WIDE = D == 128 || D == 256;
+  static constexpr int PRODUCER = WIDE ? 24 : 40;
+  static constexpr int CONSUMER = WIDE ? 240 : 232;
 };
 
 // Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
@@ -138,7 +156,7 @@ struct DkdvSmem {
   static constexpr int KB = DkdvPlan<D>::KB;         // K/V buffers
   static constexpr int BOXES = D / 64;               // 64-column boxes a row
   static constexpr int KV_BYTES = DkdvPlan<D>::BN * D * 2;  // one K or V tile
-  static constexpr int QT_BYTES = DKDV_BM * D * 2;   // one Q or dO tile
+  static constexpr int QT_BYTES = DkdvPlan<D>::TM * D * 2;  // one Q or dO tile
   static constexpr int K_OFF = 0;                    // KB K tiles
   static constexpr int V_OFF = K_OFF + KB * KV_BYTES;  // KB V tiles
   static constexpr int Q_OFF = V_OFF + KB * KV_BYTES;
@@ -191,8 +209,42 @@ struct DkdvItem {
         n_qb(info[5]) {}
 };
 
+// A consumer's accumulators of keys r_key and r_key + 8 of `item` and
+// its DC columns from c0, times mul, straight from the registers into out
+// [B*H_kv, N_kv, Dt] as fp32 (IO::kOut32: 8-byte stores) or 16-bit pairs
+// (4-byte stores); keys past N_kv and columns past Dt are not written.
+template <class IO, int DC, int OR>
+__device__ __forceinline__ void store_key_rows(void* out,
+                                               const float (&acc)[OR],
+                                               float mul,
+                                               const DkdvItem& item, int BN,
+                                               int N_kv, int Dt, int r_key,
+                                               int c0, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = item.kb * BN + r_key + 8 * r;
+    if (row >= N_kv) continue;
+    const size_t o = ((size_t)item.bkh * N_kv + row) * Dt;
+#pragma unroll
+    for (int jj = 0; jj < DC / 8; ++jj) {
+      const int col = c0 + jj * 8 + t4 * 2;
+      if (col >= Dt) continue;
+      const float x0 = acc[jj * 4 + 2 * r] * mul;
+      const float x1 = acc[jj * 4 + 2 * r + 1] * mul;
+      if constexpr (IO::kOut32)
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + o + col) =
+            make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<uint16_t*>(out) + o +
+                                     col) = pack2<IO::kF16>(x0, x1);
+    }
+  }
+}
+
 // D is the instance's head dim, Dt <= D the tensors' (see
-// fwd_wgmma_kernel); IO the element types.
+// fwd_wgmma_kernel); IO the element types. An item's q tiles are walked
+// PASSES times, each pass by query head of the group, 64-row q block of
+// the item's range and TM-row tile of the block.
 template <int D, int STAGES, class Mask, class IO>
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
     dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -211,6 +263,9 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   constexpr int KB = L::KB;                   // K/V buffers
   constexpr int DC = SPLIT ? D / 2 : D;       // a consumer's columns
   constexpr int OR = DC / 2;  // dK or dV accumulators a thread
+  constexpr int TM = DkdvPlan<D>::TM;          // query rows per q tile
+  constexpr int SUB = DKDV_BM / TM;            // q tiles per q block
+  constexpr int PASSES = DkdvPlan<D>::PASSES;  // walks of an item's tiles
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -263,24 +318,23 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                       &tm_v, kv_full + kbuf, x * 64, item.kb * BN,
                       item.bkh);
         }
-        const int n_tiles = group * item.n_qb;
-        int bh = item.head0, qb = item.qb0;  // tiles: q block fastest
+        const int n_tiles = PASSES * group * item.n_qb * SUB;
+        // tiles: q tile fastest, then the head, then the pass
+        int bh = item.head0, qt = item.qb0 * SUB;
         for (int j = 0; j < n_tiles; ++j, ring.next()) {
           const int s = ring.s;
           mbar_wait(empty + s, ring.ph ^ 1);
-          const int row = qb * DKDV_BM, head = bh;
-          if (++qb == item.qb0 + item.n_qb) {
-            qb = item.qb0;
-            ++bh;
+          const int row = qt * TM, head = bh;
+          if (++qt == (item.qb0 + item.n_qb) * SUB) {
+            qt = item.qb0 * SUB;
+            if (++bh == item.head0 + group && PASSES > 1) bh = item.head0;
           }
           mbar_expect_tx(full + s, 2 * L::QT_BYTES);
 #pragma unroll
           for (int x = 0; x < L::BOXES; ++x) {
-            tma_load_3d(smem + L::Q_OFF + s * L::QT_BYTES +
-                            x * DKDV_BM * 128,
+            tma_load_3d(smem + L::Q_OFF + s * L::QT_BYTES + x * TM * 128,
                         &tm_q, full + s, x * 64, row, head);
-            tma_load_3d(smem + L::DO_OFF + s * L::QT_BYTES +
-                            x * DKDV_BM * 128,
+            tma_load_3d(smem + L::DO_OFF + s * L::QT_BYTES + x * TM * 128,
                         &tm_do, full + s, x * 64, row, head);
           }
         }
@@ -292,21 +346,21 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
         const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
-        const int n_tiles = group * item.n_qb;
-        int bh = item.head0, qb = item.qb0;
+        const int n_tiles = PASSES * group * item.n_qb * SUB;
+        int bh = item.head0, qt = item.qb0 * SUB;
         for (int j = 0; j < n_tiles; ++j, ring.next()) {
           const int s = ring.s;
           mbar_wait(empty + s, ring.ph ^ 1);
           const float* lse_row = lse + (size_t)bh * N_q;
           const float* delta_row = delta + (size_t)bh * N_q;
-          const int row0 = qb * DKDV_BM;
-          if (++qb == item.qb0 + item.n_qb) {
-            qb = item.qb0;
-            ++bh;
+          const int row0 = qt * TM;
+          if (++qt == (item.qb0 + item.n_qb) * SUB) {
+            qt = item.qb0 * SUB;
+            if (++bh == item.head0 + group && PASSES > 1) bh = item.head0;
           }
           float* rs = rows_sm + s * 2 * DKDV_BM;
 #pragma unroll
-          for (int r = lane; r < DKDV_BM; r += 32) {
+          for (int r = lane; r < TM; r += 32) {
             const int row = row0 + r;
             const bool ok = row < N_q;
             rs[r] = ok ? lse_row[row] * LOG2E : INFINITY;
@@ -336,7 +390,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       const int kbuf = buf_of<KB>(it);
       mbar_wait(kv_full + kbuf, buf_phase<KB>(it));
       const DkdvItem item(info + kbuf * 8);
-      const int n_tiles = group * item.n_qb;
+      const int n_tiles = group * item.n_qb * SUB;  // q tiles a pass
 
       // Each key's interval of visible local query rows [lo, lo + n), and
       // the hull of this warpgroup's 64 keys' intervals [w_lo, w_hi).
@@ -367,224 +421,252 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         w_hi = max(w_hi, span_sm[i * 2 + 1]);
       }
 
-      float dk_acc[OR], dv_acc[OR];
-#pragma unroll
-      for (int i = 0; i < OR; ++i) dk_acc[i] = dv_acc[i] = 0.f;
       const uint8_t* ksm = smem + L::K_OFF + kbuf * L::KV_BYTES + k0 * 128;
       const uint8_t* vsm = smem + L::V_OFF + kbuf * L::KV_BYTES + k0 * 128;
 
-      int qb = item.qb0;
-      for (int j = 0; j < n_tiles; ++j, ring.next()) {
-        const int s = ring.s;
-        const int q0 = qb * DKDV_BM;  // the tile's first local query row
-        if (++qb == item.qb0 + item.n_qb) qb = item.qb0;
-        mbar_wait(full + s, ring.ph);
-        if (q0 >= w_hi || q0 + DKDV_BM <= w_lo) {  // no key sees the tile
-          if (ct == 0) mbar_arrive(empty + s);
-          continue;
+      // One pass accumulates dK and dV; with two (D = 512), the first dV
+      // (written out at its end) and the second dK, each in the same
+      // registers (the passes are unrolled: dv_acc is dead in the second).
+      float dk_acc[OR], dv_acc[OR];
+      int qt = item.qb0 * SUB;
+#pragma unroll
+      for (int pass = 0; pass < PASSES; ++pass) {
+        const bool do_dv = PASSES == 1 || pass == 0;
+        const bool do_dk = PASSES == 1 || pass == 1;
+#pragma unroll
+        for (int i = 0; i < OR; ++i) {
+          if (do_dk) dk_acc[i] = 0.f;
+          if (do_dv) dv_acc[i] = 0.f;
         }
-        const uint8_t* qs = smem + L::Q_OFF + s * L::QT_BYTES;
-        const uint8_t* dos = smem + L::DO_OFF + s * L::QT_BYTES;
-        const float* rs = rows_sm + s * 2 * DKDV_BM;
+        for (int j = 0; j < n_tiles; ++j, ring.next()) {
+          const int s = ring.s;
+          const int q0 = qt * TM;  // the tile's first local query row
+          if (++qt == (item.qb0 + item.n_qb) * SUB) qt = item.qb0 * SUB;
+          mbar_wait(full + s, ring.ph);
+          if (q0 >= w_hi || q0 + TM <= w_lo) {  // no key sees the tile
+            if (ct == 0) mbar_arrive(empty + s);
+            continue;
+          }
+          const uint8_t* qs = smem + L::Q_OFF + s * L::QT_BYTES;
+          const uint8_t* dos = smem + L::DO_OFF + s * L::QT_BYTES;
+          const float* rs = rows_sm + s * 2 * DKDV_BM;
 
-        // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries, D / 16
-        // k-steps each, one commit group.
-        float sacc[32], dpacc[32];
-        wgmma_fence();
+          // S^T = K Q^T and dP^T = V dO^T (dP^T where the pass takes dK): 64
+          // keys x TM queries, D / 16 k-steps each, one commit group.
+          float sacc[TM / 2], dpacc[TM / 2];
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n64<IO::kF16>(
-              sacc, desc_sw128(ksm + x * BN * 128 + off, 16, 1024),
-              desc_sw128(qs + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
-        }
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const int x = kk / 4, off = (kk % 4) * 32;
+            SsMma<TM / 2, IO::kF16>::run(
+                sacc, desc_sw128(ksm + x * BN * 128 + off, 16, 1024),
+                desc_sw128(qs + x * TM * 128 + off, 16, 1024), kk > 0);
+          }
+          if (do_dk) {
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const int x = kk / 4, off = (kk % 4) * 32;
-          wgmma_ss_n64<IO::kF16>(
-              dpacc, desc_sw128(vsm + x * BN * 128 + off, 16, 1024),
-              desc_sw128(dos + x * DKDV_BM * 128 + off, 16, 1024), kk > 0);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(sacc);
-        fence_regs(dpacc);
-
-        // P^T: accumulator i = jj * 4 + 2 r + e is key r_key + 8 r, query
-        // q0 + 8 jj + 2 t4 + e; the scale folded into the exponent's FMA.
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float l2 = rs[jj * 8 + 2 * t4 + e];
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-              float& x = sacc[jj * 4 + 2 * r + e];
-              x = fast_exp2(fmaf(x, scale_log2, -l2));
+            for (int kk = 0; kk < D / 16; ++kk) {
+              const int x = kk / 4, off = (kk % 4) * 32;
+              SsMma<TM / 2, IO::kF16>::run(
+                  dpacc, desc_sw128(vsm + x * BN * 128 + off, 16, 1024),
+                  desc_sw128(dos + x * TM * 128 + off, 16, 1024), kk > 0);
             }
           }
-        }
-        // The per-cell mask on partial tiles only (a warp-uniform branch):
-        // p = 0 by a select where the query is outside the key's interval.
-        const bool whole =
-            __all_sync(0xffffffffu, lo[0] <= q0 &&
-                                        q0 + DKDV_BM <= lo[0] + (int)cnt[0] &&
-                                        lo[1] <= q0 &&
-                                        q0 + DKDV_BM <= lo[1] + (int)cnt[1]);
-        if (!whole) {
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(sacc);
+          if (do_dk) fence_regs(dpacc);
+
+          // P^T: accumulator i = jj * 4 + 2 r + e is key r_key + 8 r, query
+          // q0 + 8 jj + 2 t4 + e; the scale folded into the exponent's FMA.
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int base = q0 + 2 * t4 - lo[r];
+          for (int jj = 0; jj < TM / 8; ++jj) {
 #pragma unroll
-            for (int jj = 0; jj < 8; ++jj) {
+            for (int e = 0; e < 2; ++e) {
+              const float l2 = rs[jj * 8 + 2 * t4 + e];
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
+              for (int r = 0; r < 2; ++r) {
                 float& x = sacc[jj * 4 + 2 * r + e];
-                x = (unsigned)(base + jj * 8 + e) < cnt[r] ? x : 0.f;
+                x = fast_exp2(fmaf(x, scale_log2, -l2));
               }
             }
           }
-        }
-        // dS^T = P^T (dP^T - delta); P^T and dS^T as 16-bit A fragments,
-        // for IoF32 each as two bf16 terms (pa + pl, da + dr).
-        constexpr int LO = IO::kOut32 ? DKDV_BM / 16 : 1;
-        uint32_t pa[DKDV_BM / 16][4], da[DKDV_BM / 16][4];
-        uint32_t pl[LO][4], dr[LO][4];
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float dl = rs[DKDV_BM + jj * 8 + 2 * t4 + e];
+          // The per-cell mask on partial tiles only (a warp-uniform branch):
+          // p = 0 by a select where the query is outside the key's interval.
+          const bool whole =
+              __all_sync(0xffffffffu, lo[0] <= q0 &&
+                                          q0 + TM <= lo[0] + (int)cnt[0] &&
+                                          lo[1] <= q0 &&
+                                          q0 + TM <= lo[1] + (int)cnt[1]);
+          if (!whole) {
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
-              const int i = jj * 4 + 2 * r + e;
-              dpacc[i] = sacc[i] * (dpacc[i] - dl);
+              const int base = q0 + 2 * t4 - lo[r];
+#pragma unroll
+              for (int jj = 0; jj < TM / 8; ++jj) {
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  float& x = sacc[jj * 4 + 2 * r + e];
+                  x = (unsigned)(base + jj * 8 + e) < cnt[r] ? x : 0.f;
+                }
+              }
             }
           }
-        }
+          // dS^T = P^T (dP^T - delta); P^T and dS^T as 16-bit A fragments,
+          // for IoF32 each as two bf16 terms (pa + pl, da + dr).
+          constexpr int LO = IO::kOut32 ? TM / 16 : 1;
+          uint32_t pa[TM / 16][4], da[TM / 16][4];
+          uint32_t pl[LO][4], dr[LO][4];
+          if (do_dk) {
 #pragma unroll
-        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
+            for (int jj = 0; jj < TM / 8; ++jj) {
 #pragma unroll
-          for (int h = 0; h < 4; ++h) {
-            if constexpr (IO::kOut32) {
-              pa[kk][h] = pack_bf16_split(sacc[8 * kk + 2 * h],
-                                          sacc[8 * kk + 2 * h + 1],
-                                          pl[kk][h]);
-              da[kk][h] = pack_bf16_split(dpacc[8 * kk + 2 * h],
-                                          dpacc[8 * kk + 2 * h + 1],
-                                          dr[kk][h]);
-            } else {
-              pa[kk][h] = pack2<IO::kF16>(sacc[8 * kk + 2 * h],
-                                          sacc[8 * kk + 2 * h + 1]);
-              da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
-                                          dpacc[8 * kk + 2 * h + 1]);
+              for (int e = 0; e < 2; ++e) {
+                const float dl = rs[DKDV_BM + jj * 8 + 2 * t4 + e];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  const int i = jj * 4 + 2 * r + e;
+                  dpacc[i] = sacc[i] * (dpacc[i] - dl);
+                }
+              }
             }
           }
-        }
+#pragma unroll
+          for (int kk = 0; kk < TM / 16; ++kk) {
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              if constexpr (IO::kOut32) {
+                if (do_dv)
+                  pa[kk][h] = pack_bf16_split(sacc[8 * kk + 2 * h],
+                                              sacc[8 * kk + 2 * h + 1],
+                                              pl[kk][h]);
+                if (do_dk)
+                  da[kk][h] = pack_bf16_split(dpacc[8 * kk + 2 * h],
+                                              dpacc[8 * kk + 2 * h + 1],
+                                              dr[kk][h]);
+              } else {
+                if (do_dv)
+                  pa[kk][h] = pack2<IO::kF16>(sacc[8 * kk + 2 * h],
+                                              sacc[8 * kk + 2 * h + 1]);
+                if (do_dk)
+                  da[kk][h] = pack2<IO::kF16>(dpacc[8 * kk + 2 * h],
+                                              dpacc[8 * kk + 2 * h + 1]);
+              }
+            }
+          }
 
-        // dV += P^T dO and dK += dS^T Q: the queries are the depth, dO and
-        // Q (the consumer's columns, from box col_box) read as transposed B
-        // operands (box stride 64 rows x 128 B); IoF32's low terms each
-        // after its high term, dV's products waited for before dK's (see
-        // the header).
-        const int cb = col_box * DKDV_BM * 128;
-        wgmma_fence();
+          // dV += P^T dO and dK += dS^T Q: the queries are the depth, dO and
+          // Q (the consumer's columns, from box col_box) read as transposed B
+          // operands (box stride TM rows x 128 B); IoF32's low terms each
+          // after its high term, dV's products waited for before dK's (see
+          // the header).
+          const int cb = col_box * TM * 128;
+          wgmma_fence();
+          if (do_dv) {
 #pragma unroll
-        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
-          RsMma<OR, IO::kF16>::run(dv_acc, pa[kk],
-                         desc_sw128(dos + cb + kk * 16 * 128, DKDV_BM * 128,
-                                    1024));
-          if constexpr (IO::kOut32)
-            RsMma<OR, false>::run(dv_acc, pl[kk],
-                         desc_sw128(dos + cb + kk * 16 * 128, DKDV_BM * 128,
-                                    1024));
-        }
-        if constexpr (IO::kOut32) {
+            for (int kk = 0; kk < TM / 16; ++kk) {
+              rs_mma<OR, IO::kF16>(dv_acc, pa[kk], dos + cb + kk * 16 * 128,
+                                   TM * 128);
+              if constexpr (IO::kOut32)
+                rs_mma<OR, false>(dv_acc, pl[kk], dos + cb + kk * 16 * 128,
+                                  TM * 128);
+            }
+          }
+          if constexpr (IO::kOut32) {
+            if (do_dv && do_dk) {
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_regs(dv_acc);
+              wgmma_fence();
+            }
+          }
+          if (do_dk) {
+#pragma unroll
+            for (int kk = 0; kk < TM / 16; ++kk) {
+              rs_mma<OR, IO::kF16>(dk_acc, da[kk], qs + cb + kk * 16 * 128,
+                                   TM * 128);
+              if constexpr (IO::kOut32)
+                rs_mma<OR, false>(dk_acc, dr[kk], qs + cb + kk * 16 * 128,
+                                  TM * 128);
+            }
+          }
           wgmma_commit();
           wgmma_wait<0>();
-          fence_regs(dv_acc);
-          wgmma_fence();
+          if (do_dv) fence_regs(dv_acc);
+          if (do_dk) fence_regs(dk_acc);
+          if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
         }
-#pragma unroll
-        for (int kk = 0; kk < DKDV_BM / 16; ++kk) {
-          RsMma<OR, IO::kF16>::run(dk_acc, da[kk],
-                         desc_sw128(qs + cb + kk * 16 * 128, DKDV_BM * 128,
-                                    1024));
-          if constexpr (IO::kOut32)
-            RsMma<OR, false>::run(dk_acc, dr[kk],
-                         desc_sw128(qs + cb + kk * 16 * 128, DKDV_BM * 128,
-                                    1024));
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dv_acc);
-        fence_regs(dk_acc);
-        if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
+        if (PASSES == 2 && pass == 0)  // dV, straight from the registers
+          store_key_rows<IO, DC>(dv, dv_acc, 1.f, DkdvItem(info + kbuf * 8),
+                                 BN, N_kv, Dt, r_key, col_box * 64, t4);
       }
-
-      // dK and dV go out through this warpgroup's rows (SPLIT: its column
-      // boxes) of the item's K and V buffers (its products, their only
-      // readers, are done; SPLIT: once both warpgroups' are), in the
-      // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
-      // chunks a row); as fp32 (IoF32), straight from the accumulators as
-      // 8-byte stores of column pairs. SPLIT reads the item again from
-      // shared memory (this item's until kv_empty below), so that its
-      // fields hold no registers across the tile loop.
-      const DkdvItem out = SPLIT ? DkdvItem(info + kbuf * 8) : item;
-      const int c0 = col_box * 64;  // the consumer's first column
-      const int box0 = col_box * BN * 128;  // and its first box
-      uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES + box0;
-      uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES + box0;
-      if constexpr (SPLIT && !IO::kOut32)
-        named_sync(3, 256);  // both consumers' products have read K and V
+      if constexpr (PASSES == 2) {
+        store_key_rows<IO, DC>(dk, dk_acc, scale, DkdvItem(info + kbuf * 8),
+                               BN, N_kv, Dt, r_key, col_box * 64, t4);
+      } else {
+        // dK and dV go out through this warpgroup's rows (SPLIT: its column
+        // boxes) of the item's K and V buffers (its products, their only
+        // readers, are done; SPLIT: once both warpgroups' are), in the
+        // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
+        // chunks a row); as fp32 (IoF32), straight from the accumulators as
+        // 8-byte stores of column pairs. SPLIT reads the item again from
+        // shared memory (this item's until kv_empty below), so that its
+        // fields hold no registers across the tile loop.
+        const DkdvItem out = SPLIT ? DkdvItem(info + kbuf * 8) : item;
+        const int c0 = col_box * 64;  // the consumer's first column
+        const int box0 = col_box * BN * 128;  // and its first box
+        uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES + box0;
+        uint8_t* vb_sm = smem + L::V_OFF + kbuf * L::KV_BYTES + box0;
+        if constexpr (SPLIT && !IO::kOut32)
+          named_sync(3, 256);  // both consumers' products have read K and V
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int rb = r_key + 8 * r;  // the key within the item
-        if constexpr (IO::kOut32) {
-          const int row = out.kb * BN + rb;
-          const size_t o = ((size_t)out.bkh * N_kv + row) * Dt;
+        for (int r = 0; r < 2; ++r) {
+          const int rb = r_key + 8 * r;  // the key within the item
+          if constexpr (IO::kOut32) {
+            const int row = out.kb * BN + rb;
+            const size_t o = ((size_t)out.bkh * N_kv + row) * Dt;
 #pragma unroll
-          for (int jj = 0; jj < DC / 8; ++jj) {
-            const int col = c0 + jj * 8 + t4 * 2;
-            if (row < N_kv && col < Dt) {
-              *reinterpret_cast<float2*>(static_cast<float*>(dk) + o + col) =
-                  make_float2(dk_acc[jj * 4 + 2 * r] * scale,
-                              dk_acc[jj * 4 + 2 * r + 1] * scale);
-              *reinterpret_cast<float2*>(static_cast<float*>(dv) + o + col) =
-                  make_float2(dv_acc[jj * 4 + 2 * r],
-                              dv_acc[jj * 4 + 2 * r + 1]);
+            for (int jj = 0; jj < DC / 8; ++jj) {
+              const int col = c0 + jj * 8 + t4 * 2;
+              if (row < N_kv && col < Dt) {
+                *reinterpret_cast<float2*>(static_cast<float*>(dk) + o + col) =
+                    make_float2(dk_acc[jj * 4 + 2 * r] * scale,
+                                dk_acc[jj * 4 + 2 * r + 1] * scale);
+                *reinterpret_cast<float2*>(static_cast<float*>(dv) + o + col) =
+                    make_float2(dv_acc[jj * 4 + 2 * r],
+                                dv_acc[jj * 4 + 2 * r + 1]);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int jj = 0; jj < DC / 8; ++jj) {
+              const int off = (jj / 8) * BN * 128 + rb * 128 +
+                              (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
+              *reinterpret_cast<uint32_t*>(kb_sm + off) =
+                  pack2<IO::kF16>(dk_acc[jj * 4 + 2 * r] * scale,
+                                  dk_acc[jj * 4 + 2 * r + 1] * scale);
+              *reinterpret_cast<uint32_t*>(vb_sm + off) = pack2<IO::kF16>(
+                  dv_acc[jj * 4 + 2 * r], dv_acc[jj * 4 + 2 * r + 1]);
             }
           }
-        } else {
-#pragma unroll
-          for (int jj = 0; jj < DC / 8; ++jj) {
-            const int off = (jj / 8) * BN * 128 + rb * 128 +
-                            (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
-            *reinterpret_cast<uint32_t*>(kb_sm + off) =
-                pack2<IO::kF16>(dk_acc[jj * 4 + 2 * r] * scale,
-                                dk_acc[jj * 4 + 2 * r + 1] * scale);
-            *reinterpret_cast<uint32_t*>(vb_sm + off) = pack2<IO::kF16>(
-                dv_acc[jj * 4 + 2 * r], dv_acc[jj * 4 + 2 * r + 1]);
-          }
         }
-      }
-      if constexpr (!IO::kOut32) {
-        named_sync(1 + c, 128);  // the warpgroup's rows are staged
-        // the consumer's DC / 8 chunks a row, those past Dt not stored (see
-        // hopper.cuh's forward: a constant count keeps the loop unrolled)
-        constexpr int CH = DC / 8;
-        for (int i = ct; i < 64 * CH; i += 128) {
-          const int rb = k0 + i / CH, ch = i % CH;
-          const int row = out.kb * BN + rb;
-          if (row < N_kv && c0 + ch * 8 < Dt) {
-            const int off = (ch / 8) * BN * 128 + rb * 128 +
-                            (((ch % 8) ^ (rb & 7)) * 16);
-            const size_t o =
-                ((size_t)out.bkh * N_kv + row) * Dt + c0 + ch * 8;
-            *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dk) + o) =
-                *reinterpret_cast<const uint4*>(kb_sm + off);
-            *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dv) + o) =
-                *reinterpret_cast<const uint4*>(vb_sm + off);
+        if constexpr (!IO::kOut32) {
+          named_sync(1 + c, 128);  // the warpgroup's rows are staged
+          // the consumer's DC / 8 chunks a row, those past Dt not stored (see
+          // hopper.cuh's forward: a constant count keeps the loop unrolled)
+          constexpr int CH = DC / 8;
+          for (int i = ct; i < 64 * CH; i += 128) {
+            const int rb = k0 + i / CH, ch = i % CH;
+            const int row = out.kb * BN + rb;
+            if (row < N_kv && c0 + ch * 8 < Dt) {
+              const int off = (ch / 8) * BN * 128 + rb * 128 +
+                              (((ch % 8) ^ (rb & 7)) * 16);
+              const size_t o =
+                  ((size_t)out.bkh * N_kv + row) * Dt + c0 + ch * 8;
+              *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dk) + o) =
+                  *reinterpret_cast<const uint4*>(kb_sm + off);
+              *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dv) + o) =
+                  *reinterpret_cast<const uint4*>(vb_sm + off);
+            }
           }
         }
       }
@@ -615,8 +697,8 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
-      !make_map(&tdo, dout, B * H_q, N_q, Dt, DKDV_BM, IO::kF16) ||
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, DkdvPlan<D>::TM, IO::kF16) ||
+      !make_map(&tdo, dout, B * H_q, N_q, Dt, DkdvPlan<D>::TM, IO::kF16) ||
       !make_map(&tk, k, B * H_kv, N_kv, Dt, BN, IO::kF16) ||
       !make_map(&tv, v, B * H_kv, N_kv, Dt, BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
@@ -657,7 +739,11 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                            dk, dv, B, H_q, H_kv, N_q, N_kv,
                                            D, scale, mask, st);
-  return launch_dkdv_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+  if (instance_d(D) == 256)
+    return launch_dkdv_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                           dk, dv, B, H_q, H_kv, N_q, N_kv,
+                                           D, scale, mask, st);
+  return launch_dkdv_d<512, 1, Mask, IO>(q, k, v, dout, lse, delta, order,
                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
                                          scale, mask, st);
 }

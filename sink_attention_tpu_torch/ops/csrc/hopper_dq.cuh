@@ -52,7 +52,7 @@
 //    consumer's own rows of the item's Q buffer (then free) as 16-byte
 //    stores of whole rows, or as fp32 (IoF32) straight from the
 //    accumulators; the Q/dO buffer is released to the producer after that;
-//  * any head dim D <= 256 (D % 8 == 0) runs in the instance D_i =
+//  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
 //    instance_d(D): TMA reads the columns past D as zeros, and only D
 //    columns are written; bf16 or fp16 inputs (hopper.cuh's Io types).
 //    At D = 256 a consumer holds dQ in 128 fp32 registers a thread, S and
@@ -60,6 +60,15 @@
 //    two m64n128k16 products a 16-key step (hopper.cuh's rs_mma). Shared
 //    memory: Q and dO 2 x 64 KB, two stages of 32-key K and V 2 x 32 KB:
 //    192 KB.
+//    At D = 512 the consumers split dQ's columns, as the forward splits
+//    O's (hopper.cuh's FwdPlan): an item is 64 query rows (a half of the
+//    host's 128-row q block), both consumers compute the same S and dP of
+//    the item's rows (depth 512) and the same P and dS, and consumer c
+//    accumulates dQ's columns [256 c, 256 c + 256) (128 registers),
+//    reading those columns of K. S and dP are computed twice: 10 D FLOPs
+//    a pair against the 6 D the bound counts. Shared memory: Q and dO of
+//    64 x 512 (2 x 64 KB) and one stage of 32-key K and V (2 x 32 KB):
+//    192 KB, so a tile's loads wait for the previous tile's products.
 //
 // Replaces the Pallas TPU kernels `_dq_kernel` of
 // sink_attention_tpu/ops/flash.py and `_pdq_kernel` of
@@ -80,24 +89,28 @@
 namespace sinkattn {
 namespace hopper {
 
-constexpr int DQ_BM = 128;  // query rows per item, 64 per consumer
+constexpr int DQ_BM = 128;  // query rows per q block, 64 per consumer
 constexpr int DQ_THREADS = 384;
 
-// Keys per KV tile of the instance of head dim D (64, 128 or 256; the
-// host keys its tables on the instance, not the tensors' head dim): 128 at
-// D = 64 (fewer, larger products: 17% faster on a full layer), 64 at D =
-// 128 (the S, dP and dQ accumulators of a 128-key tile would not fit
-// beside the operands without spills), 32 at D = 256 (two stages of K and
-// V beside one Q/dO buffer).
+// Keys per KV tile of the instance of head dim D (64, 128, 256 or 512;
+// the host keys its tables on the instance, not the tensors' head dim):
+// 128 at D = 64 (fewer, larger products: 17% faster on a full layer), 64
+// at D = 128 (the S, dP and dQ accumulators of a 128-key tile would not
+// fit beside the operands without spills), 32 at D = 256 (two stages of
+// K and V beside one Q/dO buffer) and 512 (one stage).
 __host__ __device__ constexpr int dq_bn(int D) {
   return D == 64 ? 128 : D == 128 ? 64 : 32;
 }
-// Q/dO buffers of the instance of head dim D: two, one at D = 256.
-__host__ __device__ constexpr int dq_qbufs(int D) { return D == 256 ? 1 : 2; }
+// Q/dO buffers of the instance of head dim D: two, one at D >= 256.
+__host__ __device__ constexpr int dq_qbufs(int D) { return D >= 256 ? 1 : 2; }
+// Query rows per work item: a 128-row q block, or at D = 512 one 64-row
+// half of it (the consumers split dQ's columns; see the header).
+__host__ __device__ constexpr int dq_bm(int D) {
+  return D == 512 ? 64 : DQ_BM;
+}
 constexpr int DQ_PRODUCER_REGS = 40;
 constexpr int DQ_CONSUMER_REGS = 232;
 
-// Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 // An int known at compile time, usable in device code (the standard
 // library's integral_constant converts on the host only).
 template <int N>
@@ -120,11 +133,12 @@ __device__ __forceinline__ void with_row_chunks(int Dt, F&& f) {
     f(Dt / 8);
 }
 
+// Shared-memory layout of one CTA (byte offsets; every tile 1024-aligned).
 template <int D, int STAGES>
 struct DqSmem {
   static constexpr int QB = dq_qbufs(D);            // Q/dO buffers
   static constexpr int BOXES = D / 64;              // 64-column boxes a row
-  static constexpr int QT_BYTES = DQ_BM * D * 2;    // one Q or dO tile
+  static constexpr int QT_BYTES = dq_bm(D) * D * 2;  // one Q or dO tile
   static constexpr int KV_BYTES = dq_bn(D) * D * 2;  // one K or V tile
   static constexpr int Q_OFF = 0;                   // QB Q tiles
   static constexpr int DO_OFF = Q_OFF + QB * QT_BYTES;   // QB dO tiles
@@ -141,13 +155,15 @@ struct DqSmem {
   static constexpr int BYTES = INFO_OFF + QB * 8 * 4 + 1024;  // + alignment
 };
 
-// A work item: one 128-row q block of one (batch, query head), and the KV
-// blocks it visits (the sink range, then the window range) from the
-// policy's table. Unit u of the order table is a q block (its table shared
-// by the batch) or, where the policy keeps a table per batch row, a (b,
-// block) pair: b * n_qb + block.
+// A work item: one 128-row q block of one (batch, query head) (at D = 512
+// each 64-row half of it is an item), and the KV blocks it visits (the
+// sink range, then the window range) from the policy's table. Unit u of
+// the order table is a q block (its table shared by the batch) or, where
+// the policy keeps a table per batch row, a (b, block) pair: b * n_qb +
+// block.
 struct DqItem {
   int b, qb, bh, kvh, sb0, wb0, n_sink_blocks, n_blocks;
+  int row0;  // the item's first query row (read back from shared memory)
   template <class Mask>
   __device__ __forceinline__ DqItem(int w, const int* order, int B, int H_q,
                                     int H_kv, int n_qb, const Mask& mask) {
@@ -168,25 +184,28 @@ struct DqItem {
     wb0 = rg[2];
     n_sink_blocks = max(rg[1] - sb0, 0);
     n_blocks = n_sink_blocks + max(rg[3] - wb0, 0);
+    row0 = qb * DQ_BM;
   }
-  __device__ __forceinline__ void store(int* info) const {
+  __device__ __forceinline__ void store(int* info, int first_row) const {
     info[0] = qb;
     info[1] = bh;
     info[2] = sb0;
     info[3] = wb0;
     info[4] = n_sink_blocks;
     info[5] = n_blocks;
+    info[6] = first_row;
   }
   __device__ __forceinline__ explicit DqItem(const int* info)
       : b(0), qb(info[0]), bh(info[1]), kvh(0), sb0(info[2]), wb0(info[3]),
-        n_sink_blocks(info[4]), n_blocks(info[5]) {}
+        n_sink_blocks(info[4]), n_blocks(info[5]), row0(info[6]) {}
   __device__ __forceinline__ int block(int t) const {
     return t < n_sink_blocks ? sb0 + t : wb0 + (t - n_sink_blocks);
   }
 };
 
 // D is the instance's head dim, Dt <= D the tensors' (see
-// fwd_wgmma_kernel); IO the element types.
+// fwd_wgmma_kernel); IO the element types. At D = 512 work item w is half
+// w % 2 of the q block of unit w / 2.
 template <int D, int STAGES, class Mask, class IO>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
     dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -201,7 +220,11 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   using L = DqSmem<D, STAGES>;
   constexpr int QB = L::QB;     // Q/dO buffers
   constexpr int BN = dq_bn(D);  // keys per KV tile
-  constexpr int OR = D / 2;     // dQ accumulators a thread
+  constexpr int BM = dq_bm(D);  // query rows per item
+  constexpr int HALVES = DQ_BM / BM;  // items per q block
+  constexpr bool SPLIT = BM != DQ_BM;  // consumers split dQ's columns
+  constexpr int DC = SPLIT ? D / 2 : D;  // a consumer's dQ columns
+  constexpr int OR = DC / 2;    // dQ accumulators a thread
   constexpr int SR = BN / 2;    // S or dP accumulators a thread
   constexpr int NJ = BN / 8;    // 8-key chunks of an accumulator row
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -214,7 +237,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
   int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [Q buffer][8]
 
   const int n_qb = (N_q + DQ_BM - 1) / DQ_BM;
-  const int n_work = n_qb * B * H_q;
+  const int n_work = n_qb * B * H_q * HALVES;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < QB; ++i) {
@@ -240,17 +263,18 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
-        const DqItem item(w, order, B, H_q, H_kv, n_qb, mask);
+        const DqItem item(w / HALVES, order, B, H_q, H_kv, n_qb, mask);
+        const int row0 = item.row0 + (w % HALVES) * BM;
         const int qs = buf_of<QB>(it);
         mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
-        item.store(info + qs * 8);
+        item.store(info + qs * 8, row0);
         mbar_expect_tx(q_full + qs, 2 * L::QT_BYTES);  // and the info
 #pragma unroll
         for (int x = 0; x < L::BOXES; ++x) {
-          tma_load_3d(smem + L::Q_OFF + qs * L::QT_BYTES + x * DQ_BM * 128,
-                      &tm_q, q_full + qs, x * 64, item.qb * DQ_BM, item.bh);
-          tma_load_3d(smem + L::DO_OFF + qs * L::QT_BYTES + x * DQ_BM * 128,
-                      &tm_do, q_full + qs, x * 64, item.qb * DQ_BM, item.bh);
+          tma_load_3d(smem + L::Q_OFF + qs * L::QT_BYTES + x * BM * 128,
+                      &tm_q, q_full + qs, x * 64, row0, item.bh);
+          tma_load_3d(smem + L::DO_OFF + qs * L::QT_BYTES + x * BM * 128,
+                      &tm_do, q_full + qs, x * 64, row0, item.bh);
         }
         for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
           const int s = ring.s;
@@ -271,7 +295,10 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
         if (w >= n_work) break;
-        const DqItem item(w, order, B, H_q, H_kv, n_qb, mask);
+        const DqItem item(w / HALVES, order, B, H_q, H_kv, n_qb, mask);
+        // (at D = 512 the item's 64 rows and the 64 after them: hull 0 is
+        // the item's)
+        const int row0 = item.row0 + (w % HALVES) * BM;
         const int qs = buf_of<QB>(it);
         mbar_wait(q_empty + qs, buf_phase<QB>(it) ^ 1);
         uint8_t* rows = smem + L::ROW_OFF + qs * L::ROWS_BYTES;
@@ -284,26 +311,29 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
 #pragma unroll
         for (int h = 0; h < DQ_BM / 32; ++h) {
           const int r = h * 32 + lane;
-          const int row = item.qb * DQ_BM + r;
+          const int row = row0 + r;
           const bool ok = row < N_q;
           lse_sm[r] = ok ? lse_row[row] * LOG2E : INFINITY;
           delta_sm[r] = ok ? delta_row[row] : 0.f;
         }
-        stage_row_spans(mask, item.b, item.qb * DQ_BM, N_q, lane, span_sm,
-                        hull_sm);
+        stage_row_spans(mask, item.b, row0, N_q, lane, span_sm, hull_sm);
         __syncwarp();
         mbar_arrive(q_full + qs);  // release: the rows are visible
       }
     }
   } else {
-    // ---- consumers: warpgroup c owns rows [64 c, 64 c + 64) of an item ----
+    // ---- consumers: warpgroup c owns rows [64 c, 64 c + 64) of an item,
+    // or (SPLIT) dQ's columns [DC c, DC c + DC) of its 64 rows ----
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         DQ_CONSUMER_REGS));
     const int c = wg - 1;
     const int ct = threadIdx.x - 128 * wg;
     const int lane = ct & 31;
     const int g = lane >> 2, t4 = lane & 3;
-    const int r_loc = c * 64 + (ct >> 5) * 16 + g;  // rows r_loc, r_loc + 8
+    const int rw0 = SPLIT ? 0 : c * 64;  // the consumer's first row
+    const int r_loc = rw0 + (ct >> 5) * 16 + g;  // rows r_loc, r_loc + 8
+    const int hc = SPLIT ? 0 : c;  // the hull of the consumer's rows
+    const int c0 = SPLIT ? c * DC : 0;  // its first dQ column
     Ring<STAGES> ring;
     for (int it = 0;; ++it) {
       const int w = snake_item(it, blockIdx.x, gridDim.x);
@@ -324,13 +354,13 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         dl[r] = lse_sm[DQ_BM + r_loc + 8 * r];
         rows[r] = span_sm[r_loc + 8 * r];
       }
-      const int h_lo = hull_sm[2 * c], h_hi = hull_sm[2 * c + 1];
+      const int h_lo = hull_sm[2 * hc], h_hi = hull_sm[2 * hc + 1];
 
       float dq_acc[OR];
 #pragma unroll
       for (int i = 0; i < OR; ++i) dq_acc[i] = 0.f;
-      const uint8_t* qsm = smem + L::Q_OFF + qs * L::QT_BYTES + c * 64 * 128;
-      const uint8_t* dosm = smem + L::DO_OFF + qs * L::QT_BYTES + c * 64 * 128;
+      const uint8_t* qsm = smem + L::Q_OFF + qs * L::QT_BYTES + rw0 * 128;
+      const uint8_t* dosm = smem + L::DO_OFF + qs * L::QT_BYTES + rw0 * 128;
 
       for (int j = 0; j < item.n_blocks; ++j, ring.next()) {
         const int s = ring.s;
@@ -351,7 +381,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
           SsMma<SR, IO::kF16>::run(sacc,
-                         desc_sw128(qsm + x * DQ_BM * 128 + off, 16, 1024),
+                         desc_sw128(qsm + x * BM * 128 + off, 16, 1024),
                          desc_sw128(ks + x * BN * 128 + off, 16, 1024),
                          kk > 0);
         }
@@ -359,7 +389,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         for (int kk = 0; kk < D / 16; ++kk) {
           const int x = kk / 4, off = (kk % 4) * 32;
           SsMma<SR, IO::kF16>::run(dpacc,
-                         desc_sw128(dosm + x * DQ_BM * 128 + off, 16, 1024),
+                         desc_sw128(dosm + x * BM * 128 + off, 16, 1024),
                          desc_sw128(vs + x * BN * 128 + off, 16, 1024),
                          kk > 0);
         }
@@ -422,16 +452,18 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
           }
         }
 
-        // dQ += dS K: the keys are the depth, K read as the transposed B
-        // operand (box stride BN rows x 128 B).
+        // dQ += dS K: the keys are the depth, K (the consumer's columns,
+        // from its first box) read as the transposed B operand (box stride
+        // BN rows x 128 B).
+        const uint8_t* kc = ks + (c0 / 64) * BN * 128;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          rs_mma<OR, IO::kF16>(dq_acc, da[kk], ks + kk * 16 * 128, BN * 128);
+          rs_mma<OR, IO::kF16>(dq_acc, da[kk], kc + kk * 16 * 128, BN * 128);
         if constexpr (IO::kOut32) {
 #pragma unroll
           for (int kk = 0; kk < BN / 16; ++kk)
-            rs_mma<OR, false>(dq_acc, dr[kk], ks + kk * 16 * 128, BN * 128);
+            rs_mma<OR, false>(dq_acc, dr[kk], kc + kk * 16 * 128, BN * 128);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -439,22 +471,25 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
       }
 
-      // dQ goes out through this warpgroup's rows of the item's Q buffer
-      // (its S products, the last readers, are done), in Q's swizzled
+      // dQ goes out through this warpgroup's rows (SPLIT: its column
+      // boxes) of the item's Q buffer (its S products, the last readers,
+      // are done; SPLIT: once both warpgroups' are), in Q's swizzled
       // layout, then as 16-byte stores of whole rows (Dt / 8 chunks a
       // row); as fp32 (IoF32), straight from the accumulators as 8-byte
       // stores of column pairs.
       uint8_t* qbuf = smem + L::Q_OFF + qs * L::QT_BYTES;
+      if constexpr (SPLIT && !IO::kOut32)
+        named_sync(3, 256);  // both consumers' products have read Q
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int rb = r_loc + 8 * r;  // the row within the q block
-        const int row = item.qb * DQ_BM + rb;
+        const int rb = r_loc + 8 * r;  // the row within the item
+        const int row = item.row0 + rb;
         if constexpr (IO::kOut32) {
           float* drow =
               static_cast<float*>(dq) + ((size_t)item.bh * N_q + row) * Dt;
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj) {
-            const int col = jj * 8 + t4 * 2;
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int col = c0 + jj * 8 + t4 * 2;
             if (row < N_q && col < Dt)
               *reinterpret_cast<float2*>(drow + col) =
                   make_float2(dq_acc[jj * 4 + 2 * r] * scale,
@@ -462,29 +497,46 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
           }
         } else {
 #pragma unroll
-          for (int jj = 0; jj < D / 8; ++jj)
+          for (int jj = 0; jj < DC / 8; ++jj) {
+            const int jg = c0 / 8 + jj;  // the row's 16-byte chunk
             *reinterpret_cast<uint32_t*>(
-                qbuf + (jj / 8) * DQ_BM * 128 + rb * 128 +
-                (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4) =
+                qbuf + (jg / 8) * BM * 128 + rb * 128 +
+                (((jg % 8) ^ (rb & 7)) * 16) + t4 * 4) =
                 pack2<IO::kF16>(dq_acc[jj * 4 + 2 * r] * scale,
                                 dq_acc[jj * 4 + 2 * r + 1] * scale);
+          }
         }
       }
       if constexpr (!IO::kOut32) {
         named_sync(1 + c, 128);  // the warpgroup's rows are staged
         uint16_t* dq16 = static_cast<uint16_t*>(dq);
-        with_row_chunks<D>(Dt, [&](auto CH) {  // 16-byte chunks a row
+        if constexpr (SPLIT) {
+          // the consumer's DC / 8 chunks a row, those past Dt not stored
+          constexpr int CH = DC / 8;
           for (int i = ct; i < 64 * CH; i += 128) {
-            const int rb = c * 64 + i / CH, ch = i % CH;
-            const int row = item.qb * DQ_BM + rb;
-            if (row < N_q)
+            const int rb = i / CH, ch = c0 / 8 + i % CH;
+            const int row = item.row0 + rb;
+            if (row < N_q && ch * 8 < Dt)
               *reinterpret_cast<uint4*>(
                   dq16 + ((size_t)item.bh * N_q + row) * Dt + ch * 8) =
                   *reinterpret_cast<const uint4*>(
-                      qbuf + (ch / 8) * DQ_BM * 128 + rb * 128 +
+                      qbuf + (ch / 8) * BM * 128 + rb * 128 +
                       (((ch % 8) ^ (rb & 7)) * 16));
           }
-        });
+        } else {
+          with_row_chunks<D>(Dt, [&](auto CH) {  // 16-byte chunks a row
+            for (int i = ct; i < 64 * CH; i += 128) {
+              const int rb = c * 64 + i / CH, ch = i % CH;
+              const int row = item.row0 + rb;
+              if (row < N_q)
+                *reinterpret_cast<uint4*>(
+                    dq16 + ((size_t)item.bh * N_q + row) * Dt + ch * 8) =
+                    *reinterpret_cast<const uint4*>(
+                        qbuf + (ch / 8) * DQ_BM * 128 + rb * 128 +
+                        (((ch % 8) ^ (rb & 7)) * 16));
+            }
+          });
+        }
       }
       // The Q/dO buffer (and its rows) is free once every consumer thread
       // is done with it; the proxy fence orders these generic accesses
@@ -512,12 +564,13 @@ int launch_dq_d(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);  // once
   if (attr_err != cudaSuccess) return (int)attr_err;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_map(&tq, q, B * H_q, N_q, Dt, DQ_BM, IO::kF16) ||
-      !make_map(&tdo, dout, B * H_q, N_q, Dt, DQ_BM, IO::kF16) ||
+  if (!make_map(&tq, q, B * H_q, N_q, Dt, dq_bm(D), IO::kF16) ||
+      !make_map(&tdo, dout, B * H_q, N_q, Dt, dq_bm(D), IO::kF16) ||
       !make_map(&tk, k, B * H_kv, N_kv, Dt, dq_bn(D), IO::kF16) ||
       !make_map(&tv, v, B * H_kv, N_kv, Dt, dq_bn(D), IO::kF16))
     return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_q + DQ_BM - 1) / DQ_BM) * B * H_q;
+  const long n_work =
+      (long)((N_q + DQ_BM - 1) / DQ_BM) * B * H_q * (DQ_BM / dq_bm(D));
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   dq_wgmma_kernel<D, STAGES, Mask, IO><<<grid, DQ_THREADS, smem, stream>>>(
@@ -551,7 +604,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     return launch_dq_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                          dq, B, H_q, H_kv, N_q, N_kv, D,
                                          scale, mask, st);
-  return launch_dq_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+  if (instance_d(D) == 256)
+    return launch_dq_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                         dq, B, H_q, H_kv, N_q, N_kv, D,
+                                         scale, mask, st);
+  return launch_dq_d<512, 1, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
                                        B, H_q, H_kv, N_q, N_kv, D, scale,
                                        mask, st);
 }

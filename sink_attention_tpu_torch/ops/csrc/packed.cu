@@ -32,8 +32,8 @@
 // two runs of keys (row_span below: forward and dQ, which put the per-cell
 // mask on partial tiles only and skip a consumer's dead tiles) and each
 // key one interval of rows [j, reach(j)) (dK/dV). Coverage as the
-// unpacked kernels' (flash_fwd.cu): D <= 256, D % 8 == 0, in the instance
-// D_i = 64, 128 or 256 (its own tiles: flash_fwd.cu, flash_bwd.cu); bf16,
+// unpacked kernels' (flash_fwd.cu): D <= 512, D % 8 == 0, in the instance
+// D_i = 64, 128, 256 or 512 (its own tiles: flash_fwd.cu, flash_bwd.cu); bf16,
 // fp16, and fp32 read as bf16 with fp32 outputs (the entries' `dtype`,
 // hopper.cuh's DtypeCode).
 //
@@ -70,7 +70,6 @@ using sinkattn::hopper::DQ_BM;
 using sinkattn::hopper::dkdv_bn;
 using sinkattn::hopper::dq_bn;
 using sinkattn::hopper::FWD_BM;
-using sinkattn::hopper::FWD_BN;
 using sinkattn::hopper::instance_d;
 
 struct PackedMask {
@@ -168,7 +167,7 @@ extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
 // dK/dV's (keys by head dim: the instance's).
 extern "C" int sink_packed_block_m() { return FWD_BM; }
 extern "C" int sink_packed_block_n(int D) {
-  return instance_d(D) == 256 ? sinkattn::hopper::FwdPlan<256>::BN : FWD_BN;
+  return sinkattn::hopper::fwd_bn(instance_d(D));
 }
 extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
 extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(instance_d(D)); }

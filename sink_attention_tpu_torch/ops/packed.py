@@ -21,7 +21,7 @@ plain PyTorch version:
   :func:`packed_bwd_plain`.
 
 They take what the unpacked kernels take (``ops.flash``): any head_dim up
-to 256 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
+to 512 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
 bf16, fp16 or fp32 inputs (fp32 rounded to bf16 on the way in, written
 as fp32).
 
@@ -295,7 +295,7 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
     """Launch ``sink_pfwd`` of ``csrc/packed.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``): (out, lse).
 
-    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 256;
+    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 512;
     positions [B, N] (any int dtype, any device); s_aux [H_q] or None; out
     in q's dtype. ``packed_fwd_kernel.launches`` counts the launches. A
     warmed call (the positions' tables already built) synchronises

@@ -1,11 +1,11 @@
-"""How far the fp32 backward kernels lie from their plain version, and
+"""How far the fp32 attention kernels lie from their plain version, and
 whether one bf16 rounding step of P or dS explains the worst element.
 
     python3 sink_attention_tpu_torch/scripts/grad_rounding.py
-        [--tree DIR] [--dims 64,128,256] [--seed 12]
+        [--tree DIR] [--dims 64,128,256,512] [--seed 12]
 
-Runs the dQ and dK/dV kernels, unpacked (``flash_dq_kernel``,
-``flash_dkdv_kernel``) and packed, on the inputs of
+Runs the forward, dQ and dK/dV kernels, unpacked (``flash_fwd_kernel``,
+``flash_dq_kernel``, ``flash_dkdv_kernel``) and packed, on the inputs of
 ``tests/test_torch_gpu.py``'s packed case: B=1, 8 query and 2 KV heads,
 N=256 as a pack of 100 + 30 + 126 tokens, 4 sinks, W=64, scale-1 normal
 fp32 from a CUDA generator seeded ``--seed``. For each D in ``--dims`` and
@@ -19,7 +19,14 @@ GQA group, and prints the residual of the best fit, c in units of the
 bf16 step of P_ij (dV) or dS_ij (dK) there, and that value's distance
 from its nearest bf16 rounding midpoint in steps. One rounding of P or dS
 made apart by the kernel and the plain version shows as a residual near
-0, c = +-1 step and a distance near 0.
+0, c = +-1 step and a distance near 0. The forward's O is held the same
+way: its elements past JAX's fp32 forward tolerance (6e-3 + 1e-3
+|plain|), and its worst element's row fitted to one term c V_j over the
+keys j of the row's KV head, c in bf16 steps of the unnormalised P_ij
+(the value the plain version rounds) over the row's divisor. The fp32
+forward rounds P to bf16 once (relative to its running maximum, the plain
+version relative to the row's), so it differs from the plain version by
+up to one such step per key even away from a midpoint.
 
 ``--tree`` imports the package from another checkout's root (default:
 this one), so that two checkouts are measured by the same script. Run it
@@ -75,10 +82,34 @@ def explain(err, rows, values, scale):
     return res, c / step, abs(frac - 0.5)
 
 
+def explain_forward(err, vals, p, denom):
+    """Fit the worst element's error row of ``err`` [B,H_q,N,D] (O) to
+    c * vals[h, j] over the keys j of its head (``vals`` [H_q, N_kv, D]:
+    V as the head reads it); ``p`` [H_q, N_q, N_kv] is the unnormalised
+    probability the plain version rounds and ``denom`` [H_q, N_q] its
+    divisor. Returns (residual, c in bf16 steps of p / denom, distance of
+    p from a rounding midpoint in steps)."""
+    i = int(err.abs().argmax())
+    _, h, r, _ = [int(x) for x in
+                  torch.unravel_index(torch.tensor(i), err.shape)]
+    e = err[0, h, r].double()
+    rows = vals[h].double()
+    c = (rows @ e) / (rows * rows).sum(-1).clamp_min(1e-30)
+    res = (e[None] - c[:, None] * rows).norm(dim=-1) / e.norm()
+    j = int(res.argmin())
+    x = float(p[h, r, j])
+    step = _step(x)
+    if step == 0.0:
+        return float(res[j]), float("inf"), float("nan")
+    frac = abs(x) / step - math.floor(abs(x) / step)
+    return float(res[j]), float(c[j]) * float(denom[h, r]) / step, abs(
+        frac - 0.5)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(ROOT))
-    ap.add_argument("--dims", default="64,128,256")
+    ap.add_argument("--dims", default="64,128,256,512")
     ap.add_argument("--seed", type=int, default=12)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -105,6 +136,7 @@ def main(argv=None) -> int:
             "unpacked": (
                 lambda m: flash.flash_fwd_plain(q, k, v, aux, 4, 64,
                                                 matmul_dtype=m),
+                lambda: flash.flash_fwd_kernel(q, k, v, aux, 4, 64)[0],
                 lambda lse, dl, m: flash.flash_bwd_plain(
                     q, k, v, do, lse, dl, 4, 64, matmul_dtype=m),
                 lambda lse, dl: (
@@ -114,6 +146,8 @@ def main(argv=None) -> int:
             "packed": (
                 lambda m: packed.packed_fwd_plain(q, k, v, positions, aux,
                                                   4, 64, matmul_dtype=m),
+                lambda: packed.packed_fwd_kernel(q, k, v, positions, aux, 4,
+                                                 64)[0],
                 lambda lse, dl, m: packed.packed_bwd_plain(
                     q, k, v, do, lse, dl, positions, 4, 64, matmul_dtype=m),
                 lambda lse, dl: (
@@ -123,8 +157,10 @@ def main(argv=None) -> int:
                                                positions, 4, 64)),
                 lambda: packed.packed_rows_mask(positions, 0, N, 4, 64)[0]),
         }
-        for route, (fwd, bwd, kern, vis) in routes.items():
+        for route, (fwd, fwd_kern, bwd, kern, vis) in routes.items():
             o, lse = fwd(mm)
+            o_k = fwd_kern()
+            o_x = fwd(None)[0]
             delta = (do * o).sum(-1)
             plain = bwd(lse, delta, mm)
             exact = bwd(lse, delta, None)
@@ -136,6 +172,22 @@ def main(argv=None) -> int:
             kf, vf = kb.repeat_interleave(g, 1), vb.repeat_interleave(g, 1)
             s = torch.einsum("bhqd,bhkd->bhqk", qb, kf) * scale
             p = torch.where(vis(), torch.exp(s - lse[..., None]), 0.0)
+            # the forward: the unnormalised P the plain version rounds
+            # (exp(s - m), m the row's largest logit with s_aux) and its
+            # divisor
+            sm = torch.where(vis(), s, -math.inf)
+            m = torch.maximum(sm.amax(-1), aux[None, :, None])
+            pu = torch.where(vis(), torch.exp(s - m[..., None]), 0.0)
+            den = pu.sum(-1) + torch.exp(aux[None, :, None] - m)
+            err = o_k - o
+            bad = int((err.abs() > 6e-3 + 1e-3 * o.abs()).sum())
+            res, c, mid = explain_forward(err, vf[0], pu[0], den[0])
+            print(f"{route} D={d} o: max |kernel - plain| "
+                  f"{float(err.abs().max()):.3e}, past JAX's fp32 forward "
+                  f"tolerance {bad} of {err.numel()}, max |kernel - exact| "
+                  f"{float((o_k - o_x).abs().max()):.3e}; worst row as one "
+                  f"term: residual {res:.3f}, c {c:+.4f} steps, midpoint "
+                  f"distance {mid:.4f} steps", flush=True)
             ds = p * (torch.einsum("bhqd,bhkd->bhqk", dob, vf)
                       - delta[..., None])
             for name, gk, gp, gx in zip(("dq", "dk", "dv"), got, plain,

@@ -16,7 +16,9 @@ the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
 ``packed_dq_kernel`` and ``packed_dkdv_kernel`` on its packs (the phase-5
 mix at both W, the 64-3072 headline pack and the edge cases);
 ``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
-and full layer mid-decode, the headline). The shapes run in four passes,
+and full layer mid-decode, the headline); each kernel also at one of
+phase 14's Gemma-2-2B shapes (D = 256, the 256 instance). The shapes run
+in four passes,
 other / this / this / other, each in its own process with that
 checkout's package on ``sys.path`` and its kernels built into its own
 ``build/kernels/``. Each pass times every chosen kernel on seeded inputs:
@@ -26,7 +28,10 @@ shape and kernel with the mean of each checkout's two passes and their
 ratio, and writes every pass to ``--out``. Both checkouts must have the
 wrappers' present signatures; the inputs (the packs' positions computed
 once, by this checkout's ``ops.packed``) and the device times come from
-this file in every pass. Without CUDA it exits nonzero.
+this file in every pass. It also prints how many kernel instances'
+ptxas lines (registers, stack frame, spills) of the other checkout's
+fresh build read the same in this one's, and each that does not. Without
+CUDA it exits nonzero.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -49,6 +55,7 @@ FORWARD = [
     ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128),
     ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024),
     ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096),
+    ("gemma W=4096 D=256", 2, 8, 4, 8192, 256, 0, 4096),
 ]
 # the backward: (label, B, H_q, H_kv, N, D, num_sink, window, halo)
 UNPACKED = [
@@ -59,6 +66,7 @@ UNPACKED = [
     ("group 1", 1, 8, 8, 2048, 64, 4, 2048, 0),
     ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0),
     ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0),
+    ("gemma W=4096 D=256", 1, 8, 4, 8192, 256, 0, 4096, 0),
 ]
 # the decode over a bf16 SinkKVCache: (label, B, H_q, H_kv, D, num_sink,
 # window, prefill length, appends)
@@ -66,6 +74,7 @@ DECODE = [
     ("decode W=128", 4, 64, 8, 64, 0, 128, 1024, 16),
     ("decode W=1056", 4, 64, 8, 64, 0, 1056, 1024, 16),
     ("decode headline D=128", 1, 32, 8, 128, 4, 4096, 8192, 1),
+    ("decode gemma D=256", 2, 8, 4, 256, 0, 4096, 8192, 16),
 ]
 # (label, B, H_q, H_kv, D, num_sink, window, lengths, first position);
 # lengths ("mix", n, lo, hi, seed): ops.packed.pack_lengths(n, lo, hi,
@@ -82,6 +91,7 @@ PACKED = [
     ("packed pack starts at position 2", 1, 8, 2, 64, 4, 128, [300, 724],
      2),
     ("packed N=1000", 1, 8, 2, 64, 4, 128, [333, 2, 665], 0),
+    ("packed gemma 2 x 4096 D=256", 1, 8, 4, 256, 0, 4096, [4096, 4096], 0),
 ]
 
 
@@ -126,11 +136,13 @@ def device_ms(fn, calls: int = 10, tries: int = 5) -> float:
 
 def worker(kernels, packs) -> dict:
     """One pass over the shapes of ``kernels`` with the package found on
-    sys.path; ``packs`` as :func:`packed_cases` gives them."""
+    sys.path; ``packs`` as :func:`packed_cases` gives them. Returns
+    {"times": {shape and kernel: ms, device_ms}, "ptxas": {source: its
+    ptxas lines, where this pass built it}}."""
     import torch
 
     from sink_attention_tpu_torch.cache import SinkKVCache
-    from sink_attention_tpu_torch.ops import decode, flash, packed
+    from sink_attention_tpu_torch.ops import _build, decode, flash, packed
     from sink_attention_tpu_torch.utils import time_cuda
 
     dev = torch.device("cuda", 0)
@@ -197,6 +209,23 @@ def worker(kernels, packs) -> dict:
         state, kw = decode.cache_state(cache), decode.cache_args(cache)
         timed(label, {"decode_kernel": lambda: decode.decode_kernel(
             q, cache.k, cache.v, state, aux, **kw)})
+    return {"times": out, "ptxas": {
+        name: rep["ptxas"] for name, rep in _build.build_report.items()
+        if not rep["cached"]}}
+
+
+def ptxas_entries(lines) -> dict:
+    """{kernel entry: its ptxas lines (stack frame and spills, registers)}
+    of one source's build; an anonymous namespace's per-build hashes in
+    an entry's mangled name are dropped, so two builds' names meet."""
+    out, entry = {}, None
+    for line in lines:
+        if "Compiling entry" in line:
+            entry = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}",
+                           r"_GLOBAL__N__\1", line.split("'")[1])
+            out[entry] = []
+        elif entry is not None:
+            out[entry].append(line.split("ptxas info    :")[-1].strip())
     return out
 
 
@@ -249,6 +278,20 @@ def main(argv=None) -> int:
                 for name, tree in passes]
     card = card_line()
     print(f"card: {card}")
+    builds = [dict(runs[i][1]["ptxas"]) for i in (0, 1)]  # fresh builds
+    same, differ = 0, []
+    for src, lines in builds[0].items():
+        mine = ptxas_entries(builds[1].get(src, []))
+        for entry, got in ptxas_entries(lines).items():
+            if mine.get(entry) == got:
+                same += 1
+            else:
+                differ.append((src, entry, got, mine.get(entry)))
+    print(f"ptxas: {same} of {same + len(differ)} instances of the other "
+          f"checkout read the same here")
+    for src, entry, got, mine in differ:
+        print(f"ptxas differs: {src} {entry}: {got} -> {mine}")
+    runs = [(name, r["times"]) for name, r in runs]
     print(f"{'shape, kernel':52s} {'other ms':>10s} {'this ms':>10s} "
           f"{'ratio':>7s} {'other dev':>10s} {'this dev':>10s}")
     table = {}
@@ -265,7 +308,8 @@ def main(argv=None) -> int:
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(
         {"card": card, "other": str(other), "passes": runs,
-         "mean": table}, indent=1))
+         "mean": table, "ptxas": builds, "ptxas_same": same,
+         "ptxas_differ": [list(d) for d in differ]}, indent=1))
     return 0
 
 

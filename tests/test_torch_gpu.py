@@ -172,6 +172,10 @@ BWD_CASES = [
     (1, 8, 2, 250, 300, 128, 4, 128, True, 50, 0),     # N_q = 250 chunk
     (1, 8, 1, 2048, 2048, 64, 4, 128, True, 0, 0),     # long sink item
     (1, 4, 4, 300, 556, 64, 0, 128, True, 0, -256),    # halo, group 1
+    # the 512 instance: 64-row dQ items, two passes of 32-row dK/dV tiles
+    (1, 16, 1, 1000, 1000, 512, 4, 256, True, 0, 0),   # group 16, D=512
+    (1, 8, 2, 250, 300, 512, 4, 128, True, 50, 0),     # N_q = 250 chunk
+    (1, 4, 4, 300, 556, 512, 0, 128, True, 0, -256),   # halo, group 1
 ]
 
 
@@ -245,10 +249,11 @@ PACKED_CASES = [
     (1, 16, 1, 250, 64, 70, 1, True, 0, (2, 32, 216)),      # group 16, W = 1
 ] + [
     # the forward's 128-row items and 64-row consumer halves: a segment
-    # start inside a half, one at an item boundary, a 1-token segment; both
-    # head dims, with and without s_aux
+    # start inside a half, one at an item boundary, a 1-token segment; the
+    # 64, 128 and 512 instances (the last's items are the 64-row halves),
+    # with and without s_aux
     (1, 8, 2, 1024, d, 4, w, aux, 0, lengths)
-    for d in (64, 128) for aux in (True, False)
+    for d in (64, 128, 512) for aux in (True, False)
     for lengths, w in (((200, 824), 128), ((256, 768), 1024),
                        ((500, 1, 523), 128))
 ]
@@ -372,6 +377,10 @@ FWD_CASES = [
     (1, 4, 2, 256, 512, 128, 4, 128, False, 0, -256),   # garbage halo
     (1, 4, 4, 1000, 1000, 128, 70, 300, True, 0, 0),
     (4, 64, 8, 1024, 1024, 64, 0, 1024, True, 0, 0),    # gpt-oss full layer
+    # the 512 instance's 64-row items (halves of the 128-row q blocks)
+    (1, 4, 2, 1000, 1000, 512, 4, 128, True, 0, 0),     # N not a tile multiple
+    (1, 4, 2, 200, 456, 512, 4, 128, True, 256, 0),     # chunk at q_offset
+    (1, 4, 2, 256, 512, 512, 4, 128, False, 0, -256),   # garbage halo
 ]
 
 
@@ -422,6 +431,9 @@ DECODE_CASES = [
     (1, 64, 1, 64, 0, 2048, 1900, 1),    # G = 64 (MQA), 15 tiles on 8
     (1, 64, 1, 128, 4, 128, 300, 0),     # G = 64, wrapped ring
     (2, 128, 1, 64, 0, 256, 200, 1),     # G = 128: two 64-row pieces
+    # the 512 instance: 16-row pieces, 32-slot tiles
+    (2, 32, 2, 512, 4, 1024, 300, 3),    # G = 16: one piece, cluster 4
+    (1, 40, 2, 512, 0, 2048, 1900, 1),   # G = 20: two pieces, 60 tiles on 8
 ]
 
 
@@ -973,15 +985,16 @@ def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Coverage: every head_dim up to 256 and bf16 / fp16 / fp32 inputs in the
+# Coverage: every head_dim up to 512 and bf16 / fp16 / fp32 inputs in the
 # seven attention kernels (rows 1-7 of PERF.md's kernel table), at the JAX
 # tests' shapes (tests/test_flash_prefill.py, test_flash_backward.py,
 # test_decode.py), kernel against plain on the same inputs.
 # ---------------------------------------------------------------------------
 
 # 160 and 256 run in the 256 instance as they are, 250 through a padded
-# copy (its rows are not whole 16 bytes)
-COVER_DIMS = (16, 32, 80, 100, 128, 160, 250, 256)
+# copy (its rows are not whole 16 bytes); 264, 384 and 512 in the 512
+# instance as they are, 500 through a padded copy
+COVER_DIMS = (16, 32, 80, 100, 128, 160, 250, 256, 264, 384, 500, 512)
 COVER_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 COVER = [(d, dt) for d in COVER_DIMS for dt in COVER_DTYPES]
 # The forward's tolerance (atol, rtol 1e-3): JAX's tol() in
@@ -1113,7 +1126,7 @@ def test_packed_kernels_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("route", ["unpacked", "packed"])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256, 512])
 def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
     """The fp32 dQ and dK/dV kernels, unpacked and packed, on the packed
     case's inputs (seed 12), where one bf16 rounding of a P or dS value
@@ -1192,11 +1205,12 @@ def test_decode_kernel_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
-@pytest.mark.parametrize("d", [32, 80, 256])
+@pytest.mark.parametrize("d", [32, 80, 256, 512])
 def test_quantized_decode_any_head_dim(cuda, quant, d):
-    """Rows 4b-4c at D = 32, 80 and 256: the int8 / fp8 kernel against its plain
-    version (2e-2 on the bf16 output) and against the bf16 kernel over the
-    unquantized KV (the JAX tests' budget), one launch of its branch."""
+    """Rows 4b-4c at D = 32, 80, 256 and 512: the int8 / fp8 kernel
+    against its plain version (2e-2 on the bf16 output) and against the
+    bf16 kernel over the unquantized KV (the JAX tests' budget), one launch
+    of its branch."""
     gen = torch.Generator(device=cuda).manual_seed(14)
     B, H_q, H_kv, W = 2, 8, 2, 256
     caches = [SinkKVCache.init(B, H_kv, d, num_sink=4, window_size=W,
@@ -1221,12 +1235,12 @@ def test_quantized_decode_any_head_dim(cuda, quant, d):
 
 
 def test_head_dim_above_128_raises_on_cuda(cuda):
-    """D = 264 (above the widest instance, 256) has no instance: every
+    """D = 520 (above the widest instance, 512) has no instance: every
     wrapper raises on CUDA tensors, names the limit, and launches nothing
     (no plain fallback)."""
     from sink_attention_tpu_torch.ops import packed
-    q = torch.zeros(1, 4, 128, 264, dtype=torch.bfloat16, device=cuda)
-    kv = torch.zeros(1, 2, 128, 264, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(1, 4, 128, 520, dtype=torch.bfloat16, device=cuda)
+    kv = torch.zeros(1, 2, 128, 520, dtype=torch.bfloat16, device=cuda)
     rows = torch.zeros(1, 4, 128, device=cuda)
     pos = torch.arange(128, device=cuda)[None]
     wrappers = (flash.flash_fwd_kernel, flash.flash_dq_kernel,
@@ -1243,6 +1257,6 @@ def test_head_dim_above_128_raises_on_cuda(cuda):
              lambda: decode.decode_kernel(q[:, :, :1], kv, kv, (0, 4, 4),
                                           sink_cap=0, window_size=128)]
     for call in calls:
-        with pytest.raises(ValueError, match="256"):
+        with pytest.raises(ValueError, match="512"):
             call()
     assert [f.launches for f in wrappers] == counts

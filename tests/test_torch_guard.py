@@ -94,7 +94,7 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernels' input checks run before any launch, so they hold on
     the CPU too: only bf16, fp16 or fp32, one type for q/k/v, no head_dim
-    above 256, no CPU tensors (head_dim 80 and 100, and fp32, pass the
+    above 512, no CPU tensors (head_dim 80 and 100, and fp32, pass the
     checks and stop at the device)."""
     from sink_attention_tpu_torch.ops import decode, flash
 
@@ -115,11 +115,11 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
             fn(*bwd_args(q))
         with pytest.raises(TypeError):
             fn(*bwd_args(half.bfloat16(), half))
-    qb = torch.zeros(1, 2, 8, 264, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
+    qb = torch.zeros(1, 2, 8, 520, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim.*512"):
         flash.flash_fwd_kernel(qb, qb, qb)
     for fn in backward:
-        with pytest.raises(ValueError, match="head_dim"):
+        with pytest.raises(ValueError, match="head_dim.*512"):
             fn(*bwd_args(qb))
     for d, dtype in ((64, torch.bfloat16), (80, torch.float32),
                      (100, torch.float16)):
@@ -141,7 +141,7 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The packed kernels' wrappers check before any launch: only bf16,
-    fp16 or fp32, no head_dim above 256, positions of shape [B, N] only,
+    fp16 or fp32, no head_dim above 512, positions of shape [B, N] only,
     no CPU tensors."""
     from sink_attention_tpu_torch.ops import packed
 
@@ -157,9 +157,9 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                           pos):
         with pytest.raises(TypeError):
             fn(*args)
-    for fn, args in calls(torch.zeros(1, 2, 8, 264, dtype=torch.bfloat16),
+    for fn, args in calls(torch.zeros(1, 2, 8, 520, dtype=torch.bfloat16),
                           pos):
-        with pytest.raises(ValueError, match="head_dim"):
+        with pytest.raises(ValueError, match="head_dim.*512"):
             fn(*args)
     for fn, args in calls(torch.zeros(1, 2, 8, 80), pos):
         with pytest.raises(ValueError, match="CUDA"):
@@ -180,7 +180,7 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
     """The int8/fp8 decode branches check before any launch: int8 codes,
-    fp32 scales of shape [B, H_kv, S_total], bf16 q, head_dim up to 256,
+    fp32 scales of shape [B, H_kv, S_total], bf16 q, head_dim up to 512,
     one device, CUDA."""
     from sink_attention_tpu_torch.ops import decode
 
@@ -203,9 +203,9 @@ def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
         call(ks=scale[:, :, :64])
     with pytest.raises(TypeError, match="bf16 q"):
         call(q=q.float())
-    wide = torch.zeros(1, 2, 128, 264, dtype=torch.int8)
-    with pytest.raises(ValueError, match="head_dim"):
-        call(q=torch.zeros(1, 8, 1, 264, dtype=torch.bfloat16), k=wide,
+    wide = torch.zeros(1, 2, 128, 520, dtype=torch.int8)
+    with pytest.raises(ValueError, match="head_dim.*512"):
+        call(q=torch.zeros(1, 8, 1, 520, dtype=torch.bfloat16), k=wide,
              v=wide)
     with pytest.raises(ValueError, match="CUDA"):
         call(q=q[..., :32], k=codes[..., :32], v=codes[..., :32])
@@ -296,7 +296,7 @@ def test_ablation_entry_point_needs_the_card():
 def test_decode_wrapper_takes_any_group():
     """The one-launch decode takes GQA groups above 16 (MQA 32/1, 64/1):
     on the CPU the wrapper gets as far as the device check; it still
-    refuses fp32 q over a bf16 cache, head_dim 264 and inputs on two
+    refuses fp32 q over a bf16 cache, head_dim 520 and inputs on two
     devices."""
     from sink_attention_tpu_torch.ops import decode
 
@@ -312,8 +312,8 @@ def test_decode_wrapper_takes_any_group():
             call(h_q)
     with pytest.raises(TypeError, match="bf16"):
         call(32, dtype=torch.float32)
-    with pytest.raises(ValueError, match="head_dim"):
-        call(32, d=264)
+    with pytest.raises(ValueError, match="head_dim.*512"):
+        call(32, d=520)
     with pytest.raises(ValueError, match="different devices"):
         call(64, kv_device="meta")
     assert decode.decode_kernel.launches == 0

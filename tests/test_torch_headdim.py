@@ -1,8 +1,8 @@
 """Head dims other than 64 and 128: the port against the JAX package.
 
-The CUDA kernels run any head_dim up to 256 in their 64-, 128- and
-256-wide instances (``ops._build.kernel_head_dim``) and pad a head_dim whose rows
-are not whole 16 bytes (``padded_head_dim``): that rule is pure Python and
+The CUDA kernels run any head_dim up to 512 in their 64-, 128-, 256- and
+512-wide instances (``ops._build.kernel_head_dim``) and pad a head_dim whose
+rows are not whole 16 bytes (``padded_head_dim``): that rule is pure Python and
 is checked here. On the CPU the port runs the kernels' plain versions; they
 are held to the JAX kernels (interpret mode) at D in (16, 32, 80, 100) in
 the forward, the backward, the packed path and the decode, at the JAX
@@ -41,13 +41,14 @@ DIMS = (16, 32, 80, 100)
 
 
 def test_kernel_head_dim_rule():
-    """D -> D_i: the smallest instance (64, 128, 256) that holds D; none
-    above 256 (the message names the limit)."""
-    for d in range(1, 257):
+    """D -> D_i: the smallest instance (64, 128, 256, 512) that holds D;
+    none above 512 (the message names the limit)."""
+    for d in range(1, 513):
         assert _build.kernel_head_dim(d) == (64 if d <= 64 else
-                                             128 if d <= 128 else 256)
-    for d in (0, 257, 384):
-        with pytest.raises(ValueError, match="256"):
+                                             128 if d <= 128 else
+                                             256 if d <= 256 else 512)
+    for d in (0, 513, 520, 768):
+        with pytest.raises(ValueError, match="512"):
             _build.kernel_head_dim(d)
 
 
