@@ -7,7 +7,8 @@
                              # and speculative decoding, quantized weights,
                              # serving from a checkpoint, sequence-parallel
                              # attention, tensor, pipeline and FSDP
-                             # parallelism, head dims 80, 256 and 512
+                             # parallelism, head dims 80, 256, 512 and
+                             # 1024
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -88,7 +89,7 @@ Phases:
   9. quantized weights: the model's int8 and packed-int4 matmuls at their
      real shapes (the lm_head, gate_up and down at 32 and 128 experts)
      against an fp32 dequantised reference (see ``quant_op_gates``);
-     then gpt-oss-20b at full width, 24 layers, in bf16, in int8
+     then gpt-oss-20b at full width, 12 of its 24 layers, in bf16, in int8
      (quantize_params in place) and in int4 (init_quantized_params), and
      gpt-oss-120b at full width, 36 layers, 128 experts, in int4 (the
      only form that fits the card): each tree's bytes and peak memory,
@@ -98,8 +99,8 @@ Phases:
      shapes, every layer's attention kernel against plain and three
      layers against their weights dequantised to bf16 (see
      ``serve_quant``).
-  10. serving from a checkpoint: a random gpt-oss-20b checkpoint (24
-     layers) written in the released layout (bf16 dense tensors, MXFP4
+  10. serving from a checkpoint: a random gpt-oss-20b checkpoint (12 of
+     its 24 layers) written in the released layout (bf16 dense tensors, MXFP4
      experts, one safetensors shard per layer) to a temporary directory;
      load_hf_checkpoint in bf16, every dense leaf and three layers'
      experts held bit for bit to what was written; the loaded tree served
@@ -143,9 +144,15 @@ Phases:
      sliding layer's cache, trained in bf16 unpacked and packed (see
      ``gemma_phase``); phase 2 also holds rows 1-7 at its shapes.
   15. head_dim 512: the same model widened to head_dim 512 (not a released
-     model), served in bf16 and over int8 KV, trained in bf16 unpacked and
-     packed (see ``wide_phase``); phase 2 also holds rows 1-7 at its shapes
-     at D = 512 and 384, the decode in every storage (15a).
+     model), 12 of its 26 layers, served in bf16 and over int8 KV, trained
+     in bf16 unpacked and packed (see ``wide_phase``); phase 2 also holds
+     rows 1-7 at its shapes at D = 512 and 384, the decode in every storage
+     (15a).
+  16. head_dim 1024 (every D > 512 runs in the wide instance): the same
+     model widened to head_dim 1024 (not a released model), 12 of its 26
+     layers, served in bf16 and over int8 KV, trained in bf16 unpacked and
+     packed (see ``xwide_phase``); phase 2 also holds rows 1-7 at its
+     shapes and at D = 640 and 2048, the decode in every storage (16a).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -154,6 +161,7 @@ prints no result.
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import math
 import re
@@ -775,6 +783,33 @@ def kernel_phase(dev):
                                      (512, 0, torch.float16),
                                      (512, 0, torch.float32),
                                      (384, 4, torch.bfloat16))]
+    # phase 16a, head_dim 1024 in the wide instance, bf16: the prefill (2 x
+    # 8192, GQA 8/4) on a sliding (W = 4096) and a full layer and with 4
+    # StreamingLLM sinks; the training step's backward (1 x 8192); the
+    # packed step's pack of 2 x 4096; the decode over 4096 live slots in
+    # bf16, fp32, int8 and fp8; and D = 640 (a part slice) and 2048 (four
+    # slices) at N = 2048 with 4 sinks, W = 1024, in each row
+    xd = (640, 2048)
+    flash_xwide = [check_flash(dev, 2, 8, 4, 8192, 1024, ns, w, gen)
+                   for ns, w in ((0, 4096), (0, 8192), (4, 4096))]
+    flash_xwide += [check_flash(dev, 2, 8, 4, 2048, d, 4, 1024, gen)
+                    for d in xd]
+    bwd_xwide = [check_bwd(dev, 1, 8, 4, n, d, ns, w, gen, use_aux=False)
+                 for n, d, ns, w in ((8192, 1024, 0, 4096),
+                                     (8192, 1024, 0, 8192),
+                                     (2048, 640, 4, 1024),
+                                     (2048, 2048, 4, 1024))]
+    packed_xwide = [check_packed(dev, 1, 8, 4, d, 0, w, lens, gen,
+                                 use_aux=False, label=lab)
+                    for d, w, lens, lab in (
+                        (1024, 4096, [4096, 4096], "2 x 4096"),
+                        (640, 1024, [1024, 1024], "2 x 1024"),
+                        (2048, 1024, [1024, 1024], "2 x 1024"))]
+    decode_xwide = [check_decode(dev, 2, 8, 4, 1024, 0, 4096, 8192, 16, gen,
+                                 dtype=dt)
+                    for dt in (torch.bfloat16, torch.float32)]
+    decode_xwide += [check_decode(dev, 2, 8, 4, d, 4, 1024, 2048, 16, gen)
+                     for d in xd]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows,
@@ -787,6 +822,13 @@ def kernel_phase(dev):
            "flash_fwd_wide": flash_wide, "decode_wide": decode_wide,
            **{f"decode_{qn}_wide": [check_decode(
                dev, 2, 8, 4, d, 0, 4096, 8192, 16, gen, qn) for d in wide]
+              for qn in ("int8", "fp8")},
+           "flash_fwd_xwide": flash_xwide, "decode_xwide": decode_xwide,
+           **{f"decode_{qn}_xwide": [check_decode(
+               dev, 2, 8, 4, d, ns, w, n, 16, gen, qn)
+               for d, ns, w, n in ((1024, 0, 4096, 8192),
+                                   (640, 4, 1024, 2048),
+                                   (2048, 4, 1024, 2048))]
               for qn in ("int8", "fp8")}}
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name] = [r[name] for r in bwd_main]
@@ -798,16 +840,18 @@ def kernel_phase(dev):
         res[name + "_danube"] = [r[name] for r in bwd_danube]
         res[name + "_gemma"] = [r[name] for r in bwd_gemma]
         res[name + "_wide"] = [r[name] for r in bwd_wide]
+        res[name + "_xwide"] = [r[name] for r in bwd_xwide]
     for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
         res[name + "_gemma"] = [r[name] for r in packed_gemma]
         res[name + "_wide"] = [r[name] for r in packed_wide]
+        res[name + "_xwide"] = [r[name] for r in packed_xwide]
         res[name] = [r[name] for r in packed_main]
         res[name + "_headline"] = [r[name] for r in packed_head]
         res[name + "_edge"] = [r[name] for r in packed_edge]
     for key, rows in res.items():
         name = key
         for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
-                       "_gemma", "_wide"):
+                       "_gemma", "_xwide", "_wide"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -861,6 +905,11 @@ def sync_check(dev):
     delta = (do.float() * o.float()).sum(-1)
     positions = pack_positions([300, 500, 224])[None].expand(4, -1).to(dev)
     bwd = (q, k, v, do, lse, delta)
+    # the wide instance (D = 1024): the decode's one cluster launch and the
+    # forward
+    wcaches, _ = _decode_caches(dev, 1, 2, 1024, 0, 512, 300, 1, gen, None)
+    wq1 = mk(1, 4, 1, 1024)
+    wq, wk, wv = mk(1, 4, 256, 1024), mk(1, 2, 256, 1024), mk(1, 2, 256, 1024)
     calls = {
         "sink_decode_attention_cached": lambda: (
             decode.sink_decode_attention_cached(q1, caches[None], aux)),
@@ -875,7 +924,11 @@ def sync_check(dev):
         "packed_dq_kernel": lambda: packed.packed_dq_kernel(
             *bwd, positions, 0, 128),
         "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(
-            *bwd, positions, 0, 128)}
+            *bwd, positions, 0, 128),
+        "sink_decode_attention_cached (D=1024)": lambda: (
+            decode.sink_decode_attention_cached(wq1, wcaches[None])),
+        "sink_flash_attention (D=1024)": lambda: flash.sink_flash_attention(
+            wq, wk, wv, 4, 128)}
     errors = []
     for name, fn in calls.items():
         fn()  # warm: the build, the kernels' tables on the card
@@ -3739,6 +3792,8 @@ MESH_TRAIN = [("fsdp dp2 x tp2", {"data": 2, "seq": 1, "model": 2}, True),
               ("sp2 x tp2", {"data": 1, "seq": 2, "model": 2}, False)]
 MESH_PIPE = {"pipe": 2, "model": 2}
 MESH_SERVE_LAYERS = 12  # 12a's depth in the full script (of 24)
+CHECKPOINT_LAYERS = 12  # phase 10's depth in the full script (of 24)
+QUANT_LAYERS = 12  # phase 9's gpt-oss-20b depth in the full script (of 24)
 PIPE_MICRO = 2
 MESH_SERVE = {4: [(4, None)], 2: [(2, None), (2, "int8")]}  # world: (tp, KV)
 NAMED = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
@@ -4580,12 +4635,13 @@ def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
             batch=batch, prompt_len=prompt_len, new_tokens=new_tokens,
             quant=quant, profile=False), want)
     once = dict(steps=1, profile=False, split=False)
-    run("train bfloat16", lambda: train(cfg, dev, seq_len=train_len, **once),
+    run("train bfloat16", lambda: train(cfg, dev, seq_len=train_len,
+                                        **once),
         {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkdv": L})
     run("train packed bfloat16", lambda: train_packed(
         cfg, dev, seq_len=sum(segments), lens=segments, **once),
-        {"packed_fwd": L, "packed_dq": L, "packed_dkdv": L, "flash_fwd": 0,
-         "flash_dq": 0, "flash_dkdv": 0})
+        {"packed_fwd": L, "packed_dq": L, "packed_dkdv": L,
+         "flash_fwd": 0, "flash_dq": 0, "flash_dkdv": 0})
     return report, errors
 
 
@@ -4601,6 +4657,10 @@ def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
 # through the model's entry points at a full model's width and depth.
 GEMMA2_2B_WIDE = dict(GEMMA2_2B, head_dim=512)
 WIDE_RUNS = GEMMA_RUNS[:2]  # bf16, and over int8 KV
+# phase 15's depth in the full script: 12 of the 26 layers, serving and
+# training (cut to keep the script inside its limit once phase 16 came;
+# the 512 instance stays held at the full model's shapes by the 15a rows)
+WIDE_LAYERS = 12
 
 
 def wide_phase(device, **kw):
@@ -4613,19 +4673,47 @@ def wide_phase(device, **kw):
 
 
 # ---------------------------------------------------------------------------
+# Phase 16: head_dim 1024, the wide instance, on the Gemma-2-2B geometry
+# ---------------------------------------------------------------------------
+
+# Not a released model either: phase 14's geometry with head_dim 1024 (q
+# 8192 wide against hidden 2304, the 8/4 heads kept; ~4.3 B parameters,
+# 8.6 GB in bf16). It drives the kernels' wide instance (every D > 512,
+# runtime depth and 512-column slices) through the model's entry points.
+GEMMA2_2B_XWIDE = dict(GEMMA2_2B, head_dim=1024)
+# phase 16's depth in the full script: 12 of the 26 layers (alternation
+# kept), serving and training: so that the step and its checks stay under
+# the card's 80 GB (phase 15's full depth at D = 512 peaked at 76.23 GB),
+# and the script inside its limit (the 16a rows hold the wide instance at
+# the full model's shapes)
+XWIDE_LAYERS = 12
+
+
+def xwide_phase(device, **kw):
+    """Phase 16: ``gemma_phase`` on GEMMA2_2B_XWIDE: serving 2 x 8176 +
+    16 tokens in bf16 and over int8 KV, one bf16 SGD step with remat at 1
+    x 8192 and one on a pack of 2 x 4096, every gate of phase 14. Returns
+    (report, errors)."""
+    kw = {"config": GEMMA2_2B_XWIDE, "runs": WIDE_RUNS, "phase": 16, **kw}
+    return gemma_phase(device, **kw)
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances each source must hold: one per instance head
-# dim (64, 128, 256, 512) and element types (bf16, fp16, fp32 read as bf16)
-WGMMA_INSTANCES = {"flash_fwd": {"fwd": 12},
-                   "flash_bwd": {"dq": 12, "dkdv": 12},
-                   "packed": {"fwd": 12, "dq": 12, "dkdv": 12},
+# dim (64, 128, 256, 512, and the wide instance of every D > 512) and
+# element types (bf16, fp16, fp32 read as bf16)
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 15},
+                   "flash_bwd": {"dq": 15, "dkdv": 15},
+                   "packed": {"fwd": 15, "dq": 15, "dkdv": 15},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
 # decode.cu's instances (storage, instance head dim, slices of a tile): 5
 # storages x 3 head dims x 3 slice counts, less fp32 at 256 with 4 slices,
-# and the 5 storages at 512 (1 slice: its warps split O's columns)
-DECODE_INSTANCES = 49
+# the 5 storages at 512 (1 slice: its warps split O's columns), and the 5
+# storages' wide instance (every D > 512; keyed (storage, 0, 1) below)
+DECODE_INSTANCES = 54
 # the bytes of spill stores each decode instance may show: those it showed
 # when the D = 256 instances came in (CUDA 12 ptxas for sm_90a; q's
 # fragments beside O at D = 256), and 0 for every other instance
@@ -4680,8 +4768,10 @@ def spill_errors(report):
                 seen["decode"] = seen.get("decode", 0) + 1
                 inst = re.search(r"decode_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)E",
                                  entry)
+                wide = re.search(r"wide_decode_kernelINS_\d+(\w+?)EE", entry)
                 spills = re.search(r"(\d+) bytes spill stores", line)
-                key = inst and (inst[1], int(inst[2]), int(inst[3]))
+                key = ((wide[1], 0, 1) if wide else
+                       inst and (inst[1], int(inst[2]), int(inst[3])))
                 if spills is None or key is None or int(spills[1]) > \
                         DECODE_SPILL_ALLOWANCE.get(key, 0):
                     errors.append(f"{name}.cu spills past its allowance "
@@ -4724,6 +4814,9 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # a run still going near its 1200 s limit prints every thread's Python
+    # stack to stderr (where a hang waits), and goes on
+    faulthandler.dump_traceback_later(1100, file=sys.stderr)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4915,7 +5008,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 9. serving with quantized weights: the matmuls at their real shapes,
-    # gpt-oss-20b in bf16, int8 and int4, gpt-oss-120b in int4
+    # gpt-oss-20b in bf16, int8 and int4 at QUANT_LAYERS of its 24 layers
+    # (cut to keep the script inside its limit once phase 16 came),
+    # gpt-oss-120b in int4 at all 36
     t0 = time.perf_counter()
     oprows, operr = quant_op_gates(dev)
     errors += operr
@@ -4923,9 +5018,11 @@ def main() -> int:
         f"down at E=32 and 128), {time.perf_counter() - t0:.1f} s: "
         + json.dumps(oprows))
     t0 = time.perf_counter()
-    qreport, qerr = serve_quant(cfg, dev)
+    qreport, qerr = serve_quant(
+        ModelConfig.gpt_oss_20b(num_layers=QUANT_LAYERS), dev)
     errors += qerr
-    log(f"quantized serving gpt-oss-20b (24 layers; bf16, int8 in place, "
+    log(f"quantized serving gpt-oss-20b ({QUANT_LAYERS} of 24 layers; bf16, "
+        f"int8 in place, "
         f"int4 weights; engine max_batch 1 and 8, prompt 1..64, max_len "
         f"4096, chunks of 32), {time.perf_counter() - t0:.1f} s: "
         + json.dumps(qreport))
@@ -4943,11 +5040,15 @@ def main() -> int:
 
     torch.cuda.empty_cache()
 
-    # 10. serving from a checkpoint in the released layout (MXFP4 experts)
+    # 10. serving from a checkpoint in the released layout (MXFP4 experts),
+    # at 12 of gpt-oss-20b's 24 layers (its depth cut to keep the script
+    # inside its limit once phase 16 came)
     t0 = time.perf_counter()
-    creport, cerr = serve_checkpoint(cfg, dev)
+    creport, cerr = serve_checkpoint(
+        ModelConfig.gpt_oss_20b(num_layers=CHECKPOINT_LAYERS), dev)
     errors += cerr
-    log(f"checkpoint serving gpt-oss-20b (24 layers; a random checkpoint "
+    log(f"checkpoint serving gpt-oss-20b ({CHECKPOINT_LAYERS} of 24 layers; "
+        f"a random checkpoint "
         f"in the released layout written, loaded in bf16 and int4, served, "
         f"resumed, the golden protocol), {time.perf_counter() - t0:.1f} s: "
         + json.dumps(creport))
@@ -5022,20 +5123,42 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 15. head_dim 512: the widened Gemma-2-2B geometry (D=512, not a
-    # released model) at full width and depth, served in bf16 and over
-    # int8 KV, trained in bf16; phase 2 held rows 1-7 at its shapes (15a)
+    # released model) at full width, WIDE_LAYERS of its 26 layers, served
+    # in bf16 and over int8 KV, trained in bf16; phase 2 held rows 1-7 at
+    # its shapes (15a)
     t0 = time.perf_counter()
-    wreport, werr = wide_phase(dev)
+    wreport, werr = wide_phase(dev, config=dict(
+        GEMMA2_2B_WIDE, num_layers=WIDE_LAYERS,
+        layer_types=GEMMA2_2B_WIDE["layer_types"][:WIDE_LAYERS]))
     errors += werr
-    log(f"phase 15 (widened Gemma-2-2B geometry, not a released model: 26 "
-        f"layers, hidden 2304, 8/4 heads, head_dim 512, W=4096 on alternate "
+    log(f"phase 15 (widened Gemma-2-2B geometry, not a released model: "
+        f"{WIDE_LAYERS} of 26 layers, hidden 2304, 8/4 heads, head_dim 512, "
+        f"W=4096 on alternate "
         f"layers; serving 2 x 8176 + 16 new in bf16 and over int8 KV; "
         f"training 1 x 8192 and a pack of 2 x 4096 in bf16): "
         f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 16. head_dim 1024 (every D > 512: the wide instance): the Gemma-2-2B
+    # geometry widened again (not a released model) at full width,
+    # XWIDE_LAYERS of its 26 layers, served in bf16 and over int8 KV,
+    # trained in bf16; phase 2 held rows 1-7 at its shapes and at D = 640
+    # and 2048 (16a)
+    t0 = time.perf_counter()
+    xreport, xerr = xwide_phase(dev, config=dict(
+        GEMMA2_2B_XWIDE, num_layers=XWIDE_LAYERS,
+        layer_types=GEMMA2_2B_XWIDE["layer_types"][:XWIDE_LAYERS]))
+    errors += xerr
+    log(f"phase 16 (widened Gemma-2-2B geometry, not a released model: "
+        f"{XWIDE_LAYERS} of 26 layers, hidden 2304, 8/4 heads, head_dim "
+        f"1024, W=4096 on alternate layers; serving 2 x 8176 + 16 new in "
+        f"bf16 and over int8 KV; training 1 x 8192 and a pack of 2 x 4096 "
+        f"in bf16): {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         for phase, rep, num in (("danube", dreport, 13),
                                 ("gemma", greport, 14),
-                                ("wide", wreport, 15)):
+                                ("wide", wreport, 15),
+                                ("xwide", xreport, 16)):
             n = sum(r["launches"].get(row["name"], 0)
                     for r in rep.values() if "launches" in r)
             if row["name"] in ("flash_fwd", "flash_dq", "flash_dkdv",
@@ -5055,7 +5178,10 @@ def main() -> int:
         row["head_dims"], row["dtypes"] = kernel_coverage(row["name"])
         row["pairs_above_256"] = sorted(
             [d, t] for d, t in coverage_pairs(row["name"]) if d > 256)
+        row["pairs_above_512"] = sorted(
+            [d, t] for d, t in coverage_pairs(row["name"]) if d > 512)
 
+    faulthandler.cancel_dump_traceback_later()
     if errors:
         for e in errors:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

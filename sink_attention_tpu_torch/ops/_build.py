@@ -135,8 +135,11 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-# The largest instance's head dim (the instances: 64, 128, 256, 512).
-KERNEL_MAX_HEAD_DIM = 512
+# The head dims of the fixed-width instances; every head dim past the last
+# runs in the wide instance (runtime depth and 512-column slices), whose
+# host tables are keyed WIDE_INSTANCE: the smallest head dim it runs.
+KERNEL_INSTANCES = (64, 128, 256, 512)
+WIDE_INSTANCE = KERNEL_INSTANCES[-1] + 1
 # The attention kernels' input types and their dtype codes (the C entry
 # points' `dtype`, hopper.cuh's DtypeCode): fp32 is rounded to bf16 on the
 # way in and written as fp32 (the TPU's matrix unit reads fp32 at bf16
@@ -145,16 +148,19 @@ KERNEL_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 
 def kernel_head_dim(d: int) -> int:
-    """The head dim D_i of the kernel instance that runs head dim ``d``:
-    the smallest of 64, 128, 256 and 512 that holds it. The instance's
-    tiles are D_i wide; the columns past ``d`` read as zeros and are not
-    written. Host tables keyed on a head dim (the forward's, dQ's and
-    dK/dV's tiles) key on D_i. Raises ValueError for d > 512."""
+    """The key D_i of the kernel instance that runs head dim ``d``: the
+    smallest of 64, 128, 256 and 512 that holds it, whose tiles are D_i
+    wide (the columns past ``d`` read as zeros and are not written); or,
+    for d > 512, ``WIDE_INSTANCE`` (513): the one wide instance, which
+    counts its 64-column depth boxes and its 512-column output slices at
+    run time.
+    Host tables keyed on a head dim (the forward's, dQ's and dK/dV's tiles)
+    key on D_i. Raises ValueError for d < 1."""
     d = int(d)
-    if not 0 < d <= KERNEL_MAX_HEAD_DIM:
+    if d < 1:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels: "
-                         f"they take 1 <= head_dim <= {KERNEL_MAX_HEAD_DIM}")
-    return next(i for i in (64, 128, 256, 512) if d <= i)
+                         "they take head_dim >= 1")
+    return next((i for i in KERNEL_INSTANCES if d <= i), WIDE_INSTANCE)
 
 
 def padded_head_dim(d: int, elem_bytes: int = 2) -> int:
@@ -174,7 +180,7 @@ def pad_head_dim(t: torch.Tensor, d_pad: int) -> torch.Tensor:
 
 def check_attention_inputs(q, k, v, s_aux) -> None:
     """What the attention kernels take: q/k/v of one type among bf16, fp16
-    and fp32, head_dim up to 512 (:func:`kernel_head_dim`), every input on
+    and fp32, any head_dim >= 1 (:func:`kernel_head_dim`), every input on
     one device."""
     if (q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype):

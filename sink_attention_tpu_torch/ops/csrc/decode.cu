@@ -71,10 +71,10 @@
 // 128 slots (two would not fit beside q), a lane per slot for S = q . k
 // (float4 rows, conflict-free at the padded row stride) and a lane per
 // column for O += p v, q and the output fp32.
-// Head dims: any D <= 512 whose rows are whole 16 bytes (D % 8 for
-// bf16/fp16, D % 16 for the codes, D % 4 for fp32; the host pads any other
-// D), run by the instance of D_i = 64, 128, 256 or 512 with the columns
-// past D zero-filled by cp.async (src-size 0) and not written: at D = 80 the
+// Head dims: any D whose rows are whole 16 bytes (D % 8 for bf16/fp16, D %
+// 16 for the codes, D % 4 for fp32; the host pads any other D), D <= 512
+// run by the instance of D_i = 64, 128, 256 or 512 with the columns past D
+// zero-filled by cp.async (src-size 0) and not written: at D = 80 the
 // tensor cores do 128 / 80 = 1.6x the products, on a kernel bound by its
 // launch and its bytes. The 256 instance of the 16-bit and fp32 storage
 // walks tiles of 64 slots (tile_slots): two 128-slot bf16 buffers would
@@ -83,6 +83,14 @@
 // q's 64 (bf16 A fragments); the fp32 storage's lane-per-slot step keeps
 // its warp slices at 32 slots or more (at most 2 slices of a 64-slot
 // tile).
+// Past D = 512 one wide instance per storage (wide_decode_kernel) takes
+// every D: a CTA owns 16 query rows and one 512-column slice of their
+// output (the slices a grid dimension beside the pieces), walks 32-slot
+// tiles, and streams S's depth in chunks of 256 columns of K and q
+// (double-buffered) with the slice's V loaded beside the first chunk; every
+// warp computes the same S and accumulates its 128 of the slice's columns.
+// S is computed 4x per slice: at D = 1024 8x the products the bound
+// counts, on a kernel bound by its bytes.
 // The 512 instance splits O's columns across the warps (col_slices): a
 // warp's O of 16 rows x 512 would take 256 registers a lane. A CTA takes
 // 16 query rows (cta_rows; the 64-row pieces of the other instances become
@@ -845,6 +853,453 @@ int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
                          stream);
 }
 
+// ---------------------------------------------------------------------------
+// The wide instance (D > 512): its depth and its column slices are counted
+// at run time, so one instance per storage runs every D past 512.
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_MIN_D = 513;  // the smallest head dim of the instance
+constexpr int WIDE_TL = 32;      // slots per tile
+constexpr int WIDE_KC = 256;     // columns of a depth chunk of K and q
+constexpr int WIDE_SC = 512;     // output columns of a CTA (a slice)
+constexpr int WIDE_RW = 16;      // query rows of a CTA
+constexpr int WIDE_WC = WIDE_SC / NWARPS;  // a warp's output columns
+
+// Shared memory of the wide instance of storage T: two chunk buffers (a
+// tile's K rows over WIDE_KC columns, then the CTA's q rows over the same
+// columns), the tile's V rows over the slice's columns, its k and v scales;
+// rows padded by 16 bytes. After the tile loop the CTA's partial aliases
+// them: O [WIDE_RW][WIDE_SC] fp32, then m and l [WIDE_RW].
+template <class T>
+struct WideDecode {
+  static constexpr int QB = T::SCALAR ? 4 : 2;  // q's element bytes
+  static constexpr int KROW = WIDE_KC * T::BYTES + 16;
+  static constexpr int QROW = WIDE_KC * QB + 16;
+  static constexpr int VROW = WIDE_SC * T::BYTES + 16;
+  static constexpr int CHUNK = WIDE_TL * KROW + WIDE_RW * QROW;
+  static constexpr int V_OFF = 2 * CHUNK;
+  static constexpr int SC_OFF = V_OFF + WIDE_TL * VROW;  // k, v scales
+  static constexpr int TILES = SC_OFF + 2 * WIDE_TL * 4;
+  static constexpr int PART = (WIDE_RW * WIDE_SC + 2 * WIDE_RW) * 4;
+  static constexpr int BYTES = TILES > PART ? TILES : PART;
+};
+
+// One CTA: 16 query rows of a (b, kv head) and one 512-column slice of
+// their output, over the tiles rank, rank + C, ... of a cluster of C. A
+// tile's S = q K^T runs over the depth in chunks of WIDE_KC columns (K's
+// and q's, double-buffered by cp.async; the slice's V and the scales load
+// with the first chunk), every warp computing the same S and softmax (the
+// same products in the same order, so the warps and the slices of a row
+// agree bit for bit) and accumulating its 128 of the slice's columns of O;
+// the 16-bit and code storages on mma.sync as the other instances, fp32 in
+// fp32 on the CUDA cores (a lane per slot for S, a lane per column for O).
+// The CTA's partial merges over the cluster as decode_kernel's does.
+template <class T>
+__global__ void __launch_bounds__(NTHREADS)
+    wide_decode_kernel(const void* __restrict__ q,
+                       const uint8_t* __restrict__ k,
+                       const uint8_t* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale, State st,
+                       const float* __restrict__ s_aux,
+                       void* __restrict__ out, int H_kv, int G, int n_pieces,
+                       int n_slices, int S_total, int sink_cap, int window,
+                       int Dt, float scale_log2) {
+  using W = WideDecode<T>;
+  constexpr int TL = WIDE_TL, RW = WIDE_RW;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ksc = reinterpret_cast<float*>(smem + W::SC_OFF);
+  float* vsc = ksc + TL;
+  uint8_t* vbuf = smem + W::V_OFF;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  // unit: ((b * H_kv + kv head) * n_pieces + piece) * n_slices + slice
+  const int unit = blockIdx.y;
+  const int up = unit / n_slices, sl = unit - up * n_slices;
+  const int bkv = up / n_pieces;
+  const int row_lo = (up - bkv * n_pieces) * RW;  // first group row here
+  const int R = min(G - row_lo, RW);
+  const int b = bkv / H_kv;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int col0 = warp * WIDE_WC;  // the warp's first column in the slice
+  const int scol = sl * WIDE_SC;    // the slice's first column
+
+  const int sink_len = st.sink_len ? st.sink_len[b * st.stride] : st.u_sink_len;
+  const int window_len =
+      st.window_len ? st.window_len[b * st.stride] : st.u_window_len;
+  const int write_pos =
+      st.write_pos ? st.write_pos[b * st.stride] : st.u_write_pos;
+  const int hwm = min(window_len > 0 ? sink_cap + (write_pos >= window_len
+                                                       ? write_pos
+                                                       : window)
+                                     : sink_len,
+                      S_total);
+  const int n_tiles = (hwm + TL - 1) / TL;
+  const int n_chunks = (Dt + WIDE_KC - 1) / WIDE_KC;
+  const size_t head = (size_t)bkv * S_total;
+  const int row_bytes = Dt * T::BYTES;  // a cache row
+  const uint8_t* qg = static_cast<const uint8_t*>(q) +
+                      ((size_t)bkv * G + row_lo) * Dt * W::QB;
+
+  // Chunk ch of tile `tile` (K's and q's columns [ch KC, ch KC + KC)) into
+  // chunk buffer bb; zeros past the live range, the rows and Dt.
+  auto load_chunk = [&](int tile, int ch, int bb) {
+    constexpr int K16 = WIDE_KC * T::BYTES / 16, Q16 = WIDE_KC * W::QB / 16;
+    uint8_t* kd = smem + bb * W::CHUNK;
+    uint8_t* qd = kd + TL * W::KROW;
+    const int slot0 = tile * TL;
+    for (int c = tid; c < TL * K16; c += NTHREADS) {
+      const int r = c / K16, byte = ch * WIDE_KC * T::BYTES + (c % K16) * 16;
+      const bool ok = slot0 + r < hwm && byte < row_bytes;
+      const size_t off = ok ? (head + slot0 + r) * row_bytes + byte : 0;
+      cp_async16(kd + r * W::KROW + (c % K16) * 16, k + off, ok);
+    }
+    for (int c = tid; c < RW * Q16; c += NTHREADS) {
+      const int r = c / Q16, byte = ch * WIDE_KC * W::QB + (c % Q16) * 16;
+      const bool ok = r < R && byte < Dt * W::QB;
+      cp_async16(qd + r * W::QROW + (c % Q16) * 16,
+                 qg + (ok ? (size_t)r * Dt * W::QB + byte : 0), ok);
+    }
+  };
+  // The tile's V rows over the slice's columns, and its scales.
+  auto load_v = [&](int tile) {
+    constexpr int V16 = WIDE_SC * T::BYTES / 16;
+    const int slot0 = tile * TL;
+    for (int c = tid; c < TL * V16; c += NTHREADS) {
+      const int r = c / V16, byte = scol * T::BYTES + (c % V16) * 16;
+      const bool ok = slot0 + r < hwm && byte < row_bytes;
+      const size_t off = ok ? (head + slot0 + r) * row_bytes + byte : 0;
+      cp_async16(vbuf + r * W::VROW + (c % V16) * 16, v + off, ok);
+    }
+    if (T::SCALED && tid < TL) {
+      const bool ok = slot0 + tid < hwm;
+      const size_t off = head + (ok ? slot0 + tid : 0);
+      cp_async4(ksc + tid, k_scale + off, ok);
+      cp_async4(vsc + tid, v_scale + off, ok);
+    }
+  };
+  auto live = [&](int slot) {
+    const int sw = slot - sink_cap;
+    const int age = sw < write_pos ? write_pos - 1 - sw
+                                   : write_pos - 1 - sw + window;
+    return slot < hwm &&
+           (slot < sink_len || (sw >= 0 && sw < window && age < window_len));
+  };
+
+  // mma.sync storages: rows g and g + 8, m, l and O's 16 n-tiles of the
+  // warp's columns; fp32: all 16 rows, a lane per slot and per 4 columns.
+  constexpr int NR = T::SCALAR ? 16 : 2;
+  constexpr int NO = T::SCALAR ? 16 * (WIDE_WC / 32) : 4 * (WIDE_WC / 8);
+  float m[NR], l[NR], acc[NO];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+
+  for (int tile = rank; tile < n_tiles; tile += n_ranks) {
+    load_v(tile);
+    load_chunk(tile, 0, 0);
+    cp_async_commit();
+    // S: fp32, s[r] row r's score of the lane's slot; else s[nt * 4 + e]
+    // the m16n8 accumulators of slots nt * 8 + 2 t4 + (e & 1)
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      if (ch + 1 < n_chunks) {
+        load_chunk(tile, ch + 1, (ch + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();  // this chunk's group (and the V group)
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const uint8_t* kb = smem + (ch & 1) * W::CHUNK;
+      const uint8_t* qb = kb + TL * W::KROW;
+      const int cols = min(WIDE_KC, Dt - ch * WIDE_KC);
+      if constexpr (T::SCALAR) {
+        const float* kr = reinterpret_cast<const float*>(kb + lane * W::KROW);
+        for (int d4 = 0; d4 < cols / 4; ++d4) {
+          const float4 kv = *reinterpret_cast<const float4*>(kr + d4 * 4);
+#pragma unroll
+          for (int r = 0; r < 16; ++r) {
+            const float4 qv = *reinterpret_cast<const float4*>(
+                qb + r * W::QROW + d4 * 16);
+            s[r] = fmaf(qv.w, kv.w,
+                        fmaf(qv.z, kv.z,
+                             fmaf(qv.y, kv.y, fmaf(qv.x, kv.x, s[r]))));
+          }
+        }
+      } else {
+        for (int kk = 0; kk < (cols + 15) / 16; ++kk) {
+          const uint8_t* qr = qb + g * W::QROW + (kk * 16 + t4 * 2) * 2;
+          const uint32_t qa[4] = {
+              *reinterpret_cast<const uint32_t*>(qr),
+              *reinterpret_cast<const uint32_t*>(qr + 8 * W::QROW),
+              *reinterpret_cast<const uint32_t*>(qr + 16),
+              *reinterpret_cast<const uint32_t*>(qr + 8 * W::QROW + 16)};
+#pragma unroll
+          for (int nt = 0; nt < TL / 8; ++nt) {
+            const uint8_t* kr =
+                kb + (nt * 8 + g) * W::KROW + (kk * 16 + t4 * 2) * T::BYTES;
+            mma16816<T::F16>(*reinterpret_cast<float(*)[4]>(&s[nt * 4]), qa,
+                             T::pair(kr), T::pair(kr + 8 * T::BYTES));
+          }
+        }
+      }
+      __syncthreads();  // the chunk buffer is free for the load after next
+    }
+
+    if constexpr (T::SCALAR) {
+      const bool ok = live(tile * TL + lane);
+#pragma unroll
+      for (int r = 0; r < 16; ++r) {
+        const float x = ok ? s[r] * scale_log2 : -INFINITY;
+        float mx = x;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[r], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - m_use);  // m = -inf: o, l are 0
+        m[r] = m_new;
+        const float p = x == -INFINITY ? 0.f : exp2f(x - m_use);
+        s[r] = p;
+        float rs = p;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          rs += __shfl_xor_sync(0xffffffffu, rs, off);
+        l[r] = l[r] * alpha + rs;
+#pragma unroll
+        for (int c = 0; c < WIDE_WC / 32; ++c)
+          acc[r * (WIDE_WC / 32) + c] *= alpha;
+      }
+      // O += p v: a lane per column (4 of the warp's 128), each slot's p
+      // from its lane.
+      for (int j = 0; j < TL; ++j) {
+        const float* vr = reinterpret_cast<const float*>(vbuf + j * W::VROW) +
+                          col0 + lane;
+        float vv[WIDE_WC / 32];
+#pragma unroll
+        for (int c = 0; c < WIDE_WC / 32; ++c) vv[c] = vr[c * 32];
+#pragma unroll
+        for (int r = 0; r < 16; ++r) {
+          const float p = __shfl_sync(0xffffffffu, s[r], j);
+#pragma unroll
+          for (int c = 0; c < WIDE_WC / 32; ++c)
+            acc[r * (WIDE_WC / 32) + c] =
+                fmaf(p, vv[c], acc[r * (WIDE_WC / 32) + c]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < TL / 8; ++nt) {
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int cl_ = nt * 8 + t4 * 2 + e2;  // slot within the tile
+          const bool ok = live(tile * TL + cl_);
+          const float f = T::SCALED ? ksc[cl_] * scale_log2 : scale_log2;
+          s[nt * 4 + e2] = ok ? s[nt * 4 + e2] * f : -INFINITY;
+          s[nt * 4 + e2 + 2] = ok ? s[nt * 4 + e2 + 2] * f : -INFINITY;
+        }
+      }
+      // Online softmax, rows g and g + 8 (e >> 1), as decode_kernel's.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int nt = 0; nt < TL / 8; ++nt)
+          mx = fmaxf(mx, fmaxf(s[nt * 4 + 2 * r], s[nt * 4 + 2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[r], mx);
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2f(m[r] - m_use);
+        m[r] = m_new;
+        float rs = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < TL / 8; ++nt) {
+#pragma unroll
+          for (int e2 = 0; e2 < 2; ++e2) {
+            const float x = s[nt * 4 + 2 * r + e2];
+            const float p = x == -INFINITY ? 0.f : exp2f(x - m_use);
+            s[nt * 4 + 2 * r + e2] = p;
+            rs += p;
+          }
+        }
+        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+        l[r] = l[r] * alpha + rs;
+#pragma unroll
+        for (int dt = 0; dt < WIDE_WC / 8; ++dt) {
+          acc[dt * 4 + 2 * r] *= alpha;
+          acc[dt * 4 + 2 * r + 1] *= alpha;
+        }
+      }
+      // O += P V (p * v_scale when quantized), V read down its rows (the
+      // warp's columns from col0).
+      const uint8_t* vb = vbuf + col0 * T::BYTES;
+#pragma unroll
+      for (int j = 0; j < TL / 16; ++j) {
+        float p0[4], p1[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p0[e] = s[(2 * j) * 4 + e];
+          p1[e] = s[(2 * j + 1) * 4 + e];
+          if (T::SCALED) {
+            const int cl_ = j * 16 + t4 * 2 + (e & 1);
+            p0[e] *= vsc[cl_];
+            p1[e] *= vsc[cl_ + 8];
+          }
+        }
+        const uint32_t a[4] = {
+            pack2<T::F16>(p0[0], p0[1]), pack2<T::F16>(p0[2], p0[3]),
+            pack2<T::F16>(p1[0], p1[1]), pack2<T::F16>(p1[2], p1[3])};
+        const uint8_t* vr = vb + (j * 16 + t4 * 2) * W::VROW + g * T::BYTES;
+#pragma unroll
+        for (int dt = 0; dt < WIDE_WC / 8; ++dt) {
+          const uint8_t* p = vr + dt * 8 * T::BYTES;
+          const uint32_t b0 = T::one(p) | (T::one(p + W::VROW) << 16);
+          const uint32_t b1 =
+              T::one(p + 8 * W::VROW) | (T::one(p + 9 * W::VROW) << 16);
+          mma16816<T::F16>(*reinterpret_cast<float(*)[4]>(&acc[dt * 4]), a,
+                           b0, b1);
+        }
+      }
+    }
+    __syncthreads();  // V and the scales are free for the next tile
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the tiles are dead: the partial takes their place
+
+  // The CTA's partial (m, l from warp 0: every warp holds the same).
+  float* co = reinterpret_cast<float*>(smem);  // [RW][WIDE_SC]
+  float* cm = co + RW * WIDE_SC;               // [RW]
+  float* cl = cm + RW;                         // [RW]
+  if constexpr (T::SCALAR) {
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+#pragma unroll
+      for (int c = 0; c < WIDE_WC / 32; ++c)
+        co[r * WIDE_SC + col0 + c * 32 + lane] = acc[r * (WIDE_WC / 32) + c];
+      if (warp == 0 && lane == 0) {
+        cm[r] = m[r];
+        cl[r] = l[r];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = g + 8 * r;
+#pragma unroll
+      for (int dt = 0; dt < WIDE_WC / 8; ++dt)
+        *reinterpret_cast<float2*>(co + row * WIDE_SC + col0 + dt * 8 +
+                                   t4 * 2) =
+            make_float2(acc[dt * 4 + 2 * r], acc[dt * 4 + 2 * r + 1]);
+      if (warp == 0 && t4 == 0) {
+        cm[row] = m[r];
+        cl[row] = l[r];
+      }
+    }
+  }
+  cluster.sync();  // every CTA's partial is written
+
+  // Merge the cluster's partials, s_aux as one more of LSE s_aux and value
+  // 0 (decode_kernel's merge over the slice's columns).
+  constexpr int C4 = WIDE_SC / 4;
+  const int h0 = (bkv - b * H_kv) * G + row_lo;  // query head of local row 0
+  for (int i = tid * n_ranks + rank; i < R * C4; i += n_ranks * NTHREADS) {
+    const int r = i / C4, d4 = i - (i / C4) * C4;
+    const int col = scol + d4 * 4;
+    if (col >= Dt) continue;  // past the row
+    float rm[MAX_CLUSTER], rl[MAX_CLUSTER];
+    float4 ro[MAX_CLUSTER];
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c < n_ranks) {
+        rm[c] = *cluster.map_shared_rank(cm + r, c);
+        rl[c] = *cluster.map_shared_rank(cl + r, c);
+        ro[c] = *cluster.map_shared_rank(
+            reinterpret_cast<float4*>(co + r * WIDE_SC + d4 * 4), c);
+      }
+    }
+    const float aux2 = s_aux != nullptr ? s_aux[h0 + r] * LOG2E : -INFINITY;
+    float mx = aux2;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      if (c < n_ranks) mx = fmaxf(mx, rm[c]);
+    const float m_use = mx == -INFINITY ? 0.f : mx;
+    float denom = s_aux != nullptr ? exp2f(aux2 - m_use) : 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c) {
+      if (c < n_ranks) {
+        const float wt = exp2f(rm[c] - m_use);  // nothing live: 0
+        denom = fmaf(wt, rl[c], denom);
+        a.x = fmaf(wt, ro[c].x, a.x);
+        a.y = fmaf(wt, ro[c].y, a.y);
+        a.z = fmaf(wt, ro[c].z, a.z);
+        a.w = fmaf(wt, ro[c].w, a.w);
+      }
+    }
+    const float inv = denom > 0.f ? 1.f / denom : 0.f;
+    const size_t o = ((size_t)bkv * G + row_lo + r) * Dt + col;
+    if constexpr (T::SCALAR) {
+      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+    } else {
+      uint2 ob;
+      ob.x = pack2<T::F16>(a.x * inv, a.y * inv);
+      ob.y = pack2<T::F16>(a.z * inv, a.w * inv);
+      *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) = ob;
+    }
+  }
+  cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+template <class T>
+int launch_wide(const void* q, const void* k, const void* v,
+                const void* k_scale, const void* v_scale, const State& st,
+                const void* s_aux, void* out, int B, int H_q, int H_kv,
+                int S_total, int sink_cap, int window, int Dt, int cluster,
+                float scale, cudaStream_t stream) {
+  constexpr size_t smem = WideDecode<T>::BYTES;
+  static const cudaError_t attr_err = cudaFuncSetAttribute(
+      wide_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);  // once per storage
+  if (attr_err != cudaSuccess) return (int)attr_err;
+  const int G = H_q / H_kv;
+  const int n_pieces = (G + WIDE_RW - 1) / WIDE_RW;
+  const int n_slices = (Dt + WIDE_SC - 1) / WIDE_SC;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, B * H_kv * n_pieces * n_slices, 1);
+  cfg.blockDim = dim3(NTHREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wide_decode_kernel<T>, q, static_cast<const uint8_t*>(k),
+      static_cast<const uint8_t*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), st,
+      static_cast<const float*>(s_aux), out, H_kv, G, n_pieces, n_slices,
+      S_total, sink_cap, window, Dt, scale * LOG2E);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 template <class T>
 int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const void* st_sink_len,
@@ -858,7 +1313,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
       (cluster & (cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   // whole 16-byte cache rows, and q rows of whole 4 elements
-  if (D <= 0 || D > 512 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
+  if (D <= 0 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S_total <= 0) return 0;
   const State st{static_cast<const int*>(st_sink_len),
@@ -877,6 +1332,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
     return launch_d<T, 256>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
                             H_q, H_kv, S_total, sink_cap, window, D, cluster,
                             scale, s);
+  if (D >= WIDE_MIN_D)
+    return launch_wide<T>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
+                          H_kv, S_total, sink_cap, window, D, cluster, scale,
+                          s);
   return launch_d<T, 512>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                           H_kv, S_total, sink_cap, window, D, cluster, scale,
                           s);
@@ -886,12 +1345,12 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
 
 // q [B*H_q, D] (bf16; fp16 and fp32 for those caches); k/v [B*H_kv,
 // S_total, D] (bf16, fp16, fp32, or int8 codes with k_scale/v_scale
-// [B*H_kv, S_total] fp32; null otherwise), D <= 512 with whole 16-byte
+// [B*H_kv, S_total] fp32; null otherwise), any D with whole 16-byte
 // rows; the state: three int32 arrays read at b * st_stride, or, where the
 // pointers are null, the ints sink_len, window_len, write_pos for every
 // sequence; s_aux [H_q] fp32 or null; out [B*H_q, D] like q. `cluster`
 // CTAs (1, 2, 4 or 8) per (b, kv head, 64-row piece of the group; 16-row
-// at D > 256).
+// at D > 256; and 512-column slice at D > 512).
 #define SINK_DECODE_ENTRY(NAME, TYPE)                                        \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* k_scale, const void* v_scale,              \

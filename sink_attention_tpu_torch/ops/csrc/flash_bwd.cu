@@ -18,14 +18,14 @@
 // range of 64-row q blocks per 128-key block; both decided per block on
 // the host, so negative and chunked offsets are right, and both take
 // their work items longest first from a host order table. Coverage as the
-// forward's (flash_fwd.cu): D <= 512, D % 8 == 0, in the instance D_i =
-// 64, 128, 256 or 512 (dQ at 32-key tiles there, and at 512 in 64-row
+// forward's (flash_fwd.cu): any D % 8 == 0, D <= 512 in the instance D_i
+// = 64, 128, 256 or 512 (dQ at 32-key tiles there, and at 512 in 64-row
 // items whose columns the consumers split; dK/dV at 64-key items whose
 // columns the two consumers split, at 512 in two passes over 32-row q
-// tiles); bf16, fp16, and fp32 read as bf16 with fp32 gradients.
+// tiles), D > 512 in the wide instance (hopper_wide.cuh); bf16, fp16, and
+// fp32 read as bf16 with fp32 gradients.
 
-#include "hopper_bwd.cuh"
-#include "hopper_dq.cuh"
+#include "hopper_wide.cuh"
 
 using sinkattn::SinkWindowMask;
 
@@ -42,7 +42,7 @@ extern "C" int sink_dq(const void* q, const void* k, const void* v,
                        int dtype, float scale, void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_dq_dtype(dtype, q, k, v, dout, lse, delta,
+  return sinkattn::hopper::launch_dq_any(dtype, q, k, v, dout, lse, delta,
                                            order, dq, B, H_q, H_kv, N_q,
                                            N_kv, D, scale, mask, stream);
 }
@@ -60,7 +60,7 @@ extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
                          void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(qranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_dkdv_dtype(dtype, q, k, v, dout, lse,
+  return sinkattn::hopper::launch_dkdv_any(dtype, q, k, v, dout, lse,
                                              delta, order, dk, dv, B, H_q,
                                              H_kv, N_q, N_kv, D, scale, mask,
                                              stream);
@@ -70,9 +70,9 @@ extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
 // by head dim: the instance's).
 extern "C" int sink_dq_block_m() { return sinkattn::hopper::DQ_BM; }
 extern "C" int sink_dq_block_n(int D) {
-  return sinkattn::hopper::dq_bn(sinkattn::hopper::instance_d(D));
+  return sinkattn::hopper::dq_bn_any(D);
 }
 extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
 extern "C" int sink_dkdv_block_n(int D) {
-  return sinkattn::hopper::dkdv_bn(sinkattn::hopper::instance_d(D));
+  return sinkattn::hopper::dkdv_bn_any(D);
 }

@@ -19,16 +19,17 @@
 //
 // The entry point launches the template over SinkWindowMask (hopper.cuh's
 // launch_fwd, shared with the packed forward), which builds the three TMA
-// descriptors per call. Coverage: any head dim D <= 512 with D % 8 == 0
-// (the host pads any other D to the next multiple of 8), run by the
+// descriptors per call. Coverage: any head dim D with D % 8 == 0 (the
+// host pads any other D to the next multiple of 8): D <= 512 in the
 // instance of D_i = 64, 128, 256 or 512 (hopper.cuh's instance_d): at D =
 // 80 the 128 instance's tensor cores do 128 / 80 = 1.6x the products the
 // bound counts; the 256 instance walks 64-key tiles, the 512 instance
 // 32-key tiles in 64-row items whose O columns its consumers split
-// (hopper.cuh's FwdPlan); bf16 and fp16 inputs, and fp32 (rounded to bf16
-// by the host, O written as fp32).
+// (hopper.cuh's FwdPlan); D > 512 in the wide instance of hopper_wide.cuh
+// (runtime depth, 512-column slices); bf16 and fp16 inputs, and fp32
+// (rounded to bf16 by the host, O written as fp32).
 
-#include "hopper.cuh"
+#include "hopper_wide.cuh"
 
 using sinkattn::SinkWindowMask;
 using sinkattn::hopper::FWD_BM;
@@ -46,15 +47,14 @@ extern "C" int sink_fwd(const void* q, const void* k, const void* v,
                         void* stream) {
   const SinkWindowMask mask{static_cast<const int*>(ranges), N_q, N_kv,
                             num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_fwd_dtype(dtype, q, k, v, s_aux, nullptr,
-                                            o, lse, B, H_q, H_kv, N_q, N_kv,
-                                            D, scale, mask, stream);
+  return sinkattn::hopper::launch_fwd_any(dtype, q, k, v, s_aux, nullptr, o,
+                                          lse, B, H_q, H_kv, N_q, N_kv, D,
+                                          scale, mask, stream);
 }
 
 // Tile sizes the host-side range table must use (keys by head dim: the
 // instance's).
 extern "C" int sink_fwd_block_m() { return FWD_BM; }
 extern "C" int sink_fwd_block_n(int D) {
-  using namespace sinkattn::hopper;
-  return fwd_bn(instance_d(D));
+  return sinkattn::hopper::fwd_bn_any(D);
 }

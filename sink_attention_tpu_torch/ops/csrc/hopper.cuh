@@ -88,7 +88,11 @@
 //    their runs: an earlier segment's tiles, for a 64-row half of an item
 //    that lies after a segment start) waits on the stage and releases it
 //    without its products: exact, since a wholly masked tile changes
-//    neither m, l nor O (where the softmax policy allows it, kSkipDead);
+//    neither m, l nor O (where the softmax policy allows it, kSkipDead).
+//    Its four warps meet at a named barrier before the release: with no
+//    product to hold them together, a warp could otherwise still wait on
+//    the stage when the producer refills it, see its parity come round
+//    again and wait for a phase that never completes;
 //  * the mask, the softmax and P's pack are the consumers' tile step, a
 //    compile-time policy (FwdSoftmax below; ablation.cu's stages cut it to
 //    one piece of the softmax on this same pipeline);
@@ -144,9 +148,10 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Wait until the barrier's phase of parity `parity` has completed. A wait
-// that outlasts any tile by orders of magnitude traps (the launch fails)
-// rather than hold the card forever.
+// Wait until the barrier's phase of parity `parity` has completed. After
+// 2^28 failed polls it traps (the launch fails); as try_wait may suspend
+// the thread between polls, that bounds no time (hopper_wide.cuh's
+// mbar_wait_timed does).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t addr = smem_u32(bar);
   uint32_t done;
@@ -973,6 +978,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1)
         if (Softmax::kSkipDead &&
             (col0 >= h_hi || col0 + BN <= h_lo)) {  // no row sees it
           mbar_wait(v_full + s, ring.ph);
+          named_sync(1 + c, 128);  // every warp has seen the stage's phase
           if (ct == 0) mbar_arrive(empty + s);
           continue;
         }

@@ -444,6 +444,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
           if (++qt == (item.qb0 + item.n_qb) * SUB) qt = item.qb0 * SUB;
           mbar_wait(full + s, ring.ph);
           if (q0 >= w_hi || q0 + TM <= w_lo) {  // no key sees the tile
+            named_sync(1 + c, 128);  // every warp has seen the stage's phase
             if (ct == 0) mbar_arrive(empty + s);
             continue;
           }

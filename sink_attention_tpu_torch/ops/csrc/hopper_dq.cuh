@@ -367,6 +367,7 @@ __global__ void __launch_bounds__(DQ_THREADS, 1)
         const int col0 = item.block(j) * BN;
         mbar_wait(full + s, ring.ph);
         if (col0 >= h_hi || col0 + BN <= h_lo) {  // no row sees the tile
+          named_sync(1 + c, 128);  // every warp has seen the stage's phase
           if (ct == 0) mbar_arrive(empty + s);
           continue;
         }

@@ -32,8 +32,9 @@
 // two runs of keys (row_span below: forward and dQ, which put the per-cell
 // mask on partial tiles only and skip a consumer's dead tiles) and each
 // key one interval of rows [j, reach(j)) (dK/dV). Coverage as the
-// unpacked kernels' (flash_fwd.cu): D <= 512, D % 8 == 0, in the instance
-// D_i = 64, 128, 256 or 512 (its own tiles: flash_fwd.cu, flash_bwd.cu); bf16,
+// unpacked kernels' (flash_fwd.cu): any D % 8 == 0, D <= 512 in the
+// instance D_i = 64, 128, 256 or 512 (its own tiles: flash_fwd.cu,
+// flash_bwd.cu), D > 512 in the wide instance (hopper_wide.cuh); bf16,
 // fp16, and fp32 read as bf16 with fp32 outputs (the entries' `dtype`,
 // hopper.cuh's DtypeCode).
 //
@@ -59,18 +60,17 @@
 //         longest q-block range first;
 //   reach [B, N]: reach(j), so key j sees exactly the rows [j, reach(j)).
 
-#include "hopper_bwd.cuh"
-#include "hopper_dq.cuh"
+#include "hopper_wide.cuh"
 
 namespace {
 
 using sinkattn::RowSpan;
 using sinkattn::hopper::DKDV_BM;
 using sinkattn::hopper::DQ_BM;
-using sinkattn::hopper::dkdv_bn;
-using sinkattn::hopper::dq_bn;
+using sinkattn::hopper::dkdv_bn_any;
+using sinkattn::hopper::dq_bn_any;
+using sinkattn::hopper::fwd_bn_any;
 using sinkattn::hopper::FWD_BM;
-using sinkattn::hopper::instance_d;
 
 struct PackedMask {
   static constexpr bool kBatchTables = true;  // tables per row b
@@ -123,7 +123,7 @@ extern "C" int sink_pfwd(const void* q, const void* k, const void* v,
                          void* lse, int B, int H_q, int H_kv, int N, int D,
                          int num_sink, int window, int dtype, float scale,
                          void* stream) {
-  return sinkattn::hopper::launch_fwd_dtype(
+  return sinkattn::hopper::launch_fwd_any(
       dtype, q, k, v, s_aux, fwdorder, o, lse, B, H_q, H_kv, N, N, D, scale,
       make_mask(fwdtable, seg, nullptr, N, FWD_BM, num_sink, window),
       stream);
@@ -139,7 +139,7 @@ extern "C" int sink_pdq(const void* q, const void* k, const void* v,
                         const void* seg, void* dq, int B, int H_q, int H_kv,
                         int N, int D, int num_sink, int window, int dtype,
                         float scale, void* stream) {
-  return sinkattn::hopper::launch_dq_dtype(
+  return sinkattn::hopper::launch_dq_any(
       dtype, q, k, v, dout, lse, delta, dqorder, dq, B, H_q, H_kv, N, N, D,
       scale,
       make_mask(dqtable, seg, nullptr, N, DQ_BM, num_sink, window), stream);
@@ -155,10 +155,10 @@ extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
                           void* dv, int B, int H_q, int H_kv, int N, int D,
                           int num_sink, int window, int dtype, float scale,
                           void* stream) {
-  return sinkattn::hopper::launch_dkdv_dtype(
+  return sinkattn::hopper::launch_dkdv_any(
       dtype, q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D,
       scale,
-      make_mask(kvtable, nullptr, reach, N, dkdv_bn(instance_d(D)),
+      make_mask(kvtable, nullptr, reach, N, dkdv_bn_any(D),
                 num_sink, window),
       stream);
 }
@@ -166,12 +166,8 @@ extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
 // Tile sizes the host-side tables must use: the forward's, dQ's and
 // dK/dV's (keys by head dim: the instance's).
 extern "C" int sink_packed_block_m() { return FWD_BM; }
-extern "C" int sink_packed_block_n(int D) {
-  return sinkattn::hopper::fwd_bn(instance_d(D));
-}
+extern "C" int sink_packed_block_n(int D) { return fwd_bn_any(D); }
 extern "C" int sink_packed_dq_block_m() { return DQ_BM; }
-extern "C" int sink_packed_dq_block_n(int D) { return dq_bn(instance_d(D)); }
+extern "C" int sink_packed_dq_block_n(int D) { return dq_bn_any(D); }
 extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
-extern "C" int sink_packed_dkdv_block_n(int D) {
-  return dkdv_bn(instance_d(D));
-}
+extern "C" int sink_packed_dkdv_block_n(int D) { return dkdv_bn_any(D); }

@@ -16,16 +16,18 @@ not its rounding. An fp32 cache is attended in fp32 (JAX pins
 ``Precision.HIGHEST`` for a non-bf16 cache), an fp16 cache in fp16 with
 fp32 accumulation.
 
-Any head_dim up to 512 runs (the kernel's instances are 64, 128, 256 and
-512 wide, the columns past D zero-filled; the 256 instance of bf16, fp16
-and fp32 storage walks 64-slot tiles, two per 128-slot unit of
-:func:`cluster_size`, the 512 instance 32-slot tiles, 64 for the codes,
-and splits O's columns across its warps). The cache rows are copied 16
-bytes at a time, so a D whose rows are not whole 16 bytes (D % 8 != 0 in
-bf16/fp16, D % 16 != 0 for int8/fp8 codes, D % 4 != 0 in fp32) reaches
-the kernel through a zero-padded copy of q and the whole cache buffer made
-per call (``decode_kernel.padded_copies`` counts them), and the output is
-sliced back: correct, and slow in proportion to the buffer.
+Any head_dim runs (the kernel's instances are 64, 128, 256 and 512 wide,
+the columns past D zero-filled; the 256 instance of bf16, fp16 and fp32
+storage walks 64-slot tiles, two per 128-slot unit of :func:`cluster_size`,
+the 512 instance 32-slot tiles, 64 for the codes, and splits O's columns
+across its warps; past 512 one wide instance per storage walks 32-slot
+tiles, streams S's depth in 256-column chunks and gives each CTA one
+512-column slice of the output). The cache rows are copied 16 bytes at a
+time, so a D whose rows are not whole 16 bytes (D % 8 != 0 in bf16/fp16, D
+% 16 != 0 for int8/fp8 codes, D % 4 != 0 in fp32) reaches the kernel
+through a zero-padded copy of q and the whole cache buffer made per call
+(``decode_kernel.padded_copies`` counts them), and the output is sliced
+back: correct, and slow in proportion to the buffer.
 
 The per-sequence state (sink_len, window_len, write_pos) reaches the
 kernel as three ints shared by the batch (a ``SinkKVCache``), as the three
@@ -166,7 +168,7 @@ def _kernel_fn(branch):
 def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
                             quant) -> None:
     """What the int8 and fp8 kernels take: bf16 q, int8 codes, fp32
-    scales [B, H_kv, S_total], head_dim up to 512, one device."""
+    scales [B, H_kv, S_total], any head_dim, one device."""
     if quant not in ("int8", "fp8"):
         raise ValueError(f"quant must be 'int8' or 'fp8', got {quant!r}")
     if q.dtype != torch.bfloat16:
@@ -237,7 +239,7 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     :func:`decode_plain`): ``sink_decode_bf16`` / ``_f16`` / ``_f32`` for
     bf16, fp16 or fp32 storage (q of the cache's dtype),
     ``sink_decode_int8`` / ``sink_decode_fp8`` for quantized storage (q
-    bf16); one kernel per call, any GQA group, head_dim up to 512. Each
+    bf16); one kernel per call, any GQA group, any head_dim. Each
     branch counts its launches: ``decode_kernel.launches`` (the
     unquantized branch, any of its dtypes), ``.launches_int8`` and
     ``.launches_fp8``; ``.coverage`` the (head_dim, dtype) pairs run and

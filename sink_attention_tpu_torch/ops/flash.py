@@ -10,17 +10,20 @@ version:
   ``sink_dkdv`` (replaces ``_dkdv_kernel``): dQ, and dK/dV summed over
   the GQA group; plain version of the pair :func:`flash_bwd_plain`.
 
-The kernels take any head_dim up to 512 and bf16, fp16 or fp32 inputs, as
-the JAX kernels take any head_dim and float type. A head_dim D runs in the
-instance of D_i = 64, 128, 256 or 512 (``_build.kernel_head_dim``): the
-columns past D read as zeros and are not written, so no padded copy is made
-for D % 8 == 0; any other D (100: 3200 over 32 heads) takes a zero-padded
-copy to the next multiple of 8 (TMA's 16-byte rows; ``padded_copies`` counts
-them) and its outputs are sliced back, as JAX's ``_prep`` pads outside its
-kernels. fp32 inputs are rounded to bf16 once on the way in and the
-outputs written as fp32 from the kernels' fp32 accumulators: what the
-TPU's matrix unit does with fp32 at its default precision, held to JAX's
-TPU tolerances (6e-3 forward, 2e-3 backward). D > 512 raises.
+The kernels take any head_dim and bf16, fp16 or fp32 inputs, as the JAX
+kernels take any head_dim and float type. A head_dim D <= 512 runs in the
+instance of D_i = 64, 128, 256 or 512 (``_build.kernel_head_dim``), any D
+past 512 in the one wide instance (``csrc/hopper_wide.cuh``: its depth and
+its 512-column output slices counted at run time; tables keyed
+``_build.WIDE_INSTANCE``). The columns past D read as zeros and are not
+written, so no padded copy is made for D % 8 == 0; any other D (100: 3200
+over 32 heads) takes a zero-padded copy to the next multiple of 8 (TMA's
+16-byte rows; ``padded_copies`` counts them) and its outputs are sliced
+back, as JAX's ``_prep`` pads outside its kernels. fp32 inputs are rounded
+to bf16 once on the way in and the outputs written as fp32 from the
+kernels' fp32 accumulators: what the TPU's matrix unit does with fp32 at
+its default precision, held to JAX's TPU tolerances (6e-3 forward, 2e-3
+backward).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises. :class:`_SinkAttention` ties them into one autograd function
@@ -31,20 +34,22 @@ JAX.
 The forward kernel (wgmma and TMA, ``csrc/hopper.cuh``) visits, for each
 128-row query block, only the KV blocks of two ranges: the blocks holding
 the sink columns, then the window blocks after them (:func:`fwd_kv_ranges`
-at ``bn=FWD_BNS[head_dim]``: 128 keys, 64 in the 256 instance, 32 in the
-512 instance, whose items are the blocks' 64-row halves; the Python
-mirror of the JAX package's ``_build_fwd_schedule``). The dQ kernel (wgmma
-and TMA, ``csrc/hopper_dq.cuh``) walks the same two ranges at
-``bm=DQ_BM, bn=DQ_BN[head_dim]`` (128 rows x 128 keys at D = 64, x 64
-keys at D = 128, x 32 at D = 256 and 512), the q blocks with the most KV
-blocks first (:func:`dq_block_order`). The dK/dV kernel (wgmma and TMA,
+at ``bn=FWD_BNS[head_dim]``: 128 keys, 64 in the 256 and wide instances, 32
+in the 512 instance; the 512 and wide instances' items are the blocks'
+64-row halves; the Python mirror of the JAX package's
+``_build_fwd_schedule``). The dQ kernel (wgmma and TMA,
+``csrc/hopper_dq.cuh``) walks the same two ranges at ``bm=DQ_BM,
+bn=DQ_BN[head_dim]`` (128 rows x 128 keys at D = 64, x 64 keys at D = 128,
+x 32 at D = 256, 512 and wide), the q blocks with the most KV blocks first
+(:func:`dq_block_order`). The dK/dV kernel (wgmma and TMA,
 ``csrc/hopper_bwd.cuh``) visits, for each KV block of
-``DKDV_BNS[head_dim]`` slots (128, 64 in the 256 and 512 instances), the
-64-row query blocks of one range (:func:`dkdv_q_ranges` at ``bm=DKDV_BM``, the
-mirror of ``_dkdv_q_step``), the blocks with the longest ranges first
-(:func:`dkdv_block_order`). Tables keyed on a head dim key on its
-instance (``_build.kernel_head_dim``). The tables are built on the host,
-so the CPU tests check them although the kernels cannot run there.
+``DKDV_BNS[head_dim]`` slots (128, 64 in the 256, 512 and wide instances),
+the 64-row query blocks of one range (:func:`dkdv_q_ranges` at
+``bm=DKDV_BM``, the mirror of ``_dkdv_q_step``), the blocks with the
+longest ranges first (:func:`dkdv_block_order`). Tables keyed on a head dim
+key on its instance (``_build.kernel_head_dim``). The tables are built on
+the host, so the CPU tests check them although the kernels cannot run
+there.
 """
 
 from __future__ import annotations
@@ -68,14 +73,15 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
 
 FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
 # their keys per KV tile by instance head dim (FwdPlan there; a head dim's
-# instance is _build.kernel_head_dim)
-FWD_BNS = {64: 128, 128: 128, 256: 64, 512: 32}
+# instance is _build.kernel_head_dim; key 513 the wide instance, D > 512,
+# csrc/hopper_wide.cuh)
+FWD_BNS = {64: 128, 128: 128, 256: 64, 512: 32, _build.WIDE_INSTANCE: 64}
 DQ_BM = 128  # the dQ kernel's query rows per work item (csrc/hopper_dq.cuh)
 # its keys per KV tile by instance head dim (dq_bn there)
-DQ_BN = {64: 128, 128: 64, 256: 32, 512: 32}
+DQ_BN = {64: 128, 128: 64, 256: 32, 512: 32, _build.WIDE_INSTANCE: 32}
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
 # its keys per work item by instance head dim (dkdv_bn there)
-DKDV_BNS = {64: 128, 128: 128, 256: 64, 512: 64}
+DKDV_BNS = {64: 128, 128: 128, 256: 64, 512: 64, _build.WIDE_INSTANCE: 64}
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
@@ -374,7 +380,7 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     """Launch ``csrc/flash_fwd.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``) on CUDA tensors: (out, lse).
 
-    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16, fp16 or fp32, D <= 512;
+    q [B,H_q,N_q,D], k/v [B,H_kv,N_kv,D] bf16, fp16 or fp32, any D;
     s_aux [H_q] or None; out in q's dtype. ``flash_fwd_kernel.launches``
     counts the launches (``padded_copies`` those that padded D, see the
     module's docstring). A warmed call (its range table already on the
@@ -425,7 +431,7 @@ def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     """Launch ``sink_dq`` of ``csrc/flash_bwd.cu`` (the wgmma/TMA kernel
     of ``csrc/hopper_dq.cuh``): dq [B,H_q,N_q,D] in q's dtype, bitwise
     repeatable. Inputs as :func:`flash_bwd_plain`'s, on the card, q/k/v/dO
-    of one type (bf16, fp16, fp32) with D <= 512.
+    of one type (bf16, fp16, fp32), any D.
     ``flash_dq_kernel.launches`` counts the launches. A warmed call (its
     tables already on the card) synchronises nothing.
     """

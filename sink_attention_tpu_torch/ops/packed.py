@@ -20,8 +20,9 @@ plain PyTorch version:
   dQ, and dK/dV summed over the GQA group; plain version of the pair
   :func:`packed_bwd_plain`.
 
-They take what the unpacked kernels take (``ops.flash``): any head_dim up
-to 512 (a padded copy for D % 8 != 0, counted in ``padded_copies``) and
+They take what the unpacked kernels take (``ops.flash``): any head_dim (a
+padded copy for D % 8 != 0, counted in ``padded_copies``; past 512 the wide
+instance of ``csrc/hopper_wide.cuh``) and
 bf16, fp16 or fp32 inputs (fp32 rounded to bf16 on the way in, written
 as fp32).
 
@@ -295,7 +296,7 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
     """Launch ``sink_pfwd`` of ``csrc/packed.cu`` (the wgmma/TMA kernel of
     ``csrc/hopper.cuh``): (out, lse).
 
-    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32 with D <= 512;
+    q [B,H_q,N,D], k/v [B,H_kv,N,D] bf16, fp16 or fp32, any D;
     positions [B, N] (any int dtype, any device); s_aux [H_q] or None; out
     in q's dtype. ``packed_fwd_kernel.launches`` counts the launches. A
     warmed call (the positions' tables already built) synchronises

@@ -17,7 +17,8 @@ the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
 mix at both W, the 64-3072 headline pack and the edge cases);
 ``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
 and full layer mid-decode, the headline); each kernel also at one of
-phase 14's Gemma-2-2B shapes (D = 256, the 256 instance). The shapes run
+phase 14's Gemma-2-2B shapes (D = 256, the 256 instance) and of phase
+15's (D = 512, the 512 instance). The shapes run
 in four passes,
 other / this / this / other, each in its own process with that
 checkout's package on ``sys.path`` and its kernels built into its own
@@ -56,6 +57,7 @@ FORWARD = [
     ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024),
     ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096),
     ("gemma W=4096 D=256", 2, 8, 4, 8192, 256, 0, 4096),
+    ("gemma W=4096 D=512", 2, 8, 4, 8192, 512, 0, 4096),
 ]
 # the backward: (label, B, H_q, H_kv, N, D, num_sink, window, halo)
 UNPACKED = [
@@ -67,6 +69,7 @@ UNPACKED = [
     ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0),
     ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0),
     ("gemma W=4096 D=256", 1, 8, 4, 8192, 256, 0, 4096, 0),
+    ("gemma W=4096 D=512", 1, 8, 4, 8192, 512, 0, 4096, 0),
 ]
 # the decode over a bf16 SinkKVCache: (label, B, H_q, H_kv, D, num_sink,
 # window, prefill length, appends)
@@ -75,6 +78,7 @@ DECODE = [
     ("decode W=1056", 4, 64, 8, 64, 0, 1056, 1024, 16),
     ("decode headline D=128", 1, 32, 8, 128, 4, 4096, 8192, 1),
     ("decode gemma D=256", 2, 8, 4, 256, 0, 4096, 8192, 16),
+    ("decode gemma D=512", 2, 8, 4, 512, 0, 4096, 8192, 16),
 ]
 # (label, B, H_q, H_kv, D, num_sink, window, lengths, first position);
 # lengths ("mix", n, lo, hi, seed): ops.packed.pack_lengths(n, lo, hi,
@@ -92,6 +96,7 @@ PACKED = [
      2),
     ("packed N=1000", 1, 8, 2, 64, 4, 128, [333, 2, 665], 0),
     ("packed gemma 2 x 4096 D=256", 1, 8, 4, 256, 0, 4096, [4096, 4096], 0),
+    ("packed gemma 2 x 4096 D=512", 1, 8, 4, 512, 0, 4096, [4096, 4096], 0),
 ]
 
 

@@ -176,6 +176,10 @@ BWD_CASES = [
     (1, 16, 1, 1000, 1000, 512, 4, 256, True, 0, 0),   # group 16, D=512
     (1, 8, 2, 250, 300, 512, 4, 128, True, 50, 0),     # N_q = 250 chunk
     (1, 4, 4, 300, 556, 512, 0, 128, True, 0, -256),   # halo, group 1
+    # the wide instance: runtime depth, 512-column slices
+    (1, 16, 1, 1000, 1000, 640, 4, 256, True, 0, 0),   # group 16, D=640
+    (1, 8, 2, 250, 300, 1024, 4, 128, True, 50, 0),    # N_q = 250 chunk
+    (1, 4, 4, 300, 556, 1024, 0, 128, True, 0, -256),  # halo, group 1
 ]
 
 
@@ -381,6 +385,10 @@ FWD_CASES = [
     (1, 4, 2, 1000, 1000, 512, 4, 128, True, 0, 0),     # N not a tile multiple
     (1, 4, 2, 200, 456, 512, 4, 128, True, 256, 0),     # chunk at q_offset
     (1, 4, 2, 256, 512, 512, 4, 128, False, 0, -256),   # garbage halo
+    # the wide instance's 64-row items in 512-column slices
+    (1, 4, 2, 1000, 1000, 640, 4, 128, True, 0, 0),     # N not a tile multiple
+    (1, 4, 2, 200, 456, 1024, 4, 128, True, 256, 0),    # chunk at q_offset
+    (1, 4, 2, 256, 512, 2048, 4, 128, False, 0, -256),  # garbage halo
 ]
 
 
@@ -434,6 +442,9 @@ DECODE_CASES = [
     # the 512 instance: 16-row pieces, 32-slot tiles
     (2, 32, 2, 512, 4, 1024, 300, 3),    # G = 16: one piece, cluster 4
     (1, 40, 2, 512, 0, 2048, 1900, 1),   # G = 20: two pieces, 60 tiles on 8
+    # the wide instance: 16-row pieces, 512-column slices, 32-slot tiles
+    (2, 32, 2, 1024, 4, 1024, 300, 3),   # G = 16: one piece, two slices
+    (1, 40, 2, 640, 0, 2048, 1900, 1),   # G = 20: two pieces, a part slice
 ]
 
 
@@ -985,7 +996,7 @@ def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Coverage: every head_dim up to 512 and bf16 / fp16 / fp32 inputs in the
+# Coverage: every head_dim and bf16 / fp16 / fp32 inputs in the
 # seven attention kernels (rows 1-7 of PERF.md's kernel table), at the JAX
 # tests' shapes (tests/test_flash_prefill.py, test_flash_backward.py,
 # test_decode.py), kernel against plain on the same inputs.
@@ -993,8 +1004,11 @@ def test_tp_layer_and_sharded_init_on_gloo_on_the_card(cuda, tmp_path):
 
 # 160 and 256 run in the 256 instance as they are, 250 through a padded
 # copy (its rows are not whole 16 bytes); 264, 384 and 512 in the 512
-# instance as they are, 500 through a padded copy
-COVER_DIMS = (16, 32, 80, 100, 128, 160, 250, 256, 264, 384, 500, 512)
+# instance as they are, 500 through a padded copy; 520 (a last depth box
+# of 8 columns, a second slice of 8), 640, 1024 and 2048 (four slices) in
+# the wide instance
+COVER_DIMS = (16, 32, 80, 100, 128, 160, 250, 256, 264, 384, 500, 512, 520,
+              640, 1024, 2048)
 COVER_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 COVER = [(d, dt) for d in COVER_DIMS for dt in COVER_DTYPES]
 # The forward's tolerance (atol, rtol 1e-3): JAX's tol() in
@@ -1126,7 +1140,7 @@ def test_packed_kernels_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("route", ["unpacked", "packed"])
-@pytest.mark.parametrize("d", [64, 128, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
 def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
     """The fp32 dQ and dK/dV kernels, unpacked and packed, on the packed
     case's inputs (seed 12), where one bf16 rounding of a P or dS value
@@ -1205,9 +1219,10 @@ def test_decode_kernel_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("quant", ["int8", "fp8"])
-@pytest.mark.parametrize("d", [32, 80, 256, 512])
+@pytest.mark.parametrize("d", [32, 80, 256, 512, 520, 1024])
 def test_quantized_decode_any_head_dim(cuda, quant, d):
-    """Rows 4b-4c at D = 32, 80, 256 and 512: the int8 / fp8 kernel
+    """Rows 4b-4c at D = 32, 80, 256, 512, 520 (a padded copy to 528) and
+    1024: the int8 / fp8 kernel
     against its plain version (2e-2 on the bf16 output) and against the
     bf16 kernel over the unquantized KV (the JAX tests' budget), one launch
     of its branch."""
@@ -1235,28 +1250,81 @@ def test_quantized_decode_any_head_dim(cuda, quant, d):
 
 
 def test_head_dim_above_128_raises_on_cuda(cuda):
-    """D = 520 (above the widest instance, 512) has no instance: every
-    wrapper raises on CUDA tensors, names the limit, and launches nothing
-    (no plain fallback)."""
-    from sink_attention_tpu_torch.ops import packed
-    q = torch.zeros(1, 4, 128, 520, dtype=torch.bfloat16, device=cuda)
-    kv = torch.zeros(1, 2, 128, 520, dtype=torch.bfloat16, device=cuda)
-    rows = torch.zeros(1, 4, 128, device=cuda)
-    pos = torch.arange(128, device=cuda)[None]
+    """D = 520, past the widest fixed instance (512), once raised here: it
+    now runs in the wide instance. Every wrapper launches its kernel once
+    on CUDA tensors at D = 520 (no plain fallback), and holds against its
+    plain version; a non-positive head dim still raises."""
+    from sink_attention_tpu_torch.ops import _build, packed
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    d = 520
+    q, do = _randn(gen, 1, 4, 128, d), _randn(gen, 1, 4, 128, d)
+    k, v = _randn(gen, 1, 2, 128, d), _randn(gen, 1, 2, 128, d)
+    aux = torch.randn(4, generator=gen, device=cuda)
+    pos = torch.tensor([_segments(128, (50, 78))], device=cuda)
     wrappers = (flash.flash_fwd_kernel, flash.flash_dq_kernel,
                 flash.flash_dkdv_kernel, packed.packed_fwd_kernel,
                 packed.packed_dq_kernel, packed.packed_dkdv_kernel,
                 decode.decode_kernel)
     counts = [f.launches for f in wrappers]
-    calls = [lambda: flash.sink_flash_attention(q, kv, kv),
-             lambda: flash.flash_dq_kernel(q, kv, kv, q, rows, rows),
-             lambda: flash.flash_dkdv_kernel(q, kv, kv, q, rows, rows),
-             lambda: packed.sink_flash_attention_packed(q, kv, kv, pos),
-             lambda: packed.packed_dq_kernel(q, kv, kv, q, rows, rows, pos),
-             lambda: packed.packed_dkdv_kernel(q, kv, kv, q, rows, rows, pos),
-             lambda: decode.decode_kernel(q[:, :, :1], kv, kv, (0, 4, 4),
-                                          sink_cap=0, window_size=128)]
-    for call in calls:
-        with pytest.raises(ValueError, match="512"):
-            call()
-    assert [f.launches for f in wrappers] == counts
+    o, lse = flash.flash_fwd_plain(q, k, v, aux, 4, 64)
+    delta = (do.float() * o.float()).sum(-1)
+    po, plse = packed.packed_fwd_plain(q, k, v, pos, aux, 4, 64)
+    pdelta = (do.float() * po.float()).sum(-1)
+    pairs = [
+        (flash.flash_fwd_kernel(q, k, v, aux, 4, 64)[0], o),
+        (flash.flash_dq_kernel(q, k, v, do, lse, delta, 4, 64),
+         flash.flash_bwd_plain(q, k, v, do, lse, delta, 4, 64)[0]),
+        (torch.cat(flash.flash_dkdv_kernel(q, k, v, do, lse, delta, 4, 64)),
+         torch.cat(flash.flash_bwd_plain(q, k, v, do, lse, delta, 4, 64)[1:])),
+        (packed.packed_fwd_kernel(q, k, v, pos, aux, 4, 64)[0], po),
+        (packed.packed_dq_kernel(q, k, v, do, plse, pdelta, pos, 4, 64),
+         packed.packed_bwd_plain(q, k, v, do, plse, pdelta, pos, 4, 64)[0]),
+        (torch.cat(packed.packed_dkdv_kernel(q, k, v, do, plse, pdelta, pos,
+                                             4, 64)),
+         torch.cat(packed.packed_bwd_plain(q, k, v, do, plse, pdelta, pos, 4,
+                                           64)[1:])),
+        (decode.decode_kernel(q[:, :, :1], k, v, (0, 100, 100), aux,
+                              sink_cap=0, window_size=128),
+         decode.decode_plain(q[:, :, :1], k, v, (0, 100, 100), aux,
+                             sink_cap=0, window_size=128))]
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    for i, (got, ref) in enumerate(pairs):
+        scale = max(1.0, float(ref.float().abs().max()))
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= 2e-2 * scale, (wrappers[i].__name__, err, scale)
+    for bad in (0, -8):
+        with pytest.raises(ValueError, match="head_dim"):
+            _build.kernel_head_dim(bad)
+
+
+def test_chunk_op_with_three_offsets_at_head_dim_1024(cuda):
+    """The sequence-parallel chunk op (q_offset, kv_offset, col_hi) at D =
+    1024, in the wide instance: its (out, lse) partial and the gradients
+    of a loss over both against the same op on the CPU (the kernels' plain
+    versions), in fp32 there; the forward, dQ and dK/dV kernels launch
+    once each."""
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    d, offsets = 1024, (192, 64, 300)
+    q, do = _randn(gen, 1, 4, 128, d), _randn(gen, 1, 4, 128, d)
+    k, v = _randn(gen, 1, 2, 320, d), _randn(gen, 1, 2, 320, d)
+    dl = torch.randn(1, 4, 128, generator=gen, device=cuda)
+    fns = (flash.flash_fwd_kernel, flash.flash_dq_kernel,
+           flash.flash_dkdv_kernel)
+    counts = [f.launches for f in fns]
+    results = []
+    for dev, dtype in ((cuda, torch.bfloat16), ("cpu", torch.float32)):
+        leaves = [t.detach().to(dev, dtype).clone().requires_grad_()
+                  for t in (q, k, v)]
+        out, lse = flash.sink_flash_attention_chunk(*leaves, offsets, 4, 96)
+        ((out.float() * do.to(dev).float()).sum()
+         + (torch.nan_to_num(lse, neginf=0.0) * dl.to(dev)).sum()).backward()
+        results.append([t.detach().float().cpu() for t in (
+            out, lse, *(x.grad for x in leaves))])
+    assert [f.launches for f in fns] == [c + 1 for c in counts]
+    for name, got, ref in zip(("out", "lse", "dq", "dk", "dv"), *results):
+        assert torch.equal(torch.isfinite(got), torch.isfinite(ref)), name
+        fin = torch.isfinite(ref)
+        scale = max(1.0, float(ref[fin].abs().max()))
+        err = float((got[fin] - ref[fin]).abs().max())
+        assert err <= 2e-2 * scale, (name, err, scale)

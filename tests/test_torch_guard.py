@@ -94,8 +94,9 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The kernels' input checks run before any launch, so they hold on
     the CPU too: only bf16, fp16 or fp32, one type for q/k/v, no head_dim
-    above 512, no CPU tensors (head_dim 80 and 100, and fp32, pass the
-    checks and stop at the device)."""
+    below 1, no CPU tensors (head_dim 80, 100, 520 and 1024, and fp32,
+    pass the checks and stop at the device: every head_dim past 512 runs
+    in the wide instance)."""
     from sink_attention_tpu_torch.ops import decode, flash
 
     def bwd_args(t, kv=None):
@@ -115,14 +116,15 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
             fn(*bwd_args(q))
         with pytest.raises(TypeError):
             fn(*bwd_args(half.bfloat16(), half))
-    qb = torch.zeros(1, 2, 8, 520, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim.*512"):
+    qb = torch.zeros(1, 2, 8, 0, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 0"):
         flash.flash_fwd_kernel(qb, qb, qb)
     for fn in backward:
-        with pytest.raises(ValueError, match="head_dim.*512"):
+        with pytest.raises(ValueError, match="head_dim 0"):
             fn(*bwd_args(qb))
     for d, dtype in ((64, torch.bfloat16), (80, torch.float32),
-                     (100, torch.float16)):
+                     (100, torch.float16), (520, torch.bfloat16),
+                     (1024, torch.float32)):
         qb = torch.zeros(1, 2, 8, d, dtype=dtype)
         with pytest.raises(ValueError, match="CUDA"):
             flash.flash_fwd_kernel(qb, qb, qb)
@@ -141,8 +143,8 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     """The packed kernels' wrappers check before any launch: only bf16,
-    fp16 or fp32, no head_dim above 512, positions of shape [B, N] only,
-    no CPU tensors."""
+    fp16 or fp32, no head_dim below 1 (520 stops at the device),
+    positions of shape [B, N] only, no CPU tensors."""
     from sink_attention_tpu_torch.ops import packed
 
     def calls(t, positions):
@@ -157,13 +159,14 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
                           pos):
         with pytest.raises(TypeError):
             fn(*args)
-    for fn, args in calls(torch.zeros(1, 2, 8, 520, dtype=torch.bfloat16),
+    for fn, args in calls(torch.zeros(1, 2, 8, 0, dtype=torch.bfloat16),
                           pos):
-        with pytest.raises(ValueError, match="head_dim.*512"):
+        with pytest.raises(ValueError, match="head_dim 0"):
             fn(*args)
-    for fn, args in calls(torch.zeros(1, 2, 8, 80), pos):
-        with pytest.raises(ValueError, match="CUDA"):
-            fn(*args)
+    for d in (80, 520):
+        for fn, args in calls(torch.zeros(1, 2, 8, d), pos):
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(*args)
     qb = torch.zeros(1, 2, 8, 64, dtype=torch.bfloat16)
     for bad in (torch.zeros(8, dtype=torch.int32),
                 torch.zeros(1, 7, dtype=torch.int32)):
@@ -180,8 +183,8 @@ def test_packed_kernel_wrappers_refuse_what_the_kernels_do_not_take():
 
 def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
     """The int8/fp8 decode branches check before any launch: int8 codes,
-    fp32 scales of shape [B, H_kv, S_total], bf16 q, head_dim up to 512,
-    one device, CUDA."""
+    fp32 scales of shape [B, H_kv, S_total], bf16 q, head_dim >= 1 (520
+    stops at the device), one device, CUDA."""
     from sink_attention_tpu_torch.ops import decode
 
     q = torch.zeros(1, 8, 1, 64, dtype=torch.bfloat16)
@@ -203,8 +206,12 @@ def test_quantized_decode_wrapper_refuses_what_the_kernels_do_not_take():
         call(ks=scale[:, :, :64])
     with pytest.raises(TypeError, match="bf16 q"):
         call(q=q.float())
+    empty = torch.zeros(1, 2, 128, 0, dtype=torch.int8)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        call(q=torch.zeros(1, 8, 1, 0, dtype=torch.bfloat16), k=empty,
+             v=empty)
     wide = torch.zeros(1, 2, 128, 520, dtype=torch.int8)
-    with pytest.raises(ValueError, match="head_dim.*512"):
+    with pytest.raises(ValueError, match="CUDA"):
         call(q=torch.zeros(1, 8, 1, 520, dtype=torch.bfloat16), k=wide,
              v=wide)
     with pytest.raises(ValueError, match="CUDA"):
@@ -295,9 +302,9 @@ def test_ablation_entry_point_needs_the_card():
 
 def test_decode_wrapper_takes_any_group():
     """The one-launch decode takes GQA groups above 16 (MQA 32/1, 64/1):
-    on the CPU the wrapper gets as far as the device check; it still
-    refuses fp32 q over a bf16 cache, head_dim 520 and inputs on two
-    devices."""
+    on the CPU the wrapper gets as far as the device check, as it does at
+    head_dim 520 (the wide instance); it still refuses fp32 q over a bf16
+    cache, head_dim 0 and inputs on two devices."""
     from sink_attention_tpu_torch.ops import decode
 
     def call(h_q, d=64, dtype=torch.bfloat16, kv_device="cpu"):
@@ -312,8 +319,10 @@ def test_decode_wrapper_takes_any_group():
             call(h_q)
     with pytest.raises(TypeError, match="bf16"):
         call(32, dtype=torch.float32)
-    with pytest.raises(ValueError, match="head_dim.*512"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         call(32, d=520)
+    with pytest.raises(ValueError, match="head_dim 0"):
+        call(32, d=0)
     with pytest.raises(ValueError, match="different devices"):
         call(64, kv_device="meta")
     assert decode.decode_kernel.launches == 0

@@ -42,13 +42,16 @@ DIMS = (16, 32, 80, 100)
 
 def test_kernel_head_dim_rule():
     """D -> D_i: the smallest instance (64, 128, 256, 512) that holds D;
-    none above 512 (the message names the limit)."""
+    every D above 512 (513, 520, 768 among them) the one wide instance;
+    only D <= 0 raises (the message names the rule)."""
     for d in range(1, 513):
         assert _build.kernel_head_dim(d) == (64 if d <= 64 else
                                              128 if d <= 128 else
                                              256 if d <= 256 else 512)
-    for d in (0, 513, 520, 768):
-        with pytest.raises(ValueError, match="512"):
+    for d in (513, 520, 768, 4096):
+        assert _build.kernel_head_dim(d) == _build.WIDE_INSTANCE
+    for d in (0, -1):
+        with pytest.raises(ValueError, match="head_dim >= 1"):
             _build.kernel_head_dim(d)
 
 
