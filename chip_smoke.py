@@ -28,8 +28,9 @@ Phases:
      (``device_ms``, beside ``ms``, the back-to-back wall time per call)
      and the device kernels one call issues (``kernels_per_call``: at most
      1 for every decode row); the
-     decode also at MQA 32/1 and 64/1 and over a full layer's cache early
-     in its life; the backward kernels also run twice on
+     decode also at MQA 32/1 and 64/1, over a full layer's cache early
+     in its life and, past head_dim 128, at B = 1 over a 32768-slot cache
+     (D = 256 and 1024); the backward kernels also run twice on
      the same inputs and must agree bit for bit; the dQ and dK/dV rows,
      unpacked and packed, and the packed forward's also carry
      ``device_ms`` and their effective MFU; dQ and dK/dV also run at GQA
@@ -89,7 +90,7 @@ Phases:
   9. quantized weights: the model's int8 and packed-int4 matmuls at their
      real shapes (the lm_head, gate_up and down at 32 and 128 experts)
      against an fp32 dequantised reference (see ``quant_op_gates``);
-     then gpt-oss-20b at full width, 12 of its 24 layers, in bf16, in int8
+     then gpt-oss-20b at full width, 6 of its 24 layers, in bf16, in int8
      (quantize_params in place) and in int4 (init_quantized_params), and
      gpt-oss-120b at full width, 36 layers, 128 experts, in int4 (the
      only form that fits the card): each tree's bytes and peak memory,
@@ -198,6 +199,8 @@ PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 # the kernels rebuilt for Hopper after their first port, and how
 _HOPPER = "wgmma/TMA, warp-specialised, persistent"
+_DECODE = ("one launch: a cluster per (b, kv head) up to head_dim 128, the "
+           "live range split over the card past it")
 # the header that holds each wgmma/TMA kernel's template (the source
 # instantiates it over its mask policy)
 TEMPLATE = {"flash_fwd": "hopper.cuh", "packed_fwd": "hopper.cuh",
@@ -209,9 +212,8 @@ REDESIGNED = {"flash_fwd": _HOPPER, "flash_dq": _HOPPER, "flash_dkdv": _HOPPER,
               "packed_dkdv": _HOPPER,
               "ablation": _HOPPER + ", the forward's softmax policy",
               "mask_stage": _HOPPER + ", the forward's softmax policy",
-              "decode": "one cluster launch",
-              "decode_int8": "one cluster launch",
-              "decode_fp8": "one cluster launch"}
+              "decode": _DECODE, "decode_int8": _DECODE,
+              "decode_fp8": _DECODE}
 
 
 def log(msg: str) -> None:
@@ -810,6 +812,11 @@ def kernel_phase(dev):
                     for dt in (torch.bfloat16, torch.float32)]
     decode_xwide += [check_decode(dev, 2, 8, 4, d, 4, 1024, 2048, 16, gen)
                      for d in xd]
+    # the split decode at B = 1 over a long context: the Gemma-2-2B
+    # geometry's 4 KV heads over a wrapped 32768-slot window (134 MB of bf16
+    # K/V at D = 256), at D = 256 and 1024
+    decode_long = [check_decode(dev, 1, 8, 4, d, 0, 32768, 32768, 16, gen)
+                   for d in (256, 1024)]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows,
@@ -824,6 +831,7 @@ def kernel_phase(dev):
                dev, 2, 8, 4, d, 0, 4096, 8192, 16, gen, qn) for d in wide]
               for qn in ("int8", "fp8")},
            "flash_fwd_xwide": flash_xwide, "decode_xwide": decode_xwide,
+           "decode_long": decode_long,
            **{f"decode_{qn}_xwide": [check_decode(
                dev, 2, 8, 4, d, ns, w, n, 16, gen, qn)
                for d, ns, w, n in ((1024, 0, 4096, 8192),
@@ -851,7 +859,7 @@ def kernel_phase(dev):
     for key, rows in res.items():
         name = key
         for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
-                       "_gemma", "_xwide", "_wide"):
+                       "_gemma", "_xwide", "_wide", "_long"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -905,7 +913,7 @@ def sync_check(dev):
     delta = (do.float() * o.float()).sum(-1)
     positions = pack_positions([300, 500, 224])[None].expand(4, -1).to(dev)
     bwd = (q, k, v, do, lse, delta)
-    # the wide instance (D = 1024): the decode's one cluster launch and the
+    # D = 1024: the split decode (its scratch and counters) and the wide
     # forward
     wcaches, _ = _decode_caches(dev, 1, 2, 1024, 0, 512, 300, 1, gen, None)
     wq1 = mk(1, 4, 1, 1024)
@@ -3791,9 +3799,13 @@ def sp_phase(device, *, n=SP_N, worlds=(1, 2, 4), cases=SP_CASES):
 MESH_TRAIN = [("fsdp dp2 x tp2", {"data": 2, "seq": 1, "model": 2}, True),
               ("sp2 x tp2", {"data": 1, "seq": 2, "model": 2}, False)]
 MESH_PIPE = {"pipe": 2, "model": 2}
-MESH_SERVE_LAYERS = 12  # 12a's depth in the full script (of 24)
+# 12a and phase 9's 20b trees cut to 6 of 24 after a full run on one H100
+# took 1145 s of its 1200 s limit (host-bound phases, which swing 30-60%
+# between runs); phase 10 keeps 12: at 6 its int4 load's fixed costs put
+# the load's peak above the bf16 tree's, which its gate forbids
+MESH_SERVE_LAYERS = 6  # 12a's depth in the full script (of 24)
 CHECKPOINT_LAYERS = 12  # phase 10's depth in the full script (of 24)
-QUANT_LAYERS = 12  # phase 9's gpt-oss-20b depth in the full script (of 24)
+QUANT_LAYERS = 6  # phase 9's gpt-oss-20b depth in the full script (of 24)
 PIPE_MICRO = 2
 MESH_SERVE = {4: [(4, None)], 2: [(2, None), (2, "int8")]}  # world: (tp, KV)
 NAMED = ("lm_head", "layers[0].attn.sinks", "layers[0].attn.wq",
@@ -4710,18 +4722,14 @@ WGMMA_INSTANCES = {"flash_fwd": {"fwd": 15},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
 # decode.cu's instances (storage, instance head dim, slices of a tile): 5
-# storages x 3 head dims x 3 slice counts, less fp32 at 256 with 4 slices,
-# the 5 storages at 512 (1 slice: its warps split O's columns), and the 5
-# storages' wide instance (every D > 512; keyed (storage, 0, 1) below)
-DECODE_INSTANCES = 54
+# storages x 2 head dims (64, 128) x 3 slice counts, and the 5 storages'
+# split decode (every D > 128; keyed (storage, 0, 1) below)
+DECODE_INSTANCES = 35
 # the bytes of spill stores each decode instance may show: those it showed
-# when the D = 256 instances came in (CUDA 12 ptxas for sm_90a; q's
-# fragments beside O at D = 256), and 0 for every other instance
+# when the D = 256 instances came in (CUDA 12 ptxas for sm_90a), and 0 for
+# every other instance
 DECODE_SPILL_ALLOWANCE = {
-    ("Bf16", 64, 4): 8, ("Fp16", 64, 4): 8, ("Int8", 128, 4): 4,
-    ("Bf16", 256, 1): 44, ("Fp16", 256, 1): 44, ("Fp32", 256, 1): 192,
-    ("Fp32", 256, 2): 20, ("Int8", 256, 1): 264, ("Int8", 256, 2): 56,
-    ("Int8", 256, 4): 4, ("Fp8", 256, 1): 256, ("Fp8", 256, 2): 80}
+    ("Bf16", 64, 4): 8, ("Fp16", 64, 4): 8, ("Int8", 128, 4): 4}
 
 
 def coverage_pairs(name):
@@ -4768,7 +4776,7 @@ def spill_errors(report):
                 seen["decode"] = seen.get("decode", 0) + 1
                 inst = re.search(r"decode_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)E",
                                  entry)
-                wide = re.search(r"wide_decode_kernelINS_\d+(\w+?)EE", entry)
+                wide = re.search(r"deep_decode_kernelINS_\d+(\w+?)EE", entry)
                 spills = re.search(r"(\d+) bytes spill stores", line)
                 key = ((wide[1], 0, 1) if wide else
                        inst and (inst[1], int(inst[2]), int(inst[3])))
@@ -5076,7 +5084,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 12. tensor, pipeline and FSDP parallelism over a device mesh, worlds
-    # of 4 and 2 gloo ranks on the one card; 12a's TP serving at 12 of
+    # of 4 and 2 gloo ranks on the one card; 12a's TP serving at 6 of
     # gpt-oss-20b's 24 layers (its depth cut to keep the script inside its
     # limit once phase 13 came)
     t0 = time.perf_counter()

@@ -25,9 +25,12 @@
 // Each live K/V byte is used for 2*G FLOP (G = GQA group), far below the
 // ~295 FLOP/byte ridge, so the least time is the live cache bytes over
 // 3.35 TB/s: 4*D bytes per live slot and KV head in bf16, 2*D + 8 (codes
-// and two scales) when quantized. At gpt-oss-20b's shapes that is ~1 us, under
-// the cost of a launch, so the design spends one launch per call, no
-// scratch in device memory and no host work beyond the output allocation:
+// and two scales) when quantized, 8*D in fp32. Two designs, by head dim:
+//
+// D <= 128 (decode_kernel; the instances of D_i = 64 and 128): at
+// gpt-oss-20b's shapes the bound is ~1 us, under the cost of a launch, so
+// the design spends one launch per call, no scratch in device memory and
+// no host work beyond the output allocation:
 //  * one kernel, launched with cudaLaunchKernelEx as thread block clusters
 //    along the split axis: a cluster of C CTAs (1..8, a power of two chosen
 //    by the host from the live range: 1 for a 128-slot sliding ring, 8 for
@@ -57,58 +60,93 @@
 // Measured floor (H100): ~5.4 us of device time for one tile on one CTA
 // (launch, the q and first-tile latency, the merge), ~2.2 us more per
 // further tile a CTA walks; a full layer's 1040 live slots are 9 tiles,
-// so 8 CTAs leave one walking two.
+// so 8 CTAs leave one walking two. fp32 storage computes in fp32 on the
+// CUDA cores (F32Warp below: as the JAX kernel pins Precision.HIGHEST for
+// a non-bf16 cache): one buffer of 128 slots (two would not fit beside
+// q), a lane per slot for S = q . k (float4 rows, conflict-free at the
+// padded row stride) and a lane per column for O += p v.
+//
+// D > 128 (deep_decode_kernel; one instance per storage, its depth
+// counted at run time): a Gemma-2-2B layer's cache at B = 2 is 8 (b, kv
+// head) pairs of 4096 live slots, 34 MB in bf16 (~10 us at 3.35 TB/s), and
+// at B = 1 over a long context a few pairs hold all the bytes. A cluster
+// per pair would leave most of the 132 SMs idle and every CTA waiting a
+// round trip per tile, so the design fills the card and keeps the bytes
+// in flight instead:
+//  * split-K over the card: the host cuts the live range into n_split
+//    ranges (at most 512) of split_slots slots (a multiple of 32; at most
+//    512 unless 512 ranges of 512 do not cover the cache), so that (b, kv
+//    head, piece of up to 16 rows) x n_split CTAs are about twice the SMs
+//    (fewer where the merge below would outweigh a range); one launch, grid
+//    (n_split, units). Each CTA writes an fp32 partial (m, l,
+//    unnormalised O) of its range to a workspace the wrapper keeps per
+//    stream; the last CTA of a unit to arrive (an atomic count per unit,
+//    zeroed once, which that CTA sets back to 0) merges the unit's
+//    partials, s_aux joining as one more partial of LSE s_aux and value 0,
+//    and writes the row once: TMA bulk copies bring the partials into the
+//    ring, two chunks in flight (the first two issued before the row
+//    statistics are read), summed branch-free. No host synchronisation: a
+//    ragged state's hwm is read on the device, and a range past it is
+//    empty (its partial m = -inf, skipped);
+//  * a ring of 4 boxes (32 slots x 512 bytes of a row: a depth chunk of K
+//    or a column chunk of V; 3 in flight, cp.async from every thread)
+//    streams the range's K boxes, tile by tile, then its V boxes, column
+//    chunk by column chunk, with no bubble between the two: each K and V
+//    byte of the range is read once, at any D;
+//  * S once per tile: the 4 warps split a tile's 32 slots (8 each, the
+//    whole depth, q's rows resident in shared memory; the 16 columns of a
+//    k-step permuted alike in q and K, so one 64-bit (codes: 32-bit) load
+//    of a K row gives both B registers), so S is computed and every int8 /
+//    fp8 code of K decoded once per CTA; S of the whole range waits in
+//    shared memory (exp2 domain, scaled, masked), and one exact softmax
+//    over the range gives m, l and P (rounded to bf16, fp16 for fp16
+//    storage, times v_scale when quantized, as the A operand; the row sum
+//    takes p alone in fp32). A range past 512 slots (a cache past 512 x
+//    512) is walked in passes of 512, each pass's P taken against the
+//    running max and the partial O already written rescaled in place;
+//  * P V: the warps split each V column chunk's columns (64 16-bit / 128
+//    code columns a warp), a lane owning 4 adjacent columns of each group
+//    of 32 (one load of a V row gives its 4 n-tiles, paired across rows by
+//    byte permutes), so each V code is decoded once per CTA, and a chunk's
+//    O leaves registers for the partial when its last tile is done;
+//  * int8 codes decode by bit operations at the full rate (Int8::from16),
+//    not by int -> float converts;
+//  * fp32 storage in fp32 on the CUDA cores in the same boxes: S with a
+//    lane per (slot, quarter of the depth), the quarters summed by two
+//    shuffles; P V with a lane per column, p read from shared memory by
+//    broadcast, 4 query rows at a time (S and P slot-major);
+//  * a CTA takes up to 16 query rows (fewer where q's rows would not fit
+//    227 KB beside the ring, S and P: fp32 at D = 2048 takes 8), the
+//    m16n8k16 tiles' rows past the group's read as zeros.
+// Measured (H100 SXM, 700 W; B = 2, GQA 8/4, 4096 live slots): bf16, fp16
+// and fp32 storage reach 51-66% of the byte bound at D = 256-1024; the
+// codes 21-43%, compute-bound at two CTAs an SM (the byte decode and the
+// mma.sync chain per box); a short range is bound by the fixed ~8 us of
+// the first box, the softmax and the merge.
+//
 // Quantized storage computes attention over the dequantized cache: the
-// codes decode exactly to bf16 (int8 by an int -> float convert, fp8 by
-// Hopper's e4m3 -> f16 convert; every int8 and e4m3 value is a bf16
-// value), score = (q . codes_k) * k_scale in fp32, and P V takes
+// codes decode exactly to bf16 (int8 by an int -> float convert, or by bit
+// operations past D = 128; fp8 by Hopper's e4m3 -> f16 convert; every
+// int8 and e4m3 value is a bf16 value), score = (q . codes_k) * k_scale in fp32, and P V takes
 // p * v_scale rounded to bf16 (the row sum takes p alone in fp32). The
 // bf16 rounding of P, as in the prefill kernels, costs up to 2^-9 of an
 // output (DECODE_TOL 2e-2 on the bf16 output). fp16 storage is the bf16
 // branch with fp16 mma.sync and P rounded to fp16 (q and the output fp16).
-// fp32 storage computes in fp32 on the CUDA cores (F32Warp below: as the
-// JAX kernel pins Precision.HIGHEST for a non-bf16 cache): one buffer of
-// 128 slots (two would not fit beside q), a lane per slot for S = q . k
-// (float4 rows, conflict-free at the padded row stride) and a lane per
-// column for O += p v, q and the output fp32.
 // Head dims: any D whose rows are whole 16 bytes (D % 8 for bf16/fp16, D %
-// 16 for the codes, D % 4 for fp32; the host pads any other D), D <= 512
-// run by the instance of D_i = 64, 128, 256 or 512 with the columns past D
-// zero-filled by cp.async (src-size 0) and not written: at D = 80 the
-// tensor cores do 128 / 80 = 1.6x the products, on a kernel bound by its
-// launch and its bytes. The 256 instance of the 16-bit and fp32 storage
-// walks tiles of 64 slots (tile_slots): two 128-slot bf16 buffers would
-// take 270 KB; the codes keep 128 (a tile of K and V codes is 70 KB). A
-// warp's O of 16 rows x 256 columns is 128 fp32 registers a lane beside
-// q's 64 (bf16 A fragments); the fp32 storage's lane-per-slot step keeps
-// its warp slices at 32 slots or more (at most 2 slices of a 64-slot
-// tile).
-// Past D = 512 one wide instance per storage (wide_decode_kernel) takes
-// every D: a CTA owns 16 query rows and one 512-column slice of their
-// output (the slices a grid dimension beside the pieces), walks 32-slot
-// tiles, and streams S's depth in chunks of 256 columns of K and q
-// (double-buffered) with the slice's V loaded beside the first chunk; every
-// warp computes the same S and accumulates its 128 of the slice's columns.
-// S is computed 4x per slice: at D = 1024 8x the products the bound
-// counts, on a kernel bound by its bytes.
-// The 512 instance splits O's columns across the warps (col_slices): a
-// warp's O of 16 rows x 512 would take 256 registers a lane. A CTA takes
-// 16 query rows (cta_rows; the 64-row pieces of the other instances become
-// 16-row pieces); each of its 4 warps computes the same S = q K^T of those
-// rows over the whole tile and the same softmax, and accumulates only its
-// 128 columns of O (64 registers a lane), so the warps' partials write
-// disjoint columns and share m and l; q's rows sit in shared memory (their
-// fragments, 128 registers a lane, are read per k-step). Tiles of 32
-// slots for the 16-bit and fp32 storages (two 16-bit buffers 130 KB, the
-// one fp32 buffer 129 KB beside q's 32 KB), 64 for the codes (two buffers
-// 133 KB). S is computed by every warp: 4x its products, on a kernel
-// bound by its bytes and its launch.
+// 16 for the codes, D % 4 for fp32; the host pads any other D); D <= 128
+// runs in the instance of D_i = 64 or 128 with the columns past D
+// zero-filled by cp.async (src-size 0) and not written, D > 128 in the
+// deep instance, whose chunks past D are zero-filled and whose k-steps
+// and n-tiles past D are skipped.
 
 #include <cooperative_groups.h>
 
 #include "attention.cuh"
+#include "hopper_wide.cuh"  // the mbarrier helpers
 
 #include <cuda_fp8.h>
+
+#include <algorithm>
 
 namespace cg = cooperative_groups;
 
@@ -121,8 +159,12 @@ using sinkattn::cp_async_wait;
 using sinkattn::mma16816;
 using sinkattn::pack2;
 using sinkattn::pack_bf16;
+using sinkattn::hopper::mbar_expect_tx;
+using sinkattn::hopper::mbar_init;
+using sinkattn::hopper::mbar_wait_timed;
+using sinkattn::hopper::smem_u32;
 
-constexpr int TILE = 128;      // slots per tile (fewer at D >= 256)
+constexpr int TILE = 128;      // slots per tile (D <= 128)
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr int NWARPS = NTHREADS / 32;
 static_assert(NTHREADS == TILE, "a thread copies one slot's scales");
@@ -177,16 +219,46 @@ struct Int8 {
   __device__ __forceinline__ static uint32_t one(const uint8_t* p) {
     return bf16_bits((float)*reinterpret_cast<const int8_t*>(p));
   }
+  // The split decode's conversions, by bit operations at the full rate.
+  // The two codes of w's low 16 bits (low byte first) as a bf16 pair.
+  __device__ __forceinline__ static uint32_t from16(uint32_t w) {
+    return from_b02(__byte_perm(w, 0u, 0x4140));  // [b0, 0, b1, 0]
+  }
+  // The codes in bytes 0 and 2 of t (bytes 1 and 3 ignored) as a bf16
+  // pair: a code x's low 7 bits under the exponent of bf16 128 give 128 +
+  // (x & 127), less bf16 128 (x >= 0) or 256 (x < 0: its sign bit lands in
+  // the exponent's lowest bit): exact.
+  __device__ __forceinline__ static uint32_t from_b02(uint32_t t) {
+    const uint32_t hv = (t & 0x007f007fu) | 0x43004300u;
+    const uint32_t hc = (t & 0x00800080u) | 0x43004300u;
+    const __nv_bfloat162 d =
+        __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&hv),
+                *reinterpret_cast<const __nv_bfloat162*>(&hc));
+    return *reinterpret_cast<const uint32_t*>(&d);
+  }
+  // Byte nt of w0 and of w1 (two rows of a column) as a bf16 pair.
+  __device__ __forceinline__ static uint32_t vpair(uint32_t w0, uint32_t w1,
+                                                   int nt) {
+    return from_b02(__byte_perm(w0, w1, nt | ((4 + nt) << 8)));
+  }
 };
 
 struct Fp8 {
   static constexpr int BYTES = 1;
   static constexpr bool SCALED = true, F16 = false, SCALAR = false;
-  __device__ __forceinline__ static uint32_t pair(const uint8_t* p) {
+  __device__ __forceinline__ static uint32_t from16(uint32_t w) {
     const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-        *reinterpret_cast<const __nv_fp8x2_storage_t*>(p), __NV_E4M3);
+        static_cast<__nv_fp8x2_storage_t>(w), __NV_E4M3);
     const float2 f = __half22float2(__half2(h));
     return pack_bf16(f.x, f.y);
+  }
+  __device__ __forceinline__ static uint32_t pair(const uint8_t* p) {
+    return from16(*reinterpret_cast<const __nv_fp8x2_storage_t*>(p));
+  }
+  // Byte nt of w0 and of w1 (two rows of a column) as a bf16 pair.
+  __device__ __forceinline__ static uint32_t vpair(uint32_t w0, uint32_t w1,
+                                                   int nt) {
+    return from16(__byte_perm(w0, w1, nt | ((4 + nt) << 4)));
   }
   __device__ __forceinline__ static uint32_t one(const uint8_t* p) {
     const __half_raw h = __nv_cvt_fp8_to_halfraw(*p, __NV_E4M3);
@@ -204,82 +276,47 @@ struct State {
   int u_sink_len, u_window_len, u_write_pos;
 };
 
-// Slots per tile of an instance: TILE, but 64 for unquantized storage at
-// D = 256, where two 128-slot buffers would not fit, and at D = 512 32
-// (unquantized) or 64 (codes) (see the header).
-template <class T, int D>
-__host__ __device__ constexpr int tile_slots() {
-  return D == 512   ? (T::SCALED ? 64 : 32)
-         : D == 256 ? (T::SCALED ? TILE : 64)
-                    : TILE;
-}
-
-// Warps that split O's columns (the 512 instance: each of the 4 owns a
-// quarter), and query rows per CTA: 64, one 16-row m-tile a warp, or 16
-// where the warps split the columns.
-template <int D>
-__host__ __device__ constexpr int col_slices() {
-  return D == 512 ? NWARPS : 1;
-}
-template <int D>
-__host__ __device__ constexpr int cta_rows() {
-  return col_slices<D>() > 1 ? 16 : ROWS;
-}
-
 // One buffer: a tile's K and V rows (padded) and, when quantized, their
 // per-slot scales.
 template <class T, int D>
 __host__ __device__ constexpr size_t buf_bytes() {
-  return 2 * (size_t)tile_slots<T, D>() * (D * T::BYTES + 16) +
-         (T::SCALED ? 2 * tile_slots<T, D>() * sizeof(float) : 0);
+  return 2 * (size_t)TILE * (D * T::BYTES + 16) +
+         (T::SCALED ? 2 * TILE * sizeof(float) : 0);
 }
 
 // Tile buffers: two (the next tile streams in while one is computed), one
-// for fp32 storage (two do not fit at D = 128 or 256).
+// for fp32 storage (two do not fit at D = 128).
 template <class T>
 __host__ __device__ constexpr int n_bufs() {
   return T::SCALAR ? 1 : 2;
 }
 
-// The CTA's q rows in shared memory where the warps split O's columns
-// (16-bit or code storage: bf16 / fp16 rows padded by 16 bytes, so a
-// fragment's 8 rows fall on distinct banks).
-template <class T, int D>
-__host__ __device__ constexpr bool q_in_smem() {
-  return col_slices<D>() > 1 && !T::SCALAR;
-}
-__host__ __device__ constexpr int q_row_bytes(int D) { return D * 2 + 16; }
-
-// The buffers, then the CTA's q rows (fp32 storage: [cta_rows][D] fp32;
-// q_in_smem: [cta_rows][q_row_bytes]); after the tile loop the partials
-// alias them: per warp [NWARPS][16][D] + m, l [NWARPS][16], then the
-// CTA's [cta_rows][D] + m, l [cta_rows].
+// The buffers, then the CTA's q rows (fp32 storage: [ROWS][D] fp32); after
+// the tile loop the partials alias them: per warp [NWARPS][16][D] + m, l
+// [NWARPS][16], then the CTA's [ROWS][D] + m, l [ROWS].
 template <class T, int D>
 constexpr size_t smem_bytes() {
-  constexpr size_t RW = cta_rows<D>();
-  constexpr size_t tiles =
-      n_bufs<T>() * buf_bytes<T, D>() +
-      (T::SCALAR ? RW * D * sizeof(float) : 0) +
-      (q_in_smem<T, D>() ? RW * q_row_bytes(D) : 0);
+  constexpr size_t tiles = n_bufs<T>() * buf_bytes<T, D>() +
+                           (T::SCALAR ? ROWS * D * sizeof(float) : 0);
   constexpr size_t partials =
-      (NWARPS * 16 * ((size_t)D + 2) + RW * ((size_t)D + 2)) * sizeof(float);
+      (NWARPS * 16 * ((size_t)D + 2) + ROWS * ((size_t)D + 2)) *
+      sizeof(float);
   return tiles > partials ? tiles : partials;
 }
 
 // The fp32 storage's warp step: the warp (m-tile of 16 query rows, slot
-// slice of SW = TL / SL >= 32 slots of a TL-slot tile) computes in fp32 on
-// the CUDA cores. S: a
-// lane per slot (NS = SW / 32 slots a lane), q rows read from shared
-// memory by broadcast, K rows as float4 (row stride D + 4 floats: a
-// quarter warp's 8 rows fall on distinct banks); the online softmax per
-// row over the lanes (exp2 domain); O += p v over the warp's D / CS
-// columns from col0 (CS warps split them): a lane per column (D / CS / 32
-// columns a lane), each slot's p taken from its lane by a shuffle.
-template <int D, int SL, int TL, int CS = 1>
+// slice of SW = TILE / SL >= 32 slots of a tile) computes in fp32 on the
+// CUDA cores. S: a lane per slot (NS = SW / 32 slots a lane), q rows read
+// from shared memory by broadcast, K rows as float4 (row stride D + 4
+// floats: a quarter warp's 8 rows fall on distinct banks); the online
+// softmax per row over the lanes (exp2 domain); O += p v: a lane per
+// column (D / 32 columns a lane), each slot's p taken from its lane by a
+// shuffle.
+template <int D, int SL>
 struct F32Warp {
-  static constexpr int SW = TL / SL;
+  static constexpr int SW = TILE / SL;
   static constexpr int NS = SW / 32;  // slots a lane
-  static constexpr int NC = D / CS / 32;  // output columns a lane
+  static constexpr int NC = D / 32;   // output columns a lane
   static constexpr int ROWF = D + 4;  // padded smem row (floats)
   float m[16], l[16], o[16][NC];
 
@@ -294,11 +331,10 @@ struct F32Warp {
   }
 
   // One tile of the slice: K rows kb, V rows vb (its first slot), q rows
-  // qs [16][D]; live(i) says whether slot i of the slice is live; the
-  // warp's O columns start at col0.
+  // qs [16][D]; live(i) says whether slot i of the slice is live.
   template <class Live>
   __device__ __forceinline__ void tile(const float* kb, const float* vb,
-                                       const float* qs, int lane, int col0,
+                                       const float* qs, int lane,
                                        float scale_log2, const Live& live) {
     float s[16][NS];
 #pragma unroll
@@ -359,7 +395,7 @@ struct F32Warp {
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       for (int sl = 0; sl < 32; ++sl) {
-        const float* vr = vb + (j * 32 + sl) * ROWF + col0 + lane;
+        const float* vr = vb + (j * 32 + sl) * ROWF + lane;
         float v[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) v[c] = vr[c * 32];
@@ -373,16 +409,15 @@ struct F32Warp {
     }
   }
 
-  // The warp's partial: its O columns of [16][D] at pw, m and l of its
-  // rows at pm, pl (where `ml`: one warp of those that split the columns).
+  // The warp's partial: its O [16][D] at pw, m and l of its rows at pm,
+  // pl.
   __device__ __forceinline__ void write(float* pw, float* pm, float* pl,
-                                        int lane, int col0, bool ml) const {
+                                        int lane) const {
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-        pw[r * D + col0 + c * 32 + lane] = o[r][c];
-      if (ml && lane == 0) {
+      for (int c = 0; c < NC; ++c) pw[r * D + c * 32 + lane] = o[r][c];
+      if (lane == 0) {
         pm[r] = m[r];
         pl[r] = l[r];
       }
@@ -390,9 +425,9 @@ struct F32Warp {
   }
 };
 
-// D is the instance's head dim, Dt <= D the cache's and q's (their row
-// length): the columns past Dt are zero-filled in shared memory and not
-// written.
+// D is the instance's head dim (64 or 128), Dt <= D the cache's and q's
+// (their row length): the columns past Dt are zero-filled in shared memory
+// and not written.
 template <class T, int D, int SL>
 __global__ void __launch_bounds__(NTHREADS)
     decode_kernel(const void* __restrict__ q, const uint8_t* __restrict__ k,
@@ -402,19 +437,16 @@ __global__ void __launch_bounds__(NTHREADS)
                   const float* __restrict__ s_aux, void* __restrict__ out,
                   int H_kv, int G, int n_pieces, int S_total, int sink_cap,
                   int window, int Dt, float scale_log2) {
-  constexpr int TL = tile_slots<T, D>();   // slots per tile
+  static_assert(D == 64 || D == 128, "D > 128 runs in deep_decode_kernel");
+  constexpr int TL = TILE;                 // slots per tile
   constexpr int ROWB = D * T::BYTES + 16;  // padded smem row (bytes)
   constexpr int VECS = D * T::BYTES / 16;  // 16-byte copies per smem row
   constexpr int SW = TL / SL;              // slots per warp slice
   constexpr int NT = SW / 8;               // n-tiles of S
   constexpr int KT = D / 16;               // k-steps of S
-  constexpr int CS = col_slices<D>();      // warps splitting O's columns
-  constexpr int RW = cta_rows<D>();        // query rows per CTA
-  constexpr bool QSM = q_in_smem<T, D>();  // q's rows in shared memory
-  constexpr int DC = D / CS;               // a warp's O columns
-  constexpr int DT = DC / 8;               // n-tiles of O
+  constexpr int RW = ROWS;                 // query rows per CTA
+  constexpr int DT = D / 8;                // n-tiles of O
   constexpr int D4 = D / 4;
-  static_assert(CS == 1 || SL == 1, "column-split warps walk whole tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   // Buffer b: K [TL][ROWB], V [TL][ROWB], k scales [TL], v scales.
   auto kbuf = [&](int b) { return smem + b * buf_bytes<T, D>(); };
@@ -429,10 +461,8 @@ __global__ void __launch_bounds__(NTHREADS)
   float* co = pl + NWARPS * 16;                // [RW][D]: the CTA's
   float* cm = co + RW * D;                     // [RW]
   float* cl = cm + RW;                         // [RW]
-  // fp32 storage: the CTA's q rows [RW][D], after the one buffer;
-  // q_in_smem: [RW][q_row_bytes] 16-bit, after the two
+  // fp32 storage: the CTA's q rows [RW][D], after the one buffer
   float* q_sm = reinterpret_cast<float*>(smem + buf_bytes<T, D>());
-  uint8_t* q16_sm = smem + n_bufs<T>() * buf_bytes<T, D>();
   const int vecs = Dt * T::BYTES / 16;  // 16-byte copies of a cache row
 
   cg::cluster_group cluster = cg::this_cluster();
@@ -446,10 +476,8 @@ __global__ void __launch_bounds__(NTHREADS)
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  // a warp's m-tile and slot slice, or (CS > 1) its quarter of O's columns
-  const int wr = CS > 1 ? 0 : warp, cs = CS > 1 ? warp : 0;
-  const int mt = wr / SL, slice = wr - (wr / SL) * SL;
-  const int col0 = cs * DC;  // the warp's first O column
+  // a warp's m-tile and slot slice
+  const int mt = warp / SL, slice = warp - (warp / SL) * SL;
   const bool has_rows = mt * 16 < R;
 
   const int sink_len = st.sink_len ? st.sink_len[b * st.stride] : st.u_sink_len;
@@ -479,7 +507,7 @@ __global__ void __launch_bounds__(NTHREADS)
       cp_async16(kd + r * ROWB + cc * 16, k + off, ok);
       cp_async16(vd + r * ROWB + cc * 16, v + off, ok);
     }
-    if (T::SCALED && (TL == NTHREADS || tid < TL)) {  // a slot's scales
+    if (T::SCALED) {  // a slot's scales
       const bool ok = slot0 + tid < hwm;
       const size_t off = head + (ok ? slot0 + tid : 0);
       cp_async4(ksbuf(bb) + tid, k_scale + off, ok);
@@ -503,19 +531,9 @@ __global__ void __launch_bounds__(NTHREADS)
   // storage, the CTA's q rows into shared memory (visible after the loop's
   // first barrier).
   const int r0 = mt * 16 + g;  // local rows r0, r0 + 8
-  constexpr int KQ = T::SCALAR || QSM ? 1 : KT;
+  constexpr int KQ = T::SCALAR ? 1 : KT;
   uint32_t qf[KQ][4];
-  if constexpr (QSM) {
-    const uint16_t* qg =
-        static_cast<const uint16_t*>(q) + ((size_t)bkv * G + row_lo) * Dt;
-    for (int i = tid; i < RW * (D / 8); i += NTHREADS) {
-      const int r = i / (D / 8), c8 = i - (i / (D / 8)) * (D / 8);
-      *reinterpret_cast<uint4*>(q16_sm + r * q_row_bytes(D) + c8 * 16) =
-          r < R && c8 * 8 < Dt
-              ? *reinterpret_cast<const uint4*>(qg + (size_t)r * Dt + c8 * 8)
-              : make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else if constexpr (T::SCALAR) {
+  if constexpr (T::SCALAR) {
     const float* qg = static_cast<const float*>(q) + (size_t)bkv * G * Dt;
     for (int i = tid; i < RW * D4; i += NTHREADS) {
       const int r = i / D4, c4 = i - (i / D4) * D4;
@@ -552,7 +570,7 @@ __global__ void __launch_bounds__(NTHREADS)
   for (int dt = 0; dt < DT; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-  F32Warp<D, SL, TL, CS> fw;
+  F32Warp<D, SL> fw;
   if constexpr (T::SCALAR) fw.init();
 
   for (int bb = 0; tile < n_tiles; tile += n_ranks, bb ^= n_bufs<T>() - 1) {
@@ -572,7 +590,7 @@ __global__ void __launch_bounds__(NTHREADS)
       if (has_rows && tile * TL + c0 < hwm)
         fw.tile(reinterpret_cast<const float*>(kbuf(bb) + c0 * ROWB),
                 reinterpret_cast<const float*>(vbuf(bb) + c0 * ROWB),
-                q_sm + mt * 16 * D, lane, col0, scale_log2,
+                q_sm + mt * 16 * D, lane, scale_log2,
                 [&](int i) { return live(tile * TL + c0 + i); });
     } else if (has_rows && tile * TL + c0 < hwm) {  // rows, live slots
       const uint8_t* kb = kbuf(bb) + c0 * ROWB;
@@ -587,24 +605,11 @@ __global__ void __launch_bounds__(NTHREADS)
         for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < KT; ++kk) {
-        uint32_t qa[4];  // q's A fragment of the k-step
-        if constexpr (QSM) {
-          const uint8_t* qr =
-              q16_sm + r0 * q_row_bytes(D) + (kk * 16 + t4 * 2) * 2;
-          qa[0] = *reinterpret_cast<const uint32_t*>(qr);
-          qa[1] = *reinterpret_cast<const uint32_t*>(qr + 8 * q_row_bytes(D));
-          qa[2] = *reinterpret_cast<const uint32_t*>(qr + 16);
-          qa[3] = *reinterpret_cast<const uint32_t*>(
-              qr + 8 * q_row_bytes(D) + 16);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-        }
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const uint8_t* kr =
               kb + (nt * 8 + g) * ROWB + (kk * 16 + t4 * 2) * T::BYTES;
-          mma16816<T::F16>(s[nt], qa, T::pair(kr),
+          mma16816<T::F16>(s[nt], qf[kk], T::pair(kr),
                            T::pair(kr + 8 * T::BYTES));
         }
       }
@@ -653,9 +658,8 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
 
-      // O += P V (p * v_scale when quantized), V read down its rows (the
-      // warp's columns from col0).
-      const uint8_t* vb = vbuf(bb) + c0 * ROWB + col0 * T::BYTES;
+      // O += P V (p * v_scale when quantized), V read down its rows.
+      const uint8_t* vb = vbuf(bb) + c0 * ROWB;
 #pragma unroll
       for (int j = 0; j < SW / 16; ++j) {
         float p0[4], p1[4];
@@ -689,23 +693,21 @@ __global__ void __launch_bounds__(NTHREADS)
   __syncthreads();  // the tiles are dead: the partials take their place
 
   // Each warp's partial (m, l, unnormalised O) of its rows and slice ...
-  // (CS > 1: the warps' columns of one partial, m and l from warp 0)
   if constexpr (T::SCALAR) {
-    if (has_rows)
-      fw.write(po + wr * 16 * D, pm + wr * 16, pl + wr * 16, lane, col0,
-               cs == 0);
+    if (has_rows) fw.write(po + warp * 16 * D, pm + warp * 16, pl + warp * 16,
+                           lane);
   } else if (has_rows) {
-    float* pw = po + wr * 16 * D;
+    float* pw = po + warp * 16 * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = g + 8 * r;
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt)
-        *reinterpret_cast<float2*>(pw + row * D + col0 + dt * 8 + t4 * 2) =
+        *reinterpret_cast<float2*>(pw + row * D + dt * 8 + t4 * 2) =
             make_float2(acc[dt][2 * r], acc[dt][2 * r + 1]);
-      if (t4 == 0 && cs == 0) {
-        pm[wr * 16 + row] = m[r];
-        pl[wr * 16 + row] = l[r];
+      if (t4 == 0) {
+        pm[warp * 16 + row] = m[r];
+        pl[warp * 16 + row] = l[r];
       }
     }
   }
@@ -804,7 +806,7 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
       (int)smem);  // once per instance
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int G = H_q / H_kv;
-  const int n_pieces = (G + cta_rows<D>() - 1) / cta_rows<D>();
+  const int n_pieces = (G + ROWS - 1) / ROWS;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(cluster, B * H_kv * n_pieces, 1);
   cfg.blockDim = dim3(NTHREADS, 1, 1);
@@ -828,24 +830,20 @@ int launch(const void* q, const void* k, const void* v, const void* k_scale,
 }
 
 // The slices of a tile (SL) by the group's rows: 4, 2 or 1 for up to 16,
-// 32 or 64 rows; fp32 storage's slices at least 32 slots (SLMAX); 1 where
-// the warps split O's columns.
+// 32 or 64 rows (fp32 storage's slices are 32 slots or more).
 template <class T, int D>
 int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
              const void* v_scale, const State& st, const void* s_aux,
              void* out, int B, int H_q, int H_kv, int S_total, int sink_cap,
              int window, int Dt, int cluster, float scale,
              cudaStream_t stream) {
-  constexpr int SLMAX = col_slices<D>() > 1 ? 1
-                        : T::SCALAR           ? tile_slots<T, D>() / 32
-                                              : 4;
   const int rows = min(H_q / H_kv, ROWS);  // of the largest piece
   if (rows <= 16)
-    return launch<T, D, (SLMAX < 4 ? SLMAX : 4)>(
+    return launch<T, D, 4>(
         q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q, H_kv, S_total,
         sink_cap, window, Dt, cluster, scale, stream);
   if (rows <= 32)
-    return launch<T, D, (SLMAX < 2 ? SLMAX : 2)>(
+    return launch<T, D, 2>(
         q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q, H_kv, S_total,
         sink_cap, window, Dt, cluster, scale, stream);
   return launch<T, D, 1>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
@@ -854,79 +852,124 @@ int launch_d(const void* q, const void* k, const void* v, const void* k_scale,
 }
 
 // ---------------------------------------------------------------------------
-// The wide instance (D > 512): its depth and its column slices are counted
-// at run time, so one instance per storage runs every D past 512.
+// Past D = 128: the split decode (see the header). One instance per storage
+// runs every D > 128, its depth and column chunks counted at run time.
 // ---------------------------------------------------------------------------
 
-constexpr int WIDE_MIN_D = 513;  // the smallest head dim of the instance
-constexpr int WIDE_TL = 32;      // slots per tile
-constexpr int WIDE_KC = 256;     // columns of a depth chunk of K and q
-constexpr int WIDE_SC = 512;     // output columns of a CTA (a slice)
-constexpr int WIDE_RW = 16;      // query rows of a CTA
-constexpr int WIDE_WC = WIDE_SC / NWARPS;  // a warp's output columns
+constexpr int DEEP_TL = 32;                 // slots per tile
+constexpr int DEEP_ROW = 512;               // bytes of a box row
+constexpr int DEEP_STAGES = 4;              // boxes in the ring
+constexpr int DEEP_SLOTS = 512;             // slots of a CTA's pass at most
+constexpr int DEEP_SPLITS = 512;            // ranges of a unit at most
+constexpr int DEEP_ROWS = 16;               // query rows of a CTA at most
+constexpr int DEEP_SROW = DEEP_SLOTS + 4;   // a row of S (floats)
+constexpr int DEEP_PROW = DEEP_SLOTS + 8;   // a row of P (16-bit)
+constexpr int DEEP_SMEM_MAX = 232448;       // a CTA's shared memory at most
+constexpr int DEEP_MERGE_BUF = 32768;       // bytes of a merge chunk
 
-// Shared memory of the wide instance of storage T: two chunk buffers (a
-// tile's K rows over WIDE_KC columns, then the CTA's q rows over the same
-// columns), the tile's V rows over the slice's columns, its k and v scales;
-// rows padded by 16 bytes. After the tile loop the CTA's partial aliases
-// them: O [WIDE_RW][WIDE_SC] fp32, then m and l [WIDE_RW].
+// The padded row stride of a box: 528 bytes puts a warp's 32-bit loads of
+// 8 rows x 4 words, and fp32's quarter-warp float4 loads, on distinct
+// banks; K boxes of 16-bit storage take 544, so the 64-bit loads of a half
+// warp (4 rows x 2 words each) are distinct too.
 template <class T>
-struct WideDecode {
-  static constexpr int QB = T::SCALAR ? 4 : 2;  // q's element bytes
-  static constexpr int KROW = WIDE_KC * T::BYTES + 16;
-  static constexpr int QROW = WIDE_KC * QB + 16;
-  static constexpr int VROW = WIDE_SC * T::BYTES + 16;
-  static constexpr int CHUNK = WIDE_TL * KROW + WIDE_RW * QROW;
-  static constexpr int V_OFF = 2 * CHUNK;
-  static constexpr int SC_OFF = V_OFF + WIDE_TL * VROW;  // k, v scales
-  static constexpr int TILES = SC_OFF + 2 * WIDE_TL * 4;
-  static constexpr int PART = (WIDE_RW * WIDE_SC + 2 * WIDE_RW) * 4;
-  static constexpr int BYTES = TILES > PART ? TILES : PART;
+__host__ __device__ constexpr int deep_kstride() {
+  return T::BYTES == 2 ? DEEP_ROW + 32 : DEEP_ROW + 16;
+}
+constexpr int DEEP_VSTRIDE = DEEP_ROW + 16;
+constexpr int DEEP_BOX = DEEP_TL * (DEEP_ROW + 32);  // a stage's bytes
+
+// Shared memory of a CTA of `rows` query rows at head dim D, in bytes from
+// its start: the ring of boxes; q's rows (whole chunks, zero past D; fp32
+// for fp32 storage, its rows rounded up to 4, else 16-bit); S: [rows]
+// [DEEP_SROW] fp32, or for fp32 storage slot-major [DEEP_SLOTS][rows
+// rounded up to 4] (then P in its place); P [rows][DEEP_PROW] 16-bit; the
+// pass's k and v scales; m, l and the pass's rescale factor [DEEP_ROWS],
+// the last-arrival flag and the merge's two mbarriers.
+template <class T>
+struct DeepLayout {
+  static constexpr int EC = DEEP_ROW / T::BYTES;  // elements of a box row
+  static constexpr int QB = T::SCALAR ? 4 : 2;    // q's element bytes
+  static constexpr int RING = DEEP_STAGES * DEEP_BOX;
+  int kch, qrow, rp4, q, s, p, sc, ml, bytes;
+  __host__ __device__ DeepLayout(int rows, int D) {
+    kch = (D + EC - 1) / EC;  // depth chunks of K, column chunks of V
+    qrow = kch * EC * QB + 32;  // a half warp's 64-bit loads: 8 words apart
+    rp4 = (rows + 3) & ~3;
+    q = RING;
+    s = q + (T::SCALAR ? rp4 : rows) * qrow;
+    p = s + (T::SCALAR ? DEEP_SLOTS * rp4 : rows * DEEP_SROW) * 4;
+    sc = p + (T::SCALAR ? 0 : rows * DEEP_PROW * 2);
+    ml = sc + (T::SCALED ? 2 * DEEP_SLOTS * 4 : 0);
+    bytes = ml + 3 * DEEP_ROWS * 4 + 32;
+  }
 };
 
-// One CTA: 16 query rows of a (b, kv head) and one 512-column slice of
-// their output, over the tiles rank, rank + C, ... of a cluster of C. A
-// tile's S = q K^T runs over the depth in chunks of WIDE_KC columns (K's
-// and q's, double-buffered by cp.async; the slice's V and the scales load
-// with the first chunk), every warp computing the same S and softmax (the
-// same products in the same order, so the warps and the slices of a row
-// agree bit for bit) and accumulating its 128 of the slice's columns of O;
-// the 16-bit and code storages on mma.sync as the other instances, fp32 in
-// fp32 on the CUDA cores (a lane per slot for S, a lane per column for O).
-// The CTA's partial merges over the cluster as decode_kernel's does.
+__device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// `bytes` (a multiple of 16) global -> shared by the TMA unit, completing
+// `bar` by them.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// One CTA: query rows [row_lo, row_lo + R) of a (b, kv head) over the
+// slots [lo, hi) of split blockIdx.x (hi at most hwm), then, if it is the
+// unit's last to arrive, the merge of the unit's partials. part holds the
+// partials: O [units][n_split][rows][Dt] fp32, then (m, l) [units][n_split]
+// [rows]; counters [units] are 0 at the launch and left 0.
+// Two CTAs an SM: ptxas then takes the registers it needs (below, it
+// caps near 96 and spills).
 template <class T>
-__global__ void __launch_bounds__(NTHREADS)
-    wide_decode_kernel(const void* __restrict__ q,
+__global__ void __launch_bounds__(NTHREADS, 2)
+    deep_decode_kernel(const void* __restrict__ q,
                        const uint8_t* __restrict__ k,
                        const uint8_t* __restrict__ v,
                        const float* __restrict__ k_scale,
                        const float* __restrict__ v_scale, State st,
                        const float* __restrict__ s_aux,
-                       void* __restrict__ out, int H_kv, int G, int n_pieces,
-                       int n_slices, int S_total, int sink_cap, int window,
-                       int Dt, float scale_log2) {
-  using W = WideDecode<T>;
-  constexpr int TL = WIDE_TL, RW = WIDE_RW;
+                       void* __restrict__ out, float* __restrict__ part,
+                       int* __restrict__ counters, int H_kv, int G, int rows,
+                       int n_pieces, int split_slots, int S_total,
+                       int sink_cap, int window, int Dt, float scale_log2) {
+  using L = DeepLayout<T>;
+  constexpr int EC = L::EC, QB = L::QB, TL = DEEP_TL;
+  constexpr int KS = deep_kstride<T>(), VS = DEEP_VSTRIDE;
+  constexpr int WC = EC / NWARPS;                  // a warp's V columns
+  constexpr int NTV = T::SCALAR ? 1 : WC / 8;      // their n-tiles
+  static_assert(T::SCALAR || NTV % 4 == 0, "V columns in groups of 32");
+  constexpr int NACC = T::SCALAR ? DEEP_ROWS : 4 * NTV;
+  static_assert(!T::SCALAR || WC == 32, "fp32: a lane per V column");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ksc = reinterpret_cast<float*>(smem + W::SC_OFF);
-  float* vsc = ksc + TL;
-  uint8_t* vbuf = smem + W::V_OFF;
+  const L lay(rows, Dt);
+  const int kch = lay.kch, qrow = lay.qrow, rp4 = lay.rp4;
+  float* s_sm = reinterpret_cast<float*>(smem + lay.s);
+  uint8_t* p_sm = smem + lay.p;
+  float* ksc = reinterpret_cast<float*>(smem + lay.sc);
+  float* vsc = ksc + DEEP_SLOTS;
+  float* m_sm = reinterpret_cast<float*>(smem + lay.ml);
+  float* l_sm = m_sm + DEEP_ROWS;
+  float* a_sm = l_sm + DEEP_ROWS;
+  int* last_sm = reinterpret_cast<int*>(a_sm + DEEP_ROWS);
 
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int n_ranks = (int)cluster.num_blocks();
-  // unit: ((b * H_kv + kv head) * n_pieces + piece) * n_slices + slice
-  const int unit = blockIdx.y;
-  const int up = unit / n_slices, sl = unit - up * n_slices;
-  const int bkv = up / n_pieces;
-  const int row_lo = (up - bkv * n_pieces) * RW;  // first group row here
-  const int R = min(G - row_lo, RW);
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int unit = blockIdx.y;  // (b * H_kv + kv head) * n_pieces + piece
+  const int bkv = unit / n_pieces;
+  const int row_lo = (unit - bkv * n_pieces) * rows;
+  const int R = min(G - row_lo, rows);
   const int b = bkv / H_kv;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int col0 = warp * WIDE_WC;  // the warp's first column in the slice
-  const int scol = sl * WIDE_SC;    // the slice's first column
 
   const int sink_len = st.sink_len ? st.sink_len[b * st.stride] : st.u_sink_len;
   const int window_len =
@@ -938,366 +981,606 @@ __global__ void __launch_bounds__(NTHREADS)
                                                        : window)
                                      : sink_len,
                       S_total);
-  const int n_tiles = (hwm + TL - 1) / TL;
-  const int n_chunks = (Dt + WIDE_KC - 1) / WIDE_KC;
+  const int lo0 = split * split_slots;
+  const int hi0 = min(lo0 + split_slots, hwm);  // the CTA's range
   const size_t head = (size_t)bkv * S_total;
   const int row_bytes = Dt * T::BYTES;  // a cache row
-  const uint8_t* qg = static_cast<const uint8_t*>(q) +
-                      ((size_t)bkv * G + row_lo) * Dt * W::QB;
+  const size_t pi = (size_t)unit * n_split + split;  // this CTA's partial
+  float* po = part + pi * rows * Dt;
+  float* pml = part + (size_t)gridDim.y * n_split * rows * Dt;
 
-  // Chunk ch of tile `tile` (K's and q's columns [ch KC, ch KC + KC)) into
-  // chunk buffer bb; zeros past the live range, the rows and Dt.
-  auto load_chunk = [&](int tile, int ch, int bb) {
-    constexpr int K16 = WIDE_KC * T::BYTES / 16, Q16 = WIDE_KC * W::QB / 16;
-    uint8_t* kd = smem + bb * W::CHUNK;
-    uint8_t* qd = kd + TL * W::KROW;
-    const int slot0 = tile * TL;
-    for (int c = tid; c < TL * K16; c += NTHREADS) {
-      const int r = c / K16, byte = ch * WIDE_KC * T::BYTES + (c % K16) * 16;
-      const bool ok = slot0 + r < hwm && byte < row_bytes;
-      const size_t off = ok ? (head + slot0 + r) * row_bytes + byte : 0;
-      cp_async16(kd + r * W::KROW + (c % K16) * 16, k + off, ok);
+  if (hi0 > lo0) {
+    // q's rows: in the first pass's first commit group.
+    const uint8_t* qg = static_cast<const uint8_t*>(q) +
+                        ((size_t)bkv * G + row_lo) * Dt * QB;
+    const int q16 = kch * EC * QB / 16;  // 16-byte pieces of a q row
+    for (int c = tid; c < R * q16; c += NTHREADS) {
+      const int r = c / q16, byte = (c - r * q16) * 16;
+      const bool ok = byte < Dt * QB;
+      cp_async16(smem + lay.q + r * qrow + byte,
+                 qg + (ok ? (size_t)r * Dt * QB + byte : 0), ok);
     }
-    for (int c = tid; c < RW * Q16; c += NTHREADS) {
-      const int r = c / Q16, byte = ch * WIDE_KC * W::QB + (c % Q16) * 16;
-      const bool ok = r < R && byte < Dt * W::QB;
-      cp_async16(qd + r * W::QROW + (c % Q16) * 16,
-                 qg + (ok ? (size_t)r * Dt * W::QB + byte : 0), ok);
-    }
-  };
-  // The tile's V rows over the slice's columns, and its scales.
-  auto load_v = [&](int tile) {
-    constexpr int V16 = WIDE_SC * T::BYTES / 16;
-    const int slot0 = tile * TL;
-    for (int c = tid; c < TL * V16; c += NTHREADS) {
-      const int r = c / V16, byte = scol * T::BYTES + (c % V16) * 16;
-      const bool ok = slot0 + r < hwm && byte < row_bytes;
-      const size_t off = ok ? (head + slot0 + r) * row_bytes + byte : 0;
-      cp_async16(vbuf + r * W::VROW + (c % V16) * 16, v + off, ok);
-    }
-    if (T::SCALED && tid < TL) {
-      const bool ok = slot0 + tid < hwm;
-      const size_t off = head + (ok ? slot0 + tid : 0);
-      cp_async4(ksc + tid, k_scale + off, ok);
-      cp_async4(vsc + tid, v_scale + off, ok);
-    }
-  };
-  auto live = [&](int slot) {
-    const int sw = slot - sink_cap;
-    const int age = sw < write_pos ? write_pos - 1 - sw
-                                   : write_pos - 1 - sw + window;
-    return slot < hwm &&
-           (slot < sink_len || (sw >= 0 && sw < window && age < window_len));
-  };
+    // The range in passes of at most DEEP_SLOTS slots [lo, hi) (one, unless
+    // the cache is past DEEP_SPLITS x DEEP_SLOTS slots).
+    for (int lo = lo0; lo < hi0; lo += DEEP_SLOTS) {
+      const int hi = min(lo + DEEP_SLOTS, hi0);
+      const bool first = lo == lo0;
+      const int n_t = (hi - lo + TL - 1) / TL;  // tiles
+      const int nk = n_t * kch;  // K boxes, and as many V boxes
+      auto live = [&](int slot) {
+        const int sw = slot - sink_cap;
+        const int age = sw < write_pos ? write_pos - 1 - sw
+                                       : write_pos - 1 - sw + window;
+        return slot < hi && (slot < sink_len ||
+                             (sw >= 0 && sw < window && age < window_len));
+      };
+      if (!first) __syncthreads();  // the last pass's boxes, P, scales read
+      // The pass's scales (with q, in the first pass): one commit group.
+      if constexpr (T::SCALED) {
+        for (int i = tid; i < n_t * TL; i += NTHREADS) {
+          const bool ok = lo + i < hi;
+          const size_t off = head + (ok ? lo + i : 0);
+          cp_async4(ksc + i, k_scale + off, ok);
+          cp_async4(vsc + i, v_scale + off, ok);
+        }
+      }
+      cp_async_commit();
 
-  // mma.sync storages: rows g and g + 8, m, l and O's 16 n-tiles of the
-  // warp's columns; fp32: all 16 rows, a lane per slot and per 4 columns.
-  constexpr int NR = T::SCALAR ? 16 : 2;
-  constexpr int NO = T::SCALAR ? 16 * (WIDE_WC / 32) : 4 * (WIDE_WC / 8);
-  float m[NR], l[NR], acc[NO];
-#pragma unroll
-  for (int r = 0; r < NR; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-#pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+      // Box i into its stage: i < nk the K box of tile i / kch, depth chunk
+      // i % kch; then the V boxes, column chunk by column chunk. Zeros past
+      // the range and past the row.
+      auto load_box = [&](int i) {
+        const bool isv = i >= nk;
+        const int j = isv ? i - nk : i;
+        const int tile = isv ? j % n_t : j / kch;
+        const int ch = isv ? j / n_t : j % kch;
+        const uint8_t* src = isv ? v : k;
+        const int stride = isv ? VS : KS;
+        uint8_t* dst = smem + (i % DEEP_STAGES) * DEEP_BOX;
+        const int slot0 = lo + tile * TL, byte0 = ch * DEEP_ROW;
+        constexpr int R16 = DEEP_ROW / 16;
+        for (int c = tid; c < TL * R16; c += NTHREADS) {
+          const int r = c / R16, cc = (c % R16) * 16;
+          const bool ok = slot0 + r < hi && byte0 + cc < row_bytes;
+          const size_t off = ok ? (head + slot0 + r) * row_bytes + byte0 + cc
+                                : 0;
+          cp_async16(dst + r * stride + cc, src + off, ok);
+        }
+      };
 
-  for (int tile = rank; tile < n_tiles; tile += n_ranks) {
-    load_v(tile);
-    load_chunk(tile, 0, 0);
-    cp_async_commit();
-    // S: fp32, s[r] row r's score of the lane's slot; else s[nt * 4 + e]
-    // the m16n8 accumulators of slots nt * 8 + 2 t4 + (e & 1)
-    float s[16];
+      // S of the tile so far (mma: two chains of k-steps; fp32: a row each)
+      float s0[T::SCALAR ? DEEP_ROWS : 4], s1[4];
+      float acc[NACC];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) s[i] = 0.f;
-    for (int ch = 0; ch < n_chunks; ++ch) {
-      if (ch + 1 < n_chunks) {
-        load_chunk(tile, ch + 1, (ch + 1) & 1);
+      for (int s = 0; s < DEEP_STAGES - 1; ++s) {
+        if (s < 2 * nk) load_box(s);
         cp_async_commit();
-        cp_async_wait<1>();  // this chunk's group (and the V group)
-      } else {
-        cp_async_wait<0>();
       }
-      __syncthreads();
-      const uint8_t* kb = smem + (ch & 1) * W::CHUNK;
-      const uint8_t* qb = kb + TL * W::KROW;
-      const int cols = min(WIDE_KC, Dt - ch * WIDE_KC);
-      if constexpr (T::SCALAR) {
-        const float* kr = reinterpret_cast<const float*>(kb + lane * W::KROW);
-        for (int d4 = 0; d4 < cols / 4; ++d4) {
-          const float4 kv = *reinterpret_cast<const float4*>(kr + d4 * 4);
+      for (int i = 0; i < 2 * nk; ++i) {
+        cp_async_wait<DEEP_STAGES - 2>();  // box i (and q) have landed
+        __syncthreads();  // ... for every thread; box i - 1's stage is free
+        if (i + DEEP_STAGES - 1 < 2 * nk) load_box(i + DEEP_STAGES - 1);
+        cp_async_commit();
+        const uint8_t* box = smem + (i % DEEP_STAGES) * DEEP_BOX;
+        if (i < nk) {
+          // S of the warp's 8 slots of the tile over one depth chunk.
+          const int tile = i / kch, ch = i - tile * kch;
+          const int cols = min(EC, Dt - ch * EC);  // the chunk's depth
+          if (ch == 0) {
 #pragma unroll
-          for (int r = 0; r < 16; ++r) {
-            const float4 qv = *reinterpret_cast<const float4*>(
-                qb + r * W::QROW + d4 * 16);
-            s[r] = fmaf(qv.w, kv.w,
-                        fmaf(qv.z, kv.z,
-                             fmaf(qv.y, kv.y, fmaf(qv.x, kv.x, s[r]))));
+            for (int e = 0; e < (T::SCALAR ? DEEP_ROWS : 4); ++e) s0[e] = 0.f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s1[e] = 0.f;
+          }
+          if constexpr (T::SCALAR) {
+            // a lane per (slot s8, quarter dq of the chunk's float4s); the
+            // rows in groups of 4 (rows past R but inside the group computed
+            // and dropped)
+            const int s8 = lane & 7, dq = lane >> 3;
+            const float* kr =
+                reinterpret_cast<const float*>(box + (warp * 8 + s8) * KS);
+            const float* qs =
+                reinterpret_cast<const float*>(smem + lay.q) + ch * EC;
+            for (int f = dq; f * 4 < cols; f += 4) {
+              const float4 kv = *reinterpret_cast<const float4*>(kr + f * 4);
+#pragma unroll
+              for (int g4 = 0; g4 < DEEP_ROWS / 4; ++g4) {
+                if (g4 * 4 < R) {
+#pragma unroll
+                  for (int rr = 0; rr < 4; ++rr) {
+                    const int r = g4 * 4 + rr;
+                    const float4 qv = *reinterpret_cast<const float4*>(
+                        qs + r * (qrow / 4) + f * 4);
+                    s0[r] = fmaf(qv.w, kv.w,
+                                 fmaf(qv.z, kv.z,
+                                      fmaf(qv.y, kv.y,
+                                           fmaf(qv.x, kv.x, s0[r]))));
+                  }
+                }
+              }
+            }
+          } else {
+            // m16n8k16 over the warp's slots: q's rows g, g + 8 (zero past
+            // R), the k-steps alternating between two accumulators. Inside a
+            // k-step the 16 columns are permuted alike in q and K (lane t4's
+            // k pairs (2 t4, +1) and (2 t4 + 8, +9) are columns 4 t4 .. 4 t4
+            // + 3), so one 64-bit load of q's row and one load of K's row
+            // (64-bit 16-bit storage, 32-bit codes) give both registers.
+            const uint8_t* kr = box + (warp * 8 + g) * KS + t4 * 4 * T::BYTES;
+            const uint8_t* qr =
+                smem + lay.q + g * qrow + (ch * EC + t4 * 4) * 2;
+            const bool ok0 = g < R, ok1 = g + 8 < R;
+            const int nks = (cols + 15) / 16;
+            auto kstep = [&](float(&sa)[4], int kk) {
+              const uint8_t* qk = qr + kk * 32;
+              const uint2 q0 = ok0 ? *reinterpret_cast<const uint2*>(qk)
+                                   : make_uint2(0u, 0u);
+              const uint2 q1 =
+                  ok1 ? *reinterpret_cast<const uint2*>(qk + 8 * qrow)
+                      : make_uint2(0u, 0u);
+              const uint32_t a[4] = {q0.x, q1.x, q0.y, q1.y};
+              const uint8_t* kp = kr + kk * 16 * T::BYTES;
+              uint32_t b0, b1;
+              if constexpr (T::SCALED) {
+                const uint32_t w = lds32(kp);
+                b0 = T::from16(w);
+                b1 = T::from16(w >> 16);
+              } else {
+                const uint2 w = *reinterpret_cast<const uint2*>(kp);
+                b0 = w.x;
+                b1 = w.y;
+              }
+              mma16816<T::F16>(sa, a, b0, b1);
+            };
+            int kk = 0;
+#pragma unroll 2
+            for (; kk + 1 < nks; kk += 2) {
+              kstep(s0, kk);
+              kstep(s1, kk + 1);
+            }
+            if (kk < nks) kstep(s0, kk);
+          }
+          if (ch == kch - 1) {
+            // The tile's S into the exp2 domain (k_scale when quantized),
+            // masked, into S.
+            if constexpr (T::SCALAR) {
+              const int s8 = lane & 7, dq = lane >> 3;
+              const int idx = tile * TL + warp * 8 + s8;
+              const bool ok = live(lo + idx);
+#pragma unroll
+              for (int r = 0; r < DEEP_ROWS; ++r) {
+                if ((r & ~3) < R) {
+                  float x = s0[r];
+                  x += __shfl_xor_sync(0xffffffffu, x, 8);
+                  x += __shfl_xor_sync(0xffffffffu, x, 16);
+                  if (r < R && (r & 3) == dq)
+                    s_sm[idx * rp4 + r] = ok ? x * scale_log2 : -INFINITY;
+                }
+              }
+            } else {
+#pragma unroll
+              for (int e2 = 0; e2 < 2; ++e2) {
+                const int idx = tile * TL + warp * 8 + t4 * 2 + e2;
+                const bool ok = live(lo + idx);
+                const float f = T::SCALED ? ksc[idx] * scale_log2 : scale_log2;
+                if (g < R)
+                  s_sm[g * DEEP_SROW + idx] =
+                      ok ? (s0[e2] + s1[e2]) * f : -INFINITY;
+                if (g + 8 < R)
+                  s_sm[(g + 8) * DEEP_SROW + idx] =
+                      ok ? (s0[2 + e2] + s1[2 + e2]) * f : -INFINITY;
+              }
+            }
+          }
+          if (i == nk - 1) {
+            // The pass's softmax, a warp per row: m, l (p in fp32) and P
+            // (fp32 storage: p in S's place; else p (* v_scale) rounded to
+            // 16 bits), p against the running max (m_old: the earlier
+            // passes'), and the factor that rescales their O.
+            __syncthreads();  // every warp's S is written
+            const int nsl = n_t * TL;
+            for (int r = warp; r < R; r += NWARPS) {
+              const float m_old = first ? -INFINITY : m_sm[r];
+              float mx = m_old, sum = 0.f;
+              if constexpr (T::SCALAR) {
+                float* sr = s_sm + r;  // slot j at sr[j * rp4]
+                for (int j = lane; j < nsl; j += 32)
+                  mx = fmaxf(mx, sr[j * rp4]);
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+                const float m_use = mx == -INFINITY ? 0.f : mx;
+                for (int j = lane; j < nsl; j += 32) {
+                  const float x = sr[j * rp4];
+                  const float p = x == -INFINITY ? 0.f : exp2f(x - m_use);
+                  sum += p;
+                  sr[j * rp4] = p;
+                }
+              } else {
+                float* sr = s_sm + r * DEEP_SROW;
+                for (int j = lane * 2; j < nsl; j += 64) {
+                  const float2 x = *reinterpret_cast<const float2*>(sr + j);
+                  mx = fmaxf(mx, fmaxf(x.x, x.y));
+                }
+#pragma unroll
+                for (int off = 16; off > 0; off >>= 1)
+                  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+                const float m_use = mx == -INFINITY ? 0.f : mx;
+                for (int j = lane * 2; j < nsl; j += 64) {
+                  const float2 x = *reinterpret_cast<const float2*>(sr + j);
+                  const float p0 = x.x == -INFINITY ? 0.f : exp2f(x.x - m_use);
+                  const float p1 = x.y == -INFINITY ? 0.f : exp2f(x.y - m_use);
+                  sum += p0 + p1;
+                  *reinterpret_cast<uint32_t*>(p_sm + (r * DEEP_PROW + j) * 2) =
+                      T::SCALED ? pack2<T::F16>(p0 * vsc[j], p1 * vsc[j + 1])
+                                : pack2<T::F16>(p0, p1);
+                }
+              }
+#pragma unroll
+              for (int off = 16; off > 0; off >>= 1)
+                sum += __shfl_xor_sync(0xffffffffu, sum, off);
+              if (lane == 0) {
+                const float m_use = mx == -INFINITY ? 0.f : mx;
+                const float a = m_old == -INFINITY ? 0.f : exp2f(m_old - m_use);
+                m_sm[r] = mx;
+                l_sm[r] = first ? sum : fmaf(l_sm[r], a, sum);
+                a_sm[r] = a;
+              }
+            }
+            __syncthreads();  // P, m, l and the factors are written
+          }
+        } else {
+          // O's columns of the warp in one column chunk += P V over a tile.
+          const int j = i - nk, ch = j / n_t, tile = j - ch * n_t;
+          if (tile == 0) {
+#pragma unroll
+            for (int e = 0; e < NACC; ++e) acc[e] = 0.f;
+          }
+          const int ncol = Dt - ch * EC - warp * WC;  // the warp's columns left
+          if constexpr (T::SCALAR) {
+            if (ncol > 0) {
+              const float* vb = reinterpret_cast<const float*>(box) +
+                                warp * WC + lane;
+              const float* pr = s_sm + tile * TL * rp4;
+#pragma unroll 4
+              for (int jj = 0; jj < TL; ++jj) {
+                const float vv = vb[jj * (VS / 4)];
+#pragma unroll
+                for (int g4 = 0; g4 < DEEP_ROWS / 4; ++g4) {
+                  if (g4 * 4 < R) {
+                    const float4 p = *reinterpret_cast<const float4*>(
+                        pr + jj * rp4 + g4 * 4);
+                    acc[g4 * 4] = fmaf(p.x, vv, acc[g4 * 4]);
+                    acc[g4 * 4 + 1] = fmaf(p.y, vv, acc[g4 * 4 + 1]);
+                    acc[g4 * 4 + 2] = fmaf(p.z, vv, acc[g4 * 4 + 2]);
+                    acc[g4 * 4 + 3] = fmaf(p.w, vv, acc[g4 * 4 + 3]);
+                  }
+                }
+              }
+            }
+          } else {
+            // The warp's columns in groups of 32; n-tile nt of a group's
+            // lane column g is the group's column 4 g + nt, so one load of
+            // a V row (32-bit codes, 64-bit 16-bit storage) gives a lane its
+            // 4 n-tiles' elements, paired across rows by byte permutes.
+#pragma unroll
+            for (int kk = 0; kk < TL / 16; ++kk) {
+              const uint8_t* pa =
+                  p_sm + (g * DEEP_PROW + tile * TL + kk * 16 + t4 * 2) * 2;
+              const uint32_t a[4] = {
+                  g < R ? lds32(pa) : 0u,
+                  g + 8 < R ? lds32(pa + 8 * DEEP_PROW * 2) : 0u,
+                  g < R ? lds32(pa + 16) : 0u,
+                  g + 8 < R ? lds32(pa + 8 * DEEP_PROW * 2 + 16) : 0u};
+              const uint8_t* vr = box + (kk * 16 + t4 * 2) * VS +
+                                  (warp * WC + 4 * g) * T::BYTES;
+#pragma unroll
+              for (int gr = 0; gr < NTV / 4; ++gr) {
+                if (gr * 32 < ncol) {
+                  const uint8_t* pp = vr + gr * 32 * T::BYTES;
+                  float(*ac)[4] = reinterpret_cast<float(*)[4]>(&acc[gr * 16]);
+                  if constexpr (T::SCALED) {
+                    const uint32_t w0 = lds32(pp), w1 = lds32(pp + VS);
+                    const uint32_t w8 = lds32(pp + 8 * VS);
+                    const uint32_t w9 = lds32(pp + 9 * VS);
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+                      mma16816<T::F16>(ac[nt], a, T::vpair(w0, w1, nt),
+                                       T::vpair(w8, w9, nt));
+                    }
+                  } else {
+                    const uint2 x0 = *reinterpret_cast<const uint2*>(pp);
+                    const uint2 x1 = *reinterpret_cast<const uint2*>(pp + VS);
+                    const uint2 x8 =
+                        *reinterpret_cast<const uint2*>(pp + 8 * VS);
+                    const uint2 x9 =
+                        *reinterpret_cast<const uint2*>(pp + 9 * VS);
+#pragma unroll
+                    for (int nt = 0; nt < 4; ++nt) {
+                      const uint32_t sel = nt & 1 ? 0x7632u : 0x5410u;
+                      mma16816<T::F16>(
+                          ac[nt], a,
+                          __byte_perm(nt < 2 ? x0.x : x0.y,
+                                      nt < 2 ? x1.x : x1.y, sel),
+                          __byte_perm(nt < 2 ? x8.x : x8.y,
+                                      nt < 2 ? x9.x : x9.y, sel));
+                    }
+                  }
+                }
+              }
+            }
+          }
+          if (tile == n_t - 1) {  // the chunk's columns of the partial O
+            const int c0 = ch * EC + warp * WC;
+            if constexpr (T::SCALAR) {
+              if (lane < ncol) {
+#pragma unroll
+                for (int r = 0; r < DEEP_ROWS; ++r) {
+                  if (r < R) {
+                    float* o = po + (size_t)r * Dt + c0 + lane;
+                    *o = first ? acc[r] : fmaf(*o, a_sm[r], acc[r]);
+                  }
+                }
+              }
+            } else {
+              // acc[gr][nt][e]: row g + 8 (e >> 1), the group's column 8 t4
+              // + 4 (e & 1) + nt: the 4 n-tiles one float4
+#pragma unroll
+              for (int gr = 0; gr < NTV / 4; ++gr) {
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int row = g + 8 * (e >> 1);
+                  const int col = c0 + gr * 32 + 8 * t4 + 4 * (e & 1);
+                  if (row < R && col < Dt) {
+                    float4* o =
+                        reinterpret_cast<float4*>(po + (size_t)row * Dt + col);
+                    float4 x = make_float4(
+                        acc[gr * 16 + e], acc[gr * 16 + 4 + e],
+                        acc[gr * 16 + 8 + e], acc[gr * 16 + 12 + e]);
+                    if (!first) {  // this thread wrote *o in the last pass
+                      const float4 y = *o;
+                      const float a = a_sm[row];
+                      x = make_float4(fmaf(y.x, a, x.x), fmaf(y.y, a, x.y),
+                                      fmaf(y.z, a, x.z), fmaf(y.w, a, x.w));
+                    }
+                    *o = x;
+                  }
+                }
+              }
+            }
           }
         }
-      } else {
-        for (int kk = 0; kk < (cols + 15) / 16; ++kk) {
-          const uint8_t* qr = qb + g * W::QROW + (kk * 16 + t4 * 2) * 2;
-          const uint32_t qa[4] = {
-              *reinterpret_cast<const uint32_t*>(qr),
-              *reinterpret_cast<const uint32_t*>(qr + 8 * W::QROW),
-              *reinterpret_cast<const uint32_t*>(qr + 16),
-              *reinterpret_cast<const uint32_t*>(qr + 8 * W::QROW + 16)};
-#pragma unroll
-          for (int nt = 0; nt < TL / 8; ++nt) {
-            const uint8_t* kr =
-                kb + (nt * 8 + g) * W::KROW + (kk * 16 + t4 * 2) * T::BYTES;
-            mma16816<T::F16>(*reinterpret_cast<float(*)[4]>(&s[nt * 4]), qa,
-                             T::pair(kr), T::pair(kr + 8 * T::BYTES));
-          }
-        }
       }
-      __syncthreads();  // the chunk buffer is free for the load after next
     }
+    cp_async_wait<0>();
+    if (tid < R) {
+      pml[(pi * rows + tid) * 2] = m_sm[tid];
+      pml[(pi * rows + tid) * 2 + 1] = l_sm[tid];
+    }
+  } else if (tid < R) {  // an empty range: nothing live, no O written
+    pml[(pi * rows + tid) * 2] = -INFINITY;
+    pml[(pi * rows + tid) * 2 + 1] = 0.f;
+  }
 
-    if constexpr (T::SCALAR) {
-      const bool ok = live(tile * TL + lane);
-#pragma unroll
-      for (int r = 0; r < 16; ++r) {
-        const float x = ok ? s[r] * scale_log2 : -INFINITY;
-        float mx = x;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-        const float m_new = fmaxf(m[r], mx);
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2f(m[r] - m_use);  // m = -inf: o, l are 0
-        m[r] = m_new;
-        const float p = x == -INFINITY ? 0.f : exp2f(x - m_use);
-        s[r] = p;
-        float rs = p;
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          rs += __shfl_xor_sync(0xffffffffu, rs, off);
-        l[r] = l[r] * alpha + rs;
-#pragma unroll
-        for (int c = 0; c < WIDE_WC / 32; ++c)
-          acc[r * (WIDE_WC / 32) + c] *= alpha;
-      }
-      // O += p v: a lane per column (4 of the warp's 128), each slot's p
-      // from its lane.
-      for (int j = 0; j < TL; ++j) {
-        const float* vr = reinterpret_cast<const float*>(vbuf + j * W::VROW) +
-                          col0 + lane;
-        float vv[WIDE_WC / 32];
-#pragma unroll
-        for (int c = 0; c < WIDE_WC / 32; ++c) vv[c] = vr[c * 32];
-#pragma unroll
-        for (int r = 0; r < 16; ++r) {
-          const float p = __shfl_sync(0xffffffffu, s[r], j);
-#pragma unroll
-          for (int c = 0; c < WIDE_WC / 32; ++c)
-            acc[r * (WIDE_WC / 32) + c] =
-                fmaf(p, vv[c], acc[r * (WIDE_WC / 32) + c]);
-        }
+  // The unit's last CTA to arrive merges its partials.
+  fence_acq_rel_gpu();  // this CTA's partial before its arrival
+  __syncthreads();
+  if (tid == 0) *last_sm = atomicAdd(counters + unit, 1) == n_split - 1;
+  __syncthreads();
+  if (!*last_sm) return;
+  fence_acq_rel_gpu();  // every partial after the arrivals
+  // ... and before the TMA unit (the async proxy) reads them
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  const float* ml = pml + (size_t)unit * n_split * rows * 2;
+  const float* o0 = part + (size_t)unit * n_split * rows * Dt;
+  const int h0 = (bkv - b * H_kv) * G + row_lo;  // query head of local row 0
+  // The partials' O, a window of wc columns at a time (R x wc <= 2048
+  // floats: at most 4 float4 items a thread), in chunks of jc >= 4
+  // partials [jc][R][wc] that TMA bulk copies bring into the ring, two in
+  // flight (one copy a chunk where the window is the whole row of all
+  // `rows` rows, else one a (partial, row)); the first two are issued
+  // before the weights are known.
+  static_assert(DEEP_MERGE_BUF >= 4 * 2048 * 4, "a chunk: 4 partials");
+  static_assert(2 * DEEP_MERGE_BUF <= DEEP_STAGES * DEEP_BOX,
+                "two chunks in the ring");
+  const int wc = min(Dt, (2048 / R) & ~3);
+  const int jc = DEEP_MERGE_BUF / (R * wc * 4);
+  const bool whole = wc == Dt && R == rows;
+  const int n_chunks = (n_split + jc - 1) / jc;
+  const int n_windows = (Dt + wc - 1) / wc;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(last_sm + 4);  // two
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int gc) {  // chunk gc % n_chunks of window gc / n_chunks
+    if (warp != 0) return;
+    const int ch = gc % n_chunks, c0 = gc / n_chunks * wc;
+    const int j0 = ch * jc, nj = min(jc, n_split - j0);
+    const int cw = min(wc, Dt - c0);
+    uint8_t* dst = smem + (gc & 1) * DEEP_MERGE_BUF;
+    uint64_t* b = bar + (gc & 1);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (whole) {
+      if (lane == 0) {
+        const uint32_t bytes = (uint32_t)nj * rows * Dt * 4;
+        mbar_expect_tx(b, bytes);
+        bulk_load(dst, o0 + (size_t)j0 * rows * Dt, bytes, b);
       }
     } else {
-#pragma unroll
-      for (int nt = 0; nt < TL / 8; ++nt) {
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int cl_ = nt * 8 + t4 * 2 + e2;  // slot within the tile
-          const bool ok = live(tile * TL + cl_);
-          const float f = T::SCALED ? ksc[cl_] * scale_log2 : scale_log2;
-          s[nt * 4 + e2] = ok ? s[nt * 4 + e2] * f : -INFINITY;
-          s[nt * 4 + e2 + 2] = ok ? s[nt * 4 + e2 + 2] * f : -INFINITY;
-        }
-      }
-      // Online softmax, rows g and g + 8 (e >> 1), as decode_kernel's.
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < TL / 8; ++nt)
-          mx = fmaxf(mx, fmaxf(s[nt * 4 + 2 * r], s[nt * 4 + 2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        const float m_use = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2f(m[r] - m_use);
-        m[r] = m_new;
-        float rs = 0.f;
-#pragma unroll
-        for (int nt = 0; nt < TL / 8; ++nt) {
-#pragma unroll
-          for (int e2 = 0; e2 < 2; ++e2) {
-            const float x = s[nt * 4 + 2 * r + e2];
-            const float p = x == -INFINITY ? 0.f : exp2f(x - m_use);
-            s[nt * 4 + 2 * r + e2] = p;
-            rs += p;
-          }
-        }
-        rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-        rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-        l[r] = l[r] * alpha + rs;
-#pragma unroll
-        for (int dt = 0; dt < WIDE_WC / 8; ++dt) {
-          acc[dt * 4 + 2 * r] *= alpha;
-          acc[dt * 4 + 2 * r + 1] *= alpha;
-        }
-      }
-      // O += P V (p * v_scale when quantized), V read down its rows (the
-      // warp's columns from col0).
-      const uint8_t* vb = vbuf + col0 * T::BYTES;
-#pragma unroll
-      for (int j = 0; j < TL / 16; ++j) {
-        float p0[4], p1[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          p0[e] = s[(2 * j) * 4 + e];
-          p1[e] = s[(2 * j + 1) * 4 + e];
-          if (T::SCALED) {
-            const int cl_ = j * 16 + t4 * 2 + (e & 1);
-            p0[e] *= vsc[cl_];
-            p1[e] *= vsc[cl_ + 8];
-          }
-        }
-        const uint32_t a[4] = {
-            pack2<T::F16>(p0[0], p0[1]), pack2<T::F16>(p0[2], p0[3]),
-            pack2<T::F16>(p1[0], p1[1]), pack2<T::F16>(p1[2], p1[3])};
-        const uint8_t* vr = vb + (j * 16 + t4 * 2) * W::VROW + g * T::BYTES;
-#pragma unroll
-        for (int dt = 0; dt < WIDE_WC / 8; ++dt) {
-          const uint8_t* p = vr + dt * 8 * T::BYTES;
-          const uint32_t b0 = T::one(p) | (T::one(p + W::VROW) << 16);
-          const uint32_t b1 =
-              T::one(p + 8 * W::VROW) | (T::one(p + 9 * W::VROW) << 16);
-          mma16816<T::F16>(*reinterpret_cast<float(*)[4]>(&acc[dt * 4]), a,
-                           b0, b1);
-        }
+      if (lane == 0) mbar_expect_tx(b, (uint32_t)nj * R * cw * 4);
+      __syncwarp();
+      for (int c = lane; c < nj * R; c += 32) {
+        const int jj = c / R, r = c - jj * R;
+        bulk_load(dst + ((size_t)jj * R + r) * wc * 4,
+                  o0 + ((size_t)(j0 + jj) * rows + r) * Dt + c0, cw * 4, b);
       }
     }
-    __syncthreads();  // V and the scales are free for the next tile
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the tiles are dead: the partial takes their place
-
-  // The CTA's partial (m, l from warp 0: every warp holds the same).
-  float* co = reinterpret_cast<float*>(smem);  // [RW][WIDE_SC]
-  float* cm = co + RW * WIDE_SC;               // [RW]
-  float* cl = cm + RW;                         // [RW]
-  if constexpr (T::SCALAR) {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-#pragma unroll
-      for (int c = 0; c < WIDE_WC / 32; ++c)
-        co[r * WIDE_SC + col0 + c * 32 + lane] = acc[r * (WIDE_WC / 32) + c];
-      if (warp == 0 && lane == 0) {
-        cm[r] = m[r];
-        cl[r] = l[r];
+  };
+  const int n_gc = n_windows * n_chunks;
+  issue(0);
+  if (n_gc > 1) issue(1);
+  // Each row's max M over the partials (s_aux as one more of LSE s_aux and
+  // value 0), each partial's weight exp2(m_j - M) (0 where nothing was
+  // live: its O unwritten, skipped) into S's place [n_split][R], and 1 /
+  // the denominator; a warp per row, m and l read in one pass (online).
+  float* wts = s_sm;
+  for (int r = warp; r < R; r += NWARPS) {
+    float mx = -INFINITY, den = 0.f;
+    for (int j = lane; j < n_split; j += 32) {
+      const float2 e = __ldcg(
+          reinterpret_cast<const float2*>(ml + ((size_t)j * rows + r) * 2));
+      wts[j * R + r] = e.x;
+      if (e.x > mx) {
+        den = den * exp2f(mx - e.x) + e.y;  // mx = -inf: den is 0
+        mx = e.x;
+      } else if (e.x != -INFINITY) {
+        den = fmaf(exp2f(e.x - mx), e.y, den);
       }
     }
-  } else {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = g + 8 * r;
-#pragma unroll
-      for (int dt = 0; dt < WIDE_WC / 8; ++dt)
-        *reinterpret_cast<float2*>(co + row * WIDE_SC + col0 + dt * 8 +
-                                   t4 * 2) =
-            make_float2(acc[dt * 4 + 2 * r], acc[dt * 4 + 2 * r + 1]);
-      if (warp == 0 && t4 == 0) {
-        cm[row] = m[r];
-        cl[row] = l[r];
-      }
-    }
-  }
-  cluster.sync();  // every CTA's partial is written
-
-  // Merge the cluster's partials, s_aux as one more of LSE s_aux and value
-  // 0 (decode_kernel's merge over the slice's columns).
-  constexpr int C4 = WIDE_SC / 4;
-  const int h0 = (bkv - b * H_kv) * G + row_lo;  // query head of local row 0
-  for (int i = tid * n_ranks + rank; i < R * C4; i += n_ranks * NTHREADS) {
-    const int r = i / C4, d4 = i - (i / C4) * C4;
-    const int col = scol + d4 * 4;
-    if (col >= Dt) continue;  // past the row
-    float rm[MAX_CLUSTER], rl[MAX_CLUSTER];
-    float4 ro[MAX_CLUSTER];
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c) {
-      if (c < n_ranks) {
-        rm[c] = *cluster.map_shared_rank(cm + r, c);
-        rl[c] = *cluster.map_shared_rank(cl + r, c);
-        ro[c] = *cluster.map_shared_rank(
-            reinterpret_cast<float4*>(co + r * WIDE_SC + d4 * 4), c);
-      }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, mx, off);
+      const float od = __shfl_xor_sync(0xffffffffu, den, off);
+      const float nm = fmaxf(mx, om);
+      den = (mx == -INFINITY ? 0.f : den * exp2f(mx - nm)) +
+            (om == -INFINITY ? 0.f : od * exp2f(om - nm));
+      mx = nm;
     }
     const float aux2 = s_aux != nullptr ? s_aux[h0 + r] * LOG2E : -INFINITY;
-    float mx = aux2;
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c)
-      if (c < n_ranks) mx = fmaxf(mx, rm[c]);
-    const float m_use = mx == -INFINITY ? 0.f : mx;
-    float denom = s_aux != nullptr ? exp2f(aux2 - m_use) : 0.f;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c) {
-      if (c < n_ranks) {
-        const float wt = exp2f(rm[c] - m_use);  // nothing live: 0
-        denom = fmaf(wt, rl[c], denom);
-        a.x = fmaf(wt, ro[c].x, a.x);
-        a.y = fmaf(wt, ro[c].y, a.y);
-        a.z = fmaf(wt, ro[c].z, a.z);
-        a.w = fmaf(wt, ro[c].w, a.w);
-      }
+    const float m_all = fmaxf(mx, aux2);
+    const float m_use = m_all == -INFINITY ? 0.f : m_all;
+    for (int j = lane; j < n_split; j += 32) {
+      const float mj = wts[j * R + r];
+      wts[j * R + r] = mj == -INFINITY ? 0.f : exp2f(mj - m_use);
     }
-    const float inv = denom > 0.f ? 1.f / denom : 0.f;
-    const size_t o = ((size_t)bkv * G + row_lo + r) * Dt + col;
-    if constexpr (T::SCALAR) {
-      *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
-          make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
-    } else {
-      uint2 ob;
-      ob.x = pack2<T::F16>(a.x * inv, a.y * inv);
-      ob.y = pack2<T::F16>(a.z * inv, a.w * inv);
-      *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + o) = ob;
+    if (lane == 0) {
+      den = mx == -INFINITY ? 0.f : den * exp2f(mx - m_use);
+      if (s_aux != nullptr) den += exp2f(aux2 - m_use);
+      l_sm[r] = den > 0.f ? 1.f / den : 0.f;
     }
   }
-  cluster.sync();  // no CTA leaves while another reads its shared memory
+  __syncthreads();  // the weights are written
+  float4 a4[4];
+  for (int gc = 0; gc < n_gc; ++gc) {
+    const int ch = gc % n_chunks, c0 = gc / n_chunks * wc;
+    const int c4n = min(wc, Dt - c0) / 4, items = R * c4n;
+    if (ch == 0) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    mbar_wait_timed(bar + (gc & 1), (gc >> 1) & 1);
+    const float* src =
+        reinterpret_cast<const float*>(smem + (gc & 1) * DEEP_MERGE_BUF);
+    const int j0 = ch * jc, nj = min(jc, n_split - j0);
+    // a thread's (up to) 4 items side by side, so their loads overlap; a
+    // partial of weight 0 is selected away (its O may be any bits)
+    int ir[4], io[4];  // an item's row, and its offset in a partial
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int it = tid + u * NTHREADS;
+      ir[u] = it / c4n;
+      io[u] = ir[u] * wc + (it - ir[u] * c4n) * 4;
+    }
+#pragma unroll 2
+    for (int jj = 0; jj < nj; ++jj) {
+      const float* sj = src + (size_t)jj * R * wc;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (tid + u * NTHREADS < items) {
+          const float w = wts[(j0 + jj) * R + ir[u]];
+          const float4 o = *reinterpret_cast<const float4*>(sj + io[u]);
+          const bool ok = w != 0.f;
+          a4[u].x = ok ? fmaf(w, o.x, a4[u].x) : a4[u].x;
+          a4[u].y = ok ? fmaf(w, o.y, a4[u].y) : a4[u].y;
+          a4[u].z = ok ? fmaf(w, o.z, a4[u].z) : a4[u].z;
+          a4[u].w = ok ? fmaf(w, o.w, a4[u].w) : a4[u].w;
+        }
+      }
+    }
+    __syncthreads();  // the chunk's buffer is free for the copy after next
+    if (gc + 2 < n_gc) issue(gc + 2);
+    if (ch == n_chunks - 1) {  // the window's rows of the output
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int it = tid + u * NTHREADS;
+        if (it < items) {
+          const int r = it / c4n, q4 = it - r * c4n;
+          const float inv = l_sm[r];
+          const size_t oi = ((size_t)bkv * G + row_lo + r) * Dt + c0 + q4 * 4;
+          if constexpr (T::SCALAR) {
+            *reinterpret_cast<float4*>(static_cast<float*>(out) + oi) =
+                make_float4(a4[u].x * inv, a4[u].y * inv, a4[u].z * inv,
+                            a4[u].w * inv);
+          } else {
+            uint2 ob;
+            ob.x = pack2<T::F16>(a4[u].x * inv, a4[u].y * inv);
+            ob.y = pack2<T::F16>(a4[u].z * inv, a4[u].w * inv);
+            *reinterpret_cast<uint2*>(static_cast<uint16_t*>(out) + oi) = ob;
+          }
+        }
+      }
+    }
+  }
+  if (tid == 0) counters[unit] = 0;  // for the next launch on this stream
 }
 
 template <class T>
-int launch_wide(const void* q, const void* k, const void* v,
+int launch_deep(const void* q, const void* k, const void* v,
                 const void* k_scale, const void* v_scale, const State& st,
-                const void* s_aux, void* out, int B, int H_q, int H_kv,
-                int S_total, int sink_cap, int window, int Dt, int cluster,
+                const void* s_aux, void* out, void* part, void* counters,
+                int B, int H_q, int H_kv, int S_total, int sink_cap,
+                int window, int Dt, int rows, int n_split, int split_slots,
                 float scale, cudaStream_t stream) {
-  constexpr size_t smem = WideDecode<T>::BYTES;
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      wide_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);  // once per storage
+  static const cudaError_t attr_err = [] {  // once per storage
+    cudaError_t e = cudaFuncSetAttribute(
+        deep_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        DEEP_SMEM_MAX);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(deep_decode_kernel<T>,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  }();
   if (attr_err != cudaSuccess) return (int)attr_err;
   const int G = H_q / H_kv;
-  const int n_pieces = (G + WIDE_RW - 1) / WIDE_RW;
-  const int n_slices = (Dt + WIDE_SC - 1) / WIDE_SC;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, B * H_kv * n_pieces * n_slices, 1);
-  cfg.blockDim = dim3(NTHREADS, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, wide_decode_kernel<T>, q, static_cast<const uint8_t*>(k),
-      static_cast<const uint8_t*>(v), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), st,
-      static_cast<const float*>(s_aux), out, H_kv, G, n_pieces, n_slices,
+  const DeepLayout<T> lay(rows, Dt);
+  // the ranges cover the live range: with batch-shared int state up to its
+  // high-water mark, else the whole buffer
+  const int end =
+      st.sink_len != nullptr
+          ? S_total
+          : std::min(S_total, st.u_window_len > 0
+                             ? sink_cap + (st.u_write_pos >= st.u_window_len
+                                               ? st.u_write_pos
+                                               : window)
+                             : st.u_sink_len);
+  // the merge's weights [n_split][rows] take S's place
+  if (part == nullptr || counters == nullptr || rows < 1 ||
+      rows > DEEP_ROWS || n_split < 1 || n_split > DEEP_SPLITS ||
+      split_slots < DEEP_TL || split_slots % DEEP_TL != 0 ||
+      (long)n_split * split_slots < end || lay.bytes > DEEP_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int n_pieces = (G + rows - 1) / rows;
+  const long units = (long)B * H_kv * n_pieces;
+  if (units > 65535) return (int)cudaErrorInvalidValue;
+  deep_decode_kernel<T><<<dim3(n_split, (unsigned)units), NTHREADS,
+                          lay.bytes, stream>>>(
+      q, static_cast<const uint8_t*>(k), static_cast<const uint8_t*>(v),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      st, static_cast<const float*>(s_aux), out, static_cast<float*>(part),
+      static_cast<int*>(counters), H_kv, G, rows, n_pieces, split_slots,
       S_total, sink_cap, window, Dt, scale * LOG2E);
-  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// What both designs take: whole GQA groups, whole 16-byte cache rows and q
+// rows of whole 4 elements.
+template <class T>
+bool bad_shape(int H_q, int H_kv, int D) {
+  return H_kv <= 0 || H_q % H_kv != 0 || D <= 0 || (D * T::BYTES) % 16 != 0 ||
+         D % 4 != 0;
 }
 
 template <class T>
@@ -1309,11 +1592,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
              int S_total, int D, int sink_cap, int window, int cluster,
              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H_kv <= 0 || H_q % H_kv != 0 || cluster < 1 || cluster > MAX_CLUSTER ||
-      (cluster & (cluster - 1)) != 0)
-    return (int)cudaErrorInvalidValue;
-  // whole 16-byte cache rows, and q rows of whole 4 elements
-  if (D <= 0 || (D * T::BYTES) % 16 != 0 || D % 4 != 0)
+  if (bad_shape<T>(H_q, H_kv, D) || D > 128 || cluster < 1 ||
+      cluster > MAX_CLUSTER || (cluster & (cluster - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || S_total <= 0) return 0;
   const State st{static_cast<const int*>(st_sink_len),
@@ -1324,33 +1604,48 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
     return launch_d<T, 64>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                            H_kv, S_total, sink_cap, window, D, cluster, scale,
                            s);
-  if (D <= 128)
-    return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
-                            H_q, H_kv, S_total, sink_cap, window, D, cluster,
-                            scale, s);
-  if (D <= 256)
-    return launch_d<T, 256>(q, k, v, k_scale, v_scale, st, s_aux, out, B,
-                            H_q, H_kv, S_total, sink_cap, window, D, cluster,
-                            scale, s);
-  if (D >= WIDE_MIN_D)
-    return launch_wide<T>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
+  return launch_d<T, 128>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
                           H_kv, S_total, sink_cap, window, D, cluster, scale,
                           s);
-  return launch_d<T, 512>(q, k, v, k_scale, v_scale, st, s_aux, out, B, H_q,
-                          H_kv, S_total, sink_cap, window, D, cluster, scale,
-                          s);
+}
+
+template <class T>
+int dispatch_deep(const void* q, const void* k, const void* v,
+                  const void* k_scale, const void* v_scale,
+                  const void* st_sink_len, const void* st_window_len,
+                  const void* st_write_pos, const void* s_aux, void* out,
+                  void* part, void* counters, int st_stride, int sink_len,
+                  int window_len, int write_pos, int B, int H_q, int H_kv,
+                  int S_total, int D, int sink_cap, int window, int rows,
+                  int n_split, int split_slots, float scale, void* stream) {
+  if (bad_shape<T>(H_q, H_kv, D) || D <= 128)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || S_total <= 0) return 0;
+  const State st{static_cast<const int*>(st_sink_len),
+                 static_cast<const int*>(st_window_len),
+                 static_cast<const int*>(st_write_pos), st_stride, sink_len,
+                 window_len, write_pos};
+  return launch_deep<T>(q, k, v, k_scale, v_scale, st, s_aux, out, part,
+                        counters, B, H_q, H_kv, S_total, sink_cap, window, D,
+                        rows, n_split, split_slots, scale,
+                        static_cast<cudaStream_t>(stream));
+}
+
+template <class T>
+int deep_smem(int rows, int D) {
+  return DeepLayout<T>(rows, D).bytes;
 }
 
 }  // namespace
 
 // q [B*H_q, D] (bf16; fp16 and fp32 for those caches); k/v [B*H_kv,
 // S_total, D] (bf16, fp16, fp32, or int8 codes with k_scale/v_scale
-// [B*H_kv, S_total] fp32; null otherwise), any D with whole 16-byte
-// rows; the state: three int32 arrays read at b * st_stride, or, where the
-// pointers are null, the ints sink_len, window_len, write_pos for every
-// sequence; s_aux [H_q] fp32 or null; out [B*H_q, D] like q. `cluster`
-// CTAs (1, 2, 4 or 8) per (b, kv head, 64-row piece of the group; 16-row
-// at D > 256; and 512-column slice at D > 512).
+// [B*H_kv, S_total] fp32; null otherwise), D with whole 16-byte rows; the
+// state: three int32 arrays read at b * st_stride, or, where the pointers
+// are null, the ints sink_len, window_len, write_pos for every sequence;
+// s_aux [H_q] fp32 or null; out [B*H_q, D] like q.
+// sink_decode_*: D <= 128, `cluster` CTAs (1, 2, 4 or 8) per (b, kv head,
+// 64-row piece of the group).
 #define SINK_DECODE_ENTRY(NAME, TYPE)                                        \
   extern "C" int NAME(const void* q, const void* k, const void* v,           \
                       const void* k_scale, const void* v_scale,              \
@@ -1361,10 +1656,31 @@ int dispatch(const void* q, const void* k, const void* v, const void* k_scale,
                       int D, int sink_cap, int window, int cluster,          \
                       float scale, void* stream) {                           \
     return dispatch<TYPE>(q, k, v, k_scale, v_scale, st_sink_len,            \
-                          st_window_len, st_write_pos, s_aux, out, st_stride, \
-                          sink_len, window_len, write_pos, B, H_q, H_kv,     \
-                          S_total, D, sink_cap, window, cluster, scale,      \
-                          stream);                                           \
+                          st_window_len, st_write_pos, s_aux, out,           \
+                          st_stride, sink_len, window_len, write_pos, B,     \
+                          H_q, H_kv, S_total, D, sink_cap, window, cluster,  \
+                          scale, stream);                                    \
+  }
+// sink_decode_deep_*: D > 128, n_split CTAs of split_slots slots each (a
+// multiple of 32; n_split at most 512; covering the live range) per (b, kv
+// head, piece of `rows` query rows, as sink_decode_deep_rows gives them);
+// part: fp32 scratch of units * n_split * rows * (D + 2) floats (units =
+// B * H_kv * ceil(G / rows)); counters: `units` int32 zeros, left zero.
+#define SINK_DECODE_DEEP_ENTRY(NAME, TYPE)                                   \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* k_scale, const void* v_scale,              \
+                      const void* st_sink_len, const void* st_window_len,    \
+                      const void* st_write_pos, const void* s_aux, void* out, \
+                      void* part, void* counters, int st_stride,             \
+                      int sink_len, int window_len, int write_pos, int B,    \
+                      int H_q, int H_kv, int S_total, int D, int sink_cap,   \
+                      int window, int rows, int n_split, int split_slots,    \
+                      float scale, void* stream) {                           \
+    return dispatch_deep<TYPE>(                                              \
+        q, k, v, k_scale, v_scale, st_sink_len, st_window_len, st_write_pos, \
+        s_aux, out, part, counters, st_stride, sink_len, window_len,         \
+        write_pos, B, H_q, H_kv, S_total, D, sink_cap, window, rows,         \
+        n_split, split_slots, scale, stream);                                \
   }
 
 SINK_DECODE_ENTRY(sink_decode_bf16, Bf16)
@@ -1372,8 +1688,27 @@ SINK_DECODE_ENTRY(sink_decode_f16, Fp16)
 SINK_DECODE_ENTRY(sink_decode_f32, Fp32)
 SINK_DECODE_ENTRY(sink_decode_int8, Int8)
 SINK_DECODE_ENTRY(sink_decode_fp8, Fp8)
+SINK_DECODE_DEEP_ENTRY(sink_decode_deep_bf16, Bf16)
+SINK_DECODE_DEEP_ENTRY(sink_decode_deep_f16, Fp16)
+SINK_DECODE_DEEP_ENTRY(sink_decode_deep_f32, Fp32)
+SINK_DECODE_DEEP_ENTRY(sink_decode_deep_int8, Int8)
+SINK_DECODE_DEEP_ENTRY(sink_decode_deep_fp8, Fp8)
 
-// The 128-slot tile the host sizes clusters by (an instance of 64-slot
-// tiles walks two per 128 slots).
+// The 128-slot tile the host sizes clusters by (D <= 128).
 extern "C" int sink_decode_tile() { return TILE; }
 extern "C" int sink_decode_max_cluster() { return MAX_CLUSTER; }
+// The query rows a CTA of the split decode takes for a group of G at head
+// dim D in a storage of `bytes` bytes an element (1: codes with scales):
+// up to 16, halved until the CTA's shared memory fits; 0 if one row does
+// not fit.
+extern "C" int sink_decode_deep_rows(int bytes, int G, int D) {
+  auto smem = [&](int rows) {
+    return bytes == 1   ? deep_smem<Int8>(rows, D)
+           : bytes == 2 ? deep_smem<Bf16>(rows, D)
+           : bytes == 4 ? deep_smem<Fp32>(rows, D)
+                        : DEEP_SMEM_MAX + 1;
+  };
+  int rows = std::min(G, DEEP_ROWS);
+  while (rows > 1 && smem(rows) > DEEP_SMEM_MAX) rows = (rows + 1) / 2;
+  return rows >= 1 && smem(rows) <= DEEP_SMEM_MAX ? rows : 0;
+}

@@ -3,11 +3,14 @@
 Counterpart of ``sink_attention_tpu/ops/decode.py``. The kernel is
 ``csrc/decode.cu`` (it replaces the TPU kernel ``_decode_kernel`` in its
 storage branches: bf16, fp16, fp32, and int8 and fp8 codes with per-token
-fp32 scales): one launch per call, a thread block cluster per (sequence, KV
-head) that splits the live 128-slot tiles of the cache buffer, read in
-place, and merges its partials in distributed shared memory. Beside it
-sits its plain PyTorch version, :func:`decode_plain`. A CPU tensor takes
-the plain version; a CUDA tensor launches the kernel or raises.
+fp32 scales), one launch per call over the cache buffer, read in place.
+Up to head_dim 128 a thread block cluster per (sequence, KV head) splits
+the live 128-slot tiles and merges its partials in distributed shared
+memory. Past 128 the live range is split over enough CTAs to fill the card
+(:func:`split_plan`), each writing an fp32 partial to scratch that the
+unit's last CTA merges in the same launch. Beside it sits its plain
+PyTorch version, :func:`decode_plain`. A CPU tensor takes the plain
+version; a CUDA tensor launches the kernel or raises.
 
 The quantized kernels compute attention over the dequantized cache. The
 JAX int8 branch instead rounds q and p to 8 bits for the TPU's s8 x s8
@@ -16,13 +19,11 @@ not its rounding. An fp32 cache is attended in fp32 (JAX pins
 ``Precision.HIGHEST`` for a non-bf16 cache), an fp16 cache in fp16 with
 fp32 accumulation.
 
-Any head_dim runs (the kernel's instances are 64, 128, 256 and 512 wide,
-the columns past D zero-filled; the 256 instance of bf16, fp16 and fp32
-storage walks 64-slot tiles, two per 128-slot unit of :func:`cluster_size`,
-the 512 instance 32-slot tiles, 64 for the codes, and splits O's columns
-across its warps; past 512 one wide instance per storage walks 32-slot
-tiles, streams S's depth in 256-column chunks and gives each CTA one
-512-column slice of the output). The cache rows are copied 16 bytes at a
+Any head_dim runs (the kernel's instances are 64 and 128 wide, the
+columns past D zero-filled; past 128 one instance per storage whose depth
+is counted at run time streams 32-slot tiles of K, then of V, in 512-byte
+chunks of a row, through a ring of four, computing S once per tile). The
+cache rows are copied 16 bytes at a
 time, so a D whose rows are not whole 16 bytes (D % 8 != 0 in bf16/fp16, D
 % 16 != 0 for int8/fp8 codes, D % 4 != 0 in fp32) reaches the kernel
 through a zero-padded copy of q and the whole cache buffer made per call
@@ -49,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -59,11 +61,18 @@ __all__ = ["sink_decode_attention", "sink_decode_attention_cached",
            "sink_decode_attention_ragged",
            "sink_decode_attention_cached_multi",
            "sink_decode_attention_ragged_multi", "decode_kernel",
-           "decode_plain", "cache_state", "cluster_size"]
+           "decode_plain", "cache_state", "cluster_size", "split_plan"]
 
 LANES = 128
 TILE = 128       # slots per kernel tile; must match csrc/decode.cu
 MAX_CLUSTER = 8  # CTAs per cluster at most; must match csrc/decode.cu
+# The split decode past head_dim 128 (csrc/decode.cu's DEEP_* constants,
+# which its launch checks the plan against):
+DEEP_TILE = 32          # slots per tile
+DEEP_SLOTS = 512        # slots of one CTA's pass (a longer range: passes)
+DEEP_SPLITS = 512       # ranges of a unit at most
+DEEP_MIN_TILES = 2      # tiles of a range at least, where the range allows
+DEEP_CTAS_PER_SM = 2    # CTAs the split aims at, per SM of the card
 
 
 def _round_up(a: int, b: int) -> int:
@@ -143,26 +152,47 @@ def decode_plain(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     return out.reshape(B, H_q, 1, D).to(q.dtype)
 
 
-# The storage branches' C entry points in csrc/decode.cu (one signature),
-# by the cache's quantization, else by its dtype.
+# The storage branches' C entry points in csrc/decode.cu, by the cache's
+# quantization, else by its dtype: head_dim <= 128 (one signature); past
+# 128 the split decode's, ``sink_decode_deep_*`` (another).
 _ENTRY = {torch.bfloat16: "sink_decode_bf16",
           torch.float16: "sink_decode_f16",
           torch.float32: "sink_decode_f32", "int8": "sink_decode_int8",
           "fp8": "sink_decode_fp8"}
 
 
+def _entry(branch, deep: bool) -> str:
+    name = _ENTRY[branch]
+    return name.replace("decode_", "decode_deep_") if deep else name
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(branch):
+def _kernel_fn(branch, deep: bool = False):
     lib = _build.load("decode")
     if (lib.sink_decode_tile(), lib.sink_decode_max_cluster()) != (
             TILE, MAX_CLUSTER):
         raise RuntimeError("csrc/decode.cu and ops/decode.py disagree on "
                            "TILE / MAX_CLUSTER")
-    fn = getattr(lib, _ENTRY[branch])
+    fn = getattr(lib, _entry(branch, deep))
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 12 +
+    # the split decode adds the workspace's two pointers and the plan's
+    # rows, n_split and split_slots in place of the cluster
+    fn.argtypes = ([ctypes.c_void_p] * (12 if deep else 10) +
+                   [ctypes.c_int] * (14 if deep else 12) +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _deep_rows(elem_bytes: int, group: int, d: int) -> int:
+    """Query rows a CTA of the split decode takes (csrc/decode.cu's
+    ``sink_decode_deep_rows``: up to 16, halved until its shared memory
+    fits)."""
+    rows = _build.load("decode").sink_decode_deep_rows(elem_bytes, group, d)
+    if rows < 1:
+        raise ValueError(f"head_dim {d}: one query row of the decode does "
+                         "not fit a CTA's shared memory")
+    return rows
 
 
 def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
@@ -191,23 +221,79 @@ def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
         raise ValueError(f"inputs on different devices: {devs}")
 
 
-def cluster_size(lens, s_total: int, sink_cap: int,
-                 window_size: int) -> int:
-    """CTAs per cluster of the decode kernel: the smallest power of two
-    that covers the live range's 128-slot tiles, at most MAX_CLUSTER.
-    With batch-shared int state the range ends where the kernel's own
-    high-water mark does; device state (a table or [B] tensors), unknown
-    to the host, spans the whole buffer."""
+def _live_end(lens, s_total: int, sink_cap: int, window_size: int) -> int:
+    """Where the kernel's live range ends at most: with batch-shared int
+    state where its own high-water mark does; device state (a table or
+    [B] tensors), unknown to the host, spans the whole buffer."""
     end = s_total
     if not (isinstance(lens, torch.Tensor) or isinstance(lens[0],
                                                          torch.Tensor)):
         sink_len, window_len, write_pos = (int(x) for x in lens)
         end = min(end, sink_len if window_len == 0 else sink_cap + (
             write_pos if write_pos >= window_len else window_size))
-    c, n_tiles = 1, -(-end // TILE)
+    return end
+
+
+def cluster_size(lens, s_total: int, sink_cap: int,
+                 window_size: int) -> int:
+    """CTAs per cluster of the decode kernel up to head_dim 128: the
+    smallest power of two that covers the live range's 128-slot tiles, at
+    most MAX_CLUSTER (the range as :func:`_live_end` bounds it)."""
+    c, n_tiles = 1, -(-_live_end(lens, s_total, sink_cap, window_size)
+                      // TILE)
     while c < min(n_tiles, MAX_CLUSTER):
         c *= 2
     return c
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(units: int, rows: int, elem_bytes: int, end: int,
+               n_sm: int):
+    """How the split decode (head_dim > 128) covers the live range
+    [0, ``end``) of a call with ``units`` = B * H_kv * ceil(group /
+    ``rows``) units of ``rows`` query rows over a storage of
+    ``elem_bytes`` bytes an element: ``(n_split, split_slots)``, n_split
+    CTAs a unit, each over split_slots slots (whole 32-slot tiles). About
+    DEEP_CTAS_PER_SM CTAs per SM of the ``n_sm``, no fewer than
+    DEEP_MIN_TILES tiles a range where the range allows, no more ranges
+    than balance the unit's merge (its last CTA reads n_split x rows x d
+    fp32) against one range's K/V bytes (2 x end / n_split x d x
+    ``elem_bytes``), and at most DEEP_SPLITS ranges; a range is one pass
+    of at most DEEP_SLOTS slots unless DEEP_SPLITS of them do not cover
+    the range."""
+    tiles = max(1, -(-end // DEEP_TILE))
+    least = -(-tiles // (DEEP_SLOTS // DEEP_TILE))  # ranges of one pass
+    want = min(-(-DEEP_CTAS_PER_SM * n_sm // units),
+               -(-tiles // DEEP_MIN_TILES),
+               max(1, math.isqrt(end * elem_bytes // (2 * rows))))
+    per = -(-tiles // min(max(least, want), DEEP_SPLITS))  # tiles a range
+    return -(-tiles // per), per * DEEP_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# The split decode's workspace, per (device, stream): fp32 scratch for the
+# partials (each launch writes what it reads) and the arrival counters,
+# zeroed once and left zero by every launch (a unit's last CTA resets its
+# own). Launches on one stream run in order, so they share it; a warmed
+# call allocates nothing.
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream: int, n_part: int, n_units: int):
+    key = (device.index, stream)
+    part, counters = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < n_units:
+        counters = torch.zeros(max(n_units, 1024), dtype=torch.int32,
+                               device=device)
+    _WORKSPACE[key] = part, counters
+    return part, counters
 
 
 def _state_args(lens, batch: int, device):
@@ -262,7 +348,6 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     if not q.is_cuda:
         raise ValueError("decode_kernel takes CUDA tensors on one device")
     ptrs, stride, ints = _state_args(lens, B, q.device)
-    cluster = cluster_size(lens, s_total, sink_cap, window_size)
     d_pad = max(_build.padded_head_dim(D, k_buf.element_size()),
                 _build.padded_head_dim(D, 4))  # cache rows, q's float4s
     qc = _build.aligned(_build.pad_head_dim(q, d_pad))
@@ -275,13 +360,32 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
            else None)
     out = torch.empty_like(qc)
     branch = quant or q.dtype
-    code = _kernel_fn(branch)(
-        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        *(t.data_ptr() if t is not None else None for t in scales), *ptrs,
-        aux.data_ptr() if aux is not None else None, out.data_ptr(), stride,
-        *ints, B, H_q, H_kv, s_total, d_pad, sink_cap, window_size, cluster,
-        1.0 / (D ** 0.5), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, _ENTRY[branch])
+    tensors = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+               *(t.data_ptr() if t is not None else None for t in scales),
+               *ptrs, aux.data_ptr() if aux is not None else None,
+               out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if d_pad <= 128:
+        code = _kernel_fn(branch)(
+            *tensors, stride, *ints, B, H_q, H_kv, s_total, d_pad, sink_cap,
+            window_size, cluster_size(lens, s_total, sink_cap, window_size),
+            1.0 / (D ** 0.5), stream)
+    else:  # the split decode, its plan and its workspace
+        G, elem = H_q // H_kv, k_buf.element_size()
+        rows = _deep_rows(elem, G, d_pad)
+        units = B * H_kv * -(-G // rows)
+        n_split, split_slots = split_plan(
+            units, rows, elem, _live_end(lens, s_total, sink_cap,
+                                         window_size),
+            _sm_count(q.device.index))
+        part, counters = _workspace(q.device, stream,
+                                    units * n_split * rows * (d_pad + 2),
+                                    units)
+        code = _kernel_fn(branch, True)(
+            *tensors, part.data_ptr(), counters.data_ptr(), stride, *ints, B,
+            H_q, H_kv, s_total, d_pad, sink_cap, window_size, rows, n_split,
+            split_slots, 1.0 / (D ** 0.5), stream)
+    _build.check(code, _entry(branch, d_pad > 128))
     if quant == "int8":
         decode_kernel.launches_int8 += 1
     elif quant == "fp8":

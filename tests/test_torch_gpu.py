@@ -92,6 +92,21 @@ QUANT_CASES = [
     ("int8", 4, 64, 8, 64, 0, 128, [1000, 77, 0, 610], 24),
     ("fp8", 4, 64, 8, 64, 0, 2048, [1000, 77, 0, 610], 24),
     ("fp8", 4, 8, 2, 128, 4, 100, [3, 150, 0, 40], 12),   # park slot
+    # the split decode (D > 128): B = 1 over a long wrapped cache (65
+    # ranges), MQA 8/1 ragged with an empty slot, G = 64 (four 16-row
+    # pieces), a padded copy (D = 264 codes -> 272)
+    ("int8", 1, 8, 4, 256, 4, 8192, 9000, 2),
+    ("fp8", 1, 8, 4, 1024, 4, 8192, 9000, 2),
+    ("fp8", 3, 8, 1, 256, 4, 1024, [1500, 0, 700], 6),
+    ("int8", 3, 8, 1, 1024, 0, 512, [0, 900, 300], 5),
+    ("int8", 1, 64, 1, 512, 0, 1024, 1500, 2),
+    ("fp8", 2, 8, 4, 264, 0, 256, 300, 1),
+    # G = 17 / 18: a last piece of 1 / 2 rows; a cache past 512 x 512
+    ("int8", 1, 17, 1, 640, 4, 1024, 1100, 1),
+    ("fp8", 2, 36, 2, 640, 0, 512, [600, 0], 2),
+    ("fp8", 1, 17, 1, 1024, 0, 2048, 1500, 2),
+    ("int8", 2, 36, 2, 1024, 4, 1024, [1100, 300], 1),
+    ("int8", 1, 4, 1, 256, 4, 270000, 270100, 3),
 ]
 QUANT_BUDGET = {"int8": 0.05, "fp8": 0.12}  # vs unquantized KV (JAX tests)
 
@@ -429,8 +444,8 @@ def test_forward_kernel_matches_plain_with_backward(cuda, cfg):
 
 
 DECODE_CASES = [
-    # (B, H_q, H_kv, D, num_sink, window, prefill_len, appends): the live
-    # range sets the cluster size (decode._cluster_size of its tiles)
+    # (B, H_q, H_kv, D, num_sink, window, prefill_len, appends): up to D =
+    # 128 the live range sets the cluster size (decode.cluster_size)
     (2, 8, 8, 64, 0, 1024, 100, 1),      # G = 1, 1 tile: cluster 1
     (2, 64, 8, 128, 0, 1024, 200, 2),    # G = 8, 2 tiles: cluster 2
     (2, 64, 8, 128, 4, 1024, 250, 2),    # 3 tiles: cluster 4, a rank idle
@@ -439,19 +454,36 @@ DECODE_CASES = [
     (1, 64, 1, 64, 0, 2048, 1900, 1),    # G = 64 (MQA), 15 tiles on 8
     (1, 64, 1, 128, 4, 128, 300, 0),     # G = 64, wrapped ring
     (2, 128, 1, 64, 0, 256, 200, 1),     # G = 128: two 64-row pieces
-    # the 512 instance: 16-row pieces, 32-slot tiles
-    (2, 32, 2, 512, 4, 1024, 300, 3),    # G = 16: one piece, cluster 4
-    (1, 40, 2, 512, 0, 2048, 1900, 1),   # G = 20: two pieces, 60 tiles on 8
-    # the wide instance: 16-row pieces, 512-column slices, 32-slot tiles
-    (2, 32, 2, 1024, 4, 1024, 300, 3),   # G = 16: one piece, two slices
-    (1, 40, 2, 640, 0, 2048, 1900, 1),   # G = 20: two pieces, a part slice
+    # past D = 128, the split decode (16-row pieces, ranges of 32-slot
+    # tiles, the partials merged by each unit's last CTA)
+    (2, 32, 2, 512, 4, 1024, 300, 3),    # G = 16: one piece
+    (1, 40, 2, 512, 0, 2048, 1900, 1),   # G = 20: two pieces
+    (2, 32, 2, 1024, 4, 1024, 300, 3),   # G = 16, two column chunks
+    (1, 40, 2, 640, 0, 2048, 1900, 1),   # G = 20, a part column chunk
+    # B = 1 over a wrapped 8320-slot cache (52 ranges of 160 slots per (b,
+    # kv head), far past one cluster's 8), MQA 8/1 (Gemma-1-2B's group), G
+    # = 64 (four 16-row pieces), a short cache (one range), D = 2048
+    (1, 8, 4, 256, 4, 8192, 9000, 2),
+    (1, 8, 4, 1024, 4, 8192, 9000, 2),
+    (2, 8, 1, 256, 0, 2048, 3000, 1),
+    (1, 64, 1, 512, 4, 1024, 1500, 2),
+    (2, 8, 4, 256, 0, 64, 20, 1),
+    (1, 8, 2, 2048, 4, 1024, 1100, 1),
+    # G = 17 / 18: a last piece of 1 / 2 rows beside 16-row pieces
+    (1, 17, 1, 640, 4, 1024, 1100, 1),
+    (2, 36, 2, 640, 0, 512, 600, 2),
+    (2, 34, 2, 1024, 4, 1024, 1100, 1),
+    (1, 18, 1, 1024, 0, 2048, 1500, 2),
+    # past 512 ranges of 512 slots: ranges walked in passes of 512
+    (1, 2, 1, 256, 4, 270000, 270100, 3),
 ]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_decode_kernel_any_group_and_cluster(cuda, case):
-    """The one-launch cluster decode against decode_plain for GQA groups
-    1-128 and cluster sizes 1-8, one launch per call."""
+    """The one-launch decode against decode_plain for GQA groups 1-128:
+    cluster sizes 1-8 up to D = 128, split ranges past it (a long B = 1
+    cache, MQA, four row pieces, one range), one launch per call."""
     B, H_q, H_kv, D, ns, W, n, steps = case
     gen = torch.Generator(device=cuda).manual_seed(7)
     cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
@@ -470,32 +502,69 @@ def test_decode_kernel_any_group_and_cluster(cuda, case):
     assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
 
 
-def test_decode_kernel_wrapped_ring_at_write_pos_zero(cuda):
-    """A ring filled exactly (write_pos = 0): the circular-age test wraps
-    there; with and without s_aux."""
-    gen = torch.Generator(device=cuda).manual_seed(8)
-    B, H_q, H_kv, D, ns, W = 2, 16, 2, 64, 4, 256
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_decode_kernel_last_piece_of_one_row(cuda, dtype):
+    """G = 17 at D = 2048: fp32 takes 8-row pieces (16 would not fit a
+    CTA's shared memory), fp16 16-row ones; either way the last piece is
+    one row, merged in windows of 2048 columns. With and without s_aux,
+    against decode_plain at DECODE_TOL."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    B, H_q, H_kv, D, ns, W = 1, 17, 1, 2048, 4, 1024
     cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
-                             device=cuda)
-    n = ns + 3 * W
-    cache.prefill(_randn(gen, B, H_kv, n, D), _randn(gen, B, H_kv, n, D))
-    assert (cache.write_pos, cache.window_len) == (0, W)
-    q = _randn(gen, B, H_q, 1, D)
+                             dtype=dtype, device=cuda)
+    cache.prefill(_randn(gen, B, H_kv, 1100, D).to(dtype),
+                  _randn(gen, B, H_kv, 1100, D).to(dtype))
+    q = _randn(gen, B, H_q, 1, D).to(dtype)
     for aux in (None, torch.randn(H_q, generator=gen, device=cuda)):
+        before = decode.decode_kernel.launches
         o_k = decode.sink_decode_attention_cached(q, cache, aux)
         o_p = decode.decode_plain(q, cache.k, cache.v,
                                   decode.cache_state(cache), aux,
                                   **decode.cache_args(cache))
         torch.cuda.synchronize()
-        assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+        assert decode.decode_kernel.launches == before + 1
+        torch.testing.assert_close(o_k, o_p, atol=DECODE_TOL[dtype],
+                                   rtol=1e-3)
 
 
+@pytest.mark.parametrize("D", [64, 256, 1024])
+def test_decode_kernel_wrapped_ring_at_write_pos_zero(cuda, D):
+    """A ring filled exactly (write_pos = 0): the circular-age test wraps
+    there; with and without s_aux, in bf16 and fp32 (D > 128: the split
+    decode)."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    B, H_q, H_kv, ns, W = 2, 16, 2, 4, 256
+    for dtype in (torch.bfloat16, torch.float32):
+        cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
+                                 dtype=dtype, device=cuda)
+        n = ns + 3 * W
+        cache.prefill(_randn(gen, B, H_kv, n, D).to(dtype),
+                      _randn(gen, B, H_kv, n, D).to(dtype))
+        assert (cache.write_pos, cache.window_len) == (0, W)
+        q = _randn(gen, B, H_q, 1, D).to(dtype)
+        for aux in (None, torch.randn(H_q, generator=gen, device=cuda)):
+            o_k = decode.sink_decode_attention_cached(q, cache, aux)
+            o_p = decode.decode_plain(q, cache.k, cache.v,
+                                      decode.cache_state(cache), aux,
+                                      **decode.cache_args(cache))
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                assert float((o_k.float() - o_p.float()).abs().max()) <= \
+                    2e-2
+            else:
+                torch.testing.assert_close(o_k, o_p, atol=DECODE_TOL[dtype],
+                                           rtol=1e-3)
+
+
+@pytest.mark.parametrize("D", [128, 256, 1024])
 @pytest.mark.parametrize("quant", [None, "int8", "fp8"])
-def test_ragged_decode_mqa_empty_slot(cuda, quant):
+def test_ragged_decode_mqa_empty_slot(cuda, quant, D):
     """The ragged decode reads the cache's [B] state tensors on the card:
-    MQA 32/1, slots at different ring phases, one empty slot (zeros)."""
+    MQA 32/1, slots at different ring phases, one empty slot (zeros), with
+    and without s_aux (D > 128: the split decode, its ranges planned over
+    the whole buffer, most past a short slot's hwm)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
-    B, H_q, H_kv, D, ns, W = 4, 32, 1, 128, 4, 512
+    B, H_q, H_kv, ns, W = 4, 32, 1, 4, 512
     lengths = [700, 0, 90, 515]
     caches = [RaggedSinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
                                      quant=qn, device=cuda)
@@ -514,17 +583,17 @@ def test_ragged_decode_mqa_empty_slot(cuda, quant):
             c.append(kn, vn, active)
     qc, ref = caches
     q = _randn(gen, B, H_q, 1, D)
-    aux = torch.randn(H_q, generator=gen, device=cuda)
-    o_k = decode.sink_decode_attention_ragged(q, qc, aux)
-    o_p = decode.decode_plain(q, qc.k, qc.v, decode.ragged_lens(qc), aux,
-                              **decode.cache_args(qc))
-    o_b = decode.sink_decode_attention_ragged(q, ref, aux)
-    torch.cuda.synchronize()
-    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
-    if quant:
-        assert float((o_k.float() - o_b.float()).abs().max()) <= \
-            QUANT_BUDGET[quant]
-    assert not o_k[1].any()
+    for aux in (None, torch.randn(H_q, generator=gen, device=cuda)):
+        o_k = decode.sink_decode_attention_ragged(q, qc, aux)
+        o_p = decode.decode_plain(q, qc.k, qc.v, decode.ragged_lens(qc), aux,
+                                  **decode.cache_args(qc))
+        o_b = decode.sink_decode_attention_ragged(q, ref, aux)
+        torch.cuda.synchronize()
+        assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+        if quant:
+            assert float((o_k.float() - o_b.float()).abs().max()) <= \
+                QUANT_BUDGET[quant]
+        assert not o_k[1].any()
 
 
 def test_warmed_backward_calls_do_not_synchronise(cuda):
@@ -556,11 +625,13 @@ def test_warmed_backward_calls_do_not_synchronise(cuda):
     torch.cuda.synchronize()
 
 
-def test_warmed_calls_do_not_synchronise(cuda):
+@pytest.mark.parametrize("D", [64, 256, 1024])
+def test_warmed_calls_do_not_synchronise(cuda, D):
     """A warmed call of the cached decode, the ragged decode and the
-    forward issues no synchronising CUDA operation."""
+    forward issues no synchronising CUDA operation (D > 128: the split
+    decode's scratch and counters too)."""
     gen = torch.Generator(device=cuda).manual_seed(10)
-    B, H_q, H_kv, D = 2, 16, 2, 64
+    B, H_q, H_kv = 2, 16, 2
     cache = SinkKVCache.init(B, H_kv, D, num_sink=4, window_size=256,
                              device=cuda)
     cache.prefill(_randn(gen, B, H_kv, 300, D), _randn(gen, B, H_kv, 300, D))

@@ -331,6 +331,45 @@ def test_decode_wrapper_takes_any_group():
         1, 1, 2, 4, 8, 8, 8]
 
 
+def test_split_plan_covers_the_range_and_fills_the_card():
+    """The split decode's host plan (head_dim > 128): whole 32-slot tiles,
+    ranges covering the live range, about two CTAs per SM of the card at
+    small batch, fewer ranges where the unit's merge would outweigh one
+    range's K/V bytes; at most 512 ranges, each one pass of at most 512
+    slots unless 512 of those do not cover the range. Pure host
+    arithmetic: no card."""
+    from sink_attention_tpu_torch.ops import decode
+
+    plan = decode.split_plan
+    # (units, rows, element bytes, live end, SMs) -> (n_split, split_slots)
+    expected = {
+        # Gemma-2-2B at B = 2 (8 (b, kv head) units of G = 2), 4096 slots
+        (8, 2, 2, 4096, 132): (32, 128),
+        # B = 1 over 32768 slots; MQA 8/1 over 8192 (the merge caps it)
+        (4, 2, 2, 32768, 132): (64, 512),
+        (1, 8, 2, 8192, 132): (32, 256),
+        # fp32 at D = 2048, G = 17: three 8-row pieces a kv head
+        (3, 8, 4, 1024, 132): (16, 64),
+        (8, 2, 2, 20, 132): (1, 32),
+        (16, 16, 2, 4096, 132): (16, 256),
+        # 512 x 512 slots: 512 one-pass ranges; one slot more: longer
+        # ranges, walked in passes
+        (1, 1, 2, 512 * 512, 132): (512, 512),
+        (1, 1, 2, 512 * 512 + 1, 132): (482, 544),
+        (1, 16, 2, 10 ** 6, 132): (505, 1984),
+    }
+    for args, want in expected.items():
+        assert plan(*args) == want, args
+    for args in [(8, r, e, n, 132) for r in (1, 2, 16) for e in (1, 2, 4)
+                 for n in (1, 300, 4100, 65536, 3 * 10 ** 6)] + [
+                     (64, 16, 2, 2048, 8)]:
+        n_split, slots = plan(*args)
+        assert slots % 32 == 0 and 32 <= slots, args
+        assert 1 <= n_split <= 512, args
+        assert slots <= 512 or args[3] > 512 * 512, args
+        assert n_split * slots >= args[3] > (n_split - 1) * slots, args
+
+
 def test_top_level_exports_the_ported_api():
     """Every name of the JAX package's top-level ``__all__`` that the port
     has (in its ops, cache, parallel or compat) is exported by the port's

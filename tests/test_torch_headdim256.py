@@ -307,23 +307,21 @@ def test_chip_smoke_gemma_phase_on_cpu():
 
 
 def _decode_ptxas(spills):
-    """ptxas lines of decode.cu's 54 instances (the wide instance of a
+    """ptxas lines of decode.cu's 35 instances (the split decode of a
     storage keyed (storage, 0, 1)), ``spills`` {(storage, D, slices): bytes
     of spill stores} and 0 for the others."""
     names = {"Bf16": 4, "Fp16": 4, "Fp32": 4, "Int8": 4, "Fp8": 3}
     lines = []
     for st, n in names.items():
-        for d in (64, 128, 256, 512):
+        for d in (64, 128):
             for sl in (1, 2, 4):
-                if (st, d, sl) == ("Fp32", 256, 4) or (d == 512 and sl > 1):
-                    continue
                 b = spills.get((st, d, sl), 0)
                 lines += [f"Compiling entry function '_ZN_decode_kernelINS_{n}"
                           f"{st}ELi{d}ELi{sl}EEEvPKv' for 'sm_90a'",
                           f"{b} bytes stack frame, {b} bytes spill stores, "
                           f"{b} bytes spill loads"]
         b = spills.get((st, 0, 1), 0)
-        lines += [f"Compiling entry function '_ZN_wide_decode_kernelINS_{n}"
+        lines += [f"Compiling entry function '_ZN_deep_decode_kernelINS_{n}"
                   f"{st}EEEvPKv' for 'sm_90a'",
                   f"{b} bytes stack frame, {b} bytes spill stores, "
                   f"{b} bytes spill loads"]
@@ -337,13 +335,13 @@ def test_spill_check_holds_decode_to_its_allowance():
     allowed = chip_smoke.DECODE_SPILL_ALLOWANCE
     assert chip_smoke.spill_errors(_decode_ptxas(allowed)) == []
     worse = dict(allowed)
-    worse[("Int8", 256, 4)] = allowed[("Int8", 256, 4)] + 4
+    worse[("Int8", 128, 4)] = allowed[("Int8", 128, 4)] + 4
     assert len(chip_smoke.spill_errors(_decode_ptxas(worse))) == 1
     new = dict(allowed)
     new[("Bf16", 128, 1)] = 4
     assert len(chip_smoke.spill_errors(_decode_ptxas(new))) == 1
     wide = dict(allowed)
-    wide[("Fp32", 0, 1)] = 4  # the wide instance has no allowance
+    wide[("Fp32", 0, 1)] = 4  # the split decode has no allowance
     assert len(chip_smoke.spill_errors(_decode_ptxas(wide))) == 1
     short = _decode_ptxas(allowed)
     short["decode"]["ptxas"] = short["decode"]["ptxas"][:-2]
