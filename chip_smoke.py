@@ -558,13 +558,16 @@ def packed_pairs(positions, num_sink, window):
 
 
 def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
-                 use_aux=True, label=""):
+                 use_aux=True, label="", dtype=torch.bfloat16):
     """The packed forward, dQ and dK/dV kernels against their plain
-    versions on one pack (the same positions in every batch row), dQ and
-    dK/dV also bitwise against a second run. Returns rows "packed_fwd",
-    "packed_dq", "packed_dkdv" with errors, times and bounds (FLOPs from
-    the visible pairs of the pack's own mask), each also with the kernel's
-    own device time per launch and its effective MFU."""
+    versions on one pack (the same positions in every batch row), inputs
+    in ``dtype`` (the plain versions' products at the kernels' precision,
+    as check_flash's), dQ and dK/dV also bitwise against a second run.
+    Returns rows "packed_fwd", "packed_dq", "packed_dkdv" with errors,
+    times and bounds (FLOPs from the visible pairs of the pack's own mask,
+    the inputs' bytes in their dtype), each also with the kernel's own
+    device time per launch (per call with its casts, for fp32) and its
+    effective MFU."""
     from sink_attention_tpu_torch.ops.packed import pack_positions
     from sink_attention_tpu_torch.ops import packed
     from sink_attention_tpu_torch.ops.reference import packed_sink_window_mask
@@ -573,29 +576,31 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
 
     positions = pack_positions(lens, first)[None].expand(B, -1).to(dev)
     N = positions.shape[1]
-    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
-        torch.bfloat16)
+    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
     q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
     k, v = mk(B, H_kv, N, D), mk(B, H_kv, N, D)
     aux = torch.randn(H_q, generator=gen, device=dev) if use_aux else None
     geom = (ns, W)
+    mm = MATMUL_DTYPE.get(dtype)
     o_k, l_k = packed.packed_fwd_kernel(q, k, v, positions, aux, *geom)
-    o_p, l_p = packed.packed_fwd_plain(q, k, v, positions, aux, *geom)
+    o_p, l_p = packed.packed_fwd_plain(q, k, v, positions, aux, *geom,
+                                       matmul_dtype=mm)
     delta = (do.float() * o_k.float()).sum(-1)
     args = (q, k, v, do, l_k, delta, positions, *geom)
     dq = packed.packed_dq_kernel(*args)
     dk, dv = packed.packed_dkdv_kernel(*args)
-    ref = packed.packed_bwd_plain(*args)
+    ref = packed.packed_bwd_plain(*args, matmul_dtype=mm)
     dq2 = packed.packed_dq_kernel(*args)
     dk2, dv2 = packed.packed_dkdv_kernel(*args)
     torch.cuda.synchronize()
     shape = (f"B={B} H={H_q}/{H_kv} N={N} D={D} sink={ns} W={W}"
-             + (" s_aux" if use_aux else "") + f" {label}")
+             + (" s_aux" if use_aux else "") + f" {label}"
+             + _dtype_label(dtype))
     err = float((o_k.float() - o_p.float()).abs().max())
     lerr = float((l_k - l_p).abs().max())
     rows = {"packed_fwd": {
         "shape": shape, "max_abs_err": err, "lse_err": lerr,
-        "ok": err <= FLASH_TOL and lerr <= LSE_TOL
+        "ok": err <= FWD_TOL[dtype] and lerr <= LSE_TOLS[dtype]
         and bool(torch.isfinite(o_k.float()).all())}}
     for name, got, refs, again in (
             ("packed_dq", (dq,), ref[:1], (dq2,)),
@@ -626,12 +631,13 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
             ("packed_dq", lambda: packed.packed_dq_kernel(*args)),
             ("packed_dkdv", lambda: packed.packed_dkdv_kernel(*args))):
         rows[name]["device_ms"], rows[name]["kernels_per_call"] = \
-            per_call_device(fn, calls=10)
+            _device_per_call(fn, dtype, calls=10)
     rows["packed_fwd"]["plain_ms"] = time_cuda(
-        lambda: packed.packed_fwd_plain(q, k, v, positions, aux, *geom),
+        lambda: packed.packed_fwd_plain(q, k, v, positions, aux, *geom,
+                                        matmul_dtype=mm),
         iters=2, warmup=1)
-    bwd_plain_ms = time_cuda(lambda: packed.packed_bwd_plain(*args),
-                             iters=2, warmup=1)
+    bwd_plain_ms = time_cuda(lambda: packed.packed_bwd_plain(
+        *args, matmul_dtype=mm), iters=2, warmup=1)
     mask = packed_sink_window_mask(positions, ns, W)[:, None]
     rows["packed_fwd"]["library_ms"] = time_cuda(
         lambda: _sdpa(q, k, v, mask), iters=10)
@@ -644,8 +650,9 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
     del out, leaves, mask
 
     pairs = B * H_q * packed_pairs(positions, ns, W)
-    q_bytes = 2 * B * H_q * N * D       # one bf16 [B, H_q, N, D] tensor
-    kv_bytes = 2 * B * H_kv * N * D     # one bf16 [B, H_kv, N, D]
+    elem = q.element_size()
+    q_bytes = elem * B * H_q * N * D    # one [B, H_q, N, D] tensor
+    kv_bytes = elem * B * H_kv * N * D  # one [B, H_kv, N, D]
     pos_bytes = 4 * B * N               # the int32 segment starts
     work = {  # FLOPs per visible pair (2 D per product), bytes moved
         "packed_fwd": (4 * D, 2 * q_bytes + 2 * kv_bytes + 4 * B * H_q * N),
@@ -736,8 +743,9 @@ def kernel_phase(dev):
             ([200, 824], 128, "a start inside a 64-row half"),
             ([256, 768], 1024, "a start at a 128-row item boundary"),
             ([500, 1, 523], 128, "a 1-token segment"))]
-    # phase 13's H2O-Danube-1.8B shapes: head_dim 80 in the 128 instance,
-    # bf16 and fp32 (read as bf16): the serving prefill (2 x 8192 tokens,
+    # phase 13's H2O-Danube-1.8B shapes: head_dim 80 in the forward's and
+    # dK/dV's narrow 80 instance (dQ's 128), bf16 and fp32 (read as bf16):
+    # the serving prefill (2 x 8192 tokens,
     # W = 4096, no sinks), the training step's backward (1 x 8192), the
     # decode over a wrapped 4096-slot window in bf16, fp32 and int8
     dan = (torch.bfloat16, torch.float32)
@@ -747,6 +755,23 @@ def kernel_phase(dev):
                             use_aux=False, dtype=dt) for dt in dan]
     decode_danube = [check_decode(dev, 2, 32, 8, 80, 0, 4096, 8192, 16, gen,
                                   dtype=dt) for dt in dan]
+    # the narrow instances at Phi-3-mini's attention (32/32 heads, head_dim
+    # 96 in the 96 instance): the prefill (2 x 4096) full and at W = 2048
+    # with 4 sinks, the training backward (1 x 4096), a pack of 2 x 2048,
+    # the sink row also in fp32; D = 72 (the 80 instance) and 88 (the 96
+    # instance), their columns past D zero-filled, at N = 2048 (fp32 at
+    # these head dims: the Danube rows above and the card tests)
+    bf, f32 = torch.bfloat16, torch.float32
+    narrow = [(96, 4096, 0, 4096, bf), (96, 4096, 4, 2048, bf),
+              (96, 4096, 4, 2048, f32), (72, 2048, 4, 2048, bf),
+              (88, 2048, 4, 2048, bf)]
+    flash_narrow = [check_flash(dev, 2, 32, 32, n, d, ns, w, gen, dtype=dt)
+                    for d, n, ns, w, dt in narrow]
+    bwd_narrow = [check_bwd(dev, 1, 32, 32, n, d, ns, w, gen, dtype=dt)
+                  for d, n, ns, w, dt in narrow]
+    packed_narrow = [check_packed(dev, 1, 32, 32, d, ns, w, [n // 2] * 2,
+                                  gen, label=f"2 x {n // 2}", dtype=dt)
+                     for d, n, ns, w, dt in narrow]
     # phase 14's Gemma-2-2B shapes: head_dim 256 in the 256 instance, bf16:
     # the serving prefill (2 x 8192 tokens, GQA 8/4) on a sliding (W = 4096)
     # and a full layer, and with 4 StreamingLLM sinks; the training step's
@@ -844,6 +869,11 @@ def kernel_phase(dev):
         res[name + "_chunk"] = bwd_chunk[name]
     for name in ("flash_dq", "flash_dkdv"):
         res[name + "_more"] = [r[name] for r in bwd_more]
+    res["flash_fwd_narrow"] = flash_narrow
+    for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
+        res[name + "_narrow"] = [r[name] for r in bwd_narrow]
+    for name in ("packed_fwd", "packed_dq", "packed_dkdv"):
+        res[name + "_narrow"] = [r[name] for r in packed_narrow]
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name + "_danube"] = [r[name] for r in bwd_danube]
         res[name + "_gemma"] = [r[name] for r in bwd_gemma]
@@ -859,7 +889,7 @@ def kernel_phase(dev):
     for key, rows in res.items():
         name = key
         for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
-                       "_gemma", "_xwide", "_wide", "_long"):
+                       "_narrow", "_gemma", "_xwide", "_wide", "_long"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -4669,10 +4699,11 @@ def gemma_phase(device, *, config=GEMMA2_2B, batch=2, prompt_len=8176,
 # through the model's entry points at a full model's width and depth.
 GEMMA2_2B_WIDE = dict(GEMMA2_2B, head_dim=512)
 WIDE_RUNS = GEMMA_RUNS[:2]  # bf16, and over int8 KV
-# phase 15's depth in the full script: 12 of the 26 layers, serving and
-# training (cut to keep the script inside its limit once phase 16 came;
+# phase 15's depth in the full script: 4 of the 26 layers (two sliding,
+# two full), serving and training (cut to keep the script inside its
+# limit: 12 once phase 16 came, 4 once phase 2 held the narrow instances;
 # the 512 instance stays held at the full model's shapes by the 15a rows)
-WIDE_LAYERS = 12
+WIDE_LAYERS = 4
 
 
 def wide_phase(device, **kw):
@@ -4693,12 +4724,13 @@ def wide_phase(device, **kw):
 # 8.6 GB in bf16). It drives the kernels' wide instance (every D > 512,
 # runtime depth and 512-column slices) through the model's entry points.
 GEMMA2_2B_XWIDE = dict(GEMMA2_2B, head_dim=1024)
-# phase 16's depth in the full script: 12 of the 26 layers (alternation
+# phase 16's depth in the full script: 4 of the 26 layers (alternation
 # kept), serving and training: so that the step and its checks stay under
 # the card's 80 GB (phase 15's full depth at D = 512 peaked at 76.23 GB),
-# and the script inside its limit (the 16a rows hold the wide instance at
-# the full model's shapes)
-XWIDE_LAYERS = 12
+# and the script inside its limit (12 until phase 2 held the narrow
+# instances; the 16a rows hold the wide instance at the full model's
+# shapes)
+XWIDE_LAYERS = 4
 
 
 def xwide_phase(device, **kw):
@@ -4716,9 +4748,11 @@ def xwide_phase(device, **kw):
 # the wgmma kernel instances each source must hold: one per instance head
 # dim (64, 128, 256, 512, and the wide instance of every D > 512) and
 # element types (bf16, fp16, fp32 read as bf16)
-WGMMA_INSTANCES = {"flash_fwd": {"fwd": 15},
-                   "flash_bwd": {"dq": 15, "dkdv": 15},
-                   "packed": {"fwd": 15, "dq": 15, "dkdv": 15},
+# 3 dtypes x (D 64, 128, 256, 512, wide), and the forward and dK/dV also
+# x the narrow D 80 and 96
+WGMMA_INSTANCES = {"flash_fwd": {"fwd": 21},
+                   "flash_bwd": {"dq": 15, "dkdv": 21},
+                   "packed": {"fwd": 21, "dq": 15, "dkdv": 21},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
 # decode.cu's instances (storage, instance head dim, slices of a tile): 5
@@ -4750,6 +4784,22 @@ def coverage_pairs(name):
         "ablation": ablation.ablation_kernel.coverage,
         "mask_stage": ablation.ablation_kernel.coverage}[name]
     return cover
+
+
+def kernel_instances(name):
+    """The instance head dims (as the libraries report them: 80 and 96 the
+    forward's and dK/dV's narrow instances, 513 the wide one) that the
+    kernels line's row ``name`` launched in this process; [] for a row
+    whose wrapper records none (the decode, the ablation)."""
+    from sink_attention_tpu_torch.ops import flash, packed
+    wrapper = {
+        "flash_fwd": flash.flash_fwd_kernel,
+        "flash_dq": flash.flash_dq_kernel,
+        "flash_dkdv": flash.flash_dkdv_kernel,
+        "packed_fwd": packed.packed_fwd_kernel,
+        "packed_dq": packed.packed_dq_kernel,
+        "packed_dkdv": packed.packed_dkdv_kernel}.get(name)
+    return sorted({i for _, i in wrapper.instances}) if wrapper else []
 
 
 def kernel_coverage(name):
@@ -4844,7 +4894,10 @@ def main() -> int:
     errors = spill_errors(_build.build_report)
 
     # 2. kernels
+    t0 = time.perf_counter()
     kern = kernel_phase(dev)
+    log(f"phase 2 (every kernel against its plain version): "
+        f"{time.perf_counter() - t0:.1f} s")
     for key, rows in kern.items():
         for r in rows if isinstance(rows, list) else [rows]:
             if not r["ok"]:
@@ -5183,7 +5236,14 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "device_ms") if k in r} for r in rows]
     for row in kernels:
+        rows = kern.get(f"{row['name']}_narrow")
+        if rows:  # phase 2's rows of the narrow instances (Phi-3-mini's)
+            row["narrow"] = [{k: r[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "device_ms") if k in r}
+                for r in rows]
         row["head_dims"], row["dtypes"] = kernel_coverage(row["name"])
+        row["instances"] = kernel_instances(row["name"])
         row["pairs_above_256"] = sorted(
             [d, t] for d, t in coverage_pairs(row["name"]) if d > 256)
         row["pairs_above_512"] = sorted(

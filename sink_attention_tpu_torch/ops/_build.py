@@ -18,6 +18,7 @@ raises on a nonzero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -155,7 +156,10 @@ def kernel_head_dim(d: int) -> int:
     counts its 64-column depth boxes and its 512-column output slices at
     run time.
     Host tables keyed on a head dim (the forward's, dQ's and dK/dV's tiles)
-    key on D_i. Raises ValueError for d < 1."""
+    key on D_i. (The forward and dK/dV compute d 65-96 in narrow instances
+    of 80 and 96 columns that walk the 128 instance's tiles, so their
+    tables key on 128 too: :func:`instance_of`.) Raises ValueError for
+    d < 1."""
     d = int(d)
     if d < 1:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels: "
@@ -212,21 +216,38 @@ def kernel_operands(*ts: torch.Tensor):
     return ops, code, d_pad
 
 
-def note_launch(wrapper, head_dim: int, dtype: torch.dtype,
-                padded: bool = False) -> None:
+@functools.lru_cache(maxsize=None)
+def instance_of(source: str, entry: str, d: int) -> int:
+    """The instance head dim that runs (padded) head dim ``d``, as the
+    library of ``csrc/<source>.cu`` reports it through its ``entry``
+    (``sink_fwd_instance``, ``sink_dq_instance``, ...): the kernels own the
+    rule (the forward and dK/dV run D 65-80 and 81-96 in their narrow 80
+    and 96 instances, dQ in its 128 one; 513 is the wide instance)."""
+    fn = getattr(load(source), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return int(fn(int(d)))
+
+
+def note_launch(wrapper, head_dim: int, dtype: torch.dtype, padded: bool,
+                instance: int) -> None:
     """Count one launch on ``wrapper``: ``launches``, the (head_dim, dtype)
-    pairs it has run (``coverage``, kept for the process) and, where the
-    operands were padded to whole 16-byte rows, ``padded_copies``."""
+    pairs it has run (``coverage``, kept for the process), the (head_dim,
+    instance) pairs (``instances``: the instance as the library reports
+    it, :func:`instance_of`) and, where the operands were padded to whole
+    16-byte rows, ``padded_copies``."""
     wrapper.launches += 1
     wrapper.coverage.add((int(head_dim), str(dtype).replace("torch.", "")))
+    wrapper.instances.add((int(head_dim), int(instance)))
     if padded:
         wrapper.padded_copies += 1
 
 
 def counters(wrapper):
     """Give ``wrapper`` its zeroed ``launches`` and ``padded_copies`` and
-    an empty ``coverage``; returns it."""
+    an empty ``coverage`` and ``instances``; returns it."""
     wrapper.launches = 0
     wrapper.padded_copies = 0
     wrapper.coverage = set()
+    wrapper.instances = set()
     return wrapper

@@ -38,9 +38,19 @@
 //  * Q, K and V land in shared memory in 128-byte-swizzled boxes of 64
 //    columns (a D = 128 row is two boxes); TMA zero-fills rows past N_q
 //    and N_kv, and the columns past the tensors' head dim Dt where the
-//    instance's D is larger (any Dt <= 512 with Dt % 8 == 0 runs in the
-//    instance of 64, 128, 256 or 512: instance_d), so the products over
-//    those zero columns add nothing and only Dt columns are written;
+//    instance's D is larger, so the products over those zero columns add
+//    nothing and only Dt columns are written. Which instance runs a Dt
+//    (Dt <= 512, Dt % 8 == 0) differs by kernel: the forward and dK/dV
+//    take the narrow instances of 80 (Dt 65-80) and 96 (81-96) columns
+//    and otherwise the one of 64, 128, 256 or 512 (fwd_dkdv_instance_d);
+//    dQ (hopper_dq.cuh) and the ablation's stages run 65-128 in the 128
+//    instance (instance_d);
+//  * the narrow instances keep the 128 instance's tile plan and shared
+//    memory (two boxes a row, box 1 zero-filled past Dt) but compute on
+//    D columns only: S = Q K^T takes D / 16 = 5 or 6 k-steps, not 8, and
+//    O += P V is an m64n64k16 over box 0 beside an m64n16k16 (80) or
+//    m64n32k16 (96) over the first columns of box 1 (rs_mma), so O holds
+//    40 or 48 fp32 registers a thread, not 64;
 //  * the instance of D = 256 has its own tile plan (FwdPlan): two Q
 //    buffers of 128 x 256 would take 128 KB and a 128-key K/V stage 128
 //    KB more, past the 227 KB a block has; it keeps one Q buffer (64 KB)
@@ -304,6 +314,47 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 #undef SINK_WGMMA_RS_N64
 
+// D[64 x 16] += A[64 x 16] B[16 x 16]: A from registers (16-bit pairs), B
+// from shared memory, MN-major (transposed); d[8]; A and B bf16, or fp16
+// where F16. B is the first 16 columns of a 64-column swizzle atom (a
+// narrow instance's second box).
+#define SINK_WGMMA_RS_N16(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <bool F16 = false>
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (F16)
+    SINK_WGMMA_RS_N16("f16");
+  else
+    SINK_WGMMA_RS_N16("bf16");
+}
+#undef SINK_WGMMA_RS_N16
+
+// D[64 x 32] += A[64 x 16] B[16 x 32]: as wgmma_rs_n16, 32 columns; d[16].
+#define SINK_WGMMA_RS_N32(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+template <bool F16 = false>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, int scale_d) {
+  if constexpr (F16)
+    SINK_WGMMA_RS_N32("f16");
+  else
+    SINK_WGMMA_RS_N32("bf16");
+}
+#undef SINK_WGMMA_RS_N32
+
 // D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (16-bit
 // pairs), B from shared memory, MN-major (transposed); d[64]; A and B bf16, or
 // fp16 where F16.
@@ -355,6 +406,22 @@ struct SsMma<64, F16> {
 template <int N, bool F16 = false>
 struct RsMma;
 template <bool F16>
+struct RsMma<8, F16> {
+  __device__ __forceinline__ static void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    wgmma_rs_n16<F16>(d, a, db, 1);
+  }
+};
+template <bool F16>
+struct RsMma<16, F16> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+    wgmma_rs_n32<F16>(d, a, db, 1);
+  }
+};
+template <bool F16>
 struct RsMma<32, F16> {
   __device__ __forceinline__ static void run(float (&d)[32],
                                              const uint32_t (&a)[4],
@@ -373,9 +440,13 @@ struct RsMma<64, F16> {
 
 // D += A B over OR accumulators a thread, A a 16-deep register fragment,
 // B from shared memory at `b` as the transposed (MN-major) operand, its
-// 64-column boxes `lbo` bytes apart: one wgmma m64n(2 OR)k16 for OR <= 64;
-// for OR = 128 (256 columns) two m64n128k16, on the accumulators of
-// columns [0, 128) and [128, 256) (boxes 0-1 and 2-3).
+// 64-column boxes `lbo` bytes apart: one wgmma m64n(2 OR)k16 for OR = 32
+// or 64; for OR = 128 (256 columns) two m64n128k16, on the accumulators of
+// columns [0, 128) and [128, 256) (boxes 0-1 and 2-3); for the narrow
+// instances' OR = 40 and 48 (80 and 96 columns) an m64n64k16 over box 0
+// and an m64n16k16 or m64n32k16 over the first columns of box 1, split at
+// the box boundary (no product's B crosses from a whole swizzle atom into
+// a part of one).
 template <int OR, bool F16 = false>
 __device__ __forceinline__ void rs_mma(float (&d)[OR], const uint32_t (&a)[4],
                                        const uint8_t* b, uint32_t lbo) {
@@ -384,6 +455,11 @@ __device__ __forceinline__ void rs_mma(float (&d)[OR], const uint32_t (&a)[4],
                         desc_sw128(b, lbo, 1024));
     RsMma<64, F16>::run(*reinterpret_cast<float(*)[64]>(&d[64]), a,
                         desc_sw128(b + 2 * lbo, lbo, 1024));
+  } else if constexpr (OR == 40 || OR == 48) {
+    RsMma<32, F16>::run(*reinterpret_cast<float(*)[32]>(&d[0]), a,
+                        desc_sw128(b, lbo, 1024));
+    RsMma<OR - 32, F16>::run(*reinterpret_cast<float(*)[OR - 32]>(&d[32]), a,
+                             desc_sw128(b + lbo, lbo, 1024));
   } else {
     RsMma<OR, F16>::run(d, a, desc_sw128(b, lbo, 1024));
   }
@@ -410,9 +486,10 @@ struct IoF32 {
 // 2 fp32 (inputs rounded to bf16 by the host, fp32 outputs).
 enum DtypeCode { kDtypeBf16 = 0, kDtypeF16 = 1, kDtypeF32 = 2 };
 
-// The instance head dim D_i of a head dim D: the smallest of 64, 128,
-// 256 and 512 that holds it; 0 (refused) for D > 512 or D % 8 != 0 (TMA
-// takes a row stride of whole 16 bytes: the host pads such a D).
+// The instance head dim D_i of a head dim D in dQ and the ablation: the
+// smallest of 64, 128, 256 and 512 that holds it; 0 (refused) for D > 512
+// or D % 8 != 0 (TMA takes a row stride of whole 16 bytes: the host pads
+// such a D).
 __host__ __device__ constexpr int instance_d(int D) {
   return (D <= 0 || D % 8 != 0) ? 0
          : D <= 64              ? 64
@@ -421,6 +498,20 @@ __host__ __device__ constexpr int instance_d(int D) {
          : D <= 512             ? 512
                                 : 0;
 }
+
+// The instance head dim of D in the forward and dK/dV: as instance_d, but
+// D 65-80 runs in the narrow instance of 80 columns and 81-96 in that of
+// 96 (the 128 instance's tiles computed on fewer columns; see the header).
+__host__ __device__ constexpr int fwd_dkdv_instance_d(int D) {
+  return instance_d(D) != 128 ? instance_d(D)
+         : D <= 80            ? 80
+         : D <= 96            ? 96
+                              : 128;
+}
+
+// The width in shared memory of an instance's rows: whole 64-column boxes
+// (a narrow instance's rows take two, as the 128 instance's).
+__host__ __device__ constexpr int smem_d(int D) { return (D + 63) / 64 * 64; }
 
 // Which of QB buffers holds item `it`, and the parity of that buffer's
 // barriers for it (QB = 1 or 2).
@@ -496,7 +587,8 @@ inline int sm_count() {
 
 // The forward's tile plan at instance head dim D: keys per K/V tile, Q
 // buffers, query rows per item and whether the consumers split O's
-// columns. 128 keys, two Q buffers and 128-row items at D = 64 and 128;
+// columns. 128 keys, two Q buffers and 128-row items at D = 64 and 128
+// (and the narrow 80 and 96);
 // at D = 256 (see the header) 64 keys and one Q buffer, so that two K/V
 // stages fit; at D = 512 32 keys, one Q buffer and 64-row items (halves of
 // the host's 128-row q blocks) whose O columns the consumers split.
@@ -521,9 +613,9 @@ __host__ __device__ constexpr int fwd_bn(int D) {
 template <int D, int STAGES>
 struct FwdSmem {
   static constexpr int QB = FwdPlan<D>::QB;           // Q buffers
-  static constexpr int BOXES = D / 64;                // 64-column boxes a row
-  static constexpr int Q_BYTES = FwdPlan<D>::BM * D * 2;  // one Q tile
-  static constexpr int KV_BYTES = FwdPlan<D>::BN * D * 2;  // one K or V tile
+  static constexpr int BOXES = smem_d(D) / 64;       // 64-column boxes a row
+  static constexpr int Q_BYTES = FwdPlan<D>::BM * BOXES * 128;  // one Q tile
+  static constexpr int KV_BYTES = FwdPlan<D>::BN * BOXES * 128;  // K or V tile
   static constexpr int Q_OFF = 0;                     // QB Q tiles
   static constexpr int K_OFF = Q_OFF + QB * Q_BYTES;
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
@@ -1123,7 +1215,8 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
 }
 
 // The forward over a mask policy at head dim D (any D <= 512 with D % 8
-// == 0, run by the instance of instance_d(D)) in the element types IO.
+// == 0, run by the instance of fwd_dkdv_instance_d(D)) in the element
+// types IO.
 template <class Mask, class Softmax = FwdSoftmax<>, class IO = IoBf16>
 int launch_fwd(const void* q, const void* k, const void* v,
                const void* s_aux, const void* order, void* o, void* lse,
@@ -1134,19 +1227,28 @@ int launch_fwd(const void* q, const void* k, const void* v,
   if (N_q <= 0 || B * H_q <= 0) return 0;
   if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
     return (int)cudaErrorInvalidValue;
-  if (instance_d(D) == 64)
+  const int di = fwd_dkdv_instance_d(D);
+  if (di == 64)
     return launch_fwd_d<64, 3, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);
-  if (instance_d(D) == 128)
+  if (di == 80)
+    return launch_fwd_d<80, 2, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  if (di == 96)
+    return launch_fwd_d<96, 2, Mask, Softmax, IO>(
+        q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
+        mask, softmax, st);
+  if (di == 128)
     return launch_fwd_d<128, 2, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);
-  if (instance_d(D) == 256)
+  if (di == 256)
     return launch_fwd_d<256, 2, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);
-  if (instance_d(D) == 512)
+  if (di == 512)
     return launch_fwd_d<512, 2, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,
         mask, softmax, st);

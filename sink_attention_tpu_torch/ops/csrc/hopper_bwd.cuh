@@ -63,10 +63,18 @@
 //    or as fp32 (IoF32) straight from the accumulators; the buffers are
 //    released to the producer after that;
 //  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
-//    instance_d(D): TMA reads the columns past D of K, V, Q and dO as
-//    zeros, so the accumulators' columns past D are zeros, and only D
-//    columns are written (each key's whole row: the GQA group's sum is in
-//    the accumulators); bf16 or fp16 inputs (hopper.cuh's Io types);
+//    fwd_dkdv_instance_d(D) (hopper.cuh): 80 for D 65-80, 96 for 81-96,
+//    else the smallest of 64, 128, 256 and 512 that holds it. TMA reads
+//    the columns past D of K, V, Q and dO as zeros, so the accumulators'
+//    columns past D are zeros, and only D columns are written (each key's
+//    whole row: the GQA group's sum is in the accumulators); bf16 or fp16
+//    inputs (hopper.cuh's Io types);
+//  * the narrow instances of 80 and 96 keep the 128 instance's plan and
+//    shared memory (two boxes a row, box 1 zero-filled past D) but
+//    compute on D_i columns: S^T and dP^T take D_i / 16 = 5 or 6 k-steps,
+//    and dV += P^T dO and dK += dS^T Q are each an m64n64k16 over box 0
+//    beside an m64n16k16 or m64n32k16 over box 1 (hopper.cuh's rs_mma), so
+//    dK and dV hold 80 or 96 fp32 registers a thread, not 128;
 //  * the instance of D = 256 splits the columns, not the keys (DkdvPlan):
 //    dK and dV of 64 keys x 256 columns would take 256 fp32 registers a
 //    thread, past the 255 a thread has. An item is 64 keys; both
@@ -121,7 +129,8 @@ constexpr int DKDV_THREADS = 384;
 // The tile plan at instance head dim D: keys per item, K/V buffers,
 // whether the consumers split the item's columns (D = 256 and 512) rather
 // than its keys, query rows per q tile, and passes over an item's tiles
-// (D = 512: dV, then dK; see the header).
+// (D = 512: dV, then dK; see the header). The narrow 80 and 96 take the
+// 128 instance's plan.
 template <int D>
 struct DkdvPlan {
   static constexpr bool SPLIT = D >= 256;
@@ -143,6 +152,8 @@ __host__ __device__ constexpr int dkdv_bn(int D) {
 // at D = 64 the producer's ring of three stages wants more, and at D =
 // 512 its walk of the q tiles (two passes of two tiles a q block) spilled
 // 4-12 bytes at 24, while the consumers hold one pass's 128 accumulators.
+// The narrow instances (80, 96), with 80 or 96 accumulators, take D = 64's
+// split.
 template <int D>
 struct DkdvRegs {
   static constexpr bool WIDE = D == 128 || D == 256;
@@ -154,9 +165,9 @@ struct DkdvRegs {
 template <int D, int STAGES>
 struct DkdvSmem {
   static constexpr int KB = DkdvPlan<D>::KB;         // K/V buffers
-  static constexpr int BOXES = D / 64;               // 64-column boxes a row
-  static constexpr int KV_BYTES = DkdvPlan<D>::BN * D * 2;  // one K or V tile
-  static constexpr int QT_BYTES = DkdvPlan<D>::TM * D * 2;  // one Q or dO tile
+  static constexpr int BOXES = smem_d(D) / 64;      // 64-column boxes a row
+  static constexpr int KV_BYTES = DkdvPlan<D>::BN * BOXES * 128;  // K or V
+  static constexpr int QT_BYTES = DkdvPlan<D>::TM * BOXES * 128;  // Q or dO
   static constexpr int K_OFF = 0;                    // KB K tiles
   static constexpr int V_OFF = K_OFF + KB * KV_BYTES;  // KB V tiles
   static constexpr int Q_OFF = V_OFF + KB * KV_BYTES;
@@ -714,8 +725,8 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dK/dV over a mask policy at head dim D (instance_d(D)) in the element
-// types IO.
+// dK/dV over a mask policy at head dim D (fwd_dkdv_instance_d(D)) in the
+// element types IO.
 template <class Mask, class IO>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
@@ -732,15 +743,24 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     cudaMemsetAsync(dv, 0, bytes, st);
     return (int)cudaGetLastError();
   }
-  if (instance_d(D) == 64)
+  const int di = fwd_dkdv_instance_d(D);
+  if (di == 64)
     return launch_dkdv_d<64, 3, Mask, IO>(q, k, v, dout, lse, delta, order,
                                           dk, dv, B, H_q, H_kv, N_q, N_kv, D,
                                           scale, mask, st);
-  if (instance_d(D) == 128)
+  if (di == 80)
+    return launch_dkdv_d<80, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
+                                          scale, mask, st);
+  if (di == 96)
+    return launch_dkdv_d<96, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
+                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
+                                          scale, mask, st);
+  if (di == 128)
     return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                            dk, dv, B, H_q, H_kv, N_q, N_kv,
                                            D, scale, mask, st);
-  if (instance_d(D) == 256)
+  if (di == 256)
     return launch_dkdv_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                            dk, dv, B, H_q, H_kv, N_q, N_kv,
                                            D, scale, mask, st);

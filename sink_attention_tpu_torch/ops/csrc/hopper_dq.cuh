@@ -53,8 +53,10 @@
 //    stores of whole rows, or as fp32 (IoF32) straight from the
 //    accumulators; the Q/dO buffer is released to the producer after that;
 //  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
-//    instance_d(D): TMA reads the columns past D as zeros, and only D
-//    columns are written; bf16 or fp16 inputs (hopper.cuh's Io types).
+//    instance_d(D) (D 65-128 in the 128 one: dQ has no narrow 80 / 96
+//    instances, which the forward and dK/dV have): TMA reads the columns
+//    past D as zeros, and only D columns are written; bf16 or fp16 inputs
+//    (hopper.cuh's Io types).
 //    At D = 256 a consumer holds dQ in 128 fp32 registers a thread, S and
 //    dP of a 32-key tile in 16 each (m64n32) and dS in 8; dQ += dS K is
 //    two m64n128k16 products a 16-key step (hopper.cuh's rs_mma). Shared

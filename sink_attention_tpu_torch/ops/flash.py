@@ -12,10 +12,13 @@ version:
 
 The kernels take any head_dim and bf16, fp16 or fp32 inputs, as the JAX
 kernels take any head_dim and float type. A head_dim D <= 512 runs in the
-instance of D_i = 64, 128, 256 or 512 (``_build.kernel_head_dim``), any D
-past 512 in the one wide instance (``csrc/hopper_wide.cuh``: its depth and
-its 512-column output slices counted at run time; tables keyed
-``_build.WIDE_INSTANCE``). The columns past D read as zeros and are not
+instance of D_i = 64, 128, 256 or 512 (``_build.kernel_head_dim``, the key
+of the host tables), except that the forward and dK/dV run D 65-80 and
+81-96 in narrow instances of 80 and 96 columns on the 128 instance's tiles
+(each library reports the instance it runs, ``_build.instance_of``; the
+wrappers' ``instances``); any D past 512 runs in the one wide instance
+(``csrc/hopper_wide.cuh``: its depth and its 512-column output slices
+counted at run time; tables keyed ``_build.WIDE_INSTANCE``). The columns past D read as zeros and are not
 written, so no padded copy is made for D % 8 == 0; any other D (100: 3200
 over 32 heads) takes a zero-padded copy to the next multiple of 8 (TMA's
 16-byte rows; ``padded_copies`` counts them) and its outputs are sliced
@@ -401,7 +404,9 @@ def flash_fwd_kernel(q, k, v, s_aux=None, num_sink: int = 4,
     err = _kernel_fn()(*ptrs, *dims[:5], d_pad, *geom, code, 1.0 / (D ** 0.5),
                        _build.stream_ptr(q.device))
     _build.check(err, "sink_fwd")
-    _build.note_launch(flash_fwd_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(flash_fwd_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("flash_fwd", "sink_fwd_instance",
+                                          d_pad))
     return unpad(out, D), lse
 
 
@@ -448,7 +453,9 @@ def flash_dq_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     err = _bwd_fns()[0](*ptrs, *dims[:5], d_pad, *geom, code,
                         1.0 / (D ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "sink_dq")
-    _build.note_launch(flash_dq_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(flash_dq_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("flash_bwd", "sink_dq_instance",
+                                          d_pad))
     return unpad(dq, D)
 
 
@@ -477,7 +484,9 @@ def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     err = _bwd_fns()[1](*ptrs, *dims[:5], d_pad, *geom, code,
                         1.0 / (D ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "sink_dkdv")
-    _build.note_launch(flash_dkdv_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(flash_dkdv_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("flash_bwd", "sink_dkdv_instance",
+                                          d_pad))
     return unpad(dk, D), unpad(dv, D)
 
 

@@ -316,7 +316,9 @@ def packed_fwd_kernel(q, k, v, positions, s_aux=None, num_sink: int = 4,
     err = _kernel_fns()[0](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
                            1.0 / (D ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "sink_pfwd")
-    _build.note_launch(packed_fwd_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(packed_fwd_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("packed", "sink_pfwd_instance",
+                                          d_pad))
     return unpad(out, D), lse
 
 
@@ -340,7 +342,9 @@ def packed_dq_kernel(q, k, v, do, lse, delta, positions, num_sink: int = 4,
     err = _kernel_fns()[1](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
                            1.0 / (D ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "sink_pdq")
-    _build.note_launch(packed_dq_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(packed_dq_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("packed", "sink_pdq_instance",
+                                          d_pad))
     return unpad(dq, D)
 
 
@@ -365,7 +369,9 @@ def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
     err = _kernel_fns()[2](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
                            1.0 / (D ** 0.5), _build.stream_ptr(q.device))
     _build.check(err, "sink_pdkdv")
-    _build.note_launch(packed_dkdv_kernel, D, q.dtype, d_pad != D)
+    _build.note_launch(packed_dkdv_kernel, D, q.dtype, d_pad != D,
+                       _build.instance_of("packed", "sink_pdkdv_instance",
+                                          d_pad))
     return unpad(dk, D), unpad(dv, D)
 
 

@@ -15,6 +15,9 @@ backward shapes (the training layers at W=128 and W=4096, the headline,
 the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
 ``packed_dq_kernel`` and ``packed_dkdv_kernel`` on its packs (the phase-5
 mix at both W, the 64-3072 headline pack and the edge cases);
+the forward and dK/dV also at the shapes of their narrow instances
+(NARROW_DIMS: H2O-Danube-1.8B's at D = 72-96 in bf16 and fp32, Phi-3-mini's
+at D = 96, 72 and 88, a Danube pack at D = 80 and 96; dQ beside them);
 ``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
 and full layer mid-decode, the headline) and, past D = 128, over the
 Gemma-2-2B geometry's 4096 live slots at D = 256, 512 and 1024 in every
@@ -38,7 +41,9 @@ wrappers' present signatures; the inputs (the packs' positions computed
 once, by this checkout's ``ops.packed``) and the device times come from
 this file in every pass. It also prints how many kernel instances'
 ptxas lines (registers, stack frame, spills) of the other checkout's
-fresh build read the same in this one's, and each that does not. Without
+fresh build read the same in this one's, and each that does not, and
+how many of the instances both build are the same instructions
+(``cuobjdump -sass``). Without
 CUDA it exits nonzero.
 
     python3 -m sink_attention_tpu_torch.scripts.kernel_compare OTHER_TREE
@@ -57,6 +62,7 @@ import argparse
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -67,25 +73,44 @@ KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel",
            "packed_fwd_kernel", "packed_dq_kernel", "packed_dkdv_kernel",
            "decode_kernel")
 
-# the forward: (label, B, H_q, H_kv, N, D, num_sink, window)
+# The head dims of the forward's and dK/dV's narrow instances (80 and 96):
+# H2O-Danube-1.8B's prefill (B=2, 32/8, N=8192, W=4096, no sinks) and
+# training backward (B=1) at D = 72, 80, 88 and 96 in bf16 and fp32;
+# Phi-3-mini's attention (32/32, D=96, N=4096) full and at W=2048 with 4
+# sinks; D = 72 and 88 of that shape at N=2048
+NARROW_DIMS = (72, 80, 88, 96)
+NARROW_LABELS = ("danube", "phi3")  # rows that get a bound and SDPA's time
+# the forward: (label, B, H_q, H_kv, N, D, num_sink, window, dtype)
 FORWARD = [
-    ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128),
-    ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024),
-    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096),
-    ("gemma W=4096 D=256", 2, 8, 4, 8192, 256, 0, 4096),
-    ("gemma W=4096 D=512", 2, 8, 4, 8192, 512, 0, 4096),
+    ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128, "bf16"),
+    ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024, "bf16"),
+    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096, "bf16"),
+    ("gemma W=4096 D=256", 2, 8, 4, 8192, 256, 0, 4096, "bf16"),
+    ("gemma W=4096 D=512", 2, 8, 4, 8192, 512, 0, 4096, "bf16"),
+    *[(f"danube W=4096 D={d} {dt}", 2, 32, 8, 8192, d, 0, 4096, dt)
+      for d in NARROW_DIMS for dt in ("bf16", "fp32")],
+    ("phi3 full D=96", 2, 32, 32, 4096, 96, 0, 4096, "bf16"),
+    ("phi3 W=2048 4 sinks D=96", 2, 32, 32, 4096, 96, 4, 2048, "bf16"),
+    *[(f"phi3 N=2048 W=2048 D={d}", 2, 32, 32, 2048, d, 4, 2048, "bf16")
+      for d in (72, 88)],
 ]
-# the backward: (label, B, H_q, H_kv, N, D, num_sink, window, halo)
+# the backward: (label, B, H_q, H_kv, N, D, num_sink, window, halo, dtype)
 UNPACKED = [
-    ("W=128", 1, 64, 8, 4096, 64, 0, 128, 0),
-    ("W=4096", 1, 64, 8, 4096, 64, 0, 4096, 0),
-    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096, 0),
-    ("halo chunk", 1, 64, 8, 1024, 64, 4, 256, 256),
-    ("group 1", 1, 8, 8, 2048, 64, 4, 2048, 0),
-    ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0),
-    ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0),
-    ("gemma W=4096 D=256", 1, 8, 4, 8192, 256, 0, 4096, 0),
-    ("gemma W=4096 D=512", 1, 8, 4, 8192, 512, 0, 4096, 0),
+    ("W=128", 1, 64, 8, 4096, 64, 0, 128, 0, "bf16"),
+    ("W=4096", 1, 64, 8, 4096, 64, 0, 4096, 0, "bf16"),
+    ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096, 0, "bf16"),
+    ("halo chunk", 1, 64, 8, 1024, 64, 4, 256, 256, "bf16"),
+    ("group 1", 1, 8, 8, 2048, 64, 4, 2048, 0, "bf16"),
+    ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0, "bf16"),
+    ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0, "bf16"),
+    ("gemma W=4096 D=256", 1, 8, 4, 8192, 256, 0, 4096, 0, "bf16"),
+    ("gemma W=4096 D=512", 1, 8, 4, 8192, 512, 0, 4096, 0, "bf16"),
+    *[(f"danube W=4096 D={d} {dt}", 1, 32, 8, 8192, d, 0, 4096, 0, dt)
+      for d in NARROW_DIMS for dt in ("bf16", "fp32")],
+    ("phi3 full D=96", 1, 32, 32, 4096, 96, 0, 4096, 0, "bf16"),
+    ("phi3 W=2048 4 sinks D=96", 1, 32, 32, 4096, 96, 4, 2048, 0, "bf16"),
+    *[(f"phi3 N=2048 W=2048 D={d}", 1, 32, 32, 2048, d, 4, 2048, 0, "bf16")
+      for d in (72, 88)],
 ]
 # the decode over a SinkKVCache: (label, B, H_q, H_kv, D, num_sink, window,
 # prefill length, appends, storage: a dtype's name, or "int8" / "fp8"
@@ -121,6 +146,8 @@ PACKED = [
     ("packed N=1000", 1, 8, 2, 64, 4, 128, [333, 2, 665], 0),
     ("packed gemma 2 x 4096 D=256", 1, 8, 4, 256, 0, 4096, [4096, 4096], 0),
     ("packed gemma 2 x 4096 D=512", 1, 8, 4, 512, 0, 4096, [4096, 4096], 0),
+    *[(f"packed danube 2 x 4096 D={d}", 1, 32, 8, d, 0, 4096, [4096, 4096],
+       0) for d in (80, 96)],
 ]
 
 
@@ -172,14 +199,17 @@ def worker(kernels, packs) -> dict:
 
     from sink_attention_tpu_torch.cache import SinkKVCache
     from sink_attention_tpu_torch.ops import _build, decode, flash, packed
+    from sink_attention_tpu_torch.ops.reference import sink_window_mask
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
                                                 H100_PEAK_FP32,
-                                                H100_PEAK_INT8, time_cuda)
+                                                H100_PEAK_INT8,
+                                                attention_pairs, time_cuda)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
-        torch.bfloat16)
+    types = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    mk = lambda *s, dt="bf16": torch.randn(
+        *s, generator=gen, device=dev).to(types[dt])
     out = {}
 
     def timed(label, fns):
@@ -191,18 +221,42 @@ def worker(kernels, packs) -> dict:
             out[f"{label} {kernel}"] = {"ms": time_cuda(fn, iters=20),
                                         "device_ms": device_ms(fn)}
 
-    for label, B, H_q, H_kv, N, D, ns, W in FORWARD:
+    def yardstick(label, work, pairs, sdpa):
+        """The narrow-instance rows' bounds (``work``: kernel -> (FLOPs a
+        visible pair at the bf16 rate, bytes at 3.35 TB/s); the larger
+        time) and SDPA's time over the same mask (``library_ms``)."""
+        rows = {k: out[f"{label} {k}"] for k in work
+                if f"{label} {k}" in out}
+        if not rows or not label.startswith(NARROW_LABELS):
+            return
+        lib = time_cuda(sdpa, iters=5)
+        for k, r in rows.items():
+            per_pair, nbytes = work[k]
+            r.update(bound_ms=max(per_pair * pairs / H100_PEAK_BF16,
+                                  nbytes / H100_HBM_BW) * 1e3,
+                     library_ms=lib)
+
+    for label, B, H_q, H_kv, N, D, ns, W, dt in FORWARD:
         if "flash_fwd_kernel" not in kernels:
             break
-        q, k, v = mk(B, H_q, N, D), mk(B, H_kv, N, D), mk(B, H_kv, N, D)
+        q, k, v = (mk(B, H_q, N, D, dt=dt), mk(B, H_kv, N, D, dt=dt),
+                   mk(B, H_kv, N, D, dt=dt))
         aux = torch.randn(H_q, generator=gen, device=dev)
         timed(label, {"flash_fwd_kernel": lambda: flash.flash_fwd_kernel(
             q, k, v, aux, ns, W)})
-    for label, B, H_q, H_kv, N, D, ns, W, halo in UNPACKED:
+        mask = sink_window_mask(N, N, ns, W, device=dev)
+        yardstick(label, {"flash_fwd_kernel": (
+                      4 * D, q.element_size() * 2 * (B * H_q + B * H_kv) * N
+                      * D + 4 * B * H_q * N)},
+                  B * H_q * attention_pairs(N, N, ns, W),
+                  lambda: torch.nn.functional.scaled_dot_product_attention(
+                      q, k, v, attn_mask=mask, enable_gqa=True))
+    for label, B, H_q, H_kv, N, D, ns, W, halo, dt in UNPACKED:
         if not {"flash_dq_kernel", "flash_dkdv_kernel"} & kernels:
             break
-        q, do = mk(B, H_q, N, D), mk(B, H_q, N, D)
-        k, v = mk(B, H_kv, N + halo, D), mk(B, H_kv, N + halo, D)
+        q, do = mk(B, H_q, N, D, dt=dt), mk(B, H_q, N, D, dt=dt)
+        k, v = (mk(B, H_kv, N + halo, D, dt=dt),
+                mk(B, H_kv, N + halo, D, dt=dt))
         geom = (ns, W, 0, -halo)
         o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
         delta = (do.float() * o.float()).sum(-1)
@@ -210,6 +264,26 @@ def worker(kernels, packs) -> dict:
         timed(label, {"flash_dq_kernel": lambda: flash.flash_dq_kernel(*args),
                       "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(
                           *args)})
+        if label.startswith(NARROW_LABELS) and halo == 0:
+            # the bounds (dQ 6 D FLOPs a visible pair, dK/dV 8 D; or the
+            # bytes each reads and writes once) beside SDPA's whole
+            # backward over the same mask
+            q_bytes = q.element_size() * B * H_q * N * D
+            kv_bytes = q.element_size() * B * H_kv * N * D
+            rows_bytes = 8 * B * H_q * N  # lse and delta
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            mask = sink_window_mask(N, N, ns, W, device=dev)
+            sd = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)
+            yardstick(label, {
+                "flash_dq_kernel": (6 * D, 3 * q_bytes + 2 * kv_bytes
+                                    + rows_bytes),
+                "flash_dkdv_kernel": (8 * D, 2 * q_bytes + 4 * kv_bytes
+                                      + rows_bytes)},
+                B * H_q * attention_pairs(N, N, ns, W),
+                lambda: torch.autograd.grad(sd, leaves, do,
+                                            retain_graph=True))
+            del sd, leaves
     for label, B, H_q, H_kv, D, ns, W, pos in packs:
         if not {"packed_fwd_kernel", "packed_dq_kernel",
                 "packed_dkdv_kernel"} & kernels:
@@ -267,7 +341,8 @@ def worker(kernels, packs) -> dict:
         del cache
     return {"times": out, "ptxas": {
         name: rep["ptxas"] for name, rep in _build.build_report.items()
-        if not rep["cached"]}}
+        if not rep["cached"]}, "libs": {
+        name: str(path) for name, path in _build.build_all().items()}}
 
 
 HOST_ROUNDS = 24   # timed rounds of each checkout, in turns
@@ -364,6 +439,24 @@ def ptxas_entries(lines) -> dict:
     return out
 
 
+def sass_functions(lib: str) -> dict:
+    """{kernel entry: its SASS} of a built library (``cuobjdump -sass``),
+    the entry names normalised as :func:`ptxas_entries` does and the
+    function's own name dropped from its text; {} without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_(\w+?)_cu_[0-9a-f]{8}",
+                      r"_GLOBAL__N__\1", name.strip())
+        out[name] = body.replace(name, "")
+    return out
+
+
 def run_pass(tree: Path, kernels, packs: Path) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree))
     proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
@@ -432,6 +525,18 @@ def main(argv=None) -> int:
                 differ.append((src, entry, got, mine.get(entry)))
     print(f"ptxas: {same} of {same + len(differ)} instances of the other "
           f"checkout read the same here")
+    # the instances both checkouts build, compared instruction by
+    # instruction
+    sass = [{src: sass_functions(lib) for src, lib in runs[i][1]["libs"]
+             .items()} for i in (0, 1)]
+    n_same = n_both = 0
+    for src, funcs in sass[0].items():
+        for name, body in funcs.items():
+            if name in sass[1].get(src, {}):
+                n_both += 1
+                n_same += sass[1][src][name] == body
+    print(f"sass: {n_same} of {n_both} instances both checkouts build are "
+          f"the same instructions")
     for src, entry, got, mine in differ:
         print(f"ptxas differs: {src} {entry}: {got} -> {mine}")
     runs = [(name, r["times"]) for name, r in runs]
@@ -466,6 +571,7 @@ def main(argv=None) -> int:
     Path(args.out).write_text(json.dumps(
         {"card": card, "other": str(other), "passes": runs,
          "mean": table, "ptxas": builds, "ptxas_same": same,
+         "sass_same": [n_same, n_both],
          "ptxas_differ": [list(d) for d in differ]}, indent=1))
     return 0
 

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 from sink_attention_tpu.ops import flash as jflash
 from sink_attention_tpu.ops import sink_flash_attention as j_sink_flash
 from sink_attention_tpu_torch.ops import ablation, flash

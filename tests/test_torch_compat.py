@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_sp_cases as cases
 import sink_attention_tpu.compat as jc
 from sink_attention_tpu.models import load_hf_checkpoint as jax_load

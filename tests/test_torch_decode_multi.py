@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 from sink_attention_tpu.cache import RaggedSinkKVCache as JRagged
 from sink_attention_tpu.cache import SinkKVCache as JCache
 from sink_attention_tpu.ops.decode import (

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 from sink_attention_tpu.cache import SinkKVCache as JCache
 from sink_attention_tpu.ops import flash as jflash
 from sink_attention_tpu.ops import sink_decode_attention_cached as j_decode

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 import sink_attention_tpu.ops as jops
 from sink_attention_tpu.models import model as jmodel

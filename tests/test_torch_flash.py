@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.ops as jops
 from sink_attention_tpu_torch.ops import flash as tflash
 from sink_attention_tpu_torch.ops.reference import sink_window_mask

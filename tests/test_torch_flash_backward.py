@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.ops as jops
 from sink_attention_tpu.ops.flash import _dkdv_q_step as j_dkdv_q_step
 from sink_attention_tpu.ops.flash import sink_flash_attention_chunk as j_chunk

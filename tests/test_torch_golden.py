@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.models import hf_loader as jhf
 from sink_attention_tpu_torch.models import (ModelConfig, forward_prefill,

@@ -1251,6 +1251,117 @@ def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
             name, float(err.max()))
 
 
+# The forward's and dK/dV's narrow instances (80 and 96 columns on the 128
+# instance's tiles): D 72 and 88 with zero-filled columns, 80 and 96 whole.
+NARROW_DIMS = (72, 80, 88, 96)
+NARROW_GEOMS = (  # (num_sink, window, s_aux)
+    (4, 96, True),
+    (0, 96, False),
+    # a window of 32: the second consumer's 64 rows of a 128-row q block
+    # see no key of the block before (forward), and the first consumer's 64
+    # keys of a 128-key item no query of its third q tile (dK/dV)
+    (0, 32, True),
+)
+
+
+def _narrow_case(cuda, d, dtype, route, ns, W, use_aux):
+    """(kernel outputs, plain outputs) of the forward and the backward at
+    (d, dtype) on one route, and each backward kernel's second run."""
+    from sink_attention_tpu_torch.ops import packed
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    B, H_q, H_kv, N = 1, 8, 2, 320
+    q, k, v, do = _cover_inputs(gen, dtype, (B, H_q, N, d), (B, H_kv, N, d),
+                                (B, H_kv, N, d), (B, H_q, N, d))
+    aux = torch.randn(H_q, generator=gen, device=cuda) if use_aux else None
+    mm = MM.get(dtype)
+    if route == "packed":
+        positions = torch.tensor([_segments(N, (100, 30, 190))], device=cuda)
+        ext = (positions, ns, W)
+        fwd_k = lambda: packed.packed_fwd_kernel(q, k, v, positions, aux, ns,
+                                                 W)
+        o, lse = packed.packed_fwd_plain(q, k, v, positions, aux, ns, W,
+                                         matmul_dtype=mm)
+        bwd_plain, dq_k, dkdv_k = (packed.packed_bwd_plain,
+                                   packed.packed_dq_kernel,
+                                   packed.packed_dkdv_kernel)
+    else:
+        ext = (ns, W, 0, 0)
+        fwd_k = lambda: flash.flash_fwd_kernel(q, k, v, aux, ns, W)
+        o, lse = flash.flash_fwd_plain(q, k, v, aux, ns, W, matmul_dtype=mm)
+        bwd_plain, dq_k, dkdv_k = (flash.flash_bwd_plain,
+                                   flash.flash_dq_kernel,
+                                   flash.flash_dkdv_kernel)
+    delta = (do.float() * o.float()).sum(-1)
+    plain = bwd_plain(q.float(), k.float(), v.float(), do.float(), lse,
+                      delta, *ext, matmul_dtype=mm)
+    args = (q, k, v, do, lse, delta, *ext)
+    got = (fwd_k(), dq_k(*args), *dkdv_k(*args))
+    again = dkdv_k(*args)
+    torch.cuda.synchronize()
+    return got, (o, lse, *plain), again
+
+
+@pytest.mark.parametrize("route", ["unpacked", "packed"])
+@pytest.mark.parametrize("dtype", COVER_DTYPES)
+@pytest.mark.parametrize("d", NARROW_DIMS)
+def test_narrow_instances_match_plain(cuda, d, dtype, route):
+    """Rows 1, 3, 5 and 7 in the narrow instances (and dQ, rows 2 and 6, in
+    its 128 one) at D 72-96, bf16 / fp16 / fp32, unpacked and packed (a
+    pack of three segments), with and without sinks and s_aux and at a
+    window that leaves tiles dead for one consumer: O and LSE, dQ, dK and
+    dV against the plain versions at the kernels' precision, dK/dV
+    bitwise equal on a second run; the wrappers record the instance the
+    library reports."""
+    from sink_attention_tpu_torch.ops import packed
+    for ns, W, use_aux in NARROW_GEOMS:
+        (o_l, dq, dk, dv), (o, lse, *plain), again = _narrow_case(
+            cuda, d, dtype, route, ns, W, use_aux)
+        what = (ns, W, use_aux)
+        assert o_l[0].dtype == dtype, what
+        torch.testing.assert_close(o_l[0].float(), o.float(),
+                                   atol=FWD_TOL[dtype], rtol=1e-3,
+                                   msg=lambda m: f"{what} O: {m}")
+        assert float((o_l[1] - lse).abs().max()) <= 1e-2, what
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
+            assert got.dtype == dtype and got.shape == ref.shape, what
+            _bwd_close(f"{name} {what}", got, ref, dtype)
+        assert torch.equal(dk, again[0]) and torch.equal(dv, again[1]), what
+    want = 80 if d <= 80 else 96
+    fns = ((packed.packed_fwd_kernel, packed.packed_dq_kernel,
+            packed.packed_dkdv_kernel) if route == "packed" else
+           (flash.flash_fwd_kernel, flash.flash_dq_kernel,
+            flash.flash_dkdv_kernel))
+    assert [(d, want) in fns[0].instances, (d, 128) in fns[1].instances,
+            (d, want) in fns[2].instances] == [True] * 3
+
+
+def test_libraries_report_each_kernels_instance(cuda):
+    """Each library's instance entries: the forward and dK/dV (unpacked
+    and packed) run D 65-80 in the 80 instance and 81-96 in the 96 one, dQ
+    runs 65-128 in its 128 one; every kernel D <= 64 in 64, 97-128 in 128,
+    129-256 in 256, 257-512 in 512, past 512 in the wide instance (513);
+    a D that is not a multiple of 8 in none (0: the host pads it)."""
+    from sink_attention_tpu_torch.ops import _build
+
+    def rule(d, narrow):
+        if d % 8:
+            return 0
+        for top, inst in ((64, 64), (80, 80), (96, 96), (128, 128),
+                          (256, 256), (512, 512)):
+            if d <= top and (narrow or inst not in (80, 96)):
+                return inst
+        return 513
+    entries = (("flash_fwd", "sink_fwd_instance", True),
+               ("flash_bwd", "sink_dq_instance", False),
+               ("flash_bwd", "sink_dkdv_instance", True),
+               ("packed", "sink_pfwd_instance", True),
+               ("packed", "sink_pdq_instance", False),
+               ("packed", "sink_pdkdv_instance", True))
+    for source, entry, narrow in entries:
+        got = [_build.instance_of(source, entry, d) for d in range(1, 1100)]
+        assert got == [rule(d, narrow) for d in range(1, 1100)], entry
+
+
 # Decode: fp32 storage computes in fp32 (JAX's CPU fp32 tolerance, 1e-5 with
 # rtol 1e-3: tests/test_decode.py); bf16 2e-2 as above; fp16 4e-3.
 DECODE_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,

@@ -11,6 +11,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 

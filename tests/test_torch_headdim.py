@@ -1,10 +1,11 @@
 """Head dims other than 64 and 128: the port against the JAX package.
 
 The CUDA kernels run any head_dim up to 512 in their 64-, 128-, 256- and
-512-wide instances (``ops._build.kernel_head_dim``) and pad a head_dim whose
-rows are not whole 16 bytes (``padded_head_dim``): that rule is pure Python and
-is checked here. On the CPU the port runs the kernels' plain versions; they
-are held to the JAX kernels (interpret mode) at D in (16, 32, 80, 100) in
+512-wide instances (``ops._build.kernel_head_dim``, the host tables' key;
+the forward and dK/dV compute D 65-96 in narrow 80- and 96-wide instances
+on the 128 instance's tiles) and pad a head_dim whose rows are not whole 16
+bytes (``padded_head_dim``): that rule is pure Python and is checked here. On the CPU the port runs the kernels' plain versions; they
+are held to the JAX kernels (interpret mode) at D in (16, 32, 80, 96, 100) in
 the forward, the backward, the packed path and the decode, at the JAX
 tests' CPU tolerances, and a narrow H2O-Danube-shaped model (Mistral
 family, head_dim 80, GQA 4:1, every layer sliding) built by
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.cache import SinkKVCache as JCache
 from sink_attention_tpu.ops import flash as jflash
@@ -37,7 +39,7 @@ from sink_attention_tpu_torch.parallel import (cross_entropy_loss,
                                                cross_entropy_loss_packed,
                                                param_leaves)
 
-DIMS = (16, 32, 80, 100)
+DIMS = (16, 32, 80, 96, 100)
 
 
 def test_kernel_head_dim_rule():
@@ -108,14 +110,12 @@ def test_attention_and_grads_match_jax(d):
     (2e-5 forward, 1e-4 / 1e-2 gradients)."""
     x = _qkv(d, 1, 4, 2, 96, d)
     do = np.random.RandomState(d + 1).randn(1, 4, 96, d).astype(np.float32)
-
-    def j_loss(q, k, v, a):
-        return (jflash.sink_flash_attention(q, k, v, 4, 40, s_aux=a)
-                * jnp.asarray(do)).sum()
-
-    j_out = jflash.sink_flash_attention(*map(jnp.asarray, x[:3]), 4, 40,
-                                        s_aux=jnp.asarray(x[3]))
-    j_grads = jax.grad(j_loss, (0, 1, 2, 3))(*map(jnp.asarray, x))
+    # one JAX forward for the output and the pullback of do
+    j_out, vjp = jax.vjp(
+        lambda q, k, v, a: jflash.sink_flash_attention(q, k, v, 4, 40,
+                                                       s_aux=a),
+        *map(jnp.asarray, x))
+    j_grads = vjp(jnp.asarray(do))
     leaves = [torch.from_numpy(a).requires_grad_() for a in x]
     out = flash.sink_flash_attention(*leaves[:3], 4, 40, s_aux=leaves[3])
     (out * torch.from_numpy(do)).sum().backward()
@@ -136,10 +136,9 @@ def test_packed_attention_and_grads_match_jax(d):
         return j_packed(q, k, v, jnp.asarray(pos), 4, 40, s_aux=a,
                         block_q=64, block_kv=64)
 
-    jx = list(map(jnp.asarray, x))
-    j_out = jax.jit(j_fn)(*jx)
-    j_grads = jax.jit(jax.grad(lambda *a: (j_fn(*a) ** 2).sum(),
-                               (0, 1, 2, 3)))(*jx)
+    # one JAX forward for the output and the pullback of d(out^2) = 2 out
+    j_out, vjp = jax.vjp(j_fn, *map(jnp.asarray, x))
+    j_grads = vjp(2.0 * j_out)
     leaves = [torch.from_numpy(a).requires_grad_() for a in x]
     out = packed.sink_flash_attention_packed(*leaves[:3],
                                              torch.from_numpy(pos), 4, 40,

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import chip_smoke
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.cache import SinkKVCache as JCache

@@ -36,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import chip_smoke
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.cache import SinkKVCache as JCache
@@ -248,7 +249,7 @@ def test_xwide_config_in_both_packages():
                                                     4096)
     assert _build.kernel_head_dim(cfg.head_dim) == _build.WIDE_INSTANCE
     assert narrow[1].num_sink_tokens == 4
-    assert chip_smoke.XWIDE_LAYERS == 12
+    assert chip_smoke.XWIDE_LAYERS == 4
 
 
 def test_xwide_logits_and_greedy_tokens_match_jax():

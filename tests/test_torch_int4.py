@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 from sink_attention_tpu.ops import int4 as jint4
 from sink_attention_tpu_torch.ops import int4 as tint4
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_mesh_worker as worker
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.models import model as jmodel

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.ops.packed import (
     sink_flash_attention_packed as j_packed)

@@ -30,6 +30,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_mesh_worker as worker
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.parallel import make_mesh

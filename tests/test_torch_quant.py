@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.models import model as jmodel
 from sink_attention_tpu.ops import eager_sink_attention as j_eager

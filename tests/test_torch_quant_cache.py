@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.ops as jops
 from sink_attention_tpu.cache import SinkKVCache as JCache
 from sink_attention_tpu.cache import sink_cache as jsc

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.ops as jops
 from sink_attention_tpu.cache import RaggedSinkKVCache as JRagged
 from sink_attention_tpu_torch.cache import RaggedSinkKVCache as TRagged

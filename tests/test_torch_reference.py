@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 from sink_attention_tpu.ops import reference as jref
 from sink_attention_tpu_torch.ops import reference as tref
 

@@ -11,6 +11,7 @@ of 2 and 4 ranks, one process per rank. Tolerance: JAX's own in fp32
 import jax
 import pytest
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_sp_cases as cases
 from sink_attention_tpu.parallel.ring import ring_num_steps as jax_num_steps
 from sink_attention_tpu_torch import parallel

@@ -32,6 +32,7 @@ import optax
 import pytest
 from jax.sharding import Mesh
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_mesh_worker as worker
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.parallel import make_mesh

@@ -11,6 +11,7 @@ import torch
 import torch.distributed as dist
 from jax.sharding import Mesh as JMesh
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.cache import quantize as j_quantize
 from sink_attention_tpu.parallel.train import (

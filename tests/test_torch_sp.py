@@ -27,6 +27,7 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import _torch_sp_cases as cases
 from sink_attention_tpu import parallel as jpar
 from sink_attention_tpu.ops.flash import (

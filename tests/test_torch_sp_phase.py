@@ -7,6 +7,7 @@ versions: its gates pass, the ranks launch no kernel, and each rank's
 output and gradients equal the single-process attention's (fp32, the JAX
 tests' 1e-4)."""
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import chip_smoke
 
 

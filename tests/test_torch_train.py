@@ -13,6 +13,7 @@ import pytest
 import torch
 from jax.sharding import Mesh
 
+import _torch_cores  # noqa: F401 (shares the cores among workers)
 import sink_attention_tpu.models as jm
 from sink_attention_tpu.parallel import train as jtrain
 from sink_attention_tpu_torch.models import ModelConfig, params_from_jax
