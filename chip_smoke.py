@@ -776,16 +776,19 @@ def kernel_phase(dev):
     # the serving prefill (2 x 8192 tokens, GQA 8/4) on a sliding (W = 4096)
     # and a full layer, and with 4 StreamingLLM sinks; the training step's
     # backward (1 x 8192); the decode over 4096 live slots in bf16 and int8,
-    # and with 4 sinks; the packed step's pack of 2 x 4096
+    # and with 4 sinks; the packed step's pack of 2 x 4096. The backward
+    # rows also at Gemma 3's local window (W = 1024), with no sinks and with
+    # 4 sinks and s_aux (the sink item walks every q block)
     flash_gemma = [check_flash(dev, 2, 8, 4, 8192, 256, ns, w, gen)
                    for ns, w in ((0, 4096), (0, 8192), (4, 4096))]
-    bwd_gemma = [check_bwd(dev, 1, 8, 4, 8192, 256, 0, w, gen, use_aux=False)
-                 for w in (4096, 8192)]
+    gemma_bwd = ((0, 4096), (0, 8192), (0, 1024), (4, 1024))
+    bwd_gemma = [check_bwd(dev, 1, 8, 4, 8192, 256, ns, w, gen,
+                           use_aux=ns > 0) for ns, w in gemma_bwd]
     decode_gemma = [check_decode(dev, 2, 8, 4, 256, ns, 4096, 8192, 16, gen)
                     for ns in (0, 4)]
-    packed_gemma = [check_packed(dev, 1, 8, 4, 256, 0, w, [4096, 4096], gen,
-                                 use_aux=False, label="2 x 4096")
-                    for w in (4096, 8192)]
+    packed_gemma = [check_packed(dev, 1, 8, 4, 256, ns, w, [4096, 4096], gen,
+                                 use_aux=ns > 0, label="2 x 4096")
+                    for ns, w in gemma_bwd]
     # phase 15a, the widened Gemma-2-2B shapes: head_dim 512 in the 512
     # instance, and 384 (its columns past 384 zero-filled), bf16: the
     # prefill (2 x 8192, GQA 8/4) on a sliding (W = 4096) and a full layer

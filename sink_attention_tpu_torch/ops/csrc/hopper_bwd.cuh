@@ -75,19 +75,38 @@
 //    and dV += P^T dO and dK += dS^T Q are each an m64n64k16 over box 0
 //    beside an m64n16k16 or m64n32k16 over box 1 (hopper.cuh's rs_mma), so
 //    dK and dV hold 80 or 96 fp32 registers a thread, not 128;
-//  * the instance of D = 256 splits the columns, not the keys (DkdvPlan):
-//    dK and dV of 64 keys x 256 columns would take 256 fp32 registers a
-//    thread, past the 255 a thread has. An item is 64 keys; both
-//    consumers compute the same S^T and dP^T of the item's 64 keys (depth
-//    256) and the same P^T and dS^T, and consumer c accumulates dV and dK
-//    for columns [128 c, 128 c + 128) only (64 + 64 registers, as at D =
-//    128), reading those columns of dO and Q as the B operands. S^T and
-//    dP^T are computed twice: 12 D FLOPs a pair against the 8 D the bound
-//    counts. Shared memory: one K/V buffer (2 x 32 KB) and two stages of
-//    64-row Q and dO (2 x 64 KB): 192 KB. The epilogue stages each
-//    consumer's columns through its own boxes of the K/V buffer after both
-//    consumers' last products (a barrier of the two warpgroups), since
-//    each read every box;
+//  * the instance of D = 256 splits each tile's products between the
+//    consumers, not its keys or columns (DkdvPlan's SHARE): dK and dV of
+//    64 keys x 256 columns take 128 fp32 registers a thread each, so one
+//    warpgroup cannot hold both, and an item is 64 keys. Per live q tile
+//    warpgroup 1 computes S^T = K Q^T (m64n64k16, 16 k-steps), P^T (the
+//    mask on partial tiles) and dV += P^T dO over all 256 columns (two
+//    m64n128k16 a 16-query step, P^T from registers); warpgroup 2 computes
+//    dP^T = V dO^T and, once P^T has come, dS^T = P^T (dP^T - delta) and
+//    dK += dS^T Q. Each element of S^T and dP^T is computed once: 8 D
+//    FLOPs a visible pair, the bound's count (an earlier plan had both
+//    consumers compute the same S^T and dP^T and accumulate 128 columns
+//    each: 12 D). Splitting the queries instead (m64n32 products whose A
+//    operand is re-read from shared memory, P^T and dS^T shared as bf16 A
+//    operands) moves more shared-memory bytes a tile. P^T goes over in
+//    fp32, so dS^T takes it unrounded and the results are bit for bit the
+//    earlier plan's, fp32 inputs included (no low terms to share), through
+//    an exchange tile of 16 KB: float4 jj * 128 + ct holds thread ct's
+//    accumulators 4 jj .. 4 jj + 3 (conflict-free; warpgroup 2's thread ct
+//    holds the same cells of dP^T). Two named barriers a tile hand it over:
+//    warpgroup 1 arrives at X_FULL after its stores (bar.arrive: it does
+//    not wait) and warpgroup 2 waits there; warpgroup 2 arrives at X_FREE
+//    once it has read the tile, and warpgroup 1 waits there before it
+//    writes the tile again. So the exponent and the mask (warpgroup 1)
+//    overlap warpgroup 2's products and the other way round, as the two
+//    consumers of the other instances overlap. A second exchange tile, so
+//    that warpgroup 1 could run a further tile ahead, measured the same
+//    (within 1%, kernel_compare.py at Gemma-2-2B's shapes) and was left
+//    out. Shared memory: one K/V buffer (2 x 32 KB), two stages of 64-row
+//    Q and dO (2 x 64 KB) and the exchange tile (16 KB): 208 KB. The
+//    epilogue stages dV through the K buffer and dK through the V buffer,
+//    each read by its own warpgroup's products only, so no barrier of the
+//    two; a dead tile is dead for both (the same 64 keys);
 //  * the instance of D = 512 splits the columns too (256 a consumer), and
 //    walks each item's q tiles twice (DkdvPlan's PASSES): dK and dV of 64
 //    keys x 256 columns would again take 256 registers a thread, so the
@@ -110,12 +129,15 @@
 // bound by operations, the W = 128 layers by bytes. What the design does
 // about it: wgmma on TMA-fed shared memory at the tensor cores' rate, the
 // mask's cost only on partial tiles, dead half-tiles skipped, K/V read once
-// per item and Q/dO once per (item, head, q block), no second pass.
+// per item and Q/dO once per (item, head, q block), no second pass. The
+// instances of D <= 256 do the bound's 8 D FLOPs a pair; the 512 instance
+// 20 D, the wide one (hopper_wide.cuh) more.
 
 #pragma once
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -126,14 +148,17 @@ constexpr int DKDV_BM = 64;    // queries per q block (DkdvPlan's TM a tile)
 constexpr int DKDV_BN = 128;   // keys per item, 64 per consumer
 constexpr int DKDV_THREADS = 384;
 
-// The tile plan at instance head dim D: keys per item, K/V buffers,
-// whether the consumers split the item's columns (D = 256 and 512) rather
-// than its keys, query rows per q tile, and passes over an item's tiles
-// (D = 512: dV, then dK; see the header). The narrow 80 and 96 take the
-// 128 instance's plan.
+// The tile plan at instance head dim D: keys per item and K/V buffers
+// (SPLIT: 64 keys, one buffer, D = 256 and 512), whether the consumers
+// split a tile's products (SHARE, D = 256: one computes S^T, P^T and dV,
+// the other dP^T, dS^T and dK, P^T handed over in a shared-memory tile)
+// or else, where SPLIT, the item's columns (D = 512), query rows per q
+// tile, and passes over an item's tiles (D = 512: dV, then dK; see the
+// header). The narrow 80 and 96 take the 128 instance's plan.
 template <int D>
 struct DkdvPlan {
   static constexpr bool SPLIT = D >= 256;
+  static constexpr bool SHARE = D == 256;
   static constexpr int BN = SPLIT ? 64 : DKDV_BN;  // keys per item
   static constexpr int KB = SPLIT ? 1 : 2;         // K/V buffers
   static constexpr int TM = D == 512 ? 32 : DKDV_BM;  // rows per q tile
@@ -147,7 +172,7 @@ __host__ __device__ constexpr int dkdv_bn(int D) {
 
 // setmaxnreg's split of the registers (producer warpgroup, consumer
 // warpgroups; 128 p + 256 c <= 65536): at D = 128 (and D = 256, whose
-// consumers hold half the columns) the consumers' dK and dV accumulators
+// consumers hold dV or dK of all the columns) the consumers' accumulators
 // take 128 registers a thread, and 24 keep the producer free of spills;
 // at D = 64 the producer's ring of three stages wants more, and at D =
 // 512 its walk of the q tiles (two passes of two tiles a q block) spilled
@@ -178,7 +203,13 @@ struct DkdvSmem {
   static constexpr int N_BARS = 2 * KB + 2 * STAGES;
   static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [KB][8]
   static constexpr int SPAN_OFF = INFO_OFF + KB * 8 * 4;  // int [2][4][2]
-  static constexpr int BYTES = SPAN_OFF + 2 * 4 * 2 * 4 + 1024;  // + align
+  // SHARE: the exchange tile of P^T, float4 [TM / 8][128] (a consumer
+  // thread's 32 accumulators as 8 float4, thread-fastest)
+  static constexpr int X_BYTES = DkdvPlan<D>::BN * DkdvPlan<D>::TM * 4;
+  static constexpr int X_OFF = (SPAN_OFF + 2 * 4 * 2 * 4 + 127) / 128 * 128;
+  static constexpr int BYTES =
+      DkdvPlan<D>::SHARE ? X_OFF + X_BYTES + 1024
+                         : SPAN_OFF + 2 * 4 * 2 * 4 + 1024;  // + align
 };
 
 // A work item: one 128-key block of one (batch, KV head), the q-block range
@@ -252,6 +283,51 @@ __device__ __forceinline__ void store_key_rows(void* out,
   }
 }
 
+// Arrive at named barrier `id` of `count` threads without waiting (the
+// threads that wait on it meet these arrivals with named_sync): releases
+// this thread's earlier shared-memory accesses to them.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Each of keys r_key and r_key + 8 of `item` sees one interval of local
+// query rows [lo, lo + cnt); [w_lo, w_hi) is the hull of the warpgroup's 64
+// keys' intervals, gathered through span_sm (its four warps', at named
+// barrier `bar` of the warpgroup).
+template <class Mask>
+__device__ __forceinline__ void key_spans(const Mask& mask,
+                                          const DkdvItem& item, int BN,
+                                          int r_key, int warp, int lane,
+                                          int bar, int* span_sm, int (&lo)[2],
+                                          unsigned (&cnt)[2], int& w_lo,
+                                          int& w_hi) {
+  int my_lo = INT_MAX, my_hi = INT_MIN;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    int n;
+    mask.key_span(item.b, item.kb * BN + r_key + 8 * r, lo[r], n);
+    cnt[r] = (unsigned)n;
+    if (n > 0) {
+      my_lo = min(my_lo, lo[r]);
+      my_hi = max(my_hi, lo[r] + n);
+    }
+  }
+  my_lo = __reduce_min_sync(0xffffffffu, my_lo);
+  my_hi = __reduce_max_sync(0xffffffffu, my_hi);
+  if (lane == 0) {
+    span_sm[warp * 2] = my_lo;
+    span_sm[warp * 2 + 1] = my_hi;
+  }
+  named_sync(bar, 128);
+  w_lo = INT_MAX;
+  w_hi = INT_MIN;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    w_lo = min(w_lo, span_sm[i * 2]);
+    w_hi = max(w_hi, span_sm[i * 2 + 1]);
+  }
+}
+
 // D is the instance's head dim, Dt <= D the tensors' (see
 // fwd_wgmma_kernel); IO the element types. An item's q tiles are walked
 // PASSES times, each pass by query head of the group, 64-row q block of
@@ -272,7 +348,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   constexpr bool SPLIT = DkdvPlan<D>::SPLIT;  // consumers split the columns
   constexpr int BN = DkdvPlan<D>::BN;         // keys per item
   constexpr int KB = L::KB;                   // K/V buffers
-  constexpr int DC = SPLIT ? D / 2 : D;       // a consumer's columns
+  // a consumer's columns: SPLIT halves them, SHARE splits the products
+  constexpr int DC = SPLIT && !DkdvPlan<D>::SHARE ? D / 2 : D;
   constexpr int OR = DC / 2;  // dK or dV accumulators a thread
   constexpr int TM = DkdvPlan<D>::TM;          // query rows per q tile
   constexpr int SUB = DKDV_BM / TM;            // q tiles per q block
@@ -381,6 +458,239 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         }
       }
     }
+  } else if constexpr (DkdvPlan<D>::SHARE) {
+    // ---- consumers of the 256 instance: both take the item's 64 keys
+    // and all D columns; per live q tile warpgroup 1 computes S^T, P^T and
+    // dV += P^T dO and hands P^T over in the exchange tile, warpgroup 2
+    // dP^T, dS^T and dK += dS^T Q (see the header); one loop compiled for
+    // each role ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        DkdvRegs<D>::CONSUMER));
+    static_assert(SUB == 1 && PASSES == 1, "one 64-row tile a q block");
+    constexpr int X_FULL = 4, X_FREE = 5;  // named barriers, once a tile
+    const int ct = threadIdx.x - 128 * wg;
+    const int warp = ct >> 5, lane = ct & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r_key = warp * 16 + g;  // keys r_key, r_key + 8
+    float4* xs = reinterpret_cast<float4*>(smem + L::X_OFF);
+    const auto consume = [&](auto role) {
+      // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+      constexpr int C = decltype(role)::value;
+      int* span_sm = reinterpret_cast<int*>(smem + L::SPAN_OFF) + C * 8;
+      // S^T's operands are K and Q, dP^T's V and dO; dV's B operand is dO,
+      // dK's Q
+      constexpr int A_OFF = C == 0 ? L::K_OFF : L::V_OFF;
+      constexpr int B_OFF = C == 0 ? L::Q_OFF : L::DO_OFF;
+      constexpr int O_OFF = C == 0 ? L::DO_OFF : L::Q_OFF;
+      Ring<STAGES> ring;
+      bool handed = false;  // a P^T went over (both see the same tiles)
+      for (int it = 0;; ++it) {
+        const int w = snake_item(it, blockIdx.x, gridDim.x);
+        if (w >= n_work) break;
+        mbar_wait(kv_full, buf_phase<KB>(it));
+        const DkdvItem item(info);
+        const int n_tiles = group * item.n_qb;
+        int lo[2], w_lo, w_hi;
+        unsigned cnt[2];
+        key_spans(mask, item, BN, r_key, warp, lane, 1 + C, span_sm, lo, cnt,
+                  w_lo, w_hi);
+        float acc[OR];  // dV (warpgroup 1) or dK (2): 64 keys x D columns
+#pragma unroll
+        for (int i = 0; i < OR; ++i) acc[i] = 0.f;
+        int qt = item.qb0;
+        for (int j = 0; j < n_tiles; ++j, ring.next()) {
+          const int s = ring.s;
+          const int q0 = qt * TM;  // the tile's first local query row
+          if (++qt == item.qb0 + item.n_qb) qt = item.qb0;
+          mbar_wait(full + s, ring.ph);
+          // the same keys, so both warpgroups skip the same tiles
+          if (q0 >= w_hi || q0 + TM <= w_lo) {
+            named_sync(1 + C, 128);  // every warp has seen the stage's phase
+            if (ct == 0) mbar_arrive(empty + s);
+            continue;
+          }
+          // the operands' addresses from a base the compiler cannot hoist
+          // out of the tile loop, so that their descriptors are computed
+          // where they are used (hoisted, they took 4% more instructions,
+          // 8202 against 7869 lines of the bf16 and fp32 instances' SASS)
+          const uint8_t* sm = smem;
+          asm volatile("" : "+l"(sm));
+          const uint8_t* a_sm = sm + A_OFF;
+          const uint8_t* b_sm = sm + B_OFF + s * L::QT_BYTES;
+          const uint8_t* o_sm = sm + O_OFF + s * L::QT_BYTES;
+          const float* rs = rows_sm + s * 2 * DKDV_BM;
+
+          // S^T = K Q^T or dP^T = V dO^T: 64 keys x TM queries, D / 16
+          // k-steps
+          float x[TM / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const int bx = kk / 4, off = (kk % 4) * 32;
+            SsMma<TM / 2, IO::kF16>::run(
+                x, desc_sw128(a_sm + bx * BN * 128 + off, 16, 1024),
+                desc_sw128(b_sm + bx * TM * 128 + off, 16, 1024), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(x);
+
+          // accumulator i = jj * 4 + 2 r + e is key r_key + 8 r, query q0 +
+          // 8 jj + 2 t4 + e; float4 jj * 128 + ct of the exchange tile
+          // holds accumulators 4 jj .. 4 jj + 3 of thread ct
+          if constexpr (C == 0) {
+            // P^T, the scale folded into the exponent's FMA
+#pragma unroll
+            for (int jj = 0; jj < TM / 8; ++jj) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float l2 = rs[jj * 8 + 2 * t4 + e];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  float& p = x[jj * 4 + 2 * r + e];
+                  p = fast_exp2(fmaf(p, scale_log2, -l2));
+                }
+              }
+            }
+            // the per-cell mask on partial tiles only (a warp-uniform
+            // branch): p = 0 by a select where the query is outside the
+            // key's interval
+            const bool whole = __all_sync(
+                0xffffffffu, lo[0] <= q0 && q0 + TM <= lo[0] + (int)cnt[0] &&
+                                 lo[1] <= q0 &&
+                                 q0 + TM <= lo[1] + (int)cnt[1]);
+            if (!whole) {
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int base = q0 + 2 * t4 - lo[r];
+#pragma unroll
+                for (int jj = 0; jj < TM / 8; ++jj) {
+#pragma unroll
+                  for (int e = 0; e < 2; ++e) {
+                    float& p = x[jj * 4 + 2 * r + e];
+                    p = (unsigned)(base + jj * 8 + e) < cnt[r] ? p : 0.f;
+                  }
+                }
+              }
+            }
+            // warpgroup 2 has read the last P^T
+            if (handed) named_sync(X_FREE, 256);
+#pragma unroll
+            for (int jj = 0; jj < TM / 8; ++jj)
+              xs[jj * 128 + ct] = make_float4(x[jj * 4], x[jj * 4 + 1],
+                                              x[jj * 4 + 2], x[jj * 4 + 3]);
+            __threadfence_block();
+            named_arrive(X_FULL, 256);
+          } else {
+            // dS^T = P^T (dP^T - delta), P^T from warpgroup 1
+            named_sync(X_FULL, 256);
+#pragma unroll
+            for (int jj = 0; jj < TM / 8; ++jj) {
+              const float4 p4 = xs[jj * 128 + ct];
+              const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float dl = rs[DKDV_BM + jj * 8 + 2 * t4 + e];
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  float& d = x[jj * 4 + 2 * r + e];
+                  d = p[2 * r + e] * (d - dl);
+                }
+              }
+            }
+            named_arrive(X_FREE, 256);
+          }
+          handed = true;
+
+          // dV += P^T dO or dK += dS^T Q over the D columns: P^T or dS^T
+          // as 16-bit A fragments (IoF32: two bf16 terms, the low term's
+          // product after the high term's), dO or Q read as transposed B
+          // operands (box stride TM rows x 128 B)
+          constexpr int LO = IO::kOut32 ? TM / 16 : 1;
+          uint32_t fa[TM / 16][4];
+          [[maybe_unused]] uint32_t fl[LO][4];  // IoF32 only
+#pragma unroll
+          for (int kk = 0; kk < TM / 16; ++kk) {
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              if constexpr (IO::kOut32)
+                fa[kk][h] = pack_bf16_split(x[8 * kk + 2 * h],
+                                            x[8 * kk + 2 * h + 1], fl[kk][h]);
+              else
+                fa[kk][h] = pack2<IO::kF16>(x[8 * kk + 2 * h],
+                                            x[8 * kk + 2 * h + 1]);
+            }
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < TM / 16; ++kk) {
+            rs_mma<OR, IO::kF16>(acc, fa[kk], o_sm + kk * 16 * 128, TM * 128);
+            if constexpr (IO::kOut32)
+              rs_mma<OR, false>(acc, fl[kk], o_sm + kk * 16 * 128, TM * 128);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
+          if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
+        }
+        // dV (warpgroup 1) or dK (2, scaled) goes out through the K or V
+        // buffer, the one only this warpgroup's products read, in the
+        // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
+        // chunks a row); as fp32 (IoF32), straight from the accumulators.
+        // The item is read again from shared memory (this item's until
+        // kv_empty below), so that its fields hold no registers across the
+        // tile loop.
+        const DkdvItem out(info);
+        void* dst = C == 0 ? dv : dk;
+        const float mul = C == 0 ? 1.f : scale;
+        if constexpr (IO::kOut32) {
+          store_key_rows<IO, D>(dst, acc, mul, out, BN, N_kv, Dt, r_key, 0,
+                                t4);
+        } else {
+          uint8_t* st_sm = smem + (C == 0 ? L::K_OFF : L::V_OFF);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int rb = r_key + 8 * r;  // the key within the item
+#pragma unroll
+            for (int jj = 0; jj < D / 8; ++jj) {
+              const int off = (jj / 8) * BN * 128 + rb * 128 +
+                              (((jj % 8) ^ (rb & 7)) * 16) + t4 * 4;
+              *reinterpret_cast<uint32_t*>(st_sm + off) = pack2<IO::kF16>(
+                  acc[jj * 4 + 2 * r] * mul, acc[jj * 4 + 2 * r + 1] * mul);
+            }
+          }
+          named_sync(1 + C, 128);  // the warpgroup's rows are staged
+          constexpr int CH = D / 8;
+          for (int i = ct; i < 64 * CH; i += 128) {
+            const int rb = i / CH, ch = i % CH;
+            const int row = out.kb * BN + rb;
+            if (row < N_kv && ch * 8 < Dt) {
+              const int off = (ch / 8) * BN * 128 + rb * 128 +
+                              (((ch % 8) ^ (rb & 7)) * 16);
+              const size_t o = ((size_t)out.bkh * N_kv + row) * Dt + ch * 8;
+              *reinterpret_cast<uint4*>(static_cast<uint16_t*>(dst) + o) =
+                  *reinterpret_cast<const uint4*>(st_sm + off);
+            }
+          }
+        }
+        // The K/V buffer is free once every consumer thread is done with
+        // it; the proxy fence orders these generic accesses before the TMA
+        // refill.
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(kv_empty);
+      }
+      // warpgroup 1 meets warpgroup 2's last arrival
+      if constexpr (C == 0) {
+        if (handed) named_sync(X_FREE, 256);
+      }
+    };
+    // (tested the other way round, wg == 1 first, ptxas compiled the else
+    // branch at the launch's 168 registers, not CONSUMER: every wgmma
+    // serialised, C7512, and ~700 bytes of spill)
+    if (wg == 2)
+      consume(std::integral_constant<int, 1>{});
+    else
+      consume(std::integral_constant<int, 0>{});
   } else {
     // ---- consumers: warpgroup c owns keys [64 c, 64 c + 64) of an item,
     // or (SPLIT) columns [DC c, DC c + DC) of its 64 keys ----
@@ -405,32 +715,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 
       // Each key's interval of visible local query rows [lo, lo + n), and
       // the hull of this warpgroup's 64 keys' intervals [w_lo, w_hi).
-      int lo[2];
+      int lo[2], w_lo, w_hi;
       unsigned cnt[2];
-      int my_lo = INT_MAX, my_hi = INT_MIN;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        int n;
-        mask.key_span(item.b, item.kb * BN + r_key + 8 * r, lo[r], n);
-        cnt[r] = (unsigned)n;
-        if (n > 0) {
-          my_lo = min(my_lo, lo[r]);
-          my_hi = max(my_hi, lo[r] + n);
-        }
-      }
-      my_lo = __reduce_min_sync(0xffffffffu, my_lo);
-      my_hi = __reduce_max_sync(0xffffffffu, my_hi);
-      if (lane == 0) {
-        span_sm[warp * 2] = my_lo;
-        span_sm[warp * 2 + 1] = my_hi;
-      }
-      named_sync(1 + c, 128);
-      int w_lo = INT_MAX, w_hi = INT_MIN;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        w_lo = min(w_lo, span_sm[i * 2]);
-        w_hi = max(w_hi, span_sm[i * 2 + 1]);
-      }
+      key_spans(mask, item, BN, r_key, warp, lane, 1 + c, span_sm, lo, cnt,
+                w_lo, w_hi);
 
       const uint8_t* ksm = smem + L::K_OFF + kbuf * L::KV_BYTES + k0 * 128;
       const uint8_t* vsm = smem + L::V_OFF + kbuf * L::KV_BYTES + k0 * 128;

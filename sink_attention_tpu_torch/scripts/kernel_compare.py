@@ -23,12 +23,16 @@ and full layer mid-decode, the headline) and, past D = 128, over the
 Gemma-2-2B geometry's 4096 live slots at D = 256, 512 and 1024 in every
 storage (bf16, fp16, fp32, int8, fp8), at D = 640 and 2048 over 1028 live
 slots (bf16, int8, fp8) and at B = 1 over a 32768-slot bf16 cache (D =
-256); the other kernels also at one of phase 14's Gemma-2-2B shapes (D =
-256) and of phase 15's (D = 512). The decode rows also carry SDPA's time
-over the same (dequantized) cache with the live mask (``library_ms``,
-PyTorch's default backend) and the least time the card could take
-(``bound_ms``: the live K/V bytes at 3.35 TB/s, or the products at the
-peak rate of their type if more). The shapes run
+256); the other kernels also at phase 14's Gemma-2-2B shapes (D = 256:
+a sliding W=4096 and a full layer, Gemma 3's local W=1024 with and
+without 4 sinks and ``s_aux``, the packs at W=4096 and 1024) and at one
+of phase 15's (D = 512). The decode rows also carry SDPA's time over the same
+(dequantized) cache with the live mask (``library_ms``, PyTorch's default
+backend) and the least time the card could take (``bound_ms``: the live
+K/V bytes at 3.35 TB/s, or the products at the peak rate of their type if
+more); so do the narrow instances' and the D = 256 Gemma rows (the
+forward's, dQ's, dK/dV's and the packs': SDPA's forward or whole backward
+over the same mask; 4 D, 6 D or 8 D FLOPs a visible pair). The shapes run
 in four passes,
 other / this / this / other, each in its own process with that
 checkout's package on ``sys.path`` and its kernels built into its own
@@ -79,13 +83,24 @@ KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel",
 # Phi-3-mini's attention (32/32, D=96, N=4096) full and at W=2048 with 4
 # sinks; D = 72 and 88 of that shape at N=2048
 NARROW_DIMS = (72, 80, 88, 96)
-NARROW_LABELS = ("danube", "phi3")  # rows that get a bound and SDPA's time
+NARROW_LABELS = ("danube", "phi3")
+
+
+def measured(label: str) -> bool:
+    """Rows that get a bound and SDPA's time: the narrow instances' shapes
+    and the 256 instance's Gemma shapes, unpacked and packed."""
+    label = label.removeprefix("packed ")
+    return label.startswith(NARROW_LABELS) or (label.startswith("gemma")
+                                               and "D=256" in label)
 # the forward: (label, B, H_q, H_kv, N, D, num_sink, window, dtype)
 FORWARD = [
     ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128, "bf16"),
     ("prefill W=1024", 4, 64, 8, 1024, 64, 0, 1024, "bf16"),
     ("headline N=8192 D=128", 1, 32, 8, 8192, 128, 4, 4096, "bf16"),
     ("gemma W=4096 D=256", 2, 8, 4, 8192, 256, 0, 4096, "bf16"),
+    ("gemma full D=256", 2, 8, 4, 8192, 256, 0, 8192, "bf16"),
+    ("gemma W=1024 D=256", 2, 8, 4, 8192, 256, 0, 1024, "bf16"),
+    ("gemma W=1024 4 sinks D=256", 2, 8, 4, 8192, 256, 4, 1024, "bf16"),
     ("gemma W=4096 D=512", 2, 8, 4, 8192, 512, 0, 4096, "bf16"),
     *[(f"danube W=4096 D={d} {dt}", 2, 32, 8, 8192, d, 0, 4096, dt)
       for d in NARROW_DIMS for dt in ("bf16", "fp32")],
@@ -104,6 +119,10 @@ UNPACKED = [
     ("group 16", 1, 64, 4, 2048, 64, 4, 2048, 0, "bf16"),
     ("N_q=250", 1, 64, 8, 250, 64, 4, 128, 0, "bf16"),
     ("gemma W=4096 D=256", 1, 8, 4, 8192, 256, 0, 4096, 0, "bf16"),
+    ("gemma full D=256", 1, 8, 4, 8192, 256, 0, 8192, 0, "bf16"),
+    ("gemma W=1024 D=256", 1, 8, 4, 8192, 256, 0, 1024, 0, "bf16"),
+    ("gemma W=1024 4 sinks s_aux D=256", 1, 8, 4, 8192, 256, 4, 1024, 0,
+     "bf16"),
     ("gemma W=4096 D=512", 1, 8, 4, 8192, 512, 0, 4096, 0, "bf16"),
     *[(f"danube W=4096 D={d} {dt}", 1, 32, 8, 8192, d, 0, 4096, 0, dt)
       for d in NARROW_DIMS for dt in ("bf16", "fp32")],
@@ -145,6 +164,8 @@ PACKED = [
      2),
     ("packed N=1000", 1, 8, 2, 64, 4, 128, [333, 2, 665], 0),
     ("packed gemma 2 x 4096 D=256", 1, 8, 4, 256, 0, 4096, [4096, 4096], 0),
+    ("packed gemma 2 x 4096 W=1024 D=256", 1, 8, 4, 256, 0, 1024,
+     [4096, 4096], 0),
     ("packed gemma 2 x 4096 D=512", 1, 8, 4, 512, 0, 4096, [4096, 4096], 0),
     *[(f"packed danube 2 x 4096 D={d}", 1, 32, 8, d, 0, 4096, [4096, 4096],
        0) for d in (80, 96)],
@@ -199,7 +220,8 @@ def worker(kernels, packs) -> dict:
 
     from sink_attention_tpu_torch.cache import SinkKVCache
     from sink_attention_tpu_torch.ops import _build, decode, flash, packed
-    from sink_attention_tpu_torch.ops.reference import sink_window_mask
+    from sink_attention_tpu_torch.ops.reference import (
+        packed_sink_window_mask, sink_window_mask)
     from sink_attention_tpu_torch.utils import (H100_HBM_BW, H100_PEAK_BF16,
                                                 H100_PEAK_FP32,
                                                 H100_PEAK_INT8,
@@ -222,12 +244,12 @@ def worker(kernels, packs) -> dict:
                                         "device_ms": device_ms(fn)}
 
     def yardstick(label, work, pairs, sdpa):
-        """The narrow-instance rows' bounds (``work``: kernel -> (FLOPs a
+        """A measured row's bounds (``work``: kernel -> (FLOPs a
         visible pair at the bf16 rate, bytes at 3.35 TB/s); the larger
         time) and SDPA's time over the same mask (``library_ms``)."""
         rows = {k: out[f"{label} {k}"] for k in work
                 if f"{label} {k}" in out}
-        if not rows or not label.startswith(NARROW_LABELS):
+        if not rows or not measured(label):
             return
         lib = time_cuda(sdpa, iters=5)
         for k, r in rows.items():
@@ -258,13 +280,15 @@ def worker(kernels, packs) -> dict:
         k, v = (mk(B, H_kv, N + halo, D, dt=dt),
                 mk(B, H_kv, N + halo, D, dt=dt))
         geom = (ns, W, 0, -halo)
-        o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
+        aux = (torch.randn(H_q, generator=gen, device=dev)
+               if "s_aux" in label else None)
+        o, lse = flash.flash_fwd_kernel(q, k, v, aux, *geom)
         delta = (do.float() * o.float()).sum(-1)
         args = (q, k, v, do, lse, delta, *geom)
         timed(label, {"flash_dq_kernel": lambda: flash.flash_dq_kernel(*args),
                       "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(
                           *args)})
-        if label.startswith(NARROW_LABELS) and halo == 0:
+        if measured(label) and halo == 0:
             # the bounds (dQ 6 D FLOPs a visible pair, dK/dV 8 D; or the
             # bytes each reads and writes once) beside SDPA's whole
             # backward over the same mask
@@ -301,6 +325,30 @@ def worker(kernels, packs) -> dict:
                 q, k, v, positions, aux, ns, W),
             "packed_dq_kernel": lambda: packed.packed_dq_kernel(*args),
             "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(*args)})
+        if measured(label):
+            # the bounds over the pack's own mask (4 D, 6 D, 8 D FLOPs a
+            # visible pair; or the bytes) beside SDPA's forward and whole
+            # backward over that mask
+            mask = packed_sink_window_mask(positions, ns, W)[:, None]
+            pairs = H_q * int(mask.sum())
+            q_bytes = q.element_size() * B * H_q * N * D
+            kv_bytes = q.element_size() * B * H_kv * N * D
+            rows_bytes, pos_bytes = 4 * B * H_q * N, 4 * B * N
+            yardstick(label, {"packed_fwd_kernel": (
+                4 * D, 2 * q_bytes + 2 * kv_bytes + rows_bytes + pos_bytes)},
+                pairs, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True))
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            sd = torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)
+            yardstick(label, {
+                "packed_dq_kernel": (6 * D, 3 * q_bytes + 2 * kv_bytes
+                                     + 2 * rows_bytes + pos_bytes),
+                "packed_dkdv_kernel": (8 * D, 2 * q_bytes + 4 * kv_bytes
+                                       + 2 * rows_bytes + pos_bytes)},
+                pairs, lambda: torch.autograd.grad(sd, leaves, do,
+                                                   retain_graph=True))
+            del sd, leaves, mask
     for label, B, H_q, H_kv, D, ns, W, n, appends, st in DECODE:
         if "decode_kernel" not in kernels:
             break
@@ -529,14 +577,18 @@ def main(argv=None) -> int:
     # instruction
     sass = [{src: sass_functions(lib) for src, lib in runs[i][1]["libs"]
              .items()} for i in (0, 1)]
-    n_same = n_both = 0
+    n_both, sass_differ = 0, []
     for src, funcs in sass[0].items():
         for name, body in funcs.items():
             if name in sass[1].get(src, {}):
                 n_both += 1
-                n_same += sass[1][src][name] == body
+                if sass[1][src][name] != body:
+                    sass_differ.append(f"{src} {name}")
+    n_same = n_both - len(sass_differ)
     print(f"sass: {n_same} of {n_both} instances both checkouts build are "
           f"the same instructions")
+    for name in sass_differ:
+        print(f"sass differs: {name}")
     for src, entry, got, mine in differ:
         print(f"ptxas differs: {src} {entry}: {got} -> {mine}")
     runs = [(name, r["times"]) for name, r in runs]
@@ -571,7 +623,7 @@ def main(argv=None) -> int:
     Path(args.out).write_text(json.dumps(
         {"card": card, "other": str(other), "passes": runs,
          "mean": table, "ptxas": builds, "ptxas_same": same,
-         "sass_same": [n_same, n_both],
+         "sass_same": [n_same, n_both], "sass_differ": sass_differ,
          "ptxas_differ": [list(d) for d in differ]}, indent=1))
     return 0
 

@@ -187,6 +187,15 @@ BWD_CASES = [
     (1, 8, 2, 250, 300, 128, 4, 128, True, 50, 0),     # N_q = 250 chunk
     (1, 8, 1, 2048, 2048, 64, 4, 128, True, 0, 0),     # long sink item
     (1, 4, 4, 300, 556, 64, 0, 128, True, 0, -256),    # halo, group 1
+    # the 256 instance: 64-key dK/dV items whose tile products the two
+    # consumers split (P^T handed over in shared memory); a window of 32
+    # makes every diagonal tile partial; D = 200 zero-fills columns 200-255
+    (1, 16, 1, 1000, 1000, 256, 4, 256, True, 0, 0),   # group 16, D=256
+    (1, 8, 2, 250, 300, 256, 4, 128, True, 50, 0),     # N_q = 250 chunk
+    (1, 4, 4, 300, 556, 256, 0, 128, True, 0, -256),   # halo, group 1
+    (1, 8, 1, 2048, 2048, 256, 4, 128, True, 0, 0),    # long sink item
+    (1, 4, 2, 512, 512, 256, 0, 32, True, 0, 0),       # window 32
+    (1, 8, 2, 500, 500, 200, 4, 128, True, 0, 0),      # D = 200
     # the 512 instance: 64-row dQ items, two passes of 32-row dK/dV tiles
     (1, 16, 1, 1000, 1000, 512, 4, 256, True, 0, 0),   # group 16, D=512
     (1, 8, 2, 250, 300, 512, 4, 128, True, 50, 0),     # N_q = 250 chunk
@@ -266,13 +275,19 @@ PACKED_CASES = [
     (1, 64, 8, 1024, 64, 0, 1024, True, 0, (700, 324)),     # gpt-oss full layer
     (1, 8, 1, 1000, 128, 4, 128, True, 0, (2, 30, 32, 500, 436)),  # group 8
     (1, 16, 1, 250, 64, 70, 1, True, 0, (2, 32, 216)),      # group 16, W = 1
+    # the 256 instance (see BWD_CASES): group 16 at W = 1, a window of 32,
+    # a long sink item, D = 200
+    (1, 16, 1, 250, 256, 70, 1, True, 0, (2, 32, 216)),
+    (1, 4, 2, 512, 256, 0, 32, True, 0, (300, 212)),
+    (1, 8, 1, 2048, 256, 4, 128, True, 0, (1800, 248)),
+    (1, 8, 2, 1000, 200, 4, 128, True, 0, (2, 30, 32, 500, 436)),
 ] + [
     # the forward's 128-row items and 64-row consumer halves: a segment
     # start inside a half, one at an item boundary, a 1-token segment; the
-    # 64, 128 and 512 instances (the last's items are the 64-row halves),
-    # with and without s_aux
+    # 64, 128, 256 and 512 instances (the last's items are the 64-row
+    # halves), with and without s_aux
     (1, 8, 2, 1024, d, 4, w, aux, 0, lengths)
-    for d in (64, 128, 512) for aux in (True, False)
+    for d in (64, 128, 256, 512) for aux in (True, False)
     for lengths, w in (((200, 824), 128), ((256, 768), 1024),
                        ((500, 1, 523), 128))
 ]
