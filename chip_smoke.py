@@ -743,8 +743,8 @@ def kernel_phase(dev):
             ([200, 824], 128, "a start inside a 64-row half"),
             ([256, 768], 1024, "a start at a 128-row item boundary"),
             ([500, 1, 523], 128, "a 1-token segment"))]
-    # phase 13's H2O-Danube-1.8B shapes: head_dim 80 in the forward's and
-    # dK/dV's narrow 80 instance (dQ's 128), bf16 and fp32 (read as bf16):
+    # phase 13's H2O-Danube-1.8B shapes: head_dim 80 in the forward's,
+    # dQ's and dK/dV's narrow 80 instance, bf16 and fp32 (read as bf16):
     # the serving prefill (2 x 8192 tokens,
     # W = 4096, no sinks), the training step's backward (1 x 8192), the
     # decode over a wrapped 4096-slot window in bf16, fp32 and int8
@@ -4751,11 +4751,11 @@ def xwide_phase(device, **kw):
 # the wgmma kernel instances each source must hold: one per instance head
 # dim (64, 128, 256, 512, and the wide instance of every D > 512) and
 # element types (bf16, fp16, fp32 read as bf16)
-# 3 dtypes x (D 64, 128, 256, 512, wide), and the forward and dK/dV also
-# x the narrow D 80 and 96
+# 3 dtypes x (D 64, 80, 96, 128, 256, 512, wide): the narrow 80 and 96
+# in every kernel but the ablation's
 WGMMA_INSTANCES = {"flash_fwd": {"fwd": 21},
-                   "flash_bwd": {"dq": 15, "dkdv": 21},
-                   "packed": {"fwd": 21, "dq": 15, "dkdv": 21},
+                   "flash_bwd": {"dq": 21, "dkdv": 21},
+                   "packed": {"fwd": 21, "dq": 21, "dkdv": 21},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
 # decode.cu's instances (storage, instance head dim, slices of a tile): 5
@@ -4791,9 +4791,9 @@ def coverage_pairs(name):
 
 def kernel_instances(name):
     """The instance head dims (as the libraries report them: 80 and 96 the
-    forward's and dK/dV's narrow instances, 513 the wide one) that the
-    kernels line's row ``name`` launched in this process; [] for a row
-    whose wrapper records none (the decode, the ablation)."""
+    narrow instances, 513 the wide one) that the kernels line's row
+    ``name`` launched in this process; [] for a row whose wrapper records
+    none (the decode, the ablation)."""
     from sink_attention_tpu_torch.ops import flash, packed
     wrapper = {
         "flash_fwd": flash.flash_fwd_kernel,

@@ -156,10 +156,10 @@ def kernel_head_dim(d: int) -> int:
     counts its 64-column depth boxes and its 512-column output slices at
     run time.
     Host tables keyed on a head dim (the forward's, dQ's and dK/dV's tiles)
-    key on D_i. (The forward and dK/dV compute d 65-96 in narrow instances
-    of 80 and 96 columns that walk the 128 instance's tiles, so their
-    tables key on 128 too: :func:`instance_of`.) Raises ValueError for
-    d < 1."""
+    key on D_i. (The forward, dQ and dK/dV compute d 65-96 in narrow
+    instances of 80 and 96 columns that walk the 128 instance's tiles, so
+    their tables key on 128 too: :func:`instance_of`.) Raises ValueError
+    for d < 1."""
     d = int(d)
     if d < 1:
         raise ValueError(f"head_dim {d} not supported by the CUDA kernels: "
@@ -221,8 +221,8 @@ def instance_of(source: str, entry: str, d: int) -> int:
     """The instance head dim that runs (padded) head dim ``d``, as the
     library of ``csrc/<source>.cu`` reports it through its ``entry``
     (``sink_fwd_instance``, ``sink_dq_instance``, ...): the kernels own the
-    rule (the forward and dK/dV run D 65-80 and 81-96 in their narrow 80
-    and 96 instances, dQ in its 128 one; 513 is the wide instance)."""
+    rule (the forward, dQ and dK/dV run D 65-80 and 81-96 in their narrow
+    80 and 96 instances; 513 is the wide instance)."""
     fn = getattr(load(source), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int]

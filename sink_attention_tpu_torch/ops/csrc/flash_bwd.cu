@@ -19,13 +19,13 @@
 // the host, so negative and chunked offsets are right, and both take
 // their work items longest first from a host order table. Coverage as the
 // forward's (flash_fwd.cu): any D % 8 == 0, D <= 512 in the instance D_i
-// = 64, 128, 256 or 512 (dK/dV also 80 and 96, the narrow instances of
-// hopper_bwd.cuh, for D 65-96; dQ runs those in 128; dQ at 32-key tiles
-// at 256, and at 512 in 64-row
-// items whose columns the consumers split; dK/dV at 64-key items whose
-// columns the two consumers split, at 512 in two passes over 32-row q
-// tiles), D > 512 in the wide instance (hopper_wide.cuh); bf16, fp16, and
-// fp32 read as bf16 with fp32 gradients.
+// = 64, 80, 96, 128, 256 or 512 (both kernels run D 65-80 and 81-96 in
+// the narrow 80 and 96 instances on the 128 instance's tiles; dQ at
+// 32-key tiles at 256, and at 512 in 64-row items whose columns the
+// consumers split; dK/dV at 64-key items whose columns the two consumers
+// split, at 512 in two passes over 32-row q tiles), D > 512 in the wide
+// instance (hopper_wide.cuh); bf16, fp16, and fp32 read as bf16 with fp32
+// gradients.
 
 #include "hopper_wide.cuh"
 
@@ -78,12 +78,12 @@ extern "C" int sink_dkdv_block_m() { return sinkattn::hopper::DKDV_BM; }
 extern "C" int sink_dkdv_block_n(int D) {
   return sinkattn::hopper::dkdv_bn_any(D);
 }
-// The instance head dims that run head dim D: dQ's (D 65-128 in the 128
-// instance) and dK/dV's (the narrow 80 and 96 for D 65-96); the wide
-// instance's 513 past 512; 0 for D % 8 != 0.
+// The instance head dims that run head dim D in dQ and in dK/dV (one
+// rule: the narrow 80 and 96 for D 65-96, the wide instance's 513 past
+// 512; 0 for D % 8 != 0).
 extern "C" int sink_dq_instance(int D) {
-  return sinkattn::hopper::dq_instance_any(D);
+  return sinkattn::hopper::attn_instance_any(D);
 }
 extern "C" int sink_dkdv_instance(int D) {
-  return sinkattn::hopper::fwd_dkdv_instance_any(D);
+  return sinkattn::hopper::attn_instance_any(D);
 }

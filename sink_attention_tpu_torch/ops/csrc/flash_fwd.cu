@@ -22,7 +22,7 @@
 // descriptors per call. Coverage: any head dim D with D % 8 == 0 (the
 // host pads any other D to the next multiple of 8): D <= 512 in the
 // instance of D_i = 64, 80, 96, 128, 256 or 512 (hopper.cuh's
-// fwd_dkdv_instance_d: the narrow 80 and 96 take D 65-80 and 81-96 on the
+// attn_instance_d: the narrow 80 and 96 take D 65-80 and 81-96 on the
 // 128 instance's tiles, computing 80 or 96 columns, not 128; exported as
 // sink_fwd_instance); the 256 instance walks 64-key tiles, the 512 instance
 // 32-key tiles in 64-row items whose O columns its consumers split
@@ -62,5 +62,5 @@ extern "C" int sink_fwd_block_n(int D) {
 // The instance head dim that runs head dim D (80 for 65-80, 96 for 81-96,
 // the wide instance's 513 past 512; 0 for D % 8 != 0).
 extern "C" int sink_fwd_instance(int D) {
-  return sinkattn::hopper::fwd_dkdv_instance_any(D);
+  return sinkattn::hopper::attn_instance_any(D);
 }

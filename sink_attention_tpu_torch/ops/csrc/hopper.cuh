@@ -40,11 +40,11 @@
 //    and N_kv, and the columns past the tensors' head dim Dt where the
 //    instance's D is larger, so the products over those zero columns add
 //    nothing and only Dt columns are written. Which instance runs a Dt
-//    (Dt <= 512, Dt % 8 == 0) differs by kernel: the forward and dK/dV
-//    take the narrow instances of 80 (Dt 65-80) and 96 (81-96) columns
-//    and otherwise the one of 64, 128, 256 or 512 (fwd_dkdv_instance_d);
-//    dQ (hopper_dq.cuh) and the ablation's stages run 65-128 in the 128
-//    instance (instance_d);
+//    (Dt <= 512, Dt % 8 == 0) differs by kernel: the forward, dQ
+//    (hopper_dq.cuh) and dK/dV take the narrow instances of 80 (Dt
+//    65-80) and 96 (81-96) columns and otherwise the one of 64, 128, 256
+//    or 512 (attn_instance_d); the ablation's stages run 65-128 in the
+//    128 instance (instance_d);
 //  * the narrow instances keep the 128 instance's tile plan and shared
 //    memory (two boxes a row, box 1 zero-filled past Dt) but compute on
 //    D columns only: S = Q K^T takes D / 16 = 5 or 6 k-steps, not 8, and
@@ -486,10 +486,11 @@ struct IoF32 {
 // 2 fp32 (inputs rounded to bf16 by the host, fp32 outputs).
 enum DtypeCode { kDtypeBf16 = 0, kDtypeF16 = 1, kDtypeF32 = 2 };
 
-// The instance head dim D_i of a head dim D in dQ and the ablation: the
-// smallest of 64, 128, 256 and 512 that holds it; 0 (refused) for D > 512
-// or D % 8 != 0 (TMA takes a row stride of whole 16 bytes: the host pads
-// such a D).
+// The instance head dim D_i of a head dim D in the ablation, and the key
+// of the host's tile tables (a narrow instance walks the 128 instance's
+// tiles): the smallest of 64, 128, 256 and 512 that holds it; 0 (refused)
+// for D > 512 or D % 8 != 0 (TMA takes a row stride of whole 16 bytes:
+// the host pads such a D).
 __host__ __device__ constexpr int instance_d(int D) {
   return (D <= 0 || D % 8 != 0) ? 0
          : D <= 64              ? 64
@@ -499,10 +500,11 @@ __host__ __device__ constexpr int instance_d(int D) {
                                 : 0;
 }
 
-// The instance head dim of D in the forward and dK/dV: as instance_d, but
-// D 65-80 runs in the narrow instance of 80 columns and 81-96 in that of
-// 96 (the 128 instance's tiles computed on fewer columns; see the header).
-__host__ __device__ constexpr int fwd_dkdv_instance_d(int D) {
+// The instance head dim of D in the forward, dQ and dK/dV: as
+// instance_d, but D 65-80 runs in the narrow instance of 80 columns and
+// 81-96 in that of 96 (the 128 instance's tiles computed on fewer
+// columns; see the header).
+__host__ __device__ constexpr int attn_instance_d(int D) {
   return instance_d(D) != 128 ? instance_d(D)
          : D <= 80            ? 80
          : D <= 96            ? 96
@@ -1215,7 +1217,7 @@ int launch_fwd_d(const void* q, const void* k, const void* v,
 }
 
 // The forward over a mask policy at head dim D (any D <= 512 with D % 8
-// == 0, run by the instance of fwd_dkdv_instance_d(D)) in the element
+// == 0, run by the instance of attn_instance_d(D)) in the element
 // types IO.
 template <class Mask, class Softmax = FwdSoftmax<>, class IO = IoBf16>
 int launch_fwd(const void* q, const void* k, const void* v,
@@ -1227,7 +1229,7 @@ int launch_fwd(const void* q, const void* k, const void* v,
   if (N_q <= 0 || B * H_q <= 0) return 0;
   if (N_kv <= 0 || H_kv <= 0 || H_q % H_kv != 0)
     return (int)cudaErrorInvalidValue;
-  const int di = fwd_dkdv_instance_d(D);
+  const int di = attn_instance_d(D);
   if (di == 64)
     return launch_fwd_d<64, 3, Mask, Softmax, IO>(
         q, k, v, s_aux, order, o, lse, B, H_q, H_kv, N_q, N_kv, D, scale,

@@ -63,7 +63,7 @@
 //    or as fp32 (IoF32) straight from the accumulators; the buffers are
 //    released to the producer after that;
 //  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
-//    fwd_dkdv_instance_d(D) (hopper.cuh): 80 for D 65-80, 96 for 81-96,
+//    attn_instance_d(D) (hopper.cuh): 80 for D 65-80, 96 for 81-96,
 //    else the smallest of 64, 128, 256 and 512 that holds it. TMA reads
 //    the columns past D of K, V, Q and dO as zeros, so the accumulators'
 //    columns past D are zeros, and only D columns are written (each key's
@@ -1013,7 +1013,7 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dK/dV over a mask policy at head dim D (fwd_dkdv_instance_d(D)) in the
+// dK/dV over a mask policy at head dim D (attn_instance_d(D)) in the
 // element types IO.
 template <class Mask, class IO>
 int launch_dkdv(const void* q, const void* k, const void* v,
@@ -1031,7 +1031,7 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     cudaMemsetAsync(dv, 0, bytes, st);
     return (int)cudaGetLastError();
   }
-  const int di = fwd_dkdv_instance_d(D);
+  const int di = attn_instance_d(D);
   if (di == 64)
     return launch_dkdv_d<64, 3, Mask, IO>(q, k, v, dout, lse, delta, order,
                                           dk, dv, B, H_q, H_kv, N_q, N_kv, D,

@@ -20,9 +20,9 @@
 //    = 64 and 128, so the next item's load overlaps this one's tail; one
 //    at D = 256, where a 128 x 256 Q and dO take 128 KB), then the q
 //    block's KV blocks from the host table (the sink range, then the
-//    window range), dq_bn(D) keys a tile (128 at D = 64, 64 at D = 128, 32
-//    at D = 256), into a ring of STAGES (K, V) stages with full and empty
-//    barriers;
+//    window range), dq_bn(D) keys a tile (128 at D = 64, 64 at D = 80, 96
+//    and 128, 32 at D = 256), into a ring of STAGES (K, V) stages with
+//    full and empty barriers;
 //    warp 1 writes, beside the Q/dO buffer, the item's 128 LSE values
 //    (times log2e; +inf past N_q), 128 delta values (0 past N_q), each
 //    row's visible key runs from the policy (row_span; none past N_q) and
@@ -53,10 +53,28 @@
 //    stores of whole rows, or as fp32 (IoF32) straight from the
 //    accumulators; the Q/dO buffer is released to the producer after that;
 //  * any head dim D <= 512 (D % 8 == 0) runs in the instance D_i =
-//    instance_d(D) (D 65-128 in the 128 one: dQ has no narrow 80 / 96
-//    instances, which the forward and dK/dV have): TMA reads the columns
-//    past D as zeros, and only D columns are written; bf16 or fp16 inputs
-//    (hopper.cuh's Io types).
+//    attn_instance_d(D) (hopper.cuh): 80 for D 65-80, 96 for 81-96, else
+//    the smallest of 64, 128, 256 and 512 that holds it. TMA reads the
+//    columns past D as zeros, and only D columns are written; bf16 or
+//    fp16 inputs (hopper.cuh's Io types).
+//    The narrow instances of 80 and 96 keep the 128 instance's plan and
+//    shared memory (64-key tiles, two Q/dO buffers and two K/V stages of
+//    two 64-column boxes a row, box 1 zero-filled past D: 192 KB, so the
+//    host tables key on 128) but compute on D_i columns: S = Q K^T and dP
+//    = dO V^T take D_i / 16 = 5 or 6 k-steps, not 8, and dQ += dS K (and
+//    for fp32 inputs its low term) is an m64n64k16 over box 0 beside an
+//    m64n16k16 or m64n32k16 over the first columns of box 1 (hopper.cuh's
+//    rs_mma): 6 D_i FLOPs a visible pair, not 6 x 128. A consumer holds dQ
+//    in 40 or 48 fp32 registers a thread, not 64, beside S and dP's 32
+//    each. On an H100 (scripts/kernel_compare.py) the Danube backward
+//    (B=1, 32/8, N=8192, W=4096, bf16) took 0.88 -> 0.76 ms at D = 80
+//    and 0.90 -> 0.83 at 96 against the 128 instance; fp32 -17% / -12%.
+//    The registers freed would hold a 128-key tile: a variant build of
+//    the narrow instances at 128 keys shows no spill and no serialised
+//    wgmma in bf16, fp16 or fp32 (ptxas). Its shared memory does not
+//    fit: a 128-key stage of two boxes is 32 KB a tensor, so two stages
+//    beside two Q/dO buffers take 256 KB, past the 227 KB a block has,
+//    and one of them would have to go; not tried.
 //    At D = 256 a consumer holds dQ in 128 fp32 registers a thread, S and
 //    dP of a 32-key tile in 16 each (m64n32) and dS in 8; dQ += dS K is
 //    two m64n128k16 products a 16-key step (hopper.cuh's rs_mma). Shared
@@ -94,14 +112,15 @@ namespace hopper {
 constexpr int DQ_BM = 128;  // query rows per q block, 64 per consumer
 constexpr int DQ_THREADS = 384;
 
-// Keys per KV tile of the instance of head dim D (64, 128, 256 or 512;
-// the host keys its tables on the instance, not the tensors' head dim):
+// Keys per KV tile of the instance of head dim D (64, 80, 96, 128, 256 or
+// 512; the host keys its tables on instance_d, not the tensors' head dim):
 // 128 at D = 64 (fewer, larger products: 17% faster on a full layer), 64
-// at D = 128 (the S, dP and dQ accumulators of a 128-key tile would not
-// fit beside the operands without spills), 32 at D = 256 (two stages of
-// K and V beside one Q/dO buffer) and 512 (one stage).
+// at D = 128 and the narrow 80 and 96 (the S, dP and dQ accumulators of a
+// 128-key tile would not fit beside the operands without spills), 32 at
+// D = 256 (two stages of K and V beside one Q/dO buffer) and 512 (one
+// stage).
 __host__ __device__ constexpr int dq_bn(int D) {
-  return D == 64 ? 128 : D == 128 ? 64 : 32;
+  return D == 64 ? 128 : D <= 128 ? 64 : 32;
 }
 // Q/dO buffers of the instance of head dim D: two, one at D >= 256.
 __host__ __device__ constexpr int dq_qbufs(int D) { return D >= 256 ? 1 : 2; }
@@ -139,9 +158,9 @@ __device__ __forceinline__ void with_row_chunks(int Dt, F&& f) {
 template <int D, int STAGES>
 struct DqSmem {
   static constexpr int QB = dq_qbufs(D);            // Q/dO buffers
-  static constexpr int BOXES = D / 64;              // 64-column boxes a row
-  static constexpr int QT_BYTES = dq_bm(D) * D * 2;  // one Q or dO tile
-  static constexpr int KV_BYTES = dq_bn(D) * D * 2;  // one K or V tile
+  static constexpr int BOXES = smem_d(D) / 64;       // 64-column boxes a row
+  static constexpr int QT_BYTES = dq_bm(D) * BOXES * 128;  // one Q or dO tile
+  static constexpr int KV_BYTES = dq_bn(D) * BOXES * 128;  // one K or V tile
   static constexpr int Q_OFF = 0;                   // QB Q tiles
   static constexpr int DO_OFF = Q_OFF + QB * QT_BYTES;   // QB dO tiles
   static constexpr int K_OFF = DO_OFF + QB * QT_BYTES;   // STAGES K tiles
@@ -583,8 +602,8 @@ int launch_dq_d(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dQ over a mask policy at head dim D (instance_d(D)) in the element types
-// IO.
+// dQ over a mask policy at head dim D (attn_instance_d(D)) in the element
+// types IO.
 template <class Mask, class IO>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* order, void* dq,
@@ -599,15 +618,24 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
                     st);
     return (int)cudaGetLastError();
   }
-  if (instance_d(D) == 64)
+  const int di = attn_instance_d(D);
+  if (di == 64)
     return launch_dq_d<64, 4, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
                                         B, H_q, H_kv, N_q, N_kv, D, scale,
                                         mask, st);
-  if (instance_d(D) == 128)
+  if (di == 80)
+    return launch_dq_d<80, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+                                        B, H_q, H_kv, N_q, N_kv, D, scale,
+                                        mask, st);
+  if (di == 96)
+    return launch_dq_d<96, 2, Mask, IO>(q, k, v, dout, lse, delta, order, dq,
+                                        B, H_q, H_kv, N_q, N_kv, D, scale,
+                                        mask, st);
+  if (di == 128)
     return launch_dq_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                          dq, B, H_q, H_kv, N_q, N_kv, D,
                                          scale, mask, st);
-  if (instance_d(D) == 256)
+  if (di == 256)
     return launch_dq_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
                                          dq, B, H_q, H_kv, N_q, N_kv, D,
                                          scale, mask, st);

@@ -1093,7 +1093,7 @@ int launch_dkdv_wide(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// Every head dim: the instances of D <= 512 (instance_d), and the wide one
+// Every head dim: the instances of D <= 512 (attn_instance_d) and the wide one
 // ---------------------------------------------------------------------------
 
 // The wide instance's element types of a dtype code (DtypeCode), f(IO()).
@@ -1199,17 +1199,14 @@ __host__ __device__ constexpr int dkdv_bn_any(int D) {
   return D >= WIDE_MIN_D ? WIDE_DKDV_BN : dkdv_bn(instance_d(D));
 }
 
-// The instance that runs head dim D (the C libraries export it per
-// kernel): in the forward and dK/dV fwd_dkdv_instance_d (the narrow 80 and
-// 96 among them), in dQ instance_d, and WIDE_MIN_D for every D past 512;
-// 0 for a D that no instance takes (D % 8 != 0: the host pads it).
-__host__ __device__ constexpr int fwd_dkdv_instance_any(int D) {
+// The instance that runs head dim D in the forward, dQ and dK/dV (the C
+// libraries export it per kernel): attn_instance_d (the narrow 80 and 96
+// among them), and WIDE_MIN_D for every D past 512; 0 for a D that no
+// instance takes (D % 8 != 0: the host pads it).
+__host__ __device__ constexpr int attn_instance_any(int D) {
   return D % 8 != 0        ? 0
          : D >= WIDE_MIN_D ? WIDE_MIN_D
-                           : fwd_dkdv_instance_d(D);
-}
-__host__ __device__ constexpr int dq_instance_any(int D) {
-  return D % 8 != 0 ? 0 : D >= WIDE_MIN_D ? WIDE_MIN_D : instance_d(D);
+                           : attn_instance_d(D);
 }
 
 }  // namespace hopper

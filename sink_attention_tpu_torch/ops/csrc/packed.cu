@@ -33,9 +33,9 @@
 // mask on partial tiles only and skip a consumer's dead tiles) and each
 // key one interval of rows [j, reach(j)) (dK/dV). Coverage as the
 // unpacked kernels' (flash_fwd.cu): any D % 8 == 0, D <= 512 in the
-// instance D_i = 64, 128, 256 or 512, and in the forward and dK/dV the
-// narrow 80 and 96 for D 65-96 (its own tiles: flash_fwd.cu,
-// flash_bwd.cu), D > 512 in the wide instance (hopper_wide.cuh); bf16,
+// instance D_i = 64, 128, 256 or 512, and the narrow 80 and 96 for D
+// 65-96 (on the 128 instance's tiles: flash_fwd.cu, flash_bwd.cu), D >
+// 512 in the wide instance (hopper_wide.cuh); bf16,
 // fp16, and fp32 read as bf16 with fp32 outputs (the entries' `dtype`,
 // hopper.cuh's DtypeCode).
 //
@@ -66,12 +66,11 @@
 namespace {
 
 using sinkattn::RowSpan;
+using sinkattn::hopper::attn_instance_any;
 using sinkattn::hopper::DKDV_BM;
 using sinkattn::hopper::DQ_BM;
 using sinkattn::hopper::dkdv_bn_any;
 using sinkattn::hopper::dq_bn_any;
-using sinkattn::hopper::dq_instance_any;
-using sinkattn::hopper::fwd_dkdv_instance_any;
 using sinkattn::hopper::fwd_bn_any;
 using sinkattn::hopper::FWD_BM;
 
@@ -176,6 +175,6 @@ extern "C" int sink_packed_dkdv_block_m() { return DKDV_BM; }
 extern "C" int sink_packed_dkdv_block_n(int D) { return dkdv_bn_any(D); }
 // The instance head dims that run head dim D (flash_fwd.cu's and
 // flash_bwd.cu's sink_*_instance).
-extern "C" int sink_pfwd_instance(int D) { return fwd_dkdv_instance_any(D); }
-extern "C" int sink_pdq_instance(int D) { return dq_instance_any(D); }
-extern "C" int sink_pdkdv_instance(int D) { return fwd_dkdv_instance_any(D); }
+extern "C" int sink_pfwd_instance(int D) { return attn_instance_any(D); }
+extern "C" int sink_pdq_instance(int D) { return attn_instance_any(D); }
+extern "C" int sink_pdkdv_instance(int D) { return attn_instance_any(D); }

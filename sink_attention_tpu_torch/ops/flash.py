@@ -13,10 +13,10 @@ version:
 The kernels take any head_dim and bf16, fp16 or fp32 inputs, as the JAX
 kernels take any head_dim and float type. A head_dim D <= 512 runs in the
 instance of D_i = 64, 128, 256 or 512 (``_build.kernel_head_dim``, the key
-of the host tables), except that the forward and dK/dV run D 65-80 and
-81-96 in narrow instances of 80 and 96 columns on the 128 instance's tiles
-(each library reports the instance it runs, ``_build.instance_of``; the
-wrappers' ``instances``); any D past 512 runs in the one wide instance
+of the host tables), except D 65-80 and 81-96, which run in narrow
+instances of 80 and 96 columns on the 128 instance's tiles (each library
+reports the instance it runs, ``_build.instance_of``; the wrappers'
+``instances``); any D past 512 runs in the one wide instance
 (``csrc/hopper_wide.cuh``: its depth and its 512-column output slices
 counted at run time; tables keyed ``_build.WIDE_INSTANCE``). The columns past D read as zeros and are not
 written, so no padded copy is made for D % 8 == 0; any other D (100: 3200

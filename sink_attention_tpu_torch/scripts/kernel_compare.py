@@ -15,9 +15,11 @@ backward shapes (the training layers at W=128 and W=4096, the headline,
 the halo chunk, GQA groups 1 and 16, N_q = 250); ``packed_fwd_kernel``,
 ``packed_dq_kernel`` and ``packed_dkdv_kernel`` on its packs (the phase-5
 mix at both W, the 64-3072 headline pack and the edge cases);
-the forward and dK/dV also at the shapes of their narrow instances
+the forward, dQ and dK/dV also at the shapes of their narrow instances
 (NARROW_DIMS: H2O-Danube-1.8B's at D = 72-96 in bf16 and fp32, Phi-3-mini's
-at D = 96, 72 and 88, a Danube pack at D = 80 and 96; dQ beside them);
+at D = 96, 72 and 88, a Danube pack at D = 80 and 96 and a Phi-3-mini pack
+at D = 96), and at Danube's D = 72 and 88 with the operands zero-padded
+by the caller to 80 and 96, the copies in and out included (PADDED);
 ``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
 and full layer mid-decode, the headline) and, past D = 128, over the
 Gemma-2-2B geometry's 4096 live slots at D = 256, 512 and 1024 in every
@@ -77,13 +79,15 @@ KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkdv_kernel",
            "packed_fwd_kernel", "packed_dq_kernel", "packed_dkdv_kernel",
            "decode_kernel")
 
-# The head dims of the forward's and dK/dV's narrow instances (80 and 96):
-# H2O-Danube-1.8B's prefill (B=2, 32/8, N=8192, W=4096, no sinks) and
-# training backward (B=1) at D = 72, 80, 88 and 96 in bf16 and fp32;
+# The head dims of the narrow instances (80 and 96) of the forward, dQ and
+# dK/dV: H2O-Danube-1.8B's prefill (B=2, 32/8, N=8192, W=4096, no sinks)
+# and training backward (B=1) at D = 72, 80, 88 and 96 in bf16 and fp32;
 # Phi-3-mini's attention (32/32, D=96, N=4096) full and at W=2048 with 4
 # sinks; D = 72 and 88 of that shape at N=2048
 NARROW_DIMS = (72, 80, 88, 96)
 NARROW_LABELS = ("danube", "phi3")
+# (head dim, the width the caller pads it to) of the padded Danube rows
+PADDED = ((72, 80), (88, 96))
 
 
 def measured(label: str) -> bool:
@@ -169,6 +173,8 @@ PACKED = [
     ("packed gemma 2 x 4096 D=512", 1, 8, 4, 512, 0, 4096, [4096, 4096], 0),
     *[(f"packed danube 2 x 4096 D={d}", 1, 32, 8, d, 0, 4096, [4096, 4096],
        0) for d in (80, 96)],
+    ("packed phi3 2 x 2048 W=2048 4 sinks D=96", 1, 32, 32, 96, 4, 2048,
+     [2048, 2048], 0),
 ]
 
 
@@ -186,11 +192,13 @@ def packed_cases():
     return cases
 
 
-def device_ms(fn, calls: int = 10, tries: int = 5) -> float:
+def device_ms(fn, calls: int = 10, tries: int = 5,
+              per_call: bool = False) -> float:
     """The device ms per kernel launch of ``fn`` from torch.profiler over
     ``calls`` back-to-back calls (the mean over the device events it kept:
     it has been seen to drop some of those of ctypes launches; a window
-    with none is profiled again, twice as long)."""
+    with none is profiled again, twice as long); with ``per_call``, the
+    device ms of all of a call's launches (their sum over the calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -207,7 +215,8 @@ def device_ms(fn, calls: int = 10, tries: int = 5) -> float:
                 if ev.device_type == torch.autograd.DeviceType.CUDA
                 and ev.self_device_time_total > 0]
         if kept:
-            return sum(us for us, _ in kept) / 1e3 / sum(n for _, n in kept)
+            n = (calls << t) if per_call else sum(n for _, n in kept)
+            return sum(us for us, _ in kept) / 1e3 / n
     raise RuntimeError("torch.profiler recorded no device event")
 
 
@@ -234,14 +243,15 @@ def worker(kernels, packs) -> dict:
         *s, generator=gen, device=dev).to(types[dt])
     out = {}
 
-    def timed(label, fns):
+    def timed(label, fns, per_call=False):
         for kernel, fn in fns.items():
             if kernel not in kernels:
                 continue
             fn()
             torch.cuda.synchronize()
-            out[f"{label} {kernel}"] = {"ms": time_cuda(fn, iters=20),
-                                        "device_ms": device_ms(fn)}
+            out[f"{label} {kernel}"] = {
+                "ms": time_cuda(fn, iters=20),
+                "device_ms": device_ms(fn, per_call=per_call)}
 
     def yardstick(label, work, pairs, sdpa):
         """A measured row's bounds (``work``: kernel -> (FLOPs a
@@ -308,6 +318,33 @@ def worker(kernels, packs) -> dict:
                 lambda: torch.autograd.grad(sd, leaves, do,
                                             retain_graph=True))
             del sd, leaves
+    for d, dp in PADDED:
+        # Danube's rows above at D = d, the operands zero-padded to dp by
+        # the caller and the outputs sliced back: every copy in the time
+        # (device_ms: all of a call's launches)
+        if not {"flash_fwd_kernel", "flash_dq_kernel",
+                "flash_dkdv_kernel"} & kernels:
+            break
+        pad = lambda t: torch.nn.functional.pad(t, (0, dp - d))
+        cut = lambda t: t[..., :d].contiguous()
+        label = f"padded danube W=4096 D={d} to {dp} bf16"
+        q, k, v = mk(2, 32, 8192, d), mk(2, 8, 8192, d), mk(2, 8, 8192, d)
+        aux = torch.randn(32, generator=gen, device=dev)
+        timed(label, {"flash_fwd_kernel": lambda: [
+            cut(t) if t.dim() == 4 else t for t in flash.flash_fwd_kernel(
+                pad(q), pad(k), pad(v), aux, 0, 4096)]}, per_call=True)
+        q, do = mk(1, 32, 8192, d), mk(1, 32, 8192, d)
+        k, v = mk(1, 8, 8192, d), mk(1, 8, 8192, d)
+        geom = (0, 4096, 0, 0)
+        o, lse = flash.flash_fwd_kernel(q, k, v, None, *geom)
+        delta = (do.float() * o.float()).sum(-1)
+        timed(label, {
+            "flash_dq_kernel": lambda: cut(flash.flash_dq_kernel(
+                pad(q), pad(k), pad(v), pad(do), lse, delta, *geom)),
+            "flash_dkdv_kernel": lambda: [cut(t) for t in
+                                          flash.flash_dkdv_kernel(
+                pad(q), pad(k), pad(v), pad(do), lse, delta, *geom)]},
+            per_call=True)
     for label, B, H_q, H_kv, D, ns, W, pos in packs:
         if not {"packed_fwd_kernel", "packed_dq_kernel",
                 "packed_dkdv_kernel"} & kernels:

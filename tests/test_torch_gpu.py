@@ -196,6 +196,9 @@ BWD_CASES = [
     (1, 8, 1, 2048, 2048, 256, 4, 128, True, 0, 0),    # long sink item
     (1, 4, 2, 512, 512, 256, 0, 32, True, 0, 0),       # window 32
     (1, 8, 2, 500, 500, 200, 4, 128, True, 0, 0),      # D = 200
+    # the narrow 80 instance (dQ's and dK/dV's): group 16, a chunk at a q
+    # offset, N_q = 250
+    (1, 16, 1, 250, 300, 80, 4, 128, True, 50, 0),
     # the 512 instance: 64-row dQ items, two passes of 32-row dK/dV tiles
     (1, 16, 1, 1000, 1000, 512, 4, 256, True, 0, 0),   # group 16, D=512
     (1, 8, 2, 250, 300, 512, 4, 128, True, 50, 0),     # N_q = 250 chunk
@@ -281,6 +284,8 @@ PACKED_CASES = [
     (1, 4, 2, 512, 256, 0, 32, True, 0, (300, 212)),
     (1, 8, 1, 2048, 256, 4, 128, True, 0, (1800, 248)),
     (1, 8, 2, 1000, 200, 4, 128, True, 0, (2, 30, 32, 500, 436)),
+    # the narrow 80 instance: group 16, a pack that starts at position 2
+    (1, 16, 1, 1000, 80, 4, 128, True, 2, (300, 30, 32, 500, 138)),
 ] + [
     # the forward's 128-row items and 64-row consumer halves: a segment
     # start inside a half, one at an item boundary, a 1-token segment; the
@@ -1226,7 +1231,7 @@ def test_packed_kernels_any_head_dim_and_dtype(cuda, d, dtype):
 
 
 @pytest.mark.parametrize("route", ["unpacked", "packed"])
-@pytest.mark.parametrize("d", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256, 512, 1024])
 def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
     """The fp32 dQ and dK/dV kernels, unpacked and packed, on the packed
     case's inputs (seed 12), where one bf16 rounding of a P or dS value
@@ -1266,14 +1271,15 @@ def test_fp32_gradients_carry_p_and_ds_at_16_bits(cuda, d, route):
             name, float(err.max()))
 
 
-# The forward's and dK/dV's narrow instances (80 and 96 columns on the 128
-# instance's tiles): D 72 and 88 with zero-filled columns, 80 and 96 whole.
+# The narrow instances of the forward, dQ and dK/dV (80 and 96 columns on
+# the 128 instance's tiles): D 72 and 88 with zero-filled columns, 80 and
+# 96 whole.
 NARROW_DIMS = (72, 80, 88, 96)
 NARROW_GEOMS = (  # (num_sink, window, s_aux)
     (4, 96, True),
     (0, 96, False),
     # a window of 32: the second consumer's 64 rows of a 128-row q block
-    # see no key of the block before (forward), and the first consumer's 64
+    # see no key of the block before (forward, dQ), and the first consumer's 64
     # keys of a 128-key item no query of its third q tile (dK/dV)
     (0, 32, True),
 )
@@ -1281,7 +1287,7 @@ NARROW_GEOMS = (  # (num_sink, window, s_aux)
 
 def _narrow_case(cuda, d, dtype, route, ns, W, use_aux):
     """(kernel outputs, plain outputs) of the forward and the backward at
-    (d, dtype) on one route, and each backward kernel's second run."""
+    (d, dtype) on one route, and the backward kernels' second runs."""
     from sink_attention_tpu_torch.ops import packed
     gen = torch.Generator(device=cuda).manual_seed(13)
     B, H_q, H_kv, N = 1, 8, 2, 320
@@ -1311,7 +1317,7 @@ def _narrow_case(cuda, d, dtype, route, ns, W, use_aux):
                       delta, *ext, matmul_dtype=mm)
     args = (q, k, v, do, lse, delta, *ext)
     got = (fwd_k(), dq_k(*args), *dkdv_k(*args))
-    again = dkdv_k(*args)
+    again = (dq_k(*args), *dkdv_k(*args))
     torch.cuda.synchronize()
     return got, (o, lse, *plain), again
 
@@ -1320,13 +1326,12 @@ def _narrow_case(cuda, d, dtype, route, ns, W, use_aux):
 @pytest.mark.parametrize("dtype", COVER_DTYPES)
 @pytest.mark.parametrize("d", NARROW_DIMS)
 def test_narrow_instances_match_plain(cuda, d, dtype, route):
-    """Rows 1, 3, 5 and 7 in the narrow instances (and dQ, rows 2 and 6, in
-    its 128 one) at D 72-96, bf16 / fp16 / fp32, unpacked and packed (a
-    pack of three segments), with and without sinks and s_aux and at a
-    window that leaves tiles dead for one consumer: O and LSE, dQ, dK and
-    dV against the plain versions at the kernels' precision, dK/dV
-    bitwise equal on a second run; the wrappers record the instance the
-    library reports."""
+    """Rows 1-3 and 5-7 in the narrow instances at D 72-96, bf16 / fp16 /
+    fp32, unpacked and packed (a pack of three segments), with and
+    without sinks and s_aux and at a window that leaves tiles dead for one
+    consumer: O and LSE, dQ, dK and dV against the plain versions at the
+    kernels' precision, dQ and dK/dV bitwise equal on a second run; the
+    wrappers record the instance the library reports."""
     from sink_attention_tpu_torch.ops import packed
     for ns, W, use_aux in NARROW_GEOMS:
         (o_l, dq, dk, dv), (o, lse, *plain), again = _narrow_case(
@@ -1340,41 +1345,37 @@ def test_narrow_instances_match_plain(cuda, d, dtype, route):
         for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), plain):
             assert got.dtype == dtype and got.shape == ref.shape, what
             _bwd_close(f"{name} {what}", got, ref, dtype)
-        assert torch.equal(dk, again[0]) and torch.equal(dv, again[1]), what
+        assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)), \
+            what
     want = 80 if d <= 80 else 96
     fns = ((packed.packed_fwd_kernel, packed.packed_dq_kernel,
             packed.packed_dkdv_kernel) if route == "packed" else
            (flash.flash_fwd_kernel, flash.flash_dq_kernel,
             flash.flash_dkdv_kernel))
-    assert [(d, want) in fns[0].instances, (d, 128) in fns[1].instances,
-            (d, want) in fns[2].instances] == [True] * 3
+    assert [(d, want) in f.instances for f in fns] == [True] * 3
 
 
 def test_libraries_report_each_kernels_instance(cuda):
-    """Each library's instance entries: the forward and dK/dV (unpacked
-    and packed) run D 65-80 in the 80 instance and 81-96 in the 96 one, dQ
-    runs 65-128 in its 128 one; every kernel D <= 64 in 64, 97-128 in 128,
-    129-256 in 256, 257-512 in 512, past 512 in the wide instance (513);
-    a D that is not a multiple of 8 in none (0: the host pads it)."""
+    """Each library's instance entries: the forward, dQ and dK/dV
+    (unpacked and packed) run D <= 64 in the 64 instance, 65-80 in the 80
+    one, 81-96 in the 96 one, 97-128 in 128, 129-256 in 256, 257-512 in
+    512, past 512 in the wide instance (513); a D that is not a multiple
+    of 8 in none (0: the host pads it)."""
     from sink_attention_tpu_torch.ops import _build
 
-    def rule(d, narrow):
+    def rule(d):
         if d % 8:
             return 0
-        for top, inst in ((64, 64), (80, 80), (96, 96), (128, 128),
-                          (256, 256), (512, 512)):
-            if d <= top and (narrow or inst not in (80, 96)):
-                return inst
-        return 513
-    entries = (("flash_fwd", "sink_fwd_instance", True),
-               ("flash_bwd", "sink_dq_instance", False),
-               ("flash_bwd", "sink_dkdv_instance", True),
-               ("packed", "sink_pfwd_instance", True),
-               ("packed", "sink_pdq_instance", False),
-               ("packed", "sink_pdkdv_instance", True))
-    for source, entry, narrow in entries:
+        return next((i for i in (64, 80, 96, 128, 256, 512) if d <= i), 513)
+    entries = (("flash_fwd", "sink_fwd_instance"),
+               ("flash_bwd", "sink_dq_instance"),
+               ("flash_bwd", "sink_dkdv_instance"),
+               ("packed", "sink_pfwd_instance"),
+               ("packed", "sink_pdq_instance"),
+               ("packed", "sink_pdkdv_instance"))
+    for source, entry in entries:
         got = [_build.instance_of(source, entry, d) for d in range(1, 1100)]
-        assert got == [rule(d, narrow) for d in range(1, 1100)], entry
+        assert got == [rule(d) for d in range(1, 1100)], entry
 
 
 # Decode: fp32 storage computes in fp32 (JAX's CPU fp32 tolerance, 1e-5 with
