@@ -29,8 +29,10 @@ Phases:
      and the device kernels one call issues (``kernels_per_call``: at most
      1 for every decode row); the
      decode also at MQA 32/1 and 64/1, over a full layer's cache early
-     in its life and, past head_dim 128, at B = 1 over a 32768-slot cache
-     (D = 256 and 1024); the backward kernels also run twice on
+     in its life and at B = 1 over a 32768-slot cache (D = 64 and 128,
+     D = 128 also in int8, D = 256 and 1024), each row with the plan it
+     launched (``decode_plan``: the short rows' instance or the deep one,
+     n_split and split_slots); the backward kernels also run twice on
      the same inputs and must agree bit for bit; the dQ and dK/dV rows,
      unpacked and packed, and the packed forward's also carry
      ``device_ms`` and their effective MFU; dQ and dK/dV also run at GQA
@@ -199,8 +201,10 @@ PACK_MIN, PACK_MAX = 64, 1536  # segment lengths of the packed training pack
 RAGGED_LENS = [1000, 77, 0, 610]  # the ragged decode rows' slots (0: empty)
 # the kernels rebuilt for Hopper after their first port, and how
 _HOPPER = "wgmma/TMA, warp-specialised, persistent"
-_DECODE = ("one launch: a cluster per (b, kv head) up to head_dim 128, the "
-           "live range split over the card past it")
+_DECODE = ("one launch: the live range split over the card, boxes of whole "
+           "rows up to head_dim 128 (one range: no merge), 512-byte row "
+           "chunks past it and in fp32; S once a tile, K read once, the "
+           "partials merged in the launch")
 # the header that holds each wgmma/TMA kernel's template (the source
 # instantiates it over its mask policy)
 TEMPLATE = {"flash_fwd": "hopper.cuh", "packed_fwd": "hopper.cuh",
@@ -355,6 +359,14 @@ def _decode_caches(dev, B, H_kv, D, ns, W, lengths, appends, gen, quant,
     return caches, lens
 
 
+def _plan_label(plan):
+    """A decode plan (decode.decode_plan) in a log line: its design (the
+    short rows' instance width, or deep), ranges a unit and their slots."""
+    return (f"{plan['design']}"
+            + (f" D_i={plan['instance']}" if plan["instance"] else "")
+            + f" n_split={plan['n_split']} split_slots={plan['split_slots']}")
+
+
 def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
                  quant=None, dtype=torch.bfloat16):
     """The decode kernel of one storage (``dtype``, or ``quant`` beside
@@ -406,8 +418,9 @@ def check_decode(dev, B, H_q, H_kv, D, ns, W, lengths, appends, gen,
         q, cache.k, cache.v, state, aux, **kw), 50)
     res["device_ms"], res["kernels_per_call"] = per_call_device(
         lambda: decode.decode_kernel(q, cache.k, cache.v, state, aux, **kw))
-    res["cluster"] = decode.cluster_size(state, cache.s_total,
-                                         cache.sink_cap, cache.window_size)
+    res["plan"] = decode.decode_plan(q, cache.k, state,
+                                     sink_cap=cache.sink_cap,
+                                     window_size=cache.window_size)
     res["plain_ms"] = time_cuda(lambda: decode.decode_plain(
         q, cache.k, cache.v, lens, aux, **kw), iters=10)
     kf, vf = (t.to(q.dtype) for t in cache.dequant_kv())
@@ -842,9 +855,14 @@ def kernel_phase(dev):
                      for d in xd]
     # the split decode at B = 1 over a long context: the Gemma-2-2B
     # geometry's 4 KV heads over a wrapped 32768-slot window (134 MB of bf16
-    # K/V at D = 256), at D = 256 and 1024
-    decode_long = [check_decode(dev, 1, 8, 4, d, 0, 32768, 32768, 16, gen)
-                   for d in (256, 1024)]
+    # K/V at D = 256), at D = 256 and 1024; a Llama-style D = 128 layer
+    # (32/8, 134 MB) and gpt-oss-20b's full layer (64/8, D = 64, 67 MB)
+    # over the same window, in the short rows' 128 and 64 instances, and the
+    # D = 128 layer's cache in int8
+    decode_long = [check_decode(dev, 1, h_q, h_kv, d, 0, 32768, 32768, 16,
+                                gen)
+                   for h_q, h_kv, d in ((8, 4, 256), (8, 4, 1024),
+                                        (32, 8, 128), (64, 8, 64))]
     res = {"flash_fwd": flash_main, "decode": decode_main,
            "flash_fwd_headline": flash_head, "decode_headline": decode_head,
            "decode_more": decode_more, **quant_rows,
@@ -860,6 +878,8 @@ def kernel_phase(dev):
               for qn in ("int8", "fp8")},
            "flash_fwd_xwide": flash_xwide, "decode_xwide": decode_xwide,
            "decode_long": decode_long,
+           "decode_int8_long": [check_decode(dev, 1, 32, 8, 128, 0, 32768,
+                                             32768, 16, gen, "int8")],
            **{f"decode_{qn}_xwide": [check_decode(
                dev, 2, 8, 4, d, ns, w, n, 16, gen, qn)
                for d, ns, w, n in ((1024, 0, 4096, 8192),
@@ -916,7 +936,7 @@ def kernel_phase(dev):
                 + (f" device_ms={r['device_ms']:.4f} kernels_per_call="
                    f"{r['kernels_per_call']:g}" if "device_ms" in r else "")
                 + (f" mfu={r['mfu']:.4f}" if "mfu" in r else "")
-                + (f" cluster={r['cluster']}" if "cluster" in r else ""))
+                + (f" plan={_plan_label(r['plan'])}" if "plan" in r else ""))
     return res
 
 
@@ -4758,15 +4778,12 @@ WGMMA_INSTANCES = {"flash_fwd": {"fwd": 21},
                    "packed": {"fwd": 21, "dq": 21, "dkdv": 21},
                    # 11 stages x D 64 and 128 of the forward's template
                    "ablation": {"fwd": 22}}
-# decode.cu's instances (storage, instance head dim, slices of a tile): 5
-# storages x 2 head dims (64, 128) x 3 slice counts, and the 5 storages'
-# split decode (every D > 128; keyed (storage, 0, 1) below)
-DECODE_INSTANCES = 35
-# the bytes of spill stores each decode instance may show: those it showed
-# when the D = 256 instances came in (CUDA 12 ptxas for sm_90a), and 0 for
-# every other instance
-DECODE_SPILL_ALLOWANCE = {
-    ("Bf16", 64, 4): 8, ("Fp16", 64, 4): 8, ("Int8", 128, 4): 4}
+# decode.cu's instances (storage, instance head dim): the short rows' 5
+# storages (bf16, fp16, fp32, int8, fp8) x D_i 64, 80, 96, 128, and the 5
+# storages' deep instance past 128 (keyed (storage, 0) below)
+DECODE_INSTANCES = 25
+# the bytes of spill stores each decode instance may show: none
+DECODE_SPILL_ALLOWANCE = {}
 
 
 def coverage_pairs(name):
@@ -4827,12 +4844,12 @@ def spill_errors(report):
                 entry = line
             elif "spill" in line and entry and "decode_kernel" in entry:
                 seen["decode"] = seen.get("decode", 0) + 1
-                inst = re.search(r"decode_kernelINS_\d+(\w+?)ELi(\d+)ELi(\d+)E",
+                inst = re.search(r"short_decode_kernelINS_\d+(\w+?)ELi(\d+)E",
                                  entry)
-                wide = re.search(r"deep_decode_kernelINS_\d+(\w+?)EE", entry)
+                deep = re.search(r"deep_decode_kernelINS_\d+(\w+?)EE", entry)
                 spills = re.search(r"(\d+) bytes spill stores", line)
-                key = ((wide[1], 0, 1) if wide else
-                       inst and (inst[1], int(inst[2]), int(inst[3])))
+                key = ((deep[1], 0) if deep else
+                       inst and (inst[1], int(inst[2])))
                 if spills is None or key is None or int(spills[1]) > \
                         DECODE_SPILL_ALLOWANCE.get(key, 0):
                     errors.append(f"{name}.cu spills past its allowance "
@@ -5025,6 +5042,11 @@ def main() -> int:
         if "device_ms" in rows[0]:  # the redesigned kernels' own time
             kernels[-1].update(device_ms=mean("device_ms"),
                                kernels_per_call=mean("kernels_per_call"))
+        if "plan" in rows[0]:  # the decode's design of each row
+            kernels[-1]["designs"] = [
+                {"shape": r["shape"], **{k: r["plan"][k] for k in (
+                    "design", "instance", "n_split", "split_slots")}}
+                for r in rows]
         if name in REDESIGNED:
             kernels[-1]["redesigned"] = REDESIGNED[name]
         if name in TEMPLATE:

@@ -4,11 +4,13 @@ Counterpart of ``sink_attention_tpu/ops/decode.py``. The kernel is
 ``csrc/decode.cu`` (it replaces the TPU kernel ``_decode_kernel`` in its
 storage branches: bf16, fp16, fp32, and int8 and fp8 codes with per-token
 fp32 scales), one launch per call over the cache buffer, read in place.
-Up to head_dim 128 a thread block cluster per (sequence, KV head) splits
-the live 128-slot tiles and merges its partials in distributed shared
-memory. Past 128 the live range is split over enough CTAs to fill the card
-(:func:`split_plan`), each writing an fp32 partial to scratch that the
-unit's last CTA merges in the same launch. Beside it sits its plain
+At every head_dim the live range is split over enough CTAs to fill the
+card (:func:`split_plan`, in whole tiles of the library's
+``sink_decode_tile``); with one range (a 128-slot sliding ring) the CTA
+writes its rows itself, 2-8 ranges of the short rows below merge in a
+thread block cluster, and otherwise each CTA writes an fp32 partial to
+scratch that the unit's last CTA merges in the same launch. Beside it
+sits its plain
 PyTorch version, :func:`decode_plain`. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises.
 
@@ -19,11 +21,13 @@ not its rounding. An fp32 cache is attended in fp32 (JAX pins
 ``Precision.HIGHEST`` for a non-bf16 cache), an fp16 cache in fp16 with
 fp32 accumulation.
 
-Any head_dim runs (the kernel's instances are 64 and 128 wide, the
-columns past D zero-filled; past 128 one instance per storage whose depth
-is counted at run time streams 32-slot tiles of K, then of V, in 512-byte
-chunks of a row, through a ring of four, computing S once per tile). The
-cache rows are copied 16 bytes at a
+Any head_dim runs. Up to 128 every storage runs in instances of 64, 80,
+96 and 128 columns (the columns past D zero-filled) whose ring boxes hold
+32-128 whole rows (8-20 KB); past 128, one instance per storage whose
+depth is counted at run time, streaming 32-slot tiles of K, then of V, in
+512-byte chunks of a row; both compute S once per tile
+(:func:`decode_plan` says which runs a call). The cache rows are copied
+16 bytes at a
 time, so a D whose rows are not whole 16 bytes (D % 8 != 0 in bf16/fp16, D
 % 16 != 0 for int8/fp8 codes, D % 4 != 0 in fp32) reaches the kernel
 through a zero-padded copy of q and the whole cache buffer made per call
@@ -61,18 +65,18 @@ __all__ = ["sink_decode_attention", "sink_decode_attention_cached",
            "sink_decode_attention_ragged",
            "sink_decode_attention_cached_multi",
            "sink_decode_attention_ragged_multi", "decode_kernel",
-           "decode_plain", "cache_state", "cluster_size", "split_plan"]
+           "decode_plain", "cache_state", "decode_plan", "split_plan"]
 
 LANES = 128
-TILE = 128       # slots per kernel tile; must match csrc/decode.cu
-MAX_CLUSTER = 8  # CTAs per cluster at most; must match csrc/decode.cu
-# The split decode past head_dim 128 (csrc/decode.cu's DEEP_* constants,
-# which its launch checks the plan against):
-DEEP_TILE = 32          # slots per tile
+# The split decode's plan (csrc/decode.cu's DEEP_* constants, which its
+# launch checks the plan against; the tile, a range's unit, is the
+# library's, sink_decode_tile):
 DEEP_SLOTS = 512        # slots of one CTA's pass (a longer range: passes)
 DEEP_SPLITS = 512       # ranges of a unit at most
-DEEP_MIN_TILES = 2      # tiles of a range at least, where the range allows
-DEEP_CTAS_PER_SM = 2    # CTAs the split aims at, per SM of the card
+DEEP_TILE = 32          # the deep instance's tile (short rows': 32-128)
+DEEP_MIN_TILES = 2      # tiles of a range at least, where the range allows,
+MIN_TILE_BYTES = 16384  # ... unless a tile holds this many K bytes
+DEEP_CTAS_PER_SM = 2    # CTAs the split aims at, per SM of the card, at most
 
 
 def _round_up(a: int, b: int) -> int:
@@ -152,47 +156,41 @@ def decode_plain(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     return out.reshape(B, H_q, 1, D).to(q.dtype)
 
 
-# The storage branches' C entry points in csrc/decode.cu, by the cache's
-# quantization, else by its dtype: head_dim <= 128 (one signature); past
-# 128 the split decode's, ``sink_decode_deep_*`` (another).
+# The storage branches' C entry points in csrc/decode.cu (one signature),
+# by the cache's quantization, else by its dtype.
 _ENTRY = {torch.bfloat16: "sink_decode_bf16",
           torch.float16: "sink_decode_f16",
           torch.float32: "sink_decode_f32", "int8": "sink_decode_int8",
           "fp8": "sink_decode_fp8"}
 
 
-def _entry(branch, deep: bool) -> str:
-    name = _ENTRY[branch]
-    return name.replace("decode_", "decode_deep_") if deep else name
-
-
 @functools.lru_cache(maxsize=None)
-def _kernel_fn(branch, deep: bool = False):
-    lib = _build.load("decode")
-    if (lib.sink_decode_tile(), lib.sink_decode_max_cluster()) != (
-            TILE, MAX_CLUSTER):
-        raise RuntimeError("csrc/decode.cu and ops/decode.py disagree on "
-                           "TILE / MAX_CLUSTER")
-    fn = getattr(lib, _entry(branch, deep))
+def _kernel_fn(branch):
+    fn = getattr(_build.load("decode"), _ENTRY[branch])
     fn.restype = ctypes.c_int
-    # the split decode adds the workspace's two pointers and the plan's
-    # rows, n_split and split_slots in place of the cluster
-    fn.argtypes = ([ctypes.c_void_p] * (12 if deep else 10) +
-                   [ctypes.c_int] * (14 if deep else 12) +
+    # q, k, v, the scales, the state's three arrays, s_aux, out and the
+    # workspace's two pointers; the state's stride and ints, the shapes and
+    # the plan's rows, n_split and split_slots; the scale; the stream
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 +
                    [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 @functools.lru_cache(maxsize=None)
-def _deep_rows(elem_bytes: int, group: int, d: int) -> int:
-    """Query rows a CTA of the split decode takes (csrc/decode.cu's
-    ``sink_decode_deep_rows``: up to 16, halved until its shared memory
-    fits)."""
-    rows = _build.load("decode").sink_decode_deep_rows(elem_bytes, group, d)
+def _geometry(elem_bytes: int, group: int, d: int):
+    """(rows, tile, instance) of the kernel that runs head dim ``d`` in a
+    storage of ``elem_bytes`` bytes an element, as csrc/decode.cu reports
+    them: the query rows a CTA takes (``sink_decode_rows``: up to 16,
+    halved until its shared memory fits), the slots of a tile
+    (``sink_decode_tile``) and the instance (``sink_decode_instance``: the
+    short rows' 64, 80, 96 or 128, or 0 for the deep kernel)."""
+    lib = _build.load("decode")
+    rows = lib.sink_decode_rows(elem_bytes, group, d)
     if rows < 1:
         raise ValueError(f"head_dim {d}: one query row of the decode does "
                          "not fit a CTA's shared memory")
-    return rows
+    return (rows, lib.sink_decode_tile(elem_bytes, d),
+            lib.sink_decode_instance(elem_bytes, d))
 
 
 def _check_quantized_inputs(q, k_buf, v_buf, k_scale, v_scale, s_aux,
@@ -234,40 +232,38 @@ def _live_end(lens, s_total: int, sink_cap: int, window_size: int) -> int:
     return end
 
 
-def cluster_size(lens, s_total: int, sink_cap: int,
-                 window_size: int) -> int:
-    """CTAs per cluster of the decode kernel up to head_dim 128: the
-    smallest power of two that covers the live range's 128-slot tiles, at
-    most MAX_CLUSTER (the range as :func:`_live_end` bounds it)."""
-    c, n_tiles = 1, -(-_live_end(lens, s_total, sink_cap, window_size)
-                      // TILE)
-    while c < min(n_tiles, MAX_CLUSTER):
-        c *= 2
-    return c
-
-
 @functools.lru_cache(maxsize=4096)
 def split_plan(units: int, rows: int, elem_bytes: int, end: int,
-               n_sm: int):
-    """How the split decode (head_dim > 128) covers the live range
-    [0, ``end``) of a call with ``units`` = B * H_kv * ceil(group /
-    ``rows``) units of ``rows`` query rows over a storage of
-    ``elem_bytes`` bytes an element: ``(n_split, split_slots)``, n_split
-    CTAs a unit, each over split_slots slots (whole 32-slot tiles). About
-    DEEP_CTAS_PER_SM CTAs per SM of the ``n_sm``, no fewer than
-    DEEP_MIN_TILES tiles a range where the range allows, no more ranges
-    than balance the unit's merge (its last CTA reads n_split x rows x d
-    fp32) against one range's K/V bytes (2 x end / n_split x d x
-    ``elem_bytes``), and at most DEEP_SPLITS ranges; a range is one pass
-    of at most DEEP_SLOTS slots unless DEEP_SPLITS of them do not cover
-    the range."""
-    tiles = max(1, -(-end // DEEP_TILE))
-    least = -(-tiles // (DEEP_SLOTS // DEEP_TILE))  # ranges of one pass
-    want = min(-(-DEEP_CTAS_PER_SM * n_sm // units),
-               -(-tiles // DEEP_MIN_TILES),
+               n_sm: int, tile: int, row_bytes: int):
+    """How the split decode covers the live range [0, ``end``) of a call
+    with ``units`` = B * H_kv * ceil(group / ``rows``) units of ``rows``
+    query rows over a storage of ``elem_bytes`` bytes an element and rows
+    of ``row_bytes`` bytes, in whole tiles of ``tile`` slots (the library's
+    ``sink_decode_tile``: the deep instance's DEEP_TILE, or 32-128 whole
+    rows for the short ones): ``(n_split, split_slots)``, n_split CTAs a
+    unit, each over split_slots slots. Up to DEEP_CTAS_PER_SM CTAs per SM
+    of the ``n_sm`` (one wave of two CTAs an SM), no fewer than
+    DEEP_MIN_TILES tiles a range where the range allows (one, where a tile
+    holds MIN_TILE_BYTES of K or more),
+    no more ranges than balance the unit's merge (its last CTA reads
+    n_split x rows x d fp32) against one range's K/V bytes (2 x end /
+    n_split x d x ``elem_bytes``), and at most DEEP_SPLITS ranges. A range
+    of DEEP_TILE-slot tiles (the deep instance's, and fp32's short ones at
+    D 81-128) is one pass of at most DEEP_SLOTS slots unless DEEP_SPLITS of
+    them do not cover the range (the deep instance's passes re-read its
+    partial O); one of longer tiles (short rows, whose passes rescale O in
+    registers) takes any length. One
+    range (n_split = 1) writes the output without a merge, 2-8 merge in a
+    cluster (the short rows)."""
+    tiles = max(1, -(-end // tile))
+    least = (-(-tiles // (DEEP_SLOTS // tile)) if tile == DEEP_TILE
+             else 1)  # ranges of one pass
+    min_tiles = 1 if tile * row_bytes >= MIN_TILE_BYTES else DEEP_MIN_TILES
+    want = min(max(1, DEEP_CTAS_PER_SM * n_sm // units),
+               -(-tiles // min_tiles),
                max(1, math.isqrt(end * elem_bytes // (2 * rows))))
     per = -(-tiles // min(max(least, want), DEEP_SPLITS))  # tiles a range
-    return -(-tiles // per), per * DEEP_TILE
+    return -(-tiles // per), per * tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,22 +274,76 @@ def _sm_count(index: int) -> int:
 # The split decode's workspace, per (device, stream): fp32 scratch for the
 # partials (each launch writes what it reads) and the arrival counters,
 # zeroed once and left zero by every launch (a unit's last CTA resets its
-# own). Launches on one stream run in order, so they share it; a warmed
-# call allocates nothing.
+# own); with their sizes and pointers. Launches on one stream run in order,
+# so they share it; a warmed call allocates nothing, and a call of one range
+# needs none.
 _WORKSPACE: dict = {}
 
 
 def _workspace(device, stream: int, n_part: int, n_units: int):
+    """The pointers of the workspace of ``device``'s ``stream``, grown to
+    ``n_part`` floats and ``n_units`` counters where smaller."""
     key = (device.index, stream)
-    part, counters = _WORKSPACE.get(key, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                           device=device)
-    if counters is None or counters.numel() < n_units:
-        counters = torch.zeros(max(n_units, 1024), dtype=torch.int32,
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[2] < n_part or ws[3] < n_units:
+        part, counters = ws[:2] if ws is not None else (None, None)
+        if part is None or part.numel() < n_part:
+            part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
                                device=device)
-    _WORKSPACE[key] = part, counters
-    return part, counters
+        if counters is None or counters.numel() < n_units:
+            counters = torch.zeros(max(n_units, 1024), dtype=torch.int32,
+                                   device=device)
+        ws = (part, counters, part.numel(), counters.numel(),
+              part.data_ptr(), counters.data_ptr())
+        _WORKSPACE[key] = ws
+    return ws[4], ws[5]
+
+
+def _padded_dim(d: int, elem_bytes: int) -> int:
+    """The head dim the kernel runs ``d`` at: whole 16-byte cache rows and
+    q rows of whole float4s."""
+    return max(_build.padded_head_dim(d, elem_bytes),
+               _build.padded_head_dim(d, 4))
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(elem_bytes: int, batch: int, h_q: int, h_kv: int, d: int,
+          end: int, device_index: int):
+    """(rows, n_split, split_slots, n_part, n_units) of a call at (padded)
+    head dim ``d`` whose live range ends by ``end``: the library's rows and
+    tile (:func:`_geometry`), :func:`split_plan` on the card's SMs, and the
+    workspace its merge takes (floats, counters; 0, 0 where it takes none:
+    one short range)."""
+    group = h_q // h_kv
+    rows, tile, instance = _geometry(elem_bytes, group, d)
+    units = batch * h_kv * -(-group // rows)
+    n_split, split_slots = split_plan(units, rows, elem_bytes, end,
+                                      _sm_count(device_index), tile,
+                                      d * elem_bytes)
+    if n_split == 1 and instance:
+        return rows, n_split, split_slots, 0, 0
+    return rows, n_split, split_slots, units * n_split * rows * (d + 2), units
+
+
+def decode_plan(q, k_buf, lens, *, sink_cap: int, window_size: int) -> dict:
+    """What :func:`decode_kernel` launches for these arguments (CUDA
+    tensors, the cache of its storage): ``design`` ("short" for the
+    instances of 64-128 columns of whole-row boxes, with ``instance`` its
+    width; "deep" past 128, the instance whose depth is counted at run
+    time), the query ``rows`` a CTA takes, the ``tile`` of slots,
+    ``n_split`` ranges a unit of ``split_slots`` slots (1: no merge; 2-8 on
+    the short rows: one cluster)."""
+    B, H_q, _, D = q.shape
+    H_kv, s_total = k_buf.shape[1], k_buf.shape[2]
+    elem = k_buf.element_size()
+    d_pad = _padded_dim(D, elem)
+    rows, tile, instance = _geometry(elem, H_q // H_kv, d_pad)
+    _, n_split, split_slots, _, _ = _plan(
+        elem, B, H_q, H_kv, d_pad,
+        _live_end(lens, s_total, sink_cap, window_size), q.device.index)
+    return {"design": "short" if instance else "deep", "instance": instance,
+            "rows": rows, "tile": tile, "n_split": n_split,
+            "split_slots": split_slots}
 
 
 def _state_args(lens, batch: int, device):
@@ -325,8 +375,22 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     :func:`decode_plain`): ``sink_decode_bf16`` / ``_f16`` / ``_f32`` for
     bf16, fp16 or fp32 storage (q of the cache's dtype),
     ``sink_decode_int8`` / ``sink_decode_fp8`` for quantized storage (q
-    bf16); one kernel per call, any GQA group, any head_dim. Each
-    branch counts its launches: ``decode_kernel.launches`` (the
+    bf16); one kernel per call, any GQA group, any head_dim.
+
+    One design runs every call: the live range split over the card
+    (:func:`split_plan`), in the short-row instances of 64, 80, 96 and 128
+    columns up to head_dim 128 and in the deep instance past it
+    (:func:`decode_plan` says which, and how many ranges). One range
+    writes its rows; 2-8 ranges of short rows merge in a thread block
+    cluster; more merge through the per-stream workspace. It replaced the
+    cluster-per-(sequence, KV head) kernel up to head_dim 128. On the rows
+    of ``scripts/kernel_compare.py`` (NVIDIA H100 80GB HBM3, 700 W;
+    ``PERF.md`` section 6) it is faster at every row but the int8 / fp8
+    128-slot rings, which the cluster kernel ran 0.1-0.2 us faster (one
+    tile, where it kept S and P in registers); no call routes to it by its
+    live range: that gap does not pay for a second design.
+
+    Each branch counts its launches: ``decode_kernel.launches`` (the
     unquantized branch, any of its dtypes), ``.launches_int8`` and
     ``.launches_fp8``; ``.coverage`` the (head_dim, dtype) pairs run and
     ``.padded_copies`` the calls that padded D (see the module's
@@ -348,8 +412,8 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     if not q.is_cuda:
         raise ValueError("decode_kernel takes CUDA tensors on one device")
     ptrs, stride, ints = _state_args(lens, B, q.device)
-    d_pad = max(_build.padded_head_dim(D, k_buf.element_size()),
-                _build.padded_head_dim(D, 4))  # cache rows, q's float4s
+    elem = k_buf.element_size()
+    d_pad = _padded_dim(D, elem)
     qc = _build.aligned(_build.pad_head_dim(q, d_pad))
     kc, vc = (_build.aligned(_build.pad_head_dim(t, d_pad))
               for t in (k_buf, v_buf))
@@ -360,32 +424,19 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
            else None)
     out = torch.empty_like(qc)
     branch = quant or q.dtype
-    tensors = (qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-               *(t.data_ptr() if t is not None else None for t in scales),
-               *ptrs, aux.data_ptr() if aux is not None else None,
-               out.data_ptr())
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if d_pad <= 128:
-        code = _kernel_fn(branch)(
-            *tensors, stride, *ints, B, H_q, H_kv, s_total, d_pad, sink_cap,
-            window_size, cluster_size(lens, s_total, sink_cap, window_size),
-            1.0 / (D ** 0.5), stream)
-    else:  # the split decode, its plan and its workspace
-        G, elem = H_q // H_kv, k_buf.element_size()
-        rows = _deep_rows(elem, G, d_pad)
-        units = B * H_kv * -(-G // rows)
-        n_split, split_slots = split_plan(
-            units, rows, elem, _live_end(lens, s_total, sink_cap,
-                                         window_size),
-            _sm_count(q.device.index))
-        part, counters = _workspace(q.device, stream,
-                                    units * n_split * rows * (d_pad + 2),
-                                    units)
-        code = _kernel_fn(branch, True)(
-            *tensors, part.data_ptr(), counters.data_ptr(), stride, *ints, B,
-            H_q, H_kv, s_total, d_pad, sink_cap, window_size, rows, n_split,
-            split_slots, 1.0 / (D ** 0.5), stream)
-    _build.check(code, _entry(branch, d_pad > 128))
+    rows, n_split, split_slots, n_part, n_units = _plan(
+        elem, B, H_q, H_kv, d_pad,
+        _live_end(lens, s_total, sink_cap, window_size), q.device.index)
+    part, counters = (_workspace(q.device, stream, n_part, n_units)
+                      if n_units else (None, None))
+    code = _kernel_fn(branch)(
+        qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in scales), *ptrs,
+        aux.data_ptr() if aux is not None else None, out.data_ptr(), part,
+        counters, stride, *ints, B, H_q, H_kv, s_total, d_pad, sink_cap,
+        window_size, rows, n_split, split_slots, 1.0 / (D ** 0.5), stream)
+    _build.check(code, _ENTRY[branch])
     if quant == "int8":
         decode_kernel.launches_int8 += 1
     elif quant == "fp8":

@@ -20,8 +20,13 @@ the forward, dQ and dK/dV also at the shapes of their narrow instances
 at D = 96, 72 and 88, a Danube pack at D = 80 and 96 and a Phi-3-mini pack
 at D = 96), and at Danube's D = 72 and 88 with the operands zero-padded
 by the caller to 80 and 96, the copies in and out included (PADDED);
-``decode_kernel`` over phase 2's bf16 caches (gpt-oss-20b's sliding ring
-and full layer mid-decode, the headline) and, past D = 128, over the
+``decode_kernel`` over phase 2's caches (gpt-oss-20b's sliding ring and
+full layer mid-decode in bf16, int8 and fp8, the headline in bf16 and
+fp8), up to D = 128 over
+4096 live slots of H2O-Danube-1.8B (D = 80, 32/8: bf16, fp32, int8),
+Phi-3-mini (D = 96, 32/32) and GQA 8/4 at D = 64 and 128, and at B = 1
+over 32768 live slots (D = 64 at 64/8, D = 128 at 32/8), and, past D =
+128, over the
 Gemma-2-2B geometry's 4096 live slots at D = 256, 512 and 1024 in every
 storage (bf16, fp16, fp32, int8, fp8), at D = 640 and 2048 over 1028 live
 slots (bf16, int8, fp8) and at B = 1 over a 32768-slot bf16 cache (D =
@@ -32,7 +37,8 @@ of phase 15's (D = 512). The decode rows also carry SDPA's time over the same
 (dequantized) cache with the live mask (``library_ms``, PyTorch's default
 backend) and the least time the card could take (``bound_ms``: the live
 K/V bytes at 3.35 TB/s, or the products at the peak rate of their type if
-more); so do the narrow instances' and the D = 256 Gemma rows (the
+more; the table prints each checkout's share of it, bound over device
+time); so do the narrow instances' and the D = 256 Gemma rows (the
 forward's, dQ's, dK/dV's and the packs': SDPA's forward or whole backward
 over the same mask; 4 D, 6 D or 8 D FLOPs a visible pair). The shapes run
 in four passes,
@@ -55,8 +61,8 @@ CUDA it exits nonzero.
     python3 -m sink_attention_tpu_torch.scripts.kernel_compare OTHER_TREE
         --host [--out build/kernel_compare_host.json]
 
-times only the decode wrapper's ``ms`` per call at the decode rows up to
-D = 128 (gpt-oss-20b's, where a call is bound by its host work), both
+times only the decode wrapper's ``ms`` per call at the bf16 decode rows
+up to D = 128 (gpt-oss-20b's, where a call is bound by its host work), both
 checkouts' packages in one process (the other's under another name), in
 turns (this, other, other, this, ...; HOST_ROUNDS rounds of HOST_CALLS
 back-to-back calls each): the mean, the least and the spread of each.
@@ -142,6 +148,18 @@ DECODE = [
     ("decode W=128", 4, 64, 8, 64, 0, 128, 1024, 16, "bf16"),
     ("decode W=1056", 4, 64, 8, 64, 0, 1056, 1024, 16, "bf16"),
     ("decode headline D=128", 1, 32, 8, 128, 4, 4096, 8192, 1, "bf16"),
+    ("decode headline D=128 fp8", 1, 32, 8, 128, 4, 4096, 8192, 1, "fp8"),
+    *[(f"decode W={w} {st}", 4, 64, 8, 64, 0, w, 1024, n, st)
+      for st in ("int8", "fp8") for w, n in ((128, 16), (1056, 31))],
+    *[("decode danube D=80" + ("" if st == "bf16" else f" {st}"), 2, 32, 8,
+       80, 0, 4096, 8192, 16, st) for st in ("bf16", "fp32", "int8")],
+    ("decode phi3 D=96", 2, 32, 32, 96, 0, 4096, 8192, 16, "bf16"),
+    *[(f"decode 8/4 D={d}", 2, 8, 4, d, 0, 4096, 8192, 16, "bf16")
+      for d in (64, 128)],
+    ("decode B=1 32768 slots D=64", 1, 64, 8, 64, 0, 32768, 32768, 16,
+     "bf16"),
+    ("decode B=1 32768 slots D=128", 1, 32, 8, 128, 0, 32768, 32768, 16,
+     "bf16"),
     *[(f"decode gemma D={d}" + ("" if st == "bf16" else f" {st}"), 2, 8, 4,
        d, 0, 4096, 8192, 16, st)
       for d in (256, 512, 1024)
@@ -436,7 +454,7 @@ HOST_CALLS = 200   # back-to-back calls a round
 
 def host_interleaved(other: Path) -> dict:
     """{label: {"this": [ms per call a round], "other": [...]}} of each
-    checkout's ``decode_kernel`` at the DECODE rows up to D = 128, the
+    checkout's ``decode_kernel`` at the bf16 DECODE rows up to D = 128, the
     other checkout's package imported beside this one under another name,
     the two timed in turns on the same inputs."""
     import importlib
@@ -461,7 +479,7 @@ def host_interleaved(other: Path) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     out = {}
     for label, B, H_q, H_kv, D, ns, W, n, appends, st in DECODE:
-        if D > 128:
+        if D > 128 or st != "bf16":
             continue
         mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(
             torch.bfloat16)
@@ -631,7 +649,8 @@ def main(argv=None) -> int:
     runs = [(name, r["times"]) for name, r in runs]
     print(f"{'shape, kernel':52s} {'other ms':>10s} {'this ms':>10s} "
           f"{'ratio':>7s} {'other dev':>10s} {'this dev':>10s} "
-          f"{'dev ratio':>9s} {'spread':>7s} {'library':>8s} {'bound':>8s}")
+          f"{'dev ratio':>9s} {'spread':>7s} {'library':>8s} {'bound':>8s} "
+          f"{'share':>6s} {'share':>6s}")
     table = {}
     for label in runs[0][1]:
         mean = {name: {key: sum(r[label][key] for n, r in runs if n == name)
@@ -647,7 +666,12 @@ def main(argv=None) -> int:
         if "library_ms" in runs[1][1][label]:
             for key in ("library_ms", "bound_ms"):
                 mean[key] = sum(r[label][key] for _, r in runs) / len(runs)
-            extra = f" {mean['library_ms']:8.4f} {mean['bound_ms']:8.4f}"
+            # the share of the bound each checkout's device time reaches
+            mean["share"] = {name: mean["bound_ms"] / mean[name]["device_ms"]
+                             for name in ("other", "this")}
+            extra = (f" {mean['library_ms']:8.4f} {mean['bound_ms']:8.4f}"
+                     f" {mean['share']['other']:6.3f} "
+                     f"{mean['share']['this']:6.3f}")
         table[label] = mean
         print(f"{label:52s} {mean['other']['ms']:10.4f} "
               f"{mean['this']['ms']:10.4f} "

@@ -107,6 +107,12 @@ QUANT_CASES = [
     ("fp8", 1, 17, 1, 1024, 0, 2048, 1500, 2),
     ("int8", 2, 36, 2, 1024, 4, 1024, [1100, 300], 1),
     ("int8", 1, 4, 1, 256, 4, 270000, 270100, 3),
+    # the short-row instances over a wrapped 4096-slot window: Danube's D =
+    # 80 (256-slot boxes of 80-byte code rows) and D = 128 (128 x 128 B)
+    ("int8", 2, 32, 8, 80, 0, 4096, 8192, 16),
+    ("fp8", 2, 32, 8, 80, 0, 4096, 8192, 16),
+    ("int8", 1, 32, 8, 128, 4, 4096, 8192, 4),
+    ("fp8", 1, 32, 8, 128, 4, 4096, 8192, 4),
 ]
 QUANT_BUDGET = {"int8": 0.05, "fp8": 0.12}  # vs unquantized KV (JAX tests)
 
@@ -464,25 +470,42 @@ def test_forward_kernel_matches_plain_with_backward(cuda, cfg):
 
 
 DECODE_CASES = [
-    # (B, H_q, H_kv, D, num_sink, window, prefill_len, appends): up to D =
-    # 128 the live range sets the cluster size (decode.cluster_size)
-    (2, 8, 8, 64, 0, 1024, 100, 1),      # G = 1, 1 tile: cluster 1
-    (2, 64, 8, 128, 0, 1024, 200, 2),    # G = 8, 2 tiles: cluster 2
-    (2, 64, 8, 128, 4, 1024, 250, 2),    # 3 tiles: cluster 4, a rank idle
-    (2, 32, 2, 64, 4, 1024, 300, 3),     # G = 16, 4 tiles: cluster 4
-    (2, 32, 1, 128, 0, 1024, 1000, 2),   # G = 32 (MQA), 8 tiles: cluster 8
-    (1, 64, 1, 64, 0, 2048, 1900, 1),    # G = 64 (MQA), 15 tiles on 8
+    # (B, H_q, H_kv, D, num_sink, window, prefill_len, appends[, dtype]):
+    # every row runs the split decode (decode.decode_plan). Up to D = 128 the
+    # short-row instances (D_i = 64, 80, 96, 128; whole-row boxes of 64-128
+    # slots in bf16, 32-64 in fp32); one range writes its rows without a
+    # merge, 2-8 merge in a cluster, more through the workspace
+    (2, 8, 8, 64, 0, 1024, 100, 1),      # G = 1, one range of 128 slots
+    (2, 64, 8, 128, 0, 1024, 200, 2),    # G = 8, 64-slot tiles
+    (2, 64, 8, 128, 4, 1024, 250, 2),    # sinks, a range past hwm
+    (2, 32, 2, 64, 4, 1024, 300, 3),     # G = 16
+    (2, 32, 1, 128, 0, 1024, 1000, 2),   # G = 32 (MQA): two 16-row pieces
+    (1, 64, 1, 64, 0, 2048, 1900, 1),    # G = 64 (MQA): four pieces
     (1, 64, 1, 128, 4, 128, 300, 0),     # G = 64, wrapped ring
-    (2, 128, 1, 64, 0, 256, 200, 1),     # G = 128: two 64-row pieces
-    # past D = 128, the split decode (16-row pieces, ranges of 32-slot
+    (2, 128, 1, 64, 0, 256, 200, 1),     # G = 128: eight pieces
+    (4, 64, 8, 64, 0, 128, 1024, 16),    # gpt-oss-20b's ring: one range
+    (4, 64, 8, 64, 0, 1056, 1024, 16),   # its full layer: a cluster of 5
+    (64, 8, 8, 64, 0, 2048, 2100, 1),    # 512 units: one range, 4 passes
+    # H2O-Danube-1.8B (D = 80, 32/8) and D = 96 over a wrapped 4096-slot
+    # window: the 80 and 96 instances (16 ranges of 256 / 128 slots), in
+    # bf16 and in fp32 (64- / 32-slot boxes of 320 / 384-byte rows)
+    (2, 32, 8, 80, 0, 4096, 8192, 16),
+    (2, 32, 8, 80, 0, 4096, 8192, 16, torch.float32),
+    (2, 32, 8, 96, 0, 4096, 8192, 3),
+    (2, 32, 8, 96, 0, 4096, 8192, 3, torch.float32),
+    # B = 1 over a wrapped 32768-slot window: 64 and 128 instances, ranges
+    # of one pass of 512 slots
+    (1, 64, 8, 64, 0, 32768, 32768, 16),
+    (1, 32, 8, 128, 0, 32768, 32768, 16),
+    # past D = 128, the deep instance (16-row pieces, ranges of 32-slot
     # tiles, the partials merged by each unit's last CTA)
     (2, 32, 2, 512, 4, 1024, 300, 3),    # G = 16: one piece
     (1, 40, 2, 512, 0, 2048, 1900, 1),   # G = 20: two pieces
     (2, 32, 2, 1024, 4, 1024, 300, 3),   # G = 16, two column chunks
     (1, 40, 2, 640, 0, 2048, 1900, 1),   # G = 20, a part column chunk
     # B = 1 over a wrapped 8320-slot cache (52 ranges of 160 slots per (b,
-    # kv head), far past one cluster's 8), MQA 8/1 (Gemma-1-2B's group), G
-    # = 64 (four 16-row pieces), a short cache (one range), D = 2048
+    # kv head)), MQA 8/1 (Gemma-1-2B's group), G = 64 (four 16-row
+    # pieces), a short cache (one range), D = 2048
     (1, 8, 4, 256, 4, 8192, 9000, 2),
     (1, 8, 4, 1024, 4, 8192, 9000, 2),
     (2, 8, 1, 256, 0, 2048, 3000, 1),
@@ -496,40 +519,113 @@ DECODE_CASES = [
     (1, 18, 1, 1024, 0, 2048, 1500, 2),
     # past 512 ranges of 512 slots: ranges walked in passes of 512
     (1, 2, 1, 256, 4, 270000, 270100, 3),
+    (1, 2, 1, 64, 4, 270000, 270100, 3),
 ]
 
 
 @pytest.mark.parametrize("case", DECODE_CASES)
 def test_decode_kernel_any_group_and_cluster(cuda, case):
-    """The one-launch decode against decode_plain for GQA groups 1-128:
-    cluster sizes 1-8 up to D = 128, split ranges past it (a long B = 1
-    cache, MQA, four row pieces, one range), one launch per call."""
-    B, H_q, H_kv, D, ns, W, n, steps = case
+    """The one-launch decode against decode_plain for GQA groups 1-128,
+    bf16 (2e-2) and fp32 (DECODE_TOL): the short-row instances up to D =
+    128 (one range, a cluster, a long B = 1 cache, MQA, row pieces), the
+    deep instance past it, one launch per call."""
+    B, H_q, H_kv, D, ns, W, n, steps = case[:8]
+    dtype = case[8] if len(case) > 8 else torch.bfloat16
     gen = torch.Generator(device=cuda).manual_seed(7)
+    mk = lambda *s: _randn(gen, *s).to(dtype)
     cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
-                             device=cuda)
-    cache.prefill(_randn(gen, B, H_kv, n, D), _randn(gen, B, H_kv, n, D))
+                             dtype=dtype, device=cuda)
+    cache.prefill(mk(B, H_kv, n, D), mk(B, H_kv, n, D))
     for _ in range(steps):
-        cache.append(_randn(gen, B, H_kv, 1, D), _randn(gen, B, H_kv, 1, D))
+        cache.append(mk(B, H_kv, 1, D), mk(B, H_kv, 1, D))
     aux = torch.randn(H_q, generator=gen, device=cuda)
-    q = _randn(gen, B, H_q, 1, D)
+    q = mk(B, H_q, 1, D)
     before = decode.decode_kernel.launches
     o_k = decode.sink_decode_attention_cached(q, cache, aux)
     o_p = decode.decode_plain(q, cache.k, cache.v, decode.cache_state(cache),
                               aux, **decode.cache_args(cache))
     torch.cuda.synchronize()
     assert decode.decode_kernel.launches == before + 1
-    assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    plan = decode.decode_plan(q, cache.k, decode.cache_state(cache),
+                              sink_cap=cache.sink_cap,
+                              window_size=cache.window_size)
+    assert plan["design"] == ("short" if D <= 128 else "deep")
+    if dtype == torch.bfloat16:
+        assert float((o_k.float() - o_p.float()).abs().max()) <= 2e-2
+    else:
+        torch.testing.assert_close(o_k, o_p, atol=DECODE_TOL[dtype],
+                                   rtol=1e-3)
+
+
+# (bytes an element, head dim) -> (tile slots, instance): the short rows'
+# boxes hold the most whole rows of 64 or 128 (fp32: 32 too) that fit 23552
+# bytes at their padded strides; past 128 the deep instance's 32-slot tiles
+_GEOMETRY = {(2, 64): (128, 64), (2, 72): (128, 80), (2, 80): (128, 80),
+             (2, 96): (64, 96), (2, 128): (64, 128), (2, 256): (32, 0),
+             (1, 64): (128, 64), (1, 80): (128, 80), (1, 96): (128, 96),
+             (1, 128): (128, 128), (1, 1024): (32, 0), (4, 64): (64, 64),
+             (4, 80): (64, 80), (4, 96): (32, 96), (4, 128): (32, 128),
+             (4, 256): (32, 0)}
+
+
+def test_decode_library_geometry(cuda):
+    """The library's tiles and instances per (storage, head dim), which
+    the host's plan reads (decode._geometry); the rows a CTA takes: up to
+    16, all 16 for every storage at D <= 128."""
+    from sink_attention_tpu_torch.ops import _build
+    lib = _build.load("decode")
+    for (nb, d), (tile, inst) in _GEOMETRY.items():
+        assert lib.sink_decode_tile(nb, d) == tile, (nb, d)
+        assert lib.sink_decode_instance(nb, d) == inst, (nb, d)
+        if d <= 128:
+            assert lib.sink_decode_rows(nb, 64, d) == 16, (nb, d)
+    assert lib.sink_decode_rows(4, 17, 2048) == 8
+    assert lib.sink_decode_tile(3, 64) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_decode_kernel_one_range(cuda, D, dtype):
+    """A sliding ring of one tile (gpt-oss-20b's: B = 4, 64/8, W = 128 at
+    D = 64; the library's 64-slot tile at D = 128), wrapped: one range a
+    unit (n_split = 1), whose CTA writes its rows with no partial or merge;
+    with and without s_aux, and a ring with nothing live but s_aux
+    (zeros)."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    B, H_q, H_kv = 4, 64, 8
+    W = decode._geometry(2, H_q // H_kv, D)[1]  # one tile
+    tol = 2e-2 if dtype == torch.bfloat16 else DECODE_TOL[dtype]
+    cache = SinkKVCache.init(B, H_kv, D, num_sink=0, window_size=W,
+                             dtype=dtype, device=cuda)
+    q = _randn(gen, B, H_q, 1, D).to(dtype)
+    kw = decode.cache_args(cache)
+    empty = decode.sink_decode_attention_cached(
+        q, cache, torch.randn(H_q, generator=gen, device=cuda))
+    torch.cuda.synchronize()
+    assert not empty.any()
+    cache.prefill(_randn(gen, B, H_kv, 1000, D).to(dtype),
+                  _randn(gen, B, H_kv, 1000, D).to(dtype))
+    plan = decode.decode_plan(q, cache.k, decode.cache_state(cache),
+                              sink_cap=cache.sink_cap, window_size=W)
+    assert (plan["design"], plan["n_split"]) == ("short", 1)
+    for aux in (None, torch.randn(H_q, generator=gen, device=cuda)):
+        o_k = decode.sink_decode_attention_cached(q, cache, aux)
+        o_p = decode.decode_plain(q, cache.k, cache.v,
+                                  decode.cache_state(cache), aux, **kw)
+        torch.cuda.synchronize()
+        assert float((o_k.float() - o_p.float()).abs().max()) <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
-def test_decode_kernel_last_piece_of_one_row(cuda, dtype):
-    """G = 17 at D = 2048: fp32 takes 8-row pieces (16 would not fit a
-    CTA's shared memory), fp16 16-row ones; either way the last piece is
-    one row, merged in windows of 2048 columns. With and without s_aux,
-    against decode_plain at DECODE_TOL."""
+@pytest.mark.parametrize("D", [2048, 128])
+def test_decode_kernel_last_piece_of_one_row(cuda, dtype, D):
+    """G = 17: at D = 2048 fp32 takes 8-row pieces (16 would not fit a
+    CTA's shared memory), fp16 16-row ones, merged in windows of 2048
+    columns; at D = 128 both take 16-row pieces in the short 128 instance.
+    Either way the last piece is one row. With and without s_aux, against
+    decode_plain at DECODE_TOL."""
     gen = torch.Generator(device=cuda).manual_seed(9)
-    B, H_q, H_kv, D, ns, W = 1, 17, 1, 2048, 4, 1024
+    B, H_q, H_kv, ns, W = 1, 17, 1, 4, 1024
     cache = SinkKVCache.init(B, H_kv, D, num_sink=ns, window_size=W,
                              dtype=dtype, device=cuda)
     cache.prefill(_randn(gen, B, H_kv, 1100, D).to(dtype),
@@ -576,13 +672,14 @@ def test_decode_kernel_wrapped_ring_at_write_pos_zero(cuda, D):
                                            rtol=1e-3)
 
 
-@pytest.mark.parametrize("D", [128, 256, 1024])
+@pytest.mark.parametrize("D", [64, 128, 256, 1024])
 @pytest.mark.parametrize("quant", [None, "int8", "fp8"])
 def test_ragged_decode_mqa_empty_slot(cuda, quant, D):
     """The ragged decode reads the cache's [B] state tensors on the card:
     MQA 32/1, slots at different ring phases, one empty slot (zeros), with
-    and without s_aux (D > 128: the split decode, its ranges planned over
-    the whole buffer, most past a short slot's hwm)."""
+    and without s_aux (the split decode, its ranges planned over the whole
+    buffer, most past a short slot's hwm; D <= 128 the short-row
+    instances)."""
     gen = torch.Generator(device=cuda).manual_seed(9)
     B, H_q, H_kv, ns, W = 4, 32, 1, 4, 512
     lengths = [700, 0, 90, 515]

@@ -328,47 +328,92 @@ def test_decode_wrapper_takes_any_group():
     with pytest.raises(ValueError, match="different devices"):
         call(64, kv_device="meta")
     assert decode.decode_kernel.launches == 0
-    assert [decode.cluster_size((0, n, n), 2048, 0, 2048)
-            for n in (1, 128, 129, 300, 1000, 1100, 2048)] == [
-        1, 1, 2, 4, 8, 8, 8]
 
 
 def test_split_plan_covers_the_range_and_fills_the_card():
-    """The split decode's host plan (head_dim > 128): whole 32-slot tiles,
-    ranges covering the live range, about two CTAs per SM of the card at
-    small batch, fewer ranges where the unit's merge would outweigh one
-    range's K/V bytes; at most 512 ranges, each one pass of at most 512
-    slots unless 512 of those do not cover the range. Pure host
-    arithmetic: no card."""
+    """The split decode's host plan, at every head dim: whole tiles (the
+    library's, by row bytes: 32 slots for rows of 512 bytes and more, 32-128
+    whole rows for shorter ones), ranges covering the live range, up to two
+    CTAs per SM of the card (one wave), a range at least two tiles where the
+    range allows (one where a tile holds 16 KB of K or more), fewer ranges
+    where the unit's merge would outweigh one range's K/V bytes; at most
+    512 ranges; a range of 32-slot tiles one pass of at most 512 slots
+    unless 512 of those do not cover the range, one of longer tiles any
+    length. Pure host arithmetic: no card."""
     from sink_attention_tpu_torch.ops import decode
 
     plan = decode.split_plan
-    # (units, rows, element bytes, live end, SMs) -> (n_split, split_slots)
+    # (units, rows, element bytes, live end, SMs, tile, row bytes) ->
+    # (n_split, split_slots), worked by the rule: tiles = ceil(end /
+    # tile); least = ceil(tiles / (512 / tile)) for 32-slot tiles, else 1;
+    # min = 1 if tile x row bytes >= 16384 else 2; want = min(264 //
+    # units, ceil(tiles / min), isqrt(end * bytes // (2 rows))); per =
+    # ceil(tiles / min(max(least, want), 512)); (ceil(tiles / per), per *
+    # tile)
     expected = {
-        # Gemma-2-2B at B = 2 (8 (b, kv head) units of G = 2), 4096 slots
-        (8, 2, 2, 4096, 132): (32, 128),
+        # past D = 128 (32-slot tiles of 512-byte rows): Gemma-2-2B at B = 2
+        # (8 (b, kv head) units of G = 2), 4096 slots
+        (8, 2, 2, 4096, 132, 32, 512): (32, 128),
         # B = 1 over 32768 slots; MQA 8/1 over 8192 (the merge caps it)
-        (4, 2, 2, 32768, 132): (64, 512),
-        (1, 8, 2, 8192, 132): (32, 256),
+        (4, 2, 2, 32768, 132, 32, 512): (64, 512),
+        (1, 8, 2, 8192, 132, 32, 512): (32, 256),
         # fp32 at D = 2048, G = 17: three 8-row pieces a kv head
-        (3, 8, 4, 1024, 132): (16, 64),
-        (8, 2, 2, 20, 132): (1, 32),
-        (16, 16, 2, 4096, 132): (16, 256),
+        (3, 8, 4, 1024, 132, 32, 8192): (16, 64),
+        (8, 2, 2, 20, 132, 32, 512): (1, 32),
+        (16, 16, 2, 4096, 132, 32, 512): (16, 256),
         # 512 x 512 slots: 512 one-pass ranges; one slot more: longer
         # ranges, walked in passes
-        (1, 1, 2, 512 * 512, 132): (512, 512),
-        (1, 1, 2, 512 * 512 + 1, 132): (482, 544),
-        (1, 16, 2, 10 ** 6, 132): (505, 1984),
+        (1, 1, 2, 512 * 512, 132, 32, 512): (512, 512),
+        (1, 1, 2, 512 * 512 + 1, 132, 32, 512): (482, 544),
+        (1, 16, 2, 10 ** 6, 132, 32, 512): (505, 1984),
+        # up to D = 128. H2O-Danube-1.8B at B = 2 (32/8: 16 units of 4
+        # rows), 4096 slots: bf16 (160-byte rows, 128-slot tiles of 20 KB
+        # tiles): 32 tiles, want min(16, 32, 32) = 16: 16 ranges of 256;
+        # int8 (80-byte rows, 128-slot tiles of 10 KB): 32 tiles, want
+        # min(16, 16, 22) = 16; fp32 (320-byte rows, 64-slot tiles): 64
+        # tiles, want min(16, 64, 45) = 16
+        (16, 4, 2, 4096, 132, 128, 160): (16, 256),
+        (16, 4, 1, 4096, 132, 128, 80): (16, 256),
+        (16, 4, 4, 4096, 132, 64, 320): (16, 256),
+        # gpt-oss-20b (B = 4, 64/8: 32 units of 8 rows, 128-byte rows,
+        # 128-slot tiles of 16 KB): the W = 128 ring is one tile, one range
+        # (no merge); the full layer's 1040 live slots, 9 tiles, want
+        # min(8, 9, 11) = 8: 5 ranges of 2 tiles (one cluster). Its int8 /
+        # fp8 caches (64-byte rows, 128-slot tiles of 8 KB): the ring one
+        # range; 1055 live slots, 9 tiles, want min(8, 5, 8) = 5; the
+        # ragged pool's 2048-slot buffer, 16 tiles, want min(8, 8, 11) = 8
+        (32, 8, 2, 128, 132, 128, 128): (1, 128),
+        (32, 8, 2, 1040, 132, 128, 128): (5, 256),
+        (32, 8, 1, 128, 132, 128, 64): (1, 128),
+        (32, 8, 1, 1055, 132, 128, 64): (5, 256),
+        (32, 8, 1, 2048, 132, 128, 64): (8, 256),
+        # the headline D = 128 (B = 1, 32/8: 8 units of 4 rows, 256-byte
+        # rows, 64-slot tiles of 16 KB), 4100 live: 65 tiles, want min(33,
+        # 65, 32) = 32: 22 ranges of 3 tiles
+        (8, 4, 2, 4100, 132, 64, 256): (22, 192),
+        # B = 1 over 32768 slots, short rows (no one-pass bound): D = 128
+        # (32/8) 512 tiles, want min(33, 512, 90) = 33 -> 32 ranges of 16
+        # tiles; D = 64 (64/8, 8 rows, 128-slot tiles) 256 tiles, want
+        # min(33, 256, 64) = 33 -> 32 ranges of 8
+        (8, 4, 2, 32768, 132, 64, 256): (32, 1024),
+        (8, 8, 2, 32768, 132, 128, 128): (32, 1024),
+        # many units (B = 64 x 8 kv heads): one short range past 512
+        # slots, walked in passes
+        (512, 8, 2, 4096, 132, 128, 128): (1, 4096),
     }
     for args, want in expected.items():
         assert plan(*args) == want, args
-    for args in [(8, r, e, n, 132) for r in (1, 2, 16) for e in (1, 2, 4)
-                 for n in (1, 300, 4100, 65536, 3 * 10 ** 6)] + [
-                     (64, 16, 2, 2048, 8)]:
+    for args in [(8, r, e, n, 132, t, e * d) for r in (1, 2, 16)
+                 for e in (1, 2, 4) for n in (1, 300, 4100, 65536,
+                                              3 * 10 ** 6)
+                 for t in (32, 64, 128, 256) for d in (64, 128, 1024)] + [
+                     (64, 16, 2, 2048, 8, 32, 512)]:
         n_split, slots = plan(*args)
-        assert slots % 32 == 0 and 32 <= slots, args
+        tile = args[5]
+        assert slots % tile == 0 and tile <= slots, args
         assert 1 <= n_split <= 512, args
-        assert slots <= 512 or args[3] > 512 * 512, args
+        if tile == 32:  # deep: one pass a range unless 512 do not cover
+            assert slots <= 512 or args[3] > 512 * 512, args
         assert n_split * slots >= args[3] > (n_split - 1) * slots, args
 
 

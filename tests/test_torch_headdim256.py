@@ -308,20 +308,19 @@ def test_chip_smoke_gemma_phase_on_cpu():
 
 
 def _decode_ptxas(spills):
-    """ptxas lines of decode.cu's 35 instances (the split decode of a
-    storage keyed (storage, 0, 1)), ``spills`` {(storage, D, slices): bytes
-    of spill stores} and 0 for the others."""
+    """ptxas lines of decode.cu's 25 instances (the short rows' of a
+    storage keyed (storage, D_i), its deep one (storage, 0)), ``spills``
+    {key: bytes of spill stores} and 0 for the others."""
     names = {"Bf16": 4, "Fp16": 4, "Fp32": 4, "Int8": 4, "Fp8": 3}
     lines = []
     for st, n in names.items():
-        for d in (64, 128):
-            for sl in (1, 2, 4):
-                b = spills.get((st, d, sl), 0)
-                lines += [f"Compiling entry function '_ZN_decode_kernelINS_{n}"
-                          f"{st}ELi{d}ELi{sl}EEEvPKv' for 'sm_90a'",
-                          f"{b} bytes stack frame, {b} bytes spill stores, "
-                          f"{b} bytes spill loads"]
-        b = spills.get((st, 0, 1), 0)
+        for d in (64, 80, 96, 128):
+            b = spills.get((st, d), 0)
+            lines += [f"Compiling entry function '_ZN_short_decode_kernelINS_"
+                      f"{n}{st}ELi{d}EEEvPKv' for 'sm_90a'",
+                      f"{b} bytes stack frame, {b} bytes spill stores, "
+                      f"{b} bytes spill loads"]
+        b = spills.get((st, 0), 0)
         lines += [f"Compiling entry function '_ZN_deep_decode_kernelINS_{n}"
                   f"{st}EEEvPKv' for 'sm_90a'",
                   f"{b} bytes stack frame, {b} bytes spill stores, "
@@ -329,21 +328,21 @@ def _decode_ptxas(spills):
     return {"decode": {"ptxas": lines, "cached": False}}
 
 
-def test_spill_check_holds_decode_to_its_allowance():
+def test_spill_check_holds_decode_to_its_allowance(monkeypatch):
     """chip_smoke's spill check takes the decode instances' recorded
-    spills, and refuses a spill past one, a spill in an instance with no
-    allowance, and a build that lacks an instance."""
-    allowed = chip_smoke.DECODE_SPILL_ALLOWANCE
+    spills (none recorded), and refuses a spill past one, a spill in an
+    instance with no allowance (a short-row instance, the deep one), and a
+    build that lacks an instance."""
+    allowed = dict(chip_smoke.DECODE_SPILL_ALLOWANCE)
     assert chip_smoke.spill_errors(_decode_ptxas(allowed)) == []
-    worse = dict(allowed)
-    worse[("Int8", 128, 4)] = allowed[("Int8", 128, 4)] + 4
+    monkeypatch.setitem(chip_smoke.DECODE_SPILL_ALLOWANCE, ("Int8", 128), 4)
+    assert chip_smoke.spill_errors(_decode_ptxas({("Int8", 128): 4})) == []
+    worse = {("Int8", 128): 8}
     assert len(chip_smoke.spill_errors(_decode_ptxas(worse))) == 1
-    new = dict(allowed)
-    new[("Bf16", 128, 1)] = 4
+    new = {("Int8", 128): 4, ("Bf16", 80): 4}
     assert len(chip_smoke.spill_errors(_decode_ptxas(new))) == 1
-    wide = dict(allowed)
-    wide[("Fp32", 0, 1)] = 4  # the split decode has no allowance
-    assert len(chip_smoke.spill_errors(_decode_ptxas(wide))) == 1
+    deep = {("Int8", 128): 4, ("Fp32", 0): 4}  # the deep decode: none
+    assert len(chip_smoke.spill_errors(_decode_ptxas(deep))) == 1
     short = _decode_ptxas(allowed)
     short["decode"]["ptxas"] = short["decode"]["ptxas"][:-2]
     assert len(chip_smoke.spill_errors(short)) == 1
