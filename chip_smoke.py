@@ -511,6 +511,7 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
             r["timed_N"] = time_n
     n = x[0].shape[2]
     n_kv = n + halo
+    rows["flash_dkdv"]["pieces"] = dkdv_pieces(flash, n, n_kv, geom, D)
     rows["flash_dq"]["ms"] = time_cuda(
         lambda: flash.flash_dq_kernel(*x, *geom), iters=10)
     rows["flash_dkdv"]["ms"] = time_cuda(
@@ -558,6 +559,15 @@ def check_bwd(dev, B, H_q, H_kv, N, D, ns, W, gen, time_n=None, halo=0,
         r["mfu"] = pairs * work[name][0] / H100_PEAK_BF16 * 1e3 / r[
             "device_ms"]
     return rows
+
+
+def dkdv_pieces(flash, n_q, n_kv, geom, D):
+    """The pieces of the dK/dV kernel's work at a shape (its piece table's
+    count; a split key block counts each of its pieces)."""
+    from sink_attention_tpu_torch.ops import _build
+    bn = flash.DKDV_BNS[_build.kernel_head_dim(_build.padded_head_dim(D))]
+    return int(flash.dkdv_piece_table(n_q, n_kv, *geom, flash.DKDV_BM,
+                                      bn)[0, 0])
 
 
 def packed_pairs(positions, num_sink, window):
@@ -631,6 +641,8 @@ def check_packed(dev, B, H_q, H_kv, D, ns, W, lens, gen, first=0,
                            for g in got))}
     del o_p, l_p, dq, dk, dv, ref, dq2, dk2, dv2
 
+    rows["packed_dkdv"]["pieces"] = int(packed.packed_tables(
+        positions, ns, W, D).kv_pieces[0, 0])
     rows["packed_fwd"]["ms"] = time_cuda(
         lambda: packed.packed_fwd_kernel(q, k, v, positions, aux, *geom),
         iters=10)
@@ -851,6 +863,16 @@ def kernel_phase(dev):
     decode_xwide = [check_decode(dev, 2, 8, 4, 1024, 0, 4096, 8192, 16, gen,
                                  dtype=dt)
                     for dt in (torch.bfloat16, torch.float32)]
+    # dK/dV's sink key blocks cut into pieces over the card, where sink
+    # tokens sit beside a short window: the library's defaults (4 sinks, W
+    # = 512) at the headline geometry (timed at N = 8192), gpt-oss-20b's
+    # sliding layer with 4 sinks, and Gemma 3's local layer (W = 1024) on
+    # a pack of 6144 + 2048 with 4 sinks and s_aux
+    bwd_split = [check_bwd(dev, 1, 32, 8, 4096, 128, 4, 512, gen,
+                           time_n=8192),
+                 check_bwd(dev, 1, 64, 8, 4096, 64, 4, 128, gen)]
+    packed_split = [check_packed(dev, 1, 8, 4, 256, 4, 1024, [6144, 2048],
+                                 gen, label="6144 + 2048")]
     decode_xwide += [check_decode(dev, 2, 8, 4, d, 4, 1024, 2048, 16, gen)
                      for d in xd]
     # the split decode at B = 1 over a long context: the Gemma-2-2B
@@ -892,6 +914,9 @@ def kernel_phase(dev):
         res[name + "_chunk"] = bwd_chunk[name]
     for name in ("flash_dq", "flash_dkdv"):
         res[name + "_more"] = [r[name] for r in bwd_more]
+        res[name + "_split"] = [r[name] for r in bwd_split]
+    for name in ("packed_dq", "packed_dkdv"):
+        res[name + "_split"] = [r[name] for r in packed_split]
     res["flash_fwd_narrow"] = flash_narrow
     for name in ("flash_dq", "flash_dkdv", "flash_bwd"):
         res[name + "_narrow"] = [r[name] for r in bwd_narrow]
@@ -912,7 +937,8 @@ def kernel_phase(dev):
     for key, rows in res.items():
         name = key
         for suffix in ("_headline", "_chunk", "_edge", "_more", "_danube",
-                       "_narrow", "_gemma", "_xwide", "_wide", "_long"):
+                       "_narrow", "_gemma", "_xwide", "_wide", "_long",
+                       "_split"):
             name = name.replace(suffix, "")
         for r in rows if isinstance(rows, list) else [rows]:
             log(f"kernel {name} [{r['shape']}"
@@ -936,6 +962,7 @@ def kernel_phase(dev):
                 + (f" device_ms={r['device_ms']:.4f} kernels_per_call="
                    f"{r['kernels_per_call']:g}" if "device_ms" in r else "")
                 + (f" mfu={r['mfu']:.4f}" if "mfu" in r else "")
+                + (f" pieces={r['pieces']}" if "pieces" in r else "")
                 + (f" plan={_plan_label(r['plan'])}" if "plan" in r else ""))
     return res
 
@@ -986,6 +1013,12 @@ def sync_check(dev):
             *bwd, positions, 0, 128),
         "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(
             *bwd, positions, 0, 128),
+        # 4 sinks: the sink key blocks cut into pieces (unpacked: a warmed
+        # call; packed: fresh positions, so each call builds its tables)
+        "flash_dkdv_kernel (4 sinks, split)": lambda: (
+            flash.flash_dkdv_kernel(*bwd, 4, 128)),
+        "packed_dkdv_kernel (4 sinks, split, fresh positions)": lambda: (
+            packed.packed_dkdv_kernel(*bwd, positions.clone(), 4, 128)),
         "sink_decode_attention_cached (D=1024)": lambda: (
             decode.sink_decode_attention_cached(wq1, wcaches[None])),
         "sink_flash_attention (D=1024)": lambda: flash.sink_flash_attention(
@@ -5261,6 +5294,15 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                     "device_ms") if k in r} for r in rows]
     for row in kernels:
+        if row["name"] in ("flash_dkdv", "packed_dkdv"):
+            # every phase-2 row's pieces (a split sink key block counts
+            # each of its pieces)
+            row["pieces"] = [
+                {"shape": r["shape"], "pieces": r["pieces"]}
+                for key, v in kern.items()
+                if key == row["name"] or key.startswith(row["name"] + "_")
+                for r in (v if isinstance(v, list) else [v])
+                if "pieces" in r]
         rows = kern.get(f"{row['name']}_narrow")
         if rows:  # phase 2's rows of the narrow instances (Phi-3-mini's)
             row["narrow"] = [{k: r[k] for k in (

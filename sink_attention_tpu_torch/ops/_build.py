@@ -167,6 +167,34 @@ def kernel_head_dim(d: int) -> int:
     return next((i for i in KERNEL_INSTANCES if d <= i), WIDE_INSTANCE)
 
 
+# The split kernels' workspace (the split decode's, dK/dV's split key
+# blocks'), per (device, stream): fp32 scratch for the partials (each launch
+# writes what it reads) and the arrival counters, zeroed once and left zero
+# by every launch (a unit's last piece resets its own); with their sizes
+# and pointers. Launches on one stream run in order, so they share it; a
+# warmed call allocates nothing.
+_WORKSPACE: dict = {}
+
+
+def workspace(device, stream: int, n_part: int, n_units: int):
+    """The pointers of the workspace of ``device``'s ``stream``, grown to
+    ``n_part`` floats and ``n_units`` counters where smaller."""
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[2] < n_part or ws[3] < n_units:
+        part, counters = ws[:2] if ws is not None else (None, None)
+        if part is None or part.numel() < n_part:
+            part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                               device=device)
+        if counters is None or counters.numel() < n_units:
+            counters = torch.zeros(max(n_units, 1024), dtype=torch.int32,
+                                   device=device)
+        ws = (part, counters, part.numel(), counters.numel(),
+              part.data_ptr(), counters.data_ptr())
+        _WORKSPACE[key] = ws
+    return ws[4], ws[5]
+
+
 def padded_head_dim(d: int, elem_bytes: int = 2) -> int:
     """``d`` rounded up to whole 16-byte rows of ``elem_bytes`` elements:
     TMA's global strides and the decode kernel's cp.async rows are

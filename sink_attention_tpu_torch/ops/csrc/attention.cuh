@@ -118,9 +118,9 @@ struct RowSpan {
 // Mask policy of the unpacked kernels: query row `row` is at global position
 // q_offset + row, key slot jl at kv_offset + jl, and
 //     valid(i, j) = 0 <= j <= i  AND  (j < num_sink  OR  j >= i - window + 1)
-// Tables (host-built, ops/flash.py): forward/dQ [n_q_blocks, 4] =
-// (sink_b0, sink_b1, win_b0, win_b1); dK/dV [n_kv_blocks, 2] = (qb0, qb1),
-// one table for every batch row.
+// Table (host-built, ops/flash.py) of the forward and dQ: [n_q_blocks, 4]
+// = (sink_b0, sink_b1, win_b0, win_b1), one for every batch row (dK/dV
+// walks the host's piece table, hopper_bwd.cuh's DkdvItem).
 // ---------------------------------------------------------------------------
 struct SinkWindowMask {
   static constexpr bool kBatchTables = false;  // one table for every b
@@ -128,7 +128,6 @@ struct SinkWindowMask {
   int N_q, N_kv, num_sink, window, q_offset, kv_offset;
 
   __device__ const int* q_block(int, int qb) const { return table + qb * 4; }
-  __device__ const int* kv_block(int, int kb) const { return table + kb * 2; }
   // Key slot jl's visible local query rows [lo, lo + n): from its global
   // position on (causal), to N_q for a sink, else to the last row whose
   // window reaches it; none before the sequence start or past N_kv.

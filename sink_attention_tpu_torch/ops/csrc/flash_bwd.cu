@@ -49,23 +49,25 @@ extern "C" int sink_dq(const void* q, const void* k, const void* v,
                                            N_kv, D, scale, mask, stream);
 }
 
-// As sink_dq; qranges [ceil(N_kv/bn), 2] int32 (the range of 64-row q
-// blocks that read each key block of bn = sink_dkdv_block_n(D) keys),
-// order [ceil(N_kv/bn)] int32 (the key blocks, longest range first); dk,
-// dv like k (fp32 for dtype 2).
+// As sink_dq; pieces [1 + max_pieces, 8] int32 (ops/flash.py
+// dkdv_pieces: each key block of bn = sink_dkdv_block_n(D) keys cut into
+// pieces of consecutive 64-row q blocks, longest first; row 0 the count),
+// part and counters the stream's workspace (fp32 partials of the split
+// blocks, int32 counters at zero); dk, dv like k (fp32 for dtype 2).
 extern "C" int sink_dkdv(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         const void* qranges, const void* order, void* dk,
-                         void* dv, int B, int H_q, int H_kv, int N_q,
-                         int N_kv, int D, int num_sink, int window,
-                         int q_offset, int kv_offset, int dtype, float scale,
+                         const void* pieces, void* part, void* counters,
+                         void* dk, void* dv, int B, int H_q, int H_kv,
+                         int N_q, int N_kv, int D, int max_pieces,
+                         int num_sink, int window, int q_offset,
+                         int kv_offset, int dtype, float scale,
                          void* stream) {
-  const SinkWindowMask mask{static_cast<const int*>(qranges), N_q, N_kv,
-                            num_sink, window, q_offset, kv_offset};
-  return sinkattn::hopper::launch_dkdv_any(dtype, q, k, v, dout, lse,
-                                             delta, order, dk, dv, B, H_q,
-                                             H_kv, N_q, N_kv, D, scale, mask,
-                                             stream);
+  const SinkWindowMask mask{nullptr, N_q, N_kv, num_sink, window, q_offset,
+                            kv_offset};
+  return sinkattn::hopper::launch_dkdv_any(
+      dtype, q, k, v, dout, lse, delta,
+      sinkattn::hopper::DkdvPieces{pieces, part, counters, max_pieces}, dk,
+      dv, B, H_q, H_kv, N_q, N_kv, D, scale, mask, stream);
 }
 
 // Tile sizes the host-side range tables must use: dQ's and dK/dV's (keys

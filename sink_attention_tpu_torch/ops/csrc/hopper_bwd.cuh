@@ -13,9 +13,21 @@
 //
 // Design:
 //  * a persistent grid, one CTA of three warpgroups per SM, walking the
-//    work items (b*h_kv, 128-key block) longest first (by the host's order
-//    table) in a snake: round r takes items r*G + i, or r*G + G-1-i on odd
-//    rounds, so the long and the short items of two rounds pair up;
+//    work items (b*h_kv, a piece of a 128-key block) longest first in a
+//    snake: round r takes items r*G + i, or r*G + G-1-i on odd rounds, so
+//    the long and the short items of two rounds pair up;
+//  * pieces (the host's piece table, ops/flash.py dkdv_pieces): a key
+//    block's q range is cut into pieces of at most the longest range a
+//    block without sink columns can have (about (bn + W) / 64 q blocks, at
+//    least 4). Only a block holding sink columns is longer: every later
+//    query reads it, so beside a short window its one item walked every q
+//    block (256 tiles against ~34 at W = 1024) and alone set the call's
+//    time, however early it started. Its pieces run on different CTAs; each
+//    stores its fp32 dK / dV partial (per warpgroup and result, in the
+//    registers' own order) in the stream's workspace and counts in, and
+//    the block's last piece sums all of them in piece order and writes the
+//    outputs (merge_pieces): one launch, no atomics on the data, bitwise
+//    repeatable. A block that fits is one piece and runs as before;
 //  * warpgroup 0 produces (setmaxnreg gives its registers to the
 //    consumers: 24 against 240 at D = 128, 40 against 232 at D = 64; no
 //    spill either way): one thread issues every TMA load, the
@@ -129,7 +141,8 @@
 // bound by operations, the W = 128 layers by bytes. What the design does
 // about it: wgmma on TMA-fed shared memory at the tensor cores' rate, the
 // mask's cost only on partial tiles, dead half-tiles skipped, K/V read once
-// per item and Q/dO once per (item, head, q block), no second pass. The
+// per item and Q/dO once per (item, head, q block), no second pass, no item
+// longer than a window block's (the pieces). The
 // instances of D <= 256 do the bound's 8 D FLOPs a pair; the 512 instance
 // 20 D, the wide one (hopper_wide.cuh) more.
 
@@ -147,6 +160,8 @@ namespace hopper {
 constexpr int DKDV_BM = 64;    // queries per q block (DkdvPlan's TM a tile)
 constexpr int DKDV_BN = 128;   // keys per item, 64 per consumer
 constexpr int DKDV_THREADS = 384;
+constexpr int DKDV_INFO = 16;  // ints of an item's info in shared memory
+constexpr int PIECE_INTS = 8;  // ints of a row of the host's piece table
 
 // The tile plan at instance head dim D: keys per item and K/V buffers
 // (SPLIT: 64 keys, one buffer, D = 256 and 512), whether the consumers
@@ -201,29 +216,45 @@ struct DkdvSmem {
   static constexpr int BAR_OFF = ROW_OFF + STAGES * 2 * DKDV_BM * 4;
   // kv_full[KB], kv_empty[KB], then full, empty [STAGES] each
   static constexpr int N_BARS = 2 * KB + 2 * STAGES;
-  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [KB][8]
-  static constexpr int SPAN_OFF = INFO_OFF + KB * 8 * 4;  // int [2][4][2]
+  static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [KB][16]
+  static constexpr int SPAN_OFF = INFO_OFF + KB * DKDV_INFO * 4;  // [2][4][2]
+  // int [4]: a consumer's merge flag each, the number of work items
+  static constexpr int FLAG_OFF = SPAN_OFF + 2 * 4 * 2 * 4;
   // SHARE: the exchange tile of P^T, float4 [TM / 8][128] (a consumer
   // thread's 32 accumulators as 8 float4, thread-fastest)
   static constexpr int X_BYTES = DkdvPlan<D>::BN * DkdvPlan<D>::TM * 4;
-  static constexpr int X_OFF = (SPAN_OFF + 2 * 4 * 2 * 4 + 127) / 128 * 128;
+  static constexpr int X_OFF = (FLAG_OFF + 4 * 4 + 127) / 128 * 128;
   static constexpr int BYTES =
       DkdvPlan<D>::SHARE ? X_OFF + X_BYTES + 1024
-                         : SPAN_OFF + 2 * 4 * 2 * 4 + 1024;  // + align
+                         : FLAG_OFF + 4 * 4 + 1024;  // + align
 };
 
-// A work item: one 128-key block of one (batch, KV head), the q-block range
-// of the host table and the first query head of the group. Unit u of the
-// order table is a key block (its table shared by the batch) or, where the
-// policy keeps a table per batch row, a (b, block) pair: b * n_kb + block.
+// Work units per piece: a piece of a key block shared by the batch
+// (SinkWindowMask) is an item for every (batch, KV head); where the policy
+// keeps a table per batch row (PackedMask), for every KV head of its row.
+template <class Mask>
+__host__ __device__ __forceinline__ int dkdv_per(int B, int H_kv) {
+  return Mask::kBatchTables ? H_kv : B * H_kv;
+}
+
+// A work item: one piece of one key block (128 keys, 64 where SPLIT) of one
+// (batch, KV head), from row 1 + w / per of the host's piece table
+// (ops/flash.py dkdv_pieces; row 0 holds the number of pieces): its unit u,
+// its q-block range, the block's piece count np and the piece's index pi,
+// and the block's first partial slot; and the first query head of the
+// group. Unit u is a key block or, where the policy keeps a table per
+// batch row, a (b, block) pair: b * n_kb + block. `part` is the partial
+// row of the block's first piece for this (batch, KV head): slot * per + r.
 struct DkdvItem {
-  int b, kb, bkh, head0, qb0, n_qb;
+  int b, kb, bkh, head0, qb0, n_qb, np, pi, part;
   template <class Mask>
-  __device__ __forceinline__ DkdvItem(int w, const int* order, int B,
+  __device__ __forceinline__ DkdvItem(int w, const int* pieces, int B,
                                       int H_q, int H_kv, int n_kb,
-                                      const Mask& mask) {
-    const int per = Mask::kBatchTables ? H_kv : B * H_kv;
-    const int u = order[w / per], r = w - (w / per) * per;
+                                      const Mask&) {
+    const int per = dkdv_per<Mask>(B, H_kv);
+    const int p = w / per, r = w - p * per;
+    const int* row = pieces + (1 + p) * PIECE_INTS;
+    const int u = row[0];
     if (Mask::kBatchTables) {
       b = u / n_kb;
       kb = u - b * n_kb;
@@ -234,9 +265,11 @@ struct DkdvItem {
       b = r / H_kv;
     }
     head0 = b * H_q + (bkh - b * H_kv) * (H_q / H_kv);
-    const int* rg = mask.kv_block(b, kb);
-    qb0 = rg[0];
-    n_qb = max(rg[1] - qb0, 0);
+    qb0 = row[1];
+    n_qb = max(row[2] - qb0, 0);
+    np = row[3];
+    pi = row[4];
+    part = row[5] * per + r;
   }
   __device__ __forceinline__ void store(int* info) const {
     info[0] = b;
@@ -245,11 +278,131 @@ struct DkdvItem {
     info[3] = head0;
     info[4] = qb0;
     info[5] = n_qb;
+    info[6] = np;
+    info[7] = pi;
+    info[8] = part;
   }
   __device__ __forceinline__ explicit DkdvItem(const int* info)
       : b(info[0]), kb(info[1]), bkh(info[2]), head0(info[3]), qb0(info[4]),
-        n_qb(info[5]) {}
+        n_qb(info[5]), np(info[6]), pi(info[7]), part(info[8]) {}
 };
+
+// Where the pieces of a split key block meet (built where a warpgroup
+// merges, from the kernel's parameters, so that nothing of it holds
+// registers across the tile loops): `part` holds, per (piece
+// slot, batch row r of the piece) pair, `f` fp32 values (every dK and dV
+// accumulator of the block's item: 2 x keys x columns), and `counters` one
+// arrival count per (key block, batch x KV head, result), `rmax` results a
+// pair. A result is one warpgroup's merge: its dK and dV (D <= 128), its
+// dV or dK (SHARE), one pass's (D = 512), one pass of a slice (the wide
+// instance).
+struct PieceMerge {
+  float* part;
+  int* counters;
+  size_t f;           // floats a (slot, r) pair
+  int per, pairs, rmax;
+  __device__ __forceinline__ PieceMerge(float* part_, int* counters_,
+                                        size_t f_, int per_, int pairs_,
+                                        int rmax_)
+      : part(part_), counters(counters_), f(f_), per(per_), pairs(pairs_),
+        rmax(rmax_) {}
+};
+
+// The merge of the dK/dV kernel of instance D over a mask policy: 2 x keys
+// x D columns a (slot, r) pair; results: a consumer's dK and dV, or (SHARE)
+// its dV or dK, or (PASSES) each pass's.
+template <class Mask, int D>
+__device__ __forceinline__ PieceMerge dkdv_merge(float* part, int* counters,
+                                                 int B, int H_kv) {
+  return PieceMerge(part, counters, (size_t)2 * DkdvPlan<D>::BN * D,
+                    dkdv_per<Mask>(B, H_kv), B * H_kv, 4);
+}
+
+template <int N>
+__device__ __forceinline__ void frag_put(float4* p, const float (&a)[N],
+                                         int ct) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i)
+    __stcg(p + i * 128 + ct,
+           make_float4(a[4 * i], a[4 * i + 1], a[4 * i + 2], a[4 * i + 3]));
+}
+
+// a = the sum of the np partials at p, p + stride, ... (float4s) in that
+// order, in chunks of MERGE_CHUNK float4s a thread: a chunk's first
+// partial is loaded into a, then the others are added piece by piece, the
+// pieces a loop the compiler does not unroll, so that at most a chunk's
+// loads are in flight beside a. Arrays of up to 64 floats (the instances
+// of D <= 128) take a piece's whole array at once.
+constexpr int MERGE_CHUNK = 8;
+template <int N>
+__device__ __forceinline__ void frag_sum(float (&a)[N], const float4* p,
+                                         size_t stride, int np, int ct) {
+  constexpr int CH = N <= 64 ? N / 4 : MERGE_CHUNK;
+#pragma unroll
+  for (int c0 = 0; c0 < N / 4; c0 += CH) {
+#pragma unroll
+    for (int i = c0; i < c0 + CH && i < N / 4; ++i) {
+      const float4 x = __ldcg(p + i * 128 + ct);
+      a[4 * i] = x.x;
+      a[4 * i + 1] = x.y;
+      a[4 * i + 2] = x.z;
+      a[4 * i + 3] = x.w;
+    }
+#pragma unroll 1
+    for (int q = 1; q < np; ++q) {
+      const float4* src = p + q * stride;
+#pragma unroll
+      for (int i = c0; i < c0 + CH && i < N / 4; ++i) {
+        const float4 x = __ldcg(src + i * 128 + ct);
+        a[4 * i] += x.x;
+        a[4 * i + 1] += x.y;
+        a[4 * i + 2] += x.z;
+        a[4 * i + 3] += x.w;
+      }
+    }
+  }
+}
+
+// The end of one warpgroup's piece of `item` for result `rid`: true where
+// acc... now holds the block's whole sum. An unsplit block (np == 1) has
+// it already. A piece of a split block stores its accumulators as its
+// partial (thread ct's values as float4s ct, 128 + ct, ...; plain stores
+// through L2), and one thread counts the piece in; the block's last piece
+// to arrive loads every piece's partial in piece order (its own from
+// memory too), so the sum is bitwise the same whichever piece arrives
+// last, resets the count for the next launch and returns true; the others
+// return false. `flag` is an int of the warpgroup's in shared memory,
+// `bar` its named barrier. No piece waits for another.
+template <class... Acc>
+__device__ __forceinline__ bool merge_pieces(const PieceMerge& pm,
+                                             const DkdvItem& item, int rid,
+                                             int* flag, int bar, int ct,
+                                             Acc&... acc) {
+  if (item.np <= 1) return true;
+  constexpr int NT = (0 + ... + int(sizeof(Acc) / sizeof(float)));
+  const size_t stride = (size_t)pm.per * pm.f / 4;  // float4s a piece
+  const float4* base = reinterpret_cast<const float4*>(
+                           pm.part + (size_t)item.part * pm.f) +
+                       (size_t)rid * 32 * NT;
+  float4* mine = const_cast<float4*>(base) + item.pi * stride;
+  ((frag_put(mine, acc, ct), mine += sizeof(acc) / 16 * 128), ...);
+  __threadfence();
+  named_sync(bar, 128);
+  if (ct == 0) {
+    int* count =
+        pm.counters + ((size_t)item.kb * pm.pairs + item.bkh) * pm.rmax + rid;
+    const bool last = atomicAdd(count, 1) == item.np - 1;
+    if (last) *count = 0;
+    *flag = last;
+  }
+  named_sync(bar, 128);
+  if (!*static_cast<volatile int*>(flag)) return false;
+  __threadfence();
+  const float4* src = base;
+  ((frag_sum(acc, src, stride, item.np, ct), src += sizeof(acc) / 16 * 128),
+   ...);
+  return true;
+}
 
 // A consumer's accumulators of keys r_key and r_key + 8 of `item` and
 // its DC columns from c0, times mul, straight from the registers into out
@@ -340,10 +493,11 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                       const __grid_constant__ CUtensorMap tm_do,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
-                      const int* __restrict__ order, void* __restrict__ dk,
-                      void* __restrict__ dv, int B, int H_q, int H_kv,
-                      int N_q, int N_kv, int Dt, float scale_log2,
-                      float scale, Mask mask) {
+                      const int* __restrict__ pieces,
+                      float* __restrict__ part, int* __restrict__ counters,
+                      void* __restrict__ dk, void* __restrict__ dv, int B,
+                      int H_q, int H_kv, int N_q, int N_kv, int Dt,
+                      float scale_log2, float scale, Mask mask) {
   using L = DkdvSmem<D, STAGES>;
   constexpr bool SPLIT = DkdvPlan<D>::SPLIT;  // consumers split the columns
   constexpr int BN = DkdvPlan<D>::BN;         // keys per item
@@ -361,14 +515,21 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   uint64_t* kv_empty = bars + KB;
   uint64_t* full = bars + 2 * KB;
   uint64_t* empty = bars + 2 * KB + STAGES;
-  int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [K/V buffer][8]
+  int* info = reinterpret_cast<int*>(smem + L::INFO_OFF);  // [K/V buffer][16]
   float* rows_sm = reinterpret_cast<float*>(smem + L::ROW_OFF);
 
   const int n_kb = (N_kv + BN - 1) / BN;
-  const int n_work = n_kb * B * H_kv;
+  // int [4] of shared memory: a consumer's merge flag each, then the number
+  // of work items, counted once and read there at each item (addressed
+  // from smem where used: no register holds them across an item)
+  const auto flag = [&](int i) {
+    return reinterpret_cast<int*>(smem + L::FLAG_OFF) + i;
+  };
+  const auto n_work = [&] { return *static_cast<volatile int*>(flag(2)); };
   const int group = H_q / H_kv;
 
   if (threadIdx.x == 0) {
+    *flag(2) = pieces[0] * dkdv_per<Mask>(B, H_kv);
     for (int i = 0; i < KB; ++i) {
       mbar_init(kv_full + i, 1);
       mbar_init(kv_empty + i, 2 * 128);  // every consumer thread, per item
@@ -391,11 +552,11 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       Ring<STAGES> ring;
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
-        if (w >= n_work) break;
-        const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
+        if (w >= n_work()) break;
+        const DkdvItem item(w, pieces, B, H_q, H_kv, n_kb, mask);
         const int kbuf = buf_of<KB>(it);
         mbar_wait(kv_empty + kbuf, buf_phase<KB>(it) ^ 1);
-        item.store(info + kbuf * 8);
+        item.store(info + kbuf * DKDV_INFO);
         mbar_expect_tx(kv_full + kbuf, 2 * L::KV_BYTES);  // and the info
 #pragma unroll
         for (int x = 0; x < L::BOXES; ++x) {
@@ -432,8 +593,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       Ring<STAGES> ring;
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
-        if (w >= n_work) break;
-        const DkdvItem item(w, order, B, H_q, H_kv, n_kb, mask);
+        if (w >= n_work()) break;
+        const DkdvItem item(w, pieces, B, H_q, H_kv, n_kb, mask);
         const int n_tiles = PASSES * group * item.n_qb * SUB;
         int bh = item.head0, qt = item.qb0 * SUB;
         for (int j = 0; j < n_tiles; ++j, ring.next()) {
@@ -486,7 +647,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       bool handed = false;  // a P^T went over (both see the same tiles)
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
-        if (w >= n_work) break;
+        if (w >= n_work()) break;
         mbar_wait(kv_full, buf_phase<KB>(it));
         const DkdvItem item(info);
         const int n_tiles = group * item.n_qb;
@@ -643,7 +804,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
         const DkdvItem out(info);
         void* dst = C == 0 ? dv : dk;
         const float mul = C == 0 ? 1.f : scale;
-        if constexpr (IO::kOut32) {
+        if (!merge_pieces(dkdv_merge<Mask, D>(part, counters, B, H_kv), out,
+                          C, flag(C), 1 + C, ct, acc)) {
+          // another piece of the block writes it
+        } else if constexpr (IO::kOut32) {
           store_key_rows<IO, D>(dst, acc, mul, out, BN, N_kv, Dt, r_key, 0,
                                 t4);
         } else {
@@ -707,10 +871,10 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
     Ring<STAGES> ring;
     for (int it = 0;; ++it) {
       const int w = snake_item(it, blockIdx.x, gridDim.x);
-      if (w >= n_work) break;
+      if (w >= n_work()) break;
       const int kbuf = buf_of<KB>(it);
       mbar_wait(kv_full + kbuf, buf_phase<KB>(it));
-      const DkdvItem item(info + kbuf * 8);
+      const DkdvItem item(info + kbuf * DKDV_INFO);
       const int n_tiles = group * item.n_qb * SUB;  // q tiles a pass
 
       // Each key's interval of visible local query rows [lo, lo + n), and
@@ -895,23 +1059,32 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
           if (do_dk) fence_regs(dk_acc);
           if (ct == 0) mbar_arrive(empty + s);  // the warpgroup is done
         }
-        if (PASSES == 2 && pass == 0)  // dV, straight from the registers
-          store_key_rows<IO, DC>(dv, dv_acc, 1.f, DkdvItem(info + kbuf * 8),
-                                 BN, N_kv, Dt, r_key, col_box * 64, t4);
+        if (PASSES == 2 && pass == 0) {  // dV, straight from the registers
+          const DkdvItem out(info + kbuf * DKDV_INFO);
+          if (merge_pieces(dkdv_merge<Mask, D>(part, counters, B, H_kv),
+                           out, 2 * c, flag(c), 1 + c, ct, dv_acc))
+            store_key_rows<IO, DC>(dv, dv_acc, 1.f, out, BN, N_kv, Dt, r_key,
+                                   col_box * 64, t4);
+        }
       }
       if constexpr (PASSES == 2) {
-        store_key_rows<IO, DC>(dk, dk_acc, scale, DkdvItem(info + kbuf * 8),
-                               BN, N_kv, Dt, r_key, col_box * 64, t4);
-      } else {
+        const DkdvItem out(info + kbuf * DKDV_INFO);
+        if (merge_pieces(dkdv_merge<Mask, D>(part, counters, B, H_kv), out,
+                         2 * c + 1, flag(c), 1 + c, ct, dk_acc))
+          store_key_rows<IO, DC>(dk, dk_acc, scale, out, BN, N_kv, Dt, r_key,
+                                 col_box * 64, t4);
+      } else if (merge_pieces(dkdv_merge<Mask, D>(part, counters, B, H_kv),
+                              DkdvItem(info + kbuf * DKDV_INFO), c,
+                              flag(c), 1 + c, ct, dk_acc, dv_acc)) {
         // dK and dV go out through this warpgroup's rows (SPLIT: its column
         // boxes) of the item's K and V buffers (its products, their only
         // readers, are done; SPLIT: once both warpgroups' are), in the
         // swizzled layout, then as 16-byte stores of whole rows (Dt / 8
         // chunks a row); as fp32 (IoF32), straight from the accumulators as
-        // 8-byte stores of column pairs. SPLIT reads the item again from
-        // shared memory (this item's until kv_empty below), so that its
-        // fields hold no registers across the tile loop.
-        const DkdvItem out = SPLIT ? DkdvItem(info + kbuf * 8) : item;
+        // 8-byte stores of column pairs. The item is read again from shared
+        // memory (this item's until kv_empty below), so that its fields
+        // hold no registers across the tile loop.
+        const DkdvItem out(info + kbuf * DKDV_INFO);
         const int c0 = col_box * 64;  // the consumer's first column
         const int box0 = col_box * BN * 128;  // and its first box
         uint8_t* kb_sm = smem + L::K_OFF + kbuf * L::KV_BYTES + box0;
@@ -979,15 +1152,25 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
   }
 }
 
+// The host's pieces of a dK/dV launch (ops/flash.py dkdv_pieces): the
+// piece table on the card (row 0: the number of pieces), the workspace's
+// partials (fp32) and counters (int32, zero, left zero by every launch),
+// and a bound on the number of pieces, which sizes the grid.
+struct DkdvPieces {
+  const void* table;
+  void* part;
+  void* counters;
+  int max_pieces;
+};
+
 // Launch over a mask policy: q, dout [B*H_q, N_q, Dt], k/v [B*H_kv, N_kv,
 // Dt] 16-bit (IO) contiguous, 16-byte aligned, Dt <= D, Dt % 8 == 0; lse,
-// delta [B*H_q, N_q] fp32; order the host's units longest first (see
-// DkdvItem); dk, dv like k (fp32 for IoF32). Returns cudaGetLastError() of
-// the launch.
+// delta [B*H_q, N_q] fp32; pc the pieces (see DkdvItem, PieceMerge); dk,
+// dv like k (fp32 for IoF32). Returns cudaGetLastError() of the launch.
 template <int D, int STAGES, class Mask, class IO>
 int launch_dkdv_d(const void* q, const void* k, const void* v,
                   const void* dout, const void* lse, const void* delta,
-                  const void* order, void* dk, void* dv, int B, int H_q,
+                  const DkdvPieces& pc, void* dk, void* dv, int B, int H_q,
                   int H_kv, int N_q, int N_kv, int Dt, float scale,
                   const Mask& mask, cudaStream_t stream) {
   constexpr int smem = DkdvSmem<D, STAGES>::BYTES;
@@ -1002,14 +1185,16 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
       !make_map(&tk, k, B * H_kv, N_kv, Dt, BN, IO::kF16) ||
       !make_map(&tv, v, B * H_kv, N_kv, Dt, BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_kv + BN - 1) / BN) * B * H_kv;
+  const long n_work = (long)pc.max_pieces * dkdv_per<Mask>(B, H_kv);
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   dkdv_wgmma_kernel<D, STAGES, Mask, IO>
       <<<grid, DKDV_THREADS, smem, stream>>>(
           tq, tk, tv, tdo, static_cast<const float*>(lse),
-          static_cast<const float*>(delta), static_cast<const int*>(order),
-          dk, dv, B, H_q, H_kv, N_q, N_kv, Dt, scale * LOG2E, scale, mask);
+          static_cast<const float*>(delta),
+          static_cast<const int*>(pc.table), static_cast<float*>(pc.part),
+          static_cast<int*>(pc.counters), dk, dv, B, H_q, H_kv, N_q, N_kv,
+          Dt, scale * LOG2E, scale, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1018,7 +1203,7 @@ int launch_dkdv_d(const void* q, const void* k, const void* v,
 template <class Mask, class IO>
 int launch_dkdv(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
-                const void* order, void* dk, void* dv, int B, int H_q,
+                const DkdvPieces& pc, void* dk, void* dv, int B, int H_q,
                 int H_kv, int N_q, int N_kv, int D, float scale,
                 const Mask& mask, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -1031,51 +1216,46 @@ int launch_dkdv(const void* q, const void* k, const void* v,
     cudaMemsetAsync(dv, 0, bytes, st);
     return (int)cudaGetLastError();
   }
-  const int di = attn_instance_d(D);
-  if (di == 64)
-    return launch_dkdv_d<64, 3, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
-                                          scale, mask, st);
-  if (di == 80)
-    return launch_dkdv_d<80, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
-                                          scale, mask, st);
-  if (di == 96)
-    return launch_dkdv_d<96, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                          dk, dv, B, H_q, H_kv, N_q, N_kv, D,
-                                          scale, mask, st);
-  if (di == 128)
-    return launch_dkdv_d<128, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                           dk, dv, B, H_q, H_kv, N_q, N_kv,
-                                           D, scale, mask, st);
-  if (di == 256)
-    return launch_dkdv_d<256, 2, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                           dk, dv, B, H_q, H_kv, N_q, N_kv,
-                                           D, scale, mask, st);
-  return launch_dkdv_d<512, 1, Mask, IO>(q, k, v, dout, lse, delta, order,
-                                         dk, dv, B, H_q, H_kv, N_q, N_kv, D,
-                                         scale, mask, st);
+  const auto run = [&](auto di, auto stages) {
+    return launch_dkdv_d<decltype(di)::value, decltype(stages)::value, Mask,
+                         IO>(q, k, v, dout, lse, delta, pc, dk, dv, B, H_q,
+                             H_kv, N_q, N_kv, D, scale, mask, st);
+  };
+  using std::integral_constant;
+  switch (attn_instance_d(D)) {
+    case 64:
+      return run(integral_constant<int, 64>(), integral_constant<int, 3>());
+    case 80:
+      return run(integral_constant<int, 80>(), integral_constant<int, 2>());
+    case 96:
+      return run(integral_constant<int, 96>(), integral_constant<int, 2>());
+    case 128:
+      return run(integral_constant<int, 128>(), integral_constant<int, 2>());
+    case 256:
+      return run(integral_constant<int, 256>(), integral_constant<int, 2>());
+  }
+  return run(integral_constant<int, 512>(), integral_constant<int, 1>());
 }
 
 // dK/dV in the element types of a dtype code (DtypeCode).
 template <class Mask>
 int launch_dkdv_dtype(int dtype, const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
-                      const void* order, void* dk, void* dv, int B, int H_q,
-                      int H_kv, int N_q, int N_kv, int D, float scale,
-                      const Mask& mask, void* stream) {
+                      const DkdvPieces& pc, void* dk, void* dv, int B,
+                      int H_q, int H_kv, int N_q, int N_kv, int D,
+                      float scale, const Mask& mask, void* stream) {
   switch (dtype) {
     case kDtypeBf16:
-      return launch_dkdv<Mask, IoBf16>(q, k, v, dout, lse, delta, order, dk,
-                                       dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+      return launch_dkdv<Mask, IoBf16>(q, k, v, dout, lse, delta, pc, dk, dv,
+                                       B, H_q, H_kv, N_q, N_kv, D, scale,
                                        mask, stream);
     case kDtypeF16:
-      return launch_dkdv<Mask, IoF16>(q, k, v, dout, lse, delta, order, dk,
-                                      dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+      return launch_dkdv<Mask, IoF16>(q, k, v, dout, lse, delta, pc, dk, dv,
+                                      B, H_q, H_kv, N_q, N_kv, D, scale,
                                       mask, stream);
     case kDtypeF32:
-      return launch_dkdv<Mask, IoF32>(q, k, v, dout, lse, delta, order, dk,
-                                      dv, B, H_q, H_kv, N_q, N_kv, D, scale,
+      return launch_dkdv<Mask, IoF32>(q, k, v, dout, lse, delta, pc, dk, dv,
+                                      B, H_q, H_kv, N_q, N_kv, D, scale,
                                       mask, stream);
   }
   return (int)cudaErrorInvalidValue;

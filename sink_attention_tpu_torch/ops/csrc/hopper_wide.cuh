@@ -94,7 +94,9 @@ struct WideSmem {
   static constexpr int N_BARS = 4 + 2 * WIDE_DS + 2 * WIDE_SS;
   static constexpr int INFO_OFF = BAR_OFF + N_BARS * 8;  // int [2][16]
   static constexpr int SPAN_OFF = INFO_OFF + 2 * WIDE_INFO * 4;  // int [2][8]
-  static constexpr int BYTES = SPAN_OFF + 2 * 8 * 4 + 1024;  // + alignment
+  // int [4] (dK/dV): a consumer's merge flag each, the number of items
+  static constexpr int FLAG_OFF = SPAN_OFF + 2 * 8 * 4;
+  static constexpr int BYTES = FLAG_OFF + 4 * 4 + 1024;  // + alignment
 };
 
 // The barriers of a wide kernel, at L::BAR_OFF.
@@ -744,9 +746,11 @@ using WideDkdvSmem =
     WideSmem<2 * WIDE_DKDV_BN * 128 + 2 * WIDE_TM * 128,
              WIDE_TM * WIDE_COLS * 2, 2 * WIDE_TM * 4, 0>;
 
-// Work item w: slice w % NS of unit w / NS (DkdvItem's units). Each item's
-// q tiles (by query head of the group, 64-row q block of its range and
-// 32-row half of the block) are walked twice: dV, then dK.
+// Work item w: slice w % NS of work unit w / NS (DkdvItem's: a piece of a
+// key block of one batch x KV head). Each item's q tiles (by query head of
+// the group, 64-row q block of its range and 32-row half of the block) are
+// walked twice: dV, then dK, each pass's result merged over the block's
+// pieces (merge_pieces) where the block is split.
 template <class Mask, class IO>
 __global__ void __launch_bounds__(DKDV_THREADS, 1)
     wide_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -755,12 +759,15 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
                            const __grid_constant__ CUtensorMap tm_do,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           const int* __restrict__ order,
+                           const int* __restrict__ pieces,
+                           float* __restrict__ part,
+                           int* __restrict__ counters,
                            void* __restrict__ dk, void* __restrict__ dv,
                            int B, int H_q, int H_kv, int N_q, int N_kv,
                            int Dt, float scale_log2, float scale,
                            Mask mask) {
   using L = WideDkdvSmem;
+  constexpr int SL = WIDE_INFO - 1;  // the info slot of the item's slice
   constexpr int BN = WIDE_DKDV_BN, TM = WIDE_TM;
   constexpr int SUB = DKDV_BM / TM;  // q tiles per q block
   constexpr int KBOX = BN * 128, QBOX = TM * 128;
@@ -774,10 +781,17 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 
   const int nb = wide_boxes(Dt), ns = wide_slices(Dt);
   const int n_kb = (N_kv + BN - 1) / BN;
-  const int n_work = n_kb * B * H_kv * ns;
   const int group = H_q / H_kv;
+  // merge flags and the number of work items, as the instances' kernel
+  const auto flag = [&](int i) {
+    return reinterpret_cast<int*>(smem + L::FLAG_OFF) + i;
+  };
+  const auto n_work = [&] { return *static_cast<volatile int*>(flag(2)); };
 
-  if (threadIdx.x == 0) bars.init(false, true);
+  if (threadIdx.x == 0) {
+    *flag(2) = pieces[0] * dkdv_per<Mask>(B, H_kv) * ns;
+    bars.init(false, true);
+  }
   __syncthreads();
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
@@ -790,13 +804,13 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       Ring<WIDE_SS> sr;
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
-        if (w >= n_work) break;
+        if (w >= n_work()) break;
         const int u = w / ns, sl = w - u * ns;
-        const DkdvItem item(u, order, B, H_q, H_kv, n_kb, mask);
+        const DkdvItem item(u, pieces, B, H_q, H_kv, n_kb, mask);
         const int qs = it & 1;
         mbar_wait_timed(bars.item_empty + qs, ((it >> 1) & 1) ^ 1);
         item.store(info + qs * WIDE_INFO);
-        info[qs * WIDE_INFO + 8] = sl;
+        info[qs * WIDE_INFO + SL] = sl;
         mbar_arrive(bars.item_full + qs);
         const int key0 = item.kb * BN;
         const int per_head = item.n_qb * SUB;  // q tiles of a head
@@ -841,8 +855,8 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
       Ring<WIDE_SS> sr;
       for (int it = 0;; ++it) {
         const int w = snake_item(it, blockIdx.x, gridDim.x);
-        if (w >= n_work) break;
-        const DkdvItem item(w / ns, order, B, H_q, H_kv, n_kb, mask);
+        if (w >= n_work()) break;
+        const DkdvItem item(w / ns, pieces, B, H_q, H_kv, n_kb, mask);
         const int per_head = item.n_qb * SUB;
         for (int t = 0; t < 2 * group * per_head; ++t, sr.next()) {
           const int tt = t < group * per_head ? t : t - group * per_head;
@@ -872,7 +886,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
     Ring<WIDE_SS> sr;
     for (int it = 0;; ++it) {
       const int w = snake_item(it, blockIdx.x, gridDim.x);
-      if (w >= n_work) break;
+      if (w >= n_work()) break;
       const int qs = it & 1;
       mbar_wait_timed(bars.item_full + qs, (it >> 1) & 1);
       const int* inf = info + qs * WIDE_INFO;
@@ -1046,13 +1060,23 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
           if (ct == 0) mbar_arrive(bars.s_empty + sr.s);
           sr.next();
         }
-        // the pass's result, straight from the registers (the item read
-        // again from shared memory: its buffer is held until the end)
+        // the pass's result, merged over the block's pieces, straight from
+        // the registers (the item read again from shared memory: its
+        // buffer is held until the end)
         const DkdvItem out(inf);
         const float mul[2] = {DK ? scale : 1.f, DK ? scale : 1.f};
-        wide_store<IO>(DK ? dk : dv, acc, mul, (size_t)out.bkh * N_kv,
-                       out.kb * BN + r_key, N_kv, Dt,
-                       inf[8] * WIDE_COLS + c * (WIDE_COLS / 2), t4);
+        // the partials of a split block: 2 x 64 keys x the slices' 512
+        // columns a (slot, r) pair; results: (slice, consumer, pass)
+        const int n_sl = wide_slices(Dt);
+        if (merge_pieces(PieceMerge(part, counters,
+                                    (size_t)2 * BN * WIDE_COLS * n_sl,
+                                    dkdv_per<Mask>(B, H_kv), B * H_kv,
+                                    4 * n_sl),
+                         out, (inf[SL] * 2 + c) * 2 + DK, flag(c), 1 + c,
+                         ct, acc))
+          wide_store<IO>(DK ? dk : dv, acc, mul, (size_t)out.bkh * N_kv,
+                         out.kb * BN + r_key, N_kv, Dt,
+                         inf[SL] * WIDE_COLS + c * (WIDE_COLS / 2), t4);
       };
       run_pass(Const<0>());
       run_pass(Const<1>());
@@ -1066,7 +1090,7 @@ __global__ void __launch_bounds__(DKDV_THREADS, 1)
 template <class Mask, class IO>
 int launch_dkdv_wide(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     const void* order, void* dk, void* dv, int B, int H_q,
+                     const DkdvPieces& pc, void* dk, void* dv, int B, int H_q,
                      int H_kv, int N_q, int N_kv, int Dt, float scale,
                      const Mask& mask, cudaStream_t stream) {
   constexpr int smem = WideDkdvSmem::BYTES;
@@ -1080,15 +1104,16 @@ int launch_dkdv_wide(const void* q, const void* k, const void* v,
       !make_map(&tk, k, B * H_kv, N_kv, Dt, WIDE_DKDV_BN, IO::kF16) ||
       !make_map(&tv, v, B * H_kv, N_kv, Dt, WIDE_DKDV_BN, IO::kF16))
     return (int)cudaErrorInvalidValue;
-  const long n_work = (long)((N_kv + WIDE_DKDV_BN - 1) / WIDE_DKDV_BN) * B *
-                      H_kv * wide_slices(Dt);
+  const long n_work =
+      (long)pc.max_pieces * dkdv_per<Mask>(B, H_kv) * wide_slices(Dt);
   if (n_work > INT_MAX) return (int)cudaErrorInvalidValue;
   const int grid = (int)std::min<long>(n_work, sm_count());
   if (grid <= 0) return (int)cudaErrorInvalidValue;
   wide_dkdv_wgmma_kernel<Mask, IO><<<grid, DKDV_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<const int*>(order), dk,
-      dv, B, H_q, H_kv, N_q, N_kv, Dt, scale * LOG2E, scale, mask);
+      static_cast<const float*>(delta), static_cast<const int*>(pc.table),
+      static_cast<float*>(pc.part), static_cast<int*>(pc.counters), dk, dv,
+      B, H_q, H_kv, N_q, N_kv, Dt, scale * LOG2E, scale, mask);
   return (int)cudaGetLastError();
 }
 
@@ -1161,11 +1186,11 @@ int launch_dq_any(int dtype, const void* q, const void* k, const void* v,
 template <class Mask>
 int launch_dkdv_any(int dtype, const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
-                    const void* order, void* dk, void* dv, int B, int H_q,
+                    const DkdvPieces& pc, void* dk, void* dv, int B, int H_q,
                     int H_kv, int N_q, int N_kv, int D, float scale,
                     const Mask& mask, void* stream) {
   if (D < WIDE_MIN_D)
-    return launch_dkdv_dtype(dtype, q, k, v, dout, lse, delta, order, dk, dv,
+    return launch_dkdv_dtype(dtype, q, k, v, dout, lse, delta, pc, dk, dv,
                              B, H_q, H_kv, N_q, N_kv, D, scale, mask, stream);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (N_kv <= 0 || B * H_kv <= 0) return 0;
@@ -1181,7 +1206,7 @@ int launch_dkdv_any(int dtype, const void* q, const void* k, const void* v,
   }
   return with_io(dtype, [&](auto io) {
     return launch_dkdv_wide<Mask, decltype(io)>(q, k, v, dout, lse, delta,
-                                                order, dk, dv, B, H_q, H_kv,
+                                                pc, dk, dv, B, H_q, H_kv,
                                                 N_q, N_kv, D, scale, mask,
                                                 st);
   });

@@ -57,8 +57,9 @@
 //         cdiv(max_j reach(j), 64) with
 //         reach(j) the end of j's segment for a sink column, else min(that
 //         end, j + window);
-//   order [B * n_kv_blocks]: the (b, KV block) units b * n_kv_blocks + kb,
-//         longest q-block range first;
+//   kv_pieces [1 + B * n_kv_blocks * m, 8]: those ranges cut into pieces
+//         (ops/flash.py dkdv_pieces; units b * n_kv_blocks + kb), longest
+//         first, built on the card (row 0: their number);
 //   reach [B, N]: reach(j), so key j sees exactly the rows [j, reach(j)).
 
 #include "hopper_wide.cuh"
@@ -76,16 +77,13 @@ using sinkattn::hopper::FWD_BM;
 
 struct PackedMask {
   static constexpr bool kBatchTables = true;  // tables per row b
-  const int* table;  // the fwd, the dq or the kv table above
+  const int* table;  // the fwd or the dq table above
   const int* seg;    // [B, N] (forward, dQ)
   const int* reach;  // [B, N] (dK/dV)
   int N, n_blocks, num_sink, window;
 
   __device__ const int* q_block(int b, int qb) const {
     return table + (b * n_blocks + qb) * 4;
-  }
-  __device__ const int* kv_block(int b, int kb) const {
-    return table + (b * n_blocks + kb) * 2;
   }
   // Row i's (< N) runs of visible keys: the sink run [max(s_i, 0),
   // min(s_i + num_sink, i + 1)) and the window run [max(s_i, i - window + 1,
@@ -147,21 +145,23 @@ extern "C" int sink_pdq(const void* q, const void* k, const void* v,
       make_mask(dqtable, seg, nullptr, N, DQ_BM, num_sink, window), stream);
 }
 
-// As sink_pdq_bf16 with kvtable [B, ceil(N/bn), 2], order [B * ceil(N/bn)]
-// (bn = sink_packed_dkdv_block_n(D)) and reach [B, N] int32 in place of
-// dqtable, dqorder and seg; dk, dv like k.
+// As sink_pdq_bf16 with pieces [1 + max_pieces, 8] (the kv_pieces table,
+// KV blocks of bn = sink_packed_dkdv_block_n(D) slots) and reach [B, N]
+// int32 in place of dqtable, dqorder and seg, and the stream's workspace
+// (part, counters: flash_bwd.cu's sink_dkdv); dk, dv like k.
 extern "C" int sink_pdkdv(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
-                          const void* delta, const void* kvtable,
-                          const void* order, const void* reach, void* dk,
-                          void* dv, int B, int H_q, int H_kv, int N, int D,
-                          int num_sink, int window, int dtype, float scale,
-                          void* stream) {
+                          const void* delta, const void* pieces,
+                          const void* reach, void* part, void* counters,
+                          void* dk, void* dv, int B, int H_q, int H_kv, int N,
+                          int D, int max_pieces, int num_sink, int window,
+                          int dtype, float scale, void* stream) {
   return sinkattn::hopper::launch_dkdv_any(
-      dtype, q, k, v, dout, lse, delta, order, dk, dv, B, H_q, H_kv, N, N, D,
-      scale,
-      make_mask(kvtable, nullptr, reach, N, dkdv_bn_any(D),
-                num_sink, window),
+      dtype, q, k, v, dout, lse, delta,
+      sinkattn::hopper::DkdvPieces{pieces, part, counters, max_pieces}, dk,
+      dv, B, H_q, H_kv, N, N, D, scale,
+      make_mask(nullptr, nullptr, reach, N, dkdv_bn_any(D), num_sink,
+                window),
       stream);
 }
 

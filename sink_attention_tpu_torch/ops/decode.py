@@ -271,33 +271,6 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# The split decode's workspace, per (device, stream): fp32 scratch for the
-# partials (each launch writes what it reads) and the arrival counters,
-# zeroed once and left zero by every launch (a unit's last CTA resets its
-# own); with their sizes and pointers. Launches on one stream run in order,
-# so they share it; a warmed call allocates nothing, and a call of one range
-# needs none.
-_WORKSPACE: dict = {}
-
-
-def _workspace(device, stream: int, n_part: int, n_units: int):
-    """The pointers of the workspace of ``device``'s ``stream``, grown to
-    ``n_part`` floats and ``n_units`` counters where smaller."""
-    key = (device.index, stream)
-    ws = _WORKSPACE.get(key)
-    if ws is None or ws[2] < n_part or ws[3] < n_units:
-        part, counters = ws[:2] if ws is not None else (None, None)
-        if part is None or part.numel() < n_part:
-            part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                               device=device)
-        if counters is None or counters.numel() < n_units:
-            counters = torch.zeros(max(n_units, 1024), dtype=torch.int32,
-                                   device=device)
-        ws = (part, counters, part.numel(), counters.numel(),
-              part.data_ptr(), counters.data_ptr())
-        _WORKSPACE[key] = ws
-    return ws[4], ws[5]
-
 
 def _padded_dim(d: int, elem_bytes: int) -> int:
     """The head dim the kernel runs ``d`` at: whole 16-byte cache rows and
@@ -428,7 +401,7 @@ def decode_kernel(q, k_buf, v_buf, lens, s_aux=None, *, sink_cap: int,
     rows, n_split, split_slots, n_part, n_units = _plan(
         elem, B, H_q, H_kv, d_pad,
         _live_end(lens, s_total, sink_cap, window_size), q.device.index)
-    part, counters = (_workspace(q.device, stream, n_part, n_units)
+    part, counters = (_build.workspace(q.device, stream, n_part, n_units)
                       if n_units else (None, None))
     code = _kernel_fn(branch)(
         qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),

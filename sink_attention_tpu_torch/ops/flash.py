@@ -48,11 +48,15 @@ x 32 at D = 256, 512 and wide), the q blocks with the most KV blocks first
 ``csrc/hopper_bwd.cuh``) visits, for each KV block of
 ``DKDV_BNS[head_dim]`` slots (128, 64 in the 256, 512 and wide instances),
 the 64-row query blocks of one range (:func:`dkdv_q_ranges` at
-``bm=DKDV_BM``, the mirror of ``_dkdv_q_step``), the blocks with the
-longest ranges first (:func:`dkdv_block_order`). Tables keyed on a head dim
-key on its instance (``_build.kernel_head_dim``). The tables are built on
-the host, so the CPU tests check them although the kernels cannot run
-there.
+``bm=DKDV_BM``, the mirror of ``_dkdv_q_step``), each range cut into pieces
+of at most :func:`dkdv_piece_cap` q blocks (only a block holding sink
+columns, which every later query reads, is longer), the split blocks'
+pieces first, then the others, longest first (:func:`dkdv_piece_table`);
+a split block's pieces run on different CTAs and meet in the launch, their
+fp32 partials summed in piece order through the stream's workspace
+(:func:`dkdv_workspace`). Tables keyed on a head dim key on its instance
+(``_build.kernel_head_dim``). The tables are built on the host, so the CPU
+tests check them although the kernels cannot run there.
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ __all__ = ["sink_flash_attention", "sink_flash_attention_with_lse",
            "attention_backward", "flash_fwd_kernel", "flash_fwd_plain",
            "flash_dq_kernel", "flash_dkdv_kernel", "flash_bwd_plain",
            "fwd_kv_ranges", "dq_block_order", "dkdv_q_ranges",
-           "dkdv_block_order"]
+           "dkdv_block_order", "dkdv_piece_cap", "dkdv_pieces",
+           "dkdv_piece_table"]
 
 FWD_BM = 128  # the forward kernels' query rows per item (csrc/hopper.cuh)
 # their keys per KV tile by instance head dim (FwdPlan there; a head dim's
@@ -85,6 +90,10 @@ DQ_BN = {64: 128, 128: 64, 256: 32, 512: 32, _build.WIDE_INSTANCE: 32}
 DKDV_BM = 64   # the dK/dV kernel's query rows per tile (csrc/hopper_bwd.cuh)
 # its keys per work item by instance head dim (dkdv_bn there)
 DKDV_BNS = {64: 128, 128: 128, 256: 64, 512: 64, _build.WIDE_INSTANCE: 64}
+# The least cap of a dK/dV piece, in q blocks (dkdv_piece_cap), and the
+# ints of a row of the piece table (csrc/hopper_bwd.cuh's PIECE_INTS)
+DKDV_PIECE_FLOOR = 4
+DKDV_PIECE_INTS = 8
 # Past the last query position a window is unbounded; clamp it there so the
 # kernel's int32 position arithmetic cannot overflow.
 _WINDOW_CLAMP = 1 << 30
@@ -202,13 +211,124 @@ def dkdv_block_order(n_q: int, n_kv: int, num_sink: int, window: int,
                      q_offset: int, kv_offset: int, bm: int,
                      bn: int) -> np.ndarray:
     """int32 [ceil(n_kv / bn)]: the KV blocks of :func:`dkdv_q_ranges`,
-    longest query-block range first (ties in block order): the order in
-    which the dK/dV kernel's persistent CTAs take them, so the long sink
-    and early full-layer blocks do not set the tail."""
+    longest query-block range first (ties in block order): the order of
+    :func:`dkdv_piece_table`'s ties. Longest first alone cannot keep a
+    block whose range is longer than a CTA's share of the call (a sink
+    block beside a short window) from setting the call's time: the piece
+    table cuts it."""
     table = dkdv_q_ranges(n_q, n_kv, num_sink, window, q_offset, kv_offset,
                           bm, bn)
     return np.argsort(table[:, 0] - table[:, 1], kind="stable").astype(
         np.int32)
+
+
+def dkdv_piece_cap(bn: int, window: int, bm: int = DKDV_BM) -> int:
+    """The most q blocks of ``bm`` rows a dK/dV piece takes: the longest
+    range that a key block of ``bn`` keys without sink columns can have at
+    any offset (its first column's q block to the last whose window
+    reaches its last column), and no less than ``DKDV_PIECE_FLOOR`` (4:
+    measured against 8 on gpt-oss-20b's W = 128 layer with 4 sinks, 12%
+    faster, the other rows within spread; half this cap was 10-35% slower,
+    the merges of more pieces). Only a block that holds sink columns can
+    be longer; at a window as long as the sequence no block is."""
+    return max(DKDV_PIECE_FLOOR, _cdiv(bn + window - 1, bm) + 1)
+
+
+def dkdv_pieces(qb0: torch.Tensor, qb1: torch.Tensor, order: torch.Tensor,
+                cap: int, most: int) -> torch.Tensor:
+    """The dK/dV kernel's piece table, int32 [1 + U * most, 8], built with
+    tensor ops on the inputs' device (no synchronisation).
+
+    ``qb0``, ``qb1`` [U]: each work unit's (key block's) half-open range
+    of q blocks; ``order`` [U]: the units, longest range first; ``most``:
+    at least the pieces of the longest unit (ceil(n_q_blocks / cap)). A
+    unit whose range is longer than ``cap`` is cut into np = ceil(n /
+    cap) pieces of consecutive q blocks (the first n % np one longer);
+    any other is one piece. Row 0 is (pieces, partial slots, 0, ...); then
+    one row a piece: the split units' pieces first, then the others, each
+    longest first (ties in ``order``, then piece index): (unit, q0, q1,
+    np, piece index, first slot of its unit, 0, 0). A split unit's last
+    piece merges the partials, so its pieces start in the first round and
+    the merge overlaps the other units' work. The pieces of a split unit
+    take np consecutive slots of the workspace's partials; an unsplit unit
+    takes none. Rows past the count are padding."""
+    dev = qb0.device
+    u = order.long()
+    n = (qb1.long() - qb0.long())[u].clamp(min=0)
+    n_p = torch.where(n > cap, torch.div(n + cap - 1, cap,
+                                         rounding_mode="floor"), 1)
+    base = torch.div(n, n_p, rounding_mode="floor")
+    extra = n - base * n_p
+    i = torch.arange(most, device=dev)[None]
+    length = base[:, None] + (i < extra[:, None]).long()
+    start = qb0.long()[u][:, None] + i * base[:, None] + torch.minimum(
+        i, extra[:, None])
+    slots = torch.where(n_p > 1, n_p, 0)
+    first = torch.cumsum(slots, 0) - slots
+    valid = i < n_p[:, None]
+    key = torch.where(valid, length + (cap + 1) * (n_p[:, None] > 1),
+                      -1).flatten()
+    rank = torch.argsort(-key, stable=True)
+    cols = [u[:, None].expand(-1, most), start, start + length,
+            n_p[:, None].expand(-1, most), i.expand(len(u), -1),
+            first[:, None].expand(-1, most)]
+    rows = torch.stack([c.flatten() for c in cols], dim=-1)[rank]
+    table = torch.zeros(1 + rows.shape[0], DKDV_PIECE_INTS,
+                        dtype=torch.int32, device=dev)
+    table[1:, :6] = rows.int()
+    table[0, 0] = valid.sum()
+    table[0, 1] = slots.sum()
+    return table
+
+
+@functools.lru_cache(maxsize=256)
+def _dkdv_piece_table_cached(n_q, n_kv, num_sink, window, q_offset,
+                             kv_offset, bm, bn):
+    key = (n_q, n_kv, num_sink, window, q_offset, kv_offset, bm, bn)
+    ranges = torch.from_numpy(np.array(dkdv_q_ranges(*key)))
+    cap = dkdv_piece_cap(bn, window, bm)
+    table = dkdv_pieces(ranges[:, 0], ranges[:, 1],
+                        torch.from_numpy(dkdv_block_order(*key)), cap,
+                        max(1, _cdiv(_cdiv(n_q, bm), cap)))
+    table = table[:1 + int(table[0, 0])].numpy()
+    table.setflags(write=False)
+    return table
+
+
+def dkdv_piece_table(n_q: int, n_kv: int, num_sink: int, window: int,
+                     q_offset: int, kv_offset: int, bm: int,
+                     bn: int) -> np.ndarray:
+    """int32 [1 + pieces, 8]: :func:`dkdv_pieces` of the key blocks of
+    :func:`dkdv_q_ranges` in the order of :func:`dkdv_block_order`, at
+    the cap of :func:`dkdv_piece_cap`, cut to its pieces: the table the
+    dK/dV kernel's persistent CTAs walk, in a snake (a key block that
+    holds sink columns is read by every later q block; cut, its pieces
+    spread over the card instead of one CTA setting the call's time)."""
+    return _dkdv_piece_table_cached(int(n_q), int(n_kv), int(num_sink),
+                                    int(window), int(q_offset),
+                                    int(kv_offset), int(bm), int(bn))
+
+
+@functools.lru_cache(maxsize=None)
+def _dkdv_partial_sizes(d_pad: int):
+    """(floats of a partial row, counters of a pair) at padded head dim
+    ``d_pad``: a partial row holds every dK and dV accumulator of an item
+    (2 x keys x columns, the wide instance's columns whole 512-column
+    slices), a pair one counter per merged result (4, or 4 a slice)."""
+    d_i = _build.kernel_head_dim(d_pad)
+    slices = _cdiv(d_pad, 512) if d_i == _build.WIDE_INSTANCE else 1
+    cols = 512 * slices if d_i == _build.WIDE_INSTANCE else d_i
+    return 2 * DKDV_BNS[d_i] * cols, 4 * slices
+
+
+def dkdv_workspace(device, stream: int, n_rows: int, n_pairs: int,
+                   d_pad: int):
+    """The dK/dV kernel's workspace pointers on ``stream`` (the stream's
+    ``_build.workspace``) for ``n_rows`` partial rows (slots x work units a
+    piece) and ``n_pairs`` (key block, batch x KV head) pairs at padded
+    head dim ``d_pad``."""
+    row, per_pair = _dkdv_partial_sizes(d_pad)
+    return _build.workspace(device, stream, n_rows * row, n_pairs * per_pair)
 
 
 def _visible(n_q, n_kv, num_sink, window, q_offset, kv_offset, device):
@@ -338,13 +458,22 @@ def _bwd_fns():
         raise RuntimeError("csrc/flash_bwd.cu and ops/flash.py disagree on "
                            "the tile sizes")
     return (load_fn("flash_bwd", "sink_dq", 9, 11),
-            load_fn("flash_bwd", "sink_dkdv", 10, 11))
+            load_fn("flash_bwd", "sink_dkdv", 11, 12))
 
 
 @functools.lru_cache(maxsize=256)
 def _table_on(table_fn, device, *key) -> torch.Tensor:
     """The host table ``table_fn(*key)`` on ``device``, copied there once."""
     return torch.from_numpy(np.array(table_fn(*key))).to(device)
+
+
+@functools.lru_cache(maxsize=256)
+def _pieces_on(device, *key):
+    """(:func:`dkdv_piece_table` of ``key`` on ``device``, copied there
+    once; its pieces; its partial slots)."""
+    table = dkdv_piece_table(*key)
+    return (torch.from_numpy(np.array(table)).to(device), int(table[0, 0]),
+            int(table[0, 1]))
 
 
 def _geometry(q, k, v, num_sink, window_size, q_offset, kv_offset):
@@ -470,19 +599,25 @@ def flash_dkdv_kernel(q, k, v, do, lse, delta, num_sink: int = 4,
     dtype, summed over each GQA group inside the kernel, bitwise
     repeatable. Inputs as :func:`flash_dq_kernel`'s.
     ``flash_dkdv_kernel.launches`` counts the launches. A warmed call (its
-    tables already on the card) synchronises nothing."""
+    tables already on the card) synchronises nothing. The key blocks'
+    pieces (:func:`dkdv_piece_table`) run spread over the card; a split
+    block's pieces meet through the stream's workspace inside the launch,
+    summed in piece order."""
     ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
     dims, geom = _geometry(q, k, v, num_sink, window_size, q_offset,
                            kv_offset)
-    D = dims[5]
-    key = (dims[3], dims[4], *geom, DKDV_BM,
-           DKDV_BNS[_build.kernel_head_dim(d_pad)])
-    ranges = _table_on(dkdv_q_ranges, q.device, *key)
-    order = _table_on(dkdv_block_order, q.device, *key)
+    B, _, H_kv, _, N_kv, D = dims
+    bn = DKDV_BNS[_build.kernel_head_dim(d_pad)]
+    key = (dims[3], N_kv, *geom, DKDV_BM, bn)
+    pieces, n_pieces, n_slots = _pieces_on(q.device, *key)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = dkdv_workspace(q.device, stream, n_slots * B * H_kv,
+                                    _cdiv(N_kv, bn) * B * H_kv, d_pad)
     dk, dv = kernel_out(k, k.shape, d_pad), kernel_out(v, v.shape, d_pad)
-    ptrs = [_build.ptr(t) for t in (*ops, ranges, order, dk, dv)]
-    err = _bwd_fns()[1](*ptrs, *dims[:5], d_pad, *geom, code,
-                        1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    ptrs = [_build.ptr(t) for t in (*ops, pieces)]
+    err = _bwd_fns()[1](*ptrs, part, counters, _build.ptr(dk), _build.ptr(dv),
+                        *dims[:5], d_pad, n_pieces, *geom, code,
+                        1.0 / (D ** 0.5), stream)
     _build.check(err, "sink_dkdv")
     _build.note_launch(flash_dkdv_kernel, D, q.dtype, d_pad != D,
                        _build.instance_of("flash_bwd", "sink_dkdv_instance",

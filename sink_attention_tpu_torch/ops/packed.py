@@ -54,15 +54,16 @@ import torch
 
 from . import _build
 from .flash import (DKDV_BM, DKDV_BNS, DQ_BM, DQ_BN, FWD_BM, FWD_BNS,
-                    _WINDOW_CLAMP, _bwd_operands, attention_backward,
-                    bwd_plain_chunks, fwd_plain_chunks, kernel_out, load_fn,
+                    _WINDOW_CLAMP, _bwd_operands, _cdiv, attention_backward,
+                    bwd_plain_chunks, dkdv_piece_cap, dkdv_pieces,
+                    dkdv_workspace, fwd_plain_chunks, kernel_out, load_fn,
                     tiles_differ, unpad)
 from .reference import packed_rows_mask
 
 __all__ = ["sink_flash_attention_packed", "packed_tables", "PackedTables",
            "packed_fwd_plain", "packed_bwd_plain", "packed_fwd_kernel",
            "packed_dq_kernel", "packed_dkdv_kernel", "pack_lengths",
-           "pack_positions"]
+           "pack_positions", "packed_dkdv_slots"]
 
 
 def pack_lengths(n: int, lo: int, hi: int, seed: int):
@@ -106,8 +107,12 @@ class PackedTables(NamedTuple):
       slots (dK/dV, tiles ``DKDV_BM`` x bn), the half-open range of 64-row
       q blocks that read it;
     * ``kv_order`` [B * ceil(N/bn)]: the (batch row, KV block) units
-      ``b * ceil(N/bn) + block``, longest range first (ties in unit order):
-      the order the dK/dV kernel's persistent CTAs take them in;
+      ``b * ceil(N/bn) + block``, longest range first (ties in unit order);
+    * ``kv_pieces`` [1 + B * ceil(N/bn) * m, 8]: ``ops.flash.dkdv_pieces``
+      of those units in that order: each range cut into pieces of at most
+      ``dkdv_piece_cap`` q blocks, the split units' pieces first, row 0
+      their count (m the pieces of the longest possible range): the table
+      the dK/dV kernel's persistent CTAs walk;
     * ``reach`` [B, N]: per key j, the end of the rows that see it: key j
       is visible to exactly the rows [j, reach[j]) (dK/dV's per-key mask).
     """
@@ -119,6 +124,7 @@ class PackedTables(NamedTuple):
     kv: torch.Tensor
     kv_order: torch.Tensor
     reach: torch.Tensor
+    kv_pieces: torch.Tensor
 
 
 def _cdiv_t(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -177,7 +183,11 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     c0's on (causal) up to cdiv(max_j reach(j), 64), where reach(j) is the
     end of j's segment for a sink column (positions[j] < num_sink), else
     min(that end, j + window). Tokens before the pack's first reset end at
-    that reset.
+    that reset. A block holding a segment's sink columns is read up to its
+    segment's end, so its range is cut into pieces (``kv_pieces``) no
+    longer than any block without sinks can be (``dkdv_piece_cap``), which
+    the kernel spreads over the card and merges in the launch; the count,
+    the slots and the order are computed here, on the card.
 
     So a full layer (window >= N) of a pack of segments of lengths L_k
     costs about sum(L_k^2) / 2 pairs, not N^2 / 2.
@@ -208,10 +218,36 @@ def packed_tables(positions: torch.Tensor, num_sink: int, window: int,
     qb1 = torch.maximum(_cdiv_t(block_reach, DKDV_BM).clamp(max=n_q_blocks),
                         qb0)
     kvtab = torch.stack([qb0, qb1], dim=-1)
+    kv_order = _longest_first(qb1 - qb0)
+    cap = dkdv_piece_cap(kbn, window)
+    pieces = dkdv_pieces(qb0.flatten(), qb1.flatten(), kv_order, cap,
+                         max(1, _cdiv(n_q_blocks, cap)))
     return PackedTables(*(t.int().contiguous() for t in (
         seg, fwdtab, _longest_first(_n_blocks(fwdtab)), dqtab,
-        _longest_first(_n_blocks(dqtab)), kvtab, _longest_first(qb1 - qb0),
-        reach)))
+        _longest_first(_n_blocks(dqtab)), kvtab, kv_order, reach, pieces)))
+
+
+@functools.lru_cache(maxsize=256)
+def packed_dkdv_slots(B: int, N: int, num_sink: int, window: int,
+                      head_dim: int) -> int:
+    """An upper bound, from the shapes alone, on the partial slots that
+    the split key blocks of :func:`packed_tables`' ``kv_pieces`` take
+    (the workspace is sized by it: the pieces are counted on the card).
+
+    Only a block holding some segment's sink column can be longer than
+    the cap C (q blocks); its range is at most cdiv(L + bn - 1, 64) for
+    that segment's in-pack length L, so L >= 64 C - bn + 2 and a row holds
+    at most m = N // (64 C - bn + 2) such segments; each segment's sinks
+    touch at most cdiv(num_sink - 1, bn) + 1 blocks; and a block of range
+    n > C takes ceil(n / C) < 2 n / C slots. Summed over the segments of
+    a row: < 2 (cdiv(num_sink - 1, bn) + 1) (N + m (bn + 62)) / (64 C)."""
+    bn = DKDV_BNS[_build.kernel_head_dim(head_dim)]
+    cap = dkdv_piece_cap(bn, window)
+    if num_sink <= 0 or cap >= _cdiv(N, DKDV_BM):
+        return 0
+    blocks = _cdiv(num_sink - 1, bn) + 1
+    m = N // (DKDV_BM * cap - bn + 2)
+    return B * (2 * blocks * (N + m * (bn + 62)) // (DKDV_BM * cap) + 1)
 
 
 # (weakref to the positions tensor, its version, device, num_sink, window,
@@ -270,7 +306,7 @@ def _kernel_fns():
                            "tile sizes")
     return (load_fn("packed", "sink_pfwd", 9, 8),
             load_fn("packed", "sink_pdq", 10, 8),
-            load_fn("packed", "sink_pdkdv", 11, 8))
+            load_fn("packed", "sink_pdkdv", 12, 9))
 
 
 def _geometry(q, k, v, positions, num_sink, window_size):
@@ -357,17 +393,23 @@ def packed_dkdv_kernel(q, k, v, do, lse, delta, positions,
     of ``csrc/hopper_bwd.cuh``): (dk, dv) [B,H_kv,N,D] in k's dtype,
     summed over each GQA group inside the kernel, bitwise repeatable.
     Inputs as :func:`packed_dq_kernel`'s. ``packed_dkdv_kernel.launches``
-    counts the launches. A warmed call (the positions' tables already
-    built) synchronises nothing."""
+    counts the launches. No call synchronises: the key blocks' pieces are
+    counted on the card, and the workspace sized by
+    :func:`packed_dkdv_slots`."""
     ops, code, d_pad = _bwd_operands(q, k, v, do, lse, delta)
     B, H_q, H_kv, N, D, ns, W = _geometry(q, k, v, positions, num_sink,
                                           window_size)
     tables = _tables_for(positions, q.device, ns, W, D)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, counters = dkdv_workspace(
+        q.device, stream, packed_dkdv_slots(B, N, ns, W, d_pad) * H_kv,
+        tables.kv.shape[1] * B * H_kv, d_pad)
     dk, dv = kernel_out(k, k.shape, d_pad), kernel_out(v, v.shape, d_pad)
-    ptrs = [_build.ptr(t) for t in (*ops, tables.kv, tables.kv_order,
-                                    tables.reach, dk, dv)]
-    err = _kernel_fns()[2](*ptrs, B, H_q, H_kv, N, d_pad, ns, W, code,
-                           1.0 / (D ** 0.5), _build.stream_ptr(q.device))
+    ptrs = [_build.ptr(t) for t in (*ops, tables.kv_pieces, tables.reach)]
+    err = _kernel_fns()[2](*ptrs, part, counters, _build.ptr(dk),
+                           _build.ptr(dv), B, H_q, H_kv, N, d_pad,
+                           tables.kv_pieces.shape[0] - 1, ns, W, code,
+                           1.0 / (D ** 0.5), stream)
     _build.check(err, "sink_pdkdv")
     _build.note_launch(packed_dkdv_kernel, D, q.dtype, d_pad != D,
                        _build.instance_of("packed", "sink_pdkdv_instance",

@@ -33,7 +33,12 @@ slots (bf16, int8, fp8) and at B = 1 over a 32768-slot bf16 cache (D =
 256); the other kernels also at phase 14's Gemma-2-2B shapes (D = 256:
 a sliding W=4096 and a full layer, Gemma 3's local W=1024 with and
 without 4 sinks and ``s_aux``, the packs at W=4096 and 1024) and at one
-of phase 15's (D = 512). The decode rows also carry SDPA's time over the same
+of phase 15's (D = 512); dK/dV also at sink tokens beside a short window,
+each row beside its no-sink twin (the library's defaults, 4 sinks at
+W=512, at the headline geometry; gpt-oss-20b's W=128 layer with 4 sinks;
+D=384 at W=4096 with 4 sinks; a Gemma 3 local pack of 6144 + 2048), each
+dK/dV row with its piece count (``pieces``, where the checkout cuts key
+blocks into pieces). The decode rows also carry SDPA's time over the same
 (dequantized) cache with the live mask (``library_ms``, PyTorch's default
 backend) and the least time the card could take (``bound_ms``: the live
 K/V bytes at 3.35 TB/s, or the products at the peak rate of their type if
@@ -97,11 +102,12 @@ PADDED = ((72, 80), (88, 96))
 
 
 def measured(label: str) -> bool:
-    """Rows that get a bound and SDPA's time: the narrow instances' shapes
-    and the 256 instance's Gemma shapes, unpacked and packed."""
+    """Rows that get a bound and SDPA's time: the narrow instances' shapes,
+    the 256 instance's Gemma shapes, unpacked and packed, and the dK/dV
+    sink rows beside their no-sink twins (the "pair" rows)."""
     label = label.removeprefix("packed ")
-    return label.startswith(NARROW_LABELS) or (label.startswith("gemma")
-                                               and "D=256" in label)
+    return label.startswith(NARROW_LABELS + ("pair",)) or (
+        label.startswith("gemma") and "D=256" in label)
 # the forward: (label, B, H_q, H_kv, N, D, num_sink, window, dtype)
 FORWARD = [
     ("prefill W=128", 4, 64, 8, 1024, 64, 0, 128, "bf16"),
@@ -140,6 +146,18 @@ UNPACKED = [
     ("phi3 W=2048 4 sinks D=96", 1, 32, 32, 4096, 96, 4, 2048, 0, "bf16"),
     *[(f"phi3 N=2048 W=2048 D={d}", 1, 32, 32, 2048, d, 4, 2048, 0, "bf16")
       for d in (72, 88)],
+    # the pair rows: sink tokens beside a short window (the sink key block
+    # cut into pieces), each with its no-sink twin: the library's defaults
+    # (4 sinks, W=512) at the headline geometry, gpt-oss-20b's sliding
+    # layer with 4 sinks, and the 512 instance's D=384 row with 4 sinks
+    *[(f"pair {name}{' 4 sinks' if ns else ''} D={d}", 1, h_q, h_kv, n, d,
+       ns, w, 0, "bf16")
+      for name, h_q, h_kv, n, d, w in (("defaults W=512", 32, 8, 8192, 128,
+                                        512),
+                                       ("gpt-oss W=128", 64, 8, 4096, 64,
+                                        128),
+                                       ("W=4096", 8, 4, 8192, 384, 4096))
+      for ns in (4, 0)],
 ]
 # the decode over a SinkKVCache: (label, B, H_q, H_kv, D, num_sink, window,
 # prefill length, appends, storage: a dtype's name, or "int8" / "fp8"
@@ -191,6 +209,10 @@ PACKED = [
     ("packed gemma 2 x 4096 D=512", 1, 8, 4, 512, 0, 4096, [4096, 4096], 0),
     *[(f"packed danube 2 x 4096 D={d}", 1, 32, 8, d, 0, 4096, [4096, 4096],
        0) for d in (80, 96)],
+    # Gemma 3's local layer over a pack of 6144 + 2048 with 4 sinks and
+    # without (the packed kernel's pair)
+    *[(f"packed gemma 6144 + 2048 W=1024{' 4 sinks' if ns else ''} D=256",
+       1, 8, 4, 256, ns, 1024, [6144, 2048], 0) for ns in (4, 0)],
     ("packed phi3 2 x 2048 W=2048 4 sinks D=96", 1, 32, 32, 96, 4, 2048,
      [2048, 2048], 0),
 ]
@@ -316,6 +338,12 @@ def worker(kernels, packs) -> dict:
         timed(label, {"flash_dq_kernel": lambda: flash.flash_dq_kernel(*args),
                       "flash_dkdv_kernel": lambda: flash.flash_dkdv_kernel(
                           *args)})
+        row = out.get(f"{label} flash_dkdv_kernel")
+        if row is not None and hasattr(flash, "dkdv_piece_table"):
+            # the key blocks' pieces (a checkout that cuts them)
+            bn = flash.DKDV_BNS[_build.kernel_head_dim(D)]
+            row["pieces"] = int(flash.dkdv_piece_table(
+                N, N + halo, *geom, flash.DKDV_BM, bn)[0, 0])
         if measured(label) and halo == 0:
             # the bounds (dQ 6 D FLOPs a visible pair, dK/dV 8 D; or the
             # bytes each reads and writes once) beside SDPA's whole
@@ -380,6 +408,10 @@ def worker(kernels, packs) -> dict:
                 q, k, v, positions, aux, ns, W),
             "packed_dq_kernel": lambda: packed.packed_dq_kernel(*args),
             "packed_dkdv_kernel": lambda: packed.packed_dkdv_kernel(*args)})
+        row = out.get(f"{label} packed_dkdv_kernel")
+        tables = packed.packed_tables(positions, ns, W, D)
+        if row is not None and hasattr(tables, "kv_pieces"):
+            row["pieces"] = int(tables.kv_pieces[0, 0])
         if measured(label):
             # the bounds over the pack's own mask (4 D, 6 D, 8 D FLOPs a
             # visible pair; or the bytes) beside SDPA's forward and whole
@@ -672,6 +704,9 @@ def main(argv=None) -> int:
             extra = (f" {mean['library_ms']:8.4f} {mean['bound_ms']:8.4f}"
                      f" {mean['share']['other']:6.3f} "
                      f"{mean['share']['this']:6.3f}")
+        if "pieces" in runs[1][1][label]:  # this checkout's dK/dV pieces
+            mean["pieces"] = runs[1][1][label]["pieces"]
+            extra += f" pieces {mean['pieces']}"
         table[label] = mean
         print(f"{label:52s} {mean['other']['ms']:10.4f} "
               f"{mean['this']['ms']:10.4f} "

@@ -221,3 +221,103 @@ def test_dkdv_q_range_table_within_jax_schedule(geom, tiles):
         jax_blocks = set(np.asarray(q_block)[np.asarray(valid)].tolist())
         assert set(range(b0, b1)) <= jax_blocks, (ni, table[ni],
                                                   sorted(jax_blocks))
+
+
+def check_pieces(table, ranges, order, cap):
+    """The invariants of a dK/dV piece table (``ops.flash.dkdv_pieces``)
+    over the units' q-block ranges [U, 2] and their order: each unit's
+    pieces are consecutive, disjoint and cover exactly its range; no piece
+    is longer than ``cap``, and a unit is split (into ceil(n / cap)
+    pieces) only if its range is longer; the rows list every piece once,
+    the split units' pieces first, each group longest first, ties in
+    ``order`` and then piece index; the split units' pieces take the
+    partial slots 0 .. slots - 1 once each. Returns the piece rows."""
+    table, ranges = np.asarray(table), np.asarray(ranges)
+    count, n_slots = table[0, :2]
+    rows = table[1:1 + count]
+    lengths = rows[:, 2] - rows[:, 1]
+    assert (lengths <= cap).all(), (lengths.max(), cap)
+    rank = {u: i for i, u in enumerate(np.asarray(order).tolist())}
+    keys = [(-int(n > 1), -l, rank[u], p) for l, u, n, p in zip(
+        lengths, rows[:, 0], rows[:, 3], rows[:, 4])]
+    assert keys == sorted(keys)
+    slots = []
+    for u, (b0, b1) in enumerate(ranges.tolist()):
+        mine = rows[rows[:, 0] == u]
+        mine = mine[np.argsort(mine[:, 4])]
+        n_p = 1 if b1 - b0 <= cap else -(-(b1 - b0) // cap)
+        assert len(mine) == n_p and (mine[:, 3] == n_p).all(), (u, mine)
+        assert mine[:, 4].tolist() == list(range(n_p))
+        assert mine[0, 1] == b0 and mine[-1, 2] == b1, (u, mine)
+        assert (mine[1:, 1] == mine[:-1, 2]).all(), (u, mine)
+        if n_p > 1:
+            assert (mine[:, 5] == mine[0, 5]).all()
+            slots += range(mine[0, 5], mine[0, 5] + n_p)
+    assert sorted(slots) == list(range(n_slots))
+    return rows
+
+
+# geometries whose sink block is longer than the cap (4-8 q blocks of 64
+# rows at these windows): the model rows' shapes cut down, a chunk
+# at a q offset, a halo before the sequence, 70 sinks over two key blocks
+DKDV_SPLIT_GEOMS = [
+    (1024, 1024, 4, 128, 0, 0),
+    (1500, 1300, 16, 96, 200, 0),
+    (1200, 1456, 4, 128, 0, -256),
+    (2048, 2048, 70, 1, 0, 0),
+]
+
+
+@pytest.mark.parametrize("tiles", DKDV_TILES)
+@pytest.mark.parametrize("geom", DKDV_GEOMS + DKDV_SPLIT_GEOMS)
+def test_dkdv_piece_table_cuts_each_range(geom, tiles):
+    """The piece table the dK/dV kernel walks cuts each key block's
+    ``dkdv_q_ranges`` range into consecutive pieces of at most the cap
+    (only the blocks longer than it), lists every piece once, longest
+    first, and every piece's q blocks lie inside the set that the JAX
+    package's ``_dkdv_q_step`` marks valid for its block."""
+    n_q, n_kv, ns, W, qo, ko = geom
+    bm, bn = tiles
+    key = (n_q, n_kv, ns, W, qo, ko, bm, bn)
+    cap = tflash.dkdv_piece_cap(bn, W, bm)
+    ranges = tflash.dkdv_q_ranges(*key)
+    rows = check_pieces(tflash.dkdv_piece_table(*key), ranges,
+                        tflash.dkdv_block_order(*key), cap)
+    n_q_blocks = -(-n_q // bm)
+    steps = np.arange(n_q_blocks)
+    for u, q0, q1 in rows[:, :3].tolist():
+        q_block, valid = j_dkdv_q_step(
+            u, steps, qo, ko, bm=bm, bn=bn, num_sink=ns, window=W,
+            n_kv=n_kv, n_q_blocks=n_q_blocks, sink_pass=None)
+        jax_blocks = set(np.asarray(q_block)[np.asarray(valid)].tolist())
+        assert set(range(q0, q1)) <= jax_blocks, (u, q0, q1)
+    if ns == 0:  # no sink column: no block is longer than the cap
+        assert (rows[:, 3] == 1).all()
+
+
+@pytest.mark.parametrize("row", [
+    # (n, window, head dim, pieces, pieces of block 0), by hand from
+    # dkdv_piece_cap = max(4, ceil((bn + W - 1) / 64) + 1), 4 sinks:
+    # Gemma 3's local layer (D = 256: 64-key blocks), cap ceil(1087 / 64)
+    # + 1 = 18: block 0's 128 q blocks in ceil(128 / 18) = 8 pieces of 16,
+    # the other 127 blocks whole: 135
+    (8192, 1024, 256, 135, 8),
+    # the library's defaults at the headline (D = 128: 128-key blocks), cap
+    # ceil(639 / 64) + 1 = 11: 128 q blocks in 12 pieces (8 of 11, 4 of
+    # 10), 63 others: 75
+    (8192, 512, 128, 75, 12),
+    # gpt-oss's sliding layer (D = 64), cap ceil(255 / 64) + 1 = 5: 64 q
+    # blocks in 13 pieces (12 of 5, 1 of 4), 31 others: 44
+    (4096, 128, 64, 44, 13),
+    # the headline's W = 4096, cap ceil(4223 / 64) + 1 = 67: 128 q blocks in
+    # 2 pieces of 64, 63 others: 65
+    (8192, 4096, 128, 65, 2),
+])
+def test_dkdv_piece_counts_of_the_model_rows(row):
+    n, W, d, count, first = row
+    bn = tflash.DKDV_BNS[d]
+    table = tflash.dkdv_piece_table(n, n, 4, W, 0, 0, tflash.DKDV_BM, bn)
+    rows = table[1:]
+    assert table[0, 0] == count == len(rows)
+    assert (rows[:, 0] == 0).sum() == first == table[0, 1]
+    assert (rows[rows[:, 0] != 0, 3] == 1).all()

@@ -213,6 +213,24 @@ BWD_CASES = [
     (1, 16, 1, 1000, 1000, 640, 4, 256, True, 0, 0),   # group 16, D=640
     (1, 8, 2, 250, 300, 1024, 4, 128, True, 50, 0),    # N_q = 250 chunk
     (1, 4, 4, 300, 556, 1024, 0, 128, True, 0, -256),  # halo, group 1
+    # the sink key block cut into pieces (dkdv_piece_table: at most 4-5 q
+    # blocks a piece at W <= 128), merged in the launch in piece order, at
+    # every instance; an optional last field is the inputs' dtype
+    (1, 8, 8, 1024, 1024, 64, 4, 128, True, 0, 0),     # group 1: 4 pieces
+    (1, 16, 1, 1536, 1536, 80, 4, 128, True, 0, 0),    # group 16: 5 pieces
+    (2, 8, 2, 2048, 2048, 128, 4, 64, True, 0, 0),     # B = 2: 8 pieces
+    (1, 8, 2, 1024, 1280, 64, 4, 128, False, 0, -256),  # halo: 4 pieces
+    (1, 4, 2, 1024, 1024, 96, 4, 128, True, 0, 0,
+     torch.float32),                                   # fp32: 4 pieces
+    (1, 16, 1, 1024, 1024, 256, 4, 128, True, 0, 0),   # group 16: 4 pieces
+    (1, 8, 2, 1024, 1024, 256, 4, 128, True, 0, 0,
+     torch.float32),                                   # fp32: 4 pieces
+    (1, 8, 2, 1536, 1536, 512, 4, 128, True, 0, 0),    # 6 pieces
+    (1, 4, 4, 1024, 1024, 512, 4, 128, True, 0, 0,
+     torch.float32),                                   # fp32: 4 pieces
+    (1, 8, 2, 1024, 1024, 640, 4, 128, True, 0, 0),    # 4 pieces, 2 slices
+    (1, 4, 4, 1024, 1024, 1024, 4, 128, True, 0, 0,
+     torch.float32),                                   # fp32: 4 pieces
 ]
 
 
@@ -222,12 +240,11 @@ def test_backward_kernels_match_plain(cuda, cfg):
     (bf16 outputs: 2e-2 of the largest plain value), bitwise equal on a
     second run (no atomics), and autograd through sink_flash_attention
     launching the forward and both backward kernels once each."""
-    B, H_q, H_kv, N_q, N_kv, D, ns, W, use_aux, qo, ko = cfg
+    B, H_q, H_kv, N_q, N_kv, D, ns, W, use_aux, qo, ko, *dt = cfg
     gen = torch.Generator(device=cuda).manual_seed(2)
-    q = _randn(gen, B, H_q, N_q, D)
-    k = _randn(gen, B, H_kv, N_kv, D)
-    v = _randn(gen, B, H_kv, N_kv, D)
-    do = _randn(gen, B, H_q, N_q, D)
+    q, k, v, do = (_randn(gen, *s).to(*dt) for s in (
+        (B, H_q, N_q, D), (B, H_kv, N_kv, D), (B, H_kv, N_kv, D),
+        (B, H_q, N_q, D)))
     aux = torch.randn(H_q, generator=gen, device=cuda) if use_aux else None
     geom = (ns, W, qo, ko)
     o, lse = flash.flash_fwd_plain(q, k, v, aux, *geom)
@@ -292,6 +309,17 @@ PACKED_CASES = [
     (1, 8, 2, 1000, 200, 4, 128, True, 0, (2, 30, 32, 500, 436)),
     # the narrow 80 instance: group 16, a pack that starts at position 2
     (1, 16, 1, 1000, 80, 4, 128, True, 2, (300, 30, 32, 500, 138)),
+    # a split sink block (at most 4-5 q blocks a piece at W <= 128) in the
+    # second segment, at every instance; in the leading partial segment;
+    # fp32 (the optional last field)
+    (1, 8, 2, 1536, 64, 4, 128, True, 0, (300, 1236)),     # 4 pieces
+    (1, 16, 1, 1024, 80, 4, 128, True, 0, (100, 924)),     # 4 pieces
+    (1, 8, 2, 1024, 128, 4, 64, True, 2, (1022, 2)),       # leading: 4
+    (1, 4, 2, 1024, 128, 4, 128, True, 0, (200, 824),
+     torch.float32),                                       # 3 pieces
+    (1, 16, 1, 1024, 256, 4, 128, True, 0, (200, 824)),    # 4 pieces
+    (1, 4, 2, 1024, 512, 4, 128, True, 0, (200, 824)),     # 4 pieces
+    (1, 4, 2, 1024, 640, 4, 128, True, 0, (200, 824)),     # 4 pieces
 ] + [
     # the forward's 128-row items and 64-row consumer halves: a segment
     # start inside a half, one at an item boundary, a 1-token segment; the
@@ -311,12 +339,12 @@ def test_packed_kernels_match_plain(cuda, cfg):
     bitwise equal on a second run, and autograd through
     sink_flash_attention_packed launching each packed kernel once."""
     from sink_attention_tpu_torch.ops import packed
-    B, H_q, H_kv, N, D, ns, W, use_aux, first, lengths = cfg
+    B, H_q, H_kv, N, D, ns, W, use_aux, first, lengths, *dt = cfg
     gen = torch.Generator(device=cuda).manual_seed(3)
     pos = _segments(N + first, lengths)[first:]
     positions = torch.tensor([pos] * B, device=cuda)
-    q, do = _randn(gen, B, H_q, N, D), _randn(gen, B, H_q, N, D)
-    k, v = _randn(gen, B, H_kv, N, D), _randn(gen, B, H_kv, N, D)
+    q, do = (_randn(gen, B, H_q, N, D).to(*dt) for _ in range(2))
+    k, v = (_randn(gen, B, H_kv, N, D).to(*dt) for _ in range(2))
     aux = torch.randn(H_q, generator=gen, device=cuda) if use_aux else None
     geom = (ns, W)
     o_k, l_k = packed.packed_fwd_kernel(q, k, v, positions, aux, *geom)

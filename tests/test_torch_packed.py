@@ -272,3 +272,72 @@ def test_full_layer_tables_skip_other_segments():
     assert dq_tiles == per_segment_dq
     assert tabs.dq_order[:8].tolist() == list(range(3, 32, 4))
     assert tabs.fwd_order[:8].tolist() == list(range(3, 32, 4))
+
+
+# (seglens, num_sink, window, head dim, pieces, pieces of each split block
+# {unit: pieces}), by hand from dkdv_piece_cap = max(4, ceil((bn + W - 1) /
+# 64) + 1); None where the count is not asserted
+PIECE_CASES = [
+    # Gemma 3's local layer over a pack of 6144 + 2048 (64-key blocks), cap
+    # ceil(1087 / 64) + 1 = 18: segment 1's sink block 0 reads 96 q blocks
+    # (6 pieces of 16), segment 2's block 96 reads 32 (2 of 16), the other
+    # 126 blocks whole: 134
+    ([6144, 2048], 4, 1024, 256, 134, {0: 6, 96: 2}),
+    # a 2-token segment, then 510 and 512 (128-key blocks), cap ceil(255 /
+    # 64) + 1 = 5: block 0 holds segments 1 and 2's sinks and reads q
+    # blocks 0-8 (to token 512), block 4 segment 3's and reads 8-16: 2
+    # pieces each, 6 other blocks whole: 10
+    ([2, 510, 512], 4, 128, 64, 10, {0: 2, 4: 2}),
+    # 32-token segments: every block's range ends within its segments (2 q
+    # blocks): nothing splits
+    ([32] * 32, 4, 128, 64, 8, {}),
+    # segments of 64-3072 (the headline pack), W = 128, D = 128
+    ("mix", 4, 128, 128, None, None),
+]
+
+
+@pytest.mark.parametrize("case", PIECE_CASES)
+def test_packed_piece_table_cuts_each_range(case):
+    """The dK/dV piece table built on the tensors' device from positions
+    (here the CPU): each key block's range of ``kv`` cut into pieces of at
+    most the cap, longest first (``check_pieces``); the split blocks'
+    slots within ``packed_dkdv_slots``, the bound the workspace takes."""
+    from test_torch_flash_backward import check_pieces
+    seglens, ns, W, d, count, split = case
+    if seglens == "mix":
+        seglens = tpacked.pack_lengths(8192, 64, 3072, 1)
+    pos = torch.from_numpy(_positions(seglens))
+    N = pos.shape[1]
+    tabs = tpacked.packed_tables(pos, ns, W, d)
+    bn = tflash.DKDV_BNS[d]
+    cap = tflash.dkdv_piece_cap(bn, W)
+    rows = check_pieces(tabs.kv_pieces.numpy(), tabs.kv[0].numpy(),
+                        tabs.kv_order.numpy(), cap)
+    assert tabs.kv_pieces.shape[0] == 1 + tabs.kv.shape[1] * max(
+        1, -(-(-(-N // tflash.DKDV_BM)) // cap))
+    assert int(tabs.kv_pieces[0, 1]) <= tpacked.packed_dkdv_slots(
+        1, N, ns, W, d)
+    if count is not None:
+        assert len(rows) == count
+        got = {u: int(n) for u, n in zip(rows[:, 0], rows[:, 3]) if n > 1}
+        assert got == split
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_packed_dkdv_slots_bound_the_split_blocks(seed):
+    """``packed_dkdv_slots`` bounds the partial slots the device-built
+    piece table takes, over random packs (segments of 8-2048 tokens,
+    a pack that starts inside a segment) at W = 64-1024, 1-70 sinks and
+    the 64-, 128- and 256-column instances' key blocks."""
+    rng = np.random.default_rng(seed)
+    for _ in range(6):
+        N = int(rng.integers(512, 6000))
+        lens = tpacked.pack_lengths(N, 8, int(rng.integers(64, 2048)),
+                                    int(rng.integers(1 << 16)))
+        first = int(rng.integers(0, 3))
+        pos = torch.from_numpy(_positions(lens, first=first))
+        ns, W = int(rng.integers(1, 71)), int(rng.choice([64, 128, 1024]))
+        for d in (64, 128, 256):
+            tabs = tpacked.packed_tables(pos, ns, W, d)
+            assert int(tabs.kv_pieces[0, 1]) <= tpacked.packed_dkdv_slots(
+                1, N, ns, W, d), (lens, first, ns, W, d)
