@@ -8,7 +8,8 @@
                              # serving from a checkpoint, sequence-parallel
                              # attention, tensor, pipeline and FSDP
                              # parallelism, head dims 80, 256, 512 and
-                             # 1024
+                             # 1024, the accuracy tables, the traces and
+                             # the examples
 
 Phases:
   1. build: compile every CUDA kernel of the port (nvcc, sm_90a) and print
@@ -156,6 +157,15 @@ Phases:
      layers, served in bf16 and over int8 KV, trained in bf16 unpacked and
      packed (see ``xwide_phase``); phase 2 also holds rows 1-7 at its
      shapes and at D = 640 and 2048, the decode in every storage (16a).
+  17. the JAX round's last modules: the six accuracy tables of
+     scripts/numerical_accuracy.py (every kernel of rows 1-7 at every
+     instance against the fp32 oracle, beside its plain version reading
+     its operands as the kernel does; each row within its gate), the
+     profiler trace of scripts/capture_trace.py at the headline (1 / 1 +
+     1 + 1 / 64 launches in its three sections, each section's device ms
+     and idle share) and the examples kernels.py, serve.py (gpt-oss-20b,
+     4 layers, 8 tokens) and train.py (a world of 1) (see
+     ``accuracy_phase``).
 The line before the last is a JSON object of the kernels' numbers; the last
 is {"ok": true, "device": {...}}, printed only when every check passed.
 Without CUDA, or without the port next to it, the script exits nonzero and
@@ -167,6 +177,7 @@ from __future__ import annotations
 import faulthandler
 import json
 import math
+import os
 import re
 import sys
 import time
@@ -3931,13 +3942,19 @@ def _mesh_counters():
             "decode_int8": (decode.decode_kernel, "launches_int8")}
 
 
-def _mesh_launches(reset=False):
+def _read_launches(counters, reset=False):
+    """{name: launches} of ``counters`` (name -> (wrapper, attribute)),
+    each set to 0 after it is read where ``reset``."""
     out = {}
-    for name, (fn, attr) in _mesh_counters().items():
+    for name, (fn, attr) in counters.items():
         out[name] = getattr(fn, attr)
         if reset:
             setattr(fn, attr, 0)
     return out
+
+
+def _mesh_launches(reset=False):
+    return _read_launches(_mesh_counters(), reset)
 
 
 def _serve_reference(cfg, dev, batch, prompt_len, new_tokens, dtype, tmp):
@@ -4799,6 +4816,123 @@ def xwide_phase(device, **kw):
 
 
 # ---------------------------------------------------------------------------
+# Phase 17: the accuracy tables, the profiler traces, the usage examples
+# ---------------------------------------------------------------------------
+
+# each trace section's launches of the kernels capture_trace counts
+TRACE_LAUNCHES = {"prefill_fwd": {"flash_fwd": 1},
+                  "train_fwdbwd": {"flash_fwd": 1, "flash_dq": 1,
+                                   "flash_dkdv": 1},
+                  "decode_scan_64": {"decode": 64}}
+
+
+def _all_counters():
+    """Every launch counter of rows 1-7: name -> (wrapper, attribute)."""
+    from sink_attention_tpu_torch.ops import decode
+    counters = {name: (fn, "launches") for name, fn in _sp_counters().items()}
+    counters.update(decode=(decode.decode_kernel, "launches"),
+                    decode_int8=(decode.decode_kernel, "launches_int8"),
+                    decode_fp8=(decode.decode_kernel, "launches_fp8"))
+    return counters
+
+
+def accuracy_phase(dev):
+    """Phase 17: the JAX round's last modules on the card.
+
+    17a. ``scripts/numerical_accuracy.all_tables``: the six tables, every
+    row within its gate (each largest error at most 2 x its control's, or
+    else every element within the floor from the JAX tests' bound named
+    in the row, applied element by element as those tests apply it; the
+    decode rows ran the design they name); at least two gradient rows and
+    one packed row whose sink key blocks split into pieces. 17b.
+    ``scripts/capture_trace.capture`` at the headline into a temporary
+    directory: the three sections present, their launches (the wrappers'
+    counters) 1 / 1 + 1 + 1 / 64 (TRACE_LAUNCHES) and none of the other
+    counted kernels, each kernel's device events in the trace equal to its
+    launches (a trace that dropped events fails), device time recorded.
+    17c. the examples: ``kernels`` (the prefill within FLASH_TOL of the
+    oracle), ``serve --tokens 8``
+    (gpt-oss-20b, 4 layers at full width: 4 requests of 8 tokens) and
+    ``train`` as a world of 1 (5 finite losses, the last below the
+    first). Returns (report, launches of rows 1-7 in the phase, errors)."""
+    import tempfile
+
+    from sink_attention_tpu_torch.examples import kernels as ex_kernels
+    from sink_attention_tpu_torch.examples import serve as ex_serve
+    from sink_attention_tpu_torch.examples import train as ex_train
+    from sink_attention_tpu_torch.scripts import capture_trace
+    from sink_attention_tpu_torch.scripts import numerical_accuracy as acc
+
+    errors, report = [], {}
+    _read_launches(_all_counters(), reset=True)
+    t0 = time.perf_counter()
+    rows = acc.all_tables(dev)
+    report["tables_s"] = time.perf_counter() - t0
+    for r in rows:
+        if not r["ok"]:
+            errors.append(f"phase 17 {r['table']} {r['config']} "
+                          f"{r['dtype']}: {r['err']} beyond its gate "
+                          f"{r['gate']} and its floor (x{r['floor_ratio']})"
+                          + (f" or ran {r['design']}, not "
+                             f"{r['design_expected']}" if "design" in r
+                             else ""))
+    for table, least in (("grad", 2), ("packed", 1)):
+        split = [r["config"] for r in rows
+                 if r["table"] == table and r["split"] > 1]
+        report[f"{table}_split_rows"] = split
+        if len(split) < least:
+            errors.append(f"phase 17: {len(split)} {table} rows whose sink "
+                          f"key blocks split, not {least} or more")
+    report["rows"] = len(rows)
+    report["missed"] = sum(not r["ok"] for r in rows)
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sink_trace_") as tmp:
+        trace = capture_trace.capture(tmp, dev)
+        report["trace_files"] = [os.path.relpath(f, tmp)
+                                 for f in trace["files"]]
+    report["trace_s"] = time.perf_counter() - t0
+    for name, want in TRACE_LAUNCHES.items():
+        sec = trace["sections"].get(name)
+        if sec is None:
+            errors.append(f"phase 17: the trace has no section {name}")
+            continue
+        report[name] = {k: sec[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "launches",
+            "trace_launches", "top")}
+        if sec["device_ms"] is None:
+            errors.append(f"phase 17: {name} recorded no device time")
+        for kernel, n in sec["launches"].items():
+            events = sec["trace_launches"][kernel]
+            if n != want.get(kernel, 0) or events != n:
+                errors.append(f"phase 17: {name} launched {kernel} {n} "
+                              f"times ({events} in the trace), expected "
+                              f"{want.get(kernel, 0)}")
+
+    t0 = time.perf_counter()
+    where = ["--device", str(dev)]
+    out = ex_kernels.main(where)
+    report["kernels_example"] = out
+    if not out["prefill_err"] <= FLASH_TOL:
+        errors.append(f"phase 17: examples/kernels.py's prefill is "
+                      f"{out['prefill_err']:.3e} from the oracle")
+    served = ex_serve.main(["--tokens", "8", *where])
+    report["serve_example"] = {rid: len(t) for rid, t in served.items()}
+    if sorted(map(len, served.values())) != [8] * 4:
+        errors.append(f"phase 17: examples/serve.py served "
+                      f"{report['serve_example']}, not 4 requests of 8")
+    del served
+    torch.cuda.empty_cache()
+    losses = ex_train.main(where)
+    report["train_example"] = losses
+    if not (len(losses) == 5 and all(map(math.isfinite, losses))
+            and losses[-1] < losses[0]):
+        errors.append(f"phase 17: examples/train.py's losses {losses}")
+    report["examples_s"] = time.perf_counter() - t0
+    return report, _read_launches(_all_counters()), errors
+
+
+# ---------------------------------------------------------------------------
 
 
 # the wgmma kernel instances each source must hold: one per instance head
@@ -5273,7 +5407,24 @@ def main() -> int:
         f"1024, W=4096 on alternate layers; serving 2 x 8176 + 16 new in "
         f"bf16 and over int8 KV; training 1 x 8192 and a pack of 2 x 4096 "
         f"in bf16): {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # 17. the JAX round's last modules: the accuracy tables against the
+    # fp32 oracle, the profiler traces at the headline, the usage examples
+    t0 = time.perf_counter()
+    accreport, acclaunch, accerr = accuracy_phase(dev)
+    errors += accerr
+    log(f"phase 17 (the six accuracy tables against the fp32 oracle, the "
+        f"traces of prefill_fwd, train_fwdbwd and decode_scan_64 at B=1 "
+        f"32/8 D=128 N=8192 W=4096, examples/kernels.py, serve.py and "
+        f"train.py): {time.perf_counter() - t0:.1f} s: "
+        + json.dumps(accreport))
+    for name, n in acclaunch.items():
+        if n == 0:
+            errors.append(f"{name} launched no time in phase 17")
     for row in kernels:
+        if row["name"] in acclaunch:
+            row["launches_phase17"] = acclaunch[row["name"]]
         for phase, rep, num in (("danube", dreport, 13),
                                 ("gemma", greport, 14),
                                 ("wide", wreport, 15),
